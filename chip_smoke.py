@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py                 # every phase, as the chip check runs it
     python3 chip_smoke.py --only kernels --ptxas   # build + kernel checks
+    python3 chip_smoke.py --only kernels,train     # the training slice
 
 Phases, one JSON line each (the whole record also goes to
 build/chip_smoke.json):
 
 1. card: the ``nvidia-smi --query-gpu=name,power.limit`` line.
-2. build: both CUDA kernels compiled from ray_tpu_torch/ops/csrc for
-   sm_90a, with the build seconds.
+2. build: every CUDA kernel compiled from ray_tpu_torch/ops/csrc for
+   sm_90a (one nvcc per source, all started together), with the build
+   seconds.
 3. kernels: each kernel against its plain PyTorch version on the card at
    OPT-1.3B attention shapes (H=32, K=64), page sizes {16, 64}, fp32 and
    bf16, and at head dim 128; the ragged cases (length 1, mid-page, page
@@ -22,6 +24,15 @@ build/chip_smoke.json):
    B=16, 1024-token contexts, page size 64, bf16, beside its bound, its
    plain version's time and F.scaled_dot_product_attention on the
    gathered timeline (a yardstick only: the port never calls it).
+   Then the three flash kernels (flash_fwd, flash_dq, flash_dkv), each
+   against its plain version: fp32 and bf16, head dims 64 and 128,
+   causal and non-causal, S=77/T=130, S=64/T=256, S=T=192, S=1/T=64 and
+   S=130/T=1, the backward with an lse cotangent; then once more on the training step's
+   own inputs ([8, 1024, 12, 64] bf16 causal), where a dropped 64-wide
+   tile planted in the plain dq, dk and dv must fail the bound, then timed
+   beside each kernel's bound, its plain version and SDPA (forward by CUDA
+   events; forward plus backward, against the three kernels, by the
+   profiler's device time).
 4. programs: prefill_chunk_paged and decode_step_paged at full opt_1_3b
    width (bf16, random weights from a seed), attn_impl "kernel" vs
    "gather" on copies of one pool.
@@ -30,7 +41,18 @@ build/chip_smoke.json):
 6. engine: LLMEngine(opt_1_3b, bf16) serving 16 seeded prompts of 128-1536
    tokens through start()/submit(), 32 greedy tokens each, with the
    kernel launch counters zeroed just before and read just after.
-7. the kernels line, then the last line
+7. train: build_training(gpt2_124m(max_seq=1024, remat=True,
+   attn_impl="flash"), adamw(3e-4, weight_decay=0.1, mu_dtype=bf16))
+   with seeded random weights and a seeded [8, 1024] batch: one step of
+   "flash" against "xla" (plain attention) from the same parameters
+   (the loss, the whole gradient and each layer's attention weights'
+   gradients beside their tolerances; three planted faults in the flash
+   backward must fail the same check), then a warm-up step and 12 timed
+   steps with the flash launch counters zeroed just before and read just
+   after (exactly 24 forward, 12 dq and 12 dkv launches per step: remat
+   recomputes each block's forward), step time, tokens/s, MFU, the steps'
+   peak memory and the losses; then torch.profiler over one step.
+8. the kernels line, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Any failure raises: the script exits non-zero without the last line.
@@ -40,6 +62,7 @@ Without a CUDA device it exits 1 at once.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -55,8 +78,11 @@ from torch.profiler import ProfilerActivity, profile
 from ray_tpu_torch.models import gpt
 from ray_tpu_torch.models import paged_kv as pk
 from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops import attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.serve.llm import LLMEngine
+from ray_tpu_torch.train.optim import adamw
+from ray_tpu_torch.train.spmd import build_training
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12            # dense tensor-core bf16
@@ -113,6 +139,21 @@ def cuda_time_ms(fn, iters=30, warmup=3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def device_ms(fn, iters=10) -> float:
+    """Device time of fn's kernels per call, summed from torch.profiler
+    over ``iters`` calls after a warm-up: the host's gaps between the
+    launches do not count."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / iters
+
+
 def bound_ms(nbytes: float, flops: float, peak_flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
@@ -166,7 +207,7 @@ def check_close(name, out, ref, s_abs, dtype, live, long):
         tol = FP32_TOL["atol"] + FP32_TOL["rtol"] * r.abs()
     else:
         tol = BF16_REL * (r.abs() + s)
-    share = err / tol
+    share = torch.where(err == 0, torch.zeros_like(err), err / tol)
     worst = int(err.flatten().argmax())
     res = {"max_abs_err": float(err.max()),
            "bound_at_max_err": float(tol.flatten()[worst]),
@@ -175,6 +216,8 @@ def check_close(name, out, ref, s_abs, dtype, live, long):
     if bool(lg.any()):
         res["long_max_abs_err"] = float(err[lg].max())
         res["long_max_share_of_bound"] = float(share[lg].max())
+        res["long_median_abs_ref"] = float(r[lg].abs().median())
+        res["long_median_bound"] = float(tol[lg].median())
     if res["max_share_of_bound"] > 1.0:
         raise AssertionError(
             f"{name}: kernel disagrees with its plain version: {res}")
@@ -376,6 +419,258 @@ def time_kernels(device, errs):
     return timings
 
 
+# ------------------------------------------------------------ flash kernels
+#
+# The same bound as the paged kernels'. Forward: S = the attention of |V|.
+# Backward: each side computes ds (or p) in fp32 and rounds it to bf16
+# before its product, so with W = p (|dP| + |delta|) sm_scale >= |ds|:
+#   dq: S = W |K|,  dk: S = W^T |Q|,  dv: S = p^T |dO|   (all fp32),
+# and |out - ref| <= 2u (|ref| + S) + (fp32 terms) <= 8e-3 (|ref| + S).
+
+FLASH_SHAPE = (8, 1024, 12, 64)    # the training step's q, k, v [B, S, H, K]
+FLASH_LONG = 512     # visible keys (rows) from which a flash row (key) is long
+FAULT_LO = 512       # first key (row) of the tile a planted fault drops
+FLASH_TOLERANCE = {
+    "float32": TOLERANCE["float32"],
+    "bfloat16": "|out - ref| <= 8e-3 (|ref| + S); S = attention of |V| (o),"
+                " W |K| (dq), W^T |Q| (dk), p^T |dO| (dv), W = p (|dP| + "
+                "|delta|) sm_scale, all fp32; lse within 1e-4",
+}
+
+
+def flash_inputs(rng, B, S, T, Hh, Kd, dtype, device):
+    """q, k, v, dO and an lse cotangent, N(0, 1) from ``rng``; o and lse
+    from the plain forward, so the backward kernels and their plain
+    versions see the same saved tensors."""
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(device)
+    q, k, v = (t(B, n, Hh, Kd).to(dtype) for n in (S, T, T))
+    do = t(B, S, Hh, Kd).to(dtype)
+    dlse = t(B, S, Hh)
+    return q, k, v, do, dlse
+
+
+def flash_abs_sums(q, k, v, do, lse, delta, causal, scale):
+    """S of the bf16 bound for o, dq, dk and dv (see above), in fp32."""
+    S_, T_ = q.shape[1], k.shape[1]
+    s = torch.einsum("bshk,bthk->bhst", q.float(), k.float()) * scale
+    mask = torch.ones(S_, T_, dtype=torch.bool, device=q.device)
+    if causal:
+        mask = torch.arange(S_, device=q.device)[:, None] >= torch.arange(
+            T_, device=q.device)[None, :]
+    row = lambda x: x.transpose(1, 2)[..., None]
+    p = torch.where(mask, torch.exp(s - row(lse)), torch.zeros_like(s))
+    dp = torch.einsum("bshk,bthk->bhst", do.float(), v.float())
+    w = p * (dp.abs() + row(delta).abs()) * scale
+    del s, dp
+    s_o, _ = fa.reference_flash_fwd(q.float(), k.float(), v.float().abs(),
+                                    causal, scale)
+    return {
+        "flash_fwd": s_o,
+        "flash_dq": torch.einsum("bhst,bthk->bshk", w, k.float().abs()),
+        "flash_dk": torch.einsum("bhst,bshk->bthk", w, q.float().abs()),
+        "flash_dv": torch.einsum("bhst,bshk->bthk", p, do.float().abs()),
+    }
+
+
+def flash_close(name, out, ref, s_abs, dtype, long):
+    """check_close over every element (no inert rows here); ``long``
+    [S] or [T] marks the long rows (or keys) of every batch entry."""
+    every = torch.ones(out.shape[:2], dtype=torch.bool, device=out.device)
+    return check_close(name, out, ref, s_abs, dtype, every, every & long)
+
+
+def flash_long(S, T, causal, device):
+    """Rows with FLASH_LONG or more visible keys, keys visible to
+    FLASH_LONG or more rows → ([S], [T]) bool."""
+    s, t = torch.arange(S, device=device), torch.arange(T, device=device)
+    rows = torch.clamp(s + 1, max=T) if causal else torch.full_like(s, T)
+    keys = torch.clamp(S - t, min=0) if causal else torch.full_like(t, S)
+    return rows >= FLASH_LONG, keys >= FLASH_LONG
+
+
+def dropped_tile(q, k, v, do, lse, delta, scale, lo):
+    """What one 64-wide tile adds to each causal gradient, from the plain
+    version's rounded p and ds in fp32: keys lo..lo+63 to dq, query rows
+    lo..lo+63 to dk and dv. A planted fault subtracts it."""
+    hi = lo + 64
+    p, ds = fa._p_ds(q, k, v, do, lse, delta, True, scale)
+    dq = torch.einsum("bhst,bthk->bshk", ds[..., lo:hi].float(),
+                      k[:, lo:hi].float())
+    dk = torch.einsum("bhst,bshk->bthk", ds[:, :, lo:hi].float(),
+                      q[:, lo:hi].float())
+    dv = torch.einsum("bhst,bshk->bthk", p[:, :, lo:hi].to(do.dtype).float(),
+                      do[:, lo:hi].float())
+    return dq, dk, dv
+
+
+def planted_flash_faults(q, k, v, do, lse, delta, scale):
+    """The bf16 bound against a wrong backward on the timed inputs: the
+    plain dq with keys 512-575 dropped, the plain dk and dv with query
+    rows 512-575 dropped → each fault's largest share of the bound, over
+    every element and over the long rows (or keys). Each must exceed 1."""
+    tiles = dict(zip(("flash_dq", "flash_dk", "flash_dv"),
+                     dropped_tile(q, k, v, do, lse, delta, scale, FAULT_LO)))
+    refs = dict(zip(("flash_dk", "flash_dv"), fa.reference_flash_dkv(
+        q, k, v, do, lse, delta, True, scale)))
+    refs["flash_dq"] = fa.reference_flash_dq(q, k, v, do, lse, delta, True,
+                                             scale)
+    sums = flash_abs_sums(q, k, v, do, lse, delta, True, scale)
+    long_q, long_k = flash_long(q.shape[1], k.shape[1], True, q.device)
+    out = {"dropped": f"dq: keys {FAULT_LO}-{FAULT_LO + 63}; dk, dv: query "
+                      f"rows {FAULT_LO}-{FAULT_LO + 63}"}
+    for name, tile in tiles.items():
+        ref = refs[name].float()
+        wrong = (ref - tile).to(q.dtype).float()
+        share = (wrong - ref).abs() / (BF16_REL * (ref.abs() + sums[name]))
+        long = long_q if name == "flash_dq" else long_k
+        out[name] = {"max_share_of_bound": float(share.max()),
+                     "long_max_share_of_bound": float(share[:, long].max())}
+        if out[name]["max_share_of_bound"] <= 1.0:
+            raise AssertionError(f"planted fault passes the bf16 bound: {out}")
+    return out
+
+
+def check_flash(rng, tag, B, S, T, Hh, Kd, dtype, causal, device):
+    """Each flash kernel against its plain version on one case →
+    {kernel: result}. The backward gets an lse cotangent."""
+    scale = 1.0 / np.sqrt(Kd)
+    long_q, long_k = flash_long(S, T, causal, device)
+    q, k, v, do, dlse = flash_inputs(rng, B, S, T, Hh, Kd, dtype, device)
+    o, lse = fa.flash_fwd(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.reference_flash_fwd(q, k, v, causal, scale)
+    delta = fa.flash_delta(o_ref, do, dlse)
+    dq = fa.flash_dq(q, k, v, do, lse_ref, delta, causal, scale)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, causal, scale)
+    torch.cuda.synchronize()
+    dq_ref = fa.reference_flash_dq(q, k, v, do, lse_ref, delta, causal, scale)
+    dk_ref, dv_ref = fa.reference_flash_dkv(q, k, v, do, lse_ref, delta,
+                                            causal, scale)
+    sums = flash_abs_sums(q, k, v, do, lse_ref, delta, causal, scale)
+    if not (dq.stride() == q.stride() and dk.stride() == k.stride()
+            and dv.stride() == v.stride() and o.stride() == q.stride()):
+        raise AssertionError(f"flash {tag}: outputs lost their inputs' layout")
+    res = {"flash_fwd": flash_close(f"flash_fwd {tag}", o, o_ref,
+                                    sums["flash_fwd"], dtype, long_q)}
+    # lse: fp32 on both sides from the same fp32 statistics.
+    lse_err = float((lse - lse_ref).abs().max())
+    res["flash_fwd"]["lse_max_abs_err"] = lse_err
+    if lse_err > 1e-4:
+        raise AssertionError(f"flash_fwd {tag}: lse off by {lse_err}")
+    res["flash_dq"] = flash_close(f"flash_dq {tag}", dq, dq_ref,
+                                  sums["flash_dq"], dtype, long_q)
+    rk = flash_close(f"flash_dkv dk {tag}", dk, dk_ref, sums["flash_dk"],
+                     dtype, long_k)
+    rv = flash_close(f"flash_dkv dv {tag}", dv, dv_ref, sums["flash_dv"],
+                     dtype, long_k)
+    res["flash_dkv"] = {
+        "max_abs_err": max(rk["max_abs_err"], rv["max_abs_err"]),
+        "max_share_of_bound": max(rk["max_share_of_bound"],
+                                  rv["max_share_of_bound"]),
+        "dk": rk, "dv": rv}
+    return res
+
+
+def phase_flash_kernels(device, errs):
+    """The three flash kernels against their plain versions: fp32 and
+    bf16, head dims 64 and 128, causal and non-causal, S=77/T=130 and
+    S=64/T=256 (off the tile size, S != T), S=T=192, one query row
+    (S=1/T=64) and one key (S=130/T=1); then the timing shape."""
+    rng = np.random.default_rng(4)
+    cases = []
+    for Kd in (64, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            for S, T in ((77, 130), (64, 256), (192, 192), (1, 64),
+                         (130, 1)):
+                for causal in (True, False):
+                    dn = str(dtype).split(".")[1]
+                    tag = (f"B=2 S={S} T={T} H=3 K={Kd} {dn} "
+                           f"{'causal' if causal else 'full'}")
+                    res = check_flash(rng, tag, 2, S, T, 3, Kd, dtype,
+                                      causal, device)
+                    for kern, r in res.items():
+                        errs[kern] = max(errs[kern], r["max_abs_err"])
+                        cases.append({"kernel": kern, "case": tag, **r})
+    emit({"phase": "flash_kernels_vs_plain", "tolerance": FLASH_TOLERANCE,
+          "cases": cases})
+    return time_flash(device, errs)
+
+
+def time_flash(device, errs):
+    """Each flash kernel at the training step's shape, [8, 1024, 12, 64]
+    bf16 causal: held once more to its plain version on these inputs,
+    then timed (CUDA events) beside its bound, its plain version and
+    SDPA (forward alone; forward plus backward)."""
+    B, S, Hh, Kd = FLASH_SHAPE
+    dt, item = torch.bfloat16, 2
+    scale = 1.0 / np.sqrt(Kd)
+    res = check_flash(np.random.default_rng(5), "training shape", B, S, S,
+                      Hh, Kd, dt, True, device)
+    for kern, r in res.items():
+        errs[kern] = max(errs[kern], r["max_abs_err"])
+    q, k, v, do, dlse = flash_inputs(np.random.default_rng(5), B, S, S, Hh,
+                                     Kd, dt, device)
+    o, lse = fa.flash_fwd(q, k, v, True, scale)
+    delta = fa.flash_delta(o, do)
+    planted = planted_flash_faults(q, k, v, do, lse, delta, scale)
+    n = B * S * Hh * Kd                      # elements of one operand
+    rowvec = B * S * Hh * 4                  # one fp32 row vector
+    pairs = B * Hh * S * (S + 1) // 2        # visible (row, key) pairs
+    timings = {}
+    plan = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, True, scale),
+                      lambda: fa.reference_flash_fwd(q, k, v, True, scale),
+                      4 * n * item + rowvec, 2 * 2 * Kd * pairs),
+        "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, True,
+                                         scale),
+                     lambda: fa.reference_flash_dq(q, k, v, do, lse, delta,
+                                                   True, scale),
+                     5 * n * item + 2 * rowvec, 3 * 2 * Kd * pairs),
+        "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, True,
+                                           scale),
+                      lambda: fa.reference_flash_dkv(q, k, v, do, lse, delta,
+                                                     True, scale),
+                      6 * n * item + 2 * rowvec, 4 * 2 * Kd * pairs),
+    }
+    for name, (kern, plain, nbytes, flops) in plan.items():
+        ms = cuda_time_ms(kern)
+        plain_ms = cuda_time_ms(plain, iters=5, warmup=1)
+        bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                             bound_by=by, bytes=nbytes, flops=flops,
+                             check=res[name],
+                             shape=f"B={B} S=T={S} H={Hh} K={Kd} bf16 causal")
+    # SDPA on [B, H, S, K] copies: a yardstick, never called by the port.
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    with torch.no_grad():
+        sdpa_fwd = cuda_time_ms(sdpa)
+    timings["flash_fwd"]["library_ms"] = sdpa_fwd
+    timings["flash_dq"]["library_ms"] = None     # no PyTorch call of its own
+    timings["flash_dkv"]["library_ms"] = None
+    # Forward plus backward launches several kernels from the host (SDPA's
+    # through autograd), so their gaps depend on the host's speed: compare
+    # the device time of their kernels instead.
+    sdpa_fwd_bwd = device_ms(
+        lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot))
+    ours = device_ms(lambda: fa.flash_bwd(
+        q, k, v, *fa.flash_fwd(q, k, v, True, scale), do, None, True, scale))
+    fa.reset_launch_counts()
+    emit({"phase": "flash_kernel_timing", **timings,
+          "planted_faults_vs_bf16_bound": planted,
+          "fwd_dq_dkv_device_ms": ours, "sdpa_fwd_ms": sdpa_fwd,
+          "sdpa_fwd_bwd_device_ms": sdpa_fwd_bwd,
+          "note": "fwd_dq_dkv_device_ms: the kernels of flash_fwd, delta, "
+                  "flash_dq and flash_dkv, against those of SDPA (is_causal)"
+                  " forward plus backward; device time per call from "
+                  "torch.profiler"})
+    return timings
+
+
 def make_params(device):
     cfg = gpt.GPTConfig.opt_1_3b(dtype=torch.bfloat16)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -425,6 +720,24 @@ def phase_programs(device, cfg, params):
     emit(out)
 
 
+KERNEL_CATEGORIES = (       # first match wins, on the lower-cased name
+    ("port kernels", ("rtt::",)),
+    ("matmul", ("nvjet", "gemm", "cutlass", "xmma", "cublas")),
+    ("copy / cast", ("copy",)),
+    ("reduction / softmax / loss", ("reduce", "softmax", "nll", "norm")),
+    ("index / scatter", ("index", "scatter", "gather", "embedding")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def kernel_category(name: str) -> str:
+    low = name.lower()
+    for cat, keys in KERNEL_CATEGORIES:
+        if any(k in low for k in keys):
+            return cat
+    return "other"
+
+
 def _profiled(fn, top=8):
     """Run fn once without and once under torch.profiler: wall time of
     the plain run (host clock around a synchronized run), the summed time
@@ -461,10 +774,15 @@ def _profiled(fn, top=8):
             out[e.key[:80]] = out.get(e.key[:80], 0.0) + ms(e)
         return out
 
+    by_cat: dict = {}
+    for e in kernels:
+        cat = kernel_category(e.key)
+        by_cat[cat] = by_cat.get(cat, 0.0) + dev_us(e) / 1e3
     return {
         "wall_ms": wall_plain * 1e3,
         "wall_ms_profiled": wall * 1e3,
         "device_busy_ms": busy_us / 1e3 if busy_us else None,
+        "device_ms_by_category": by_cat,
         "device_idle_share": (1.0 - busy_us / 1e3 / (wall_plain * 1e3)
                               if busy_us else None),
         "top_device_ms": table(by_dev, lambda e: dev_us(e) / 1e3),
@@ -566,11 +884,178 @@ def phase_engine(device, cfg, params):
     return launches
 
 
+# ------------------------------------------------------------------- train
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 12
+# Launches per step with remat: the forward runs once per block and once
+# more in the block's recompute; dq and dkv once per block.
+FLASH_PER_STEP = {"flash_fwd": 24, "flash_dq": 12, "flash_dkv": 12}
+# flash vs xla, one step from the same parameters and batch, bf16: the two
+# attention paths round probabilities at different places (unit roundoff
+# 2^-8) and the difference goes through 12 bf16 layers. The loss is a mean
+# over 8192 tokens; the gradient is held as a whole and, since the
+# embedding and head dominate its norm, on the attention weights of each
+# layer alone, where a wrong attention backward shows first. Each limit
+# sits between the sound runs' reading and the planted faults' (the
+# planted faults must exceed the attention limit in every run).
+TRAIN_LOSS_TOL = 5e-4          # |loss_flash - loss_xla|
+TRAIN_GRAD_TOL = 2e-2          # |g_flash - g_xla| / |g_xla|, all leaves
+TRAIN_ATTN_GRAD_TOL = 5e-2     # the same, worst (layer, wq/wk/wv/wo) slice
+ATTN_LEAVES = ("wq", "wk", "wv", "wo")
+
+
+def train_flops_per_token(cfg) -> float:
+    """bench.py's count: ~6N per token (forward 2N, backward 4N) with N
+    the matmul parameters (tied embedding/unembedding, 4 d^2 of attention
+    and 2 d d_ff of MLP per layer), plus the attention score/value term."""
+    n_params = (cfg.vocab_size * cfg.d_model
+                + cfg.n_layers * (4 * cfg.d_model * cfg.d_model
+                                  + 2 * cfg.d_model * cfg.d_ff))
+    attn = 12 * cfg.n_layers * cfg.d_model * cfg.max_seq
+    return 6.0 * n_params + attn
+
+
+def train_batch(cfg, device):
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S))
+    tg = np.roll(toks, -1, axis=1)
+    return tuple(torch.from_numpy(a.astype(np.int64)).to(device)
+                 for a in (toks, tg))
+
+
+def loss_and_grads(cfg, params, batch, impl):
+    """One step's loss and gradients ({name: grad}) with ``impl``."""
+    loss = gpt.loss_fn(params, *batch,
+                       dataclasses.replace(cfg, attn_impl=impl))
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return float(loss.detach()), dict(zip(params, grads))
+
+
+def step_diff(loss, grads, loss_ref, ref):
+    """The step's differences from the reference step's: |Δloss|, the
+    relative difference of the whole gradient, and the largest over the
+    attention weights (wq, wk, wv, wo) of one layer."""
+    rel = lambda a, b: float((a.float() - b.float()).norm() / b.float().norm())
+    whole = torch.sqrt(sum((grads[n].float() - ref[n].float()).square().sum()
+                           for n in ref))
+    return {"loss_abs_diff": abs(loss - loss_ref),
+            "grad_rel_err": float(whole / torch.sqrt(sum(
+                g.float().square().sum() for g in ref.values()))),
+            "attn_grad_rel_err": max(rel(grads[n][i], ref[n][i])
+                                     for n in ATTN_LEAVES
+                                     for i in range(ref[n].shape[0]))}
+
+
+def planted_backwards(real):
+    """Wrong versions of fa.flash_bwd: faults the flash-vs-xla check must
+    see, from a blatant one to a dropped 64-key tile."""
+    def zero_dq(*args):
+        dq, dk, dv = real(*args)
+        return torch.zeros_like(dq), dk, dv
+
+    def swap_dkv(*args):
+        dq, dk, dv = real(*args)
+        return dq, dv, dk
+
+    def drop_tile(q, k, v, o, lse, do, dlse, causal, scale):
+        dq, dk, dv = real(q, k, v, o, lse, do, dlse, causal, scale)
+        tile = dropped_tile(q, k, v, do, lse, fa.flash_delta(o, do, dlse),
+                            scale, FAULT_LO)[0]
+        return (dq.float() - tile).to(dq.dtype), dk, dv
+
+    return {"dq zeroed": zero_dq, "dk and dv swapped": swap_dkv,
+            f"keys {FAULT_LO}-{FAULT_LO + 63} dropped from dq": drop_tile}
+
+
+def flash_vs_xla(cfg, params, batch):
+    """One step with flash attention against plain attention from the
+    same parameters (nothing is updated), then the same for each planted
+    fault in the flash backward, each of which must fail the check."""
+    loss_x, g_x = loss_and_grads(cfg, params, batch, "xla")
+    loss_f, g_f = loss_and_grads(cfg, params, batch, "flash")
+    res = {"loss_flash": loss_f, "loss_xla": loss_x,
+           **step_diff(loss_f, g_f, loss_x, g_x),
+           "loss_tol": TRAIN_LOSS_TOL, "grad_tol": TRAIN_GRAD_TOL,
+           "attn_grad_tol": TRAIN_ATTN_GRAD_TOL}
+    del g_f
+    real, planted = fa.flash_bwd, {}
+    for fault, bwd in planted_backwards(real).items():
+        fa.flash_bwd = bwd
+        try:
+            loss_p, g_p = loss_and_grads(cfg, params, batch, "flash")
+        finally:
+            fa.flash_bwd = real
+        planted[fault] = step_diff(loss_p, g_p, loss_x, g_x)
+        del g_p
+    res["planted_faults"] = planted
+    if not (res["loss_abs_diff"] <= TRAIN_LOSS_TOL
+            and res["grad_rel_err"] <= TRAIN_GRAD_TOL
+            and res["attn_grad_rel_err"] <= TRAIN_ATTN_GRAD_TOL):
+        raise AssertionError(f"flash vs xla step disagree: {res}")
+    if not all(p["attn_grad_rel_err"] > TRAIN_ATTN_GRAD_TOL
+               for p in planted.values()):
+        raise AssertionError(f"a planted fault passes the check: {res}")
+    return res
+
+
+def phase_train(device):
+    """bench.py's training step on the port: gpt2_124m at B=8, S=1024,
+    bf16, remat, flash attention, AdamW with a bf16 first moment."""
+    cfg = gpt.GPTConfig.gpt2_124m(max_seq=TRAIN_S, remat=True,
+                                  attn_impl="flash")
+    opt = adamw(3e-4, weight_decay=0.1, mu_dtype=torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params, opt_state, step = build_training(cfg, opt, gen, device)
+    batch = train_batch(cfg, device)
+    compare = flash_vs_xla(cfg, params, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()      # the peak of the steps alone
+
+    fa.reset_launch_counts()
+    losses, step_ms = [], []
+    for i in range(1 + TRAIN_STEPS):          # one warm-up step
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, batch)
+        losses.append(float(loss))            # synchronizes
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {"flash_fwd": fa.flash_fwd.launches,
+                "flash_dq": fa.flash_dq.launches,
+                "flash_dkv": fa.flash_dkv.launches}
+    steps = 1 + TRAIN_STEPS
+    per_step = {k: v / steps for k, v in launches.items()}
+    if per_step != FLASH_PER_STEP:
+        raise AssertionError(f"flash launches per step {per_step}, "
+                             f"expected {FLASH_PER_STEP}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    timed = step_ms[1:]
+    p50 = float(np.median(timed))
+    tok_s = TRAIN_B * TRAIN_S / (p50 / 1e3)
+    peak_mem = torch.cuda.max_memory_allocated()
+    profiled = _profiled(lambda: step(params, opt_state, batch), top=12)
+    out = {"phase": "train", "config": "gpt2_124m bf16 remat flash "
+           f"B={TRAIN_B} S={TRAIN_S} adamw(3e-4, wd=0.1, mu bf16)",
+           "params": gpt.num_params(cfg), "flash_vs_xla": compare,
+           "steps_timed": TRAIN_STEPS, "step_ms": step_ms,
+           "step_ms_p50": p50, "tokens_per_s": tok_s,
+           "mfu": train_flops_per_token(cfg) * tok_s / BF16_FLOPS,
+           "flops_per_token": train_flops_per_token(cfg),
+           "max_memory_allocated_gb": peak_mem / 2**30,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "losses": losses, "launches": launches,
+           "launches_per_step": per_step, "profile_one_step": profiled}
+    emit(out)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="",
                     help="comma list of phases: kernels,programs,profile,"
-                         "engine (default: all; the build always runs)")
+                         "engine,train (default: all; the build always "
+                         "runs)")
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc -Xptxas -v (registers, spills)")
     args = ap.parse_args(argv)
@@ -593,7 +1078,6 @@ def main(argv=None) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0]})
 
-
     t0 = time.perf_counter()
     _build.build(verbose=args.ptxas)
     _build.library()
@@ -602,10 +1086,23 @@ def main(argv=None) -> int:
                       for p in _build.sources()],
           "arch": "sm_90a"})
 
-    errs = {"paged_attention": 0.0, "paged_prefill_attention": 0.0}
-    timings = launches = None
+    meta = {
+        "paged_attention": ("ray_tpu_torch/ops/csrc/paged_decode.cu",
+                            "ray_tpu/ops/paged_attention.py:55"),
+        "paged_prefill_attention": ("ray_tpu_torch/ops/csrc/paged_prefill.cu",
+                                    "ray_tpu/ops/paged_attention.py:206"),
+        "flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu",
+                      "ray_tpu/ops/attention.py:67"),
+        "flash_dq": ("ray_tpu_torch/ops/csrc/flash_bwd.cu",
+                     "ray_tpu/ops/attention.py:182"),
+        "flash_dkv": ("ray_tpu_torch/ops/csrc/flash_bwd.cu",
+                      "ray_tpu/ops/attention.py:224"),
+    }
+    errs = dict.fromkeys(meta, 0.0)
+    timings, launches = {}, {}
     if want("kernels"):
-        timings = phase_kernels(device, errs)
+        timings.update(phase_kernels(device, errs))
+        timings.update(phase_flash_kernels(device, errs))
     if want("programs") or want("profile") or want("engine"):
         cfg, params = make_params(device)
         if want("programs"):
@@ -613,26 +1110,28 @@ def main(argv=None) -> int:
         if want("profile"):
             phase_profile(device, cfg, params)
         if want("engine"):
-            launches = phase_engine(device, cfg, params)
+            launches.update(phase_engine(device, cfg, params))
+        del cfg, params
+        torch.cuda.empty_cache()
+    if want("train"):
+        launches.update(phase_train(device))
 
-    meta = {
-        "paged_attention": ("ray_tpu_torch/ops/csrc/paged_decode.cu",
-                            "ray_tpu/ops/paged_attention.py:55"),
-        "paged_prefill_attention": ("ray_tpu_torch/ops/csrc/paged_prefill.cu",
-                                    "ray_tpu/ops/paged_attention.py:206"),
-    }
-    if timings is not None and launches is not None:
-        kernels = []
-        for name, (src, replaces) in meta.items():
-            t = timings[name]
-            kernels.append({
-                "name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": launches[name],
-                "max_abs_err": errs[name], "ms": t["ms"],
-                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    kernels = []
+    for name, (src, replaces) in meta.items():
+        if name not in timings or name not in launches:
+            continue
+        t = timings[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    if kernels:
         print(json.dumps({"kernels": kernels}), flush=True)
         RECORD["kernels"] = kernels
+    if not only and len(kernels) != len(meta):
+        raise AssertionError(f"kernels line has {len(kernels)} entries")
     os.makedirs(os.path.dirname(RECORD_PATH), exist_ok=True)
     with open(RECORD_PATH, "w") as f:
         json.dump(RECORD, f, indent=1)

@@ -69,14 +69,35 @@ def _mlp(x, layer, cfg):
     return x + (down + layer["b_down"].to(cfg.dtype))
 
 
-def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+class _MatmulF32(torch.autograd.Function):
     """[M, D] @ [D, N] with fp32 accumulation AND an fp32 result. On
     CUDA the GEMM writes fp32 straight from its fp32 accumulators; on
     the CPU both operands are upcast (the same products — bf16 values
-    are exact in fp32)."""
-    if x.is_cuda and x.dtype != torch.float32:
-        return torch.mm(x, w, out_dtype=torch.float32)
-    return x.float() @ w.float()
+    are exact in fp32). ``torch.mm(..., out_dtype=)`` has no derivative,
+    so the backward is written here: the fp32 cotangent is rounded to the
+    operands' dtype and both products run in that dtype with fp32 sums,
+    as every other bf16 product's backward in the model does (and as a
+    TPU runs an fp32-by-bf16 product at default precision)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if x.is_cuda and x.dtype != torch.float32:
+            return torch.mm(x, w, out_dtype=torch.float32)
+        return x.float() @ w.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gx = g @ w.t() if ctx.needs_input_grad[0] else None
+        gw = x.t() @ g if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
+def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[M, D] @ [D, N] → fp32 [M, N] from fp32 sums, differentiable."""
+    return _MatmulF32.apply(x, w)
 
 
 def _head(params, cfg, x):

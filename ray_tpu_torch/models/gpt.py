@@ -1,14 +1,16 @@
-"""GPT decoder configuration, parameters and block helpers (PyTorch).
+"""GPT decoder: configuration, parameters, forward and loss (PyTorch).
 
 Counterpart of ``ray_tpu/models/gpt.py`` (GPTConfig, param_specs,
-init_params, weight_view, stack_block_params, _layer_norm). Parameters
-are a flat dict of tensors; block weights carry a leading ``layers``
-axis exactly as in the JAX package, so a JAX checkpoint maps one to one
-(``ray_tpu_torch/_bridge.py``). A Python loop over layer slices takes
-the place of ``lax.scan``.
-
-Training-only fields of the JAX config (remat, attention impl and tile
-sizes, loss chunking) are not part of this serving slice.
+init_params, weight_view, stack_block_params, _layer_norm, _rotary,
+_attention, _block, forward_hidden, forward, loss_fn, num_params).
+Parameters are a flat dict of tensors; block weights carry a leading
+``layers`` axis exactly as in the JAX package, so a JAX checkpoint maps
+one to one (``ray_tpu_torch/_bridge.py``). A Python loop over layer
+slices takes the place of ``lax.scan``, and
+``torch.utils.checkpoint(..., use_reentrant=False)`` the place of
+``jax.checkpoint``. Training goes through ``loss_fn``; attention is the
+plain fp32-softmax path (``attn_impl="xla"``) or the flash kernels
+(``"flash"``, ``ray_tpu_torch/ops/attention.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from ray_tpu_torch._device import resolve_device
 
@@ -34,6 +37,16 @@ class GPTConfig:
     dtype: Any = torch.bfloat16      # activation/compute dtype
     param_dtype: Any = torch.float32
     tie_embeddings: bool = True
+    remat: bool = False              # checkpoint each block (recompute in bwd)
+    attn_impl: str = "xla"           # "xla" (plain) | "flash" (kernels)
+    # Tile sizes of the JAX package's Pallas flash kernel, kept so the
+    # presets carry over; the CUDA kernels tile by 64 and do not read them.
+    attn_block_q: int = 1024
+    attn_block_kv: int = 1024
+    # Cross-entropy head chunking: logits and loss over sequence chunks of
+    # this many tokens, each recomputed in the backward, so only one fp32
+    # [B, chunk, V] logits block is live at a time. None = one full head.
+    loss_chunk: int | None = None
 
     @property
     def head_dim(self) -> int:
@@ -49,17 +62,22 @@ class GPTConfig:
 
     @classmethod
     def gpt2_2_7b(cls, **kw) -> "GPTConfig":
+        kw.setdefault("remat", True)
+        kw.setdefault("attn_block_q", 512)
+        kw.setdefault("attn_block_kv", 512)
         return cls(d_model=2560, n_layers=32, n_heads=32, d_ff=10240,
                    rotary_dim=64, tie_embeddings=False, **kw)
 
     @classmethod
     def gptj_6b(cls, **kw) -> "GPTConfig":
+        kw.setdefault("remat", True)
         return cls(d_model=4096, n_layers=28, n_heads=16, d_ff=16384,
                    rotary_dim=64, tie_embeddings=False, **kw)
 
     @classmethod
     def opt_1_3b(cls, **kw) -> "GPTConfig":
         """OPT-1.3B-class decoder (the repo's serving target)."""
+        kw.setdefault("remat", True)
         return cls(d_model=2048, n_layers=24, n_heads=32, d_ff=8192,
                    rotary_dim=64, tie_embeddings=False, **kw)
 
@@ -194,5 +212,131 @@ def _layer_norm(x: torch.Tensor, scale: torch.Tensor,
     return (y * scale + bias).to(x.dtype)
 
 
+# --------------------------------------------------------------------------
+# Training forward and loss. The per-token pieces (_rotary_pos, _qkv,
+# _attn_out, _mlp, _matmul_f32) live in decode.py, which imports this
+# module, hence the import inside the functions.
+
+
+def _rotary(x: torch.Tensor, rotary_dim: int, offset: int = 0) -> torch.Tensor:
+    """Rotary over positions offset .. offset + S - 1 of x [B, S, H, K]."""
+    from ray_tpu_torch.models.decode import _rotary_pos
+
+    B, S = x.shape[0], x.shape[1]
+    pos = torch.arange(offset, offset + S, device=x.device)
+    return _rotary_pos(x, rotary_dim, pos[None, :].expand(B, S))
+
+
+def _attention(q, k, v, cfg: GPTConfig):
+    """Causal attention of q, k, v [B, S, H, K]: the flash kernels
+    ("flash") or the plain fp32-softmax version ("xla")."""
+    from ray_tpu_torch.ops.attention import flash_attention, reference_attention
+
+    if cfg.attn_impl == "flash":
+        return flash_attention(q, k, v, causal=True)
+    if cfg.attn_impl == "xla":
+        return reference_attention(q, k, v, causal=True)
+    if cfg.attn_impl == "ring":
+        raise NotImplementedError(
+            "attn_impl='ring' (sequence-parallel ring attention) is not "
+            "ported yet")
+    raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
+
+
+def _block(x: torch.Tensor, layer: dict[str, torch.Tensor],
+           cfg: GPTConfig) -> torch.Tensor:
+    """One pre-norm transformer block. x: [B, S, D]."""
+    from ray_tpu_torch.models.decode import _attn_out, _mlp, _qkv
+
+    h = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"])
+    q, k, v = _qkv(h, layer, cfg)
+    q = _rotary(q, cfg.rotary_dim)
+    k = _rotary(k, cfg.rotary_dim)
+    x = x + _attn_out(_attention(q, k, v, cfg), layer, cfg)
+    return _mlp(x, layer, cfg)
+
+
+def _checkpointed(fn, *args):
+    """fn(*args), its activations recomputed in the backward."""
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def forward_hidden(params: dict[str, torch.Tensor], tokens: torch.Tensor,
+                   cfg: GPTConfig) -> torch.Tensor:
+    """tokens: [B, S] int → final-norm hidden states [B, S, D] (cfg.dtype).
+    The embedding gathers from the table cast to cfg.dtype, so its
+    gradient is a scatter-add in cfg.dtype, as in the JAX package."""
+    x = params["wte"].to(cfg.dtype)[tokens.long()]
+    stacked = stack_block_params(params)
+    for i in range(cfg.n_layers):
+        layer = {k: w[i] for k, w in stacked.items()}
+        if cfg.remat:
+            x = _checkpointed(_block, x, layer, cfg)
+        else:
+            x = _block(x, layer, cfg)
+    return _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"])
+
+
+def _head_matrix(params, cfg: GPTConfig) -> torch.Tensor:
+    head = params["lm_head"] if not cfg.tie_embeddings else params["wte"].T
+    return head.to(cfg.dtype)
+
+
+def _logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """x [..., D] @ head [D, V] → fp32 logits [..., V] from fp32 sums."""
+    from ray_tpu_torch.models.decode import _matmul_f32
+
+    out = _matmul_f32(x.reshape(-1, x.shape[-1]), head)
+    return out.reshape(*x.shape[:-1], head.shape[1])
+
+
+def forward(params: dict[str, torch.Tensor], tokens: torch.Tensor,
+            cfg: GPTConfig) -> torch.Tensor:
+    """tokens: [B, S] int → logits [B, S, V] (fp32)."""
+    return _logits(forward_hidden(params, tokens, cfg),
+                   _head_matrix(params, cfg))
+
+
+def _ce_sum(x, head, targets):
+    """Summed next-token cross-entropy of one chunk (fp32 logits)."""
+    logits = _logits(x, head)
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1).long(), reduction="sum")
+
+
+def loss_fn(params: dict[str, torch.Tensor], tokens: torch.Tensor,
+            targets: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy. tokens/targets: [B, S] int.
+
+    With cfg.loss_chunk set, the vocab projection and CE run chunk by
+    chunk over the sequence, each chunk checkpointed: only one fp32
+    [B, chunk, V] logits block is live at a time, forward and backward
+    (the chunk recomputes its logits in the backward; the head gradient
+    accumulates across chunks)."""
+    x = forward_hidden(params, tokens, cfg)
+    head = _head_matrix(params, cfg)
+    B, S = tokens.shape
+    if cfg.loss_chunk is None or S <= cfg.loss_chunk:
+        logits = _logits(x, head)
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               targets.reshape(-1).long())
+    C = cfg.loss_chunk
+    if S % C != 0:
+        raise ValueError(f"seq len {S} not divisible by loss_chunk {C}")
+    total = torch.zeros((), device=x.device, dtype=torch.float32)
+    for c in range(0, S, C):
+        total = total + _checkpointed(_ce_sum, x[:, c:c + C], head,
+                                      targets[:, c:c + C])
+    return total / (B * S)
+
+
+def num_params(cfg: GPTConfig) -> int:
+    return sum(math.prod(s["shape"]) for s in param_specs(cfg).values())
+
+
 __all__ = ["GPTConfig", "param_specs", "init_params", "weight_view",
-           "stack_block_params"]
+           "stack_block_params", "forward_hidden", "forward", "loss_fn",
+           "num_params"]

@@ -113,6 +113,22 @@ def _declare(lib: ctypes.CDLL) -> None:
     # size_t fn(dtype, K, ps): shared memory of one prefill block
     lib.rtt_paged_prefill_smem_bytes.argtypes = [_I, _I, _I]
     lib.rtt_paged_prefill_smem_bytes.restype = ctypes.c_size_t
+    # int fn(dtype, q, k, v, o, lse, B, S, T, H, K, strides[12], causal,
+    #        sm_scale, stream) → cudaError_t
+    lib.rtt_flash_fwd.argtypes = [
+        _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _F, _P]
+    lib.rtt_flash_fwd.restype = _I
+    # int fn(dtype, q, k, v, dO, lse, delta, dq, B, S, T, H, K,
+    #        strides[15], causal, sm_scale, stream) → cudaError_t
+    lib.rtt_flash_dq.argtypes = [
+        _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _F, _P]
+    lib.rtt_flash_dq.restype = _I
+    # int fn(dtype, q, k, v, dO, lse, delta, dk, dv, B, S, T, H, K,
+    #        strides[18], causal, sm_scale, stream) → cudaError_t
+    lib.rtt_flash_dkv.argtypes = [
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _F,
+        _P]
+    lib.rtt_flash_dkv.restype = _I
     lib.rtt_error_string.argtypes = [_I]
     lib.rtt_error_string.restype = ctypes.c_char_p
 

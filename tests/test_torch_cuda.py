@@ -1,11 +1,13 @@
 """The port's CUDA kernels on the card (marked ``cuda``; skipped without one).
 
-Each kernel against its plain PyTorch version on CUDA tensors (ragged
-lengths, idle all-null slots, width-sliced prefill tables, a partial
-query tile, fp32 and bf16, the tensor-core head dims 64 and 128), the
-launch counters, the wrappers' refusals (no fallback to the plain path),
-and the tiny engine with ``attn_impl="kernel"`` against ``"gather"`` on
-the card. The file imports neither JAX nor the JAX package, and the
+Each kernel against its plain PyTorch version on CUDA tensors (paged:
+ragged lengths, idle all-null slots, width-sliced prefill tables, a
+partial query tile; flash: forward, dq and dkv, causal and not, S != T,
+an lse cotangent; fp32 and bf16, the tensor-core head dims 64 and 128),
+the launch counters, the wrappers' refusals (no fallback to the plain
+path), the tiny engine with ``attn_impl="kernel"`` against ``"gather"``
+on the card, and one gpt2_124m-wide training step with
+``attn_impl="flash"`` against ``"xla"``. The file imports neither JAX nor the JAX package, and the
 repo's conftest does, so run it with::
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -14,11 +16,14 @@ chip_smoke.py holds the same kernels to the same tolerances at OPT-1.3B
 shapes.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from ray_tpu_torch.models import gpt
+from ray_tpu_torch.ops import attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.serve.llm import LLMEngine
 
@@ -37,6 +42,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (kernels are built with nvcc)")
     pa.reset_launch_counts()
+    fa.reset_launch_counts()
     return torch.device("cuda")
 
 
@@ -58,7 +64,9 @@ def _close(out, ref, dtype, s_abs):
     if dtype == torch.float32:
         torch.testing.assert_close(out, ref, rtol=0, atol=FP32_ATOL)
         return
-    share = (out - ref).abs() / (BF16_REL * (ref.abs() + s_abs))
+    err = (out - ref).abs()
+    share = err / (BF16_REL * (ref.abs() + s_abs))
+    share = torch.where(err == 0, torch.zeros_like(share), share)  # 0 / 0
     assert float(share.max()) <= 1.0, float(share.max())
 
 
@@ -158,3 +166,143 @@ def test_engine_kernel_streams_match_gather_on_the_card(cuda):
     assert pa.paged_attention.launches > 0
     assert pa.paged_prefill_attention.launches > 0
     assert outs["kernel"] == outs["gather"]
+
+
+def _flash_abs_sums(q, k, v, do, lse, delta, causal, scale):
+    """S of the bf16 bound of o, dq, dk, dv (chip_smoke.py derives it):
+    the attention of |V|, W |K|, W^T |Q| and p^T |dO|, with
+    W = p (|dP| + |delta|) sm_scale >= |ds|, all fp32."""
+    qf, kf, vf, df = (t.float() for t in (q, k, v, do))
+    s = torch.einsum("bshk,bthk->bhst", qf, kf) * scale
+    mask = torch.ones(s.shape[-2:], dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask.tril()
+    row = lambda x: x.transpose(1, 2)[..., None]
+    p = torch.where(mask, torch.exp(s - row(lse)), torch.zeros_like(s))
+    dp = torch.einsum("bshk,bthk->bhst", df, vf)
+    w = p * (dp.abs() + row(delta).abs()) * scale
+    s_o, _ = fa.reference_flash_fwd(qf, kf, vf.abs(), causal, scale)
+    return (s_o, torch.einsum("bhst,bthk->bshk", w, kf.abs()),
+            torch.einsum("bhst,bshk->bthk", w, qf.abs()),
+            torch.einsum("bhst,bshk->bthk", p, df.abs()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,T", [(77, 130), (192, 192)])
+def test_flash_kernels_match_plain(cuda, dtype, K, causal, S, T):
+    """flash_fwd, flash_dq and flash_dkv each against its plain version
+    on the same inputs (the backward from the plain forward's o and lse,
+    with an lse cotangent)."""
+    rng = np.random.default_rng(3)
+    t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(cuda)
+    B, H = 2, 3
+    q, k, v, do = (t(B, n, H, K).to(dtype) for n in (S, T, T, S))
+    dlse = t(B, S, H)
+    scale = K ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, causal, scale)
+    o_ref, lse_ref = fa.reference_flash_fwd(q, k, v, causal, scale)
+    delta = fa.flash_delta(o_ref, do, dlse)
+    dq = fa.flash_dq(q, k, v, do, lse_ref, delta, causal, scale)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, causal, scale)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches) == (1, 1, 1)
+    refs = (o_ref, fa.reference_flash_dq(q, k, v, do, lse_ref, delta, causal,
+                                         scale),
+            *fa.reference_flash_dkv(q, k, v, do, lse_ref, delta, causal,
+                                    scale))
+    sums = _flash_abs_sums(q, k, v, do, lse_ref, delta, causal, scale)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-4)
+    for out, ref, s_abs in zip((o, dq, dk, dv), refs, sums):
+        assert out.dtype == dtype and out.shape == ref.shape
+        _close(out, ref, dtype, s_abs)
+
+
+def test_flash_attention_autograd_and_refusals(cuda):
+    """The autograd op runs the three kernels once each and gives the
+    plain attention's gradients; head dims other than 64 and 128 and
+    mixed dtypes are refused, never computed by the plain path."""
+    rng = np.random.default_rng(4)
+    ts = [torch.from_numpy(rng.normal(size=(2, 96, 4, 64)).astype(
+        np.float32)).to(cuda).requires_grad_(True) for _ in range(3)]
+    o, lse = fa.flash_attention(*ts, causal=True, return_lse=True)
+    (o.square().sum() + lse.sum()).backward()
+    assert (fa.flash_fwd.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches) == (1, 1, 1)
+    grads = [x.grad.clone() for x in ts]
+    for x in ts:
+        x.grad = None
+    o, lse = fa.reference_attention(*ts, causal=True, return_lse=True)
+    (o.square().sum() + lse.sum()).backward()
+    for a, x in zip(grads, ts):
+        torch.testing.assert_close(a, x.grad, rtol=1e-4, atol=1e-4)
+    q80 = torch.zeros(1, 8, 2, 80, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_fwd(q80, q80, q80)
+    q64 = torch.zeros(1, 8, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_fwd(q64, q64.bfloat16(), q64)
+    assert fa.flash_fwd.launches == 1
+
+
+def test_gpt_train_step_flash_matches_xla_on_the_card(cuda):
+    """One training step at gpt2_124m's width (two layers, S=256) with
+    the flash kernels against plain attention, from the same weights:
+    the loss, the whole gradient and each layer's attention weights'
+    gradients within chip_smoke.py's tolerances, which a zeroed dq fails;
+    then the launches of remat (forward twice per block)."""
+    from ray_tpu_torch.train.optim import adamw
+    from ray_tpu_torch.train.spmd import build_training
+
+    cfg = dataclasses.replace(gpt.GPTConfig.gpt2_124m(
+        max_seq=256, remat=True, attn_impl="flash"), n_layers=2)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params, state, step = build_training(
+        cfg, adamw(3e-4, weight_decay=0.1, mu_dtype=torch.bfloat16), gen,
+        cuda)
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 256))).to(
+        cuda)
+    tg = torch.roll(toks, -1, dims=1)
+
+    def run(impl):
+        loss = gpt.loss_fn(params, toks, tg,
+                           dataclasses.replace(cfg, attn_impl=impl))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return float(loss.detach()), dict(zip(params, grads))
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    def attn_err(g, ref):
+        return max(rel(g[n][i], ref[n][i]) for n in ("wq", "wk", "wv", "wo")
+                   for i in range(cfg.n_layers))
+
+    loss_x, g_x = run("xla")
+    loss_f, g_f = run("flash")
+    assert abs(loss_f - loss_x) <= 5e-4
+    assert rel(torch.cat([g.flatten() for g in g_f.values()]),
+               torch.cat([g.flatten() for g in g_x.values()])) <= 2e-2
+    assert attn_err(g_f, g_x) <= 5e-2
+    real = fa.flash_bwd
+
+    def zero_dq(*args):
+        dq, dk, dv = real(*args)
+        return torch.zeros_like(dq), dk, dv
+
+    fa.flash_bwd = zero_dq
+    try:
+        assert attn_err(run("flash")[1], g_x) > 5e-2
+    finally:
+        fa.flash_bwd = real
+    fa.reset_launch_counts()
+    losses = []
+    for _ in range(3):
+        params, state, loss = step(params, state, (toks, tg))
+        losses.append(float(loss))
+    assert (fa.flash_fwd.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches) == (12, 6, 6)
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]

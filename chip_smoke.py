@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase, as the chip check runs it
     python3 chip_smoke.py --only kernels --ptxas   # build + kernel checks
     python3 chip_smoke.py --only kernels,train     # the training slice
+    python3 chip_smoke.py --only kernels,engine    # quantized serving
 
 Phases, one JSON line each (the whole record also goes to
 build/chip_smoke.json):
@@ -20,10 +21,22 @@ build/chip_smoke.json):
    shapes (decode: 16 slots on a 2048-position table, lengths up to 2048;
    prefill: 16-row dispatches of 256, most rows inert), the largest error
    printed beside its bound, long rows on their own; then each kernel,
-   checked once more on the inputs it is timed on, timed (CUDA events) at
-   B=16, 1024-token contexts, page size 64, bf16, beside its bound, its
+   checked once more on the inputs it is timed on, timed (device time
+   from the profiler, with CUDA events around back-to-back calls beside
+   it) at B=16, 1024-token contexts, page size 64, bf16, beside its bound,
+   its
    plain version's time and F.scaled_dot_product_attention on the
    gathered timeline (a yardstick only: the port never calls it).
+   Then the int8 programs of both paged kernels the same way, on int8
+   pools quantized by the port's _quant_write from rows whose pages have
+   log-uniform amplitudes in [0.25, 4] (page sizes 16 and 64, head dims
+   64 and 128, fp32 and bf16 q); on their timed inputs two planted
+   faults in the plain version (scales indexed by table position, a
+   page dropped) must fail the bf16 bound; with bf16 q each int8 case
+   is also held to the plain version on q.float() (p unrounded, as in
+   the Pallas programs), a bound the plain version on bf16 q (p rounded)
+   must fail on the timed inputs; timed beside their bounds, plain
+   versions and SDPA on the dequantized timeline.
    Then the three flash kernels (flash_fwd, flash_dq, flash_dkv), each
    against its plain version: fp32 and bf16, head dims 64 and 128,
    causal and non-causal, S=77/T=130, S=64/T=256, S=T=192, S=1/T=64 and
@@ -35,12 +48,22 @@ build/chip_smoke.json):
    profiler's device time).
 4. programs: prefill_chunk_paged and decode_step_paged at full opt_1_3b
    width (bf16, random weights from a seed), attn_impl "kernel" vs
-   "gather" on copies of one pool.
+   "gather" on copies of one pool; then the same with int8 weights
+   (quantized from the same fp32 masters) on an int8 pool, held to a
+   logit-MAE limit that a planted fault must exceed, with the int8
+   weights' logits against the bf16 weights' as a fidelity reading.
 5. profile: torch.profiler over one fused decode window and one prefill
-   dispatch at the engine's shapes (device busy time, idle share, top ops).
+   dispatch at the engine's shapes (device busy time, idle share, top
+   ops); the decode window's device time with int8 against bf16 weights
+   (float and int8 KV), and the window's K/V writes alone into each pool.
 6. engine: LLMEngine(opt_1_3b, bf16) serving 16 seeded prompts of 128-1536
    tokens through start()/submit(), 32 greedy tokens each, with the
-   kernel launch counters zeroed just before and read just after.
+   kernel launch counters zeroed just before and read just after; then
+   LLMEngine(opt_1_3b, weight_dtype="int8", kv_dtype="int8") from the
+   fp32 masters on the same prompts: n_layers int8 launches per decode
+   step and per prefill dispatch, no float paged launch, the
+   kv_pool_bytes identity, weight bytes, and the share of each stream
+   that agrees with the bf16 engine's.
 7. train: build_training(gpt2_124m(max_seq=1024, remat=True,
    attn_impl="flash"), adamw(3e-4, weight_decay=0.1, mu_dtype=bf16))
    with seeded random weights and a seeded [8, 1024] batch: one step of
@@ -105,8 +128,25 @@ TOLERANCE = {
     "float32": "|out - ref| <= 1e-5 + 1e-5 |ref|",
     "bfloat16": "|out - ref| <= 8e-3 (|ref| + S), S = attention of |V| "
                 "(fp32) at the same element",
+    "int8 pools": "the same two bounds, V dequantized in S; with bf16 q "
+                  "only the plain version rounds p (the int8 programs, as "
+                  "the Pallas ones, do not), which the bound's u S covers",
+    "int8 pools, bf16 q, p unrounded": "against the plain version on "
+                  "q.float(): |out - ref32| <= half a bf16 ulp of out + "
+                  "4e-5 S; the plain version on bf16 q (p rounded) must "
+                  "fail it on the timed inputs",
 }
+# bf16 q on an int8 pool: the int8 programs, as the Pallas ones, do not
+# round p, so they are held as well to the plain version run on q.float()
+# (p unrounded, fp32 output). Between the two lie the kernel's rounding of
+# its output to bf16 (at most half a bf16 ulp of the output) and its
+# hi + lo split of p·vs (<= 2^-16 per term: <= 1.6e-5 S), plus fp32
+# reassociation: |out - ref32| <= half_ulp(out) + 4e-5 S. Rounding p to
+# bf16 (u per term), as the plain version on bf16 q does and as a kernel
+# with one bf16 P·V product would, moves a row by up to u S.
+P_UNROUNDED_S = 4e-5
 PROGRAM_LOGIT_MAE = 2e-2       # kernel vs gather programs, bf16, 24 layers
+PROGRAM_INT8_LOGIT_MAE = 2e-2  # the same with int8 weights and KV
 
 RECORD: dict = {"phases": []}
 RECORD_PATH = "build/chip_smoke.json"
@@ -154,6 +194,15 @@ def device_ms(fn, iters=10) -> float:
                if e.device_type == DeviceType.CUDA) / 1e3 / iters
 
 
+def kernel_ms(fn):
+    """A paged kernel's time per call: its device time from the profiler
+    (``ms``), and CUDA events around 30 back-to-back calls
+    (``ms_events``). A decode kernel runs for tens of microseconds, about
+    what the wrapper takes on the host to launch it, so the events can
+    read the host's launch rate instead of the kernel."""
+    return device_ms(fn, iters=30), cuda_time_ms(fn)
+
+
 def bound_ms(nbytes: float, flops: float, peak_flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
@@ -162,33 +211,68 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
 
 # ------------------------------------------------------------------ cases
 
+def int8_plane(rows, device):
+    """An int8 page plane and its bf16 scale vector from float rows
+    [P, ps, H, K], quantized page by page with the port's own
+    `_quant_write` (each page written from offset 0: its scale is its
+    rows' max |x| / 127)."""
+    n_pages, ps = rows.shape[:2]
+    plane = torch.zeros(rows.shape, dtype=torch.int8, device=device)
+    scale = torch.zeros(n_pages, dtype=torch.bfloat16, device=device)
+    pages = torch.arange(n_pages, device=device).repeat_interleave(ps)
+    offs = torch.arange(ps, device=device).repeat(n_pages)
+    pk._quant_write(plane, scale, pages, offs, rows.flatten(0, 1))
+    return plane, scale
+
+
+def amplitude_rows(rng, n_pages, ps, heads, device):
+    """Normal rows whose pages each have their own amplitude, log-uniform
+    in [0.25, 4]: with equal amplitudes a wrong page's scale would barely
+    move the output."""
+    amp = np.exp(rng.uniform(np.log(0.25), np.log(4.0), n_pages))
+    rows = rng.normal(size=(n_pages, ps, *heads)) * amp[:, None, None, None]
+    return torch.from_numpy(rows.astype(np.float32)).to(device)
+
+
 def paged_pool(rng, lengths, *, ps, n_pg, dtype, device, heads=(H, K),
-               null_rows=()):
+               null_rows=(), quant=False):
     """K/V pools and a [B, n_pg] page table for slots of the given
     lengths. Each slot gets the pages its length needs, drawn from a
     random permutation of the pool (the engine's pages are scattered);
     the rest of its row is the null page 0, and so is all of a row in
-    null_rows (an idle slot, or a mid-prefill slot in a decode view)."""
+    null_rows (an idle slot, or a mid-prefill slot in a decode view).
+    → (k_pool, v_pool, tables, lengths, scales): ``quant`` pools are int8
+    from `amplitude_rows` with scales {"k_scale", "v_scale"}, float pools
+    N(0, 1) in ``dtype`` with scales {}."""
     need = [0 if b in null_rows else -(-int(n) // ps)
             for b, n in enumerate(lengths)]
     assert max(need) <= n_pg, (need, n_pg)
     n_pages = sum(need) + 1
-
-    def plane():
-        return torch.from_numpy(rng.normal(
+    if quant:
+        kp, ks = int8_plane(amplitude_rows(rng, n_pages, ps, heads, device),
+                            device)
+        vp, vs = int8_plane(amplitude_rows(rng, n_pages, ps, heads, device),
+                            device)
+        scales = {"k_scale": ks, "v_scale": vs}
+    else:
+        kp, vp = (torch.from_numpy(rng.normal(
             size=(n_pages, ps, *heads)).astype(np.float32)).to(device, dtype)
-
+            for _ in range(2))
+        scales = {}
     perm = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
     tables = np.zeros((len(lengths), n_pg), np.int32)
     at = 0
     for b, n in enumerate(need):
         tables[b, :n] = perm[at:at + n]
         at += n
-    return plane(), plane(), tables, np.asarray(lengths, np.int32)
+    return kp, vp, tables, np.asarray(lengths, np.int32), scales
 
 
-def abs_v_attention(reference, q, kp, vp, *args):
-    """S of the bf16 bound: the plain version on fp32 copies with |V|."""
+def abs_v_attention(reference, q, kp, vp, *args, **scales):
+    """S of the bf16 bound: the plain version with |V| in fp32 (an int8
+    pool's |codes| with its scales)."""
+    if scales:
+        return reference(q.float(), kp, vp.abs(), *args, **scales)
     return reference(q.float(), kp.float(), vp.float().abs(), *args)
 
 
@@ -224,44 +308,87 @@ def check_close(name, out, ref, s_abs, dtype, live, long):
     return res
 
 
+def half_ulp_bf16(y):
+    """Half the bf16 spacing at each element of y: the most by which
+    rounding a value to bf16 can have moved it to y (0 at y = 0)."""
+    y = y.float()
+    _, e = torch.frexp(y)
+    return torch.where(y == 0, torch.zeros_like(y),
+                       torch.ldexp(torch.ones_like(y), e - 9))
+
+
+def check_p_unrounded(name, out, ref32, p_rounded, s_abs, live, *,
+                      fault_must_fail=False):
+    """A bf16-q int8 program's output against ``ref32``, the plain
+    version on q.float() (p unrounded), on the live rows; ``p_rounded``,
+    the plain version on bf16 q, is a planted fault held to the same
+    bound. → each one's largest share of 4e-5 S taken by its error beyond
+    its output's own rounding (the bound holds iff the share <= 1)."""
+    r, s = ref32.float()[live], s_abs.float()[live]
+
+    def share(y):
+        y = y.float()[live]
+        excess = ((y - r).abs() - half_ulp_bf16(y)).clamp(min=0)
+        return float(torch.where(excess == 0, torch.zeros_like(excess),
+                                 excess / (P_UNROUNDED_S * s)).max())
+
+    res = {"max_share_of_bound": share(out),
+           "p_rounded_plain_share": share(p_rounded)}
+    if res["max_share_of_bound"] > 1.0:
+        raise AssertionError(f"{name}: the int8 program rounds p or "
+                             f"disagrees with the unrounded plain version: "
+                             f"{res}")
+    if fault_must_fail and res["p_rounded_plain_share"] <= 1.0:
+        raise AssertionError(f"{name}: p rounded to bf16 passes the "
+                             f"unrounded bound: {res}")
+    return res
+
+
 def check_decode(rng, tag, lengths, *, ps, n_pg, dtype, device, heads,
-                 null_rows=()):
-    kp, vp, tables, lengths = paged_pool(
+                 null_rows=(), quant=False):
+    kp, vp, tables, lengths, sc = paged_pool(
         rng, lengths, ps=ps, n_pg=n_pg, dtype=dtype, device=device,
-        heads=heads, null_rows=null_rows)
+        heads=heads, null_rows=null_rows, quant=quant)
     q = torch.from_numpy(rng.normal(size=(len(lengths), *heads)).astype(
         np.float32)).to(device, dtype)
     args = [torch.from_numpy(a).to(device) for a in (tables, lengths)]
-    out = pa.paged_attention(q, kp, vp, *args)
+    out = pa.paged_attention(q, kp, vp, *args, **sc)
     torch.cuda.synchronize()
-    ref = pa.reference_paged_attention(q, kp, vp, *args)
-    s_abs = abs_v_attention(pa.reference_paged_attention, q, kp, vp, *args)
+    ref = pa.reference_paged_attention(q, kp, vp, *args, **sc)
+    s_abs = abs_v_attention(pa.reference_paged_attention, q, kp, vp, *args,
+                            **sc)
     live = torch.ones(len(lengths), dtype=torch.bool, device=device)
     long = args[1] >= LONG_ROW
-    return check_close(f"decode {tag}", out, ref, s_abs, dtype, live, long)
+    res = check_close(f"decode {tag}", out, ref, s_abs, dtype, live, long)
+    if quant and dtype == torch.bfloat16:
+        res["p_unrounded"] = check_p_unrounded(
+            f"decode {tag}", out, pa.reference_paged_attention(
+                q.float(), kp, vp, *args, **sc), ref, s_abs, live)
+    return res
 
 
 def check_prefill(rng, tag, rows, C, *, ps, n_pg, width, dtype, device,
-                  heads):
+                  heads, quant=False):
     """rows: (offset, valid tokens) per slot; (0, 0) is an inert row with
     an all-null table. The pool has the pages of n_pg·ps positions; the
     kernel gets the first ``width`` pages of the table."""
     lens = [o + n for o, n in rows]
     inert = {b for b, n in enumerate(lens) if n == 0}
-    kp, vp, tables, lens = paged_pool(
+    kp, vp, tables, lens, sc = paged_pool(
         rng, [n_pg * ps if n else 0 for n in lens], ps=ps, n_pg=n_pg,
-        dtype=dtype, device=device, heads=heads, null_rows=inert)
+        dtype=dtype, device=device, heads=heads, null_rows=inert,
+        quant=quant)
     lens = np.array([o + n for o, n in rows], np.int32)
     offs = np.array([o for o, _ in rows], np.int32)
     q = torch.from_numpy(rng.normal(size=(len(rows), C, *heads)).astype(
         np.float32)).to(device, dtype)
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
             for a in (tables[:, :width], offs, lens)]
-    out = pa.paged_prefill_attention(q, kp, vp, *args)
+    out = pa.paged_prefill_attention(q, kp, vp, *args, **sc)
     torch.cuda.synchronize()
-    ref = pa.reference_paged_prefill_attention(q, kp, vp, *args)
+    ref = pa.reference_paged_prefill_attention(q, kp, vp, *args, **sc)
     s_abs = abs_v_attention(pa.reference_paged_prefill_attention,
-                            q, kp, vp, *args)
+                            q, kp, vp, *args, **sc)
     # Inert rows (lengths 0) are defined differently by the kernel
     # (zeros, the l == 0 guard) and the gather version (mean of V).
     live_slot = args[2] > 0
@@ -270,37 +397,49 @@ def check_prefill(rng, tag, rows, C, *, ps, n_pg, width, dtype, device,
     c = torch.arange(C, device=device)
     attended = torch.minimum(args[2][:, None], args[1][:, None] + c + 1)
     live = live_slot[:, None].expand(-1, C)
-    return check_close(f"prefill {tag}", out, ref, s_abs, dtype, live,
-                       attended >= LONG_ROW)
+    res = check_close(f"prefill {tag}", out, ref, s_abs, dtype, live,
+                      attended >= LONG_ROW)
+    if quant and dtype == torch.bfloat16:
+        res["p_unrounded"] = check_p_unrounded(
+            f"prefill {tag}", out, pa.reference_paged_prefill_attention(
+                q.float(), kp, vp, *args, **sc), ref, s_abs, live)
+    return res
 
 
 def phase_kernels(device, errs):
-    """Each kernel against its plain version: OPT-1.3B's heads at page
-    sizes 16 and 64 in fp32 and bf16, then head dim 128 (the kernels'
-    other tensor-core and vector-width instantiation). Cases: the ragged
-    edge cases on a narrow table; the engine's decode view (16 slots, a
-    table of CAP positions, ragged lengths up to CAP, an idle and a
-    mid-prefill slot); prefill chunks at ragged offsets, full and width-
+    """Each kernel against its plain version, the float programs and then
+    the int8 ones (int8 pools from `amplitude_rows`, quantized by the
+    port's `_quant_write`): OPT-1.3B's heads at page sizes 16 and 64 in
+    fp32 and bf16, then head dim 128 (the kernels' other tensor-core and
+    vector-width instantiation; at both page sizes for int8). Cases: the
+    ragged edge cases on a narrow table; the engine's decode view (16
+    slots, a table of CAP positions, ragged lengths up to CAP, an idle and
+    a mid-prefill slot); prefill chunks at ragged offsets, full and width-
     sliced tables, C=256 (the engine's chunk) and C=40 (a partial query
     tile); and the engine's prefill dispatches (16 rows of 256, most of
     them inert)."""
     rng = np.random.default_rng(0)
     cases = []
-    grid = [((H, K), ps, dt) for ps in (16, 64)
-            for dt in (torch.float32, torch.bfloat16)]
-    grid += [((16, 128), 64, dt) for dt in (torch.float32, torch.bfloat16)]
+    dts = (torch.float32, torch.bfloat16)
+    grid = [((H, K), ps, dt, False) for ps in (16, 64) for dt in dts]
+    grid += [((16, 128), 64, dt, False) for dt in dts]
+    grid += [(heads, ps, dt, True) for heads in ((H, K), (16, 128))
+             for ps in (16, 64) for dt in dts]
 
     def record(kernel, tag, res):
         errs[kernel] = max(errs[kernel], res["max_abs_err"])
         cases.append({"kernel": kernel, "case": tag, **res})
 
-    for heads, ps, dtype in grid:
+    for heads, ps, dtype, quant in grid:
         dn = str(dtype).split(".")[1]
-        kw = dict(ps=ps, dtype=dtype, device=device, heads=heads)
-        tag = f"ps={ps} {dn} heads={heads[0]}x{heads[1]}"
+        kw = dict(ps=ps, dtype=dtype, device=device, heads=heads,
+                  quant=quant)
+        sfx = "_int8" if quant else ""
+        tag = (f"ps={ps} {dn} heads={heads[0]}x{heads[1]}"
+               f"{' int8 pool' if quant else ''}")
         # Decode: length 1, mid-page, page boundary, full table, and an
         # idle slot (length 1 on the null page), table 4 pages wide.
-        record("paged_attention", f"{tag} edge cases", check_decode(
+        record("paged_attention" + sfx, f"{tag} edge cases", check_decode(
             rng, tag, [1, ps // 2 + 1, ps, 4 * ps, 1], n_pg=4,
             null_rows={4}, **kw))
         # Decode as the engine runs it: 16 slots, the full table of CAP
@@ -309,7 +448,7 @@ def phase_kernels(device, errs):
         n_pg = CAP // ps
         lengths = [1, ps // 2 + 1, ps, ps + 1, 700, 1023, 1024, 1025, 1531,
                    1999, CAP - ps, CAP - ps + 1, CAP - 1, CAP, 1, 1000]
-        record("paged_attention", f"{tag} engine view B=16 n_pg={n_pg}",
+        record("paged_attention" + sfx, f"{tag} engine view B=16 n_pg={n_pg}",
                check_decode(rng, tag, lengths, n_pg=n_pg,
                             null_rows={14, 15}, **kw))
         # Prefill: chunk rows at ragged offsets against a 1536-token
@@ -320,7 +459,7 @@ def phase_kernels(device, errs):
             rows = [(0, C), (ps, C), (cap - C, C), (ps + 3, 1),
                     (cap - 40, 40), (0, 0)]   # last: inert row
             ptag = f"{tag} C={C} width={width}"
-            record("paged_prefill_attention", ptag, check_prefill(
+            record("paged_prefill_attention" + sfx, ptag, check_prefill(
                 rng, ptag, rows, C, n_pg=n_pg, width=width, **kw))
         # Prefill as the engine dispatches it: [16, 256] with the live
         # rows first and the rest inert, at the pow-2 width of the
@@ -331,11 +470,11 @@ def phase_kernels(device, errs):
             rows = live_rows + [(0, 0)] * (16 - len(live_rows))
             n_pg = width_tokens // ps
             ptag = f"{tag} engine dispatch 16x256 width={n_pg}"
-            record("paged_prefill_attention", ptag, check_prefill(
+            record("paged_prefill_attention" + sfx, ptag, check_prefill(
                 rng, ptag, rows, 256, n_pg=n_pg, width=n_pg, **kw))
     emit({"phase": "kernels_vs_plain", "tolerance": TOLERANCE,
           "cases": cases})
-    return time_kernels(device, errs)
+    return {**time_kernels(device, errs), **time_int8_kernels(device, errs)}
 
 
 def time_kernels(device, errs):
@@ -369,7 +508,7 @@ def time_kernels(device, errs):
         lengths >= LONG_ROW)
     errs["paged_attention"] = max(errs["paged_attention"],
                                   check["max_abs_err"])
-    ms = cuda_time_ms(lambda: pa.paged_attention(q, kp, vp, *args))
+    ms, ms_events = kernel_ms(lambda: pa.paged_attention(q, kp, vp, *args))
     plain = cuda_time_ms(lambda: pa.reference_paged_attention(
         q, kp, vp, *args), iters=10)
     qs = q[:, :, None, :]
@@ -379,7 +518,8 @@ def time_kernels(device, errs):
     flops = 4 * B * H * T * K
     bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
     timings["paged_attention"] = dict(
-        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+        ms=ms, ms_events=ms_events, plain_ms=plain, library_ms=lib,
+        bound_ms=bms, bound_by=by,
         check=check, shape=f"B={B} H={H} K={K} ctx={T} ps={ps} bf16")
 
     C, off = 256, T - 256
@@ -398,7 +538,8 @@ def time_kernels(device, errs):
         attended >= LONG_ROW)
     errs["paged_prefill_attention"] = max(errs["paged_prefill_attention"],
                                           check["max_abs_err"])
-    ms = cuda_time_ms(lambda: pa.paged_prefill_attention(qp, kp, vp, *args))
+    ms, ms_events = kernel_ms(lambda: pa.paged_prefill_attention(
+        qp, kp, vp, *args))
     plain = cuda_time_ms(lambda: pa.reference_paged_prefill_attention(
         qp, kp, vp, *args), iters=5)
     qpos = off + torch.arange(C, device=device)
@@ -412,10 +553,169 @@ def time_kernels(device, errs):
     flops = 4 * B * H * K * attended
     bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
     timings["paged_prefill_attention"] = dict(
-        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+        ms=ms, ms_events=ms_events, plain_ms=plain, library_ms=lib,
+        bound_ms=bms, bound_by=by,
         check=check,
         shape=f"B={B} C={C} H={H} K={K} ctx={T} offset={off} ps={ps} bf16")
     emit({"phase": "kernel_timing", **timings})
+    return timings
+
+
+def share_of_bound(out, ref, s_abs):
+    """Largest |out - ref| / (8e-3 (|ref| + S)), the bf16 bound's share."""
+    o, r = out.float(), ref.float()
+    return float(((o - r).abs() / (BF16_REL * (r.abs() + s_abs))).max())
+
+
+def planted_int8_faults(reference, q, kp, vp, tables, args, scales, *,
+                        shift_offsets):
+    """The bf16 bound against a wrong plain version on the timed inputs
+    (``args``: the index arrays after the table) → each fault's largest
+    share of the bound, which must exceed 1:
+    - the scales indexed by table position j instead of page id: the
+      plain version given scale vectors s' with s'[tables[b, j]] = s[j];
+    - one page dropped: page 1 of every slot taken out of its table (the
+      rest moved up, a null page appended, lengths and, for prefill, the
+      offsets moved back by one page; decode has no positions)."""
+    ps = kp.shape[1]
+    ref = reference(q, kp, vp, tables, *args, **scales)
+    s_abs = abs_v_attention(reference, q, kp, vp, tables, *args, **scales)
+    by_pos = {}
+    B, n_pg = tables.shape
+    idx = tables.long().flatten()
+    for name, sc in scales.items():
+        fake = sc.clone()
+        fake[idx] = sc[torch.arange(n_pg, device=sc.device).repeat(B)]
+        by_pos[name] = fake
+    dropped = torch.cat([tables[:, :1], tables[:, 2:],
+                         torch.zeros_like(tables[:, :1])], dim=1)
+    moved = [a - ps for a in args] if shift_offsets else [args[0] - ps]
+    out = {
+        "scale by table position": share_of_bound(
+            reference(q, kp, vp, tables, *args, **by_pos), ref, s_abs),
+        "page 1 dropped": share_of_bound(
+            reference(q, kp, vp, dropped, *moved, **scales), ref, s_abs),
+    }
+    if min(out.values()) <= 1.0:
+        raise AssertionError(f"a planted fault passes the bf16 bound: {out}")
+    return out
+
+
+P_ROUNDED_FAULT = "p rounded to bf16 (the plain version on bf16 q)"
+
+
+def time_int8_kernels(device, errs):
+    """The int8 programs at the float kernels' timed shapes (B=16 slots,
+    1024-token contexts, ps=64, bf16 q), on int8 pools from
+    `amplitude_rows`: each held once more to its plain version, two
+    planted faults in the plain version held to the same bound, then
+    timed beside its bound, its plain version and SDPA on the gathered
+    timeline dequantized to bf16 (the dequantization not timed)."""
+    rng = np.random.default_rng(6)
+    B, T, ps, dt = 16, 1024, 64, torch.bfloat16
+    n_pg = T // ps
+    n_pages = B * n_pg + 1
+    kp, ks = int8_plane(amplitude_rows(rng, n_pages, ps, (H, K), device),
+                        device)
+    vp, vs = int8_plane(amplitude_rows(rng, n_pages, ps, (H, K), device),
+                        device)
+    sc = {"k_scale": ks, "v_scale": vs}
+    perm = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
+    tables = torch.from_numpy(perm.reshape(B, n_pg)).to(device)
+    lengths = torch.full((B,), T, dtype=torch.int32, device=device)
+    kt, vt = pa._gather_timeline(kp, vp, tables, ks, vs)   # fp32 [B, T, H, K]
+    kt = kt.transpose(1, 2).to(dt).contiguous()            # [B, H, T, K]
+    vt = vt.transpose(1, 2).to(dt).contiguous()
+    scale_bytes = 2 * B * n_pg * 2       # one bf16 K and V scale per page
+    timings, planted = {}, {}
+
+    q = torch.from_numpy(rng.normal(size=(B, H, K)).astype(np.float32)).to(
+        device, dt)
+    args = (tables, lengths)
+    out = pa.paged_attention(q, kp, vp, *args, **sc)
+    torch.cuda.synchronize()
+    ref = pa.reference_paged_attention(q, kp, vp, *args, **sc)
+    s_abs = abs_v_attention(pa.reference_paged_attention, q, kp, vp, *args,
+                            **sc)
+    every = torch.ones(B, dtype=torch.bool, device=device)
+    check = check_close("decode int8 timing shape", out, ref, s_abs, dt,
+                        every, lengths >= LONG_ROW)
+    check["p_unrounded"] = check_p_unrounded(
+        "decode int8 timing shape", out, pa.reference_paged_attention(
+            q.float(), kp, vp, *args, **sc), ref, s_abs, every,
+        fault_must_fail=True)
+    errs["paged_attention_int8"] = max(errs["paged_attention_int8"],
+                                       check["max_abs_err"])
+    planted["paged_attention_int8"] = {
+        **planted_int8_faults(pa.reference_paged_attention, q, kp, vp,
+                              tables, (lengths,), sc, shift_offsets=False),
+        P_ROUNDED_FAULT: check["p_unrounded"]["p_rounded_plain_share"]}
+    ms, ms_events = kernel_ms(lambda: pa.paged_attention(q, kp, vp, *args,
+                                                         **sc))
+    plain = cuda_time_ms(lambda: pa.reference_paged_attention(
+        q, kp, vp, *args, **sc), iters=10)
+    lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], kt, vt))
+    nbytes = (2 * B * T * H * K + 2 * B * H * K * 2 + scale_bytes
+              + tables.numel() * 4 + B * 4)
+    bms, by = bound_ms(nbytes, 4 * B * H * T * K, BF16_FLOPS)
+    timings["paged_attention_int8"] = dict(
+        ms=ms, ms_events=ms_events, plain_ms=plain, library_ms=lib,
+        bound_ms=bms, bound_by=by,
+        bytes=nbytes, check=check,
+        shape=f"B={B} H={H} K={K} ctx={T} ps={ps} bf16 q, int8 pool")
+
+    C, off = 256, T - 256
+    qp = torch.from_numpy(rng.normal(size=(B, C, H, K)).astype(
+        np.float32)).to(device, dt)
+    offs = torch.full((B,), off, dtype=torch.int32, device=device)
+    args = (tables, offs, lengths)
+    out = pa.paged_prefill_attention(qp, kp, vp, *args, **sc)
+    torch.cuda.synchronize()
+    attended = torch.minimum(
+        lengths[:, None], offs[:, None] + torch.arange(C, device=device) + 1)
+    ref = pa.reference_paged_prefill_attention(qp, kp, vp, *args, **sc)
+    s_abs = abs_v_attention(pa.reference_paged_prefill_attention, qp, kp, vp,
+                            *args, **sc)
+    every = torch.ones(B, C, dtype=torch.bool, device=device)
+    check = check_close("prefill int8 timing shape", out, ref, s_abs, dt,
+                        every, attended >= LONG_ROW)
+    check["p_unrounded"] = check_p_unrounded(
+        "prefill int8 timing shape", out,
+        pa.reference_paged_prefill_attention(qp.float(), kp, vp, *args,
+                                             **sc), ref, s_abs, every,
+        fault_must_fail=True)
+    errs["paged_prefill_attention_int8"] = max(
+        errs["paged_prefill_attention_int8"], check["max_abs_err"])
+    planted["paged_prefill_attention_int8"] = {
+        **planted_int8_faults(pa.reference_paged_prefill_attention, qp, kp,
+                              vp, tables, (offs, lengths), sc,
+                              shift_offsets=True),
+        P_ROUNDED_FAULT: check["p_unrounded"]["p_rounded_plain_share"]}
+    ms, ms_events = kernel_ms(lambda: pa.paged_prefill_attention(
+        qp, kp, vp, *args, **sc))
+    plain = cuda_time_ms(lambda: pa.reference_paged_prefill_attention(
+        qp, kp, vp, *args, **sc), iters=5)
+    mask = (torch.arange(T, device=device)[None, :]
+            <= (off + torch.arange(C, device=device))[:, None])
+    qpt = qp.transpose(1, 2).contiguous()
+    lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qpt, kt, vt, attn_mask=mask))
+    nbytes = (2 * B * T * H * K + 2 * B * C * H * K * 2 + scale_bytes
+              + tables.numel() * 4 + 2 * B * 4)
+    flops = 4 * B * H * K * sum(off + c + 1 for c in range(C))
+    bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
+    timings["paged_prefill_attention_int8"] = dict(
+        ms=ms, ms_events=ms_events, plain_ms=plain, library_ms=lib,
+        bound_ms=bms, bound_by=by,
+        bytes=nbytes, flops=flops, check=check,
+        shape=f"B={B} C={C} H={H} K={K} ctx={T} offset={off} ps={ps} "
+              "bf16 q, int8 pool")
+    emit({"phase": "int8_kernel_timing", **timings,
+          "planted_faults_vs_bf16_bound": planted,
+          "note": f"{P_ROUNDED_FAULT!r} is read against the p-unrounded "
+                  "bound (share of 4e-5 S beyond the output's rounding), "
+                  "the other faults against the bf16 bound"})
     return timings
 
 
@@ -672,52 +972,115 @@ def time_flash(device, errs):
 
 
 def make_params(device):
+    """opt_1_3b's fp32 masters from seed 0 and their bf16 serving copy:
+    the int8 runs quantize the same masters."""
     cfg = gpt.GPTConfig.opt_1_3b(dtype=torch.bfloat16)
     gen = torch.Generator(device=device).manual_seed(0)
-    params = gpt.init_params(cfg, gen, device)
-    served = pk.serving_params(cfg, params, device)
-    del params
-    torch.cuda.empty_cache()
-    return cfg, served
+    masters = gpt.init_params(cfg, gen, device)
+    return cfg, masters, pk.serving_params(cfg, masters, device)
 
 
-def phase_programs(device, cfg, params):
+def run_programs(device, cfg, params, pool, impl):
+    """One prefill_chunk_paged dispatch (rows: 256 tokens at offset 0,
+    200 at 256, 17 at 0, an inert row) then one decode_step_paged on a
+    copy of ``pool`` → the live rows' fp32 logits of each."""
     rng = np.random.default_rng(2)
-    ps, C, width = 64, 256, 8
-    pool = pk.init_paged_kv(cfg, 4 * width, ps, device=device)
+    ps, width = pool["k"].shape[2], 8
     tables = np.zeros((4, width), np.int32)
     tables[:3] = np.arange(1, 3 * width + 1).reshape(3, width)
     offsets = np.array([0, 256, 0, 0], np.int32)
     n_valid = np.array([256, 200, 17, 0], np.int32)
-    toks = rng.integers(1, cfg.vocab_size, size=(4, C)).astype(np.int32)
+    toks = rng.integers(1, cfg.vocab_size, size=(4, 256)).astype(np.int32)
     dev = lambda a: torch.from_numpy(a).to(device)
-    pools = {impl: {k: v.clone() for k, v in pool.items()}
-             for impl in ("kernel", "gather")}
-    logits = {}
-    for impl, p in pools.items():
-        lg, _ = pk.prefill_chunk_paged(cfg, params, dev(toks), p, dev(tables),
-                                       dev(offsets), dev(n_valid),
-                                       attn_impl=impl)
-        lg2, _ = pk.decode_step_paged(
-            cfg, params, dev(toks[:, 0].copy()), p,
-            dev((offsets + n_valid).astype(np.int32)), dev(tables),
-            attn_impl=impl)
-        torch.cuda.synchronize()
-        logits[impl] = (lg[:3].float(), lg2[:3].float())
+    p = {k: v.clone() for k, v in pool.items()}
+    lg, _ = pk.prefill_chunk_paged(cfg, params, dev(toks), p, dev(tables),
+                                   dev(offsets), dev(n_valid), attn_impl=impl)
+    lg2, _ = pk.decode_step_paged(
+        cfg, params, dev(toks[:, 0].copy()), p,
+        dev((offsets + n_valid).astype(np.int32)), dev(tables),
+        attn_impl=impl)
+    torch.cuda.synchronize()
+    return lg[:3].float(), lg2[:3].float()
+
+
+PROGRAM_NAMES = ("prefill_chunk_paged", "decode_step_paged")
+
+
+def logit_diff(a, b, vocab):
+    if not (torch.isfinite(a).all() and a.shape == (3, vocab)):
+        raise AssertionError(f"bad logits {tuple(a.shape)}")
+    return {"logit_mae": float((a - b).abs().mean()),
+            "logit_max_abs": float((a - b).abs().max()),
+            "logit_mean_abs": float(b.abs().mean()),
+            "argmax_equal": int((a.argmax(-1) == b.argmax(-1)).sum())}
+
+
+def phase_programs(device, cfg, params):
+    pool = pk.init_paged_kv(cfg, 32, 64, device=device)
+    logits = {impl: run_programs(device, cfg, params, pool, impl)
+              for impl in ("kernel", "gather")}
     out = {"phase": "programs", "config": "opt_1_3b bf16 24 layers",
            "mae_bound": PROGRAM_LOGIT_MAE}
-    for i, name in enumerate(("prefill_chunk_paged", "decode_step_paged")):
-        a, b = logits["kernel"][i], logits["gather"][i]
-        if not (torch.isfinite(a).all() and a.shape == (3, cfg.vocab_size)):
-            raise AssertionError(f"{name}: bad logits {tuple(a.shape)}")
-        mae = float((a - b).abs().mean())
-        out[name] = {"logit_mae": mae, "logit_max_abs": float(
-            (a - b).abs().max()), "logit_mean_abs": float(b.abs().mean()),
-            "argmax_equal": int((a.argmax(-1) == b.argmax(-1)).sum())}
-        if mae > PROGRAM_LOGIT_MAE:
-            raise AssertionError(f"{name}: kernel vs gather logit MAE {mae}"
-                                 f" > {PROGRAM_LOGIT_MAE}")
+    for i, name in enumerate(PROGRAM_NAMES):
+        out[name] = logit_diff(logits["kernel"][i], logits["gather"][i],
+                               cfg.vocab_size)
+        if out[name]["logit_mae"] > PROGRAM_LOGIT_MAE:
+            raise AssertionError(f"{name}: kernel vs gather logit MAE "
+                                 f"{out[name]['logit_mae']} > "
+                                 f"{PROGRAM_LOGIT_MAE}")
     emit(out)
+
+
+def first_page_nulled(fn):
+    """A planted fault in a paged-attention wrapper: every slot's first
+    page read from the null page instead (in every layer)."""
+    def wrong(q, k_pool, v_pool, tables, *args, **kw):
+        tables = tables.clone()
+        tables[:, 0] = 0
+        return fn(q, k_pool, v_pool, tables, *args, **kw)
+    return wrong
+
+
+def phase_programs_int8(device, cfg, masters, served):
+    """The int8 programs at full width: int8 weights quantized from the
+    masters, copies of one int8 pool, "kernel" against "gather", held to
+    PROGRAM_INT8_LOGIT_MAE, which a planted fault (each slot's first page
+    read from the null page, in every layer) must exceed; then, as a
+    fidelity reading with no limit, int8 weights against the bf16 weights
+    of the same masters (both on the int8 pool, kernel path)."""
+    w8 = pk.serving_params(cfg, gpt.quantize_params(masters), device)
+    pool = pk.init_paged_kv(cfg, 32, 64, kv_dtype="int8", device=device)
+    logits = {impl: run_programs(device, cfg, w8, pool, impl)
+              for impl in ("kernel", "gather")}
+    real = pk.paged_attention, pk.paged_prefill_attention
+    pk.paged_attention, pk.paged_prefill_attention = map(first_page_nulled,
+                                                         real)
+    try:
+        faulty = run_programs(device, cfg, w8, pool, "kernel")
+    finally:
+        pk.paged_attention, pk.paged_prefill_attention = real
+    bf16_w = run_programs(device, cfg, served, pool, "kernel")
+    out = {"phase": "programs_int8",
+           "config": "opt_1_3b bf16 24 layers, int8 weights, int8 KV",
+           "mae_bound": PROGRAM_INT8_LOGIT_MAE,
+           "planted_fault": "each slot's first page read from the null page"}
+    for i, name in enumerate(PROGRAM_NAMES):
+        ref = logits["gather"][i]
+        out[name] = {
+            **logit_diff(logits["kernel"][i], ref, cfg.vocab_size),
+            "planted_fault_logit_mae": logit_diff(
+                faulty[i], ref, cfg.vocab_size)["logit_mae"],
+            "int8_vs_bf16_weights": logit_diff(logits["kernel"][i],
+                                               bf16_w[i], cfg.vocab_size)}
+        if out[name]["logit_mae"] > PROGRAM_INT8_LOGIT_MAE:
+            raise AssertionError(f"{name}: int8 kernel vs gather logit MAE "
+                                 f"{out[name]['logit_mae']} > "
+                                 f"{PROGRAM_INT8_LOGIT_MAE}")
+        if out[name]["planted_fault_logit_mae"] <= PROGRAM_INT8_LOGIT_MAE:
+            raise AssertionError(f"{name}: the planted fault passes: {out}")
+    emit(out)
+    del w8
+    torch.cuda.empty_cache()
 
 
 KERNEL_CATEGORIES = (       # first match wins, on the lower-cased name
@@ -792,10 +1155,14 @@ def _profiled(fn, top=8):
     }
 
 
-def phase_profile(device, cfg, params):
+def phase_profile(device, cfg, masters, params):
     """Where the time goes in the engine's two dispatches at the engine
     phase's shapes: one fused decode window (k=8, 16 slots at 1024-token
-    contexts) and one prefill dispatch (16 rows x 256, two live rows)."""
+    contexts) and one prefill dispatch (16 rows x 256, two live rows);
+    then the decode window's device time with int8 weights (quantized
+    from the same masters) against bf16 weights, on the float pool and
+    with the int8 pool, and the window's K/V writes alone into each pool
+    (the float pool's index_put against the int8 pool's _quant_write)."""
     B, T, ps = 16, 1024, 64
     n_pg = T // ps
     pool = pk.init_paged_kv(cfg, B * n_pg, ps, device=device)
@@ -805,10 +1172,45 @@ def phase_profile(device, cfg, params):
     pos = torch.full((B,), T - 16, dtype=torch.int32, device=device)
     temps = torch.zeros(B, device=device)
     gen = torch.Generator(device=device).manual_seed(0)
-    decode = _profiled(lambda: pk.decode_multi_paged(
-        cfg, params, toks, pool, pos, tables, 8, temps, gen,
-        attn_impl="kernel"))
+
+    def window(weights, kv):
+        return lambda: pk.decode_multi_paged(
+            cfg, weights, toks, kv, pos, tables, 8, temps, gen,
+            attn_impl="kernel")
+
+    decode = _profiled(window(params, pool))
     decode["per_step_wall_ms"] = decode["wall_ms"] / 8
+    w8 = pk.serving_params(cfg, gpt.quantize_params(masters), device)
+    pool8 = pk.init_paged_kv(cfg, B * n_pg, ps, kv_dtype="int8",
+                             device=device)
+    gap = {"bf16 weights, bf16 KV": decode}
+    gap["int8 weights, bf16 KV"] = _profiled(window(w8, pool))
+    gap["int8 weights, int8 KV"] = _profiled(window(w8, pool8))
+    gap["bf16 weights, int8 KV"] = _profiled(window(params, pool8))
+    weight_gap = {arm: {k: r[k] for k in ("device_busy_ms", "wall_ms",
+                                          "host_op_calls",
+                                          "device_ms_by_category")}
+                  for arm, r in gap.items()}
+    # The window's K/V writes alone (8 steps x n_layers, both sides), into
+    # each pool: what _quant_write adds to the int8-KV window on the host.
+    rows = torch.randn(B, cfg.n_heads, cfg.head_dim, device=device,
+                       dtype=cfg.dtype)
+    wpage = tables[:, (T - 16) // ps].long()
+    woff = torch.full((B,), (T - 16) % ps, dtype=torch.int64, device=device)
+
+    def writes(kv):
+        def run():
+            for _ in range(8):
+                for l in range(cfg.n_layers):
+                    pk._write_rows(kv, l, wpage, woff, rows, rows, cfg.dtype,
+                                   "k_scale" in kv)
+        return run
+    kv_writes = {arm: {k: r[k] for k in ("wall_ms", "device_busy_ms",
+                                         "host_op_calls")}
+                 for arm, r in (("bf16 KV", _profiled(writes(pool))),
+                                ("int8 KV", _profiled(writes(pool8))))}
+    del w8, pool8
+    torch.cuda.empty_cache()
     ptoks = torch.ones(B, 256, dtype=torch.int32, device=device)
     offs = torch.zeros(B, dtype=torch.int32, device=device)
     nv = torch.from_numpy(np.array([256, 256] + [0] * (B - 2),
@@ -817,23 +1219,37 @@ def phase_profile(device, cfg, params):
         cfg, params, ptoks, pool, tables[:, :4].contiguous(), offs, nv,
         attn_impl="kernel"))
     emit({"phase": "profile", "decode_window_k8": decode,
-          "prefill_dispatch_16x256": prefill})
+          "prefill_dispatch_16x256": prefill,
+          "decode_window_k8_device_ms_by_weights_and_kv": weight_gap,
+          "decode_window_k8_kv_writes_alone": kv_writes})
 
 
-def phase_engine(device, cfg, params):
+ENGINE_PROMPT_SEED, ENGINE_TOKENS = 3, 32
+
+
+def engine_prompts(cfg):
+    rng = np.random.default_rng(ENGINE_PROMPT_SEED)
+    lengths = rng.integers(128, 1537, size=16)
+    return [list(map(int, rng.integers(1, cfg.vocab_size, n)))
+            for n in lengths]
+
+
+def run_engine(device, cfg, params, **knobs):
+    """LLMEngine(opt_1_3b) serving the 16 seeded prompts through
+    start()/submit(), 32 greedy tokens each, with every paged launch
+    counter zeroed just before and read just after. → (engine, requests,
+    launches, wall seconds); raises on a request error, a bad output or
+    page accounting that does not close."""
     eng = LLMEngine(cfg, params, n_slots=16, max_len=2048, page_size=64,
                     prefill_chunk=256, prefill_token_budget=512,
-                    attn_impl="kernel", device=device)
-    rng = np.random.default_rng(3)
-    lengths = rng.integers(128, 1537, size=16)
-    prompts = [list(map(int, rng.integers(1, cfg.vocab_size, n)))
-               for n in lengths]
+                    attn_impl="kernel", device=device, **knobs)
+    prompts = engine_prompts(cfg)
     torch.cuda.synchronize()
     pa.reset_launch_counts()
     t0 = time.perf_counter()
     eng.start()
     try:
-        reqs = [eng.submit(p, max_tokens=32) for p in prompts]
+        reqs = [eng.submit(p, max_tokens=ENGINE_TOKENS) for p in prompts]
         for r in reqs:
             if not r.done.wait(timeout=600):
                 raise AssertionError("engine request timed out")
@@ -842,12 +1258,15 @@ def phase_engine(device, cfg, params):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"paged_attention": pa.paged_attention.launches,
-                "paged_prefill_attention": pa.paged_prefill_attention.launches}
+                "paged_prefill_attention": pa.paged_prefill_attention.launches,
+                "paged_attention_int8": pa.paged_attention.int8_launches,
+                "paged_prefill_attention_int8":
+                    pa.paged_prefill_attention.int8_launches}
     errors = [r.error for r in reqs if r.error is not None]
     if errors:
         raise AssertionError(f"engine request errors: {errors[:3]}")
     for r in reqs:
-        if len(r.out_ids) != 32 or r.truncated or not all(
+        if len(r.out_ids) != ENGINE_TOKENS or r.truncated or not all(
                 0 <= t < cfg.vocab_size for t in r.out_ids):
             raise AssertionError(f"bad output for {r.request_id}: "
                                  f"{len(r.out_ids)} tokens")
@@ -855,32 +1274,95 @@ def phase_engine(device, cfg, params):
     if not (acc["closure"] and acc["refs_consistent"]
             and acc["free"] == acc["total"]):
         raise AssertionError(f"page accounting open: {acc}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel never launched: {launches}")
+    return eng, reqs, launches, wall
+
+
+def engine_record(cfg, eng, reqs, launches, wall, decode, prefill):
+    """The phase's JSON line: counts, launches per step and per dispatch
+    of the programs ``decode`` and ``prefill`` ran, and the end-to-end
+    metrics."""
     m = eng.metrics()
-    out = {"phase": "engine", "config": "opt_1_3b bf16",
-           "requests": len(reqs), "prompt_tokens": int(lengths.sum()),
-           "wall_s": wall, "launches": launches,
-           "decode_steps": m["decode_steps"],
-           "decode_windows": m["decode_windows"],
-           "decode_launches_per_step": (
-               launches["paged_attention"] / max(1, m["decode_steps"])),
-           "decode_launches_per_window": (
-               launches["paged_attention"] / max(1, m["decode_windows"])),
-           "prefill_dispatches": m["prefill_dispatches"],
-           "prefill_launches_per_dispatch": (
-               launches["paged_prefill_attention"]
-               / max(1, m["prefill_dispatches"])),
-           "engine_decode_tok_s": m.get("engine_decode_tok_s"),
-           "engine_prefill_tok_s": m.get("engine_prefill_tok_s"),
-           "ttft_ms_p50": m.get("ttft_ms_p50"),
-           "ttft_ms_p95": m.get("ttft_ms_p95"),
-           "decode_step_ms_p50": m.get("decode_step_ms_p50"),
-           "decode_step_ms_p95": m.get("decode_step_ms_p95"),
-           "preemptions": m["preemptions"],
-           "kv_pages_free_min": m["kv_pages_free_min"],
-           "page_accounting": acc}
-    emit(out)
+    steps, dispatches = m["decode_steps"], m["prefill_dispatches"]
+    return {"requests": len(reqs),
+            "prompt_tokens": sum(len(r.prompt_ids) for r in reqs),
+            "wall_s": wall, "launches": launches,
+            "decode_steps": steps, "decode_windows": m["decode_windows"],
+            "decode_launches_per_step": launches[decode] / max(1, steps),
+            "decode_launches_per_window": (
+                launches[decode] / max(1, m["decode_windows"])),
+            "prefill_dispatches": dispatches,
+            "prefill_launches_per_dispatch": (
+                launches[prefill] / max(1, dispatches)),
+            **{k: m.get(k) for k in (
+                "engine_decode_tok_s", "engine_prefill_tok_s", "ttft_ms_p50",
+                "ttft_ms_p95", "decode_step_ms_p50", "decode_step_ms_p95",
+                "preemptions", "kv_pages_free_min", "kv_pool_bytes",
+                "llm_weight_dtype", "llm_kv_dtype")},
+            "weight_bytes": sum(t.numel() * t.element_size()
+                                for t in eng.params.values()),
+            "page_accounting": eng.page_accounting()}
+
+
+def phase_engine(device, cfg, params):
+    """The float engine (bf16 weights and KV) on the float programs."""
+    eng, reqs, launches, wall = run_engine(device, cfg, params)
+    if min(launches["paged_attention"],
+           launches["paged_prefill_attention"]) <= 0:
+        raise AssertionError(f"a kernel never launched: {launches}")
+    if launches["paged_attention_int8"] or launches[
+            "paged_prefill_attention_int8"]:
+        raise AssertionError(f"an int8 program ran in the float engine: "
+                             f"{launches}")
+    out = engine_record(cfg, eng, reqs, launches, wall, "paged_attention",
+                        "paged_prefill_attention")
+    emit({"phase": "engine", "config": "opt_1_3b bf16", **out})
+    return launches, out, [r.out_ids for r in reqs]
+
+
+def agreement(streams, ref):
+    """Per request, the share of its tokens before the first one that
+    differs from the reference stream's."""
+    shares = []
+    for a, b in zip(streams, ref):
+        n = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), len(a))
+        shares.append(n / len(a))
+    return shares
+
+
+def phase_engine_int8(device, cfg, masters, float_run, float_streams):
+    """The same traffic on LLMEngine(opt_1_3b, weight_dtype="int8",
+    kv_dtype="int8") from the fp32 masters (quantized at load): exactly
+    n_layers int8 launches per decode step and per prefill dispatch, no
+    float paged launch, and kv_pool_bytes = the bf16 engine's / 2 plus
+    the two bf16 [L, P+1] scale planes."""
+    eng, reqs, launches, wall = run_engine(device, cfg, masters,
+                                           weight_dtype="int8",
+                                           kv_dtype="int8")
+    out = engine_record(cfg, eng, reqs, launches, wall,
+                        "paged_attention_int8", "paged_prefill_attention_int8")
+    L = cfg.n_layers
+    if launches["paged_attention"] or launches["paged_prefill_attention"]:
+        raise AssertionError(f"a float program ran in the int8 engine: "
+                             f"{launches}")
+    if (launches["paged_attention_int8"] != L * out["decode_steps"]
+            or launches["paged_prefill_attention_int8"]
+            != L * out["prefill_dispatches"] or not out["decode_steps"]):
+        raise AssertionError(f"int8 launches {launches} are not {L} per "
+                             f"decode step and per prefill dispatch: {out}")
+    scale_planes = 2 * L * (eng.n_pages + 1) * 2
+    expect = float_run["kv_pool_bytes"] // 2 + scale_planes
+    if out["kv_pool_bytes"] != expect:
+        raise AssertionError(f"kv_pool_bytes {out['kv_pool_bytes']} != "
+                             f"{expect} (bf16 engine's / 2 + scale planes)")
+    shares = agreement([r.out_ids for r in reqs], float_streams)
+    emit({"phase": "engine_int8", "config": "opt_1_3b bf16, int8 weights "
+          "(from the fp32 masters), int8 KV", **out,
+          "kv_pool_bytes_expected": expect,
+          "weight_bytes_bf16_engine": float_run["weight_bytes"],
+          "agreement_with_bf16_engine": {
+              "share_before_first_divergence": shares,
+              "mean": float(np.mean(shares)),
+              "identical_streams": sum(x == 1.0 for x in shares)}})
     return launches
 
 
@@ -1097,6 +1579,12 @@ def main(argv=None) -> int:
                      "ray_tpu/ops/attention.py:182"),
         "flash_dkv": ("ray_tpu_torch/ops/csrc/flash_bwd.cu",
                       "ray_tpu/ops/attention.py:224"),
+        # The int8 programs of the two paged kernels (quantized=True there).
+        "paged_attention_int8": ("ray_tpu_torch/ops/csrc/paged_decode.cu",
+                                 "ray_tpu/ops/paged_attention.py:55"),
+        "paged_prefill_attention_int8": (
+            "ray_tpu_torch/ops/csrc/paged_prefill.cu",
+            "ray_tpu/ops/paged_attention.py:206"),
     }
     errs = dict.fromkeys(meta, 0.0)
     timings, launches = {}, {}
@@ -1104,14 +1592,24 @@ def main(argv=None) -> int:
         timings.update(phase_kernels(device, errs))
         timings.update(phase_flash_kernels(device, errs))
     if want("programs") or want("profile") or want("engine"):
-        cfg, params = make_params(device)
+        cfg, masters, params = make_params(device)
         if want("programs"):
             phase_programs(device, cfg, params)
+            phase_programs_int8(device, cfg, masters, params)
         if want("profile"):
-            phase_profile(device, cfg, params)
+            phase_profile(device, cfg, masters, params)
         if want("engine"):
-            launches.update(phase_engine(device, cfg, params))
-        del cfg, params
+            # Each serving path is read from its own run: the float
+            # programs' counts from the float engine, the int8 programs'
+            # from the int8 engine (each run zeroes every count first).
+            counts, float_run, streams = phase_engine(device, cfg, params)
+            launches.update({k: counts[k] for k in (
+                "paged_attention", "paged_prefill_attention")})
+            counts = phase_engine_int8(device, cfg, masters, float_run,
+                                       streams)
+            launches.update({k: counts[k] for k in (
+                "paged_attention_int8", "paged_prefill_attention_int8")})
+        del cfg, masters, params
         torch.cuda.empty_cache()
     if want("train"):
         launches.update(phase_train(device))

@@ -1,8 +1,9 @@
 """GPT decoder: configuration, parameters, forward and loss (PyTorch).
 
 Counterpart of ``ray_tpu/models/gpt.py`` (GPTConfig, param_specs,
-init_params, weight_view, stack_block_params, _layer_norm, _rotary,
-_attention, _block, forward_hidden, forward, loss_fn, num_params).
+init_params, QUANT_RULES, quant_axes, quantize_params, dequant,
+weight_view, stack_block_params, _layer_norm, _rotary, _attention,
+_block, forward_hidden, forward, loss_fn, num_params).
 Parameters are a flat dict of tensors; block weights carry a leading
 ``layers`` axis exactly as in the JAX package, so a JAX checkpoint maps
 one to one (``ray_tpu_torch/_bridge.py``). A Python loop over layer
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from typing import Any
 
 import torch
@@ -170,15 +172,65 @@ def init_params(cfg: GPTConfig, generator: torch.Generator | None = None,
     return params
 
 
+# --------------------------------------------------------------------------
+# int8 weight quantization (serving), as in the JAX package: symmetric
+# per-output-channel int8 for the matmul planes only. Each rule names the
+# CONTRACTION axes (reduced with keepdim), so a quantized leaf `name`
+# gains an fp32 `name_scale` companion of the same rank. Norms,
+# embeddings, biases and the LM head stay float.
+
+QUANT_RULES: tuple = (
+    (r"^w[qkv]$", (1,)),      # [L, D, H, K]: reduce D  → scale [L, 1, H, K]
+    (r"^wo$", (1, 2)),        # [L, H, K, D]: reduce HK → scale [L, 1, 1, D]
+    (r"^w_up$", (1,)),        # [L, D, F]:    reduce D  → scale [L, 1, F]
+    (r"^w_down$", (1,)),      # [L, F, D]:    reduce F  → scale [L, 1, D]
+)
+
+
+def quant_axes(name: str):
+    """Contraction axes for a quantizable leaf name, else None."""
+    for pat, axes in QUANT_RULES:
+        if re.search(pat, name):
+            return axes
+    return None
+
+
+def quantize_params(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Symmetric per-output-channel int8 quantization of the matmul
+    weights (QUANT_RULES), from their fp32 values. Idempotent: int8
+    leaves pass through with their existing scales."""
+    out = dict(params)
+    for name, w in params.items():
+        axes = quant_axes(name)
+        if axes is None or name.endswith("_scale") or w.dtype == torch.int8:
+            continue
+        w32 = w.float()
+        absmax = w32.abs().amax(dim=axes, keepdim=True)
+        scale = torch.clamp(absmax, min=1e-8) / 127.0
+        out[name] = torch.clamp(torch.round(w32 / scale),
+                                -127, 127).to(torch.int8)
+        out[name + "_scale"] = scale
+    return out
+
+
+def dequant(plane: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """int8 plane → ``dtype``, the product taken in ``dtype`` as the JAX
+    package takes it (an fp32 product cast afterwards rounds otherwise).
+    Eager PyTorch materializes the float plane here, where XLA fuses it
+    into the consuming matmul."""
+    return plane.to(dtype) * scale.to(dtype)
+
+
 def weight_view(tree: dict[str, torch.Tensor], name: str,
                 dtype) -> torch.Tensor:
-    """Compute-dtype view of weight `name` (float planes only; int8
-    planes are not ported yet). ``Tensor.to`` returns the tensor itself
-    when it already has ``dtype``, so weights cast once at load cost
-    nothing here."""
+    """Compute-dtype view of weight `name`: dequantized when the stored
+    plane is int8 (its ``{name}_scale`` companion rides in the same
+    tree), a cast otherwise. ``Tensor.to`` returns the tensor itself when
+    it already has ``dtype``, so weights cast once at load cost nothing
+    here."""
     w = tree[name]
     if w.dtype == torch.int8:
-        raise NotImplementedError("int8 weights not yet ported")
+        return dequant(w, tree[name + "_scale"], dtype)
     return w.to(dtype)
 
 
@@ -190,14 +242,19 @@ _BLOCK_KEYS = (
 
 def stack_block_params(params: dict[str, torch.Tensor],
                        dtype=None) -> dict[str, torch.Tensor]:
-    """Per-layer stacked leaf dict (`_BLOCK_KEYS`), float leaves cast to
-    `dtype` when given. Layer ``l`` of a leaf is ``leaf[l]`` (a view)."""
+    """Per-layer stacked leaf dict (`_BLOCK_KEYS` plus the ``_scale``
+    companions of any int8 plane), float leaves cast to `dtype` when
+    given; int8 planes stay compressed. Layer ``l`` of a leaf is
+    ``leaf[l]`` (a view; a [L, 1, ...] scale slices to [1, ...], which
+    broadcasts in `dequant`)."""
     stacked = {}
     for k in _BLOCK_KEYS:
         w = params[k]
         if w.dtype == torch.int8:
-            raise NotImplementedError("int8 weights not yet ported")
-        stacked[k] = w if dtype is None else w.to(dtype)
+            stacked[k] = w
+            stacked[k + "_scale"] = params[k + "_scale"]
+        else:
+            stacked[k] = w if dtype is None else w.to(dtype)
     return stacked
 
 
@@ -337,6 +394,7 @@ def num_params(cfg: GPTConfig) -> int:
     return sum(math.prod(s["shape"]) for s in param_specs(cfg).values())
 
 
-__all__ = ["GPTConfig", "param_specs", "init_params", "weight_view",
+__all__ = ["GPTConfig", "param_specs", "init_params", "QUANT_RULES",
+           "quant_axes", "quantize_params", "dequant", "weight_view",
            "stack_block_params", "forward_hidden", "forward", "loss_fn",
            "num_params"]

@@ -1,24 +1,29 @@
 """Block-paged KV cache and the paged serving programs (PyTorch).
 
-Counterpart of ``ray_tpu/models/paged_kv.py`` for the float pool on one
-device: `init_paged_kv`, `_chunk_paged_forward`, `prefill_chunk_paged`,
-`_decode_once_paged`, `decode_step_paged`, `decode_multi_paged`,
-`_sample_next` and `_last_valid_logits`.
+Counterpart of ``ray_tpu/models/paged_kv.py`` on one device:
+`init_paged_kv` (float or int8 pool), `_quant_write`,
+`_chunk_paged_forward`, `prefill_chunk_paged`, `_decode_once_paged`,
+`decode_step_paged`, `decode_multi_paged`, `_sample_next` and
+`_last_valid_logits`.
 
 Layout (the JAX package's): one pool ``{"k", "v"}`` of
 ``[L, P+1, page_size, H, K]`` shared by all slots, plus per-slot page
 tables ``[B, n_pg]`` of page ids. Page 0 is the reserved null page:
 unallocated table entries point at it, masked writes are routed to it,
-and every read of it is position-masked.
+and every read of it is position-masked. An int8 pool adds one per-page
+scale plane per side, ``{"k_scale", "v_scale"}`` ``[L, P+1]`` bf16, set
+at a page's first write (`_quant_write`); the programs hand each layer's
+scale vectors to the attention beside its planes.
 
 Differences from the JAX programs, all deliberate:
 
-- The pool is updated IN PLACE (the JAX programs donate it through
-  ``donate_argnums`` and return a new one). Every program still returns
-  the pool so call sites read the same.
+- The pool, scale planes included, is updated IN PLACE (the JAX
+  programs donate it through ``donate_argnums`` and return a new one).
+  Every program still returns the pool so call sites read the same.
 - PyTorch runs eagerly, so nothing here casts weights per call: the
   engine casts them once at load (`serving_params`), after which every
-  ``Tensor.to(cfg.dtype)`` below returns the tensor itself.
+  ``Tensor.to(cfg.dtype)`` below returns the tensor itself. int8 planes
+  stay int8 and are dequantized per use (`gpt.weight_view`).
 - JAX clamps out-of-range gathers and drops out-of-range scatters
   silently; torch raises (CPU) or device-asserts (CUDA). The explicit
   clamps and null-page routing of the JAX code are kept, and every
@@ -48,16 +53,59 @@ ATTN_IMPLS = ("gather", "kernel")
 
 def init_paged_kv(cfg: GPTConfig, n_pages: int, page_size: int,
                   kv_dtype: str | None = None, device=None):
-    """Shared page pool in ``cfg.dtype``. Row 0 is the null page (never
-    allocated). Only the float pool is ported; ``kv_dtype="int8"``
-    raises."""
-    if kv_dtype not in (None, "bf16"):
-        raise ValueError(f"kv_dtype {kv_dtype!r}: int8 KV pools not yet "
-                         "ported (float pools only)")
+    """Shared page pool. Row 0 is the null page (never allocated).
+
+    ``kv_dtype`` None/"bf16": K/V planes in ``cfg.dtype``. "int8": int8
+    planes plus one per-page scale plane per side (``k_scale``/
+    ``v_scale`` [L, P+1], bf16, zero = never scaled; see
+    `_quant_write`)."""
     dev = resolve_device(device)
     shape = (cfg.n_layers, n_pages + 1, page_size, cfg.n_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+    if kv_dtype in (None, "bf16"):
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+    if kv_dtype != "int8":
+        raise ValueError(f"kv_dtype must be bf16|int8, got {kv_dtype!r}")
+    scale_shape = (cfg.n_layers, n_pages + 1)
+    return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "k_scale": torch.zeros(scale_shape, dtype=torch.bfloat16,
+                                   device=dev),
+            "v_scale": torch.zeros(scale_shape, dtype=torch.bfloat16,
+                                   device=dev)}
+
+
+def _quant_write(pool_l, scale_l, write_pages, write_offs, values):
+    """Quantized scatter of per-token K/V rows into one layer's int8 page
+    plane ``pool_l`` [P+1, ps, H, K], maintaining its scale vector
+    ``scale_l`` [P+1] (bf16) — both IN PLACE.
+
+    values: [M, H, K] float rows landing at (write_pages[m],
+    write_offs[m]). Scale policy, frozen at first write: a page's scale
+    is (re)set from this dispatch's scatter-max of |row| over the rows
+    landing in it iff some row lands at in-page offset 0 (a fresh or
+    recycled page) or its stored scale is <= 0 (never scaled: such a
+    page that gets no row takes 1e-8 / 127, as in the JAX package);
+    otherwise the stored scale stays and rows clip at ±127. Rows are
+    quantized with the fp32 scale and the scale is stored rounded to
+    bf16, which is what later reads use. Null-page (id 0) writes only
+    move the null scale, which no masked read consumes."""
+    n_rows = scale_l.shape[0]
+    v32 = values.float()
+    pages = write_pages.long()
+    vmax = v32.abs().flatten(1).amax(dim=1)                    # [M]
+    starts = torch.zeros(n_rows, dtype=torch.int32, device=v32.device)
+    starts.scatter_reduce_(0, pages, (write_offs == 0).to(torch.int32),
+                           "amax", include_self=True)
+    contrib = torch.zeros(n_rows, dtype=torch.float32, device=v32.device)
+    contrib.scatter_reduce_(0, pages, vmax, "amax", include_self=True)
+    old = scale_l.float()
+    new_scale = torch.where((starts > 0) | (old <= 0.0),
+                            torch.clamp(contrib, min=1e-8) / 127.0, old)
+    s = new_scale[pages].reshape((-1,) + (1,) * (v32.dim() - 1))
+    q = torch.clamp(torch.round(v32 / s), -127, 127).to(torch.int8)
+    pool_l[pages, write_offs.long()] = q
+    scale_l.copy_(new_scale)
 
 
 def serving_params(cfg: GPTConfig, params: dict, device=None) -> dict:
@@ -65,14 +113,17 @@ def serving_params(cfg: GPTConfig, params: dict, device=None) -> dict:
     programs cast to ``cfg.dtype`` on each call (block params via
     ``stack_block_params(params, cfg.dtype)``, the embedding and the LM
     head) is stored in ``cfg.dtype``; the final layer norm keeps its
-    stored dtype, as there. The programs' own casts then cost nothing.
+    stored dtype, as there, and so do quantized planes (int8) and their
+    ``_scale`` companions (fp32; `gpt.dequant` casts them per use, as
+    the JAX programs do). The programs' own casts then cost nothing.
     Tensors move to ``device`` (default cuda)."""
     dev = resolve_device(device)
     out = {}
     for name, w in params.items():
-        if w.dtype == torch.int8:
-            raise ValueError("int8 weights not yet ported")
-        keep = name.startswith("ln_f_")
+        plane = params.get(name[:-len("_scale")]) if name.endswith(
+            "_scale") else None
+        keep = (name.startswith("ln_f_") or w.dtype == torch.int8
+                or (plane is not None and plane.dtype == torch.int8))
         out[name] = w.to(device=dev, dtype=None if keep else cfg.dtype)
     return out
 
@@ -86,6 +137,22 @@ def _layer(stacked: dict, l: int) -> dict:
     return {k: v[l] for k, v in stacked.items()}
 
 
+def _write_rows(pool, l, pages, offs, k_rows, v_rows, dtype, quant):
+    """Write one dispatch's K/V rows into layer ``l`` of the pool (in
+    place): a cast into the float pool, or `_quant_write` into the int8
+    pool and its scale planes. → (k plane, v plane, the attention's
+    scale keyword arguments) of layer ``l``."""
+    k_pool_l, v_pool_l = pool["k"][l], pool["v"][l]
+    if not quant:
+        k_pool_l[pages, offs] = k_rows.to(dtype)
+        v_pool_l[pages, offs] = v_rows.to(dtype)
+        return k_pool_l, v_pool_l, {}
+    k_sc, v_sc = pool["k_scale"][l], pool["v_scale"][l]
+    _quant_write(k_pool_l, k_sc, pages, offs, k_rows)
+    _quant_write(v_pool_l, v_sc, pages, offs, v_rows)
+    return k_pool_l, v_pool_l, {"k_scale": k_sc, "v_scale": v_sc}
+
+
 def _chunk_paged_forward(cfg: GPTConfig, params, tokens, pool, tables,
                          offsets, n_valid, attn_impl: str):
     """Shared chunk-row transformer body: write one [N, C] chunk batch
@@ -95,6 +162,7 @@ def _chunk_paged_forward(cfg: GPTConfig, params, tokens, pool, tables,
     N, C = tokens.shape
     ps = pool["k"].shape[2]
     dev = tokens.device
+    quant = "k_scale" in pool
     x = params["wte"].to(cfg.dtype)[tokens]                  # [N, C, D]
     rel = torch.arange(C, device=dev, dtype=torch.int64)
     offsets = offsets.to(torch.int64)
@@ -128,15 +196,14 @@ def _chunk_paged_forward(cfg: GPTConfig, params, tokens, pool, tables,
         # all land on null-page slots, possibly several on the same one:
         # which duplicate wins is undefined on CUDA, and harmless only
         # because page 0 is never read unmasked.
-        k_pool_l, v_pool_l = pool["k"][l], pool["v"][l]
-        k_pool_l[write_pages, write_offs] = (
-            k.reshape(N * C, *k.shape[2:]).to(cfg.dtype))
-        v_pool_l[write_pages, write_offs] = (
-            v.reshape(N * C, *v.shape[2:]).to(cfg.dtype))
+        k_rows = k.reshape(N * C, *k.shape[2:])
+        v_rows = v.reshape(N * C, *v.shape[2:])
+        planes = _write_rows(pool, l, write_pages, write_offs, k_rows,
+                             v_rows, cfg.dtype, quant)
         fn = (paged_prefill_attention if attn_impl == "kernel"
               else reference_paged_prefill_attention)
-        attn = fn(q.contiguous(), k_pool_l, v_pool_l, tables32, offsets32,
-                  kv_lens, sm_scale=scale)
+        attn = fn(q.contiguous(), *planes[:2], tables32, offsets32,
+                  kv_lens, sm_scale=scale, **planes[2])
         x = x + _attn_out(attn, layer, cfg)
         x = _mlp(x, layer, cfg)
     return x, pool
@@ -182,6 +249,7 @@ def _decode_once_paged(cfg: GPTConfig, params, tokens, pool, positions,
     → (logits [B, V] fp32, pool)."""
     _check_impl(attn_impl)
     ps = pool["k"].shape[2]
+    quant = "k_scale" in pool
     positions = positions.to(torch.int64)
     x = params["wte"].to(cfg.dtype)[tokens][:, None, :]      # [B, 1, D]
     pos = positions[:, None]
@@ -207,13 +275,12 @@ def _decode_once_paged(cfg: GPTConfig, params, tokens, pool, positions,
         k = _rotary_pos(k, cfg.rotary_dim, pos)
         # Idle slots (all-null tables) may write the same null-page slot;
         # the order is undefined on CUDA and harmless (page 0 is masked).
-        k_pool_l, v_pool_l = pool["k"][l], pool["v"][l]
-        k_pool_l[write_page, write_off] = k[:, 0].to(cfg.dtype)
-        v_pool_l[write_page, write_off] = v[:, 0].to(cfg.dtype)
+        planes = _write_rows(pool, l, write_page, write_off, k[:, 0],
+                             v[:, 0], cfg.dtype, quant)
         fn = (paged_attention if attn_impl == "kernel"
               else reference_paged_attention)
-        attn = fn(q[:, 0].contiguous(), k_pool_l, v_pool_l, tables32,
-                  kv_lengths, sm_scale=scale)
+        attn = fn(q[:, 0].contiguous(), *planes[:2], tables32, kv_lengths,
+                  sm_scale=scale, **planes[2])
         x = x + _attn_out(attn, layer, cfg)[:, None, :]
         x = _mlp(x, layer, cfg)
     logits = _head(params, cfg, x)[:, 0]

@@ -110,8 +110,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rtt_paged_prefill_attention.argtypes = [
         _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]
     lib.rtt_paged_prefill_attention.restype = _I
-    # size_t fn(dtype, K, ps): shared memory of one prefill block
-    lib.rtt_paged_prefill_smem_bytes.argtypes = [_I, _I, _I]
+    # The int8 programs: the same with (k_scale, v_scale), bf16 [P+1],
+    # after v_pool.
+    lib.rtt_paged_decode_attention_int8.argtypes = [
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
+    lib.rtt_paged_decode_attention_int8.restype = _I
+    lib.rtt_paged_prefill_attention_int8.argtypes = [
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+        _P]
+    lib.rtt_paged_prefill_attention_int8.restype = _I
+    # size_t fn(dtype, quant, K, ps): shared memory of one prefill block
+    lib.rtt_paged_prefill_smem_bytes.argtypes = [_I, _I, _I, _I]
     lib.rtt_paged_prefill_smem_bytes.restype = ctypes.c_size_t
     # int fn(dtype, q, k, v, o, lse, B, S, T, H, K, strides[12], causal,
     #        sm_scale, stream) → cudaError_t

@@ -1,7 +1,8 @@
 // Shared device helpers for the paged-attention kernels (paged_decode.cu,
 // paged_prefill.cu): dtype conversion, 16-byte vector loads, the reference's
-// rounding of softmax probabilities to the input dtype, and the bf16
-// tensor-core instructions (mma.sync, ldmatrix).
+// rounding of softmax probabilities to the input dtype, int8 codes widened
+// to fp32 or bf16 (the int8 programs), and the bf16 tensor-core
+// instructions (mma.sync, ldmatrix).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -22,6 +23,9 @@ constexpr int DTYPE_BF16 = 1;
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f(int8_t x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>
@@ -66,11 +70,72 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&f)[8]) {
   }
 }
 
+// N consecutive elements (16-byte aligned, N a multiple of one 16-byte
+// load) widened to fp32.
+template <int N>
+__device__ __forceinline__ void load_n(const float* p, float (&f)[N]) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    float v[4];
+    load16(p + 4 * i, v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[4 * i + e] = v[e];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void load_n(const __nv_bfloat16* p, float (&f)[N]) {
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) {
+    float v[8];
+    load16(p + 8 * i, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) f[8 * i + e] = v[e];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// int8 pools (the int8 programs): codes in [-127, 127], one scale per page,
+// read from the layer's bf16 scale vector as it is (to_f widens exactly).
+
+// Sixteen int8 codes of one 16-byte load, widened to fp32 (exact).
+__device__ __forceinline__ void unpack_i8x16(const uint4 v, float (&f)[16]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      f[4 * i + e] = static_cast<float>(static_cast<int8_t>(w[i] >> (8 * e)));
+  }
+}
+
 // Two fp32 values rounded to bf16 and packed, the first in the low half (the
 // lower-indexed element of an mma fragment pair).
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// Two int8 codes (the low byte first) as a packed bf16 pair: |code| <= 127
+// is exact in bf16, so an mma fragment of codes loses nothing.
+__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t w) {
+  return pack_bf16x2(static_cast<float>(static_cast<int8_t>(w & 0xff)),
+                     static_cast<float>(static_cast<int8_t>((w >> 8) & 0xff)));
+}
+
+// Sixteen int8 codes of one 16-byte load as sixteen bf16 values (exact) at
+// `dst` (16-byte aligned), in order: two 16-byte stores.
+__device__ __forceinline__ void store_i8x16_as_bf16(__nv_bfloat16* dst,
+                                                    const uint4 v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t b[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    b[2 * i] = i8x2_to_bf16x2(w[i]);
+    b[2 * i + 1] = i8x2_to_bf16x2(w[i] >> 16);
+  }
+  reinterpret_cast<uint4*>(dst)[0] = make_uint4(b[0], b[1], b[2], b[3]);
+  reinterpret_cast<uint4*>(dst)[1] = make_uint4(b[4], b[5], b[6], b[7]);
 }
 
 // d += a · b on the tensor cores: one m16n8k16 bf16 product with fp32

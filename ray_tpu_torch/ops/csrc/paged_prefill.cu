@@ -33,6 +33,27 @@
 //  - fp32 (K in {64, 128}): plain FMAs from shared memory (one float of
 //    padding per row keeps the QK^T loop free of bank conflicts), so fp32
 //    keeps full precision (1e-5).
+//
+// The int8 programs (replace the same Pallas kernel traced with
+// quantized=True): int8 pages with one K and one V scale per page, read from
+// the layer's bf16 scale vectors by the page id tables[b, pos / ps]. The
+// Pallas program dequantizes each page to fp32, so both its products run in
+// fp32 and p is not rounded to q's dtype; the CUDA programs compute the same
+// thing, as instantiations of the two kernels above on an int8 pool:
+//  - fp32 q: the FMA kernel with the page dequantized (code · scale, exact
+//    in fp32) as it is staged in shared memory, p unrounded.
+//  - bf16 q: the tensor-core kernel. The tiles are staged from int8 pages
+//    (half the bytes read) and widened to bf16 in shared memory (|code| <=
+//    127 is exact in bf16), so the fragment path is the float program's,
+//    ldmatrix.trans included. The scale is one scalar per page, so it
+//    factors out of each key's dot product: S = Q · codes^T on the tensor
+//    cores, then each score times its key's K scale (exact up to fp32
+//    reassociation). For P · V each fp32 p is multiplied by its key's V
+//    scale and split into two bf16 terms, p = hi + lo, run as two mma.sync
+//    into one fp32 accumulator: the product keeps about 16 bits of p
+//    (relative error <= 2^-16), where one bf16 term would round p to 8 bits
+//    as the gather reference does. At ps = 16 one 64-key tile spans four
+//    pages, so the tile carries one K and one V scale per key.
 // The next step is Hopper's own path: wgmma on the shared tiles, and K/V
 // tiles brought in by TMA or cp.async while the previous tile is in the
 // MMAs.
@@ -58,14 +79,21 @@ __host__ __device__ constexpr size_t prefill_smem_floats(int KD, int ps) {
          (size_t)PF_TQ * (ps + 1) + 3 * (size_t)PF_TQ;
 }
 
-template <typename T, int KD>
+// TP: the pool's element type, T (the float program) or int8_t (the int8
+// program: k_scale / v_scale are read, the staged page is dequantized and p
+// is not rounded).
+template <typename T, typename TP, int KD>
 __global__ void __launch_bounds__(PF_THREADS)
-    paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                         const T* __restrict__ v_pool,
+    paged_prefill_kernel(const T* __restrict__ q,
+                         const TP* __restrict__ k_pool,
+                         const TP* __restrict__ v_pool,
+                         const __nv_bfloat16* __restrict__ k_scale,
+                         const __nv_bfloat16* __restrict__ v_scale,
                          const int* __restrict__ tables,
                          const int* __restrict__ offsets,
                          const int* __restrict__ lengths, T* __restrict__ out,
                          int C, int H, int ps, int n_pg, float sm_scale) {
+  constexpr bool kQuant = std::is_same<TP, int8_t>::value;
   static_assert(PF_THREADS % KD == 0, "head dim must divide the block");
   constexpr int KP = KD + 1;
   constexpr int ROW_GROUPS = PF_THREADS / KD;
@@ -117,12 +145,22 @@ __global__ void __launch_bounds__(PF_THREADS)
 
   for (int j = 0; j < n_live; ++j) {
     const size_t page = (size_t)tables[(size_t)b * n_pg + j];
-    const T* kp = k_pool + page * page_stride + (size_t)h * KD;
-    const T* vp = v_pool + page * page_stride + (size_t)h * KD;
+    const TP* kp = k_pool + page * page_stride + (size_t)h * KD;
+    const TP* vp = v_pool + page * page_stride + (size_t)h * KD;
+    float ksc = 1.f, vsc = 1.f;
+    if constexpr (kQuant) {
+      ksc = to_f(k_scale[page]);
+      vsc = to_f(v_scale[page]);
+    }
     for (int i = tid; i < ps * KD; i += PF_THREADS) {
       const int t = i / KD, k = i % KD;
-      k_s[t * KP + k] = to_f(kp[(size_t)t * row_stride + k]);
-      v_s[t * KD + k] = to_f(vp[(size_t)t * row_stride + k]);
+      if constexpr (kQuant) {  // dequantized as staged: code · scale, exact
+        k_s[t * KP + k] = to_f(kp[(size_t)t * row_stride + k]) * ksc;
+        v_s[t * KD + k] = to_f(vp[(size_t)t * row_stride + k]) * vsc;
+      } else {
+        k_s[t * KP + k] = to_f(kp[(size_t)t * row_stride + k]);
+        v_s[t * KD + k] = to_f(vp[(size_t)t * row_stride + k]);
+      }
     }
     __syncthreads();
 
@@ -154,7 +192,7 @@ __global__ void __launch_bounds__(PF_THREADS)
       for (int t = sub; t < ps; t += PF_ROW_THREADS) {
         const float p = expf(s_s[r * SP + t] - m_new);
         psum += p;
-        s_s[r * SP + t] = round_to<T>(p);
+        s_s[r * SP + t] = kQuant ? p : round_to<T>(p);
       }
 #pragma unroll
       for (int o = PF_ROW_THREADS / 2; o > 0; o >>= 1)
@@ -199,29 +237,84 @@ constexpr int MMA_THREADS = 32 * MMA_WARPS;
 constexpr int MMA_TQ = 16 * MMA_WARPS;  // query rows per block
 constexpr int MMA_TK = 64;              // keys per shared tile
 
+// Shared memory of one block: the bf16 K and V tiles, plus (int8 program)
+// one K and one V scale per key.
 template <int KD>
-__host__ __device__ constexpr size_t prefill_mma_smem_bytes() {
-  return 2 * (size_t)MMA_TK * (KD + 8) * sizeof(__nv_bfloat16);
+__host__ __device__ constexpr size_t prefill_mma_smem_bytes(bool quant) {
+  return 2 * (size_t)MMA_TK * (KD + 8) * sizeof(__nv_bfloat16) +
+         2 * (size_t)(quant ? MMA_TK : 1) * sizeof(float);
 }
 
-template <int KD>
+// A warp's Q fragments (the A operand of S = Q·K^T): this lane's rows r0
+// and r1 = r0 + 8 of the block's tile at `qb`; rows past `rows` are 0.
+template <int KSTEPS>
+__device__ __forceinline__ void load_q_frags(const __nv_bfloat16* qb,
+                                             size_t row_stride, int r0,
+                                             int r1, int rows, int t4,
+                                             uint32_t (&qa)[KSTEPS][4]) {
+  const uint32_t* q0p =
+      reinterpret_cast<const uint32_t*>(qb + (size_t)r0 * row_stride);
+  const uint32_t* q1p =
+      reinterpret_cast<const uint32_t*>(qb + (size_t)r1 * row_stride);
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks) {
+    const int w = (ks * 16 + 2 * t4) / 2;  // 32-bit word of the pair
+    qa[ks][0] = r0 < rows ? q0p[w] : 0u;
+    qa[ks][1] = r1 < rows ? q1p[w] : 0u;
+    qa[ks][2] = r0 < rows ? q0p[w + 4] : 0u;
+    qa[ks][3] = r1 < rows ? q1p[w + 4] : 0u;
+  }
+}
+
+// O / l of this lane's rows r0 and r1 in bf16 at `ob` (the tile's first
+// row); l == 0 (no visible key) writes zeros, rows past `rows` nothing.
+template <int NT_O>
+__device__ __forceinline__ void store_o_rows(const float (&o)[NT_O][4],
+                                             const float (&l_r)[2],
+                                             __nv_bfloat16* ob,
+                                             size_t row_stride, int r0,
+                                             int r1, int rows, int t4) {
+  const float inv0 = 1.f / (l_r[0] == 0.f ? 1.f : l_r[0]);
+  const float inv1 = 1.f / (l_r[1] == 0.f ? 1.f : l_r[1]);
+#pragma unroll
+  for (int n = 0; n < NT_O; ++n) {
+    const int col = n * 8 + 2 * t4;
+    if (r0 < rows)
+      *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * row_stride + col) =
+          pack_bf16x2(o[n][0] * inv0, o[n][1] * inv0);
+    if (r1 < rows)
+      *reinterpret_cast<uint32_t*>(ob + (size_t)r1 * row_stride + col) =
+          pack_bf16x2(o[n][2] * inv1, o[n][3] * inv1);
+  }
+}
+
+// TP: the pool's element type, bf16 (the float program) or int8_t (the int8
+// program: codes widened to bf16 as they are staged, each score times its
+// key's K scale, p times its key's V scale as bf16 hi + lo).
+template <typename TP, int KD>
 __global__ void __launch_bounds__(MMA_THREADS)
     paged_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                             const __nv_bfloat16* __restrict__ k_pool,
-                             const __nv_bfloat16* __restrict__ v_pool,
+                             const TP* __restrict__ k_pool,
+                             const TP* __restrict__ v_pool,
+                             const __nv_bfloat16* __restrict__ k_scale,
+                             const __nv_bfloat16* __restrict__ v_scale,
                              const int* __restrict__ tables,
                              const int* __restrict__ offsets,
                              const int* __restrict__ lengths,
                              __nv_bfloat16* __restrict__ out, int C, int H,
                              int ps, int n_pg, float sm_scale) {
+  constexpr bool kQuant = std::is_same<TP, int8_t>::value;
   static_assert(KD % 16 == 0 && KD <= 128, "head dim for the mma path");
   constexpr int KSTEPS = KD / 16;      // k-steps of Q·K^T
   constexpr int NT_S = MMA_TK / 8;     // n-tiles of S (keys)
   constexpr int NT_O = KD / 8;         // n-tiles of O (head dims)
   constexpr int KP = KD + 8;           // padded shared row, in elements
-  constexpr int CPR = KD / 8;          // 16-byte chunks per row
+  constexpr int EPC = 16 / sizeof(TP); // pool elements per 16-byte load
+  constexpr int CPR = KD / EPC;        // 16-byte loads per pool row
   __shared__ __align__(16) __nv_bfloat16 k_s[MMA_TK * KP];
   __shared__ __align__(16) __nv_bfloat16 v_s[MMA_TK * KP];
+  __shared__ float ks_s[kQuant ? MMA_TK : 1];  // key's K scale · sm_scale
+  __shared__ float vs_s[kQuant ? MMA_TK : 1];  // key's V scale
 
   const int q0 = blockIdx.x * MMA_TQ;
   const int h = blockIdx.y;
@@ -244,21 +337,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
 
   // Q fragments stay in registers for the whole key walk; rows past C are 0.
   uint32_t qa[KSTEPS][4];
-  {
-    const __nv_bfloat16* qb = q + (((size_t)b * C + q0) * H + h) * KD;
-    const uint32_t* q0p =
-        reinterpret_cast<const uint32_t*>(qb + (size_t)r0 * row_stride);
-    const uint32_t* q1p =
-        reinterpret_cast<const uint32_t*>(qb + (size_t)r1 * row_stride);
-#pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
-      const int w = (ks * 16 + 2 * t4) / 2;  // 32-bit word of the pair
-      qa[ks][0] = r0 < rows ? q0p[w] : 0u;
-      qa[ks][1] = r1 < rows ? q1p[w] : 0u;
-      qa[ks][2] = r0 < rows ? q0p[w + 4] : 0u;
-      qa[ks][3] = r1 < rows ? q1p[w + 4] : 0u;
-    }
-  }
+  load_q_frags(q + (((size_t)b * C + q0) * H + h) * KD, row_stride, r0, r1,
+               rows, t4, qa);
 
   float o[NT_O][4];
 #pragma unroll
@@ -277,7 +357,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
     __syncthreads();  // every warp is done with the previous tile
     for (int i = tid; i < MMA_TK * CPR; i += MMA_THREADS) {
       const int r = i / CPR;
-      const int cc = (i - r * CPR) * 8;
+      const int cc = (i - r * CPR) * EPC;
       const int pos = key0 + r;
       uint4 kv = make_uint4(0u, 0u, 0u, 0u);
       uint4 vv = kv;
@@ -288,13 +368,33 @@ __global__ void __launch_bounds__(MMA_THREADS)
         kv = *reinterpret_cast<const uint4*>(k_pool + src);
         vv = *reinterpret_cast<const uint4*>(v_pool + src);
       }
-      *reinterpret_cast<uint4*>(&k_s[r * KP + cc]) = kv;
-      *reinterpret_cast<uint4*>(&v_s[r * KP + cc]) = vv;
+      if constexpr (kQuant) {
+        store_i8x16_as_bf16(&k_s[r * KP + cc], kv);
+        store_i8x16_as_bf16(&v_s[r * KP + cc], vv);
+      } else {
+        *reinterpret_cast<uint4*>(&k_s[r * KP + cc]) = kv;
+        *reinterpret_cast<uint4*>(&v_s[r * KP + cc]) = vv;
+      }
+    }
+    if constexpr (kQuant) {
+      for (int r = tid; r < MMA_TK; r += MMA_THREADS) {
+        const int pos = key0 + r;
+        float ksc = 0.f, vsc = 0.f;
+        if (pos < kv_end) {
+          // Indexed by the page id, never by the table position.
+          const size_t page = (size_t)tables[(size_t)b * n_pg + pos / ps];
+          ksc = to_f(k_scale[page]) * sm_scale;
+          vsc = to_f(v_scale[page]);
+        }
+        ks_s[r] = ksc;
+        vs_s[r] = vsc;
+      }
     }
     __syncthreads();
     if (key0 > warp_last_qpos) continue;  // all keys after all of our rows
 
-    // S = Q · K^T for this warp's 16 rows and the tile's 64 keys.
+    // S = Q · K^T (int8: Q · codes^T) for this warp's 16 rows and the
+    // tile's 64 keys.
     float s[NT_S][4];
 #pragma unroll
     for (int n = 0; n < NT_S; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
@@ -308,7 +408,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
       }
     }
 
-    // The two-part mask, then the online softmax of rows r0 and r1. A row's
+    // The score scale (sm_scale; int8: times the key's K scale), the
+    // two-part mask, then the online softmax of rows r0 and r1. A row's
     // four lanes (same g) hold its 64 scores between them.
     float mx0 = m_r[0];
     float mx1 = m_r[1];
@@ -317,15 +418,17 @@ __global__ void __launch_bounds__(MMA_THREADS)
     for (int n = 0; n < NT_S; ++n) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int key = key0 + n * 8 + 2 * t4 + e;
+        const int kl = n * 8 + 2 * t4 + e;
+        const int key = key0 + kl;
+        const float sc = kQuant ? ks_s[kl] : sm_scale;
         if (key < len && key <= qpos0) {
           valid |= 1u << (4 * n + e);
-          s[n][e] *= sm_scale;
+          s[n][e] *= sc;
           mx0 = fmaxf(mx0, s[n][e]);
         }
         if (key < len && key <= qpos1) {
           valid |= 1u << (4 * n + 2 + e);
-          s[n][2 + e] *= sm_scale;
+          s[n][2 + e] *= sc;
           mx1 = fmaxf(mx1, s[n][2 + e]);
         }
       }
@@ -342,21 +445,38 @@ __global__ void __launch_bounds__(MMA_THREADS)
 
     // P in bf16 as the A fragments of O += P · V: k-step j covers keys
     // 16j..16j+15, i.e. S n-tiles 2j (a[0], a[1]) and 2j+1 (a[2], a[3]).
+    // int8: w = p · vs (fp32, unrounded) as hi = bf16(w) in pa and the
+    // remainder lo = w - hi (exact in fp32) in pa_lo.
     uint32_t pa[NT_S / 2][4];
+    uint32_t pa_lo[kQuant ? NT_S / 2 : 1][4];
     float ps0 = 0.f;
     float ps1 = 0.f;
 #pragma unroll
     for (int n = 0; n < NT_S; ++n) {
-      float p[4];
+      float w[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        p[e] = (valid >> (4 * n + e)) & 1u
+        w[e] = (valid >> (4 * n + e)) & 1u
                    ? __expf(s[n][e] - (e < 2 ? mx0 : mx1))
                    : 0.f;
-      ps0 += p[0] + p[1];
-      ps1 += p[2] + p[3];
-      pa[n / 2][(n & 1) * 2 + 0] = pack_bf16x2(p[0], p[1]);
-      pa[n / 2][(n & 1) * 2 + 1] = pack_bf16x2(p[2], p[3]);
+      ps0 += w[0] + w[1];
+      ps1 += w[2] + w[3];
+      if constexpr (kQuant) {
+        const float vs0 = vs_s[n * 8 + 2 * t4];
+        const float vs1 = vs_s[n * 8 + 2 * t4 + 1];
+        w[0] *= vs0;
+        w[1] *= vs1;
+        w[2] *= vs0;
+        w[3] *= vs1;
+        float lo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          lo[e] = w[e] - round_to<__nv_bfloat16>(w[e]);
+        pa_lo[n / 2][(n & 1) * 2 + 0] = pack_bf16x2(lo[0], lo[1]);
+        pa_lo[n / 2][(n & 1) * 2 + 1] = pack_bf16x2(lo[2], lo[3]);
+      }
+      pa[n / 2][(n & 1) * 2 + 0] = pack_bf16x2(w[0], w[1]);
+      pa[n / 2][(n & 1) * 2 + 1] = pack_bf16x2(w[2], w[3]);
     }
 #pragma unroll
     for (int o2 = 1; o2 <= 2; o2 <<= 1) {
@@ -387,64 +507,63 @@ __global__ void __launch_bounds__(MMA_THREADS)
         ldmatrix_x4_trans(vb, &v_s[(16 * j + key_in) * KP + 16 * np + dim_in]);
         mma_bf16_16816(o[2 * np], pa[j], vb[0], vb[1]);
         mma_bf16_16816(o[2 * np + 1], pa[j], vb[2], vb[3]);
+        if constexpr (kQuant) {
+          mma_bf16_16816(o[2 * np], pa_lo[j], vb[0], vb[1]);
+          mma_bf16_16816(o[2 * np + 1], pa_lo[j], vb[2], vb[3]);
+        }
       }
     }
   }
 
-  const float inv0 = 1.f / (l_r[0] == 0.f ? 1.f : l_r[0]);
-  const float inv1 = 1.f / (l_r[1] == 0.f ? 1.f : l_r[1]);
-  __nv_bfloat16* ob = out + (((size_t)b * C + q0) * H + h) * KD;
-#pragma unroll
-  for (int n = 0; n < NT_O; ++n) {
-    const int col = n * 8 + 2 * t4;
-    if (r0 < rows)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * row_stride + col) =
-          pack_bf16x2(o[n][0] * inv0, o[n][1] * inv0);
-    if (r1 < rows)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)r1 * row_stride + col) =
-          pack_bf16x2(o[n][2] * inv1, o[n][3] * inv1);
-  }
+  store_o_rows(o, l_r, out + (((size_t)b * C + q0) * H + h) * KD, row_stride,
+               r0, r1, rows, t4);
 }
 
-template <int KD>
+template <typename TP, int KD>
 cudaError_t launch_prefill_mma(const void* q, const void* k_pool,
-                               const void* v_pool, const int* tables,
+                               const void* v_pool, const void* k_scale,
+                               const void* v_scale, const int* tables,
                                const int* offsets, const int* lengths,
                                void* out, int B, int C, int H, int ps,
                                int n_pg, float sm_scale, cudaStream_t stream) {
   dim3 grid((C + MMA_TQ - 1) / MMA_TQ, H, B);
-  paged_prefill_mma_kernel<KD><<<grid, MMA_THREADS, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k_pool),
-      static_cast<const __nv_bfloat16*>(v_pool), tables, offsets, lengths,
+  paged_prefill_mma_kernel<TP, KD><<<grid, MMA_THREADS, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const TP*>(k_pool),
+      static_cast<const TP*>(v_pool),
+      static_cast<const __nv_bfloat16*>(k_scale),
+      static_cast<const __nv_bfloat16*>(v_scale), tables, offsets, lengths,
       static_cast<__nv_bfloat16*>(out), C, H, ps, n_pg, sm_scale);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// FMA version (fp32).
+// FMA version (fp32; float and int8 pools).
 
-template <typename T, int KD>
+template <typename T, typename TP, int KD>
 cudaError_t launch_prefill_kd(const void* q, const void* k_pool,
-                              const void* v_pool, const int* tables,
+                              const void* v_pool, const void* k_scale,
+                              const void* v_scale, const int* tables,
                               const int* offsets, const int* lengths,
                               void* out, int B, int C, int H, int ps,
                               int n_pg, float sm_scale, cudaStream_t stream) {
   const size_t smem = prefill_smem_floats(KD, ps) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_prefill_kernel<T, KD>,
+        paged_prefill_kernel<T, TP, KD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   dim3 grid((C + PF_TQ - 1) / PF_TQ, H, B);
-  paged_prefill_kernel<T, KD><<<grid, PF_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), tables, offsets, lengths,
+  paged_prefill_kernel<T, TP, KD><<<grid, PF_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const TP*>(k_pool),
+      static_cast<const TP*>(v_pool),
+      static_cast<const __nv_bfloat16*>(k_scale),
+      static_cast<const __nv_bfloat16*>(v_scale), tables, offsets, lengths,
       static_cast<T*>(out), C, H, ps, n_pg, sm_scale);
   return cudaGetLastError();
 }
 
+// The float program: bf16 on the tensor cores, fp32 by FMA.
 template <typename T>
 cudaError_t launch_prefill(const void* q, const void* k_pool,
                            const void* v_pool, const int* tables,
@@ -455,37 +574,63 @@ cudaError_t launch_prefill(const void* q, const void* k_pool,
   switch (K) {
     case 64:
       if constexpr (kBf16)
-        return launch_prefill_mma<64>(q, k_pool, v_pool, tables, offsets,
-                                      lengths, out, B, C, H, ps, n_pg,
-                                      sm_scale, stream);
+        return launch_prefill_mma<__nv_bfloat16, 64>(
+            q, k_pool, v_pool, nullptr, nullptr, tables, offsets, lengths,
+            out, B, C, H, ps, n_pg, sm_scale, stream);
       else
-        return launch_prefill_kd<T, 64>(q, k_pool, v_pool, tables, offsets,
-                                        lengths, out, B, C, H, ps, n_pg,
-                                        sm_scale, stream);
+        return launch_prefill_kd<T, T, 64>(q, k_pool, v_pool, nullptr,
+                                           nullptr, tables, offsets, lengths,
+                                           out, B, C, H, ps, n_pg, sm_scale,
+                                           stream);
     case 128:
       if constexpr (kBf16)
-        return launch_prefill_mma<128>(q, k_pool, v_pool, tables, offsets,
-                                       lengths, out, B, C, H, ps, n_pg,
-                                       sm_scale, stream);
+        return launch_prefill_mma<__nv_bfloat16, 128>(
+            q, k_pool, v_pool, nullptr, nullptr, tables, offsets, lengths,
+            out, B, C, H, ps, n_pg, sm_scale, stream);
       else
-        return launch_prefill_kd<T, 128>(q, k_pool, v_pool, tables, offsets,
-                                         lengths, out, B, C, H, ps, n_pg,
-                                         sm_scale, stream);
+        return launch_prefill_kd<T, T, 128>(q, k_pool, v_pool, nullptr,
+                                            nullptr, tables, offsets, lengths,
+                                            out, B, C, H, ps, n_pg, sm_scale,
+                                            stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+// The int8 programs: fp32 q by FMA, bf16 q on the tensor cores.
+template <int KD>
+cudaError_t launch_prefill_i8_kd(int dtype, const void* q, const void* k_pool,
+                                 const void* v_pool, const void* k_scale,
+                                 const void* v_scale, const int* tables,
+                                 const int* offsets, const int* lengths,
+                                 void* out, int B, int C, int H, int ps,
+                                 int n_pg, float sm_scale,
+                                 cudaStream_t stream) {
+  if (dtype == DTYPE_F32)
+    return launch_prefill_kd<float, int8_t, KD>(
+        q, k_pool, v_pool, k_scale, v_scale, tables, offsets, lengths, out,
+        B, C, H, ps, n_pg, sm_scale, stream);
+  if (dtype == DTYPE_BF16)
+    return launch_prefill_mma<int8_t, KD>(q, k_pool, v_pool, k_scale,
+                                          v_scale, tables, offsets, lengths,
+                                          out, B, C, H, ps, n_pg, sm_scale,
+                                          stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 }  // namespace rtt
 
-// Shared memory one block of the kernel that (dtype, K) selects needs at
-// page size ps; the wrapper refuses shapes above what a block may have.
-extern "C" size_t rtt_paged_prefill_smem_bytes(int dtype, int K, int ps) {
+// Shared memory one block of the kernel that (dtype, quant, K) selects
+// needs at page size ps (quant = 1: the int8 program, whose tensor-core
+// kernel also keeps each key's scales); the wrapper refuses shapes above
+// what a block may have.
+extern "C" size_t rtt_paged_prefill_smem_bytes(int dtype, int quant, int K,
+                                               int ps) {
   if (dtype == rtt::DTYPE_BF16 && K == 64)
-    return rtt::prefill_mma_smem_bytes<64>();
+    return rtt::prefill_mma_smem_bytes<64>(quant != 0);
   if (dtype == rtt::DTYPE_BF16 && K == 128)
-    return rtt::prefill_mma_smem_bytes<128>();
+    return rtt::prefill_mma_smem_bytes<128>(quant != 0);
   return rtt::prefill_smem_floats(K, ps) * sizeof(float);
 }
 
@@ -508,6 +653,34 @@ extern "C" int rtt_paged_prefill_attention(
     e = rtt::launch_prefill<__nv_bfloat16>(q, k_pool, v_pool, tbl, offs, lens,
                                            out, B, C, H, K, ps, n_pg,
                                            sm_scale, s);
+  else
+    e = cudaErrorInvalidValue;
+  return (int)e;
+}
+
+// The int8 program: int8 pools, the layer's bf16 per-page scale vectors
+// [P+1]; q and out in fp32 or bf16 (dtype).
+extern "C" int rtt_paged_prefill_attention_int8(
+    int dtype, const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale,
+    const void* tables, const void* offsets, const void* lengths, void* out,
+    int B, int C, int H, int K, int ps, int n_pg, float sm_scale,
+    void* stream) {
+  if (ps < 1 || n_pg < 1) return (int)cudaErrorInvalidValue;
+  if (B == 0 || C == 0 || H == 0) return (int)cudaSuccess;
+  const int* tbl = static_cast<const int*>(tables);
+  const int* offs = static_cast<const int*>(offsets);
+  const int* lens = static_cast<const int*>(lengths);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (K == 64)
+    e = rtt::launch_prefill_i8_kd<64>(dtype, q, k_pool, v_pool, k_scale,
+                                      v_scale, tbl, offs, lens, out, B, C, H,
+                                      ps, n_pg, sm_scale, s);
+  else if (K == 128)
+    e = rtt::launch_prefill_i8_kd<128>(dtype, q, k_pool, v_pool, k_scale,
+                                       v_scale, tbl, offs, lens, out, B, C,
+                                       H, ps, n_pg, sm_scale, s);
   else
     e = cudaErrorInvalidValue;
   return (int)e;

@@ -2,24 +2,36 @@
 
 Counterpart of ``ray_tpu/ops/paged_attention.py``. Two kernels, written
 by hand in CUDA C++ for sm_90a (sources in ``ops/csrc/``, built by
-``ops/_build.py`` at first use and called through ctypes):
+``ops/_build.py`` at first use and called through ctypes), each with a
+float and an int8 program:
 
 - `paged_attention`: single-query decode attention straight against one
   layer's page pool (replaces the Pallas `_decode_kernel`);
 - `paged_prefill_attention`: a C-query chunk at an arbitrary offset,
   causal within the chunk (replaces the Pallas `_prefill_kernel`).
 
+A pool in q's dtype takes the float program. An int8 pool comes with the
+layer's per-page scale vectors ``k_scale``/``v_scale`` [P+1] (bf16, the
+pool's own scale planes; the plain versions take any float dtype) and
+takes the int8 program, which dequantizes each page in the kernel (``code · scale[page id]``, fp32): no float plane is ever written
+to device memory. As in the Pallas int8 programs, both products then run
+in fp32 and the probabilities are NOT rounded to q's dtype.
+
 Beside each sits its plain PyTorch version (`reference_paged_attention`,
 `reference_paged_prefill_attention`): it reconstitutes each slot's
-contiguous timeline and runs full-softmax attention — the kernels'
+contiguous timeline (dequantized in fp32 for an int8 pool) and runs
+full-softmax attention, rounding the probabilities to q's dtype before
+the PV product — the JAX gather references' math, which differs there
+from the int8 Pallas programs'. The plain versions are the kernels'
 oracle and the engine's ``attn_impl="gather"`` path.
 
 Dispatch is by the device of the tensors, nothing else: a CPU tensor
 goes to the plain version, a CUDA tensor to the kernel (which raises on
 a shape or dtype it does not take). There is no fallback from a failed
-launch. Each wrapper counts its kernel launches in a plain integer
-attribute (``paged_attention.launches``), so a run can show that its
-main path went through the kernels.
+launch. Each wrapper counts its kernel launches in plain integer
+attributes, the float program's in ``.launches`` and the int8
+program's in ``.int8_launches`` (``paged_attention.launches``), so a
+run can show which programs its main path went through.
 
 Layouts are the JAX package's: pool ``[P+1, ps, H, K]`` (one layer; row
 0 is the null page), q ``[B, H, K]`` for decode and ``[B, C, H, K]``
@@ -50,29 +62,58 @@ def _check_shapes(q, k_pool, v_pool, H, K):
     return ps
 
 
-def _no_int8(k_scale, v_scale):
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("int8 pools not yet ported")
+def _quantized(k_pool, v_pool, k_scale, v_scale) -> bool:
+    """True for an int8 pool with its scale vectors, False for a float
+    pool without; anything in between raises."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale come together")
+    int8 = k_pool.dtype == torch.int8 or v_pool.dtype == torch.int8
+    if k_scale is None:
+        if int8:
+            raise ValueError("an int8 pool needs k_scale and v_scale")
+        return False
+    if not (k_pool.dtype == v_pool.dtype == torch.int8):
+        raise ValueError(f"scales given with a {k_pool.dtype} pool "
+                         "(int8 pools only)")
+    for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if s.shape != (k_pool.shape[0],):
+            raise ValueError(f"{name} shape {tuple(s.shape)} != "
+                             f"({k_pool.shape[0]},) (one scale per page)")
+    return True
 
 
-def _cuda_operands(q, k_pool, v_pool, index_arrays):
+def _cuda_operands(q, k_pool, v_pool, index_arrays, quant):
     """Validate the kernel's operands: one CUDA device, float32/bfloat16
-    q and pools of the same dtype, contiguous and 16-byte aligned (the
-    kernels read rows in 16-byte vectors). Index arrays become contiguous
-    int32 on that device (a no-op when they already are)."""
+    q, pools of q's dtype (int8 for the int8 program), contiguous and
+    16-byte aligned (the kernels read rows in 16-byte vectors). Index
+    arrays become contiguous int32 on that device (a no-op when they
+    already are)."""
     dev = q.device
     check_device(dev, k_pool=k_pool, v_pool=v_pool, **dict(index_arrays))
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(
             f"kernel takes float32 or bfloat16, got {q.dtype}")
+    pool_dtype = torch.int8 if quant else q.dtype
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
-        if t.dtype != q.dtype:
-            raise ValueError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
+        want = q.dtype if name == "q" else pool_dtype
+        if t.dtype != want:
+            raise ValueError(f"{name} dtype {t.dtype} != {want}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     return [t.to(torch.int32).contiguous() for _name, t in index_arrays]
+
+
+def _scale_operands(dev, k_scale, v_scale):
+    """The int8 program's scale vectors: bf16 (the pool's own planes,
+    read as they are), contiguous, on ``dev``."""
+    check_device(dev, k_scale=k_scale, v_scale=v_scale)
+    for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if s.dtype != torch.bfloat16:
+            raise ValueError(f"{name} dtype {s.dtype} != torch.bfloat16 "
+                             "(the kernel reads the pool's bf16 scales)")
+    return k_scale.contiguous(), v_scale.contiguous()
 
 
 def _stream_ptr(dev) -> int:
@@ -84,11 +125,12 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *, sm_scale=None,
     """Single-token decode attention straight against the KV page pool.
 
     q: [B, H, K] (post-rotary); k_pool, v_pool: [P+1, ps, H, K] one
-    layer's pool; tables: [B, n_pg] int page ids (unallocated tail = 0);
-    lengths: [B] valid kv positions per slot (the current token's K/V
-    already written). → [B, H, K] in q.dtype. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
-    _no_int8(k_scale, v_scale)
+    layer's pool, in q's dtype or int8 with ``k_scale``/``v_scale`` [P+1]
+    (the layer's per-page scales, bf16 on CUDA); tables: [B, n_pg] int page ids
+    (unallocated tail = 0); lengths: [B] valid kv positions per slot (the
+    current token's K/V already written). → [B, H, K] in q.dtype. CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    quant = _quantized(k_pool, v_pool, k_scale, v_scale)
     B, H, K = q.shape
     ps = _check_shapes(q, k_pool, v_pool, H, K)
     n_pg = tables.shape[1]
@@ -96,11 +138,12 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *, sm_scale=None,
         sm_scale = 1.0 / math.sqrt(K)
     if q.device.type == "cpu":
         return reference_paged_attention(q, k_pool, v_pool, tables, lengths,
-                                         sm_scale=sm_scale)
+                                         sm_scale=sm_scale, k_scale=k_scale,
+                                         v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     tables, lengths = _cuda_operands(
-        q, k_pool, v_pool, (("tables", tables), ("lengths", lengths)))
+        q, k_pool, v_pool, (("tables", tables), ("lengths", lengths)), quant)
     if K not in _HEAD_DIMS:
         raise ValueError(f"decode kernel takes head_dim in "
                          f"{_HEAD_DIMS}, got {K}")
@@ -110,17 +153,26 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *, sm_scale=None,
     from ray_tpu_torch.ops import _build
 
     lib = _build.library()
-    rc = lib.rtt_paged_decode_attention(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-        v_pool.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, H, K, ps, n_pg, float(sm_scale),
-        _stream_ptr(q.device))
-    _build.check(rc, "paged_attention kernel launch")
-    paged_attention.launches += 1
+    common = (tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H, K,
+              ps, n_pg, float(sm_scale), _stream_ptr(q.device))
+    if quant:
+        ks, vs = _scale_operands(q.device, k_scale, v_scale)
+        rc = lib.rtt_paged_decode_attention_int8(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
+            v_pool.data_ptr(), ks.data_ptr(), vs.data_ptr(), *common)
+        _build.check(rc, "paged_attention int8 kernel launch")
+        paged_attention.int8_launches += 1
+    else:
+        rc = lib.rtt_paged_decode_attention(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
+            v_pool.data_ptr(), *common)
+        _build.check(rc, "paged_attention kernel launch")
+        paged_attention.launches += 1
     return out
 
 
 paged_attention.launches = 0
+paged_attention.int8_launches = 0
 
 
 def paged_prefill_attention(q, k_pool, v_pool, tables, offsets, lengths, *,
@@ -128,13 +180,14 @@ def paged_prefill_attention(q, k_pool, v_pool, tables, offsets, lengths, *,
     """Chunked-prefill attention straight against the KV page pool.
 
     q: [B, C, H, K] — each slot's chunk of C queries starting at absolute
-    position ``offsets[b]``; tables: [B, n_pg] (may be a width-sliced
-    view); lengths: [B] valid kv positions (offset + valid chunk tokens,
-    <= n_pg * page_size). → [B, C, H, K] in q.dtype; rows past a slot's
-    valid chunk tokens are finite but meaningless (the engine discards
-    them). CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
-    _no_int8(k_scale, v_scale)
+    position ``offsets[b]``; pools as in `paged_attention` (float, or
+    int8 with ``k_scale``/``v_scale``); tables: [B, n_pg] (may be a
+    width-sliced view); lengths: [B] valid kv positions (offset + valid
+    chunk tokens, <= n_pg * page_size). → [B, C, H, K] in q.dtype; rows
+    past a slot's valid chunk tokens are finite but meaningless (the
+    engine discards them). CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    quant = _quantized(k_pool, v_pool, k_scale, v_scale)
     B, C, H, K = q.shape
     ps = _check_shapes(q, k_pool, v_pool, H, K)
     n_pg = tables.shape[1]
@@ -142,12 +195,14 @@ def paged_prefill_attention(q, k_pool, v_pool, tables, offsets, lengths, *,
         sm_scale = 1.0 / math.sqrt(K)
     if q.device.type == "cpu":
         return reference_paged_prefill_attention(
-            q, k_pool, v_pool, tables, offsets, lengths, sm_scale=sm_scale)
+            q, k_pool, v_pool, tables, offsets, lengths, sm_scale=sm_scale,
+            k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     tables, offsets, lengths = _cuda_operands(
         q, k_pool, v_pool,
-        (("tables", tables), ("offsets", offsets), ("lengths", lengths)))
+        (("tables", tables), ("offsets", offsets), ("lengths", lengths)),
+        quant)
     if K not in _HEAD_DIMS:
         raise ValueError(f"prefill kernel takes head_dim in "
                          f"{_HEAD_DIMS}, got {K}")
@@ -158,48 +213,67 @@ def paged_prefill_attention(q, k_pool, v_pool, tables, offsets, lengths, *,
 
     lib = _build.library()
     if lib.rtt_paged_prefill_smem_bytes(
-            _DTYPE_CODES[q.dtype], K, ps) > _MAX_SMEM_BYTES:
+            _DTYPE_CODES[q.dtype], int(quant), K, ps) > _MAX_SMEM_BYTES:
         raise ValueError(f"page_size {ps} too large for the prefill kernel "
                          f"at head_dim {K}")
-    rc = lib.rtt_paged_prefill_attention(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-        v_pool.data_ptr(), tables.data_ptr(), offsets.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), B, C, H, K, ps, n_pg,
-        float(sm_scale), _stream_ptr(q.device))
-    _build.check(rc, "paged_prefill_attention kernel launch")
-    paged_prefill_attention.launches += 1
+    common = (tables.data_ptr(), offsets.data_ptr(), lengths.data_ptr(),
+              out.data_ptr(), B, C, H, K, ps, n_pg, float(sm_scale),
+              _stream_ptr(q.device))
+    if quant:
+        ks, vs = _scale_operands(q.device, k_scale, v_scale)
+        rc = lib.rtt_paged_prefill_attention_int8(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
+            v_pool.data_ptr(), ks.data_ptr(), vs.data_ptr(), *common)
+        _build.check(rc, "paged_prefill_attention int8 kernel launch")
+        paged_prefill_attention.int8_launches += 1
+    else:
+        rc = lib.rtt_paged_prefill_attention(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
+            v_pool.data_ptr(), *common)
+        _build.check(rc, "paged_prefill_attention kernel launch")
+        paged_prefill_attention.launches += 1
     return out
 
 
 paged_prefill_attention.launches = 0
+paged_prefill_attention.int8_launches = 0
 
 
 def reset_launch_counts() -> None:
-    """Zero both wrappers' launch counters."""
-    paged_attention.launches = 0
-    paged_prefill_attention.launches = 0
+    """Zero both wrappers' launch counters, float and int8."""
+    for fn in (paged_attention, paged_prefill_attention):
+        fn.launches = 0
+        fn.int8_launches = 0
 
 
-def _gather_timeline(k_pool, v_pool, tables):
-    """Each slot's contiguous [B, T, H, K] timeline, T = n_pg · ps."""
+def _gather_timeline(k_pool, v_pool, tables, k_scale=None, v_scale=None):
+    """Each slot's contiguous [B, T, H, K] timeline, T = n_pg · ps; an
+    int8 pool's pages dequantized in fp32 (``page.float() * scale[page
+    id]``)."""
     B, n_pg = tables.shape
     _P, ps, H, K = k_pool.shape
     idx = tables.long()
-    return (k_pool[idx].reshape(B, n_pg * ps, H, K),
-            v_pool[idx].reshape(B, n_pg * ps, H, K))
+    k_view, v_view = k_pool[idx], v_pool[idx]          # [B, n_pg, ps, H, K]
+    if k_scale is not None:
+        k_view = k_view.float() * k_scale[idx].float()[..., None, None, None]
+        v_view = v_view.float() * v_scale[idx].float()[..., None, None, None]
+    return (k_view.reshape(B, n_pg * ps, H, K),
+            v_view.reshape(B, n_pg * ps, H, K))
 
 
 def reference_paged_attention(q, k_pool, v_pool, tables, lengths, *,
                               sm_scale=None, k_scale=None, v_scale=None):
     """Plain version of `paged_attention`: gather each slot's timeline and
-    run full-softmax attention. Scores in fp32 from the input-dtype
-    operands; probabilities cast to q.dtype before the PV product (as
-    the reference does), which then accumulates in fp32. → q.dtype."""
-    _no_int8(k_scale, v_scale)
+    run full-softmax attention. Scores in fp32 from the input-dtype (or
+    dequantized fp32) operands; probabilities cast to q.dtype before the
+    PV product (as the gather reference does, int8 pools included),
+    which then accumulates in fp32. → q.dtype."""
+    _quantized(k_pool, v_pool, k_scale, v_scale)
     B, H, K = q.shape
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(K)
-    k_view, v_view = _gather_timeline(k_pool, v_pool, tables)
+    k_view, v_view = _gather_timeline(k_pool, v_pool, tables, k_scale,
+                                      v_scale)
     T = k_view.shape[1]
     s = torch.einsum("bhk,bthk->bht", q.float(), k_view.float()) * sm_scale
     mask = (torch.arange(T, device=q.device)[None, :]
@@ -216,17 +290,19 @@ def reference_paged_prefill_attention(q, k_pool, v_pool, tables, offsets,
     """Plain version of `paged_prefill_attention`: gather each slot's
     timeline (T = tables.shape[1] · ps, so a width-sliced table shrinks
     the work the same way it shrinks the kernel's) and run causal
-    attention for the C-query chunk at its offset. → q.dtype.
+    attention for the C-query chunk at its offset, with the roundings of
+    `reference_paged_attention`. → q.dtype.
 
     A slot with ``lengths[b] == 0`` (an inert row at offset 0) has no
     valid position: here it gets the uniform average of its V rows, from
     the kernel zeros (its l == 0 guard), exactly as the JAX reference and
     Pallas kernel differ. Callers discard such rows."""
-    _no_int8(k_scale, v_scale)
+    _quantized(k_pool, v_pool, k_scale, v_scale)
     B, C, H, K = q.shape
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(K)
-    k_view, v_view = _gather_timeline(k_pool, v_pool, tables)
+    k_view, v_view = _gather_timeline(k_pool, v_pool, tables, k_scale,
+                                      v_scale)
     T = k_view.shape[1]
     s = torch.einsum("bchk,bthk->bhct", q.float(), k_view.float()) * sm_scale
     tpos = torch.arange(T, device=q.device)

@@ -9,11 +9,17 @@ pow-2 page width each chunk attends over. The host-side scheduler,
 page refcounts and page accounting are the same numpy logic as the JAX
 engine's; only the device programs (``models/paged_kv.py``) differ.
 
+Quantized serving is the JAX engine's: ``weight_dtype="int8"`` quantizes
+the matmul planes per output channel at load (from the masters as given,
+before the cast to ``cfg.dtype``), and ``kv_dtype="int8"`` keeps an int8
+page pool with per-page scale planes, read by the int8 programs of the
+paged-attention kernels; either alone or both.
+
 Not ported in this slice, each rejected with a ValueError when asked
 for: dense KV, one-shot prefill, the prefix cache, speculative
-decoding, tensor parallelism, int8 weights / KV, KV page-set transfer
-(pool roles, kv_transfer, kv_store), drain/export, compile warmup and
-the Serve deployment wrapper. The tracing, profiling, chaos and
+decoding, tensor parallelism, KV page-set transfer (pool roles,
+kv_transfer, kv_store), drain/export, compile warmup and the Serve
+deployment wrapper. The tracing, profiling, chaos and
 compile-watch hooks of the JAX engine have no counterpart here.
 """
 
@@ -93,8 +99,10 @@ class LLMEngine:
     Runs on ``device`` (default cuda; a missing GPU raises unless
     ``device="cpu"``). ``attn_impl``: "kernel" (the CUDA paged-attention
     kernels), "gather" (their plain PyTorch versions) or "auto" (kernel
-    on CUDA, gather on the CPU). Parameters are cast to ``cfg.dtype``
-    and moved to the device once, here.
+    on CUDA, gather on the CPU). ``weight_dtype`` and ``kv_dtype`` are
+    "bf16" (float, in ``cfg.dtype``) or "int8". Parameters are quantized
+    (int8 weights), cast to ``cfg.dtype`` and moved to the device once,
+    here.
     """
 
     def __init__(self, cfg, params=None, *, n_slots: int = 8,
@@ -121,11 +129,14 @@ class LLMEngine:
                 (tp != 1, "tensor parallelism (tp > 1)"),
                 (pool_role is not None or bool(kv_transfer)
                  or kv_store is not None, "KV page-set transfer"),
-                (weight_dtype != "bf16", "int8 weights"),
-                (kv_dtype != "bf16", "int8 KV pools"),
                 (bool(warmup), "compile warmup")):
             if asked:
                 raise _not_ported(feature)
+        if weight_dtype not in ("bf16", "int8"):
+            raise ValueError(
+                f"weight_dtype must be bf16|int8, got {weight_dtype!r}")
+        if kv_dtype not in ("bf16", "int8"):
+            raise ValueError(f"kv_dtype must be bf16|int8, got {kv_dtype!r}")
         self.device = resolve_device(device)
         if attn_impl == "auto":
             # Resolved once: the kernels on CUDA, their plain versions on
@@ -150,9 +161,16 @@ class LLMEngine:
         self.max_len = max_len
         self.kv_mode = kv_mode
         self.attn_impl = attn_impl
+        self.weight_dtype = weight_dtype
+        self.kv_dtype = kv_dtype
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = gpt.init_params(cfg, gen, self.device)
+        if weight_dtype == "int8":
+            # Quantize the masters BEFORE the cast to cfg.dtype, as the JAX
+            # engine quantizes its own (float32) params: bf16-rounded
+            # weights give other int8 codes. Idempotent on int8 planes.
+            params = gpt.quantize_params(params)
         self.params = _paged.serving_params(cfg, params, self.device)
         self.prefill_width_bucketing = bool(prefill_width_bucketing)
         self.prefill_chunk = prefill_chunk
@@ -165,6 +183,7 @@ class LLMEngine:
                           (n_slots * self.max_pages_per_slot) // 2)
         self.n_pages = n_pages
         self.cache = _paged.init_paged_kv(cfg, n_pages, page_size,
+                                          kv_dtype=kv_dtype,
                                           device=self.device)
         self.page_table = np.zeros((n_slots, self.max_pages_per_slot),
                                    np.int32)
@@ -311,6 +330,8 @@ class LLMEngine:
                      kv_pages_free_min=self._min_free_pages,
                      kv_page_size=self.page_size,
                      llm_attn_impl=self.attn_impl,
+                     llm_weight_dtype=self.weight_dtype,
+                     llm_kv_dtype=self.kv_dtype,
                      device=str(self.device),
                      kv_pool_bytes=sum(
                          a.numel() * a.element_size()

@@ -2,11 +2,13 @@
 
 Each kernel against its plain PyTorch version on CUDA tensors (paged:
 ragged lengths, idle all-null slots, width-sliced prefill tables, a
-partial query tile; flash: forward, dq and dkv, causal and not, S != T,
-an lse cotangent; fp32 and bf16, the tensor-core head dims 64 and 128),
-the launch counters, the wrappers' refusals (no fallback to the plain
-path), the tiny engine with ``attn_impl="kernel"`` against ``"gather"``
-on the card, and one gpt2_124m-wide training step with
+partial query tile, float pools and int8 pools with per-page scales;
+flash: forward, dq and dkv, causal and not, S != T, an lse cotangent;
+fp32 and bf16, the tensor-core head dims 64 and 128), the launch
+counters, the wrappers' refusals (no fallback to the plain path), the
+tiny engine with ``attn_impl="kernel"`` against ``"gather"`` on the
+card (float, and int8 weights with an int8 pool), and one
+gpt2_124m-wide training step with
 ``attn_impl="flash"`` against ``"xla"``. The file imports neither JAX nor the JAX package, and the
 repo's conftest does, so run it with::
 
@@ -23,6 +25,7 @@ import pytest
 import torch
 
 from ray_tpu_torch.models import gpt
+from ray_tpu_torch.models import paged_kv as pk
 from ray_tpu_torch.ops import attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.serve.llm import LLMEngine
@@ -35,6 +38,11 @@ pytestmark = pytest.mark.cuda
 # (chip_smoke.py derives it); 8e-3 > 2u leaves room for the fp32 terms.
 FP32_ATOL = 1e-5
 BF16_REL = 8e-3
+# The int8 programs with bf16 q do not round p (the Pallas programs' math),
+# so against the plain version on q.float() (p unrounded, fp32 output) only
+# the output's bf16 rounding (half a bf16 ulp of out) and the hi + lo split
+# of p·vs (<= 2^-16 S) remain: |out - ref32| <= half_ulp(out) + 4e-5 S.
+P_UNROUNDED_S = 4e-5
 
 
 @pytest.fixture
@@ -58,11 +66,11 @@ def _abs_v(reference, q, kp, vp, *args):
     return reference(q.float(), kp.float(), vp.float().abs(), *args)
 
 
-def _close(out, ref, dtype, s_abs):
+def _close(out, ref, dtype, s_abs, rtol=0.0):
     out, ref = out.float(), ref.float()
     assert torch.isfinite(out).all()
     if dtype == torch.float32:
-        torch.testing.assert_close(out, ref, rtol=0, atol=FP32_ATOL)
+        torch.testing.assert_close(out, ref, rtol=rtol, atol=FP32_ATOL)
         return
     err = (out - ref).abs()
     share = err / (BF16_REL * (ref.abs() + s_abs))
@@ -122,6 +130,108 @@ def test_prefill_kernel_matches_plain(cuda, dtype, ps, K, C):
     _close(out[live], ref[live], dtype, s_abs[live])
 
 
+def _int8_pool(rng, n_pages, ps, H, K, dev):
+    """int8 K/V pools with their bf16 scale vectors: normal rows, each
+    page at its own amplitude (log-uniform in [0.25, 4], so a wrong scale
+    shows), quantized page by page with the port's own `_quant_write`."""
+    out = []
+    for _ in range(2):
+        amp = np.exp(rng.uniform(np.log(0.25), np.log(4.0), n_pages))
+        rows = rng.normal(size=(n_pages, ps, H, K)) * amp[:, None, None, None]
+        plane = torch.zeros(n_pages, ps, H, K, dtype=torch.int8, device=dev)
+        scale = torch.zeros(n_pages, dtype=torch.bfloat16, device=dev)
+        pages = torch.arange(n_pages, device=dev).repeat_interleave(ps)
+        offs = torch.arange(ps, device=dev).repeat(n_pages)
+        pk._quant_write(plane, scale, pages, offs, torch.from_numpy(
+            rows.reshape(-1, H, K).astype(np.float32)).to(dev))
+        out += [plane, scale]
+    return out          # k_pool, k_scale, v_pool, v_scale
+
+
+def _abs_v_int8(reference, q, kp, ks, vp, vs, *args):
+    """S of the bf16 bound for an int8 pool: the plain version with |V|."""
+    return reference(q.float(), kp, vp.abs(), *args, k_scale=ks, v_scale=vs)
+
+
+def _close_p_unrounded(out, ref32, s_abs):
+    """A bf16-q int8 program against the plain version on q.float()."""
+    out = out.float()
+    _, e = torch.frexp(out)
+    half_ulp = torch.where(out == 0, torch.zeros_like(out),
+                           torch.ldexp(torch.ones_like(out), e - 9))
+    err = (out - ref32).abs()
+    assert bool((err <= half_ulp + P_UNROUNDED_S * s_abs).all()), float(
+        ((err - half_ulp) / (P_UNROUNDED_S * s_abs)).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps,K", [(16, 64), (64, 64), (16, 128), (64, 128)])
+def test_decode_int8_kernel_matches_plain(cuda, dtype, ps, K):
+    rng = np.random.default_rng(6)
+    B, H, n_pg = 5, 4, 3
+    kp, ks, vp, vs = _int8_pool(rng, B * n_pg + 1, ps, H, K, cuda)
+    tables = np.zeros((B, n_pg), np.int32)
+    lengths = np.array([1, ps // 2 + 1, ps, n_pg * ps, 1], np.int32)
+    perm = rng.permutation(np.arange(1, B * n_pg + 1)).astype(np.int32)
+    for b in range(B - 1):                  # the last slot idles on page 0
+        n = -(-int(lengths[b]) // ps)
+        tables[b, :n] = perm[b * n_pg:b * n_pg + n]
+    q = torch.from_numpy(rng.normal(size=(B, H, K)).astype(np.float32)).to(
+        cuda, dtype)
+    t = torch.from_numpy(tables).to(cuda)
+    n = torch.from_numpy(lengths).to(cuda)
+    out = pa.paged_attention(q, kp, vp, t, n, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert (pa.paged_attention.int8_launches,
+            pa.paged_attention.launches) == (1, 0)
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = pa.reference_paged_attention(q, kp, vp, t, n, k_scale=ks,
+                                       v_scale=vs)
+    s_abs = _abs_v_int8(pa.reference_paged_attention, q, kp, ks, vp, vs, t,
+                        n)
+    _close(out, ref, dtype, s_abs, rtol=1e-5)
+    if dtype == torch.bfloat16:
+        _close_p_unrounded(out, pa.reference_paged_attention(
+            q.float(), kp, vp, t, n, k_scale=ks, v_scale=vs), s_abs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps,K", [(16, 64), (64, 64), (16, 128), (64, 128)])
+@pytest.mark.parametrize("C", [72, 128])
+def test_prefill_int8_kernel_matches_plain(cuda, dtype, ps, K, C):
+    """As test_prefill_kernel_matches_plain on int8 pools: scattered pages,
+    so a 64-key tile at ps = 16 spans four pages with four scales."""
+    rng = np.random.default_rng(7)
+    B, H, n_pg = 5, 2, 512 // ps
+    width = n_pg // 2
+    kp, ks, vp, vs = _int8_pool(rng, B * n_pg + 1, ps, H, K, cuda)
+    tables = (rng.permutation(B * n_pg).astype(np.int32) + 1).reshape(B, n_pg)
+    cap = width * ps
+    rows = [(0, C), (ps + 3, C - 5), (cap - C, C), (7, 1), (0, 0)]
+    offs = np.array([o for o, _ in rows], np.int32)
+    lens = np.array([o + v for o, v in rows], np.int32)
+    q = torch.from_numpy(rng.normal(size=(B, C, H, K)).astype(
+        np.float32)).to(cuda, dtype)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in (tables[:, :width], offs, lens)]
+    out = pa.paged_prefill_attention(q, kp, vp, *args, k_scale=ks,
+                                      v_scale=vs)
+    torch.cuda.synchronize()
+    assert (pa.paged_prefill_attention.int8_launches,
+            pa.paged_prefill_attention.launches) == (1, 0)
+    ref = pa.reference_paged_prefill_attention(q, kp, vp, *args, k_scale=ks,
+                                               v_scale=vs)
+    live = torch.from_numpy(lens > 0).to(cuda)
+    assert torch.all(out[~live] == 0)        # inert row: the l == 0 guard
+    s_abs = _abs_v_int8(pa.reference_paged_prefill_attention, q, kp, ks, vp,
+                        vs, *args)
+    _close(out[live], ref[live], dtype, s_abs[live], rtol=1e-5)
+    if dtype == torch.bfloat16:
+        ref32 = pa.reference_paged_prefill_attention(
+            q.float(), kp, vp, *args, k_scale=ks, v_scale=vs)
+        _close_p_unrounded(out[live], ref32[live], s_abs[live])
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 2, 8, device=cuda)
     pool = torch.zeros(2, 4, 2, 8, device=cuda)
@@ -138,7 +248,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     strided = torch.zeros(2, 2, 4, 64, device=cuda).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         pa.paged_attention(q64, strided, pool64, t, n)
+    i8 = pool64.to(torch.int8)
+    scale = torch.ones(2, device=cuda)
+    with pytest.raises(ValueError, match="needs k_scale"):
+        pa.paged_attention(q64, i8, i8, t, n)
+    with pytest.raises(ValueError, match="k_scale dtype torch.float32"):
+        pa.paged_attention(q64, i8, i8, t, n, k_scale=scale,
+                           v_scale=scale.bfloat16())
     assert pa.paged_attention.launches == 0
+    assert pa.paged_attention.int8_launches == 0
 
 
 def test_engine_kernel_streams_match_gather_on_the_card(cuda):
@@ -165,6 +283,39 @@ def test_engine_kernel_streams_match_gather_on_the_card(cuda):
         outs[impl] = [r.out_ids for r in reqs]
     assert pa.paged_attention.launches > 0
     assert pa.paged_prefill_attention.launches > 0
+    assert outs["kernel"] == outs["gather"]
+
+
+def test_engine_int8_kernel_streams_match_gather_on_the_card(cuda):
+    """int8 weights and an int8 pool: the int8 programs' streams equal the
+    gather engine's (fp32 activations, so neither side rounds p), and no
+    float program runs."""
+    cfg = gpt.GPTConfig.tiny_untied(dtype=torch.float32, d_model=256,
+                                    n_heads=4)          # head_dim 64
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = gpt.init_params(cfg, gen, cuda)
+    rng = np.random.default_rng(8)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab_size, n)))
+               for n in (3, 40, 90, 17, 64)]
+    outs = {}
+    for impl in ("kernel", "gather"):
+        eng = LLMEngine(cfg, params, n_slots=4, max_len=128, page_size=16,
+                        prefill_chunk=32, prefill_token_budget=64,
+                        attn_impl=impl, weight_dtype="int8", kv_dtype="int8",
+                        device=cuda)
+        reqs = [eng.submit(p, max_tokens=8) for p in prompts]
+        for _ in range(400):
+            if all(r.done.is_set() for r in reqs):
+                break
+            eng.step()
+        assert all(r.done.is_set() and r.error is None for r in reqs)
+        acc = eng.page_accounting()
+        assert acc["closure"] and acc["free"] == acc["total"]
+        outs[impl] = [r.out_ids for r in reqs]
+    assert pa.paged_attention.int8_launches > 0
+    assert pa.paged_prefill_attention.int8_launches > 0
+    assert (pa.paged_attention.launches,
+            pa.paged_prefill_attention.launches) == (0, 0)
     assert outs["kernel"] == outs["gather"]
 
 

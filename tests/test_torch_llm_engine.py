@@ -5,8 +5,9 @@ Both engines run paged KV with chunked prefill and ``attn_impl=
 way tests/test_chunked_prefill.py drives the JAX one: ragged prompts,
 width-bucketed and full-width chunk dispatch, and preempt-by-recompute
 under a small pool. Greedy token streams must be identical and the page
-accounting must close. Knobs this slice does not port must raise
-ValueError; ``start()``/``submit()`` must serve from the engine thread.
+accounting must close. Knobs the port does not have yet, and bad
+values of the ones it has (``weight_dtype``/``kv_dtype`` other than
+bf16|int8, as tests/test_quant.py:344 has them), must raise ValueError; ``start()``/``submit()`` must serve from the engine thread.
 """
 
 import numpy as np
@@ -160,7 +161,7 @@ def test_sampled_requests_complete(weights):
 @pytest.mark.parametrize("knob", [
     {"kv_mode": "dense"}, {"prefill_chunk": 0}, {"prefix_cache": True},
     {"spec_draft": "tiny"}, {"tp": 2}, {"pool_role": "prefill"},
-    {"kv_transfer": True}, {"weight_dtype": "int8"}, {"kv_dtype": "int8"},
+    {"kv_transfer": True}, {"weight_dtype": "int4"}, {"kv_dtype": "fp8"},
     {"warmup": True}, {"attn_impl": "flash"},
     {"prefill_chunk": 32, "prefill_token_budget": 16},
 ])

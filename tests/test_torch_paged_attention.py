@@ -8,6 +8,7 @@ numpy pools and tables: the ragged cases (length 1, mid-page, page
 boundary, full table, idle all-null slot), page sizes {8, 16}, fp32 and
 bf16, and width-sliced prefill tables. On the CPU the wrappers take the
 plain path — asserted, with the kernel launch counters left at 0. The
+int8 pools' parity tests are in tests/test_torch_quant.py. The
 CUDA kernels themselves are held against these plain versions on the
 card by chip_smoke.py.
 """
@@ -69,8 +70,8 @@ def _close(t, j, dt):
 def _zero_counts():
     tpa.reset_launch_counts()
     yield
-    assert tpa.paged_attention.launches == 0
-    assert tpa.paged_prefill_attention.launches == 0
+    for fn in (tpa.paged_attention, tpa.paged_prefill_attention):
+        assert (fn.launches, fn.int8_launches) == (0, 0)
 
 
 @pytest.mark.parametrize("dt", ["fp32", "bf16"])
@@ -157,17 +158,31 @@ def test_prefill_matches_jax(ps, dt, width):
 
 
 def test_int8_pools_not_ported():
-    q = torch.zeros(1, 2, 8)
-    pool = torch.zeros(2, 4, 2, 8)
-    t = torch.zeros(1, 1, dtype=torch.int32)
+    """Once a refusal, now the int8 programs' CPU path: both wrappers take
+    an int8 pool with its per-page scales to the plain versions (the
+    launch counters, int8 ones included, stay 0), and the scales are
+    read by page id: doubling one page's V scale doubles exactly that
+    page's share of the output."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.normal(size=(1, 2, 8)).astype(np.float32))
+    pool = torch.from_numpy(rng.integers(-127, 128, size=(3, 4, 2, 8)).astype(
+        np.int8))
+    t = torch.tensor([[2]], dtype=torch.int32)
     n = torch.ones(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="int8 pools not yet"):
-        tpa.paged_attention(q, pool, pool, t, n, k_scale=torch.ones(2),
-                            v_scale=torch.ones(2))
-    with pytest.raises(NotImplementedError, match="int8 pools not yet"):
-        tpa.paged_prefill_attention(q[:, None], pool, pool, t, n - 1, n,
-                                    k_scale=torch.ones(2),
-                                    v_scale=torch.ones(2))
+    ks = torch.full((3,), 0.01)
+    vs = ks.clone()
+    out = tpa.paged_attention(q, pool, pool, t, n, k_scale=ks, v_scale=vs)
+    torch.testing.assert_close(out[0], pool[2, 0].float() * 0.01)
+    vs[2] = 0.02
+    vs[1] = 5.0                                 # not in the table: unread
+    torch.testing.assert_close(
+        tpa.paged_attention(q, pool, pool, t, n, k_scale=ks, v_scale=vs),
+        2 * out)
+    chunk = tpa.paged_prefill_attention(q[:, None], pool, pool, t, n - 1, n,
+                                        k_scale=ks, v_scale=vs)
+    torch.testing.assert_close(chunk[:, 0], 2 * out)
+    assert tpa.paged_attention.int8_launches == 0
+    assert tpa.paged_prefill_attention.int8_launches == 0
 
 
 def test_shape_mismatch_raises():

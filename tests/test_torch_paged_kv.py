@@ -9,7 +9,8 @@ sides compute K/V with fp32 matmuls, summed in another order), greedy
 tokens exactly. The null page is excluded from the pool comparison:
 pad rows write to it in an order neither side defines. Also pins the
 fused window's sampler (greedy exact, temperature > 0 to its
-distribution) and that the CPU programs launched no kernel.
+distribution), that the CPU programs launched no kernel, and the int8
+pool's layout (its parity with JAX is in tests/test_torch_quant.py).
 """
 
 import numpy as np
@@ -168,8 +169,24 @@ def test_sample_next_greedy_and_distribution():
 
 
 def test_int8_pool_not_ported():
-    with pytest.raises(ValueError, match="not yet ported"):
-        tpk.init_paged_kv(TCFG, 4, 8, kv_dtype="int8", device="cpu")
+    """Once a refusal, now `init_paged_kv(kv_dtype="int8")`: int8 planes
+    of the float pool's shape plus two bf16 [L, P+1] scale planes, a
+    quarter of the fp32 pool's bytes plus the planes'; other dtypes and
+    attention impls are refused."""
+    f = tpk.init_paged_kv(TCFG, N_PAGES, PS, device="cpu")
+    q = tpk.init_paged_kv(TCFG, N_PAGES, PS, kv_dtype="int8", device="cpu")
+    assert set(q) == {"k", "v", "k_scale", "v_scale"}
+    assert q["k"].shape == q["v"].shape == f["k"].shape
+    assert q["k"].dtype == q["v"].dtype == torch.int8
+    L = TCFG.n_layers
+    assert q["k_scale"].shape == q["v_scale"].shape == (L, N_PAGES + 1)
+    assert q["k_scale"].dtype == torch.bfloat16
+    assert all(int(t.abs().sum()) == 0 for t in q.values())
+    nbytes = lambda pool: sum(t.numel() * t.element_size()
+                              for t in pool.values())
+    assert nbytes(q) == nbytes(f) // 4 + 2 * L * (N_PAGES + 1) * 2
+    with pytest.raises(ValueError, match="bf16|int8"):
+        tpk.init_paged_kv(TCFG, 4, 8, kv_dtype="int4", device="cpu")
     with pytest.raises(ValueError, match="gather|kernel"):
         tpk.prefill_chunk_paged(TCFG, {}, None, None, None, None, None,
                                 attn_impl="flash")

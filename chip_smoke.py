@@ -12,7 +12,9 @@ build/chip_smoke.json):
 1. card: the ``nvidia-smi --query-gpu=name,power.limit`` line.
 2. build: every CUDA kernel compiled from ray_tpu_torch/ops/csrc for
    sm_90a (one nvcc per source, all started together), with the build
-   seconds.
+   seconds, and per kernel whether its SASS (cuobjdump) holds HGMMA,
+   UTMALDG and HMMA: every instance of the bf16 flash forward and paged
+   prefill kernels must hold wgmma and TMA loads and no mma.sync.
 3. kernels: each kernel against its plain PyTorch version on the card at
    OPT-1.3B attention shapes (H=32, K=64), page sizes {16, 64}, fp32 and
    bf16, and at head dim 128; the ragged cases (length 1, mid-page, page
@@ -21,12 +23,15 @@ build/chip_smoke.json):
    shapes (decode: 16 slots on a 2048-position table, lengths up to 2048;
    prefill: 16-row dispatches of 256, most rows inert), the largest error
    printed beside its bound, long rows on their own; then each kernel,
-   checked once more on the inputs it is timed on, timed (device time
-   from the profiler, with CUDA events around back-to-back calls beside
-   it) at B=16, 1024-token contexts, page size 64, bf16, beside its bound,
-   its
-   plain version's time and F.scaled_dot_product_attention on the
-   gathered timeline (a yardstick only: the port never calls it).
+   checked once more on the inputs it is timed on, timed (device time:
+   `device_ms`, with CUDA events around calls as the host issues them
+   beside it) at B=16, 1024-token contexts, page size 64, bf16, beside
+   its bound, its plain version's time and F.scaled_dot_product_attention
+   on the gathered timeline (a yardstick only: the port never calls it;
+   for prefill with a bool mask and with causal_lower_right, the faster
+   is ``library_ms``). Then bf16 prefill at page sizes 16, 32, 64, 128
+   (the wgmma kernel) and 48 (the mma.sync kernel, by the shape rule),
+   chunks of C = 40, 72 and 200 at ragged offsets, float and int8 pools.
    Then the int8 programs of both paged kernels the same way, on int8
    pools quantized by the port's _quant_write from rows whose pages have
    log-uniform amplitudes in [0.25, 4] (page sizes 16 and 64, head dims
@@ -39,13 +44,14 @@ build/chip_smoke.json):
    versions and SDPA on the dequantized timeline.
    Then the three flash kernels (flash_fwd, flash_dq, flash_dkv), each
    against its plain version: fp32 and bf16, head dims 64 and 128,
-   causal and non-causal, S=77/T=130, S=64/T=256, S=T=192, S=1/T=64 and
-   S=130/T=1, the backward with an lse cotangent; then once more on the training step's
-   own inputs ([8, 1024, 12, 64] bf16 causal), where a dropped 64-wide
-   tile planted in the plain dq, dk and dv must fail the bound, then timed
-   beside each kernel's bound, its plain version and SDPA (forward by CUDA
-   events; forward plus backward, against the three kernels, by the
-   profiler's device time).
+   causal and non-causal, S=77/T=130, S=64/T=256, S=200/T=333, S=T=192,
+   S=1/T=64 and S=130/T=1, in bf16 also on q, k, v as strided views of
+   packed qkv tensors, the backward with an lse cotangent; then once more
+   on the training step's own inputs ([8, 1024, 12, 64] bf16 causal),
+   where a dropped 64-wide tile planted in the plain dq, dk and dv must
+   fail the bound, then timed by device time beside each kernel's bound,
+   its plain version and SDPA (forward; forward plus backward against
+   the three kernels).
 4. programs: prefill_chunk_paged and decode_step_paged at full opt_1_3b
    width (bf16, random weights from a seed), attn_impl "kernel" vs
    "gather" on copies of one pool; then the same with int8 weights
@@ -75,7 +81,9 @@ build/chip_smoke.json):
    after (exactly 24 forward, 12 dq and 12 dkv launches per step: remat
    recomputes each block's forward), step time, tokens/s, MFU, the steps'
    peak memory and the losses; then torch.profiler over one step.
-8. the kernels line, then the last line
+8. with --ab OLD_CHECKOUT: the flash forward and the float and int8
+   paged prefill against an older checkout's kernels, in turns.
+9. the kernels line, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Any failure raises: the script exits non-zero without the last line.
@@ -85,9 +93,11 @@ Without a CUDA device it exits 1 at once.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -179,34 +189,105 @@ def cuda_time_ms(fn, iters=30, warmup=3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def device_ms(fn, iters=10) -> float:
-    """Device time of fn's kernels per call, summed from torch.profiler
-    over ``iters`` calls after a warm-up: the host's gaps between the
-    launches do not count."""
+SPIN_CYCLES_PER_S = 2.0e9   # at most the H100's SM clock: spins no shorter
+
+
+def device_ms(fn, iters=30) -> float:
+    """Device time of one call of fn: CUDA events around ``iters`` calls
+    queued behind a spin kernel (``torch.cuda._sleep``) that outlasts the
+    host's enqueueing of them all, so the device runs them back to back
+    and the wrapper's host time does not count (it is of the order of a
+    decode or flash-forward kernel's). The spin doubles until the end
+    event of the spin is still pending when the last call is enqueued.
+    Not torch.profiler's kernel sums: on the H100 they read some whole
+    phases at 0.6x and single windows at 0.5x the same kernel's time."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t = time.perf_counter()
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    spin_s = 2 * iters * (time.perf_counter() - t) / 3 + 1e-3
+    for _ in range(6):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_s * SPIN_CYCLES_PER_S))
+        t0.record()
         for _ in range(iters):
             fn()
+        t1.record()
+        spun = not t0.query()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / iters
+        if spun:
+            return t0.elapsed_time(t1) / iters
+        spin_s *= 2
+    raise AssertionError("the host never enqueued the calls within the spin")
 
 
 def kernel_ms(fn):
-    """A paged kernel's time per call: its device time from the profiler
-    (``ms``), and CUDA events around 30 back-to-back calls
-    (``ms_events``). A decode kernel runs for tens of microseconds, about
-    what the wrapper takes on the host to launch it, so the events can
-    read the host's launch rate instead of the kernel."""
-    return device_ms(fn, iters=30), cuda_time_ms(fn)
+    """A kernel's time per call: its device time (``ms``, `device_ms`),
+    and CUDA events around 30 calls as the host issues them
+    (``ms_events``), which for a kernel of tens of microseconds read the
+    wrapper's launch rate instead."""
+    return device_ms(fn), cuda_time_ms(fn)
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ------------------------------------------------------------------- build
+
+# The kernels that must be Hopper kernels: wgmma (HGMMA in the SASS) on
+# tiles brought in by TMA (UTMALDG), and no mma.sync (HMMA).
+WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "paged_prefill_wgmma_kernel")
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+_MANGLED_ARGS = {"f": "float", "a": "int8", "13__nv_bfloat16": "bf16",
+                 "Lb0E": "false", "Lb1E": "true"}
+
+
+def kernel_name(sym: str) -> str:
+    """A mangled kernel symbol → its name and template arguments, e.g.
+    ``paged_prefill_wgmma_kernel<64,true>`` (the last name of the nested
+    name, then the ints, bools and element types of its arguments)."""
+    s, i, name = sym.removeprefix("_ZN"), 0, sym
+    while (m := re.match(r"\d+", s[i:])):
+        i += len(m.group())
+        name, i = s[i:i + int(m.group())], i + int(m.group())
+    end = s.find("EEv", i)
+    if not s[i:].startswith("I") or end < 0:
+        return name
+    args = [_MANGLED_ARGS.get(t.group(), t.group()[2:-1]) for t in re.finditer(
+        r"L[ib]\d+E|13__nv_bfloat16|[fa]", s[i + 1:end + 1])]
+    return f"{name}<{','.join(args)}>"
+
+
+def sass_ops(lib_path) -> dict:
+    """Per kernel of the built library, which of SASS_OPS its SASS holds
+    (``cuobjdump -sass``, beside nvcc). Raises unless every instance of
+    WGMMA_KERNELS holds HGMMA and UTMALDG and no HMMA."""
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    ops: dict = {}
+    fn = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = kernel_name(m.group(1))
+            ops.setdefault(fn, set())
+        elif fn is not None:
+            ops[fn].update(op for op in SASS_OPS if op in line)
+    ops = {fn: sorted(v) for fn, v in sorted(ops.items())}
+    hopper = {fn: v for fn, v in ops.items()
+              if fn.split("<")[0] in WGMMA_KERNELS}
+    if len(hopper) < 6 or any(v != ["HGMMA", "UTMALDG"]
+                              for v in hopper.values()):
+        raise AssertionError(f"the wgmma kernels' SASS lacks HGMMA or "
+                             f"UTMALDG, or holds HMMA: {hopper}")
+    return ops
 
 
 # ------------------------------------------------------------------ cases
@@ -472,9 +553,58 @@ def phase_kernels(device, errs):
             ptag = f"{tag} engine dispatch 16x256 width={n_pg}"
             record("paged_prefill_attention" + sfx, ptag, check_prefill(
                 rng, ptag, rows, 256, n_pg=n_pg, width=n_pg, **kw))
+    # bf16 q at every page size the wgmma prefill kernel takes in boxes of
+    # its own (16, 32: several pages per key tile; 64; 128: a page of two
+    # key tiles at head dim 128) and at 48, which the mma.sync kernel
+    # takes by the shape rule; chunks of C = 40, 72 and 200 at ragged
+    # offsets on a width-sliced table, with an inert row.
+    for heads in ((H, K), (16, 128)):
+        for ps in (16, 32, 64, 128, 48):
+            for quant in (False, True):
+                n_pg = -(-768 // ps)
+                width = n_pg - 1
+                cap = width * ps
+                sfx = "_int8" if quant else ""
+                kern = pa.prefill_kernel(torch.bfloat16, heads[1], ps)
+                for C in (40, 72, 200):
+                    rows = [(0, C), (ps + 3, C - 5), (cap - C, C), (11, 1),
+                            (0, 0)]
+                    ptag = (f"ps={ps} bfloat16 heads={heads[0]}x{heads[1]}"
+                            f"{' int8 pool' if quant else ''} C={C} "
+                            f"width={width} ({kern} kernel)")
+                    record("paged_prefill_attention" + sfx, ptag,
+                           check_prefill(rng, ptag, rows, C, ps=ps,
+                                         n_pg=n_pg, width=width,
+                                         dtype=torch.bfloat16, device=device,
+                                         heads=heads, quant=quant))
     emit({"phase": "kernels_vs_plain", "tolerance": TOLERANCE,
           "cases": cases})
     return {**time_kernels(device, errs), **time_int8_kernels(device, errs)}
+
+
+def sdpa_prefill(qp, kt, vt, off):
+    """SDPA yardsticks of a prefill chunk at offset ``off`` (q [B, C, H,
+    K] against the gathered [B, H, T, K] timeline), by device time with
+    CUDA events beside it: with a bool mask, and with
+    causal_lower_right(C, T), exactly the prefill mask at offset T - C,
+    which may take a flash backend. ``library_ms`` is the faster."""
+    from torch.nn.attention.bias import causal_lower_right
+
+    C, T = qp.shape[1], kt.shape[2]
+    assert off == T - C, (off, T, C)
+    qpt = qp.transpose(1, 2).contiguous()
+    mask = (torch.arange(T, device=qp.device)[None, :]
+            <= (off + torch.arange(C, device=qp.device))[:, None])
+    lower_right = causal_lower_right(C, T)
+    bool_ms, bool_ev = kernel_ms(lambda: F.scaled_dot_product_attention(
+        qpt, kt, vt, attn_mask=mask))
+    lr_ms, lr_ev = kernel_ms(lambda: F.scaled_dot_product_attention(
+        qpt, kt, vt, attn_mask=lower_right))
+    return {"library_ms": min(bool_ms, lr_ms),
+            "library_call": ("causal_lower_right" if lr_ms <= bool_ms
+                             else "bool mask"),
+            "sdpa_bool_mask_ms": bool_ms, "sdpa_bool_mask_ms_events": bool_ev,
+            "sdpa_lower_right_ms": lr_ms, "sdpa_lower_right_ms_events": lr_ev}
 
 
 def time_kernels(device, errs):
@@ -512,7 +642,7 @@ def time_kernels(device, errs):
     plain = cuda_time_ms(lambda: pa.reference_paged_attention(
         q, kp, vp, *args), iters=10)
     qs = q[:, :, None, :]
-    lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(qs, kt, vt))
+    lib = device_ms(lambda: F.scaled_dot_product_attention(qs, kt, vt))
     nbytes = (2 * B * T * H * K * item + 2 * B * H * K * item
               + tables.numel() * 4 + B * 4)
     flops = 4 * B * H * T * K
@@ -542,18 +672,14 @@ def time_kernels(device, errs):
         qp, kp, vp, *args))
     plain = cuda_time_ms(lambda: pa.reference_paged_prefill_attention(
         qp, kp, vp, *args), iters=5)
-    qpos = off + torch.arange(C, device=device)
-    mask = torch.arange(T, device=device)[None, :] <= qpos[:, None]
-    qpt = qp.transpose(1, 2).contiguous()
-    lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        qpt, kt, vt, attn_mask=mask))
+    sdpa = sdpa_prefill(qp, kt, vt, off)
     nbytes = (2 * B * T * H * K * item + 2 * B * C * H * K * item
               + tables.numel() * 4 + 2 * B * 4)
     attended = sum(off + c + 1 for c in range(C))
     flops = 4 * B * H * K * attended
     bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
     timings["paged_prefill_attention"] = dict(
-        ms=ms, ms_events=ms_events, plain_ms=plain, library_ms=lib,
+        ms=ms, ms_events=ms_events, plain_ms=plain, **sdpa,
         bound_ms=bms, bound_by=by,
         check=check,
         shape=f"B={B} C={C} H={H} K={K} ctx={T} offset={off} ps={ps} bf16")
@@ -654,7 +780,7 @@ def time_int8_kernels(device, errs):
                                                          **sc))
     plain = cuda_time_ms(lambda: pa.reference_paged_attention(
         q, kp, vp, *args, **sc), iters=10)
-    lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+    lib = device_ms(lambda: F.scaled_dot_product_attention(
         q[:, :, None, :], kt, vt))
     nbytes = (2 * B * T * H * K + 2 * B * H * K * 2 + scale_bytes
               + tables.numel() * 4 + B * 4)
@@ -696,17 +822,13 @@ def time_int8_kernels(device, errs):
         qp, kp, vp, *args, **sc))
     plain = cuda_time_ms(lambda: pa.reference_paged_prefill_attention(
         qp, kp, vp, *args, **sc), iters=5)
-    mask = (torch.arange(T, device=device)[None, :]
-            <= (off + torch.arange(C, device=device))[:, None])
-    qpt = qp.transpose(1, 2).contiguous()
-    lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        qpt, kt, vt, attn_mask=mask))
+    sdpa = sdpa_prefill(qp, kt, vt, off)
     nbytes = (2 * B * T * H * K + 2 * B * C * H * K * 2 + scale_bytes
               + tables.numel() * 4 + 2 * B * 4)
     flops = 4 * B * H * K * sum(off + c + 1 for c in range(C))
     bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
     timings["paged_prefill_attention_int8"] = dict(
-        ms=ms, ms_events=ms_events, plain_ms=plain, library_ms=lib,
+        ms=ms, ms_events=ms_events, plain_ms=plain, **sdpa,
         bound_ms=bms, bound_by=by,
         bytes=nbytes, flops=flops, check=check,
         shape=f"B={B} C={C} H={H} K={K} ctx={T} offset={off} ps={ps} "
@@ -832,12 +954,29 @@ def planted_flash_faults(q, k, v, do, lse, delta, scale):
     return out
 
 
-def check_flash(rng, tag, B, S, T, Hh, Kd, dtype, causal, device):
+def packed_views(q, k, v):
+    """q, k, v as views of packed [B, S, 3, H, K] tensors (q of one, k and
+    v of another), as the training step's qkv projection passes them."""
+    qkv_q = torch.empty(*q.shape[:2], 3, *q.shape[2:], dtype=q.dtype,
+                        device=q.device)
+    qkv_kv = torch.empty(*k.shape[:2], 3, *k.shape[2:], dtype=k.dtype,
+                         device=k.device)
+    qkv_q[:, :, 0] = q
+    qkv_kv[:, :, 1] = k
+    qkv_kv[:, :, 2] = v
+    return qkv_q[:, :, 0], qkv_kv[:, :, 1], qkv_kv[:, :, 2]
+
+
+def check_flash(rng, tag, B, S, T, Hh, Kd, dtype, causal, device,
+                packed=False):
     """Each flash kernel against its plain version on one case →
-    {kernel: result}. The backward gets an lse cotangent."""
+    {kernel: result}. The backward gets an lse cotangent. ``packed``: q,
+    k and v are strided views of packed qkv tensors."""
     scale = 1.0 / np.sqrt(Kd)
     long_q, long_k = flash_long(S, T, causal, device)
     q, k, v, do, dlse = flash_inputs(rng, B, S, T, Hh, Kd, dtype, device)
+    if packed:
+        q, k, v = packed_views(q, k, v)
     o, lse = fa.flash_fwd(q, k, v, causal, scale)
     torch.cuda.synchronize()
     o_ref, lse_ref = fa.reference_flash_fwd(q, k, v, causal, scale)
@@ -849,8 +988,11 @@ def check_flash(rng, tag, B, S, T, Hh, Kd, dtype, causal, device):
     dk_ref, dv_ref = fa.reference_flash_dkv(q, k, v, do, lse_ref, delta,
                                             causal, scale)
     sums = flash_abs_sums(q, k, v, do, lse_ref, delta, causal, scale)
-    if not (dq.stride() == q.stride() and dk.stride() == k.stride()
-            and dv.stride() == v.stride() and o.stride() == q.stride()):
+    # Outputs take their inputs' layout (torch.empty_like: the same
+    # strides for a dense input, contiguous for a packed view).
+    like = lambda x: torch.empty_like(x).stride()
+    if not (dq.stride() == like(q) and dk.stride() == like(k)
+            and dv.stride() == like(v) and o.stride() == like(q)):
         raise AssertionError(f"flash {tag}: outputs lost their inputs' layout")
     res = {"flash_fwd": flash_close(f"flash_fwd {tag}", o, o_ref,
                                     sums["flash_fwd"], dtype, long_q)}
@@ -875,24 +1017,30 @@ def check_flash(rng, tag, B, S, T, Hh, Kd, dtype, causal, device):
 
 def phase_flash_kernels(device, errs):
     """The three flash kernels against their plain versions: fp32 and
-    bf16, head dims 64 and 128, causal and non-causal, S=77/T=130 and
-    S=64/T=256 (off the tile size, S != T), S=T=192, one query row
-    (S=1/T=64) and one key (S=130/T=1); then the timing shape."""
+    bf16, head dims 64 and 128, causal and non-causal, S=77/T=130,
+    S=64/T=256 and S=200/T=333 (off the tile sizes, S != T), S=T=192, one
+    query row (S=1/T=64) and one key (S=130/T=1); in bf16 also q, k, v as
+    strided views of packed qkv tensors (S=200/T=333 and S=1/T=64); then
+    the timing shape."""
     rng = np.random.default_rng(4)
     cases = []
-    for Kd in (64, 128):
-        for dtype in (torch.float32, torch.bfloat16):
-            for S, T in ((77, 130), (64, 256), (192, 192), (1, 64),
-                         (130, 1)):
-                for causal in (True, False):
-                    dn = str(dtype).split(".")[1]
-                    tag = (f"B=2 S={S} T={T} H=3 K={Kd} {dn} "
-                           f"{'causal' if causal else 'full'}")
-                    res = check_flash(rng, tag, 2, S, T, 3, Kd, dtype,
-                                      causal, device)
-                    for kern, r in res.items():
-                        errs[kern] = max(errs[kern], r["max_abs_err"])
-                        cases.append({"kernel": kern, "case": tag, **r})
+    grid = [(Kd, dtype, S, T, causal, False)
+            for Kd in (64, 128) for dtype in (torch.float32, torch.bfloat16)
+            for S, T in ((77, 130), (64, 256), (200, 333), (192, 192),
+                         (1, 64), (130, 1))
+            for causal in (True, False)]
+    grid += [(Kd, torch.bfloat16, S, T, causal, True) for Kd in (64, 128)
+             for S, T in ((200, 333), (1, 64)) for causal in (True, False)]
+    for Kd, dtype, S, T, causal, packed in grid:
+        dn = str(dtype).split(".")[1]
+        tag = (f"B=2 S={S} T={T} H=3 K={Kd} {dn} "
+               f"{'causal' if causal else 'full'}"
+               f"{' packed qkv views' if packed else ''}")
+        res = check_flash(rng, tag, 2, S, T, 3, Kd, dtype, causal, device,
+                          packed)
+        for kern, r in res.items():
+            errs[kern] = max(errs[kern], r["max_abs_err"])
+            cases.append({"kernel": kern, "case": tag, **r})
     emit({"phase": "flash_kernels_vs_plain", "tolerance": FLASH_TOLERANCE,
           "cases": cases})
     return time_flash(device, errs)
@@ -901,8 +1049,8 @@ def phase_flash_kernels(device, errs):
 def time_flash(device, errs):
     """Each flash kernel at the training step's shape, [8, 1024, 12, 64]
     bf16 causal: held once more to its plain version on these inputs,
-    then timed (CUDA events) beside its bound, its plain version and
-    SDPA (forward alone; forward plus backward)."""
+    then timed (`device_ms`, CUDA events beside it) beside its bound, its
+    plain version and SDPA (forward alone; forward plus backward)."""
     B, S, Hh, Kd = FLASH_SHAPE
     dt, item = torch.bfloat16, 2
     scale = 1.0 / np.sqrt(Kd)
@@ -935,12 +1083,12 @@ def time_flash(device, errs):
                       6 * n * item + 2 * rowvec, 4 * 2 * Kd * pairs),
     }
     for name, (kern, plain, nbytes, flops) in plan.items():
-        ms = cuda_time_ms(kern)
+        ms, ms_events = kernel_ms(kern)
         plain_ms = cuda_time_ms(plain, iters=5, warmup=1)
         bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
-        timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                             bound_by=by, bytes=nbytes, flops=flops,
-                             check=res[name],
+        timings[name] = dict(ms=ms, ms_events=ms_events, plain_ms=plain_ms,
+                             bound_ms=bms, bound_by=by, bytes=nbytes,
+                             flops=flops, check=res[name],
                              shape=f"B={B} S=T={S} H={Hh} K={Kd} bf16 causal")
     # SDPA on [B, H, S, K] copies: a yardstick, never called by the port.
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
@@ -948,8 +1096,9 @@ def time_flash(device, errs):
     dot = do.transpose(1, 2).contiguous()
     sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     with torch.no_grad():
-        sdpa_fwd = cuda_time_ms(sdpa)
+        sdpa_fwd, sdpa_fwd_events = kernel_ms(sdpa)
     timings["flash_fwd"]["library_ms"] = sdpa_fwd
+    timings["flash_fwd"]["library_ms_events"] = sdpa_fwd_events
     timings["flash_dq"]["library_ms"] = None     # no PyTorch call of its own
     timings["flash_dkv"]["library_ms"] = None
     # Forward plus backward launches several kernels from the host (SDPA's
@@ -966,9 +1115,112 @@ def time_flash(device, errs):
           "sdpa_fwd_bwd_device_ms": sdpa_fwd_bwd,
           "note": "fwd_dq_dkv_device_ms: the kernels of flash_fwd, delta, "
                   "flash_dq and flash_dkv, against those of SDPA (is_causal)"
-                  " forward plus backward; device time per call from "
-                  "torch.profiler"})
+                  " forward plus backward; device time per call "
+                  "(device_ms)"})
     return timings
+
+
+def old_library(old_dir):
+    """The kernels of an older checkout (``old_dir``/ray_tpu_torch/ops/
+    csrc, its C ABI from before the tensor maps) built by nvcc into
+    build/ab/libkernels_old.so, one nvcc per source in parallel."""
+    src = os.path.join(old_dir, "ray_tpu_torch", "ops", "csrc")
+    out = os.path.join("build", "ab")
+    os.makedirs(out, exist_ok=True)
+    nvcc = _build.find_nvcc()
+    objs, procs = [], []
+    for name in sorted(os.listdir(src)):
+        if name.endswith(".cu"):
+            objs.append(os.path.join(out, name[:-3] + ".o"))
+            procs.append(subprocess.Popen(
+                [nvcc, *_build.ARCH_FLAGS, *_build.NVCC_FLAGS, "-c",
+                 os.path.join(src, name), "-o", objs[-1]]))
+    if any(p.wait() for p in procs):
+        raise RuntimeError(f"nvcc failed on {src}")
+    lib_path = os.path.join(out, "libkernels_old.so")
+    subprocess.run([nvcc, *_build.ARCH_FLAGS, "-shared", "-o", lib_path,
+                    *objs], check=True)
+    lib = ctypes.CDLL(os.path.abspath(lib_path))
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.rtt_flash_fwd.argtypes = [I, P, P, P, P, P, I, I, I, I, I, P, I, Fl, P]
+    lib.rtt_paged_prefill_attention.argtypes = [I] + [P] * 7 + [I] * 6 + [Fl, P]
+    lib.rtt_paged_prefill_attention_int8.argtypes = ([I] + [P] * 9 + [I] * 6
+                                                     + [Fl, P])
+    return lib
+
+
+def phase_ab(device, old_dir):
+    """The redesigned kernels against the ones they replace, at the timed
+    shapes, by device time in turns (old, new, new, old) in one process:
+    the bf16 flash forward at [8, 1024, 12, 64] causal, and the paged
+    prefill (16 slots x C 256 at offset 768, 1024-token contexts, ps 64,
+    H 32, K 64) on a bf16 and on an int8 pool. Each old output is held to
+    the new one's plain version first."""
+    old = old_library(old_dir)
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(11)
+    B, S, Hh, Kd = FLASH_SHAPE
+    q, k, v, _do, _dl = flash_inputs(rng, B, S, S, Hh, Kd, torch.bfloat16,
+                                     device)
+    scale = 1.0 / np.sqrt(Kd)
+
+    def flash_old():
+        o = torch.empty_like(q)
+        lse = torch.empty(B, S, Hh, device=device, dtype=torch.float32)
+        rows = fa._rows(q, k, v, o)
+        _build.check(old.rtt_flash_fwd(
+            1, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), B, S, S, Hh, Kd, ctypes.addressof(rows), 1,
+            float(scale), stream()), "old flash_fwd")
+        return o
+
+    cases = {"flash_fwd": (flash_old, lambda: fa.flash_fwd(
+        q, k, v, True, scale)[0], lambda: fa.reference_flash_fwd(
+        q, k, v, True, scale)[0])}
+    T, C, ps = 1024, 256, 64
+    n_pg = T // ps
+    for quant in (False, True):
+        kp, vp, tables, lens, sc = paged_pool(
+            rng, [T] * 16, ps=ps, n_pg=n_pg, dtype=torch.bfloat16,
+            device=device, quant=quant)
+        qp = torch.from_numpy(rng.normal(size=(16, C, H, K)).astype(
+            np.float32)).to(device, torch.bfloat16)
+        args = [torch.from_numpy(a).to(device) for a in (
+            tables, np.full(16, T - C, np.int32), lens)]
+
+        def prefill_old(qp=qp, kp=kp, vp=vp, args=args, sc=sc):
+            out = torch.empty_like(qp)
+            ptrs = [qp.data_ptr(), kp.data_ptr(), vp.data_ptr()]
+            if sc:
+                ptrs += [sc["k_scale"].data_ptr(), sc["v_scale"].data_ptr()]
+            fn = (old.rtt_paged_prefill_attention_int8 if sc
+                  else old.rtt_paged_prefill_attention)
+            _build.check(fn(1, *ptrs, *(a.data_ptr() for a in args),
+                            out.data_ptr(), 16, C, H, K, ps, n_pg,
+                            float(1 / np.sqrt(K)), stream()), "old prefill")
+            return out
+
+        name = "paged_prefill_attention" + ("_int8" if quant else "")
+        cases[name] = (
+            prefill_old,
+            lambda qp=qp, kp=kp, vp=vp, args=args, sc=sc:
+                pa.paged_prefill_attention(qp, kp, vp, *args, **sc),
+            lambda qp=qp, kp=kp, vp=vp, args=args, sc=sc:
+                pa.reference_paged_prefill_attention(qp, kp, vp, *args,
+                                                     **sc))
+    out = {"phase": "ab_old_vs_new", "old": old_dir,
+           "order": "old, new, new, old; device ms per call (device_ms)"}
+    for name, (fn_old, fn_new, plain) in cases.items():
+        ref = plain().float()
+        err = {tag: float((fn().float() - ref).abs().max())
+               for tag, fn in (("old", fn_old), ("new", fn_new))}
+        turns = [device_ms(f) for f in (fn_old, fn_new, fn_new,
+                                                  fn_old)]
+        out[name] = {"old_ms": [turns[0], turns[3]],
+                     "new_ms": [turns[1], turns[2]],
+                     "speedup": (turns[0] + turns[3]) / (turns[1] + turns[2]),
+                     "max_abs_err_vs_plain": err}
+    emit(out)
 
 
 def make_params(device):
@@ -1540,6 +1792,11 @@ def main(argv=None) -> int:
                          "runs)")
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc -Xptxas -v (registers, spills)")
+    ap.add_argument("--ab", metavar="OLD_CHECKOUT", default="",
+                    help="also time the flash forward and paged prefill "
+                         "kernels against an older checkout's (its "
+                         "ray_tpu_torch/ops/csrc, built into build/ab), in "
+                         "turns old, new, new, old")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1566,7 +1823,7 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": [str(p.relative_to(_build.REPO_ROOT))
                       for p in _build.sources()],
-          "arch": "sm_90a"})
+          "arch": "sm_90a", "sass_ops": sass_ops(_build.LIB_PATH)})
 
     meta = {
         "paged_attention": ("ray_tpu_torch/ops/csrc/paged_decode.cu",
@@ -1591,6 +1848,8 @@ def main(argv=None) -> int:
     if want("kernels"):
         timings.update(phase_kernels(device, errs))
         timings.update(phase_flash_kernels(device, errs))
+    if args.ab:
+        phase_ab(device, args.ab)
     if want("programs") or want("profile") or want("engine"):
         cfg, masters, params = make_params(device)
         if want("programs"):

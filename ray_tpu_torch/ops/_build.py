@@ -106,9 +106,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
     lib.rtt_paged_decode_attention.restype = _I
     # int fn(dtype, q, k_pool, v_pool, tables, offsets, lengths, out,
-    #        B, C, H, K, ps, n_pg, sm_scale, stream) → cudaError_t
+    #        B, C, H, K, ps, n_pg, sm_scale, maps, stream) → cudaError_t
+    # (maps: the wgmma kernel's tensor maps, long long[3 x 17], or NULL)
     lib.rtt_paged_prefill_attention.argtypes = [
-        _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]
+        _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P]
     lib.rtt_paged_prefill_attention.restype = _I
     # The int8 programs: the same with (k_scale, v_scale), bf16 [P+1],
     # after v_pool.
@@ -117,15 +118,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rtt_paged_decode_attention_int8.restype = _I
     lib.rtt_paged_prefill_attention_int8.argtypes = [
         _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-        _P]
+        _P, _P]
     lib.rtt_paged_prefill_attention_int8.restype = _I
     # size_t fn(dtype, quant, K, ps): shared memory of one prefill block
     lib.rtt_paged_prefill_smem_bytes.argtypes = [_I, _I, _I, _I]
     lib.rtt_paged_prefill_smem_bytes.restype = ctypes.c_size_t
     # int fn(dtype, q, k, v, o, lse, B, S, T, H, K, strides[12], causal,
-    #        sm_scale, stream) → cudaError_t
+    #        sm_scale, maps, stream) → cudaError_t (maps: bf16, the tensor
+    #        maps of q, k, v, long long[3 x 17]; fp32 NULL)
     lib.rtt_flash_fwd.argtypes = [
-        _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _F, _P]
+        _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _F, _P, _P]
     lib.rtt_flash_fwd.restype = _I
     # int fn(dtype, q, k, v, dO, lse, delta, dq, B, S, T, H, K,
     #        strides[15], causal, sm_scale, stream) → cudaError_t

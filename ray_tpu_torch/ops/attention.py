@@ -49,7 +49,8 @@ import torch
 
 from ray_tpu_torch._device import check_device
 from ray_tpu_torch.ops.paged_attention import (  # shared with the paged kernels
-    _DTYPE_CODES, _HEAD_DIMS, NEG_INF, _stream_ptr)
+    _DTYPE_CODES, _HEAD_DIMS, NEG_INF, SWIZZLE_BYTES, WGMMA_ROWS, _addr,
+    _c_array, _stream_ptr, column_boxes, key_tile, tensor_map)
 
 
 def _scale(q, sm_scale):
@@ -219,10 +220,26 @@ def _row_vectors(q, *vecs):
     return out
 
 
+def flash_plan(q, k, v):
+    """The flash forward kernel's tensor maps, read in place from the
+    views (their own strides; the rows of a [B, S, 3, H, K] qkv
+    projection's q, k and v are 16-byte aligned): q in boxes of 128 rows,
+    k and v in boxes of `key_tile` rows, each 64 columns wide (a head dim
+    of 128 is two column boxes). bf16 only: fp32 takes the FMA kernel and
+    no map. → a flat list of 3 x TMAP_WORDS."""
+    K = q.shape[-1]
+    cols = K // column_boxes(K)
+    maps = tensor_map(q, (1, WGMMA_ROWS, 1, cols), SWIZZLE_BYTES)
+    for t in (k, v):
+        maps += tensor_map(t, (1, key_tile(K), 1, cols), SWIZZLE_BYTES)
+    return maps
+
+
 def flash_fwd(q, k, v, causal=True, sm_scale=None):
     """Flash forward → (o [B, S, H, K] in q.dtype with q's layout, lse
     [B, S, H] fp32). CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+    launch the kernel (bf16: wgmma on TMA-fed tiles, `flash_plan`; fp32:
+    FMA)."""
     _check_shapes(q, k, v)
     sm_scale = _scale(q, sm_scale)
     if not _on_cuda(q):
@@ -236,10 +253,13 @@ def flash_fwd(q, k, v, causal=True, sm_scale=None):
 
     lib = _build.library()
     rows = _rows(q, k, v, o)
+    maps = (_c_array(flash_plan(q, k, v)) if q.dtype == torch.bfloat16
+            else None)
     rc = lib.rtt_flash_fwd(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), lse.data_ptr(), B, S, T, H, K, ctypes.addressof(rows),
-        int(bool(causal)), float(sm_scale), _stream_ptr(q.device))
+        int(bool(causal)), float(sm_scale), _addr(maps),
+        _stream_ptr(q.device))
     _build.check(rc, "flash_fwd kernel launch")
     flash_fwd.launches += 1
     return o, lse
@@ -362,6 +382,7 @@ def flash_attention(q, k, v, *, causal=True, sm_scale=None,
 
 __all__ = [
     "flash_attention", "flash_fwd", "flash_dq", "flash_dkv", "flash_bwd",
+    "flash_plan",
     "flash_delta", "reference_attention", "reference_flash_fwd",
     "reference_flash_dq", "reference_flash_dkv", "reference_flash_bwd",
     "reset_launch_counts", "NEG_INF",

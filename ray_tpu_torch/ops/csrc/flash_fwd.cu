@@ -11,31 +11,31 @@
 // key gets o = 0 and lse = -1e30.
 //
 // What bounds it on the H100: at the training step's shapes (B = 8, S = T =
-// 1024, H = 12, K = 64, bf16, causal) the 2·2·S·T·K/2 FLOPs per (batch, head)
-// over 989 TFLOP/s and the bytes of q, k, v, o over 3.35 TB/s are of the same
-// order (about 0.013 ms and 0.015 ms): bytes by a little for a kernel that
-// feeds the tensor cores at full rate, operations for any real one.
+// 1024, H = 12, K = 64, bf16, causal) the bytes of q, k, v, o over 3.35
+// TB/s (0.015 ms) exceed the 12.9 GFLOP of visible pairs over 989 TFLOP/s
+// (0.013 ms); in practice the softmax's exponentials (one per pair on 16
+// SFU lanes per SM, as many cycles as the products at head dim 64) and the
+// products themselves.
 //
-// What the design does about it: each K and V row is read from device memory
-// once per 64-row query tile, never once per query row, and the [S, T] score
-// matrix never leaves registers. One block of four warps per (64-row query
-// tile, head, batch); each warp keeps its 16 query rows' Q fragments and O
-// accumulator in registers, the block stages 64 keys of K and V at a time in
-// shared memory, two tiles deep (cp.async: the next tile's loads are in
-// flight while the current one is in the MMAs; rows padded by 16 bytes), and
-// each warp runs S = Q K^T and O += P V as mma.sync m16n8k16 bf16 products
-// with fp32 accumulators, B fragments read by ldmatrix and P taken straight
-// from the S registers. Causal tiles stop at
-// the tile's last row (the early exit), a warp whose rows all precede a key
-// tile skips its math, and the query tiles are issued last-first so the
-// longest blocks start first. fp32 inputs take a plain FMA kernel (shared
-// tiles, 256 threads) so that fp32 keeps full precision.
-// The next step is Hopper's own path: wgmma on the shared tiles, K/V tiles
-// brought in by TMA, and 128-row query tiles.
+// What the design does about it (bf16, attn_wgmma.cuh): persistent blocks,
+// one per SM, take (128-row query tile, head, batch) items in a snake order
+// over the longest-first list. A producer warp brings each item's Q in
+// (double-buffered) and its K/V tiles of BN keys (128 at head dim 64, 64 at
+// 128) through a four-stage ring by TMA, from 4-D tensor maps over q, k, v
+// with their own strides (views of the qkv projection are read in place;
+// rows past S or T arrive as zeros). Two consumer warpgroups of 64 rows run
+// S = Q·K^T and O += P·V as wgmma (P from registers, V MN-major), so each
+// K/V tile is read from shared memory once per 64 rows by the tensor cores
+// themselves and from device memory once per 128 rows. The softmax folds
+// sm_scale · log2 e into one FMA before a bare SFU exp2, keeps m in the log2
+// domain, and masks only the tiles on the causal diagonal or the T edge;
+// causal items stop at the tile's last row. fp32 inputs take a plain FMA
+// kernel (shared tiles, 256 threads) so that fp32 keeps full precision.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "attn_wgmma.cuh"
 #include "common.cuh"
 #include "flash.cuh"
 
@@ -47,193 +47,112 @@ struct FwdRows {
 };
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core version.
+// bf16 on wgmma (attn_wgmma.cuh). Persistent: one block per SM.
 
-// K and V tiles [64][KD + 8] bf16, two stages each.
-template <int KD>
-constexpr size_t fwd_mma_smem_bytes() {
-  return 4 * (size_t)FL_TILE * (KD + 8) * sizeof(__nv_bfloat16);
+// Work item `item` of the grid, longest first when causal: query tile,
+// head and batch, its rows and its key tiles.
+struct FwdItem {
+  int q0, rows, h, b, n_kt;
+};
+
+template <int BN>
+__device__ __forceinline__ FwdItem fwd_item(int item, int n_qt, int S,
+                                            int T, int H, int B,
+                                            int causal) {
+  FwdItem it;
+  const int rank = item / (H * B);
+  const int hb = item - rank * (H * B);
+  it.h = hb % H;
+  it.b = hb / H;
+  it.q0 = (causal ? n_qt - 1 - rank : rank) * ATT_BM;
+  it.rows = min(ATT_BM, S - it.q0);
+  // One past the last key any row of this tile may see.
+  const int kv_end = causal ? min(T, it.q0 + it.rows) : T;
+  it.n_kt = (kv_end + BN - 1) / BN;
+  return it;
 }
 
 template <int KD>
-__global__ void __launch_bounds__(FL_THREADS)
-    flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         __nv_bfloat16* __restrict__ o,
-                         float* __restrict__ lse, int S, int T, int H,
-                         FwdRows st, int causal, float sm_scale) {
-  constexpr int KSTEPS = KD / 16;
-  constexpr int NT_S = FL_TILE / 8;  // n-tiles of S (keys)
-  constexpr int NT_O = KD / 8;       // n-tiles of O (head dims)
-  constexpr int KP = KD + 8;
-  constexpr int TS = FL_TILE * KP;  // elements of one tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][TS]
-  __nv_bfloat16* v_s = k_s + 2 * TS;                                // [2][TS]
+__global__ void __launch_bounds__(ATT_THREADS, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ lse, int B, int S, int T,
+                           int H, Rows ost, int causal, float c) {
+  using Cfg = AttnCfg<KD, false>;
+  constexpr int BN = Cfg::BN;
+  extern __shared__ unsigned char smem_raw[];
+  const int n_qt = (S + ATT_BM - 1) / ATT_BM;
+  const int n_items = n_qt * H * B;
+  AttnBars bar;
+  unsigned char* base = attn_setup<KD, false>(smem_raw, bar);
 
-  const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = tile * FL_TILE;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int rows = min(FL_TILE, S - q0);
-  const __nv_bfloat16* qb = q + b * st.q.b + h * st.q.h;
-  const __nv_bfloat16* kb = k + b * st.k.b + h * st.k.h;
-  const __nv_bfloat16* vb = v + b * st.v.b + h * st.v.h;
-
-  // One past the last key any row of this tile may see. The first K/V tile
-  // starts loading before anything else.
-  const int kv_end = causal ? min(T, q0 + rows) : T;
-  const int n_kt = (kv_end + FL_TILE - 1) / FL_TILE;
-  if (n_kt > 0) {
-    load_tile_async<KD>(k_s, kb, st.k.s, 0, kv_end, tid, FL_THREADS);
-    load_tile_async<KD>(v_s, vb, st.v.s, 0, kv_end, tid, FL_THREADS);
-  }
-  cp_async_commit();
-
-  // This lane's two query rows (fragment rows g and g + 8 of its warp).
-  const int r0 = warp * 16 + g;
-  const int r1 = r0 + 8;
-  const int qpos0 = q0 + r0;
-  const int qpos1 = q0 + r1;
-
-  // Q fragments stay in registers for the whole key walk; rows past S are 0.
-  uint32_t qa[KSTEPS][4];
-  {
-    const uint32_t* q0p = reinterpret_cast<const uint32_t*>(
-        qb + (r0 < rows ? qpos0 : 0) * st.q.s);
-    const uint32_t* q1p = reinterpret_cast<const uint32_t*>(
-        qb + (r1 < rows ? qpos1 : 0) * st.q.s);
+  if (threadIdx.x < WG_THREADS) {
+    regs_dec<ATT_PRODUCER_REGS>();
+    if (threadIdx.x != 0) return;
+    int g = 0, jq = 0;
+    for (int k = 0;; ++k) {
+      const int item = attn_item(k);
+      if (item >= n_items) break;
+      const FwdItem it = fwd_item<BN>(item, n_qt, S, T, H, B, causal);
+      if (it.n_kt == 0) continue;
+      const int qb = jq & 1;
+      mbar_wait(bar.q_empty + qb, ((jq >> 1) & 1) ^ 1);
+      mbar_expect_tx(bar.full_q + qb, Cfg::Q_BYTES);
 #pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
-      const int w = (ks * 16 + 2 * t4) / 2;  // 32-bit word of the pair
-      qa[ks][0] = r0 < rows ? q0p[w] : 0u;
-      qa[ks][1] = r1 < rows ? q1p[w] : 0u;
-      qa[ks][2] = r0 < rows ? q0p[w + 4] : 0u;
-      qa[ks][3] = r1 < rows ? q1p[w + 4] : 0u;
-    }
-  }
-
-  float acc[NT_O][4];
+      for (int cb = 0; cb < Cfg::NBOX; ++cb)
+        tma_load_4d(attn_q<KD, false>(base, qb) + cb * ATT_BM * 128, &qmap,
+                    bar.full_q + qb, cb * 64, it.h, it.q0, it.b);
+      ++jq;
+      for (int kt = 0; kt < it.n_kt; ++kt, ++g) {
+        const int st = g % Cfg::KV_ST;
+        mbar_wait(bar.empty + st, ((g / Cfg::KV_ST) & 1) ^ 1);
+        unsigned char* kd = base + Cfg::OFF_K + st * Cfg::KV_BYTES;
+        unsigned char* vd = base + Cfg::OFF_V + st * Cfg::KV_BYTES;
+        mbar_expect_tx(bar.full_k + st, Cfg::KV_BYTES);
+        mbar_expect_tx(bar.full_v + st, Cfg::KV_BYTES);
 #pragma unroll
-  for (int n = 0; n < NT_O; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_r[2] = {NEG_INF, NEG_INF};
-  float l_r[2] = {0.f, 0.f};
-  const int warp_last_qpos = q0 + warp * 16 + 15;
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int key0 = kt * FL_TILE;
-    const __nv_bfloat16* kt_s = k_s + (kt & 1) * TS;
-    const __nv_bfloat16* vt_s = v_s + (kt & 1) * TS;
-    if (kt + 1 < n_kt) {  // the next tile into the other stage
-      load_tile_async<KD>(k_s + ((kt + 1) & 1) * TS, kb, st.k.s,
-                          key0 + FL_TILE, kv_end, tid, FL_THREADS);
-      load_tile_async<KD>(v_s + ((kt + 1) & 1) * TS, vb, st.v.s,
-                          key0 + FL_TILE, kv_end, tid, FL_THREADS);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile's group is complete
-    __syncthreads();
-    // A warp whose rows all precede this tile's keys skips its math.
-    if (!causal || key0 <= warp_last_qpos) {
-      float s[NT_S][4];
-#pragma unroll
-      for (int n = 0; n < NT_S; ++n)
-        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      warp_abt_reg<KD>(s, qa, kt_s, lane);
-
-      // The mask, then the online softmax of rows r0 and r1. A row's four
-      // lanes (same g) hold its 64 scores between them.
-      float mx0 = m_r[0];
-      float mx1 = m_r[1];
-      uint32_t valid = 0;  // bit 4n + e: entry s[n][e] is a visible key
-#pragma unroll
-      for (int n = 0; n < NT_S; ++n) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int key = key0 + n * 8 + 2 * t4 + e;
-          if (key < T && (!causal || key <= qpos0)) {
-            valid |= 1u << (4 * n + e);
-            s[n][e] *= sm_scale;
-            mx0 = fmaxf(mx0, s[n][e]);
-          }
-          if (key < T && (!causal || key <= qpos1)) {
-            valid |= 1u << (4 * n + 2 + e);
-            s[n][2 + e] *= sm_scale;
-            mx1 = fmaxf(mx1, s[n][2 + e]);
-          }
+        for (int cb = 0; cb < Cfg::NBOX; ++cb) {
+          tma_load_4d(kd + cb * BN * 128, &kmap, bar.full_k + st, cb * 64,
+                      it.h, kt * BN, it.b);
+          tma_load_4d(vd + cb * BN * 128, &vmap, bar.full_v + st, cb * 64,
+                      it.h, kt * BN, it.b);
         }
       }
-#pragma unroll
-      for (int o2 = 1; o2 <= 2; o2 <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o2));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o2));
-      }
-      const float corr0 = __expf(m_r[0] - mx0);
-      const float corr1 = __expf(m_r[1] - mx1);
-      m_r[0] = mx0;
-      m_r[1] = mx1;
-
-      float ps0 = 0.f;
-      float ps1 = 0.f;
-#pragma unroll
-      for (int n = 0; n < NT_S; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[n][e] = (valid >> (4 * n + e)) & 1u
-                        ? __expf(s[n][e] - (e < 2 ? mx0 : mx1))
-                        : 0.f;
-        }
-        ps0 += s[n][0] + s[n][1];
-        ps1 += s[n][2] + s[n][3];
-      }
-#pragma unroll
-      for (int o2 = 1; o2 <= 2; o2 <<= 1) {
-        ps0 += __shfl_xor_sync(0xffffffffu, ps0, o2);
-        ps1 += __shfl_xor_sync(0xffffffffu, ps1, o2);
-      }
-      l_r[0] = l_r[0] * corr0 + ps0;
-      l_r[1] = l_r[1] * corr1 + ps1;
-#pragma unroll
-      for (int n = 0; n < NT_O; ++n) {
-        acc[n][0] *= corr0;
-        acc[n][1] *= corr0;
-        acc[n][2] *= corr1;
-        acc[n][3] *= corr1;
-      }
-      uint32_t pa[FL_TILE / 16][4];
-      pack_a(pa, s);  // p rounded to bf16; l summed the unrounded values
-      warp_pv<KD>(acc, pa, vt_s, lane);
     }
-    __syncthreads();  // every warp is done with this stage
-  }
-
-  const float inv0 = 1.f / (l_r[0] == 0.f ? 1.f : l_r[0]);
-  const float inv1 = 1.f / (l_r[1] == 0.f ? 1.f : l_r[1]);
-  __nv_bfloat16* ob = o + b * st.o.b + h * st.o.h;
+  } else {
+    regs_inc<ATT_CONSUMER_REGS>();
+    const int wg = threadIdx.x / WG_THREADS - 1;
+    const int lane = threadIdx.x & 31;
+    int g = 0, jq = 0;
+    for (int k = 0;; ++k) {
+      const int item = attn_item(k);
+      if (item >= n_items) break;
+      const FwdItem it = fwd_item<BN>(item, n_qt, S, T, H, B, causal);
+      const int r0 = it.q0 + wg * 64;
+      float acc[KD / 2], m2[2], l[2];
+      if (it.n_kt == 0) {  // T = 0: no key, o = 0 and lse = -1e30
 #pragma unroll
-  for (int n = 0; n < NT_O; ++n) {
-    const int col = n * 8 + 2 * t4;
-    if (r0 < rows)
-      *reinterpret_cast<uint32_t*>(ob + qpos0 * st.o.s + col) =
-          pack_bf16x2(acc[n][0] * inv0, acc[n][1] * inv0);
-    if (r1 < rows)
-      *reinterpret_cast<uint32_t*>(ob + qpos1 * st.o.s + col) =
-          pack_bf16x2(acc[n][2] * inv1, acc[n][3] * inv1);
-  }
-  if (t4 == 0) {
-    if (r0 < rows)
-      lse[((long long)b * S + qpos0) * H + h] =
-          l_r[0] == 0.f ? NEG_INF : m_r[0] + logf(l_r[0]);
-    if (r1 < rows)
-      lse[((long long)b * S + qpos1) * H + h] =
-          l_r[1] == 0.f ? NEG_INF : m_r[1] + logf(l_r[1]);
+        for (int i = 0; i < KD / 2; ++i) acc[i] = 0.f;
+        m2[0] = m2[1] = NEG_INF;
+        l[0] = l[1] = 0.f;
+      } else {
+        const int qb = jq & 1;
+        mbar_wait(bar.full_q + qb, (jq >> 1) & 1);
+        attn_mainloop<KD, false>(base, attn_q<KD, false>(base, qb), bar, wg,
+                                 g, it.n_kt, T,
+                                 causal ? r0 : ATT_NO_CAUSAL, c, acc, m2, l);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar.q_empty + qb);
+        ++jq;
+        g += it.n_kt;
+      }
+      attn_store<KD>(acc, m2, l,
+                     o + it.b * ost.b + r0 * ost.s + it.h * ost.h, ost.s,
+                     it.rows - wg * 64,
+                     lse + ((long long)it.b * S + r0) * H + it.h, H);
+    }
   }
 }
 
@@ -374,20 +293,30 @@ template <int KD>
 cudaError_t launch_fwd(int dtype, const void* q, const void* k, const void* v,
                        void* o, float* lse, int B, int S, int T, int H,
                        const FwdRows& st, int causal, float sm_scale,
-                       cudaStream_t stream) {
-  const dim3 grid((S + FL_TILE - 1) / FL_TILE, H, B);
+                       const long long* maps, cudaStream_t stream) {
   if (dtype == DTYPE_BF16) {
-    const size_t smem = fwd_mma_smem_bytes<KD>();
-    cudaError_t e = allow_smem(flash_fwd_mma_kernel<KD>, smem);
+    if (maps == nullptr) return cudaErrorInvalidValue;
+    CUtensorMap qm, km, vm;
+    cudaError_t e = encode_tmap(&qm, q, maps);
+    // T = 0: no key tile is ever loaded, and no map of k or v is encoded.
+    if (e == cudaSuccess && T > 0) e = encode_tmap(&km, k, maps + TMAP_WORDS);
+    if (e == cudaSuccess && T > 0)
+      e = encode_tmap(&vm, v, maps + 2 * TMAP_WORDS);
     if (e != cudaSuccess) return e;
-    flash_fwd_mma_kernel<KD><<<grid, FL_THREADS, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-        lse, S, T, H, st, causal, sm_scale);
+    if (T == 0) km = vm = qm;
+    const int smem = AttnCfg<KD, false>::SMEM;
+    e = allow_smem(flash_fwd_wgmma_kernel<KD>, smem);
+    int grid = 0;
+    if (e == cudaSuccess)
+      e = attn_grid((S + ATT_BM - 1) / ATT_BM * H * B, &grid);
+    if (e != cudaSuccess) return e;
+    flash_fwd_wgmma_kernel<KD><<<grid, ATT_THREADS, smem, stream>>>(
+        qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, B, S, T, H, st.o,
+        causal, sm_scale * LOG2E);
     return cudaGetLastError();
   }
   if (dtype != DTYPE_F32) return cudaErrorInvalidValue;
+  const dim3 grid((S + FL_TILE - 1) / FL_TILE, H, B);
   const size_t smem = fwd_f32_smem_bytes<KD>();
   cudaError_t e = allow_smem(flash_fwd_f32_kernel<KD>, smem);
   if (e != cudaSuccess) return e;
@@ -402,10 +331,13 @@ cudaError_t launch_fwd(int dtype, const void* q, const void* k, const void* v,
 }  // namespace rtt
 
 // strides: 12 element strides, (b, s, h) of q, k, v and o in that order.
+// maps: bf16, the tensor maps of q, k and v (3 x TMAP_WORDS numbers from
+// ops/attention.py `flash_plan`); NULL for fp32.
 extern "C" int rtt_flash_fwd(int dtype, const void* q, const void* k,
                              const void* v, void* o, void* lse, int B, int S,
                              int T, int H, int K, const long long* strides,
-                             int causal, float sm_scale, void* stream) {
+                             int causal, float sm_scale,
+                             const long long* maps, void* stream) {
   if (B == 0 || S == 0 || H == 0) return (int)cudaSuccess;
   rtt::FwdRows st;
   rtt::Rows* r[4] = {&st.q, &st.k, &st.v, &st.o};
@@ -415,10 +347,10 @@ extern "C" int rtt_flash_fwd(int dtype, const void* q, const void* k,
   switch (K) {
     case 64:
       return (int)rtt::launch_fwd<64>(dtype, q, k, v, o, l, B, S, T, H, st,
-                                      causal, sm_scale, s);
+                                      causal, sm_scale, maps, s);
     case 128:
       return (int)rtt::launch_fwd<128>(dtype, q, k, v, o, l, B, S, T, H, st,
-                                       causal, sm_scale, s);
+                                       causal, sm_scale, maps, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

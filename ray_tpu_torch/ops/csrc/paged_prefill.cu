@@ -16,53 +16,59 @@
 // larger: a kernel that feeds the tensor cores is bound by bytes, one that
 // does its FLOPs as fp32 FMAs (67 TFLOP/s class) by operations.
 //
-// What the design does about it. Both versions run one block per (64-row
-// query tile, head, slot) and stop at the last key the tile can see,
-// min(lengths[b], offsets[b] + last row + 1): the causal early exit, and no
-// work at all for an inert row (lengths[b] == 0). Each key's K and V rows
-// are read from device memory once per query tile, not once per query row.
-//  - bf16 with K in {64, 128} (the serving path): the tensor-core kernel.
-//    Four warps of 16 query rows each keep their Q fragments and the O
-//    accumulator in registers; the block stages 64 keys of K and V at a
-//    time in shared memory (16-byte loads through the page table, rows
-//    padded by 16 bytes so the fragment reads are free of bank conflicts),
-//    and each warp runs S = Q·K^T and O += P·V as mma.sync m16n8k16 bf16
-//    products with fp32 accumulators, P taken straight from the S
-//    registers and V's fragments by ldmatrix.trans. A warp whose rows all
-//    precede a key tile skips its math for that tile.
+// What the design does about it. Every version stops at the last key a
+// query tile can see, min(lengths[b], offsets[b] + last row + 1): the causal
+// early exit, and no work at all for an inert row (lengths[b] == 0).
+//  - bf16 q, K in {64, 128}, page sizes in {8, 16, 32} or a multiple of 64
+//    (the serving path; `prefill_kernel` in ops/paged_attention.py holds
+//    the same rule): the wgmma kernel of attn_wgmma.cuh, the flash
+//    forward's mainloop with a paged producer. Persistent blocks, one per
+//    SM, take (128-row query tile, head, slot) items, a slot's query tiles
+//    next to each other so the second read of its pages comes from L2. The
+//    producer warp reads each box's page id from the table once and brings
+//    the key tile (BN = 128 keys at head dim 64, 64 at 128) in by TMA from
+//    a 3-D tensor map over the layer's pool viewed as [(P+1)·ps, H, K],
+//    one box of gcd(ps, BN) rows per page piece, into a four-stage ring;
+//    the two consumer warpgroups run S = Q·K^T and O += P·V as wgmma,
+//    masking only the tiles that reach past a row's diagonal or the
+//    slot's length.
+//  - bf16 q at any other page size: the mma.sync kernel below (four warps of
+//    16 query rows, 64-key tiles staged through registers by 16-byte
+//    loads, S and P·V as mma.sync m16n8k16). A shape rule of the C entry
+//    point, not a fallback: the wrapper's plan and rtt_paged_prefill_smem_
+//    bytes apply the same rule.
 //  - fp32 (K in {64, 128}): plain FMAs from shared memory (one float of
 //    padding per row keeps the QK^T loop free of bank conflicts), so fp32
 //    keeps full precision (1e-5).
 //
 // The int8 programs (replace the same Pallas kernel traced with
 // quantized=True): int8 pages with one K and one V scale per page, read from
-// the layer's bf16 scale vectors by the page id tables[b, pos / ps]. The
-// Pallas program dequantizes each page to fp32, so both its products run in
-// fp32 and p is not rounded to q's dtype; the CUDA programs compute the same
-// thing, as instantiations of the two kernels above on an int8 pool:
+// the layer's bf16 scale vectors by the page id tables[b, pos / ps], never by
+// table position. The Pallas program dequantizes each page to fp32, so both
+// its products run in fp32 and p is not rounded to q's dtype; the CUDA
+// programs compute the same thing:
 //  - fp32 q: the FMA kernel with the page dequantized (code · scale, exact
 //    in fp32) as it is staged in shared memory, p unrounded.
-//  - bf16 q: the tensor-core kernel. The tiles are staged from int8 pages
-//    (half the bytes read) and widened to bf16 in shared memory (|code| <=
-//    127 is exact in bf16), so the fragment path is the float program's,
-//    ldmatrix.trans included. The scale is one scalar per page, so it
-//    factors out of each key's dot product: S = Q · codes^T on the tensor
-//    cores, then each score times its key's K scale (exact up to fp32
-//    reassociation). For P · V each fp32 p is multiplied by its key's V
-//    scale and split into two bf16 terms, p = hi + lo, run as two mma.sync
-//    into one fp32 accumulator: the product keeps about 16 bits of p
-//    (relative error <= 2^-16), where one bf16 term would round p to 8 bits
-//    as the gather reference does. At ps = 16 one 64-key tile spans four
-//    pages, so the tile carries one K and one V scale per key.
-// The next step is Hopper's own path: wgmma on the shared tiles, and K/V
-// tiles brought in by TMA or cp.async while the previous tile is in the
-// MMAs.
+//  - bf16 q: the same kernels as the float program on an int8 pool. In the
+//    wgmma kernel TMA brings the page codes into a four-stage staging ring
+//    (half the bytes of bf16), and warps 1-3 of the producer warpgroup
+//    widen them to bf16 (|code| <= 127 is exact) into the swizzled operand
+//    tiles of a two-stage ring and write each key's scales beside them;
+//    the mma.sync kernel widens as it stages. The scale is one scalar per page, so it factors out of each
+//    key's dot product: S = Q · codes^T on the tensor cores, then each score
+//    times its key's K scale (exact up to fp32 reassociation). For P · V
+//    each fp32 p is multiplied by its key's V scale and split into two bf16
+//    terms, p = hi + lo, run as two products (register-A wgmma, or
+//    mma.sync) into one fp32 accumulator: the product keeps about 16 bits
+//    of p (relative error <= 2^-16), where one bf16 term would round p to 8
+//    bits as the gather reference does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
+#include "attn_wgmma.cuh"
 #include "common.cuh"
 
 namespace rtt {
@@ -563,109 +569,302 @@ cudaError_t launch_prefill_kd(const void* q, const void* k_pool,
   return cudaGetLastError();
 }
 
-// The float program: bf16 on the tensor cores, fp32 by FMA.
-template <typename T>
-cudaError_t launch_prefill(const void* q, const void* k_pool,
-                           const void* v_pool, const int* tables,
-                           const int* offsets, const int* lengths, void* out,
-                           int B, int C, int H, int K, int ps, int n_pg,
-                           float sm_scale, cudaStream_t stream) {
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  switch (K) {
-    case 64:
-      if constexpr (kBf16)
-        return launch_prefill_mma<__nv_bfloat16, 64>(
-            q, k_pool, v_pool, nullptr, nullptr, tables, offsets, lengths,
-            out, B, C, H, ps, n_pg, sm_scale, stream);
-      else
-        return launch_prefill_kd<T, T, 64>(q, k_pool, v_pool, nullptr,
-                                           nullptr, tables, offsets, lengths,
-                                           out, B, C, H, ps, n_pg, sm_scale,
-                                           stream);
-    case 128:
-      if constexpr (kBf16)
-        return launch_prefill_mma<__nv_bfloat16, 128>(
-            q, k_pool, v_pool, nullptr, nullptr, tables, offsets, lengths,
-            out, B, C, H, ps, n_pg, sm_scale, stream);
-      else
-        return launch_prefill_kd<T, T, 128>(q, k_pool, v_pool, nullptr,
-                                            nullptr, tables, offsets, lengths,
-                                            out, B, C, H, ps, n_pg, sm_scale,
-                                            stream);
-    default:
-      return cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bf16 q on wgmma (attn_wgmma.cuh).
+
+// The page sizes the wgmma kernel takes (`prefill_kernel` in
+// ops/paged_attention.py holds the same rule): a key tile is made of whole
+// TMA boxes of gcd(ps, BN) rows, each a multiple of one 8-row swizzle atom.
+__host__ __device__ constexpr bool wgmma_page_size(int ps) {
+  return ps > 0 && ps % 8 == 0 && (64 % ps == 0 || ps % 64 == 0);
+}
+
+// Work item `item` of the grid: a slot's query tiles next to each other
+// (the longer first), so that the second read of the slot's pages comes
+// from L2; its rows, offset, key limit and key tiles.
+struct PrefillItem {
+  int q0, rows, h, b, off, kv_lim, kv_end, n_kt;
+};
+
+template <int BN>
+__device__ __forceinline__ PrefillItem prefill_item(
+    int item, int n_qt, int C, int H, int ps, int n_pg,
+    const int* __restrict__ offsets, const int* __restrict__ lengths) {
+  PrefillItem it;
+  const int hb = item / n_qt;
+  it.q0 = (n_qt - 1 - (item - hb * n_qt)) * ATT_BM;
+  it.h = hb % H;
+  it.b = hb / H;
+  it.rows = min(ATT_BM, C - it.q0);
+  it.off = offsets[it.b];
+  it.kv_lim = min(lengths[it.b], n_pg * ps);
+  // One past the last position any row of this tile may attend.
+  it.kv_end = min(it.kv_lim, it.off + it.q0 + it.rows);
+  it.n_kt = it.kv_end > 0 ? (it.kv_end + BN - 1) / BN : 0;
+  return it;
+}
+
+// QUANT: the int8 program (k_scale / v_scale read by page id; the codes are
+// staged and widened by warps 1-3 of the producer warpgroup). Persistent:
+// one block per SM.
+template <int KD, bool QUANT>
+__global__ void __launch_bounds__(ATT_THREADS, 1)
+    paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                               const __grid_constant__ CUtensorMap kmap,
+                               const __grid_constant__ CUtensorMap vmap,
+                               const __nv_bfloat16* __restrict__ k_scale,
+                               const __nv_bfloat16* __restrict__ v_scale,
+                               const int* __restrict__ tables,
+                               const int* __restrict__ offsets,
+                               const int* __restrict__ lengths,
+                               __nv_bfloat16* __restrict__ out, int B, int C,
+                               int H, int ps, int n_pg, int box_rows,
+                               float c) {
+  using Cfg = AttnCfg<KD, QUANT>;
+  constexpr int BN = Cfg::BN;
+  extern __shared__ unsigned char smem_raw[];
+  const int n_qt = (C + ATT_BM - 1) / ATT_BM;
+  const int n_items = n_qt * H * B;
+  const long long row_stride = (long long)H * KD;
+  AttnBars bar;
+  unsigned char* base = attn_setup<KD, QUANT>(smem_raw, bar);
+
+  if (threadIdx.x < WG_THREADS) {
+    regs_dec<ATT_PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      const int n_box = BN / box_rows;
+      int g = 0, jq = 0;
+      for (int k = 0;; ++k) {
+        const int item = attn_item(k);
+        if (item >= n_items) break;
+        const PrefillItem it = prefill_item<BN>(item, n_qt, C, H, ps, n_pg,
+                                                offsets, lengths);
+        if (it.n_kt == 0) continue;
+        const int qb = jq & 1;
+        mbar_wait(bar.q_empty + qb, ((jq >> 1) & 1) ^ 1);
+        mbar_expect_tx(bar.full_q + qb, Cfg::Q_BYTES);
+#pragma unroll
+        for (int cb = 0; cb < Cfg::NBOX; ++cb)
+          tma_load_4d(attn_q<KD, QUANT>(base, qb) + cb * ATT_BM * 128, &qmap,
+                      bar.full_q + qb, cb * 64, it.h, it.q0, it.b);
+        ++jq;
+        const int* trow = tables + (long long)it.b * n_pg;
+        for (int kt = 0; kt < it.n_kt; ++kt, ++g) {
+          const int key0 = kt * BN;
+          if constexpr (QUANT) {
+            const int sg = g % Cfg::STG_ST;
+            mbar_wait(bar.stg_empty + sg, ((g / Cfg::STG_ST) & 1) ^ 1);
+            // Each box's page id, for the widening warps' scales, before
+            // the arrival that publishes it. A box past the tile's reach
+            // reads the null page 0 (finite values that the mask hides).
+            int* pid = reinterpret_cast<int*>(base + Cfg::OFF_PID) + sg * BN;
+            for (int i = 0; i < n_box; ++i) {
+              const int pos = key0 + i * box_rows;
+              pid[i] = pos < it.kv_end ? trow[pos / ps] : 0;
+            }
+            mbar_expect_tx(bar.stg_full + sg, 2 * Cfg::STG_BYTES);
+            unsigned char* sk = base + Cfg::OFF_STG + sg * 2 * Cfg::STG_BYTES;
+            for (int i = 0; i < n_box; ++i) {
+              const int pos = key0 + i * box_rows;
+              const int row = pid[i] * ps + (pos < it.kv_end ? pos % ps : 0);
+              tma_load_3d(sk + i * box_rows * KD, &kmap, bar.stg_full + sg,
+                          0, it.h, row);
+              tma_load_3d(sk + Cfg::STG_BYTES + i * box_rows * KD, &vmap,
+                          bar.stg_full + sg, 0, it.h, row);
+            }
+          } else {
+            const int st = g % Cfg::KV_ST;
+            mbar_wait(bar.empty + st, ((g / Cfg::KV_ST) & 1) ^ 1);
+            unsigned char* kd = base + Cfg::OFF_K + st * Cfg::KV_BYTES;
+            unsigned char* vd = base + Cfg::OFF_V + st * Cfg::KV_BYTES;
+            mbar_expect_tx(bar.full_k + st, Cfg::KV_BYTES);
+            mbar_expect_tx(bar.full_v + st, Cfg::KV_BYTES);
+            for (int i = 0; i < n_box; ++i) {
+              const int pos = key0 + i * box_rows;
+              const int row =
+                  pos < it.kv_end ? trow[pos / ps] * ps + pos % ps : 0;
+#pragma unroll
+              for (int cb = 0; cb < Cfg::NBOX; ++cb) {
+                const int at = cb * BN * 128 + i * box_rows * 128;
+                tma_load_3d(kd + at, &kmap, bar.full_k + st, cb * 64, it.h,
+                            row);
+                tma_load_3d(vd + at, &vmap, bar.full_v + st, cb * 64, it.h,
+                            row);
+              }
+            }
+          }
+        }
+      }
+    } else if (QUANT && threadIdx.x >= 32) {
+      int g = 0;
+      for (int k = 0;; ++k) {
+        const int item = attn_item(k);
+        if (item >= n_items) break;
+        const PrefillItem it = prefill_item<BN>(item, n_qt, C, H, ps, n_pg,
+                                                offsets, lengths);
+        attn_widen<KD>(base, bar, g, it.n_kt, box_rows, k_scale, v_scale, c);
+        g += it.n_kt;
+      }
+    }
+  } else {
+    regs_inc<ATT_CONSUMER_REGS>();
+    const int wg = threadIdx.x / WG_THREADS - 1;
+    const int lane = threadIdx.x & 31;
+    int g = 0, jq = 0;
+    for (int k = 0;; ++k) {
+      const int item = attn_item(k);
+      if (item >= n_items) break;
+      const PrefillItem it = prefill_item<BN>(item, n_qt, C, H, ps, n_pg,
+                                              offsets, lengths);
+      float acc[KD / 2], m2[2], l[2];
+      if (it.n_kt == 0) {  // an inert row: no key, the l == 0 guard's zeros
+#pragma unroll
+        for (int i = 0; i < KD / 2; ++i) acc[i] = 0.f;
+        m2[0] = m2[1] = NEG_INF;
+        l[0] = l[1] = 0.f;
+      } else {
+        const int qb = jq & 1;
+        mbar_wait(bar.full_q + qb, (jq >> 1) & 1);
+        // int8: c is in each key's K scale.
+        attn_mainloop<KD, QUANT>(base, attn_q<KD, QUANT>(base, qb), bar, wg,
+                                 g, it.n_kt, it.kv_lim,
+                                 it.off + it.q0 + wg * 64, QUANT ? 1.f : c,
+                                 acc, m2, l);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar.q_empty + qb);
+        ++jq;
+        g += it.n_kt;
+      }
+      attn_store<KD>(acc, m2, l,
+                     out + ((long long)it.b * C + it.q0 + wg * 64) *
+                               row_stride + it.h * KD,
+                     row_stride, it.rows - wg * 64, nullptr, 0);
+    }
   }
 }
 
-// The int8 programs: fp32 q by FMA, bf16 q on the tensor cores.
-template <int KD>
-cudaError_t launch_prefill_i8_kd(int dtype, const void* q, const void* k_pool,
+template <int KD, bool QUANT>
+cudaError_t launch_prefill_wgmma(const void* q, const void* k_pool,
                                  const void* v_pool, const void* k_scale,
                                  const void* v_scale, const int* tables,
                                  const int* offsets, const int* lengths,
                                  void* out, int B, int C, int H, int ps,
                                  int n_pg, float sm_scale,
-                                 cudaStream_t stream) {
-  if (dtype == DTYPE_F32)
+                                 const long long* maps, cudaStream_t stream) {
+  using Cfg = AttnCfg<KD, QUANT>;
+  const int box_rows = (int)maps[TMAP_WORDS + 13];  // k's box, dim 2
+  if (box_rows < 8 || Cfg::BN % box_rows || ps % box_rows)
+    return cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm;
+  cudaError_t e = encode_tmap(&qm, q, maps);
+  if (e == cudaSuccess) e = encode_tmap(&km, k_pool, maps + TMAP_WORDS);
+  if (e == cudaSuccess) e = encode_tmap(&vm, v_pool, maps + 2 * TMAP_WORDS);
+  if (e != cudaSuccess) return e;
+  e = allow_smem(paged_prefill_wgmma_kernel<KD, QUANT>, Cfg::SMEM);
+  int grid = 0;
+  if (e == cudaSuccess) e = attn_grid((C + ATT_BM - 1) / ATT_BM * H * B, &grid);
+  if (e != cudaSuccess) return e;
+  paged_prefill_wgmma_kernel<KD, QUANT><<<grid, ATT_THREADS, Cfg::SMEM,
+                                          stream>>>(
+      qm, km, vm, static_cast<const __nv_bfloat16*>(k_scale),
+      static_cast<const __nv_bfloat16*>(v_scale), tables, offsets, lengths,
+      static_cast<__nv_bfloat16*>(out), B, C, H, ps, n_pg, box_rows,
+      sm_scale * LOG2E);
+  return cudaGetLastError();
+}
+
+// bf16 q (TP: the pool's element type, bf16 or int8): the wgmma kernel at
+// the page sizes it takes, given the tensor maps; the mma.sync kernel at
+// any other page size, given none.
+template <typename TP, int KD>
+cudaError_t launch_prefill_bf16(const void* q, const void* k_pool,
+                                const void* v_pool, const void* k_scale,
+                                const void* v_scale, const int* tables,
+                                const int* offsets, const int* lengths,
+                                void* out, int B, int C, int H, int ps,
+                                int n_pg, float sm_scale,
+                                const long long* maps, cudaStream_t stream) {
+  constexpr bool kQuant = std::is_same<TP, int8_t>::value;
+  if (wgmma_page_size(ps) != (maps != nullptr)) return cudaErrorInvalidValue;
+  if (maps != nullptr)
+    return launch_prefill_wgmma<KD, kQuant>(
+        q, k_pool, v_pool, k_scale, v_scale, tables, offsets, lengths, out, B,
+        C, H, ps, n_pg, sm_scale, maps, stream);
+  return launch_prefill_mma<TP, KD>(q, k_pool, v_pool, k_scale, v_scale,
+                                    tables, offsets, lengths, out, B, C, H,
+                                    ps, n_pg, sm_scale, stream);
+}
+
+// The float program: bf16 q by launch_prefill_bf16, fp32 by FMA.
+template <int KD>
+cudaError_t launch_prefill(int dtype, const void* q, const void* k_pool,
+                           const void* v_pool, const int* tables,
+                           const int* offsets, const int* lengths, void* out,
+                           int B, int C, int H, int ps, int n_pg,
+                           float sm_scale, const long long* maps,
+                           cudaStream_t stream) {
+  if (dtype == DTYPE_BF16)
+    return launch_prefill_bf16<__nv_bfloat16, KD>(
+        q, k_pool, v_pool, nullptr, nullptr, tables, offsets, lengths, out, B,
+        C, H, ps, n_pg, sm_scale, maps, stream);
+  if (dtype == DTYPE_F32 && maps == nullptr)
+    return launch_prefill_kd<float, float, KD>(
+        q, k_pool, v_pool, nullptr, nullptr, tables, offsets, lengths, out, B,
+        C, H, ps, n_pg, sm_scale, stream);
+  return cudaErrorInvalidValue;
+}
+
+// The int8 programs: bf16 q by launch_prefill_bf16, fp32 q by FMA.
+template <int KD>
+cudaError_t launch_prefill_i8(int dtype, const void* q, const void* k_pool,
+                              const void* v_pool, const void* k_scale,
+                              const void* v_scale, const int* tables,
+                              const int* offsets, const int* lengths,
+                              void* out, int B, int C, int H, int ps,
+                              int n_pg, float sm_scale, const long long* maps,
+                              cudaStream_t stream) {
+  if (dtype == DTYPE_BF16)
+    return launch_prefill_bf16<int8_t, KD>(q, k_pool, v_pool, k_scale,
+                                           v_scale, tables, offsets, lengths,
+                                           out, B, C, H, ps, n_pg, sm_scale,
+                                           maps, stream);
+  if (dtype == DTYPE_F32 && maps == nullptr)
     return launch_prefill_kd<float, int8_t, KD>(
         q, k_pool, v_pool, k_scale, v_scale, tables, offsets, lengths, out,
         B, C, H, ps, n_pg, sm_scale, stream);
-  if (dtype == DTYPE_BF16)
-    return launch_prefill_mma<int8_t, KD>(q, k_pool, v_pool, k_scale,
-                                          v_scale, tables, offsets, lengths,
-                                          out, B, C, H, ps, n_pg, sm_scale,
-                                          stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace rtt
 
-// Shared memory one block of the kernel that (dtype, quant, K) selects
-// needs at page size ps (quant = 1: the int8 program, whose tensor-core
-// kernel also keeps each key's scales); the wrapper refuses shapes above
+// Shared memory one block of the kernel that (dtype, quant, K, ps) selects
+// needs (quant = 1: the int8 program); the wrapper refuses shapes above
 // what a block may have.
 extern "C" size_t rtt_paged_prefill_smem_bytes(int dtype, int quant, int K,
                                                int ps) {
-  if (dtype == rtt::DTYPE_BF16 && K == 64)
-    return rtt::prefill_mma_smem_bytes<64>(quant != 0);
-  if (dtype == rtt::DTYPE_BF16 && K == 128)
-    return rtt::prefill_mma_smem_bytes<128>(quant != 0);
+  if (dtype == rtt::DTYPE_BF16 && (K == 64 || K == 128)) {
+    if (rtt::wgmma_page_size(ps)) {
+      if (K == 64)
+        return quant ? rtt::AttnCfg<64, true>::SMEM
+                     : rtt::AttnCfg<64, false>::SMEM;
+      return quant ? rtt::AttnCfg<128, true>::SMEM
+                   : rtt::AttnCfg<128, false>::SMEM;
+    }
+    return K == 64 ? rtt::prefill_mma_smem_bytes<64>(quant != 0)
+                   : rtt::prefill_mma_smem_bytes<128>(quant != 0);
+  }
   return rtt::prefill_smem_floats(K, ps) * sizeof(float);
 }
 
+// maps: bf16 q at a page size the wgmma kernel takes, the tensor maps of q
+// and of the layer's K and V pools (3 x TMAP_WORDS numbers from
+// ops/paged_attention.py `prefill_plan`); otherwise NULL.
 extern "C" int rtt_paged_prefill_attention(
     int dtype, const void* q, const void* k_pool, const void* v_pool,
     const void* tables, const void* offsets, const void* lengths, void* out,
     int B, int C, int H, int K, int ps, int n_pg, float sm_scale,
-    void* stream) {
-  if (ps < 1 || n_pg < 1) return (int)cudaErrorInvalidValue;
-  if (B == 0 || C == 0 || H == 0) return (int)cudaSuccess;
-  const int* tbl = static_cast<const int*>(tables);
-  const int* offs = static_cast<const int*>(offsets);
-  const int* lens = static_cast<const int*>(lengths);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dtype == rtt::DTYPE_F32)
-    e = rtt::launch_prefill<float>(q, k_pool, v_pool, tbl, offs, lens, out, B,
-                                   C, H, K, ps, n_pg, sm_scale, s);
-  else if (dtype == rtt::DTYPE_BF16)
-    e = rtt::launch_prefill<__nv_bfloat16>(q, k_pool, v_pool, tbl, offs, lens,
-                                           out, B, C, H, K, ps, n_pg,
-                                           sm_scale, s);
-  else
-    e = cudaErrorInvalidValue;
-  return (int)e;
-}
-
-// The int8 program: int8 pools, the layer's bf16 per-page scale vectors
-// [P+1]; q and out in fp32 or bf16 (dtype).
-extern "C" int rtt_paged_prefill_attention_int8(
-    int dtype, const void* q, const void* k_pool, const void* v_pool,
-    const void* k_scale, const void* v_scale,
-    const void* tables, const void* offsets, const void* lengths, void* out,
-    int B, int C, int H, int K, int ps, int n_pg, float sm_scale,
-    void* stream) {
+    const long long* maps, void* stream) {
   if (ps < 1 || n_pg < 1) return (int)cudaErrorInvalidValue;
   if (B == 0 || C == 0 || H == 0) return (int)cudaSuccess;
   const int* tbl = static_cast<const int*>(tables);
@@ -674,13 +873,39 @@ extern "C" int rtt_paged_prefill_attention_int8(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (K == 64)
-    e = rtt::launch_prefill_i8_kd<64>(dtype, q, k_pool, v_pool, k_scale,
-                                      v_scale, tbl, offs, lens, out, B, C, H,
-                                      ps, n_pg, sm_scale, s);
+    e = rtt::launch_prefill<64>(dtype, q, k_pool, v_pool, tbl, offs, lens,
+                                out, B, C, H, ps, n_pg, sm_scale, maps, s);
   else if (K == 128)
-    e = rtt::launch_prefill_i8_kd<128>(dtype, q, k_pool, v_pool, k_scale,
-                                       v_scale, tbl, offs, lens, out, B, C,
-                                       H, ps, n_pg, sm_scale, s);
+    e = rtt::launch_prefill<128>(dtype, q, k_pool, v_pool, tbl, offs, lens,
+                                 out, B, C, H, ps, n_pg, sm_scale, maps, s);
+  else
+    e = cudaErrorInvalidValue;
+  return (int)e;
+}
+
+// The int8 program: int8 pools, the layer's bf16 per-page scale vectors
+// [P+1]; q and out in fp32 or bf16 (dtype); maps as above.
+extern "C" int rtt_paged_prefill_attention_int8(
+    int dtype, const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale,
+    const void* tables, const void* offsets, const void* lengths, void* out,
+    int B, int C, int H, int K, int ps, int n_pg, float sm_scale,
+    const long long* maps, void* stream) {
+  if (ps < 1 || n_pg < 1) return (int)cudaErrorInvalidValue;
+  if (B == 0 || C == 0 || H == 0) return (int)cudaSuccess;
+  const int* tbl = static_cast<const int*>(tables);
+  const int* offs = static_cast<const int*>(offsets);
+  const int* lens = static_cast<const int*>(lengths);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (K == 64)
+    e = rtt::launch_prefill_i8<64>(dtype, q, k_pool, v_pool, k_scale, v_scale,
+                                   tbl, offs, lens, out, B, C, H, ps, n_pg,
+                                   sm_scale, maps, s);
+  else if (K == 128)
+    e = rtt::launch_prefill_i8<128>(dtype, q, k_pool, v_pool, k_scale,
+                                    v_scale, tbl, offs, lens, out, B, C, H,
+                                    ps, n_pg, sm_scale, maps, s);
   else
     e = cudaErrorInvalidValue;
   return (int)e;

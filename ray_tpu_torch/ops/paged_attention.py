@@ -41,6 +41,7 @@ view: every loop bound comes from ``tables.shape[1]``).
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -120,6 +121,107 @@ def _stream_ptr(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+# ------------------------------------------------ the kernels' host plan
+#
+# The wgmma kernels (csrc/attn_wgmma.cuh) read their tiles by TMA. What
+# they read is decided here, in plain Python, and passed through the C
+# ABI: which kernel a shape takes, and each tensor map's geometry.
+
+WGMMA_ROWS = 128           # query rows per block of the wgmma kernels
+SWIZZLE_BYTES = 128        # a bf16 tile row: 64 columns in one swizzle span
+TMAP_WORDS = 17            # numbers per tensor map (csrc/hopper.cuh)
+
+
+def key_tile(K: int) -> int:
+    """Keys per tile of the wgmma kernels: 128 at head dim 64, 64 at 128
+    (one bf16 K or V tile is 16 KB either way)."""
+    return 128 if K == 64 else 64
+
+
+def column_boxes(K: int) -> int:
+    """64-column TMA boxes per bf16 row: a 128-byte swizzle span holds 64
+    bf16 columns, so a head dim of 128 is read as two boxes."""
+    return K * 2 // SWIZZLE_BYTES
+
+
+def tensor_map(t: torch.Tensor, box, swizzle: int) -> list[int]:
+    """The geometry of a TMA tensor map over the view ``t``, read in boxes
+    of ``box`` elements (one per dim, torch order): the TMAP_WORDS numbers
+    the C entry points encode — element bytes, rank, dims innermost first
+    (5, zero-padded), the byte strides of dims 1.. (4), the box innermost
+    first (5) and the swizzle in bytes. Raises ValueError for a view TMA
+    cannot read: a strided innermost dim, a base or stride that is not a
+    multiple of 16 bytes, a box row longer than the swizzle span."""
+    item, rank = t.element_size(), t.dim()
+    if len(box) != rank or not 1 <= rank <= 5:
+        raise ValueError(f"box {tuple(box)} for a rank-{rank} tensor")
+    if rank > 1 and t.stride(-1) != 1:
+        raise ValueError(f"innermost dim strided ({t.stride(-1)}): TMA reads "
+                         "rows of contiguous elements")
+    strides = [t.stride(i) * item for i in reversed(range(rank - 1))]
+    if any(s % 16 for s in strides) or t.data_ptr() % 16:
+        raise ValueError(f"TMA needs 16-byte aligned rows: base "
+                         f"{t.data_ptr() % 16} bytes off, byte strides "
+                         f"{strides}")
+    inner = box[-1] * item
+    if inner % 16 or (swizzle and inner > swizzle):
+        raise ValueError(f"box row of {inner} bytes (a multiple of 16, at "
+                         f"most the {swizzle}-byte swizzle span)")
+    pad = lambda xs, n: xs + [0] * (n - len(xs))
+    return [item, rank, *pad(list(t.shape)[::-1], 5), *pad(strides, 4),
+            *pad(list(box)[::-1], 5), swizzle]
+
+
+def wgmma_page_size(ps: int) -> bool:
+    """Page sizes the wgmma prefill kernel takes: a key tile is whole TMA
+    boxes of gcd(ps, key tile) rows, each a multiple of the 8-row swizzle
+    atom, so ps is 8, 16 or 32, or a multiple of 64."""
+    return ps > 0 and ps % 8 == 0 and (64 % ps == 0 or ps % 64 == 0)
+
+
+def prefill_kernel(dtype, K: int, ps: int) -> str:
+    """The kernel `paged_prefill_attention` launches for a (q dtype, head
+    dim, page size): "wgmma" (bf16 q at the page sizes of
+    `wgmma_page_size`), "mma" (bf16 q at any other page size: the
+    mma.sync kernel), "fma" (fp32 q). The C entry point holds the same
+    rule."""
+    if dtype == torch.float32:
+        return "fma"
+    if dtype != torch.bfloat16 or K not in _HEAD_DIMS:
+        raise ValueError(f"no prefill kernel for {dtype} at head_dim {K}")
+    return "wgmma" if wgmma_page_size(ps) else "mma"
+
+
+def prefill_plan(q, k_pool, v_pool):
+    """The wgmma prefill kernel's tensor maps: q [B, C, H, K] in boxes of
+    128 rows and 64 columns; each pool layer viewed as [(P+1)·ps, H, K],
+    in boxes of gcd(ps, key tile) rows (one per page piece of a key
+    tile) — 64-column swizzled boxes for a bf16 pool, whole unswizzled
+    rows of codes for an int8 one. → a flat list of 3 x TMAP_WORDS."""
+    _B, _C, H, K = q.shape
+    ps = k_pool.shape[1]
+    rows = math.gcd(ps, key_tile(K))
+    cols = K // column_boxes(K)
+    maps = tensor_map(q, (1, WGMMA_ROWS, 1, cols), SWIZZLE_BYTES)
+    for pool in (k_pool, v_pool):
+        flat = pool.view(-1, H, K)
+        if pool.dtype == torch.int8:
+            maps += tensor_map(flat, (rows, 1, K), 0)
+        else:
+            maps += tensor_map(flat, (rows, 1, cols), SWIZZLE_BYTES)
+    return maps
+
+
+def _c_array(words):
+    return (ctypes.c_longlong * len(words))(*words)
+
+
+def _addr(arr):
+    """The address of a ctypes array for the C ABI, NULL for None (the
+    caller keeps the array alive across the call)."""
+    return None if arr is None else ctypes.addressof(arr)
+
+
 def paged_attention(q, k_pool, v_pool, tables, lengths, *, sm_scale=None,
                     k_scale=None, v_scale=None):
     """Single-token decode attention straight against the KV page pool.
@@ -186,7 +288,10 @@ def paged_prefill_attention(q, k_pool, v_pool, tables, offsets, lengths, *,
     chunk tokens, <= n_pg * page_size). → [B, C, H, K] in q.dtype; rows
     past a slot's valid chunk tokens are finite but meaningless (the
     engine discards them). CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel: with bf16 q the wgmma kernel at page sizes
+    8, 16, 32 and multiples of 64, the mma.sync kernel at any other (a
+    shape rule, `prefill_kernel`, that the C entry point holds too); with
+    fp32 q the FMA kernel. Every one counts in the same counter."""
     quant = _quantized(k_pool, v_pool, k_scale, v_scale)
     B, C, H, K = q.shape
     ps = _check_shapes(q, k_pool, v_pool, H, K)
@@ -216,9 +321,12 @@ def paged_prefill_attention(q, k_pool, v_pool, tables, offsets, lengths, *,
             _DTYPE_CODES[q.dtype], int(quant), K, ps) > _MAX_SMEM_BYTES:
         raise ValueError(f"page_size {ps} too large for the prefill kernel "
                          f"at head_dim {K}")
+    maps = None
+    if prefill_kernel(q.dtype, K, ps) == "wgmma":
+        maps = _c_array(prefill_plan(q, k_pool, v_pool))
     common = (tables.data_ptr(), offsets.data_ptr(), lengths.data_ptr(),
               out.data_ptr(), B, C, H, K, ps, n_pg, float(sm_scale),
-              _stream_ptr(q.device))
+              _addr(maps), _stream_ptr(q.device))
     if quant:
         ks, vs = _scale_operands(q.device, k_scale, v_scale)
         rc = lib.rtt_paged_prefill_attention_int8(
@@ -319,5 +427,6 @@ def reference_paged_prefill_attention(q, k_pool, v_pool, tables, offsets,
 __all__ = [
     "paged_attention", "paged_prefill_attention",
     "reference_paged_attention", "reference_paged_prefill_attention",
-    "reset_launch_counts", "NEG_INF",
+    "reset_launch_counts", "NEG_INF", "prefill_kernel", "prefill_plan",
+    "tensor_map", "key_tile", "column_boxes", "wgmma_page_size",
 ]

@@ -232,6 +232,88 @@ def test_prefill_int8_kernel_matches_plain(cuda, dtype, ps, K, C):
         _close_p_unrounded(out[live], ref32[live], s_abs[live])
 
 
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("K", [64, 128])
+@pytest.mark.parametrize("ps", [16, 32, 64, 128, 48])
+def test_prefill_bf16_page_sizes_and_chunks(cuda, ps, K, quant):
+    """bf16 q at each page size: 16, 32, 64 and 128 take the wgmma kernel,
+    48 (neither divides nor is a multiple of 64) the mma.sync kernel, all
+    counted by the same counter. Chunks of C = 40, 72 and 200 at ragged
+    offsets against a width-sliced table, with an inert row; float and
+    int8 pools (the int8 program also against the unrounded-p plain
+    version)."""
+    assert pa.prefill_kernel(torch.bfloat16, K, ps) == (
+        "mma" if ps == 48 else "wgmma")
+    rng = np.random.default_rng(9)
+    B, H = 5, 2
+    n_pg = -(-640 // ps)
+    width = n_pg - 1
+    if quant:
+        kp, ks, vp, vs = _int8_pool(rng, B * n_pg + 1, ps, H, K, cuda)
+        sc = {"k_scale": ks, "v_scale": vs}
+    else:
+        kp, vp = _pool(rng, B * n_pg + 1, ps, H, K, torch.bfloat16, cuda)
+        sc = {}
+    tables = (rng.permutation(B * n_pg).astype(np.int32) + 1).reshape(B, n_pg)
+    cap = width * ps
+    for C in (40, 72, 200):
+        rows = [(0, C), (ps + 3, C - 5), (cap - C, C), (11, 1), (0, 0)]
+        offs = np.array([o for o, _ in rows], np.int32)
+        lens = np.array([o + v for o, v in rows], np.int32)
+        q = torch.from_numpy(rng.normal(size=(B, C, H, K)).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+                for a in (tables[:, :width], offs, lens)]
+        pa.reset_launch_counts()
+        out = pa.paged_prefill_attention(q, kp, vp, *args, **sc)
+        torch.cuda.synchronize()
+        assert (pa.paged_prefill_attention.int8_launches,
+                pa.paged_prefill_attention.launches) == (
+            (1, 0) if quant else (0, 1))
+        ref = pa.reference_paged_prefill_attention(q, kp, vp, *args, **sc)
+        live = torch.from_numpy(lens > 0).to(cuda)
+        assert torch.all(out[~live] == 0)    # inert row: the l == 0 guard
+        if quant:
+            s_abs = _abs_v_int8(pa.reference_paged_prefill_attention, q, kp,
+                                ks, vp, vs, *args)
+        else:
+            s_abs = _abs_v(pa.reference_paged_prefill_attention, q, kp, vp,
+                           *args)
+        _close(out[live], ref[live], torch.bfloat16, s_abs[live])
+        if quant:
+            ref32 = pa.reference_paged_prefill_attention(q.float(), kp, vp,
+                                                         *args, **sc)
+            _close_p_unrounded(out[live], ref32[live], s_abs[live])
+
+
+@pytest.mark.parametrize("K", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,T", [(200, 333), (1, 64), (333, 200)])
+@pytest.mark.parametrize("packed", [False, True])
+def test_flash_fwd_bf16_edges_and_strided_views(cuda, K, causal, S, T, packed):
+    """The bf16 forward (wgmma, tensor maps over the views) at ragged S and
+    T, on contiguous tensors and on q, k, v taken as views of packed
+    [B, S, 3, H, K] tensors, as the train step's qkv projection passes
+    them: o keeps q's layout and matches the plain version; lse too."""
+    rng = np.random.default_rng(10)
+    B, H = 2, 3
+    t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    if packed:
+        qkv_q, qkv_kv = t(B, S, 3, H, K), t(B, T, 3, H, K)
+        q, k, v = qkv_q[:, :, 0], qkv_kv[:, :, 1], qkv_kv[:, :, 2]
+    else:
+        q, k, v = t(B, S, H, K), t(B, T, H, K), t(B, T, H, K)
+    scale = K ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.launches == 1
+    o_ref, lse_ref = fa.reference_flash_fwd(q, k, v, causal, scale)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-4)
+    s_abs = _flash_abs_sums(q, k, v, q, lse_ref, lse_ref, causal, scale)[0]
+    _close(o, o_ref, torch.bfloat16, s_abs)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 2, 8, device=cuda)
     pool = torch.zeros(2, 4, 2, 8, device=cuda)

@@ -13,8 +13,9 @@ build/chip_smoke.json):
 2. build: every CUDA kernel compiled from ray_tpu_torch/ops/csrc for
    sm_90a (one nvcc per source, all started together), with the build
    seconds, and per kernel whether its SASS (cuobjdump) holds HGMMA,
-   UTMALDG and HMMA: every instance of the bf16 flash forward and paged
-   prefill kernels must hold wgmma and TMA loads and no mma.sync.
+   UTMALDG and HMMA: every instance of the bf16 flash forward, dq and
+   dkv kernels and the paged prefill kernel (10 in all) must hold wgmma
+   and TMA loads and no mma.sync.
 3. kernels: each kernel against its plain PyTorch version on the card at
    OPT-1.3B attention shapes (H=32, K=64), page sizes {16, 64}, fp32 and
    bf16, and at head dim 128; the ragged cases (length 1, mid-page, page
@@ -50,8 +51,13 @@ build/chip_smoke.json):
    on the training step's own inputs ([8, 1024, 12, 64] bf16 causal),
    where a dropped 64-wide tile planted in the plain dq, dk and dv must
    fail the bound, then timed by device time beside each kernel's bound,
-   its plain version and SDPA (forward; forward plus backward against
-   the three kernels).
+   its plain version and its library call: SDPA for the forward; for
+   the backward the faster of aten's flash backward
+   (`_scaled_dot_product_flash_attention_backward`) and the backward of
+   SDPA's graph, each alone and held once to the plain versions, on the
+   flash_dq row beside delta + dq + dkv (one call does all three);
+   `flash_delta` alone; SDPA forward plus backward against the three
+   kernels.
 4. programs: prefill_chunk_paged and decode_step_paged at full opt_1_3b
    width (bf16, random weights from a seed), attn_impl "kernel" vs
    "gather" on copies of one pool; then the same with int8 weights
@@ -81,8 +87,8 @@ build/chip_smoke.json):
    after (exactly 24 forward, 12 dq and 12 dkv launches per step: remat
    recomputes each block's forward), step time, tokens/s, MFU, the steps'
    peak memory and the losses; then torch.profiler over one step.
-8. with --ab OLD_CHECKOUT: the flash forward and the float and int8
-   paged prefill against an older checkout's kernels, in turns.
+8. with --ab OLD_CHECKOUT: the flash forward, dq and dkv and the float
+   and int8 paged prefill against an older checkout's kernels, in turns.
 9. the kernels line, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -242,7 +248,8 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
 
 # The kernels that must be Hopper kernels: wgmma (HGMMA in the SASS) on
 # tiles brought in by TMA (UTMALDG), and no mma.sync (HMMA).
-WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "paged_prefill_wgmma_kernel")
+WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "paged_prefill_wgmma_kernel",
+                 "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel")
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
 _MANGLED_ARGS = {"f": "float", "a": "int8", "13__nv_bfloat16": "bf16",
                  "Lb0E": "false", "Lb1E": "true"}
@@ -283,7 +290,7 @@ def sass_ops(lib_path) -> dict:
     ops = {fn: sorted(v) for fn, v in sorted(ops.items())}
     hopper = {fn: v for fn, v in ops.items()
               if fn.split("<")[0] in WGMMA_KERNELS}
-    if len(hopper) < 6 or any(v != ["HGMMA", "UTMALDG"]
+    if len(hopper) < 10 or any(v != ["HGMMA", "UTMALDG"]
                               for v in hopper.values()):
         raise AssertionError(f"the wgmma kernels' SASS lacks HGMMA or "
                              f"UTMALDG, or holds HMMA: {hopper}")
@@ -1099,8 +1106,32 @@ def time_flash(device, errs):
         sdpa_fwd, sdpa_fwd_events = kernel_ms(sdpa)
     timings["flash_fwd"]["library_ms"] = sdpa_fwd
     timings["flash_fwd"]["library_ms_events"] = sdpa_fwd_events
-    timings["flash_dq"]["library_ms"] = None     # no PyTorch call of its own
-    timings["flash_dkv"]["library_ms"] = None
+    # The pair's yardstick: one PyTorch call that computes dq, dk and dv
+    # (and its own delta) from the forward's out and lse. Two routes,
+    # each held once to the plain versions: aten's flash backward called
+    # alone, and the backward of SDPA's own graph (whichever backend SDPA
+    # picks); the faster is the library time.
+    refs = (fa.reference_flash_dq(q, k, v, do, lse, delta, True, scale),
+            *fa.reference_flash_dkv(q, k, v, do, lse, delta, True, scale))
+    aten_bwd, aten_check = aten_flash_backward(qt, kt, vt, dot, scale, refs)
+    aten_ms, aten_events = kernel_ms(aten_bwd)
+    sdpa_bwd, sdpa_check = sdpa_backward(qt, kt, vt, dot, scale, refs)
+    sdpa_bwd_ms, sdpa_bwd_events = kernel_ms(sdpa_bwd)
+    sdpa_bwd_kernels = kernel_names(sdpa_bwd)
+    lib_bwd_ms, lib_bwd_events, lib_call = min(
+        (aten_ms, aten_events, "aten_flash_backward"),
+        (sdpa_bwd_ms, sdpa_bwd_events, "sdpa_autograd_backward"))
+    delta_ms, delta_events = kernel_ms(lambda: fa.flash_delta(o, do))
+    # The call does the work of flash_delta, flash_dq and flash_dkv
+    # together, so its time stands on one row, beside theirs summed.
+    timings["flash_dq"].update(
+        library_ms=lib_bwd_ms, library_ms_events=lib_bwd_events,
+        library_call=lib_call, library_covers=list(BWD_PAIR),
+        covered_ms=delta_ms + timings["flash_dq"]["ms"]
+        + timings["flash_dkv"]["ms"])
+    timings["flash_dkv"].update(library_ms=None, library_see="flash_dq")
+    for name in BWD_PAIR[1:]:
+        timings[name].update(delta_ms=delta_ms, delta_ms_events=delta_events)
     # Forward plus backward launches several kernels from the host (SDPA's
     # through autograd), so their gaps depend on the host's speed: compare
     # the device time of their kernels instead.
@@ -1113,17 +1144,102 @@ def time_flash(device, errs):
           "planted_faults_vs_bf16_bound": planted,
           "fwd_dq_dkv_device_ms": ours, "sdpa_fwd_ms": sdpa_fwd,
           "sdpa_fwd_bwd_device_ms": sdpa_fwd_bwd,
+          "aten_flash_backward_ms": aten_ms,
+          "aten_flash_backward_vs_plain": aten_check,
+          "sdpa_backward_ms": sdpa_bwd_ms,
+          "sdpa_backward_vs_plain": sdpa_check,
+          "sdpa_backward_kernels": sdpa_bwd_kernels,
+          "flash_delta_ms": delta_ms,
           "note": "fwd_dq_dkv_device_ms: the kernels of flash_fwd, delta, "
                   "flash_dq and flash_dkv, against those of SDPA (is_causal)"
-                  " forward plus backward; device time per call "
+                  " forward plus backward; sdpa_backward_ms: the backward "
+                  "of SDPA's graph alone (autograd.grad, retain_graph); "
+                  "aten_flash_backward_ms: aten's _scaled_dot_product_flash"
+                  "_attention_backward alone; the faster is flash_dq's "
+                  "library_ms, which covers flash_delta, flash_dq and "
+                  "flash_dkv (covered_ms: their times summed), and "
+                  "flash_dkv's library_ms is null; flash_delta_ms: the "
+                  "port's delta (torch ops) alone; device time per call "
                   "(device_ms)"})
     return timings
 
 
+ATEN_BWD_REL = 2e-2   # the library backward against the plain versions
+# The port's backward kernels, which one library call does together.
+BWD_PAIR = ("flash_delta", "flash_dq", "flash_dkv")
+
+
+def hold_to_plain(label, grads, refs):
+    """The relative error of each whole gradient (dq, dk, dv as
+    [B, H, S, K]) against the plain versions ``refs`` ([B, S, H, K]);
+    raises past ATEN_BWD_REL."""
+    check = {}
+    for name, g, ref in zip(("dq", "dk", "dv"), grads, refs):
+        ref = ref.float()
+        rel = float((g.transpose(1, 2).float() - ref).norm() / ref.norm())
+        check[name] = rel
+        if not rel <= ATEN_BWD_REL:
+            raise AssertionError(f"{label} {name} is {rel} off the plain "
+                                 "version")
+    return check
+
+
+def sdpa_backward(qt, kt, vt, dot, scale, refs):
+    """The backward of SDPA's own graph (is_causal, the same scale) on
+    [B, H, S, K] copies, whichever backend SDPA picks: the forward runs
+    once, and the call is torch.autograd.grad over its graph, kept for
+    every call. A yardstick only, held once to the plain versions like
+    `aten_flash_backward`. → (the call, the check's numbers)."""
+    qt, kt, vt = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         scale=scale)
+
+    def call():
+        return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+    return call, hold_to_plain("SDPA backward", call(), refs)
+
+
+def kernel_names(fn):
+    """The names of the device kernels one call of fn launches (read
+    from torch.profiler; names only, no times)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key[:100] for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA})
+
+
+def aten_flash_backward(qt, kt, vt, dot, scale, refs):
+    """aten's flash backward (``_scaled_dot_product_flash_attention_
+    backward``) on [B, H, S, K] copies, with out, lse and the philox
+    arguments of aten's causal flash forward at the same scale: a
+    yardstick only, the port never calls it. Its dq, dk and dv are held
+    once, loosely, to the plain versions ``refs`` ([B, S, H, K]: the
+    relative error of each whole gradient <= ATEN_BWD_REL) so that the
+    yardstick is known to compute the same function. → (the call, the
+    check's numbers)."""
+    qt, kt, vt = (x.detach() for x in (qt, kt, vt))
+    fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+        qt, kt, vt, 0.0, True, False, scale=scale)
+    out, lse, cum_q, cum_k, max_q, max_k, seed, offset = fwd[:8]
+
+    def call():
+        return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            dot, qt, kt, vt, out, lse, cum_q, cum_k, max_q, max_k, 0.0, True,
+            seed, offset, scale=scale)
+
+    return call, hold_to_plain("aten flash backward", call(), refs)
+
+
 def old_library(old_dir):
     """The kernels of an older checkout (``old_dir``/ray_tpu_torch/ops/
-    csrc, its C ABI from before the tensor maps) built by nvcc into
-    build/ab/libkernels_old.so, one nvcc per source in parallel."""
+    csrc) built by nvcc into build/ab/libkernels_old.so, one nvcc per
+    source in parallel, with the C ABI of the parent of the backward's
+    redesign: the flash forward and the paged kernels as now (tensor maps
+    passed by the caller), rtt_flash_dq and rtt_flash_dkv without maps."""
     src = os.path.join(old_dir, "ray_tpu_torch", "ops", "csrc")
     out = os.path.join("build", "ab")
     os.makedirs(out, exist_ok=True)
@@ -1141,42 +1257,74 @@ def old_library(old_dir):
     subprocess.run([nvcc, *_build.ARCH_FLAGS, "-shared", "-o", lib_path,
                     *objs], check=True)
     lib = ctypes.CDLL(os.path.abspath(lib_path))
+    _build._declare(lib)
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rtt_flash_fwd.argtypes = [I, P, P, P, P, P, I, I, I, I, I, P, I, Fl, P]
-    lib.rtt_paged_prefill_attention.argtypes = [I] + [P] * 7 + [I] * 6 + [Fl, P]
-    lib.rtt_paged_prefill_attention_int8.argtypes = ([I] + [P] * 9 + [I] * 6
-                                                     + [Fl, P])
+    lib.rtt_flash_dq.argtypes = [I] + [P] * 7 + [I] * 5 + [P, I, Fl, P]
+    lib.rtt_flash_dkv.argtypes = [I] + [P] * 8 + [I] * 5 + [P, I, Fl, P]
     return lib
 
 
 def phase_ab(device, old_dir):
-    """The redesigned kernels against the ones they replace, at the timed
-    shapes, by device time in turns (old, new, new, old) in one process:
-    the bf16 flash forward at [8, 1024, 12, 64] causal, and the paged
+    """The kernels against an older checkout's, at the timed shapes, by
+    device time in turns (old, new, new, old) in one process: the bf16
+    flash forward, dq and dkv at [8, 1024, 12, 64] causal, and the paged
     prefill (16 slots x C 256 at offset 768, 1024-token contexts, ps 64,
     H 32, K 64) on a bf16 and on an int8 pool. Each old output is held to
-    the new one's plain version first."""
+    the new one's plain version first (dq and dkv: the bf16 bound of the
+    flash checks must hold)."""
     old = old_library(old_dir)
     stream = lambda: torch.cuda.current_stream().cuda_stream
     rng = np.random.default_rng(11)
     B, S, Hh, Kd = FLASH_SHAPE
-    q, k, v, _do, _dl = flash_inputs(rng, B, S, S, Hh, Kd, torch.bfloat16,
-                                     device)
+    q, k, v, do, _dl = flash_inputs(rng, B, S, S, Hh, Kd, torch.bfloat16,
+                                    device)
     scale = 1.0 / np.sqrt(Kd)
+    o, lse = fa.flash_fwd(q, k, v, True, scale)
+    delta = fa.flash_delta(o, do)
 
     def flash_old():
         o = torch.empty_like(q)
         lse = torch.empty(B, S, Hh, device=device, dtype=torch.float32)
         rows = fa._rows(q, k, v, o)
+        maps = pa._c_array(fa.flash_plan(q, k, v))
         _build.check(old.rtt_flash_fwd(
             1, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), B, S, S, Hh, Kd, ctypes.addressof(rows), 1,
-            float(scale), stream()), "old flash_fwd")
+            float(scale), ctypes.addressof(maps), stream()), "old flash_fwd")
         return o
 
-    cases = {"flash_fwd": (flash_old, lambda: fa.flash_fwd(
-        q, k, v, True, scale)[0], lambda: fa.reference_flash_fwd(
-        q, k, v, True, scale)[0])}
+    def dq_old():
+        dq = torch.empty_like(q)
+        rows = fa._rows(q, k, v, do, dq)
+        _build.check(old.rtt_flash_dq(
+            1, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S, S, Hh, Kd,
+            ctypes.addressof(rows), 1, float(scale), stream()), "old flash_dq")
+        return dq
+
+    def dkv_old():
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        rows = fa._rows(q, k, v, do, dk, dv)
+        _build.check(old.rtt_flash_dkv(
+            1, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, S, S, Hh, Kd, ctypes.addressof(rows), 1, float(scale),
+            stream()), "old flash_dkv")
+        return dk, dv
+
+    bwd = (q, k, v, do, lse, delta, True, scale)
+    cases = {
+        "flash_fwd": (flash_old, lambda: fa.flash_fwd(q, k, v, True, scale)[0],
+                      lambda: fa.reference_flash_fwd(q, k, v, True, scale)[0]),
+        "flash_dq": (dq_old, lambda: fa.flash_dq(*bwd),
+                     lambda: fa.reference_flash_dq(*bwd)),
+        "flash_dkv": (dkv_old, lambda: fa.flash_dkv(*bwd),
+                      lambda: fa.reference_flash_dkv(*bwd)),
+    }
+    sums = flash_abs_sums(*bwd)
+    bound_sums = {"flash_dq": sums["flash_dq"],
+                  "flash_dkv": torch.stack((sums["flash_dk"],
+                                            sums["flash_dv"]))}
     T, C, ps = 1024, 256, 64
     n_pg = T // ps
     for quant in (False, True):
@@ -1195,9 +1343,11 @@ def phase_ab(device, old_dir):
                 ptrs += [sc["k_scale"].data_ptr(), sc["v_scale"].data_ptr()]
             fn = (old.rtt_paged_prefill_attention_int8 if sc
                   else old.rtt_paged_prefill_attention)
+            maps = pa._c_array(pa.prefill_plan(qp, kp, vp))
             _build.check(fn(1, *ptrs, *(a.data_ptr() for a in args),
                             out.data_ptr(), 16, C, H, K, ps, n_pg,
-                            float(1 / np.sqrt(K)), stream()), "old prefill")
+                            float(1 / np.sqrt(K)), ctypes.addressof(maps),
+                            stream()), "old prefill")
             return out
 
         name = "paged_prefill_attention" + ("_int8" if quant else "")
@@ -1210,16 +1360,25 @@ def phase_ab(device, old_dir):
                                                      **sc))
     out = {"phase": "ab_old_vs_new", "old": old_dir,
            "order": "old, new, new, old; device ms per call (device_ms)"}
+    # dkv's (dk, dv) are held as one tensor; the timed calls stack nothing.
+    one = lambda x: (torch.stack(x) if isinstance(x, tuple) else x).float()
     for name, (fn_old, fn_new, plain) in cases.items():
-        ref = plain().float()
-        err = {tag: float((fn().float() - ref).abs().max())
-               for tag, fn in (("old", fn_old), ("new", fn_new))}
-        turns = [device_ms(f) for f in (fn_old, fn_new, fn_new,
-                                                  fn_old)]
+        ref = one(plain())
+        outs = {"old": one(fn_old()), "new": one(fn_new())}
+        err = {tag: float((x - ref).abs().max()) for tag, x in outs.items()}
+        res = {"max_abs_err_vs_plain": err}
+        if name in bound_sums:
+            share = {tag: float(share_of_bound(x, ref, bound_sums[name]))
+                     for tag, x in outs.items()}
+            res["max_share_of_bf16_bound"] = share
+            if max(share.values()) > 1.0:
+                raise AssertionError(f"A/B {name} off its plain version: "
+                                     f"{share}")
+        turns = [device_ms(f) for f in (fn_old, fn_new, fn_new, fn_old)]
         out[name] = {"old_ms": [turns[0], turns[3]],
                      "new_ms": [turns[1], turns[2]],
                      "speedup": (turns[0] + turns[3]) / (turns[1] + turns[2]),
-                     "max_abs_err_vs_plain": err}
+                     **res}
     emit(out)
 
 
@@ -1793,8 +1952,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc -Xptxas -v (registers, spills)")
     ap.add_argument("--ab", metavar="OLD_CHECKOUT", default="",
-                    help="also time the flash forward and paged prefill "
-                         "kernels against an older checkout's (its "
+                    help="also time the flash forward, dq, dkv and paged "
+                         "prefill kernels against an older checkout's (its "
                          "ray_tpu_torch/ops/csrc, built into build/ab), in "
                          "turns old, new, new, old")
     args = ap.parse_args(argv)
@@ -1883,7 +2042,9 @@ def main(argv=None) -> int:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            **{k: t[k] for k in ("library_covers", "covered_ms",
+                                 "library_see") if k in t}})
     if kernels:
         print(json.dumps({"kernels": kernels}), flush=True)
         RECORD["kernels"] = kernels

@@ -130,15 +130,19 @@ def _declare(lib: ctypes.CDLL) -> None:
         _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _F, _P, _P]
     lib.rtt_flash_fwd.restype = _I
     # int fn(dtype, q, k, v, dO, lse, delta, dq, B, S, T, H, K,
-    #        strides[15], causal, sm_scale, stream) → cudaError_t
+    #        strides[15], causal, sm_scale, maps, stream) → cudaError_t
+    #        (maps: bf16, the tensor maps of q, k, v, dO, long long[4 x 17];
+    #        fp32 NULL)
     lib.rtt_flash_dq.argtypes = [
-        _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _F, _P]
+        _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _F, _P,
+        _P]
     lib.rtt_flash_dq.restype = _I
     # int fn(dtype, q, k, v, dO, lse, delta, dk, dv, B, S, T, H, K,
-    #        strides[18], causal, sm_scale, stream) → cudaError_t
+    #        strides[18], causal, sm_scale, maps, stream) → cudaError_t
+    #        (maps as for dq)
     lib.rtt_flash_dkv.argtypes = [
         _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _F,
-        _P]
+        _P, _P]
     lib.rtt_flash_dkv.restype = _I
     lib.rtt_error_string.argtypes = [_I]
     lib.rtt_error_string.restype = ctypes.c_char_p

@@ -220,6 +220,20 @@ def _row_vectors(q, *vecs):
     return out
 
 
+# Keys per work item of the dkv kernel (two warpgroups of 64) and query rows
+# per tile it walks: flash_bwd.cu's DKV_KEYS and DKV_ROWS, whose launcher
+# refuses maps with other box rows.
+DKV_KEYS = 128
+DKV_ROWS = 64
+
+
+def _maps(K, *views):
+    """tensor_map of each (view, rows per box) in 64-column swizzled boxes."""
+    cols = K // column_boxes(K)
+    return [w for t, rows in views
+            for w in tensor_map(t, (1, rows, 1, cols), SWIZZLE_BYTES)]
+
+
 def flash_plan(q, k, v):
     """The flash forward kernel's tensor maps, read in place from the
     views (their own strides; the rows of a [B, S, 3, H, K] qkv
@@ -228,11 +242,31 @@ def flash_plan(q, k, v):
     of 128 is two column boxes). bf16 only: fp32 takes the FMA kernel and
     no map. → a flat list of 3 x TMAP_WORDS."""
     K = q.shape[-1]
-    cols = K // column_boxes(K)
-    maps = tensor_map(q, (1, WGMMA_ROWS, 1, cols), SWIZZLE_BYTES)
-    for t in (k, v):
-        maps += tensor_map(t, (1, key_tile(K), 1, cols), SWIZZLE_BYTES)
-    return maps
+    kt = key_tile(K)
+    return _maps(K, (q, WGMMA_ROWS), (k, kt), (v, kt))
+
+
+def flash_dq_plan(q, k, v, do):
+    """The bf16 dq kernel's tensor maps (query-major: an item is 128 rows):
+    q and dO in boxes of 128 rows, k and v in boxes of `key_tile` rows,
+    each read in place with its own strides. → 4 x TMAP_WORDS (q, k, v,
+    dO). lse and delta are not mapped: the kernel reads them from the
+    contiguous fp32 [B, S, H] rows `_row_vectors` gives it."""
+    K = q.shape[-1]
+    kt = key_tile(K)
+    return _maps(K, (q, WGMMA_ROWS), (k, kt), (v, kt), (do, WGMMA_ROWS))
+
+
+def flash_dkv_plan(q, k, v, do):
+    """The bf16 dkv kernel's tensor maps (key-major: an item is DKV_KEYS
+    keys, the walked tiles DKV_ROWS query rows): k and v in boxes of
+    DKV_KEYS rows, q and dO in boxes of DKV_ROWS. → 4 x TMAP_WORDS (q, k,
+    v, dO). The lse and delta rows of each walked tile are staged by the
+    kernel from the [B, S, H] rows: a box of one head's rows would be
+    4·H bytes apart, which TMA cannot read as a box."""
+    K = q.shape[-1]
+    return _maps(K, (q, DKV_ROWS), (k, DKV_KEYS), (v, DKV_KEYS),
+                 (do, DKV_ROWS))
 
 
 def flash_fwd(q, k, v, causal=True, sm_scale=None):
@@ -271,7 +305,8 @@ flash_fwd.launches = 0
 def flash_dq(q, k, v, do, lse, delta, causal=True, sm_scale=None):
     """dq from the saved lse and the row term delta ([B, S, H] fp32) →
     [B, S, H, K] in q.dtype with q's layout. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    version; CUDA tensors launch the kernel (bf16: wgmma on TMA-fed
+    tiles, `flash_dq_plan`; fp32: FMA)."""
     _check_shapes(q, k, v)
     sm_scale = _scale(q, sm_scale)
     if not _on_cuda(q):
@@ -285,11 +320,13 @@ def flash_dq(q, k, v, do, lse, delta, causal=True, sm_scale=None):
 
     lib = _build.library()
     rows = _rows(q, k, v, do, dq)
+    maps = (_c_array(flash_dq_plan(q, k, v, do))
+            if q.dtype == torch.bfloat16 else None)
     rc = lib.rtt_flash_dq(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         B, S, T, H, K, ctypes.addressof(rows), int(bool(causal)),
-        float(sm_scale), _stream_ptr(q.device))
+        float(sm_scale), _addr(maps), _stream_ptr(q.device))
     _build.check(rc, "flash_dq kernel launch")
     flash_dq.launches += 1
     return dq
@@ -301,7 +338,8 @@ flash_dq.launches = 0
 def flash_dkv(q, k, v, do, lse, delta, causal=True, sm_scale=None):
     """(dk, dv) from the saved lse and the row term delta → each
     [B, T, H, K] with its input's dtype and layout. CPU tensors take the
-    plain version; CUDA tensors launch the kernel."""
+    plain version; CUDA tensors launch the kernel (bf16: wgmma on
+    TMA-fed tiles, `flash_dkv_plan`; fp32: FMA)."""
     _check_shapes(q, k, v)
     sm_scale = _scale(q, sm_scale)
     if not _on_cuda(q):
@@ -315,11 +353,14 @@ def flash_dkv(q, k, v, do, lse, delta, causal=True, sm_scale=None):
 
     lib = _build.library()
     rows = _rows(q, k, v, do, dk, dv)
+    maps = (_c_array(flash_dkv_plan(q, k, v, do))
+            if q.dtype == torch.bfloat16 else None)
     rc = lib.rtt_flash_dkv(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), B, S, T, H, K, ctypes.addressof(rows),
-        int(bool(causal)), float(sm_scale), _stream_ptr(q.device))
+        int(bool(causal)), float(sm_scale), _addr(maps),
+        _stream_ptr(q.device))
     _build.check(rc, "flash_dkv kernel launch")
     flash_dkv.launches += 1
     return dk, dv
@@ -382,7 +423,7 @@ def flash_attention(q, k, v, *, causal=True, sm_scale=None,
 
 __all__ = [
     "flash_attention", "flash_fwd", "flash_dq", "flash_dkv", "flash_bwd",
-    "flash_plan",
+    "flash_plan", "flash_dq_plan", "flash_dkv_plan",
     "flash_delta", "reference_attention", "reference_flash_fwd",
     "reference_flash_dq", "reference_flash_dkv", "reference_flash_bwd",
     "reset_launch_counts", "NEG_INF",

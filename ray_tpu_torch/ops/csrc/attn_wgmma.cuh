@@ -5,7 +5,8 @@
 // TMA, and two consumer warpgroups of 64 rows each walk the key tiles under
 // an online softmax. The two kernels differ only in their producers: where
 // a key tile comes from (a [B, T, H, K] tensor, or pages of a pool through
-// a page table).
+// a page table). The bf16 flash backward (flash_bwd.cu) takes its work-item
+// order, persistent grid, warp roles and register budgets.
 //
 // Blocks are persistent: one per SM, each taking work items in a snake
 // order over the longest-first list (`attn_item`), so the producer loads
@@ -26,8 +27,9 @@
 // The ring is deep (four bf16 stages; for int8 four stages of codes, half
 // the bytes each, ahead of two bf16 stages) so that enough bytes are in
 // flight for the memory's latency: one block runs per SM.
-// Per Q buffer: full_q (TMA bytes) and q_empty (every consumer warp is
-// done with the item). Per bf16 stage: full_k / full_v (the tile has
+// Per item buffer (Q here; the flash backward's: Q and dO, or K and V):
+// full_a (TMA bytes) and a_empty (every consumer warp is done with the
+// item). Per bf16 stage: full_k / full_v (the tile has
 // landed: TMA bytes for bf16; for int8 the widening warps' arrivals, on
 // full_k alone) and empty (every consumer warp is done with it); per
 // staging stage (int8): stg_full / stg_empty around the codes.
@@ -77,7 +79,7 @@ struct AttnCfg {
 };
 
 struct AttnBars {
-  uint64_t *full_q, *q_empty, *full_k, *full_v, *empty, *stg_full,
+  uint64_t *full_a, *a_empty, *full_k, *full_v, *empty, *stg_full,
       *stg_empty;
 };
 
@@ -100,6 +102,30 @@ inline cudaError_t attn_grid(int n_items, int* grid) {
   return e;
 }
 
+// Work item `item` of a query-major grid (the flash forward, flash dq),
+// longest first when causal: query tile, head and batch, its rows and its
+// key tiles of BN keys.
+struct QueryItem {
+  int q0, rows, h, b, n_kt;
+};
+
+template <int BN>
+__device__ __forceinline__ QueryItem query_item(int item, int n_qt, int S,
+                                                int T, int H, int B,
+                                                int causal) {
+  QueryItem it;
+  const int rank = item / (H * B);
+  const int hb = item - rank * (H * B);
+  it.h = hb % H;
+  it.b = hb / H;
+  it.q0 = (causal ? n_qt - 1 - rank : rank) * ATT_BM;
+  it.rows = min(ATT_BM, S - it.q0);
+  // One past the last key any row of this tile may see.
+  const int kv_end = causal ? min(T, it.q0 + it.rows) : T;
+  it.n_kt = (kv_end + BN - 1) / BN;
+  return it;
+}
+
 // Shared-memory address of Q buffer `qb` (the consumers' A operand).
 template <int KD, bool QUANT>
 __device__ __forceinline__ unsigned char* attn_q(unsigned char* base,
@@ -107,33 +133,50 @@ __device__ __forceinline__ unsigned char* attn_q(unsigned char* base,
   return base + AttnCfg<KD, QUANT>::OFF_Q + qb * AttnCfg<KD, QUANT>::Q_BYTES;
 }
 
-// The block's 1024-aligned shared base and its barriers; thread 0
-// initialises them, and every thread returns after the block barrier.
-template <int KD, bool QUANT>
+// Whether the 4-D tensor maps `maps` (TMAP_WORDS numbers each, planned by
+// ops/attention.py `_maps`) box `rows[m]` rows of 64 columns for map m of
+// n: the kernel's expect_tx byte counts and shared-memory offsets assume
+// its own tile sizes, so a plan that disagrees is refused at launch, not
+// found on the card as a trap or wrong tiles.
+inline bool tile_boxes_are(const long long* maps, const int* rows, int n) {
+  for (int m = 0; m < n; ++m) {
+    const long long* box = maps + m * TMAP_WORDS + 11;  // innermost first
+    if (box[0] != 64 || box[1] != 1 || box[2] != rows[m] || box[3] != 1)
+      return false;
+  }
+  return true;
+}
+
+// The block's 1024-aligned shared base and its barriers (at byte offset
+// off_bar: two item buffers, KV_ST ring stages whose full_k takes
+// full_k_count arrivals, STG_ST int8 staging stages); thread 0 initialises
+// them, and every thread returns after the block barrier. The flash
+// backward takes the same protocol without staging stages.
+template <int KV_ST, int STG_ST = 0>
 __device__ __forceinline__ unsigned char* attn_setup(unsigned char* raw,
+                                                     int off_bar,
+                                                     int full_k_count,
                                                      AttnBars& bar) {
-  using Cfg = AttnCfg<KD, QUANT>;
   unsigned char* base = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
-  uint64_t* b = reinterpret_cast<uint64_t*>(base + Cfg::OFF_BAR);
-  bar.full_q = b;
-  bar.q_empty = b + 2;
+  uint64_t* b = reinterpret_cast<uint64_t*>(base + off_bar);
+  bar.full_a = b;
+  bar.a_empty = b + 2;
   bar.full_k = b + 4;
-  bar.full_v = bar.full_k + Cfg::KV_ST;
-  bar.empty = bar.full_v + Cfg::KV_ST;
-  bar.stg_full = bar.empty + Cfg::KV_ST;
-  bar.stg_empty = bar.stg_full + Cfg::STG_ST;
+  bar.full_v = bar.full_k + KV_ST;
+  bar.empty = bar.full_v + KV_ST;
+  bar.stg_full = bar.empty + KV_ST;
+  bar.stg_empty = bar.stg_full + STG_ST;
   if (threadIdx.x == 0) {
     for (int s = 0; s < 2; ++s) {
-      mbar_init(bar.full_q + s, 1);
-      mbar_init(bar.q_empty + s, ATT_CONSUMER_WARPS);
+      mbar_init(bar.full_a + s, 1);
+      mbar_init(bar.a_empty + s, ATT_CONSUMER_WARPS);
     }
-    for (int s = 0; s < Cfg::KV_ST; ++s) {
-      // int8: the three widening warps arrive once each.
-      mbar_init(bar.full_k + s, QUANT ? ATT_WIDEN_THREADS / 32 : 1);
+    for (int s = 0; s < KV_ST; ++s) {
+      mbar_init(bar.full_k + s, full_k_count);
       mbar_init(bar.full_v + s, 1);
       mbar_init(bar.empty + s, ATT_CONSUMER_WARPS);
     }
-    for (int s = 0; s < Cfg::STG_ST; ++s) {
+    for (int s = 0; s < STG_ST; ++s) {
       mbar_init(bar.stg_full + s, 1);
       mbar_init(bar.stg_empty + s, ATT_WIDEN_THREADS / 32);
     }

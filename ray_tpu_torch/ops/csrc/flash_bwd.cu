@@ -18,36 +18,81 @@
 // 1024, H = 12, K = 64, bf16, causal) dq does 3 and dkv 4 products of
 // 2·S·T·K/2 FLOPs per (batch, head), about 0.020 ms and 0.026 ms over 989
 // TFLOP/s, against about 0.019 ms and 0.023 ms for their bytes over 3.35
-// TB/s: operations, by a little.
+// TB/s: operations, by a little; and one exponential per visible pair on
+// the SFU (16 a clock per SM), as many cycles as a third of dq's products.
 //
-// What the design does about it: like the forward, operands are read from
-// device memory once per 64-row tile and the [S, T] score, probability and
-// ds tiles never leave registers. Two kernels, as in the JAX split, so that
-// no gradient needs atomics:
-//  - dq: one block of four warps per (64-row query tile, head, batch); each
-//    warp keeps its 16 rows' Q and dO fragments and its dq accumulator in
-//    registers and walks the key tiles (K and V staged 64 rows at a time in
-//    shared memory), running S = Q K^T and dP = dO V^T, then dq += dS K, as
-//    mma.sync m16n8k16 bf16 products with fp32 accumulators.
-//  - dkv: one block per (64-row key tile, head, batch); K and V stay in
-//    shared memory, each warp owns 16 keys and their dk and dv accumulators,
-//    and the block walks the query tiles (Q, dO, lse and delta staged in
-//    shared memory), running S^T = K Q^T and dP^T = V dO^T, then
-//    dv += P^T dO and dk += dS^T Q.
-// The walked tiles are staged two deep with cp.async, so the next tile's
-// loads are in flight while the current one is in the MMAs, and the
-// fragments come from shared memory by ldmatrix.
-// Causal walks stop at the diagonal (dq at the tile's last row, dkv starts
-// at the first query tile that can see the keys), and a warp whose rows all
-// precede (or whose keys all follow) a tile skips its math. fp32 inputs take
-// plain FMA kernels of the same tiling so that fp32 keeps full precision.
-// The next step is wgmma on the shared tiles with TMA loads in flight.
+// What the design does about it (bf16): the structure of the forward
+// (attn_wgmma.cuh). Persistent blocks, one per SM, take work items longest
+// first in snake order (`attn_item`); warp 0 of the producer warpgroup
+// brings tiles in by TMA from 4-D tensor maps over q, k, v and dO with
+// their own strides (views of the qkv projection are read in place; rows
+// past S or T arrive as zeros); two consumer warpgroups of 64 rows run
+// every product as wgmma, with p = exp2(s · c - lse · log2 e) on the SFU
+// (c = sm_scale · log2 e). Two kernels, as in the JAX split, so that no
+// gradient needs atomics:
+//  - flash_dq_wgmma_kernel, query-major: an item is 128 query rows of one
+//    (head, batch). Its Q and dO are double-buffered; its rows' lse and
+//    delta go to registers once per item (lse · log2 e - log2 sm_scale, so
+//    that p carries sm_scale and ds = p (dP - delta) saves a multiply); a
+//    ring of K/V tiles (BN = 128
+//    keys at head dim 64 in four stages, 64 at 128 in three) runs on
+//    across items. Per tile: S = Q·K^T and dP = dO·V^T (both operands
+//    K-major, two commit groups, so p is computed from S while dP is on
+//    the tensor cores), ds rounded to bf16 as register A fragments, and
+//    dq += dS·K with K read MN-major from the same tile. Causal items stop
+//    at their last row and are taken longest first (the last query tiles).
+//  - flash_dkv_wgmma_kernel, key-major: an item is 128 keys of one (head,
+//    batch), each consumer warpgroup owning 64 keys and their fp32 dk and
+//    dv accumulators. The item's K and V are double-buffered and stay in
+//    shared memory; a ring of 64-row Q and dO tiles (four stages at head
+//    dim 64, three at 128) carries each tile's lse · log2 e and delta ·
+//    sm_scale (so dS^T = P^T fma(dP^T, sm_scale, -delta · sm_scale)),
+//    which warp 1 of the producer warpgroup stages with plain loads
+//    (a box of one head's [B, S, H] rows is 4·H bytes apart, which TMA
+//    cannot box) and marks with 32 arrivals on the tile's barrier. Per
+//    tile: S^T = K·Q^T and dP^T = V·dO^T, P^T and dS^T = P^T (dP^T -
+//    delta) sm_scale, then dv += round(P^T)·dO and dk += round(dS^T)·Q with
+//    dO and Q read MN-major. At head dim 64 the dv product is issued
+//    before dS^T is computed; at 128 both wait for dS^T, which keeps the
+//    consumers' peak at 64 + 64 accumulators + 32 + 32 scores a thread.
+//    Causal walks start at the first query tile that sees the item's keys;
+//    the longest items are the first key tiles.
+// Where trouble was expected, and what the kernels do about it:
+//  1. lse and delta: registers per item in dq; staged per tile in dkv (see
+//     above), in the column layout of S^T (thread t of a warp reads
+//     columns 8j + 2t + e as one float2).
+//  2. Registers: the walked tile stays at 64 rows in dkv, so a consumer
+//     holds at most 192 fp32 values (head dim 128), under the 232 that
+//     setmaxnreg grants.
+//  3. Shared memory at head dim 128: dkv keeps K and V double-buffered (128
+//     KB) and takes three ring stages (96 KB): 232,040 bytes with the
+//     alignment slack; dq takes three K/V stages.
+//  4. Ragged edges: only the tiles on the causal diagonal or past S or T
+//     mask, explicitly by row and key index (a zero-filled row of dkv
+//     would otherwise read lse = 0 and give p = 1; a zero-filled key of dq
+//     an unbounded p for an empty row).
+//  5. One tile in flight per warpgroup: S and dP are separate commit
+//     groups, in dkv the dv product overlaps dS^T (head dim 64), and each
+//     tile's last product is waited for only after the next tile's first
+//     two are issued (dq; dkv at head dim 64), so the tensor cores do not
+//     drain between tiles. Measured in turns on the H100 (PERF.md, "Tries"):
+//     the deferred wait gained 2% in dkv and nothing in dq; one multiply
+//     less per score (sm_scale folded into p, delta) 7% in dq; descriptors
+//     as the tile's plus constants 2% in both. The two warpgroups issuing
+//     in turns (one's products over the other's exponentials) lost 20-30%
+//     through named barriers, which made ptxas spill, and through
+//     mbarriers moved dq by -2% and dkv by +3%: not kept. Nor were
+//     128-row walked tiles in dkv at head dim 64 (the same time).
+// fp32 inputs take plain FMA kernels (64-row tiles, 256 threads) so that
+// fp32 keeps full precision.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "attn_wgmma.cuh"
 #include "common.cuh"
 #include "flash.cuh"
+#include "hopper.cuh"
 
 namespace rtt {
 namespace {
@@ -61,306 +106,565 @@ struct DkvRows {
 };
 
 // ---------------------------------------------------------------------------
-// dq, bf16 tensor-core version.
+// bf16 on wgmma. Persistent: one block per SM, the forward's warp roles
+// (warpgroup 0 the producer, warpgroups 1 and 2 the consumers).
 
-// K and V tiles [64][KD + 8] bf16, two stages each.
-template <int KD>
-constexpr size_t dq_mma_smem_bytes() {
-  return 4 * (size_t)FL_TILE * (KD + 8) * sizeof(__nv_bfloat16);
+// The barriers are attn_wgmma.cuh's (`attn_setup`, no staging stages):
+// per item buffer (dq: Q and dO; dkv: K and V) full_a and a_empty; per
+// ring stage full_k (dq: the K tile's bytes; dkv: the Q tile's bytes and
+// the staging warp's 32 arrivals), full_v (dq: V; dkv: dO) and empty.
+
+// Release ring stage st: every consumer warp arrives once, after the
+// warpgroup's products that read the stage are done.
+__device__ __forceinline__ void release_now(const AttnBars& bar, int st) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar.empty + st);
 }
 
+// Release the stage `pend` held back for a product in flight (none: -1);
+// the caller has waited for that product.
+__device__ __forceinline__ void release_stage(const AttnBars& bar, int& pend) {
+  if (pend >= 0) release_now(bar, pend);
+  pend = -1;
+}
+
+// A warpgroup's fp32 accumulator (the wgmma layout: thread rows r0 and
+// r0 + 8, columns 8j + 2t + e) in bf16 at `out` (the warpgroup's row 0,
+// rows `row_stride` elements apart); rows at or past `rows` are not
+// written.
 template <int KD>
-__global__ void __launch_bounds__(FL_THREADS)
-    flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        __nv_bfloat16* __restrict__ dq, int S, int T, int H,
-                        DqRows st, int causal, float sm_scale) {
-  constexpr int KSTEPS = KD / 16;
-  constexpr int NT_S = FL_TILE / 8;
-  constexpr int NT_O = KD / 8;
-  constexpr int KP = KD + 8;
-  constexpr int TS = FL_TILE * KP;  // elements of one tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][TS]
-  __nv_bfloat16* v_s = k_s + 2 * TS;                                // [2][TS]
-
-  const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = tile * FL_TILE;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
+__device__ __forceinline__ void store_acc(const float (&a)[KD / 2],
+                                          __nv_bfloat16* out,
+                                          long long row_stride, int rows) {
+  const int tid = threadIdx.x & 127;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int rows = min(FL_TILE, S - q0);
-  const __nv_bfloat16* kb = k + b * st.k.b + h * st.k.h;
-  const __nv_bfloat16* vb = v + b * st.v.b + h * st.v.h;
-
-  // The first K/V tile starts loading before anything else.
-  const int kv_end = causal ? min(T, q0 + rows) : T;
-  const int n_kt = (kv_end + FL_TILE - 1) / FL_TILE;
-  if (n_kt > 0) {
-    load_tile_async<KD>(k_s, kb, st.k.s, 0, kv_end, tid, FL_THREADS);
-    load_tile_async<KD>(v_s, vb, st.v.s, 0, kv_end, tid, FL_THREADS);
-  }
-  cp_async_commit();
-
-  const int r0 = warp * 16 + g;
-  const int r1 = r0 + 8;
-  const int qpos0 = q0 + r0;
-  const int qpos1 = q0 + r1;
-  const bool in0 = r0 < rows;
-  const bool in1 = r1 < rows;
-
-  // Q and dO fragments in registers for the whole key walk; rows past S are 0.
-  uint32_t qa[KSTEPS][4];
-  uint32_t da[KSTEPS][4];
-  {
-    const __nv_bfloat16* qb = q + b * st.q.b + h * st.q.h;
-    const __nv_bfloat16* db = dout + b * st.dout.b + h * st.dout.h;
-    const uint32_t* q0p =
-        reinterpret_cast<const uint32_t*>(qb + (in0 ? qpos0 : 0) * st.q.s);
-    const uint32_t* q1p =
-        reinterpret_cast<const uint32_t*>(qb + (in1 ? qpos1 : 0) * st.q.s);
-    const uint32_t* d0p = reinterpret_cast<const uint32_t*>(
-        db + (in0 ? qpos0 : 0) * st.dout.s);
-    const uint32_t* d1p = reinterpret_cast<const uint32_t*>(
-        db + (in1 ? qpos1 : 0) * st.dout.s);
+  const int r0 = (tid >> 5) * 16 + (lane >> 2);
+  const int t2 = 2 * (lane & 3);
 #pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
-      const int w = (ks * 16 + 2 * t4) / 2;
-      qa[ks][0] = in0 ? q0p[w] : 0u;
-      qa[ks][1] = in1 ? q1p[w] : 0u;
-      qa[ks][2] = in0 ? q0p[w + 4] : 0u;
-      qa[ks][3] = in1 ? q1p[w + 4] : 0u;
-      da[ks][0] = in0 ? d0p[w] : 0u;
-      da[ks][1] = in1 ? d1p[w] : 0u;
-      da[ks][2] = in0 ? d0p[w + 4] : 0u;
-      da[ks][3] = in1 ? d1p[w + 4] : 0u;
-    }
+  for (int j = 0; j < KD / 8; ++j) {
+    const int col = 8 * j + t2;
+    if (r0 < rows)
+      *reinterpret_cast<uint32_t*>(out + r0 * row_stride + col) =
+          pack_bf16x2(a[4 * j], a[4 * j + 1]);
+    if (r0 + 8 < rows)
+      *reinterpret_cast<uint32_t*>(out + (r0 + 8) * row_stride + col) =
+          pack_bf16x2(a[4 * j + 2], a[4 * j + 3]);
   }
-  const long long row0_at = ((long long)b * S + qpos0) * H + h;
-  const long long row1_at = ((long long)b * S + qpos1) * H + h;
-  const float lse0 = in0 ? lse[row0_at] : 0.f;
-  const float lse1 = in1 ? lse[row1_at] : 0.f;
-  const float dl0 = in0 ? delta[row0_at] : 0.f;
-  const float dl1 = in1 ? delta[row1_at] : 0.f;
+}
 
-  float acc[NT_O][4];
+// d (+)= A·B^T over KD columns, A (64 rows) and B (N rows) both K-major
+// 128-byte-swizzled tiles in column boxes of 64, A_ROWS and B_ROWS rows a
+// box: S = Q·K^T, dP = dO·V^T and their transposes in dkv. One commit
+// group. Each k-step's descriptor is the tile's plus a constant: the
+// start address is the descriptor's low field, in 16-byte units.
+template <int KD, int A_ROWS, int B_ROWS, int R>
+__device__ __forceinline__ void wgmma_abt(float (&d)[R], uint32_t a_addr,
+                                          uint32_t b_addr) {
+  const uint64_t da = sw128_desc(a_addr, 16, 1024);
+  const uint64_t db = sw128_desc(b_addr, 16, 1024);
 #pragma unroll
-  for (int n = 0; n < NT_O; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int ks = 0; ks < KD / 16; ++ks)
+    wgmma_ss(d, da + ((ks >> 2) * A_ROWS * 128 + (ks & 3) * 32) / 16,
+             db + ((ks >> 2) * B_ROWS * 128 + (ks & 3) * 32) / 16, ks > 0);
+  wgmma_commit();
+}
 
-  const int warp_last_qpos = q0 + warp * 16 + 15;
+// d += A·B for A in register fragments (N16 k-steps of 16) and B an
+// MN-major tile of N16 · 16 rows (dq: K; dkv: dO and Q) at b_addr. No
+// commit: the caller groups the products.
+template <int N16, int R>
+__device__ __forceinline__ void wgmma_ab(float (&d)[R],
+                                         const uint32_t (&a)[N16][4],
+                                         uint32_t b_addr) {
+  const uint64_t db = sw128_desc(b_addr, N16 * 16 * 128, 1024);
+#pragma unroll
+  for (int kk = 0; kk < N16; ++kk)
+    wgmma_rs(d, a[kk], db + kk * 16 * 128 / 16, 1);
+}
 
+// ------------------------------------------------------------------- dq
+
+template <int KD>
+struct DqCfg {
+  static_assert(KD == 64 || KD == 128, "head dim 64 or 128");
+  static constexpr int BN = KD == 64 ? 128 : 64;  // keys per tile (key_tile)
+  static constexpr int NBOX = KD / 64;
+  static constexpr int ST = KD == 64 ? 4 : 3;     // K/V ring stages
+  static constexpr int Q_BYTES = ATT_BM * KD * 2;  // Q (or dO) of one item
+  static constexpr int KV_BYTES = BN * KD * 2;     // one K or V tile
+  static constexpr int OFF_Q = 0;                  // [2 buffers]
+  static constexpr int OFF_DO = OFF_Q + 2 * Q_BYTES;
+  static constexpr int OFF_K = OFF_DO + 2 * Q_BYTES;  // [ST stages]
+  static constexpr int OFF_V = OFF_K + ST * KV_BYTES;
+  static constexpr int OFF_BAR = OFF_V + ST * KV_BYTES;
+  static constexpr int SMEM = OFF_BAR + 8 * (4 + 3 * ST) + 1024;
+  static_assert(SMEM <= 232448, "more shared memory than a block may have");
+};
+
+// One consumer warpgroup's walk over an item's n_kt K/V tiles (the block's
+// tiles g0, g0 + 1, ...), its Q and dO in buffer qb. Row r (warpgroup-
+// local) sees key t when t < kv_lim and t <= qpos0 + r; l2 and dl are the
+// lse · log2 e - log2 sm_scale and delta of this thread's rows r0 and
+// r0 + 8.
+template <int KD>
+__device__ __forceinline__ void dq_mainloop(unsigned char* base, int qb,
+                                            const AttnBars& bar, int wg,
+                                            int g0, int n_kt, int kv_lim,
+                                            int qpos0, float c,
+                                            const float (&l2)[2],
+                                            const float (&dl)[2],
+                                            float (&acc)[KD / 2]) {
+  using Cfg = DqCfg<KD>;
+  constexpr int BN = Cfg::BN;
+  constexpr int NS = BN / 2;
+  const int tid = threadIdx.x & 127;
+  const int lane = tid & 31;
+  const int r0 = (tid >> 5) * 16 + (lane >> 2);
+  const int t2 = 2 * (lane & 3);
+  const uint32_t q_addr =
+      smem_u32(base + Cfg::OFF_Q + qb * Cfg::Q_BYTES) + wg * 64 * 128;
+  const uint32_t d_addr =
+      smem_u32(base + Cfg::OFF_DO + qb * Cfg::Q_BYTES) + wg * 64 * 128;
+  const int lim_base0 = min(kv_lim - 1, qpos0 + r0);
+  const int lim_base1 = min(kv_lim - 1, qpos0 + r0 + 8);
+  int pend = -1;  // the stage whose dq product is still in flight
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int key0 = kt * FL_TILE;
-    const __nv_bfloat16* kt_s = k_s + (kt & 1) * TS;
-    const __nv_bfloat16* vt_s = v_s + (kt & 1) * TS;
-    if (kt + 1 < n_kt) {  // the next tile into the other stage
-      load_tile_async<KD>(k_s + ((kt + 1) & 1) * TS, kb, st.k.s,
-                          key0 + FL_TILE, kv_end, tid, FL_THREADS);
-      load_tile_async<KD>(v_s + ((kt + 1) & 1) * TS, vb, st.v.s,
-                          key0 + FL_TILE, kv_end, tid, FL_THREADS);
+    const int st = (g0 + kt) % Cfg::ST;
+    const uint32_t ph = ((g0 + kt) / Cfg::ST) & 1;
+    const int key0 = kt * BN;
+    const uint32_t k_addr = smem_u32(base + Cfg::OFF_K + st * Cfg::KV_BYTES);
+    const uint32_t v_addr = smem_u32(base + Cfg::OFF_V + st * Cfg::KV_BYTES);
+    mbar_wait(bar.full_k + st, ph);
+    mbar_wait(bar.full_v + st, ph);
+    if (key0 <= qpos0 + 63) {
+      float s[NS], dp[NS];
+      wgmma_fence();
+      wgmma_abt<KD, ATT_BM, BN>(s, q_addr, k_addr);
+      wgmma_abt<KD, ATT_BM, BN>(dp, d_addr, v_addr);
+      wgmma_wait<1>();  // S, and the previous tile's dq product
+      fence_regs(s);
+      release_stage(bar, pend);
+      // p while dP is on the tensor cores; masked only on edge tiles.
+      const bool edge = key0 + BN > kv_lim || key0 + BN - 1 > qpos0;
+      const int lim0 = lim_base0 - key0;
+      const int lim1 = lim_base1 - key0;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float p0 = exp2_sfu(fmaf(s[4 * j + e], c, -l2[0]));
+          float p1 = exp2_sfu(fmaf(s[4 * j + 2 + e], c, -l2[1]));
+          if (edge) {
+            const int col = 8 * j + t2 + e;
+            if (col > lim0) p0 = 0.f;
+            if (col > lim1) p1 = 0.f;
+          }
+          s[4 * j + e] = p0;
+          s[4 * j + 2 + e] = p1;
+        }
+      wgmma_wait<0>();
+      fence_regs(dp);
+      // ds = p (dp - delta) sm_scale (sm_scale is in p: l2 holds its
+      // log2), rounded to bf16 as A fragments: k-step kk covers keys
+      // 16kk .. 16kk + 15, fragment q the columns of j = 2kk + q / 2 in
+      // row half q % 2.
+      uint32_t da[BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = 8 * kk + 2 * q;
+          const float d = dl[q & 1];
+          da[kk][q] =
+              pack_bf16x2(s[i] * (dp[i] - d), s[i + 1] * (dp[i + 1] - d));
+        }
+      fence_regs(acc);
+      wgmma_fence();
+      wgmma_ab(acc, da, k_addr);
+      wgmma_commit();
+      pend = st;  // released once the product is done, next tile or below
+    } else {
+      release_now(bar, st);
     }
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile's group is complete
-    __syncthreads();
-    // A warp whose rows all precede this tile's keys skips its math.
-    if (!causal || key0 <= warp_last_qpos) {
-      float s[NT_S][4];
-      float dp[NT_S][4];
-#pragma unroll
-      for (int n = 0; n < NT_S; ++n) {
-        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-        dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-      }
-      warp_abt_reg<KD>(s, qa, kt_s, lane);
-      warp_abt_reg<KD>(dp, da, vt_s, lane);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  release_stage(bar, pend);
+}
 
-      // ds in place of s.
+template <int KD>
+__global__ void __launch_bounds__(ATT_THREADS, 1)
+    flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const __grid_constant__ CUtensorMap dmap,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int B, int S,
+                          int T, int H, Rows dst, int causal, float c,
+                          float scale) {
+  using Cfg = DqCfg<KD>;
+  constexpr int BN = Cfg::BN;
+  extern __shared__ unsigned char smem_raw[];
+  const int n_qt = (S + ATT_BM - 1) / ATT_BM;
+  const int n_items = n_qt * H * B;
+  AttnBars bar;
+  unsigned char* base = attn_setup<Cfg::ST>(smem_raw, Cfg::OFF_BAR, 1, bar);
+
+  if (threadIdx.x < WG_THREADS) {
+    regs_dec<ATT_PRODUCER_REGS>();
+    if (threadIdx.x != 0) return;
+    int g = 0, jq = 0;
+    for (int k = 0;; ++k) {
+      const int item = attn_item(k);
+      if (item >= n_items) break;
+      const QueryItem it = query_item<BN>(item, n_qt, S, T, H, B, causal);
+      if (it.n_kt == 0) continue;
+      const int qb = jq & 1;
+      mbar_wait(bar.a_empty + qb, ((jq >> 1) & 1) ^ 1);
+      mbar_expect_tx(bar.full_a + qb, 2 * Cfg::Q_BYTES);
 #pragma unroll
-      for (int n = 0; n < NT_S; ++n) {
+      for (int cb = 0; cb < Cfg::NBOX; ++cb) {
+        const int off = qb * Cfg::Q_BYTES + cb * ATT_BM * 128;
+        tma_load_4d(base + Cfg::OFF_Q + off, &qmap, bar.full_a + qb, cb * 64,
+                    it.h, it.q0, it.b);
+        tma_load_4d(base + Cfg::OFF_DO + off, &dmap, bar.full_a + qb,
+                    cb * 64, it.h, it.q0, it.b);
+      }
+      ++jq;
+      for (int kt = 0; kt < it.n_kt; ++kt, ++g) {
+        const int st = g % Cfg::ST;
+        mbar_wait(bar.empty + st, ((g / Cfg::ST) & 1) ^ 1);
+        unsigned char* kd = base + Cfg::OFF_K + st * Cfg::KV_BYTES;
+        unsigned char* vd = base + Cfg::OFF_V + st * Cfg::KV_BYTES;
+        mbar_expect_tx(bar.full_k + st, Cfg::KV_BYTES);
+        mbar_expect_tx(bar.full_v + st, Cfg::KV_BYTES);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key0 + n * 8 + 2 * t4 + (e & 1);
-          const bool upper = e < 2;
-          const bool ok = (upper ? in0 : in1) && key < T &&
-                          (!causal || key <= (upper ? qpos0 : qpos1));
-          const float p =
-              ok ? __expf(s[n][e] * sm_scale - (upper ? lse0 : lse1)) : 0.f;
-          s[n][e] = p * (dp[n][e] - (upper ? dl0 : dl1)) * sm_scale;
+        for (int cb = 0; cb < Cfg::NBOX; ++cb) {
+          tma_load_4d(kd + cb * BN * 128, &kmap, bar.full_k + st, cb * 64,
+                      it.h, kt * BN, it.b);
+          tma_load_4d(vd + cb * BN * 128, &vmap, bar.full_v + st, cb * 64,
+                      it.h, kt * BN, it.b);
         }
       }
-      uint32_t dsa[FL_TILE / 16][4];
-      pack_a(dsa, s);  // ds rounded to bf16 before ds K
-      warp_pv<KD>(acc, dsa, kt_s, lane);
     }
-    __syncthreads();  // every warp is done with this stage
-  }
-
-  __nv_bfloat16* out = dq + b * st.dq.b + h * st.dq.h;
+  } else {
+    regs_inc<ATT_CONSUMER_REGS>();
+    const int wg = threadIdx.x / WG_THREADS - 1;
+    const int tid = threadIdx.x & 127;
+    const int lane = tid & 31;
+    const int r0 = (tid >> 5) * 16 + (lane >> 2);
+    const float log2_scale = log2f(scale);
+    int g = 0, jq = 0;
+    for (int k = 0;; ++k) {
+      const int item = attn_item(k);
+      if (item >= n_items) break;
+      const QueryItem it = query_item<BN>(item, n_qt, S, T, H, B, causal);
+      const int qw = it.q0 + wg * 64;  // the warpgroup's first row
+      float acc[KD / 2];
 #pragma unroll
-  for (int n = 0; n < NT_O; ++n) {
-    const int col = n * 8 + 2 * t4;
-    if (in0)
-      *reinterpret_cast<uint32_t*>(out + qpos0 * st.dq.s + col) =
-          pack_bf16x2(acc[n][0], acc[n][1]);
-    if (in1)
-      *reinterpret_cast<uint32_t*>(out + qpos1 * st.dq.s + col) =
-          pack_bf16x2(acc[n][2], acc[n][3]);
+      for (int i = 0; i < KD / 2; ++i) acc[i] = 0.f;
+      if (it.n_kt > 0) {  // T = 0: no key, dq = 0
+        float l2[2], dl[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = qw + r0 + 8 * h;
+          const long long at = ((long long)it.b * S + row) * H + it.h;
+          l2[h] = row < S ? lse[at] * LOG2E - log2_scale : 0.f;
+          dl[h] = row < S ? delta[at] : 0.f;
+        }
+        const int qb = jq & 1;
+        mbar_wait(bar.full_a + qb, (jq >> 1) & 1);
+        dq_mainloop<KD>(base, qb, bar, wg, g, it.n_kt, T,
+                        causal ? qw : ATT_NO_CAUSAL, c, l2, dl, acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar.a_empty + qb);
+        ++jq;
+        g += it.n_kt;
+      }
+      store_acc<KD>(acc, dq + it.b * dst.b + qw * dst.s + it.h * dst.h,
+                    dst.s, it.rows - wg * 64);
+    }
   }
 }
 
-// ---------------------------------------------------------------------------
-// dk and dv, bf16 tensor-core version.
+// ------------------------------------------------------------------ dkv
+
+// Keys per item (two warpgroups of 64) and query rows per walked tile: the
+// box rows of ops/attention.py `flash_dkv_plan`, checked at launch.
+constexpr int DKV_KEYS = 128;
+constexpr int DKV_ROWS = 64;
+constexpr int STAGE_WARP_ARRIVALS = 32;
 
 template <int KD>
-constexpr size_t dkv_mma_smem_bytes() {
-  // k and v tiles [64][KD + 8] bf16; q and dO tiles of the same shape and
-  // lse and delta [64] fp32, two stages each.
-  return 6 * (size_t)FL_TILE * (KD + 8) * sizeof(__nv_bfloat16) +
-         4 * FL_TILE * sizeof(float);
+struct DkvCfg {
+  static_assert(KD == 64 || KD == 128, "head dim 64 or 128");
+  static constexpr int NBOX = KD / 64;
+  static constexpr int ST = KD == 64 ? 4 : 3;        // Q/dO ring stages
+  static constexpr int KV_BYTES = DKV_KEYS * KD * 2;  // K (or V) of one item
+  static constexpr int Q_BYTES = DKV_ROWS * KD * 2;   // one Q or dO tile
+  static constexpr int OFF_K = 0;                     // [2 buffers]
+  static constexpr int OFF_V = OFF_K + 2 * KV_BYTES;
+  static constexpr int OFF_Q = OFF_V + 2 * KV_BYTES;  // [ST stages]
+  static constexpr int OFF_DO = OFF_Q + ST * Q_BYTES;
+  // [ST][lse · log2 e, delta · sm_scale][DKV_ROWS] fp32
+  static constexpr int OFF_ROW = OFF_DO + ST * Q_BYTES;
+  static constexpr int OFF_BAR = OFF_ROW + ST * 2 * DKV_ROWS * 4;
+  static constexpr int SMEM = OFF_BAR + 8 * (4 + 3 * ST) + 1024;
+  static_assert(SMEM <= 232448, "more shared memory than a block may have");
+};
+
+// Work item `item`: a tile of DKV_KEYS keys of one (head, batch), longest
+// first (the first key tiles, when causal), and its walk over the query
+// tiles first_qt .. n_qt - 1.
+struct DkvItem {
+  int key0, h, b, first_qt, n_walk;
+};
+
+__device__ __forceinline__ DkvItem dkv_item(int item, int n_qt, int H,
+                                            int B, int causal) {
+  DkvItem it;
+  const int rank = item / (H * B);
+  const int hb = item - rank * (H * B);
+  it.h = hb % H;
+  it.b = hb / H;
+  it.key0 = rank * DKV_KEYS;
+  it.first_qt = causal ? it.key0 / DKV_ROWS : 0;
+  it.n_walk = max(0, n_qt - it.first_qt);
+  return it;
 }
 
+// One consumer warpgroup's walk over an item's query tiles (the block's
+// ring tiles g0, g0 + 1, ...), its K and V in buffer kb; kw is the
+// warpgroup's first key. Accumulates dk (ak) and dv (av) of this thread's
+// keys kw + r0 and kw + r0 + 8.
 template <int KD>
-__global__ void __launch_bounds__(FL_THREADS)
-    flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int S, int T, int H,
-                         DkvRows st, int causal, float sm_scale) {
-  constexpr int NT_S = FL_TILE / 8;
-  constexpr int NT_O = KD / 8;
-  constexpr int KP = KD + 8;
-  constexpr int TS = FL_TILE * KP;  // elements of one tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* v_s = k_s + TS;
-  __nv_bfloat16* q_s = v_s + TS;      // [2][TS]
-  __nv_bfloat16* d_s = q_s + 2 * TS;  // [2][TS]
-  float* lse_s = reinterpret_cast<float*>(d_s + 2 * TS);  // [2][64]
-  float* dl_s = lse_s + 2 * FL_TILE;                      // [2][64]
-
-  const int key0 = blockIdx.x * FL_TILE;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
+__device__ __forceinline__ void dkv_mainloop(unsigned char* base, int kb,
+                                             const AttnBars& bar, int wg,
+                                             int g0, const DkvItem& it,
+                                             int kw, int S, int causal,
+                                             float c, float scale,
+                                             float (&ak)[KD / 2],
+                                             float (&av)[KD / 2]) {
+  using Cfg = DkvCfg<KD>;
+  constexpr int BQ = DKV_ROWS;
+  constexpr int NS = BQ / 2;
+  // Registers allow overlap at head dim 64 only: P^T's fragments stay
+  // live across the dv product, and the next tile's S^T and dP^T are
+  // issued before this tile's dk and dv products are waited for.
+  constexpr bool OVERLAP = KD == 64;
+  const int tid = threadIdx.x & 127;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const __nv_bfloat16* qb = q + b * st.q.b + h * st.q.h;
-  const __nv_bfloat16* db = dout + b * st.dout.b + h * st.dout.h;
-  const float* lse_b = lse + (long long)b * S * H + h;
-  const float* dl_b = delta + (long long)b * S * H + h;
-
-  const int n_qt = (S + FL_TILE - 1) / FL_TILE;
-  const int first_qt = causal ? key0 / FL_TILE : 0;
-  // Start loading query tile qt (Q, dO, lse, delta) into stage `stage`.
-  auto prefetch = [&](int qt, int stage) {
-    const int q0 = qt * FL_TILE;
-    load_tile_async<KD>(q_s + stage * TS, qb, st.q.s, q0, S, tid, FL_THREADS);
-    load_tile_async<KD>(d_s + stage * TS, db, st.dout.s, q0, S, tid,
-                        FL_THREADS);
-    for (int r = tid; r < FL_TILE; r += FL_THREADS) {
-      const bool ok = q0 + r < S;
-      const long long at = ok ? (long long)(q0 + r) * H : 0;
-      cp_async4(&lse_s[stage * FL_TILE + r], lse_b + at, ok);
-      cp_async4(&dl_s[stage * FL_TILE + r], dl_b + at, ok);
-    }
-  };
-
-  // K and V of this block's keys, and the first query tile, in one group.
-  load_tile_async<KD>(k_s, k + b * st.k.b + h * st.k.h, st.k.s, key0, T, tid,
-                      FL_THREADS);
-  load_tile_async<KD>(v_s, v + b * st.v.b + h * st.v.h, st.v.s, key0, T, tid,
-                      FL_THREADS);
-  if (first_qt < n_qt) prefetch(first_qt, 0);
-  cp_async_commit();
-
-  // This lane's two keys (fragment rows g and g + 8 of its warp).
-  const int key_a = key0 + warp * 16 + g;
+  const int r0 = (tid >> 5) * 16 + (lane >> 2);
+  const int t2 = 2 * (lane & 3);
+  const int key_a = kw + r0;
   const int key_b = key_a + 8;
-  float acc_k[NT_O][4];
-  float acc_v[NT_O][4];
+  const uint32_t k_addr =
+      smem_u32(base + Cfg::OFF_K + kb * Cfg::KV_BYTES) + wg * 64 * 128;
+  const uint32_t v_addr =
+      smem_u32(base + Cfg::OFF_V + kb * Cfg::KV_BYTES) + wg * 64 * 128;
+  int pend = -1;  // the stage whose dk and dv products are still in flight
+  for (int i = 0; i < it.n_walk; ++i) {
+    const int gi = g0 + i;
+    const int st = gi % Cfg::ST;
+    const uint32_t ph = (gi / Cfg::ST) & 1;
+    const int q0 = (it.first_qt + i) * BQ;
+    const uint32_t q_addr = smem_u32(base + Cfg::OFF_Q + st * Cfg::Q_BYTES);
+    const uint32_t d_addr = smem_u32(base + Cfg::OFF_DO + st * Cfg::Q_BYTES);
+    const float* rl =
+        reinterpret_cast<const float*>(base + Cfg::OFF_ROW) + st * 2 * BQ;
+    mbar_wait(bar.full_k + st, ph);
+    mbar_wait(bar.full_v + st, ph);
+    // Skip a tile whose rows all precede the warpgroup's keys.
+    if (!causal || kw <= q0 + BQ - 1) {
+      float s[NS], dp[NS];
+      wgmma_fence();
+      wgmma_abt<KD, DKV_KEYS, BQ>(s, k_addr, q_addr);
+      wgmma_abt<KD, DKV_KEYS, BQ>(dp, v_addr, d_addr);
+      wgmma_wait<1>();  // S^T, and the previous tile's dk and dv products
+      fence_regs(s);
+      release_stage(bar, pend);
+      // P^T: rows are keys, columns query rows q0 + 8j + t2 + e. Masked
+      // only on tiles past S or across the causal diagonal.
+      const bool edge = q0 + BQ > S || (causal && q0 < kw + 63);
 #pragma unroll
-  for (int n = 0; n < NT_O; ++n) {
-    acc_k[n][0] = acc_k[n][1] = acc_k[n][2] = acc_k[n][3] = 0.f;
-    acc_v[n][0] = acc_v[n][1] = acc_v[n][2] = acc_v[n][3] = 0.f;
-  }
-
-  const int warp_first_key = key0 + warp * 16;
-  for (int qt = first_qt; qt < n_qt; ++qt) {
-    const int stage = (qt - first_qt) & 1;
-    const int q0 = qt * FL_TILE;
-    const int rows = min(FL_TILE, S - q0);
-    if (qt + 1 < n_qt) prefetch(qt + 1, stage ^ 1);  // the other stage
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile's group is complete
-    __syncthreads();
-    const __nv_bfloat16* qt_s = q_s + stage * TS;
-    const __nv_bfloat16* dt_s = d_s + stage * TS;
-    const float* lt_s = lse_s + stage * FL_TILE;
-    const float* et_s = dl_s + stage * FL_TILE;
-    // A warp whose keys all follow this tile's rows skips its math.
-    if (!causal || warp_first_key <= q0 + rows - 1) {
-      float p[NT_S][4];   // S^T, then P^T: rows = this warp's keys
-      float ds[NT_S][4];  // dP^T, then dS^T
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(rl + 8 * j + t2);
 #pragma unroll
-      for (int n = 0; n < NT_S; ++n) {
-        p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
-        ds[n][0] = ds[n][1] = ds[n][2] = ds[n][3] = 0.f;
-      }
-      warp_abt<KD>(p, k_s, warp * 16, qt_s, lane);
-      warp_abt<KD>(ds, v_s, warp * 16, dt_s, lane);
+        for (int h = 0; h < 2; ++h) {
+          s[4 * j + 2 * h] = exp2_sfu(fmaf(s[4 * j + 2 * h], c, -l2.x));
+          s[4 * j + 2 * h + 1] = exp2_sfu(fmaf(s[4 * j + 2 * h + 1], c, -l2.y));
+        }
+        if (edge) {
 #pragma unroll
-      for (int n = 0; n < NT_S; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = n * 8 + 2 * t4 + (e & 1);  // query row in the tile
-          const int key = e < 2 ? key_a : key_b;
-          const bool ok = r < rows && key < T && (!causal || key <= q0 + r);
-          const float pv = ok ? __expf(p[n][e] * sm_scale - lt_s[r]) : 0.f;
-          p[n][e] = pv;
-          ds[n][e] = pv * (ds[n][e] - et_s[r]) * sm_scale;
+          for (int e = 0; e < 2; ++e) {
+            const int row = q0 + 8 * j + t2 + e;
+            const bool in = row < S;
+            if (!in || (causal && key_a > row)) s[4 * j + e] = 0.f;
+            if (!in || (causal && key_b > row)) s[4 * j + 2 + e] = 0.f;
+          }
         }
       }
-      uint32_t fa[FL_TILE / 16][4];
-      pack_a(fa, p);  // p rounded to dO's dtype for dv
-      warp_pv<KD>(acc_v, fa, dt_s, lane);
-      pack_a(fa, ds);  // ds rounded to the input dtype for dk
-      warp_pv<KD>(acc_k, fa, qt_s, lane);
-    }
-    __syncthreads();  // every warp is done with this stage
-  }
-  cp_async_wait<0>();  // K/V of a block with no query tile to visit
-
-  __nv_bfloat16* dkb = dk + b * st.dk.b + h * st.dk.h;
-  __nv_bfloat16* dvb = dv + b * st.dv.b + h * st.dv.h;
+      // round(P^T) as A fragments (the layout of dq's ds).
+      uint32_t pa[BQ / 16][4];
 #pragma unroll
-  for (int n = 0; n < NT_O; ++n) {
-    const int col = n * 8 + 2 * t4;
-    if (key_a < T) {
-      *reinterpret_cast<uint32_t*>(dkb + key_a * st.dk.s + col) =
-          pack_bf16x2(acc_k[n][0], acc_k[n][1]);
-      *reinterpret_cast<uint32_t*>(dvb + key_a * st.dv.s + col) =
-          pack_bf16x2(acc_v[n][0], acc_v[n][1]);
+      for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          pa[kk][q] = pack_bf16x2(s[8 * kk + 2 * q], s[8 * kk + 2 * q + 1]);
+      if constexpr (OVERLAP) {  // dv += P^T·dO while dS^T is computed
+        fence_regs(av);
+        wgmma_fence();
+        wgmma_ab(av, pa, d_addr);
+        wgmma_commit();
+        wgmma_wait<1>();  // dP^T
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_regs(dp);
+      uint32_t da[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i2 = 8 * kk + 2 * q;
+          const float2 d = *reinterpret_cast<const float2*>(
+              rl + BQ + 16 * kk + 8 * (q >> 1) + t2);
+          da[kk][q] = pack_bf16x2(s[i2] * fmaf(dp[i2], scale, -d.x),
+                                  s[i2 + 1] * fmaf(dp[i2 + 1], scale, -d.y));
+        }
+      fence_regs(ak);
+      wgmma_fence();
+      if constexpr (!OVERLAP) {
+        fence_regs(av);
+        wgmma_ab(av, pa, d_addr);
+      }
+      wgmma_ab(ak, da, q_addr);
+      wgmma_commit();
+      pend = st;  // released once the products are done
+      if constexpr (!OVERLAP) {
+        wgmma_wait<0>();
+        release_stage(bar, pend);
+      }
+    } else {
+      release_now(bar, st);
     }
-    if (key_b < T) {
-      *reinterpret_cast<uint32_t*>(dkb + key_b * st.dk.s + col) =
-          pack_bf16x2(acc_k[n][2], acc_k[n][3]);
-      *reinterpret_cast<uint32_t*>(dvb + key_b * st.dv.s + col) =
-          pack_bf16x2(acc_v[n][2], acc_v[n][3]);
+  }
+  wgmma_wait<0>();
+  fence_regs(av);
+  fence_regs(ak);
+  release_stage(bar, pend);
+}
+
+template <int KD>
+__global__ void __launch_bounds__(ATT_THREADS, 1)
+    flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           const __grid_constant__ CUtensorMap dmap,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int B, int S,
+                           int T, int H, Rows kst, Rows vst, int causal,
+                           float c, float scale) {
+  using Cfg = DkvCfg<KD>;
+  constexpr int BQ = DKV_ROWS;
+  extern __shared__ unsigned char smem_raw[];
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int n_items = (T + DKV_KEYS - 1) / DKV_KEYS * H * B;
+  AttnBars bar;
+  unsigned char* base = attn_setup<Cfg::ST>(
+      smem_raw, Cfg::OFF_BAR, 1 + STAGE_WARP_ARRIVALS, bar);
+
+  if (threadIdx.x < WG_THREADS) {
+    regs_dec<ATT_PRODUCER_REGS>();
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    if (warp == 0 && lane == 0) {  // TMA: K, V per item; Q, dO per tile
+      int g = 0, jk = 0;
+      for (int k = 0;; ++k) {
+        const int item = attn_item(k);
+        if (item >= n_items) break;
+        const DkvItem it = dkv_item(item, n_qt, H, B, causal);
+        if (it.n_walk == 0) continue;
+        const int kb = jk & 1;
+        mbar_wait(bar.a_empty + kb, ((jk >> 1) & 1) ^ 1);
+        mbar_expect_tx(bar.full_a + kb, 2 * Cfg::KV_BYTES);
+#pragma unroll
+        for (int cb = 0; cb < Cfg::NBOX; ++cb) {
+          const int off = kb * Cfg::KV_BYTES + cb * DKV_KEYS * 128;
+          tma_load_4d(base + Cfg::OFF_K + off, &kmap, bar.full_a + kb,
+                      cb * 64, it.h, it.key0, it.b);
+          tma_load_4d(base + Cfg::OFF_V + off, &vmap, bar.full_a + kb,
+                      cb * 64, it.h, it.key0, it.b);
+        }
+        ++jk;
+        for (int i = 0; i < it.n_walk; ++i, ++g) {
+          const int st = g % Cfg::ST;
+          const int q0 = (it.first_qt + i) * BQ;
+          mbar_wait(bar.empty + st, ((g / Cfg::ST) & 1) ^ 1);
+          mbar_expect_tx(bar.full_k + st, Cfg::Q_BYTES);
+          mbar_expect_tx(bar.full_v + st, Cfg::Q_BYTES);
+#pragma unroll
+          for (int cb = 0; cb < Cfg::NBOX; ++cb) {
+            const int off = st * Cfg::Q_BYTES + cb * BQ * 128;
+            tma_load_4d(base + Cfg::OFF_Q + off, &qmap, bar.full_k + st,
+                        cb * 64, it.h, q0, it.b);
+            tma_load_4d(base + Cfg::OFF_DO + off, &dmap, bar.full_v + st,
+                        cb * 64, it.h, q0, it.b);
+          }
+        }
+      }
+    } else if (warp == 1) {  // lse · log2 e, delta · sm_scale per tile
+      int g = 0;
+      for (int k = 0;; ++k) {
+        const int item = attn_item(k);
+        if (item >= n_items) break;
+        const DkvItem it = dkv_item(item, n_qt, H, B, causal);
+        for (int i = 0; i < it.n_walk; ++i, ++g) {
+          const int st = g % Cfg::ST;
+          const int q0 = (it.first_qt + i) * BQ;
+          float* rl = reinterpret_cast<float*>(base + Cfg::OFF_ROW) +
+                      st * 2 * BQ;
+          mbar_wait(bar.empty + st, ((g / Cfg::ST) & 1) ^ 1);
+          for (int r = lane; r < BQ; r += 32) {
+            const int row = q0 + r;
+            const long long at = ((long long)it.b * S + row) * H + it.h;
+            rl[r] = row < S ? lse[at] * LOG2E : 0.f;
+            rl[BQ + r] = row < S ? delta[at] * scale : 0.f;
+          }
+          mbar_arrive(bar.full_k + st);
+        }
+      }
+    }
+  } else {
+    regs_inc<ATT_CONSUMER_REGS>();
+    const int wg = threadIdx.x / WG_THREADS - 1;
+    const int lane = threadIdx.x & 31;
+    int g = 0, jk = 0;
+    for (int k = 0;; ++k) {
+      const int item = attn_item(k);
+      if (item >= n_items) break;
+      const DkvItem it = dkv_item(item, n_qt, H, B, causal);
+      const int kw = it.key0 + wg * 64;  // the warpgroup's first key
+      float ak[KD / 2], av[KD / 2];
+#pragma unroll
+      for (int i = 0; i < KD / 2; ++i) ak[i] = av[i] = 0.f;
+      if (it.n_walk > 0) {  // no query row sees these keys: dk = dv = 0
+        const int kb = jk & 1;
+        mbar_wait(bar.full_a + kb, (jk >> 1) & 1);
+        dkv_mainloop<KD>(base, kb, bar, wg, g, it, kw, S, causal, c, scale,
+                         ak, av);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar.a_empty + kb);
+        ++jk;
+        g += it.n_walk;
+      }
+      store_acc<KD>(ak, dk + it.b * kst.b + kw * kst.s + it.h * kst.h, kst.s,
+                    T - kw);
+      store_acc<KD>(av, dv + it.b * vst.b + kw * vst.s + it.h * vst.h, vst.s,
+                    T - kw);
     }
   }
 }
@@ -579,21 +883,35 @@ template <int KD>
 cudaError_t launch_dq(int dtype, const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dq, int B, int S, int T, int H, const DqRows& st,
-                      int causal, float sm_scale, cudaStream_t stream) {
-  const dim3 grid((S + FL_TILE - 1) / FL_TILE, H, B);
+                      int causal, float sm_scale, const long long* maps,
+                      cudaStream_t stream) {
   if (dtype == DTYPE_BF16) {
-    const size_t smem = dq_mma_smem_bytes<KD>();
-    cudaError_t e = allow_smem(flash_dq_mma_kernel<KD>, smem);
+    constexpr int BN = DqCfg<KD>::BN;
+    const int rows[4] = {ATT_BM, BN, BN, ATT_BM};  // q, k, v, dO
+    if (maps == nullptr || !tile_boxes_are(maps, rows, 4))
+      return cudaErrorInvalidValue;
+    CUtensorMap qm, km, vm, dm;
+    cudaError_t e = encode_tmap(&qm, q, maps);
+    if (e == cudaSuccess) e = encode_tmap(&dm, dout, maps + 3 * TMAP_WORDS);
+    // T = 0: no key tile is ever loaded, and no map of k or v is encoded.
+    if (e == cudaSuccess && T > 0) e = encode_tmap(&km, k, maps + TMAP_WORDS);
+    if (e == cudaSuccess && T > 0)
+      e = encode_tmap(&vm, v, maps + 2 * TMAP_WORDS);
     if (e != cudaSuccess) return e;
-    flash_dq_mma_kernel<KD><<<grid, FL_THREADS, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<const __nv_bfloat16*>(dout), lse, delta,
-        static_cast<__nv_bfloat16*>(dq), S, T, H, st, causal, sm_scale);
+    if (T == 0) km = vm = qm;
+    const int smem = DqCfg<KD>::SMEM;
+    e = allow_smem(flash_dq_wgmma_kernel<KD>, smem);
+    int grid = 0;
+    if (e == cudaSuccess)
+      e = attn_grid((S + ATT_BM - 1) / ATT_BM * H * B, &grid);
+    if (e != cudaSuccess) return e;
+    flash_dq_wgmma_kernel<KD><<<grid, ATT_THREADS, smem, stream>>>(
+        qm, km, vm, dm, lse, delta, static_cast<__nv_bfloat16*>(dq), B, S, T,
+        H, st.dq, causal, sm_scale * LOG2E, sm_scale);
     return cudaGetLastError();
   }
   if (dtype != DTYPE_F32) return cudaErrorInvalidValue;
+  const dim3 grid((S + FL_TILE - 1) / FL_TILE, H, B);
   const size_t smem = dq_f32_smem_bytes<KD>();
   cudaError_t e = allow_smem(flash_dq_f32_kernel<KD>, smem);
   if (e != cudaSuccess) return e;
@@ -609,22 +927,34 @@ cudaError_t launch_dkv(int dtype, const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        void* dk, void* dv, int B, int S, int T, int H,
                        const DkvRows& st, int causal, float sm_scale,
-                       cudaStream_t stream) {
-  const dim3 grid((T + FL_TILE - 1) / FL_TILE, H, B);
+                       const long long* maps, cudaStream_t stream) {
   if (dtype == DTYPE_BF16) {
-    const size_t smem = dkv_mma_smem_bytes<KD>();
-    cudaError_t e = allow_smem(flash_dkv_mma_kernel<KD>, smem);
+    const int rows[4] = {DKV_ROWS, DKV_KEYS, DKV_KEYS, DKV_ROWS};
+    if (maps == nullptr || !tile_boxes_are(maps, rows, 4))
+      return cudaErrorInvalidValue;
+    CUtensorMap qm, km, vm, dm;
+    cudaError_t e = encode_tmap(&km, k, maps + TMAP_WORDS);
+    if (e == cudaSuccess) e = encode_tmap(&vm, v, maps + 2 * TMAP_WORDS);
+    // S = 0: no query tile is ever loaded, and no map of q or dO is encoded.
+    if (e == cudaSuccess && S > 0) e = encode_tmap(&qm, q, maps);
+    if (e == cudaSuccess && S > 0)
+      e = encode_tmap(&dm, dout, maps + 3 * TMAP_WORDS);
     if (e != cudaSuccess) return e;
-    flash_dkv_mma_kernel<KD><<<grid, FL_THREADS, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<const __nv_bfloat16*>(dout), lse, delta,
-        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S,
-        T, H, st, causal, sm_scale);
+    if (S == 0) qm = dm = km;
+    const int smem = DkvCfg<KD>::SMEM;
+    e = allow_smem(flash_dkv_wgmma_kernel<KD>, smem);
+    int grid = 0;
+    if (e == cudaSuccess)
+      e = attn_grid((T + DKV_KEYS - 1) / DKV_KEYS * H * B, &grid);
+    if (e != cudaSuccess) return e;
+    flash_dkv_wgmma_kernel<KD><<<grid, ATT_THREADS, smem, stream>>>(
+        qm, km, vm, dm, lse, delta, static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), B, S, T, H, st.dk, st.dv, causal,
+        sm_scale * LOG2E, sm_scale);
     return cudaGetLastError();
   }
   if (dtype != DTYPE_F32) return cudaErrorInvalidValue;
+  const dim3 grid((T + FL_TILE - 1) / FL_TILE, H, B);
   const size_t smem = dkv_f32_smem_bytes<KD>();
   cudaError_t e = allow_smem(flash_dkv_f32_kernel<KD>, smem);
   if (e != cudaSuccess) return e;
@@ -640,11 +970,14 @@ cudaError_t launch_dkv(int dtype, const void* q, const void* k, const void* v,
 }  // namespace rtt
 
 // strides: 15 element strides, (b, s, h) of q, k, v, dO and dq in order.
+// maps: bf16, the tensor maps of q, k, v and dO (4 x TMAP_WORDS numbers
+// from ops/attention.py `flash_dq_plan`); NULL for fp32.
 extern "C" int rtt_flash_dq(int dtype, const void* q, const void* k,
                             const void* v, const void* dout, const void* lse,
                             const void* delta, void* dq, int B, int S, int T,
                             int H, int K, const long long* strides, int causal,
-                            float sm_scale, void* stream) {
+                            float sm_scale, const long long* maps,
+                            void* stream) {
   if (B == 0 || S == 0 || H == 0) return (int)cudaSuccess;
   rtt::DqRows st;
   rtt::Rows* r[5] = {&st.q, &st.k, &st.v, &st.dout, &st.dq};
@@ -655,22 +988,25 @@ extern "C" int rtt_flash_dq(int dtype, const void* q, const void* k,
   switch (K) {
     case 64:
       return (int)rtt::launch_dq<64>(dtype, q, k, v, dout, l, d, dq, B, S, T,
-                                     H, st, causal, sm_scale, s);
+                                     H, st, causal, sm_scale, maps, s);
     case 128:
       return (int)rtt::launch_dq<128>(dtype, q, k, v, dout, l, d, dq, B, S, T,
-                                      H, st, causal, sm_scale, s);
+                                      H, st, causal, sm_scale, maps, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 // strides: 18 element strides, (b, s, h) of q, k, v, dO, dk and dv in order.
+// maps: bf16, the tensor maps of q, k, v and dO (4 x TMAP_WORDS numbers
+// from ops/attention.py `flash_dkv_plan`); NULL for fp32.
 extern "C" int rtt_flash_dkv(int dtype, const void* q, const void* k,
                              const void* v, const void* dout, const void* lse,
                              const void* delta, void* dk, void* dv, int B,
                              int S, int T, int H, int K,
                              const long long* strides, int causal,
-                             float sm_scale, void* stream) {
+                             float sm_scale, const long long* maps,
+                             void* stream) {
   if (B == 0 || T == 0 || H == 0) return (int)cudaSuccess;
   rtt::DkvRows st;
   rtt::Rows* r[6] = {&st.q, &st.k, &st.v, &st.dout, &st.dk, &st.dv};
@@ -681,10 +1017,10 @@ extern "C" int rtt_flash_dkv(int dtype, const void* q, const void* k,
   switch (K) {
     case 64:
       return (int)rtt::launch_dkv<64>(dtype, q, k, v, dout, l, d, dk, dv, B,
-                                      S, T, H, st, causal, sm_scale, s);
+                                      S, T, H, st, causal, sm_scale, maps, s);
     case 128:
       return (int)rtt::launch_dkv<128>(dtype, q, k, v, dout, l, d, dk, dv, B,
-                                       S, T, H, st, causal, sm_scale, s);
+                                       S, T, H, st, causal, sm_scale, maps, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -49,29 +49,6 @@ struct FwdRows {
 // ---------------------------------------------------------------------------
 // bf16 on wgmma (attn_wgmma.cuh). Persistent: one block per SM.
 
-// Work item `item` of the grid, longest first when causal: query tile,
-// head and batch, its rows and its key tiles.
-struct FwdItem {
-  int q0, rows, h, b, n_kt;
-};
-
-template <int BN>
-__device__ __forceinline__ FwdItem fwd_item(int item, int n_qt, int S,
-                                            int T, int H, int B,
-                                            int causal) {
-  FwdItem it;
-  const int rank = item / (H * B);
-  const int hb = item - rank * (H * B);
-  it.h = hb % H;
-  it.b = hb / H;
-  it.q0 = (causal ? n_qt - 1 - rank : rank) * ATT_BM;
-  it.rows = min(ATT_BM, S - it.q0);
-  // One past the last key any row of this tile may see.
-  const int kv_end = causal ? min(T, it.q0 + it.rows) : T;
-  it.n_kt = (kv_end + BN - 1) / BN;
-  return it;
-}
-
 template <int KD>
 __global__ void __launch_bounds__(ATT_THREADS, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -86,7 +63,7 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
   const int n_qt = (S + ATT_BM - 1) / ATT_BM;
   const int n_items = n_qt * H * B;
   AttnBars bar;
-  unsigned char* base = attn_setup<KD, false>(smem_raw, bar);
+  unsigned char* base = attn_setup<Cfg::KV_ST>(smem_raw, Cfg::OFF_BAR, 1, bar);
 
   if (threadIdx.x < WG_THREADS) {
     regs_dec<ATT_PRODUCER_REGS>();
@@ -95,15 +72,15 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
     for (int k = 0;; ++k) {
       const int item = attn_item(k);
       if (item >= n_items) break;
-      const FwdItem it = fwd_item<BN>(item, n_qt, S, T, H, B, causal);
+      const QueryItem it = query_item<BN>(item, n_qt, S, T, H, B, causal);
       if (it.n_kt == 0) continue;
       const int qb = jq & 1;
-      mbar_wait(bar.q_empty + qb, ((jq >> 1) & 1) ^ 1);
-      mbar_expect_tx(bar.full_q + qb, Cfg::Q_BYTES);
+      mbar_wait(bar.a_empty + qb, ((jq >> 1) & 1) ^ 1);
+      mbar_expect_tx(bar.full_a + qb, Cfg::Q_BYTES);
 #pragma unroll
       for (int cb = 0; cb < Cfg::NBOX; ++cb)
         tma_load_4d(attn_q<KD, false>(base, qb) + cb * ATT_BM * 128, &qmap,
-                    bar.full_q + qb, cb * 64, it.h, it.q0, it.b);
+                    bar.full_a + qb, cb * 64, it.h, it.q0, it.b);
       ++jq;
       for (int kt = 0; kt < it.n_kt; ++kt, ++g) {
         const int st = g % Cfg::KV_ST;
@@ -129,7 +106,7 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
     for (int k = 0;; ++k) {
       const int item = attn_item(k);
       if (item >= n_items) break;
-      const FwdItem it = fwd_item<BN>(item, n_qt, S, T, H, B, causal);
+      const QueryItem it = query_item<BN>(item, n_qt, S, T, H, B, causal);
       const int r0 = it.q0 + wg * 64;
       float acc[KD / 2], m2[2], l[2];
       if (it.n_kt == 0) {  // T = 0: no key, o = 0 and lse = -1e30
@@ -139,12 +116,12 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
         l[0] = l[1] = 0.f;
       } else {
         const int qb = jq & 1;
-        mbar_wait(bar.full_q + qb, (jq >> 1) & 1);
+        mbar_wait(bar.full_a + qb, (jq >> 1) & 1);
         attn_mainloop<KD, false>(base, attn_q<KD, false>(base, qb), bar, wg,
                                  g, it.n_kt, T,
                                  causal ? r0 : ATT_NO_CAUSAL, c, acc, m2, l);
         __syncwarp();
-        if (lane == 0) mbar_arrive(bar.q_empty + qb);
+        if (lane == 0) mbar_arrive(bar.a_empty + qb);
         ++jq;
         g += it.n_kt;
       }
@@ -295,7 +272,10 @@ cudaError_t launch_fwd(int dtype, const void* q, const void* k, const void* v,
                        const FwdRows& st, int causal, float sm_scale,
                        const long long* maps, cudaStream_t stream) {
   if (dtype == DTYPE_BF16) {
-    if (maps == nullptr) return cudaErrorInvalidValue;
+    constexpr int BN = AttnCfg<KD, false>::BN;
+    const int rows[3] = {ATT_BM, BN, BN};  // q, k, v
+    if (maps == nullptr || !tile_boxes_are(maps, rows, 3))
+      return cudaErrorInvalidValue;
     CUtensorMap qm, km, vm;
     cudaError_t e = encode_tmap(&qm, q, maps);
     // T = 0: no key tile is ever loaded, and no map of k or v is encoded.

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the attention kernels that run on
-// wgmma (flash_fwd.cu, paged_prefill.cu), as inline PTX: mbarriers, TMA tile
-// loads, warpgroup register reallocation, the wgmma shared-memory
-// descriptors and the m64nNk16 bf16 products; and, on the host, the encoding
-// of a TMA tensor map from the numbers the Python wrappers pass.
+// wgmma (flash_fwd.cu, flash_bwd.cu, paged_prefill.cu), as inline PTX:
+// mbarriers, TMA tile loads, warpgroup register reallocation, the wgmma
+// shared-memory descriptors and the m64nNk16 bf16 products; and, on the
+// host, the encoding of a TMA tensor map from the numbers the Python
+// wrappers pass.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a tile
 // of R rows and 64 bf16 columns is R rows of 128 bytes, and within each

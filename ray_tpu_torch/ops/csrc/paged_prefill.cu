@@ -627,7 +627,9 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
   const int n_items = n_qt * H * B;
   const long long row_stride = (long long)H * KD;
   AttnBars bar;
-  unsigned char* base = attn_setup<KD, QUANT>(smem_raw, bar);
+  // int8: the three widening warps arrive once each on full_k.
+  unsigned char* base = attn_setup<Cfg::KV_ST, Cfg::STG_ST>(
+      smem_raw, Cfg::OFF_BAR, QUANT ? ATT_WIDEN_THREADS / 32 : 1, bar);
 
   if (threadIdx.x < WG_THREADS) {
     regs_dec<ATT_PRODUCER_REGS>();
@@ -641,12 +643,12 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
                                                 offsets, lengths);
         if (it.n_kt == 0) continue;
         const int qb = jq & 1;
-        mbar_wait(bar.q_empty + qb, ((jq >> 1) & 1) ^ 1);
-        mbar_expect_tx(bar.full_q + qb, Cfg::Q_BYTES);
+        mbar_wait(bar.a_empty + qb, ((jq >> 1) & 1) ^ 1);
+        mbar_expect_tx(bar.full_a + qb, Cfg::Q_BYTES);
 #pragma unroll
         for (int cb = 0; cb < Cfg::NBOX; ++cb)
           tma_load_4d(attn_q<KD, QUANT>(base, qb) + cb * ATT_BM * 128, &qmap,
-                      bar.full_q + qb, cb * 64, it.h, it.q0, it.b);
+                      bar.full_a + qb, cb * 64, it.h, it.q0, it.b);
         ++jq;
         const int* trow = tables + (long long)it.b * n_pg;
         for (int kt = 0; kt < it.n_kt; ++kt, ++g) {
@@ -724,14 +726,14 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
         l[0] = l[1] = 0.f;
       } else {
         const int qb = jq & 1;
-        mbar_wait(bar.full_q + qb, (jq >> 1) & 1);
+        mbar_wait(bar.full_a + qb, (jq >> 1) & 1);
         // int8: c is in each key's K scale.
         attn_mainloop<KD, QUANT>(base, attn_q<KD, QUANT>(base, qb), bar, wg,
                                  g, it.n_kt, it.kv_lim,
                                  it.off + it.q0 + wg * 64, QUANT ? 1.f : c,
                                  acc, m2, l);
         __syncwarp();
-        if (lane == 0) mbar_arrive(bar.q_empty + qb);
+        if (lane == 0) mbar_arrive(bar.a_empty + qb);
         ++jq;
         g += it.n_kt;
       }

@@ -3,7 +3,8 @@
 Each kernel against its plain PyTorch version on CUDA tensors (paged:
 ragged lengths, idle all-null slots, width-sliced prefill tables, a
 partial query tile, float pools and int8 pools with per-page scales;
-flash: forward, dq and dkv, causal and not, S != T, an lse cotangent;
+flash: forward, dq and dkv, causal and not, S != T, an lse cotangent,
+the bf16 kernels also at ragged S/T on packed qkv views;
 fp32 and bf16, the tensor-core head dims 64 and 128), the launch
 counters, the wrappers' refusals (no fallback to the plain path), the
 tiny engine with ``attn_impl="kernel"`` against ``"gather"`` on the
@@ -312,6 +313,83 @@ def test_flash_fwd_bf16_edges_and_strided_views(cuda, K, causal, S, T, packed):
     torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-4)
     s_abs = _flash_abs_sums(q, k, v, q, lse_ref, lse_ref, causal, scale)[0]
     _close(o, o_ref, torch.bfloat16, s_abs)
+
+
+@pytest.mark.parametrize("K", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,T", [(200, 333), (1, 64), (333, 200)])
+@pytest.mark.parametrize("packed", [False, True])
+def test_flash_bwd_bf16_edges_and_strided_views(cuda, K, causal, S, T,
+                                                packed):
+    """The bf16 dq and dkv kernels (wgmma, tensor maps over the views) at
+    ragged S and T, on contiguous tensors and on q, k, v taken as views of
+    packed [B, S, 3, H, K] tensors, with an lse cotangent: each gradient
+    keeps its input's layout and matches the plain version."""
+    rng = np.random.default_rng(12)
+    B, H = 2, 3
+    t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    if packed:
+        qkv_q, qkv_kv = t(B, S, 3, H, K), t(B, T, 3, H, K)
+        q, k, v = qkv_q[:, :, 0], qkv_kv[:, :, 1], qkv_kv[:, :, 2]
+    else:
+        q, k, v = t(B, S, H, K), t(B, T, H, K), t(B, T, H, K)
+    do = t(B, S, H, K)
+    dlse = t(B, S, H).float()
+    scale = K ** -0.5
+    o, lse = fa.reference_flash_fwd(q, k, v, causal, scale)
+    delta = fa.flash_delta(o, do, dlse)
+    dq = fa.flash_dq(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal, scale)
+    torch.cuda.synchronize()
+    assert (fa.flash_dq.launches, fa.flash_dkv.launches) == (1, 1)
+    like = lambda x: torch.empty_like(x).stride()
+    assert (dq.stride(), dk.stride(), dv.stride()) == (like(q), like(k),
+                                                       like(v))
+    refs = (fa.reference_flash_dq(q, k, v, do, lse, delta, causal, scale),
+            *fa.reference_flash_dkv(q, k, v, do, lse, delta, causal, scale))
+    sums = _flash_abs_sums(q, k, v, do, lse, delta, causal, scale)[1:]
+    for out, ref, s_abs in zip((dq, dk, dv), refs, sums):
+        assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+        _close(out, ref, torch.bfloat16, s_abs)
+
+
+@pytest.mark.parametrize("S,T", [(5, 0), (0, 70)])
+def test_flash_bwd_bf16_empty_side(cuda, S, T):
+    """No key (T = 0): dq = 0 from the dq kernel; no query row (S = 0):
+    dk = dv = 0 from the dkv kernel, whose items then walk no tile."""
+    B, H, K = 2, 3, 64
+    z = lambda n: torch.randn(B, n, H, K, device=cuda).to(torch.bfloat16)
+    q, k, v, do = z(S), z(T), z(T), z(S)
+    lse = torch.zeros(B, S, H, device=cuda)
+    dq = fa.flash_dq(q, k, v, do, lse, lse, True, 0.125)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, lse, True, 0.125)
+    torch.cuda.synchronize()
+    for out, ref in zip((dq, dk, dv), (q, k, v)):
+        assert out.shape == ref.shape and not out.float().abs().sum()
+
+
+@pytest.mark.parametrize("name,value,kernels", [
+    ("DKV_ROWS", 128, ("flash_dkv",)),
+    ("DKV_KEYS", 64, ("flash_dkv",)),
+    ("WGMMA_ROWS", 64, ("flash_fwd", "flash_dq")),
+])
+def test_flash_launchers_refuse_other_box_rows(cuda, monkeypatch, name,
+                                               value, kernels):
+    """The bf16 flash launchers hold the plan's box rows to their own tile
+    constants (expect_tx bytes, shared-memory offsets): a plan with other
+    rows is refused at launch, before any kernel runs."""
+    q, k, v, do = (torch.randn(1, 64, 2, 64, device=cuda).to(torch.bfloat16)
+                   for _ in range(4))
+    lse = torch.zeros(1, 64, 2, device=cuda)
+    calls = {"flash_fwd": lambda: fa.flash_fwd(q, k, v),
+             "flash_dq": lambda: fa.flash_dq(q, k, v, do, lse, lse),
+             "flash_dkv": lambda: fa.flash_dkv(q, k, v, do, lse, lse)}
+    monkeypatch.setattr(fa, name, value)
+    for kern in kernels:
+        with pytest.raises(RuntimeError, match=f"{kern} kernel launch"):
+            calls[kern]()
+        assert getattr(fa, kern).launches == 0
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

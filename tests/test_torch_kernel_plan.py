@@ -1,8 +1,9 @@
 """The host-side plan of the port's wgmma attention kernels, on the CPU.
 
-The bf16 flash forward and paged prefill kernels (``ops/csrc/
-attn_wgmma.cuh``) read their tiles by TMA from tensor maps that the
-wrappers describe in plain Python and pass through the C ABI: which
+The bf16 flash forward, dq and dkv kernels and the paged prefill kernel
+(``ops/csrc/attn_wgmma.cuh``, ``ops/csrc/flash_bwd.cu``) read their
+tiles by TMA from tensor maps that the wrappers describe in plain Python
+and pass through the C ABI: which
 kernel a (dtype, head dim, page size) takes, and each map's geometry
 (dims innermost first, byte strides, box, swizzle). These tests hold
 those numbers on CPU tensors; the kernels themselves run only on the card
@@ -151,9 +152,108 @@ def test_prefill_plan_int8_pool(ps, K):
     assert box == [K, 1, min(ps, pa.key_tile(K))]
 
 
+def _bwd_views(packed, B, S, T, H, K):
+    """q, k, v, dO: views of packed [B, S, 3, H, K] projections (q of
+    one, k and v of another, as the train step passes them) or dense."""
+    bf = dict(dtype=torch.bfloat16)
+    if packed:
+        qkv_q = torch.zeros(B, S, 3, H, K, **bf)
+        qkv_kv = torch.zeros(B, T, 3, H, K, **bf)
+        q, k, v = qkv_q[:, :, 0], qkv_kv[:, :, 1], qkv_kv[:, :, 2]
+    else:
+        q, k, v = (torch.zeros(B, n, H, K, **bf) for n in (S, T, T))
+    return q, k, v, torch.zeros(B, S, H, K, **bf)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("S,T", [(200, 333), (1, 64), (333, 200)])
+@pytest.mark.parametrize("K", [64, 128])
+def test_dq_plan(K, S, T, packed):
+    """dq is query-major: q and dO in boxes of 128 rows (an item), k and v
+    in boxes of a key tile, each map over its own view and strides."""
+    B, H = 2, 3
+    views = _bwd_views(packed, B, S, T, H, K)
+    maps = fa.flash_dq_plan(*views)
+    assert len(maps) == 4 * WORDS
+    rows = (pa.WGMMA_ROWS, pa.key_tile(K), pa.key_tile(K), pa.WGMMA_ROWS)
+    for i, (t, r) in enumerate(zip(views, rows)):
+        elem, rank, dims, strides, box, swz = _fields(
+            maps[i * WORDS:(i + 1) * WORDS])
+        assert (elem, rank, swz) == (2, 4, 128)
+        assert dims == [K, H, t.shape[1], B]
+        assert strides == [t.stride(2) * 2, t.stride(1) * 2, t.stride(0) * 2]
+        assert box == [64, 1, r, 1]
+    if packed:   # q, k, v read in place: the packed row is 3·H·K elements
+        assert views[0].stride(1) == 3 * H * K
+    # The forward's three maps are dq's first three.
+    assert maps[:3 * WORDS] == fa.flash_plan(*views[:3])
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("S,T", [(200, 333), (1, 64), (333, 200)])
+@pytest.mark.parametrize("K", [64, 128])
+def test_dkv_plan(K, S, T, packed):
+    """dkv is key-major: an item is DKV_KEYS keys (k, v boxes), the walked
+    tiles DKV_ROWS query rows (q, dO boxes); a head dim of 128 is two
+    64-column boxes."""
+    B, H = 2, 3
+    views = _bwd_views(packed, B, S, T, H, K)
+    maps = fa.flash_dkv_plan(*views)
+    assert len(maps) == 4 * WORDS
+    assert (fa.DKV_KEYS, fa.DKV_ROWS) == (128, 64)
+    rows = (fa.DKV_ROWS, fa.DKV_KEYS, fa.DKV_KEYS, fa.DKV_ROWS)
+    for i, (t, r) in enumerate(zip(views, rows)):
+        elem, rank, dims, strides, box, swz = _fields(
+            maps[i * WORDS:(i + 1) * WORDS])
+        assert dims == [K, H, t.shape[1], B]
+        assert strides == [t.stride(2) * 2, t.stride(1) * 2, t.stride(0) * 2]
+        assert box == [64, 1, r, 1] and 64 * pa.column_boxes(K) == K
+        assert swz == 128 and elem == 2
+
+
+@pytest.mark.parametrize("make", [
+    lambda: torch.zeros(2, 9, 3, 68, dtype=torch.bfloat16)[..., :64],
+    lambda: torch.zeros(2 * 9 * 3 * 64 + 1, dtype=torch.bfloat16)[
+        1:].view(2, 9, 3, 64),
+], ids=["row-stride-136-bytes", "base-2-bytes-off"])
+def test_bwd_plans_refuse_unaligned_do(make):
+    """dO is mapped like q: a view TMA cannot read raises (the wrapper's
+    `_kernel_operands` copies such a view to a contiguous one first)."""
+    q = torch.zeros(2, 9, 3, 64, dtype=torch.bfloat16)
+    for plan in (fa.flash_dq_plan, fa.flash_dkv_plan):
+        with pytest.raises(ValueError, match="16-byte"):
+            plan(q, q, q, make())
+    assert not fa._aligned(make())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_row_vectors_are_the_kernels_layout(dtype):
+    """lse and delta reach the kernels as contiguous fp32 [B, S, H]: row
+    s of head h of batch b at (b·S + s)·H + h, which dq reads per item
+    and dkv's staging warp per walked tile, whatever layout and dtype
+    the caller passed."""
+    B, S, H = 2, 37, 3
+    q = torch.zeros(B, S, H, 64, dtype=torch.bfloat16)
+    lse = torch.arange(B * H * S, dtype=torch.float32).view(B, H, S).to(
+        dtype).transpose(1, 2)                       # strided [B, S, H]
+    delta = torch.full((B, S, H), 0.5, dtype=dtype)
+    rl, rd = fa._row_vectors(q, lse, delta)
+    for r in (rl, rd):
+        assert r.dtype == torch.float32 and r.is_contiguous()
+        assert r.shape == (B, S, H) and r.stride() == (S * H, H, 1)
+    flat = rl.flatten()
+    b, s, h = 1, 20, 2
+    assert flat[(b * S + s) * H + h] == lse[b, s, h].float()
+    with pytest.raises(ValueError, match="row vector"):
+        fa._row_vectors(q, lse[:, :-1])
+
+
 def test_plan_words_cross_the_c_abi():
     """The flat list becomes a C long long array of 3 maps."""
     q = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
     arr = pa._c_array(fa.flash_plan(q, q, q))
     assert len(arr) == 3 * WORDS and list(arr) == fa.flash_plan(q, q, q)
     assert pa._addr(None) is None and pa._addr(arr) > 0
+    for plan in (fa.flash_dq_plan, fa.flash_dkv_plan):
+        arr = pa._c_array(plan(q, q, q, q))
+        assert len(arr) == 4 * WORDS and list(arr) == plan(q, q, q, q)

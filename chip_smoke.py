@@ -13,16 +13,20 @@ build/chip_smoke.json):
 2. build: every CUDA kernel compiled from ray_tpu_torch/ops/csrc for
    sm_90a (one nvcc per source, all started together), with the build
    seconds, and per kernel whether its SASS (cuobjdump) holds HGMMA,
-   UTMALDG and HMMA: every instance of the bf16 flash forward, dq and
-   dkv kernels and the paged prefill kernel (10 in all) must hold wgmma
-   and TMA loads and no mma.sync.
+   UTMALDG, HMMA and UBLKCP: every instance of the bf16 flash forward, dq
+   and dkv kernels and the paged prefill kernel (10 in all) must hold
+   wgmma and TMA loads and no mma.sync, and every instance of the paged
+   decode kernel (8) TMA loads.
 3. kernels: each kernel against its plain PyTorch version on the card at
    OPT-1.3B attention shapes (H=32, K=64), page sizes {16, 64}, fp32 and
    bf16, and at head dim 128; the ragged cases (length 1, mid-page, page
    boundary, full table, idle all-null slot; prefill C=256 and C=40 at
    ragged offsets, full and width-sliced tables) and the engine's own
    shapes (decode: 16 slots on a 2048-position table, lengths up to 2048;
-   prefill: 16-row dispatches of 256, most rows inert), the largest error
+   prefill: 16-row dispatches of 256, most rows inert); the decode's
+   split paths (one slot at 2048, the light-load view, lengths at the
+   split edges, past the table and 0, ps 8), each decode call repeated
+   for identical bits; the largest error
    printed beside its bound, long rows on their own; then each kernel,
    checked once more on the inputs it is timed on, timed (device time:
    `device_ms`, with CUDA events around calls as the host issues them
@@ -30,7 +34,9 @@ build/chip_smoke.json):
    its bound, its plain version's time and F.scaled_dot_product_attention
    on the gathered timeline (a yardstick only: the port never calls it;
    for prefill with a bool mask and with causal_lower_right, the faster
-   is ``library_ms``). Then bf16 prefill at page sizes 16, 32, 64, 128
+   is ``library_ms``), the decode also at light load (2 of 16 slots live
+   at 2048) and with the wrapper's host µs per call. Then bf16 prefill at
+   page sizes 16, 32, 64, 128
    (the wgmma kernel) and 48 (the mma.sync kernel, by the shape rule),
    chunks of C = 40, 72 and 200 at ragged offsets, float and int8 pools.
    Then the int8 programs of both paged kernels the same way, on int8
@@ -88,7 +94,8 @@ build/chip_smoke.json):
    recomputes each block's forward), step time, tokens/s, MFU, the steps'
    peak memory and the losses; then torch.profiler over one step.
 8. with --ab OLD_CHECKOUT: the flash forward, dq and dkv and the float
-   and int8 paged prefill against an older checkout's kernels, in turns.
+   and int8 paged prefill and decode (timed shape and light load, with
+   the wrapper's host µs) against an older checkout's kernels, in turns.
 9. the kernels line, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -247,9 +254,13 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
 # ------------------------------------------------------------------- build
 
 # The kernels that must be Hopper kernels: wgmma (HGMMA in the SASS) on
-# tiles brought in by TMA (UTMALDG), and no mma.sync (HMMA).
+# tiles brought in by TMA (UTMALDG), and no mma.sync (HMMA); and the paged
+# decode kernel, fed by TMA tensor loads as well (cuobjdump's UTMALDG; the
+# non-tensor bulk copy it tried first is UBLKCP on the H100 with CUDA 12.8).
 WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "paged_prefill_wgmma_kernel",
                  "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel")
+TMA_KERNELS = ("paged_decode_kernel",)
+TMA_INSTANCES = 8      # {fp32, bf16} pools and int8 with {fp32, bf16} q, K 64/128
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
 _MANGLED_ARGS = {"f": "float", "a": "int8", "13__nv_bfloat16": "bf16",
                  "Lb0E": "false", "Lb1E": "true"}
@@ -274,7 +285,8 @@ def kernel_name(sym: str) -> str:
 def sass_ops(lib_path) -> dict:
     """Per kernel of the built library, which of SASS_OPS its SASS holds
     (``cuobjdump -sass``, beside nvcc). Raises unless every instance of
-    WGMMA_KERNELS holds HGMMA and UTMALDG and no HMMA."""
+    WGMMA_KERNELS holds HGMMA and UTMALDG and no HMMA, and every one of the
+    TMA_INSTANCES instances of TMA_KERNELS holds UTMALDG."""
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
@@ -294,6 +306,12 @@ def sass_ops(lib_path) -> dict:
                               for v in hopper.values()):
         raise AssertionError(f"the wgmma kernels' SASS lacks HGMMA or "
                              f"UTMALDG, or holds HMMA: {hopper}")
+    decode = {fn: v for fn, v in ops.items()
+              if fn.split("<")[0] in TMA_KERNELS}
+    if len(decode) != TMA_INSTANCES or any("UTMALDG" not in v
+                                           for v in decode.values()):
+        raise AssertionError(f"the decode kernels' SASS lacks TMA loads "
+                             f"(UTMALDG): {decode}")
     return ops
 
 
@@ -325,16 +343,16 @@ def amplitude_rows(rng, n_pages, ps, heads, device):
 def paged_pool(rng, lengths, *, ps, n_pg, dtype, device, heads=(H, K),
                null_rows=(), quant=False):
     """K/V pools and a [B, n_pg] page table for slots of the given
-    lengths. Each slot gets the pages its length needs, drawn from a
+    lengths. Each slot gets the pages its length needs (a length past the
+    table, as an idle slot's cursor walks, fills it), drawn from a
     random permutation of the pool (the engine's pages are scattered);
     the rest of its row is the null page 0, and so is all of a row in
     null_rows (an idle slot, or a mid-prefill slot in a decode view).
     → (k_pool, v_pool, tables, lengths, scales): ``quant`` pools are int8
     from `amplitude_rows` with scales {"k_scale", "v_scale"}, float pools
     N(0, 1) in ``dtype`` with scales {}."""
-    need = [0 if b in null_rows else -(-int(n) // ps)
+    need = [0 if b in null_rows else min(-(-int(n) // ps), n_pg)
             for b, n in enumerate(lengths)]
-    assert max(need) <= n_pg, (need, n_pg)
     n_pages = sum(need) + 1
     if quant:
         kp, ks = int8_plane(amplitude_rows(rng, n_pages, ps, heads, device),
@@ -441,18 +459,41 @@ def check_decode(rng, tag, lengths, *, ps, n_pg, dtype, device, heads,
         np.float32)).to(device, dtype)
     args = [torch.from_numpy(a).to(device) for a in (tables, lengths)]
     out = pa.paged_attention(q, kp, vp, *args, **sc)
+    again = pa.paged_attention(q, kp, vp, *args, **sc)
     torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"decode {tag}: a repeat call gave other bits")
     ref = pa.reference_paged_attention(q, kp, vp, *args, **sc)
     s_abs = abs_v_attention(pa.reference_paged_attention, q, kp, vp, *args,
                             **sc)
-    live = torch.ones(len(lengths), dtype=torch.bool, device=device)
+    # A slot of length 0: zeros from the kernel (its l == 0 guard), the
+    # uniform average of V from the gather version, by definition.
+    live = args[1] > 0
+    if not torch.all(out[~live].float() == 0):
+        raise AssertionError(f"decode {tag}: a length-0 slot not zero")
     long = args[1] >= LONG_ROW
     res = check_close(f"decode {tag}", out, ref, s_abs, dtype, live, long)
     if quant and dtype == torch.bfloat16:
         res["p_unrounded"] = check_p_unrounded(
             f"decode {tag}", out, pa.reference_paged_attention(
                 q.float(), kp, vp, *args, **sc), ref, s_abs, live)
+    n_sm = pa._sm_count(device)
+    res["n_split"] = pa.decode_splits(len(lengths), heads[0], n_pg, n_sm)
+    res["n_parts"] = pa.decode_live_splits(
+        lengths, ps, n_pg, heads[0], res["n_split"],
+        pa.decode_stage_rows(heads[1], kp.element_size()), n_sm)
     return res
+
+
+def split_edge_lengths(n_split, ps):
+    """Seven slot lengths at the decode kernel's split edges on a CAP-
+    position table, for a grid of n_split splits per slot: n_split·ps·k
+    (on a page boundary that is a split's end when the slot uses all
+    n_split), one past and one short of it, n_split - 1 live pages, a
+    length past the table (an idle slot's cursor), 0, and 1 (the idle
+    slot on the null page: null_rows {6})."""
+    whole = n_split * ps * max(1, CAP // (n_split * ps))
+    return [whole, whole + 1, whole - 1, (n_split - 1) * ps, CAP + 100, 0, 1]
 
 
 def check_prefill(rng, tag, rows, C, *, ps, n_pg, width, dtype, device,
@@ -539,6 +580,18 @@ def phase_kernels(device, errs):
         record("paged_attention" + sfx, f"{tag} engine view B=16 n_pg={n_pg}",
                check_decode(rng, tag, lengths, n_pg=n_pg,
                             null_rows={14, 15}, **kw))
+        # The split paths: one slot at CAP (the most splits), the light-
+        # load view (2 of 16 slots live at CAP, 14 idle on the null page),
+        # and seven slots at the split edges (`split_edge_lengths`).
+        record("paged_attention" + sfx, f"{tag} B=1 at {CAP}", check_decode(
+            rng, tag, [CAP], n_pg=n_pg, **kw))
+        record("paged_attention" + sfx, f"{tag} light load", check_decode(
+            rng, tag, [CAP] * 2 + [1] * 14, n_pg=n_pg,
+            null_rows=set(range(2, 16)), **kw))
+        edges = split_edge_lengths(pa.decode_splits(
+            7, heads[0], n_pg, pa._sm_count(device)), ps)
+        record("paged_attention" + sfx, f"{tag} split edges {edges}",
+               check_decode(rng, tag, edges, n_pg=n_pg, null_rows={6}, **kw))
         # Prefill: chunk rows at ragged offsets against a 1536-token
         # table, full width and width-sliced; C=256 and C=40.
         n_pg = 1536 // ps
@@ -560,6 +613,15 @@ def phase_kernels(device, errs):
             ptag = f"{tag} engine dispatch 16x256 width={n_pg}"
             record("paged_prefill_attention" + sfx, ptag, check_prefill(
                 rng, ptag, rows, 256, n_pg=n_pg, width=n_pg, **kw))
+    # Decode at ps 8, below a stage's positions for every program (bf16
+    # 16, int8 32 at head dim 64), on the engine view's lengths.
+    for quant in (False, True):
+        lengths = [1, 5, 8, 9, 700, 1023, 1024, 1025, CAP - 1, CAP, 0, 1]
+        record("paged_attention" + ("_int8" if quant else ""),
+               f"ps=8 bfloat16 heads={H}x{K}{' int8 pool' if quant else ''}",
+               check_decode(rng, "ps=8", lengths, ps=8, n_pg=CAP // 8,
+                            dtype=torch.bfloat16, device=device,
+                            heads=(H, K), null_rows={10, 11}, quant=quant))
     # bf16 q at every page size the wgmma prefill kernel takes in boxes of
     # its own (16, 32: several pages per key tile; 64; 128: a page of two
     # key tiles at head dim 128) and at 48, which the mma.sync kernel
@@ -614,10 +676,107 @@ def sdpa_prefill(qp, kt, vt, off):
             "sdpa_lower_right_ms": lr_ms, "sdpa_lower_right_ms_events": lr_ev}
 
 
+def host_us(fn, n=200) -> float:
+    """The host's time per call of fn in µs, over n calls issued without a
+    synchronisation (the wrapper's Python, checks, allocations and
+    launches; the device runs behind)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+LIGHT_SLOTS, LIGHT_LIVE = 16, 2    # light load: 2 of the 16-slot view live
+
+
+def light_load_case(rng, device, *, quant):
+    """The engine's 16-slot decode view at light load, ps 64: slots 0 and
+    1 live at CAP positions (a full CAP-position table), the other 14 idle
+    on the null page (length 1), bf16 q. → (q, k_pool, v_pool, tables,
+    lengths, scales, live)"""
+    ps = 64
+    lengths = [CAP] * LIGHT_LIVE + [1] * (LIGHT_SLOTS - LIGHT_LIVE)
+    kp, vp, tables, lengths, sc = paged_pool(
+        rng, lengths, ps=ps, n_pg=CAP // ps, dtype=torch.bfloat16,
+        device=device, heads=(H, K),
+        null_rows=set(range(LIGHT_LIVE, LIGHT_SLOTS)), quant=quant)
+    q = torch.from_numpy(rng.normal(size=(LIGHT_SLOTS, H, K)).astype(
+        np.float32)).to(device, torch.bfloat16)
+    tables, lengths = (torch.from_numpy(a).to(device)
+                       for a in (tables, lengths))
+    live = torch.arange(LIGHT_SLOTS, device=device) < LIGHT_LIVE
+    return q, kp, vp, tables, lengths, sc, live
+
+
+def time_decode(tag, q, kp, vp, tables, lengths, sc, live):
+    """One decode shape: the kernel held to its plain version on every
+    slot (with bf16 q on an int8 pool also to the unrounded plain
+    version, which the p-rounded one must fail), a repeat call held to
+    the same bits; then its device time beside its bound (the positions
+    each slot reads, min(length, table), and their pages' scales), its
+    plain version, SDPA on the ``live`` slots' gathered timelines (whole
+    tables, so no mask; an int8 pool's dequantized to bf16, not timed) and
+    the wrapper's host time per call. → the timing record."""
+    dt = q.dtype
+    args = (tables, lengths)
+    call = lambda: pa.paged_attention(q, kp, vp, *args, **sc)
+    out = call()
+    torch.cuda.synchronize()
+    ref = pa.reference_paged_attention(q, kp, vp, *args, **sc)
+    s_abs = abs_v_attention(pa.reference_paged_attention, q, kp, vp, *args,
+                            **sc)
+    every = torch.ones(len(q), dtype=torch.bool, device=q.device)
+    check = check_close(f"decode {tag}", out, ref, s_abs, dt, every,
+                        lengths >= LONG_ROW)
+    if sc and dt == torch.bfloat16:
+        check["p_unrounded"] = check_p_unrounded(
+            f"decode {tag}", out, pa.reference_paged_attention(
+                q.float(), kp, vp, *args, **sc), ref, s_abs, every,
+            fault_must_fail=True)
+    if not torch.equal(out, call()):
+        raise AssertionError(f"decode {tag}: a repeat call gave other bits")
+    ms, ms_events = kernel_ms(call)
+    plain = cuda_time_ms(lambda: pa.reference_paged_attention(
+        q, kp, vp, *args, **sc), iters=10)
+    B, n_pg, ps = len(q), tables.shape[1], kp.shape[1]
+    if not bool((lengths[live] == n_pg * ps).all()):
+        raise AssertionError("SDPA's yardstick takes whole tables")
+    kt, vt = pa._gather_timeline(kp, vp, tables[live], sc.get("k_scale"),
+                                 sc.get("v_scale"))
+    kt, vt = (x.transpose(1, 2).to(dt).contiguous() for x in (kt, vt))
+    qs = q[live][:, :, None, :]
+    lib = device_ms(lambda: F.scaled_dot_product_attention(qs, kt, vt))
+    seen = lengths.clamp(min=0, max=n_pg * ps)
+    rows = int(seen.sum())
+    pages = int(((seen + ps - 1) // ps).sum())
+    nbytes = (2 * rows * H * K * kp.element_size()
+              + 2 * q.numel() * q.element_size() + tables.numel() * 4
+              + B * 4 + (2 * pages * 2 if sc else 0))
+    bms, by = bound_ms(nbytes, 4 * rows * H * K, BF16_FLOPS)
+    n_sm = pa._sm_count(q.device)
+    n_split = pa.decode_splits(B, H, n_pg, n_sm)
+    n_parts = pa.decode_live_splits(lengths.tolist(), ps, n_pg, H, n_split,
+                                    pa.decode_stage_rows(K, kp.element_size()),
+                                    n_sm)
+    return dict(
+        ms=ms, ms_events=ms_events, plain_ms=plain, library_ms=lib,
+        bound_ms=bms, bound_by=by, share_of_bound=bms / ms,
+        host_us=host_us(call), n_split=n_split, n_parts=n_parts,
+        bytes=nbytes, check=check,
+        shape=(f"B={B} ({int(live.sum())} live) H={H} K={K} n_pg={n_pg} "
+               f"ps={ps} {str(dt).split('.')[1]} q"
+               f"{', int8 pool' if sc else ''}"))
+
+
 def time_kernels(device, errs):
     """Kernel, plain version and SDPA at the main path's decode and
-    prefill shapes: B=16 slots, 1024-token contexts, ps=64, bf16. Each
-    kernel's output is first held to its plain version's on these inputs."""
+    prefill shapes: B=16 slots, 1024-token contexts, ps=64, bf16; the
+    decode kernel also at light load (`light_load_case`). Each kernel's
+    output is first held to its plain version's on these inputs."""
     rng = np.random.default_rng(1)
     B, T, ps, dt = 16, 1024, 64, torch.bfloat16
     n_pg = T // ps
@@ -634,30 +793,15 @@ def time_kernels(device, errs):
     timings = {}
 
     q = torch.randn(B, H, K, device=device, dtype=dt)
-    args = (tables, lengths)
-    out = pa.paged_attention(q, kp, vp, *args)
-    torch.cuda.synchronize()
     every = torch.ones(B, dtype=torch.bool, device=device)
-    check = check_close(
-        "decode timing shape", out, pa.reference_paged_attention(
-            q, kp, vp, *args), abs_v_attention(
-            pa.reference_paged_attention, q, kp, vp, *args), dt, every,
-        lengths >= LONG_ROW)
-    errs["paged_attention"] = max(errs["paged_attention"],
-                                  check["max_abs_err"])
-    ms, ms_events = kernel_ms(lambda: pa.paged_attention(q, kp, vp, *args))
-    plain = cuda_time_ms(lambda: pa.reference_paged_attention(
-        q, kp, vp, *args), iters=10)
-    qs = q[:, :, None, :]
-    lib = device_ms(lambda: F.scaled_dot_product_attention(qs, kt, vt))
-    nbytes = (2 * B * T * H * K * item + 2 * B * H * K * item
-              + tables.numel() * 4 + B * 4)
-    flops = 4 * B * H * T * K
-    bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
-    timings["paged_attention"] = dict(
-        ms=ms, ms_events=ms_events, plain_ms=plain, library_ms=lib,
-        bound_ms=bms, bound_by=by,
-        check=check, shape=f"B={B} H={H} K={K} ctx={T} ps={ps} bf16")
+    timings["paged_attention"] = time_decode(
+        "timing shape", q, kp, vp, tables, lengths, {}, every)
+    timings["paged_attention_light_load"] = time_decode(
+        "light load", *light_load_case(rng, device, quant=False))
+    errs["paged_attention"] = max(
+        errs["paged_attention"], *(timings[k]["check"]["max_abs_err"] for k in
+                                   ("paged_attention",
+                                    "paged_attention_light_load")))
 
     C, off = 256, T - 256
     qp = torch.randn(B, C, H, K, device=device, dtype=dt)
@@ -695,9 +839,13 @@ def time_kernels(device, errs):
 
 
 def share_of_bound(out, ref, s_abs):
-    """Largest |out - ref| / (8e-3 (|ref| + S)), the bf16 bound's share."""
+    """Largest |out - ref| / (8e-3 (|ref| + S)), the bf16 bound's share
+    (0 where out equals ref: a row of zeros, as an idle slot's on an
+    unwritten null page, has a bound of 0)."""
     o, r = out.float(), ref.float()
-    return float(((o - r).abs() / (BF16_REL * (r.abs() + s_abs))).max())
+    err = (o - r).abs()
+    share = err / (BF16_REL * (r.abs() + s_abs))
+    return float(torch.where(err == 0, torch.zeros_like(share), share).max())
 
 
 def planted_int8_faults(reference, q, kp, vp, tables, args, scales, *,
@@ -739,7 +887,8 @@ P_ROUNDED_FAULT = "p rounded to bf16 (the plain version on bf16 q)"
 
 def time_int8_kernels(device, errs):
     """The int8 programs at the float kernels' timed shapes (B=16 slots,
-    1024-token contexts, ps=64, bf16 q), on int8 pools from
+    1024-token contexts, ps=64, bf16 q), the decode program also at light
+    load (`light_load_case`), on int8 pools from
     `amplitude_rows`: each held once more to its plain version, two
     planted faults in the plain version held to the same bound, then
     timed beside its bound, its plain version and SDPA on the gathered
@@ -764,39 +913,19 @@ def time_int8_kernels(device, errs):
 
     q = torch.from_numpy(rng.normal(size=(B, H, K)).astype(np.float32)).to(
         device, dt)
-    args = (tables, lengths)
-    out = pa.paged_attention(q, kp, vp, *args, **sc)
-    torch.cuda.synchronize()
-    ref = pa.reference_paged_attention(q, kp, vp, *args, **sc)
-    s_abs = abs_v_attention(pa.reference_paged_attention, q, kp, vp, *args,
-                            **sc)
     every = torch.ones(B, dtype=torch.bool, device=device)
-    check = check_close("decode int8 timing shape", out, ref, s_abs, dt,
-                        every, lengths >= LONG_ROW)
-    check["p_unrounded"] = check_p_unrounded(
-        "decode int8 timing shape", out, pa.reference_paged_attention(
-            q.float(), kp, vp, *args, **sc), ref, s_abs, every,
-        fault_must_fail=True)
-    errs["paged_attention_int8"] = max(errs["paged_attention_int8"],
-                                       check["max_abs_err"])
+    timings["paged_attention_int8"] = time_decode(
+        "int8 timing shape", q, kp, vp, tables, lengths, sc, every)
+    timings["paged_attention_int8_light_load"] = time_decode(
+        "int8 light load", *light_load_case(rng, device, quant=True))
+    check = timings["paged_attention_int8"]["check"]
+    errs["paged_attention_int8"] = max(
+        errs["paged_attention_int8"], check["max_abs_err"],
+        timings["paged_attention_int8_light_load"]["check"]["max_abs_err"])
     planted["paged_attention_int8"] = {
         **planted_int8_faults(pa.reference_paged_attention, q, kp, vp,
                               tables, (lengths,), sc, shift_offsets=False),
         P_ROUNDED_FAULT: check["p_unrounded"]["p_rounded_plain_share"]}
-    ms, ms_events = kernel_ms(lambda: pa.paged_attention(q, kp, vp, *args,
-                                                         **sc))
-    plain = cuda_time_ms(lambda: pa.reference_paged_attention(
-        q, kp, vp, *args, **sc), iters=10)
-    lib = device_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None, :], kt, vt))
-    nbytes = (2 * B * T * H * K + 2 * B * H * K * 2 + scale_bytes
-              + tables.numel() * 4 + B * 4)
-    bms, by = bound_ms(nbytes, 4 * B * H * T * K, BF16_FLOPS)
-    timings["paged_attention_int8"] = dict(
-        ms=ms, ms_events=ms_events, plain_ms=plain, library_ms=lib,
-        bound_ms=bms, bound_by=by,
-        bytes=nbytes, check=check,
-        shape=f"B={B} H={H} K={K} ctx={T} ps={ps} bf16 q, int8 pool")
 
     C, off = 256, T - 256
     qp = torch.from_numpy(rng.normal(size=(B, C, H, K)).astype(
@@ -1237,9 +1366,10 @@ def aten_flash_backward(qt, kt, vt, dot, scale, refs):
 def old_library(old_dir):
     """The kernels of an older checkout (``old_dir``/ray_tpu_torch/ops/
     csrc) built by nvcc into build/ab/libkernels_old.so, one nvcc per
-    source in parallel, with the C ABI of the parent of the backward's
-    redesign: the flash forward and the paged kernels as now (tensor maps
-    passed by the caller), rtt_flash_dq and rtt_flash_dkv without maps."""
+    source in parallel, with the C ABI of the parent of the decode's
+    redesign: the flash kernels and the paged prefill as now (tensor maps
+    passed by the caller), the paged decode without workspace or split
+    count."""
     src = os.path.join(old_dir, "ray_tpu_torch", "ops", "csrc")
     out = os.path.join("build", "ab")
     os.makedirs(out, exist_ok=True)
@@ -1259,19 +1389,49 @@ def old_library(old_dir):
     lib = ctypes.CDLL(os.path.abspath(lib_path))
     _build._declare(lib)
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rtt_flash_dq.argtypes = [I] + [P] * 7 + [I] * 5 + [P, I, Fl, P]
-    lib.rtt_flash_dkv.argtypes = [I] + [P] * 8 + [I] * 5 + [P, I, Fl, P]
+    lib.rtt_paged_decode_attention.argtypes = [I] + [P] * 6 + [I] * 5 + [
+        Fl, P]
+    lib.rtt_paged_decode_attention_int8.argtypes = [I] + [P] * 8 + [
+        I] * 5 + [Fl, P]
     return lib
+
+
+def old_decode(old, q, kp, vp, tables, lengths, sc):
+    """The parent's decode wrapper on its library: the same checks, one
+    launch of grid (H, B), no workspace (as `paged_attention` was before
+    the split-K redesign, without its counters)."""
+    quant = pa._quantized(kp, vp, sc.get("k_scale"), sc.get("v_scale"))
+    B, Hh, Kd = q.shape
+    ps = pa._check_shapes(q, kp, vp, Hh, Kd)
+    tables, lengths = pa._cuda_operands(
+        q, kp, vp, (("tables", tables), ("lengths", lengths)), quant)
+    out = torch.empty_like(q)
+    common = (tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, Hh,
+              Kd, ps, tables.shape[1], float(1 / np.sqrt(Kd)),
+              torch.cuda.current_stream().cuda_stream)
+    code = pa._DTYPE_CODES[q.dtype]
+    if quant:
+        ks, vs = pa._scale_operands(q.device, sc["k_scale"], sc["v_scale"])
+        rc = old.rtt_paged_decode_attention_int8(
+            code, q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(),
+            vs.data_ptr(), *common)
+    else:
+        rc = old.rtt_paged_decode_attention(
+            code, q.data_ptr(), kp.data_ptr(), vp.data_ptr(), *common)
+    _build.check(rc, "old decode")
+    return out
 
 
 def phase_ab(device, old_dir):
     """The kernels against an older checkout's, at the timed shapes, by
     device time in turns (old, new, new, old) in one process: the bf16
-    flash forward, dq and dkv at [8, 1024, 12, 64] causal, and the paged
+    flash forward, dq and dkv at [8, 1024, 12, 64] causal, the paged
     prefill (16 slots x C 256 at offset 768, 1024-token contexts, ps 64,
-    H 32, K 64) on a bf16 and on an int8 pool. Each old output is held to
-    the new one's plain version first (dq and dkv: the bf16 bound of the
-    flash checks must hold)."""
+    H 32, K 64) and the paged decode (16 slots of 1024 positions, and at
+    light load) on a bf16 and on an int8 pool; for the decode also the
+    wrapper's host µs per call, the parent's wrapper (`old_decode`)
+    against the new one. Each old output is held to the new one's plain
+    version first (dq, dkv and the decode: the bf16 bound must hold)."""
     old = old_library(old_dir)
     stream = lambda: torch.cuda.current_stream().cuda_stream
     rng = np.random.default_rng(11)
@@ -1296,20 +1456,23 @@ def phase_ab(device, old_dir):
     def dq_old():
         dq = torch.empty_like(q)
         rows = fa._rows(q, k, v, do, dq)
+        maps = pa._c_array(fa.flash_dq_plan(q, k, v, do))
         _build.check(old.rtt_flash_dq(
             1, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S, S, Hh, Kd,
-            ctypes.addressof(rows), 1, float(scale), stream()), "old flash_dq")
+            ctypes.addressof(rows), 1, float(scale), ctypes.addressof(maps),
+            stream()), "old flash_dq")
         return dq
 
     def dkv_old():
         dk, dv = torch.empty_like(k), torch.empty_like(v)
         rows = fa._rows(q, k, v, do, dk, dv)
+        maps = pa._c_array(fa.flash_dkv_plan(q, k, v, do))
         _build.check(old.rtt_flash_dkv(
             1, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             B, S, S, Hh, Kd, ctypes.addressof(rows), 1, float(scale),
-            stream()), "old flash_dkv")
+            ctypes.addressof(maps), stream()), "old flash_dkv")
         return dk, dv
 
     bwd = (q, k, v, do, lse, delta, True, scale)
@@ -1358,8 +1521,31 @@ def phase_ab(device, old_dir):
             lambda qp=qp, kp=kp, vp=vp, args=args, sc=sc:
                 pa.reference_paged_prefill_attention(qp, kp, vp, *args,
                                                      **sc))
+    # The paged decode, float and int8 pools, at the timed shape (16 slots
+    # of 1024 positions) and at light load (`light_load_case`).
+    for quant in (False, True):
+        kp, vp, tables, lens, sc = paged_pool(
+            rng, [T] * 16, ps=ps, n_pg=n_pg, dtype=torch.bfloat16,
+            device=device, heads=(H, K), quant=quant)
+        qd = torch.from_numpy(rng.normal(size=(16, H, K)).astype(
+            np.float32)).to(device, torch.bfloat16)
+        timed = (qd, kp, vp, *(torch.from_numpy(a).to(device)
+                               for a in (tables, lens)), sc)
+        light = light_load_case(rng, device, quant=quant)[:6]
+        for shape, (qd, kp, vp, tb, ln, sc) in (("", timed),
+                                                 ("_light_load", light)):
+            name = "paged_attention" + ("_int8" if quant else "") + shape
+            cases[name] = (
+                lambda a=(qd, kp, vp, tb, ln, sc): old_decode(old, *a),
+                lambda a=(qd, kp, vp, tb, ln), sc=sc: pa.paged_attention(
+                    *a, **sc),
+                lambda a=(qd, kp, vp, tb, ln), sc=sc:
+                    pa.reference_paged_attention(*a, **sc))
+            bound_sums[name] = abs_v_attention(
+                pa.reference_paged_attention, qd, kp, vp, tb, ln, **sc)
     out = {"phase": "ab_old_vs_new", "old": old_dir,
-           "order": "old, new, new, old; device ms per call (device_ms)"}
+           "order": "old, new, new, old; device ms per call (device_ms); "
+                    "decode also the wrapper's host µs per call"}
     # dkv's (dk, dv) are held as one tensor; the timed calls stack nothing.
     one = lambda x: (torch.stack(x) if isinstance(x, tuple) else x).float()
     for name, (fn_old, fn_new, plain) in cases.items():
@@ -1379,6 +1565,10 @@ def phase_ab(device, old_dir):
                      "new_ms": [turns[1], turns[2]],
                      "speedup": (turns[0] + turns[3]) / (turns[1] + turns[2]),
                      **res}
+        if name.startswith("paged_attention"):
+            us = [host_us(f) for f in (fn_old, fn_new, fn_new, fn_old)]
+            out[name]["host_us"] = {"old": [us[0], us[3]],
+                                    "new": [us[1], us[2]]}
     emit(out)
 
 
@@ -1953,9 +2143,9 @@ def main(argv=None) -> int:
                     help="print nvcc -Xptxas -v (registers, spills)")
     ap.add_argument("--ab", metavar="OLD_CHECKOUT", default="",
                     help="also time the flash forward, dq, dkv and paged "
-                         "prefill kernels against an older checkout's (its "
-                         "ray_tpu_torch/ops/csrc, built into build/ab), in "
-                         "turns old, new, new, old")
+                         "prefill and decode kernels against an older "
+                         "checkout's (its ray_tpu_torch/ops/csrc, built "
+                         "into build/ab), in turns old, new, new, old")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():

@@ -126,14 +126,22 @@ def sample_token(logits: torch.Tensor, *, temperature: float = 0.0,
     return _categorical(scaled, generator)
 
 
+def _gumbel(u: torch.Tensor) -> torch.Tensor:
+    """Gumbel noise -log(-log(u)) from uniforms u in [0, 1), with u first
+    raised to the smallest normal float32, as `jax.random.gumbel` draws
+    it from [tiny, 1): a draw of exactly 0 then gives about -4.47, never
+    -inf, so no token with a finite logit is ever excluded."""
+    u = u.clamp(min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
 def _categorical(scaled: torch.Tensor,
                  generator: torch.Generator) -> torch.Tensor:
     """One draw per row from softmax(scaled) by the Gumbel-max trick:
     argmax(scaled + Gumbel noise), the noise from ``generator``."""
     u = torch.rand(scaled.shape, generator=generator,
                    device=scaled.device, dtype=torch.float32)
-    gumbel = -torch.log(-torch.log(u))
-    return torch.argmax(scaled.float() + gumbel, dim=-1)
+    return torch.argmax(scaled.float() + _gumbel(u), dim=-1)
 
 
 __all__ = ["sample_token"]

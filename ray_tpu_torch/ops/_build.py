@@ -100,10 +100,14 @@ _F = ctypes.c_float
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    # int fn(dtype, q, k_pool, v_pool, tables, lengths, out,
-    #        B, H, K, ps, n_pg, sm_scale, stream) → cudaError_t
+    # int fn(dtype, q, k_pool, v_pool, tables, lengths, out, ws, counters,
+    #        B, H, K, ps, n_pg, n_pages, n_split, sm_scale, stream)
+    #        → cudaError_t (ws: the fp32 split workspace,
+    #        n_split·B·H·(K+2) floats, counters: B·ceil(H/4) zero ints,
+    #        both NULL for one split; n_pages: P+1)
     lib.rtt_paged_decode_attention.argtypes = [
-        _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+        _P]
     lib.rtt_paged_decode_attention.restype = _I
     # int fn(dtype, q, k_pool, v_pool, tables, offsets, lengths, out,
     #        B, C, H, K, ps, n_pg, sm_scale, maps, stream) → cudaError_t
@@ -114,7 +118,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     # The int8 programs: the same with (k_scale, v_scale), bf16 [P+1],
     # after v_pool.
     lib.rtt_paged_decode_attention_int8.argtypes = [
-        _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+        _I, _F, _P]
     lib.rtt_paged_decode_attention_int8.restype = _I
     lib.rtt_paged_prefill_attention_int8.argtypes = [
         _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,

@@ -1,7 +1,7 @@
 // Shared device helpers for the paged-attention kernels (paged_decode.cu,
 // paged_prefill.cu): dtype conversion, 16-byte vector loads, the reference's
 // rounding of softmax probabilities to the input dtype, int8 codes widened
-// to fp32 or bf16 (the int8 programs), and the bf16 tensor-core
+// to bf16 (the prefill's int8 programs), and the bf16 tensor-core
 // instructions (mma.sync, ldmatrix).
 #pragma once
 
@@ -97,17 +97,6 @@ __device__ __forceinline__ void load_n(const __nv_bfloat16* p, float (&f)[N]) {
 // ---------------------------------------------------------------------------
 // int8 pools (the int8 programs): codes in [-127, 127], one scale per page,
 // read from the layer's bf16 scale vector as it is (to_f widens exactly).
-
-// Sixteen int8 codes of one 16-byte load, widened to fp32 (exact).
-__device__ __forceinline__ void unpack_i8x16(const uint4 v, float (&f)[16]) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      f[4 * i + e] = static_cast<float>(static_cast<int8_t>(w[i] >> (8 * e)));
-  }
-}
 
 // Two fp32 values rounded to bf16 and packed, the first in the low half (the
 // lower-indexed element of an mma fragment pair).

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the attention kernels that run on
-// wgmma (flash_fwd.cu, flash_bwd.cu, paged_prefill.cu), as inline PTX:
-// mbarriers, TMA tile loads, warpgroup register reallocation, the wgmma
+// wgmma (flash_fwd.cu, flash_bwd.cu, paged_prefill.cu) and of the paged
+// decode kernel (paged_decode.cu), as inline PTX: mbarriers, TMA tile
+// loads, warpgroup register reallocation, the wgmma
 // shared-memory descriptors and the m64nNk16 bf16 products; and, on the
 // host, the encoding of a TMA tensor map from the numbers the Python
 // wrappers pass.
@@ -94,6 +95,14 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Brings a tensor map (a kernel parameter) into the TMA unit's cache ahead
+// of its first load.
+__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
 }
 
 // Orders this thread's ordinary shared-memory writes before later reads by
@@ -285,8 +294,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
 // ------------------------------------------------- tensor maps (host)
 
 // One tensor map as the wrappers describe it (`tensor_map` in
-// ops/paged_attention.py), 17 numbers: element bytes (2: bf16, 1: int8
-// codes read as bytes), rank, 5 dims (elements, innermost first), the
+// ops/paged_attention.py), 17 numbers: element bytes (4: fp32, 2: bf16, 1:
+// int8 codes read as bytes), rank, 5 dims (elements, innermost first), the
 // byte strides of dims 1..4, 5 box dims, and the swizzle in bytes (0 or
 // 128).
 // Unused trailing entries are 0.
@@ -330,7 +339,7 @@ inline cudaError_t encode_tmap(CUtensorMap* map, const void* base,
   if (fn == nullptr) return cudaErrorNotSupported;
   const int elem = (int)rec[0];
   const int rank = (int)rec[1];
-  if (rank < 1 || rank > 5 || (elem != 1 && elem != 2))
+  if (rank < 1 || rank > 5 || (elem != 1 && elem != 2 && elem != 4))
     return cudaErrorInvalidValue;
   cuuint64_t dims[5], strides[4];
   cuuint32_t box[5], estr[5];
@@ -350,8 +359,9 @@ inline cudaError_t encode_tmap(CUtensorMap* map, const void* base,
     return cudaErrorInvalidValue;
   const CUresult r = fn(
       map,
-      elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+      elem == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+      : elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                  : CU_TENSOR_MAP_DATA_TYPE_UINT8,
       (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box, estr,
       CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

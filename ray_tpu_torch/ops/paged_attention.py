@@ -6,7 +6,8 @@ by hand in CUDA C++ for sm_90a (sources in ``ops/csrc/``, built by
 float and an int8 program:
 
 - `paged_attention`: single-query decode attention straight against one
-  layer's page pool (replaces the Pallas `_decode_kernel`);
+  layer's page pool, split-K over the positions (replaces the Pallas
+  `_decode_kernel`);
 - `paged_prefill_attention`: a C-query chunk at an arbitrary offset,
   causal within the chunk (replaces the Pallas `_prefill_kernel`).
 
@@ -121,6 +122,11 @@ def _stream_ptr(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _ptr(t):
+    """A tensor's address for the C ABI, NULL for None."""
+    return None if t is None else t.data_ptr()
+
+
 # ------------------------------------------------ the kernels' host plan
 #
 # The wgmma kernels (csrc/attn_wgmma.cuh) read their tiles by TMA. What
@@ -212,6 +218,97 @@ def prefill_plan(q, k_pool, v_pool):
     return maps
 
 
+# The decode kernel's split-K rule (csrc/paged_decode.cu, which checks the
+# n_split it is given against its own copy of the rule). A block takes a
+# group of DECODE_HEAD_GROUP heads of one slot and one split of the slot's
+# live positions, through a ring of DECODE_STAGES 16 KB stages; the ring and
+# its barriers take DECODE_SMEM_BYTES, so 4 blocks fit in an SM's 228 KB.
+DECODE_HEAD_GROUP = 4
+DECODE_STAGES = 3
+DECODE_SMEM_BYTES = DECODE_STAGES * (16384 + 256) + 2 * DECODE_STAGES * 8
+DECODE_BLOCKS_PER_SM = 233472 // (DECODE_SMEM_BYTES + 1024)
+DECODE_WAVES = 4
+H100_SMS = 132
+
+
+def decode_splits(B: int, H: int, n_pg: int, n_sm: int = H100_SMS) -> int:
+    """How many splits of the positions per (slot, head group) the decode
+    kernel's grid has for B slots of H heads on a table n_pg pages wide:
+    DECODE_WAVES waves of resident blocks (``n_sm`` SMs x
+    DECODE_BLOCKS_PER_SM) over the B · ceil(H / DECODE_HEAD_GROUP) units,
+    at most one split per table page, at least one. Reads no lengths: the
+    host never waits for the device; each slot then uses
+    `decode_live_splits` of them. The C entry point holds the same rule."""
+    units = B * -(-H // DECODE_HEAD_GROUP)
+    n = DECODE_WAVES * n_sm * DECODE_BLOCKS_PER_SM // units
+    return max(1, min(n, n_pg))
+
+
+def decode_stage_rows(K: int, itemsize: int) -> int:
+    """Positions per 16 KB stage of the decode kernel (R): K and V rows of
+    DECODE_HEAD_GROUP heads, so 16 at K 64 bf16, 32 for int8 codes."""
+    return 16384 // (2 * DECODE_HEAD_GROUP * K * itemsize)
+
+
+def _live_stages(length: int, ps: int, n_pg: int, rows: int) -> int:
+    """Stages of ``rows`` positions over a slot's live positions, at most
+    the table's n_pg·ps (an idle slot's cursor can walk past its table)."""
+    n = min(length, n_pg * ps)
+    return -(-n // rows) if n > 0 else 0
+
+
+def decode_live_splits(lengths, ps: int, n_pg: int, H: int, n_split: int,
+                       rows: int, n_sm: int = H100_SMS) -> list[int]:
+    """How many of the grid's n_split splits each slot uses, as every block
+    of the decode kernel works it out on the device from all the lengths:
+    the slot's share of one wave of ``n_sm`` x DECODE_BLOCKS_PER_SM blocks
+    by its live stages (of ``rows`` positions, `decode_stage_rows`) against
+    the whole batch's, rounded down, at most n_split, at most one per
+    stage, at least one. So a lightly loaded batch spreads its few live
+    slots over many blocks and a full one keeps one wave; the blocks with
+    work take the grid's first indices, and the rest exit at once."""
+    live = [_live_stages(int(n), ps, n_pg, rows) for n in lengths]
+    groups = -(-H // DECODE_HEAD_GROUP)
+    wave = n_sm * DECODE_BLOCKS_PER_SM
+    total = max(1, sum(live) * groups)
+    return [max(1, min(n_split, n, n * wave // total)) for n in live]
+
+
+def decode_split_positions(length: int, ps: int, n_pg: int, n_parts: int,
+                           rows: int) -> list[tuple[int, int]]:
+    """The positions [begin, end) each of a slot's n_parts splits reads, as
+    the decode kernel's blocks take them: of the slot's live stages
+    (`_live_stages`), split s takes [s·n // n_parts, (s+1)·n // n_parts),
+    cut at the slot's last live position. Every live position lies in
+    exactly one split; with n_parts <= n (as `decode_live_splits` gives)
+    none is empty."""
+    n = _live_stages(length, ps, n_pg, rows)
+    end = min(length, n_pg * ps)
+    return [(s * n // n_parts * rows, min((s + 1) * n // n_parts * rows, end))
+            for s in range(n_parts)]
+
+
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+_DECODE_COUNTERS: dict = {}
+
+
+def _decode_counters(dev, stream: int, n: int) -> torch.Tensor:
+    """The decode kernel's arrival counters, one per (slot, head group):
+    an int32 buffer kept per (device, stream), zeroed when it is made or
+    grown; the last block of each group to arrive zeroes its counter
+    again, so every launch on the stream finds them zero (launches on one
+    stream run in order; another stream has its own buffer)."""
+    key = (dev.index, stream)
+    buf = _DECODE_COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _DECODE_COUNTERS[key] = buf
+    return buf
+
+
 def _c_array(words):
     return (ctypes.c_longlong * len(words))(*words)
 
@@ -231,7 +328,13 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *, sm_scale=None,
     (the layer's per-page scales, bf16 on CUDA); tables: [B, n_pg] int page ids
     (unallocated tail = 0); lengths: [B] valid kv positions per slot (the
     current token's K/V already written). → [B, H, K] in q.dtype. CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    tensors take the plain version; CUDA tensors launch the kernel on a
+    grid of `decode_splits` splits per (slot, head group), of which each
+    slot uses `decode_live_splits` (the last block of each head group
+    merges them when there are several, from an fp32 workspace allocated
+    here, counting arrivals in `_decode_counters`); the kernel reads the
+    pool by TMA from tensor maps that its C entry point encodes, so
+    nothing is planned here."""
     quant = _quantized(k_pool, v_pool, k_scale, v_scale)
     B, H, K = q.shape
     ps = _check_shapes(q, k_pool, v_pool, H, K)
@@ -255,8 +358,17 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *, sm_scale=None,
     from ray_tpu_torch.ops import _build
 
     lib = _build.library()
-    common = (tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H, K,
-              ps, n_pg, float(sm_scale), _stream_ptr(q.device))
+    n_split = decode_splits(B, H, n_pg, _sm_count(q.device))
+    stream = _stream_ptr(q.device)
+    ws = counters = None
+    if n_split > 1:
+        ws = torch.empty(n_split * B * H * (K + 2), dtype=torch.float32,
+                         device=q.device)
+        counters = _decode_counters(
+            q.device, stream, B * -(-H // DECODE_HEAD_GROUP))
+    common = (tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+              _ptr(ws), _ptr(counters), B, H, K, ps, n_pg, k_pool.shape[0],
+              n_split, float(sm_scale), stream)
     if quant:
         ks, vs = _scale_operands(q.device, k_scale, v_scale)
         rc = lib.rtt_paged_decode_attention_int8(
@@ -429,4 +541,6 @@ __all__ = [
     "reference_paged_attention", "reference_paged_prefill_attention",
     "reset_launch_counts", "NEG_INF", "prefill_kernel", "prefill_plan",
     "tensor_map", "key_tile", "column_boxes", "wgmma_page_size",
+    "decode_splits", "decode_live_splits", "decode_split_positions",
+    "decode_stage_rows",
 ]

@@ -196,6 +196,79 @@ def test_decode_int8_kernel_matches_plain(cuda, dtype, ps, K):
             q.float(), kp, vp, t, n, k_scale=ks, v_scale=vs), s_abs)
 
 
+def _ragged_decode_lengths(B, ps, n_pg):
+    """B slot lengths cycling through the split paths' edges: the full
+    table, a length past it (an idle slot's cursor), 0, an idle slot on
+    the null page (1), a length ending on a page boundary mid-table, one
+    past it and one short of it, a mid-page length."""
+    mid = ps * max(1, n_pg // 2)
+    pattern = [n_pg * ps, n_pg * ps + 37, 0, 1, mid, mid + 1, mid - 1,
+               ps // 2 + 1]
+    return np.array([pattern[b % len(pattern)] for b in range(B)], np.int32)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,n_pg", [(1, 8, 1), (1, 8, 9), (5, 8, 1),
+                                      (5, 6, 9), (16, 8, 1), (16, 32, 20)])
+def test_decode_splits_match_plain(cuda, dtype, quant, B, H, n_pg):
+    """The decode kernel with one split (a one-page table: the block writes
+    the output) and with several (the last block to finish merges the
+    splits, and leaves its arrival count zero), float and int8 pools,
+    at ragged lengths (`_ragged_decode_lengths`; H = 6 leaves a group of
+    two heads); ps = 16, so int8's 32-position stages span two pages. A
+    slot of length 0 gets zeros (the l == 0 guard; the plain version's
+    uniform average is by definition). A second call gives the same
+    bits."""
+    ps, K = 16, 64
+    rng = np.random.default_rng(10)
+    n_split = pa.decode_splits(B, H, n_pg, pa._sm_count(cuda))
+    assert (n_split == 1) == (n_pg == 1)
+    lengths = _ragged_decode_lengths(B, ps, n_pg)
+    idle = {b for b in range(B) if lengths[b] <= 1}
+    need = [0 if b in idle else min(-(-int(n) // ps), n_pg)
+            for b, n in enumerate(lengths)]
+    n_pages = sum(need) + 1
+    if quant:
+        kp, ks, vp, vs = _int8_pool(rng, n_pages, ps, H, K, cuda)
+        sc = {"k_scale": ks, "v_scale": vs}
+    else:
+        kp, vp = _pool(rng, n_pages, ps, H, K, dtype, cuda)
+        sc = {}
+    perm = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
+    tables = np.zeros((B, n_pg), np.int32)
+    at = 0
+    for b, n in enumerate(need):
+        tables[b, :n] = perm[at:at + n]
+        at += n
+    q = torch.from_numpy(rng.normal(size=(B, H, K)).astype(np.float32)).to(
+        cuda, dtype)
+    t = torch.from_numpy(tables).to(cuda)
+    n = torch.from_numpy(lengths).to(cuda)
+    out = pa.paged_attention(q, kp, vp, t, n, **sc)
+    again = pa.paged_attention(q, kp, vp, t, n, **sc)
+    torch.cuda.synchronize()
+    assert (pa.paged_attention.int8_launches,
+            pa.paged_attention.launches) == ((2, 0) if quant else (0, 2))
+    assert torch.equal(out, again)
+    if n_split > 1:           # the last block of each group zeroed its count
+        counters = pa._DECODE_COUNTERS[(q.device.index,
+                                        pa._stream_ptr(q.device))]
+        assert int(counters.abs().sum()) == 0
+    live = n > 0
+    assert torch.all(out[~live] == 0)
+    ref = pa.reference_paged_attention(q, kp, vp, t, n, **sc)
+    if quant:
+        s_abs = _abs_v_int8(pa.reference_paged_attention, q, kp, ks, vp, vs,
+                            t, n)
+    else:
+        s_abs = _abs_v(pa.reference_paged_attention, q, kp, vp, t, n)
+    _close(out[live], ref[live], dtype, s_abs[live], rtol=1e-5 if quant else 0)
+    if quant and dtype == torch.bfloat16:
+        ref32 = pa.reference_paged_attention(q.float(), kp, vp, t, n, **sc)
+        _close_p_unrounded(out[live], ref32[live], s_abs[live])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("ps,K", [(16, 64), (64, 64), (16, 128), (64, 128)])
 @pytest.mark.parametrize("C", [72, 128])

@@ -257,3 +257,86 @@ def test_plan_words_cross_the_c_abi():
     for plan in (fa.flash_dq_plan, fa.flash_dkv_plan):
         arr = pa._c_array(plan(q, q, q, q))
         assert len(arr) == 4 * WORDS and list(arr) == plan(q, q, q, q)
+
+
+# ------------------------------------------------- the decode kernel's split-K
+
+
+def test_decode_ring_fits_four_blocks_per_sm():
+    """Three 16 KB stages, 256 bytes of int8 scales each and six
+    mbarriers: 49,968 bytes a block, four blocks in an SM's 228 KB
+    (csrc/paged_decode.cu asserts the same four)."""
+    assert pa.DECODE_SMEM_BYTES == 49968
+    assert pa.DECODE_BLOCKS_PER_SM == 4
+
+
+@pytest.mark.parametrize("B,H,n_pg,n_sm,n_split", [
+    (16, 32, 16, 132, 16),   # the timed shape: 16 slots of 1,024 at ps 64
+    (16, 32, 32, 132, 16),   # light load: the same view, a 2,048 table
+    (1, 32, 32, 132, 32),    # one slot at 2,048: a split per page
+    (5, 4, 3, 132, 3),       # few units: at most one split per page
+    (64, 32, 32, 132, 4),
+    (200, 32, 4, 132, 1),    # units fill four waves alone: no split
+    (16, 32, 1, 132, 1),     # a one-page table
+    (16, 32, 32, 114, 14),   # an H100 PCIe's 114 SMs
+    (7, 6, 64, 132, 64),     # a ragged head group counts as one unit
+])
+def test_decode_splits(B, H, n_pg, n_sm, n_split):
+    assert pa.decode_splits(B, H, n_pg, n_sm) == n_split
+
+
+@pytest.mark.parametrize("K,itemsize,rows", [(64, 2, 16), (128, 2, 8),
+                                              (64, 4, 8), (128, 4, 4),
+                                              (64, 1, 32), (128, 1, 16)])
+def test_decode_stage_rows(K, itemsize, rows):
+    assert pa.decode_stage_rows(K, itemsize) == rows
+
+
+@pytest.mark.parametrize("lengths,n_pg,parts", [
+    ([1024] * 16, 16, [4] * 16),             # timed: one wave of 512 blocks
+    ([2048] * 2 + [1] * 14, 32, [16] * 2 + [1] * 14),   # light load
+    ([2048], 32, [32]),                      # one slot: a split per page
+    ([0, 1, 64, 65, 2148] + [2048] * 11, 32,  # past the table: 2048
+     [1, 1, 1, 1, 5] + [5] * 11),
+])
+def test_decode_live_splits(lengths, n_pg, parts):
+    """How many of the grid's splits each slot uses, from the whole
+    batch's live stages (H 32, ps 64, bf16 K 64: 16 positions a stage; the
+    H100's 132 SMs)."""
+    n_split = pa.decode_splits(len(lengths), 32, n_pg)
+    assert pa.decode_live_splits(lengths, 64, n_pg, 32, n_split, 16) == parts
+
+
+@pytest.mark.parametrize("n_parts", [1, 3, 6, 32])
+def test_decode_split_positions_cover_each_live_position_once(n_parts):
+    """Each split's positions are a contiguous range starting on a stage,
+    the ranges in split order cover the slot's min(length, n_pg·ps) live
+    positions once, their stage counts differ by at most one, and no split
+    is empty while n_parts is at most the live stages."""
+    for ps, rows in ((16, 16), (16, 32), (64, 16), (8, 16)):
+        for n_pg in (1, 16, 32):
+            for length in (0, 1, ps - 1, ps, ps + 1, 100, 1024, 2047, 2048,
+                           2148, 5000):
+                parts = pa.decode_split_positions(length, ps, n_pg, n_parts,
+                                                  rows)
+                end = min(length, n_pg * ps)
+                stages = -(-end // rows) if end > 0 else 0
+                assert len(parts) == n_parts
+                assert parts[0][0] == 0 and parts[-1][1] == max(end, 0)
+                for (b0, e0), (b1, _e1) in zip(parts, parts[1:]):
+                    assert e0 == b1 and b1 % rows == 0
+                sizes = [-(-(e - b) // rows) for b, e in parts]
+                assert max(sizes) - min(sizes) <= 1
+                assert min(sizes) > 0 or n_parts > stages
+
+
+def test_decode_split_positions_edges():
+    # An idle slot (one position on the null page) uses one split.
+    assert pa.decode_live_splits([1], 64, 32, 32, 12, 16) == [1]
+    assert pa.decode_split_positions(1, 64, 32, 1, 16) == [(0, 1)]
+    # A cursor past the table reads the whole table, no further.
+    assert pa.decode_split_positions(2148, 64, 32, 6, 16)[-1] == (1696, 2048)
+    assert pa.decode_split_positions(0, 64, 32, 1, 16) == [(0, 0)]
+    # 64 stages of 16 positions in 3 splits: 21, 21 and 22 stages.
+    assert pa.decode_split_positions(1024, 64, 16, 3, 16) == [
+        (0, 336), (336, 672), (672, 1024)]

@@ -162,3 +162,26 @@ def test_sample_token_greedy_and_topk():
     assert set(draws[:, 1].tolist()) <= {0, 3}
     with pytest.raises(ValueError):
         tdecode.sample_token(logits, temperature=1.0)
+
+
+def test_gumbel_noise_is_finite_at_u_zero(monkeypatch):
+    """torch.rand can return exactly 0.0; the reference draws u from
+    [finfo(float32).tiny, 1) (jax.random.categorical → gumbel), so its
+    least noise is -log(-log(tiny)), about -4.47, never -inf. The port's
+    noise at u = 0 is that value, and above tiny it is -log(-log(u)) as
+    before. With every u = 0 the noise is one constant and the draw is
+    the argmax of the logits (with -inf noise everywhere it was index
+    0)."""
+    tiny = np.finfo(np.float32).tiny
+    least = float(-jnp.log(-jnp.log(jnp.float32(tiny))))
+    u = torch.tensor([0.0, tiny, 1e-30, 0.5, 1 - 2 ** -24])
+    g = tdecode._gumbel(u)
+    assert torch.isfinite(g).all()
+    assert float(g[0]) == float(g[1]) and float(g[0]) >= least - 1e-6
+    np.testing.assert_allclose(
+        g[1:].numpy(), -np.log(-np.log(u[1:].numpy().astype(np.float64))),
+        rtol=1e-6)
+    logits = torch.tensor([[0.1, 2.0, -1.0], [3.0, 0.0, 5.0]])
+    monkeypatch.setattr(torch, "rand", lambda shape, **kw: torch.zeros(shape))
+    np.testing.assert_array_equal(
+        tdecode._categorical(logits, torch.Generator()).numpy(), [1, 2])

@@ -157,7 +157,7 @@ def test_prefill_matches_jax(ps, dt, width):
            dt)
 
 
-def test_int8_pools_not_ported():
+def test_int8_pools_take_the_plain_path_on_cpu():
     """Once a refusal, now the int8 programs' CPU path: both wrappers take
     an int8 pool with its per-page scales to the plain versions (the
     launch counters, int8 ones included, stay 0), and the scales are

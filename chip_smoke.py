@@ -5,6 +5,8 @@
     python3 chip_smoke.py --only kernels --ptxas   # build + kernel checks
     python3 chip_smoke.py --only kernels,train     # the training slice
     python3 chip_smoke.py --only kernels,engine    # quantized serving
+    python3 chip_smoke.py --only kernels,programs,engine,engine_prefix,engine_spec
+                          # the prefix cache and speculative decoding
 
 Phases, one JSON line each (the whole record also goes to
 build/chip_smoke.json):
@@ -64,24 +66,49 @@ build/chip_smoke.json):
    flash_dq row beside delta + dq + dkv (one call does all three);
    `flash_delta` alone; SDPA forward plus backward against the three
    kernels.
-4. programs: prefill_chunk_paged and decode_step_paged at full opt_1_3b
+   Then the speculative path's shapes: the prefill kernel as the verify
+   pass (16 rows of C = 5 and C = 2 at ragged decode cursors, with inert
+   rows, on the decode table's width; bf16 q, float and int8 pools) and
+   both paged kernels at a draft's 12 heads of 64 (gpt2_124m), held to
+   the same bounds; timed: the verify pass at 16 slots of 1024 positions
+   (C = 5) beside its bound, its plain version, SDPA and (k+1) x the
+   decode call at the same slots, and the decode at 12 heads.
+4. programs: prefill_chunk_paged, decode_step_paged, verify_chunk_paged
+   (the LM head at every row) and spec_draft_propose (the model as its
+   own draft, temperature 1, one generator seed: its log-probability
+   rows up to each row's first differing proposal) at full opt_1_3b
    width (bf16, random weights from a seed), attn_impl "kernel" vs
    "gather" on copies of one pool; then the same with int8 weights
    (quantized from the same fp32 masters) on an int8 pool, held to a
    logit-MAE limit that a planted fault must exceed, with the int8
    weights' logits against the bf16 weights' as a fidelity reading.
+   Then programs_prefix: a 900-token prompt prefilled cold in [16, 160]
+   dispatches, its first 800 positions bound into another table (12
+   shared pages and a copy_pages of page 12 onto a recycled page) and
+   prefilled from 800: the last-token logits equal the cold run's within
+   the fp32 bound, float and int8 pools; a copy without the scale planes
+   must exceed it 100-fold on the int8 pool (the factor is printed).
 5. profile: torch.profiler over one fused decode window and one prefill
    dispatch at the engine's shapes (device busy time, idle share, top
    ops); the decode window's device time with int8 against bf16 weights
    (float and int8 KV), and the window's K/V writes alone into each pool.
 6. engine: LLMEngine(opt_1_3b, bf16) serving 16 seeded prompts of 128-1536
-   tokens through start()/submit(), 32 greedy tokens each, with the
+   tokens (queued, then start()), 32 greedy tokens each, with the
    kernel launch counters zeroed just before and read just after; then
    LLMEngine(opt_1_3b, weight_dtype="int8", kv_dtype="int8") from the
    fp32 masters on the same prompts: n_layers int8 launches per decode
    step and per prefill dispatch, no float paged launch, the
    kv_pool_bytes identity, weight bytes, and the share of each stream
    that agrees with the bf16 engine's.
+   engine_prefix: LLMEngine(opt_1_3b, prefix_cache=True), chunk 160, 512
+   pages, 16 prompts of a shared 900-token system prompt and seeded
+   suffixes of 64-512, 32 greedy tokens each, twice on one engine: cold,
+   then warm (>= 15 hits, a copy-on-write, fewer prefill tokens), the
+   accounting closed with cached pages; warm and cold TTFT, agreement.
+   engine_spec: the engine phase's prompts with spec_k 4, (a) a
+   gpt2_124m draft at temperature 0.8, (b) the target as its own draft,
+   greedy (acceptance >= 0.9); the exact launch counts of both kernels,
+   acceptance by draft position, tokens per tick, decode step p50/p95.
 7. train: build_training(gpt2_124m(max_seq=1024, remat=True,
    attn_impl="flash"), adamw(3e-4, weight_decay=0.1, mu_dtype=bf16))
    with seeded random weights and a seeded [8, 1024] batch: one step of
@@ -133,6 +160,8 @@ from ray_tpu_torch.train.spmd import build_training
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12            # dense tensor-core bf16
 H, K = 32, 64                  # opt_1_3b attention shape
+DRAFT_H = 12                   # gpt2_124m's heads (of 64): the spec draft
+SPEC_K = 4                     # proposals per slot per speculative tick
 CAP = 2048                     # the engine phase's max_len: longest context
 LONG_ROW = 1024                # attended positions from which a row is long
 # fp32: reassociation of fp32 sums only.
@@ -646,9 +675,47 @@ def phase_kernels(device, errs):
                                          n_pg=n_pg, width=width,
                                          dtype=torch.bfloat16, device=device,
                                          heads=heads, quant=quant))
+    # The speculative verify pass: 16 rows of C = k+1 = 5 (and 2) queries
+    # at ragged decode cursors, none a multiple of the page or the key
+    # tile, on the decode table's width (CAP positions), with inert rows;
+    # the q tile's 128 rows lie mostly past C. bf16 q, float and int8.
+    n_pg = CAP // 64
+    for quant in (False, True):
+        sfx = "_int8" if quant else ""
+        for C in (5, 2):
+            rows = [(67, C), (700, C), (1023, C), (CAP - C, C), (1, C),
+                    (64, 1), (127, C - 1), (500, C), (0, 0), (0, 0),
+                    (333, 1), (1500, C), (0, 0), (5, C), (CAP - 2 * C, C),
+                    (0, 0)]
+            ptag = (f"verify shape C={C} ps=64 bfloat16 heads={H}x{K}"
+                    f"{' int8 pool' if quant else ''} width={n_pg}")
+            record("paged_prefill_attention" + sfx, ptag, check_prefill(
+                rng, ptag, rows, C, ps=64, n_pg=n_pg, width=n_pg,
+                dtype=torch.bfloat16, device=device, heads=(H, K),
+                quant=quant))
+    # A speculative draft's heads: gpt2_124m's 12 of 64 (three decode head
+    # groups of four) beside opt_1_3b, both kernels, bf16 and int8.
+    heads = (DRAFT_H, K)
+    for quant in (False, True):
+        sfx = "_int8" if quant else ""
+        tag = f"ps=64 bfloat16 heads={heads[0]}x{K}{' int8 pool' if quant else ''}"
+        kw = dict(ps=64, dtype=torch.bfloat16, device=device, heads=heads,
+                  quant=quant)
+        lengths = [1, 33, 64, 65, 700, 1023, 1024, 1025, 1531, 1999,
+                   CAP - 64, CAP - 1, CAP, 17, 1, 1000]
+        record("paged_attention" + sfx, f"{tag} engine view B=16",
+               check_decode(rng, tag, lengths, n_pg=n_pg, null_rows={14},
+                            **kw))
+        for C in (256, 5):
+            rows = [(0, C), (64, C), (CAP - C, C), (67, 1), (1000, C),
+                    (0, 0)]
+            ptag = f"{tag} C={C} width={n_pg}"
+            record("paged_prefill_attention" + sfx, ptag, check_prefill(
+                rng, ptag, rows, C, n_pg=n_pg, width=n_pg, **kw))
     emit({"phase": "kernels_vs_plain", "tolerance": TOLERANCE,
           "cases": cases})
-    return {**time_kernels(device, errs), **time_int8_kernels(device, errs)}
+    timings = {**time_kernels(device, errs), **time_int8_kernels(device, errs)}
+    return {**timings, **time_spec_kernels(device, errs, timings)}
 
 
 def sdpa_prefill(qp, kt, vt, off):
@@ -742,7 +809,7 @@ def time_decode(tag, q, kp, vp, tables, lengths, sc, live):
     ms, ms_events = kernel_ms(call)
     plain = cuda_time_ms(lambda: pa.reference_paged_attention(
         q, kp, vp, *args, **sc), iters=10)
-    B, n_pg, ps = len(q), tables.shape[1], kp.shape[1]
+    (B, Hq, Kq), n_pg, ps = q.shape, tables.shape[1], kp.shape[1]
     if not bool((lengths[live] == n_pg * ps).all()):
         raise AssertionError("SDPA's yardstick takes whole tables")
     kt, vt = pa._gather_timeline(kp, vp, tables[live], sc.get("k_scale"),
@@ -753,21 +820,22 @@ def time_decode(tag, q, kp, vp, tables, lengths, sc, live):
     seen = lengths.clamp(min=0, max=n_pg * ps)
     rows = int(seen.sum())
     pages = int(((seen + ps - 1) // ps).sum())
-    nbytes = (2 * rows * H * K * kp.element_size()
+    nbytes = (2 * rows * Hq * Kq * kp.element_size()
               + 2 * q.numel() * q.element_size() + tables.numel() * 4
               + B * 4 + (2 * pages * 2 if sc else 0))
-    bms, by = bound_ms(nbytes, 4 * rows * H * K, BF16_FLOPS)
+    bms, by = bound_ms(nbytes, 4 * rows * Hq * Kq, BF16_FLOPS)
     n_sm = pa._sm_count(q.device)
-    n_split = pa.decode_splits(B, H, n_pg, n_sm)
-    n_parts = pa.decode_live_splits(lengths.tolist(), ps, n_pg, H, n_split,
-                                    pa.decode_stage_rows(K, kp.element_size()),
+    n_split = pa.decode_splits(B, Hq, n_pg, n_sm)
+    n_parts = pa.decode_live_splits(lengths.tolist(), ps, n_pg, Hq, n_split,
+                                    pa.decode_stage_rows(Kq,
+                                                         kp.element_size()),
                                     n_sm)
     return dict(
         ms=ms, ms_events=ms_events, plain_ms=plain, library_ms=lib,
         bound_ms=bms, bound_by=by, share_of_bound=bms / ms,
         host_us=host_us(call), n_split=n_split, n_parts=n_parts,
         bytes=nbytes, check=check,
-        shape=(f"B={B} ({int(live.sum())} live) H={H} K={K} n_pg={n_pg} "
+        shape=(f"B={B} ({int(live.sum())} live) H={Hq} K={Kq} n_pg={n_pg} "
                f"ps={ps} {str(dt).split('.')[1]} q"
                f"{', int8 pool' if sc else ''}"))
 
@@ -975,6 +1043,89 @@ def time_int8_kernels(device, errs):
                   "bound (share of 4e-5 S beyond the output's rounding), "
                   "the other faults against the bf16 bound"})
     return timings
+
+
+def time_spec_kernels(device, errs, timed):
+    """The speculative path's new shapes, each kernel held once more to its
+    plain version on the inputs it is timed on: the prefill kernel as the
+    verify pass (16 slots at 1024 positions, C = k+1 = 5 rows at offset
+    1019, H 32, K 64, ps 64, bf16 q; float and int8 pools) beside its
+    bound, its plain version, SDPA lower-right (or with a bool mask) on
+    the gathered timeline and (k+1) x the decode kernel's time at the same
+    slots (``timed``: what the verify pass replaces); and the decode
+    kernel at the draft's 12 heads (16 slots at 1024 positions)."""
+    rng = np.random.default_rng(11)
+    B, T, ps, C, dt = 16, 1024, 64, SPEC_K + 1, torch.bfloat16
+    n_pg, off = T // ps, T - C
+    every = torch.ones(B, dtype=torch.bool, device=device)
+    out = {}
+    for quant in (False, True):
+        sfx = "_int8" if quant else ""
+        kp, vp, tables, lengths, sc = paged_pool(
+            rng, [T] * B, ps=ps, n_pg=n_pg, dtype=dt, device=device,
+            quant=quant)
+        tables, lengths = (torch.from_numpy(a).to(device)
+                           for a in (tables, lengths))
+        offs = torch.full((B,), off, dtype=torch.int32, device=device)
+        qp = torch.from_numpy(rng.normal(size=(B, C, H, K)).astype(
+            np.float32)).to(device, dt)
+        args = (tables, offs, lengths)
+        call = lambda: pa.paged_prefill_attention(qp, kp, vp, *args, **sc)
+        res = call()
+        torch.cuda.synchronize()
+        ref = pa.reference_paged_prefill_attention(qp, kp, vp, *args, **sc)
+        s_abs = abs_v_attention(pa.reference_paged_prefill_attention, qp, kp,
+                                vp, *args, **sc)
+        rows = torch.ones(B, C, dtype=torch.bool, device=device)
+        attended = offs[:, None] + torch.arange(C, device=device) + 1
+        check = check_close(f"prefill{sfx} verify shape", res, ref, s_abs,
+                            dt, rows, attended >= LONG_ROW)
+        if quant:
+            check["p_unrounded"] = check_p_unrounded(
+                "prefill int8 verify shape", res,
+                pa.reference_paged_prefill_attention(
+                    qp.float(), kp, vp, *args, **sc), ref, s_abs, rows)
+        name = "paged_prefill_attention" + sfx
+        errs[name] = max(errs[name], check["max_abs_err"])
+        ms, ms_events = kernel_ms(call)
+        plain = cuda_time_ms(lambda: pa.reference_paged_prefill_attention(
+            qp, kp, vp, *args, **sc), iters=5)
+        kt, vt = pa._gather_timeline(kp, vp, tables, sc.get("k_scale"),
+                                     sc.get("v_scale"))
+        kt, vt = (x.transpose(1, 2).to(dt).contiguous() for x in (kt, vt))
+        sdpa = sdpa_prefill(qp, kt, vt, off)
+        del kt, vt
+        nbytes = (2 * B * T * H * K * kp.element_size()
+                  + 2 * B * C * H * K * 2 + (2 * B * n_pg * 2 if quant else 0)
+                  + tables.numel() * 4 + 2 * B * 4)
+        flops = 4 * B * H * K * sum(off + c + 1 for c in range(C))
+        bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        decode_ms = timed["paged_attention" + sfx]["ms"]
+        out[name + "_verify"] = dict(
+            ms=ms, ms_events=ms_events, plain_ms=plain, **sdpa,
+            bound_ms=bms, bound_by=by, share_of_bound=bms / ms,
+            bytes=nbytes, flops=flops, check=check,
+            decode_ms_same_slots=decode_ms,
+            k_plus_1_decode_ms=(SPEC_K + 1) * decode_ms,
+            shape=f"B={B} C={C} H={H} K={K} ctx={T} offset={off} ps={ps} "
+                  f"bf16 q{', int8 pool' if quant else ''} (the verify pass)")
+        del kp, vp
+    for quant in (False, True):
+        sfx = "_int8" if quant else ""
+        kp, vp, tables, lengths, sc = paged_pool(
+            rng, [T] * B, ps=ps, n_pg=n_pg, dtype=dt, device=device,
+            heads=(DRAFT_H, K), quant=quant)
+        tables, lengths = (torch.from_numpy(a).to(device)
+                           for a in (tables, lengths))
+        q = torch.from_numpy(rng.normal(size=(B, DRAFT_H, K)).astype(
+            np.float32)).to(device, dt)
+        rec = time_decode(f"draft heads{sfx}", q, kp, vp, tables, lengths,
+                          sc, every)
+        name = "paged_attention" + sfx
+        errs[name] = max(errs[name], rec["check"]["max_abs_err"])
+        out[name + "_draft_heads"] = rec
+    emit({"phase": "spec_kernel_timing", **out})
+    return out
 
 
 # ------------------------------------------------------------ flash kernels
@@ -1582,9 +1733,14 @@ def make_params(device):
 
 
 def run_programs(device, cfg, params, pool, impl):
-    """One prefill_chunk_paged dispatch (rows: 256 tokens at offset 0,
-    200 at 256, 17 at 0, an inert row) then one decode_step_paged on a
-    copy of ``pool`` → the live rows' fp32 logits of each."""
+    """On a copy of ``pool``: one prefill_chunk_paged dispatch (rows: 256
+    tokens at offset 0, 200 at 256, 17 at 0, an inert row), one
+    decode_step_paged, one verify_chunk_paged (k+1 rows at the cursors
+    after it, of 5, 3 and 1 valid tokens, and the inert row), then
+    spec_draft_propose with the model as its own draft (budgets k, 2, 0
+    and -1, temperature 1, a generator seeded 0) → per program the live
+    rows' fp32 logits, for the propose loop (proposals [k, 3], log of the
+    probability rows [k, 3, V])."""
     rng = np.random.default_rng(2)
     ps, width = pool["k"].shape[2], 8
     tables = np.zeros((4, width), np.int32)
@@ -1592,28 +1748,59 @@ def run_programs(device, cfg, params, pool, impl):
     offsets = np.array([0, 256, 0, 0], np.int32)
     n_valid = np.array([256, 200, 17, 0], np.int32)
     toks = rng.integers(1, cfg.vocab_size, size=(4, 256)).astype(np.int32)
-    dev = lambda a: torch.from_numpy(a).to(device)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     p = {k: v.clone() for k, v in pool.items()}
     lg, _ = pk.prefill_chunk_paged(cfg, params, dev(toks), p, dev(tables),
                                    dev(offsets), dev(n_valid), attn_impl=impl)
-    lg2, _ = pk.decode_step_paged(
-        cfg, params, dev(toks[:, 0].copy()), p,
-        dev((offsets + n_valid).astype(np.int32)), dev(tables),
-        attn_impl=impl)
+    cursor = (offsets + n_valid).astype(np.int32)
+    lg2, _ = pk.decode_step_paged(cfg, params, dev(toks[:, 0]), p,
+                                  dev(cursor), dev(tables), attn_impl=impl)
+    vtoks = toks[:, 1:SPEC_K + 2]
+    v_valid = np.array([SPEC_K + 1, 3, 1, 0], np.int32)
+    lg3, _ = pk.verify_chunk_paged(cfg, params, dev(vtoks), p, dev(tables),
+                                   dev(cursor + 1), dev(v_valid),
+                                   attn_impl=impl)
+    props, probs, _ = pk.spec_draft_propose(
+        cfg, params, dev(toks[:, 2]), p, dev(cursor + 1), dev(tables),
+        dev(np.array([SPEC_K, 2, 0, -1], np.int32)),
+        torch.ones(4, device=device),
+        torch.Generator(device=device).manual_seed(0), k=SPEC_K,
+        attn_impl=impl, need_probs=True)
     torch.cuda.synchronize()
-    return lg[:3].float(), lg2[:3].float()
+    live = torch.cat([lg3[i, :int(n)] for i, n in enumerate(v_valid[:3])])
+    return (lg[:3].float(), lg2[:3].float(), live.float(),
+            (props[:, :3], probs[:, :3].clamp(min=1e-30).log()))
 
 
-PROGRAM_NAMES = ("prefill_chunk_paged", "decode_step_paged")
+PROGRAM_NAMES = ("prefill_chunk_paged", "decode_step_paged",
+                 "verify_chunk_paged", "spec_draft_propose")
 
 
 def logit_diff(a, b, vocab):
-    if not (torch.isfinite(a).all() and a.shape == (3, vocab)):
+    if not (torch.isfinite(a).all() and a.dim() == 2 and a.shape[1] == vocab
+            and len(a)):
         raise AssertionError(f"bad logits {tuple(a.shape)}")
     return {"logit_mae": float((a - b).abs().mean()),
             "logit_max_abs": float((a - b).abs().max()),
             "logit_mean_abs": float(b.abs().mean()),
-            "argmax_equal": int((a.argmax(-1) == b.argmax(-1)).sum())}
+            "argmax_equal": int((a.argmax(-1) == b.argmax(-1)).sum()),
+            "rows": len(a)}
+
+
+def program_diff(name, a, b, vocab):
+    """`logit_diff` of one program's outputs. The propose loop's: its log-
+    probability rows, at each row's steps up to and including the first
+    where the two runs' proposals differ (the steps after it have other
+    inputs), beside the count of equal proposals."""
+    if name != "spec_draft_propose":
+        return logit_diff(a, b, vocab)
+    (pa_, la), (pb, lb) = a, b
+    same = (pa_ == pb).int()
+    upto = torch.cat([torch.ones_like(same[:1]), same[:-1]]).cumprod(0) > 0
+    res = logit_diff(la[upto], lb[upto], vocab)
+    res["proposals_equal"] = int(same.sum())
+    res["proposals"] = same.numel()
+    return res
 
 
 def phase_programs(device, cfg, params):
@@ -1623,8 +1810,8 @@ def phase_programs(device, cfg, params):
     out = {"phase": "programs", "config": "opt_1_3b bf16 24 layers",
            "mae_bound": PROGRAM_LOGIT_MAE}
     for i, name in enumerate(PROGRAM_NAMES):
-        out[name] = logit_diff(logits["kernel"][i], logits["gather"][i],
-                               cfg.vocab_size)
+        out[name] = program_diff(name, logits["kernel"][i],
+                                 logits["gather"][i], cfg.vocab_size)
         if out[name]["logit_mae"] > PROGRAM_LOGIT_MAE:
             raise AssertionError(f"{name}: kernel vs gather logit MAE "
                                  f"{out[name]['logit_mae']} > "
@@ -1668,11 +1855,11 @@ def phase_programs_int8(device, cfg, masters, served):
     for i, name in enumerate(PROGRAM_NAMES):
         ref = logits["gather"][i]
         out[name] = {
-            **logit_diff(logits["kernel"][i], ref, cfg.vocab_size),
-            "planted_fault_logit_mae": logit_diff(
-                faulty[i], ref, cfg.vocab_size)["logit_mae"],
-            "int8_vs_bf16_weights": logit_diff(logits["kernel"][i],
-                                               bf16_w[i], cfg.vocab_size)}
+            **program_diff(name, logits["kernel"][i], ref, cfg.vocab_size),
+            "planted_fault_logit_mae": program_diff(
+                name, faulty[i], ref, cfg.vocab_size)["logit_mae"],
+            "int8_vs_bf16_weights": program_diff(
+                name, logits["kernel"][i], bf16_w[i], cfg.vocab_size)}
         if out[name]["logit_mae"] > PROGRAM_INT8_LOGIT_MAE:
             raise AssertionError(f"{name}: int8 kernel vs gather logit MAE "
                                  f"{out[name]['logit_mae']} > "
@@ -1835,54 +2022,69 @@ def engine_prompts(cfg):
             for n in lengths]
 
 
-def run_engine(device, cfg, params, **knobs):
-    """LLMEngine(opt_1_3b) serving the 16 seeded prompts through
-    start()/submit(), 32 greedy tokens each, with every paged launch
-    counter zeroed just before and read just after. → (engine, requests,
-    launches, wall seconds); raises on a request error, a bad output or
-    page accounting that does not close."""
+def run_engine(device, cfg, params, *, prompts=None, rounds=1,
+               temperature=0.0, chunk=256, **knobs):
+    """LLMEngine(opt_1_3b) serving the 16 seeded prompts (or ``prompts``)
+    through submit()/start(), 32 tokens each at ``temperature``, for
+    ``rounds`` rounds of the same traffic on one engine; each round with
+    the stats reset and every paged launch counter zeroed just before it
+    and read just after it (the engine thread stopped, so every tick of
+    the round is in). → (engine, [(requests, launches, wall seconds,
+    metrics)] per round); raises on a request error, a bad output or page
+    accounting that does not close: every page free or held by the
+    prefix cache alone (free + cached-only == total), refs consistent."""
     eng = LLMEngine(cfg, params, n_slots=16, max_len=2048, page_size=64,
-                    prefill_chunk=256, prefill_token_budget=512,
+                    prefill_chunk=chunk, prefill_token_budget=512,
                     attn_impl="kernel", device=device, **knobs)
-    prompts = engine_prompts(cfg)
-    torch.cuda.synchronize()
-    pa.reset_launch_counts()
-    t0 = time.perf_counter()
-    eng.start()
-    try:
-        reqs = [eng.submit(p, max_tokens=ENGINE_TOKENS) for p in prompts]
+    prompts = engine_prompts(cfg) if prompts is None else prompts
+    runs = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        eng.reset_stats()
+        pa.reset_launch_counts()
+        t0 = time.perf_counter()
+        # All requests queue before the engine thread starts, so the first
+        # tick admits all of them and the schedule does not depend on the
+        # host's timing.
+        reqs = [eng.submit(p, max_tokens=ENGINE_TOKENS,
+                           temperature=temperature) for p in prompts]
+        eng.start()
+        try:
+            for r in reqs:
+                if not r.done.wait(timeout=600):
+                    raise AssertionError("engine request timed out")
+        finally:
+            eng.stop()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {
+            "paged_attention": pa.paged_attention.launches,
+            "paged_prefill_attention": pa.paged_prefill_attention.launches,
+            "paged_attention_int8": pa.paged_attention.int8_launches,
+            "paged_prefill_attention_int8":
+                pa.paged_prefill_attention.int8_launches}
+        errors = [r.error for r in reqs if r.error is not None]
+        if errors:
+            raise AssertionError(f"engine request errors: {errors[:3]}")
         for r in reqs:
-            if not r.done.wait(timeout=600):
-                raise AssertionError("engine request timed out")
-    finally:
-        eng.stop()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"paged_attention": pa.paged_attention.launches,
-                "paged_prefill_attention": pa.paged_prefill_attention.launches,
-                "paged_attention_int8": pa.paged_attention.int8_launches,
-                "paged_prefill_attention_int8":
-                    pa.paged_prefill_attention.int8_launches}
-    errors = [r.error for r in reqs if r.error is not None]
-    if errors:
-        raise AssertionError(f"engine request errors: {errors[:3]}")
-    for r in reqs:
-        if len(r.out_ids) != ENGINE_TOKENS or r.truncated or not all(
-                0 <= t < cfg.vocab_size for t in r.out_ids):
-            raise AssertionError(f"bad output for {r.request_id}: "
-                                 f"{len(r.out_ids)} tokens")
-    acc = eng.page_accounting()
-    if not (acc["closure"] and acc["refs_consistent"]
-            and acc["free"] == acc["total"]):
-        raise AssertionError(f"page accounting open: {acc}")
-    return eng, reqs, launches, wall
+            if len(r.out_ids) != ENGINE_TOKENS or r.truncated or not all(
+                    0 <= t < cfg.vocab_size for t in r.out_ids):
+                raise AssertionError(f"bad output for {r.request_id}: "
+                                     f"{len(r.out_ids)} tokens")
+        acc = eng.page_accounting()
+        if not (acc["closure"] and acc["refs_consistent"]
+                and acc["live"] == 0
+                and acc["free"] + acc["cached_only"] == acc["total"]):
+            raise AssertionError(f"page accounting open: {acc}")
+        runs.append((reqs, launches, wall, eng.metrics()))
+    return eng, runs
 
 
-def engine_record(cfg, eng, reqs, launches, wall, decode, prefill):
-    """The phase's JSON line: counts, launches per step and per dispatch
+def engine_record(cfg, eng, run, decode, prefill):
+    """A round's JSON record: counts, launches per step and per dispatch
     of the programs ``decode`` and ``prefill`` ran, and the end-to-end
     metrics."""
-    m = eng.metrics()
+    reqs, launches, wall, m = run
     steps, dispatches = m["decode_steps"], m["prefill_dispatches"]
     return {"requests": len(reqs),
             "prompt_tokens": sum(len(r.prompt_ids) for r in reqs),
@@ -1906,7 +2108,8 @@ def engine_record(cfg, eng, reqs, launches, wall, decode, prefill):
 
 def phase_engine(device, cfg, params):
     """The float engine (bf16 weights and KV) on the float programs."""
-    eng, reqs, launches, wall = run_engine(device, cfg, params)
+    eng, (run,) = run_engine(device, cfg, params)
+    launches = run[1]
     if min(launches["paged_attention"],
            launches["paged_prefill_attention"]) <= 0:
         raise AssertionError(f"a kernel never launched: {launches}")
@@ -1914,10 +2117,10 @@ def phase_engine(device, cfg, params):
             "paged_prefill_attention_int8"]:
         raise AssertionError(f"an int8 program ran in the float engine: "
                              f"{launches}")
-    out = engine_record(cfg, eng, reqs, launches, wall, "paged_attention",
+    out = engine_record(cfg, eng, run, "paged_attention",
                         "paged_prefill_attention")
     emit({"phase": "engine", "config": "opt_1_3b bf16", **out})
-    return launches, out, [r.out_ids for r in reqs]
+    return launches, out, [r.out_ids for r in run[0]]
 
 
 def agreement(streams, ref):
@@ -1936,11 +2139,11 @@ def phase_engine_int8(device, cfg, masters, float_run, float_streams):
     n_layers int8 launches per decode step and per prefill dispatch, no
     float paged launch, and kv_pool_bytes = the bf16 engine's / 2 plus
     the two bf16 [L, P+1] scale planes."""
-    eng, reqs, launches, wall = run_engine(device, cfg, masters,
-                                           weight_dtype="int8",
-                                           kv_dtype="int8")
-    out = engine_record(cfg, eng, reqs, launches, wall,
-                        "paged_attention_int8", "paged_prefill_attention_int8")
+    eng, (run,) = run_engine(device, cfg, masters, weight_dtype="int8",
+                             kv_dtype="int8")
+    reqs, launches = run[:2]
+    out = engine_record(cfg, eng, run, "paged_attention_int8",
+                        "paged_prefill_attention_int8")
     L = cfg.n_layers
     if launches["paged_attention"] or launches["paged_prefill_attention"]:
         raise AssertionError(f"a float program ran in the int8 engine: "
@@ -1965,6 +2168,226 @@ def phase_engine_int8(device, cfg, masters, float_run, float_streams):
               "mean": float(np.mean(shares)),
               "identical_streams": sum(x == 1.0 for x in shares)}})
     return launches
+
+
+# ------------------------------------------- prefix cache, speculation
+
+PREFIX_SHARED, PREFIX_CHUNK, PREFIX_BIND = 900, 160, 800
+# Warm against cold last-token logits (fp32, from the same rows through
+# the same shapes: equal bits expected): the fp32 bound of the kernels.
+PREFIX_LOGIT_TOL = "|warm - cold| <= 1e-5 + 1e-5 |cold|"
+PREFIX_FAULT_FACTOR = 100    # the planted fault's least share of that bound
+
+
+def chunk_prefill_row0(cfg, params, pool, prompt, table, start, device):
+    """Chunked prefill of ``prompt[start:]`` into row 0 of fixed [16, 160]
+    dispatches at table width 16 (the other rows inert), kernel path →
+    the last token's fp32 logits [V]."""
+    tables = np.zeros((16, 16), np.int32)
+    tables[0, :len(table)] = table
+    dev = lambda a: torch.from_numpy(a).to(device)
+    for done in range(start, len(prompt), PREFIX_CHUNK):
+        n = min(PREFIX_CHUNK, len(prompt) - done)
+        toks = np.zeros((16, PREFIX_CHUNK), np.int32)
+        toks[0, :n] = prompt[done:done + n]
+        offs, nv = np.zeros(16, np.int32), np.zeros(16, np.int32)
+        offs[0], nv[0] = done, n
+        last, _ = pk.prefill_chunk_paged(
+            cfg, params, dev(toks), pool, dev(tables), dev(offs), dev(nv),
+            return_logits=done + n >= len(prompt), attn_impl="kernel")
+    torch.cuda.synchronize()
+    return last[0].float()
+
+
+def warm_and_cold(cfg, params, kv_dtype, copy, device):
+    """A 900-token prompt prefilled cold into pages 1-15; its first 800
+    positions bound into another table: pages 1-12 shared and page 13
+    (positions 768-799 written, 800-831 not) copied by ``copy`` onto page
+    16, a recycled page that held another request's rows (and, int8, its
+    scale); pages 17-18 fresh; then prefilled from 800 in the same
+    dispatch shape. → (cold, warm) last-token logits."""
+    rng = np.random.default_rng(4)
+    prompt = rng.integers(1, cfg.vocab_size, PREFIX_SHARED).astype(np.int32)
+    stale = rng.integers(1, cfg.vocab_size, 64).astype(np.int32)
+    pool = pk.init_paged_kv(cfg, 18, 64, kv_dtype=kv_dtype, device=device)
+    chunk_prefill_row0(cfg, params, pool, stale, [16], 0, device)
+    cold = chunk_prefill_row0(cfg, params, pool, prompt, list(range(1, 16)),
+                              0, device)
+    p_full = PREFIX_BIND // 64
+    copy(pool, torch.tensor([p_full + 1], device=device),
+         torch.tensor([16], device=device))
+    warm = chunk_prefill_row0(cfg, params, pool, prompt,
+                              list(range(1, p_full + 1)) + [16, 17, 18],
+                              PREFIX_BIND, device)
+    del pool
+    return cold, warm
+
+
+def share_of_fp32_bound(out, ref):
+    err = (out - ref).abs()
+    return float((err / (1e-5 + 1e-5 * ref.abs())).max())
+
+
+def copy_k_v_only(pool, src, dst):
+    """The planted fault: copy-on-write of the K/V planes alone, the page
+    keeping whatever scale its row holds."""
+    for name in ("k", "v"):
+        pool[name][:, dst] = pool[name][:, src]
+    return pool
+
+
+def phase_programs_prefix(device, cfg, params):
+    """Warm admission at the program level on opt_1_3b (float and int8
+    pools, bf16 weights): a warm bind (12 shared pages plus a
+    copy_pages of page 12) and a prefill from 800 against the cold 900-
+    token prefill; on the int8 pool, a copy without the scale planes must
+    fail the bound by PREFIX_FAULT_FACTOR."""
+    out = {"phase": "programs_prefix", "config": "opt_1_3b bf16 24 layers",
+           "tolerance": PREFIX_LOGIT_TOL,
+           "dispatch": f"[16, {PREFIX_CHUNK}] row 0, table width 16, ps 64"}
+    for kv in ("bf16", "int8"):
+        cold, warm = warm_and_cold(cfg, params, kv, pk.copy_pages, device)
+        if not (torch.isfinite(cold).all() and cold.shape
+                == (cfg.vocab_size,)):
+            raise AssertionError(f"bad logits {tuple(cold.shape)}")
+        rec = {"share_of_bound": share_of_fp32_bound(warm, cold),
+               "bitwise_equal": bool(torch.equal(warm, cold)),
+               "max_abs_diff": float((warm - cold).abs().max()),
+               "argmax_equal": int(warm.argmax()) == int(cold.argmax())}
+        if rec["share_of_bound"] > 1.0:
+            raise AssertionError(f"warm != cold on the {kv} pool: {rec}")
+        if kv == "int8":
+            cold_f, warm_f = warm_and_cold(cfg, params, kv, copy_k_v_only,
+                                           device)
+            rec["planted_fault"] = "copy_pages without the scale planes"
+            rec["planted_fault_factor"] = share_of_fp32_bound(warm_f, cold_f)
+            if rec["planted_fault_factor"] <= PREFIX_FAULT_FACTOR:
+                raise AssertionError(f"the planted COW fault passes: {rec}")
+        out[f"{kv} pool"] = rec
+    emit(out)
+
+
+def prefix_prompts(cfg):
+    """16 prompts: one shared 900-token system prompt and seeded suffixes
+    of 64-512 tokens."""
+    rng = np.random.default_rng(ENGINE_PROMPT_SEED + 1)
+    shared = list(map(int, rng.integers(1, cfg.vocab_size, PREFIX_SHARED)))
+    return [shared + list(map(int, rng.integers(1, cfg.vocab_size, n)))
+            for n in rng.integers(64, 513, size=16)]
+
+
+def round_record(run, keys):
+    reqs, launches, wall, m = run
+    return {"wall_s": wall, "launches": launches,
+            **{k: m.get(k) for k in keys}}
+
+
+PREFIX_KEYS = ("prefix_hits", "prefix_misses", "cow_copies",
+               "prefix_cached_tokens", "prefix_evictions",
+               "prefix_cache_pages", "prefix_cache_entries",
+               "prefill_tokens", "prefill_dispatches", "ttft_ms_p50",
+               "ttft_ms_p95", "ttft_warm_ms_p50", "ttft_warm_ms_p95",
+               "ttft_cold_ms_p50", "ttft_cold_ms_p95", "decode_step_ms_p50",
+               "decode_step_ms_p95", "preemptions", "kv_pages_free_min")
+
+
+def phase_engine_prefix(device, cfg, params):
+    """LLMEngine(opt_1_3b, prefix_cache=True), chunk 160 (cached depths
+    of odd multiples of 160 end mid-page: copy-on-write), 512 pages (half
+    of them the cache's budget): the 16 shared-prefix prompts at once,
+    cold (round 1), then the same 16 again, warm (round 2). Requires no
+    request error, >= 15 hits and a copy in round 2, fewer prefill tokens
+    than round 1, both kernels launched in each round, and the closed
+    accounting with cached pages."""
+    eng, runs = run_engine(device, cfg, params, prompts=prefix_prompts(cfg),
+                           rounds=2, chunk=PREFIX_CHUNK, prefix_cache=True,
+                           n_pages=512)
+    cold, warm = runs
+    for name, (_r, launches, _w, _m) in (("cold", cold), ("warm", warm)):
+        if min(launches["paged_attention"],
+               launches["paged_prefill_attention"]) <= 0:
+            raise AssertionError(f"{name}: a kernel never launched: "
+                                 f"{launches}")
+    mw, mc = warm[3], cold[3]
+    if not (mw["prefix_hits"] >= 15 and mw["cow_copies"] > 0
+            and mw["prefill_tokens"] < mc["prefill_tokens"]):
+        raise AssertionError(f"warm round: hits {mw['prefix_hits']}, copies "
+                             f"{mw['cow_copies']}, prefill tokens "
+                             f"{mw['prefill_tokens']} (cold "
+                             f"{mc['prefill_tokens']})")
+    shares = agreement([r.out_ids for r in warm[0]],
+                       [r.out_ids for r in cold[0]])
+    emit({"phase": "engine_prefix", "config": "opt_1_3b bf16, prefix cache, "
+          f"chunk {PREFIX_CHUNK}, 512 pages of 64",
+          "prompts": f"16 x ({PREFIX_SHARED} shared + 64-512 seeded)",
+          "cold_round": round_record(cold, PREFIX_KEYS),
+          "warm_round": round_record(warm, PREFIX_KEYS),
+          "warm_agreement_with_cold": {
+              "share_before_first_divergence": shares,
+              "mean": float(np.mean(shares)),
+              "identical_streams": sum(x == 1.0 for x in shares)},
+          "page_accounting": eng.page_accounting()})
+    return warm[1]
+
+
+SPEC_KEYS = ("spec_ticks", "spec_slot_steps", "spec_proposed",
+             "spec_accepted", "spec_emitted", "spec_accept_rate",
+             "spec_accepted_per_step", "spec_accept_rate_by_position",
+             "prefill_dispatches", "prefill_tokens", "ttft_ms_p50",
+             "ttft_ms_p95", "decode_step_ms_p50", "decode_step_ms_p95",
+             "engine_decode_tok_s", "preemptions", "kv_pages_free_min")
+SELF_DRAFT_ACCEPT = 0.9
+
+
+def phase_engine_spec(device, cfg, params, float_streams):
+    """Speculative decoding on opt_1_3b, the engine phase's 16 prompts,
+    spec_k 4: (a) a gpt2_124m draft (12 heads, random weights from seed
+    1) at temperature 0.8, the sampling branch with rejection and
+    rollback; (b) the target as its own draft, greedy, which must accept
+    >= SELF_DRAFT_ACCEPT of its proposals. Each run: launches of the
+    prefill kernel = target layers x (chunk dispatches + spec ticks) +
+    draft layers x chunk dispatches, of the decode kernel = draft layers
+    x (k+1) x spec ticks (every decode tick is a spec tick)."""
+    out = {"phase": "engine_spec", "config": "opt_1_3b bf16, spec_k "
+           f"{SPEC_K}, chunk 256"}
+    draft = gpt.GPTConfig.gpt2_124m(dtype=torch.bfloat16)
+    launched = {}
+    for arm, knobs, temp in (
+            ("gpt2_124m draft, temperature 0.8",
+             dict(spec_draft=draft), 0.8),
+            ("self-draft, greedy",
+             dict(spec_draft=cfg, spec_draft_params=params), 0.0)):
+        eng, (run,) = run_engine(device, cfg, params, temperature=temp,
+                                 spec_k=SPEC_K, **knobs)
+        reqs, launches, _wall, m = run
+        dl, tl = eng.draft_cfg.n_layers, cfg.n_layers
+        want = {"paged_prefill_attention":
+                tl * (m["prefill_dispatches"] + m["spec_ticks"])
+                + dl * m["prefill_dispatches"],
+                "paged_attention": dl * (SPEC_K + 1) * m["spec_ticks"],
+                "paged_attention_int8": 0,
+                "paged_prefill_attention_int8": 0}
+        if launches != want or not m["spec_ticks"]:
+            raise AssertionError(f"{arm}: launches {launches}, expected "
+                                 f"{want}")
+        rec = round_record(run, SPEC_KEYS)
+        rec["draft"] = {"n_layers": dl, "n_heads": eng.draft_cfg.n_heads,
+                        "d_model": eng.draft_cfg.d_model}
+        if float_streams is not None:
+            shares = agreement([r.out_ids for r in reqs], float_streams)
+            rec["agreement_with_float_engine"] = {
+                "share_before_first_divergence": shares,
+                "mean": float(np.mean(shares)),
+                "identical_streams": sum(x == 1.0 for x in shares)}
+        out[arm] = rec
+        launched[arm] = launches
+        if temp == 0.0 and m["spec_accept_rate"] < SELF_DRAFT_ACCEPT:
+            raise AssertionError(f"{arm}: acceptance {m['spec_accept_rate']}"
+                                 f" < {SELF_DRAFT_ACCEPT}")
+        del eng
+        torch.cuda.empty_cache()
+    emit(out)
+    return launched
 
 
 # ------------------------------------------------------------------- train
@@ -2137,8 +2560,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="",
                     help="comma list of phases: kernels,programs,profile,"
-                         "engine,train (default: all; the build always "
-                         "runs)")
+                         "engine,engine_prefix,engine_spec,train (default: "
+                         "all; the build always runs)")
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc -Xptxas -v (registers, spills)")
     ap.add_argument("--ab", metavar="OLD_CHECKOUT", default="",
@@ -2199,24 +2622,40 @@ def main(argv=None) -> int:
         timings.update(phase_flash_kernels(device, errs))
     if args.ab:
         phase_ab(device, args.ab)
-    if want("programs") or want("profile") or want("engine"):
+    # Launches of each serving path, each read from its own run (every
+    # run zeroes every count just before it): the kernels line's
+    # ``launches`` are the main path's (the float engine for the float
+    # programs, the int8 engine for the int8 ones); ``launches_by_path``
+    # adds the prefix-cache and speculative paths.
+    by_path: dict = {}
+    serving = ("programs", "profile", "engine", "engine_prefix",
+               "engine_spec")
+    if any(want(p) for p in serving):
         cfg, masters, params = make_params(device)
         if want("programs"):
             phase_programs(device, cfg, params)
             phase_programs_int8(device, cfg, masters, params)
+            phase_programs_prefix(device, cfg, params)
         if want("profile"):
             phase_profile(device, cfg, masters, params)
+        streams = None
         if want("engine"):
-            # Each serving path is read from its own run: the float
-            # programs' counts from the float engine, the int8 programs'
-            # from the int8 engine (each run zeroes every count first).
             counts, float_run, streams = phase_engine(device, cfg, params)
+            by_path["engine"] = counts
             launches.update({k: counts[k] for k in (
                 "paged_attention", "paged_prefill_attention")})
             counts = phase_engine_int8(device, cfg, masters, float_run,
                                        streams)
+            by_path["engine_int8"] = counts
             launches.update({k: counts[k] for k in (
                 "paged_attention_int8", "paged_prefill_attention_int8")})
+        if want("engine_prefix"):
+            by_path["engine_prefix (warm round)"] = phase_engine_prefix(
+                device, cfg, params)
+        if want("engine_spec"):
+            by_path.update({f"engine_spec ({arm})": c for arm, c in
+                            phase_engine_spec(device, cfg, params,
+                                              streams).items()})
         del cfg, masters, params
         torch.cuda.empty_cache()
     if want("train"):
@@ -2235,6 +2674,9 @@ def main(argv=None) -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             **{k: t[k] for k in ("library_covers", "covered_ms",
                                  "library_see") if k in t}})
+        paths = {p: c[name] for p, c in by_path.items() if c.get(name)}
+        if paths:
+            kernels[-1]["launches_by_path"] = paths
     if kernels:
         print(json.dumps({"kernels": kernels}), flush=True)
         RECORD["kernels"] = kernels

@@ -1,9 +1,11 @@
 """Block-paged KV cache and the paged serving programs (PyTorch).
 
 Counterpart of ``ray_tpu/models/paged_kv.py`` on one device:
-`init_paged_kv` (float or int8 pool), `_quant_write`,
-`_chunk_paged_forward`, `prefill_chunk_paged`, `_decode_once_paged`,
-`decode_step_paged`, `decode_multi_paged`, `_sample_next` and
+`init_paged_kv` (float or int8 pool), `_quant_write`, the page ops
+(`copy_pages`, `gather_pages`, `scatter_pages`), `_chunk_paged_forward`,
+`prefill_chunk_paged`, `verify_chunk_paged`, `_decode_once_paged`,
+`decode_step_paged`, `decode_multi_paged`, `spec_draft_propose` (with
+the body of `_spec_propose_scan`), `_sample_next` and
 `_last_valid_logits`.
 
 Layout (the JAX package's): one pool ``{"k", "v"}`` of
@@ -30,7 +32,11 @@ Differences from the JAX programs, all deliberate:
   index here is in range by construction.
 - `_last_valid_logits` selects each row's last valid hidden state
   BEFORE the LM head instead of after it: the head is row-wise, so the
-  numbers are the same, without a [N, C, V] fp32 logits tensor.
+  numbers are the same, without a [N, C, V] fp32 logits tensor. The
+  verify program (`verify_chunk_paged`) needs the head at every chunk
+  position and runs it on the whole [N, C, D] block.
+- The fused loops (`decode_multi_paged`, `spec_draft_propose`) sample
+  from a ``torch.Generator`` instead of threading a JAX key.
 """
 
 from __future__ import annotations
@@ -106,6 +112,45 @@ def _quant_write(pool_l, scale_l, write_pages, write_offs, values):
     q = torch.clamp(torch.round(v32 / s), -127, 127).to(torch.int8)
     pool_l[pages, write_offs.long()] = q
     scale_l.copy_(new_scale)
+
+
+# ------------------------------------------------------------- page ops
+#
+# Dict-generic, like the JAX package's: every plane of the pool moves, so
+# the int8 pool's scale planes [L, P+1] travel with their pages (a copied
+# page keeps the scale its codes were quantized under). Each takes page
+# ids [n] on the pool's device; padding pairs/ids are the null page 0,
+# whose content no read ever uses unmasked.
+
+def copy_pages(pool, src, dst):
+    """Copy-on-write for the prefix cache: duplicate pages ``src[i]`` →
+    ``dst[i]`` in every layer of every plane, IN PLACE. Padding pairs
+    ``(0, 0)`` copy the null page onto itself (the reads happen before
+    the writes, so duplicates of dst 0 all write page 0's own content);
+    real dst ids are fresh allocations, never aliased. → pool."""
+    src, dst = src.long(), dst.long()
+    for plane in pool.values():
+        plane[:, dst] = plane[:, src]
+    return pool
+
+
+def gather_pages(pool, pages):
+    """Pages ``pages[i]`` of every layer of every plane →
+    ``{name: [L, n, ...]}`` (a new tensor per plane; null-page ids read
+    the null page)."""
+    pages = pages.long()
+    return {name: plane[:, pages] for name, plane in pool.items()}
+
+
+def scatter_pages(pool, pages, payload):
+    """Write ``payload[name][:, i]`` into pool rows ``pages[i]`` of every
+    plane, IN PLACE: the inverse of `gather_pages`, so an int8 page lands
+    with the scales it was quantized under. Padding ids are the null page
+    with zero payloads; real ids are fresh allocations. → pool."""
+    pages = pages.long()
+    for name, plane in pool.items():
+        plane[:, pages] = payload[name].to(plane.dtype)
+    return pool
 
 
 def serving_params(cfg: GPTConfig, params: dict, device=None) -> dict:
@@ -240,6 +285,24 @@ def prefill_chunk_paged(cfg: GPTConfig, params, tokens, pool, tables,
     return _last_valid_logits(cfg, params, x, n_valid), pool
 
 
+def verify_chunk_paged(cfg: GPTConfig, params, tokens, pool, tables,
+                       offsets, n_valid, *, attn_impl: str = "gather"):
+    """Speculative verify: score a [N, C] batch of rows ``[pending,
+    draft_1, ..., draft_k]`` (C = k+1) written at each slot's decode
+    cursor ``offsets`` (in place), with the LM head at EVERY chunk
+    position: row i's logits are the target distribution of the token
+    after position offsets + i. The body is `prefill_chunk_paged`'s (the
+    verify pass is a chunked-prefill row at an arbitrary offset, causal
+    within the chunk); rows with ``n_valid`` 0 are inert. Rejected
+    positions are rolled back by the engine rewinding its cursors: their
+    K/V sit past every kv length and are overwritten by the next write.
+    → (logits [N, C, V] fp32, pool)."""
+    _check_impl(attn_impl)
+    x, pool = _chunk_paged_forward(cfg, params, tokens, pool, tables,
+                                   offsets, n_valid, attn_impl)
+    return _head(params, cfg, x), pool
+
+
 def _decode_once_paged(cfg: GPTConfig, params, tokens, pool, positions,
                        tables, attn_impl: str = "gather", write_mask=None):
     """All B slots advance one token against the page pool (in place).
@@ -326,7 +389,49 @@ def decode_multi_paged(cfg: GPTConfig, params, tokens, pool, positions,
     return torch.stack(out), pool
 
 
+def spec_draft_propose(cfg: GPTConfig, params, tokens, pool, positions,
+                       tables, n_prop, temps, generator, *, k: int,
+                       attn_impl: str = "gather", need_probs: bool = True):
+    """Fused speculative draft loop: k+1 draft decode steps with on-device
+    sampling against the DRAFT's page pool (in place), sharing the
+    target's page tables (the draft owns no pages: its pool rows at the
+    same page ids mirror the target's token layout, so the target's
+    allocation, COW, prefix sharing and rollback govern both).
+
+    Step 0 feeds each slot's pending token at its decode cursor
+    (``positions``); step i samples proposal d_i from the previous step's
+    logits and feeds it at cursor + i, writing the draft's K/V there only
+    where i <= n_prop (else to the null page). The extra (k+1)th step
+    exists only for its write: it lands d_k's draft K/V at cursor + k, so
+    after an all-accepted tick the draft cursor still equals the
+    target's and no catch-up pass is needed.
+
+    tokens: [B] pending token per slot; positions: [B]; n_prop: [B]
+    proposal budget per slot (-1 = an inert row); temps: [B] (0 = greedy
+    argmax); ``generator``: the torch.Generator the draws come from.
+    → (proposals [k, B] int32, the temperature-scaled softmax rows they
+    were drawn from [k, B, V] fp32 (what rejection sampling divides by)
+    or None when ``need_probs`` is False, pool)."""
+    _check_impl(attn_impl)
+    toks = tokens
+    pos = positions.to(torch.int64)
+    n_prop = n_prop.to(torch.int64)
+    out, probs = [], []
+    for i in range(k + 1):
+        logits, pool = _decode_once_paged(cfg, params, toks, pool, pos,
+                                          tables, attn_impl,
+                                          write_mask=n_prop >= i)
+        toks, scaled = _sample_next(logits, temps, generator)
+        out.append(toks)
+        if need_probs and i < k:
+            probs.append(torch.softmax(scaled, dim=-1))
+        pos = pos + 1
+    return (torch.stack(out[:k]), torch.stack(probs) if need_probs else None,
+            pool)
+
+
 __all__ = [
-    "init_paged_kv", "serving_params", "prefill_chunk_paged",
-    "decode_step_paged", "decode_multi_paged",
+    "init_paged_kv", "serving_params", "copy_pages", "gather_pages",
+    "scatter_pages", "prefill_chunk_paged", "verify_chunk_paged",
+    "decode_step_paged", "decode_multi_paged", "spec_draft_propose",
 ]

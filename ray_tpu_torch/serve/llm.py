@@ -15,12 +15,25 @@ before the cast to ``cfg.dtype``), and ``kv_dtype="int8"`` keeps an int8
 page pool with per-page scale planes, read by the int8 programs of the
 paged-attention kernels; either alone or both.
 
+``prefix_cache=True`` shares KV pages across requests
+(``serve/prefix_cache.py``): admission binds the longest cached
+chunk-aligned prefix into the slot's table read-only, copies a tail
+page that the cold suffix would write (copy-on-write, one `copy_pages`
+per tick, before any dispatch) and starts chunked prefill at the first
+cold token; a request that completes donates its written prefix.
+
+``spec_draft=...`` decodes speculatively: a draft model with its own page
+pool, sharing the target's page tables, proposes ``spec_k`` tokens per
+slot per tick in one fused loop (`spec_draft_propose`), the target scores
+all of them in one chunked-prefill verify pass (`verify_chunk_paged`),
+and rejection sampling (`spec_accept_tokens`) accepts a prefix plus one
+correction or bonus token. Greedy streams equal non-speculative decode's.
+
 Not ported in this slice, each rejected with a ValueError when asked
-for: dense KV, one-shot prefill, the prefix cache, speculative
-decoding, tensor parallelism, KV page-set transfer (pool roles,
-kv_transfer, kv_store), drain/export, compile warmup and the Serve
-deployment wrapper. The tracing, profiling, chaos and
-compile-watch hooks of the JAX engine have no counterpart here.
+for: dense KV, one-shot prefill, tensor parallelism, KV page-set
+transfer (pool roles, kv_transfer, kv_store), drain/export, compile
+warmup and the Serve deployment wrapper. The tracing, profiling, chaos
+and compile-watch hooks of the JAX engine have no counterpart here.
 """
 
 from __future__ import annotations
@@ -40,6 +53,7 @@ from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models import gpt
 from ray_tpu_torch.models import paged_kv as _paged
 from ray_tpu_torch.models.decode import sample_token
+from ray_tpu_torch.serve.prefix_cache import PrefixCache
 
 # Engine defaults, copied from the JAX package's runtime config.
 DEFAULT_DECODE_BLOCK = 8
@@ -47,6 +61,8 @@ DEFAULT_PAGE_SIZE = 64
 DEFAULT_PREFILL_CHUNK = 256
 DEFAULT_PREFILL_TOKEN_BUDGET = 256
 DEFAULT_WIDTH_BUCKETING = True
+DEFAULT_PREFIX_CACHE_PAGES = 0     # 0 = half the pool
+DEFAULT_SPEC_K = 4
 
 
 def _pow2_width(n: int) -> int:
@@ -65,6 +81,66 @@ def _ring_pctls(ring) -> tuple[float, float]:
             round(s[max(0, math.ceil(len(s) * 0.95) - 1)], 3))
 
 
+def _softmax_f64(row: np.ndarray) -> np.ndarray:
+    z = row.astype(np.float64)
+    z -= z.max()
+    e = np.exp(z)
+    return e / e.sum()
+
+
+def spec_accept_tokens(rng, temperature: float, proposals, draft_probs,
+                       verify_logits, n_prop: int, *,
+                       verify_argmax=None) -> tuple[list[int], int]:
+    """Speculative rejection sampling for ONE slot (Leviathan-style), the
+    JAX engine's host numpy as it is: accept draft proposal x_i with
+    probability min(1, p_i(x_i) / q_i(x_i)); on the first rejection emit
+    one sample from the residual norm(max(p_i - q_i, 0)); after n_prop
+    straight acceptances emit a bonus token from the target's next
+    distribution. The emitted marginal at every position is exactly p,
+    for any proposal distribution q.
+
+    Greedy (temperature 0) is argmax-chain matching: every emitted token
+    is the argmax of the target's own logits at its position, so the
+    stream equals non-speculative greedy decode's however bad the draft.
+
+    proposals: [>= n_prop] draft tokens; draft_probs: [>= n_prop, V] the
+    temperature-scaled distributions they were sampled from (q);
+    verify_logits: [>= n_prop+1, V] target logits, row i scoring the
+    token after chunk position i; verify_argmax: optional [>= n_prop+1]
+    per-row argmax, all the greedy branch needs (an all-greedy tick
+    copies only this to the host). rng: a numpy Generator.
+    → (emitted tokens, length 1..n_prop+1; accepted proposal count)."""
+    emitted: list[int] = []
+    if temperature == 0.0:
+        if verify_argmax is None:
+            verify_argmax = [int(np.argmax(verify_logits[i]))
+                             for i in range(n_prop + 1)]
+        for i in range(n_prop):
+            tgt = int(verify_argmax[i])
+            emitted.append(tgt)
+            if int(proposals[i]) != tgt:
+                return emitted, i
+        emitted.append(int(verify_argmax[n_prop]))
+        return emitted, n_prop
+    for i in range(n_prop):
+        x = int(proposals[i])
+        p = _softmax_f64(verify_logits[i] / temperature)
+        q = draft_probs[i].astype(np.float64)
+        if rng.random() * max(float(q[x]), 1e-30) < float(p[x]):
+            emitted.append(x)
+            continue
+        resid = np.maximum(p - q, 0.0)
+        z = resid.sum()
+        # A vanishing residual means p ≈ q, where acceptance is ~certain
+        # anyway: falling back to p keeps the marginal exact.
+        pr = resid / z if z > 1e-12 else p
+        emitted.append(int(rng.choice(len(pr), p=pr)))
+        return emitted, i
+    p = _softmax_f64(verify_logits[n_prop] / temperature)
+    emitted.append(int(rng.choice(len(p), p=p)))
+    return emitted, n_prop
+
+
 @dataclasses.dataclass
 class GenRequest:
     request_id: str
@@ -80,6 +156,12 @@ class GenRequest:
     finished_at: float | None = None
     # Admission aging (starvation guard), as in the JAX engine.
     admit_bypasses: int = 0
+    # Prefix-cache hit at admission: tokens served from cached pages
+    # (prefill started at this offset); the warm/cold TTFT split reads it.
+    cached_tokens: int = 0
+    # Memoized chunk-hash chain over prompt_ids (contexts only grow, so
+    # a page-blocked request hashes each chunk once).
+    prefix_hashes: list = dataclasses.field(default_factory=list)
     out_ids: list[int] = dataclasses.field(default_factory=list)
     truncated: bool = False   # finished early (capacity/unresumable preempt)
     stream: "queue.Queue | None" = None
@@ -102,7 +184,10 @@ class LLMEngine:
     on CUDA, gather on the CPU). ``weight_dtype`` and ``kv_dtype`` are
     "bf16" (float, in ``cfg.dtype``) or "int8". Parameters are quantized
     (int8 weights), cast to ``cfg.dtype`` and moved to the device once,
-    here.
+    here. ``prefix_cache``/``prefix_cache_pages`` (0 = half the pool)
+    turn on page sharing; ``spec_draft`` (a GPTConfig or a preset name)
+    with ``spec_k`` and optional ``spec_draft_params`` (else random from
+    ``seed + 1``) turns on speculative decoding.
     """
 
     def __init__(self, cfg, params=None, *, n_slots: int = 8,
@@ -115,17 +200,47 @@ class LLMEngine:
                  prefill_token_budget: int = DEFAULT_PREFILL_TOKEN_BUDGET,
                  prefill_width_bucketing: bool = DEFAULT_WIDTH_BUCKETING,
                  device=None,
-                 prefix_cache: bool = False, spec_draft=None,
+                 prefix_cache: bool = False,
+                 prefix_cache_pages: int = DEFAULT_PREFIX_CACHE_PAGES,
+                 spec_draft=None, spec_k: int = DEFAULT_SPEC_K,
                  spec_draft_params=None, tp: int = 1,
                  pool_role: str | None = None, kv_transfer: bool = False,
                  kv_store=None, weight_dtype: str = "bf16",
                  kv_dtype: str = "bf16", warmup: bool = False):
+        paged_chunked = kv_mode == "paged" and bool(prefill_chunk)
+        if prefix_cache and not paged_chunked:
+            raise ValueError(
+                "prefix_cache requires kv_mode='paged' AND prefill_chunk > 0 "
+                "(the cache granularity is the prefill chunk); got "
+                f"kv_mode={kv_mode!r}, prefill_chunk={prefill_chunk}")
+        if prefix_cache_pages < 0:
+            raise ValueError(
+                f"prefix_cache_pages must be >= 0, got {prefix_cache_pages}")
+        if spec_draft and not paged_chunked:
+            raise ValueError(
+                "speculative decoding requires kv_mode='paged' AND "
+                "prefill_chunk > 0 (the verify pass is a chunked-prefill "
+                f"row); got kv_mode={kv_mode!r}, prefill_chunk={prefill_chunk}")
+        if spec_draft_params is not None and not spec_draft:
+            raise ValueError(
+                "spec_draft_params supplied but speculative decoding is not "
+                "enabled (set spec_draft)")
+        draft_cfg = None
+        if spec_draft:
+            if spec_k < 1:
+                raise ValueError(
+                    f"spec_k must be >= 1 (tokens the draft proposes per "
+                    f"slot per tick), got {spec_k}")
+            draft_cfg = (spec_draft if isinstance(spec_draft, gpt.GPTConfig)
+                         else gpt.GPTConfig.by_name(spec_draft))
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    "speculative draft/target vocab mismatch: draft "
+                    f"vocab_size {draft_cfg.vocab_size} != target vocab_size "
+                    f"{cfg.vocab_size} (the tokenizer must be tied)")
         for asked, feature in (
                 (kv_mode != "paged", f"kv_mode={kv_mode!r}"),
                 (not prefill_chunk, "one-shot prefill (prefill_chunk=0)"),
-                (bool(prefix_cache), "the prefix cache"),
-                (bool(spec_draft) or spec_draft_params is not None,
-                 "speculative decoding"),
                 (tp != 1, "tensor parallelism (tp > 1)"),
                 (pool_role is not None or bool(kv_transfer)
                  or kv_store is not None, "KV page-set transfer"),
@@ -190,8 +305,53 @@ class LLMEngine:
         self.slot_n_pages = np.zeros(n_slots, np.int64)
         # pop() hands out ascending ids; 0 stays reserved (null page).
         self.free_pages = list(range(n_pages, 0, -1))
+        # Per-page refcounts: slots' tables AND prefix-cache entries each
+        # hold one; a page returns to free_pages when the LAST ref drops.
         self.page_refs = np.zeros(n_pages + 1, np.int32)
         self._min_free_pages = n_pages
+        # Speculative decoding: the draft keeps its OWN page pool (shaped
+        # to the draft config) but shares the target's page TABLES and
+        # cursors: draft pool row p mirrors target pool row p token for
+        # token (chunk prefill, decode writes and COW copies are all
+        # mirrored), so the target's page accounting, prefix sharing and
+        # rollback govern both and the draft holds no reference.
+        self.spec_k = int(spec_k) if spec_draft else 0
+        self.spec_draft_name = (spec_draft if isinstance(spec_draft, str)
+                                else "custom" if spec_draft else "")
+        self.draft_cfg = draft_cfg
+        self.draft_params = self.draft_cache = None
+        if spec_draft:
+            if spec_draft_params is None:
+                gen = torch.Generator(device=self.device).manual_seed(
+                    seed + 1)
+                spec_draft_params = gpt.init_params(draft_cfg, gen,
+                                                    self.device)
+            if weight_dtype == "int8":
+                spec_draft_params = gpt.quantize_params(spec_draft_params)
+            self.draft_params = _paged.serving_params(
+                draft_cfg, spec_draft_params, self.device)
+            self.draft_cache = _paged.init_paged_kv(
+                draft_cfg, n_pages, page_size, kv_dtype=kv_dtype,
+                device=self.device)
+            # Acceptance draws (temperature > 0) gate host control flow
+            # (emit, rollback): a host numpy generator, as in the JAX engine.
+            self._spec_rng = np.random.default_rng(seed)
+        # Per draft position i < spec_k: proposals made there and accepted.
+        self._spec_pos = np.zeros((2, max(self.spec_k, 1)), np.int64)
+        # Prefix cache: None = off (the engine without page sharing).
+        self.prefix_cache = None
+        if prefix_cache:
+            budget = (min(prefix_cache_pages, n_pages) if prefix_cache_pages
+                      else max(1, n_pages // 2))
+            self.prefix_cache = PrefixCache(
+                chunk=prefill_chunk, page_size=page_size, max_pages=budget,
+                ref_page=self._ref_page, unref_page=self._unref_page)
+        # slot -> pinned CacheEntry while the slot is live (released on
+        # free/preempt), and the tick's pending COW (src, dst) pairs,
+        # flushed in one copy before the tick's first dispatch.
+        self._slot_entry: dict = {}
+        self._cow_pairs: list[tuple[int, int]] = []
+        self._evictions_synced = 0
         self.tokens = np.zeros(n_slots, np.int32)
         self.positions = np.zeros(n_slots, np.int32)
         self.temps = np.zeros(n_slots, np.float32)
@@ -208,16 +368,19 @@ class LLMEngine:
         self._dispatch_width_ring: "collections.deque[int]" = (
             collections.deque(maxlen=4096))
         self._dispatch_width_counts: dict[int, int] = {}
-        # Decode windows sample on the device from this generator; host
-        # graduation samples (temperature > 0) from the CPU one.
+        # Decode windows and draft loops sample on the device from this
+        # generator; host graduation samples (temperature > 0) from the
+        # CPU one.
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._host_gen = torch.Generator().manual_seed(seed)
-        self._step_ms: "collections.deque[float]" = collections.deque(
-            maxlen=4096)
-        self._ttft_ms: "collections.deque[float]" = collections.deque(
-            maxlen=4096)
-        self._burst_step_ms: "collections.deque[float]" = collections.deque(
-            maxlen=4096)
+        ring = lambda: collections.deque(maxlen=4096)
+        self._step_ms: "collections.deque[float]" = ring()
+        self._ttft_ms: "collections.deque[float]" = ring()
+        # Warm/cold TTFT split (prefix cache): warm = admission bound a
+        # cached prefix (cached_tokens > 0).
+        self._ttft_warm_ms: "collections.deque[float]" = ring()
+        self._ttft_cold_ms: "collections.deque[float]" = ring()
+        self._burst_step_ms: "collections.deque[float]" = ring()
         self._last_window_end: float | None = None
         self._shutdown = threading.Event()
         self._fatal: str | None = None
@@ -232,7 +395,18 @@ class LLMEngine:
                       "decode_time_s": 0.0, "decode_windows": 0,
                       "decode_steps": 0,
                       "slot_step_sum": 0, "slot_cap_sum": 0,
-                      "preemptions": 0}
+                      "preemptions": 0,
+                      # Prefix-cache lifecycle (zeros unless enabled).
+                      "prefix_hits": 0, "prefix_misses": 0,
+                      "prefix_evictions": 0, "cow_copies": 0,
+                      "prefix_cached_tokens": 0,
+                      # Speculative decoding (zeros unless enabled):
+                      # proposed and accepted draft tokens, verify passes
+                      # (one per tick), per-slot verify steps, and tokens
+                      # emitted through the accept path.
+                      "spec_proposed": 0, "spec_accepted": 0,
+                      "spec_ticks": 0, "spec_slot_steps": 0,
+                      "spec_emitted": 0}
 
     # ------------------------------------------------------------- API
 
@@ -299,24 +473,39 @@ class LLMEngine:
             self._dispatch_width_ring.clear()
             self._dispatch_width_counts.clear()
             self._ttft_ms.clear()
+            self._ttft_warm_ms.clear()
+            self._ttft_cold_ms.clear()
             self._burst_step_ms.clear()
             self._last_window_end = None
             self._min_free_pages = len(self.free_pages)
+            self._spec_pos[:] = 0
 
     def _observe_window(self, t0: float, end: float, k: int,
                         n_active: int, tick_prefill: bool) -> None:
-        """Per-decode-window accounting: every slot advances k tokens."""
+        """Non-speculative window: every slot advances exactly k tokens."""
+        self._observe_decode(t0, end, float(k), k * n_active,
+                             k * self.n_slots, tick_prefill, steps=k)
+
+    def _observe_decode(self, t0: float, end: float, per_slot: float,
+                        emitted: int, cap: int, tick_prefill: bool, *,
+                        steps: int = 0) -> None:
+        """Decode-tick accounting shared by the fused window and the
+        speculative tick: ``per_slot`` tokens each active slot advanced
+        (the step-time ring is tick wall / per_slot), ``emitted`` tokens
+        in all, ``cap`` the tick's most emittable tokens (the occupancy
+        denominator), ``steps`` fused decode steps (0 for a spec tick)."""
         dt = end - t0
+        per_slot = max(1.0, per_slot)
         with self._lock:
             self.stats["decode_time_s"] += dt
             self.stats["decode_windows"] += 1
-            self.stats["decode_steps"] += k
-            self.stats["slot_step_sum"] += k * n_active
-            self.stats["slot_cap_sum"] += k * self.n_slots
-            self._step_ms.append(dt / k * 1000.0)
+            self.stats["decode_steps"] += steps
+            self.stats["slot_step_sum"] += emitted
+            self.stats["slot_cap_sum"] += cap
+            self._step_ms.append(dt / per_slot * 1000.0)
             if tick_prefill and self._last_window_end is not None:
                 self._burst_step_ms.append(
-                    (end - self._last_window_end) / k * 1000.0)
+                    (end - self._last_window_end) / per_slot * 1000.0)
             self._last_window_end = end
 
     def metrics(self) -> dict:
@@ -348,6 +537,36 @@ class LLMEngine:
                 m["prefill_dispatch_widths"] = {
                     str(w): c for w, c in
                     sorted(self._dispatch_width_counts.items())}
+            if self.spec_k:
+                m["spec_k"] = self.spec_k
+                m["spec_draft"] = self.spec_draft_name
+                if m["spec_slot_steps"]:
+                    # Tokens emitted per slot per verify pass: 1.0 is the
+                    # non-speculative rate, k+1 the ceiling.
+                    m["spec_accepted_per_step"] = round(
+                        m["spec_emitted"] / m["spec_slot_steps"], 4)
+                if m["spec_proposed"]:
+                    m["spec_accept_rate"] = round(
+                        m["spec_accepted"] / m["spec_proposed"], 4)
+                made, took = self._spec_pos
+                m["spec_accept_rate_by_position"] = [
+                    round(int(a) / int(n), 4) if n else None
+                    for n, a in zip(made, took)]
+            if self.prefix_cache is not None:
+                m["prefix_cache"] = True
+                m["prefix_cache_entries"] = len(self.prefix_cache.entries)
+                m["prefix_cache_pages"] = self.prefix_cache.n_pages_cached()
+                m["prefix_cache_pages_budget"] = self.prefix_cache.max_pages
+                looked = m["prefix_hits"] + m["prefix_misses"]
+                if looked:
+                    m["prefix_cache_hit_rate"] = round(
+                        m["prefix_hits"] / looked, 4)
+                if self._ttft_warm_ms:
+                    (m["ttft_warm_ms_p50"],
+                     m["ttft_warm_ms_p95"]) = _ring_pctls(self._ttft_warm_ms)
+                if self._ttft_cold_ms:
+                    (m["ttft_cold_ms_p50"],
+                     m["ttft_cold_ms_p95"]) = _ring_pctls(self._ttft_cold_ms)
             if self._step_ms:
                 m["decode_step_ms_p50"], m["decode_step_ms_p95"] = (
                     _ring_pctls(self._step_ms))
@@ -397,11 +616,33 @@ class LLMEngine:
             self.page_refs[pg] = 0
             self.free_pages.append(int(pg))
 
+    def _cache_reclaim(self, need: int) -> None:
+        """Pressure valve: evict zero-active prefix-cache entries (LRU)
+        until ``need`` pages are free or nothing evictable remains. The
+        cache gives its pages back BEFORE the scheduler shrinks a window
+        or preempts a live decode."""
+        if self.prefix_cache is None:
+            return
+        while len(self.free_pages) < need:
+            if self.prefix_cache.evict_one() is None:
+                break
+        self._sync_cache_evictions()
+
+    def _sync_cache_evictions(self) -> None:
+        """Fold the cache's cumulative evictions (donate() evicts too)
+        into the stats."""
+        delta = self.prefix_cache.evictions - self._evictions_synced
+        if delta > 0:
+            self._evictions_synced = self.prefix_cache.evictions
+            self.stats["prefix_evictions"] += delta
+
     def _grow_slot(self, slot: int, last_pos: int) -> bool:
         """Allocate pages so `slot` covers `last_pos`. All-or-nothing."""
         need = self._pages_for(last_pos) - int(self.slot_n_pages[slot])
         if need <= 0:
             return True
+        if need > len(self.free_pages):
+            self._cache_reclaim(need)
         if need > len(self.free_pages):
             return False
         for _ in range(need):
@@ -417,22 +658,30 @@ class LLMEngine:
         self.slot_n_pages[slot] = 0
 
     def page_accounting(self) -> dict:
-        """Closure check: every pool page is exactly one of free / owned
-        by a slot table, and each owned page's refcount matches its
-        owners. Valid when the engine is stopped or driven synchronously."""
+        """Closure check: every pool page is exactly one of free /
+        referenced, and every reference is owned by a slot table or a
+        prefix-cache entry (free + live + cached-only == total). Valid when
+        the engine is stopped or driven synchronously."""
         live: dict[int, int] = {}
         for slot in range(self.n_slots):
             for i in range(int(self.slot_n_pages[slot])):
                 pg = int(self.page_table[slot, i])
                 live[pg] = live.get(pg, 0) + 1
-        allocated = set(live)
-        refs_ok = all(int(self.page_refs[pg]) == live[pg]
-                      for pg in allocated)
+        pc = self.prefix_cache
+        cached = pc.cached_pages() if pc is not None else set()
+        allocated = set(live) | cached
+        refs_ok = all(
+            int(self.page_refs[pg]) == live.get(pg, 0)
+            + (pc.page_refs_held(pg) if pc is not None else 0)
+            for pg in allocated)
         free = len(self.free_pages)
         return {
             "total": self.n_pages,
             "free": free,
             "live": len(live),
+            "cached": len(cached),
+            "cached_only": len(cached - set(live)),
+            "shared": sum(1 for pg in live if live[pg] > 1 or pg in cached),
             "closure": free + len(allocated) == self.n_pages,
             "refs_consistent": refs_ok and not (
                 set(self.free_pages) & allocated),
@@ -450,7 +699,11 @@ class LLMEngine:
             req.first_token_at = now
             self.stats["ttft_sum"] += now - req.submitted_at
             with self._lock:
-                self._ttft_ms.append((now - req.submitted_at) * 1000.0)
+                ms = (now - req.submitted_at) * 1000.0
+                self._ttft_ms.append(ms)
+                if self.prefix_cache is not None:
+                    (self._ttft_warm_ms if req.cached_tokens
+                     else self._ttft_cold_ms).append(ms)
         req.out_ids.append(token)
         if req.stream is not None:
             req.stream.put(token)
@@ -480,13 +733,18 @@ class LLMEngine:
     def _admit(self) -> None:
         """Move queued requests into free slots. A request is admitted
         once ONE CHUNK of pool headroom exists; its prompt then enters
-        chunk-by-chunk under step()'s token budget. Up to
+        chunk-by-chunk under step()'s token budget. A prefix-cache hit,
+        acquired (pinned) here at reservation time so the reclaim below
+        cannot evict it, shrinks the reservation: shared full pages come
+        from the cache, so only a COW tail and the first cold chunk's
+        pages need the free list; the hit is bound into the slot's table
+        and the chunk cursor starts at the first cold token. Up to
         _ADMIT_LOOKAHEAD page-blocked requests are set aside (returning
-        to the deferred head in order) while requests behind them that
-        fit admit now; a bypassed head ages and past
+        to the deferred head in order, unpinned) while requests behind
+        them that fit admit now; a bypassed head ages and past
         _ADMIT_BYPASS_LIMIT blocks all lookahead until it admits."""
         free = [s for s in range(self.n_slots) if self.slot_req[s] is None]
-        reqs: list[GenRequest] = []
+        reqs: list[tuple[GenRequest, object]] = []
         blocked: list[GenRequest] = []
         head_mark = 0
         planned_pages = 0
@@ -498,9 +756,21 @@ class LLMEngine:
                     req = self.pending.get_nowait()
                 except queue.Empty:
                     break
-            end = min(self.prefill_chunk, len(req.prompt_ids))
-            need = self._pages_for(end - 1)
+            hit, n_cached = None, 0
+            if self.prefix_cache is not None:
+                hit = self.prefix_cache.acquire(req.prompt_ids,
+                                                memo=req.prefix_hashes)
+                if hit is not None:
+                    n_cached = hit.n_tokens
+            end = min(n_cached + self.prefill_chunk, len(req.prompt_ids))
+            need = self._pages_for(end - 1) - n_cached // self.page_size
             if planned_pages + need > len(self.free_pages):
+                self._cache_reclaim(planned_pages + need)
+            if planned_pages + need > len(self.free_pages):
+                if hit is not None:
+                    # Not admitted this round: unpin (the entry is
+                    # re-acquired when the request is scanned again).
+                    self.prefix_cache.release(hit)
                 if not blocked:
                     head_mark = len(reqs)
                     if req.admit_bypasses >= self._ADMIT_BYPASS_LIMIT:
@@ -511,19 +781,77 @@ class LLMEngine:
                     break
                 continue
             planned_pages += need
-            reqs.append(req)
+            reqs.append((req, hit))
         for req in reversed(blocked):
             self._deferred.appendleft(req)   # original order, at the head
         if blocked and len(reqs) > head_mark:
             blocked[0].admit_bypasses += 1
-        for req, slot in zip(reqs, free):
+        for (req, hit), slot in zip(reqs, free):
+            n_cached = 0
+            if self.prefix_cache is not None:
+                n_cached = self._bind_cached_prefix(slot, req, hit)
             with self._lock:
                 self.slot_req[slot] = req
             self.tokens[slot] = 0
             self.positions[slot] = 0
             self.temps[slot] = req.temperature
-            self._chunk_pos[slot] = 0
+            self._chunk_pos[slot] = n_cached
             self._prefilling.append(slot)
+
+    def _bind_cached_prefix(self, slot: int, req: GenRequest, entry) -> int:
+        """Warm admission: bind ``entry``, the cached chunk-aligned prefix
+        of ``req.prompt_ids`` that _admit acquired, into ``slot``'s table.
+        Full pages are shared READ-ONLY (refcount bumped; the binder's
+        writes all land past them). A prefix ending mid-page gets a fresh
+        tail page and a queued (src, dst) copy (`_apply_cow`); with no
+        page free for it the bind falls back to the full pages. → tokens
+        served from the cache (the chunk cursor's start)."""
+        # Reset first: a preempted warm request may re-admit cold.
+        req.cached_tokens = 0
+        if entry is None:
+            self.stats["prefix_misses"] += 1
+            return 0
+        ps = self.page_size
+        n_cached = entry.n_tokens
+        p_full = n_cached // ps
+        for i in range(p_full):
+            self._ref_page(entry.pages[i])
+            self.page_table[slot, i] = entry.pages[i]
+        self.slot_n_pages[slot] = p_full
+        if n_cached % ps:
+            dst = self._alloc_page()
+            if dst is None:
+                n_cached = p_full * ps
+            else:
+                self.page_table[slot, p_full] = dst
+                self.slot_n_pages[slot] = p_full + 1
+                self._cow_pairs.append((int(entry.pages[p_full]), int(dst)))
+                self.stats["cow_copies"] += 1
+        if n_cached <= 0:
+            # Cold after all: a prefix shorter than a page, no COW page.
+            self.prefix_cache.release(entry)
+            self.stats["prefix_misses"] += 1
+            return 0
+        self._slot_entry[slot] = entry
+        req.cached_tokens = n_cached
+        self.stats["prefix_hits"] += 1
+        self.stats["prefix_cached_tokens"] += n_cached
+        return n_cached
+
+    def _apply_cow(self) -> None:
+        """Flush the tick's queued copy-on-write pairs as one `copy_pages`
+        call per pool, mirrored into the draft's pool (draft page p holds
+        the draft's K/V of target page p's tokens). Runs before the tick's
+        first dispatch: a warm slot's first cold chunk writes into its
+        copied tail page."""
+        if not self._cow_pairs:
+            return
+        pairs, self._cow_pairs = self._cow_pairs, []
+        src, dst = (self._to_dev(np.asarray(a, np.int64))
+                    for a in zip(*pairs))
+        self.cache = _paged.copy_pages(self.cache, src, dst)
+        if self.spec_k:
+            self.draft_cache = _paged.copy_pages(self.draft_cache, src, dst)
 
     def _run_prefill_chunks(self, decode_active: bool) -> int:
         """Spend the per-tick prefill token budget: advance mid-prefill
@@ -621,11 +949,20 @@ class LLMEngine:
             tables[i] = self.page_table[slot, :width]
             any_final |= done + n >= len(req.prompt_ids)
         try:
+            args = [self._to_dev(a) for a in (toks, tables, offsets, valid)]
             last, self.cache = _paged.prefill_chunk_paged(
-                self.cfg, self.params, self._to_dev(toks), self.cache,
-                self._to_dev(tables), self._to_dev(offsets),
-                self._to_dev(valid), return_logits=any_final,
-                attn_impl=self.attn_impl)
+                self.cfg, self.params, args[0], self.cache, *args[1:],
+                return_logits=any_final, attn_impl=self.attn_impl)
+            if self.spec_k:
+                # Draft prefill mirror: the same rows through the draft
+                # into its pool (same tables and offsets), so a slot
+                # graduates with the draft's cursor at the target's. The
+                # draft's logits are unused (propose feeds the pending
+                # token itself), so the no-head program runs.
+                _none, self.draft_cache = _paged.prefill_chunk_paged(
+                    self.draft_cfg, self.draft_params, args[0],
+                    self.draft_cache, *args[1:], return_logits=False,
+                    attn_impl=self.attn_impl)
             if any_final:
                 last = last.cpu().numpy()
             elif self.device.type == "cuda":
@@ -665,15 +1002,36 @@ class LLMEngine:
     def _release(self, slot: int) -> None:
         """Free a slot and its pages. Positions reset so multi-step
         windows never walk an idle slot's write cursor toward the cache
-        boundary."""
+        boundary.
+
+        Insert-on-free: a request that completed cleanly donates its
+        chunk-aligned written prefix (prompt AND generated tokens) to the
+        prefix cache BEFORE its cursor is zeroed and its pages unreffed,
+        so the cache's refs keep the donated pages alive. positions[slot]
+        counts the slot's written positions on every path; the written
+        sequence is prompt_ids[:n_prompt] + out_ids (a preempt already
+        folded earlier tokens into prompt_ids). Preempted and failed
+        slots never donate: a preempt reclaims pages, and a failed
+        dispatch's pages may be garbage."""
+        req = self.slot_req[slot]
         with self._lock:
             self.slot_req[slot] = None
+        if (self.prefix_cache is not None and req is not None
+                and req.done.is_set() and req.error is None):
+            n_written = int(self.positions[slot])
+            seq = (req.prompt_ids[:req.n_prompt] + req.out_ids)[:n_written]
+            self.prefix_cache.donate(seq, self.page_table[slot],
+                                     memo=req.prefix_hashes)
+            self._sync_cache_evictions()
         self.tokens[slot] = 0
         self.positions[slot] = 0
         self.temps[slot] = 0.0
         if slot in self._chunk_pos:      # mid-prefill slot going away
             self._chunk_pos.pop(slot, None)
             self._prefilling.remove(slot)
+        entry = self._slot_entry.pop(slot, None)
+        if entry is not None:
+            self.prefix_cache.release(entry)
         self._free_slot_pages(slot)
 
     def _preempt(self, slot: int) -> None:
@@ -712,6 +1070,10 @@ class LLMEngine:
                     max(0, self._pages_for(int(self.positions[s]) + kk - 1)
                         - int(self.slot_n_pages[s]))
                     for s in active)
+                if extra > len(self.free_pages):
+                    # Cached pages go before a window shrinks, and long
+                    # before anything is preempted.
+                    self._cache_reclaim(extra)
                 if extra <= len(self.free_pages):
                     for s in active:
                         if not self._grow_slot(
@@ -773,15 +1135,181 @@ class LLMEngine:
             view[self._prefilling] = 0
         return view
 
+    # --------------------------------------------- speculative decoding
+
+    def _fit_spec_pages(self, active: list[int], k_map: dict) -> list[int]:
+        """Grow every active slot to cover its verify writes (cursor ..
+        cursor + k_i). Under pressure, in order: reclaim zero-active
+        cache entries at each rung, degrade the proposal budgets (k_i →
+        1 → 0; a 0-proposal tick is a one-token verify, i.e. a decode
+        step), then `_shed_for_pages`. → surviving active slots."""
+        while active:
+            for shrink in (None, 1, 0):
+                ext = {s: (k_map[s] if shrink is None
+                           else min(k_map[s], shrink)) for s in active}
+                extra = sum(
+                    max(0, self._pages_for(int(self.positions[s]) + ext[s])
+                        - int(self.slot_n_pages[s]))
+                    for s in active)
+                if extra > len(self.free_pages):
+                    self._cache_reclaim(extra)
+                if extra <= len(self.free_pages):
+                    for s in active:
+                        k_map[s] = ext[s]
+                        if not self._grow_slot(
+                                s, int(self.positions[s]) + ext[s]):
+                            raise RuntimeError("page fit desync")
+                    return active
+            active = self._shed_for_pages(active)
+        return []
+
+    def _rollback_spec_pages(self, slots: list[int]) -> None:
+        """Drop, in one vectorized update over the surviving slots, the
+        pages past each slot's rolled-back cursor: they were grown for
+        this tick alone (shared prefix-cache pages always sit below the
+        cursor), so one unref frees them and no partly verified K/V is
+        kept."""
+        if not slots:
+            return
+        rows = np.asarray(slots, np.int64)
+        keep = (self.positions[rows] - 1) // self.page_size + 1
+        have = self.slot_n_pages[rows]
+        cols = np.arange(self.max_pages_per_slot)[None, :]
+        drop = (cols >= keep[:, None]) & (cols < have[:, None])
+        if drop.any():
+            tbl = self.page_table[rows]
+            dropped = tbl[drop]
+            self.page_refs[dropped] -= 1
+            freed = dropped[self.page_refs[dropped] <= 0]
+            self.page_refs[freed] = 0
+            self.free_pages.extend(int(p) for p in freed)
+            tbl[drop] = 0
+            self.page_table[rows] = tbl
+            self.slot_n_pages[rows] = np.minimum(have, keep)
+
+    def _spec_decode_window(self, active: list[int],
+                            tick_prefill: bool) -> int:
+        """One speculative tick for every decode-ready slot: the draft
+        proposes up to spec_k tokens per slot in one fused loop
+        (`spec_draft_propose`: k+1 draft steps), the target scores all
+        k+1 positions in one verify pass (`verify_chunk_paged`),
+        `spec_accept_tokens` accepts a prefix of the proposals plus a
+        correction or bonus token, and the rejected tail's pages roll
+        back. When no active slot samples, only the [B, k+1] argmax of
+        the verify logits (and the [k, B] proposals) cross to the host.
+        → slots that did decode work."""
+        k = self.spec_k
+        survivors = []
+        for slot in active:
+            if self.positions[slot] + 1 >= self.max_len:
+                self._finish_capacity(slot)
+            else:
+                survivors.append(slot)
+        active = survivors
+        if not active:
+            self._last_window_end = None
+            return 0
+        # Per-slot proposal budget: never past the request's remaining
+        # output (- 1: the verify pass always emits one token beyond the
+        # accepted proposals) or the KV capacity. 0 is legal: the tick is
+        # a one-token verify but still runs the fixed-shape pair.
+        k_map = {
+            s: max(0, min(k,
+                          self.slot_req[s].max_tokens
+                          - len(self.slot_req[s].out_ids) - 1,
+                          self.max_len - 1 - int(self.positions[s])))
+            for s in active}
+        active = self._fit_spec_pages(active, k_map)
+        if not active:
+            self._last_window_end = None
+            return 0
+        table_view = self._to_dev(self._decode_table_view(active))
+        n_prop = np.full(self.n_slots, -1, np.int32)
+        for slot in active:
+            n_prop[slot] = k_map[slot]
+        t0 = time.perf_counter()
+        sampling = any(self.slot_req[s].temperature > 0.0 for s in active)
+        tokens, positions = (self._to_dev(a)
+                             for a in (self.tokens, self.positions))
+        proposals, draft_probs, self.draft_cache = _paged.spec_draft_propose(
+            self.draft_cfg, self.draft_params, tokens, self.draft_cache,
+            positions, table_view, self._to_dev(n_prop),
+            self._to_dev(self.temps), self._gen, k=k,
+            attn_impl=self.attn_impl, need_probs=sampling)
+        # Verify rows: [pending, d_1 .. d_k] per slot at its decode
+        # cursor; inert rows (mid-prefill and free slots) carry n_valid 0.
+        vtoks = torch.cat([tokens[:, None], proposals.T], dim=1)
+        n_valid = np.where(n_prop >= 0, n_prop + 1, 0).astype(np.int32)
+        logits, self.cache = _paged.verify_chunk_paged(
+            self.cfg, self.params, vtoks, self.cache, table_view, positions,
+            self._to_dev(n_valid), attn_impl=self.attn_impl)
+        proposals = proposals.cpu().numpy()                   # [k, B]
+        if sampling:
+            draft_probs = draft_probs.cpu().numpy()           # [k, B, V]
+            logits, argmax = logits.cpu().numpy(), None       # [B, k+1, V]
+        else:
+            logits, argmax = None, torch.argmax(
+                logits, dim=-1).cpu().numpy()                 # [B, k+1]
+        proposed = accepted = emitted_total = 0
+        survivors = []
+        for slot in active:
+            req = self.slot_req[slot]
+            ki = k_map[slot]
+            proposed += ki
+            emitted, j = spec_accept_tokens(
+                self._spec_rng, req.temperature, proposals[:, slot],
+                draft_probs[:, slot] if sampling else None,
+                logits[slot] if sampling else None, ki,
+                verify_argmax=None if sampling else argmax[slot])
+            self._spec_pos[0, :ki] += 1
+            self._spec_pos[1, :j] += 1
+            t = int(self.positions[slot])
+            e = 0
+            finished = False
+            for tok in emitted:
+                e += 1
+                if self._emit(req, tok):
+                    finished = True
+                    break
+            # Every emitted token but the last has its K/V written by the
+            # verify pass ([pending, d_1..d_ki] at t..t+ki); the last is
+            # the new pending token, as in non-speculative decode.
+            self.positions[slot] = t + e
+            accepted += min(j, e)
+            emitted_total += e
+            if finished:
+                # The donation reads positions[slot]: accepted tokens only.
+                self._release(slot)
+            else:
+                self.tokens[slot] = emitted[e - 1]
+                survivors.append(slot)
+        self._rollback_spec_pages(survivors)
+        end = time.perf_counter()
+        cap = (sum(k_map[s] + 1 for s in active)
+               + (self.n_slots - len(active)) * (k + 1))
+        self._observe_decode(t0, end, emitted_total / len(active),
+                             emitted_total, cap, tick_prefill)
+        with self._lock:
+            self.stats["spec_ticks"] += 1
+            self.stats["spec_slot_steps"] += len(active)
+            self.stats["spec_proposed"] += proposed
+            self.stats["spec_accepted"] += accepted
+            self.stats["spec_emitted"] += emitted_total
+        return len(active)
+
     def step(self) -> int:
-        """One engine tick: admit queued requests, spend the chunked-
-        prefill token budget, then one fused decode window for every
+        """One engine tick: admit queued requests, flush their copy-on-
+        write pairs, spend the chunked-prefill token budget, then one
+        fused decode window (or one speculative tick) for every
         decode-ready slot. → slots that did work."""
         return self._step()
 
     def _step(self) -> int:
         pt0 = self.stats["prefill_tokens"]
         self._admit()
+        # The COW flush MUST precede any dispatch that could write this
+        # tick: a warm slot's first cold chunk writes its copied page.
+        self._apply_cow()
         decode_ready = any(
             self.slot_req[i] is not None and i not in self._chunk_pos
             for i in range(self.n_slots))
@@ -794,6 +1322,11 @@ class LLMEngine:
             self._last_window_end = None
             return n_prefilling
         tick_prefill = self.stats["prefill_tokens"] > pt0
+        if self.spec_k:
+            # Speculation replaces the fused window: one propose dispatch
+            # and one verify pass per tick, 1..k+1 tokens per slot.
+            return self._spec_decode_window(active, tick_prefill) + (
+                n_prefilling)
         k = self._pick_window(active)
         active, k = self._fit_window_pages(active, k)
         if not active:

@@ -8,7 +8,10 @@ the bf16 kernels also at ragged S/T on packed qkv views;
 fp32 and bf16, the tensor-core head dims 64 and 128), the launch
 counters, the wrappers' refusals (no fallback to the plain path), the
 tiny engine with ``attn_impl="kernel"`` against ``"gather"`` on the
-card (float, and int8 weights with an int8 pool), and one
+card (float, and int8 weights with an int8 pool), the prefill kernel at
+the speculative verify shape (C = 5 and 2 at ragged cursors) and both
+paged kernels at a draft's 12 heads, the engine with the prefix cache
+and a draft on the kernels against the plain engine, and one
 gpt2_124m-wide training step with
 ``attn_impl="flash"`` against ``"xla"``. The file imports neither JAX nor the JAX package, and the
 repo's conftest does, so run it with::
@@ -549,6 +552,154 @@ def test_engine_int8_kernel_streams_match_gather_on_the_card(cuda):
     assert pa.paged_prefill_attention.int8_launches > 0
     assert (pa.paged_attention.launches,
             pa.paged_prefill_attention.launches) == (0, 0)
+    assert outs["kernel"] == outs["gather"]
+
+
+def _scattered_tables(rng, lengths, ps, n_pg):
+    """[B, n_pg] tables over a random permutation of the pool's pages:
+    each slot the pages its length needs, 0 (null) after them."""
+    need = [min(-(-int(n) // ps), n_pg) for n in lengths]
+    perm = rng.permutation(np.arange(1, sum(need) + 1)).astype(np.int32)
+    tables = np.zeros((len(lengths), n_pg), np.int32)
+    at = 0
+    for b, n in enumerate(need):
+        tables[b, :n] = perm[at:at + n]
+        at += n
+    return tables, sum(need) + 1
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("C", [5, 2])
+def test_prefill_at_the_verify_shape(cuda, C, quant):
+    """The speculative verify pass: 16 rows of C = k+1 queries at ragged
+    decode cursors (not multiples of the page or the key tile) on the
+    decode table's width, with inert rows; 32 heads of 64, ps 64, bf16
+    q, float and int8 pools. The q tile's 128 rows are mostly past C."""
+    rng = np.random.default_rng(12)
+    ps, H, K, n_pg = 64, 32, 64, 16
+    cap = n_pg * ps
+    cursors = [ps + 3, 700, cap - 1 - C, cap - C, 1, 64, 127, 500, 0, 0,
+               333, 900, 0, 5, 1000 - C, 0]
+    valid = [C, C, C, C, C, 1, C - 1, C, 0, 0, 1, C, 0, C, C, 0]
+    lens = np.array([c + v for c, v in zip(cursors, valid)], np.int32)
+    tables, n_pages = _scattered_tables(rng, lens, ps, n_pg)
+    if quant:
+        kp, ks, vp, vs = _int8_pool(rng, n_pages, ps, H, K, cuda)
+        sc = {"k_scale": ks, "v_scale": vs}
+    else:
+        kp, vp = _pool(rng, n_pages, ps, H, K, torch.bfloat16, cuda)
+        sc = {}
+    q = torch.from_numpy(rng.normal(size=(16, C, H, K)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    args = [torch.from_numpy(a).to(cuda) for a in
+            (tables, np.array(cursors, np.int32), lens)]
+    out = pa.paged_prefill_attention(q, kp, vp, *args, **sc)
+    torch.cuda.synchronize()
+    assert (pa.paged_prefill_attention.int8_launches,
+            pa.paged_prefill_attention.launches) == (
+        (1, 0) if quant else (0, 1))
+    live = args[2] > 0
+    assert torch.all(out[~live] == 0)        # inert rows: the l == 0 guard
+    ref = pa.reference_paged_prefill_attention(q, kp, vp, *args, **sc)
+    if quant:
+        s_abs = _abs_v_int8(pa.reference_paged_prefill_attention, q, kp, ks,
+                            vp, vs, *args)
+    else:
+        s_abs = _abs_v(pa.reference_paged_prefill_attention, q, kp, vp,
+                       *args)
+    _close(out[live], ref[live], torch.bfloat16, s_abs[live])
+    if quant:
+        ref32 = pa.reference_paged_prefill_attention(q.float(), kp, vp,
+                                                     *args, **sc)
+        _close_p_unrounded(out[live], ref32[live], s_abs[live])
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernels_at_the_drafts_heads(cuda, dtype, quant):
+    """Both paged kernels at gpt2_124m's 12 heads of 64 (a speculative
+    draft beside opt_1_3b): three decode head groups of four; decode at
+    16 ragged slots, then prefill rows of C = 160 and C = 5."""
+    rng = np.random.default_rng(13)
+    ps, H, K, n_pg = 64, 12, 64, 16
+    lengths = np.array([1, 33, 64, 65, 700, 1023, 1024, 900, 1, 500, 128,
+                        129, 17, 1000, 2, 640], np.int32)
+    tables, n_pages = _scattered_tables(rng, lengths, ps, n_pg)
+    if quant:
+        kp, ks, vp, vs = _int8_pool(rng, n_pages, ps, H, K, cuda)
+        sc = {"k_scale": ks, "v_scale": vs}
+        abs_v = lambda ref, q, *a: _abs_v_int8(ref, q, kp, ks, vp, vs, *a)
+    else:
+        kp, vp = _pool(rng, n_pages, ps, H, K, dtype, cuda)
+        sc = {}
+        abs_v = lambda ref, q, *a: _abs_v(ref, q, kp, vp, *a)
+    t = torch.from_numpy(tables).to(cuda)
+    n = torch.from_numpy(lengths).to(cuda)
+    q = torch.from_numpy(rng.normal(size=(16, H, K)).astype(
+        np.float32)).to(cuda, dtype)
+    out = pa.paged_attention(q, kp, vp, t, n, **sc)
+    torch.cuda.synchronize()
+    ref = pa.reference_paged_attention(q, kp, vp, t, n, **sc)
+    _close(out, ref, dtype, abs_v(pa.reference_paged_attention, q, t, n),
+           rtol=1e-5 if quant else 0)
+    for C in (160, 5):
+        offs = np.maximum(lengths - C, 0).astype(np.int32)
+        qp = torch.from_numpy(rng.normal(size=(16, C, H, K)).astype(
+            np.float32)).to(cuda, dtype)
+        args = (t, torch.from_numpy(offs).to(cuda), n)
+        out = pa.paged_prefill_attention(qp, kp, vp, *args, **sc)
+        torch.cuda.synchronize()
+        ref = pa.reference_paged_prefill_attention(qp, kp, vp, *args, **sc)
+        _close(out, ref, dtype, abs_v(pa.reference_paged_prefill_attention,
+                                      qp, *args), rtol=1e-5 if quant else 0)
+    launched = (pa.paged_attention.int8_launches if quant
+                else pa.paged_attention.launches,
+                pa.paged_prefill_attention.int8_launches if quant
+                else pa.paged_prefill_attention.launches)
+    assert launched == (1, 2)
+
+
+def test_engine_prefix_cache_and_spec_on_the_card(cuda):
+    """The kernel engine with the prefix cache and a draft (two heads of
+    64) serves two waves of shared-prefix prompts (copy-on-write at chunk
+    20 / page 16) with the streams of the plain gather engine without
+    either, fp32; the draft's decode steps and both verify and prefill
+    passes launch kernels; the accounting closes with cached pages."""
+    cfg = gpt.GPTConfig.tiny_untied(dtype=torch.float32, d_model=256,
+                                    n_heads=4)          # head_dim 64
+    dcfg = gpt.GPTConfig.tiny_untied(dtype=torch.float32, d_model=128,
+                                     n_heads=2, n_layers=1)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = gpt.init_params(cfg, gen, cuda)
+    rng = np.random.default_rng(4)
+    shared = list(map(int, rng.integers(1, cfg.vocab_size, 56)))
+    prompts = [shared + list(map(int, rng.integers(1, cfg.vocab_size, n)))
+               for n in (3, 9, 20, 5, 14, 7)]
+    kw = dict(n_slots=4, max_len=128, page_size=16, prefill_chunk=20,
+              prefill_token_budget=40, device=cuda)
+    outs = {}
+    for name, extra in (("gather", dict(attn_impl="gather")),
+                        ("kernel", dict(attn_impl="kernel",
+                                        prefix_cache=True, spec_draft=dcfg,
+                                        spec_k=3))):
+        pa.reset_launch_counts()
+        eng = LLMEngine(cfg, params, **kw, **extra)
+        outs[name] = []
+        for lo in (0, 3):
+            reqs = [eng.submit(p, max_tokens=10) for p in prompts[lo:lo + 3]]
+            for _ in range(400):
+                if all(r.done.is_set() for r in reqs):
+                    break
+                eng.step()
+            assert all(r.done.is_set() and r.error is None for r in reqs)
+            outs[name] += [r.out_ids for r in reqs]
+        acc = eng.page_accounting()
+        assert acc["closure"] and acc["refs_consistent"]
+        assert acc["free"] + acc["cached_only"] == acc["total"]
+    m = eng.metrics()
+    assert m["prefix_hits"] > 0 and m["cow_copies"] > 0 and m["spec_ticks"]
+    assert pa.paged_attention.launches > 0
+    assert pa.paged_prefill_attention.launches > 0
     assert outs["kernel"] == outs["gather"]
 
 

@@ -7,7 +7,10 @@ width-bucketed and full-width chunk dispatch, and preempt-by-recompute
 under a small pool. Greedy token streams must be identical and the page
 accounting must close. Knobs the port does not have yet, and bad
 values of the ones it has (``weight_dtype``/``kv_dtype`` other than
-bf16|int8, as tests/test_quant.py:344 has them), must raise ValueError; ``start()``/``submit()`` must serve from the engine thread.
+bf16|int8, as tests/test_quant.py:344 has them; the prefix cache's and
+speculative decoding's as tests/test_prefix_cache.py:288 and
+tests/test_spec_decode.py:147 have them), must raise ValueError;
+``start()``/``submit()`` must serve from the engine thread.
 """
 
 import numpy as np
@@ -159,11 +162,17 @@ def test_sampled_requests_complete(weights):
 
 
 @pytest.mark.parametrize("knob", [
-    {"kv_mode": "dense"}, {"prefill_chunk": 0}, {"prefix_cache": True},
-    {"spec_draft": "tiny"}, {"tp": 2}, {"pool_role": "prefill"},
+    {"kv_mode": "dense"}, {"prefill_chunk": 0},
+    {"prefix_cache": True, "prefix_cache_pages": -1},
+    {"spec_draft": "tiny", "spec_k": 0}, {"tp": 2}, {"pool_role": "prefill"},
     {"kv_transfer": True}, {"weight_dtype": "int4"}, {"kv_dtype": "fp8"},
     {"warmup": True}, {"attn_impl": "flash"},
     {"prefill_chunk": 32, "prefill_token_budget": 16},
+    # The reference's invalid values of the prefix-cache and spec knobs.
+    {"spec_draft": tgpt.GPTConfig.tiny(vocab_size=128)},
+    {"spec_draft_params": {}},
+    {"spec_draft": "tiny", "prefill_chunk": 0},
+    {"prefix_cache": True, "prefill_chunk": 0},
 ])
 def test_unported_or_invalid_knobs_raise(weights, knob):
     _, tp = weights

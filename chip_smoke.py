@@ -7,6 +7,8 @@
     python3 chip_smoke.py --only kernels,engine    # quantized serving
     python3 chip_smoke.py --only kernels,programs,engine,engine_prefix,engine_spec
                           # the prefix cache and speculative decoding
+    python3 chip_smoke.py --only kernels,engine,engine_dense,engine_oneshot,engine_drain
+                          # dense KV, one-shot prefill, drain and resume
 
 Phases, one JSON line each (the whole record also goes to
 build/chip_smoke.json):
@@ -88,10 +90,20 @@ build/chip_smoke.json):
    prefilled from 800: the last-token logits equal the cold run's within
    the fp32 bound, float and int8 pools; a copy without the scale planes
    must exceed it 100-fold on the int8 pool (the factor is printed).
+   Then programs_oneshot: 8 seeded prompts of 257-511 tokens at bucket
+   512 through prefill_batch (dense), prefill_batch_paged (float pool)
+   and prefill_chunk_paged (kernel, chunk 256), and decode_step (dense)
+   against decode_step_paged (kernel) on each pool at the next position,
+   held to the programs' logit-MAE limit; the same with int8 weights and
+   int8 pools (one-shot against chunked); a one-shot write with each
+   row's first page on the null page must exceed the limit.
 5. profile: torch.profiler over one fused decode window and one prefill
    dispatch at the engine's shapes (device busy time, idle share, top
    ops); the decode window's device time with int8 against bf16 weights
-   (float and int8 KV), and the window's K/V writes alone into each pool.
+   (float and int8 KV), and the window's K/V writes alone into each pool;
+   the dense engine's fused window at the same slots and positions (a
+   [16, 2048] dense cache), with the count of whole-cache copies one
+   dense decode step makes.
 6. engine: LLMEngine(opt_1_3b, bf16) serving 16 seeded prompts of 128-1536
    tokens (queued, then start()), 32 greedy tokens each, with the
    kernel launch counters zeroed just before and read just after; then
@@ -109,6 +121,21 @@ build/chip_smoke.json):
    gpt2_124m draft at temperature 0.8, (b) the target as its own draft,
    greedy (acceptance >= 0.9); the exact launch counts of both kernels,
    acceptance by draft position, tokens per tick, decode step p50/p95.
+   engine_dense: LLMEngine(opt_1_3b, kv_mode="dense", prefill_chunk=0,
+   buckets 256-1536), the engine phase's traffic: no paged kernel
+   launch, TTFT, decode step, tok/s, the cache's bytes, and the share of
+   each stream that agrees with the chunked paged engine's.
+   engine_oneshot: the same traffic on the one-shot paged kernel engine,
+   bf16 and then int8 weights and KV: exactly n_layers decode launches
+   per decode step of its own dtype, no prefill kernel launch, the
+   accounting closed.
+   engine_drain: the dense engine, then the chunked paged kernel engine:
+   16 prompts cut to 1,024 tokens, 64 tokens each, drain(0.0) two ticks
+   after half the streams have started, every continuation resumed on a
+   fresh engine of the same mode
+   (each resumed stream carries exactly the missing tokens, none
+   re-emitted; accounting closed on both engines), with the agreement
+   of the resumed streams with an uninterrupted run.
 7. train: build_training(gpt2_124m(max_seq=1024, remat=True,
    attn_impl="flash"), adamw(3e-4, weight_decay=0.1, mu_dtype=bf16))
    with seeded random weights and a seeded [8, 1024] batch: one step of
@@ -148,6 +175,7 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from ray_tpu_torch.models import decode as dec
 from ray_tpu_torch.models import gpt
 from ray_tpu_torch.models import paged_kv as pk
 from ray_tpu_torch.ops import _build
@@ -1943,6 +1971,44 @@ def _profiled(fn, top=8):
     }
 
 
+def large_copies(fn, min_numel):
+    """aten::copy_ calls under fn whose source holds >= min_numel
+    elements (a copy of a whole cache plane, e.g. a permute made
+    contiguous), counted by torch.profiler with shapes recorded."""
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.name == "aten::copy_" and e.input_shapes
+               and int(np.prod(e.input_shapes[0])) >= min_numel)
+
+
+def dense_window_profile(cfg, params, toks, pos, temps, gen, device):
+    """The dense engine's fused window beside the paged one: decode_multi
+    (k = 8) over a [16, 2048] dense cache with every slot at ``pos``
+    (1008), profiled as `_profiled` does (its device busy time beside
+    the paged window's, by the same clock), and the count of whole-cache
+    copies made by one decode_step (0 when the scores' and P.V's matmuls read the cache in
+    place, n_layers x 2 if each made its plane contiguous)."""
+    B = toks.shape[0]
+    cache = dec.init_kv_cache(cfg, B, CAP, device=device)
+    run = lambda: dec.decode_multi(cfg, params, toks, cache, pos, 8, temps,
+                                   gen)
+    rec = _profiled(run)
+    rec["per_step_wall_ms"] = rec["wall_ms"] / 8
+    plane = B * CAP * cfg.n_heads * cfg.head_dim
+    rec["cache_plane_copies_per_step"] = large_copies(
+        lambda: dec.decode_step(cfg, params, toks, cache, pos), plane // 2)
+    rec["cache_bytes"] = 2 * plane * cache["k"].element_size() \
+        * cfg.n_layers
+    rec["cache_bytes_per_step_ms_at_hbm_rate"] = (
+        rec["cache_bytes"] / HBM_BYTES_PER_S * 1e3)
+    del cache
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_profile(device, cfg, masters, params):
     """Where the time goes in the engine's two dispatches at the engine
     phase's shapes: one fused decode window (k=8, 16 slots at 1024-token
@@ -1950,7 +2016,9 @@ def phase_profile(device, cfg, masters, params):
     then the decode window's device time with int8 weights (quantized
     from the same masters) against bf16 weights, on the float pool and
     with the int8 pool, and the window's K/V writes alone into each pool
-    (the float pool's index_put against the int8 pool's _quant_write)."""
+    (the float pool's index_put against the int8 pool's _quant_write);
+    and the dense engine's window at the same slots and positions
+    (`dense_window_profile`)."""
     B, T, ps = 16, 1024, 64
     n_pg = T // ps
     pool = pk.init_paged_kv(cfg, B * n_pg, ps, device=device)
@@ -1968,6 +2036,7 @@ def phase_profile(device, cfg, masters, params):
 
     decode = _profiled(window(params, pool))
     decode["per_step_wall_ms"] = decode["wall_ms"] / 8
+    dense = dense_window_profile(cfg, params, toks, pos, temps, gen, device)
     w8 = pk.serving_params(cfg, gpt.quantize_params(masters), device)
     pool8 = pk.init_paged_kv(cfg, B * n_pg, ps, kv_dtype="int8",
                              device=device)
@@ -2007,6 +2076,7 @@ def phase_profile(device, cfg, masters, params):
         cfg, params, ptoks, pool, tables[:, :4].contiguous(), offs, nv,
         attn_impl="kernel"))
     emit({"phase": "profile", "decode_window_k8": decode,
+          "dense_decode_window_k8": dense,
           "prefill_dispatch_16x256": prefill,
           "decode_window_k8_device_ms_by_weights_and_kv": weight_gap,
           "decode_window_k8_kv_writes_alone": kv_writes})
@@ -2022,20 +2092,57 @@ def engine_prompts(cfg):
             for n in lengths]
 
 
+ENGINE_KNOBS = dict(n_slots=16, max_len=2048, page_size=64, kv_mode="paged",
+                    prefill_chunk=256, prefill_token_budget=512,
+                    attn_impl="kernel")
+
+
+def launch_counts():
+    return {"paged_attention": pa.paged_attention.launches,
+            "paged_prefill_attention": pa.paged_prefill_attention.launches,
+            "paged_attention_int8": pa.paged_attention.int8_launches,
+            "paged_prefill_attention_int8":
+                pa.paged_prefill_attention.int8_launches}
+
+
+def check_outputs(cfg, reqs, tokens):
+    errors = [r.error for r in reqs if r.error is not None]
+    if errors:
+        raise AssertionError(f"engine request errors: {errors[:3]}")
+    for r in reqs:
+        if len(r.out_ids) != tokens or r.truncated or not all(
+                0 <= t < cfg.vocab_size for t in r.out_ids):
+            raise AssertionError(f"bad output for {r.request_id}: "
+                                 f"{len(r.out_ids)} tokens")
+
+
+def check_pages(eng):
+    """Paged engines: every page free or held by the prefix cache alone
+    (free + cached-only == total), refs consistent, no live page."""
+    if eng.kv_mode != "paged":
+        return None
+    acc = eng.page_accounting()
+    if not (acc["closure"] and acc["refs_consistent"] and acc["live"] == 0
+            and acc["free"] + acc["cached_only"] == acc["total"]):
+        raise AssertionError(f"page accounting open: {acc}")
+    return acc
+
+
 def run_engine(device, cfg, params, *, prompts=None, rounds=1,
-               temperature=0.0, chunk=256, **knobs):
+               temperature=0.0, chunk=256, tokens=None, **knobs):
     """LLMEngine(opt_1_3b) serving the 16 seeded prompts (or ``prompts``)
-    through submit()/start(), 32 tokens each at ``temperature``, for
+    through submit()/start(), ``tokens`` (32) each at ``temperature``, for
     ``rounds`` rounds of the same traffic on one engine; each round with
     the stats reset and every paged launch counter zeroed just before it
     and read just after it (the engine thread stopped, so every tick of
-    the round is in). → (engine, [(requests, launches, wall seconds,
-    metrics)] per round); raises on a request error, a bad output or page
-    accounting that does not close: every page free or held by the
-    prefix cache alone (free + cached-only == total), refs consistent."""
-    eng = LLMEngine(cfg, params, n_slots=16, max_len=2048, page_size=64,
-                    prefill_chunk=chunk, prefill_token_budget=512,
-                    attn_impl="kernel", device=device, **knobs)
+    the round is in). The engine is the paged chunked kernel engine of
+    ENGINE_KNOBS (chunk ``chunk``) unless ``knobs`` say otherwise.
+    → (engine, [(requests, launches, wall seconds, metrics)] per round);
+    raises on a request error, a bad output or (paged) page accounting
+    that does not close."""
+    tokens = tokens or ENGINE_TOKENS
+    eng = LLMEngine(cfg, params, device=device,
+                    **{**ENGINE_KNOBS, "prefill_chunk": chunk, **knobs})
     prompts = engine_prompts(cfg) if prompts is None else prompts
     runs = []
     for _ in range(rounds):
@@ -2046,7 +2153,7 @@ def run_engine(device, cfg, params, *, prompts=None, rounds=1,
         # All requests queue before the engine thread starts, so the first
         # tick admits all of them and the schedule does not depend on the
         # host's timing.
-        reqs = [eng.submit(p, max_tokens=ENGINE_TOKENS,
+        reqs = [eng.submit(p, max_tokens=tokens,
                            temperature=temperature) for p in prompts]
         eng.start()
         try:
@@ -2057,25 +2164,9 @@ def run_engine(device, cfg, params, *, prompts=None, rounds=1,
             eng.stop()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {
-            "paged_attention": pa.paged_attention.launches,
-            "paged_prefill_attention": pa.paged_prefill_attention.launches,
-            "paged_attention_int8": pa.paged_attention.int8_launches,
-            "paged_prefill_attention_int8":
-                pa.paged_prefill_attention.int8_launches}
-        errors = [r.error for r in reqs if r.error is not None]
-        if errors:
-            raise AssertionError(f"engine request errors: {errors[:3]}")
-        for r in reqs:
-            if len(r.out_ids) != ENGINE_TOKENS or r.truncated or not all(
-                    0 <= t < cfg.vocab_size for t in r.out_ids):
-                raise AssertionError(f"bad output for {r.request_id}: "
-                                     f"{len(r.out_ids)} tokens")
-        acc = eng.page_accounting()
-        if not (acc["closure"] and acc["refs_consistent"]
-                and acc["live"] == 0
-                and acc["free"] + acc["cached_only"] == acc["total"]):
-            raise AssertionError(f"page accounting open: {acc}")
+        launches = launch_counts()
+        check_outputs(cfg, reqs, tokens)
+        check_pages(eng)
         runs.append((reqs, launches, wall, eng.metrics()))
     return eng, runs
 
@@ -2103,7 +2194,7 @@ def engine_record(cfg, eng, run, decode, prefill):
                 "llm_weight_dtype", "llm_kv_dtype")},
             "weight_bytes": sum(t.numel() * t.element_size()
                                 for t in eng.params.values()),
-            "page_accounting": eng.page_accounting()}
+            "page_accounting": check_pages(eng)}
 
 
 def phase_engine(device, cfg, params):
@@ -2390,6 +2481,318 @@ def phase_engine_spec(device, cfg, params, float_streams):
     return launched
 
 
+# ------------------------------- dense KV, one-shot prefill, drain/resume
+
+ONESHOT_ROWS, ONESHOT_BUCKET, ONESHOT_CHUNK = 8, 512, 256
+DENSE_BUCKETS = (256, 512, 1024, 1536)
+ONESHOT_FAULT = "the one-shot write with each row's first page on the null page"
+
+
+def oneshot_inputs(cfg):
+    """8 seeded prompts of 257-511 tokens padded to bucket 512, their
+    lengths, a seeded token per row to decode at the next position, and
+    the rows' page tables (8 pages of 64 each, pages 1-64)."""
+    rng = np.random.default_rng(ENGINE_PROMPT_SEED + 2)
+    lengths = rng.integers(ONESHOT_CHUNK + 1, ONESHOT_BUCKET,
+                           size=ONESHOT_ROWS).astype(np.int32)
+    toks = np.zeros((ONESHOT_ROWS, ONESHOT_BUCKET), np.int32)
+    for i, n in enumerate(lengths):
+        toks[i, :n] = rng.integers(1, cfg.vocab_size, n)
+    nxt = rng.integers(1, cfg.vocab_size, ONESHOT_ROWS).astype(np.int32)
+    n_pg = ONESHOT_BUCKET // 64
+    tables = np.arange(1, ONESHOT_ROWS * n_pg + 1,
+                       dtype=np.int32).reshape(ONESHOT_ROWS, n_pg)
+    return toks, lengths, nxt, tables
+
+
+def oneshot_path(device, cfg, params, kv_dtype, *, fault=False):
+    """prefill_batch_paged into a fresh pool, then decode_step_paged
+    (kernel) at each row's next position → (last-token logits, decode
+    logits), fp32. ``fault``: the write goes through tables whose first
+    column is the null page (the decode still reads the true tables)."""
+    toks, lengths, nxt, tables = oneshot_inputs(cfg)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    pool = pk.init_paged_kv(cfg, tables.size, 64, kv_dtype=kv_dtype,
+                            device=device)
+    pages = tables.copy()
+    if fault:
+        pages[:, 0] = 0
+    last, _ = pk.prefill_batch_paged(cfg, params, dev(toks), pool,
+                                     dev(pages), dev(lengths))
+    dl, _ = pk.decode_step_paged(cfg, params, dev(nxt), pool, dev(lengths),
+                                 dev(tables), attn_impl="kernel")
+    torch.cuda.synchronize()
+    return last.float(), dl.float()
+
+
+def chunked_path(device, cfg, params, kv_dtype):
+    """The same prompts through prefill_chunk_paged (kernel) in chunks of
+    256 (two [8, 256] dispatches), then the same decode step."""
+    toks, lengths, nxt, tables = oneshot_inputs(cfg)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    pool = pk.init_paged_kv(cfg, tables.size, 64, kv_dtype=kv_dtype,
+                            device=device)
+    for off in range(0, ONESHOT_BUCKET, ONESHOT_CHUNK):
+        nv = np.clip(lengths - off, 0, ONESHOT_CHUNK).astype(np.int32)
+        last, _ = pk.prefill_chunk_paged(
+            cfg, params, dev(toks[:, off:off + ONESHOT_CHUNK]), pool,
+            dev(tables), dev(np.full(ONESHOT_ROWS, off, np.int32)), dev(nv),
+            return_logits=off + ONESHOT_CHUNK >= ONESHOT_BUCKET,
+            attn_impl="kernel")
+    dl, _ = pk.decode_step_paged(cfg, params, dev(nxt), pool, dev(lengths),
+                                 dev(tables), attn_impl="kernel")
+    torch.cuda.synchronize()
+    return last.float(), dl.float()
+
+
+def dense_path(device, cfg, params):
+    """prefill_batch into slots 0-7 of a dense [8, 576] cache, then
+    decode_step at each row's next position."""
+    toks, lengths, nxt, _ = oneshot_inputs(cfg)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    cache = dec.init_kv_cache(cfg, ONESHOT_ROWS, ONESHOT_BUCKET + 64,
+                              device=device)
+    last, _ = dec.prefill_batch(cfg, params, dev(toks), cache,
+                                dev(np.arange(ONESHOT_ROWS)), dev(lengths))
+    dl, _ = dec.decode_step(cfg, params, dev(nxt), cache, dev(lengths))
+    torch.cuda.synchronize()
+    del cache
+    return last.float(), dl.float()
+
+
+def phase_programs_oneshot(device, cfg, masters, params):
+    """The one-shot programs at full opt_1_3b width (bf16), 8 prompts of
+    bucket 512: prefill_batch (dense) against prefill_batch_paged (float
+    pool) and prefill_chunk_paged (kernel, chunk 256), and decode_step
+    (dense) against decode_step_paged (kernel) on each of the two pools,
+    held to PROGRAM_LOGIT_MAE; then int8 weights (from the same masters)
+    on int8 pools, the one-shot path against the chunked one, held to
+    PROGRAM_INT8_LOGIT_MAE. A one-shot write with each row's first page
+    sent to the null page must exceed the limit at the decode step."""
+    V = cfg.vocab_size
+    out = {"phase": "programs_oneshot", "config": "opt_1_3b bf16 24 layers",
+           "prompts": f"{ONESHOT_ROWS} x {ONESHOT_CHUNK + 1}-"
+                      f"{ONESHOT_BUCKET - 1} tokens, bucket {ONESHOT_BUCKET}"
+                      f", page 64, chunk {ONESHOT_CHUNK}",
+           "mae_bound": PROGRAM_LOGIT_MAE,
+           "int8_mae_bound": PROGRAM_INT8_LOGIT_MAE,
+           "planted_fault": ONESHOT_FAULT}
+    dense = dense_path(device, cfg, params)
+    oneshot = oneshot_path(device, cfg, params, "bf16")
+    chunked = chunked_path(device, cfg, params, "bf16")
+    faulty = oneshot_path(device, cfg, params, "bf16", fault=True)
+    w8 = pk.serving_params(cfg, gpt.quantize_params(masters), device)
+    oneshot8 = oneshot_path(device, cfg, w8, "int8")
+    chunked8 = chunked_path(device, cfg, w8, "int8")
+    faulty8 = oneshot_path(device, cfg, w8, "int8", fault=True)
+    del w8
+    torch.cuda.empty_cache()
+    pairs = {
+        "prefill_batch_paged vs prefill_batch": (oneshot[0], dense[0]),
+        "prefill_chunk_paged (kernel) vs prefill_batch": (chunked[0],
+                                                          dense[0]),
+        "decode_step_paged (kernel), one-shot pool vs decode_step": (
+            oneshot[1], dense[1]),
+        "decode_step_paged (kernel), chunked pool vs decode_step": (
+            chunked[1], dense[1]),
+        "int8: prefill_batch_paged vs prefill_chunk_paged (kernel)": (
+            oneshot8[0], chunked8[0]),
+        "int8: decode_step_paged (kernel), one-shot pool vs chunked pool": (
+            oneshot8[1], chunked8[1]),
+    }
+    for name, (a, b) in pairs.items():
+        out[name] = logit_diff(a, b, V)
+        bound = (PROGRAM_INT8_LOGIT_MAE if name.startswith("int8")
+                 else PROGRAM_LOGIT_MAE)
+        if out[name]["logit_mae"] > bound:
+            raise AssertionError(f"{name}: logit MAE {out[name]} > {bound}")
+    for name, (a, b), bound in (
+            ("planted fault: decode vs decode_step", (faulty[1], dense[1]),
+             PROGRAM_LOGIT_MAE),
+            ("int8 planted fault: decode vs the chunked pool's",
+             (faulty8[1], chunked8[1]), PROGRAM_INT8_LOGIT_MAE)):
+        out[name] = logit_diff(a, b, V)
+        if out[name]["logit_mae"] <= bound:
+            raise AssertionError(f"the planted fault passes: {out[name]}")
+    emit(out)
+
+
+def dense_knobs():
+    return dict(kv_mode="dense", prefill_chunk=0,
+                prefill_buckets=DENSE_BUCKETS)
+
+
+def cache_bytes(eng):
+    return sum(a.numel() * a.element_size() for a in eng.cache.values())
+
+
+DENSE_KEYS = ("engine_decode_tok_s", "engine_prefill_tok_s", "ttft_ms_p50",
+              "ttft_ms_p95", "decode_step_ms_p50", "decode_step_ms_p95",
+              "decode_steps", "decode_windows", "prefill_tokens",
+              "completed")
+
+
+def phase_engine_dense(device, cfg, params, float_streams):
+    """LLMEngine(opt_1_3b, kv_mode="dense", prefill_chunk=0) with buckets
+    256-1536, 16 slots of 2048 positions: the engine phase's traffic.
+    No paged kernel may launch; the share of each stream that agrees with
+    the chunked paged engine's is a reading (bf16 rounding differs by
+    path), not a gate."""
+    eng, (run,) = run_engine(device, cfg, params, **dense_knobs())
+    reqs, launches, wall, m = run
+    if any(launches.values()):
+        raise AssertionError(f"a paged kernel ran in the dense engine: "
+                             f"{launches}")
+    rec = {"phase": "engine_dense", "config": "opt_1_3b bf16, dense KV, "
+           f"one-shot, buckets {list(DENSE_BUCKETS)}, 16 slots x 2048",
+           "requests": len(reqs), "wall_s": wall, "launches": launches,
+           **{k: m.get(k) for k in DENSE_KEYS},
+           "kv_cache_bytes": cache_bytes(eng)}
+    if float_streams is not None:
+        shares = agreement([r.out_ids for r in reqs], float_streams)
+        rec["agreement_with_chunked_paged_engine"] = {
+            "share_before_first_divergence": shares,
+            "mean": float(np.mean(shares)),
+            "identical_streams": sum(x == 1.0 for x in shares)}
+    emit(rec)
+    del eng
+    torch.cuda.empty_cache()
+
+
+def phase_engine_oneshot(device, cfg, params, masters):
+    """The engine phase's traffic on the one-shot paged kernel engine
+    (prefill_chunk=0, buckets 256-1536), bf16 and then int8 weights and
+    KV: exactly n_layers decode launches per decode step of the engine's
+    own dtype, no prefill kernel and no program of the other dtype, page
+    accounting closed. → launches of each run."""
+    out = {"phase": "engine_oneshot", "config": "opt_1_3b bf16, paged, "
+           f"one-shot, buckets {list(DENSE_BUCKETS)}, attn_impl kernel"}
+    runs = {}
+    L = cfg.n_layers
+    for arm, weights, knobs, program, prefill in (
+            ("float", params, {}, "paged_attention",
+             "paged_prefill_attention"),
+            ("int8", masters, dict(weight_dtype="int8", kv_dtype="int8"),
+             "paged_attention_int8", "paged_prefill_attention_int8")):
+        eng, (run,) = run_engine(device, cfg, weights, prefill_chunk=0,
+                                 prefill_buckets=DENSE_BUCKETS, **knobs)
+        launches = run[1]
+        rec = engine_record(cfg, eng, run, program, prefill)
+        want = dict.fromkeys(launches, 0)
+        want[program] = L * rec["decode_steps"]
+        if launches != want or not rec["decode_steps"]:
+            raise AssertionError(f"one-shot {arm}: launches {launches}, "
+                                 f"expected {want}")
+        out[arm] = rec
+        runs[arm] = launches
+        del eng
+        torch.cuda.empty_cache()
+    emit(out)
+    return runs
+
+
+DRAIN_TOKENS, DRAIN_TICKS, DRAIN_CUT = 64, 2, 1024
+
+
+def drain_round(device, cfg, params, knobs):
+    """One mode's drain and resume: the engine phase's prompts cut to
+    DRAIN_CUT tokens, DRAIN_TOKENS each; an uninterrupted run, then the
+    same traffic on a fresh engine driven by step() until half the
+    streams have emitted a token and then DRAIN_TICKS ticks more, drained
+    with drain(0.0), every continuation resumed on another fresh
+    engine. Gates: no error; each resumed stream carries exactly
+    max_tokens - len(generated_ids) new tokens on its stream and keeps
+    the generated ones in front; the source's streams ended with what
+    they had emitted; paged accounting closed on both engines."""
+    prompts = [p[:DRAIN_CUT] for p in engine_prompts(cfg)]
+    eng, (run,) = run_engine(device, cfg, params, prompts=prompts,
+                             tokens=DRAIN_TOKENS, **knobs)
+    full = {i: r.out_ids for i, r in enumerate(run[0])}
+    del eng
+    torch.cuda.empty_cache()
+    engine = lambda: LLMEngine(cfg, params, device=device,
+                               **{**ENGINE_KNOBS, **knobs})
+    src = engine()
+    reqs = [src.submit(p, max_tokens=DRAIN_TOKENS, stream=True,
+                       request_id=str(i)) for i, p in enumerate(prompts)]
+    ticks = 0
+    while sum(bool(r.out_ids) for r in reqs) < len(reqs) // 2:
+        src.step()
+        ticks += 1
+    for _ in range(DRAIN_TICKS):
+        src.step()
+    t0 = time.perf_counter()
+    out = src.drain(0.0)
+    drain_s = time.perf_counter() - t0
+    for r in reqs:
+        streamed = []
+        while (t := r.stream.get(timeout=5)) is not None:
+            streamed.append(t)
+        if not r.done.is_set() or r.error or streamed != r.out_ids or not (
+                r.migrated or len(r.out_ids) == DRAIN_TOKENS):
+            raise AssertionError(f"source request {r.request_id} left "
+                                 f"open: {r.error}, {len(streamed)} streamed")
+    src_pages = check_pages(src)
+    del src
+    torch.cuda.empty_cache()
+    dst = engine()
+    conts = out["continuations"]
+    resumed = [dst.submit(c["prompt_ids"], max_tokens=c["max_tokens"],
+                          temperature=c["temperature"], eos_id=c["eos_id"],
+                          generated_ids=c["generated_ids"],
+                          request_id=c["request_id"], stream=True)
+               for c in conts]
+    t0 = time.perf_counter()
+    dst.start()
+    try:
+        for r in resumed:
+            if not r.done.wait(timeout=600):
+                raise AssertionError("resumed request timed out")
+    finally:
+        dst.stop()
+    resume_s = time.perf_counter() - t0
+    check_outputs(cfg, resumed, DRAIN_TOKENS)
+    for c, r in zip(conts, resumed):
+        streamed = []
+        while (t := r.stream.get(timeout=5)) is not None:
+            streamed.append(t)
+        gen = c["generated_ids"]
+        if (r.out_ids[:len(gen)] != gen or streamed != r.out_ids[len(gen):]
+                or len(streamed) != c["max_tokens"] - len(gen)):
+            raise AssertionError(f"resume of {c['request_id']} re-emitted "
+                                 f"or lost tokens: {len(gen)} generated, "
+                                 f"{len(streamed)} streamed")
+    dst_pages = check_pages(dst)
+    del dst
+    torch.cuda.empty_cache()
+    shares = agreement([r.out_ids for r in resumed],
+                       [full[int(c["request_id"])] for c in conts])
+    return {"ticks_before_drain": ticks + DRAIN_TICKS,
+            "exported": out["exported"], "drained": out["drained"],
+            "generated_at_drain": sorted(len(c["generated_ids"])
+                                         for c in conts),
+            "drain_s": drain_s, "resume_wall_s": resume_s,
+            "resumed_agreement_with_uninterrupted": {
+                "share_before_first_divergence": shares,
+                "mean": float(np.mean(shares)),
+                "identical_streams": sum(x == 1.0 for x in shares)},
+            "page_accounting": {"source": src_pages, "destination":
+                                dst_pages}}
+
+
+def phase_engine_drain(device, cfg, params):
+    """drain/resume on the dense one-shot engine, then on the chunked
+    paged kernel engine (`drain_round`)."""
+    out = {"phase": "engine_drain",
+           "traffic": f"16 prompts cut to {DRAIN_CUT} tokens, "
+                      f"{DRAIN_TOKENS} tokens each, drain(0.0) "
+                      f"{DRAIN_TICKS} ticks after half the streams "
+                      "started"}
+    out["dense, one-shot"] = drain_round(device, cfg, params, dense_knobs())
+    out["paged, chunked, kernel"] = drain_round(device, cfg, params, {})
+    emit(out)
+
+
 # ------------------------------------------------------------------- train
 
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 12
@@ -2560,8 +2963,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="",
                     help="comma list of phases: kernels,programs,profile,"
-                         "engine,engine_prefix,engine_spec,train (default: "
-                         "all; the build always runs)")
+                         "engine,engine_prefix,engine_spec,engine_dense,"
+                         "engine_oneshot,engine_drain,train (default: all; "
+                         "the build always runs)")
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc -Xptxas -v (registers, spills)")
     ap.add_argument("--ab", metavar="OLD_CHECKOUT", default="",
@@ -2629,13 +3033,15 @@ def main(argv=None) -> int:
     # adds the prefix-cache and speculative paths.
     by_path: dict = {}
     serving = ("programs", "profile", "engine", "engine_prefix",
-               "engine_spec")
+               "engine_spec", "engine_dense", "engine_oneshot",
+               "engine_drain")
     if any(want(p) for p in serving):
         cfg, masters, params = make_params(device)
         if want("programs"):
             phase_programs(device, cfg, params)
             phase_programs_int8(device, cfg, masters, params)
             phase_programs_prefix(device, cfg, params)
+            phase_programs_oneshot(device, cfg, masters, params)
         if want("profile"):
             phase_profile(device, cfg, masters, params)
         streams = None
@@ -2656,6 +3062,14 @@ def main(argv=None) -> int:
             by_path.update({f"engine_spec ({arm})": c for arm, c in
                             phase_engine_spec(device, cfg, params,
                                               streams).items()})
+        if want("engine_dense"):
+            phase_engine_dense(device, cfg, params, streams)
+        if want("engine_oneshot"):
+            by_path.update({f"engine_oneshot ({arm})": c for arm, c in
+                            phase_engine_oneshot(device, cfg, params,
+                                                 masters).items()})
+        if want("engine_drain"):
+            phase_engine_drain(device, cfg, params)
         del cfg, masters, params
         torch.cuda.empty_cache()
     if want("train"):

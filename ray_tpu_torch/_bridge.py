@@ -48,7 +48,9 @@ def params_from_jax(np_params: dict, cfg, device=None) -> dict:
 def pool_from_jax(np_pool: dict, cfg, device=None) -> dict:
     """JAX KV pool dict → the port's pool: the float pool's {"k", "v"}
     planes [L, P+1, ps, H, K] in ``cfg.dtype``; the int8 pool's int8
-    planes with their bf16 {"k_scale", "v_scale"} planes [L, P+1]."""
+    planes with their bf16 {"k_scale", "v_scale"} planes [L, P+1]. Float
+    planes may have any shape, so the JAX dense KV cache ({"k", "v"} of
+    [L, B, T_max, H, K], `init_kv_cache`) carries over the same way."""
     dev = resolve_device(device)
     if set(np_pool) == {"k", "v", "k_scale", "v_scale"}:
         return {k: _to_tensor(v, torch.int8 if _is_int8(v) else

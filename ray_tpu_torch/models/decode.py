@@ -1,8 +1,20 @@
-"""Per-token transformer pieces shared by the paged programs (PyTorch).
+"""Autoregressive decoding with a slotted (dense) KV cache (PyTorch).
 
-Counterpart of ``ray_tpu/models/decode.py``: `_rotary_pos`, `_qkv`,
-`_mlp`, `_head` and `sample_token`. Three details carry the reference's
-numerics and are pinned by tests/test_torch_model.py:
+Counterpart of ``ray_tpu/models/decode.py``: the per-token transformer
+pieces shared with the paged programs (`_rotary_pos`, `_qkv`, `_mlp`,
+`_head`, `sample_token`) and the dense serving programs: a fixed cache
+``{"k", "v"}`` of ``[L, B, T_max, H, K]`` in ``cfg.dtype``
+(`init_kv_cache`), `prefill` (one prompt into one slot from position
+0), `prefill_batch` (N prompts into N distinct slots), `decode_step`
+(every slot one token at ``positions[b]``, attending over the whole
+``T_max`` under the mask ``t <= positions[b]``) and `decode_multi` (a
+fused window of k such steps with on-device sampling). The dense
+programs are plain PyTorch, as the reference's are plain XLA: fp32
+scores, ``-1e30`` masking, an fp32 softmax whose probabilities are cast
+to ``cfg.dtype`` before P·V, and the fp32 LM head.
+
+Three details carry the reference's numerics and are pinned by
+tests/test_torch_model.py:
 
 - rotary rotates INTERLEAVED even/odd pairs of the leading
   ``rotary_dim`` dims (not the half-split ``rotate_half`` layout), with
@@ -10,14 +22,41 @@ numerics and are pinned by tests/test_torch_model.py:
 - GELU is the tanh form (``jax.nn.gelu``'s default);
 - the LM head returns fp32 logits accumulated in fp32 (a bf16 matmul
   would round logits to bf16 and flip near-tie argmaxes).
+
+Differences from the JAX dense programs, all deliberate:
+
+- The cache is updated IN PLACE (the JAX programs donate it) and is
+  still returned, as the paged programs do.
+- `prefill` and `prefill_batch` apply the LM head to each row's last
+  valid position only (the head is row-wise: the same numbers, without
+  an [N, S, V] fp32 tensor).
+- JAX clamps `dynamic_update_slice` and drops out-of-range scatters;
+  torch raises. Every index is in range by construction: prompts are
+  bucketed below ``T_max``, the engine bounds each decode window by
+  ``max_len - max(positions)`` (idle slots' positions are 0), and the
+  one write that can fall past the cache (a slot whose window ended at
+  ``max_len``, finished right after its step) is dropped explicitly.
+- The decode step's two products over the cache run as ONE batched
+  matmul per side with a block-diagonal query (each head's row holds
+  its q at its own K columns and zeros elsewhere) against the cache
+  viewed as ``[B, T, H*K]``, then take the diagonal blocks of P·V. The
+  sums are the reference's einsums' (zeros add nothing), and no
+  permuted copy of the ``[B, T, H, K]`` cache is made, at H times the
+  products, which the memory-bound step can afford.
+- The fused window samples from a ``torch.Generator`` instead of
+  threading a JAX key.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
-from ray_tpu_torch.models.gpt import _layer_norm, weight_view
+from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.models.gpt import (GPTConfig, _layer_norm,
+                                      stack_block_params, weight_view)
 
 
 def _rotary_pos(x: torch.Tensor, rotary_dim: int,
@@ -144,4 +183,196 @@ def _categorical(scaled: torch.Tensor,
     return torch.argmax(scaled.float() + _gumbel(u), dim=-1)
 
 
-__all__ = ["sample_token"]
+def _sample_next(logits, temps, generator: torch.Generator):
+    """On-device sampling step of a fused window: greedy argmax at
+    temp <= 0, else a temperature-scaled categorical draw from
+    ``generator`` (a torch.Generator on the logits' device).
+    → (next tokens int32, scaled logits)."""
+    scaled = logits / torch.clamp(temps, min=1e-6)[:, None]
+    greedy = torch.argmax(logits, dim=-1)
+    sampled = _categorical(scaled, generator)
+    nxt = torch.where(temps <= 0.0, greedy, sampled).to(torch.int32)
+    return nxt, scaled
+
+
+# ------------------------------------------------------- dense programs
+
+def init_kv_cache(cfg: GPTConfig, n_slots: int, max_len: int, device=None):
+    """Dense cache ``{"k", "v"}`` of ``[L, n_slots, max_len, H, K]`` in
+    ``cfg.dtype`` (zeros) on ``device`` (default cuda)."""
+    shape = (cfg.n_layers, n_slots, max_len, cfg.n_heads, cfg.head_dim)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[n, M, D] @ [n, D, N] → fp32 [n, M, N] from fp32 sums (the
+    reference's ``preferred_element_type=jnp.float32``). On CUDA a bf16
+    product writes fp32 straight from its accumulators, with no upcast
+    copy of either operand; elsewhere both are upcast (exact)."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _causal_prompt_attention(q, k, v, scale: float, dtype):
+    """Causal self-attention of whole prompts, the reference's one-shot
+    formulation: fp32 scores [N, H, S, S], -1e30 above the diagonal, an
+    fp32 softmax cast to ``dtype`` before P·V. q, k, v: [N, S, H, K]
+    → [N, S, H, K] in ``dtype``."""
+    N, S, H, K = q.shape
+    heads = lambda a: a.transpose(1, 2).reshape(N * H, S, K)
+    logits = _bmm_f32(heads(q), heads(k).transpose(1, 2)) * scale
+    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    logits.masked_fill_(~causal, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(dtype)
+    attn = torch.bmm(probs, heads(v.to(dtype)))               # [N*H, S, K]
+    return attn.reshape(N, H, S, K).transpose(1, 2)
+
+
+def _prompt_forward(cfg: GPTConfig, params, stacked, tokens, write):
+    """Shared body of the one-shot prefill programs (dense and paged):
+    embed [N, S] prompts, run every layer of ``stacked`` (the caller's
+    `stack_block_params`: the dense programs keep the stored dtype of
+    the layer norms, the paged ones cast, as in the reference) with
+    causal prompt attention, and hand each layer's rotated K and V
+    ([N, S, H, K]) to ``write(l, k, v)``. → hidden states [N, S, D]."""
+    N, S = tokens.shape
+    x = params["wte"].to(cfg.dtype)[tokens]                  # [N, S, D]
+    pos = torch.arange(S, device=tokens.device).expand(N, S)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    for l in range(cfg.n_layers):
+        layer = {name: w[l] for name, w in stacked.items()}
+        h = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"])
+        q, k, v = _qkv(h, layer, cfg)
+        q = _rotary_pos(q, cfg.rotary_dim, pos)
+        k = _rotary_pos(k, cfg.rotary_dim, pos)
+        attn = _causal_prompt_attention(q, k, v, scale, cfg.dtype)
+        x = x + _attn_out(attn, layer, cfg)
+        x = _mlp(x, layer, cfg)
+        write(l, k, v)
+    return x
+
+
+def _last_token_logits(cfg: GPTConfig, params, x, lengths):
+    """The LM head at row i's position ``lengths[i] - 1`` only → [N, V]
+    fp32 (the head is row-wise: the reference's numbers, without its
+    [N, S, V] logits)."""
+    rows = torch.arange(x.shape[0], device=x.device)
+    last = lengths.to(device=x.device, dtype=torch.int64) - 1
+    return _head(params, cfg, x[rows, last])
+
+
+def prefill_batch(cfg: GPTConfig, params, tokens, cache, slots, lengths):
+    """Prefill N prompts into N DISTINCT cache slots in one dispatch,
+    each from position 0 (the padded tail is written too and masked at
+    decode time). tokens: [N, S_bucket] padded, S_bucket <= T_max;
+    slots, lengths: [N]. The cache is written in place.
+    → (last-token logits [N, V] fp32, cache)."""
+    S = tokens.shape[1]
+    slots = slots.to(device=tokens.device, dtype=torch.int64)
+
+    def write(l, k, v):
+        cache["k"][l][slots, :S] = k.to(cfg.dtype)
+        cache["v"][l][slots, :S] = v.to(cfg.dtype)
+    x = _prompt_forward(cfg, params, stack_block_params(params), tokens,
+                        write)
+    return _last_token_logits(cfg, params, x, lengths), cache
+
+
+def prefill(cfg: GPTConfig, params, tokens, cache, slot, length):
+    """Write one prompt ([1, S_bucket], padded) into cache slot ``slot``
+    from position 0. ``slot`` and ``length`` are ints or 0-d tensors.
+    → (last-token logits [V] fp32, cache)."""
+    dev = tokens.device
+    slots = torch.as_tensor(slot, device=dev).reshape(1)
+    lengths = torch.as_tensor(length, device=dev).reshape(1)
+    last, cache = prefill_batch(cfg, params, tokens, cache, slots, lengths)
+    return last[0], cache
+
+
+def _dense_attention(q, k_cache_l, v_cache_l, positions, scale: float):
+    """One query row per slot over its whole cache row: q [B, H, K],
+    caches [B, T, H, K], positions [B] → [B, H, K] in the cache's dtype.
+    The reference's ``einsum("bhk,bthk->bht")`` and
+    ``einsum("bht,bthk->bhk")`` as batched matmuls on the cache viewed as
+    [B, T, H*K] (no copy): the query is block-diagonal, [B, H, H*K] with
+    head h's q at columns h*K..(h+1)*K, and P·V keeps the diagonal
+    [K]-blocks of its [B, H, H*K] result."""
+    B, T, H, K = k_cache_l.shape
+    dtype = k_cache_l.dtype
+    heads = torch.arange(H, device=q.device)
+    q_bd = torch.zeros(B, H, H, K, dtype=dtype, device=q.device)
+    q_bd[:, heads, heads] = q.to(dtype)
+    logits = _bmm_f32(q_bd.reshape(B, H, H * K),
+                      k_cache_l.reshape(B, T, H * K).transpose(1, 2)) * scale
+    mask = (torch.arange(T, device=q.device)[None, :]
+            <= positions[:, None])                            # [B, T]
+    logits.masked_fill_(~mask[:, None, :], -1e30)
+    probs = torch.softmax(logits, dim=-1).to(dtype)           # [B, H, T]
+    out = torch.bmm(probs, v_cache_l.reshape(B, T, H * K))    # [B, H, H*K]
+    return out.reshape(B, H, H, K)[:, heads, heads]
+
+
+def _decode_once(cfg: GPTConfig, params, tokens, cache, positions):
+    """All B slots advance one position: each writes its token's K/V at
+    (b, positions[b]) (in place), then attends over its whole cache row
+    under the mask t <= positions[b]. → (logits [B, V] fp32, cache)."""
+    B, T = tokens.shape[0], cache["k"].shape[2]
+    positions = positions.to(device=tokens.device, dtype=torch.int64)
+    x = params["wte"].to(cfg.dtype)[tokens][:, None, :]      # [B, 1, D]
+    pos = positions[:, None]
+    stacked = stack_block_params(params)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    rows = torch.arange(B, device=tokens.device)
+    # A slot whose cursor reached T (a window that ended at max_len) is
+    # finished by the engine after this step without reading its logits;
+    # JAX drops its out-of-range write, and so does this: the write goes
+    # to the clamped in-range index with that position's old value.
+    keep = (positions < T)[:, None, None]
+    write_at = positions.clamp(max=T - 1)
+    for l in range(cfg.n_layers):
+        layer = {name: w[l] for name, w in stacked.items()}
+        h = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"])
+        q, k, v = _qkv(h, layer, cfg)
+        q = _rotary_pos(q, cfg.rotary_dim, pos)
+        k = _rotary_pos(k, cfg.rotary_dim, pos)
+        k_cache_l, v_cache_l = cache["k"][l], cache["v"][l]
+        k_cache_l[rows, write_at] = torch.where(
+            keep, k[:, 0].to(cfg.dtype), k_cache_l[rows, write_at])
+        v_cache_l[rows, write_at] = torch.where(
+            keep, v[:, 0].to(cfg.dtype), v_cache_l[rows, write_at])
+        attn = _dense_attention(q[:, 0], k_cache_l, v_cache_l, positions,
+                                scale)
+        x = x + _attn_out(attn, layer, cfg)[:, None, :]
+        x = _mlp(x, layer, cfg)
+    return _head(params, cfg, x)[:, 0], cache
+
+
+def decode_step(cfg: GPTConfig, params, tokens, cache, positions):
+    """One token for every slot. tokens: [B] (each slot's current
+    token); positions: [B] (where it sits). Idle slots produce logits the
+    engine ignores. → (logits [B, V] fp32, cache)."""
+    return _decode_once(cfg, params, tokens, cache, positions)
+
+
+def decode_multi(cfg: GPTConfig, params, tokens, cache, positions,
+                 n_steps: int, temps, generator: torch.Generator):
+    """``n_steps`` fused decode steps with on-device sampling (greedy at
+    temps <= 0, else a draw from ``generator``), no host round trip
+    inside. The caller keeps positions + n_steps - 1 below T_max.
+    → (tokens_out [n_steps, B] int32, cache)."""
+    toks = tokens
+    pos = positions.to(device=tokens.device, dtype=torch.int64)
+    out = []
+    for _ in range(n_steps):
+        logits, cache = _decode_once(cfg, params, toks, cache, pos)
+        toks, _scaled = _sample_next(logits, temps, generator)
+        out.append(toks)
+        pos = pos + 1
+    return torch.stack(out), cache
+
+
+__all__ = ["sample_token", "init_kv_cache", "prefill", "prefill_batch",
+           "decode_step", "decode_multi"]

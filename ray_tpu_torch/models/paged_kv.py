@@ -1,12 +1,14 @@
 """Block-paged KV cache and the paged serving programs (PyTorch).
 
 Counterpart of ``ray_tpu/models/paged_kv.py`` on one device:
-`init_paged_kv` (float or int8 pool), `_quant_write`, the page ops
-(`copy_pages`, `gather_pages`, `scatter_pages`), `_chunk_paged_forward`,
+`init_paged_kv` (float or int8 pool), `_quant_write`,
+`_quant_write_full_pages`, the page ops (`copy_pages`, `gather_pages`,
+`scatter_pages`), `prefill_batch_paged` (one-shot prefill: plain causal
+prompt attention, then whole-page writes), `_chunk_paged_forward`,
 `prefill_chunk_paged`, `verify_chunk_paged`, `_decode_once_paged`,
 `decode_step_paged`, `decode_multi_paged`, `spec_draft_propose` (with
-the body of `_spec_propose_scan`), `_sample_next` and
-`_last_valid_logits`.
+the body of `_spec_propose_scan`) and `_last_valid_logits`; the
+fused loops sample through `decode._sample_next`.
 
 Layout (the JAX package's): one pool ``{"k", "v"}`` of
 ``[L, P+1, page_size, H, K]`` shared by all slots, plus per-slot page
@@ -32,7 +34,9 @@ Differences from the JAX programs, all deliberate:
   index here is in range by construction.
 - `_last_valid_logits` selects each row's last valid hidden state
   BEFORE the LM head instead of after it: the head is row-wise, so the
-  numbers are the same, without a [N, C, V] fp32 logits tensor. The
+  numbers are the same, without a [N, C, V] fp32 logits tensor.
+  `prefill_batch_paged` does the same at each row's last valid prompt
+  position (no [N, S, V] tensor: 2.5 GB at 8 x 1536 x 50,304). The
   verify program (`verify_chunk_paged`) needs the head at every chunk
   position and runs it on the whole [N, C, D] block.
 - The fused loops (`decode_multi_paged`, `spec_draft_propose`) sample
@@ -46,8 +50,9 @@ import math
 import torch
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.models.decode import (_attn_out, _categorical, _head,
-                                         _mlp, _qkv, _rotary_pos)
+from ray_tpu_torch.models.decode import (_attn_out, _head, _last_token_logits,
+                                         _mlp, _prompt_forward, _qkv,
+                                         _rotary_pos, _sample_next)
 from ray_tpu_torch.models.gpt import (GPTConfig, _layer_norm,
                                       stack_block_params)
 from ray_tpu_torch.ops.paged_attention import (
@@ -111,6 +116,25 @@ def _quant_write(pool_l, scale_l, write_pages, write_offs, values):
     s = new_scale[pages].reshape((-1,) + (1,) * (v32.dim() - 1))
     q = torch.clamp(torch.round(v32 / s), -127, 127).to(torch.int8)
     pool_l[pages, write_offs.long()] = q
+    scale_l.copy_(new_scale)
+
+
+def _quant_write_full_pages(pool_l, scale_l, pages, values):
+    """Whole-page variant of `_quant_write` (one-shot paged prefill):
+    values [M, ps, H, K] fill pages[m] end to end, IN PLACE. A whole-page
+    write is a first write, so every target page's scale resets from its
+    own payload (padded rows included: the last page's scale covers
+    them, and the first decode write into that page keeps it). Duplicate
+    ids only ever name the null page 0, where any write order gives the
+    same harmless result."""
+    v32 = values.float()
+    pages = pages.long()
+    vmax = v32.abs().flatten(1).amax(dim=1)                    # [M]
+    new_scale = scale_l.float()
+    new_scale[pages] = torch.clamp(vmax, min=1e-8) / 127.0
+    s = new_scale[pages].reshape((-1,) + (1,) * (v32.dim() - 1))
+    pool_l[pages] = torch.clamp(torch.round(v32 / s), -127,
+                                127).to(torch.int8)
     scale_l.copy_(new_scale)
 
 
@@ -196,6 +220,40 @@ def _write_rows(pool, l, pages, offs, k_rows, v_rows, dtype, quant):
     _quant_write(k_pool_l, k_sc, pages, offs, k_rows)
     _quant_write(v_pool_l, v_sc, pages, offs, v_rows)
     return k_pool_l, v_pool_l, {"k_scale": k_sc, "v_scale": v_sc}
+
+
+def prefill_batch_paged(cfg: GPTConfig, params, tokens, pool, pages,
+                        lengths):
+    """One-shot prefill of N prompts: plain causal prompt attention (no
+    pool reads), each layer's K/V scattered as whole pages into the float
+    or int8 pool (in place).
+
+    tokens: [N, S_bucket]; pages: [N, ceil(S_bucket / page_size)] page
+    ids (unallocated tail entries 0: the null page); lengths: [N].
+    → (last-token logits [N, V] fp32, pool)."""
+    N, S = tokens.shape
+    ps = pool["k"].shape[2]
+    n_pg = pages.shape[1]
+    quant = "k_scale" in pool
+    flat = pages.reshape(-1).to(device=tokens.device, dtype=torch.int64)
+
+    def paged(a):                                  # [N, S, H, K] → pages
+        a = torch.nn.functional.pad(a, (0, 0, 0, 0, 0, n_pg * ps - S))
+        return a.reshape(N * n_pg, ps, *a.shape[2:])
+
+    def write(l, k, v):
+        if quant:
+            _quant_write_full_pages(pool["k"][l], pool["k_scale"][l], flat,
+                                    paged(k))
+            _quant_write_full_pages(pool["v"][l], pool["v_scale"][l], flat,
+                                    paged(v))
+        else:
+            pool["k"][l][flat] = paged(k.to(cfg.dtype))
+            pool["v"][l][flat] = paged(v.to(cfg.dtype))
+
+    x = _prompt_forward(cfg, params, stack_block_params(params, cfg.dtype),
+                        tokens, write)
+    return _last_token_logits(cfg, params, x, lengths), pool
 
 
 def _chunk_paged_forward(cfg: GPTConfig, params, tokens, pool, tables,
@@ -350,18 +408,6 @@ def _decode_once_paged(cfg: GPTConfig, params, tokens, pool, positions,
     return logits, pool
 
 
-def _sample_next(logits, temps, generator: torch.Generator):
-    """On-device sampling step of the fused window: greedy argmax at
-    temp <= 0, else a temperature-scaled categorical draw from
-    ``generator`` (a torch.Generator on the logits' device).
-    → (next tokens int32, scaled logits)."""
-    scaled = logits / torch.clamp(temps, min=1e-6)[:, None]
-    greedy = torch.argmax(logits, dim=-1)
-    sampled = _categorical(scaled, generator)
-    nxt = torch.where(temps <= 0.0, greedy, sampled).to(torch.int32)
-    return nxt, scaled
-
-
 def decode_step_paged(cfg: GPTConfig, params, tokens, pool, positions,
                       tables, *, attn_impl: str = "gather"):
     """One token for every slot against the paged pool (in place).
@@ -432,6 +478,6 @@ def spec_draft_propose(cfg: GPTConfig, params, tokens, pool, positions,
 
 __all__ = [
     "init_paged_kv", "serving_params", "copy_pages", "gather_pages",
-    "scatter_pages", "prefill_chunk_paged", "verify_chunk_paged",
+    "scatter_pages", "prefill_batch_paged", "prefill_chunk_paged", "verify_chunk_paged",
     "decode_step_paged", "decode_multi_paged", "spec_draft_propose",
 ]

@@ -1,39 +1,64 @@
-"""Continuous-batching LLM engine on the paged KV cache (PyTorch/CUDA).
+"""Continuous-batching LLM engine (PyTorch/CUDA).
 
-Counterpart of ``ray_tpu/serve/llm.py``'s `LLMEngine`, restricted to the
-serving main path: ``kv_mode="paged"`` with chunked prefill. A fixed
-pool of slots advances one fused decode window per tick; prompts enter
-their slot's page table chunk by chunk under a per-tick prefill token
-budget (Sarathi/Orca-style stall-free batching), width-bucketed by the
-pow-2 page width each chunk attends over. The host-side scheduler,
-page refcounts and page accounting are the same numpy logic as the JAX
-engine's; only the device programs (``models/paged_kv.py``) differ.
+Counterpart of ``ray_tpu/serve/llm.py``'s `LLMEngine`. A fixed pool of
+slots advances one fused decode window per tick. Two KV layouts and two
+admission modes, with the reference's defaults (dense, one-shot):
 
-Quantized serving is the JAX engine's: ``weight_dtype="int8"`` quantizes
-the matmul planes per output channel at load (from the masters as given,
-before the cast to ``cfg.dtype``), and ``kv_dtype="int8"`` keeps an int8
-page pool with per-page scale planes, read by the int8 programs of the
-paged-attention kernels; either alone or both.
+- ``kv_mode="dense"`` (default): a ``[L, n_slots, max_len, H, K]``
+  cache (``models/decode.py``); each decode step attends over a slot's
+  whole row. Plain PyTorch math, as the reference's is plain XLA.
+- ``kv_mode="paged"``: a shared page pool with per-slot page tables
+  (``models/paged_kv.py``), read by the CUDA paged-attention kernels.
+- ``prefill_chunk=0`` (default): one-shot bucketed admission. A prompt
+  is padded to the smallest of ``prefill_buckets`` that holds it, and
+  same-bucket arrivals prefill together in groups of 8, 4, 2 or 1 (one
+  `prefill_batch`/`prefill_batch_paged` dispatch each; plain causal
+  prompt attention, then whole-page writes in paged mode); the first
+  token is sampled on the host.
+- ``prefill_chunk > 0`` (paged only): prompts enter their slot's page
+  table chunk by chunk under a per-tick prefill token budget
+  (Sarathi/Orca-style stall-free batching), width-bucketed by the pow-2
+  page width each chunk attends over.
 
-``prefix_cache=True`` shares KV pages across requests
+The host-side scheduler, page refcounts and page accounting are the same
+numpy logic as the JAX engine's; only the device programs differ.
+
+Quantized serving (paged only) is the JAX engine's:
+``weight_dtype="int8"`` quantizes the matmul planes per output channel
+at load (from the masters as given, before the cast to ``cfg.dtype``),
+and ``kv_dtype="int8"`` keeps an int8 page pool with per-page scale
+planes, read by the int8 programs of the paged-attention kernels; either
+alone or both.
+
+``prefix_cache=True`` (paged, chunked) shares KV pages across requests
 (``serve/prefix_cache.py``): admission binds the longest cached
 chunk-aligned prefix into the slot's table read-only, copies a tail
 page that the cold suffix would write (copy-on-write, one `copy_pages`
 per tick, before any dispatch) and starts chunked prefill at the first
 cold token; a request that completes donates its written prefix.
 
-``spec_draft=...`` decodes speculatively: a draft model with its own page
-pool, sharing the target's page tables, proposes ``spec_k`` tokens per
-slot per tick in one fused loop (`spec_draft_propose`), the target scores
-all of them in one chunked-prefill verify pass (`verify_chunk_paged`),
-and rejection sampling (`spec_accept_tokens`) accepts a prefix plus one
-correction or bonus token. Greedy streams equal non-speculative decode's.
+``spec_draft=...`` (paged, chunked) decodes speculatively: a draft model
+with its own page pool, sharing the target's page tables, proposes
+``spec_k`` tokens per slot per tick in one fused loop
+(`spec_draft_propose`), the target scores all of them in one
+chunked-prefill verify pass (`verify_chunk_paged`), and rejection
+sampling (`spec_accept_tokens`) accepts a prefix plus one correction or
+bonus token. Greedy streams equal non-speculative decode's.
 
-Not ported in this slice, each rejected with a ValueError when asked
-for: dense KV, one-shot prefill, tensor parallelism, KV page-set
-transfer (pool roles, kv_transfer, kv_store), drain/export, compile
-warmup and the Serve deployment wrapper. The tracing, profiling, chaos
-and compile-watch hooks of the JAX engine have no counterpart here.
+The drain protocol runs in every mode: `drain` stops admission, lets
+in-flight requests finish within its window and exports the rest as
+continuations (`_export_unfinished`); `submit(..., generated_ids=...)`
+resumes one by teacher-forcing the tokens already emitted, so a greedy
+resume is byte-identical to the uninterrupted run and the stream cursor
+splices exactly.
+
+Not ported, each rejected with a ValueError when asked for: tensor
+parallelism, KV page-set transfer (pool roles, kv_transfer, kv_store;
+a continuation's ``kv`` descriptor is accepted and ignored, as the
+reference ignores it without a store), compile warmup and the Serve
+deployment wrapper; nor are `load_snapshot`, the load EWMAs and the
+metrics-registry copies. The tracing, profiling, chaos and
+compile-watch hooks of the JAX engine have no counterpart here.
 """
 
 from __future__ import annotations
@@ -50,15 +75,19 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.models import decode as _dense
 from ray_tpu_torch.models import gpt
 from ray_tpu_torch.models import paged_kv as _paged
 from ray_tpu_torch.models.decode import sample_token
 from ray_tpu_torch.serve.prefix_cache import PrefixCache
 
-# Engine defaults, copied from the JAX package's runtime config.
+# Engine defaults, copied from the JAX package's runtime config and its
+# engine's signature (prefill buckets).
 DEFAULT_DECODE_BLOCK = 8
+DEFAULT_KV_MODE = "dense"
 DEFAULT_PAGE_SIZE = 64
-DEFAULT_PREFILL_CHUNK = 256
+DEFAULT_PREFILL_BUCKETS = (32, 64, 128, 256, 512)
+DEFAULT_PREFILL_CHUNK = 0          # 0 = one-shot bucketed admission
 DEFAULT_PREFILL_TOKEN_BUDGET = 256
 DEFAULT_WIDTH_BUCKETING = True
 DEFAULT_PREFIX_CACHE_PAGES = 0     # 0 = half the pool
@@ -164,6 +193,9 @@ class GenRequest:
     prefix_hashes: list = dataclasses.field(default_factory=list)
     out_ids: list[int] = dataclasses.field(default_factory=list)
     truncated: bool = False   # finished early (capacity/unresumable preempt)
+    # Exported by drain(): the stream ended here and the continuation
+    # (prompt, generated) resumes on another engine.
+    migrated: bool = False
     stream: "queue.Queue | None" = None
     done: "threading.Event" = dataclasses.field(
         default_factory=threading.Event)
@@ -171,18 +203,21 @@ class GenRequest:
 
 
 def _not_ported(feature: str) -> ValueError:
-    return ValueError(f"{feature} is not yet ported to ray_tpu_torch "
-                      "(this slice serves paged KV with chunked prefill)")
+    return ValueError(f"{feature} is not yet ported to ray_tpu_torch")
 
 
 class LLMEngine:
-    """Slot-based continuous batching over ray_tpu_torch.models.paged_kv.
+    """Slot-based continuous batching over ray_tpu_torch.models.decode
+    (dense) or ray_tpu_torch.models.paged_kv (paged).
 
     Runs on ``device`` (default cuda; a missing GPU raises unless
-    ``device="cpu"``). ``attn_impl``: "kernel" (the CUDA paged-attention
-    kernels), "gather" (their plain PyTorch versions) or "auto" (kernel
-    on CUDA, gather on the CPU). ``weight_dtype`` and ``kv_dtype`` are
-    "bf16" (float, in ``cfg.dtype``) or "int8". Parameters are quantized
+    ``device="cpu"``). ``kv_mode`` "dense" or "paged"; ``prefill_chunk``
+    0 (one-shot, over ``prefill_buckets`` clamped below ``max_len``) or
+    the chunk size (paged only). ``attn_impl`` (paged only): "kernel"
+    (the CUDA paged-attention kernels), "gather" (their plain PyTorch
+    versions) or "auto" (kernel on CUDA, gather on the CPU).
+    ``weight_dtype`` and ``kv_dtype`` are "bf16" (float, in
+    ``cfg.dtype``) or "int8" (paged only). Parameters are quantized
     (int8 weights), cast to ``cfg.dtype`` and moved to the device once,
     here. ``prefix_cache``/``prefix_cache_pages`` (0 = half the pool)
     turn on page sharing; ``spec_draft`` (a GPTConfig or a preset name)
@@ -192,8 +227,9 @@ class LLMEngine:
 
     def __init__(self, cfg, params=None, *, n_slots: int = 8,
                  max_len: int = 2048, seed: int = 0,
+                 prefill_buckets: tuple[int, ...] = DEFAULT_PREFILL_BUCKETS,
                  decode_block: int = DEFAULT_DECODE_BLOCK,
-                 kv_mode: str = "paged",
+                 kv_mode: str = DEFAULT_KV_MODE,
                  page_size: int = DEFAULT_PAGE_SIZE,
                  n_pages: int | None = None, attn_impl: str = "auto",
                  prefill_chunk: int = DEFAULT_PREFILL_CHUNK,
@@ -239,19 +275,29 @@ class LLMEngine:
                     f"vocab_size {draft_cfg.vocab_size} != target vocab_size "
                     f"{cfg.vocab_size} (the tokenizer must be tied)")
         for asked, feature in (
-                (kv_mode != "paged", f"kv_mode={kv_mode!r}"),
-                (not prefill_chunk, "one-shot prefill (prefill_chunk=0)"),
                 (tp != 1, "tensor parallelism (tp > 1)"),
                 (pool_role is not None or bool(kv_transfer)
                  or kv_store is not None, "KV page-set transfer"),
                 (bool(warmup), "compile warmup")):
             if asked:
                 raise _not_ported(feature)
+        if kv_mode not in ("dense", "paged"):
+            raise ValueError(f"kv_mode must be dense|paged, got {kv_mode!r}")
         if weight_dtype not in ("bf16", "int8"):
             raise ValueError(
                 f"weight_dtype must be bf16|int8, got {weight_dtype!r}")
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype must be bf16|int8, got {kv_dtype!r}")
+        if weight_dtype == "int8" and kv_mode != "paged":
+            raise ValueError(
+                "weight_dtype='int8' requires kv_mode='paged' (quantized "
+                "serving targets the paged engine; the dense path is "
+                f"unquantized); got kv_mode={kv_mode!r}")
+        if kv_dtype == "int8" and kv_mode != "paged":
+            raise ValueError(
+                "kv_dtype='int8' requires kv_mode='paged' (the scale planes "
+                "ride the page tables; the dense cache has none); got "
+                f"kv_mode={kv_mode!r}")
         self.device = resolve_device(device)
         if attn_impl == "auto":
             # Resolved once: the kernels on CUDA, their plain versions on
@@ -260,13 +306,16 @@ class LLMEngine:
         if attn_impl not in _paged.ATTN_IMPLS:
             raise ValueError(
                 f"attn_impl must be gather|kernel|auto, got {attn_impl!r}")
-        if prefill_chunk < 0:
-            raise ValueError(f"prefill_chunk must be > 0, got {prefill_chunk}")
+        if prefill_chunk < 0 or (prefill_chunk and kv_mode != "paged"):
+            raise ValueError(
+                "prefill_chunk requires kv_mode='paged' (chunked prefill "
+                f"grows page tables chunk-by-chunk); got chunk="
+                f"{prefill_chunk} with kv_mode={kv_mode!r}")
         if prefill_chunk > max_len:
             raise ValueError(
                 f"prefill_chunk ({prefill_chunk}) exceeds the KV cache "
                 f"(max_len = {max_len})")
-        if prefill_token_budget != 0 and (
+        if prefill_chunk and prefill_token_budget != 0 and (
                 prefill_token_budget < prefill_chunk):
             raise ValueError(
                 f"prefill_token_budget ({prefill_token_budget}) must be 0 "
@@ -274,6 +323,10 @@ class LLMEngine:
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_len = max_len
+        # Buckets clamp below the cache: _bucket() rounds a prompt UP, so
+        # a bucket >= max_len would write past the dense cache.
+        self.buckets = tuple(sorted(b for b in prefill_buckets
+                                    if b < max_len)) or (max(1, max_len - 1),)
         self.kv_mode = kv_mode
         self.attn_impl = attn_impl
         self.weight_dtype = weight_dtype
@@ -290,25 +343,32 @@ class LLMEngine:
         self.prefill_width_bucketing = bool(prefill_width_bucketing)
         self.prefill_chunk = prefill_chunk
         self.prefill_budget = prefill_token_budget
-        self._prompt_cap = max_len - 1
-        self.page_size = page_size
-        self.max_pages_per_slot = self._pages_for(max_len - 1)
-        if n_pages is None:
-            n_pages = max(self.max_pages_per_slot + 1,
-                          (n_slots * self.max_pages_per_slot) // 2)
-        self.n_pages = n_pages
-        self.cache = _paged.init_paged_kv(cfg, n_pages, page_size,
-                                          kv_dtype=kv_dtype,
-                                          device=self.device)
-        self.page_table = np.zeros((n_slots, self.max_pages_per_slot),
-                                   np.int32)
-        self.slot_n_pages = np.zeros(n_slots, np.int64)
-        # pop() hands out ascending ids; 0 stays reserved (null page).
-        self.free_pages = list(range(n_pages, 0, -1))
-        # Per-page refcounts: slots' tables AND prefix-cache entries each
-        # hold one; a page returns to free_pages when the LAST ref drops.
-        self.page_refs = np.zeros(n_pages + 1, np.int32)
-        self._min_free_pages = n_pages
+        # Chunked prompts are bound by the cache alone; one-shot prompts
+        # also by the largest bucket.
+        self._prompt_cap = (max_len - 1 if prefill_chunk
+                            else min(self.buckets[-1], max_len - 1))
+        if kv_mode == "paged":
+            self.page_size = page_size
+            self.max_pages_per_slot = self._pages_for(max_len - 1)
+            if n_pages is None:
+                n_pages = max(self.max_pages_per_slot + 1,
+                              (n_slots * self.max_pages_per_slot) // 2)
+            self.n_pages = n_pages
+            self.cache = _paged.init_paged_kv(cfg, n_pages, page_size,
+                                              kv_dtype=kv_dtype,
+                                              device=self.device)
+            self.page_table = np.zeros((n_slots, self.max_pages_per_slot),
+                                       np.int32)
+            self.slot_n_pages = np.zeros(n_slots, np.int64)
+            # pop() hands out ascending ids; 0 stays reserved (null page).
+            self.free_pages = list(range(n_pages, 0, -1))
+            # Per-page refcounts: slots' tables AND prefix-cache entries
+            # each hold one; a page returns to free_pages at the LAST ref.
+            self.page_refs = np.zeros(n_pages + 1, np.int32)
+            self._min_free_pages = n_pages
+        else:
+            self.cache = _dense.init_kv_cache(cfg, n_slots, max_len,
+                                              device=self.device)
         # Speculative decoding: the draft keeps its OWN page pool (shaped
         # to the draft config) but shares the target's page TABLES and
         # cursors: draft pool row p mirrors target pool row p token for
@@ -384,6 +444,11 @@ class LLMEngine:
         self._last_window_end: float | None = None
         self._shutdown = threading.Event()
         self._fatal: str | None = None
+        # Drain protocol: a draining engine rejects submits, and
+        # _mid_tick (set by step() under the lock) keeps drain() from
+        # reading a request popped but not yet bound to a slot as idle.
+        self._draining = False
+        self._mid_tick = False
         self._thread: threading.Thread | None = None
         self._lock = threading.Lock()
         # Serializes start()/stop() (two starts must not spawn two loops).
@@ -413,33 +478,91 @@ class LLMEngine:
     def submit(self, prompt_ids: list[int], *, max_tokens: int = 64,
                temperature: float = 0.0, eos_id: int | None = None,
                stream: bool = False,
-               request_id: str | None = None) -> GenRequest:
-        """Queue one generation request."""
+               generated_ids: list[int] | None = None,
+               request_id: str | None = None, kv: dict | None = None,
+               prefix_hashes: list | None = None,
+               prefix_chunk: int = 0) -> GenRequest:
+        """Queue one generation request.
+
+        ``generated_ids`` resumes a continuation exported by `drain` (on
+        this engine or another): the tokens already emitted are
+        teacher-forced (they join the prefill context), seed ``out_ids``
+        (``max_tokens`` stays the TOTAL output budget) and are never
+        emitted again, so the stream cursor splices exactly and a greedy
+        continuation equals the uninterrupted run. ``prefix_hashes``
+        (hex or bytes) with ``prefix_chunk``, the chunk they were
+        computed at, seed the request's memoized chunk-hash chain; a
+        memo of another chunk size is dropped. ``kv`` (a donor's
+        page-set descriptor) is accepted and ignored: this engine has no
+        page-set store."""
         if not prompt_ids:
             raise ValueError("prompt_ids must be non-empty")
         if temperature < 0.0:
             raise ValueError(f"temperature must be >= 0, got {temperature}")
-        context = [int(t) for t in prompt_ids]
-        if len(context) > self._prompt_cap:
-            raise ValueError(
-                f"prompt too long: {len(context)} (cap {self._prompt_cap}: "
-                "cache bound, chunked prefill)")
-        if self._pages_for(len(context)) > self.n_pages:
+        generated = [int(t) for t in (generated_ids or [])]
+        context = [int(t) for t in prompt_ids] + generated
+        too_big = (len(context) > self._prompt_cap
+                   or (self.kv_mode == "paged"
+                       and self._pages_for(len(context)) > self.n_pages))
+        req = GenRequest(
+            request_id=request_id or uuid.uuid4().hex[:12],
+            prompt_ids=context, n_prompt=len(prompt_ids),
+            max_tokens=max_tokens, temperature=temperature, eos_id=eos_id,
+            submitted_at=time.perf_counter(), out_ids=generated,
+            stream=queue.Queue() if stream else None)
+        if (prefix_hashes and self.prefill_chunk
+                and prefix_chunk == self.prefill_chunk):
+            try:
+                req.prefix_hashes = [
+                    bytes.fromhex(h) if isinstance(h, str) else bytes(h)
+                    for h in prefix_hashes]
+            except (ValueError, TypeError):
+                req.prefix_hashes = []   # the chain rebuilds from tokens
+        if generated and (len(generated) >= max_tokens or (
+                eos_id is not None and generated[-1] == eos_id)):
+            # Already complete (the source stopped between its last token
+            # and the reader seeing done): finish, never decode past it.
+            self._finish_presubmit(req, truncated=False)
+            return req
+        if too_big:
+            if generated:
+                # A resume that outgrew this engine's caps ends the stream
+                # with what the client has, as an unresumable preempt does.
+                self._finish_presubmit(req, truncated=True)
+                return req
+            if len(context) > self._prompt_cap:
+                raise ValueError(
+                    f"prompt too long: {len(context)} (cap "
+                    f"{self._prompt_cap}: "
+                    + ("cache bound, chunked prefill" if self.prefill_chunk
+                       else f"bucket cap {self.buckets[-1]}, cache cap "
+                            f"{self.max_len - 1}") + ")")
             raise ValueError(
                 f"prompt needs {self._pages_for(len(context))} KV pages "
                 f"but the pool only has {self.n_pages}")
-        req = GenRequest(
-            request_id=request_id or uuid.uuid4().hex[:12],
-            prompt_ids=context, n_prompt=len(context),
-            max_tokens=max_tokens, temperature=temperature, eos_id=eos_id,
-            submitted_at=time.perf_counter(),
-            stream=queue.Queue() if stream else None)
+        # Atomic with the death handler's and the drain export's one-shot
+        # sweep of `pending`: a submit racing them must not be stranded.
         with self._lock:
             if self._fatal is not None:
                 raise RuntimeError(self._fatal)
+            if self._draining:
+                raise RuntimeError(
+                    "replica draining: not accepting new requests")
             self.stats["requests"] += 1
             self.pending.put(req)
         return req
+
+    def _finish_presubmit(self, req: GenRequest, *, truncated: bool) -> None:
+        """Complete a resumed continuation at submit time without queueing
+        it (already done, or too big for this engine)."""
+        req.truncated = truncated
+        req.finished_at = time.perf_counter()
+        with self._lock:
+            self.stats["requests"] += 1
+            self.stats["completed"] += 1
+        if req.stream is not None:
+            req.stream.put(None)
+        req.done.set()
 
     def generate(self, prompt_ids: list[int], **kw) -> list[int]:
         """Blocking convenience wrapper."""
@@ -464,6 +587,85 @@ class LLMEngine:
                 self._thread.join(timeout=30)
                 self._thread = None
 
+    def drain(self, timeout_s: float) -> dict:
+        """Drain protocol: stop admission, let in-flight requests finish
+        for up to ``timeout_s`` seconds, then export whatever is left as
+        resumable continuations. Afterwards every request has completed
+        or carries ``migrated=True`` with its stream closed; the
+        continuations (``request_id``, ``prompt_ids``, ``generated_ids``,
+        ``max_tokens``, ``temperature``, ``eos_id``, and with chunked
+        prefill the hex ``prefix_hashes`` and ``prefix_chunk``) resume
+        through `submit`. → {"drained", "exported", "continuations"}."""
+        with self._lock:
+            self._draining = True
+        deadline = time.monotonic() + max(0.0, timeout_s)
+        while time.monotonic() < deadline:
+            with self._lock:
+                busy = (self._mid_tick
+                        or any(r is not None for r in self.slot_req)
+                        or self.pending.qsize() > 0
+                        or len(self._deferred) > 0)
+            if not busy:
+                break
+            time.sleep(0.02)
+        continuations = self._export_unfinished()
+        return {"drained": not continuations,
+                "exported": len(continuations),
+                "continuations": continuations}
+
+    def _export_unfinished(self) -> list[dict]:
+        """Evict every unfinished request as a continuation. The engine
+        thread stops FIRST, so no tick races the export (a request must
+        never emit a token after its continuation left). Paged: every
+        evicted slot's pages return to the pool and its pinned prefix-
+        cache entry is released, so the accounting still closes."""
+        if self._thread is not None:
+            self.stop()
+        doomed: list[GenRequest] = []
+        with self._lock:
+            for slot, req in enumerate(self.slot_req):
+                if req is not None:
+                    doomed.append(req)
+                    self.slot_req[slot] = None
+            self._prefilling.clear()
+            self._chunk_pos.clear()
+            doomed.extend(self._deferred)
+            self._deferred.clear()
+            while True:
+                try:
+                    doomed.append(self.pending.get_nowait())
+                except queue.Empty:
+                    break
+        for slot in range(self.n_slots):
+            if self.kv_mode == "paged":
+                entry = self._slot_entry.pop(slot, None)
+                if entry is not None:
+                    self.prefix_cache.release(entry)
+                self._free_slot_pages(slot)
+            self.positions[slot] = 0
+            self.tokens[slot] = 0
+        out = []
+        for req in doomed:
+            cont = {
+                "request_id": req.request_id,
+                # A preempt regrows prompt_ids to prompt + generated:
+                # split at the original prompt so nothing is forced twice.
+                "prompt_ids": [int(t) for t in req.prompt_ids[:req.n_prompt]],
+                "generated_ids": [int(t) for t in req.out_ids],
+                "max_tokens": req.max_tokens,
+                "temperature": req.temperature,
+                "eos_id": req.eos_id,
+            }
+            if self.prefill_chunk and req.prefix_hashes:
+                cont["prefix_hashes"] = [h.hex() for h in req.prefix_hashes]
+                cont["prefix_chunk"] = self.prefill_chunk
+            out.append(cont)
+            req.migrated = True
+            if req.stream is not None:
+                req.stream.put(None)
+            req.done.set()
+        return out
+
     def reset_stats(self) -> None:
         """Zero the counters (benchmarks call this after warmup)."""
         with self._lock:
@@ -477,7 +679,8 @@ class LLMEngine:
             self._ttft_cold_ms.clear()
             self._burst_step_ms.clear()
             self._last_window_end = None
-            self._min_free_pages = len(self.free_pages)
+            if self.kv_mode == "paged":
+                self._min_free_pages = len(self.free_pages)
             self._spec_pos[:] = 0
 
     def _observe_window(self, t0: float, end: float, k: int,
@@ -513,30 +716,32 @@ class LLMEngine:
             active = sum(r is not None for r in self.slot_req)
             m = dict(self.stats, active_slots=active,
                      queued=self.pending.qsize() + len(self._deferred),
-                     n_slots=self.n_slots,
-                     kv_pages_total=self.n_pages,
-                     kv_pages_free=len(self.free_pages),
-                     kv_pages_free_min=self._min_free_pages,
-                     kv_page_size=self.page_size,
-                     llm_attn_impl=self.attn_impl,
-                     llm_weight_dtype=self.weight_dtype,
-                     llm_kv_dtype=self.kv_dtype,
-                     device=str(self.device),
-                     kv_pool_bytes=sum(
-                         a.numel() * a.element_size()
-                         for a in self.cache.values()),
-                     prefill_chunk=self.prefill_chunk,
-                     prefill_token_budget=self.prefill_budget,
-                     prefilling_slots=len(self._prefilling),
-                     prefill_width_bucketing=self.prefill_width_bucketing)
-            if self._dispatch_width_ring:
-                widths = sorted(self._dispatch_width_ring)
-                m["prefill_dispatch_width_p50"] = widths[len(widths) // 2]
-                m["prefill_dispatch_width_max"] = widths[-1]
-            if self._dispatch_width_counts:
-                m["prefill_dispatch_widths"] = {
-                    str(w): c for w, c in
-                    sorted(self._dispatch_width_counts.items())}
+                     n_slots=self.n_slots, device=str(self.device))
+            if self.kv_mode == "paged":
+                m.update(kv_pages_total=self.n_pages,
+                         kv_pages_free=len(self.free_pages),
+                         kv_pages_free_min=self._min_free_pages,
+                         kv_page_size=self.page_size,
+                         llm_attn_impl=self.attn_impl,
+                         llm_weight_dtype=self.weight_dtype,
+                         llm_kv_dtype=self.kv_dtype,
+                         kv_pool_bytes=sum(
+                             a.numel() * a.element_size()
+                             for a in self.cache.values()))
+            if self.prefill_chunk:
+                m.update(prefill_chunk=self.prefill_chunk,
+                         prefill_token_budget=self.prefill_budget,
+                         prefilling_slots=len(self._prefilling),
+                         prefill_width_bucketing=self.prefill_width_bucketing)
+                if self._dispatch_width_ring:
+                    widths = sorted(self._dispatch_width_ring)
+                    m["prefill_dispatch_width_p50"] = widths[
+                        len(widths) // 2]
+                    m["prefill_dispatch_width_max"] = widths[-1]
+                if self._dispatch_width_counts:
+                    m["prefill_dispatch_widths"] = {
+                        str(w): c for w, c in
+                        sorted(self._dispatch_width_counts.items())}
             if self.spec_k:
                 m["spec_k"] = self.spec_k
                 m["spec_draft"] = self.spec_draft_name
@@ -725,13 +930,27 @@ class LLMEngine:
                                 temperature=temperature,
                                 generator=self._host_gen))
 
-    # Admission lookahead bound and the aging limit past which a
+    def _bucket(self, n: int) -> int:
+        """Smallest prefill bucket holding an n-token prompt."""
+        for b in self.buckets:
+            if n <= b:
+                return b
+        raise ValueError(f"no bucket for prompt length {n}")
+
+    # One-shot group sizes: same-bucket arrivals prefill 8, 4, 2 or 1 at a
+    # time. Admission lookahead bound and the aging limit past which a
     # repeatedly-bypassed head goes strict-FIFO (as in the JAX engine).
+    _PREFILL_LADDER = (8, 4, 2)
     _ADMIT_LOOKAHEAD = 8
     _ADMIT_BYPASS_LIMIT = 16
 
     def _admit(self) -> None:
-        """Move queued requests into free slots. A request is admitted
+        """Move queued requests into free slots.
+
+        One-shot mode (prefill_chunk=0): whole-prompt admission; a paged
+        request needs pool headroom for its whole prompt plus the first
+        decode write, and same-bucket arrivals prefill in ladder-sized
+        groups (`_prefill_group`). Chunked mode: a request is admitted
         once ONE CHUNK of pool headroom exists; its prompt then enters
         chunk-by-chunk under step()'s token budget. A prefix-cache hit,
         acquired (pinned) here at reservation time so the reclaim below
@@ -756,36 +975,57 @@ class LLMEngine:
                     req = self.pending.get_nowait()
                 except queue.Empty:
                     break
-            hit, n_cached = None, 0
-            if self.prefix_cache is not None:
-                hit = self.prefix_cache.acquire(req.prompt_ids,
-                                                memo=req.prefix_hashes)
-                if hit is not None:
-                    n_cached = hit.n_tokens
-            end = min(n_cached + self.prefill_chunk, len(req.prompt_ids))
-            need = self._pages_for(end - 1) - n_cached // self.page_size
-            if planned_pages + need > len(self.free_pages):
-                self._cache_reclaim(planned_pages + need)
-            if planned_pages + need > len(self.free_pages):
-                if hit is not None:
-                    # Not admitted this round: unpin (the entry is
-                    # re-acquired when the request is scanned again).
-                    self.prefix_cache.release(hit)
-                if not blocked:
-                    head_mark = len(reqs)
-                    if req.admit_bypasses >= self._ADMIT_BYPASS_LIMIT:
-                        blocked.append(req)
-                        break   # aged head: strict FIFO until it fits
-                blocked.append(req)
-                if len(blocked) >= self._ADMIT_LOOKAHEAD:
-                    break
-                continue
-            planned_pages += need
+            hit = None
+            if self.kv_mode == "paged":
+                if self.prefill_chunk:
+                    n_cached = 0
+                    if self.prefix_cache is not None:
+                        hit = self.prefix_cache.acquire(
+                            req.prompt_ids, memo=req.prefix_hashes)
+                        if hit is not None:
+                            n_cached = hit.n_tokens
+                    end = min(n_cached + self.prefill_chunk,
+                              len(req.prompt_ids))
+                    need = (self._pages_for(end - 1)
+                            - n_cached // self.page_size)
+                else:
+                    need = self._pages_for(len(req.prompt_ids))
+                if planned_pages + need > len(self.free_pages):
+                    self._cache_reclaim(planned_pages + need)
+                if planned_pages + need > len(self.free_pages):
+                    if hit is not None:
+                        # Not admitted this round: unpin (the entry is
+                        # re-acquired when the request is scanned again).
+                        self.prefix_cache.release(hit)
+                    if not blocked:
+                        head_mark = len(reqs)
+                        if req.admit_bypasses >= self._ADMIT_BYPASS_LIMIT:
+                            blocked.append(req)
+                            break   # aged head: strict FIFO until it fits
+                    blocked.append(req)
+                    if len(blocked) >= self._ADMIT_LOOKAHEAD:
+                        break
+                    continue
+                planned_pages += need
             reqs.append((req, hit))
         for req in reversed(blocked):
             self._deferred.appendleft(req)   # original order, at the head
         if blocked and len(reqs) > head_mark:
             blocked[0].admit_bypasses += 1
+        if not self.prefill_chunk:
+            by_bucket: dict[int, list[GenRequest]] = {}
+            for req, _hit in reqs:
+                by_bucket.setdefault(self._bucket(len(req.prompt_ids)),
+                                     []).append(req)
+            slot_iter = iter(free)
+            for bucket, group in by_bucket.items():
+                while group:
+                    n = next((k for k in self._PREFILL_LADDER
+                              if k <= len(group)), 1)
+                    batch, group = group[:n], group[n:]
+                    self._prefill_group(bucket, batch,
+                                        [next(slot_iter) for _ in batch])
+            return
         for (req, hit), slot in zip(reqs, free):
             n_cached = 0
             if self.prefix_cache is not None:
@@ -852,6 +1092,65 @@ class LLMEngine:
         self.cache = _paged.copy_pages(self.cache, src, dst)
         if self.spec_k:
             self.draft_cache = _paged.copy_pages(self.draft_cache, src, dst)
+
+    def _prefill_group(self, bucket: int, group: list[GenRequest],
+                       slots: list[int]) -> None:
+        """One-shot admission: whole-prompt prefill of a same-bucket
+        GROUP in one dispatch (`prefill_batch_paged`; dense: `prefill`
+        for one request, `prefill_batch` for more), then each request's
+        first token, sampled on the host. Paged slots first grow to cover
+        the prompt and the first decode write (_admit reserved the
+        headroom); on a failure those pages return to the pool and every
+        request of the group fails."""
+        n = len(group)
+        padded = np.zeros((n, bucket), np.int32)
+        lengths = np.zeros(n, np.int32)
+        for i, req in enumerate(group):
+            lengths[i] = len(req.prompt_ids)
+            padded[i, :lengths[i]] = req.prompt_ids
+        t0 = time.perf_counter()
+        try:
+            if self.kv_mode == "paged":
+                pages = np.zeros((n, self._pages_for(bucket - 1)), np.int32)
+                for i, slot in enumerate(slots):
+                    if not self._grow_slot(slot, int(lengths[i])):
+                        raise RuntimeError("page reservation desync")
+                    take = min(int(self.slot_n_pages[slot]), pages.shape[1])
+                    pages[i, :take] = self.page_table[slot, :take]
+                last, self.cache = _paged.prefill_batch_paged(
+                    self.cfg, self.params, self._to_dev(padded), self.cache,
+                    self._to_dev(pages), self._to_dev(lengths))
+            elif n == 1:
+                last, self.cache = _dense.prefill(
+                    self.cfg, self.params, self._to_dev(padded), self.cache,
+                    slots[0], int(lengths[0]))
+                last = last[None, :]
+            else:
+                last, self.cache = _dense.prefill_batch(
+                    self.cfg, self.params, self._to_dev(padded), self.cache,
+                    self._to_dev(np.asarray(slots, np.int64)),
+                    self._to_dev(lengths))
+            last = last.cpu().numpy()
+        except Exception as e:  # noqa: BLE001 — becomes the requests' error
+            if self.kv_mode == "paged":
+                for slot in slots:
+                    self._free_slot_pages(slot)
+            for req in group:
+                req.error = f"prefill failed: {e!r}"
+                req.done.set()
+            return
+        now = time.perf_counter()
+        self.stats["prefill_time_s"] += now - t0
+        self.stats["prefill_tokens"] += int(lengths.sum())
+        for i, (req, slot) in enumerate(zip(group, slots)):
+            tok = self._sample(last[i], req.temperature)
+            with self._lock:
+                self.slot_req[slot] = req
+            self.tokens[slot] = tok
+            self.positions[slot] = int(lengths[i])
+            self.temps[slot] = req.temperature
+            if self._emit(req, tok):
+                self._release(slot)
 
     def _run_prefill_chunks(self, decode_active: bool) -> int:
         """Spend the per-tick prefill token budget: advance mid-prefill
@@ -1032,7 +1331,8 @@ class LLMEngine:
         entry = self._slot_entry.pop(slot, None)
         if entry is not None:
             self.prefix_cache.release(entry)
-        self._free_slot_pages(slot)
+        if self.kv_mode == "paged":
+            self._free_slot_pages(slot)
 
     def _preempt(self, slot: int) -> None:
         """Evict a slot by RECOMPUTE: its pages return to the pool and the
@@ -1298,11 +1598,18 @@ class LLMEngine:
         return len(active)
 
     def step(self) -> int:
-        """One engine tick: admit queued requests, flush their copy-on-
-        write pairs, spend the chunked-prefill token budget, then one
-        fused decode window (or one speculative tick) for every
-        decode-ready slot. → slots that did work."""
-        return self._step()
+        """One engine tick: admit queued requests (one-shot: prefill them
+        whole), flush their copy-on-write pairs, spend the chunked-prefill
+        token budget, then one fused decode window (or one speculative
+        tick) for every decode-ready slot. → slots that did work. The
+        tick is fenced by ``_mid_tick`` for `drain`."""
+        with self._lock:
+            self._mid_tick = True
+        try:
+            return self._step()
+        finally:
+            with self._lock:
+                self._mid_tick = False
 
     def _step(self) -> int:
         pt0 = self.stats["prefill_tokens"]
@@ -1310,10 +1617,11 @@ class LLMEngine:
         # The COW flush MUST precede any dispatch that could write this
         # tick: a warm slot's first cold chunk writes its copied page.
         self._apply_cow()
-        decode_ready = any(
-            self.slot_req[i] is not None and i not in self._chunk_pos
-            for i in range(self.n_slots))
-        self._run_prefill_chunks(decode_ready)
+        if self.prefill_chunk:
+            decode_ready = any(
+                self.slot_req[i] is not None and i not in self._chunk_pos
+                for i in range(self.n_slots))
+            self._run_prefill_chunks(decode_ready)
         active = [i for i in range(self.n_slots)
                   if self.slot_req[i] is not None
                   and i not in self._chunk_pos]
@@ -1328,18 +1636,29 @@ class LLMEngine:
             return self._spec_decode_window(active, tick_prefill) + (
                 n_prefilling)
         k = self._pick_window(active)
-        active, k = self._fit_window_pages(active, k)
-        if not active:
-            self._last_window_end = None
-            return n_prefilling
-        table_view = self._decode_table_view(active)
+        paged = self.kv_mode == "paged"
+        if paged:
+            active, k = self._fit_window_pages(active, k)
+            if not active:
+                self._last_window_end = None
+                return n_prefilling
+            table_view = self._decode_table_view(active)
         t0 = time.perf_counter()
+        if paged:
+            table_view = self._to_dev(table_view)
+        tokens, positions = (self._to_dev(a)
+                             for a in (self.tokens, self.positions))
         if k > 1:
-            toks_out, self.cache = _paged.decode_multi_paged(
-                self.cfg, self.params, self._to_dev(self.tokens),
-                self.cache, self._to_dev(self.positions),
-                self._to_dev(table_view), k, self._to_dev(self.temps),
-                self._gen, attn_impl=self.attn_impl)
+            temps = self._to_dev(self.temps)
+            if paged:
+                toks_out, self.cache = _paged.decode_multi_paged(
+                    self.cfg, self.params, tokens, self.cache, positions,
+                    table_view, k, temps, self._gen,
+                    attn_impl=self.attn_impl)
+            else:
+                toks_out, self.cache = _dense.decode_multi(
+                    self.cfg, self.params, tokens, self.cache, positions, k,
+                    temps, self._gen)
             toks_out = toks_out.cpu().numpy()  # [k, B]
             self._observe_window(t0, time.perf_counter(), k, len(active),
                                  tick_prefill)
@@ -1356,10 +1675,13 @@ class LLMEngine:
                     self.tokens[slot] = toks_out[k - 1, slot]
                     self.positions[slot] += k
             return len(active) + n_prefilling
-        logits, self.cache = _paged.decode_step_paged(
-            self.cfg, self.params, self._to_dev(self.tokens), self.cache,
-            self._to_dev(self.positions), self._to_dev(table_view),
-            attn_impl=self.attn_impl)
+        if paged:
+            logits, self.cache = _paged.decode_step_paged(
+                self.cfg, self.params, tokens, self.cache, positions,
+                table_view, attn_impl=self.attn_impl)
+        else:
+            logits, self.cache = _dense.decode_step(
+                self.cfg, self.params, tokens, self.cache, positions)
         logits = logits.cpu().numpy()
         self._observe_window(t0, time.perf_counter(), 1, len(active),
                              tick_prefill)

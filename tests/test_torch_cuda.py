@@ -11,7 +11,10 @@ tiny engine with ``attn_impl="kernel"`` against ``"gather"`` on the
 card (float, and int8 weights with an int8 pool), the prefill kernel at
 the speculative verify shape (C = 5 and 2 at ragged cursors) and both
 paged kernels at a draft's 12 heads, the engine with the prefix cache
-and a draft on the kernels against the plain engine, and one
+and a draft on the kernels against the plain engine, the one-shot
+engines (float and int8) on the decode kernel against the one-shot
+gather engine and the dense engine, a drain and resume round trip
+(dense and chunked), and one
 gpt2_124m-wide training step with
 ``attn_impl="flash"`` against ``"xla"``. The file imports neither JAX nor the JAX package, and the
 repo's conftest does, so run it with::
@@ -505,8 +508,8 @@ def test_engine_kernel_streams_match_gather_on_the_card(cuda):
                for n in (3, 40, 90, 17, 64)]
     outs = {}
     for impl in ("kernel", "gather"):
-        eng = LLMEngine(cfg, params, n_slots=4, max_len=128, page_size=16,
-                        prefill_chunk=32, prefill_token_budget=64,
+        eng = LLMEngine(cfg, params, kv_mode="paged", n_slots=4,
+                        max_len=128, page_size=16, prefill_chunk=32, prefill_token_budget=64,
                         attn_impl=impl, device=cuda)
         reqs = [eng.submit(p, max_tokens=8) for p in prompts]
         for _ in range(400):
@@ -535,8 +538,8 @@ def test_engine_int8_kernel_streams_match_gather_on_the_card(cuda):
                for n in (3, 40, 90, 17, 64)]
     outs = {}
     for impl in ("kernel", "gather"):
-        eng = LLMEngine(cfg, params, n_slots=4, max_len=128, page_size=16,
-                        prefill_chunk=32, prefill_token_budget=64,
+        eng = LLMEngine(cfg, params, kv_mode="paged", n_slots=4,
+                        max_len=128, page_size=16, prefill_chunk=32, prefill_token_budget=64,
                         attn_impl=impl, weight_dtype="int8", kv_dtype="int8",
                         device=cuda)
         reqs = [eng.submit(p, max_tokens=8) for p in prompts]
@@ -675,7 +678,8 @@ def test_engine_prefix_cache_and_spec_on_the_card(cuda):
     shared = list(map(int, rng.integers(1, cfg.vocab_size, 56)))
     prompts = [shared + list(map(int, rng.integers(1, cfg.vocab_size, n)))
                for n in (3, 9, 20, 5, 14, 7)]
-    kw = dict(n_slots=4, max_len=128, page_size=16, prefill_chunk=20,
+    kw = dict(kv_mode="paged", n_slots=4, max_len=128, page_size=16,
+              prefill_chunk=20,
               prefill_token_budget=40, device=cuda)
     outs = {}
     for name, extra in (("gather", dict(attn_impl="gather")),
@@ -701,6 +705,106 @@ def test_engine_prefix_cache_and_spec_on_the_card(cuda):
     assert pa.paged_attention.launches > 0
     assert pa.paged_prefill_attention.launches > 0
     assert outs["kernel"] == outs["gather"]
+
+
+def _serve(eng, prompts, max_tokens=8):
+    reqs = [eng.submit(p, max_tokens=max_tokens) for p in prompts]
+    for _ in range(400):
+        if all(r.done.is_set() for r in reqs):
+            break
+        eng.step()
+    assert all(r.done.is_set() and r.error is None for r in reqs)
+    if eng.kv_mode == "paged":
+        acc = eng.page_accounting()
+        assert acc["closure"] and acc["free"] == acc["total"]
+    return [r.out_ids for r in reqs]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+def test_oneshot_and_dense_engines_on_the_card(cuda, quant):
+    """One-shot paged on the decode kernel against the one-shot gather
+    engine (fp32 activations: equal streams), float and int8 weights and
+    KV, with exactly n_layers decode launches per decode step and no
+    prefill launch; the dense engine (no kernel) gives the same streams
+    (float)."""
+    cfg = gpt.GPTConfig.tiny_untied(dtype=torch.float32, d_model=256,
+                                    n_heads=4)          # head_dim 64
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = gpt.init_params(cfg, gen, cuda)
+    rng = np.random.default_rng(9)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab_size, n)))
+               for n in (3, 40, 90, 17, 64)]
+    kw = dict(n_slots=4, max_len=128, prefill_buckets=(32, 64, 96),
+              device=cuda)
+    if quant:
+        kw.update(weight_dtype="int8", kv_dtype="int8")
+    outs = {}
+    for impl in ("gather", "kernel"):
+        pa.reset_launch_counts()
+        eng = LLMEngine(cfg, params, kv_mode="paged", page_size=16,
+                        attn_impl=impl, **kw)
+        outs[impl] = _serve(eng, prompts)
+    steps = eng.metrics()["decode_steps"]
+    want = (0, 0, cfg.n_layers * steps, 0) if quant else (
+        cfg.n_layers * steps, 0, 0, 0)
+    assert steps and (pa.paged_attention.launches,
+                      pa.paged_prefill_attention.launches,
+                      pa.paged_attention.int8_launches,
+                      pa.paged_prefill_attention.int8_launches) == want
+    assert outs["kernel"] == outs["gather"]
+    if not quant:
+        pa.reset_launch_counts()
+        dense = LLMEngine(cfg, params, **kw)
+        assert _serve(dense, prompts) == outs["gather"]
+        assert pa.paged_attention.launches == 0
+
+
+@pytest.mark.parametrize("mode", ["dense", "chunked"])
+def test_drain_and_resume_on_the_card(cuda, mode):
+    """drain(0.0) mid-decode on the card, every continuation resumed on a
+    fresh engine: the streams equal the uninterrupted run's (fp32) and
+    no resumed token is emitted twice."""
+    cfg = gpt.GPTConfig.tiny_untied(dtype=torch.float32, d_model=256,
+                                    n_heads=4)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = gpt.init_params(cfg, gen, cuda)
+    rng = np.random.default_rng(10)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab_size, n)))
+               for n in (5, 30, 60, 12, 45)]
+    kw = dict(n_slots=4, max_len=128, decode_block=4,
+              prefill_buckets=(32, 64, 96), device=cuda)
+    if mode == "chunked":
+        kw.update(kv_mode="paged", page_size=16, prefill_chunk=32,
+                  prefill_token_budget=64, attn_impl="kernel")
+    full = _serve(LLMEngine(cfg, params, **kw), prompts, 16)
+    src = LLMEngine(cfg, params, **kw)
+    reqs = [src.submit(p, max_tokens=16) for p in prompts]
+    for _ in range(3):
+        src.step()
+    out = src.drain(0.0)
+    assert out["exported"] and all(r.done.is_set() for r in reqs)
+    dst = LLMEngine(cfg, params, **kw)
+    resumed = {}
+    for c in out["continuations"]:
+        i = next(j for j, r in enumerate(reqs)
+                 if r.request_id == c["request_id"])
+        resumed[i] = dst.submit(c["prompt_ids"], max_tokens=16,
+                                generated_ids=c["generated_ids"],
+                                stream=True)
+    for _ in range(400):
+        if all(r.done.is_set() for r in resumed.values()):
+            break
+        dst.step()
+    for i, r in resumed.items():
+        assert r.done.is_set() and r.error is None
+        streamed = []
+        while (t := r.stream.get(timeout=5)) is not None:
+            streamed.append(t)
+        n = len(reqs[i].out_ids)
+        assert r.out_ids == full[i] and streamed == full[i][n:]
+    for i, r in enumerate(reqs):
+        if i not in resumed:
+            assert r.out_ids == full[i]
 
 
 def _flash_abs_sums(q, k, v, do, lse, delta, causal, scale):

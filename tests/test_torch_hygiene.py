@@ -75,8 +75,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no GPU"):
         paged_kv.init_paged_kv(cfg, 4, 8)
     with pytest.raises(RuntimeError, match="no GPU"):
-        LLMEngine(cfg, n_slots=2, max_len=32, page_size=8, prefill_chunk=8,
-                  prefill_token_budget=8)
+        LLMEngine(cfg, kv_mode="paged", n_slots=2, max_len=32, page_size=8,
+                  prefill_chunk=8, prefill_token_budget=8)
     with pytest.raises(RuntimeError, match="no GPU"):
         build_training(cfg, adamw(1e-3))
     assert resolve_device("cpu") == torch.device("cpu")

@@ -9,7 +9,9 @@ accounting must close. Knobs the port does not have yet, and bad
 values of the ones it has (``weight_dtype``/``kv_dtype`` other than
 bf16|int8, as tests/test_quant.py:344 has them; the prefix cache's and
 speculative decoding's as tests/test_prefix_cache.py:288 and
-tests/test_spec_decode.py:147 have them), must raise ValueError;
+tests/test_spec_decode.py:147 have them; a chunk or int8 with the dense
+cache and an unknown ``kv_mode``, as ray_tpu/serve/llm.py:476-545
+rejects them), must raise ValueError;
 ``start()``/``submit()`` must serve from the engine thread.
 """
 
@@ -55,7 +57,8 @@ def _both(weights, prompts, *, max_tokens=6, n_slots=4, max_len=128,
     jeng = JaxEngine(JCFG, jp, n_slots=n_slots, max_len=max_len,
                      kv_mode="paged", attn_impl="gather", **kw)
     teng = LLMEngine(TCFG, tp, n_slots=n_slots, max_len=max_len,
-                     attn_impl="gather", device="cpu", **kw)
+                     kv_mode="paged", attn_impl="gather", device="cpu",
+                     **kw)
     jout = _drive(jeng, [jeng.submit(p, max_tokens=max_tokens)
                          for p in prompts])
     tout = _drive(teng, [teng.submit(p, max_tokens=max_tokens)
@@ -108,7 +111,8 @@ def test_single_step_windows_and_eos(weights):
     kw = dict(n_slots=2, max_len=64, page_size=8, prefill_chunk=8,
               prefill_token_budget=8, decode_block=1)
     jeng = JaxEngine(JCFG, jp, kv_mode="paged", attn_impl="gather", **kw)
-    teng = LLMEngine(TCFG, tp, attn_impl="gather", device="cpu", **kw)
+    teng = LLMEngine(TCFG, tp, kv_mode="paged", attn_impl="gather",
+                     device="cpu", **kw)
     jout = _drive(jeng, [jeng.submit(p, max_tokens=5) for p in prompts])
     tout = _drive(teng, [teng.submit(p, max_tokens=5) for p in prompts])
     assert tout == jout
@@ -126,8 +130,8 @@ def test_threaded_serving_and_kernel_impl_on_cpu(weights):
     _, tp = weights
     prompts = _prompts(4, (9, 30, 2))
     tpa.reset_launch_counts()
-    eng = LLMEngine(TCFG, tp, n_slots=2, max_len=64, page_size=8,
-                    prefill_chunk=16, prefill_token_budget=16,
+    eng = LLMEngine(TCFG, tp, kv_mode="paged", n_slots=2, max_len=64,
+                    page_size=8, prefill_chunk=16, prefill_token_budget=16,
                     attn_impl="kernel", device="cpu")
     eng.start()
     try:
@@ -139,8 +143,9 @@ def test_threaded_serving_and_kernel_impl_on_cpu(weights):
     assert all(r.error is None for r in reqs)
     assert tpa.paged_attention.launches == 0
     assert tpa.paged_prefill_attention.launches == 0
-    ref = LLMEngine(TCFG, tp, n_slots=2, max_len=64, page_size=8,
-                    prefill_chunk=16, prefill_token_budget=16, device="cpu")
+    ref = LLMEngine(TCFG, tp, kv_mode="paged", n_slots=2, max_len=64,
+                    page_size=8, prefill_chunk=16, prefill_token_budget=16,
+                    device="cpu")
     assert ref.attn_impl == "gather"
     assert _drive(ref, [ref.submit(p, max_tokens=4) for p in prompts]) == [
         r.out_ids for r in reqs]
@@ -151,8 +156,9 @@ def test_threaded_serving_and_kernel_impl_on_cpu(weights):
 
 def test_sampled_requests_complete(weights):
     _, tp = weights
-    eng = LLMEngine(TCFG, tp, n_slots=2, max_len=64, page_size=8,
-                    prefill_chunk=8, prefill_token_budget=8, device="cpu")
+    eng = LLMEngine(TCFG, tp, kv_mode="paged", n_slots=2, max_len=64,
+                    page_size=8, prefill_chunk=8, prefill_token_budget=8,
+                    device="cpu")
     reqs = [eng.submit(p, max_tokens=6, temperature=0.8)
             for p in _prompts(5, (4, 11))]
     out = _drive(eng, reqs)
@@ -162,7 +168,6 @@ def test_sampled_requests_complete(weights):
 
 
 @pytest.mark.parametrize("knob", [
-    {"kv_mode": "dense"}, {"prefill_chunk": 0},
     {"prefix_cache": True, "prefix_cache_pages": -1},
     {"spec_draft": "tiny", "spec_k": 0}, {"tp": 2}, {"pool_role": "prefill"},
     {"kv_transfer": True}, {"weight_dtype": "int4"}, {"kv_dtype": "fp8"},
@@ -173,18 +178,27 @@ def test_sampled_requests_complete(weights):
     {"spec_draft_params": {}},
     {"spec_draft": "tiny", "prefill_chunk": 0},
     {"prefix_cache": True, "prefill_chunk": 0},
+    # The reference's invalid values of the KV mode (the dense cache takes
+    # no chunk and no int8 weights or KV).
+    {"kv_mode": "dense", "prefill_chunk": 8},
+    {"kv_mode": "dense", "prefill_chunk": 0, "weight_dtype": "int8"},
+    {"kv_mode": "dense", "prefill_chunk": 0, "kv_dtype": "int8"},
+    {"kv_mode": "bogus"},
 ])
 def test_unported_or_invalid_knobs_raise(weights, knob):
+    """Each knob on a paged chunked engine (the knob may override both)."""
     _, tp = weights
     with pytest.raises(ValueError):
         LLMEngine(TCFG, tp, n_slots=2, max_len=64, page_size=8,
-                  device="cpu", **knob)
+                  device="cpu", **{"kv_mode": "paged", "prefill_chunk": 8,
+                                   "prefill_token_budget": 8, **knob})
 
 
 def test_submit_validation(weights):
     _, tp = weights
-    eng = LLMEngine(TCFG, tp, n_slots=2, max_len=32, page_size=8,
-                    prefill_chunk=8, prefill_token_budget=8, device="cpu")
+    eng = LLMEngine(TCFG, tp, kv_mode="paged", n_slots=2, max_len=32,
+                    page_size=8, prefill_chunk=8, prefill_token_budget=8,
+                    device="cpu")
     with pytest.raises(ValueError):
         eng.submit([])
     with pytest.raises(ValueError):

@@ -375,7 +375,8 @@ def _engines(weights, **kw):
                 prefill_token_budget=32, prefix_cache=True)
     base.update(kw)
     return (JaxEngine(JCFG, jp, kv_mode="paged", attn_impl="gather", **base),
-            LLMEngine(TCFG, tp, attn_impl="gather", device="cpu", **base))
+            LLMEngine(TCFG, tp, kv_mode="paged", attn_impl="gather",
+                      device="cpu", **base))
 
 
 def _shared_prefix(seed, shared_len, suffixes):
@@ -406,7 +407,8 @@ def test_warm_equals_cold_sequential(weights):
     tout = [_drive(teng, [teng.submit(p, max_tokens=6)])[0] for p in prompts]
     assert tout == jout
     _, tp = weights
-    cold = LLMEngine(TCFG, tp, n_slots=4, max_len=128, page_size=16,
+    cold = LLMEngine(TCFG, tp, kv_mode="paged", n_slots=4, max_len=128,
+                     page_size=16,
                      prefill_chunk=16, prefill_token_budget=32,
                      device="cpu")
     assert [_drive(cold, [cold.submit(p, max_tokens=6)])[0]

@@ -455,7 +455,8 @@ def _both_engines(weights, prompts, *, max_tokens=8, **kw):
     kw.setdefault("n_slots", 4)
     kw.setdefault("max_len", 128)
     jeng = JaxEngine(JCFG, jp, kv_mode="paged", attn_impl="gather", **kw)
-    teng = LLMEngine(TCFG, tp, attn_impl="kernel", device="cpu", **kw)
+    teng = LLMEngine(TCFG, tp, kv_mode="paged", attn_impl="kernel",
+                     device="cpu", **kw)
     jout = _drive(jeng, [jeng.submit(p, max_tokens=max_tokens)
                          for p in prompts])
     tout = _drive(teng, [teng.submit(p, max_tokens=max_tokens)
@@ -507,7 +508,8 @@ def test_engine_int8_bucketed_equals_full_width(weights):
     prompts = _prompts(3, (5, 20, 40, 70, 100))
     outs = []
     for bucketing in (True, False):
-        eng = LLMEngine(TCFG, tp, n_slots=4, max_len=128, page_size=16,
+        eng = LLMEngine(TCFG, tp, kv_mode="paged", n_slots=4, max_len=128,
+                        page_size=16,
                         prefill_chunk=16, prefill_token_budget=32,
                         prefill_width_bucketing=bucketing, kv_dtype="int8",
                         device="cpu")
@@ -521,8 +523,8 @@ def test_pool_bytes_halve_plus_scale_planes(weights):
     planes are a quarter of the bytes, plus two [L, P+1] bf16 scale
     planes."""
     _, tp = weights
-    kw = dict(n_slots=4, max_len=128, page_size=16, prefill_chunk=16,
-              prefill_token_budget=32, device="cpu")
+    kw = dict(kv_mode="paged", n_slots=4, max_len=128, page_size=16,
+              prefill_chunk=16, prefill_token_budget=32, device="cpu")
     mb = LLMEngine(TCFG, tp, **kw).metrics()
     q = LLMEngine(TCFG, tp, kv_dtype="int8", weight_dtype="int8", **kw)
     mq = q.metrics()
@@ -540,6 +542,6 @@ def test_int8_engine_runs_on_cuda_by_default(weights):
     other: without a GPU it raises unless device="cpu" is given."""
     _, tp = weights
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        LLMEngine(TCFG, tp, n_slots=2, max_len=32, page_size=8,
-                  prefill_chunk=8, prefill_token_budget=8,
+        LLMEngine(TCFG, tp, kv_mode="paged", n_slots=2, max_len=32,
+                  page_size=8, prefill_chunk=8, prefill_token_budget=8,
                   weight_dtype="int8", kv_dtype="int8")

@@ -232,7 +232,8 @@ def _jax_run(jp, prompts, max_tokens, **kw):
 
 
 def _spec(tp, prompts, max_tokens, draft_cfg, draft_params, k, **kw):
-    eng = LLMEngine(TCFG, tp, attn_impl="gather", device="cpu",
+    eng = LLMEngine(TCFG, tp, kv_mode="paged", attn_impl="gather",
+                    device="cpu",
                     spec_draft=draft_cfg, spec_draft_params=draft_params,
                     spec_k=k, **{**BASE, **kw})
     out = _drive(eng, [eng.submit(p, max_tokens=max_tokens)
@@ -316,7 +317,8 @@ def test_temperature_run_completes(weights, draft):
     rejection sampling, residual draws) runs to the end with sane counts
     and a closed accounting."""
     _, tp = weights
-    eng = LLMEngine(TCFG, tp, attn_impl="gather", device="cpu",
+    eng = LLMEngine(TCFG, tp, kv_mode="paged", attn_impl="gather",
+                    device="cpu",
                     spec_draft=TDRAFT, spec_draft_params=draft, spec_k=4,
                     **BASE)
     reqs = [eng.submit(p, max_tokens=12, temperature=0.8)
@@ -344,7 +346,8 @@ def test_warm_binds_with_a_draft(weights, draft):
                for _ in range(6)]
     kw = dict(page_size=8, prefill_chunk=12, prefill_token_budget=24)
     ref = _jax_run(jp, prompts, 8, **kw)
-    eng = LLMEngine(TCFG, tp, attn_impl="gather", device="cpu",
+    eng = LLMEngine(TCFG, tp, kv_mode="paged", attn_impl="gather",
+                    device="cpu",
                     spec_draft=TDRAFT, spec_draft_params=draft, spec_k=4,
                     prefix_cache=True, n_pages=48, **{**BASE, **kw})
     for lo in (0, 3):
@@ -361,7 +364,8 @@ def test_cow_reaches_the_draft_pool(weights, draft):
     """`_apply_cow` copies each queued pair in the target's pool and in
     the draft's (draft page p mirrors target page p), every plane."""
     _, tp = weights
-    eng = LLMEngine(TCFG, tp, attn_impl="gather", device="cpu",
+    eng = LLMEngine(TCFG, tp, kv_mode="paged", attn_impl="gather",
+                    device="cpu",
                     spec_draft=TDRAFT, spec_draft_params=draft,
                     prefix_cache=True, kv_dtype="int8", **BASE)
     gen = torch.Generator().manual_seed(0)

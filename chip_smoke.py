@@ -9,6 +9,8 @@
                           # the prefix cache and speculative decoding
     python3 chip_smoke.py --only kernels,engine,engine_dense,engine_oneshot,engine_drain
                           # dense KV, one-shot prefill, drain and resume
+    python3 chip_smoke.py --only engine,engine_warmup,engine_observe,engine_edge
+                          # warmup, load row, metrics, spans, max_len, chaos
 
 Phases, one JSON line each (the whole record also goes to
 build/chip_smoke.json):
@@ -136,6 +138,35 @@ build/chip_smoke.json):
    (each resumed stream carries exactly the missing tokens, none
    re-emitted; accounting closed on both engines), with the agreement
    of the resumed streams with an uninterrupted run.
+   engine_warmup: two fresh child processes of this script
+   (``--warmup-child on|off``, run before this process holds the
+   engine's pools; they load the library this process built) boot the
+   engine phase's chunked kernel engine with warmup=True and with
+   warmup=False and serve its first prompt alone: the warmup's wall,
+   each dispatch's wall to a synchronize, its launches (gate: 6 widths x
+   2 heads = 12 dispatches, n_layers prefill launches each), the first
+   request's TTFT and first decode window, and whether the two streams
+   agree; then warmup_compile on a float and an int8 pool filled with
+   seeded values (gate: every plane outside the null page bitwise
+   unchanged), beside this process's library build time.
+   engine_observe: the engine phase's traffic through start() with a
+   poller calling load_snapshot() every 50 ms (gate: every snapshot's
+   llm_* gauges equal its fields), each finished request's metrics
+   observed as a front end does; gates on the Prometheus text (decode
+   step count = decode windows, one TTFT sample per request) and the
+   per-width dispatch counter (sum = prefill dispatches), and on the
+   span ring (ceil(windows / 64) llm.decode_window spans, the first
+   request's llm.ttft tree of three children); readings: the load
+   series, the hooks' host µs per window, decode step and TTFT. Then a
+   drain under load: the same traffic, drain(0.0) with the engine
+   thread running once half the streams started, the continuations
+   resumed on a fresh engine (each with exactly its missing tokens).
+   engine_edge: paged one-shot and chunked kernel engines at max_len
+   256 (a multiple of the page), 2 slots: a request runs into max_len
+   beside a short one and must finish truncated after 157 tokens with
+   no error and the pages balanced; then a chaos "raise" rule at
+   llm.decode_window must end every request with the engine-death
+   error, and a later submit must raise.
 7. train: build_training(gpt2_124m(max_seq=1024, remat=True,
    attn_impl="flash"), adamw(3e-4, weight_decay=0.1, mu_dtype=bf16))
    with seeded random weights and a seeded [8, 1024] batch: one step of
@@ -167,6 +198,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -175,12 +207,16 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from ray_tpu_torch import chaos as tchaos
+from ray_tpu_torch import profiling
+from ray_tpu_torch import tracing
 from ray_tpu_torch.models import decode as dec
 from ray_tpu_torch.models import gpt
 from ray_tpu_torch.models import paged_kv as pk
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
+from ray_tpu_torch.serve import llm as serve_llm
 from ray_tpu_torch.serve.llm import LLMEngine
 from ray_tpu_torch.train.optim import adamw
 from ray_tpu_torch.train.spmd import build_training
@@ -2724,47 +2760,13 @@ def drain_round(device, cfg, params, knobs):
     t0 = time.perf_counter()
     out = src.drain(0.0)
     drain_s = time.perf_counter() - t0
-    for r in reqs:
-        streamed = []
-        while (t := r.stream.get(timeout=5)) is not None:
-            streamed.append(t)
-        if not r.done.is_set() or r.error or streamed != r.out_ids or not (
-                r.migrated or len(r.out_ids) == DRAIN_TOKENS):
-            raise AssertionError(f"source request {r.request_id} left "
-                                 f"open: {r.error}, {len(streamed)} streamed")
+    check_drained_source(reqs, DRAIN_TOKENS)
     src_pages = check_pages(src)
     del src
     torch.cuda.empty_cache()
-    dst = engine()
     conts = out["continuations"]
-    resumed = [dst.submit(c["prompt_ids"], max_tokens=c["max_tokens"],
-                          temperature=c["temperature"], eos_id=c["eos_id"],
-                          generated_ids=c["generated_ids"],
-                          request_id=c["request_id"], stream=True)
-               for c in conts]
-    t0 = time.perf_counter()
-    dst.start()
-    try:
-        for r in resumed:
-            if not r.done.wait(timeout=600):
-                raise AssertionError("resumed request timed out")
-    finally:
-        dst.stop()
-    resume_s = time.perf_counter() - t0
-    check_outputs(cfg, resumed, DRAIN_TOKENS)
-    for c, r in zip(conts, resumed):
-        streamed = []
-        while (t := r.stream.get(timeout=5)) is not None:
-            streamed.append(t)
-        gen = c["generated_ids"]
-        if (r.out_ids[:len(gen)] != gen or streamed != r.out_ids[len(gen):]
-                or len(streamed) != c["max_tokens"] - len(gen)):
-            raise AssertionError(f"resume of {c['request_id']} re-emitted "
-                                 f"or lost tokens: {len(gen)} generated, "
-                                 f"{len(streamed)} streamed")
-    dst_pages = check_pages(dst)
-    del dst
-    torch.cuda.empty_cache()
+    resumed, resume_s, dst_pages = resume_continuations(
+        device, cfg, params, knobs, conts, DRAIN_TOKENS)
     shares = agreement([r.out_ids for r in resumed],
                        [full[int(c["request_id"])] for c in conts])
     return {"ticks_before_drain": ticks + DRAIN_TICKS,
@@ -2780,6 +2782,58 @@ def drain_round(device, cfg, params, knobs):
                                 dst_pages}}
 
 
+def check_drained_source(reqs, tokens):
+    """After drain(): every source request is done without error, its
+    stream carried exactly what it emitted, and it either finished or
+    was exported (migrated)."""
+    for r in reqs:
+        streamed = []
+        while (t := r.stream.get(timeout=5)) is not None:
+            streamed.append(t)
+        if not r.done.is_set() or r.error or streamed != r.out_ids or not (
+                r.migrated or len(r.out_ids) == tokens):
+            raise AssertionError(f"source request {r.request_id} left "
+                                 f"open: {r.error}, {len(streamed)} streamed")
+
+
+def resume_continuations(device, cfg, params, knobs, conts, tokens):
+    """Resume drain() continuations on a fresh engine (ENGINE_KNOBS and
+    ``knobs``) through its engine thread. Gates: no error, ``tokens``
+    each, every resumed stream carries exactly max_tokens -
+    len(generated_ids) new tokens with the generated ones kept in front,
+    the accounting closed. → (requests, wall seconds, page accounting)."""
+    dst = LLMEngine(cfg, params, device=device, **{**ENGINE_KNOBS, **knobs})
+    resumed = [dst.submit(c["prompt_ids"], max_tokens=c["max_tokens"],
+                          temperature=c["temperature"], eos_id=c["eos_id"],
+                          generated_ids=c["generated_ids"],
+                          request_id=c["request_id"], stream=True)
+               for c in conts]
+    t0 = time.perf_counter()
+    dst.start()
+    try:
+        for r in resumed:
+            if not r.done.wait(timeout=600):
+                raise AssertionError("resumed request timed out")
+    finally:
+        dst.stop()
+    resume_s = time.perf_counter() - t0
+    check_outputs(cfg, resumed, tokens)
+    for c, r in zip(conts, resumed):
+        streamed = []
+        while (t := r.stream.get(timeout=5)) is not None:
+            streamed.append(t)
+        gen = c["generated_ids"]
+        if (r.out_ids[:len(gen)] != gen or streamed != r.out_ids[len(gen):]
+                or len(streamed) != c["max_tokens"] - len(gen)):
+            raise AssertionError(f"resume of {c['request_id']} re-emitted "
+                                 f"or lost tokens: {len(gen)} generated, "
+                                 f"{len(streamed)} streamed")
+    dst_pages = check_pages(dst)
+    del dst
+    torch.cuda.empty_cache()
+    return resumed, resume_s, dst_pages
+
+
 def phase_engine_drain(device, cfg, params):
     """drain/resume on the dense one-shot engine, then on the chunked
     paged kernel engine (`drain_round`)."""
@@ -2791,6 +2845,451 @@ def phase_engine_drain(device, cfg, params):
     out["dense, one-shot"] = drain_round(device, cfg, params, dense_knobs())
     out["paged, chunked, kernel"] = drain_round(device, cfg, params, {})
     emit(out)
+
+
+# --------------------------------------- lifecycle and observability
+
+WARMUP_WIDTHS = 6     # the ladder at max_len 2048, page 64: 1 .. 32 pages
+SNAPSHOT_PERIOD_S = 0.05
+EDGE_MAX_LEN, EDGE_PROMPT = 256, 100
+
+
+def first_window_ms():
+    """Wall of the engine's first decode window: its ``llm.decode_window``
+    span (the first window is always sampled), which ends after the
+    window's host copy."""
+    spans = [e for e in profiling.peek_events()
+             if e["name"] == "llm.decode_window"]
+    return spans[0]["dur"] / 1e3 if spans else None
+
+
+def warmup_child_run(device, cfg, params, warm: bool) -> dict:
+    """One engine's boot: LLMEngine(ENGINE_KNOBS, warmup=warm) started,
+    then the engine phase's first prompt served alone. With ``warm`` the
+    warmup runs inside start(), each of its dispatches timed to a
+    synchronize by a wrapper around prefill_chunk_paged (removed before
+    the request). Gate (warm): WARMUP_WIDTHS x 2 dispatches, n_layers
+    prefill-kernel launches each. → the record."""
+    eng = LLMEngine(cfg, params, device=device, warmup=warm, **ENGINE_KNOBS)
+    dispatches = []
+    real = pk.prefill_chunk_paged
+
+    def timed(cfg_, params_, tokens, pool, tables, *a, **kw):
+        t0 = time.perf_counter()
+        out = real(cfg_, params_, tokens, pool, tables, *a, **kw)
+        torch.cuda.synchronize()
+        dispatches.append({"width": int(tables.shape[1]),
+                           "head": bool(kw.get("return_logits")),
+                           "wall_ms": (time.perf_counter() - t0) * 1e3})
+        return out
+
+    torch.cuda.synchronize()
+    pa.reset_launch_counts()
+    pk.prefill_chunk_paged = timed
+    try:
+        t0 = time.perf_counter()
+        eng.start()
+        start_s = time.perf_counter() - t0
+    finally:
+        pk.prefill_chunk_paged = real
+    warm_launches = launch_counts()
+    profiling.drain_events()
+    try:
+        req = eng.submit(engine_prompts(cfg)[0], max_tokens=ENGINE_TOKENS)
+        if not req.done.wait(timeout=600):
+            raise AssertionError("first request timed out")
+    finally:
+        eng.stop()
+    check_outputs(cfg, [req], ENGINE_TOKENS)
+    rec = {"warmup": warm, "start_s": start_s,
+           "warmup_dispatches": len(dispatches),
+           "warmup_dispatch_wall_ms": dispatches,
+           "warmup_launches": warm_launches,
+           "first_request_prompt_tokens": len(req.prompt_ids),
+           "first_request_ttft_s": req.first_token_at - req.submitted_at,
+           "first_window_ms": first_window_ms(),
+           "first_stream": req.out_ids}
+    if warm:
+        want = WARMUP_WIDTHS * 2
+        if (len(dispatches) != want or warm_launches[
+                "paged_prefill_attention"] != want * cfg.n_layers
+                or sorted({d["width"] for d in dispatches})
+                != eng._width_ladder() or len(eng._width_ladder())
+                != WARMUP_WIDTHS):
+            raise AssertionError(f"warmup issued {len(dispatches)} "
+                                 f"dispatches, launches {warm_launches}")
+    elif dispatches or any(warm_launches.values()):
+        raise AssertionError("an unwarmed start dispatched")
+    return rec
+
+
+def warmup_child_main(mode: str) -> int:
+    """``--warmup-child on|off``: one fresh process's boot
+    (`warmup_child_run` at opt_1_3b), its record as the last stdout
+    line. The kernel library is the parent's build (loaded, not built)."""
+    device = torch.device("cuda")
+    cfg = gpt.GPTConfig.opt_1_3b(dtype=torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = pk.serving_params(cfg, gpt.init_params(cfg, gen, device),
+                               device)
+    rec = warmup_child_run(device, cfg, params, mode == "on")
+    print(json.dumps(rec), flush=True)
+    return 0
+
+
+def warmup_children() -> dict:
+    """Child (a) with warmup=True, then child (b) with warmup=False, each
+    a fresh process of this script on the same card, one after the
+    other. → {"on": record, "off": record}."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = {}
+    for mode in ("on", "off"):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--warmup-child",
+             mode], capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"warmup child {mode} failed "
+                                 f"({res.returncode}): {res.stderr[-3000:]}")
+        out[mode] = json.loads(res.stdout.strip().splitlines()[-1])
+        out[mode]["process_wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def fill_pool(pool, seed):
+    """Seeded values in every plane of a pool (positive scales), as a live
+    pool holds."""
+    g = torch.Generator(device=pool["k"].device).manual_seed(seed)
+    for name, a in pool.items():
+        if name.endswith("_scale"):
+            a.copy_(torch.rand(a.shape, generator=g, device=a.device) + 0.01)
+        elif a.dtype == torch.int8:
+            a.copy_(torch.randint(-127, 128, a.shape, generator=g,
+                                  device=a.device))
+        else:
+            a.copy_(torch.randn(a.shape, generator=g, device=a.device))
+
+
+def warmup_leaves_pool(device, cfg, params, kv_dtype):
+    """Gate: warmup_compile on a pool filled with seeded values leaves
+    every plane outside the null page bitwise unchanged (int8: the scale
+    planes too)."""
+    eng = LLMEngine(cfg, params, device=device, kv_dtype=kv_dtype,
+                    **ENGINE_KNOBS)
+    fill_pool(eng.cache, 1)
+    before = {k: v[:, 1:].clone() for k, v in eng.cache.items()}
+    n = eng.warmup_compile()
+    changed = [k for k, v in eng.cache.items()
+               if not torch.equal(v[:, 1:], before[k])]
+    del eng, before
+    torch.cuda.empty_cache()
+    if n != WARMUP_WIDTHS * 2 or changed:
+        raise AssertionError(f"{kv_dtype} warmup: {n} dispatches, planes "
+                             f"changed outside the null page: {changed}")
+    return {"dispatches": n, "planes_unchanged_outside_null_page": True}
+
+
+def phase_engine_warmup(device, cfg, params, children, build_s):
+    """The two boots' records beside each other, the pool gate on the
+    float and the int8 pool, and whether the two first streams agree."""
+    on, off = children["on"], children["off"]
+    emit({"phase": "engine_warmup",
+          "config": "opt_1_3b bf16, 16 slots, max_len 2048, page 64, "
+                    "chunk 256, budget 512, kernel",
+          "parent_library_build_s": build_s,
+          "warmed": {k: v for k, v in on.items() if k != "first_stream"},
+          "unwarmed": {k: v for k, v in off.items() if k != "first_stream"},
+          "pool_gate": {kv: warmup_leaves_pool(device, cfg, params, kv)
+                        for kv in ("bf16", "int8")},
+          "first_streams_agree": on["first_stream"] == off["first_stream"],
+          "first_stream_agreement": agreement([on["first_stream"]],
+                                              [off["first_stream"]])[0]})
+
+
+def gauge_values():
+    return {key: dict(g.snapshot()).get(("local",))
+            for key, g in serve_llm._LOAD_GAUGES.items()}
+
+
+def prom_count(text, metric, tags):
+    """A histogram series' _count (0 when absent) in exposition text."""
+    label = ",".join(f'{k}="{v}"' for k, v in sorted(tags.items()))
+    m = re.search(rf"^{metric}_count\{{{re.escape(label)}\}} (\S+)$", text,
+                  re.M)
+    return float(m.group(1)) if m else 0.0
+
+
+def hook_host_us(eng, n=20000):
+    """Host µs per decode window of the hooks this slice added, each
+    timed alone over ``n`` calls: the disarmed chaos point, the span
+    sampler (1 in 64 calls records a span), the step histogram with its
+    tags, the decode EWMA."""
+    tags = eng._impl_tags()
+
+    def per_call(fn):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    def sampled_span():
+        with eng._sampled_span("llm.hook_probe"):
+            pass
+
+    # A histogram of the step histogram's shape, so the probe's samples
+    # stay out of the engine's series.
+    probe = profiling.Histogram(
+        "chip_smoke_hook_probe_s",
+        boundaries=serve_llm._DECODE_STEP_HIST.boundaries,
+        tag_keys=serve_llm._DECODE_STEP_HIST.tag_keys)
+    parts = {
+        "chaos_hit": per_call(lambda: tchaos.hit("llm.decode_window")),
+        "sampled_span": per_call(sampled_span),
+        "decode_step_hist": per_call(lambda: probe.observe(0.01, tags=tags)),
+        "decode_ewma": per_call(lambda: eng._ewma(1.0, 2.0)),
+    }
+    probe.remove(tags=tags)
+    profiling.drain_events()
+    return {"us_per_window": sum(parts.values()), "parts_us": parts}
+
+
+def phase_engine_observe(device, cfg, params, engine_out):
+    """The engine phase's traffic through start() (the engine thread),
+    a poller calling load_snapshot() every SNAPSHOT_PERIOD_S. Gates: each
+    snapshot's llm_* gauges equal its fields (0 when absent); the
+    Prometheus text's decode-step count grew by the decode windows; the
+    per-width dispatch counter grew by prefill_dispatches; the span ring
+    holds ceil(windows / 64) llm.decode_window spans and the first
+    request's llm.ttft tree (a root and its three children). Then a drain
+    under load: the same traffic, drain(0.0) with the thread running once
+    half the streams have started, every continuation resumed on a fresh
+    engine with exactly its missing tokens."""
+    tags = {"impl": "paged-kernel", "replica": "local"}
+    text0 = profiling.prometheus_text(profiling.metrics_snapshot())
+    widths0 = {r["tags"]["width"]: r["value"]
+               for r in profiling.metrics_snapshot()
+               if r["name"] == "llm_prefill_dispatch_total"}
+    profiling.drain_events()
+    eng = LLMEngine(cfg, params, device=device, **ENGINE_KNOBS)
+    prompts = engine_prompts(cfg)
+    series, bad = [], []
+    stop = threading.Event()
+
+    def poll():
+        t0 = time.perf_counter()
+        while not stop.is_set():
+            snap = eng.load_snapshot()
+            gauges = gauge_values()
+            if gauges != {k: float(snap.get(k, 0.0)) for k in gauges}:
+                bad.append((snap, gauges))
+            series.append({"t_s": round(time.perf_counter() - t0, 3),
+                           **{k: snap.get(k) for k in (
+                               "queue_depth", "active_slots",
+                               "prefilling_slots", "pool_utilization",
+                               "ttft_ewma_ms", "decode_tok_s_ewma",
+                               "prefill_budget_util")}})
+            stop.wait(SNAPSHOT_PERIOD_S)
+
+    torch.cuda.synchronize()
+    pa.reset_launch_counts()
+    reqs = [eng.submit(p, max_tokens=ENGINE_TOKENS) for p in prompts]
+    poller = threading.Thread(target=poll, name="load-poller")
+    t0 = time.perf_counter()
+    poller.start()
+    eng.start()
+    try:
+        for r in reqs:
+            if not r.done.wait(timeout=600):
+                raise AssertionError("engine request timed out")
+    finally:
+        eng.stop()
+        stop.set()
+        poller.join(timeout=30)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    check_outputs(cfg, reqs, ENGINE_TOKENS)
+    check_pages(eng)
+    m = eng.metrics()
+    # As a serving front end does, once per finished request.
+    for r in reqs:
+        serve_llm._observe_request_metrics(r, serve_llm._request_metric_tags())
+    if bad or not series:
+        raise AssertionError(f"{len(bad)} snapshots whose gauges differ "
+                             f"from their fields: {bad[:1]}")
+    text = profiling.prometheus_text(profiling.metrics_snapshot())
+    steps = prom_count(text, "serve_llm_decode_step_s", tags) - prom_count(
+        text0, "serve_llm_decode_step_s", tags)
+    req_tags = {"replica": "local", "route": ""}
+    ttfts = prom_count(text, "serve_llm_ttft_s", req_tags) - prom_count(
+        text0, "serve_llm_ttft_s", req_tags)
+    widths = {r["tags"]["width"]: r["value"] - widths0.get(r["tags"]["width"],
+                                                          0.0)
+              for r in profiling.metrics_snapshot()
+              if r["name"] == "llm_prefill_dispatch_total"}
+    if (steps != m["decode_windows"] or ttfts != len(reqs)
+            or sum(widths.values()) != m["prefill_dispatches"]):
+        raise AssertionError(f"exposition: {steps} decode steps for "
+                             f"{m['decode_windows']} windows, {ttfts} TTFT "
+                             f"samples, dispatches {widths} for "
+                             f"{m['prefill_dispatches']}")
+    events = [e for e in profiling.peek_events() if e["cat"] == "serve_llm"]
+    n_windows = sum(e["name"] == "llm.decode_window" for e in events)
+    roots = [e for e in events if e["name"] == "llm.ttft"]
+    first = min(reqs, key=lambda r: r.first_token_at)
+    tree = tracing.build_trace_tree(events, roots[0]["args"]["trace_id"]) \
+        if roots else None
+    kids = ([c["name"] for c in tree["spans"][0]["children"]]
+            if tree and len(tree["spans"]) == 1 else [])
+    if (n_windows != -(-m["decode_windows"] // eng._SPAN_SAMPLE)
+            or len(roots) != -(-len(reqs) // eng._TTFT_SPAN_SAMPLE)
+            or roots[0]["args"]["request_id"] != first.request_id
+            or kids != ["llm.ttft.queue_wait", "llm.ttft.prefill",
+                        "llm.ttft.first_token"]):
+        raise AssertionError(f"spans: {n_windows} windows of "
+                             f"{m['decode_windows']}, {len(roots)} ttft "
+                             f"roots, children {kids}")
+    hooks = hook_host_us(eng)
+    del eng
+    torch.cuda.empty_cache()
+    out = {"phase": "engine_observe",
+           "config": "opt_1_3b bf16, the engine phase's knobs, start()",
+           "wall_s": wall, "launches": launches,
+           "decode_windows": m["decode_windows"],
+           "prefill_dispatches": m["prefill_dispatches"],
+           "snapshots": len(series),
+           "snapshot_period_s": SNAPSHOT_PERIOD_S,
+           "load_series": series[::max(1, len(series) // 60)],
+           "exposition_decode_step_count": steps,
+           "exposition_ttft_count": ttfts,
+           "dispatches_by_width": widths,
+           "decode_window_spans": n_windows, "ttft_roots": len(roots),
+           "ttft_tree_children": kids,
+           "hook_host_cost": hooks,
+           **{k: m.get(k) for k in ("decode_step_ms_p50",
+                                    "decode_step_ms_p95", "ttft_ms_p50",
+                                    "ttft_ms_p95")},
+           "engine_phase_decode_step_ms_p50": (
+               engine_out or {}).get("decode_step_ms_p50")}
+    out["drain_under_load"] = drain_under_load(device, cfg, params, prompts)
+    emit(out)
+    return launches
+
+
+def drain_under_load(device, cfg, params, prompts):
+    """The engine phase's traffic through start(); drain(0.0) while the
+    thread runs, once half the streams have started; the continuations
+    resumed on a fresh engine (`resume_continuations`)."""
+    src = LLMEngine(cfg, params, device=device, **ENGINE_KNOBS)
+    reqs = [src.submit(p, max_tokens=ENGINE_TOKENS, stream=True,
+                       request_id=str(i)) for i, p in enumerate(prompts)]
+    src.start()
+    deadline = time.monotonic() + 600
+    while sum(bool(r.out_ids) for r in reqs) < len(reqs) // 2:
+        if time.monotonic() > deadline:
+            src.stop()
+            raise AssertionError("streams never started")
+        time.sleep(0.005)
+    started = sum(bool(r.out_ids) for r in reqs)
+    t0 = time.perf_counter()
+    out = src.drain(0.0)
+    drain_s = time.perf_counter() - t0
+    check_drained_source(reqs, ENGINE_TOKENS)
+    src_pages = check_pages(src)
+    del src
+    torch.cuda.empty_cache()
+    conts = out["continuations"]
+    if not conts:
+        raise AssertionError("the drain under load exported nothing")
+    _resumed, resume_s, dst_pages = resume_continuations(
+        device, cfg, params, {}, conts, ENGINE_TOKENS)
+    return {"streams_started_at_drain": started,
+            "exported": out["exported"], "drain_s": drain_s,
+            "generated_at_drain": sorted(len(c["generated_ids"])
+                                         for c in conts),
+            "resume_wall_s": resume_s,
+            "page_accounting": {"source": src_pages,
+                                "destination": dst_pages}}
+
+
+def phase_engine_edge(device, cfg, params):
+    """Paged one-shot and chunked kernel engines at max_len EDGE_MAX_LEN
+    (a multiple of page 64), 2 slots: a request runs into max_len beside
+    a short one. Gates: it finishes truncated with no error after
+    max_len - prompt + 1 tokens, the pages balance. Then a chaos raise
+    rule at llm.decode_window (after 2 windows) on the chunked engine:
+    every request ends with the engine-death error, a later submit
+    raises, nothing hangs."""
+    rng = np.random.default_rng(ENGINE_PROMPT_SEED + 3)
+    prompt = list(map(int, rng.integers(1, cfg.vocab_size, EDGE_PROMPT)))
+    short = list(map(int, rng.integers(1, cfg.vocab_size, 40)))
+    knobs = {"one-shot": dict(prefill_chunk=0),
+             "chunked": dict(prefill_chunk=64, prefill_token_budget=128)}
+    out = {"phase": "engine_edge",
+           "config": f"opt_1_3b bf16, kernel, n_slots 2, max_len "
+                     f"{EDGE_MAX_LEN}, page 64"}
+    counts = {}
+    for arm, kw in knobs.items():
+        eng = LLMEngine(cfg, params, device=device, **{
+            **ENGINE_KNOBS, "n_slots": 2, "max_len": EDGE_MAX_LEN, **kw})
+        torch.cuda.synchronize()
+        pa.reset_launch_counts()
+        long_req = eng.submit(prompt, max_tokens=4 * EDGE_MAX_LEN)
+        short_req = eng.submit(short, max_tokens=8)
+        eng.start()
+        try:
+            for r in (long_req, short_req):
+                if not r.done.wait(timeout=300):
+                    raise AssertionError(f"{arm}: a request hung")
+        finally:
+            eng.stop()
+        counts[arm] = launch_counts()
+        want = EDGE_MAX_LEN - EDGE_PROMPT + 1
+        if (long_req.error or short_req.error or not long_req.truncated
+                or len(long_req.out_ids) != want
+                or len(short_req.out_ids) != 8):
+            raise AssertionError(f"{arm}: {long_req.error or short_req.error}"
+                                 f", truncated {long_req.truncated}, "
+                                 f"{len(long_req.out_ids)} tokens of {want}")
+        out[arm] = {"tokens": len(long_req.out_ids), "truncated": True,
+                    "launches": counts[arm],
+                    "page_accounting": check_pages(eng)}
+        del eng
+        torch.cuda.empty_cache()
+    eng = LLMEngine(cfg, params, device=device, **{
+        **ENGINE_KNOBS, "n_slots": 2, "max_len": EDGE_MAX_LEN,
+        **knobs["chunked"]})
+    reqs = [eng.submit(p, max_tokens=64) for p in (prompt, short)]
+    tchaos.install([{"site": "llm.decode_window", "action": "raise",
+                     "after": 2}])
+    t0 = time.perf_counter()
+    eng.start()
+    try:
+        for r in reqs:
+            if not r.done.wait(timeout=300):
+                raise AssertionError("chaos: a request hung")
+    finally:
+        eng.stop()
+        tchaos.uninstall()
+    errors = [r.error for r in reqs]
+    if not all(e and e.startswith("engine died: ChaosError(")
+               for e in errors):
+        raise AssertionError(f"chaos: request errors {errors}")
+    try:
+        eng.submit(short, max_tokens=1)
+        raise AssertionError("chaos: a submit after the death was taken")
+    except RuntimeError as e:
+        if "engine died" not in str(e):
+            raise
+    out["chaos"] = {"rule": "raise at llm.decode_window after 2",
+                    "errors": errors, "tokens_before_death": [
+                        len(r.out_ids) for r in reqs],
+                    "death_wall_s": time.perf_counter() - t0}
+    del eng
+    torch.cuda.empty_cache()
+    emit(out)
+    return counts
 
 
 # ------------------------------------------------------------------- train
@@ -2964,7 +3463,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default="",
                     help="comma list of phases: kernels,programs,profile,"
                          "engine,engine_prefix,engine_spec,engine_dense,"
-                         "engine_oneshot,engine_drain,train (default: all; "
+                         "engine_oneshot,engine_drain,engine_warmup,"
+                         "engine_observe,engine_edge,train (default: all; "
                          "the build always runs)")
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc -Xptxas -v (registers, spills)")
@@ -2973,6 +3473,8 @@ def main(argv=None) -> int:
                          "prefill and decode kernels against an older "
                          "checkout's (its ray_tpu_torch/ops/csrc, built "
                          "into build/ab), in turns old, new, new, old")
+    ap.add_argument("--warmup-child", choices=("on", "off"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2984,6 +3486,8 @@ def main(argv=None) -> int:
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.warmup_child:
+        return warmup_child_main(args.warmup_child)
 
     card = card_line()
     print(card, flush=True)
@@ -2996,7 +3500,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _build.build(verbose=args.ptxas)
     _build.library()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    build_s = time.perf_counter() - t0
+    emit({"phase": "build", "seconds": build_s,
           "sources": [str(p.relative_to(_build.REPO_ROOT))
                       for p in _build.sources()],
           "arch": "sm_90a", "sass_ops": sass_ops(_build.LIB_PATH)})
@@ -3026,6 +3531,9 @@ def main(argv=None) -> int:
         timings.update(phase_flash_kernels(device, errs))
     if args.ab:
         phase_ab(device, args.ab)
+    if want("engine_warmup"):
+        # Fresh processes, before this one holds the engine's pools.
+        children = warmup_children()
     # Launches of each serving path, each read from its own run (every
     # run zeroes every count just before it): the kernels line's
     # ``launches`` are the main path's (the float engine for the float
@@ -3034,7 +3542,8 @@ def main(argv=None) -> int:
     by_path: dict = {}
     serving = ("programs", "profile", "engine", "engine_prefix",
                "engine_spec", "engine_dense", "engine_oneshot",
-               "engine_drain")
+               "engine_drain", "engine_warmup", "engine_observe",
+               "engine_edge")
     if any(want(p) for p in serving):
         cfg, masters, params = make_params(device)
         if want("programs"):
@@ -3044,7 +3553,9 @@ def main(argv=None) -> int:
             phase_programs_oneshot(device, cfg, masters, params)
         if want("profile"):
             phase_profile(device, cfg, masters, params)
-        streams = None
+        streams = float_run = None
+        if want("engine_warmup"):
+            phase_engine_warmup(device, cfg, params, children, build_s)
         if want("engine"):
             counts, float_run, streams = phase_engine(device, cfg, params)
             by_path["engine"] = counts
@@ -3070,6 +3581,12 @@ def main(argv=None) -> int:
                                                  masters).items()})
         if want("engine_drain"):
             phase_engine_drain(device, cfg, params)
+        if want("engine_observe"):
+            by_path["engine_observe"] = phase_engine_observe(
+                device, cfg, params, float_run)
+        if want("engine_edge"):
+            by_path.update({f"engine_edge ({arm})": c for arm, c in
+                            phase_engine_edge(device, cfg, params).items()})
         del cfg, masters, params
         torch.cuda.empty_cache()
     if want("train"):

@@ -18,10 +18,15 @@ layout and names so each counterpart is easy to find:
                           chunked prefill)
 - ``train/``              the single-device train step (``spmd.py``) and
                           an AdamW with optax's semantics (``optim.py``)
+- ``profiling.py``, ``metrics.py``, ``tracing.py``, ``chaos.py``
+                          the host-side event ring and metrics registry,
+                          trace context and fault injection the engine
+                          reports through (copies of the JAX package's)
 
 The package imports torch, numpy and the standard library only. Every
 entry point runs on ``cuda`` unless the caller passes ``device="cpu"``;
 without a GPU the default raises instead of running on the CPU.
 """
 
-__all__ = ["models", "ops", "serve", "train"]
+__all__ = ["chaos", "metrics", "models", "ops", "profiling", "serve",
+           "tracing", "train"]

@@ -52,18 +52,36 @@ resumes one by teacher-forcing the tokens already emitted, so a greedy
 resume is byte-identical to the uninterrupted run and the stream cursor
 splices exactly.
 
+Lifecycle and observability, as the JAX engine's: `warmup_compile`
+(``warmup=True`` runs it at `start`) loads the kernel library and walks
+the chunk program's width ladder with inert dispatches, so no live
+request pays the first touch; `load_snapshot` is the router's load row
+(queue, slots, pool, the TTFT / decode-rate / prefill-budget /
+acceptance EWMAs) and sets the ``llm_*`` gauges; the engine's histograms
+and counters (`ray_tpu_torch.profiling`, read with `metrics_snapshot` /
+`prometheus_text`), its sampled spans (``llm.decode_window``,
+``llm.spec_verify``, ``llm.ttft`` with three children;
+`ray_tpu_torch.tracing`) and the chaos point ``llm.decode_window``
+(`ray_tpu_torch.chaos`) carry the reference's names.
+
+A paged slot whose cursor reached ``max_len`` finishes truncated before
+the tick fits its window pages, as the dense engine's does. The JAX
+paged engine instead grows such a slot one page past its table when
+``max_len`` is a multiple of the page size and its engine thread dies.
+
 Not ported, each rejected with a ValueError when asked for: tensor
 parallelism, KV page-set transfer (pool roles, kv_transfer, kv_store;
 a continuation's ``kv`` descriptor is accepted and ignored, as the
-reference ignores it without a store), compile warmup and the Serve
-deployment wrapper; nor are `load_snapshot`, the load EWMAs and the
-metrics-registry copies. The tracing, profiling, chaos and
-compile-watch hooks of the JAX engine have no counterpart here.
+reference ignores it without a store) and the Serve deployment wrapper;
+nor are the KV-transfer counters, the ``serve.kv.donate`` chaos point
+and the compile-watch hooks (XLA compile accounting, which has no
+counterpart here).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import math
 import queue
@@ -74,11 +92,15 @@ import uuid
 import numpy as np
 import torch
 
+from ray_tpu_torch import chaos as _chaos
+from ray_tpu_torch import profiling as _profiling
+from ray_tpu_torch import tracing
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models import decode as _dense
 from ray_tpu_torch.models import gpt
 from ray_tpu_torch.models import paged_kv as _paged
 from ray_tpu_torch.models.decode import sample_token
+from ray_tpu_torch.ops import _build
 from ray_tpu_torch.serve.prefix_cache import PrefixCache
 
 # Engine defaults, copied from the JAX package's runtime config and its
@@ -92,6 +114,113 @@ DEFAULT_PREFILL_TOKEN_BUDGET = 256
 DEFAULT_WIDTH_BUCKETING = True
 DEFAULT_PREFIX_CACHE_PAGES = 0     # 0 = half the pool
 DEFAULT_SPEC_K = 4
+
+# The JAX engine's metric objects, with its names, tags and buckets, so a
+# port replica's /metrics rows read like a JAX replica's. Per-request
+# histograms, tagged by ingress route (trace baggage) and replica:
+_TTFT_HIST = _profiling.Histogram(
+    "serve_llm_ttft_s",
+    description="LLM time-to-first-token (queue wait + prefill)",
+    boundaries=_profiling.LATENCY_BUCKETS_S,
+    tag_keys=("route", "replica"))
+_DECODE_HIST = _profiling.Histogram(
+    "serve_llm_decode_tok_s",
+    description="LLM per-request decode throughput (tokens/s after TTFT)",
+    boundaries=(1, 5, 10, 25, 50, 100, 250, 500, 1000, 2500),
+    tag_keys=("route", "replica"))
+# Engine-side decode step latency (window wall / tokens per slot), tagged
+# by KV layout and attention implementation.
+_DECODE_STEP_HIST = _profiling.Histogram(
+    "serve_llm_decode_step_s",
+    description="LLM engine per-token decode step latency (window / k)",
+    boundaries=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                0.25, 0.5, 1.0, 2.5),
+    tag_keys=("replica", "impl"))
+# Per-dispatch chunked-prefill latency: the decode stall the token budget
+# bounds is one of these per budget's worth of tokens.
+_PREFILL_CHUNK_HIST = _profiling.Histogram(
+    "serve_llm_prefill_chunk_s",
+    description="LLM chunked-prefill per-chunk dispatch latency",
+    boundaries=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                0.25, 0.5, 1.0, 2.5),
+    tag_keys=("replica", "impl"))
+# One increment per chunk dispatch, tagged by its pow-2 table width.
+_PREFILL_DISPATCH_COUNTER = _profiling.Counter(
+    "llm_prefill_dispatch_total",
+    description="LLM chunked-prefill dispatches by page-table width",
+    tag_keys=("replica", "width"))
+
+# Live engine-load gauges, set on every load_snapshot() call.
+_LOAD_GAUGES = {
+    key: _profiling.Gauge(f"llm_{key}", description=desc,
+                          tag_keys=("replica",))
+    for key, desc in (
+        ("queue_depth", "LLM requests queued (pending + deferred)"),
+        ("active_slots", "LLM slots bound to a request"),
+        ("prefilling_slots", "LLM slots still streaming their prompt in"),
+        ("pool_pages_free", "KV page-pool free pages"),
+        ("pool_pages_total", "KV page-pool size"),
+        ("prefill_budget_util",
+         "EWMA of per-tick prefill-budget utilization"),
+        ("ttft_ewma_ms", "EWMA of time-to-first-token (ms)"),
+        ("decode_tok_s_ewma", "EWMA of fused-window decode rate (tok/s)"),
+        ("prefix_cache_pages",
+         "KV pages currently pinned by prefix-cache entries"),
+        ("prefix_cache_hit_rate",
+         "Prefix-cache admission hit rate since last stats reset"),
+        ("spec_accepted_per_step",
+         "EWMA of tokens emitted per slot per speculative verify pass"),
+        ("prefill_dispatch_width_p50",
+         "Median page-table width of recent chunk dispatches"),
+        ("prefill_dispatch_width_max",
+         "Max page-table width of recent chunk dispatches"),
+    )
+}
+
+# Speculative decoding: cumulative proposals and acceptances.
+_SPEC_COUNTERS = {
+    name: _profiling.Counter(
+        f"llm_spec_{name}_total", description=desc, tag_keys=("replica",))
+    for name, desc in (
+        ("proposed", "Draft tokens proposed to speculative verification"),
+        ("accepted", "Draft proposals the target model accepted"),
+    )
+}
+
+# Prefix-cache lifecycle counters.
+_PREFIX_COUNTERS = {
+    name: _profiling.Counter(
+        f"llm_prefix_cache_{name}_total", description=desc,
+        tag_keys=("replica",))
+    for name, desc in (
+        ("hits", "Admissions that bound a cached prefix"),
+        ("misses", "Admissions with no cached prefix"),
+        ("evictions", "Prefix-cache entries evicted (LRU / pressure)"),
+        ("cow_copies", "Copy-on-write page duplications at bind time"),
+    )
+}
+
+
+def _request_metric_tags() -> dict:
+    """Route (ingress trace baggage) and replica tags for the per-request
+    histograms. The port has no runtime context, so the replica is
+    "local", the reference's value outside an actor."""
+    ctx = tracing.get_current()
+    route = (ctx.baggage.get("route", "") if ctx is not None else "") or ""
+    return {"route": route, "replica": "local"}
+
+
+def _observe_request_metrics(req: "GenRequest", tags: dict) -> None:
+    """A finished request's TTFT and decode rate into the per-request
+    histograms (a serving front end calls it once per request)."""
+    if req.first_token_at is not None:
+        _TTFT_HIST.observe(req.first_token_at - req.submitted_at, tags=tags)
+    if (req.finished_at is not None and req.first_token_at is not None
+            and len(req.out_ids) > 1):
+        decode_s = req.finished_at - req.first_token_at
+        if decode_s > 0:
+            _DECODE_HIST.observe((len(req.out_ids) - 1) / decode_s,
+                                 tags=tags)
 
 
 def _pow2_width(n: int) -> int:
@@ -183,6 +312,10 @@ class GenRequest:
     n_prompt: int = 0
     first_token_at: float | None = None
     finished_at: float | None = None
+    # TTFT breakdown: first and last prefill dispatch of this request
+    # (one-shot prefill sets both around its one dispatch).
+    first_chunk_at: float | None = None
+    last_chunk_at: float | None = None
     # Admission aging (starvation guard), as in the JAX engine.
     admit_bypasses: int = 0
     # Prefix-cache hit at admission: tokens served from cached pages
@@ -222,7 +355,8 @@ class LLMEngine:
     here. ``prefix_cache``/``prefix_cache_pages`` (0 = half the pool)
     turn on page sharing; ``spec_draft`` (a GPTConfig or a preset name)
     with ``spec_k`` and optional ``spec_draft_params`` (else random from
-    ``seed + 1``) turns on speculative decoding.
+    ``seed + 1``) turns on speculative decoding. ``warmup`` runs
+    `warmup_compile` in `start`, before the engine thread spawns.
     """
 
     def __init__(self, cfg, params=None, *, n_slots: int = 8,
@@ -277,8 +411,7 @@ class LLMEngine:
         for asked, feature in (
                 (tp != 1, "tensor parallelism (tp > 1)"),
                 (pool_role is not None or bool(kv_transfer)
-                 or kv_store is not None, "KV page-set transfer"),
-                (bool(warmup), "compile warmup")):
+                 or kv_store is not None, "KV page-set transfer")):
             if asked:
                 raise _not_ported(feature)
         if kv_mode not in ("dense", "paged"):
@@ -449,6 +582,17 @@ class LLMEngine:
         # reading a request popped but not yet bound to a slot as idle.
         self._draining = False
         self._mid_tick = False
+        self._warmup_on_start = bool(warmup)
+        self._warmed = False
+        # Load EWMAs (None until a first sample; reset_stats clears them).
+        self._ttft_ewma_ms: float | None = None
+        self._decode_ewma_tok_s: float | None = None
+        self._budget_util_ewma: float | None = None
+        self._spec_accept_ewma: float | None = None
+        # Span sampling sequences and the engine's histogram tags.
+        self._span_seq: dict[str, int] = {}
+        self._ttft_seq = 0
+        self._step_tags: dict | None = None
         self._thread: threading.Thread | None = None
         self._lock = threading.Lock()
         # Serializes start()/stop() (two starts must not spawn two loops).
@@ -572,9 +716,69 @@ class LLMEngine:
             raise RuntimeError(req.error)
         return req.out_ids
 
+    def _width_ladder(self) -> list[int]:
+        """The pow-2 table widths chunk dispatches can occur at: 1, 2, 4,
+        ... up to and including `max_pages_per_slot` (which caps the
+        bucket rule, so it appears even when it is not a power of two);
+        with width bucketing off, that one width."""
+        if not self.prefill_width_bucketing:
+            return [self.max_pages_per_slot]
+        widths, w = [], 1
+        while w < self.max_pages_per_slot:
+            widths.append(w)
+            w *= 2
+        widths.append(self.max_pages_per_slot)
+        return widths
+
+    def warmup_compile(self) -> int:
+        """Pay every first-touch cost before a live request does: on a
+        kernel engine on CUDA, load the kernel library (built first when
+        missing or stale: the nvcc build), then one inert dispatch (every
+        row n_valid 0, an all-zero table: every write lands on the null
+        page) per table width per head variant of `prefill_chunk_paged`,
+        plus the draft's prefill mirror and `verify_chunk_paged` with
+        speculation: the reference's dispatch count. Waits for the device
+        before it returns. Idempotent per engine; ``warmup=True`` runs it
+        at `start`. → dispatches issued (0 on dense and one-shot engines
+        and on a second call)."""
+        if (self.kv_mode != "paged" or not self.prefill_chunk
+                or self._warmed):
+            return 0
+        if self.attn_impl == "kernel" and self.device.type == "cuda":
+            _build.library()
+        toks = self._to_dev(np.zeros((self.n_slots, self.prefill_chunk),
+                                     np.int32))
+        zeros = self._to_dev(np.zeros(self.n_slots, np.int32))
+        if self.spec_k:
+            vtoks = self._to_dev(np.zeros((self.n_slots, self.spec_k + 1),
+                                          np.int32))
+        n = 0
+        for width in self._width_ladder():
+            tables = self._to_dev(np.zeros((self.n_slots, width), np.int32))
+            for head in (False, True):
+                _x, self.cache = _paged.prefill_chunk_paged(
+                    self.cfg, self.params, toks, self.cache, tables, zeros,
+                    zeros, return_logits=head, attn_impl=self.attn_impl)
+                n += 1
+            if self.spec_k:
+                _x, self.draft_cache = _paged.prefill_chunk_paged(
+                    self.draft_cfg, self.draft_params, toks,
+                    self.draft_cache, tables, zeros, zeros,
+                    return_logits=False, attn_impl=self.attn_impl)
+                _x, self.cache = _paged.verify_chunk_paged(
+                    self.cfg, self.params, vtoks, self.cache, tables, zeros,
+                    zeros, attn_impl=self.attn_impl)
+                n += 2
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._warmed = True
+        return n
+
     def start(self) -> None:
         with self._lifecycle_lock:
             if self._thread is None:
+                if self._warmup_on_start:
+                    self.warmup_compile()
                 self._shutdown.clear()
                 self._thread = threading.Thread(
                     target=self._loop, daemon=True, name="llm-engine")
@@ -679,9 +883,65 @@ class LLMEngine:
             self._ttft_cold_ms.clear()
             self._burst_step_ms.clear()
             self._last_window_end = None
+            self._ttft_ewma_ms = None
+            self._decode_ewma_tok_s = None
+            self._budget_util_ewma = None
+            self._spec_accept_ewma = None
             if self.kv_mode == "paged":
                 self._min_free_pages = len(self.free_pages)
             self._spec_pos[:] = 0
+
+    # Spans: 1 in _SPAN_SAMPLE decode windows and verify passes, 1 in
+    # _TTFT_SPAN_SAMPLE first tokens, the first always, so a busy engine
+    # does not mint a root trace per window; the histograms see all.
+    _SPAN_SAMPLE = 64
+    _TTFT_SPAN_SAMPLE = 16
+
+    def _sampled_span(self, name: str):
+        """A span named ``name`` for 1 in _SPAN_SAMPLE of its calls (the
+        first always), else a null context."""
+        seq = self._span_seq.get(name, 0)
+        self._span_seq[name] = seq + 1
+        if seq % self._SPAN_SAMPLE == 0:
+            return tracing.start_span(name, cat="serve_llm")
+        return contextlib.nullcontext()
+
+    def _emit_ttft_spans(self, req: GenRequest) -> None:
+        """TTFT breakdown of a sampled first token: an ``llm.ttft`` root
+        and three children (queue wait → prefill, first to last chunk →
+        first token), recorded after the fact from the request's
+        timestamps."""
+        seq, self._ttft_seq = self._ttft_seq, self._ttft_seq + 1
+        if seq % self._TTFT_SPAN_SAMPLE or req.first_chunk_at is None:
+            return
+        # The request's timestamps are perf_counter; the ring speaks the
+        # wall clock.
+        anchor = time.time() - time.perf_counter()
+        root = tracing.TraceContext(
+            tracing.new_trace_id(), tracing.new_span_id(), None, {})
+        first = req.first_chunk_at
+        last = req.last_chunk_at if req.last_chunk_at is not None else first
+        _profiling.record_event(
+            "llm.ttft", "serve_llm", anchor + req.submitted_at,
+            req.first_token_at - req.submitted_at, tid="llm-engine",
+            args=tracing.span_event_args(root, request_id=req.request_id))
+        for name, a, b in (("llm.ttft.queue_wait", req.submitted_at, first),
+                           ("llm.ttft.prefill", first, last),
+                           ("llm.ttft.first_token", last,
+                            req.first_token_at)):
+            _profiling.record_event(
+                name, "serve_llm", anchor + a, max(0.0, b - a),
+                tid="llm-engine",
+                args=tracing.span_event_args(root.child()))
+
+    def _impl_tags(self) -> dict:
+        """replica/impl tags of the engine-side histograms."""
+        if self._step_tags is None:
+            impl = (f"paged-{self.attn_impl}" if self.kv_mode == "paged"
+                    else "dense")
+            self._step_tags = {
+                "replica": _request_metric_tags()["replica"], "impl": impl}
+        return self._step_tags
 
     def _observe_window(self, t0: float, end: float, k: int,
                         n_active: int, tick_prefill: bool) -> None:
@@ -699,6 +959,7 @@ class LLMEngine:
         denominator), ``steps`` fused decode steps (0 for a spec tick)."""
         dt = end - t0
         per_slot = max(1.0, per_slot)
+        tags = self._impl_tags()
         with self._lock:
             self.stats["decode_time_s"] += dt
             self.stats["decode_windows"] += 1
@@ -706,10 +967,14 @@ class LLMEngine:
             self.stats["slot_step_sum"] += emitted
             self.stats["slot_cap_sum"] += cap
             self._step_ms.append(dt / per_slot * 1000.0)
+            if dt > 0:
+                self._decode_ewma_tok_s = self._ewma(
+                    self._decode_ewma_tok_s, emitted / dt)
             if tick_prefill and self._last_window_end is not None:
                 self._burst_step_ms.append(
                     (end - self._last_window_end) / per_slot * 1000.0)
             self._last_window_end = end
+        _DECODE_STEP_HIST.observe(dt / per_slot, tags=tags)
 
     def metrics(self) -> dict:
         with self._lock:
@@ -794,6 +1059,80 @@ class LLMEngine:
             m["slot_occupancy"] = m["slot_step_sum"] / m["slot_cap_sum"]
         return m
 
+    _EWMA_ALPHA = 0.2
+
+    @classmethod
+    def _ewma(cls, prev: float | None, sample: float) -> float:
+        if prev is None:
+            return sample
+        return cls._EWMA_ALPHA * sample + (1 - cls._EWMA_ALPHA) * prev
+
+    def load_snapshot(self) -> dict:
+        """Live load for a router or autoscaler: queue depth, the slot
+        split, the page pool's fill, the prefill budget's utilization and
+        the TTFT / decode-rate / acceptance EWMAs, all from the engine's
+        own bookkeeping (no device sync). Also sets the ``llm_*`` gauges,
+        absent fields as 0, so /metrics reads the same numbers."""
+        with self._lock:
+            active = sum(r is not None for r in self.slot_req)
+            prefilling = len(self._prefilling)
+            snap: dict = {
+                "queue_depth": self.pending.qsize() + len(self._deferred),
+                "n_slots": self.n_slots,
+                "active_slots": active,
+                "prefilling_slots": prefilling,
+                "decoding_slots": active - prefilling,
+                "slot_utilization": round(active / self.n_slots, 4),
+            }
+            if self._ttft_ewma_ms is not None:
+                snap["ttft_ewma_ms"] = round(self._ttft_ewma_ms, 3)
+            if self._decode_ewma_tok_s is not None:
+                snap["decode_tok_s_ewma"] = round(
+                    self._decode_ewma_tok_s, 3)
+            if self.kv_mode == "paged":
+                snap["pool_pages_total"] = self.n_pages
+                snap["pool_pages_free"] = len(self.free_pages)
+                snap["pool_pages_free_min"] = self._min_free_pages
+                snap["pool_utilization"] = round(
+                    1.0 - len(self.free_pages) / self.n_pages, 4)
+                snap["llm_weight_dtype"] = self.weight_dtype
+                snap["llm_kv_dtype"] = self.kv_dtype
+                snap["kv_pool_bytes"] = sum(
+                    a.numel() * a.element_size() for a in self.cache.values())
+            if self.prefill_chunk:
+                snap["prefill_chunk"] = self.prefill_chunk
+                snap["prefill_token_budget"] = self.prefill_budget
+                if self._budget_util_ewma is not None:
+                    snap["prefill_budget_util"] = round(
+                        self._budget_util_ewma, 4)
+                if self._dispatch_width_ring:
+                    widths = sorted(self._dispatch_width_ring)
+                    snap["prefill_dispatch_width_p50"] = widths[
+                        len(widths) // 2]
+                    snap["prefill_dispatch_width_max"] = widths[-1]
+            if self.spec_k:
+                snap["spec_k"] = self.spec_k
+                if self._spec_accept_ewma is not None:
+                    snap["spec_accepted_per_step"] = round(
+                        self._spec_accept_ewma, 4)
+            if self.prefix_cache is not None:
+                snap["prefix_cache_entries"] = len(self.prefix_cache.entries)
+                snap["prefix_cache_pages"] = (
+                    self.prefix_cache.n_pages_cached())
+                snap["prefix_cache_hits"] = self.stats["prefix_hits"]
+                snap["prefix_cache_misses"] = self.stats["prefix_misses"]
+                looked = (self.stats["prefix_hits"]
+                          + self.stats["prefix_misses"])
+                if looked:
+                    snap["prefix_cache_hit_rate"] = round(
+                        self.stats["prefix_hits"] / looked, 4)
+        tags = {"replica": self._impl_tags()["replica"]}
+        for key, gauge in _LOAD_GAUGES.items():
+            # Absent fields (a dense engine's pool, EWMAs cleared by
+            # reset_stats) export 0, never a stale value.
+            gauge.set(float(snap.get(key, 0.0)), tags=tags)
+        return snap
+
     # --------------------------------------------------- page accounting
 
     def _pages_for(self, last_pos: int) -> int:
@@ -840,6 +1179,8 @@ class LLMEngine:
         if delta > 0:
             self._evictions_synced = self.prefix_cache.evictions
             self.stats["prefix_evictions"] += delta
+            _PREFIX_COUNTERS["evictions"].inc(
+                float(delta), tags={"replica": self._impl_tags()["replica"]})
 
     def _grow_slot(self, slot: int, last_pos: int) -> bool:
         """Allocate pages so `slot` covers `last_pos`. All-or-nothing."""
@@ -909,6 +1250,8 @@ class LLMEngine:
                 if self.prefix_cache is not None:
                     (self._ttft_warm_ms if req.cached_tokens
                      else self._ttft_cold_ms).append(ms)
+                self._ttft_ewma_ms = self._ewma(self._ttft_ewma_ms, ms)
+            self._emit_ttft_spans(req)
         req.out_ids.append(token)
         if req.stream is not None:
             req.stream.put(token)
@@ -1046,10 +1389,12 @@ class LLMEngine:
         tail page and a queued (src, dst) copy (`_apply_cow`); with no
         page free for it the bind falls back to the full pages. → tokens
         served from the cache (the chunk cursor's start)."""
+        tags = {"replica": self._impl_tags()["replica"]}
         # Reset first: a preempted warm request may re-admit cold.
         req.cached_tokens = 0
         if entry is None:
             self.stats["prefix_misses"] += 1
+            _PREFIX_COUNTERS["misses"].inc(tags=tags)
             return 0
         ps = self.page_size
         n_cached = entry.n_tokens
@@ -1067,15 +1412,18 @@ class LLMEngine:
                 self.slot_n_pages[slot] = p_full + 1
                 self._cow_pairs.append((int(entry.pages[p_full]), int(dst)))
                 self.stats["cow_copies"] += 1
+                _PREFIX_COUNTERS["cow_copies"].inc(tags=tags)
         if n_cached <= 0:
             # Cold after all: a prefix shorter than a page, no COW page.
             self.prefix_cache.release(entry)
             self.stats["prefix_misses"] += 1
+            _PREFIX_COUNTERS["misses"].inc(tags=tags)
             return 0
         self._slot_entry[slot] = entry
         req.cached_tokens = n_cached
         self.stats["prefix_hits"] += 1
         self.stats["prefix_cached_tokens"] += n_cached
+        _PREFIX_COUNTERS["hits"].inc(tags=tags)
         return n_cached
 
     def _apply_cow(self) -> None:
@@ -1109,6 +1457,9 @@ class LLMEngine:
             lengths[i] = len(req.prompt_ids)
             padded[i, :lengths[i]] = req.prompt_ids
         t0 = time.perf_counter()
+        for req in group:
+            if req.first_chunk_at is None:
+                req.first_chunk_at = t0
         try:
             if self.kv_mode == "paged":
                 pages = np.zeros((n, self._pages_for(bucket - 1)), np.int32)
@@ -1143,6 +1494,7 @@ class LLMEngine:
         self.stats["prefill_time_s"] += now - t0
         self.stats["prefill_tokens"] += int(lengths.sum())
         for i, (req, slot) in enumerate(zip(group, slots)):
+            req.last_chunk_at = now
             tok = self._sample(last[i], req.temperature)
             with self._lock:
                 self.slot_req[slot] = req
@@ -1247,6 +1599,8 @@ class LLMEngine:
             valid[i] = n
             tables[i] = self.page_table[slot, :width]
             any_final |= done + n >= len(req.prompt_ids)
+            if req.first_chunk_at is None:
+                req.first_chunk_at = t0
         try:
             args = [self._to_dev(a) for a in (toks, tables, offsets, valid)]
             last, self.cache = _paged.prefill_chunk_paged(
@@ -1284,10 +1638,15 @@ class LLMEngine:
         self._dispatch_width_ring.append(width)
         self._dispatch_width_counts[width] = (
             self._dispatch_width_counts.get(width, 0) + 1)
+        _PREFILL_CHUNK_HIST.observe(now - t0, tags=self._impl_tags())
+        _PREFILL_DISPATCH_COUNTER.inc(
+            1.0, tags={"replica": self._impl_tags()["replica"],
+                       "width": str(width)})
         for i, (slot, req, done, n) in enumerate(batch):
             self._chunk_pos[slot] = done + n
             if done + n < len(req.prompt_ids):
                 continue
+            req.last_chunk_at = now
             self._prefilling.remove(slot)
             self._chunk_pos.pop(slot, None)
             tok = self._sample(last[i], req.temperature)
@@ -1540,16 +1899,17 @@ class LLMEngine:
         # cursor; inert rows (mid-prefill and free slots) carry n_valid 0.
         vtoks = torch.cat([tokens[:, None], proposals.T], dim=1)
         n_valid = np.where(n_prop >= 0, n_prop + 1, 0).astype(np.int32)
-        logits, self.cache = _paged.verify_chunk_paged(
-            self.cfg, self.params, vtoks, self.cache, table_view, positions,
-            self._to_dev(n_valid), attn_impl=self.attn_impl)
-        proposals = proposals.cpu().numpy()                   # [k, B]
-        if sampling:
-            draft_probs = draft_probs.cpu().numpy()           # [k, B, V]
-            logits, argmax = logits.cpu().numpy(), None       # [B, k+1, V]
-        else:
-            logits, argmax = None, torch.argmax(
-                logits, dim=-1).cpu().numpy()                 # [B, k+1]
+        with self._sampled_span("llm.spec_verify"):
+            logits, self.cache = _paged.verify_chunk_paged(
+                self.cfg, self.params, vtoks, self.cache, table_view,
+                positions, self._to_dev(n_valid), attn_impl=self.attn_impl)
+            proposals = proposals.cpu().numpy()               # [k, B]
+            if sampling:
+                draft_probs = draft_probs.cpu().numpy()       # [k, B, V]
+                logits, argmax = logits.cpu().numpy(), None   # [B, k+1, V]
+            else:
+                logits, argmax = None, torch.argmax(
+                    logits, dim=-1).cpu().numpy()             # [B, k+1]
         proposed = accepted = emitted_total = 0
         survivors = []
         for slot in active:
@@ -1587,14 +1947,22 @@ class LLMEngine:
         end = time.perf_counter()
         cap = (sum(k_map[s] + 1 for s in active)
                + (self.n_slots - len(active)) * (k + 1))
-        self._observe_decode(t0, end, emitted_total / len(active),
-                             emitted_total, cap, tick_prefill)
+        per_slot = emitted_total / len(active)
+        self._observe_decode(t0, end, per_slot, emitted_total, cap,
+                             tick_prefill)
+        tags = {"replica": self._impl_tags()["replica"]}
         with self._lock:
             self.stats["spec_ticks"] += 1
             self.stats["spec_slot_steps"] += len(active)
             self.stats["spec_proposed"] += proposed
             self.stats["spec_accepted"] += accepted
             self.stats["spec_emitted"] += emitted_total
+            self._spec_accept_ewma = self._ewma(self._spec_accept_ewma,
+                                                per_slot)
+        if proposed:
+            _SPEC_COUNTERS["proposed"].inc(float(proposed), tags=tags)
+        if accepted:
+            _SPEC_COUNTERS["accepted"].inc(float(accepted), tags=tags)
         return len(active)
 
     def step(self) -> int:
@@ -1621,7 +1989,16 @@ class LLMEngine:
             decode_ready = any(
                 self.slot_req[i] is not None and i not in self._chunk_pos
                 for i in range(self.n_slots))
-            self._run_prefill_chunks(decode_ready)
+            had_prefill_work = bool(self._prefilling)
+            spent = self._run_prefill_chunks(decode_ready)
+            if had_prefill_work and self.prefill_budget > 0:
+                # How much of the tick's prefill allowance a tick with
+                # prefill work waiting spent: sustained ~1.0 under a
+                # queue means prefill throughput sets TTFT.
+                with self._lock:
+                    self._budget_util_ewma = self._ewma(
+                        self._budget_util_ewma,
+                        min(1.0, spent / self.prefill_budget))
         active = [i for i in range(self.n_slots)
                   if self.slot_req[i] is not None
                   and i not in self._chunk_pos]
@@ -1630,13 +2007,28 @@ class LLMEngine:
             self._last_window_end = None
             return n_prefilling
         tick_prefill = self.stats["prefill_tokens"] > pt0
+        # Chaos fault point: a "raise" rule kills the engine thread, a
+        # "kill" rule the process, with decodes in flight.
+        _chaos.hit("llm.decode_window")
         if self.spec_k:
             # Speculation replaces the fused window: one propose dispatch
             # and one verify pass per tick, 1..k+1 tokens per slot.
             return self._spec_decode_window(active, tick_prefill) + (
                 n_prefilling)
-        k = self._pick_window(active)
         paged = self.kv_mode == "paged"
+        if paged:
+            # A window can leave a cursor AT max_len; the next write would
+            # land past the cache (with max_len a multiple of the page
+            # size, one page past the slot's table). Finish such a slot
+            # without that step, as the dense engine does.
+            full = [s for s in active if self.positions[s] >= self.max_len]
+            for slot in full:
+                self._finish_capacity(slot)
+            active = [s for s in active if s not in full]
+            if not active:
+                self._last_window_end = None
+                return n_prefilling
+        k = self._pick_window(active)
         if paged:
             active, k = self._fit_window_pages(active, k)
             if not active:
@@ -1650,16 +2042,17 @@ class LLMEngine:
                              for a in (self.tokens, self.positions))
         if k > 1:
             temps = self._to_dev(self.temps)
-            if paged:
-                toks_out, self.cache = _paged.decode_multi_paged(
-                    self.cfg, self.params, tokens, self.cache, positions,
-                    table_view, k, temps, self._gen,
-                    attn_impl=self.attn_impl)
-            else:
-                toks_out, self.cache = _dense.decode_multi(
-                    self.cfg, self.params, tokens, self.cache, positions, k,
-                    temps, self._gen)
-            toks_out = toks_out.cpu().numpy()  # [k, B]
+            with self._sampled_span("llm.decode_window"):
+                if paged:
+                    toks_out, self.cache = _paged.decode_multi_paged(
+                        self.cfg, self.params, tokens, self.cache, positions,
+                        table_view, k, temps, self._gen,
+                        attn_impl=self.attn_impl)
+                else:
+                    toks_out, self.cache = _dense.decode_multi(
+                        self.cfg, self.params, tokens, self.cache, positions,
+                        k, temps, self._gen)
+                toks_out = toks_out.cpu().numpy()  # [k, B]
             self._observe_window(t0, time.perf_counter(), k, len(active),
                                  tick_prefill)
             for slot in active:
@@ -1675,14 +2068,15 @@ class LLMEngine:
                     self.tokens[slot] = toks_out[k - 1, slot]
                     self.positions[slot] += k
             return len(active) + n_prefilling
-        if paged:
-            logits, self.cache = _paged.decode_step_paged(
-                self.cfg, self.params, tokens, self.cache, positions,
-                table_view, attn_impl=self.attn_impl)
-        else:
-            logits, self.cache = _dense.decode_step(
-                self.cfg, self.params, tokens, self.cache, positions)
-        logits = logits.cpu().numpy()
+        with self._sampled_span("llm.decode_window"):
+            if paged:
+                logits, self.cache = _paged.decode_step_paged(
+                    self.cfg, self.params, tokens, self.cache, positions,
+                    table_view, attn_impl=self.attn_impl)
+            else:
+                logits, self.cache = _dense.decode_step(
+                    self.cfg, self.params, tokens, self.cache, positions)
+            logits = logits.cpu().numpy()
         self._observe_window(t0, time.perf_counter(), 1, len(active),
                              tick_prefill)
         for slot in active:

@@ -171,7 +171,7 @@ def test_sampled_requests_complete(weights):
     {"prefix_cache": True, "prefix_cache_pages": -1},
     {"spec_draft": "tiny", "spec_k": 0}, {"tp": 2}, {"pool_role": "prefill"},
     {"kv_transfer": True}, {"weight_dtype": "int4"}, {"kv_dtype": "fp8"},
-    {"warmup": True}, {"attn_impl": "flash"},
+    {"attn_impl": "flash"},
     {"prefill_chunk": 32, "prefill_token_budget": 16},
     # The reference's invalid values of the prefix-cache and spec knobs.
     {"spec_draft": tgpt.GPTConfig.tiny(vocab_size=128)},

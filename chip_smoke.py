@@ -11,6 +11,8 @@
                           # dense KV, one-shot prefill, drain and resume
     python3 chip_smoke.py --only engine,engine_warmup,engine_observe,engine_edge
                           # warmup, load row, metrics, spans, max_len, chaos
+    python3 chip_smoke.py --only kernels,engine,engine_tp
+                          # tensor-parallel serving, every shard on one card
 
 Phases, one JSON line each (the whole record also goes to
 build/chip_smoke.json):
@@ -77,6 +79,11 @@ build/chip_smoke.json):
    the same bounds; timed: the verify pass at 16 slots of 1024 positions
    (C = 5) beside its bound, its plain version, SDPA and (k+1) x the
    decode call at the same slots, and the decode at 12 heads.
+   Then both paged kernels, bf16 and int8, at the heads of a tp shard
+   (16 and 8 of opt_1_3b's 32, 6 of the draft's 12: a partial decode
+   head group): the engine view, light load and the split edges of
+   each head count's grid, prefill at C = 256 and 5; and both float
+   kernels timed at 16 heads as above (the kernels line's ``tp_shard``).
 4. programs: prefill_chunk_paged, decode_step_paged, verify_chunk_paged
    (the LM head at every row) and spec_draft_propose (the model as its
    own draft, temperature 1, one generator seed: its log-probability
@@ -167,6 +174,21 @@ build/chip_smoke.json):
    no error and the pages balanced; then a chaos "raise" rule at
    llm.decode_window must end every request with the engine-death
    error, and a later submit must raise.
+   engine_tp: tensor-parallel serving with every shard on cuda:0 (the
+   shards run in turn: no tp speed-up can show on one card), the engine
+   phase's configuration: tp=2 on its 16 prompts against a tp=1 engine;
+   then on 8 of them tp=4, tp=2 with int8 weights and KV (against a
+   tp=1 int8 engine), tp=2 with spec_k 4 and the gpt2_124m draft (6
+   heads per shard), and a tp=2 drain(0.0) resumed on a tp=1 engine.
+   Gates: exactly n_layers x tp launches of each program per decode step
+   and per chunk dispatch (the speculative counts x tp), every request's
+   first-token logits within TP_LOGIT_MAE (mean |difference|) of the
+   tp=1 engine's, which a planted fault (shard 1's attention partial
+   dropped in layer 0) must exceed, the int8 scale planes bitwise equal
+   across shards, exact resumes, kv_heads_per_shard = 32 / tp,
+   pool_shard_bytes = a shard's own bytes, no request error, pages
+   balanced. Readings: greedy agreement with tp=1, decode step p50, and
+   one fused window's device time and idle share at tp=2 beside tp=1.
 7. train: build_training(gpt2_124m(max_seq=1024, remat=True,
    attn_impl="flash"), adamw(3e-4, weight_decay=0.1, mu_dtype=bf16))
    with seeded random weights and a seeded [8, 1024] batch: one step of
@@ -213,6 +235,7 @@ from ray_tpu_torch import tracing
 from ray_tpu_torch.models import decode as dec
 from ray_tpu_torch.models import gpt
 from ray_tpu_torch.models import paged_kv as pk
+from ray_tpu_torch.models import partition
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
@@ -225,6 +248,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12            # dense tensor-core bf16
 H, K = 32, 64                  # opt_1_3b attention shape
 DRAFT_H = 12                   # gpt2_124m's heads (of 64): the spec draft
+# Heads per shard of the tp engines: opt_1_3b at tp=2 and tp=4, the draft
+# at tp=2.
+TP_SHARD_HEADS = (H // 2, H // 4, DRAFT_H // 2)
 SPEC_K = 4                     # proposals per slot per speculative tick
 CAP = 2048                     # the engine phase's max_len: longest context
 LONG_ROW = 1024                # attended positions from which a row is long
@@ -776,9 +802,45 @@ def phase_kernels(device, errs):
             ptag = f"{tag} C={C} width={n_pg}"
             record("paged_prefill_attention" + sfx, ptag, check_prefill(
                 rng, ptag, rows, C, n_pg=n_pg, width=n_pg, **kw))
+    # Tensor parallelism's per-shard heads: opt_1_3b's 32 at tp=2 (16)
+    # and tp=4 (8), the draft's 12 at tp=2 (6: the decode kernel's last
+    # group of DECODE_HEAD_GROUP heads is partial), both kernels, bf16 and
+    # int8; the decode at the engine view, at light load and at the split
+    # edges of each head count's own grid (fewer heads, fewer units: more
+    # splits), the prefill at C = 256 and at the verify shape C = 5.
+    n_pg = CAP // 64
+    for n_heads in TP_SHARD_HEADS:
+        for quant in (False, True):
+            sfx = "_int8" if quant else ""
+            tag = (f"tp shard ps=64 bfloat16 heads={n_heads}x{K}"
+                   f"{' int8 pool' if quant else ''}")
+            kw = dict(ps=64, dtype=torch.bfloat16, device=device,
+                      heads=(n_heads, K), quant=quant)
+            lengths = [1, 33, 64, 65, 700, 1023, 1024, 1025, 1531, 1999,
+                       CAP - 64, CAP - 1, CAP, 17, 1, 1000]
+            record("paged_attention" + sfx, f"{tag} engine view B=16",
+                   check_decode(rng, tag, lengths, n_pg=n_pg,
+                                null_rows={14}, **kw))
+            record("paged_attention" + sfx, f"{tag} light load",
+                   check_decode(rng, tag, [CAP] * 2 + [1] * 14, n_pg=n_pg,
+                                null_rows=set(range(2, 16)), **kw))
+            edges = split_edge_lengths(pa.decode_splits(
+                7, n_heads, n_pg, pa._sm_count(device)), 64)
+            record("paged_attention" + sfx, f"{tag} split edges {edges}",
+                   check_decode(rng, tag, edges, n_pg=n_pg, null_rows={6},
+                                **kw))
+            for C in (256, 5):
+                rows = [(0, C), (64, C), (CAP - C, C), (67, 1), (1000, C),
+                        (0, 0)]
+                ptag = f"{tag} C={C} width={n_pg}"
+                record("paged_prefill_attention" + sfx, ptag, check_prefill(
+                    rng, ptag, rows, C, n_pg=n_pg, width=n_pg, **kw))
     emit({"phase": "kernels_vs_plain", "tolerance": TOLERANCE,
           "cases": cases})
     timings = {**time_kernels(device, errs), **time_int8_kernels(device, errs)}
+    # Rows 1t/2t of PERF.md: both float kernels at a tp=2 shard's heads.
+    timings.update({f"{name} tp_shard": t for name, t in time_kernels(
+        device, errs, heads=H // 2, light=False).items()})
     return {**timings, **time_spec_kernels(device, errs, timings)}
 
 
@@ -904,17 +966,19 @@ def time_decode(tag, q, kp, vp, tables, lengths, sc, live):
                f"{', int8 pool' if sc else ''}"))
 
 
-def time_kernels(device, errs):
+def time_kernels(device, errs, heads=H, light=True):
     """Kernel, plain version and SDPA at the main path's decode and
-    prefill shapes: B=16 slots, 1024-token contexts, ps=64, bf16; the
-    decode kernel also at light load (`light_load_case`). Each kernel's
-    output is first held to its plain version's on these inputs."""
+    prefill shapes: B=16 slots, 1024-token contexts, ps=64, bf16, at
+    ``heads`` heads of 64 (opt_1_3b's 32, or a tp shard's); the decode
+    kernel also at light load (`light_load_case`) when ``light``. Each
+    kernel's output is first held to its plain version's on these
+    inputs."""
     rng = np.random.default_rng(1)
     B, T, ps, dt = 16, 1024, 64, torch.bfloat16
     n_pg = T // ps
     n_pages = B * n_pg + 1
-    kp = torch.randn(n_pages, ps, H, K, device=device, dtype=dt)
-    vp = torch.randn(n_pages, ps, H, K, device=device, dtype=dt)
+    kp = torch.randn(n_pages, ps, heads, K, device=device, dtype=dt)
+    vp = torch.randn(n_pages, ps, heads, K, device=device, dtype=dt)
     perm = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
     tables = torch.from_numpy(perm.reshape(B, n_pg)).to(device)
     lengths = torch.full((B,), T, dtype=torch.int32, device=device)
@@ -924,19 +988,19 @@ def time_kernels(device, errs):
     item = 2
     timings = {}
 
-    q = torch.randn(B, H, K, device=device, dtype=dt)
+    q = torch.randn(B, heads, K, device=device, dtype=dt)
     every = torch.ones(B, dtype=torch.bool, device=device)
     timings["paged_attention"] = time_decode(
         "timing shape", q, kp, vp, tables, lengths, {}, every)
-    timings["paged_attention_light_load"] = time_decode(
-        "light load", *light_load_case(rng, device, quant=False))
+    if light:
+        timings["paged_attention_light_load"] = time_decode(
+            "light load", *light_load_case(rng, device, quant=False))
     errs["paged_attention"] = max(
-        errs["paged_attention"], *(timings[k]["check"]["max_abs_err"] for k in
-                                   ("paged_attention",
-                                    "paged_attention_light_load")))
+        errs["paged_attention"], *(t["check"]["max_abs_err"]
+                                   for t in timings.values()))
 
     C, off = 256, T - 256
-    qp = torch.randn(B, C, H, K, device=device, dtype=dt)
+    qp = torch.randn(B, C, heads, K, device=device, dtype=dt)
     offs = torch.full((B,), off, dtype=torch.int32, device=device)
     args = (tables, offs, lengths)
     out = pa.paged_prefill_attention(qp, kp, vp, *args)
@@ -956,17 +1020,19 @@ def time_kernels(device, errs):
     plain = cuda_time_ms(lambda: pa.reference_paged_prefill_attention(
         qp, kp, vp, *args), iters=5)
     sdpa = sdpa_prefill(qp, kt, vt, off)
-    nbytes = (2 * B * T * H * K * item + 2 * B * C * H * K * item
+    nbytes = (2 * B * T * heads * K * item + 2 * B * C * heads * K * item
               + tables.numel() * 4 + 2 * B * 4)
     attended = sum(off + c + 1 for c in range(C))
-    flops = 4 * B * H * K * attended
+    flops = 4 * B * heads * K * attended
     bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
     timings["paged_prefill_attention"] = dict(
         ms=ms, ms_events=ms_events, plain_ms=plain, **sdpa,
         bound_ms=bms, bound_by=by,
         check=check,
-        shape=f"B={B} C={C} H={H} K={K} ctx={T} offset={off} ps={ps} bf16")
-    emit({"phase": "kernel_timing", **timings})
+        shape=(f"B={B} C={C} H={heads} K={K} ctx={T} offset={off} ps={ps} "
+               "bf16"))
+    emit({"phase": "kernel_timing" if heads == H else
+          f"kernel_timing_tp ({heads} heads per shard)", **timings})
     return timings
 
 
@@ -2095,8 +2161,8 @@ def phase_profile(device, cfg, masters, params):
         def run():
             for _ in range(8):
                 for l in range(cfg.n_layers):
-                    pk._write_rows(kv, l, wpage, woff, rows, rows, cfg.dtype,
-                                   "k_scale" in kv)
+                    pk._write_rows([kv], l, [wpage], [woff], [rows],
+                                   [rows], cfg.dtype, "k_scale" in kv)
         return run
     kv_writes = {arm: {k: r[k] for k in ("wall_ms", "device_busy_ms",
                                          "host_op_calls")}
@@ -2165,14 +2231,15 @@ def check_pages(eng):
 
 
 def run_engine(device, cfg, params, *, prompts=None, rounds=1,
-               temperature=0.0, chunk=256, tokens=None, **knobs):
+               temperature=0.0, chunk=256, tokens=None, hook=None, **knobs):
     """LLMEngine(opt_1_3b) serving the 16 seeded prompts (or ``prompts``)
     through submit()/start(), ``tokens`` (32) each at ``temperature``, for
     ``rounds`` rounds of the same traffic on one engine; each round with
     the stats reset and every paged launch counter zeroed just before it
     and read just after it (the engine thread stopped, so every tick of
     the round is in). The engine is the paged chunked kernel engine of
-    ENGINE_KNOBS (chunk ``chunk``) unless ``knobs`` say otherwise.
+    ENGINE_KNOBS (chunk ``chunk``) unless ``knobs`` say otherwise;
+    ``hook(engine)``, when given, runs before the first round.
     → (engine, [(requests, launches, wall seconds, metrics)] per round);
     raises on a request error, a bad output or (paged) page accounting
     that does not close."""
@@ -2180,6 +2247,8 @@ def run_engine(device, cfg, params, *, prompts=None, rounds=1,
     eng = LLMEngine(cfg, params, device=device,
                     **{**ENGINE_KNOBS, "prefill_chunk": chunk, **knobs})
     prompts = engine_prompts(cfg) if prompts is None else prompts
+    if hook is not None:
+        hook(eng)
     runs = []
     for _ in range(rounds):
         torch.cuda.synchronize()
@@ -2847,6 +2916,304 @@ def phase_engine_drain(device, cfg, params):
     emit(out)
 
 
+# ------------------------------------------------ tensor parallelism
+
+# A tp engine's first-token logits against the tp=1 engine's, per request:
+# the mean |difference| over the vocabulary, at most this. The tp bodies
+# add each layer's attention-out and MLP-down partials in bf16 (two more
+# roundings per layer than the tp=1 body's single product), the same
+# order of bf16 noise as between the kernel and gather programs, which
+# PROGRAM_LOGIT_MAE bounds at 24 layers.
+TP_LOGIT_MAE = PROGRAM_LOGIT_MAE
+TP_FAULT_LAYER = 0     # the planted fault drops shard 1's attention partial
+TP_FEW = 8             # requests of the later arms (b)-(e)
+
+
+def tp_mesh(tp):
+    """tp shards, every one on cuda:0 (one card)."""
+    return [torch.device("cuda", 0)] * tp
+
+
+def capture_first_logits(rows):
+    """A run_engine hook: each request's first-token logits row (the row
+    its first token is sampled from at graduation) into ``rows`` by
+    request id."""
+    def hook(eng):
+        last = {}
+        sample, emit_token = eng._sample, eng._emit
+
+        def _sample(row, temperature):
+            last["row"] = row
+            return sample(row, temperature)
+
+        def _emit(req, tok):
+            if not req.out_ids and req.request_id not in rows:
+                rows[req.request_id] = torch.from_numpy(last["row"].copy())
+            return emit_token(req, tok)
+
+        eng._sample, eng._emit = _sample, _emit
+    return hook
+
+
+def first_logit_maes(reqs, rows, ref_reqs, ref_rows, vocab):
+    """Per request, the mean |first-token logits - the reference's|."""
+    out = []
+    for r, ref in zip(reqs, ref_reqs):
+        a, b = rows[r.request_id], ref_rows[ref.request_id]
+        if not (torch.isfinite(a).all() and a.shape == (vocab,)):
+            raise AssertionError(f"bad first-token logits {tuple(a.shape)}")
+        out.append(float((a - b).abs().mean()))
+    return out
+
+
+def check_tp_engine(cfg, eng, run, tp, decode, prefill, *, draft=None):
+    """The tp gates on one run: launches of the path's two programs are
+    exactly n_layers x tp per decode step and per chunk dispatch (with a
+    draft: the speculative counts of `phase_engine_spec`, x tp), nothing
+    else launches; kv_heads_per_shard is n_heads / tp and
+    pool_shard_bytes is the shard's own tensors' bytes, the same on
+    every shard. → the run's record."""
+    reqs, launches, _wall, m = run
+    L = cfg.n_layers
+    if draft is None:
+        want = {decode: L * tp * m["decode_steps"],
+                prefill: L * tp * m["prefill_dispatches"]}
+    else:
+        dl = draft.n_layers
+        want = {prefill: tp * (L * (m["prefill_dispatches"] + m["spec_ticks"])
+                               + dl * m["prefill_dispatches"]),
+                decode: tp * dl * (SPEC_K + 1) * m["spec_ticks"]}
+    want = {k: want.get(k, 0) for k in launches}
+    if launches != want or not want[decode] or not want[prefill]:
+        raise AssertionError(f"tp={tp}: launches {launches}, expected "
+                             f"{want}")
+    shard_bytes = [sum(t.numel() * t.element_size() for t in shard.values())
+                   for shard in eng.cache]
+    if (m["llm_tp"] != tp or m["kv_heads_per_shard"] != cfg.n_heads // tp
+            or m["mesh_shape"] != {"tp": tp}
+            or len(set(shard_bytes)) != 1
+            or m["pool_shard_bytes"] != shard_bytes[0]
+            or m["kv_pool_bytes"] != sum(shard_bytes)):
+        raise AssertionError(f"tp={tp} topology: {m.get('llm_tp')}, "
+                             f"{m.get('kv_heads_per_shard')}, "
+                             f"{m.get('pool_shard_bytes')} vs {shard_bytes}")
+    return {"launches": launches,
+            "decode_launches_per_step": launches[decode]
+            / max(1, m["decode_steps"]),
+            "prefill_launches_per_dispatch": launches[prefill]
+            / max(1, m["prefill_dispatches"]),
+            **{k: m.get(k) for k in (
+                "decode_steps", "decode_windows", "prefill_dispatches",
+                "spec_ticks", "spec_accept_rate", "engine_decode_tok_s",
+                "ttft_ms_p50", "decode_step_ms_p50", "decode_step_ms_p95",
+                "preemptions", "llm_tp", "mesh_shape", "kv_heads_per_shard",
+                "pool_shard_bytes", "kv_pool_bytes")},
+            "page_accounting": check_pages(eng)}
+
+
+def tp_run(device, cfg, params, tp, prompts, *, temperature=0.0, **knobs):
+    """One engine run of ``prompts`` (ENGINE_TOKENS greedy tokens each)
+    at ``tp`` (every shard on cuda:0; tp=1 on ``device``), capturing the
+    first-token logits. → (engine, run, first-token rows)."""
+    rows: dict = {}
+    eng, (run,) = run_engine(
+        tp_mesh(tp) if tp > 1 else device, cfg, params, prompts=prompts,
+        tp=tp, temperature=temperature, hook=capture_first_logits(rows),
+        **knobs)
+    return eng, run, rows
+
+
+def agreement_record(streams, ref):
+    shares = agreement(streams, ref)
+    return {"share_before_first_divergence": shares,
+            "mean": float(np.mean(shares)),
+            "identical_streams": sum(x == 1.0 for x in shares)}
+
+
+def tp_window_profile(device, cfg, params):
+    """One fused decode window (k = 8, 16 slots at 1024-token contexts,
+    as `phase_profile`'s) through decode_multi_paged and through
+    decode_multi_paged_tp at tp=2 on one card: `_profiled`'s device busy
+    time and idle share for each."""
+    B, T, ps = 16, 1024, 64
+    n_pg = T // ps
+    pool = pk.init_paged_kv(cfg, B * n_pg, ps, device=device)
+    tables = torch.arange(1, B * n_pg + 1, dtype=torch.int32,
+                          device=device).reshape(B, n_pg)
+    toks = torch.ones(B, dtype=torch.int32, device=device)
+    pos = torch.full((B,), T - 16, dtype=torch.int32, device=device)
+    temps = torch.zeros(B, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    out = {"tp=1": _profiled(lambda: pk.decode_multi_paged(
+        cfg, params, toks, pool, pos, tables, 8, temps, gen,
+        attn_impl="kernel"))}
+    mesh = tp_mesh(2)
+    shards = partition.shard_by_rules(mesh, gpt.partition_rules(), params)
+    pools = partition.shard_by_rules(mesh, pk.KV_POOL_PARTITION_RULES, pool)
+    del pool
+    out["tp=2"] = _profiled(lambda: pk.decode_multi_paged_tp(
+        cfg, shards, toks, pools, pos, tables, 8, temps, gen, mesh=mesh,
+        attn_impl="kernel"))
+    del shards, pools
+    torch.cuda.empty_cache()
+    return {arm: {k: r[k] for k in ("wall_ms", "device_busy_ms",
+                                    "device_idle_share", "host_op_calls",
+                                    "device_ms_by_category")}
+            for arm, r in out.items()}
+
+
+def planted_tp_fault(device, cfg, params, prompts, ref_reqs, ref_rows):
+    """The logits gate's planted fault: the tp=2 engine with shard 1's
+    attention-out partial dropped from the sum in layer TP_FAULT_LAYER
+    (every dispatch), one token per request. → each request's first-token
+    logit MAE against the tp=1 engine's; the largest must exceed
+    TP_LOGIT_MAE."""
+    sound, calls = pk._reduce, [0]
+
+    def dropped(parts, dev):
+        layer = calls[0] % cfg.n_layers
+        calls[0] += 1
+        return sound(parts[:1] if layer == TP_FAULT_LAYER else parts, dev)
+
+    pk._reduce = dropped
+    try:
+        rows: dict = {}
+        eng, (run,) = run_engine(tp_mesh(2), cfg, params, prompts=prompts,
+                                 tp=2, tokens=1,
+                                 hook=capture_first_logits(rows))
+    finally:
+        pk._reduce = sound
+    maes = first_logit_maes(run[0], rows, ref_reqs, ref_rows,
+                            cfg.vocab_size)
+    del eng
+    torch.cuda.empty_cache()
+    if max(maes) <= TP_LOGIT_MAE:
+        raise AssertionError(f"planted tp fault within the logits bound: "
+                             f"{maes}")
+    return maes
+
+
+def tp_drain(device, cfg, params, prompts):
+    """drain(0.0) of a tp=2 engine under load (driven by step() until half
+    the streams started, DRAIN_TICKS more), every continuation resumed on
+    a fresh tp=1 engine (`resume_continuations`: each resumed stream
+    carries exactly its missing tokens)."""
+    prompts = [p[:DRAIN_CUT] for p in prompts]
+    src = LLMEngine(cfg, params, device=tp_mesh(2), tp=2, **ENGINE_KNOBS)
+    reqs = [src.submit(p, max_tokens=DRAIN_TOKENS, stream=True,
+                       request_id=str(i)) for i, p in enumerate(prompts)]
+    ticks = 0
+    while sum(bool(r.out_ids) for r in reqs) < len(reqs) // 2:
+        src.step()
+        ticks += 1
+    for _ in range(DRAIN_TICKS):
+        src.step()
+    out = src.drain(0.0)
+    check_drained_source(reqs, DRAIN_TOKENS)
+    src_pages = check_pages(src)
+    del src
+    torch.cuda.empty_cache()
+    conts = out["continuations"]
+    if not conts:
+        raise AssertionError("tp=2 drain exported nothing")
+    _resumed, resume_s, dst_pages = resume_continuations(
+        device, cfg, params, {}, conts, DRAIN_TOKENS)
+    return {"requests": len(prompts), "ticks_before_drain": ticks
+            + DRAIN_TICKS, "exported": out["exported"],
+            "generated_at_drain": sorted(len(c["generated_ids"])
+                                         for c in conts),
+            "resume_wall_s": resume_s,
+            "page_accounting": {"source": src_pages,
+                                "destination": dst_pages}}
+
+
+def phase_engine_tp(device, cfg, params, masters):
+    """Tensor-parallel serving on one card (every shard on cuda:0), the
+    engine phase's configuration and traffic: tp=2 against a tp=1 engine
+    on the 16 prompts; then, on the first TP_FEW prompts, (b) tp=4, (c)
+    tp=2 with int8 weights and KV against a tp=1 int8 engine (the scale
+    planes bitwise equal across shards at the end), (d) tp=2 with
+    spec_k 4 and the gpt2_124m draft (6 heads per shard), (e) a tp=2
+    drain resumed on tp=1. Gates: `check_tp_engine` per run, every
+    request's first-token logits within TP_LOGIT_MAE of the tp=1
+    engine's (a planted fault must exceed it), no request error, pages
+    balanced. Readings: greedy agreement with tp=1, the decode step, and
+    one window's device time and idle share at tp=2 beside tp=1. A tp
+    time on one card is not tensor parallelism's speed: the shards run
+    one after another."""
+    prompts = engine_prompts(cfg)
+    few = prompts[:TP_FEW]
+    out = {"phase": "engine_tp", "config": "opt_1_3b bf16, 16 slots, "
+           "max_len 2048, page 64, chunk 256, budget 512, every shard on "
+           "cuda:0", "logit_mae_bound": TP_LOGIT_MAE}
+    by_path = {}
+    eng1, run1, rows1 = tp_run(device, cfg, params, 1, prompts)
+    ref = [r.out_ids for r in run1[0]]
+    out["tp=1"] = {k: run1[3].get(k) for k in (
+        "decode_steps", "prefill_dispatches", "engine_decode_tok_s",
+        "ttft_ms_p50", "decode_step_ms_p50", "decode_step_ms_p95")}
+    del eng1
+    torch.cuda.empty_cache()
+
+    def arm(name, tp, ref_run, ref_rows, decode="paged_attention",
+            prefill="paged_prefill_attention", draft=None, prompts=few,
+            **knobs):
+        eng, run, rows = tp_run(device, cfg, params if "weight_dtype"
+                                not in knobs else masters, tp, prompts,
+                                **knobs)
+        rec = check_tp_engine(cfg, eng, run, tp, decode, prefill,
+                              draft=draft)
+        maes = first_logit_maes(run[0], rows, ref_run[0], ref_rows,
+                                cfg.vocab_size)
+        rec["first_token_logit_mae"] = maes
+        if max(maes) > TP_LOGIT_MAE:
+            raise AssertionError(f"{name}: first-token logits off the tp=1 "
+                                 f"engine's: {maes}")
+        rec["agreement_with_tp1"] = agreement_record(
+            [r.out_ids for r in run[0]], [r.out_ids for r in ref_run[0]])
+        by_path[f"engine_tp ({name})"] = run[1]
+        out[name] = rec
+        return eng
+
+    arm(f"tp=2, {len(prompts)} requests", 2, run1, rows1, prompts=prompts)
+    out["planted_fault"] = {
+        "fault": f"shard 1's attention partial dropped in layer "
+                 f"{TP_FAULT_LAYER}",
+        "first_token_logit_mae": planted_tp_fault(
+            device, cfg, params, few, run1[0][:TP_FEW], rows1)}
+    arm(f"tp=4, {TP_FEW} requests", 4, run1, rows1)
+    torch.cuda.empty_cache()
+    q = dict(weight_dtype="int8", kv_dtype="int8")
+    eng, run8, rows8 = tp_run(device, cfg, masters, 1, few, **q)
+    del eng
+    torch.cuda.empty_cache()
+    eng = arm(f"tp=2 int8, {TP_FEW} requests", 2, run8, rows8,
+              decode="paged_attention_int8",
+              prefill="paged_prefill_attention_int8", **q)
+    equal = {name: all(torch.equal(s[name].view(torch.int16),
+                                   eng.cache[0][name].view(torch.int16))
+                       for s in eng.cache) for name in ("k_scale", "v_scale")}
+    if not all(equal.values()):
+        raise AssertionError(f"int8 scale planes differ across shards: "
+                             f"{equal}")
+    out[f"tp=2 int8, {TP_FEW} requests"]["scale_planes_equal"] = equal
+    del eng
+    torch.cuda.empty_cache()
+    draft = gpt.GPTConfig.gpt2_124m(dtype=torch.bfloat16)
+    eng = arm(f"tp=2 spec_k {SPEC_K}, gpt2_124m draft, {TP_FEW} requests",
+              2, run1, rows1, draft=draft, spec_draft=draft, spec_k=SPEC_K)
+    out[f"tp=2 spec_k {SPEC_K}, gpt2_124m draft, {TP_FEW} requests"][
+        "draft_heads_per_shard"] = draft.n_heads // 2
+    del eng
+    torch.cuda.empty_cache()
+    out["drain at tp=2, resumed at tp=1"] = tp_drain(device, cfg, params,
+                                                     few)
+    out["decode_window_k8_tp2_beside_tp1"] = tp_window_profile(device, cfg,
+                                                               params)
+    emit(out)
+    return by_path
+
+
 # --------------------------------------- lifecycle and observability
 
 WARMUP_WIDTHS = 6     # the ladder at max_len 2048, page 64: 1 .. 32 pages
@@ -3464,7 +3831,8 @@ def main(argv=None) -> int:
                     help="comma list of phases: kernels,programs,profile,"
                          "engine,engine_prefix,engine_spec,engine_dense,"
                          "engine_oneshot,engine_drain,engine_warmup,"
-                         "engine_observe,engine_edge,train (default: all; "
+                         "engine_observe,engine_edge,engine_tp,train "
+                         "(default: all; "
                          "the build always runs)")
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc -Xptxas -v (registers, spills)")
@@ -3543,7 +3911,7 @@ def main(argv=None) -> int:
     serving = ("programs", "profile", "engine", "engine_prefix",
                "engine_spec", "engine_dense", "engine_oneshot",
                "engine_drain", "engine_warmup", "engine_observe",
-               "engine_edge")
+               "engine_edge", "engine_tp")
     if any(want(p) for p in serving):
         cfg, masters, params = make_params(device)
         if want("programs"):
@@ -3587,6 +3955,8 @@ def main(argv=None) -> int:
         if want("engine_edge"):
             by_path.update({f"engine_edge ({arm})": c for arm, c in
                             phase_engine_edge(device, cfg, params).items()})
+        if want("engine_tp"):
+            by_path.update(phase_engine_tp(device, cfg, params, masters))
         del cfg, masters, params
         torch.cuda.empty_cache()
     if want("train"):
@@ -3605,6 +3975,11 @@ def main(argv=None) -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             **{k: t[k] for k in ("library_covers", "covered_ms",
                                  "library_see") if k in t}})
+        shard = timings.get(f"{name} tp_shard")
+        if shard is not None:
+            kernels[-1]["tp_shard"] = {k: shard[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}
         paths = {p: c[name] for p, c in by_path.items() if c.get(name)}
         if paths:
             kernels[-1]["launches_by_path"] = paths

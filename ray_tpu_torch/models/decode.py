@@ -1,9 +1,10 @@
 """Autoregressive decoding with a slotted (dense) KV cache (PyTorch).
 
 Counterpart of ``ray_tpu/models/decode.py``: the per-token transformer
-pieces shared with the paged programs (`_rotary_pos`, `_qkv`, `_mlp`,
-`_head`, `sample_token`) and the dense serving programs: a fixed cache
-``{"k", "v"}`` of ``[L, B, T_max, H, K]`` in ``cfg.dtype``
+pieces shared with the paged programs (`_rotary_pos`, `_qkv`, `_mlp`
+with its cross-shard `_reduce`, `_head`, `sample_token`) and the dense
+serving programs: a fixed cache ``{"k", "v"}`` of ``[L, B, T_max, H,
+K]`` in ``cfg.dtype``
 (`init_kv_cache`), `prefill` (one prompt into one slot from position
 0), `prefill_batch` (N prompts into N distinct slots), `decode_step`
 (every slot one token at ``positions[b]``, attending over the whole
@@ -99,13 +100,37 @@ def _attn_out(attn: torch.Tensor, layer, cfg) -> torch.Tensor:
     return out.reshape(*attn.shape[:-2], D)
 
 
+def _reduce(partials: list, device) -> torch.Tensor:
+    """Sum of the shards' partials on ``device`` (shard 0's), in shard
+    order and in the partials' dtype: the counterpart of the JAX bodies'
+    ``psum`` of ``cfg.dtype`` partials. XLA may reassociate its sum;
+    this one is fixed, ((p0 + p1) + p2) + ..., so with more than two
+    bf16 partials the two can differ in the last bit. One partial is
+    returned as it is."""
+    out = partials[0].to(device)
+    for p in partials[1:]:
+        out = out + p.to(device)
+    return out
+
+
 def _mlp(x, layer, cfg):
-    """Feed-forward block with the tanh GELU."""
-    h = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"])
-    up = F.gelu(_proj(h, weight_view(layer, "w_up", cfg.dtype))
-                + layer["b_up"].to(cfg.dtype), approximate="tanh")
-    down = _proj(up, weight_view(layer, "w_down", cfg.dtype))
-    return x + (down + layer["b_down"].to(cfg.dtype))
+    """Feed-forward block with the tanh GELU. ``layer`` is one layer's
+    dict, or under tensor parallelism the list of every shard's (w_up,
+    b_up and w_down sharded on the hidden width): the up-projection and
+    GELU are shard-local, and the down-projection partials are summed
+    across shards (`_reduce`) BEFORE the replicated b_down joins the
+    residual (adding it per shard would count it tp times)."""
+    shards = layer if isinstance(layer, list) else [layer]
+    first = shards[0]
+    h = _layer_norm(x, first["ln2_scale"], first["ln2_bias"])
+    parts = []
+    for lay in shards:
+        hs = h.to(lay["w_up"].device)
+        up = F.gelu(_proj(hs, weight_view(lay, "w_up", cfg.dtype))
+                    + lay["b_up"].to(cfg.dtype), approximate="tanh")
+        parts.append(_proj(up, weight_view(lay, "w_down", cfg.dtype)))
+    down = _reduce(parts, x.device)
+    return x + (down + first["b_down"].to(cfg.dtype))
 
 
 class _MatmulF32(torch.autograd.Function):

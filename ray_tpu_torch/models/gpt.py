@@ -1,9 +1,9 @@
 """GPT decoder: configuration, parameters, forward and loss (PyTorch).
 
 Counterpart of ``ray_tpu/models/gpt.py`` (GPTConfig, param_specs,
-init_params, QUANT_RULES, quant_axes, quantize_params, dequant,
-weight_view, stack_block_params, _layer_norm, _rotary, _attention,
-_block, forward_hidden, forward, loss_fn, num_params).
+partition_rules, init_params, QUANT_RULES, quant_axes, quantize_params,
+dequant, weight_view, stack_block_params, _layer_norm, _rotary,
+_attention, _block, forward_hidden, forward, loss_fn, num_params).
 Parameters are a flat dict of tensors; block weights carry a leading
 ``layers`` axis exactly as in the JAX package, so a JAX checkpoint maps
 one to one (``ray_tpu_torch/_bridge.py``). A Python loop over layer
@@ -146,6 +146,38 @@ def param_specs(cfg: GPTConfig) -> dict[str, dict[str, Any]]:
     if not cfg.tie_embeddings:
         specs["lm_head"] = norm(D, V)
     return specs
+
+
+def partition_rules() -> tuple:
+    """Rule table of serving tensor parallelism for the stacked-block
+    layout (``models/partition.py`` `match_partition_rules`: rules match
+    the ``/``-joined path, first match wins; each gives the dimension
+    split across the shards, or None for replicated).
+
+    Shards along the axis decode already parallelizes over: attention
+    QKV on heads, the out projection on its head input, the MLP on its
+    hidden width. Embeddings, norms, the residual-side bias and the LM
+    head stay whole on every shard (the head runs once per window, on
+    the summed hidden states). Shapes per param_specs(): wq/wk/wv
+    [L, D, H, K], wo [L, H, K, D], w_up [L, D, F], b_up [L, F],
+    w_down [L, F, D]."""
+    return (
+        (r"^w[qkv]$", 2),
+        (r"^wo$", 1),
+        (r"^w_up$", 2),
+        (r"^b_up$", 1),
+        (r"^w_down$", 1),
+        # int8 scale companions (quantize_params): same rank as their
+        # plane with the contracted axes kept at size 1, so a
+        # head-sharded plane's scales shard with it. The wo and w_down
+        # scales are per output channel over the sharded axis: size 1
+        # there, replicated. Quantize first, then shard.
+        (r"^w[qkv]_scale$", 2),
+        (r"^w_up_scale$", 2),
+        (r"^(wo|w_down)_scale$", None),
+        # Replicated tail (explicit: an unmatched leaf is an error).
+        (r"^(wte|lm_head|ln|b_down)", None),
+    )
 
 
 def init_params(cfg: GPTConfig, generator: torch.Generator | None = None,
@@ -394,7 +426,7 @@ def num_params(cfg: GPTConfig) -> int:
     return sum(math.prod(s["shape"]) for s in param_specs(cfg).values())
 
 
-__all__ = ["GPTConfig", "param_specs", "init_params", "QUANT_RULES",
-           "quant_axes", "quantize_params", "dequant", "weight_view",
+__all__ = ["GPTConfig", "param_specs", "partition_rules", "init_params",
+           "QUANT_RULES", "quant_axes", "quantize_params", "dequant", "weight_view",
            "stack_block_params", "forward_hidden", "forward", "loss_fn",
            "num_params"]

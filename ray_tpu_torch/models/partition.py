@@ -1,0 +1,213 @@
+"""Regex partition rules and the serving tensor-parallel mesh (PyTorch).
+
+Counterpart of the serving half of ``ray_tpu/models/partition.py``:
+`KV_HEAD_AXIS`, `split_head_planes`/`concat_head_planes`, `TP_AXIS`,
+`PartitionRuleError`, `tree_path_names`, `match_partition_rules`,
+`make_tp_mesh` and `shard_by_rules`. The training half
+(``logical_to_spec``, ``tree_to_shardings``, ``shard_tree``) is not here.
+
+Models declare where each parameter shards once, as a rule table of
+``(regex, dim)`` pairs over ``/``-joined tree paths
+(``models/gpt.py::partition_rules``,
+``models/paged_kv.py::KV_POOL_PARTITION_RULES``). ``dim`` is the
+dimension split across the shards, or None for a leaf every shard holds
+whole. A rule is the dimension itself, not a ``PartitionSpec``: the
+port's mesh has the one ``"tp"`` axis.
+
+The engine is single-controller, as the JAX one is: one process holds
+one parameter dict and one page pool per shard on a list of devices
+(the mesh), and each paged program runs its layer loop with the shards
+in lockstep (``models/paged_kv.py`` ``*_tp`` twins). The head axis is
+the partition axis because decode attention is already parallel over
+heads: the QKV projections, rotary, per-head softmax and the page
+reads and writes are shard-local; only the attention-out and MLP-down
+partial sums cross shards (summed on shard 0's device), and the int8
+pool's per-page scale (a maximum across shards). A device may appear
+in the mesh more than once: the shards then run one after another on
+it, the counterpart of the forced host-device count of the JAX tests.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any
+
+import numpy as np
+import torch
+
+__all__ = [
+    "KV_HEAD_AXIS", "PartitionRuleError", "TP_AXIS", "concat_head_planes",
+    "make_tp_mesh", "match_partition_rules", "shard_by_rules",
+    "split_head_planes", "tree_path_names",
+]
+
+# KV page planes [L, n_pages, page_size, H, K] shard on their head dim,
+# the axis the mesh partitions (paged_kv.KV_POOL_PARTITION_RULES).
+# split_head_planes/concat_head_planes below speak the same axis.
+KV_HEAD_AXIS = 3
+
+
+def split_head_planes(payload: dict, tp: int) -> dict:
+    """Full-head host page planes → per-shard planes keyed ``name@s``.
+
+    A gathered payload ``{"k": [L, n, ps, H, K], ...}`` splits along the
+    head axis into ``tp`` planes (``k@0`` … ``k@{tp-1}``), so each entry
+    is one shard's bytes. ``_scale``-suffixed planes ([L, n] per-page
+    scalars) are the same on every shard (`paged_kv._quant_write` takes
+    their maximum across shards), so one copy rides unsuffixed.
+    ``tp == 1`` is the identity. numpy in, numpy out."""
+    if tp <= 1:
+        return dict(payload)
+    out: dict = {}
+    for name, arr in payload.items():
+        if name.endswith("_scale") or getattr(arr, "ndim", 0) <= KV_HEAD_AXIS:
+            out[name] = arr
+            continue
+        h = arr.shape[KV_HEAD_AXIS]
+        if h % tp:
+            raise ValueError(
+                f"cannot split plane {name!r}: head dim {h} not divisible "
+                f"by tp={tp}")
+        for s, piece in enumerate(np.split(arr, tp, axis=KV_HEAD_AXIS)):
+            out[f"{name}@{s}"] = piece
+    return out
+
+
+def concat_head_planes(payload: dict, tp: int) -> dict:
+    """Inverse of `split_head_planes`: ``name@s`` shard planes →
+    full-head planes (head-axis concatenation in shard order). Raises if
+    a shard plane is missing: a torn payload must fail, not bind garbage
+    heads."""
+    if tp <= 1:
+        return dict(payload)
+    out: dict = {}
+    shards: dict[str, dict[int, Any]] = {}
+    for name, arr in payload.items():
+        base, sep, idx = name.rpartition("@")
+        if sep and idx.isdigit():
+            shards.setdefault(base, {})[int(idx)] = arr
+        else:
+            out[name] = arr
+    for base, pieces in shards.items():
+        if sorted(pieces) != list(range(tp)):
+            raise ValueError(
+                f"sharded payload plane {base!r} is torn: have shards "
+                f"{sorted(pieces)}, want 0..{tp - 1}")
+        out[base] = np.concatenate(
+            [pieces[s] for s in range(tp)], axis=KV_HEAD_AXIS)
+    return out
+
+
+# The serving tensor-parallel mesh axis (the name the metrics report:
+# ``mesh_shape == {"tp": tp}``).
+TP_AXIS = "tp"
+
+
+class PartitionRuleError(ValueError):
+    """A tree leaf matched no partition rule."""
+
+
+def _leaves(tree: Any, prefix: str = ""):
+    """(path, leaf) pairs in the JAX flatten order: dict keys sorted,
+    sequences by index; anything else is a leaf."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _leaves(tree[key], f"{prefix}/{key}" if prefix
+                               else str(key))
+    elif isinstance(tree, (list, tuple)):
+        for i, sub in enumerate(tree):
+            yield from _leaves(sub, f"{prefix}/{i}" if prefix else str(i))
+    else:
+        yield prefix, tree
+
+
+def _map(fn, tree: Any, prefix: str = ""):
+    """``tree`` with every leaf replaced by ``fn(path, leaf)``."""
+    if isinstance(tree, dict):
+        return {key: _map(fn, sub, f"{prefix}/{key}" if prefix else str(key))
+                for key, sub in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, sub, f"{prefix}/{i}" if prefix else str(i))
+                          for i, sub in enumerate(tree))
+    return fn(prefix, tree)
+
+
+def tree_path_names(tree: Any) -> list[str]:
+    """``/``-joined path of every leaf, in flatten order: what
+    `match_partition_rules` matches its regexes against."""
+    return [path for path, _leaf in _leaves(tree)]
+
+
+def match_partition_rules(rules, params):
+    """Tree of sharded dimensions (an int, or None for replicated) for
+    ``params`` from a rule table.
+
+    ``rules`` is an ordered sequence of ``(regex, dim)``; each leaf's
+    ``/``-joined path is matched with ``re.search`` and the FIRST
+    matching rule wins. Scalar leaves (ndim 0 or a single element) are
+    never partitioned and resolve to None without consulting the table.
+    A leaf no rule covers raises `PartitionRuleError` naming the path:
+    replicating it silently would hide the weight the table forgot.
+    Reads only the leaves' shapes."""
+    compiled = [(re.compile(pat), dim) for pat, dim in rules]
+
+    def get_dim(name, leaf):
+        shape = tuple(getattr(leaf, "shape", ()))
+        if len(shape) == 0 or int(np.prod(shape)) == 1:
+            return None
+        for pat, dim in compiled:
+            if pat.search(name) is not None:
+                return dim
+        raise PartitionRuleError(
+            f"no partition rule matches param {name!r} (shape "
+            f"{shape}); add a rule or an explicit replicated entry — "
+            "silent replication would hide the miss")
+
+    return _map(get_dim, params)
+
+
+def make_tp_mesh(tp: int, *, devices=None) -> list[torch.device]:
+    """The serving mesh: ``tp`` devices, one per shard. By default the
+    first ``tp`` visible CUDA devices (raises when there are fewer); an
+    explicit ``devices`` list may repeat a device (the shards then run
+    in turn on it)."""
+    if devices is None:
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        devices = [torch.device("cuda", i) for i in range(n)]
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    if tp > len(devices):
+        raise ValueError(
+            f"tp={tp} exceeds the {len(devices)} visible device(s); pass "
+            "an explicit device list (a device may repeat) to place "
+            "several shards on one device")
+    return [torch.device(d) for d in devices[:tp]]
+
+
+def _shard(leaf: torch.Tensor, dim, s: int, tp: int,
+           device: torch.device) -> torch.Tensor:
+    """Shard ``s`` of ``leaf``: its piece along ``dim`` (the whole leaf
+    when None), as a new contiguous tensor on ``device`` (its own
+    allocation, also where the device repeats)."""
+    piece = leaf if dim is None else torch.chunk(leaf, tp, dim=dim)[s]
+    out = torch.empty(piece.shape, dtype=piece.dtype, device=device)
+    return out.copy_(piece)
+
+
+def shard_by_rules(mesh, rules, tree: Any) -> list:
+    """Place ``tree`` on ``mesh`` per its rule table: one tree per
+    shard, each leaf a contiguous tensor of its own on the shard's
+    device, split along the rule's dimension (which must divide evenly)
+    or copied whole."""
+    dims = match_partition_rules(rules, tree)
+    dim_of = dict(_leaves(dims))
+    tp = len(mesh)
+    for path, leaf in _leaves(tree):
+        dim = dim_of[path]
+        if dim is not None and leaf.shape[dim] % tp:
+            raise ValueError(
+                f"cannot shard {path!r}: dim {dim} of shape "
+                f"{tuple(leaf.shape)} is not divisible by tp={tp}")
+    return [_map(lambda path, leaf, s=s, dev=dev:
+                 _shard(leaf, dim_of[path], s, tp, dev), tree)
+            for s, dev in enumerate(mesh)]

@@ -69,8 +69,20 @@ the tick fits its window pages, as the dense engine's does. The JAX
 paged engine instead grows such a slot one page past its table when
 ``max_len`` is a multiple of the page size and its engine thread dies.
 
-Not ported, each rejected with a ValueError when asked for: tensor
-parallelism, KV page-set transfer (pool roles, kv_transfer, kv_store;
+``tp > 1`` (paged, chunked) serves tensor-parallel, single-controller
+as the JAX engine does: one process holds one parameter dict and one
+page pool per shard on a mesh of ``tp`` devices (``device`` as a list
+of them, a device may repeat; else the first ``tp`` CUDA devices, or
+``tp`` times the CPU with ``device="cpu"``), sharded once at load by
+``gpt.partition_rules`` and ``paged_kv.KV_POOL_PARTITION_RULES``
+(heads of attention and pool, the MLP's hidden width), and every paged
+dispatch goes through the programs' ``*_tp`` twins. Page ids, tables,
+cursors and the scheduler are shard-invariant; sampling runs once, on
+the engine's one generator, so the streams are the tp=1 engine's up to
+the rounding of the cross-shard sums.
+
+Not ported, each rejected with a ValueError when asked for: KV
+page-set transfer (pool roles, kv_transfer, kv_store;
 a continuation's ``kv`` descriptor is accepted and ignored, as the
 reference ignores it without a store) and the Serve deployment wrapper;
 nor are the KV-transfer counters, the ``serve.kv.donate`` chaos point
@@ -83,10 +95,12 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import math
 import queue
 import threading
 import time
+import types
 import uuid
 
 import numpy as np
@@ -99,6 +113,7 @@ from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models import decode as _dense
 from ray_tpu_torch.models import gpt
 from ray_tpu_torch.models import paged_kv as _paged
+from ray_tpu_torch.models import partition as _partition
 from ray_tpu_torch.models.decode import sample_token
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.serve.prefix_cache import PrefixCache
@@ -357,6 +372,10 @@ class LLMEngine:
     with ``spec_k`` and optional ``spec_draft_params`` (else random from
     ``seed + 1``) turns on speculative decoding. ``warmup`` runs
     `warmup_compile` in `start`, before the engine thread spawns.
+    ``tp`` > 1 (paged, chunked) shards the engine over a mesh of tp
+    devices (``device`` a list of them, or see `_placement`); ``mesh``
+    is that list (None at tp=1) and ``params``, ``cache``,
+    ``draft_params`` and ``draft_cache`` are then lists of shards.
     """
 
     def __init__(self, cfg, params=None, *, n_slots: int = 8,
@@ -408,12 +427,34 @@ class LLMEngine:
                     "speculative draft/target vocab mismatch: draft "
                     f"vocab_size {draft_cfg.vocab_size} != target vocab_size "
                     f"{cfg.vocab_size} (the tokenizer must be tied)")
-        for asked, feature in (
-                (tp != 1, "tensor parallelism (tp > 1)"),
-                (pool_role is not None or bool(kv_transfer)
-                 or kv_store is not None, "KV page-set transfer")):
-            if asked:
-                raise _not_ported(feature)
+        if pool_role is not None or bool(kv_transfer) or kv_store is not None:
+            raise _not_ported("KV page-set transfer")
+        # Tensor parallelism: the JAX engine's validation of explicit
+        # arguments (the port has no global knob to soft-disable).
+        tp = int(tp)
+        if tp < 1:
+            raise ValueError(f"llm_tp must be >= 1, got {tp}")
+        if tp > 1 and not paged_chunked:
+            raise ValueError(
+                "tensor-parallel decode requires kv_mode='paged' AND "
+                "prefill_chunk > 0 (the sharded programs are the paged "
+                f"chunked set); got kv_mode={kv_mode!r}, "
+                f"prefill_chunk={prefill_chunk}")
+        self.mesh, self.device = self._placement(tp, device)
+        if tp > 1:
+            if cfg.n_heads % tp or cfg.d_ff % tp:
+                raise ValueError(
+                    f"llm_tp={tp} must divide the model's n_heads "
+                    f"({cfg.n_heads}) and d_ff ({cfg.d_ff}) — the KV pool "
+                    "shards along the head axis and the MLP along its "
+                    "hidden width")
+            if draft_cfg is not None and (
+                    draft_cfg.n_heads % tp or draft_cfg.d_ff % tp):
+                raise ValueError(
+                    f"llm_tp={tp} must divide the DRAFT model's n_heads "
+                    f"({draft_cfg.n_heads}) and d_ff ({draft_cfg.d_ff}) "
+                    "— the draft pool shards along the same head axis")
+        self.tp = tp
         if kv_mode not in ("dense", "paged"):
             raise ValueError(f"kv_mode must be dense|paged, got {kv_mode!r}")
         if weight_dtype not in ("bf16", "int8"):
@@ -431,7 +472,6 @@ class LLMEngine:
                 "kv_dtype='int8' requires kv_mode='paged' (the scale planes "
                 "ride the page tables; the dense cache has none); got "
                 f"kv_mode={kv_mode!r}")
-        self.device = resolve_device(device)
         if attn_impl == "auto":
             # Resolved once: the kernels on CUDA, their plain versions on
             # the CPU (where a CUDA kernel cannot run at all).
@@ -529,6 +569,23 @@ class LLMEngine:
             # Acceptance draws (temperature > 0) gate host control flow
             # (emit, rollback): a host numpy generator, as in the JAX engine.
             self._spec_rng = np.random.default_rng(seed)
+        if self.mesh is not None:
+            # Shard ONCE at load, after the quantization above (the rules
+            # shard the int8 scale companions with their planes): params
+            # and pools of the target and the draft, on one mesh (the
+            # draft reads the target's tables).
+            shard = _partition.shard_by_rules
+            self.params = shard(self.mesh, gpt.partition_rules(),
+                                self.params)
+            self.cache = shard(self.mesh, _paged.KV_POOL_PARTITION_RULES,
+                               self.cache)
+            if spec_draft:
+                self.draft_params = shard(self.mesh, gpt.partition_rules(),
+                                          self.draft_params)
+                self.draft_cache = shard(
+                    self.mesh, _paged.KV_POOL_PARTITION_RULES,
+                    self.draft_cache)
+        self._rt = self._dispatch_table()
         # Per draft position i < spec_k: proposals made there and accepted.
         self._spec_pos = np.zeros((2, max(self.spec_k, 1)), np.int64)
         # Prefix cache: None = off (the engine without page sharing).
@@ -616,6 +673,54 @@ class LLMEngine:
                       "spec_proposed": 0, "spec_accepted": 0,
                       "spec_ticks": 0, "spec_slot_steps": 0,
                       "spec_emitted": 0}
+
+    @staticmethod
+    def _placement(tp: int, device):
+        """(mesh, device). At tp=1 no mesh and the one device. At tp > 1
+        the mesh (`partition.make_tp_mesh`): ``device`` as a list of tp
+        devices (a device may repeat), else the first tp visible CUDA
+        devices (raises when there are fewer), or tp times the CPU with
+        ``device="cpu"``; and its shard 0, where the index arrays, the
+        hidden states, the LM head and the sampling generator live."""
+        devices = None
+        if isinstance(device, (list, tuple)):
+            if len(device) != tp:
+                raise ValueError(
+                    f"device lists {len(device)} device(s) for tp={tp}: "
+                    "give one per shard")
+            devices = [resolve_device(d) for d in device]
+            if len({d.type for d in devices}) > 1:
+                raise ValueError(
+                    f"a mesh is all CUDA or all CPU, got {devices}")
+        elif (tp > 1 and device is not None
+              and torch.device(device).type == "cpu"):
+            devices = [torch.device("cpu")] * tp
+        if tp == 1:
+            return None, devices[0] if devices else resolve_device(device)
+        mesh = _partition.make_tp_mesh(tp, devices=devices)
+        return mesh, mesh[0]
+
+    def _dispatch_table(self):
+        """The paged programs every call site dispatches through: at
+        tp=1 the ``paged_kv`` module itself (its programs, looked up at
+        each call, as before tp), at tp > 1 their ``*_tp`` twins with
+        the mesh bound (the JAX engine's swapped dispatch table), so call
+        sites read the same for both."""
+        if self.mesh is None:
+            return _paged
+        names = ("prefill_chunk_paged", "verify_chunk_paged",
+                 "decode_step_paged", "decode_multi_paged", "copy_pages",
+                 "spec_draft_propose")
+        return types.SimpleNamespace(**{
+            n: functools.partial(getattr(_paged, n + "_tp"), mesh=self.mesh)
+            for n in names})
+
+    def _sync(self) -> None:
+        """Wait for every CUDA device of the engine (a no-op on the
+        CPU)."""
+        for dev in dict.fromkeys(self.mesh or [self.device]):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     # ------------------------------------------------------------- API
 
@@ -756,21 +861,20 @@ class LLMEngine:
         for width in self._width_ladder():
             tables = self._to_dev(np.zeros((self.n_slots, width), np.int32))
             for head in (False, True):
-                _x, self.cache = _paged.prefill_chunk_paged(
+                _x, self.cache = self._rt.prefill_chunk_paged(
                     self.cfg, self.params, toks, self.cache, tables, zeros,
                     zeros, return_logits=head, attn_impl=self.attn_impl)
                 n += 1
             if self.spec_k:
-                _x, self.draft_cache = _paged.prefill_chunk_paged(
+                _x, self.draft_cache = self._rt.prefill_chunk_paged(
                     self.draft_cfg, self.draft_params, toks,
                     self.draft_cache, tables, zeros, zeros,
                     return_logits=False, attn_impl=self.attn_impl)
-                _x, self.cache = _paged.verify_chunk_paged(
+                _x, self.cache = self._rt.verify_chunk_paged(
                     self.cfg, self.params, vtoks, self.cache, tables, zeros,
                     zeros, attn_impl=self.attn_impl)
                 n += 2
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._sync()
         self._warmed = True
         return n
 
@@ -990,9 +1094,9 @@ class LLMEngine:
                          llm_attn_impl=self.attn_impl,
                          llm_weight_dtype=self.weight_dtype,
                          llm_kv_dtype=self.kv_dtype,
-                         kv_pool_bytes=sum(
-                             a.numel() * a.element_size()
-                             for a in self.cache.values()))
+                         kv_pool_bytes=self._pool_bytes())
+            m["llm_tp"] = self.tp
+            m.update(self._topology())
             if self.prefill_chunk:
                 m.update(prefill_chunk=self.prefill_chunk,
                          prefill_token_budget=self.prefill_budget,
@@ -1097,8 +1201,10 @@ class LLMEngine:
                     1.0 - len(self.free_pages) / self.n_pages, 4)
                 snap["llm_weight_dtype"] = self.weight_dtype
                 snap["llm_kv_dtype"] = self.kv_dtype
-                snap["kv_pool_bytes"] = sum(
-                    a.numel() * a.element_size() for a in self.cache.values())
+                snap["kv_pool_bytes"] = self._pool_bytes()
+            if self.tp > 1:
+                snap["llm_tp"] = self.tp
+                snap.update(self._topology())
             if self.prefill_chunk:
                 snap["prefill_chunk"] = self.prefill_chunk
                 snap["prefill_token_budget"] = self.prefill_budget
@@ -1138,6 +1244,39 @@ class LLMEngine:
     def _pages_for(self, last_pos: int) -> int:
         """Pages needed to cover writes up to position `last_pos`."""
         return last_pos // self.page_size + 1
+
+    def _pool_shards(self) -> list:
+        """The target's page pool, one dict per shard."""
+        return self.cache if self.mesh is not None else [self.cache]
+
+    def _pool_bytes(self) -> int:
+        """Every byte of the target's pool, of every shard (the int8
+        scale planes once per shard: each shard holds its own copy)."""
+        return sum(a.numel() * a.element_size()
+                   for shard in self._pool_shards() for a in shard.values())
+
+    def _pool_shard_bytes(self) -> int:
+        """Bytes one shard's pool tensors hold (every shard holds the
+        same): its head slice of the K/V planes of every page, null page
+        included, and, when quantized, its whole copy of the scale
+        planes."""
+        return sum(a.numel() * a.element_size()
+                   for a in self._pool_shards()[0].values())
+
+    def _topology(self) -> dict:
+        """The sharding fields of `metrics` and `load_snapshot` at
+        tp > 1 (none at tp=1). Page ids, and so the pool's fill, are
+        shard-invariant; the per-shard number is the bytes each shard
+        pins."""
+        if self.tp == 1:
+            return {}
+        shard_bytes = self._pool_shard_bytes()
+        return {"mesh_shape": {_partition.TP_AXIS: self.tp},
+                "kv_heads_per_shard": self.cfg.n_heads // self.tp,
+                "pool_shard_bytes": shard_bytes,
+                "pool_shard_bytes_used": round(
+                    shard_bytes * (1.0 - len(self.free_pages)
+                                   / self.n_pages))}
 
     def _alloc_page(self) -> int | None:
         """One exclusive page off the free list (refcount 1), or None
@@ -1437,9 +1576,10 @@ class LLMEngine:
         pairs, self._cow_pairs = self._cow_pairs, []
         src, dst = (self._to_dev(np.asarray(a, np.int64))
                     for a in zip(*pairs))
-        self.cache = _paged.copy_pages(self.cache, src, dst)
+        self.cache = self._rt.copy_pages(self.cache, src, dst)
         if self.spec_k:
-            self.draft_cache = _paged.copy_pages(self.draft_cache, src, dst)
+            self.draft_cache = self._rt.copy_pages(self.draft_cache, src,
+                                                   dst)
 
     def _prefill_group(self, bucket: int, group: list[GenRequest],
                        slots: list[int]) -> None:
@@ -1603,7 +1743,7 @@ class LLMEngine:
                 req.first_chunk_at = t0
         try:
             args = [self._to_dev(a) for a in (toks, tables, offsets, valid)]
-            last, self.cache = _paged.prefill_chunk_paged(
+            last, self.cache = self._rt.prefill_chunk_paged(
                 self.cfg, self.params, args[0], self.cache, *args[1:],
                 return_logits=any_final, attn_impl=self.attn_impl)
             if self.spec_k:
@@ -1612,14 +1752,14 @@ class LLMEngine:
                 # graduates with the draft's cursor at the target's. The
                 # draft's logits are unused (propose feeds the pending
                 # token itself), so the no-head program runs.
-                _none, self.draft_cache = _paged.prefill_chunk_paged(
+                _none, self.draft_cache = self._rt.prefill_chunk_paged(
                     self.draft_cfg, self.draft_params, args[0],
                     self.draft_cache, *args[1:], return_logits=False,
                     attn_impl=self.attn_impl)
             if any_final:
                 last = last.cpu().numpy()
-            elif self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            else:
+                self._sync()
         except Exception as e:  # noqa: BLE001 — becomes the requests' error
             failed = set()
             for slot, req, _done, _n in batch:
@@ -1890,7 +2030,8 @@ class LLMEngine:
         sampling = any(self.slot_req[s].temperature > 0.0 for s in active)
         tokens, positions = (self._to_dev(a)
                              for a in (self.tokens, self.positions))
-        proposals, draft_probs, self.draft_cache = _paged.spec_draft_propose(
+        propose = self._rt.spec_draft_propose
+        proposals, draft_probs, self.draft_cache = propose(
             self.draft_cfg, self.draft_params, tokens, self.draft_cache,
             positions, table_view, self._to_dev(n_prop),
             self._to_dev(self.temps), self._gen, k=k,
@@ -1900,7 +2041,7 @@ class LLMEngine:
         vtoks = torch.cat([tokens[:, None], proposals.T], dim=1)
         n_valid = np.where(n_prop >= 0, n_prop + 1, 0).astype(np.int32)
         with self._sampled_span("llm.spec_verify"):
-            logits, self.cache = _paged.verify_chunk_paged(
+            logits, self.cache = self._rt.verify_chunk_paged(
                 self.cfg, self.params, vtoks, self.cache, table_view,
                 positions, self._to_dev(n_valid), attn_impl=self.attn_impl)
             proposals = proposals.cpu().numpy()               # [k, B]
@@ -2044,7 +2185,7 @@ class LLMEngine:
             temps = self._to_dev(self.temps)
             with self._sampled_span("llm.decode_window"):
                 if paged:
-                    toks_out, self.cache = _paged.decode_multi_paged(
+                    toks_out, self.cache = self._rt.decode_multi_paged(
                         self.cfg, self.params, tokens, self.cache, positions,
                         table_view, k, temps, self._gen,
                         attn_impl=self.attn_impl)
@@ -2070,7 +2211,7 @@ class LLMEngine:
             return len(active) + n_prefilling
         with self._sampled_span("llm.decode_window"):
             if paged:
-                logits, self.cache = _paged.decode_step_paged(
+                logits, self.cache = self._rt.decode_step_paged(
                     self.cfg, self.params, tokens, self.cache, positions,
                     table_view, attn_impl=self.attn_impl)
             else:

@@ -14,7 +14,9 @@ paged kernels at a draft's 12 heads, the engine with the prefix cache
 and a draft on the kernels against the plain engine, the one-shot
 engines (float and int8) on the decode kernel against the one-shot
 gather engine and the dense engine, a drain and resume round trip
-(dense and chunked), and one
+(dense and chunked), a tp=2 kernel engine (both shards on the card)
+against the tp=1 gather engine and both paged kernels at a tp shard's
+heads (16, 8, 6), and one
 gpt2_124m-wide training step with
 ``attn_impl="flash"`` against ``"xla"``. The file imports neither JAX nor the JAX package, and the
 repo's conftest does, so run it with::
@@ -623,8 +625,24 @@ def test_paged_kernels_at_the_drafts_heads(cuda, dtype, quant):
     """Both paged kernels at gpt2_124m's 12 heads of 64 (a speculative
     draft beside opt_1_3b): three decode head groups of four; decode at
     16 ragged slots, then prefill rows of C = 160 and C = 5."""
-    rng = np.random.default_rng(13)
-    ps, H, K, n_pg = 64, 12, 64, 16
+    _both_kernels_at_heads(cuda, 12, dtype, quant, seed=13)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [16, 8, 6])
+def test_paged_kernels_at_tp_shard_heads(cuda, H, dtype, quant):
+    """Both paged kernels at a tensor-parallel shard's heads: opt_1_3b's
+    32 at tp=2 (16) and tp=4 (8), the draft's 12 at tp=2 (6: the decode
+    kernel's last head group of four is partial)."""
+    _both_kernels_at_heads(cuda, H, dtype, quant, seed=14 + H)
+
+
+def _both_kernels_at_heads(cuda, H, dtype, quant, *, seed):
+    """Decode at 16 ragged slots, then prefill rows of C = 160 and C = 5,
+    at H heads of 64, each held to its plain version."""
+    rng = np.random.default_rng(seed)
+    ps, K, n_pg = 64, 64, 16
     lengths = np.array([1, 33, 64, 65, 700, 1023, 1024, 900, 1, 500, 128,
                         129, 17, 1000, 2, 640], np.int32)
     tables, n_pages = _scattered_tables(rng, lengths, ps, n_pg)
@@ -660,6 +678,46 @@ def test_paged_kernels_at_the_drafts_heads(cuda, dtype, quant):
                 pa.paged_prefill_attention.int8_launches if quant
                 else pa.paged_prefill_attention.launches)
     assert launched == (1, 2)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+def test_tp2_kernel_engine_matches_tp1_gather_on_the_card(cuda, quant):
+    """A tp=2 kernel engine with both shards on this card (4 heads of 64:
+    2 per shard) serves the streams of the tp=1 gather engine, fp32, with
+    n_layers x 2 launches of each kernel per decode step and per chunk
+    dispatch; int8 weights and KV with the scale planes equal across
+    shards."""
+    cfg = gpt.GPTConfig.tiny_untied(dtype=torch.float32, d_model=256,
+                                    n_heads=4)          # head_dim 64
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = gpt.init_params(cfg, gen, cuda)
+    rng = np.random.default_rng(21)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab_size, n)))
+               for n in (3, 40, 90, 17, 64)]
+    q = dict(weight_dtype="int8", kv_dtype="int8") if quant else {}
+    kw = dict(kv_mode="paged", n_slots=4, max_len=128, page_size=16,
+              prefill_chunk=32, prefill_token_budget=64, **q)
+    outs = {}
+    for name, extra in (("gather", dict(attn_impl="gather", device=cuda)),
+                        ("tp2", dict(attn_impl="kernel", tp=2,
+                                     device=[cuda, cuda]))):
+        pa.reset_launch_counts()
+        eng = LLMEngine(cfg, params, **kw, **extra)
+        outs[name] = _serve(eng, prompts)
+        acc = eng.page_accounting()
+        assert acc["closure"] and acc["free"] == acc["total"]
+    m = eng.metrics()
+    assert m["llm_tp"] == 2 and m["kv_heads_per_shard"] == 2
+    decode, prefill = ((pa.paged_attention.int8_launches,
+                        pa.paged_prefill_attention.int8_launches) if quant
+                       else (pa.paged_attention.launches,
+                             pa.paged_prefill_attention.launches))
+    assert decode == 2 * cfg.n_layers * m["decode_steps"] > 0
+    assert prefill == 2 * cfg.n_layers * m["prefill_dispatches"] > 0
+    if quant:
+        for name in ("k_scale", "v_scale"):
+            assert torch.equal(eng.cache[0][name], eng.cache[1][name])
+    assert outs["tp2"] == outs["gather"]
 
 
 def test_engine_prefix_cache_and_spec_on_the_card(cuda):

@@ -169,7 +169,8 @@ def test_sampled_requests_complete(weights):
 
 @pytest.mark.parametrize("knob", [
     {"prefix_cache": True, "prefix_cache_pages": -1},
-    {"spec_draft": "tiny", "spec_k": 0}, {"tp": 2}, {"pool_role": "prefill"},
+    # tp=3 does not divide tiny's 8 heads (tp itself is ported).
+    {"spec_draft": "tiny", "spec_k": 0}, {"tp": 3}, {"pool_role": "prefill"},
     {"kv_transfer": True}, {"weight_dtype": "int4"}, {"kv_dtype": "fp8"},
     {"attn_impl": "flash"},
     {"prefill_chunk": 32, "prefill_token_budget": 16},

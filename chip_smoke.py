@@ -13,6 +13,8 @@
                           # warmup, load row, metrics, spans, max_len, chaos
     python3 chip_smoke.py --only kernels,engine,engine_tp
                           # tensor-parallel serving, every shard on one card
+    python3 chip_smoke.py --only kernels,engine,engine_kv
+                          # the KV object tier: handoff, drain, resharding
 
 Phases, one JSON line each (the whole record also goes to
 build/chip_smoke.json):
@@ -189,6 +191,26 @@ build/chip_smoke.json):
    pool_shard_bytes = a shard's own bytes, no request error, pages
    balanced. Readings: greedy agreement with tp=1, decode step p50, and
    one fused window's device time and idle share at tp=2 beside tp=1.
+   engine_kv: the KV object tier on the engine phase's configuration,
+   through the process-global store (reset between parts): (a) a
+   pool_role="prefill" engine serves 8 of the prompts, each leaving at
+   its first token with its pages donated, and a fresh pool_role="decode"
+   engine resumes each (prompt, [first token], kv) for 24 tokens in all;
+   (b) a kv_transfer=True engine drained with drain(0.0) mid-decode, every
+   continuation resumed with its kv on a decode-role engine; (c) (a) with
+   kv_dtype="int8" on 4 prompts; (d) one request handed off from tp=2 to
+   tp=1 and one from tp=1 to tp=2 (shards on cuda:0). Gates: every
+   request with a full chunk adopts all of its full chunks with no
+   adoption failure; after each bind the adopted pages gathered back
+   from the pool equal the donated payload bit for bit, every plane (the
+   int8 scale planes too); the adopter prefills each request's cold tail
+   alone; exactly n_layers x tp launches of the path's programs per
+   decode step and per chunk dispatch; exact resumes; no request error;
+   accounting closed on every engine with no page in flight. Readings:
+   the decode engine's TTFT with adoption against the same continuations
+   re-prefilled, the payload's host round trip (gather + .cpu(); stitch
+   + .to(device) + scatter) in ms and GB/s, the drain's agreement with an
+   uninterrupted run, the phase's seconds and the card's name and power.
 7. train: build_training(gpt2_124m(max_seq=1024, remat=True,
    attn_impl="flash"), adamw(3e-4, weight_decay=0.1, mu_dtype=bf16))
    with seeded random weights and a seeded [8, 1024] batch: one step of
@@ -239,6 +261,7 @@ from ray_tpu_torch.models import partition
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
+from ray_tpu_torch.serve import kv_objects as tkvo
 from ray_tpu_torch.serve import llm as serve_llm
 from ray_tpu_torch.serve.llm import LLMEngine
 from ray_tpu_torch.train.optim import adamw
@@ -2865,17 +2888,23 @@ def check_drained_source(reqs, tokens):
                                  f"open: {r.error}, {len(streamed)} streamed")
 
 
-def resume_continuations(device, cfg, params, knobs, conts, tokens):
+def resume_continuations(device, cfg, params, knobs, conts, tokens, *,
+                         kv=False, hook=None):
     """Resume drain() continuations on a fresh engine (ENGINE_KNOBS and
-    ``knobs``) through its engine thread. Gates: no error, ``tokens``
+    ``knobs``) through its engine thread; with ``kv`` each carries its
+    ``kv`` descriptor; ``hook(engine)``, when given, runs before the
+    submits. Gates: no error, ``tokens``
     each, every resumed stream carries exactly max_tokens -
     len(generated_ids) new tokens with the generated ones kept in front,
     the accounting closed. → (requests, wall seconds, page accounting)."""
     dst = LLMEngine(cfg, params, device=device, **{**ENGINE_KNOBS, **knobs})
+    if hook is not None:
+        hook(dst)
     resumed = [dst.submit(c["prompt_ids"], max_tokens=c["max_tokens"],
                           temperature=c["temperature"], eos_id=c["eos_id"],
                           generated_ids=c["generated_ids"],
-                          request_id=c["request_id"], stream=True)
+                          request_id=c["request_id"], stream=True,
+                          kv=c.get("kv") if kv else None)
                for c in conts]
     t0 = time.perf_counter()
     dst.start()
@@ -3210,6 +3239,393 @@ def phase_engine_tp(device, cfg, params, masters):
                                                      few)
     out["decode_window_k8_tp2_beside_tp1"] = tp_window_profile(device, cfg,
                                                                params)
+    emit(out)
+    return by_path
+
+
+# ------------------------------------------------ KV page-set transfer
+
+KV_FEW = 8            # prompts of the handoff and drain parts
+KV_INT8_FEW = 4       # prompts of the int8 handoff
+KV_TOKENS = 24        # tokens of each handed-off stream, the first included
+
+
+def payload_bytes(planes) -> int:
+    return sum(a.numel() * a.element_size() for a in planes.values())
+
+
+def same_bits(a, b) -> bool:
+    """Bitwise equality of two tensors (dtype, shape and every byte)."""
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+def time_donations(eng, log):
+    """Wrap the engine's donation payload read (the gather on the device
+    and the copy to the host): wall ms and bytes per call into ``log``."""
+    inner = eng._kv_payload
+
+    def timed(pool, ids):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = inner(pool, ids)        # .cpu() waits for the gather
+        log.append({"ms": (time.perf_counter() - t0) * 1e3,
+                    "bytes": payload_bytes(host)})
+        return host
+
+    eng._kv_payload = timed
+
+
+def check_binds(eng, store, log):
+    """Wrap the engine's adoption bind: its wall (the stitch on the host,
+    the copy to the device, the scatter; synchronized) and the payload's
+    bytes into ``log``; then the adopted pages gathered back from the
+    pool must equal the payloads fetched from the store (a tp > 1
+    donor's shards joined) bit for bit, every plane (an int8 pool's
+    scale planes too), or it raises."""
+    inner = eng._bind_kv_adopt
+
+    def checked(slot, req, plan):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = inner(slot, req, plan)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rec = {"request_id": req.request_id, "adopted_tokens": n}
+        log.append(rec)
+        if not n:
+            return n
+        sent = []
+        for meta in plan["metas"][:n // eng.prefill_chunk]:
+            p = store.fetch(meta)
+            if meta["tp"] > 1:
+                p = partition.concat_head_planes(p, meta["tp"])
+            sent.append(p)
+        n_pages = int(eng.slot_n_pages[slot])
+        got = eng._rt.gather_pages(eng.cache, eng._to_dev(
+            eng.page_table[slot, :n_pages].copy()))
+        equal = {name: same_bits(plane.cpu(), torch.cat(
+            [p[name] for p in sent], dim=1)) for name, plane in got.items()}
+        if not all(equal.values()):
+            raise AssertionError(f"adopted pages of {req.request_id} differ "
+                                 f"from the donated payload: {equal}")
+        rec.update(pages=n_pages, ms=ms, bytes=sum(
+            payload_bytes({k: p[k] for k in got}) for p in sent),
+            planes_bitwise_equal=sorted(equal))
+        return n
+
+    eng._bind_kv_adopt = checked
+
+
+def count_chunk_tokens(eng, counts):
+    """Wrap the chunk dispatch: per request, the offset of its first
+    prefilled chunk and the tokens prefilled, into ``counts``."""
+    inner = eng._dispatch_chunk_bucket
+
+    def counted(batch, width):
+        for _slot, req, done, n in batch:
+            first, total = counts.get(req.request_id, (done, 0))
+            counts[req.request_id] = (first, total + n)
+        return inner(batch, width)
+
+    eng._dispatch_chunk_bucket = counted
+
+
+def kv_serve(eng, submits):
+    """Queue ``submits`` ((args, kwargs) of `submit`) and run the engine
+    thread until every request is done, with the stats reset and the
+    launch counters zeroed just before and read just after. Raises on a
+    request error. → (requests, wall seconds, launches, metrics)."""
+    torch.cuda.synchronize()
+    eng.reset_stats()
+    pa.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(*a, **kw) for a, kw in submits]
+    eng.start()
+    try:
+        for r in reqs:
+            if not r.done.wait(timeout=600):
+                raise AssertionError("kv request timed out")
+    finally:
+        eng.stop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    errors = [r.error for r in reqs if r.error is not None]
+    if errors:
+        raise AssertionError(f"kv request errors: {errors[:3]}")
+    return reqs, wall, launch_counts(), eng.metrics()
+
+
+def check_kv_pages(eng):
+    """`check_pages`, and no page held by a donation in flight."""
+    acc = check_pages(eng)
+    if acc["exporting"]:
+        raise AssertionError(f"pages left in flight: {acc}")
+    return acc
+
+
+def check_kv_launches(cfg, m, launches, tp, int8):
+    """Exactly n_layers x tp launches of the path's decode program per
+    decode step and of its prefill program per chunk dispatch, none of
+    the others. → launches per step and per dispatch."""
+    sfx = "_int8" if int8 else ""
+    decode, prefill = "paged_attention" + sfx, "paged_prefill_attention" + sfx
+    L = cfg.n_layers
+    want = {k: 0 for k in launches}
+    want[decode] = L * tp * m["decode_steps"]
+    want[prefill] = L * tp * m["prefill_dispatches"]
+    if launches != want or not want[decode] or not want[prefill]:
+        raise AssertionError(f"tp={tp}: launches {launches}, expected {want}")
+    return {"decode_launches_per_step": launches[decode] / m["decode_steps"],
+            "prefill_launches_per_dispatch":
+                launches[prefill] / m["prefill_dispatches"]}
+
+
+def rate(log):
+    """Summed ms and bytes of a timing log, and GB/s."""
+    ms = sum(r["ms"] for r in log if "ms" in r)
+    nbytes = sum(r["bytes"] for r in log if "bytes" in r)
+    return {"calls": sum("ms" in r for r in log), "ms": ms, "bytes": nbytes,
+            "GB_per_s": nbytes / ms / 1e6 if ms else None}
+
+
+def kv_handoff(device, cfg, params, prompts, *, kv_dtype="bf16",
+               pre_tp=1, dec_tp=1, timed=False):
+    """One prefill→decode pool handoff through the process-global store
+    (reset first): a ``pool_role="prefill"`` engine at ``pre_tp`` serves
+    ``prompts``, each request leaving at its first token with its pages
+    donated; a fresh ``pool_role="decode"`` engine at ``dec_tp``, same
+    weights, resumes each ``(prompt, [first token], kv)`` for KV_TOKENS
+    tokens in all. A tp > 1 engine has every shard on cuda:0. Gates:
+    every request with a full chunk hands off with a descriptor and is
+    adopted over all of its full chunks (no adoption failure), its
+    adopted pages bitwise the donated payload (`check_binds`), and its
+    prefill covers the cold tail alone (the context less the adopted
+    tokens, from the first cold token); the launch counts of the
+    adopter's tp (`check_kv_launches`); no request error; both engines'
+    accounting closed with nothing in flight. With ``timed``, the same
+    continuations twice more on the decode engine without the checks,
+    with their descriptors and then without (re-prefill), for TTFT."""
+    chunk = ENGINE_KNOBS["prefill_chunk"]
+    int8 = kv_dtype == "int8"
+    tkvo.reset_local_store()
+    store = tkvo.get_store()
+    knobs = dict(ENGINE_KNOBS, kv_dtype=kv_dtype)
+    place = lambda tp: tp_mesh(tp) if tp > 1 else device
+    pre = LLMEngine(cfg, params, device=place(pre_tp), tp=pre_tp,
+                    pool_role="prefill", **knobs)
+    donations = []
+    time_donations(pre, donations)
+    reqs, pre_wall, pre_launches, pre_m = kv_serve(pre, [
+        ((p,), dict(max_tokens=KV_TOKENS, request_id=str(i)))
+        for i, p in enumerate(prompts)])
+    prefill = "paged_prefill_attention" + ("_int8" if int8 else "")
+    want = {k: 0 for k in pre_launches}
+    want[prefill] = cfg.n_layers * pre_tp * pre_m["prefill_dispatches"]
+    if pre_launches != want or not want[prefill]:
+        raise AssertionError(f"prefill engine launches {pre_launches}, "
+                             f"expected {want}")
+    for r in reqs:
+        full = r.n_prompt >= chunk
+        if not (r.migrated and len(r.out_ids) == 1
+                and (r.kv_handoff is not None) == full):
+            raise AssertionError(f"request {r.request_id} did not hand off: "
+                                 f"{len(r.out_ids)} tokens, "
+                                 f"{r.kv_handoff is not None}")
+    depths = {r.request_id: r.n_prompt // chunk for r in reqs}
+    if pre_m["kv_donations"] != sum(depths.values()):
+        raise AssertionError(f"{pre_m['kv_donations']} donations, "
+                             f"expected {sum(depths.values())}")
+    pre_pages = check_kv_pages(pre)
+    del pre
+    torch.cuda.empty_cache()
+    dec = LLMEngine(cfg, params, device=place(dec_tp), tp=dec_tp,
+                    pool_role="decode", **knobs)
+    conts = [((r.prompt_ids[:r.n_prompt],), dict(
+        max_tokens=KV_TOKENS, generated_ids=list(r.out_ids),
+        request_id=r.request_id, kv=r.kv_handoff,
+        prefix_hashes=[h.hex() for h in r.prefix_hashes],
+        prefix_chunk=chunk)) for r in reqs]
+    binds, chunks = [], {}
+    check_binds(dec, store, binds)
+    count_chunk_tokens(dec, chunks)
+    out, wall, launches, m = kv_serve(dec, conts)
+    del dec._bind_kv_adopt, dec._dispatch_chunk_bucket
+    check_outputs(cfg, out, KV_TOKENS)
+    adopted = {b["request_id"]: b["adopted_tokens"] for b in binds}
+    for r in out:
+        want = depths[r.request_id] * chunk
+        context = r.n_prompt + 1
+        if (adopted.get(r.request_id, 0) != want
+                or chunks[r.request_id] != (want, context - want)):
+            raise AssertionError(
+                f"request {r.request_id}: adopted "
+                f"{adopted.get(r.request_id)} of {want}, prefilled "
+                f"{chunks[r.request_id]} of a {context}-token context")
+    want_adoptions = sum(d > 0 for d in depths.values())
+    if m["kv_adoptions"] != want_adoptions or m["kv_adopt_failures"]:
+        raise AssertionError(f"adoptions {m['kv_adoptions']} of "
+                             f"{want_adoptions}, failures "
+                             f"{m['kv_adopt_failures']}")
+    rec = {"requests": len(prompts),
+           "prompt_tokens": [len(p) for p in prompts],
+           "tp": f"{pre_tp} -> {dec_tp}", "kv_dtype": kv_dtype,
+           "prefill_engine": {"wall_s": pre_wall, "launches": pre_launches,
+                              **{k: pre_m[k] for k in (
+               "kv_donations", "kv_donated_pages", "prefill_dispatches")},
+               "page_accounting": pre_pages},
+           "decode_engine": {
+               "wall_s": wall, "launches": launches,
+               **check_kv_launches(cfg, m, launches, dec_tp, int8),
+               **{k: m[k] for k in (
+                   "kv_adoptions", "kv_adopted_tokens", "kv_adopt_failures",
+                   "prefill_tokens", "prefill_dispatches", "decode_steps")},
+               "prefilled_tokens_per_request": {
+                   k: v[1] for k, v in sorted(chunks.items())},
+               "adopted_planes_bitwise_equal": sorted(
+                   {n for b in binds for n in b.get(
+                       "planes_bitwise_equal", ())}),
+               "page_accounting": check_kv_pages(dec)},
+           "payload_device_to_host": rate(donations),
+           "payload_host_to_device": rate(binds),
+           "store": store.stats()}
+    if timed:
+        runs = {}
+        for arm, with_kv in (("adopted", True), ("re-prefill", False)):
+            subs = [(a, dict(kw, kv=kw["kv"] if with_kv else None))
+                    for a, kw in conts]
+            got, wall, _l, mm = kv_serve(dec, subs)
+            check_outputs(cfg, got, KV_TOKENS)
+            runs[arm] = (got, mm)
+            rec[f"timed_{arm}"] = {"wall_s": wall, **{k: mm.get(k) for k in (
+                "ttft_ms_p50", "ttft_ms_p95", "ttft_mean_s",
+                "prefill_tokens", "kv_adoptions", "decode_step_ms_p50")}}
+        if runs["re-prefill"][1]["kv_adoptions"]:
+            raise AssertionError("the re-prefill round adopted")
+        rec["adopted_vs_reprefill_agreement"] = agreement_record(
+            [r.out_ids for r in runs["adopted"][0]],
+            [r.out_ids for r in runs["re-prefill"][0]])
+        check_kv_pages(dec)
+    del dec
+    torch.cuda.empty_cache()
+    return rec, {"prefill engine": pre_launches, "decode engine": launches}
+
+
+def kv_drain(device, cfg, params, prompts):
+    """drain(0.0) of a ``kv_transfer=True`` engine under load (the first
+    KV_FEW prompts cut to DRAIN_CUT, DRAIN_TOKENS each, driven by step()
+    until half the streams started, DRAIN_TICKS more): its export donates
+    every slot's written prefix; every continuation resumes with its
+    ``kv`` on a fresh ``pool_role="decode"`` engine. Gates: every
+    continuation with a descriptor adopts all of it (bitwise,
+    `check_binds`), each resumed stream carries exactly its missing
+    tokens (`resume_continuations`), accounting closed with nothing in
+    flight. Reading: agreement with an uninterrupted run."""
+    chunk = ENGINE_KNOBS["prefill_chunk"]
+    prompts = [p[:DRAIN_CUT] for p in prompts]
+    eng, (run,) = run_engine(device, cfg, params, prompts=prompts,
+                             tokens=DRAIN_TOKENS)
+    full = {str(i): r.out_ids for i, r in enumerate(run[0])}
+    del eng
+    torch.cuda.empty_cache()
+    tkvo.reset_local_store()
+    store = tkvo.get_store()
+    src = LLMEngine(cfg, params, device=device, kv_transfer=True,
+                    **ENGINE_KNOBS)
+    reqs = [src.submit(p, max_tokens=DRAIN_TOKENS, stream=True,
+                       request_id=str(i)) for i, p in enumerate(prompts)]
+    ticks = 0
+    while sum(bool(r.out_ids) for r in reqs) < len(reqs) // 2:
+        src.step()
+        ticks += 1
+    for _ in range(DRAIN_TICKS):
+        src.step()
+    donations = []
+    time_donations(src, donations)
+    t0 = time.perf_counter()
+    out = src.drain(0.0)
+    drain_s = time.perf_counter() - t0
+    check_drained_source(reqs, DRAIN_TOKENS)
+    src_m = src.metrics()
+    src_pages = check_kv_pages(src)
+    del src
+    torch.cuda.empty_cache()
+    conts = out["continuations"]
+    described = [c for c in conts if c.get("kv")]
+    if not described:
+        raise AssertionError("the drain exported no descriptor")
+    binds, held = [], []
+
+    def hook(eng):
+        held.append(eng)
+        check_binds(eng, store, binds)
+
+    resumed, resume_s, dst_pages = resume_continuations(
+        device, cfg, params, {"pool_role": "decode"}, conts, DRAIN_TOKENS,
+        kv=True, hook=hook)
+    dst_m = held.pop().metrics()
+    adopted = {b["request_id"]: b["adopted_tokens"] for b in binds}
+    for c in conts:
+        context = len(c["prompt_ids"]) + len(c["generated_ids"])
+        want = (min(c["kv"]["n_tokens"], (context - 1) // chunk * chunk)
+                if c.get("kv") else 0)
+        if adopted.get(c["request_id"], 0) != want:
+            raise AssertionError(f"continuation {c['request_id']} adopted "
+                                 f"{adopted.get(c['request_id'])} of {want}")
+    if dst_m["kv_adopt_failures"] or dst_m["kv_adoptions"] != len(described):
+        raise AssertionError(f"drain resume: {dst_m['kv_adoptions']} "
+                             f"adoptions of {len(described)}, "
+                             f"{dst_m['kv_adopt_failures']} failures")
+    return {"requests": len(prompts), "ticks_before_drain": ticks
+            + DRAIN_TICKS, "exported": out["exported"],
+            "with_descriptor": len(described), "drain_s": drain_s,
+            "generated_at_drain": sorted(len(c["generated_ids"])
+                                         for c in conts),
+            "source": {k: src_m[k] for k in (
+                "kv_donations", "kv_donated_pages")},
+            "resume": {"wall_s": resume_s, **{k: dst_m[k] for k in (
+                "kv_adoptions", "kv_adopted_tokens", "kv_adopt_failures",
+                "prefill_tokens", "ttft_ms_p50")}},
+            "payload_device_to_host": rate(donations),
+            "payload_host_to_device": rate(binds),
+            "resumed_agreement_with_uninterrupted": agreement_record(
+                [r.out_ids for r in resumed],
+                [full[c["request_id"]] for c in conts]),
+            "page_accounting": {"source": src_pages,
+                                "destination": dst_pages},
+            "store": store.stats()}
+
+
+def phase_engine_kv(device, cfg, params):
+    """The KV object tier on the engine phase's configuration: (a) a
+    prefill→decode handoff of KV_FEW prompts, timed with adoption against
+    re-prefill; (b) a drain resumed by adoption; (c) an int8-KV handoff
+    of KV_INT8_FEW prompts (its scale planes bitwise equal too); (d) one
+    request handed off from tp=2 to tp=1 and one from tp=1 to tp=2. The
+    store is reset between parts. → launches by path."""
+    prompts = engine_prompts(cfg)
+    few = prompts[:KV_FEW]
+    out = {"phase": "engine_kv", "card": card_line(),
+           "config": "opt_1_3b bf16, 16 slots, max_len 2048, page 64, "
+                     "chunk 256, budget 512, attn_impl kernel; payloads "
+                     "in host memory (the port's LocalKVStore)"}
+    by_path = {}
+
+    def part(name, **kw):
+        out[name], counts = kv_handoff(device, cfg, params, **kw)
+        by_path.update({f"engine_kv ({name}, {engine})": c
+                        for engine, c in counts.items()})
+
+    t0 = time.perf_counter()
+    part("handoff", prompts=few, timed=True)
+    out["drain"] = kv_drain(device, cfg, params, few)
+    part("handoff int8", prompts=few[:KV_INT8_FEW], kv_dtype="int8")
+    one = [max(few, key=len)]
+    for pre_tp, dec_tp in ((2, 1), (1, 2)):
+        part(f"reshard tp={pre_tp} -> tp={dec_tp}", prompts=one,
+             pre_tp=pre_tp, dec_tp=dec_tp)
+    tkvo.reset_local_store()
+    out["phase_s"] = time.perf_counter() - t0
     emit(out)
     return by_path
 
@@ -3831,7 +4247,8 @@ def main(argv=None) -> int:
                     help="comma list of phases: kernels,programs,profile,"
                          "engine,engine_prefix,engine_spec,engine_dense,"
                          "engine_oneshot,engine_drain,engine_warmup,"
-                         "engine_observe,engine_edge,engine_tp,train "
+                         "engine_observe,engine_edge,engine_tp,engine_kv,"
+                         "train "
                          "(default: all; "
                          "the build always runs)")
     ap.add_argument("--ptxas", action="store_true",
@@ -3911,7 +4328,7 @@ def main(argv=None) -> int:
     serving = ("programs", "profile", "engine", "engine_prefix",
                "engine_spec", "engine_dense", "engine_oneshot",
                "engine_drain", "engine_warmup", "engine_observe",
-               "engine_edge", "engine_tp")
+               "engine_edge", "engine_tp", "engine_kv")
     if any(want(p) for p in serving):
         cfg, masters, params = make_params(device)
         if want("programs"):
@@ -3957,6 +4374,8 @@ def main(argv=None) -> int:
                             phase_engine_edge(device, cfg, params).items()})
         if want("engine_tp"):
             by_path.update(phase_engine_tp(device, cfg, params, masters))
+        if want("engine_kv"):
+            by_path.update(phase_engine_kv(device, cfg, params))
         del cfg, masters, params
         torch.cuda.empty_cache()
     if want("train"):

@@ -55,7 +55,9 @@ def split_head_planes(payload: dict, tp: int) -> dict:
     is one shard's bytes. ``_scale``-suffixed planes ([L, n] per-page
     scalars) are the same on every shard (`paged_kv._quant_write` takes
     their maximum across shards), so one copy rides unsuffixed.
-    ``tp == 1`` is the identity. numpy in, numpy out."""
+    ``tp == 1`` is the identity. numpy arrays split with ``np.split``
+    (the JAX function's bytes), torch tensors with ``torch.chunk``
+    (views, in any dtype: numpy has no bf16)."""
     if tp <= 1:
         return dict(payload)
     out: dict = {}
@@ -68,7 +70,10 @@ def split_head_planes(payload: dict, tp: int) -> dict:
             raise ValueError(
                 f"cannot split plane {name!r}: head dim {h} not divisible "
                 f"by tp={tp}")
-        for s, piece in enumerate(np.split(arr, tp, axis=KV_HEAD_AXIS)):
+        pieces = (torch.chunk(arr, tp, dim=KV_HEAD_AXIS)
+                  if isinstance(arr, torch.Tensor)
+                  else np.split(arr, tp, axis=KV_HEAD_AXIS))
+        for s, piece in enumerate(pieces):
             out[f"{name}@{s}"] = piece
     return out
 
@@ -77,7 +82,8 @@ def concat_head_planes(payload: dict, tp: int) -> dict:
     """Inverse of `split_head_planes`: ``name@s`` shard planes →
     full-head planes (head-axis concatenation in shard order). Raises if
     a shard plane is missing: a torn payload must fail, not bind garbage
-    heads."""
+    heads. Torch planes join with ``torch.cat``, numpy planes with
+    ``np.concatenate``."""
     if tp <= 1:
         return dict(payload)
     out: dict = {}
@@ -93,8 +99,10 @@ def concat_head_planes(payload: dict, tp: int) -> dict:
             raise ValueError(
                 f"sharded payload plane {base!r} is torn: have shards "
                 f"{sorted(pieces)}, want 0..{tp - 1}")
-        out[base] = np.concatenate(
-            [pieces[s] for s in range(tp)], axis=KV_HEAD_AXIS)
+        parts = [pieces[s] for s in range(tp)]
+        out[base] = (torch.cat(parts, dim=KV_HEAD_AXIS)
+                     if isinstance(parts[0], torch.Tensor)
+                     else np.concatenate(parts, axis=KV_HEAD_AXIS))
     return out
 
 

@@ -81,13 +81,25 @@ cursors and the scheduler are shard-invariant; sampling runs once, on
 the engine's one generator, so the streams are the tp=1 engine's up to
 the rounding of the cross-shard sums.
 
-Not ported, each rejected with a ValueError when asked for: KV
-page-set transfer (pool roles, kv_transfer, kv_store;
-a continuation's ``kv`` descriptor is accepted and ignored, as the
-reference ignores it without a store) and the Serve deployment wrapper;
-nor are the KV-transfer counters, the ``serve.kv.donate`` chaos point
-and the compile-watch hooks (XLA compile accounting, which has no
-counterpart here).
+KV page-set transfer (``kv_transfer=True``, ``pool_role="prefill"`` or
+``"decode"``, ``kv_store``; paged, chunked, ``prefill_chunk %
+page_size == 0``) is the JAX engine's object tier on the port's
+in-process store (`serve/kv_objects.py`): a completing request (fused
+engines), a prefill-role engine at its first token, and `drain`'s export
+donate their written chunk-aligned prefix, one entry per chain depth,
+gathered from the pool (`gather_pages`, `gather_pages_tp`) into host
+tensors in the pool's dtype; an admission whose ``kv`` descriptor (or
+``{"discover": True}`` hint) resolves deeper than its local prefix-cache
+hit fetches the payloads, writes them into fresh pages (`scatter_pages`,
+`scatter_pages_tp`, a tp > 1 donor's head shards joined first) and
+starts prefill at the first cold token. A dropped or torn depth adopts
+the shorter run; nothing adopted re-prefills from token ids.
+
+Not ported: the Serve deployment wrapper, the cluster page-set store,
+the global ``llm_kv_transfer`` knob and its soft-disable (an explicit
+argument that misfits raises, as in the reference), and the
+compile-watch hooks (XLA compile accounting, which has no counterpart
+here).
 """
 
 from __future__ import annotations
@@ -96,7 +108,9 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import logging
 import math
+import os
 import queue
 import threading
 import time
@@ -116,7 +130,11 @@ from ray_tpu_torch.models import paged_kv as _paged
 from ray_tpu_torch.models import partition as _partition
 from ray_tpu_torch.models.decode import sample_token
 from ray_tpu_torch.ops import _build
-from ray_tpu_torch.serve.prefix_cache import PrefixCache
+from ray_tpu_torch.serve import kv_objects as _kvo
+from ray_tpu_torch.serve.prefix_cache import (PrefixCache, affinity_key,
+                                              extend_chunk_chain)
+
+logger = logging.getLogger(__name__)
 
 # Engine defaults, copied from the JAX package's runtime config and its
 # engine's signature (prefill buckets).
@@ -212,6 +230,20 @@ _PREFIX_COUNTERS = {
         ("misses", "Admissions with no cached prefix"),
         ("evictions", "Prefix-cache entries evicted (LRU / pressure)"),
         ("cow_copies", "Copy-on-write page duplications at bind time"),
+    )
+}
+
+# KV page-set lifecycle counters: donations out of this engine, adoptions
+# binding donated pages instead of re-prefilling, and ladder falls to the
+# re-prefill rung.
+_KV_COUNTERS = {
+    name: _profiling.Counter(
+        f"llm_kv_{name}_total", description=desc, tag_keys=("replica",))
+    for name, desc in (
+        ("donations", "KV page-set objects donated to the object store"),
+        ("adoptions", "Admissions that adopted donated KV pages"),
+        ("adopt_failures",
+         "Adoption attempts that fell to the re-prefill rung"),
     )
 }
 
@@ -339,6 +371,18 @@ class GenRequest:
     # Memoized chunk-hash chain over prompt_ids (contexts only grow, so
     # a page-blocked request hashes each chunk once).
     prefix_hashes: list = dataclasses.field(default_factory=list)
+    # Page-set adoption hint: a donor's descriptor ({"keys", "chunk",
+    # "page_size", "fingerprint", "n_tokens"}) or {"discover": True};
+    # None = cold path. Admission tries the adoption ladder against it.
+    kv: dict | None = None
+    # The adoption plan, resolved ONCE per request (a page-blocked
+    # request is re-scanned every admission round); a stale plan costs a
+    # rung at bind time, never correctness.
+    kv_plan: dict | None = None
+    kv_plan_tried: bool = False
+    # Set when THIS request's pages were donated on handoff or export:
+    # the descriptor its continuation carries to the next engine.
+    kv_handoff: dict | None = None
     out_ids: list[int] = dataclasses.field(default_factory=list)
     truncated: bool = False   # finished early (capacity/unresumable preempt)
     # Exported by drain(): the stream ended here and the continuation
@@ -348,10 +392,6 @@ class GenRequest:
     done: "threading.Event" = dataclasses.field(
         default_factory=threading.Event)
     error: str | None = None
-
-
-def _not_ported(feature: str) -> ValueError:
-    return ValueError(f"{feature} is not yet ported to ray_tpu_torch")
 
 
 class LLMEngine:
@@ -376,6 +416,13 @@ class LLMEngine:
     devices (``device`` a list of them, or see `_placement`); ``mesh``
     is that list (None at tp=1) and ``params``, ``cache``,
     ``draft_params`` and ``draft_cache`` are then lists of shards.
+    ``kv_transfer`` (paged, chunked, chunk a multiple of the page size)
+    donates and adopts KV page sets through ``kv_store`` (default the
+    process-global `kv_objects.get_store`); ``pool_role`` "prefill"
+    hands each request off at its first token with its pages donated,
+    "decode" adopts and never donates on release; either turns
+    ``kv_transfer`` on, and an explicit ``kv_transfer=False`` with a
+    role raises.
     """
 
     def __init__(self, cfg, params=None, *, n_slots: int = 8,
@@ -393,7 +440,8 @@ class LLMEngine:
                  prefix_cache_pages: int = DEFAULT_PREFIX_CACHE_PAGES,
                  spec_draft=None, spec_k: int = DEFAULT_SPEC_K,
                  spec_draft_params=None, tp: int = 1,
-                 pool_role: str | None = None, kv_transfer: bool = False,
+                 pool_role: str | None = None,
+                 kv_transfer: bool | None = None,
                  kv_store=None, weight_dtype: str = "bf16",
                  kv_dtype: str = "bf16", warmup: bool = False):
         paged_chunked = kv_mode == "paged" and bool(prefill_chunk)
@@ -427,8 +475,33 @@ class LLMEngine:
                     "speculative draft/target vocab mismatch: draft "
                     f"vocab_size {draft_cfg.vocab_size} != target vocab_size "
                     f"{cfg.vocab_size} (the tokenizer must be tied)")
-        if pool_role is not None or bool(kv_transfer) or kv_store is not None:
-            raise _not_ported("KV page-set transfer")
+        # KV page-set transfer: the JAX engine's validation of explicit
+        # arguments (the port has no global knob to soft-disable).
+        if pool_role not in (None, "", "prefill", "decode"):
+            raise ValueError(
+                f"pool_role must be None|'prefill'|'decode', "
+                f"got {pool_role!r}")
+        pool_role = pool_role or None
+        if pool_role is not None and kv_transfer is not None and (
+                not kv_transfer):
+            raise ValueError(
+                f"pool_role={pool_role!r} requires kv_transfer — the "
+                "prefill→decode handoff IS a page-set donation + "
+                "adoption")
+        kv_transfer = bool(kv_transfer) or pool_role is not None
+        if kv_transfer and not (paged_chunked
+                                and prefill_chunk % page_size == 0):
+            # Entries are deduped per chain depth across donations; only
+            # page-aligned depths make a chain composed from different
+            # donations self-contained.
+            raise ValueError(
+                "KV page-set transfer requires kv_mode='paged' and "
+                "prefill_chunk > 0 with prefill_chunk % page_size == 0 "
+                "(cross-donation dedup needs page-aligned chain "
+                f"depths); got kv_mode={kv_mode!r}, "
+                f"prefill_chunk={prefill_chunk}, page_size={page_size}")
+        self.pool_role = pool_role
+        self.kv_transfer = kv_transfer
         # Tensor parallelism: the JAX engine's validation of explicit
         # arguments (the port has no global knob to soft-disable).
         tp = int(tp)
@@ -596,6 +669,28 @@ class LLMEngine:
             self.prefix_cache = PrefixCache(
                 chunk=prefill_chunk, page_size=page_size, max_pages=budget,
                 ref_page=self._ref_page, unref_page=self._unref_page)
+        # KV page-set store: donation target and adoption source.
+        # _kv_exporting: page -> refs held by an IN-FLIGHT donation (the
+        # gather and the put), the in-flight-donated category of the page
+        # accounting, released in a finally. _kv_donated: chain head
+        # (16-hex depth-1 digest prefix) -> deepest donated depth,
+        # newest last, at most _kv_summary_max: load_snapshot's
+        # kv_summary and the insert-on-free donation memo.
+        self._kv_store = None
+        self._kv_fingerprint = ""
+        self._kv_donor = ""
+        self._kv_exporting: dict[int, int] = {}
+        self._kv_donated: "collections.OrderedDict[str, int]" = (
+            collections.OrderedDict())
+        self._kv_summary_max = 0
+        if self.kv_transfer:
+            # No actor context here: the reference's off-actor donor id.
+            self._kv_donor = f"local:{os.getpid()}"
+            self._kv_store = (kv_store if kv_store is not None
+                              else _kvo.get_store())
+            self._kv_fingerprint = _kvo.engine_fingerprint(
+                cfg, page_size, prefill_chunk, draft_cfg, kv_dtype=kv_dtype)
+            self._kv_summary_max = max(1, _kvo.SERVE_KV_SUMMARY_MAX)
         # slot -> pinned CacheEntry while the slot is live (released on
         # free/preempt), and the tick's pending COW (src, dst) pairs,
         # flushed in one copy before the tick's first dispatch.
@@ -672,7 +767,15 @@ class LLMEngine:
                       # emitted through the accept path.
                       "spec_proposed": 0, "spec_accepted": 0,
                       "spec_ticks": 0, "spec_slot_steps": 0,
-                      "spec_emitted": 0}
+                      "spec_emitted": 0,
+                      # KV page-set transfer (zeros unless enabled):
+                      # donations and pages out, adoptions (full and
+                      # partial) and the tokens they served, falls to the
+                      # re-prefill rung, and adopt-plan index lookups.
+                      "kv_donations": 0, "kv_donated_pages": 0,
+                      "kv_adoptions": 0, "kv_partial_adoptions": 0,
+                      "kv_adopted_tokens": 0, "kv_adopt_failures": 0,
+                      "kv_digest_lookups": 0}
 
     @staticmethod
     def _placement(tp: int, device):
@@ -710,7 +813,7 @@ class LLMEngine:
             return _paged
         names = ("prefill_chunk_paged", "verify_chunk_paged",
                  "decode_step_paged", "decode_multi_paged", "copy_pages",
-                 "spec_draft_propose")
+                 "gather_pages", "scatter_pages", "spec_draft_propose")
         return types.SimpleNamespace(**{
             n: functools.partial(getattr(_paged, n + "_tp"), mesh=self.mesh)
             for n in names})
@@ -742,8 +845,9 @@ class LLMEngine:
         (hex or bytes) with ``prefix_chunk``, the chunk they were
         computed at, seed the request's memoized chunk-hash chain; a
         memo of another chunk size is dropped. ``kv`` (a donor's
-        page-set descriptor) is accepted and ignored: this engine has no
-        page-set store."""
+        page-set descriptor, or ``{"discover": True}``) makes admission
+        try to adopt the donated pages; an engine without transfer
+        ignores it."""
         if not prompt_ids:
             raise ValueError("prompt_ids must be non-empty")
         if temperature < 0.0:
@@ -767,6 +871,8 @@ class LLMEngine:
                     for h in prefix_hashes]
             except (ValueError, TypeError):
                 req.prefix_hashes = []   # the chain rebuilds from tokens
+        if kv and self._kv_store is not None:
+            req.kv = dict(kv)
         if generated and (len(generated) >= max_tokens or (
                 eos_id is not None and generated[-1] == eos_id)):
             # Already complete (the source stopped between its last token
@@ -901,9 +1007,11 @@ class LLMEngine:
         resumable continuations. Afterwards every request has completed
         or carries ``migrated=True`` with its stream closed; the
         continuations (``request_id``, ``prompt_ids``, ``generated_ids``,
-        ``max_tokens``, ``temperature``, ``eos_id``, and with chunked
-        prefill the hex ``prefix_hashes`` and ``prefix_chunk``) resume
-        through `submit`. → {"drained", "exported", "continuations"}."""
+        ``max_tokens``, ``temperature``, ``eos_id``, with chunked
+        prefill the hex ``prefix_hashes`` and ``prefix_chunk``, and with
+        KV transfer the ``kv`` descriptor of the donated written prefix)
+        resume through `submit`. → {"drained", "exported",
+        "continuations"}."""
         with self._lock:
             self._draining = True
         deadline = time.monotonic() + max(0.0, timeout_s)
@@ -926,15 +1034,21 @@ class LLMEngine:
         thread stops FIRST, so no tick races the export (a request must
         never emit a token after its continuation left). Paged: every
         evicted slot's pages return to the pool and its pinned prefix-
-        cache entry is released, so the accounting still closes."""
+        cache entry is released, so the accounting still closes; with
+        KV transfer each slot's written prefix is donated first, and its
+        continuation carries the descriptor (the drain rung of the
+        adoption ladder)."""
         if self._thread is not None:
             self.stop()
         doomed: list[GenRequest] = []
+        slot_of: dict[int, GenRequest] = {}
         with self._lock:
             for slot, req in enumerate(self.slot_req):
                 if req is not None:
                     doomed.append(req)
+                    slot_of[slot] = req
                     self.slot_req[slot] = None
+            chunk_pos = dict(self._chunk_pos)
             self._prefilling.clear()
             self._chunk_pos.clear()
             doomed.extend(self._deferred)
@@ -945,6 +1059,19 @@ class LLMEngine:
                 except queue.Empty:
                     break
         for slot in range(self.n_slots):
+            req = slot_of.get(slot)
+            if (req is not None and self._kv_store is not None
+                    and int(self.slot_n_pages[slot])):
+                # Written positions: the decode cursor, or a mid-prefill
+                # slot's chunk cursor. The sequence is anchored at
+                # n_prompt (a preempt-regrown context never duplicates
+                # generated tokens into the keys).
+                n_written = (int(self.positions[slot])
+                             or int(chunk_pos.get(slot, 0)))
+                seq = (req.prompt_ids[:req.n_prompt]
+                       + req.out_ids)[:n_written]
+                req.kv_handoff = self._donate_kv(
+                    seq, self.page_table[slot], memo=req.prefix_hashes)
             if self.kv_mode == "paged":
                 entry = self._slot_entry.pop(slot, None)
                 if entry is not None:
@@ -967,6 +1094,8 @@ class LLMEngine:
             if self.prefill_chunk and req.prefix_hashes:
                 cont["prefix_hashes"] = [h.hex() for h in req.prefix_hashes]
                 cont["prefix_chunk"] = self.prefill_chunk
+            if req.kv_handoff is not None:
+                cont["kv"] = req.kv_handoff
             out.append(cont)
             req.migrated = True
             if req.stream is not None:
@@ -1126,6 +1255,11 @@ class LLMEngine:
                 m["spec_accept_rate_by_position"] = [
                     round(int(a) / int(n), 4) if n else None
                     for n, a in zip(made, took)]
+            if self.kv_transfer:
+                m["kv_transfer"] = True
+                m["pool_role"] = self.pool_role or "fused"
+                m["kv_summary_entries"] = len(self._kv_donated)
+                m["kv_summary_max"] = self._kv_summary_max
             if self.prefix_cache is not None:
                 m["prefix_cache"] = True
                 m["prefix_cache_entries"] = len(self.prefix_cache.entries)
@@ -1221,6 +1355,16 @@ class LLMEngine:
                 if self._spec_accept_ewma is not None:
                     snap["spec_accepted_per_step"] = round(
                         self._spec_accept_ewma, 4)
+            if self.kv_transfer:
+                # Pool role, the donation and adoption counts, and the
+                # donated chain heads (oldest to newest): the row a router
+                # reads for disaggregation and warm discovery.
+                snap["pool_role"] = self.pool_role or "fused"
+                for key in ("kv_donations", "kv_adoptions",
+                            "kv_partial_adoptions", "kv_adopted_tokens",
+                            "kv_adopt_failures", "kv_digest_lookups"):
+                    snap[key] = self.stats[key]
+                snap["kv_summary"] = list(self._kv_donated)
             if self.prefix_cache is not None:
                 snap["prefix_cache_entries"] = len(self.prefix_cache.entries)
                 snap["prefix_cache_pages"] = (
@@ -1342,11 +1486,276 @@ class LLMEngine:
         self.page_table[slot, :] = 0
         self.slot_n_pages[slot] = 0
 
+    # ------------------------------------------- KV page-set transfer
+
+    def _kv_note_donation(self, head: str, depth: int) -> None:
+        """Fold a donated chain into the summary memo: head → deepest
+        donated depth, newest last, at most _kv_summary_max heads. Under
+        the lock: `load_snapshot` lists the memo from another thread."""
+        with self._lock:
+            m = self._kv_donated
+            m[head] = max(depth, m.get(head, 0))
+            m.move_to_end(head)
+            while len(m) > self._kv_summary_max:
+                m.popitem(last=False)
+
+    def _kv_chain_head(self, seq) -> str | None:
+        """Summary key of ``seq``'s chain: the 16-hex prefix of its
+        depth-1 chunk digest (`prefix_cache.affinity_key`'s space)."""
+        c = self.prefill_chunk
+        if not c or len(seq) < c:
+            return None
+        return affinity_key(seq, c).hex()[:16]
+
+    def _kv_payload(self, pool, ids: np.ndarray) -> dict:
+        """Pages ``ids`` of every plane of ``pool`` (one dict, or a list
+        of shards) as host tensors in the pool's dtype: one gather on the
+        device, one copy to the host. At tp > 1 the gather returns
+        full-head planes and `partition.split_head_planes` cuts them into
+        the per-shard wire planes. The ids are the donated pages alone:
+        the JAX engine pads them to a pow-2 width to bound its compiles,
+        which an eager gather does not need, and the padding would only
+        cross the bus."""
+        gathered = self._rt.gather_pages(pool, self._to_dev(ids))
+        host = {key: a.cpu() for key, a in gathered.items()}
+        if self.tp > 1:
+            host = _partition.split_head_planes(host, self.tp)
+        return host
+
+    def _donate_kv(self, seq, table_row, memo: list) -> dict | None:
+        """Donate the chunk-aligned written prefix of ``seq`` (its K/V
+        sits in ``table_row``'s pages) to the store, one entry per chain
+        depth the store lacks, keyed by the prefix cache's parent-chained
+        digests. The pages are reffed for the gather and the put (the
+        in-flight-donated category) and released in a finally, so a chaos
+        raise at ``serve.kv.donate`` leaks no reference. Best effort: a
+        failure skips the rest and never fails the request. → the
+        adoption descriptor for the continuation, or None."""
+        if self._kv_store is None:
+            return None
+        c = self.prefill_chunk
+        n_full = len(seq) // c
+        if n_full <= 0:
+            return None
+        chain = extend_chunk_chain(seq, c, memo if memo is not None else [])
+        keys = [h.hex() for h in chain[:n_full]]
+        total_pages = _kvo.pages_for_tokens(n_full * c, self.page_size)
+        pages = [int(table_row[i]) for i in range(total_pages)]
+        if any(p <= 0 for p in pages):
+            # A donor must own real pages for every token it claims.
+            return None
+        desc = {"keys": keys, "chunk": c, "page_size": self.page_size,
+                "fingerprint": self._kv_fingerprint,
+                "n_tokens": n_full * c}
+        try:
+            # Chaos fault point at EVERY donation attempt (the store
+            # dedups novel digests): "raise" skips this donation.
+            _chaos.hit("serve.kv.donate")
+            existing = self._kv_store.resolve(keys)
+        except Exception as e:  # noqa: BLE001 — the descriptor still names the keys
+            logger.debug("kv donation skipped: %s", e)
+            return desc
+        new_depths = [d for d in range(1, n_full + 1)
+                      if keys[d - 1] not in existing]
+        if not new_depths:
+            # Deduped whole: the chain is live in the store, so it still
+            # belongs in this engine's summary.
+            self._kv_note_donation(keys[0][:16], n_full)
+            return desc
+        for p in pages:
+            self._ref_page(p)
+            self._kv_exporting[p] = self._kv_exporting.get(p, 0) + 1
+        tags = {"replica": self._impl_tags()["replica"]}
+        try:
+            ids = np.asarray(pages, np.int32)
+            # Every pool plane is paged on axis 1, an int8 pool's scale
+            # planes included, so one gather carries them all; the draft
+            # pool mirrors the target's pages (a speculative adopter
+            # requires its planes).
+            host = self._kv_payload(self.cache, ids)
+            dhost = (self._kv_payload(self.draft_cache, ids)
+                     if self.spec_k else None)
+            for d in new_depths:
+                s, e = _kvo.page_span(d, c, self.page_size)
+                payload = {key: a[:, s:e] for key, a in host.items()}
+                if dhost is not None:
+                    for key, a in dhost.items():
+                        payload["d" + key] = a[:, s:e]
+                meta = _kvo.make_meta(
+                    keys[d - 1], d, c, self.page_size,
+                    self._kv_fingerprint, self._kv_donor, e - s,
+                    bool(self.spec_k), tp=self.tp)
+                self._kv_store.donate(meta, payload)
+                self.stats["kv_donations"] += 1
+                self.stats["kv_donated_pages"] += e - s
+                _KV_COUNTERS["donations"].inc(tags=tags)
+            self._kv_note_donation(keys[0][:16], n_full)
+        except Exception as e:  # noqa: BLE001 — incl. ChaosError: the
+            # donor keeps serving; already-published depths stay usable.
+            logger.debug("kv donation aborted mid-chain: %s", e)
+        finally:
+            for p in pages:
+                n = self._kv_exporting.get(p, 0) - 1
+                if n <= 0:
+                    self._kv_exporting.pop(p, None)
+                else:
+                    self._kv_exporting[p] = n
+                self._unref_page(p)
+        return desc
+
+    def _kv_adopt_plan(self, req: GenRequest,
+                       n_local: int) -> dict | None:
+        """The deepest contiguous donated chain prefix of ``req``'s
+        context that resolves, when it covers more than the local
+        prefix-cache match ``n_local`` (local sharing is zero-copy). The
+        walk goes from depth 1 up and stops at the first missing or
+        incompatible entry. A full descriptor pre-screens on its
+        geometry; a ``{"discover": True}`` hint carries none and goes
+        straight to the resolve (each entry is still checked)."""
+        if self._kv_store is None or not req.kv:
+            return None
+        kv = req.kv
+        if not kv.get("discover") and (
+                kv.get("fingerprint") != self._kv_fingerprint
+                or kv.get("chunk") != self.prefill_chunk
+                or kv.get("page_size") != self.page_size):
+            return None
+        cap = (len(req.prompt_ids) - 1) // self.prefill_chunk
+        if cap <= 0:
+            return None
+        chain = extend_chunk_chain(req.prompt_ids, self.prefill_chunk,
+                                   req.prefix_hashes)
+        keys = [h.hex() for h in chain[:cap]]
+        try:
+            self.stats["kv_digest_lookups"] += 1
+            found = self._kv_store.resolve(keys)
+        except Exception as e:  # noqa: BLE001 — an index blip = cold path
+            logger.debug("kv adoption resolve failed: %s", e)
+            return None
+        metas = []
+        for d in range(1, cap + 1):
+            meta = found.get(keys[d - 1])
+            if (meta is None
+                    or meta.get("fingerprint") != self._kv_fingerprint
+                    or meta.get("chunk") != self.prefill_chunk
+                    or meta.get("page_size") != self.page_size
+                    or (self.spec_k and not meta.get("draft"))):
+                break
+            metas.append(meta)
+        if not metas or len(metas) * self.prefill_chunk <= n_local:
+            return None
+        return {"n_tokens": len(metas) * self.prefill_chunk,
+                "metas": metas}
+
+    def _bind_kv_adopt(self, slot: int, req: GenRequest,
+                       plan: dict) -> int:
+        """Adoption bind: fetch the planned payloads (the deepest
+        contiguous run that arrives whole: a ``serve.kv.adopt`` drop or a
+        torn depth ends it), join a tp > 1 donor's head shards, allocate
+        fresh exclusive pages (rolled back if the pool runs dry), write
+        the payloads stitched along the page axis with one
+        `scatter_pages` per pool (the draft's too), and bind the pages
+        into ``slot``'s table like a local warm hit. → adopted tokens (0:
+        the ladder falls through)."""
+        tags = {"replica": self._impl_tags()["replica"]}
+        payloads: list[dict] = []
+        for meta in plan["metas"]:
+            try:
+                p = self._kv_store.fetch(meta)
+                donor_tp = int(meta.get("tp", 1) or 1)
+                if donor_tp > 1:
+                    # Full heads back; the scatter re-slices them per this
+                    # engine's mesh, so 2→4, 4→2 and tp→1 are one path.
+                    p = _partition.concat_head_planes(p, donor_tp)
+                if (p["k"].shape[1] != meta["n_pages"]
+                        or (self.spec_k and "dk" not in p)):
+                    raise ValueError("kv payload shape mismatch")
+                payloads.append(p)
+            except Exception as e:  # noqa: BLE001 — adopt what arrived
+                logger.debug("kv fetch of depth %s failed: %s",
+                             meta.get("depth"), e)
+                break
+        if not payloads:
+            self.stats["kv_adopt_failures"] += 1
+            _KV_COUNTERS["adopt_failures"].inc(tags=tags)
+            return 0
+        n_adopt = len(payloads) * self.prefill_chunk
+        n_pages = self._pages_for(n_adopt - 1)
+        if n_pages > len(self.free_pages):
+            self._cache_reclaim(n_pages)
+        alloc: list[int] = []
+        for _ in range(n_pages):
+            pg = self._alloc_page()
+            if pg is None:
+                break
+            alloc.append(pg)
+        if len(alloc) < n_pages:
+            # A partial page run cannot serve the adopted prefix.
+            for pg in alloc:
+                self._unref_page(pg)
+            self.stats["kv_adopt_failures"] += 1
+            _KV_COUNTERS["adopt_failures"].inc(tags=tags)
+            return 0
+        width = _pow2_width(n_pages)
+        ids = np.zeros(width, np.int32)
+        ids[:n_pages] = alloc
+        ids = self._to_dev(ids)
+
+        def stitch(names, prefix=""):
+            # Every plane joins along the page axis in one host tensor,
+            # moved to the device once, and pads there to the pow-2 width
+            # with zeros (the padding ids are the null page), so the
+            # padding never crosses the bus.
+            data = {}
+            for name in names:
+                a = torch.cat([p[prefix + name] for p in payloads],
+                              dim=1).to(self.device)
+                if width > n_pages:
+                    a = torch.cat([a, a.new_zeros(
+                        (a.shape[0], width - n_pages) + a.shape[2:])],
+                        dim=1)
+                data[name] = a
+            return data
+
+        self.cache = self._rt.scatter_pages(
+            self.cache, ids, stitch(self._pool_shards()[0]))
+        if self.spec_k:
+            draft = (self.draft_cache if self.mesh is None
+                     else self.draft_cache[0])
+            self.draft_cache = self._rt.scatter_pages(
+                self.draft_cache, ids, stitch(draft, prefix="d"))
+        for i, pg in enumerate(alloc):
+            self.page_table[slot, i] = pg
+        self.slot_n_pages[slot] = n_pages
+        req.cached_tokens = n_adopt
+        self.stats["kv_adoptions"] += 1
+        self.stats["kv_adopted_tokens"] += n_adopt
+        if len(payloads) < len(plan["metas"]):
+            self.stats["kv_partial_adoptions"] += 1
+        _KV_COUNTERS["adoptions"].inc(tags=tags)
+        return n_adopt
+
+    def _handoff_prefill(self, slot: int, req: GenRequest) -> None:
+        """Prefill-pool handoff (``pool_role="prefill"``): at the first
+        token the prompt's pages are donated and the request leaves as a
+        migrated continuation; its consumer resubmits ``(prompt, [first
+        token], kv=req.kv_handoff)`` to a decode-pool engine, which adopts
+        the pages. The drain export's contract, so greedy streams stay
+        the uninterrupted run's across the handoff."""
+        req.kv_handoff = self._donate_kv(
+            req.prompt_ids, self.page_table[slot], memo=req.prefix_hashes)
+        req.migrated = True
+        if req.stream is not None:
+            req.stream.put(None)
+        req.done.set()
+        self._release(slot)
+
     def page_accounting(self) -> dict:
         """Closure check: every pool page is exactly one of free /
-        referenced, and every reference is owned by a slot table or a
-        prefix-cache entry (free + live + cached-only == total). Valid when
-        the engine is stopped or driven synchronously."""
+        referenced, and every reference is owned by a slot table, a
+        prefix-cache entry or an in-flight page-set donation (free + live
+        + cached + exporting == total, each page counted once). Valid
+        when the engine is stopped or driven synchronously."""
         live: dict[int, int] = {}
         for slot in range(self.n_slots):
             for i in range(int(self.slot_n_pages[slot])):
@@ -1354,10 +1763,15 @@ class LLMEngine:
                 live[pg] = live.get(pg, 0) + 1
         pc = self.prefix_cache
         cached = pc.cached_pages() if pc is not None else set()
-        allocated = set(live) | cached
+        # Pages reffed by a donation in progress (gather and store put):
+        # empty between ticks, and the category that keeps the closure
+        # true when a chaos raise or kill lands mid-donation.
+        exporting = dict(self._kv_exporting)
+        allocated = set(live) | cached | set(exporting)
         refs_ok = all(
             int(self.page_refs[pg]) == live.get(pg, 0)
             + (pc.page_refs_held(pg) if pc is not None else 0)
+            + exporting.get(pg, 0)
             for pg in allocated)
         free = len(self.free_pages)
         return {
@@ -1366,6 +1780,7 @@ class LLMEngine:
             "live": len(live),
             "cached": len(cached),
             "cached_only": len(cached - set(live)),
+            "exporting": len(exporting),
             "shared": sum(1 for pg in live if live[pg] > 1 or pg in cached),
             "closure": free + len(allocated) == self.n_pages,
             "refs_consistent": refs_ok and not (
@@ -1439,13 +1854,18 @@ class LLMEngine:
         cannot evict it, shrinks the reservation: shared full pages come
         from the cache, so only a COW tail and the first cold chunk's
         pages need the free list; the hit is bound into the slot's table
-        and the chunk cursor starts at the first cold token. Up to
+        and the chunk cursor starts at the first cold token. With KV
+        transfer, a request's adoption plan (`_kv_adopt_plan`, resolved
+        once per request) that covers more than the local hit reserves
+        the whole adopted run plus its first cold chunk, and the bind
+        adopts (`_bind_kv_adopt`), releasing the unused local hit, or
+        falls through to the local hit or a cold start. Up to
         _ADMIT_LOOKAHEAD page-blocked requests are set aside (returning
         to the deferred head in order, unpinned) while requests behind
         them that fit admit now; a bypassed head ages and past
         _ADMIT_BYPASS_LIMIT blocks all lookahead until it admits."""
         free = [s for s in range(self.n_slots) if self.slot_req[s] is None]
-        reqs: list[tuple[GenRequest, object]] = []
+        reqs: list[tuple[GenRequest, object, dict | None]] = []
         blocked: list[GenRequest] = []
         head_mark = 0
         planned_pages = 0
@@ -1457,7 +1877,7 @@ class LLMEngine:
                     req = self.pending.get_nowait()
                 except queue.Empty:
                     break
-            hit = None
+            hit = plan = None
             if self.kv_mode == "paged":
                 if self.prefill_chunk:
                     n_cached = 0
@@ -1466,10 +1886,22 @@ class LLMEngine:
                             req.prompt_ids, memo=req.prefix_hashes)
                         if hit is not None:
                             n_cached = hit.n_tokens
-                    end = min(n_cached + self.prefill_chunk,
-                              len(req.prompt_ids))
-                    need = (self._pages_for(end - 1)
-                            - n_cached // self.page_size)
+                    if not req.kv_plan_tried:
+                        req.kv_plan = self._kv_adopt_plan(req, n_cached)
+                        req.kv_plan_tried = True
+                    plan = req.kv_plan
+                    if plan is not None:
+                        # Adopted pages are fresh exclusive allocations:
+                        # the whole adopted run plus the first cold chunk.
+                        # The bind may still degrade within it.
+                        end = min(plan["n_tokens"] + self.prefill_chunk,
+                                  len(req.prompt_ids))
+                        need = self._pages_for(end - 1)
+                    else:
+                        end = min(n_cached + self.prefill_chunk,
+                                  len(req.prompt_ids))
+                        need = (self._pages_for(end - 1)
+                                - n_cached // self.page_size)
                 else:
                     need = self._pages_for(len(req.prompt_ids))
                 if planned_pages + need > len(self.free_pages):
@@ -1489,14 +1921,14 @@ class LLMEngine:
                         break
                     continue
                 planned_pages += need
-            reqs.append((req, hit))
+            reqs.append((req, hit, plan))
         for req in reversed(blocked):
             self._deferred.appendleft(req)   # original order, at the head
         if blocked and len(reqs) > head_mark:
             blocked[0].admit_bypasses += 1
         if not self.prefill_chunk:
             by_bucket: dict[int, list[GenRequest]] = {}
-            for req, _hit in reqs:
+            for req, *_x in reqs:
                 by_bucket.setdefault(self._bucket(len(req.prompt_ids)),
                                      []).append(req)
             slot_iter = iter(free)
@@ -1508,9 +1940,17 @@ class LLMEngine:
                     self._prefill_group(bucket, batch,
                                         [next(slot_iter) for _ in batch])
             return
-        for (req, hit), slot in zip(reqs, free):
+        for (req, hit, plan), slot in zip(reqs, free):
             n_cached = 0
-            if self.prefix_cache is not None:
+            if plan is not None:
+                n_cached = self._bind_kv_adopt(slot, req, plan)
+            if n_cached:
+                # Adopted: the pinned local entry goes unused (adoption
+                # only planned when it covers MORE than the local hit).
+                if hit is not None:
+                    self.prefix_cache.release(hit)
+            elif self.prefix_cache is not None:
+                # The ladder falls through: local warm hit, else cold.
                 n_cached = self._bind_cached_prefix(slot, req, hit)
             with self._lock:
                 self.slot_req[slot] = req
@@ -1795,6 +2235,10 @@ class LLMEngine:
             self.temps[slot] = req.temperature
             if self._emit(req, tok):
                 self._release(slot)
+            elif self.pool_role == "prefill":
+                # The prefill pool's work ends at the first token: donate
+                # the prompt's pages and hand the stream off.
+                self._handoff_prefill(slot, req)
         return set()
 
     def _release(self, slot: int) -> None:
@@ -1810,17 +2254,33 @@ class LLMEngine:
         sequence is prompt_ids[:n_prompt] + out_ids (a preempt already
         folded earlier tokens into prompt_ids). Preempted and failed
         slots never donate: a preempt reclaims pages, and a failed
-        dispatch's pages may be garbage."""
+        dispatch's pages may be garbage; migrated requests only when
+        handed off (their pages were just object-donated, and are as good
+        local warm state).
+
+        With KV transfer a fused engine (no pool role) also donates a
+        completed request's written prefix as page-set objects, unless
+        its summary memo shows that chain donated at least as deep."""
         req = self.slot_req[slot]
         with self._lock:
             self.slot_req[slot] = None
-        if (self.prefix_cache is not None and req is not None
-                and req.done.is_set() and req.error is None):
-            n_written = int(self.positions[slot])
-            seq = (req.prompt_ids[:req.n_prompt] + req.out_ids)[:n_written]
+        clean = (req is not None and req.done.is_set()
+                 and req.error is None)
+        if clean:
+            seq = (req.prompt_ids[:req.n_prompt]
+                   + req.out_ids)[:int(self.positions[slot])]
+        if (clean and self.prefix_cache is not None
+                and (not req.migrated or req.kv_handoff is not None)):
             self.prefix_cache.donate(seq, self.page_table[slot],
                                      memo=req.prefix_hashes)
             self._sync_cache_evictions()
+        if (clean and self._kv_store is not None and self.pool_role is None
+                and not req.migrated):
+            head = self._kv_chain_head(seq)
+            if (head is not None and self._kv_donated.get(head, 0)
+                    < len(seq) // self.prefill_chunk):
+                self._donate_kv(seq, self.page_table[slot],
+                                memo=req.prefix_hashes)
         self.tokens[slot] = 0
         self.positions[slot] = 0
         self.temps[slot] = 0.0

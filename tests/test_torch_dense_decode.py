@@ -283,8 +283,11 @@ def test_defaults_build_a_dense_one_shot_engine(weights):
 
 def test_port_defaults_equal_the_reference_config():
     """Every engine knob the port has defaults as the JAX package's
-    Config dataclass field (tp, warmup and the KV transfer knobs are the
-    unported features' off values); attn_impl differs by definition."""
+    Config dataclass field (tp and warmup are the features' off values);
+    kv_transfer defaults to None in both engines' signatures (None: off
+    unless a pool role is set; an explicit False with a role raises), and
+    an engine built with the defaults resolves it to the Config field's
+    value; attn_impl differs by definition."""
     fields = {f.name: f.default for f in dataclasses.fields(Config)}
     port = {k: p.default for k, p in
             inspect.signature(LLMEngine.__init__).parameters.items()}
@@ -297,10 +300,16 @@ def test_port_defaults_equal_the_reference_config():
                "prefix_cache_pages": "llm_prefix_cache_pages",
                "spec_k": "llm_spec_k", "tp": "llm_tp",
                "weight_dtype": "llm_weight_dtype",
-               "kv_dtype": "llm_kv_dtype", "kv_transfer": "llm_kv_transfer",
+               "kv_dtype": "llm_kv_dtype",
                "warmup": "llm_warmup_compile"}
     assert {k: port[k] for k in knob_of} == {
         k: fields[f] for k, f in knob_of.items()}
+    assert port["kv_transfer"] is None and port["pool_role"] is None
+    assert inspect.signature(JaxEngine.__init__).parameters[
+        "kv_transfer"].default is None
+    eng = LLMEngine(TCFG, None, kv_mode="paged", prefill_chunk=8,
+                    page_size=8, max_len=32, n_slots=1, device="cpu")
+    assert eng.kv_transfer is fields["llm_kv_transfer"] is False
     assert not port["spec_draft"] and not fields["llm_spec_draft"]
     ref = inspect.signature(JaxEngine.__init__).parameters
     for k in ("n_slots", "max_len", "seed", "prefill_buckets"):

@@ -170,8 +170,11 @@ def test_sampled_requests_complete(weights):
 @pytest.mark.parametrize("knob", [
     {"prefix_cache": True, "prefix_cache_pages": -1},
     # tp=3 does not divide tiny's 8 heads (tp itself is ported).
-    {"spec_draft": "tiny", "spec_k": 0}, {"tp": 3}, {"pool_role": "prefill"},
-    {"kv_transfer": True}, {"weight_dtype": "int4"}, {"kv_dtype": "fp8"},
+    # KV transfer is ported: an unknown pool role, and transfer on chunks
+    # that are not a multiple of the page size, are the reference's errors.
+    {"spec_draft": "tiny", "spec_k": 0}, {"tp": 3}, {"pool_role": "both"},
+    {"kv_transfer": True, "prefill_chunk": 12, "prefill_token_budget": 12},
+    {"weight_dtype": "int4"}, {"kv_dtype": "fp8"},
     {"attn_impl": "flash"},
     {"prefill_chunk": 32, "prefill_token_budget": 16},
     # The reference's invalid values of the prefix-cache and spec knobs.

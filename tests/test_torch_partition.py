@@ -11,7 +11,9 @@
 - `split_head_planes`/`concat_head_planes`: byte-identical to JAX's on
   seeded numpy payloads (float and int8 planes, scale planes), the
   round trip is the identity, a torn payload and a non-divisible head
-  dim raise as in JAX.
+  dim raise as in JAX. On bf16 torch payloads (the port's KV page-set
+  payloads) they split and join with torch, and the bits equal the
+  numpy path's on the same int16 bits.
 - `make_tp_mesh`: tp < 1 and tp beyond the visible CUDA devices raise;
   an explicit list may repeat a device.
 - `shard_by_rules`: each shard's leaves are contiguous tensors of their
@@ -137,6 +139,35 @@ def test_head_planes_byte_identical_to_jax(tp):
     back = tpart.concat_head_planes(split, tp)
     _same_bytes(back, jpart.concat_head_planes(split, tp))
     _same_bytes(back, payload)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_head_planes_bf16_torch_round_trip(tp):
+    """bf16 K/V planes and bf16 scale planes, as a bf16 pool's payload:
+    every split piece and the joined planes hold the bits the numpy path
+    gives on the same int16 bits, and the round trip is the identity."""
+    g = torch.Generator().manual_seed(tp)
+    shape = (2, 3, 4, 8, 8)
+    payload = {"k": torch.randn(shape, generator=g).to(torch.bfloat16),
+               "v": torch.randn(shape, generator=g).to(torch.bfloat16),
+               "k_scale": torch.rand((2, 3), generator=g).to(torch.bfloat16)}
+    bits = {k: v.view(torch.int16).numpy() for k, v in payload.items()}
+    split = tpart.split_head_planes(payload, tp)
+    split_bits = tpart.split_head_planes(bits, tp)
+    assert sorted(split) == sorted(split_bits)
+    for name, piece in split.items():
+        assert isinstance(piece, torch.Tensor) and piece.dtype == torch.bfloat16
+        assert np.array_equal(piece.view(torch.int16).numpy(),
+                              split_bits[name]), name
+    back = tpart.concat_head_planes(split, tp)
+    back_bits = tpart.concat_head_planes(split_bits, tp)
+    assert sorted(back) == sorted(payload)
+    for name, plane in back.items():
+        assert plane.dtype == torch.bfloat16 and plane.is_contiguous()
+        assert np.array_equal(plane.view(torch.int16).numpy(),
+                              back_bits[name]), name
+        assert torch.equal(plane.view(torch.int16),
+                           payload[name].view(torch.int16)), name
 
 
 def test_head_planes_errors_match_jax():

@@ -15,6 +15,8 @@
                           # tensor-parallel serving, every shard on one card
     python3 chip_smoke.py --only kernels,engine,engine_kv
                           # the KV object tier: handoff, drain, resharding
+    python3 chip_smoke.py --only kernels,train,train_ring,train_llama
+                          # long context (ring) and llama3_8b on one card
 
 Phases, one JSON line each (the whole record also goes to
 build/chip_smoke.json):
@@ -222,6 +224,33 @@ build/chip_smoke.json):
    after (exactly 24 forward, 12 dq and 12 dkv launches per step: remat
    recomputes each block's forward), step time, tokens/s, MFU, the steps'
    peak memory and the losses; then torch.profiler over one step.
+   train_ring: the flash kernels checked and timed at the ring's chunk
+   shapes ([2, 1024, 12, 64] bf16, the diagonal causal and the full
+   non-causal chunk); then build_training(gpt2_124m(max_seq=4096,
+   remat=True, attn_impl="ring"), the same adamw, mesh=make_sp_mesh(4)
+   with every shard on the card) on a seeded [2, 4096] batch: one step of
+   "ring" against "xla" from the same parameters under the train phase's
+   three limits, which a dropped rotation planted in the ring's combine
+   must fail (its attention weights' gradients past 5e-2; its loss
+   difference is printed); then a warm-up and 4 timed
+   steps with exactly 240 forward, 120 dq and 120 dkv launches per step
+   (12 layers x (4 diagonal + 6 full chunks), the forward twice under
+   remat); step time, tokens/s, MFU, peak memory, one profiled step, and
+   the same step with attn_impl="flash" unsharded beside it.
+   train_llama: the flash kernels checked and timed at [1, 4096, 32,
+   128] bf16 causal; the port's memory audit of llama3_8b (bf16 masters
+   and gradients, adafactor) on "h100" printed and gated on fits, with
+   the card's total memory beside HBM_BYTES["h100"] (they must be equal);
+   then build_training(llama3_8b(max_seq=4096, attn_impl="flash",
+   param_dtype=bf16), adafactor(3e-4), model=llama,
+   stochastic_round=True) from seed 0 (full width and depth: 32 layers,
+   d 4096, 32 heads over 8 kv heads of 128, d_ff 14336, vocab 128256) on
+   a seeded [1, 4096] batch: the loss with flash against plain attention
+   within 1e-2, which a tiled GQA repeat planted in the plain path must
+   exceed; 4 steps (one warm-up) with exactly 64 forward, 32 dq and 32
+   dkv launches per step, every parameter still bf16, the loss finite
+   and falling; peak memory beside the audit, step time, tokens/s, MFU,
+   one profiled step and the optimizer's device time against it.
 8. with --ab OLD_CHECKOUT: the flash forward, dq and dkv and the float
    and int8 paged prefill and decode (timed shape and light load, with
    the wrapper's host µs) against an older checkout's kernels, in turns.
@@ -264,8 +293,13 @@ from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.serve import kv_objects as tkvo
 from ray_tpu_torch.serve import llm as serve_llm
 from ray_tpu_torch.serve.llm import LLMEngine
-from ray_tpu_torch.train.optim import adamw
-from ray_tpu_torch.train.spmd import build_training
+from ray_tpu_torch.models import llama
+from ray_tpu_torch.parallel import ring as tring
+from ray_tpu_torch.parallel.ring import make_sp_mesh
+from ray_tpu_torch.train import memory_audit
+from ray_tpu_torch.train.low_precision import sr_apply_updates
+from ray_tpu_torch.train.optim import adafactor, adamw
+from ray_tpu_torch.train.spmd import Fp32Leaves, build_training, make_train_step
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12            # dense tensor-core bf16
@@ -1486,77 +1520,76 @@ def phase_flash_kernels(device, errs):
     return time_flash(device, errs)
 
 
-def time_flash(device, errs):
-    """Each flash kernel at the training step's shape, [8, 1024, 12, 64]
-    bf16 causal: held once more to its plain version on these inputs,
-    then timed (`device_ms`, CUDA events beside it) beside its bound, its
-    plain version and SDPA (forward alone; forward plus backward)."""
-    B, S, Hh, Kd = FLASH_SHAPE
+def flash_shape_timings(device, errs, tag, B, S, Hh, Kd, causal, seed):
+    """The three flash kernels at one bf16 shape ([B, S, Hh, Kd], T = S):
+    held once more to their plain versions on these inputs (`check_flash`,
+    the largest errors into ``errs``), then timed (`device_ms`, CUDA
+    events beside it) beside each kernel's bound, its plain version and
+    its library call: SDPA for the forward; for the backward the faster
+    of aten's flash backward and the backward of SDPA's graph, each held
+    once to the plain versions, on the flash_dq row beside delta + dq +
+    dkv (one call does all three). → (timings per kernel, the inputs and
+    yardsticks for callers that read more)."""
     dt, item = torch.bfloat16, 2
     scale = 1.0 / np.sqrt(Kd)
-    res = check_flash(np.random.default_rng(5), "training shape", B, S, S,
-                      Hh, Kd, dt, True, device)
+    res = check_flash(np.random.default_rng(seed), tag, B, S, S, Hh, Kd, dt,
+                      causal, device)
     for kern, r in res.items():
         errs[kern] = max(errs[kern], r["max_abs_err"])
-    q, k, v, do, dlse = flash_inputs(np.random.default_rng(5), B, S, S, Hh,
-                                     Kd, dt, device)
-    o, lse = fa.flash_fwd(q, k, v, True, scale)
+    q, k, v, do, dlse = flash_inputs(np.random.default_rng(seed), B, S, S,
+                                     Hh, Kd, dt, device)
+    o, lse = fa.flash_fwd(q, k, v, causal, scale)
     delta = fa.flash_delta(o, do)
-    planted = planted_flash_faults(q, k, v, do, lse, delta, scale)
     n = B * S * Hh * Kd                      # elements of one operand
     rowvec = B * S * Hh * 4                  # one fp32 row vector
-    pairs = B * Hh * S * (S + 1) // 2        # visible (row, key) pairs
+    pairs = B * Hh * (S * (S + 1) // 2 if causal else S * S)
+    plain_iters = 5 if S * S * Hh * B <= 1 << 27 else 2
+    shape = (f"B={B} S=T={S} H={Hh} K={Kd} bf16 "
+             f"{'causal' if causal else 'non-causal'}")
     timings = {}
     plan = {
-        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, True, scale),
-                      lambda: fa.reference_flash_fwd(q, k, v, True, scale),
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal, scale),
+                      lambda: fa.reference_flash_fwd(q, k, v, causal, scale),
                       4 * n * item + rowvec, 2 * 2 * Kd * pairs),
-        "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, True,
+        "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, causal,
                                          scale),
                      lambda: fa.reference_flash_dq(q, k, v, do, lse, delta,
-                                                   True, scale),
+                                                   causal, scale),
                      5 * n * item + 2 * rowvec, 3 * 2 * Kd * pairs),
-        "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, True,
+        "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal,
                                            scale),
                       lambda: fa.reference_flash_dkv(q, k, v, do, lse, delta,
-                                                     True, scale),
+                                                     causal, scale),
                       6 * n * item + 2 * rowvec, 4 * 2 * Kd * pairs),
     }
     for name, (kern, plain, nbytes, flops) in plan.items():
         ms, ms_events = kernel_ms(kern)
-        plain_ms = cuda_time_ms(plain, iters=5, warmup=1)
+        plain_ms = cuda_time_ms(plain, iters=plain_iters, warmup=1)
         bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
         timings[name] = dict(ms=ms, ms_events=ms_events, plain_ms=plain_ms,
                              bound_ms=bms, bound_by=by, bytes=nbytes,
-                             flops=flops, check=res[name],
-                             shape=f"B={B} S=T={S} H={Hh} K={Kd} bf16 causal")
+                             flops=flops, check=res[name], shape=shape)
     # SDPA on [B, H, S, K] copies: a yardstick, never called by the port.
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
                   for x in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
-    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
     with torch.no_grad():
         sdpa_fwd, sdpa_fwd_events = kernel_ms(sdpa)
     timings["flash_fwd"]["library_ms"] = sdpa_fwd
     timings["flash_fwd"]["library_ms_events"] = sdpa_fwd_events
-    # The pair's yardstick: one PyTorch call that computes dq, dk and dv
-    # (and its own delta) from the forward's out and lse. Two routes,
-    # each held once to the plain versions: aten's flash backward called
-    # alone, and the backward of SDPA's own graph (whichever backend SDPA
-    # picks); the faster is the library time.
-    refs = (fa.reference_flash_dq(q, k, v, do, lse, delta, True, scale),
-            *fa.reference_flash_dkv(q, k, v, do, lse, delta, True, scale))
-    aten_bwd, aten_check = aten_flash_backward(qt, kt, vt, dot, scale, refs)
+    refs = (fa.reference_flash_dq(q, k, v, do, lse, delta, causal, scale),
+            *fa.reference_flash_dkv(q, k, v, do, lse, delta, causal, scale))
+    aten_bwd, aten_check = aten_flash_backward(qt, kt, vt, dot, scale, refs,
+                                               causal)
     aten_ms, aten_events = kernel_ms(aten_bwd)
-    sdpa_bwd, sdpa_check = sdpa_backward(qt, kt, vt, dot, scale, refs)
+    sdpa_bwd, sdpa_check = sdpa_backward(qt, kt, vt, dot, scale, refs, causal)
     sdpa_bwd_ms, sdpa_bwd_events = kernel_ms(sdpa_bwd)
-    sdpa_bwd_kernels = kernel_names(sdpa_bwd)
     lib_bwd_ms, lib_bwd_events, lib_call = min(
         (aten_ms, aten_events, "aten_flash_backward"),
         (sdpa_bwd_ms, sdpa_bwd_events, "sdpa_autograd_backward"))
     delta_ms, delta_events = kernel_ms(lambda: fa.flash_delta(o, do))
-    # The call does the work of flash_delta, flash_dq and flash_dkv
-    # together, so its time stands on one row, beside theirs summed.
     timings["flash_dq"].update(
         library_ms=lib_bwd_ms, library_ms_events=lib_bwd_events,
         library_call=lib_call, library_covers=list(BWD_PAIR),
@@ -1565,24 +1598,43 @@ def time_flash(device, errs):
     timings["flash_dkv"].update(library_ms=None, library_see="flash_dq")
     for name in BWD_PAIR[1:]:
         timings[name].update(delta_ms=delta_ms, delta_ms_events=delta_events)
+    ctx = dict(q=q, k=k, v=v, do=do, o=o, lse=lse, delta=delta, scale=scale,
+               qt=qt, kt=kt, vt=vt, dot=dot, sdpa=sdpa, sdpa_fwd=sdpa_fwd,
+               aten_ms=aten_ms, aten_check=aten_check,
+               sdpa_bwd_ms=sdpa_bwd_ms, sdpa_check=sdpa_check,
+               sdpa_bwd_kernels=kernel_names(sdpa_bwd), delta_ms=delta_ms)
+    return timings, ctx
+
+
+def time_flash(device, errs):
+    """Each flash kernel at the training step's shape, [8, 1024, 12, 64]
+    bf16 causal (`flash_shape_timings`), with a dropped key tile planted
+    in the plain dq, dk and dv, which must fail the bf16 bound, and the
+    device time of the forward plus backward beside SDPA's."""
+    B, S, Hh, Kd = FLASH_SHAPE
+    timings, c = flash_shape_timings(device, errs, "training shape", B, S,
+                                     Hh, Kd, True, 5)
+    q, k, v, do, scale = c["q"], c["k"], c["v"], c["do"], c["scale"]
+    planted = planted_flash_faults(q, k, v, do, c["lse"], c["delta"], scale)
     # Forward plus backward launches several kernels from the host (SDPA's
     # through autograd), so their gaps depend on the host's speed: compare
     # the device time of their kernels instead.
     sdpa_fwd_bwd = device_ms(
-        lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot))
+        lambda: torch.autograd.grad(c["sdpa"](), (c["qt"], c["kt"], c["vt"]),
+                                    c["dot"]))
     ours = device_ms(lambda: fa.flash_bwd(
         q, k, v, *fa.flash_fwd(q, k, v, True, scale), do, None, True, scale))
     fa.reset_launch_counts()
     emit({"phase": "flash_kernel_timing", **timings,
           "planted_faults_vs_bf16_bound": planted,
-          "fwd_dq_dkv_device_ms": ours, "sdpa_fwd_ms": sdpa_fwd,
+          "fwd_dq_dkv_device_ms": ours, "sdpa_fwd_ms": c["sdpa_fwd"],
           "sdpa_fwd_bwd_device_ms": sdpa_fwd_bwd,
-          "aten_flash_backward_ms": aten_ms,
-          "aten_flash_backward_vs_plain": aten_check,
-          "sdpa_backward_ms": sdpa_bwd_ms,
-          "sdpa_backward_vs_plain": sdpa_check,
-          "sdpa_backward_kernels": sdpa_bwd_kernels,
-          "flash_delta_ms": delta_ms,
+          "aten_flash_backward_ms": c["aten_ms"],
+          "aten_flash_backward_vs_plain": c["aten_check"],
+          "sdpa_backward_ms": c["sdpa_bwd_ms"],
+          "sdpa_backward_vs_plain": c["sdpa_check"],
+          "sdpa_backward_kernels": c["sdpa_bwd_kernels"],
+          "flash_delta_ms": c["delta_ms"],
           "note": "fwd_dq_dkv_device_ms: the kernels of flash_fwd, delta, "
                   "flash_dq and flash_dkv, against those of SDPA (is_causal)"
                   " forward plus backward; sdpa_backward_ms: the backward "
@@ -1617,14 +1669,14 @@ def hold_to_plain(label, grads, refs):
     return check
 
 
-def sdpa_backward(qt, kt, vt, dot, scale, refs):
+def sdpa_backward(qt, kt, vt, dot, scale, refs, causal=True):
     """The backward of SDPA's own graph (is_causal, the same scale) on
     [B, H, S, K] copies, whichever backend SDPA picks: the forward runs
     once, and the call is torch.autograd.grad over its graph, kept for
     every call. A yardstick only, held once to the plain versions like
     `aten_flash_backward`. → (the call, the check's numbers)."""
     qt, kt, vt = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                          scale=scale)
 
     def call():
@@ -1645,7 +1697,7 @@ def kernel_names(fn):
                    if e.device_type == DeviceType.CUDA})
 
 
-def aten_flash_backward(qt, kt, vt, dot, scale, refs):
+def aten_flash_backward(qt, kt, vt, dot, scale, refs, causal=True):
     """aten's flash backward (``_scaled_dot_product_flash_attention_
     backward``) on [B, H, S, K] copies, with out, lse and the philox
     arguments of aten's causal flash forward at the same scale: a
@@ -1656,13 +1708,13 @@ def aten_flash_backward(qt, kt, vt, dot, scale, refs):
     check's numbers)."""
     qt, kt, vt = (x.detach() for x in (qt, kt, vt))
     fwd = torch.ops.aten._scaled_dot_product_flash_attention(
-        qt, kt, vt, 0.0, True, False, scale=scale)
+        qt, kt, vt, 0.0, causal, False, scale=scale)
     out, lse, cum_q, cum_k, max_q, max_k, seed, offset = fwd[:8]
 
     def call():
         return torch.ops.aten._scaled_dot_product_flash_attention_backward(
-            dot, qt, kt, vt, out, lse, cum_q, cum_k, max_q, max_k, 0.0, True,
-            seed, offset, scale=scale)
+            dot, qt, kt, vt, out, lse, cum_q, cum_k, max_q, max_k, 0.0,
+            causal, seed, offset, scale=scale)
 
     return call, hold_to_plain("aten flash backward", call(), refs)
 
@@ -4107,17 +4159,22 @@ def train_flops_per_token(cfg) -> float:
 
 
 def train_batch(cfg, device):
-    rng = np.random.default_rng(0)
-    toks = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S))
+    return train_batch_of(cfg.vocab_size, TRAIN_B, TRAIN_S, device)
+
+
+def train_batch_of(vocab, B, S, device, seed=0):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, (B, S))
     tg = np.roll(toks, -1, axis=1)
     return tuple(torch.from_numpy(a.astype(np.int64)).to(device)
                  for a in (toks, tg))
 
 
-def loss_and_grads(cfg, params, batch, impl):
-    """One step's loss and gradients ({name: grad}) with ``impl``."""
+def loss_and_grads(cfg, params, batch, impl, mesh=None):
+    """One step's loss and gradients ({name: grad}) with ``impl`` (the sp
+    ``mesh`` for "ring")."""
     loss = gpt.loss_fn(params, *batch,
-                       dataclasses.replace(cfg, attn_impl=impl))
+                       dataclasses.replace(cfg, attn_impl=impl), mesh)
     grads = torch.autograd.grad(loss, list(params.values()))
     return float(loss.detach()), dict(zip(params, grads))
 
@@ -4189,6 +4246,28 @@ def flash_vs_xla(cfg, params, batch):
     return res
 
 
+def timed_steps(step, params, opt_state, batch, n):
+    """One warm-up step and ``n`` timed ones, the flash counters zeroed
+    just before and read just after → (params, opt_state, losses, step
+    ms, launches per step)."""
+    fa.reset_launch_counts()
+    losses, step_ms = [], []
+    for _ in range(1 + n):
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, batch)
+        losses.append(float(loss))            # synchronizes
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {"flash_fwd": fa.flash_fwd.launches,
+                "flash_dq": fa.flash_dq.launches,
+                "flash_dkv": fa.flash_dkv.launches}
+    per_step = {k: v / (1 + n) for k, v in launches.items()}
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    return params, opt_state, losses, step_ms, launches, per_step
+
+
 def phase_train(device):
     """bench.py's training step on the port: gpt2_124m at B=8, S=1024,
     bf16, remat, flash attention, AdamW with a bf16 first moment."""
@@ -4201,26 +4280,11 @@ def phase_train(device):
     compare = flash_vs_xla(cfg, params, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()      # the peak of the steps alone
-
-    fa.reset_launch_counts()
-    losses, step_ms = [], []
-    for i in range(1 + TRAIN_STEPS):          # one warm-up step
-        t0 = time.perf_counter()
-        params, opt_state, loss = step(params, opt_state, batch)
-        losses.append(float(loss))            # synchronizes
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {"flash_fwd": fa.flash_fwd.launches,
-                "flash_dq": fa.flash_dq.launches,
-                "flash_dkv": fa.flash_dkv.launches}
-    steps = 1 + TRAIN_STEPS
-    per_step = {k: v / steps for k, v in launches.items()}
+    params, opt_state, losses, step_ms, launches, per_step = timed_steps(
+        step, params, opt_state, batch, TRAIN_STEPS)
     if per_step != FLASH_PER_STEP:
         raise AssertionError(f"flash launches per step {per_step}, "
                              f"expected {FLASH_PER_STEP}")
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite loss: {losses}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"loss did not fall: {losses}")
     timed = step_ms[1:]
     p50 = float(np.median(timed))
     tok_s = TRAIN_B * TRAIN_S / (p50 / 1e3)
@@ -4241,6 +4305,262 @@ def phase_train(device):
     return launches
 
 
+# ------------------------------------------------------- long context
+
+RING_B, RING_S, RING_SP, RING_STEPS = 2, 4096, 4, 4
+RING_COMBINES = RING_SP * (RING_SP - 1) // 2   # combines per causal ring call
+# Per step with remat at sp = 4, causal: each layer's ring attends 4
+# diagonal and 6 full chunks (the 6 masked steps launch nothing), in the
+# block's forward and again in its recompute; dq and dkv once each.
+RING_PER_STEP = {"flash_fwd": 240, "flash_dq": 120, "flash_dkv": 120}
+
+
+def dropped_rotation(real):
+    """A planted fault in the ring's combine: the first combine of every
+    ring call keeps the running (o, lse), so shard 1 never sees chunk 0."""
+    calls = [0]
+
+    def combine(o1, lse1, o2, lse2):
+        calls[0] += 1
+        if calls[0] % RING_COMBINES == 1:
+            return o1, lse1
+        return real(o1, lse1, o2, lse2)
+
+    return combine
+
+
+def phase_train_ring(device, errs):
+    """Ring attention on the training path: gpt2_124m at S 4096, B 2,
+    bf16, remat, attn_impl="ring" over an sp=4 mesh with every shard on
+    one card, adamw(3e-4, wd 0.1, mu bf16)."""
+    t_phase = time.perf_counter()
+    B, S, Hh, Kd = RING_B, RING_S // RING_SP, 12, 64
+    shapes = {
+        "ring_diagonal": flash_shape_timings(device, errs, "ring diagonal",
+                                             B, S, Hh, Kd, True, 7)[0],
+        "ring_full": flash_shape_timings(device, errs, "ring full", B, S, Hh,
+                                         Kd, False, 8)[0]}
+    emit({"phase": "flash_kernel_timing_ring", **{
+        f"{k} {tag}": v for tag, t in shapes.items() for k, v in t.items()}})
+    cfg = gpt.GPTConfig.gpt2_124m(max_seq=RING_S, remat=True,
+                                  attn_impl="ring")
+    mesh = make_sp_mesh(RING_SP, devices=[device] * RING_SP)
+    opt = adamw(3e-4, weight_decay=0.1, mu_dtype=torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params, opt_state, step = build_training(cfg, opt, gen, device,
+                                             mesh=mesh)
+    batch = train_batch_of(cfg.vocab_size, RING_B, RING_S, device)
+
+    loss_x, g_x = loss_and_grads(cfg, params, batch, "xla")
+    loss_r, g_r = loss_and_grads(cfg, params, batch, "ring", mesh)
+    compare = {"loss_ring": loss_r, "loss_xla": loss_x,
+               **step_diff(loss_r, g_r, loss_x, g_x),
+               "loss_tol": TRAIN_LOSS_TOL, "grad_tol": TRAIN_GRAD_TOL,
+               "attn_grad_tol": TRAIN_ATTN_GRAD_TOL}
+    del g_r
+    real = tring._combine
+    tring._combine = dropped_rotation(real)
+    try:
+        loss_p, g_p = loss_and_grads(cfg, params, batch, "ring", mesh)
+    finally:
+        tring._combine = real
+    compare["planted_dropped_rotation"] = step_diff(loss_p, g_p, loss_x, g_x)
+    del g_p, g_x
+    if not (compare["loss_abs_diff"] <= TRAIN_LOSS_TOL
+            and compare["grad_rel_err"] <= TRAIN_GRAD_TOL
+            and compare["attn_grad_rel_err"] <= TRAIN_ATTN_GRAD_TOL):
+        raise AssertionError(f"ring vs xla step disagree: {compare}")
+    # The planted fault moves the loss of random weights by 1.9e-4 (under
+    # the loss limit; the attention barely steers their logits), and the
+    # attention weights' gradients by 0.96 relative: as in the train
+    # phase, it must fail the attention-gradient limit.
+    if not compare["planted_dropped_rotation"]["attn_grad_rel_err"] > \
+            TRAIN_ATTN_GRAD_TOL:
+        raise AssertionError(f"a dropped rotation passes the check: "
+                             f"{compare}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state, losses, step_ms, launches, per_step = timed_steps(
+        step, params, opt_state, batch, RING_STEPS)
+    if per_step != RING_PER_STEP:
+        raise AssertionError(f"ring flash launches per step {per_step}, "
+                             f"expected {RING_PER_STEP}")
+    peak_mem = torch.cuda.max_memory_allocated()
+    p50 = float(np.median(step_ms[1:]))
+    tok_s = RING_B * RING_S / (p50 / 1e3)
+    fpt = train_flops_per_token(cfg)
+    profiled = _profiled(lambda: step(params, opt_state, batch), top=12)
+    # The same step unsharded: attn_impl="flash" on the same parameters.
+    flash_cfg = dataclasses.replace(cfg, attn_impl="flash")
+    flash_step = make_train_step(
+        lambda p, a, b: gpt.loss_fn(p, a, b, flash_cfg), opt)
+    params, opt_state, f_losses, f_ms, _, f_per_step = timed_steps(
+        flash_step, params, opt_state, batch, RING_STEPS)
+    f_p50 = float(np.median(f_ms[1:]))
+    out = {"phase": "train_ring", "config": "gpt2_124m bf16 remat ring "
+           f"sp={RING_SP} (every shard on one card) B={RING_B} S={RING_S} "
+           "adamw(3e-4, wd=0.1, mu bf16)", "ring_vs_xla": compare,
+           "steps_timed": RING_STEPS, "step_ms": step_ms,
+           "step_ms_p50": p50, "tokens_per_s": tok_s,
+           "mfu": fpt * tok_s / BF16_FLOPS, "flops_per_token": fpt,
+           "max_memory_allocated_gb": peak_mem / 2**30,
+           "losses": losses, "launches": launches,
+           "launches_per_step": per_step, "profile_one_step": profiled,
+           "unsharded_flash": {"step_ms": f_ms, "step_ms_p50": f_p50,
+                               "tokens_per_s": RING_B * RING_S / (
+                                   f_p50 / 1e3),
+                               "launches_per_step": f_per_step,
+                               "losses": f_losses},
+           "phase_s": time.perf_counter() - t_phase, "card": card_line()}
+    emit(out)
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return launches, shapes
+
+
+# ------------------------------------------------------ large models
+
+LLAMA_S, LLAMA_STEPS = 4096, 4
+# Per step with remat: 32 layers' flash forward twice (block and
+# recompute), dq and dkv once each.
+LLAMA_PER_STEP = {"flash_fwd": 64, "flash_dq": 32, "flash_dkv": 32}
+# |loss_flash - loss_plain| of one step from the same parameters, bf16:
+# the two attention paths round probabilities at different places, and
+# the difference goes through 32 layers. Stated before the first run; a
+# tiled GQA repeat (query head h reading kv head h mod 8 in place of
+# h // 4) planted in the plain path must exceed it.
+LLAMA_LOSS_TOL = 1e-2
+
+
+def llama_loss(cfg, params, batch, impl):
+    with torch.no_grad():
+        return float(llama.loss_fn(params, *batch,
+                                   dataclasses.replace(cfg, attn_impl=impl)))
+
+
+def phase_train_llama(device, errs):
+    """bench.py's BENCH_OPT=adafactor_sr path on the port: llama3_8b at
+    full width and depth, S 4096, B 1, bf16 SR masters, adafactor(3e-4),
+    remat, flash attention, random weights from seed 0."""
+    t_phase = time.perf_counter()
+    shapes = {"llama": flash_shape_timings(device, errs, "llama3_8b", 1,
+                                           LLAMA_S, 32, 128, True, 9)[0]}
+    emit({"phase": "flash_kernel_timing_llama", **{
+        f"{k} {tag}": v for tag, t in shapes.items() for k, v in t.items()}})
+    torch.cuda.empty_cache()
+    cfg = llama.LlamaConfig.llama3_8b(max_seq=LLAMA_S, attn_impl="flash",
+                                      param_dtype=torch.bfloat16)
+    one = {"dp": 1, "fsdp": 1, "sp": 1, "tp": 1}
+    report = memory_audit.audit_training(
+        cfg, one, model=llama, optimizer="adafactor", param_bytes=2,
+        grad_bytes=2, hbm="h100")
+    total_memory = torch.cuda.get_device_properties(0).total_memory
+    audit = {"per_device": report.per_device, "total": report.total_bytes,
+             "hbm_bytes": report.hbm_bytes, "fits": report.fits,
+             "card_total_memory": total_memory}
+    print(str(report), flush=True)
+    if total_memory != memory_audit.HBM_BYTES["h100"]:
+        raise AssertionError(f"the card reports {total_memory} bytes, "
+                             f"HBM_BYTES['h100'] is "
+                             f"{memory_audit.HBM_BYTES['h100']}")
+    if not report.fits:
+        raise AssertionError(f"llama3_8b does not fit one H100:\n{report}")
+    torch.cuda.reset_peak_memory_stats()
+    opt = adafactor(3e-4)
+    gen = torch.Generator(device=device).manual_seed(0)
+    t0 = time.perf_counter()
+    params, opt_state, step = build_training(cfg, opt, gen, device,
+                                             model=llama,
+                                             stochastic_round=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = train_batch_of(cfg.vocab_size, 1, LLAMA_S, device)
+    loss_f, loss_x = (llama_loss(cfg, params, batch, i)
+                      for i in ("flash", "xla"))
+    real = llama._repeat_kv
+    llama._repeat_kv = lambda x, groups: x.repeat(1, 1, groups, 1)
+    try:
+        loss_tiled = llama_loss(cfg, params, batch, "xla")
+    finally:
+        llama._repeat_kv = real
+    compare = {"loss_flash": loss_f, "loss_xla": loss_x,
+               "loss_abs_diff": abs(loss_f - loss_x),
+               "loss_tol": LLAMA_LOSS_TOL,
+               "planted_tiled_gqa_loss_abs_diff": abs(loss_tiled - loss_f)}
+    if not compare["loss_abs_diff"] <= LLAMA_LOSS_TOL:
+        raise AssertionError(f"llama flash vs plain disagree: {compare}")
+    if not compare["planted_tiled_gqa_loss_abs_diff"] > LLAMA_LOSS_TOL:
+        raise AssertionError(f"a tiled GQA repeat passes the check: "
+                             f"{compare}")
+    params, opt_state, losses, step_ms, launches, per_step = timed_steps(
+        step, params, opt_state, batch, LLAMA_STEPS - 1)
+    if per_step != LLAMA_PER_STEP:
+        raise AssertionError(f"llama flash launches per step {per_step}, "
+                             f"expected {LLAMA_PER_STEP}")
+    not_bf16 = [k for k, p in params.items() if p.dtype != torch.bfloat16]
+    if not_bf16:
+        raise AssertionError(f"parameters left bf16: {not_bf16}")
+    peak_mem = torch.cuda.max_memory_allocated()
+    p50 = float(np.median(step_ms[1:]))
+    tok_s = LLAMA_S / (p50 / 1e3)
+    fpt = llama_flops_per_token(cfg)
+    profiled = _profiled(lambda: step(params, opt_state, batch), top=12)
+    optimizer = optimizer_device_time(cfg, params, opt_state, batch, opt)
+    out = {"phase": "train_llama", "config": f"llama3_8b bf16 SR masters "
+           f"remat flash B=1 S={LLAMA_S} adafactor(3e-4)",
+           "params": llama.num_params(cfg), "audit": audit,
+           "max_memory_allocated": peak_mem,
+           "max_memory_allocated_gb": peak_mem / 2**30,
+           "init_s": init_s, "flash_vs_plain": compare,
+           "steps": LLAMA_STEPS, "step_ms": step_ms, "step_ms_p50": p50,
+           "tokens_per_s": tok_s, "mfu": fpt * tok_s / BF16_FLOPS,
+           "flops_per_token": fpt, "losses": losses, "launches": launches,
+           "launches_per_step": per_step, "profile_one_step": profiled,
+           "optimizer": optimizer,
+           "optimizer_share_of_step_device_ms": (
+               optimizer["device_busy_ms"] / profiled["device_busy_ms"]),
+           "phase_s": time.perf_counter() - t_phase, "card": card_line()}
+    emit(out)
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return launches, shapes
+
+
+def llama_flops_per_token(cfg) -> float:
+    """`train_flops_per_token`'s count (bench.py's) for the Llama family:
+    6N per token with N the matmul parameters (the untied embedding's
+    gather is no matmul, so the LM head counts once; q and o of d x d, k
+    and v of d x kv_heads·K, the three SwiGLU matrices), plus 12·L·d·S of
+    attention scores and values."""
+    K = cfg.head_dim
+    attn_w = 2 * cfg.d_model * cfg.d_model + 2 * cfg.d_model * (
+        cfg.n_kv_heads * K)
+    n = (cfg.vocab_size * cfg.d_model
+         + cfg.n_layers * (attn_w + 3 * cfg.d_model * cfg.d_ff))
+    return 6.0 * n + 12 * cfg.n_layers * cfg.d_model * cfg.max_seq
+
+
+def optimizer_device_time(cfg, params, opt_state, batch, opt):
+    """The device time of one optimizer application (adafactor's update
+    and the stochastically rounded apply, fp32 gradients leaf by leaf) on
+    one step's gradients, profiled as `_profiled` profiles the step. It
+    runs three more optimizer steps on the parameters."""
+    loss = llama.loss_fn(params, *batch, cfg)
+    names = list(params)
+    grads = dict(zip(names, torch.autograd.grad(
+        loss, [params[k] for k in names])))
+    del loss
+    inner, count = opt_state
+
+    def apply():
+        updates, _ = opt.update(Fp32Leaves(dict(grads)), inner, params)
+        sr_apply_updates(params, updates, count)
+
+    res = _profiled(apply, top=6)
+    del grads
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="",
@@ -4248,7 +4568,7 @@ def main(argv=None) -> int:
                          "engine,engine_prefix,engine_spec,engine_dense,"
                          "engine_oneshot,engine_drain,engine_warmup,"
                          "engine_observe,engine_edge,engine_tp,engine_kv,"
-                         "train "
+                         "train,train_ring,train_llama "
                          "(default: all; "
                          "the build always runs)")
     ap.add_argument("--ptxas", action="store_true",
@@ -4310,7 +4630,7 @@ def main(argv=None) -> int:
             "ray_tpu/ops/paged_attention.py:206"),
     }
     errs = dict.fromkeys(meta, 0.0)
-    timings, launches = {}, {}
+    timings, launches, at_shapes = {}, {}, {}
     if want("kernels"):
         timings.update(phase_kernels(device, errs))
         timings.update(phase_flash_kernels(device, errs))
@@ -4380,6 +4700,11 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if want("train"):
         launches.update(phase_train(device))
+    for name, phase in (("train_ring", phase_train_ring),
+                        ("train_llama", phase_train_llama)):
+        if want(name):
+            by_path[name], shapes = phase(device, errs)
+            at_shapes.update(shapes)
 
     kernels = []
     for name, (src, replaces) in meta.items():
@@ -4402,6 +4727,11 @@ def main(argv=None) -> int:
         paths = {p: c[name] for p, c in by_path.items() if c.get(name)}
         if paths:
             kernels[-1]["launches_by_path"] = paths
+        shapes = {tag: {k: t[name][k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                  for tag, t in at_shapes.items() if name in t}
+        if shapes:
+            kernels[-1]["at_shapes"] = shapes
     if kernels:
         print(json.dumps({"kernels": kernels}), flush=True)
         RECORD["kernels"] = kernels

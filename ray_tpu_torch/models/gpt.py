@@ -10,8 +10,10 @@ one to one (``ray_tpu_torch/_bridge.py``). A Python loop over layer
 slices takes the place of ``lax.scan``, and
 ``torch.utils.checkpoint(..., use_reentrant=False)`` the place of
 ``jax.checkpoint``. Training goes through ``loss_fn``; attention is the
-plain fp32-softmax path (``attn_impl="xla"``) or the flash kernels
-(``"flash"``, ``ray_tpu_torch/ops/attention.py``).
+plain fp32-softmax path (``attn_impl="xla"``), the flash kernels
+(``"flash"``, ``ray_tpu_torch/ops/attention.py``) or ring attention
+over a sequence-parallel mesh (``"ring"``, ``parallel/ring.py``; pass
+``mesh=``).
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ class GPTConfig:
     param_dtype: Any = torch.float32
     tie_embeddings: bool = True
     remat: bool = False              # checkpoint each block (recompute in bwd)
-    attn_impl: str = "xla"           # "xla" (plain) | "flash" (kernels)
+    attn_impl: str = "xla"           # "xla" (plain) | "flash" (kernels) | "ring"
     # Tile sizes of the JAX package's Pallas flash kernel, kept so the
     # presets carry over; the CUDA kernels tile by 64 and do not read them.
     attn_block_q: int = 1024
@@ -112,7 +114,11 @@ class GPTConfig:
 
 
 def param_specs(cfg: GPTConfig) -> dict[str, dict[str, Any]]:
-    """name → {shape, init, scale}; the same table as the JAX package.
+    """name → {shape, axes, init, scale}; the same table as the JAX
+    package. ``axes`` are the logical axis names of each dimension
+    (``parallel/mesh.py`` `DEFAULT_LOGICAL_RULES` maps them to mesh
+    axes); the memory audit resolves them with
+    ``models/partition.py::logical_to_spec``.
 
     Block params carry a leading `layers` axis.
     """
@@ -127,25 +133,29 @@ def param_specs(cfg: GPTConfig) -> dict[str, dict[str, Any]]:
     zeros = lambda *s: {"init": "zeros", "shape": s}
 
     specs: dict[str, dict[str, Any]] = {
-        "wte": norm(V, D),
-        "ln_f_scale": ones(D),
-        "ln_f_bias": zeros(D),
-        "ln1_scale": ones(L, D),
-        "ln1_bias": zeros(L, D),
-        "wq": norm(L, D, H, K),
-        "wk": norm(L, D, H, K),
-        "wv": norm(L, D, H, K),
-        "wo": resid(L, H, K, D),
-        "ln2_scale": ones(L, D),
-        "ln2_bias": zeros(L, D),
-        "w_up": norm(L, D, F),
-        "b_up": zeros(L, F),
-        "w_down": resid(L, F, D),
-        "b_down": zeros(L, D),
+        "wte": {**norm(V, D), "axes": ("vocab", "embed")},
+        "ln_f_scale": {**ones(D), "axes": ("embed",)},
+        "ln_f_bias": {**zeros(D), "axes": ("embed",)},
+        "ln1_scale": {**ones(L, D), "axes": ("layers", "embed")},
+        "ln1_bias": {**zeros(L, D), "axes": ("layers", "embed")},
+        "wq": {**norm(L, D, H, K), "axes": ("layers", "embed", "heads", "kv")},
+        "wk": {**norm(L, D, H, K), "axes": ("layers", "embed", "heads", "kv")},
+        "wv": {**norm(L, D, H, K), "axes": ("layers", "embed", "heads", "kv")},
+        "wo": {**resid(L, H, K, D), "axes": ("layers", "heads", "kv", "embed")},
+        "ln2_scale": {**ones(L, D), "axes": ("layers", "embed")},
+        "ln2_bias": {**zeros(L, D), "axes": ("layers", "embed")},
+        "w_up": {**norm(L, D, F), "axes": ("layers", "embed", "mlp")},
+        "b_up": {**zeros(L, F), "axes": ("layers", "mlp")},
+        "w_down": {**resid(L, F, D), "axes": ("layers", "mlp", "embed")},
+        "b_down": {**zeros(L, D), "axes": ("layers", "embed")},
     }
     if not cfg.tie_embeddings:
-        specs["lm_head"] = norm(D, V)
+        specs["lm_head"] = {**norm(D, V), "axes": ("embed", "vocab")}
     return specs
+
+
+def logical_axes(cfg: GPTConfig) -> dict[str, tuple]:
+    return {k: v["axes"] for k, v in param_specs(cfg).items()}
 
 
 def partition_rules() -> tuple:
@@ -290,6 +300,16 @@ def stack_block_params(params: dict[str, torch.Tensor],
     return stacked
 
 
+def unbind_layers(stacked: dict[str, torch.Tensor]) -> list[dict]:
+    """Per-layer leaf dicts of a stacked dict, by one ``unbind`` per
+    leaf: its backward stacks the layers' gradients once, where indexing
+    ``leaf[i]`` layer by layer would make each layer's gradient a
+    zero-filled copy of the whole leaf, summed L times."""
+    names = list(stacked)
+    return [dict(zip(names, ws))
+            for ws in zip(*(stacked[k].unbind(0) for k in names))]
+
+
 def _layer_norm(x: torch.Tensor, scale: torch.Tensor,
                 bias: torch.Tensor) -> torch.Tensor:
     """fp32 layer norm with the POPULATION variance and eps 1e-5, as the
@@ -316,9 +336,23 @@ def _rotary(x: torch.Tensor, rotary_dim: int, offset: int = 0) -> torch.Tensor:
     return _rotary_pos(x, rotary_dim, pos[None, :].expand(B, S))
 
 
-def _attention(q, k, v, cfg: GPTConfig):
+def causal_ring_attention(q, k, v, mesh):
+    """Causal ring attention of q, k, v [B, S, H, K] over the sp mesh
+    (``parallel/ring.py``): the flash kernels on CUDA tensors, plain
+    attention on CPU tensors (the reference's ``"flash" if backend ==
+    "tpu" else "xla"``, the card in the TPU's place)."""
+    from ray_tpu_torch.parallel.ring import ring_attention_sharded
+
+    if mesh is None:
+        raise ValueError("attn_impl='ring' requires forward(..., mesh=)")
+    impl = "flash" if q.device.type == "cuda" else "xla"
+    return ring_attention_sharded(q, k, v, mesh, causal=True, impl=impl)
+
+
+def _attention(q, k, v, cfg: GPTConfig, mesh=None):
     """Causal attention of q, k, v [B, S, H, K]: the flash kernels
-    ("flash") or the plain fp32-softmax version ("xla")."""
+    ("flash"), the plain fp32-softmax version ("xla"), or ring attention
+    over the sp ``mesh`` ("ring")."""
     from ray_tpu_torch.ops.attention import flash_attention, reference_attention
 
     if cfg.attn_impl == "flash":
@@ -326,14 +360,12 @@ def _attention(q, k, v, cfg: GPTConfig):
     if cfg.attn_impl == "xla":
         return reference_attention(q, k, v, causal=True)
     if cfg.attn_impl == "ring":
-        raise NotImplementedError(
-            "attn_impl='ring' (sequence-parallel ring attention) is not "
-            "ported yet")
+        return causal_ring_attention(q, k, v, mesh)
     raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
 
 
 def _block(x: torch.Tensor, layer: dict[str, torch.Tensor],
-           cfg: GPTConfig) -> torch.Tensor:
+           cfg: GPTConfig, mesh=None) -> torch.Tensor:
     """One pre-norm transformer block. x: [B, S, D]."""
     from ray_tpu_torch.models.decode import _attn_out, _mlp, _qkv
 
@@ -341,7 +373,7 @@ def _block(x: torch.Tensor, layer: dict[str, torch.Tensor],
     q, k, v = _qkv(h, layer, cfg)
     q = _rotary(q, cfg.rotary_dim)
     k = _rotary(k, cfg.rotary_dim)
-    x = x + _attn_out(_attention(q, k, v, cfg), layer, cfg)
+    x = x + _attn_out(_attention(q, k, v, cfg, mesh), layer, cfg)
     return _mlp(x, layer, cfg)
 
 
@@ -354,18 +386,18 @@ def _checkpointed(fn, *args):
 
 
 def forward_hidden(params: dict[str, torch.Tensor], tokens: torch.Tensor,
-                   cfg: GPTConfig) -> torch.Tensor:
+                   cfg: GPTConfig, mesh=None) -> torch.Tensor:
     """tokens: [B, S] int → final-norm hidden states [B, S, D] (cfg.dtype).
     The embedding gathers from the table cast to cfg.dtype, so its
-    gradient is a scatter-add in cfg.dtype, as in the JAX package."""
+    gradient is a scatter-add in cfg.dtype, as in the JAX package.
+    ``mesh`` (``parallel/ring.py::make_sp_mesh``) is read only when
+    cfg.attn_impl == "ring"."""
     x = params["wte"].to(cfg.dtype)[tokens.long()]
-    stacked = stack_block_params(params)
-    for i in range(cfg.n_layers):
-        layer = {k: w[i] for k, w in stacked.items()}
+    for layer in unbind_layers(stack_block_params(params)):
         if cfg.remat:
-            x = _checkpointed(_block, x, layer, cfg)
+            x = _checkpointed(_block, x, layer, cfg, mesh)
         else:
-            x = _block(x, layer, cfg)
+            x = _block(x, layer, cfg, mesh)
     return _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"])
 
 
@@ -383,9 +415,9 @@ def _logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params: dict[str, torch.Tensor], tokens: torch.Tensor,
-            cfg: GPTConfig) -> torch.Tensor:
+            cfg: GPTConfig, mesh=None) -> torch.Tensor:
     """tokens: [B, S] int → logits [B, S, V] (fp32)."""
-    return _logits(forward_hidden(params, tokens, cfg),
+    return _logits(forward_hidden(params, tokens, cfg, mesh),
                    _head_matrix(params, cfg))
 
 
@@ -397,7 +429,7 @@ def _ce_sum(x, head, targets):
 
 
 def loss_fn(params: dict[str, torch.Tensor], tokens: torch.Tensor,
-            targets: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
+            targets: torch.Tensor, cfg: GPTConfig, mesh=None) -> torch.Tensor:
     """Mean next-token cross-entropy. tokens/targets: [B, S] int.
 
     With cfg.loss_chunk set, the vocab projection and CE run chunk by
@@ -405,7 +437,7 @@ def loss_fn(params: dict[str, torch.Tensor], tokens: torch.Tensor,
     [B, chunk, V] logits block is live at a time, forward and backward
     (the chunk recomputes its logits in the backward; the head gradient
     accumulates across chunks)."""
-    x = forward_hidden(params, tokens, cfg)
+    x = forward_hidden(params, tokens, cfg, mesh)
     head = _head_matrix(params, cfg)
     B, S = tokens.shape
     if cfg.loss_chunk is None or S <= cfg.loss_chunk:
@@ -426,7 +458,8 @@ def num_params(cfg: GPTConfig) -> int:
     return sum(math.prod(s["shape"]) for s in param_specs(cfg).values())
 
 
-__all__ = ["GPTConfig", "param_specs", "partition_rules", "init_params",
+__all__ = ["GPTConfig", "param_specs", "logical_axes", "partition_rules",
+           "init_params",
            "QUANT_RULES", "quant_axes", "quantize_params", "dequant", "weight_view",
            "stack_block_params", "forward_hidden", "forward", "loss_fn",
            "num_params"]

@@ -3,8 +3,10 @@
 Counterpart of the serving half of ``ray_tpu/models/partition.py``:
 `KV_HEAD_AXIS`, `split_head_planes`/`concat_head_planes`, `TP_AXIS`,
 `PartitionRuleError`, `tree_path_names`, `match_partition_rules`,
-`make_tp_mesh` and `shard_by_rules`. The training half
-(``logical_to_spec``, ``tree_to_shardings``, ``shard_tree``) is not here.
+`make_tp_mesh` and `shard_by_rules`; and of the training half's
+logical-axis resolution, `logical_to_spec` (``tree_to_shardings`` and
+``shard_tree`` place arrays on a JAX mesh and are not ported: the port
+trains on one device).
 
 Models declare where each parameter shards once, as a rule table of
 ``(regex, dim)`` pairs over ``/``-joined tree paths
@@ -35,9 +37,11 @@ from typing import Any
 import numpy as np
 import torch
 
+from ray_tpu_torch.parallel.mesh import DEFAULT_LOGICAL_RULES, device_mesh
+
 __all__ = [
     "KV_HEAD_AXIS", "PartitionRuleError", "TP_AXIS", "concat_head_planes",
-    "make_tp_mesh", "match_partition_rules", "shard_by_rules",
+    "logical_to_spec", "make_tp_mesh", "match_partition_rules", "shard_by_rules",
     "split_head_planes", "tree_path_names",
 ]
 
@@ -179,17 +183,7 @@ def make_tp_mesh(tp: int, *, devices=None) -> list[torch.device]:
     first ``tp`` visible CUDA devices (raises when there are fewer); an
     explicit ``devices`` list may repeat a device (the shards then run
     in turn on it)."""
-    if devices is None:
-        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        devices = [torch.device("cuda", i) for i in range(n)]
-    if tp < 1:
-        raise ValueError(f"tp must be >= 1, got {tp}")
-    if tp > len(devices):
-        raise ValueError(
-            f"tp={tp} exceeds the {len(devices)} visible device(s); pass "
-            "an explicit device list (a device may repeat) to place "
-            "several shards on one device")
-    return [torch.device(d) for d in devices[:tp]]
+    return device_mesh(tp, axis="tp", devices=devices)
 
 
 def _shard(leaf: torch.Tensor, dim, s: int, tp: int,
@@ -219,3 +213,50 @@ def shard_by_rules(mesh, rules, tree: Any) -> list:
     return [_map(lambda path, leaf, s=s, dev=dev:
                  _shard(leaf, dim_of[path], s, tp, dev), tree)
             for s, dev in enumerate(mesh)]
+
+
+# --------------------------------------------------------------------------
+# Logical-axis resolution (the training half): models annotate each
+# parameter with logical axis names (``param_specs(cfg)[name]["axes"]``)
+# and a rule table maps them to mesh axes. The memory audit
+# (``train/memory_audit.py``) reads the result.
+
+
+def logical_to_spec(logical_axes: tuple[Any, ...],
+                    rules: tuple[tuple[str, Any], ...] = DEFAULT_LOGICAL_RULES,
+                    *, mesh=None) -> tuple:
+    """Map a tuple of logical axis names to a partition spec: a tuple
+    with one entry per leading dimension, each None (whole), a mesh axis
+    name, or a tuple of names; trailing Nones are dropped, as the JAX
+    ``PartitionSpec`` of the same function drops them.
+
+    If ``mesh`` (anything with a ``shape`` dict of axis sizes) is given,
+    a mesh axis of size 1, or absent, resolves to None, so the same rules
+    work on one device and on many. A mesh axis is consumed by at most
+    one dimension of an array."""
+    table = dict(rules)
+    used: set[str] = set()
+    out: list[Any] = []
+    for ax in logical_axes:
+        mapped = table.get(ax) if ax is not None else None
+        if mapped is None:
+            out.append(None)
+            continue
+        axes = (mapped,) if isinstance(mapped, str) else tuple(mapped)
+        kept = []
+        for m in axes:
+            if m in used:
+                continue
+            if mesh is not None and mesh.shape.get(m, 1) == 1:
+                continue
+            kept.append(m)
+            used.add(m)
+        if not kept:
+            out.append(None)
+        elif len(kept) == 1:
+            out.append(kept[0])
+        else:
+            out.append(tuple(kept))
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)

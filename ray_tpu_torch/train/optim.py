@@ -1,11 +1,15 @@
-"""AdamW with optax's semantics (PyTorch).
+"""AdamW and Adafactor with optax's semantics (PyTorch).
 
-Counterpart of ``optax.adamw`` as the JAX package's train step uses it
-(``bench.py``: ``adamw(3e-4, weight_decay=0.1, mu_dtype=bfloat16)``).
-The port may not import optax, and ``torch.optim.AdamW`` cannot keep the
-first moment in bf16, so this is an init/update pair that follows
-optax 0.2.6's ``scale_by_adam`` → ``add_decayed_weights`` →
-``scale_by_learning_rate`` chain step by step:
+Counterparts of ``optax.adamw`` and ``optax.adafactor`` as the JAX
+package's train step uses them (``bench.py``: ``adamw(3e-4,
+weight_decay=0.1, mu_dtype=bfloat16)``; ``BENCH_OPT=adafactor`` and
+``adafactor_sr``: ``adafactor(3e-4)``). The port may not import optax,
+and ``torch.optim`` has neither a bf16 first moment nor optax's
+Adafactor, so each is an init/update pair that follows optax 0.2.6 step
+by step.
+
+`adamw`: ``scale_by_adam`` → ``add_decayed_weights`` →
+``scale_by_learning_rate``:
 
 - the new first moment ``(1 - b1)·g + b1·mu`` is computed from the stored
   one, used for the update, and only then cast to ``mu_dtype``. As the
@@ -17,12 +21,48 @@ optax 0.2.6's ``scale_by_adam`` → ``add_decayed_weights`` →
 - bias correction counts from 1, ``1 - b**count`` in fp32;
 - ``eps`` is added after the square root;
 - weight decay applies to every leaf (no mask), and the update is
-  ``-lr·(m̂/(√v̂ + eps) + wd·p)``, added to p in p's dtype.
+  ``-lr·(m̂/(√v̂ + eps) + wd·p)``.
 
-Parameters, gradients and moments are dicts of tensors keyed alike. The
-state's tensors are updated in place (the counterpart of donating the
-JAX state); ``update`` returns the updates, ``apply_updates`` adds them
-to the parameters in place.
+`adafactor`: ``scale_by_factored_rms`` → ``clip_by_block_rms`` →
+``scale_by_learning_rate`` → ``scale_by_param_block_rms`` (when
+``multiply_by_parameter_scale``) → ``scale(-1)``, no momentum, no weight
+decay:
+
+- a leaf's second moment is factored over its two largest dims, chosen
+  by ``np.argsort`` of its shape (so ties resolve as optax resolves
+  them), when the second largest is at least ``min_dim_size_to_factor``;
+  otherwise it is kept whole;
+- the decay is ``1 - (count + 1)^-decay_rate`` in fp32, from step 0;
+- the moments are computed in fp32 and stored in the parameter's dtype
+  each step (bf16 masters have bf16 moments), and the update is formed
+  from the stored (rounded) moments, as optax forms it. As the jitted
+  JAX step computes it, an unfactored moment's factor ``v^-0.5`` is
+  taken in fp32 (XLA keeps the fused expression's excess precision),
+  while the factored row and column factors are rounded to the moment's
+  dtype (a bf16 master's factors then differ from XLA's in the last bit
+  now and then: the backends' rsqrt differ);
+- the update's block RMS (for the clip) and the parameter's block RMS
+  (``max(rms(p), 1e-3)``, for the scale) are taken over the whole leaf.
+
+A stacked leaf ([L, ...], dim 0 not factored) is walked one layer slice
+at a time, so no whole-leaf fp32 temporary is made beyond the gradient
+itself: at ``llama3_8b`` one fp32 copy of ``w_gate`` is 7.5 GB. The two
+whole-leaf RMS values take a first pass over the slices (which also
+updates the moments); the second pass recomputes each slice's scaled
+update from the stored moments (bit for bit the first pass's) and hands
+it out. So the slicing changes only the order of the fp32 sums of the
+two RMS values. Adafactor's updates are therefore lazy: ``updates[k]``
+is an iterable of ``(index, update)`` pairs, ``index`` selecting a
+slice of the leaf (``Ellipsis`` for the whole leaf), and the leaf's
+moments are updated when its update is first iterated; consume every
+update once (``apply_updates``, ``low_precision.sr_apply_updates``)
+before the next call. AdamW's updates are whole tensors.
+
+Parameters, gradients and moments are dicts of tensors keyed alike
+(the gradients any mapping). The state's tensors are updated in place
+(the counterpart of donating the JAX state); ``apply_updates`` adds the
+updates to the parameters in place, as ``optax.apply_updates`` adds
+them: ``p + u`` in the promoted dtype, cast to p's.
 """
 
 from __future__ import annotations
@@ -30,6 +70,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -92,13 +133,162 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
     return GradientTransformation(init, update)
 
 
-def apply_updates(params: dict[str, torch.Tensor],
-                  updates: dict[str, torch.Tensor]) -> None:
-    """p += u in place, in p's dtype (optax.apply_updates without the
-    copy)."""
+@dataclasses.dataclass
+class FactoredState:
+    """optax's ``FactoredState``: per leaf, the row and column moments
+    of a factored leaf (``v`` a [1] placeholder) or the whole moment
+    ``v`` of an unfactored one (``v_row``, ``v_col`` placeholders)."""
+    count: int
+    v_row: dict[str, torch.Tensor]
+    v_col: dict[str, torch.Tensor]
+    v: dict[str, torch.Tensor]
+
+
+def _factored_dims(shape: tuple, min_dim_size_to_factor: int):
+    """optax's ``_factored_dims``: (d1, d0), the second largest and the
+    largest dim by ``np.argsort`` of the shape, or None."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _mean(x: torch.Tensor, dim: int, keepdim: bool = False) -> torch.Tensor:
+    """jnp.mean's arithmetic: an fp32 sum, divided, cast to x's dtype
+    (torch's own bf16 mean rounds twice)."""
+    return x.float().mean(dim=dim, keepdim=keepdim).to(x.dtype)
+
+
+def _layer_slices(shape: tuple, dims):
+    """The slices a leaf is walked in: one per index of dim 0 when dim 0
+    is not factored (a stacked leaf), else the whole leaf; and the
+    factored dims within a slice."""
+    if len(shape) >= 2 and (dims is None or 0 not in dims):
+        return range(shape[0]), None if dims is None else (dims[0] - 1,
+                                                           dims[1] - 1)
+    return (Ellipsis,), dims
+
+
+def adafactor(learning_rate: float, min_dim_size_to_factor: int = 128,
+              decay_rate: float = 0.8, decay_offset: int = 0,
+              multiply_by_parameter_scale: bool = True,
+              clipping_threshold: float | None = 1.0,
+              eps: float = 1e-30) -> GradientTransformation:
+    """optax.adafactor(learning_rate, min_dim_size_to_factor, decay_rate,
+    decay_offset, multiply_by_parameter_scale, clipping_threshold,
+    momentum=None, weight_decay_rate=None, eps, factored=True) with a
+    constant learning rate; the defaults are optax's. See the module
+    docstring for the lazy, sliced updates."""
+
+    def init(params: dict[str, torch.Tensor]) -> FactoredState:
+        state = FactoredState(count=0, v_row={}, v_col={}, v={})
+        with torch.no_grad():
+            for k, p in params.items():
+                z = lambda shape: torch.zeros(shape, dtype=p.dtype,
+                                              device=p.device)
+                dims = _factored_dims(tuple(p.shape), min_dim_size_to_factor)
+                if dims is None:
+                    state.v_row[k], state.v_col[k] = z(1), z(1)
+                    state.v[k] = z(p.shape)
+                else:
+                    d1, d0 = dims
+                    state.v_row[k] = z(np.delete(p.shape, d0).tolist())
+                    state.v_col[k] = z(np.delete(p.shape, d1).tolist())
+                    state.v[k] = z(1)
+        return state
+
+    def leaf_update(k, grads, state, param, decay, keep):
+        """The leaf's update, slice by slice (a generator: see above)."""
+        g = grads[k]
+        p = param.detach()
+        dtype = p.dtype
+        dims = _factored_dims(tuple(p.shape), min_dim_size_to_factor)
+        idxs, sdims = _layer_slices(tuple(p.shape), dims)
+
+        def scaled(i):
+            """The factored-rms update of slice i from the stored moments."""
+            gi = g[i]
+            if sdims is None:
+                v = state.v[k][i]
+                return (gi * v.float() ** -0.5).to(
+                    torch.promote_types(gi.dtype, v.dtype))
+            d1, d0 = sdims
+            vr, vc = state.v_row[k][i], state.v_col[k][i]
+            rd1 = d1 - 1 if d1 > d0 else d1
+            row = (vr / _mean(vr, rd1, keepdim=True)) ** -0.5
+            return gi * row.unsqueeze(d0) * (vc ** -0.5).unsqueeze(d1)
+
+        usq = torch.zeros((), dtype=torch.float32, device=p.device)
+        psq = torch.zeros((), dtype=torch.float32, device=p.device)
+        for i in idxs:                     # pass 1: moments, the two sums
+            gi = g[i]
+            gsq = gi * gi + eps
+            if sdims is None:
+                v = state.v[k][i]
+                v.copy_(decay * v.float() + keep * gsq.float())
+            else:
+                d1, d0 = sdims
+                for vv, axis in ((state.v_row[k][i], d0),
+                                 (state.v_col[k][i], d1)):
+                    vv.copy_(decay * vv.float()
+                             + keep * _mean(gsq, axis).float())
+            u = scaled(i)
+            usq += (u * u).float().sum()
+            psq += (p[i] * p[i]).float().sum()
+        n = p.numel()
+        clip = None
+        if clipping_threshold is not None:
+            rms = torch.sqrt((usq / n).to(u.dtype))
+            clip = torch.clamp(rms / clipping_threshold, min=1.0)
+        pscale = None
+        if multiply_by_parameter_scale:
+            prms = torch.sqrt((psq / n).to(dtype))
+            pscale = torch.where(prms <= 1e-3, torch.full_like(prms, 1e-3),
+                                 prms)
+        for i in idxs:                     # pass 2: the update, slice by slice
+            u = scaled(i)
+            if clip is not None:
+                u = u / clip
+            u = u * learning_rate
+            if pscale is not None:
+                u = u * pscale
+            yield i, -u
+
+    def update(grads, state: FactoredState, params):
+        # The decay of this step, in fp32 as optax's _decay_rate_pow.
+        t = torch.tensor(state.count - decay_offset + 1, dtype=torch.float32)
+        decay_t = 1.0 - t ** (-decay_rate)
+        decay, keep = float(decay_t), float(1.0 - decay_t)
+        updates = {k: leaf_update(k, grads, state, params[k], decay, keep)
+                   for k in grads}
+        state.count += 1
+        return updates, state
+
+    return GradientTransformation(init, update)
+
+
+def update_slices(u):
+    """(index, update) pairs of one leaf's update: a tensor is one pair
+    over the whole leaf; a lazy adafactor update yields its slices."""
+    if isinstance(u, torch.Tensor):
+        return ((Ellipsis, u),)
+    return u
+
+
+def apply_updates(params: dict[str, torch.Tensor], updates) -> None:
+    """p += u in place, as optax.apply_updates computes it (``p + u`` in
+    the promoted dtype, cast to p's), slice by slice for a lazy update."""
     with torch.no_grad():
         for k, u in updates.items():
-            params[k].add_(u.to(params[k].dtype))
+            for i, us in update_slices(u):
+                p = params[k][i]
+                if us.dtype == p.dtype:
+                    p.add_(us)
+                else:
+                    p.copy_(p + us)
 
 
-__all__ = ["adamw", "apply_updates", "AdamState", "GradientTransformation"]
+__all__ = ["adamw", "adafactor", "apply_updates", "update_slices",
+           "AdamState", "FactoredState", "GradientTransformation"]

@@ -16,9 +16,11 @@ engines (float and int8) on the decode kernel against the one-shot
 gather engine and the dense engine, a drain and resume round trip
 (dense and chunked), a tp=2 kernel engine (both shards on the card)
 against the tp=1 gather engine and both paged kernels at a tp shard's
-heads (16, 8, 6), and one
+heads (16, 8, 6), one
 gpt2_124m-wide training step with
-``attn_impl="flash"`` against ``"xla"``. The file imports neither JAX nor the JAX package, and the
+``attn_impl="flash"`` against ``"xla"``, ring attention over sp = 4 on
+the card against full flash attention, and the stochastic rounding's
+mean with a generator on the card. The file imports neither JAX nor the JAX package, and the
 repo's conftest does, so run it with::
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -1003,3 +1005,51 @@ def test_gpt_train_step_flash_matches_xla_on_the_card(cuda):
     assert (fa.flash_fwd.launches, fa.flash_dq.launches,
             fa.flash_dkv.launches) == (12, 6, 6)
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_attention_matches_full_flash_on_the_card(cuda, causal):
+    """Ring attention over sp = 4 with every shard on the card, against
+    full flash attention on the same bf16 inputs: outputs and the
+    gradients of sum(o·cos o) (the ring feeds the dq and dkv kernels an
+    lse cotangent) each within 2e-2 of the whole tensor, relative; the
+    causal ring launches 4 diagonal and 6 full chunk forwards and skips
+    the 6 masked steps."""
+    from ray_tpu_torch.parallel.ring import make_sp_mesh, ring_attention_sharded
+
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 512, 4, 64)).astype(
+        np.float32)).to(cuda, torch.bfloat16).requires_grad_(True)
+        for _ in range(3))
+    mesh = make_sp_mesh(4, devices=[cuda] * 4)
+    o = ring_attention_sharded(q, k, v, mesh, causal=causal, impl="flash")
+    assert fa.flash_fwd.launches == (10 if causal else 16)
+    ref = fa.flash_attention(q, k, v, causal=causal)
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    assert rel(o, ref) <= 2e-2
+    g = torch.autograd.grad((o.float() * torch.cos(o.float())).sum(),
+                            (q, k, v))
+    g_ref = torch.autograd.grad((ref.float() * torch.cos(ref.float())).sum(),
+                                (q, k, v))
+    for a, b in zip(g, g_ref):
+        assert rel(a, b) <= 2e-2
+
+
+def test_stochastic_round_mean_on_the_card(cuda):
+    """The SR rounding with a generator on the card: representable
+    values never move; the mean over 400 generators within 5e-3 of x."""
+    from ray_tpu_torch.train.low_precision import stochastic_round_bf16
+
+    y = torch.tensor([1.0, 0.5, -2.0, 0.0], device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    assert torch.equal(stochastic_round_bf16(y, gen).float(), y)
+    x = torch.tensor([1.0 + 1 / 512, 3e-4, -2.5e-5], device=cuda)
+    acc = torch.zeros(3, dtype=torch.float64, device=cuda)
+    for i in range(400):
+        gen = torch.Generator(device=cuda).manual_seed(i)
+        acc += stochastic_round_bf16(x, gen).double()
+    rel = ((acc / 400 - x.double()).abs() / x.double().abs()).max()
+    assert float(rel) < 5e-3

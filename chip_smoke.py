@@ -17,6 +17,8 @@
                           # the KV object tier: handoff, drain, resharding
     python3 chip_smoke.py --only kernels,train,train_ring,train_llama
                           # long context (ring) and llama3_8b on one card
+    python3 chip_smoke.py --only kernels,train,train_moe,train_pipeline
+                          # moe_8x350m with ep, and GPipe, on one card
 
 Phases, one JSON line each (the whole record also goes to
 build/chip_smoke.json):
@@ -251,6 +253,42 @@ build/chip_smoke.json):
    dkv launches per step, every parameter still bf16, the loss finite
    and falling; peak memory beside the audit, step time, tokens/s, MFU,
    one profiled step and the optimizer's device time against it.
+   train_moe: the flash kernels checked and timed at [8, 1024, 16, 64]
+   bf16 causal; then build_training(moe_8x350m(max_seq=1024,
+   attn_impl="flash"), the train phase's adamw, model=moe_gpt) from seed
+   0 (full width and depth: 24 layers, d 1024, 16 heads of 64, 8 experts
+   of d_ff 4096, capacity factor 1.5, vocab 50304, remat) on a seeded
+   [8, 1024] batch: layer 0's gates (G 8192, E 8) through _top2_dispatch
+   on the card and on the host, bitwise equal, at C 3072 and at factor
+   0.5 (C 1024, tokens dropped); moe_mlp in fp32 on layer 0's experts
+   and a seeded [1, 512, 1024] input against a plain top-2 loop within
+   1e-4 relative, which the second expert's combine weight zeroed must
+   exceed; one step of "flash" against "xla" with the plain run routed
+   as the flash run routes, under the train phase's loss and attention
+   limits and 3e-2 on the whole gradient (24 layers), which a zeroed dq
+   must fail; the loss with the expert stacks placed on an ep = 4
+   mesh (every shard on the card), routed as ep = 1 routes, within 1e-3
+   of ep = 1's, which a dropped shard partial must exceed; the held
+   steps again with fp32 activations and gradients, flash against plain
+   and ep = 4 against ep = 1, within 1e-3 on the whole gradient (and on
+   each layer's expert stacks for ep), which a zeroed dq and a dropped
+   shard must exceed; 4 steps (one warm-up) with exactly
+   48 forward, 24 dq and 24 dkv launches per step, the loss falling;
+   step time, tokens/s, MFU on the active parameters, peak memory, one
+   profiled step, and the routing's device time (the dispatch
+   construction and the two routing einsums, forward, recompute and
+   backward, per call by device_ms) and FLOPs beside it.
+   train_pipeline: the flash kernels checked and timed at [1, 1024, 12,
+   64] bf16 causal (one microbatch); then build_pipeline_training(
+   gpt2_124m(max_seq=1024, remat=True, attn_impl="flash"), the same
+   adamw, mesh of pp = 4 with every stage on the card, 8 microbatches of
+   1) on the train phase's batch: the pipeline's loss and gradients
+   against the sequential step's on the same parameters under the train
+   phase's three limits, which an off-by-one schedule (each later stage
+   takes the previous microbatch's activation) must exceed; 4 steps with
+   exactly 192 forward, 96 dq and 96 dkv launches per step, the loss
+   falling; step time beside the train phase's, peak memory, one
+   profiled step (pp on one card buys nothing: the stages run in turn).
 8. with --ab OLD_CHECKOUT: the flash forward, dq and dkv and the float
    and int8 paged prefill and decode (timed shape and light load, with
    the wrapper's host µs) against an older checkout's kernels, in turns.
@@ -264,6 +302,7 @@ Without a CUDA device it exits 1 at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -294,12 +333,18 @@ from ray_tpu_torch.serve import kv_objects as tkvo
 from ray_tpu_torch.serve import llm as serve_llm
 from ray_tpu_torch.serve.llm import LLMEngine
 from ray_tpu_torch.models import llama
+from ray_tpu_torch.models import moe_gpt
+from ray_tpu_torch.ops import moe as tmoe
+from ray_tpu_torch.parallel import pipeline as tpipe
 from ray_tpu_torch.parallel import ring as tring
+from ray_tpu_torch.parallel.mesh import device_mesh
+from ray_tpu_torch.parallel.pipeline import split_microbatch_count
 from ray_tpu_torch.parallel.ring import make_sp_mesh
 from ray_tpu_torch.train import memory_audit
 from ray_tpu_torch.train.low_precision import sr_apply_updates
 from ray_tpu_torch.train.optim import adafactor, adamw
-from ray_tpu_torch.train.spmd import Fp32Leaves, build_training, make_train_step
+from ray_tpu_torch.train.spmd import (Fp32Leaves, build_pipeline_training,
+                                      build_training, make_train_step)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12            # dense tensor-core bf16
@@ -4170,11 +4215,11 @@ def train_batch_of(vocab, B, S, device, seed=0):
                  for a in (toks, tg))
 
 
-def loss_and_grads(cfg, params, batch, impl, mesh=None):
-    """One step's loss and gradients ({name: grad}) with ``impl`` (the sp
-    ``mesh`` for "ring")."""
-    loss = gpt.loss_fn(params, *batch,
-                       dataclasses.replace(cfg, attn_impl=impl), mesh)
+def loss_and_grads(cfg, params, batch, impl, mesh=None, model=gpt):
+    """One step's loss and gradients ({name: grad}) of ``model`` with
+    ``impl`` (the sp ``mesh`` for "ring")."""
+    loss = model.loss_fn(params, *batch,
+                         dataclasses.replace(cfg, attn_impl=impl), mesh)
     grads = torch.autograd.grad(loss, list(params.values()))
     return float(loss.detach()), dict(zip(params, grads))
 
@@ -4183,15 +4228,20 @@ def step_diff(loss, grads, loss_ref, ref):
     """The step's differences from the reference step's: |Δloss|, the
     relative difference of the whole gradient, and the largest over the
     attention weights (wq, wk, wv, wo) of one layer."""
-    rel = lambda a, b: float((a.float() - b.float()).norm() / b.float().norm())
     whole = torch.sqrt(sum((grads[n].float() - ref[n].float()).square().sum()
                            for n in ref))
     return {"loss_abs_diff": abs(loss - loss_ref),
             "grad_rel_err": float(whole / torch.sqrt(sum(
                 g.float().square().sum() for g in ref.values()))),
-            "attn_grad_rel_err": max(rel(grads[n][i], ref[n][i])
-                                     for n in ATTN_LEAVES
-                                     for i in range(ref[n].shape[0]))}
+            "attn_grad_rel_err": layer_rel_err(grads, ref, ATTN_LEAVES)}
+
+
+def layer_rel_err(grads, ref, leaves):
+    """The largest relative difference over the (layer, leaf) slices of
+    the stacked ``leaves``."""
+    rel = lambda a, b: float((a.float() - b.float()).norm() / b.float().norm())
+    return max(rel(grads[n][i], ref[n][i])
+               for n in leaves for i in range(ref[n].shape[0]))
 
 
 def planted_backwards(real):
@@ -4560,6 +4610,618 @@ def optimizer_device_time(cfg, params, opt_state, batch, opt):
     del grads
     return res
 
+# ---------------------------------------------------------------- MoE
+
+MOE_B, MOE_S, MOE_STEPS = 8, 1024, 3   # 3 timed steps after a warm-up
+# Per step with remat: 24 layers' flash forward twice (block and
+# recompute), dq and dkv once each.
+MOE_PER_STEP = {"flash_fwd": 48, "flash_dq": 24, "flash_dkv": 24}
+MOE_EP = 4
+# |loss(ep = 4) - loss(ep = 1)| on the same parameters and batch, bf16:
+# the four shards' bf16 partial outputs are rounded and summed where one
+# shard rounds the whole sum once (up to 2 extra bf16 roundings, u = 2^-8,
+# of each MoE output element), and the difference goes through 24 layers
+# into a mean over 8,192 tokens whose per-token changes have no common
+# sign: 1e-3. A dropped shard partial (a quarter of the experts' outputs
+# lost in every layer) must exceed it.
+MOE_EP_LOSS_TOL = 1e-3
+# moe_mlp in fp32 (TF32 off) against the plain top-2 loop, relative to
+# the whole output: fp32 reassociation over D = 1,024 and F = 4,096 sums
+# (~1e-6); the second expert's combine weight zeroed moves it by ~0.3.
+MOE_MLP_REL_TOL = 1e-4
+MOE_MLP_SLICE = (1, 512)
+# Flash against plain, routing held: the train phase's loss and attention
+# limits; the whole gradient's limit scaled to the depth. The bf16 noise
+# of the whole gradient between two attention paths grows with depth
+# (CPU rehearsals at full width: 0.0093 at 2 layers, 0.0113 at 4, 0.0130
+# at 6, spread evenly over every leaf), and the 24 layers read 0.0204 on
+# an H100, past the 2e-2 set for the train phase's 12 layers (where sound
+# runs read 0.010-0.015). A planted attention fault is
+# caught by the attention limit (a zeroed dq reads 1.0 there, 0.049 on
+# the whole gradient). That the 0.0204 is rounding, and no fault at the
+# full-width shapes, is read at full depth by the same held step with
+# fp32 activations (`moe_fp32_steps`): there it must fall under
+# MOE_F32_GRAD_TOL.
+MOE_GRAD_TOL = 3e-2
+# The held steps with fp32 activations and fp32 flash kernels (TF32 off),
+# flash against plain and ep = 4 against ep = 1, on the whole gradient
+# and, for ep, on each layer's expert stacks: what is left is fp32
+# reassociation (u = 2^-24) through 24 layers, expected near 1e-5; 1e-3
+# sits 20x under the bf16 step's reading and 50x under a zeroed dq's
+# whole-gradient reading, and a dropped ep shard zeroes a quarter of
+# every layer's expert gradients (a slice reading near 0.5).
+MOE_F32_GRAD_TOL = 1e-3
+MOE_EXPERT_LEAVES = ("moe_w_up", "moe_b_up", "moe_w_down", "moe_b_down")
+
+
+def joined_shards(tree, n, dim):
+    """Placed ``name@s`` leaves of ``n`` shards joined along ``dim``, the
+    axis they were split on."""
+    out = {k: v for k, v in tree.items() if "@" not in k}
+    for k in {k.partition("@")[0] for k in tree if "@" in k}:
+        out[k] = torch.cat([tree[f"{k}@{s}"] for s in range(n)], dim)
+    return out
+
+
+class _Captured(Exception):
+    """Raised by `first_gates` once it holds layer 0's gates."""
+
+
+def first_gates(cfg, params, batch):
+    """Layer 0's router gates [G, E] fp32 as the model computes them on
+    the card (the first `_top2_dispatch` call of a forward, which stops
+    there)."""
+    real, got = tmoe._top2_dispatch, []
+
+    def capture(gates, capacity):
+        got.append(gates.detach().clone())
+        raise _Captured
+
+    tmoe._top2_dispatch = capture
+    try:
+        with torch.no_grad():
+            moe_gpt.loss_fn(params, *batch, cfg)
+    except _Captured:
+        pass
+    finally:
+        tmoe._top2_dispatch = real
+    return got[0]
+
+
+class HeldRouting:
+    """Routing held across runs of the same model. ``recording()`` keeps
+    the gates of each `_top2_dispatch` call in order; ``replaying()``
+    routes each call by the recorded gates' choices (experts, slots,
+    drops) with weights taken from the current gates as the real
+    dispatch takes them (bitwise the real combine when the gates are the
+    recorded ones), and counts the tokens whose top-2 experts the
+    current gates would change. Routing is a step function of the gates:
+    a token near a tie changes experts on one rounding, and under a
+    binding capacity every later token of that expert changes slot. Two
+    attention paths, or two ep sums, that differ by bf16 roundings then
+    route some tokens differently, and those tokens' outputs and
+    gradients differ wholesale. Held routing compares what the kernels
+    and the sums compute, not where that step fell."""
+
+    def __init__(self):
+        self.gates, self.index, self.flipped = [], 0, 0
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        real = tmoe._top2_dispatch
+        tmoe._top2_dispatch = lambda gates, capacity: fn(real, gates,
+                                                         capacity)
+        try:
+            yield self
+        finally:
+            tmoe._top2_dispatch = real
+
+    def recording(self):
+        self.gates = []
+
+        def record(real, gates, capacity):
+            self.gates.append(gates.detach().clone())
+            return real(gates, capacity)
+
+        return self._patched(record)
+
+    def replaying(self):
+        self.index, self.flipped = 0, 0
+
+        def replay(real, gates, capacity):
+            ref = self.gates[self.index]
+            self.index += 1
+            dispatch, _ = real(ref, capacity)
+            E = gates.shape[1]
+            top = lambda g: (g.argmax(-1), (g * (1.0 - F.one_hot(
+                g.argmax(-1), E).to(g.dtype))).argmax(-1))
+            (i1, i2), (n1, n2) = top(ref), top(gates.detach())
+            self.flipped += int(((i1 != n1) | (i2 != n2)).sum())
+            m1 = F.one_hot(i1, E).to(gates.dtype)
+            m2 = F.one_hot(i2, E).to(gates.dtype)
+            w1, w2 = (gates * m1).sum(-1), (gates * m2).sum(-1)
+            denom = torch.clamp(w1 + w2, min=1e-9)
+            weights = m1 * (w1 / denom)[:, None] + m2 * (w2 / denom)[:, None]
+            return dispatch, dispatch * weights[:, :, None]
+
+        return self._patched(replay)
+
+
+def routing_on_the_card(cfg, gates):
+    """`_top2_dispatch` on the card against the CPU port's on the same
+    gates, bitwise, at the configuration's capacity and at factor 0.5;
+    with the share of (token, choice) routes each drops."""
+    G = gates.shape[0]
+    out = {}
+    for factor in (cfg.capacity_factor, 0.5):
+        C = dataclasses.replace(cfg.moe_cfg(),
+                                capacity_factor=factor).capacity(G)
+        card = [t.cpu() for t in tmoe._top2_dispatch(gates, C)]
+        host = tmoe._top2_dispatch(gates.cpu(), C)
+        same = all(torch.equal(a, b) for a, b in zip(card, host))
+        out[f"factor {factor}"] = {
+            "capacity": C, "bitwise_equal": same,
+            "routes_dropped_share": 1.0 - float(card[0].sum()) / (2 * G)}
+        del card, host
+        if not same:
+            raise AssertionError(f"routing differs on the card: {out}")
+    return out
+
+
+def top2_loop(x, params):
+    """The plain top-2 mixture (the port's copy of the JAX test's
+    ``_dense_top2_reference``), token by token in fp32: gates from an
+    fp32 softmax, each token's two largest gates renormalized, each
+    expert's MLP with the tanh GELU; no capacity."""
+    xf = x.reshape(-1, x.shape[-1]).float()
+    gates = torch.softmax(xf @ params["wg"].float(), dim=-1)
+    top_w, top_e = torch.topk(gates, 2, dim=-1)
+    top_w = top_w / top_w.sum(-1, keepdim=True)
+    out = torch.zeros_like(xf)
+    for g in range(xf.shape[0]):
+        for w, e in zip(top_w[g], top_e[g].tolist()):
+            up = F.gelu(xf[g] @ params["w_up"][e].float()
+                        + params["b_up"][e].float(), approximate="tanh")
+            out[g] += w * (up @ params["w_down"][e].float()
+                           + params["b_down"][e].float())
+    return out.reshape(x.shape)
+
+
+def second_expert_dropped(real):
+    """A planted fault: each token's smaller combine weight (its second
+    expert's) set to 0."""
+    def dispatch(gates, capacity):
+        d, c = real(gates, capacity)
+        top = c.amax(dim=(1, 2), keepdim=True)
+        return d, torch.where(c == top, c, torch.zeros_like(c))
+
+    return dispatch
+
+
+def moe_mlp_vs_loop(cfg, params, device):
+    """moe_mlp (fp32, capacity unconstrained: factor E / 2 gives C = G)
+    on layer 0's experts and a seeded [1, 512, 1024] input against
+    `top2_loop`; the planted fault must exceed the limit."""
+    mcfg = dataclasses.replace(cfg.moe_cfg(), dtype=torch.float32,
+                               capacity_factor=cfg.n_experts / 2)
+    layer = {k.removeprefix("moe_"): params[k][0].detach()
+             for k in ("wg", "moe_w_up", "moe_b_up", "moe_w_down",
+                       "moe_b_down")}
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.normal(size=(*MOE_MLP_SLICE, cfg.d_model))
+                         .astype(np.float32)).to(device)
+    ref = top2_loop(x, layer)
+    rel = lambda y: float((y - ref).norm() / ref.norm())
+    with torch.no_grad():
+        err = rel(tmoe.moe_mlp(x, layer, mcfg)[0])
+        real = tmoe._top2_dispatch
+        tmoe._top2_dispatch = second_expert_dropped(real)
+        try:
+            planted = rel(tmoe.moe_mlp(x, layer, mcfg)[0])
+        finally:
+            tmoe._top2_dispatch = real
+    res = {"rel_err": err, "tol": MOE_MLP_REL_TOL,
+           "planted_second_expert_dropped_rel_err": planted}
+    if not err <= MOE_MLP_REL_TOL < planted:
+        raise AssertionError(f"moe_mlp against the plain loop: {res}")
+    return res
+
+
+def dropped_shard(real):
+    """A planted fault in the ep sum: shard 1's partial lost."""
+    return lambda parts, device: real(parts[:1] + parts[2:], device)
+
+
+def ep_check(cfg, params, batch, device):
+    """The loss with the expert stacks placed on an ep = 4 mesh (every
+    shard on the card) against ep = 1 on the same parameters, routed as
+    ep = 1 routes (`HeldRouting`), and by their own routing; the planted
+    dropped shard must exceed the limit. The gradients are held in
+    `moe_fp32_steps`."""
+    mesh = device_mesh(MOE_EP, axis="ep", devices=[device] * MOE_EP)
+    held = HeldRouting()
+    with torch.no_grad():
+        placed = partition.place_on_axis(
+            {k: v.detach() for k, v in params.items()},
+            moe_gpt.logical_axes(cfg), mesh, "ep")
+        loss = lambda p, m: float(moe_gpt.loss_fn(p, *batch, cfg,
+                                                   ep_mesh=m))
+        with held.recording():
+            one = loss(params, None)
+        free = loss(placed, mesh)
+        with held.replaying():
+            four = loss(placed, mesh)
+        flipped = held.flipped
+        with dropped_ep_shard(), held.replaying():
+            planted = loss(placed, mesh)
+    del placed
+    torch.cuda.empty_cache()
+    res = {"loss_ep1": one, "loss_ep4": four, "loss_abs_diff": abs(four - one),
+           "tol": MOE_EP_LOSS_TOL, "routing": "held to ep=1's",
+           "routes_flipped_ep4": flipped,
+           "loss_ep4_own_routing": free,
+           "loss_abs_diff_own_routing": abs(free - one),
+           "planted_dropped_shard_loss_abs_diff": abs(planted - one)}
+    if not abs(four - one) <= MOE_EP_LOSS_TOL < abs(planted - one):
+        raise AssertionError(f"ep=4 against ep=1: {res}")
+    return res
+
+
+@contextlib.contextmanager
+def dropped_ep_shard():
+    """`moe_mlp`'s ep sum with the planted `dropped_shard` fault."""
+    real = tmoe.reduce_shards
+    tmoe.reduce_shards = dropped_shard(real)
+    try:
+        yield
+    finally:
+        tmoe.reduce_shards = real
+
+
+def moe_fp32_steps(cfg, params, batch, device):
+    """The held steps again with fp32 activations (fp32 flash kernels,
+    TF32 off), loss and gradients, at full width and depth: flash
+    against plain attention (and a zeroed dq against plain), and the
+    expert stacks on an ep = 4 mesh against ep = 1 (and a dropped shard
+    against ep = 1), every run routed as the fp32 flash ep = 1 run
+    routes. Where the bf16 step's gaps are rounding, these fall under
+    MOE_F32_GRAD_TOL, and the planted faults stay over it."""
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    mesh = device_mesh(MOE_EP, axis="ep", devices=[device] * MOE_EP)
+    held = HeldRouting()
+
+    def step(p, impl, ep_mesh=None):
+        loss = moe_gpt.loss_fn(p, *batch, dataclasses.replace(
+            cfg32, attn_impl=impl), ep_mesh=ep_mesh)
+        # A dropped shard leaves its leaves out of the graph: zeros.
+        grads = torch.autograd.grad(loss, list(p.values()), allow_unused=True,
+                                    materialize_grads=True)
+        return float(loss.detach()), joined_shards(
+            dict(zip(p, grads)), MOE_EP, 1)
+
+    with held.recording():
+        loss_f, g_f = step(params, "flash")
+    with held.replaying():
+        loss_x, g_x = step(params, "xla")
+    flash = {"loss_flash": loss_f, "loss_xla": loss_x,
+             **step_diff(loss_f, g_f, loss_x, g_x),
+             "routes_flipped": held.flipped}
+    real = fa.flash_bwd
+    fa.flash_bwd = planted_backwards(real)["dq zeroed"]
+    try:
+        with held.replaying():
+            loss_p, g_p = step(params, "flash")
+    finally:
+        fa.flash_bwd = real
+    flash["planted_dq_zeroed"] = step_diff(loss_p, g_p, loss_x, g_x)
+    del g_x, g_p
+    placed = {k: v.requires_grad_(True) for k, v in partition.place_on_axis(
+        {k: v.detach() for k, v in params.items()},
+        moe_gpt.logical_axes(cfg), mesh, "ep").items()}
+    with held.replaying():
+        loss_4, g_4 = step(placed, "flash", mesh)
+    ep = {"loss_ep1": loss_f, "loss_ep4": loss_4,
+          **step_diff(loss_4, g_4, loss_f, g_f),
+          "expert_grad_rel_err": layer_rel_err(g_4, g_f, MOE_EXPERT_LEAVES),
+          "routes_flipped": held.flipped}
+    del g_4
+    with dropped_ep_shard(), held.replaying():
+        loss_d, g_d = step(placed, "flash", mesh)
+    ep["planted_dropped_shard"] = {
+        **step_diff(loss_d, g_d, loss_f, g_f),
+        "expert_grad_rel_err": layer_rel_err(g_d, g_f, MOE_EXPERT_LEAVES)}
+    del placed, g_f, g_d
+    torch.cuda.empty_cache()
+    res = {"activations": "fp32", "tol": MOE_F32_GRAD_TOL,
+           "routing": "held to the fp32 flash ep=1 run's",
+           "flash_vs_xla": flash, "ep4_vs_ep1": ep}
+    tol = MOE_F32_GRAD_TOL
+    if not (flash["grad_rel_err"] <= tol < flash["planted_dq_zeroed"][
+            "grad_rel_err"] and max(ep["grad_rel_err"],
+                                    ep["expert_grad_rel_err"]) <= tol
+            < ep["planted_dropped_shard"]["expert_grad_rel_err"]):
+        raise AssertionError(f"fp32 moe steps: {res}")
+    return res
+
+
+def routing_timings(cfg, gates):
+    """Device time of one layer's routing at the step's shapes: the
+    dispatch construction (`_top2_dispatch` and the two bf16 casts) and
+    its backward to the gates, the two routing einsums (gec,gd->ecd and
+    gec,ecd->gd) and their backward products (dx of the first; dcombine
+    and dexpert-output of the second), each by `device_ms`; per step
+    they run 2 x L (forward, remat's recompute) and L (backward) times."""
+    G, E, D = gates.shape[0], cfg.n_experts, cfg.d_model
+    C = cfg.moe_cfg().capacity(G)
+    dt = cfg.dtype
+    g = gates.clone().requires_grad_(True)
+
+    def build():
+        d, c = tmoe._top2_dispatch(g, C)
+        return d.to(dt), c.to(dt)
+
+    with torch.no_grad():
+        disp, comb = build()
+    rng = np.random.default_rng(13)
+    mk = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(gates.device, dt).requires_grad_(True)
+    xd, down, comb = mk(G, D), mk(E, C, D), comb.clone().requires_grad_(True)
+    dy, dein = mk(G, D).detach(), mk(E, C, D).detach()
+    dc = torch.ones((G, E, C), device=gates.device, dtype=dt)
+    fwd = {"dispatch_einsum": lambda: torch.einsum("gec,gd->ecd", disp, xd),
+           "combine_einsum": lambda: torch.einsum("gec,ecd->gd", comb, down)}
+    with torch.no_grad():
+        ms = {k: device_ms(f, iters=10) for k, f in fwd.items()}
+        ms["top2_dispatch"] = device_ms(build, iters=10)
+    y1, y2 = fwd["dispatch_einsum"](), fwd["combine_einsum"]()
+    ms["dispatch_einsum_bwd"] = device_ms(lambda: torch.autograd.grad(
+        y1, xd, dein, retain_graph=True), iters=10)
+    ms["combine_einsum_bwd"] = device_ms(lambda: torch.autograd.grad(
+        y2, (comb, down), dy, retain_graph=True), iters=10)
+    built = build()[1]
+    ms["top2_dispatch_bwd"] = device_ms(lambda: torch.autograd.grad(
+        built, g, dc, retain_graph=True), iters=10)
+    L = cfg.n_layers
+    per_step = {k: v * (L if k.endswith("_bwd") else 2 * L)
+                for k, v in ms.items()}
+    einsum_flops = 2.0 * G * E * C * D
+    einsums_per_step = (2 * 2 + 1 + 2) * L     # fwd x2 (remat), bwd 1 + 2
+    return {"shape": f"G={G} E={E} C={C} D={D} {str(dt)[6:]}",
+            "ms_per_call": ms, "ms_per_step": per_step,
+            "einsum_ms_per_step": sum(v for k, v in per_step.items()
+                                      if "einsum" in k),
+            "dispatch_build_ms_per_step": per_step["top2_dispatch"]
+            + per_step["top2_dispatch_bwd"],
+            "einsum_flops_per_call": einsum_flops,
+            "einsum_tflop_per_step": einsums_per_step * einsum_flops / 1e12}
+
+
+def moe_flops_per_token(cfg) -> float:
+    """`train_flops_per_token`'s count for MoE-GPT on the ACTIVE matmul
+    parameters: the tied head once, 4 d^2 of attention, the router's d E
+    and two of the E experts' 2 d d_ff per layer; plus 12 L d S. The
+    routing einsums are not model FLOPs (`routing_timings` counts them)."""
+    n = cfg.vocab_size * cfg.d_model + cfg.n_layers * (
+        4 * cfg.d_model * cfg.d_model + cfg.d_model * cfg.n_experts
+        + 2 * 2 * cfg.d_model * cfg.d_ff)
+    return 6.0 * n + 12 * cfg.n_layers * cfg.d_model * cfg.max_seq
+
+
+def moe_flash_vs_xla(cfg, params, batch):
+    """One step with flash attention against plain attention from the
+    same parameters, the plain run routed as the flash run routes
+    (`HeldRouting`), under the train phase's loss and attention limits
+    and MOE_GRAD_TOL on the whole gradient; a zeroed dq must fail the
+    attention limit. The plain run's loss by its own routing is printed
+    beside."""
+    held = HeldRouting()
+    with held.recording():
+        loss_f, g_f = loss_and_grads(cfg, params, batch, "flash",
+                                     model=moe_gpt)
+    with held.replaying():
+        loss_x, g_x = loss_and_grads(cfg, params, batch, "xla",
+                                     model=moe_gpt)
+    res = {"loss_flash": loss_f, "loss_xla": loss_x,
+           **step_diff(loss_f, g_f, loss_x, g_x),
+           "loss_tol": TRAIN_LOSS_TOL, "grad_tol": MOE_GRAD_TOL,
+           "attn_grad_tol": TRAIN_ATTN_GRAD_TOL,
+           "routing": "xla held to flash's", "routes_flipped": held.flipped,
+           "route_calls": len(held.gates)}
+    del g_f
+    real = fa.flash_bwd
+    fa.flash_bwd = planted_backwards(real)["dq zeroed"]
+    try:
+        with held.replaying():
+            loss_p, g_p = loss_and_grads(cfg, params, batch, "flash",
+                                         model=moe_gpt)
+    finally:
+        fa.flash_bwd = real
+    res["planted_dq_zeroed"] = step_diff(loss_p, g_p, loss_x, g_x)
+    del g_p, g_x
+    with torch.no_grad():
+        own = float(moe_gpt.loss_fn(params, *batch, dataclasses.replace(
+            cfg, attn_impl="xla")))
+    res.update(loss_xla_own_routing=own,
+               loss_abs_diff_own_routing=abs(own - loss_f))
+    torch.cuda.empty_cache()
+    if not (res["loss_abs_diff"] <= TRAIN_LOSS_TOL
+            and res["grad_rel_err"] <= MOE_GRAD_TOL
+            and res["attn_grad_rel_err"] <= TRAIN_ATTN_GRAD_TOL):
+        raise AssertionError(f"moe flash vs xla step disagree: {res}")
+    if not res["planted_dq_zeroed"]["attn_grad_rel_err"] > \
+            TRAIN_ATTN_GRAD_TOL:
+        raise AssertionError(f"a zeroed dq passes the check: {res}")
+    return res
+
+
+def phase_train_moe(device, errs):
+    """The MoE-GPT family on the training path: moe_8x350m at full width
+    and depth, S 1024, B 8, bf16 over fp32 parameters, remat, flash
+    attention, adamw(3e-4, wd 0.1, mu bf16), random weights from seed 0."""
+    t_phase = time.perf_counter()
+    shapes = {"moe": flash_shape_timings(device, errs, "moe_8x350m", MOE_B,
+                                         MOE_S, 16, 64, True, 10)[0]}
+    emit({"phase": "flash_kernel_timing_moe", **{
+        f"{k} {tag}": v for tag, t in shapes.items() for k, v in t.items()}})
+    cfg = moe_gpt.MoEGPTConfig.moe_8x350m(max_seq=MOE_S, attn_impl="flash")
+    opt = adamw(3e-4, weight_decay=0.1, mu_dtype=torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params, opt_state, step = build_training(cfg, opt, gen, device,
+                                             model=moe_gpt)
+    batch = train_batch_of(cfg.vocab_size, MOE_B, MOE_S, device)
+    gates = first_gates(cfg, params, batch)
+    routing = routing_on_the_card(cfg, gates)
+    mlp = moe_mlp_vs_loop(cfg, params, device)
+    compare = moe_flash_vs_xla(cfg, params, batch)
+    ep = ep_check(cfg, params, batch, device)
+    fp32 = moe_fp32_steps(cfg, params, batch, device)
+    routing_ms = routing_timings(cfg, gates)
+    del gates
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state, losses, step_ms, launches, per_step = timed_steps(
+        step, params, opt_state, batch, MOE_STEPS)
+    if per_step != MOE_PER_STEP:
+        raise AssertionError(f"moe flash launches per step {per_step}, "
+                             f"expected {MOE_PER_STEP}")
+    peak_mem = torch.cuda.max_memory_allocated()
+    p50 = float(np.median(step_ms[1:]))
+    tok_s = MOE_B * MOE_S / (p50 / 1e3)
+    fpt = moe_flops_per_token(cfg)
+    profiled = _profiled(lambda: step(params, opt_state, batch), top=12)
+    total, active = moe_gpt.num_params(cfg)
+    out = {"phase": "train_moe", "config": "moe_8x350m bf16 remat flash "
+           f"B={MOE_B} S={MOE_S} adamw(3e-4, wd=0.1, mu bf16)",
+           "num_params": {"total": total, "active": active},
+           "routing_on_the_card": routing, "moe_mlp_vs_loop": mlp,
+           "flash_vs_xla": compare, "ep4_vs_ep1": ep, "fp32_steps": fp32,
+           "steps_timed": MOE_STEPS, "step_ms": step_ms, "step_ms_p50": p50,
+           "tokens_per_s": tok_s, "flops_per_token": fpt,
+           "mfu": fpt * tok_s / BF16_FLOPS,
+           "routing": {**routing_ms, "einsum_share_of_step_device_ms": (
+               routing_ms["einsum_ms_per_step"]
+               / profiled["device_busy_ms"]),
+               "dispatch_build_share_of_step_device_ms": (
+                   routing_ms["dispatch_build_ms_per_step"]
+                   / profiled["device_busy_ms"])},
+           "max_memory_allocated": peak_mem,
+           "max_memory_allocated_gb": peak_mem / 2**30,
+           "losses": losses, "launches": launches,
+           "launches_per_step": per_step, "profile_one_step": profiled,
+           "phase_s": time.perf_counter() - t_phase, "card": card_line()}
+    emit(out)
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return launches, shapes
+
+
+# ----------------------------------------------------------- pipeline
+
+PIPE_PP, PIPE_STEPS = 4, 3
+# Per step with remat: 12 layers x 8 microbatches of flash forward twice
+# (block and recompute), dq and dkv once each.
+PIPE_PER_STEP = {"flash_fwd": 192, "flash_dq": 96, "flash_dkv": 96}
+
+
+def off_by_one_schedule(real):
+    """A planted fault in the pipeline's schedule: every stage after the
+    first takes the previous microbatch's activation (its first takes its
+    own)."""
+    def apply(stage_fn, stages, x, *, mesh, n_micro):
+        held = {}
+
+        def stage(stack, act):
+            r = next(i for i, s in enumerate(stages) if s is stack)
+            if r:
+                act, held[r] = held.get(r, act), act
+            return stage_fn(stack, act)
+
+        return real(stage, stages, x, mesh=mesh, n_micro=n_micro)
+
+    return apply
+
+
+
+
+def phase_train_pipeline(device, errs):
+    """GPipe on the training path: bench.py's headline step (gpt2_124m,
+    S 1024, B 8, remat, flash, the same adamw) through
+    build_pipeline_training at pp = 4 with every stage on the card: 3
+    layers per stage, 8 microbatches of 1."""
+    t_phase = time.perf_counter()
+    shapes = {"pipeline": flash_shape_timings(
+        device, errs, "pipeline microbatch", 1, TRAIN_S, 12, 64, True,
+        11)[0]}
+    emit({"phase": "flash_kernel_timing_pipeline", **{
+        f"{k} {tag}": v for tag, t in shapes.items() for k, v in t.items()}})
+    cfg = gpt.GPTConfig.gpt2_124m(max_seq=TRAIN_S, remat=True,
+                                  attn_impl="flash")
+    mesh = device_mesh(PIPE_PP, axis="pp", devices=[device] * PIPE_PP)
+    n_micro = split_microbatch_count(TRAIN_B, PIPE_PP)
+    opt = adamw(3e-4, weight_decay=0.1, mu_dtype=torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params, opt_state, step = build_pipeline_training(
+        cfg, opt, gen, device, mesh=mesh, n_micro=n_micro)
+    batch = train_batch(cfg, device)
+
+    def pipe_grads():
+        loss = gpt.pipeline_loss_fn(params, *batch, cfg, mesh, n_micro)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return float(loss.detach()), joined_shards(
+            dict(zip(params, grads)), PIPE_PP, 0)
+
+    loss_s, g_s = loss_and_grads(cfg, joined_shards(params, PIPE_PP, 0),
+                                 batch, "flash")
+    loss_p, g_p = pipe_grads()
+    compare = {"loss_pipeline": loss_p, "loss_sequential": loss_s,
+               **step_diff(loss_p, g_p, loss_s, g_s),
+               "loss_tol": TRAIN_LOSS_TOL, "grad_tol": TRAIN_GRAD_TOL,
+               "attn_grad_tol": TRAIN_ATTN_GRAD_TOL}
+    real = tpipe.pipeline_apply
+    tpipe.pipeline_apply = off_by_one_schedule(real)
+    try:
+        loss_o, g_o = pipe_grads()
+    finally:
+        tpipe.pipeline_apply = real
+    compare["planted_off_by_one"] = step_diff(loss_o, g_o, loss_s, g_s)
+    del g_s, g_p, g_o
+    if not (compare["loss_abs_diff"] <= TRAIN_LOSS_TOL
+            and compare["grad_rel_err"] <= TRAIN_GRAD_TOL
+            and compare["attn_grad_rel_err"] <= TRAIN_ATTN_GRAD_TOL):
+        raise AssertionError(f"pipeline vs sequential disagree: {compare}")
+    fault = compare["planted_off_by_one"]
+    if not (fault["grad_rel_err"] > TRAIN_GRAD_TOL
+            and fault["attn_grad_rel_err"] > TRAIN_ATTN_GRAD_TOL):
+        raise AssertionError(f"an off-by-one schedule passes: {compare}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state, losses, step_ms, launches, per_step = timed_steps(
+        step, params, opt_state, batch, PIPE_STEPS)
+    if per_step != PIPE_PER_STEP:
+        raise AssertionError(f"pipeline flash launches per step {per_step}, "
+                             f"expected {PIPE_PER_STEP}")
+    peak_mem = torch.cuda.max_memory_allocated()
+    p50 = float(np.median(step_ms[1:]))
+    tok_s = TRAIN_B * TRAIN_S / (p50 / 1e3)
+    fpt = train_flops_per_token(cfg)
+    profiled = _profiled(lambda: step(params, opt_state, batch), top=12)
+    train = next((p for p in RECORD["phases"] if p["phase"] == "train"), {})
+    out = {"phase": "train_pipeline", "config": "gpt2_124m bf16 remat flash "
+           f"pp={PIPE_PP} (every stage on one card) n_micro={n_micro} "
+           f"B={TRAIN_B} S={TRAIN_S} adamw(3e-4, wd=0.1, mu bf16)",
+           "pipeline_vs_sequential": compare, "steps_timed": PIPE_STEPS,
+           "step_ms": step_ms, "step_ms_p50": p50,
+           "train_phase_step_ms_p50": train.get("step_ms_p50"),
+           "tokens_per_s": tok_s, "mfu": fpt * tok_s / BF16_FLOPS,
+           "max_memory_allocated_gb": peak_mem / 2**30, "losses": losses,
+           "launches": launches, "launches_per_step": per_step,
+           "profile_one_step": profiled,
+           "phase_s": time.perf_counter() - t_phase, "card": card_line()}
+    emit(out)
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return launches, shapes
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4568,7 +5230,8 @@ def main(argv=None) -> int:
                          "engine,engine_prefix,engine_spec,engine_dense,"
                          "engine_oneshot,engine_drain,engine_warmup,"
                          "engine_observe,engine_edge,engine_tp,engine_kv,"
-                         "train,train_ring,train_llama "
+                         "train,train_ring,train_llama,train_moe,"
+                         "train_pipeline "
                          "(default: all; "
                          "the build always runs)")
     ap.add_argument("--ptxas", action="store_true",
@@ -4701,7 +5364,9 @@ def main(argv=None) -> int:
     if want("train"):
         launches.update(phase_train(device))
     for name, phase in (("train_ring", phase_train_ring),
-                        ("train_llama", phase_train_llama)):
+                        ("train_llama", phase_train_llama),
+                        ("train_moe", phase_train_moe),
+                        ("train_pipeline", phase_train_pipeline)):
         if want(name):
             by_path[name], shapes = phase(device, errs)
             at_shapes.update(shapes)

@@ -2,7 +2,8 @@
 
 Counterpart of ``ray_tpu/models/decode.py``: the per-token transformer
 pieces shared with the paged programs (`_rotary_pos`, `_qkv`, `_mlp`
-with its cross-shard `_reduce`, `_head`, `sample_token`) and the dense
+with its cross-shard sum `_reduce`, which is
+``parallel/mesh.py::reduce_shards``, `_head`, `sample_token`) and the dense
 serving programs: a fixed cache ``{"k", "v"}`` of ``[L, B, T_max, H,
 K]`` in ``cfg.dtype``
 (`init_kv_cache`), `prefill` (one prompt into one slot from position
@@ -58,6 +59,7 @@ import torch.nn.functional as F
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.gpt import (GPTConfig, _layer_norm,
                                       stack_block_params, weight_view)
+from ray_tpu_torch.parallel.mesh import reduce_shards as _reduce
 
 
 def _rotary_pos(x: torch.Tensor, rotary_dim: int,
@@ -98,19 +100,6 @@ def _attn_out(attn: torch.Tensor, layer, cfg) -> torch.Tensor:
     H, K, D = wo.shape
     out = attn.reshape(-1, H * K) @ wo.reshape(H * K, D)
     return out.reshape(*attn.shape[:-2], D)
-
-
-def _reduce(partials: list, device) -> torch.Tensor:
-    """Sum of the shards' partials on ``device`` (shard 0's), in shard
-    order and in the partials' dtype: the counterpart of the JAX bodies'
-    ``psum`` of ``cfg.dtype`` partials. XLA may reassociate its sum;
-    this one is fixed, ((p0 + p1) + p2) + ..., so with more than two
-    bf16 partials the two can differ in the last bit. One partial is
-    returned as it is."""
-    out = partials[0].to(device)
-    for p in partials[1:]:
-        out = out + p.to(device)
-    return out
 
 
 def _mlp(x, layer, cfg):

@@ -3,7 +3,8 @@
 Counterpart of ``ray_tpu/models/gpt.py`` (GPTConfig, param_specs,
 partition_rules, init_params, QUANT_RULES, quant_axes, quantize_params,
 dequant, weight_view, stack_block_params, _layer_norm, _rotary,
-_attention, _block, forward_hidden, forward, loss_fn, num_params).
+_attention, _block, forward_hidden, forward, forward_pipeline,
+pipeline_loss_fn, loss_fn, num_params).
 Parameters are a flat dict of tensors; block weights carry a leading
 ``layers`` axis exactly as in the JAX package, so a JAX checkpoint maps
 one to one (``ray_tpu_torch/_bridge.py``). A Python loop over layer
@@ -27,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch._params import init_from_specs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,23 +197,8 @@ def init_params(cfg: GPTConfig, generator: torch.Generator | None = None,
     """Random parameters from ``generator`` (a torch.Generator on
     ``device``; a fresh one seeded 0 when None). Same shapes, scales and
     dtypes as the JAX ``init_params``; the numbers differ (another RNG)."""
-    dev = resolve_device(device)
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
-    params = {}
-    for name, spec in sorted(param_specs(cfg).items()):
-        shape = spec["shape"]
-        if spec["init"] == "normal":
-            w = torch.randn(shape, generator=generator, device=dev,
-                            dtype=cfg.param_dtype)
-            params[name] = w.mul_(spec["scale"])
-        elif spec["init"] == "ones":
-            params[name] = torch.ones(shape, device=dev,
-                                      dtype=cfg.param_dtype)
-        else:
-            params[name] = torch.zeros(shape, device=dev,
-                                       dtype=cfg.param_dtype)
-    return params
+    return init_from_specs(param_specs(cfg), cfg.param_dtype, generator,
+                           resolve_device(device))
 
 
 # --------------------------------------------------------------------------
@@ -421,6 +408,46 @@ def forward(params: dict[str, torch.Tensor], tokens: torch.Tensor,
                    _head_matrix(params, cfg))
 
 
+def forward_pipeline(params: dict[str, torch.Tensor], tokens: torch.Tensor,
+                     cfg: GPTConfig, mesh, n_micro: int) -> torch.Tensor:
+    """Pipeline-parallel forward → logits [B, S, V] (fp32): the block
+    stack runs the GPipe microbatch schedule over the pp ``mesh``
+    (``parallel/pipeline.py``), stage r on its n_layers/pp blocks on
+    ``mesh[r]``, each block checkpointed under cfg.remat; the embedding,
+    final norm and head stay outside the pipeline, on the controller's
+    device. The block leaves are placed on the mesh (``name@r``,
+    ``models/partition.py::place_on_axis`` with
+    `PIPELINE_LOGICAL_RULES`) or whole (split into stages at each call).
+    Requires cfg.n_layers % len(mesh) == 0."""
+    from ray_tpu_torch.parallel import pipeline
+    from ray_tpu_torch.parallel.mesh import axis_shards
+
+    x = params["wte"].to(cfg.dtype)[tokens.long()]
+    stages = [dict(zip(_BLOCK_KEYS, leaves)) for leaves in zip(
+        *(axis_shards(params, k, mesh) for k in _BLOCK_KEYS))]
+
+    def stage(local_stack, act):
+        for layer in unbind_layers(local_stack):
+            if cfg.remat:
+                act = _checkpointed(_block, act, layer, cfg)
+            else:
+                act = _block(act, layer, cfg)
+        return act
+
+    x = pipeline.pipeline_apply(stage, stages, x, mesh=mesh, n_micro=n_micro)
+    x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"])
+    return _logits(x, _head_matrix(params, cfg))
+
+
+def pipeline_loss_fn(params, tokens, targets, cfg: GPTConfig, mesh,
+                     n_micro: int) -> torch.Tensor:
+    """Mean next-token cross-entropy through `forward_pipeline`."""
+    logits = forward_pipeline(params, tokens, cfg, mesh, n_micro)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return (logz - gold).mean()
+
+
 def _ce_sum(x, head, targets):
     """Summed next-token cross-entropy of one chunk (fp32 logits)."""
     logits = _logits(x, head)
@@ -461,5 +488,5 @@ def num_params(cfg: GPTConfig) -> int:
 __all__ = ["GPTConfig", "param_specs", "logical_axes", "partition_rules",
            "init_params",
            "QUANT_RULES", "quant_axes", "quantize_params", "dequant", "weight_view",
-           "stack_block_params", "forward_hidden", "forward", "loss_fn",
-           "num_params"]
+           "stack_block_params", "unbind_layers", "forward_hidden", "forward",
+           "forward_pipeline", "pipeline_loss_fn", "loss_fn", "num_params"]

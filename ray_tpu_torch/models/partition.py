@@ -4,9 +4,14 @@ Counterpart of the serving half of ``ray_tpu/models/partition.py``:
 `KV_HEAD_AXIS`, `split_head_planes`/`concat_head_planes`, `TP_AXIS`,
 `PartitionRuleError`, `tree_path_names`, `match_partition_rules`,
 `make_tp_mesh` and `shard_by_rules`; and of the training half's
-logical-axis resolution, `logical_to_spec` (``tree_to_shardings`` and
-``shard_tree`` place arrays on a JAX mesh and are not ported: the port
-trains on one device).
+logical-axis resolution, `logical_to_spec`, with `place_on_axis` (read
+back by ``parallel/mesh.py::axis_shards``), the single-controller
+counterpart of ``tree_to_shardings`` + ``shard_tree`` over ONE mesh
+axis: expert
+stacks split on ``"expert"`` over an ep mesh, layer stacks on
+``"layers"`` over a pp mesh (`PIPELINE_LOGICAL_RULES`). Placement over
+several axes at once, and fsdp (parameters sharded over the data
+axis), need several processes and are not ported.
 
 Models declare where each parameter shards once, as a rule table of
 ``(regex, dim)`` pairs over ``/``-joined tree paths
@@ -32,6 +37,7 @@ it, the counterpart of the forced host-device count of the JAX tests.
 from __future__ import annotations
 
 import re
+import types
 from typing import Any
 
 import numpy as np
@@ -40,8 +46,9 @@ import torch
 from ray_tpu_torch.parallel.mesh import DEFAULT_LOGICAL_RULES, device_mesh
 
 __all__ = [
-    "KV_HEAD_AXIS", "PartitionRuleError", "TP_AXIS", "concat_head_planes",
-    "logical_to_spec", "make_tp_mesh", "match_partition_rules", "shard_by_rules",
+    "KV_HEAD_AXIS", "PartitionRuleError", "TP_AXIS",
+    "concat_head_planes", "logical_to_spec", "make_tp_mesh",
+    "match_partition_rules", "place_on_axis", "shard_by_rules",
     "split_head_planes", "tree_path_names",
 ]
 
@@ -260,3 +267,40 @@ def logical_to_spec(logical_axes: tuple[Any, ...],
     while out and out[-1] is None:
         out.pop()
     return tuple(out)
+
+
+def _split_dim(axes: tuple, axis: str, n: int, rules) -> int | None:
+    """The dimension of a leaf with logical ``axes`` that mesh axis
+    ``axis`` (of ``n`` shards) splits under ``rules``, or None."""
+    spec = logical_to_spec(axes, rules,
+                           mesh=types.SimpleNamespace(shape={axis: n}))
+    for d, m in enumerate(spec):
+        if m == axis or (isinstance(m, tuple) and axis in m):
+            return d
+    return None
+
+
+def place_on_axis(params: dict, logical_axes: dict, mesh, axis: str,
+                  rules=DEFAULT_LOGICAL_RULES) -> dict:
+    """Place a flat parameter dict on ``mesh``, the devices of mesh axis
+    ``axis``: a leaf whose logical axes (``logical_axes[name]``) resolve
+    to ``axis`` under ``rules`` is split along that dimension into
+    ``len(mesh)`` shards, shard s as ``name@s``, its own contiguous
+    tensor on ``mesh[s]`` (the dimension must divide evenly); every
+    other leaf stays whole on ``mesh[0]``, the controller's device. On a
+    mesh of one device nothing is split. ``parallel/mesh.py::axis_shards``
+    reads the shards back in shard order."""
+    n = len(mesh)
+    out = {}
+    for name, leaf in params.items():
+        dim = _split_dim(logical_axes[name], axis, n, rules)
+        if dim is None:
+            out[name] = leaf.to(mesh[0])
+            continue
+        if leaf.shape[dim] % n:
+            raise ValueError(
+                f"cannot place {name!r} on {axis}={n}: dim {dim} of shape "
+                f"{tuple(leaf.shape)} does not divide evenly")
+        for s, dev in enumerate(mesh):
+            out[f"{name}@{s}"] = _shard(leaf, dim, s, n, dev)
+    return out

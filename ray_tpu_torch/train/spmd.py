@@ -9,8 +9,11 @@ state is made). ``stochastic_round=True`` is the bf16-master path
 (``train/low_precision.py``): the gradients go to the optimizer in fp32
 and the updates are applied with stochastic rounding. The sharded init
 and optimizer-state shardings of the JAX version are not ported: the
-step runs on one device. The sp ``mesh`` goes to the loss, whose ring
-attention uses it.
+step runs on one controller. The sp ``mesh`` goes to the loss, whose ring
+attention uses it; an ep mesh places MoE-GPT's expert stacks on their
+shards (``build_training(..., model=moe_gpt, ep_mesh=)``), and
+`build_pipeline_training` places GPT's layer stacks on the stages of a
+pp mesh. The optimizer sees each placed shard as a leaf of its own.
 """
 
 from __future__ import annotations
@@ -88,17 +91,28 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor],
     return step
 
 
+def _trainable(params: dict) -> dict:
+    for p in params.values():
+        p.requires_grad_(True)
+    return params
+
+
 def build_training(cfg, optimizer: GradientTransformation,
                    generator: torch.Generator | None = None, device=None,
-                   model=None, *, mesh=None, stochastic_round: bool = False):
-    """Parameters, optimizer state and the train step on one device.
+                   model=None, *, mesh=None, ep_mesh=None,
+                   stochastic_round: bool = False):
+    """Parameters, optimizer state and the train step on one controller.
 
     ``model`` exposes init_params/loss_fn (defaults to
     ``ray_tpu_torch.models.gpt``; ``models.llama`` works alike);
     ``generator`` seeds the parameters (a generator seeded 0 on
     ``device`` when None); ``device`` defaults to CUDA and raises without
     a GPU; ``mesh`` is the sp mesh of ``attn_impl="ring"``
-    (``parallel/ring.py::make_sp_mesh``). ``stochastic_round=True`` is
+    (``parallel/ring.py::make_sp_mesh``); ``ep_mesh`` the expert-parallel
+    mesh of ``models.moe_gpt`` (``parallel/mesh.py::device_mesh(n,
+    axis="ep")``): the expert stacks are placed on their shards
+    (``models/partition.py::place_on_axis``, ``moe_w_up@s``...) and the
+    mesh goes to the loss. ``stochastic_round=True`` is
     the bf16-master path (set ``cfg.param_dtype=torch.bfloat16`` with
     it): the optimizer state is initialised from the bf16 parameters
     (never an fp32 view; its moments follow the parameters' dtype) and
@@ -110,17 +124,55 @@ def build_training(cfg, optimizer: GradientTransformation,
 
     dev = resolve_device(device)
     params = model.init_params(cfg, generator, dev)
-    for p in params.values():
-        p.requires_grad_(True)
+    extra = {}
+    if ep_mesh is not None:
+        from ray_tpu_torch.models.partition import place_on_axis
+
+        params = place_on_axis(params, model.logical_axes(cfg), ep_mesh, "ep")
+        extra["ep_mesh"] = ep_mesh
+    params = _trainable(params)
     opt_state = optimizer.init(params)
     if stochastic_round:
         opt_state = (opt_state, 0)
 
     def loss(params, tokens, targets):
-        return model.loss_fn(params, tokens, targets, cfg, mesh)
+        return model.loss_fn(params, tokens, targets, cfg, mesh, **extra)
 
     return params, opt_state, make_train_step(
         loss, optimizer, stochastic_round=stochastic_round)
 
 
-__all__ = ["Fp32Leaves", "make_train_step", "build_training"]
+def build_pipeline_training(cfg, optimizer: GradientTransformation,
+                            generator: torch.Generator | None = None,
+                            device=None, *, mesh, n_micro: int | None = None):
+    """Pipeline-parallel `build_training` for GPT: the layer stacks are
+    placed on the stages of the pp ``mesh`` (`PIPELINE_LOGICAL_RULES`:
+    ``wq@r``... on ``mesh[r]``, the other leaves on ``mesh[0]``) and the
+    step differentiates straight through the GPipe schedule
+    (``models/gpt.py::pipeline_loss_fn``), with ``n_micro`` microbatches
+    (``split_microbatch_count(B, pp)`` when None). ``device`` holds the
+    initial parameters (CUDA by default; raises without a GPU). Returns
+    (params, opt_state, step_fn) as `build_training` does."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.models.partition import place_on_axis
+    from ray_tpu_torch.parallel.mesh import PIPELINE_LOGICAL_RULES
+    from ray_tpu_torch.parallel.pipeline import split_microbatch_count
+
+    pp = len(mesh)
+    if cfg.n_layers % max(pp, 1) != 0:
+        raise ValueError(
+            f"n_layers={cfg.n_layers} not divisible by pp={pp}")
+    params = gpt.init_params(cfg, generator, resolve_device(device))
+    params = _trainable(place_on_axis(params, gpt.logical_axes(cfg), mesh,
+                                      "pp", PIPELINE_LOGICAL_RULES))
+    opt_state = optimizer.init(params)
+
+    def loss(params, tokens, targets):
+        m = n_micro or split_microbatch_count(tokens.shape[0], pp)
+        return gpt.pipeline_loss_fn(params, tokens, targets, cfg, mesh, m)
+
+    return params, opt_state, make_train_step(loss, optimizer)
+
+
+__all__ = ["Fp32Leaves", "make_train_step", "build_training",
+           "build_pipeline_training"]

@@ -19,8 +19,11 @@ against the tp=1 gather engine and both paged kernels at a tp shard's
 heads (16, 8, 6), one
 gpt2_124m-wide training step with
 ``attn_impl="flash"`` against ``"xla"``, ring attention over sp = 4 on
-the card against full flash attention, and the stochastic rounding's
-mean with a generator on the card. The file imports neither JAX nor the JAX package, and the
+the card against full flash attention, the stochastic rounding's
+mean with a generator on the card, the MoE layer on the card against a
+plain top-2 loop (also over an ep = 2 mesh of the card, and its routing
+bitwise the host's), and one pipeline step at pp = 2 against the
+sequential step. The file imports neither JAX nor the JAX package, and the
 repo's conftest does, so run it with::
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -34,6 +37,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from ray_tpu_torch.models import gpt
 from ray_tpu_torch.models import paged_kv as pk
@@ -1053,3 +1057,85 @@ def test_stochastic_round_mean_on_the_card(cuda):
         acc += stochastic_round_bf16(x, gen).double()
     rel = ((acc / 400 - x.double()).abs() / x.double().abs()).max()
     assert float(rel) < 5e-3
+
+
+def test_moe_layer_on_the_card_matches_plain_loop(cuda):
+    """moe_mlp on the card (fp32, capacity unconstrained) against a plain
+    top-2 loop within 1e-4 of the whole output, relative; the same on an
+    ep = 2 mesh of the card; _top2_dispatch on the card bitwise equal to
+    the host's on the same gates, with tokens dropped (factor 0.5)."""
+    from ray_tpu_torch.ops import moe
+
+    cfg = moe.MoEConfig(256, 512, 8, capacity_factor=4.0,
+                        dtype=torch.float32)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = moe.init_moe_params(cfg, gen, cuda)
+    params = {k: v + 0.01 if k.startswith("b_") else v
+              for k, v in params.items()}
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(2, 96, 256)).astype(
+        np.float32)).to(cuda)
+    xf = x.reshape(-1, 256)
+    gates = torch.softmax(xf @ params["wg"], dim=-1)
+    top_w, top_e = torch.topk(gates, 2, dim=-1)
+    top_w = top_w / top_w.sum(-1, keepdim=True)
+    ref = torch.zeros_like(xf)
+    for g in range(xf.shape[0]):
+        for w, e in zip(top_w[g], top_e[g].tolist()):
+            up = F.gelu(xf[g] @ params["w_up"][e] + params["b_up"][e],
+                        approximate="tanh")
+            ref[g] += w * (up @ params["w_down"][e] + params["b_down"][e])
+    ref = ref.reshape(x.shape)
+    for mesh in (None, [cuda] * 2):
+        y, aux = moe.moe_mlp(x, params, cfg, mesh=mesh)
+        assert float((y - ref).norm() / ref.norm()) <= 1e-4
+        assert torch.isfinite(aux)
+    C = dataclasses.replace(cfg, capacity_factor=0.5).capacity(192)
+    card = moe._top2_dispatch(gates, C)
+    host = moe._top2_dispatch(gates.cpu(), C)
+    assert float(card[0].sum()) < 2 * 192
+    for a, b in zip(card, host):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_pipeline_step_on_the_card_matches_sequential(cuda):
+    """One gpt2_124m-wide step (4 layers, S = 256, B = 4) through the
+    pipeline at pp = 2 on the card against the sequential step on the
+    same parameters: the loss within 5e-4 and the gradients within 2e-2
+    of the whole, relative; the flash launches of 4 microbatches x 4
+    layers with remat."""
+    from ray_tpu_torch.models.partition import place_on_axis
+    from ray_tpu_torch.parallel.mesh import PIPELINE_LOGICAL_RULES
+
+    cfg = dataclasses.replace(gpt.GPTConfig.gpt2_124m(
+        max_seq=256, remat=True, attn_impl="flash"), n_layers=4)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    whole = gpt.init_params(cfg, gen, cuda)
+    mesh = [cuda] * 2
+    placed = place_on_axis(whole, gpt.logical_axes(cfg), mesh, "pp",
+                           PIPELINE_LOGICAL_RULES)
+    rng = np.random.default_rng(7)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 256))).to(
+        cuda)
+    tg = torch.roll(toks, -1, dims=1)
+
+    def grads(params, fn):
+        leaves = {k: v.clone().requires_grad_(True)
+                  for k, v in params.items()}
+        loss = fn(leaves)
+        names = list(leaves)
+        g = dict(zip(names, torch.autograd.grad(
+            loss, [leaves[k] for k in names])))
+        for k in {n.partition("@")[0] for n in names if "@" in n}:
+            g[k] = torch.cat([g.pop(f"{k}@{r}") for r in range(2)])
+        return float(loss.detach()), torch.cat([g[k].flatten().float()
+                                       for k in sorted(g)])
+
+    loss_s, g_s = grads(whole, lambda p: gpt.loss_fn(p, toks, tg, cfg))
+    fa.reset_launch_counts()
+    loss_p, g_p = grads(placed, lambda p: gpt.pipeline_loss_fn(
+        p, toks, tg, cfg, mesh, 4))
+    assert (fa.flash_fwd.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches) == (32, 16, 16)
+    assert abs(loss_p - loss_s) <= 5e-4
+    assert float((g_p - g_s).norm() / g_s.norm()) <= 2e-2

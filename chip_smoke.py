@@ -19,9 +19,12 @@
                           # long context (ring) and llama3_8b on one card
     python3 chip_smoke.py --only kernels,train,train_moe,train_pipeline
                           # moe_8x350m with ep, and GPipe, on one card
+    python3 chip_smoke.py --only runtime
+                          # the runtime: kernels in a task, the object
+                          # plane, LLMEngine(opt_1_3b) in an actor
 
-Phases, one JSON line each (the whole record also goes to
-build/chip_smoke.json):
+Phases, one JSON line each, each with ``at_s``, the seconds since the
+script began (the whole record also goes to build/chip_smoke.json):
 
 1. card: the ``nvidia-smi --query-gpu=name,power.limit`` line.
 2. build: every CUDA kernel compiled from ray_tpu_torch/ops/csrc for
@@ -215,6 +218,32 @@ build/chip_smoke.json):
    re-prefilled, the payload's host round trip (gather + .cpu(); stitch
    + .to(device) + scatter) in ms and GB/s, the drain's agreement with an
    uninterrupted run, the phase's seconds and the card's name and power.
+   runtime: the port's runtime (ray_tpu_torch.init(num_cpus=4,
+   resources={"GPU": 1}) starts a GCS, a raylet and worker processes;
+   the init wall and whether the store's native arena loaded, which it
+   must): (a) a num_gpus=1 task runs both float paged kernels on seeded
+   engine-shaped inputs (decode: 16 slots of 1-2048 positions; prefill:
+   16 rows of C = 256) and returns their CUDA outputs, which reach this
+   process as CPU tensors bitwise equal to the same calls here, with the
+   worker's launch counters above 0; (b) a bf16 CPU tensor of engine_kv's
+   payload size (956 MB) is put and read back here and by a task on a
+   worker, bitwise both, out-of-band (the pickle stream under 64 KB),
+   with put and get GB/s, and a second put of the same bytes after the
+   first is freed (into the pages the first put faulted in); (c) LLMEngine(opt_1_3b) from seed 0 on cuda in
+   the __init__ of a num_gpus=1 actor, every knob from
+   init(_system_config=...) (the engine phase's paged kernel engine and
+   llm_tp = 3), serves the engine phase's 16 prompts, 32 greedy tokens
+   each: the streams equal the in-process engine's (run first under
+   --only runtime), exactly n_layers (24) decode launches per decode
+   step and prefill launches inside the actor, llm_tp soft-disabled to 1
+   with its reason in the worker's log, the request metrics' replica tag
+   the actor id's last 8 hex digits, pages closed; readings: the actor's
+   creation wall (spawn, torch import, CUDA context, weights) and the
+   free memory it starts with, the round's wall and TTFT p50/p95 beside
+   the in-process engine's, an empty method's round trip; (d) kill: a
+   later call raises ActorDiedError and the card's free memory comes
+   back within 1 GB of what the actor held; then shutdown. The phase
+   runs before the training phases.
 7. train: build_training(gpt2_124m(max_seq=1024, remat=True,
    attn_impl="flash"), adamw(3e-4, weight_decay=0.1, mu_dtype=bf16))
    with seeded random weights and a seeded [8, 1024] batch: one step of
@@ -305,6 +334,8 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import glob
+import hashlib
 import json
 import os
 import re
@@ -394,9 +425,11 @@ PROGRAM_INT8_LOGIT_MAE = 2e-2  # the same with int8 weights and KV
 
 RECORD: dict = {"phases": []}
 RECORD_PATH = "build/chip_smoke.json"
+T_START = time.perf_counter()
 
 
 def emit(obj: dict) -> None:
+    obj["at_s"] = time.perf_counter() - T_START
     RECORD["phases"].append(obj)
     print(json.dumps(obj), flush=True)
 
@@ -4172,6 +4205,374 @@ def phase_engine_edge(device, cfg, params):
     return counts
 
 
+# ----------------------------------------------------------------- runtime
+
+# The engine actor's knobs, given only to init(_system_config=...): the
+# engine phase's configuration, and llm_tp = 3, which 32 heads do not
+# divide (soft-disabled to 1 in the actor's engine).
+RUNTIME_SYSTEM_CONFIG = {"llm_kv_mode": "paged", "llm_prefill_chunk": 256,
+                         "llm_prefill_token_budget": 512,
+                         "llm_attn_impl": "kernel", "llm_tp": 3}
+RUNTIME_KERNEL_SEED = 14
+KV_PAYLOAD_BYTES = 956 * 10**6   # engine_kv's adopted payload
+OOB_PICKLE_BYTES = 64 * 1024     # out-of-band: the pickle stream below this
+ACTOR_MEMORY_SLACK = 2**30       # a killed actor's memory comes back within
+ROUND_TRIPS = 200
+
+
+def runtime_kernel_calls(device):
+    """The two float paged kernels on seeded inputs at the engine's
+    shapes (bf16, page 64, opt_1_3b's 32 heads of 64): one decode call
+    over 16 slots of 1-2048 positions and one prefill call of 16 rows of
+    C = 256 at ragged offsets. The seed gives the same inputs in every
+    process. → (decode out, prefill out)."""
+    rng = np.random.default_rng(RUNTIME_KERNEL_SEED)
+    bf16, n_pg, C = torch.bfloat16, CAP // 64, 256
+    kp, vp, tables, lengths, _ = paged_pool(
+        rng, rng.integers(1, CAP + 1, 16), ps=64, n_pg=n_pg, dtype=bf16,
+        device=device)
+    q = torch.from_numpy(rng.normal(size=(16, H, K)).astype(
+        np.float32)).to(device, bf16)
+    args = [torch.from_numpy(a).to(device) for a in (tables, lengths)]
+    dec_out = pa.paged_attention(q, kp, vp, *args)
+    offs = rng.integers(0, CAP - C, 16).astype(np.int32)
+    kp, vp, tables, lens, _ = paged_pool(
+        rng, offs + C, ps=64, n_pg=n_pg, dtype=bf16, device=device)
+    q = torch.from_numpy(rng.normal(size=(16, C, H, K)).astype(
+        np.float32)).to(device, bf16)
+    args = [torch.from_numpy(a).to(device) for a in (tables, offs, lens)]
+    pre_out = pa.paged_prefill_attention(q, kp, vp, *args)
+    torch.cuda.synchronize(device)
+    return dec_out, pre_out
+
+
+def runtime_kernel_task():
+    """Both kernels in a worker. Each CUDA output is a return of its own,
+    so the object plane moves it to the host; then the worker's launch
+    counters and its pid."""
+    pa.reset_launch_counts()
+    dec_out, pre_out = runtime_kernel_calls(torch.device("cuda"))
+    # The pooled worker keeps its CUDA context after the task; let it keep
+    # no cached blocks of the inputs as well.
+    torch.cuda.empty_cache()
+    return dec_out, pre_out, launch_counts(), os.getpid()
+
+
+def runtime_digest(t):
+    """A task on a worker: the payload's digest, dtype and shape."""
+    raw = t.contiguous().view(torch.uint8).numpy()
+    return (hashlib.blake2b(raw).hexdigest(), str(t.dtype), tuple(t.shape),
+            os.getpid())
+
+
+def runtime_hold(started, release):
+    """A task that keeps its (pooled) worker busy until ``release``
+    exists, so that the next lease spawns a fresh worker."""
+    open(started, "w").close()
+    deadline = time.monotonic() + 600
+    while not os.path.exists(release) and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return os.getpid()
+
+
+class RuntimeEngine:
+    """LLMEngine(opt_1_3b) in an actor's worker, from seed 0 on cuda,
+    every knob from the runtime's config (none passed here)."""
+
+    def __init__(self, n_slots, max_len):
+        t0 = time.perf_counter()
+        self.cuda_was_up = torch.cuda.is_initialized()
+        self.free_at_start = torch.cuda.mem_get_info()[0]
+        self.cfg = gpt.GPTConfig.opt_1_3b(dtype=torch.bfloat16)
+        self.eng = LLMEngine(self.cfg, seed=0, device="cuda",
+                             n_slots=n_slots, max_len=max_len)
+        torch.cuda.synchronize()
+        self.init_s = time.perf_counter() - t0
+
+    def ping(self):
+        return None
+
+    def info(self):
+        e = self.eng
+        return {"pid": os.getpid(), "init_s": self.init_s,
+                "cuda_was_up": self.cuda_was_up,
+                "free_at_start_gb": self.free_at_start / 1e9,
+                "knobs": {"kv_mode": e.kv_mode, "page_size": e.page_size,
+                          "prefill_chunk": e.prefill_chunk,
+                          "prefill_token_budget": e.prefill_budget,
+                          "attn_impl": e.attn_impl,
+                          "decode_block": e.decode_block, "tp": e.tp},
+                "tp_disabled_reason": e._tp_disabled_reason,
+                "memory_reserved_gb": torch.cuda.memory_reserved() / 1e9}
+
+    def serve(self, prompts, tokens):
+        """run_engine's round inside the actor: launch counters zeroed
+        just before, read just after; each finished request's metrics
+        observed as a front end does."""
+        eng = self.eng
+        torch.cuda.synchronize()
+        eng.reset_stats()
+        pa.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_tokens=tokens) for p in prompts]
+        eng.start()
+        try:
+            for r in reqs:
+                if not r.done.wait(timeout=600):
+                    raise AssertionError("engine request timed out")
+        finally:
+            eng.stop()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        check_outputs(self.cfg, reqs, tokens)
+        acc = check_pages(eng)
+        tags = serve_llm._request_metric_tags()
+        for r in reqs:
+            serve_llm._observe_request_metrics(r, tags)
+        replicas = sorted({dict(row["tags"]).get("replica")
+                           for row in profiling.metrics_snapshot()
+                           if row["name"] == "serve_llm_ttft_s"})
+        m = eng.metrics()
+        import ray_tpu_torch
+
+        return {"streams": [r.out_ids for r in reqs], "launches": launches,
+                "wall_s": wall, "page_accounting": acc,
+                "replicas": replicas,
+                "actor_id": (ray_tpu_torch.get_runtime_context()
+                             .get_actor_id()),
+                **{k: m.get(k) for k in (
+                    "decode_steps", "decode_windows", "prefill_dispatches",
+                    "ttft_ms_p50", "ttft_ms_p95", "decode_step_ms_p50",
+                    "engine_decode_tok_s")}}
+
+
+def runtime_worker_logs(session_dir, name="worker-*.log") -> str:
+    return "".join(open(p, errors="replace").read() for p in sorted(
+        glob.glob(os.path.join(session_dir, "logs", name))))
+
+
+def free_memory() -> int:
+    torch.cuda.synchronize()
+    return torch.cuda.mem_get_info()[0]
+
+
+def phase_runtime(device, engine_ref):
+    """The port's runtime on the card: init (real GCS, raylet and worker
+    subprocesses), the two kernels in a num_gpus=1 task, a payload of
+    engine_kv's size on the object plane, LLMEngine(opt_1_3b) in a
+    num_gpus=1 actor from the runtime's config, and the actor's kill.
+    ``engine_ref``: the engine phase's (record, streams), else the phase
+    runs it first. → the actor's launch counts."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import _native
+    from ray_tpu_torch import api as rt_api
+    from ray_tpu_torch.core import serialization as ser
+
+    t_phase = time.perf_counter()
+    if engine_ref is None:
+        cfg, _masters, params = make_params(device)
+        del _masters
+        _, ref_record, ref_streams = phase_engine(device, cfg, params)
+        del cfg, params
+    else:
+        ref_record, ref_streams = engine_ref
+    torch.cuda.empty_cache()
+    out = {"phase": "runtime", "card": card_line(),
+           "system_config": RUNTIME_SYSTEM_CONFIG}
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4, resources={"GPU": 1},
+            _system_config=RUNTIME_SYSTEM_CONFIG)
+    try:
+        out["init_s"] = time.perf_counter() - t0
+        session = rt_api._node.session_dir
+        raylet_log = runtime_worker_logs(session, "raylet.log")
+        out["native_arena"] = (_native.load() is not None
+                               and "Python fallback" not in raylet_log)
+        if not out["native_arena"]:
+            raise AssertionError("the object store's native arena did not "
+                                 "load (Python fallback)")
+
+        # The kernels in a worker, against the same calls here.
+        t0 = time.perf_counter()
+        refs = rt.remote(num_gpus=1, num_returns=4)(
+            runtime_kernel_task).remote()
+        w_dec, w_pre, w_counts, task_pid = rt.get(refs, timeout=300)
+        task_s = time.perf_counter() - t0
+        d_dec, d_pre = runtime_kernel_calls(device)
+        bitwise = {"paged_attention": torch.equal(w_dec, d_dec.cpu()),
+                   "paged_prefill_attention": torch.equal(w_pre,
+                                                          d_pre.cpu())}
+        out["kernel_task"] = {
+            "wall_s": task_s, "pid": task_pid,
+            "outputs_on": sorted({str(w_dec.device), str(w_pre.device)}),
+            "shapes": [list(w_dec.shape), list(w_pre.shape)],
+            "bitwise_equal_driver": bitwise, "worker_launches": w_counts}
+        if not all(bitwise.values()) or w_dec.device.type != "cpu" or (
+                w_pre.device.type != "cpu"):
+            raise AssertionError(f"worker kernel outputs: "
+                                 f"{out['kernel_task']}")
+        if min(w_counts["paged_attention"],
+               w_counts["paged_prefill_attention"]) <= 0:
+            raise AssertionError(f"worker launches: {w_counts}")
+        del w_dec, w_pre, d_dec, d_pre, refs
+        torch.cuda.empty_cache()
+
+        # The object plane: a bf16 CPU tensor of engine_kv's payload size.
+        gen = torch.Generator().manual_seed(RUNTIME_KERNEL_SEED)
+        payload = torch.randint(-2**15, 2**15, (KV_PAYLOAD_BYTES // 2,),
+                                dtype=torch.int16, generator=gen).view(
+            torch.bfloat16)
+        head, views = ser.serialize(payload)
+        digest = hashlib.blake2b(
+            payload.view(torch.uint8).numpy()).hexdigest()
+        t0 = time.perf_counter()
+        ref = rt.put(payload, _cache_local=False)
+        put_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = rt.get(ref, timeout=300)
+        get_s = time.perf_counter() - t0
+        remote = rt.get(rt.remote(runtime_digest).remote(ref), timeout=300)
+        # Beside them, the payload's pageable host<->card copies: the
+        # kind of copy engine_kv's KV binds make.
+        t0 = time.perf_counter()
+        on_card = payload.to(device)
+        torch.cuda.synchronize()
+        h2d_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_card.cpu()
+        d2h_s = time.perf_counter() - t0
+        del on_card
+        # A second put of the same bytes once the first is freed: the best
+        # fit hands it the first's extent, whose shared-memory pages are
+        # already in, so the two puts differ by the first writes' faults.
+        rt.free([ref])
+        client = rt_api._client
+        shm_before_put2 = client._run(
+            client.raylet.call("store_stats", {}))["shm_bytes"]
+        t0 = time.perf_counter()
+        ref = rt.put(payload, _cache_local=False)
+        put2_s = time.perf_counter() - t0
+        plane = {"bytes": KV_PAYLOAD_BYTES, "pickle_bytes": len(head),
+                 "out_of_band_bytes": [len(v) for v in views],
+                 "put_s": put_s, "put_GBps": KV_PAYLOAD_BYTES / put_s / 1e9,
+                 "put2_s": put2_s,
+                 "put2_GBps": KV_PAYLOAD_BYTES / put2_s / 1e9,
+                 "shm_bytes_before_put2": shm_before_put2,
+                 "get_s": get_s, "get_GBps": KV_PAYLOAD_BYTES / get_s / 1e9,
+                 "driver_get_bitwise": torch.equal(
+                     back.view(torch.int16), payload.view(torch.int16)),
+                 "worker_get_bitwise": remote[0] == digest,
+                 "worker": {"dtype": remote[1], "shape": list(remote[2]),
+                            "pid": remote[3]},
+                 "h2d_GBps": KV_PAYLOAD_BYTES / h2d_s / 1e9,
+                 "d2h_GBps": KV_PAYLOAD_BYTES / d2h_s / 1e9}
+        out["object_plane"] = plane
+        if not (plane["driver_get_bitwise"] and plane["worker_get_bitwise"]
+                and len(head) < OOB_PICKLE_BYTES
+                and plane["out_of_band_bytes"] == [KV_PAYLOAD_BYTES]):
+            raise AssertionError(f"object plane: {plane}")
+        del payload, back, head, views
+        rt.free([ref])
+        del ref
+        torch.cuda.empty_cache()
+
+        # The engine actor, on a fresh worker: the pooled one (which ran
+        # the tasks and keeps its CUDA context) is held busy meanwhile.
+        free0 = free_memory()
+        started = os.path.join(session, "hold.started")
+        release = os.path.join(session, "hold.release")
+        hold = rt.remote(runtime_hold).remote(started, release)
+        deadline = time.monotonic() + 120
+        while not os.path.exists(started) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        t0 = time.perf_counter()
+        actor = rt.remote(num_gpus=1)(RuntimeEngine).remote(
+            ENGINE_KNOBS["n_slots"], ENGINE_KNOBS["max_len"])
+        info = rt.get(actor.info.remote(), timeout=600)
+        creation_s = time.perf_counter() - t0
+        open(release, "w").close()
+        hold_pid = rt.get(hold, timeout=60)
+        prompts = engine_prompts(gpt.GPTConfig.opt_1_3b())
+        served = rt.get(actor.serve.remote(prompts, ENGINE_TOKENS),
+                        timeout=900)
+        trips = []
+        for _ in range(ROUND_TRIPS):
+            t0 = time.perf_counter()
+            rt.get(actor.ping.remote(), timeout=60)
+            trips.append((time.perf_counter() - t0) * 1e6)
+        free_held = free_memory()
+        launches = served.pop("launches")
+        streams = served.pop("streams")
+        n_layers = gpt.GPTConfig.opt_1_3b().n_layers
+        per_step = launches["paged_attention"] / max(1,
+                                                     served["decode_steps"])
+        logs = runtime_worker_logs(session)
+        out["actor"] = {
+            **info, "creation_wall_s": creation_s,
+            "fresh_worker": info["pid"] not in (task_pid, hold_pid)
+            and not info["cuda_was_up"],
+            "launches": launches, "decode_launches_per_step": per_step,
+            "streams_equal_in_process": streams == ref_streams,
+            "tp_soft_off_logged": "llm_tp soft-disabled to 1" in logs,
+            **served,
+            "in_process": {k: ref_record.get(k) for k in (
+                "wall_s", "ttft_ms_p50", "ttft_ms_p95",
+                "decode_step_ms_p50", "engine_decode_tok_s")},
+            "method_round_trip_us_p50": float(np.median(trips)),
+            "method_round_trip_us_p95": float(np.percentile(trips, 95))}
+        a = out["actor"]
+        bad = []
+        if not a["streams_equal_in_process"]:
+            bad.append("streams differ from the in-process engine's")
+        if per_step != n_layers or launches["paged_prefill_attention"] <= 0:
+            bad.append(f"launches {launches}, {per_step} per decode step")
+        if launches["paged_attention_int8"] or launches[
+                "paged_prefill_attention_int8"]:
+            bad.append(f"an int8 program ran: {launches}")
+        if not (a["knobs"]["tp"] == 1 and a["tp_soft_off_logged"]
+                and "does not divide the model's n_heads (32)"
+                in a["tp_disabled_reason"]):
+            bad.append("llm_tp=3 not soft-disabled with its reason logged")
+        if a["knobs"] != {"kv_mode": "paged", "page_size": 64,
+                          "prefill_chunk": 256, "prefill_token_budget": 512,
+                          "attn_impl": "kernel", "decode_block": 8,
+                          "tp": 1}:
+            bad.append(f"knobs {a['knobs']}")
+        if not a["fresh_worker"]:
+            bad.append("the actor did not start on a fresh worker")
+        if a["replicas"] != [a["actor_id"][-8:]]:
+            bad.append(f"replica tags {a['replicas']}")
+        if bad:
+            raise AssertionError(f"engine actor: {bad}; {a}")
+
+        # Teardown.
+        rt.kill(actor)
+        try:
+            rt.get(actor.ping.remote(), timeout=60)
+            died = None
+        except rt.ActorDiedError as e:
+            died = type(e).__name__
+        deadline = time.monotonic() + 60
+        while True:
+            free_after = free_memory()
+            if (abs(free_after - free0) <= ACTOR_MEMORY_SLACK
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.5)
+        out["teardown"] = {
+            "later_call_raised": died, "held_gb": (free0 - free_held) / 1e9,
+            "returned_gb": (free_after - free_held) / 1e9,
+            "free_before_gb": free0 / 1e9, "free_after_gb": free_after / 1e9}
+        if died is None or abs(free_after - free0) > ACTOR_MEMORY_SLACK:
+            raise AssertionError(f"teardown: {out['teardown']}")
+    finally:
+        rt.shutdown()
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return launches
+
+
 # ------------------------------------------------------------------- train
 
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 12
@@ -5230,8 +5631,8 @@ def main(argv=None) -> int:
                          "engine,engine_prefix,engine_spec,engine_dense,"
                          "engine_oneshot,engine_drain,engine_warmup,"
                          "engine_observe,engine_edge,engine_tp,engine_kv,"
-                         "train,train_ring,train_llama,train_moe,"
-                         "train_pipeline "
+                         "runtime,train,train_ring,train_llama,"
+                         "train_moe,train_pipeline "
                          "(default: all; "
                          "the build always runs)")
     ap.add_argument("--ptxas", action="store_true",
@@ -5308,6 +5709,7 @@ def main(argv=None) -> int:
     # programs, the int8 engine for the int8 ones); ``launches_by_path``
     # adds the prefix-cache and speculative paths.
     by_path: dict = {}
+    streams = float_run = None
     serving = ("programs", "profile", "engine", "engine_prefix",
                "engine_spec", "engine_dense", "engine_oneshot",
                "engine_drain", "engine_warmup", "engine_observe",
@@ -5321,7 +5723,6 @@ def main(argv=None) -> int:
             phase_programs_oneshot(device, cfg, masters, params)
         if want("profile"):
             phase_profile(device, cfg, masters, params)
-        streams = float_run = None
         if want("engine_warmup"):
             phase_engine_warmup(device, cfg, params, children, build_s)
         if want("engine"):
@@ -5361,6 +5762,9 @@ def main(argv=None) -> int:
             by_path.update(phase_engine_kv(device, cfg, params))
         del cfg, masters, params
         torch.cuda.empty_cache()
+    if want("runtime"):
+        by_path["runtime (actor)"] = phase_runtime(
+            device, None if streams is None else (float_run, streams))
     if want("train"):
         launches.update(phase_train(device))
     for name, phase in (("train_ring", phase_train_ring),

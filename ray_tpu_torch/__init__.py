@@ -22,11 +22,40 @@ layout and names so each counterpart is easy to find:
                           the host-side event ring and metrics registry,
                           trace context and fault injection the engine
                           reports through (copies of the JAX package's)
+- ``api.py``, ``core/``   the distributed runtime (tasks, actors, objects:
+                          ``init``, ``remote``, ``get``, ``put``...), the
+                          port's own copy of the JAX package's, with
+                          ``num_gpus`` for the ``"GPU"`` resource and its
+                          own environment prefix (``RAY_TPU_TORCH_``),
+                          session directory and shared-memory names, so
+                          the two runtimes never attach to each other
 
-The package imports torch, numpy and the standard library only. Every
-entry point runs on ``cuda`` unless the caller passes ``device="cpu"``;
-without a GPU the default raises instead of running on the CPU.
+The package imports torch, numpy, cloudpickle and the standard library
+only. Importing the package (and the runtime's daemons) imports no torch:
+the API names below load lazily. Every entry point runs on ``cuda``
+unless the caller passes ``device="cpu"``; without a GPU the default
+raises instead of running on the CPU.
 """
 
 __all__ = ["chaos", "metrics", "models", "ops", "profiling", "serve",
            "tracing", "train"]
+
+_API_EXPORTS = (
+    "init", "shutdown", "is_initialized", "remote", "get", "put", "wait",
+    "free", "kill", "cancel", "get_actor", "method", "nodes",
+    "cluster_resources", "available_resources", "ObjectRef",
+    "get_runtime_context", "RayTaskError",
+)
+
+
+def __getattr__(name):
+    if name in _API_EXPORTS:
+        from ray_tpu_torch import api
+
+        return getattr(api, name)
+    if name in ("GetTimeoutError", "TaskCancelledError", "ActorDiedError",
+                "ActorUnavailableError", "RayActorError"):
+        from ray_tpu_torch import exceptions
+
+        return getattr(exceptions, name)
+    raise AttributeError(f"module 'ray_tpu_torch' has no attribute {name!r}")

@@ -8,11 +8,19 @@ headers), so a build takes seconds. Nothing happens at import: the
 first kernel launch builds, so ``python3 chip_smoke.py`` from a fresh
 checkout builds everything it runs. A missing ``nvcc`` raises a clear
 error at that first call, never at import.
+
+Several processes may build at once (a driver and the runtime's workers
+on one host): the stale check and the build run under an exclusive
+``flock`` on ``BUILD_DIR/build.lock``, so one process builds while the
+others wait and then load its library. The kernel closes the lock with
+the process, so a build cut off mid-way leaves no lock behind.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -58,12 +66,29 @@ def _stale() -> bool:
     return any(p.stat().st_mtime > built for p in deps)
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """Held across the stale check and the build: exclusive between
+    processes and between threads (each holder opens its own file)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(verbose: bool = False) -> Path:
     """Compile every source in parallel, then link libkernels.so.
     → the library path. Raises RuntimeError with nvcc's output on a
     failed compile."""
+    with _build_lock():
+        return _build(verbose)
+
+
+def _build(verbose: bool) -> Path:
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for src in sources():
         obj = BUILD_DIR / (src.stem + ".o")
@@ -158,8 +183,9 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            if _stale():
-                build()
+            with _build_lock():
+                if _stale():
+                    _build(verbose=False)
             lib = ctypes.CDLL(str(LIB_PATH))
             _declare(lib)
             _lib = lib

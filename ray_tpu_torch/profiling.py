@@ -6,9 +6,11 @@ count and ``MAX_BUFFER``), the same registry (``Counter``, ``Gauge``,
 ``Histogram``, ``metrics_snapshot``), the same Prometheus exposition and
 Chrome-trace rendering, so a port replica's ``/metrics`` rows and trace
 events read like a JAX replica's. The registry and the ring are this
-module's, per process: nothing here ships them anywhere (the reference's
-GCS flush loop has no counterpart until the port has a runtime); a
-caller reads them with `metrics_snapshot` and `peek_events`.
+module's, per process; a caller reads them with `metrics_snapshot` and
+`peek_events`. Inside the port's runtime (`ray_tpu_torch.core`), every
+worker and driver also ships them to the GCS with `run_obs_flush_loop`
+(events at most once through `ObsFlusher`, metrics as whole snapshots),
+as the reference's processes do.
 """
 
 from __future__ import annotations
@@ -27,8 +29,11 @@ _events: "collections.deque[dict]" = collections.deque()
 _events_lock = threading.Lock()
 MAX_BUFFER = 10_000
 # Overflow is a ring: the oldest event is evicted and counted, so a
-# process that never drains keeps its most recent spans.
+# process that never drains keeps its most recent spans. _dropped_total is
+# the lifetime count; _dropped_reported is the share a flush loop has
+# already shipped to the GCS.
 _dropped_total = 0
+_dropped_reported = 0
 
 
 def record_event(name: str, cat: str, start_s: float, dur_s: float,
@@ -82,10 +87,78 @@ def peek_events() -> list[dict]:
         return list(_events)
 
 
+def mark_dropped_reported(n: int) -> None:
+    """Commit `n` drops as shipped to the GCS — called AFTER the flush RPC
+    succeeds, so a failed flush retries the same count next tick."""
+    global _dropped_reported
+    with _events_lock:
+        _dropped_reported = min(_dropped_total, _dropped_reported + n)
+
+
+class ObsFlusher:
+    """One-batch-at-a-time shipper of this process's profile events to the
+    GCS with at-most-once delivery: each batch carries a per-source seq,
+    and a failed flush retries the SAME batch (same seq) next tick, so the
+    GCS can discard the duplicate after a timed-out-but-applied call.
+    Drops are marked reported only after the RPC succeeds."""
+
+    def __init__(self, source: str):
+        self.source = source
+        self.seq = 0
+        self.pending: dict | None = None
+
+    async def flush(self, call) -> None:
+        """`call(payload) -> awaitable` ships one batch; raises on failure
+        (the caller decides whether to log/ignore; state stays retryable)."""
+        if self.pending is None:
+            events = drain_events()
+            dropped = events_dropped_unreported()
+            if events or dropped:
+                self.seq += 1
+                self.pending = {"events": events, "dropped": dropped,
+                                "seq": self.seq}
+        if self.pending is None:
+            return
+        await call({"source": self.source, **self.pending})
+        mark_dropped_reported(self.pending["dropped"])
+        self.pending = None
+
+
+async def run_obs_flush_loop(source: str, gcs_call, interval_s: float,
+                             should_stop) -> None:
+    """The per-process observability flush loop of workers and drivers:
+    every `interval_s`, ship the profile-event batch (at-most-once via
+    ObsFlusher) and the metrics snapshot (idempotent last-snapshot-wins)
+    to the GCS. `gcs_call(method, payload)` -> awaitable; `should_stop()`
+    -> bool."""
+    import asyncio
+
+    flusher = ObsFlusher(source)
+    while not should_stop():
+        await asyncio.sleep(interval_s)
+        try:
+            await flusher.flush(lambda p: gcs_call("profile_add", p))
+        except Exception:
+            pass  # batch kept; same seq retries next tick
+        try:
+            rows = metrics_snapshot()
+            if rows:
+                await gcs_call("metrics_push",
+                               {"source": source, "rows": rows})
+        except Exception:
+            pass
+
+
 def events_dropped_total() -> int:
     """This process's lifetime drop count."""
     with _events_lock:
         return _dropped_total
+
+
+def events_dropped_unreported() -> int:
+    """Drops the GCS doesn't know about yet."""
+    with _events_lock:
+        return _dropped_total - _dropped_reported
 
 
 # ---------------------------------------------------------------- metrics

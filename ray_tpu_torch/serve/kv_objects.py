@@ -68,11 +68,10 @@ from collections import OrderedDict
 from ray_tpu_torch import chaos as _chaos
 
 INDEX_NS = "serve_kv_pages"
-# The reference's runtime-config defaults (``serve_kv_object_budget``,
-# ``serve_kv_summary_max``): entries a store keeps before withdrawing the
-# oldest, and chain heads an engine's donation summary keeps.
+# The reference's runtime-config default ``serve_kv_object_budget``:
+# entries a store keeps before withdrawing the oldest (the engine reads
+# ``serve_kv_summary_max`` from the runtime's config).
 SERVE_KV_OBJECT_BUDGET = 64
-SERVE_KV_SUMMARY_MAX = 128
 # Appended to every fingerprint: page sets of the JAX package never match.
 BACKEND = "torch"
 
@@ -239,6 +238,6 @@ def reset_local_store() -> None:
 
 __all__ = [
     "BACKEND", "INDEX_NS", "LocalKVStore", "SERVE_KV_OBJECT_BUDGET",
-    "SERVE_KV_SUMMARY_MAX", "engine_fingerprint", "get_store", "make_meta",
-    "page_span", "pages_for_tokens", "reset_local_store",
+    "engine_fingerprint", "get_store", "make_meta", "page_span",
+    "pages_for_tokens", "reset_local_store",
 ]

@@ -95,11 +95,19 @@ hit fetches the payloads, writes them into fresh pages (`scatter_pages`,
 starts prefill at the first cold token. A dropped or torn depth adopts
 the shorter run; nothing adopted re-prefills from token ids.
 
+Every knob left ``None`` reads the runtime's config
+(`ray_tpu_torch.core.config.runtime_config`, the ``llm_*`` fields), so
+``init(_system_config=...)`` reaches an engine built inside an actor.
+A global knob that misfits the engine is turned off, as in the
+reference (``prefill_chunk`` on a dense engine, ``prefix_cache``,
+``spec_draft``, the int8 dtypes, ``tp``, ``kv_transfer``); ``tp`` and
+``kv_transfer`` log why, and ``kv_transfer_disabled_reason`` rides
+`metrics` and `load_snapshot`. An explicit argument that misfits
+raises.
+
 Not ported: the Serve deployment wrapper, the cluster page-set store,
-the global ``llm_kv_transfer`` knob and its soft-disable (an explicit
-argument that misfits raises, as in the reference), and the
-compile-watch hooks (XLA compile accounting, which has no counterpart
-here).
+and the compile-watch hooks (XLA compile accounting, which has no
+counterpart here).
 """
 
 from __future__ import annotations
@@ -124,6 +132,7 @@ from ray_tpu_torch import chaos as _chaos
 from ray_tpu_torch import profiling as _profiling
 from ray_tpu_torch import tracing
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.core.config import runtime_config
 from ray_tpu_torch.models import decode as _dense
 from ray_tpu_torch.models import gpt
 from ray_tpu_torch.models import paged_kv as _paged
@@ -135,18 +144,6 @@ from ray_tpu_torch.serve.prefix_cache import (PrefixCache, affinity_key,
                                               extend_chunk_chain)
 
 logger = logging.getLogger(__name__)
-
-# Engine defaults, copied from the JAX package's runtime config and its
-# engine's signature (prefill buckets).
-DEFAULT_DECODE_BLOCK = 8
-DEFAULT_KV_MODE = "dense"
-DEFAULT_PAGE_SIZE = 64
-DEFAULT_PREFILL_BUCKETS = (32, 64, 128, 256, 512)
-DEFAULT_PREFILL_CHUNK = 0          # 0 = one-shot bucketed admission
-DEFAULT_PREFILL_TOKEN_BUDGET = 256
-DEFAULT_WIDTH_BUCKETING = True
-DEFAULT_PREFIX_CACHE_PAGES = 0     # 0 = half the pool
-DEFAULT_SPEC_K = 4
 
 # The JAX engine's metric objects, with its names, tags and buckets, so a
 # port replica's /metrics rows read like a JAX replica's. Per-request
@@ -249,12 +246,42 @@ _KV_COUNTERS = {
 
 
 def _request_metric_tags() -> dict:
-    """Route (ingress trace baggage) and replica tags for the per-request
-    histograms. The port has no runtime context, so the replica is
-    "local", the reference's value outside an actor."""
+    """Route (ingress trace baggage) and replica (runtime context) tags
+    for the per-request histograms: inside an actor the replica is the
+    actor id's unique tail, elsewhere "local"."""
     ctx = tracing.get_current()
     route = (ctx.baggage.get("route", "") if ctx is not None else "") or ""
-    return {"route": route, "replica": "local"}
+    aid = _actor_id()
+    # ActorID hex = JobID (4 bytes) + a unique part (8 bytes): the head
+    # is shared by every actor of the job, the tail tells replicas apart.
+    return {"route": route, "replica": aid[-8:] if aid else "local"}
+
+
+def _actor_id() -> str | None:
+    """Hex id of the actor running this code (the runtime context of the
+    calling thread), or None outside an actor."""
+    from ray_tpu_torch import api as _api
+
+    return _api.get_runtime_context().get_actor_id()
+
+
+def _tp_misfit(tp: int, device, cfg, draft_cfg) -> str:
+    """Why a tp mesh does not fit this host or model ("" when it does):
+    too few devices for the placement, or a tp that does not divide the
+    heads and MLP width of the model or its draft."""
+    why = []
+    if isinstance(device, (list, tuple)):
+        if len(device) != tp:
+            why.append(f"device lists {len(device)} device(s)")
+    elif device is None or torch.device(device).type == "cuda":
+        n = torch.cuda.device_count()
+        if n < tp:
+            why.append(f"{n} CUDA device(s) visible")
+    for name, c in (("model", cfg), ("draft", draft_cfg)):
+        if c is not None and (c.n_heads % tp or c.d_ff % tp):
+            why.append(f"tp={tp} does not divide the {name}'s n_heads "
+                       f"({c.n_heads}) and d_ff ({c.d_ff})")
+    return "; ".join(why)
 
 
 def _observe_request_metrics(req: "GenRequest", tags: dict) -> None:
@@ -427,41 +454,88 @@ class LLMEngine:
 
     def __init__(self, cfg, params=None, *, n_slots: int = 8,
                  max_len: int = 2048, seed: int = 0,
-                 prefill_buckets: tuple[int, ...] = DEFAULT_PREFILL_BUCKETS,
-                 decode_block: int = DEFAULT_DECODE_BLOCK,
-                 kv_mode: str = DEFAULT_KV_MODE,
-                 page_size: int = DEFAULT_PAGE_SIZE,
-                 n_pages: int | None = None, attn_impl: str = "auto",
-                 prefill_chunk: int = DEFAULT_PREFILL_CHUNK,
-                 prefill_token_budget: int = DEFAULT_PREFILL_TOKEN_BUDGET,
-                 prefill_width_bucketing: bool = DEFAULT_WIDTH_BUCKETING,
+                 prefill_buckets: tuple[int, ...] = (32, 64, 128, 256, 512),
+                 decode_block: int | None = None,
+                 kv_mode: str | None = None, page_size: int | None = None,
+                 n_pages: int | None = None, attn_impl: str | None = None,
+                 prefill_chunk: int | None = None,
+                 prefill_token_budget: int | None = None,
+                 prefill_width_bucketing: bool | None = None,
                  device=None,
-                 prefix_cache: bool = False,
-                 prefix_cache_pages: int = DEFAULT_PREFIX_CACHE_PAGES,
-                 spec_draft=None, spec_k: int = DEFAULT_SPEC_K,
-                 spec_draft_params=None, tp: int = 1,
+                 prefix_cache: bool | None = None,
+                 prefix_cache_pages: int | None = None,
+                 spec_draft=None, spec_k: int | None = None,
+                 spec_draft_params=None, tp: int | None = None,
                  pool_role: str | None = None,
                  kv_transfer: bool | None = None,
-                 kv_store=None, weight_dtype: str = "bf16",
-                 kv_dtype: str = "bf16", warmup: bool = False):
+                 kv_store=None, weight_dtype: str | None = None,
+                 kv_dtype: str | None = None, warmup: bool | None = None):
+        chunk_explicit = prefill_chunk is not None
+        cache_explicit = prefix_cache is not None
+        spec_explicit = spec_draft is not None
+        tp_explicit = tp is not None
+        kv_explicit = kv_transfer is not None
+        wdtype_explicit = weight_dtype is not None
+        kvdtype_explicit = kv_dtype is not None
+        # A knob left None reads the runtime's config (the attached
+        # client's in a driver or an actor, the raylet-forwarded one in a
+        # worker, else the RAY_TPU_TORCH_* environment), as the JAX
+        # engine's do. A global knob that misfits this engine is turned
+        # off below; an explicit argument that misfits raises.
+        rc = runtime_config()
+
+        def knob(value, field):
+            return getattr(rc, field) if value is None else value
+
+        kv_mode = knob(kv_mode, "llm_kv_mode")
+        page_size = knob(page_size, "llm_kv_page_size")
+        attn_impl = knob(attn_impl, "llm_attn_impl")
+        prefill_chunk = knob(prefill_chunk, "llm_prefill_chunk")
+        prefill_token_budget = knob(prefill_token_budget,
+                                    "llm_prefill_token_budget")
+        prefill_width_bucketing = knob(prefill_width_bucketing,
+                                       "llm_prefill_width_bucketing")
+        prefix_cache = knob(prefix_cache, "llm_prefix_cache")
+        prefix_cache_pages = knob(prefix_cache_pages,
+                                  "llm_prefix_cache_pages")
+        spec_draft = knob(spec_draft, "llm_spec_draft")
+        spec_k = knob(spec_k, "llm_spec_k")
+        tp = knob(tp, "llm_tp")
+        kv_transfer = knob(kv_transfer, "llm_kv_transfer")
+        weight_dtype = knob(weight_dtype, "llm_weight_dtype")
+        kv_dtype = knob(kv_dtype, "llm_kv_dtype")
+        warmup = knob(warmup, "llm_warmup_compile")
+        decode_block = knob(decode_block, "llm_decode_block")
+        if prefill_chunk and kv_mode != "paged" and not chunk_explicit:
+            # The global chunk knob applies to paged engines; a dense
+            # engine keeps one-shot admission.
+            prefill_chunk = 0
         paged_chunked = kv_mode == "paged" and bool(prefill_chunk)
         if prefix_cache and not paged_chunked:
-            raise ValueError(
-                "prefix_cache requires kv_mode='paged' AND prefill_chunk > 0 "
-                "(the cache granularity is the prefill chunk); got "
-                f"kv_mode={kv_mode!r}, prefill_chunk={prefill_chunk}")
+            if cache_explicit:
+                raise ValueError(
+                    "prefix_cache requires kv_mode='paged' AND "
+                    "prefill_chunk > 0 (the cache granularity is the "
+                    f"prefill chunk); got kv_mode={kv_mode!r}, "
+                    f"prefill_chunk={prefill_chunk}")
+            prefix_cache = False
         if prefix_cache_pages < 0:
             raise ValueError(
                 f"prefix_cache_pages must be >= 0, got {prefix_cache_pages}")
         if spec_draft and not paged_chunked:
-            raise ValueError(
-                "speculative decoding requires kv_mode='paged' AND "
-                "prefill_chunk > 0 (the verify pass is a chunked-prefill "
-                f"row); got kv_mode={kv_mode!r}, prefill_chunk={prefill_chunk}")
+            if spec_explicit:
+                raise ValueError(
+                    "speculative decoding requires kv_mode='paged' AND "
+                    "prefill_chunk > 0 (the verify pass is a chunked-"
+                    f"prefill row); got kv_mode={kv_mode!r}, "
+                    f"prefill_chunk={prefill_chunk}")
+            spec_draft = ""
         if spec_draft_params is not None and not spec_draft:
             raise ValueError(
-                "spec_draft_params supplied but speculative decoding is not "
-                "enabled (set spec_draft)")
+                "spec_draft_params supplied but speculative decoding is "
+                "not enabled — set spec_draft / llm_spec_draft (and note "
+                "the global knob soft-disables on non-paged/non-chunked "
+                "engines)")
         draft_cfg = None
         if spec_draft:
             if spec_k < 1:
@@ -475,44 +549,62 @@ class LLMEngine:
                     "speculative draft/target vocab mismatch: draft "
                     f"vocab_size {draft_cfg.vocab_size} != target vocab_size "
                     f"{cfg.vocab_size} (the tokenizer must be tied)")
-        # KV page-set transfer: the JAX engine's validation of explicit
-        # arguments (the port has no global knob to soft-disable).
+        # KV page-set transfer. A global llm_kv_transfer that misfits is
+        # turned off observably: logged once, and the reason rides
+        # metrics() and load_snapshot() as kv_transfer_disabled_reason.
         if pool_role not in (None, "", "prefill", "decode"):
             raise ValueError(
                 f"pool_role must be None|'prefill'|'decode', "
                 f"got {pool_role!r}")
         pool_role = pool_role or None
-        if pool_role is not None and kv_transfer is not None and (
-                not kv_transfer):
+        if pool_role is not None and kv_explicit and not kv_transfer:
             raise ValueError(
                 f"pool_role={pool_role!r} requires kv_transfer — the "
                 "prefill→decode handoff IS a page-set donation + "
                 "adoption")
-        kv_transfer = bool(kv_transfer) or pool_role is not None
+        if pool_role is not None:
+            kv_transfer = True
+        self._kv_transfer_disabled_reason = ""
         if kv_transfer and not (paged_chunked
                                 and prefill_chunk % page_size == 0):
             # Entries are deduped per chain depth across donations; only
             # page-aligned depths make a chain composed from different
             # donations self-contained.
-            raise ValueError(
+            reason = (
                 "KV page-set transfer requires kv_mode='paged' and "
                 "prefill_chunk > 0 with prefill_chunk % page_size == 0 "
                 "(cross-donation dedup needs page-aligned chain "
                 f"depths); got kv_mode={kv_mode!r}, "
                 f"prefill_chunk={prefill_chunk}, page_size={page_size}")
+            if kv_explicit or pool_role is not None:
+                raise ValueError(reason)
+            self._kv_transfer_disabled_reason = reason
+            logger.warning("llm_kv_transfer soft-disabled: %s", reason)
+            kv_transfer = False
         self.pool_role = pool_role
-        self.kv_transfer = kv_transfer
-        # Tensor parallelism: the JAX engine's validation of explicit
-        # arguments (the port has no global knob to soft-disable).
+        self.kv_transfer = bool(kv_transfer)
+        # Tensor parallelism. A global llm_tp that this engine, its host
+        # or its model does not fit serves unsharded (tp=1), logged.
         tp = int(tp)
         if tp < 1:
             raise ValueError(f"llm_tp must be >= 1, got {tp}")
         if tp > 1 and not paged_chunked:
-            raise ValueError(
-                "tensor-parallel decode requires kv_mode='paged' AND "
-                "prefill_chunk > 0 (the sharded programs are the paged "
-                f"chunked set); got kv_mode={kv_mode!r}, "
-                f"prefill_chunk={prefill_chunk}")
+            if tp_explicit:
+                raise ValueError(
+                    "tensor-parallel decode requires kv_mode='paged' AND "
+                    "prefill_chunk > 0 (the sharded programs are the "
+                    f"paged chunked set); got kv_mode={kv_mode!r}, "
+                    f"prefill_chunk={prefill_chunk}")
+            tp = 1
+        self._tp_disabled_reason = ""
+        if tp > 1 and not tp_explicit:
+            misfit = _tp_misfit(tp, device, cfg, draft_cfg)
+            if misfit:
+                self._tp_disabled_reason = misfit
+                logger.warning("llm_tp soft-disabled to 1: %s", misfit)
+                tp = 1
+                if isinstance(device, (list, tuple)):
+                    device = device[0]
         self.mesh, self.device = self._placement(tp, device)
         if tp > 1:
             if cfg.n_heads % tp or cfg.d_ff % tp:
@@ -536,15 +628,19 @@ class LLMEngine:
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype must be bf16|int8, got {kv_dtype!r}")
         if weight_dtype == "int8" and kv_mode != "paged":
-            raise ValueError(
-                "weight_dtype='int8' requires kv_mode='paged' (quantized "
-                "serving targets the paged engine; the dense path is "
-                f"unquantized); got kv_mode={kv_mode!r}")
+            if wdtype_explicit:
+                raise ValueError(
+                    "weight_dtype='int8' requires kv_mode='paged' "
+                    "(quantized serving targets the paged engine; the "
+                    f"dense path is unquantized); got kv_mode={kv_mode!r}")
+            weight_dtype = "bf16"
         if kv_dtype == "int8" and kv_mode != "paged":
-            raise ValueError(
-                "kv_dtype='int8' requires kv_mode='paged' (the scale planes "
-                "ride the page tables; the dense cache has none); got "
-                f"kv_mode={kv_mode!r}")
+            if kvdtype_explicit:
+                raise ValueError(
+                    "kv_dtype='int8' requires kv_mode='paged' (the scale "
+                    "planes ride the page tables; the dense cache has "
+                    f"none); got kv_mode={kv_mode!r}")
+            kv_dtype = "bf16"
         if attn_impl == "auto":
             # Resolved once: the kernels on CUDA, their plain versions on
             # the CPU (where a CUDA kernel cannot run at all).
@@ -684,13 +780,13 @@ class LLMEngine:
             collections.OrderedDict())
         self._kv_summary_max = 0
         if self.kv_transfer:
-            # No actor context here: the reference's off-actor donor id.
-            self._kv_donor = f"local:{os.getpid()}"
+            # The actor's id, or off an actor the reference's pid-based id.
+            self._kv_donor = _actor_id() or f"local:{os.getpid()}"
             self._kv_store = (kv_store if kv_store is not None
                               else _kvo.get_store())
             self._kv_fingerprint = _kvo.engine_fingerprint(
                 cfg, page_size, prefill_chunk, draft_cfg, kv_dtype=kv_dtype)
-            self._kv_summary_max = max(1, _kvo.SERVE_KV_SUMMARY_MAX)
+            self._kv_summary_max = max(1, int(rc.serve_kv_summary_max))
         # slot -> pinned CacheEntry while the slot is live (released on
         # free/preempt), and the tick's pending COW (src, dst) pairs,
         # flushed in one copy before the tick's first dispatch.
@@ -745,6 +841,9 @@ class LLMEngine:
         self._span_seq: dict[str, int] = {}
         self._ttft_seq = 0
         self._step_tags: dict | None = None
+        # The replica tag of the engine-side histograms, read here: the
+        # engine thread does not run in the actor's context.
+        self._replica = _request_metric_tags()["replica"]
         self._thread: threading.Thread | None = None
         self._lock = threading.Lock()
         # Serializes start()/stop() (two starts must not spawn two loops).
@@ -1172,8 +1271,7 @@ class LLMEngine:
         if self._step_tags is None:
             impl = (f"paged-{self.attn_impl}" if self.kv_mode == "paged"
                     else "dense")
-            self._step_tags = {
-                "replica": _request_metric_tags()["replica"], "impl": impl}
+            self._step_tags = {"replica": self._replica, "impl": impl}
         return self._step_tags
 
     def _observe_window(self, t0: float, end: float, k: int,
@@ -1260,6 +1358,10 @@ class LLMEngine:
                 m["pool_role"] = self.pool_role or "fused"
                 m["kv_summary_entries"] = len(self._kv_donated)
                 m["kv_summary_max"] = self._kv_summary_max
+            elif self._kv_transfer_disabled_reason:
+                m["kv_transfer"] = False
+                m["kv_transfer_disabled_reason"] = (
+                    self._kv_transfer_disabled_reason)
             if self.prefix_cache is not None:
                 m["prefix_cache"] = True
                 m["prefix_cache_entries"] = len(self.prefix_cache.entries)
@@ -1365,6 +1467,9 @@ class LLMEngine:
                             "kv_adopt_failures", "kv_digest_lookups"):
                     snap[key] = self.stats[key]
                 snap["kv_summary"] = list(self._kv_donated)
+            elif self._kv_transfer_disabled_reason:
+                snap["kv_transfer_disabled_reason"] = (
+                    self._kv_transfer_disabled_reason)
             if self.prefix_cache is not None:
                 snap["prefix_cache_entries"] = len(self.prefix_cache.entries)
                 snap["prefix_cache_pages"] = (

@@ -1,0 +1,7 @@
+"""Utilities of the port's runtime: asyncio task spawning (``aio``) and
+the serializability inspector (``check_serialize``), copies of the JAX
+package's."""
+
+from ray_tpu_torch.utils.check_serialize import inspect_serializability
+
+__all__ = ["inspect_serializability"]

@@ -22,8 +22,10 @@ gpt2_124m-wide training step with
 the card against full flash attention, the stochastic rounding's
 mean with a generator on the card, the MoE layer on the card against a
 plain top-2 loop (also over an ep = 2 mesh of the card, and its routing
-bitwise the host's), and one pipeline step at pp = 2 against the
-sequential step. The file imports neither JAX nor the JAX package, and the
+bitwise the host's), one pipeline step at pp = 2 against the
+sequential step, and the runtime (a num_gpus=1 task's CUDA return
+reaching the driver as a CPU tensor, CUDA tensors at top level and
+nested in the serializer, an actor's paged-kernel launches). The file imports neither JAX nor the JAX package, and the
 repo's conftest does, so run it with::
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -1139,3 +1141,77 @@ def test_pipeline_step_on_the_card_matches_sequential(cuda):
             fa.flash_dkv.launches) == (32, 16, 16)
     assert abs(loss_p - loss_s) <= 5e-4
     assert float((g_p - g_s).norm() / g_s.norm()) <= 2e-2
+
+
+# ------------------------------------------------ the runtime on the card
+
+@pytest.fixture
+def cluster(cuda):
+    import ray_tpu_torch
+
+    ray_tpu_torch.init(num_cpus=2, resources={"GPU": 1})
+    try:
+        yield ray_tpu_torch
+    finally:
+        ray_tpu_torch.shutdown()
+
+
+def _cuda_ramp():
+    return torch.arange(12, dtype=torch.bfloat16, device="cuda") * 3
+
+
+def test_task_returns_a_cuda_tensor_as_a_cpu_tensor(cluster):
+    out = cluster.get(cluster.remote(num_gpus=1)(_cuda_ramp).remote(),
+                      timeout=120)
+    want = torch.arange(12, dtype=torch.bfloat16) * 3
+    assert out.device.type == "cpu" and torch.equal(out, want)
+
+
+def test_cuda_tensors_at_top_level_and_nested(cuda):
+    """As the JAX runtime's jax.Array (tests/test_torch_runtime_parity.py
+    pins that side): at top level a CUDA tensor comes back a CPU tensor
+    through the out-of-band path; nested, torch's own pickling keeps it
+    on its device, in-band."""
+    from ray_tpu_torch.core import serialization as ser
+
+    t = torch.arange(6, dtype=torch.float32, device=cuda)
+    head, views = ser.serialize(t)
+    out = ser.unpack(ser.pack(t))
+    assert len(views) == 1 and out.device.type == "cpu"
+    assert torch.equal(out, t.cpu())
+    head, views = ser.serialize({"t": t})
+    out = ser.unpack(ser.pack({"t": t}))
+    assert not views and out["t"].device.type == "cuda"
+    assert torch.equal(out["t"], t)
+
+
+class _KernelEngine:
+    """A tiny paged kernel engine (head dim 64) in an actor's worker."""
+
+    def __init__(self):
+        cfg = gpt.GPTConfig.tiny_untied(dtype=torch.float32, d_model=256,
+                                        n_heads=4)
+        self.eng = LLMEngine(cfg, kv_mode="paged", n_slots=4, max_len=128,
+                             page_size=16, prefill_chunk=32,
+                             prefill_token_budget=64, attn_impl="kernel",
+                             device="cuda")
+
+    def serve(self, prompts):
+        pa.reset_launch_counts()
+        reqs = [self.eng.submit(p, max_tokens=8) for p in prompts]
+        for _ in range(400):
+            if all(r.done.is_set() for r in reqs):
+                break
+            self.eng.step()
+        assert all(r.error is None for r in reqs)
+        return (pa.paged_attention.launches,
+                pa.paged_prefill_attention.launches)
+
+
+def test_an_actor_launches_the_paged_kernels(cluster):
+    actor = cluster.remote(num_gpus=1)(_KernelEngine).remote()
+    rng = np.random.default_rng(4)
+    prompts = [list(map(int, rng.integers(1, 200, n))) for n in (3, 40, 90)]
+    decode, prefill = cluster.get(actor.serve.remote(prompts), timeout=300)
+    assert decode > 0 and prefill > 0
+    cluster.kill(actor)

@@ -15,7 +15,9 @@
   fused windows (decode_block 8) against single steps, at ``max_len``
   capacity (tests/test_llm_serve.py:249, including a window that ends at
   ``max_len``) and with an eos; the engine thread and streaming.
-- The port's engine defaults equal the field defaults of the JAX
+- The port's engine defaults are the port's ``Config`` field defaults
+  (its knobs are None sentinels read from ``runtime_config()``, as the
+  JAX engine's are), and those equal the field defaults of the JAX
   package's ``Config`` dataclass (not ``runtime_config()``, which reads
   the environment) and its engine's ``prefill_buckets``; ``attn_impl``
   is "auto" by definition (ROADMAP.md queue 3).
@@ -40,6 +42,7 @@ from ray_tpu.models import decode as jdec
 from ray_tpu.models import gpt as jgpt
 from ray_tpu.serve.llm import LLMEngine as JaxEngine
 from ray_tpu_torch._bridge import params_from_jax, pool_from_jax
+from ray_tpu_torch.core.config import Config as PortConfig
 from ray_tpu_torch.models import decode as tdec
 from ray_tpu_torch.models import gpt as tgpt
 from ray_tpu_torch.ops import paged_attention as tpa
@@ -283,14 +286,16 @@ def test_defaults_build_a_dense_one_shot_engine(weights):
 
 def test_port_defaults_equal_the_reference_config():
     """Every engine knob the port has defaults as the JAX package's
-    Config dataclass field (tp and warmup are the features' off values);
-    kv_transfer defaults to None in both engines' signatures (None: off
-    unless a pool role is set; an explicit False with a role raises), and
-    an engine built with the defaults resolves it to the Config field's
-    value; attn_impl differs by definition."""
+    Config dataclass field (tp and warmup are the features' off values):
+    both engines' signatures hold None for each and read the knob from
+    their runtime's Config, whose fields agree; kv_transfer resolves to
+    the Config field's value in an engine built with the defaults;
+    attn_impl differs by definition, in the port's Config default."""
     fields = {f.name: f.default for f in dataclasses.fields(Config)}
-    port = {k: p.default for k, p in
-            inspect.signature(LLMEngine.__init__).parameters.items()}
+    port_fields = {f.name: f.default
+                   for f in dataclasses.fields(PortConfig)}
+    sig = inspect.signature(LLMEngine.__init__).parameters
+    ref = inspect.signature(JaxEngine.__init__).parameters
     knob_of = {"decode_block": "llm_decode_block", "kv_mode": "llm_kv_mode",
                "page_size": "llm_kv_page_size",
                "prefill_chunk": "llm_prefill_chunk",
@@ -302,19 +307,20 @@ def test_port_defaults_equal_the_reference_config():
                "weight_dtype": "llm_weight_dtype",
                "kv_dtype": "llm_kv_dtype",
                "warmup": "llm_warmup_compile"}
-    assert {k: port[k] for k in knob_of} == {
-        k: fields[f] for k, f in knob_of.items()}
-    assert port["kv_transfer"] is None and port["pool_role"] is None
-    assert inspect.signature(JaxEngine.__init__).parameters[
-        "kv_transfer"].default is None
+    port = {k: port_fields[f] for k, f in knob_of.items()}
+    assert port == {k: fields[f] for k, f in knob_of.items()}
+    for k in (*knob_of, "attn_impl", "kv_transfer", "pool_role",
+              "spec_draft"):
+        assert sig[k].default is None and ref[k].default is None, k
     eng = LLMEngine(TCFG, None, kv_mode="paged", prefill_chunk=8,
                     page_size=8, max_len=32, n_slots=1, device="cpu")
     assert eng.kv_transfer is fields["llm_kv_transfer"] is False
-    assert not port["spec_draft"] and not fields["llm_spec_draft"]
-    ref = inspect.signature(JaxEngine.__init__).parameters
+    assert eng.tp == 1 and eng.decode_block == fields["llm_decode_block"]
+    assert not port_fields["llm_spec_draft"] and not fields["llm_spec_draft"]
     for k in ("n_slots", "max_len", "seed", "prefill_buckets"):
-        assert port[k] == ref[k].default, k
-    assert port["attn_impl"] == "auto" and fields["llm_attn_impl"] == "gather"
+        assert sig[k].default == ref[k].default, k
+    assert (port_fields["llm_attn_impl"] == "auto"
+            and fields["llm_attn_impl"] == "gather")
 
 
 def test_slots_are_independent(weights):

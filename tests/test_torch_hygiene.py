@@ -2,7 +2,11 @@
 
 - no file of the port, nor chip_smoke.py, nor the card tests (which run
   where JAX is absent), imports jax or the ray_tpu package (found by
-  scanning every import statement's AST);
+  scanning every import statement's AST), nor names a module of the
+  ray_tpu package in a string constant (``"-m", "ray_tpu.core.worker"``
+  would start the JAX runtime's worker);
+- a port cluster's GCS, raylet and the worker of a torch-free task never
+  load torch or jax;
 - the default device is CUDA and raises without a GPU, and a CUDA
   request never falls back to a plain version;
 - every kernel has its CUDA source, each naming the TPU kernel it
@@ -13,6 +17,7 @@
 
 import ast
 import os
+import re
 from pathlib import Path
 
 import pytest
@@ -40,6 +45,70 @@ def _imported_modules(path: Path):
 def _forbidden(mod: str) -> bool:
     top = mod.split(".")[0]
     return top in ("jax", "jaxlib", "ray_tpu")
+
+
+# A dotted module path of the JAX package (not ray_tpu_torch, and not a
+# file path of the reference such as ray_tpu/serve/llm.py in a
+# docstring), or a string that is the package's name itself.
+_MODULE_PATH = re.compile(r"(?<![\w/.])ray_tpu(?:\.[A-Za-z_]\w*)+")
+
+
+def _module_strings(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            if node.value.strip() == "ray_tpu":
+                yield node.value.strip()
+            yield from _MODULE_PATH.findall(node.value)
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_string_names_a_ray_tpu_module(path):
+    bad = list(_module_strings(path))
+    assert not bad, f"{path.relative_to(ROOT)} names {bad}"
+
+
+def test_string_scanner_catches_module_names(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text('cmd = ["python", "-m", "ray_tpu.core.worker"]\n'
+                 'top = "ray_tpu"\n'
+                 'ok = ["ray_tpu_torch.core.gcs", "see ray_tpu/api.py:156"]\n'
+                 'def f():\n    """Calls ray_tpu.api.init."""\n')
+    assert sorted(_module_strings(f)) == [
+        "ray_tpu", "ray_tpu.api.init", "ray_tpu.core.worker"]
+
+
+def _maps_name(pid: int, names: tuple[str, ...]) -> list[str]:
+    """Which of `names` appear in the shared objects process `pid` has
+    mapped (torch loads libtorch, jax its jaxlib extension)."""
+    with open(f"/proc/{pid}/maps") as f:
+        text = f.read()
+    return [n for n in names if n in text]
+
+
+def test_runtime_daemons_and_torch_free_workers_load_no_torch():
+    """The GCS, the raylet and a worker that ran a torch-free task hold
+    neither torch nor jax: importing the package and its daemons imports
+    neither (the API loads lazily)."""
+    import ray_tpu_torch
+    from ray_tpu_torch import api
+
+    ray_tpu_torch.init(num_cpus=1)
+    try:
+        @ray_tpu_torch.remote
+        def probe():
+            import sys
+            return (os.getpid(), "torch" in sys.modules,
+                    "jax" in sys.modules)
+
+        pid, has_torch, has_jax = ray_tpu_torch.get(probe.remote(),
+                                                    timeout=60)
+        assert not has_torch and not has_jax
+        for p in [proc.pid for proc in api._node.procs] + [pid]:
+            assert _maps_name(p, ("libtorch", "jaxlib")) == [], p
+    finally:
+        ray_tpu_torch.shutdown()
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -23,9 +23,10 @@ resharding side runs on the forced host devices of tests/conftest.py;
 the port's mesh is the CPU repeated. The paged kernels' launch
 counters stay 0 (the plain versions run on CPU tensors).
 
-Not mirrored: the cluster store and its sweep (``ObjectKVStore``,
-``sweep_cluster``), the global ``llm_kv_transfer`` knob and the
-cluster pool split, none of which the port has.
+Not mirrored here: the cluster store and its sweep (``ObjectKVStore``,
+``sweep_cluster``) and the cluster pool split, which the port does not
+have yet; the global ``llm_kv_transfer`` knob's cases
+(``TestKnobValidation``) are mirrored in tests/test_torch_engine_actor.py.
 """
 
 import numpy as np

@@ -22,6 +22,10 @@
     python3 chip_smoke.py --only runtime
                           # the runtime: kernels in a task, the object
                           # plane, LLMEngine(opt_1_3b) in an actor
+    python3 chip_smoke.py --only serve
+                          # the serve plane: LLMDeployment(opt_1_3b)
+                          # replicas behind handles and the HTTP proxy,
+                          # a prefill→decode split, the orphan sweep
 
 Phases, one JSON line each, each with ``at_s``, the seconds since the
 script began (the whole record also goes to build/chip_smoke.json):
@@ -130,7 +134,8 @@ script began (the whole record also goes to build/chip_smoke.json):
    step and per prefill dispatch, no float paged launch, the
    kv_pool_bytes identity, weight bytes, and the share of each stream
    that agrees with the bf16 engine's.
-   engine_prefix: LLMEngine(opt_1_3b, prefix_cache=True), chunk 160, 512
+   engine_prefix: LLMEngine(opt_1_3b cut to its first 8 layers,
+   CUT_DEPTH, full width, prefix_cache=True), chunk 160, 512
    pages, 16 prompts of a shared 900-token system prompt and seeded
    suffixes of 64-512, 32 greedy tokens each, twice on one engine: cold,
    then warm (>= 15 hits, a copy-on-write, fewer prefill tokens), the
@@ -147,7 +152,8 @@ script began (the whole record also goes to build/chip_smoke.json):
    bf16 and then int8 weights and KV: exactly n_layers decode launches
    per decode step of its own dtype, no prefill kernel launch, the
    accounting closed.
-   engine_drain: the dense engine, then the chunked paged kernel engine:
+   engine_drain (opt_1_3b cut to its first 8 layers, CUT_DEPTH, full
+   width): the dense engine, then the chunked paged kernel engine:
    16 prompts cut to 1,024 tokens, 64 tokens each, drain(0.0) two ticks
    after half the streams have started, every continuation resumed on a
    fresh engine of the same mode
@@ -185,7 +191,9 @@ script began (the whole record also goes to build/chip_smoke.json):
    error, and a later submit must raise.
    engine_tp: tensor-parallel serving with every shard on cuda:0 (the
    shards run in turn: no tp speed-up can show on one card), the engine
-   phase's configuration: tp=2 on its 16 prompts against a tp=1 engine;
+   phase's configuration cut to opt_1_3b's first 8 layers (CUT_DEPTH; the
+   full width, 32 heads, d 2048: a depth cut that makes room for the
+   serve phase): tp=2 on its 16 prompts against a tp=1 engine;
    then on 8 of them tp=4, tp=2 with int8 weights and KV (against a
    tp=1 int8 engine), tp=2 with spec_k 4 and the gpt2_124m draft (6
    heads per shard), and a tp=2 drain(0.0) resumed on a tp=1 engine.
@@ -244,6 +252,34 @@ script began (the whole record also goes to build/chip_smoke.json):
    later call raises ActorDiedError and the card's free memory comes
    back within 1 GB of what the actor held; then shutdown. The phase
    runs before the training phases.
+   serve: the serve plane on the port's runtime (init(num_cpus=8,
+   resources={"GPU": 1}, serve_kv_sweep_interval_s 2)): (a)
+   LLMDeployment("opt_1_3b", the engine phase's knobs, warmup=True), 2
+   replicas at num_gpus=0.5 on the card behind start_proxy(): the
+   engine phase's last 8 prompts as SSE posts arriving in turn (each
+   once the one before has its first token), then its first 8 as
+   concurrent handle streams, 32 greedy tokens each, the launch counters
+   of every replica zeroed just before and read just after (24 decode
+   launches per decode step and per prefill dispatch in each, both
+   replicas served), no request error, every SSE first token before
+   half its stream, pages closed; TTFT by route beside the in-process
+   engine's, the boot wall, memory per replica, back within 1 GB after
+   the delete; (b) kvp (pool_role prefill, pool_peer kvd) and kvd
+   (decode), one replica each at num_gpus=0.5: engine_kv's 8 prompts (7
+   with a full chunk) by SSE, 24 tokens: 7 adoptions, none failed, the
+   decode replica prefilling the cold tails alone, pages closed on both;
+   every page set of the cluster store's index, fetched here, bitwise an
+   in-process prefill engine's donation of the same prompts, and a page
+   set with one page's K plane rolled must differ; the decode leg alone
+   (prompt and first token to kvd) adopted against re-prefilled, its
+   TTFT; the payloads' get and put GB/s here; (c) the orphan sweep:
+   SIGKILL of the kvp replica, its index entries gone within 3 sweep
+   intervals, the node store's bytes down. Streams (a) and (b) equal the
+   engine phase's, or leave them only where the in-process logits of
+   the two tokens are within SERVE_TIE_MARGIN (a bf16 near-tie: a
+   replica batches other requests than the engine phase did), which a
+   planted wrong token must exceed. Every part runs; the phase fails
+   after its line if a gate did.
 7. train: build_training(gpt2_124m(max_seq=1024, remat=True,
    attn_impl="flash"), adamw(3e-4, weight_decay=0.1, mu_dtype=bf16))
    with seeded random weights and a seeded [8, 1024] batch: one step of
@@ -2351,6 +2387,20 @@ ENGINE_KNOBS = dict(n_slots=16, max_len=2048, page_size=64, kv_mode="paged",
                     prefill_chunk=256, prefill_token_budget=512,
                     attn_impl="kernel")
 
+CUT_DEPTH = 8          # engine_tp's, engine_prefix's and engine_drain's
+                       # layers: opt_1_3b's first 8 of 24, full width (a
+                       # depth cut that makes room for `serve`)
+
+
+def first_layers(cfg, trees, n):
+    """``cfg`` and parameter dicts cut to their first ``n`` layers (the
+    stacked block leaves sliced, views; every width unchanged)."""
+    stacked = {k for k, s in gpt.param_specs(cfg).items()
+               if s["axes"] and s["axes"][0] == "layers"}
+    return dataclasses.replace(cfg, n_layers=n), [
+        {k: v[:n] if k in stacked else v for k, v in tree.items()}
+        for tree in trees]
+
 
 def launch_counts():
     return {"paged_attention": pa.paged_attention.launches,
@@ -2647,7 +2697,8 @@ def phase_engine_prefix(device, cfg, params):
     cold (round 1), then the same 16 again, warm (round 2). Requires no
     request error, >= 15 hits and a copy in round 2, fewer prefill tokens
     than round 1, both kernels launched in each round, and the closed
-    accounting with cached pages."""
+    accounting with cached pages. Cut to CUT_DEPTH layers."""
+    cfg, (params,) = first_layers(cfg, (params,), CUT_DEPTH)
     eng, runs = run_engine(device, cfg, params, prompts=prefix_prompts(cfg),
                            rounds=2, chunk=PREFIX_CHUNK, prefix_cache=True,
                            n_pages=512)
@@ -2666,8 +2717,9 @@ def phase_engine_prefix(device, cfg, params):
                              f"{mc['prefill_tokens']})")
     shares = agreement([r.out_ids for r in warm[0]],
                        [r.out_ids for r in cold[0]])
-    emit({"phase": "engine_prefix", "config": "opt_1_3b bf16, prefix cache, "
-          f"chunk {PREFIX_CHUNK}, 512 pages of 64",
+    emit({"phase": "engine_prefix", "config": "opt_1_3b bf16 cut to its "
+          f"first {CUT_DEPTH} layers, prefix cache, chunk {PREFIX_CHUNK}, "
+          "512 pages of 64",
           "prompts": f"16 x ({PREFIX_SHARED} shared + 64-512 seeded)",
           "cold_round": round_record(cold, PREFIX_KEYS),
           "warm_round": round_record(warm, PREFIX_KEYS),
@@ -3064,8 +3116,9 @@ def resume_continuations(device, cfg, params, knobs, conts, tokens, *,
 
 def phase_engine_drain(device, cfg, params):
     """drain/resume on the dense one-shot engine, then on the chunked
-    paged kernel engine (`drain_round`)."""
-    out = {"phase": "engine_drain",
+    paged kernel engine (`drain_round`), cut to CUT_DEPTH layers."""
+    cfg, (params,) = first_layers(cfg, (params,), CUT_DEPTH)
+    out = {"phase": "engine_drain", "layers": CUT_DEPTH,
            "traffic": f"16 prompts cut to {DRAIN_CUT} tokens, "
                       f"{DRAIN_TOKENS} tokens each, drain(0.0) "
                       f"{DRAIN_TICKS} ticks after half the streams "
@@ -3086,8 +3139,6 @@ def phase_engine_drain(device, cfg, params):
 TP_LOGIT_MAE = PROGRAM_LOGIT_MAE
 TP_FAULT_LAYER = 0     # the planted fault drops shard 1's attention partial
 TP_FEW = 8             # requests of the later arms (b)-(e)
-
-
 def tp_mesh(tp):
     """tp shards, every one on cuda:0 (one card)."""
     return [torch.device("cuda", 0)] * tp
@@ -3288,7 +3339,8 @@ def tp_drain(device, cfg, params, prompts):
 
 def phase_engine_tp(device, cfg, params, masters):
     """Tensor-parallel serving on one card (every shard on cuda:0), the
-    engine phase's configuration and traffic: tp=2 against a tp=1 engine
+    engine phase's configuration (cut to CUT_DEPTH layers) and traffic:
+    tp=2 against a tp=1 engine
     on the 16 prompts; then, on the first TP_FEW prompts, (b) tp=4, (c)
     tp=2 with int8 weights and KV against a tp=1 int8 engine (the scale
     planes bitwise equal across shards at the end), (d) tp=2 with
@@ -3302,9 +3354,11 @@ def phase_engine_tp(device, cfg, params, masters):
     one after another."""
     prompts = engine_prompts(cfg)
     few = prompts[:TP_FEW]
-    out = {"phase": "engine_tp", "config": "opt_1_3b bf16, 16 slots, "
-           "max_len 2048, page 64, chunk 256, budget 512, every shard on "
-           "cuda:0", "logit_mae_bound": TP_LOGIT_MAE}
+    cfg, (params, masters) = first_layers(cfg, (params, masters), CUT_DEPTH)
+    out = {"phase": "engine_tp", "config": f"opt_1_3b bf16 cut to its "
+           f"first {CUT_DEPTH} layers (full width), 16 slots, max_len "
+           "2048, page 64, chunk 256, budget 512, every shard on cuda:0",
+           "logit_mae_bound": TP_LOGIT_MAE}
     by_path = {}
     eng1, run1, rows1 = tp_run(device, cfg, params, 1, prompts)
     ref = [r.out_ids for r in run1[0]]
@@ -4573,6 +4627,648 @@ def phase_runtime(device, engine_ref):
     return launches
 
 
+# --------------------------------------------------------------- serve
+
+SERVE_SYSTEM_CONFIG = {"serve_kv_sweep_interval_s": 2.0,
+                       "serve_kv_object_ttl_s": 3600.0}
+SERVE_ENGINE_KW = {**{k: v for k, v in ENGINE_KNOBS.items()
+                      if k not in ("n_slots", "max_len")}, "warmup": True}
+SERVE_REPLICA_GPUS = 0.5
+SERVE_MODEL = "opt_1_3b"   # the replicas' preset: bf16, from the seed 0
+SERVE_DEVICE = None        # the replicas' device: cuda, their default
+SERVE_SWEEP_WAIT = 3      # x serve_kv_sweep_interval_s for the orphan sweep
+# A served greedy stream may leave the in-process engine's only where
+# the in-process logits of the two tokens are this close (a bf16 near-
+# tie): the replicas batch other requests than the in-process engine
+# did, and the decode kernel's split and the dispatch shapes follow the
+# batch, so the rounding of the logits does too.
+SERVE_TIE_MARGIN = 0.1
+
+
+def sse_stream(port, route, payload, timeout_s=600.0, on_first=None):
+    """One SSE client of the proxy: POST ``payload`` with stream=True and
+    read its events to [DONE]; ``on_first()`` runs at the first token.
+    → {"tokens", "arrivals" (seconds since the send), "done", "error"}."""
+    import socket
+
+    body = json.dumps(dict(payload, stream=True)).encode()
+    req = (b"POST " + route.encode() + b" HTTP/1.1\r\nHost: x\r\n"
+           b"Content-Type: application/json\r\nContent-Length: "
+           + str(len(body)).encode() + b"\r\n\r\n" + body)
+    out = {"tokens": [], "arrivals": [], "done": False, "error": None}
+    t0 = time.perf_counter()
+    with socket.create_connection(("127.0.0.1", port),
+                                  timeout=timeout_s) as s:
+        s.sendall(req)
+        buf = b""
+        while b"\r\n\r\n" not in buf:
+            data = s.recv(65536)
+            if not data:
+                out["error"] = "closed before the response head"
+                return out
+            buf += data
+        head, buf = buf.split(b"\r\n\r\n", 1)
+        if not head.startswith(b"HTTP/1.1 200"):
+            out["error"] = head.split(b"\r\n", 1)[0].decode()
+            return out
+        while True:
+            idx = buf.find(b"\n\n")
+            if idx < 0:
+                data = s.recv(65536)
+                if not data:
+                    return out
+                buf += data
+                continue
+            event, buf = buf[:idx].strip(), buf[idx + 2:]
+            if not event.startswith(b"data: "):
+                continue
+            data = event[len(b"data: "):]
+            if data == b"[DONE]":
+                out["done"] = True
+                return out
+            msg = json.loads(data)
+            if "token" in msg:
+                out["tokens"].append(int(msg["token"]))
+                out["arrivals"].append(time.perf_counter() - t0)
+                if on_first is not None and len(out["tokens"]) == 1:
+                    on_first()
+            elif "error" in msg:
+                out["error"] = msg["error"]
+                return out
+
+
+def handle_stream(handle, payload):
+    """One DeploymentHandle.stream client, in the SSE reader's shape."""
+    out = {"tokens": [], "arrivals": [], "done": False, "error": None}
+    t0 = time.perf_counter()
+    try:
+        for tok in handle.stream(payload):
+            out["tokens"].append(int(tok))
+            out["arrivals"].append(time.perf_counter() - t0)
+        out["done"] = True
+    except Exception as e:  # noqa: BLE001 — a request error is a gate
+        out["error"] = repr(e)
+    return out
+
+
+def start_clients(jobs):
+    """Start every ``(fn, args)`` at once, each on its own thread,
+    released together. → (threads, results), the results filled in
+    order as the threads finish (`join_clients`)."""
+    results = [None] * len(jobs)
+    gate = threading.Barrier(len(jobs))
+
+    def run(i, fn, args):
+        gate.wait()
+        try:
+            results[i] = fn(*args)
+        except Exception as e:  # noqa: BLE001 — reported as the result
+            results[i] = {"tokens": [], "arrivals": [], "done": False,
+                          "error": repr(e)}
+
+    threads = [threading.Thread(target=run, args=(i, fn, args))
+               for i, (fn, args) in enumerate(jobs)]
+    for t in threads:
+        t.start()
+    return threads, results
+
+
+def join_clients(started):
+    threads, results = started
+    for t in threads:
+        t.join(timeout=900)
+    return results
+
+
+def run_clients(jobs):
+    return join_clients(start_clients(jobs))
+
+
+def pctl_ms(xs, q):
+    return float(np.percentile(xs, q)) * 1e3 if xs else None
+
+
+def replicas_of(rt, ctrl, name):
+    """(actor handle, pid) of each routable replica of ``name``, the pid
+    from the controller's load table (polled until every replica has
+    been probed)."""
+    deadline = time.monotonic() + 60
+    while True:
+        table = rt.get(ctrl.get_routing.remote(-1), timeout=30)
+        reps = table["routes"][name]["replicas"]
+        load = rt.get(ctrl.get_load.remote(), timeout=30).get(name, {})
+        pids = {r["actor_id"]: r.get("pid")
+                for r in load.get("replicas", [])}
+        got = [(h, pids.get(h._actor_id.hex())) for h in reps]
+        if all(p for _h, p in got) or time.monotonic() > deadline:
+            return got
+        time.sleep(0.2)
+
+
+def replica_call(rt, h, method, *args, **kwargs):
+    return rt.get(h.handle_request.remote(method, args, kwargs),
+                  timeout=300)
+
+
+def wait_ready(port, route):
+    """Poll the proxy until ``route`` resolves: an empty body reaches the
+    replica, which rejects it before the engine (no kernel runs)."""
+    import urllib.error
+    import urllib.request
+
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline:
+        try:
+            urllib.request.urlopen(urllib.request.Request(
+                f"http://127.0.0.1:{port}{route}", data=b"{}"), timeout=60)
+            return
+        except urllib.error.HTTPError as e:
+            if e.code != 404:
+                return
+        except OSError:
+            pass
+        time.sleep(0.1)
+    raise AssertionError(f"the proxy never routed {route}")
+
+
+def first_divergence(a, b):
+    """Index of the first token where streams ``a`` and ``b`` differ,
+    None when equal."""
+    if a == b:
+        return None
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def tie_margins(device, cfg, cases):
+    """For each ``(context, ref token, served token)``, |logit(ref) -
+    logit(served)| in the logits an in-process engine (the replicas'
+    model and knobs, seed 0) samples the token after ``context`` from."""
+    if not cases:
+        return []
+    rows = {}
+    eng = LLMEngine(cfg, seed=0, device=device, **ENGINE_KNOBS)
+    capture_first_logits(rows)(eng)
+    reqs = [eng.submit(ctx, max_tokens=1, request_id=str(i))
+            for i, (ctx, _a, _b) in enumerate(cases)]
+    eng.start()
+    try:
+        for r in reqs:
+            if not r.done.wait(timeout=600):
+                raise AssertionError("tie-margin request timed out")
+    finally:
+        eng.stop()
+    del eng
+    torch.cuda.empty_cache()
+    return [abs(float(rows[str(i)][a] - rows[str(i)][b]))
+            for i, (_ctx, a, b) in enumerate(cases)]
+
+
+def stream_cases(prompts, got, ref):
+    """Served greedy streams against the in-process engine's: the first
+    index where each differs (None when equal), and for each departure
+    the (context, in-process token, served token) `tie_margins` reads.
+    → (record, cases)."""
+    div = [first_divergence(g, r) for g, r in zip(got, ref)]
+    cases = [(prompts[i] + ref[i][:t], ref[i][t], got[i][t])
+             for i, t in enumerate(div)
+             if t is not None and t < min(len(got[i]), len(ref[i]))]
+    return {"equal": sum(t is None for t in div), "streams": len(got),
+            "first_divergence": div,
+            "other_length": [i for i, (g, r) in enumerate(zip(got, ref))
+                             if len(g) != len(r)]}, cases
+
+
+def check_streams(device, cfg, parts, planted, bad):
+    """Each part's served streams equal the in-process engine's or leave
+    them at a near-tie (`SERVE_TIE_MARGIN`), which a planted wrong token
+    must exceed: ``planted`` (context, in-process token) is scored
+    against the token of the next id. The margins of every part come
+    from one in-process engine. ``parts``: {tag: (record, cases)} from
+    `stream_cases`; each record gains its margins. Appends failures to
+    ``bad``."""
+    cases = [c for _rec, cs in parts.values() for c in cs]
+    ctx, tok = planted
+    margins = tie_margins(device, cfg, cases + [
+        (ctx, tok, (tok + 1) % cfg.vocab_size)])
+    i = 0
+    for tag, (rec, cs) in parts.items():
+        rec["tie_margins"] = margins[i:i + len(cs)]
+        rec["tie_margin_bound"] = SERVE_TIE_MARGIN
+        rec["planted_wrong_token_margin"] = margins[-1]
+        i += len(cs)
+        if rec["other_length"]:
+            bad.append(f"{tag}: streams of another length: "
+                       f"{rec['other_length']}")
+        if any(m > SERVE_TIE_MARGIN for m in rec["tie_margins"]):
+            bad.append(f"{tag}: a stream left the in-process one off a "
+                       f"tie: {rec['tie_margins']}")
+    if margins[-1] <= SERVE_TIE_MARGIN:
+        bad.append(f"the planted wrong token passed ({margins[-1]})")
+
+
+def served_record(results):
+    ttft = [r["arrivals"][0] for r in results if r["arrivals"]]
+    return {"requests": len(results),
+            "errors": [r["error"] for r in results if r["error"]],
+            "ttft_ms_p50": pctl_ms(ttft, 50),
+            "ttft_ms_p95": pctl_ms(ttft, 95),
+            "first_token_before_half": [
+                bool(r["arrivals"]) and r["arrivals"][0]
+                < 0.5 * r["arrivals"][-1] for r in results]}
+
+
+def serve_fused(rt, serve, ctrl, cfg, prompts, ref_streams, ref_record,
+                device, bad):
+    """LLMDeployment(opt_1_3b) with 2 replicas at num_gpus=0.5 behind the
+    proxy, warmed (`warmup=True`): 8 SSE posts arriving in turn, then 8
+    concurrent handle streams."""
+    from ray_tpu_torch.serve.llm import LLMDeployment
+
+    free0 = free_memory()
+    t0 = time.perf_counter()
+    handle = serve.run(serve.deployment(LLMDeployment, name="llm").options(
+        num_replicas=2, route_prefix="/llm",
+        ray_actor_options={"num_gpus": SERVE_REPLICA_GPUS}).bind(
+        SERVE_MODEL, n_slots=ENGINE_KNOBS["n_slots"],
+        max_len=ENGINE_KNOBS["max_len"], device=SERVE_DEVICE,
+        engine_kwargs=dict(SERVE_ENGINE_KW)), timeout=600.0)
+    boot_s = time.perf_counter() - t0
+    _proxy, port = serve.start_proxy()
+    wait_ready(port, "/llm")
+    free_held = free_memory()
+    reps = replicas_of(rt, ctrl, "llm")
+    before = [replica_call(rt, h, "metrics") for h, _ in reps]
+    for h, _ in reps:
+        replica_call(rt, h, "kernel_launches", reset=True)
+    half = len(prompts) // 2
+    payload = lambda p: {"prompt_ids": p, "max_tokens": ENGINE_TOKENS}
+    firsts = threading.Semaphore(0)
+    t0 = time.perf_counter()
+    # The SSE posts arrive one after another, each once the one before
+    # has its first token; then the 8 handle streams all at once. Every
+    # stream overlaps others. A burst of all 16 would queue each SSE
+    # post's prefill behind the others' (512 tokens a tick beside an
+    # 8-step decode window), and a first token that late comes after
+    # half the stream whether the proxy streams or buffers.
+    sse = []
+    for p in prompts[half:]:
+        sse.append(start_clients([(sse_stream, (
+            port, "/llm", payload(p), 600.0, firsts.release))]))
+        if not firsts.acquire(timeout=600):
+            break
+    handles = run_clients([(handle_stream, (handle, payload(p)))
+                           for p in prompts[:half]])
+    results = handles + [r for s in sse for r in join_clients(s)]
+    wall = time.perf_counter() - t0
+    launches = [replica_call(rt, h, "kernel_launches") for h, _ in reps]
+    after = [replica_call(rt, h, "metrics") for h, _ in reps]
+    per_replica = []
+    for (h, pid), b, a, n in zip(reps, before, after, launches):
+        steps = a["decode_steps"] - b["decode_steps"]
+        disp = a["prefill_dispatches"] - b["prefill_dispatches"]
+        per_replica.append({
+            "pid": pid, "requests": a["completed"] - b["completed"],
+            "launches": n, "decode_steps": steps,
+            "prefill_dispatches": disp,
+            "decode_launches_per_step":
+                n["paged_attention"] / max(1, steps),
+            "prefill_launches_per_dispatch":
+                n["paged_prefill_attention"] / max(1, disp),
+            "page_accounting": replica_call(rt, h, "page_accounting")})
+    out = {"replicas": 2, "num_gpus_each": SERVE_REPLICA_GPUS,
+           "boot_wall_s": boot_s, "wall_s": wall,
+           "memory_held_gb_per_replica": (free0 - free_held) / 2e9,
+           "handle": served_record(results[:half]),
+           "sse": served_record(results[half:]),
+           "in_process": {k: ref_record.get(k) for k in (
+               "wall_s", "ttft_ms_p50", "ttft_ms_p95")},
+           "per_replica": per_replica}
+    for route in ("handle", "sse"):
+        if out[route]["errors"]:
+            bad.append(f"fused {route} request errors "
+                       f"{out[route]['errors'][:2]}")
+    if not all(out["sse"]["first_token_before_half"]):
+        bad.append("fused: an SSE stream's first token came after half "
+                   "its total")
+    for r in per_replica:
+        n = r["launches"]
+        if r["requests"] <= 0:
+            bad.append(f"fused: replica {r['pid']} served no request")
+        if (r["decode_launches_per_step"] != cfg.n_layers
+                or r["prefill_launches_per_dispatch"] != cfg.n_layers
+                or n["paged_attention_int8"]
+                or n["paged_prefill_attention_int8"]):
+            bad.append(f"fused: replica {r['pid']} launches {n}, "
+                       f"{r['decode_launches_per_step']} per decode step")
+        acc = r["page_accounting"]
+        if not (acc["closure"] and acc["refs_consistent"]
+                and acc["live"] == 0):
+            bad.append(f"fused: replica {r['pid']} pages {acc}")
+    counts = {k: sum(r["launches"][k] for r in per_replica)
+              for k in per_replica[0]["launches"]}
+    serve.delete("llm")
+    deadline = time.monotonic() + 60
+    while True:
+        free_after = free_memory()
+        if (abs(free_after - free0) <= ACTOR_MEMORY_SLACK
+                or time.monotonic() > deadline):
+            break
+        time.sleep(0.5)
+    out["deleted"] = {"free_before_gb": free0 / 1e9,
+                      "free_after_gb": free_after / 1e9,
+                      "returned_gb": (free_after - free_held) / 1e9}
+    if abs(free_after - free0) > ACTOR_MEMORY_SLACK:
+        bad.append(f"fused: memory not back after delete {out['deleted']}")
+    out["streams"], cases = stream_cases(
+        prompts, [r["tokens"] for r in results], ref_streams)
+    return out, counts, cases
+
+
+def rolled_page(payload):
+    """A planted fault: the payload with its first page's K plane rolled
+    by one position along the page."""
+    bad = dict(payload)
+    k = payload["k"].clone()
+    k[:, 0] = torch.roll(k[:, 0], 1, dims=1)
+    bad["k"] = k
+    return bad
+
+
+def index_vs_in_process(rt_api, device, cfg, prompts, bad):
+    """Every page set in the cluster store's index, fetched from the
+    driver, against an in-process prefill-role engine's donation of the
+    same prompts (its LocalKVStore): bitwise per key and plane, and the
+    planted fault (a page's K plane rolled), which must differ. → the
+    record, with the driver's get and put GB/s of the payloads (the
+    replica's objects read across processes; the same bytes put back)."""
+    client = rt_api._client
+    store = tkvo.ObjectKVStore(client, budget=10**6)
+    metas = [json.loads(client.kv_get(tkvo.INDEX_NS, k))
+             for k in client.kv_keys(tkvo.INDEX_NS)]
+    t0 = time.perf_counter()
+    fetched = {m["key"]: store.fetch(m) for m in metas}
+    get_s = time.perf_counter() - t0
+    nbytes = sum(payload_bytes(p) for p in fetched.values())
+    t0 = time.perf_counter()
+    refs = [client.put(p, cache_local=False) for p in fetched.values()]
+    put_s = time.perf_counter() - t0
+    client.free(refs)
+    del refs
+    local = tkvo.LocalKVStore(budget=10**6)
+    eng = LLMEngine(cfg, seed=0, device=device, pool_role="prefill",
+                    kv_store=local, **ENGINE_KNOBS)
+    kv_serve(eng, [((p,), dict(max_tokens=KV_TOKENS)) for p in prompts])
+    del eng
+    torch.cuda.empty_cache()
+    mine = {k: e["payload"] for k, e in local._entries.items()}
+    equal, worst = {}, {}
+    for k, p in fetched.items():
+        ref = mine.get(k)
+        equal[k] = (ref is not None and set(p) == set(ref)
+                    and all(same_bits(p[n], ref[n]) for n in p))
+        if ref is not None and set(p) == set(ref):
+            worst[k] = max(float((p[n].float() - ref[n].float()).abs()
+                                 .max()) for n in p)
+    first = next(iter(fetched))
+    planted = rolled_page(fetched[first])
+    planted_equal = all(same_bits(planted[n], mine[first][n])
+                        for n in planted)
+    rec = {"entries": len(fetched), "in_process_entries": len(mine),
+           "bitwise_equal": sum(equal.values()),
+           "max_abs_diff": max(worst.values(), default=None),
+           "keys_equal": sorted(fetched) == sorted(mine),
+           "planted_rolled_page_equal": planted_equal,
+           "planted_max_abs_diff": float(max(
+               (planted[n].float() - mine[first][n].float()).abs().max()
+               for n in planted)),
+           "payload_bytes": nbytes,
+           "driver_get_GBps": nbytes / get_s / 1e9,
+           "driver_put_GBps": nbytes / put_s / 1e9}
+    if not (all(equal.values()) and rec["keys_equal"]):
+        bad.append(f"split: cluster page sets differ from the in-process "
+                   f"donation: {rec['bitwise_equal']} of {len(fetched)} "
+                   f"bitwise, max |diff| {rec['max_abs_diff']}")
+    if planted_equal:
+        bad.append("split: the planted rolled page passed")
+    return rec
+
+
+def serve_split(rt, rt_api, serve, ctrl, cfg, prompts, ref_streams,
+                device, bad):
+    """kvp (prefill role, pool_peer kvd) and kvd (decode role), one
+    replica each at num_gpus=0.5: engine_kv's prompts streamed through
+    the proxy, handed off through the cluster store; then the decode leg
+    alone, adopted against re-prefilled."""
+    from ray_tpu_torch.serve.llm import LLMDeployment
+
+    chunk = ENGINE_KNOBS["prefill_chunk"]
+    common = dict(n_slots=ENGINE_KNOBS["n_slots"],
+                  max_len=ENGINE_KNOBS["max_len"], device=SERVE_DEVICE,
+                  engine_kwargs=dict(SERVE_ENGINE_KW))
+    opts = {"ray_actor_options": {"num_gpus": SERVE_REPLICA_GPUS}}
+    t0 = time.perf_counter()
+    # Both pools boot at once: the decode deployment is not waited for
+    # until the prefill one is up.
+    decode = serve.deployment(LLMDeployment, name="kvd",
+                              pool_role="decode").options(
+        num_replicas=1, route_prefix=None, **opts).bind(
+        SERVE_MODEL, pool_role="decode", **common)
+    serve.run(decode, _blocking_until_ready=False)
+    serve.run(serve.deployment(LLMDeployment, name="kvp",
+                               pool_role="prefill").options(
+        num_replicas=1, route_prefix="/kv", **opts).bind(
+        SERVE_MODEL, pool_role="prefill", pool_peer="kvd", **common),
+        timeout=600.0)
+    deadline = time.monotonic() + 600
+    while serve.status()["kvd"]["live_replicas"] < 1:
+        if time.monotonic() > deadline:
+            raise AssertionError("the decode deployment never came up")
+        time.sleep(0.1)
+    boot_s = time.perf_counter() - t0
+    _proxy, port = serve.start_proxy()
+    wait_ready(port, "/kv")
+    (kvp, kvp_pid), = replicas_of(rt, ctrl, "kvp")
+    (kvd, _), = replicas_of(rt, ctrl, "kvd")
+    for h in (kvp, kvd):
+        replica_call(rt, h, "kernel_launches", reset=True)
+    before = replica_call(rt, kvd, "metrics")
+    pre_before = replica_call(rt, kvp, "metrics")
+    results = run_clients([(sse_stream, (port, "/kv", {
+        "prompt_ids": p, "max_tokens": KV_TOKENS})) for p in prompts])
+    launches = {"kvp": replica_call(rt, kvp, "kernel_launches"),
+                "kvd": replica_call(rt, kvd, "kernel_launches")}
+    after = replica_call(rt, kvd, "metrics")
+    pre_after = replica_call(rt, kvp, "metrics")
+    d = {k: after[k] - before[k] for k in (
+        "kv_adoptions", "kv_adopt_failures", "kv_adopted_tokens",
+        "prefill_tokens", "decode_steps", "prefill_dispatches")}
+    full = [len(p) // chunk * chunk for p in prompts]
+    cold_tails = sum(len(p) + 1 - f for p, f in zip(prompts, full))
+    accounting = {n: replica_call(rt, h, "page_accounting")
+                  for n, h in (("kvp", kvp), ("kvd", kvd))}
+    out = {"boot_wall_s": boot_s, "requests": len(prompts),
+           "with_full_chunk": sum(f > 0 for f in full),
+           "errors": [r["error"] for r in results if r["error"]],
+           "handed_off_ttft_ms_p50": pctl_ms(
+               [r["arrivals"][0] for r in results if r["arrivals"]], 50),
+           "decode_replica": {**d, "cold_tail_tokens": cold_tails,
+                              "launches": launches["kvd"],
+                              "decode_launches_per_step": (
+                                  launches["kvd"]["paged_attention"]
+                                  / max(1, d["decode_steps"]))},
+           "prefill_replica": {
+               "kv_donations": (pre_after["kv_donations"]
+                                - pre_before["kv_donations"]),
+               "launches": launches["kvp"]},
+           "page_accounting": accounting}
+    if out["errors"]:
+        bad.append(f"split: request errors {out['errors'][:2]}")
+    if (d["kv_adoptions"] != out["with_full_chunk"]
+            or d["kv_adopt_failures"]):
+        bad.append(f"split: adoptions {d['kv_adoptions']} of "
+                   f"{out['with_full_chunk']}, {d['kv_adopt_failures']} "
+                   f"failed")
+    if d["prefill_tokens"] != cold_tails:
+        bad.append(f"split: decode prefilled {d['prefill_tokens']} tokens, "
+                   f"the cold tails are {cold_tails}")
+    if out["decode_replica"]["decode_launches_per_step"] != cfg.n_layers:
+        bad.append(f"split: decode launches {launches['kvd']}")
+    for n, acc in accounting.items():
+        if not (acc["closure"] and acc["refs_consistent"]
+                and acc["live"] == 0 and not acc["exporting"]):
+            bad.append(f"split: {n} pages {acc}")
+    # The decode leg alone, sent to kvd by handle as (prompt, [first
+    # token]): adopting the page sets (a discovery hint over the index)
+    # against the same continuations re-prefilled (no hint). The stream
+    # returns the seeded first token at once; its second arrival is the
+    # decode leg's first new token.
+    kvd_handle = serve.get_deployment_handle("kvd")
+    firsts = [r["tokens"][:1] for r in results]
+    legs = {}
+    for arm, hint in (("adopted", {"discover": True}), ("re-prefill", None)):
+        m0 = replica_call(rt, kvd, "metrics")
+        got = run_clients([(handle_stream, (kvd_handle, {
+            "prompt_ids": p, "generated_ids": f, "max_tokens": KV_TOKENS,
+            **({"kv": hint} if hint else {})}))
+            for p, f in zip(prompts, firsts)])
+        m1 = replica_call(rt, kvd, "metrics")
+        ttft = [g["arrivals"][1] for g in got if len(g["arrivals"]) > 1]
+        legs[arm] = got
+        out[f"decode_leg_{arm}"] = {
+            "ttft_ms_p50": pctl_ms(ttft, 50),
+            "ttft_ms_p95": pctl_ms(ttft, 95),
+            "errors": [g["error"] for g in got if g["error"]],
+            "adoptions": m1["kv_adoptions"] - m0["kv_adoptions"],
+            "prefill_tokens": m1["prefill_tokens"] - m0["prefill_tokens"],
+            "equal_to_handoff": sum(
+                g["tokens"] == r["tokens"] for g, r in zip(got, results))}
+        if out[f"decode_leg_{arm}"]["errors"]:
+            bad.append(f"split: decode leg ({arm}) errors")
+    if out["decode_leg_adopted"]["adoptions"] != out["with_full_chunk"] or (
+            out["decode_leg_re-prefill"]["adoptions"]):
+        bad.append("split: the decode legs adopted "
+                   f"{out['decode_leg_adopted']['adoptions']} and "
+                   f"{out['decode_leg_re-prefill']['adoptions']}")
+    out["index"] = index_vs_in_process(rt_api, device, cfg, prompts, bad)
+    out["streams"], cases = stream_cases(
+        prompts, [r["tokens"] for r in results], ref_streams)
+    return out, launches, kvp_pid, cases
+
+
+def serve_sweep(rt_api, kvp_pid, bad):
+    """SIGKILL the prefill replica that donated: within SERVE_SWEEP_WAIT
+    sweep intervals its index entries are gone and the node store's
+    bytes fall back."""
+    import signal
+
+    client = rt_api._client
+    stats = lambda: client._run(client.raylet.call("store_stats", {}))
+    n_rows = lambda: len(client.kv_keys(tkvo.INDEX_NS))
+    donated = n_rows()
+    shm0 = stats()["shm_bytes"]
+    t0 = time.perf_counter()
+    os.kill(kvp_pid, signal.SIGKILL)
+    limit = SERVE_SWEEP_WAIT * SERVE_SYSTEM_CONFIG["serve_kv_sweep_interval_s"]
+    left = donated
+    while left and time.perf_counter() - t0 < limit + 30:
+        time.sleep(0.1)
+        left = n_rows()
+    swept_s = time.perf_counter() - t0
+    shm1 = stats()["shm_bytes"]
+    out = {"entries_before": donated, "entries_after": left,
+           "swept_s": swept_s, "limit_s": limit,
+           "shm_bytes_before": shm0, "shm_bytes_after": shm1,
+           "freed_bytes": shm0 - shm1}
+    if left or swept_s > limit or not shm1 < shm0:
+        bad.append(f"orphan sweep: {out}")
+    return out
+
+
+def phase_serve(device, engine_ref):
+    """The serve plane on the card: LLMDeployment(opt_1_3b) replicas on
+    the paged kernels behind handles and the HTTP proxy, a prefill→
+    decode pool split through the cluster store, and the orphan sweep.
+    ``engine_ref``: the engine phase's (record, streams), else the phase
+    runs it first. Every part runs; the phase fails after its line if a
+    gate did. → launches by path."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import api as rt_api
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.api import _get_controller
+
+    t_phase = time.perf_counter()
+    if engine_ref is None:
+        cfg, _masters, params = make_params(device)
+        del _masters
+        _, ref_record, ref_streams = phase_engine(device, cfg, params)
+        del cfg, params
+    else:
+        ref_record, ref_streams = engine_ref
+    torch.cuda.empty_cache()
+    cfg = gpt.GPTConfig.by_name(SERVE_MODEL)
+    prompts = engine_prompts(cfg)
+    out = {"phase": "serve", "card": card_line(),
+           "config": "opt_1_3b bf16 from seed 0, 16 slots, max_len 2048, "
+                     "page 64, chunk 256, budget 512, attn_impl kernel; "
+                     "replicas at num_gpus=0.5 on one card",
+           "system_config": SERVE_SYSTEM_CONFIG}
+    bad: list = []
+    by_path = {}
+    t0 = time.perf_counter()
+    rt.init(num_cpus=8, resources={"GPU": 1},
+            _system_config=SERVE_SYSTEM_CONFIG)
+    try:
+        out["init_s"] = time.perf_counter() - t0
+        serve.start()
+        ctrl = _get_controller()
+        out["fused"], by_path["serve (fused, 2 replicas)"], fused = (
+            serve_fused(rt, serve, ctrl, cfg, prompts, ref_streams,
+                        ref_record, device, bad))
+        few = prompts[:KV_FEW]
+        out["split"], counts, kvp_pid, split = serve_split(
+            rt, rt_api, serve, ctrl, cfg, few,
+            [s[:KV_TOKENS] for s in ref_streams[:KV_FEW]], device, bad)
+        by_path["serve (split, prefill replica)"] = counts["kvp"]
+        by_path["serve (split, decode replica)"] = counts["kvd"]
+        out["sweep"] = serve_sweep(rt_api, kvp_pid, bad)
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+    check_streams(device, cfg, {
+        "fused": (out["fused"]["streams"], fused),
+        "split": (out["split"]["streams"], split)},
+        (prompts[0] + ref_streams[0][:3], ref_streams[0][3]), bad)
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["failed_gates"] = bad
+    emit(out)
+    if bad:
+        raise AssertionError(f"serve: {bad}")
+    return by_path
+
+
 # ------------------------------------------------------------------- train
 
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 12
@@ -5631,7 +6327,7 @@ def main(argv=None) -> int:
                          "engine,engine_prefix,engine_spec,engine_dense,"
                          "engine_oneshot,engine_drain,engine_warmup,"
                          "engine_observe,engine_edge,engine_tp,engine_kv,"
-                         "runtime,train,train_ring,train_llama,"
+                         "runtime,serve,train,train_ring,train_llama,"
                          "train_moe,train_pipeline "
                          "(default: all; "
                          "the build always runs)")
@@ -5765,6 +6461,9 @@ def main(argv=None) -> int:
     if want("runtime"):
         by_path["runtime (actor)"] = phase_runtime(
             device, None if streams is None else (float_run, streams))
+    if want("serve"):
+        by_path.update(phase_serve(
+            device, None if streams is None else (float_run, streams)))
     if want("train"):
         launches.update(phase_train(device))
     for name, phase in (("train_ring", phase_train_ring),

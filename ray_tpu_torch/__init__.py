@@ -15,7 +15,11 @@ layout and names so each counterpart is easy to find:
                           CUDA kernels) as an autograd op, with their
                           plain versions
 - ``serve/llm.py``        the continuous-batching LLMEngine (paged KV,
-                          chunked prefill)
+                          chunked prefill) and the LLMDeployment class
+- ``serve/``              the serve plane: ``run``, handles, the HTTP
+                          proxy, the controller and its autoscaler, the
+                          KV page-set stores (in process and cluster);
+                          ``state.py`` and ``slo.py`` read the cluster
 - ``train/``              the single-device train step (``spmd.py``) and
                           an AdamW with optax's semantics (``optim.py``)
 - ``profiling.py``, ``metrics.py``, ``tracing.py``, ``chaos.py``

@@ -1,6 +1,6 @@
 """KV page-set objects: finished KV pages as store citizens (PyTorch).
 
-Counterpart of ``ray_tpu/serve/kv_objects.py``, its in-process half. A
+Counterpart of ``ray_tpu/serve/kv_objects.py``. A
 finishing prefill (or a draining engine's export) DONATES its written
 pages as page-set objects, and an admitting engine ADOPTS them, binding
 fresh pages filled with the donor's bytes into its table like a local
@@ -49,10 +49,26 @@ by a port engine, nor the reverse.
 
 Backends
 --------
-`LocalKVStore`, the in-process dict the reference's off-cluster engines
-share as a process-global singleton (`get_store`). The reference's
-cluster store (``ObjectKVStore`` over its object store and GCS index,
-and ``sweep_cluster``) is not ported: the port has no runtime.
+- ``ObjectKVStore``: the cluster path, on the port's runtime
+  (`ray_tpu_torch.api`). Payloads travel through the client's
+  ``put(..., cache_local=False)``: the node's shared-memory arena holds
+  the only copy (each CPU tensor one out-of-band buffer of its raw
+  bytes, `core/serialization.py`), and a GCS-KV index (namespace
+  ``serve_kv_pages``) maps digest → object id + meta, so any replica
+  finds a donation by key alone. The donor process owns the ObjectRefs
+  (at most ``serve_kv_object_budget``; the oldest withdrawn first), so
+  a donor that exits cleanly releases its objects, and `sweep_cluster`,
+  run by the serve controller every ``serve_kv_sweep_interval_s``,
+  frees entries whose donor is dead or whose TTL expired, so a
+  SIGKILLed donor's pages cannot leak the store. Payload planes must be
+  CPU tensors before the put: a CUDA tensor nested in the payload dict
+  would keep torch's own pickling and come back on its device, in
+  another process (the engine's `_kv_payload` moves them).
+- ``LocalKVStore``: the in-process dict with the same surface, shared
+  as a process-global singleton by every engine built off a cluster, so
+  the donate/adopt ladder runs without booting one (selecting the
+  backend gates on an attached client, ``api._client``, and never calls
+  ``_ensure_client``).
 
 Chaos sites: ``serve.kv.donate`` at the engine's donation entry (raise:
 that donation is skipped and the engine keeps serving),
@@ -61,17 +77,18 @@ that donation is skipped and the engine keeps serving),
 
 from __future__ import annotations
 
+import json
+import logging
 import threading
 import time
 from collections import OrderedDict
+from typing import Any
 
 from ray_tpu_torch import chaos as _chaos
 
+logger = logging.getLogger(__name__)
+
 INDEX_NS = "serve_kv_pages"
-# The reference's runtime-config default ``serve_kv_object_budget``:
-# entries a store keeps before withdrawing the oldest (the engine reads
-# ``serve_kv_summary_max`` from the runtime's config).
-SERVE_KV_OBJECT_BUDGET = 64
 # Appended to every fingerprint: page sets of the JAX package never match.
 BACKEND = "torch"
 
@@ -143,7 +160,7 @@ class LocalKVStore:
     """In-process page-set store: donate / resolve / fetch / withdraw /
     sweep / stats, as the reference's. Holds each payload as given."""
 
-    def __init__(self, budget: int = SERVE_KV_OBJECT_BUDGET):
+    def __init__(self, budget: int = 64):
         self.budget = max(1, int(budget))
         self._lock = threading.Lock()
         # key_hex -> {"meta": dict, "payload": {"k": tensor, ...}}
@@ -213,18 +230,188 @@ class LocalKVStore:
                     "budget": self.budget}
 
 
+class ObjectKVStore:
+    """Cluster page-set store: payloads in the per-node object store
+    (plasma equivalent), discovery via a GCS-KV digest index. The donor
+    instance OWNS its donations' ObjectRefs — dropping one (budget
+    withdrawal, process exit) releases the object through the ordinary
+    distributed refcount; `sweep_cluster` force-frees what a SIGKILLed
+    donor could never release."""
+
+    def __init__(self, client, budget: int = 64, donor: str = ""):
+        self._client = client
+        self.budget = max(1, int(budget))
+        self.donor = donor
+        self._lock = threading.Lock()
+        self._owned: "OrderedDict[str, Any]" = OrderedDict()  # key -> ref
+        self.donations = 0
+        self.withdrawals = 0
+
+    def donate(self, meta: dict, payload: dict) -> dict:
+        key = meta["key"]
+        raw = self._client.kv_get(INDEX_NS, key.encode())
+        if raw:
+            # Another donor already published this digest — byte-identical
+            # content by construction, so reuse its entry (no second copy).
+            try:
+                return json.loads(raw)
+            except Exception:  # graftlint: disable=EXC-SWALLOW (corrupt index row: fall through and overwrite it with a fresh donation)
+                pass
+        # The shm extent is the only copy (cache_local=False): donated KV
+        # must not also pin a pickled twin in the donor's process RAM.
+        ref = self._client.put(payload, cache_local=False)
+        meta = dict(meta, ref=ref.hex())
+        self._client.kv_put(INDEX_NS, key.encode(),
+                            json.dumps(meta).encode())
+        with self._lock:
+            self._owned[key] = ref
+            self.donations += 1
+            drop = []
+            while len(self._owned) > self.budget:
+                drop.append(self._owned.popitem(last=False))
+        for old_key, old_ref in drop:
+            self._withdraw_entry(old_key, old_ref)
+        return meta
+
+    def _withdraw_entry(self, key: str, ref) -> None:
+        # Callers (donate's budget eviction, withdraw) invoke this AFTER
+        # releasing _lock — the kv_get/kv_del below are RPCs that must not
+        # run under it. The counter bump still needs the lock: += races a
+        # concurrent donate's bump otherwise.
+        with self._lock:
+            self.withdrawals += 1
+        try:
+            # Compare-and-delete: only remove the index row if it still
+            # points at OUR object. After a TTL sweep reaped this
+            # donor's stale row, another donor may have re-published
+            # the same digest — an unconditional kv_del here would
+            # delete that donor's LIVE row and strand its object
+            # undiscoverable for its whole lifetime.
+            raw = self._client.kv_get(INDEX_NS, key.encode())
+            row = json.loads(raw) if raw else None
+            if row is not None and row.get("ref") == ref.hex():
+                self._client.kv_del(INDEX_NS, key.encode())
+        except Exception as e:  # noqa: BLE001 — sweep is the backstop
+            logger.debug("kv index del %s failed (sweep will reap): %s",
+                         key[:12], e)
+        try:
+            self._client.free([ref])
+        except Exception as e:  # noqa: BLE001 — sweep is the backstop
+            logger.debug("kv object free %s failed (sweep will reap): %s",
+                         key[:12], e)
+
+    def resolve(self, keys: list[str]) -> dict[str, dict]:
+        out: dict[str, dict] = {}
+        for k in keys:
+            try:
+                raw = self._client.kv_get(INDEX_NS, k.encode())
+            except Exception as e:  # noqa: BLE001 — GCS blip = no hit
+                logger.debug("kv index read %s failed: %s", k[:12], e)
+                continue
+            if not raw:
+                continue
+            try:
+                out[k] = json.loads(raw)
+            except Exception:  # graftlint: disable=EXC-SWALLOW (corrupt index row reads as a miss; the adoption ladder has a fallback rung)
+                continue
+        return out
+
+    def fetch(self, meta: dict, timeout: float = 30.0) -> dict:
+        _chaos.hit("serve.kv.adopt")
+        from ray_tpu_torch import api as _api
+
+        ref = _api.ObjectRef.from_hex(meta["ref"])
+        return _api.get(ref, timeout=timeout)
+
+    def withdraw(self, key: str) -> bool:
+        with self._lock:
+            ref = self._owned.pop(key, None)
+        if ref is None:
+            return False
+        self._withdraw_entry(key, ref)
+        return True
+
+    def sweep(self, live_donors: set[str] | None = None,
+              ttl_s: float | None = None, now: float | None = None) -> int:
+        return sweep_cluster(self._client, live_donors, ttl_s, now=now)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"entries": len(self._owned),
+                    "donations": self.donations,
+                    "withdrawals": self.withdrawals,
+                    "budget": self.budget}
+
+
+def sweep_cluster(client, live_donors: set[str] | None = None,
+                  ttl_s: float | None = None,
+                  now: float | None = None) -> int:
+    """Orphan-page sweep over the cluster index: free every donated
+    page-set whose donor is no longer live (a SIGKILLed replica never
+    releases its owned refs — without this its pages leak the node
+    store) and every entry past its TTL. The serve controller runs this
+    on full reconcile passes (`serve_kv_sweep_interval_s`); it is
+    idempotent and safe against concurrent adopters — an adopter whose
+    fetch loses the race falls down the adoption ladder. → freed."""
+    from ray_tpu_torch import api as _api
+
+    now = time.time() if now is None else now
+    freed = 0
+    try:
+        keys = client.kv_keys(INDEX_NS)
+    except Exception as e:  # noqa: BLE001 — next pass retries
+        logger.debug("kv sweep index listing failed: %s", e)
+        return 0
+    for key in keys:
+        kb = key if isinstance(key, bytes) else key.encode()
+        try:
+            raw = client.kv_get(INDEX_NS, kb)
+            meta = json.loads(raw) if raw else None
+        except Exception:  # graftlint: disable=EXC-SWALLOW (unreadable row: skipped this pass, the TTL sweep reaps it eventually)
+            continue
+        if meta is None:
+            continue
+        dead = (live_donors is not None
+                and meta.get("donor") not in live_donors)
+        expired = ttl_s is not None and now - meta.get("ts", 0.0) > ttl_s
+        if not (dead or expired):
+            continue
+        try:
+            client.kv_del(INDEX_NS, kb)
+            if meta.get("ref"):
+                client.free([_api.ObjectRef.from_hex(meta["ref"])])
+            freed += 1
+        except Exception as e:  # noqa: BLE001 — next pass retries
+            logger.debug("kv sweep of %s failed: %s",
+                         str(meta.get("key", ""))[:12], e)
+    if freed:
+        logger.info("kv orphan sweep freed %d page-set entries", freed)
+    return freed
+
+
 _local_store: LocalKVStore | None = None
 _local_lock = threading.Lock()
 
 
-def get_store() -> LocalKVStore:
-    """The process-global LocalKVStore (built at the first call), shared
-    by every engine that enables transfer without its own store, so two
-    engines of one process donate and adopt through it."""
+def get_store(budget: int | None = None, donor: str = ""):
+    """The store an engine that turns on KV transfer uses: the cluster
+    store when a client is already attached, else the process-global
+    LocalKVStore (built at the first call), shared by every engine of
+    the process, so two engines donate and adopt through it. The budget
+    defaults to ``runtime_config().serve_kv_object_budget``. Never calls
+    `_ensure_client`: building an engine off a cluster must not boot
+    one."""
+    from ray_tpu_torch import api as _api
+    from ray_tpu_torch.core.config import runtime_config
+
+    if budget is None:
+        budget = runtime_config().serve_kv_object_budget
+    if _api._client is not None:
+        return ObjectKVStore(_api._client, budget=budget, donor=donor)
     global _local_store
     with _local_lock:
         if _local_store is None:
-            _local_store = LocalKVStore()
+            _local_store = LocalKVStore(budget=budget)
         return _local_store
 
 
@@ -237,7 +424,7 @@ def reset_local_store() -> None:
 
 
 __all__ = [
-    "BACKEND", "INDEX_NS", "LocalKVStore", "SERVE_KV_OBJECT_BUDGET",
+    "BACKEND", "INDEX_NS", "LocalKVStore", "ObjectKVStore",
     "engine_fingerprint", "get_store", "make_meta", "page_span",
-    "pages_for_tokens", "reset_local_store",
+    "pages_for_tokens", "reset_local_store", "sweep_cluster",
 ]

@@ -105,9 +105,16 @@ reference (``prefill_chunk`` on a dense engine, ``prefix_cache``,
 `metrics` and `load_snapshot`. An explicit argument that misfits
 raises.
 
-Not ported: the Serve deployment wrapper, the cluster page-set store,
-and the compile-watch hooks (XLA compile accounting, which has no
-counterpart here).
+`LLMDeployment` is the reference's Serve deployment class: one engine
+per replica, its unary, streaming (cursor protocol), drain, metrics and
+page-accounting surface, and the prefill→decode pool roles, whose
+handoff record the handle and the proxy resubmit to the decode
+deployment. Replicas on a cluster donate and adopt through the cluster
+store (`kv_objects.ObjectKVStore`). ``device`` takes the place of the
+reference's ``jax_platform``.
+
+Not ported: the compile-watch hooks (XLA compile accounting, which has
+no counterpart here).
 """
 
 from __future__ import annotations
@@ -419,6 +426,9 @@ class GenRequest:
     done: "threading.Event" = dataclasses.field(
         default_factory=threading.Event)
     error: str | None = None
+    # Last stream_read of this request (LLMDeployment.drain holds its
+    # window only for streams a reader is still consuming).
+    last_read_at: float | None = None
 
 
 class LLMEngine:
@@ -783,7 +793,7 @@ class LLMEngine:
             # The actor's id, or off an actor the reference's pid-based id.
             self._kv_donor = _actor_id() or f"local:{os.getpid()}"
             self._kv_store = (kv_store if kv_store is not None
-                              else _kvo.get_store())
+                              else _kvo.get_store(donor=self._kv_donor))
             self._kv_fingerprint = _kvo.engine_fingerprint(
                 cfg, page_size, prefill_chunk, draft_cfg, kv_dtype=kv_dtype)
             self._kv_summary_max = max(1, int(rc.serve_kv_summary_max))
@@ -2829,4 +2839,292 @@ class LLMEngine:
                 req.done.set()
 
 
-__all__ = ["LLMEngine", "GenRequest"]
+class LLMDeployment:
+    """Serve deployment class wrapping one engine per replica.
+
+    serve.run(serve.deployment(LLMDeployment).options(...).bind(cfg_name))
+    Each replica owns its model + cache; the Serve router load-balances
+    requests across replicas, and the engine continuously batches within
+    the replica.
+    """
+
+    def __init__(self, model="tiny", *, n_slots: int = 8,
+                 max_len: int = 1024, params_checkpoint: str | None = None,
+                 spec_draft_checkpoint: str | None = None,
+                 engine_kwargs: dict | None = None,
+                 device=None,
+                 pool_role: str | None = None,
+                 pool_peer: str | None = None):
+        # ``device`` takes the place of the reference's ``jax_platform``:
+        # None serves on cuda (and raises in this constructor without a
+        # GPU, so `serve.run` reports the failure instead of serving on
+        # the CPU); "cpu" is for tests.
+        from ray_tpu_torch.models import gpt
+
+        # A preset name, as the reference's; or a GPTConfig (tests serve
+        # the tiny model in fp32, which no preset names).
+        cfg = (gpt.GPTConfig.by_name(model) if isinstance(model, str)
+               else model)
+        params = None
+        engine_kwargs = dict(engine_kwargs or {})
+        if params_checkpoint:
+            from ray_tpu_torch.train.checkpoint import Checkpoint
+
+            ck = Checkpoint.from_directory(params_checkpoint).to_dict()
+            params = ck["params"]
+        if spec_draft_checkpoint:
+            # Trained draft weights for speculative decoding (the
+            # llm_spec_draft knob names the draft ARCHITECTURE; without
+            # a checkpoint the engine falls back to random draft init,
+            # whose ~zero acceptance makes every tick strictly slower
+            # than non-speculative decode).
+            if "spec_draft_params" in engine_kwargs:
+                raise ValueError(
+                    "spec_draft_checkpoint and"
+                    " engine_kwargs['spec_draft_params'] both name draft"
+                    " weights — pass exactly one")
+            from ray_tpu_torch.train.checkpoint import Checkpoint
+
+            dck = Checkpoint.from_directory(spec_draft_checkpoint).to_dict()
+            engine_kwargs["spec_draft_params"] = dck["params"]
+        # Disaggregated pools (serve_pool_role): "prefill" replicas run
+        # prompt prefill + first token, donate the KV pages, and hand
+        # the stream off to `pool_peer` — the decode deployment whose
+        # replicas adopt the pages by reference. The consumer (proxy /
+        # handle.stream) reads the peer name off the handoff record, so
+        # the engine itself stays deployment-agnostic.
+        if pool_role == "prefill" and not pool_peer:
+            raise ValueError(
+                "pool_role='prefill' requires pool_peer (the decode "
+                "deployment name the handoff resubmits to)")
+        self._pool_role = pool_role or None
+        self._pool_peer = pool_peer
+        if pool_role:
+            if engine_kwargs.get("pool_role", pool_role) != pool_role:
+                raise ValueError(
+                    "pool_role and engine_kwargs['pool_role'] disagree "
+                    f"({pool_role!r} vs {engine_kwargs['pool_role']!r})")
+            engine_kwargs["pool_role"] = pool_role
+        if "device" in engine_kwargs:
+            raise ValueError(
+                "pass the device as LLMDeployment(device=...), not in "
+                "engine_kwargs")
+        self.engine = LLMEngine(cfg, params, n_slots=n_slots,
+                                max_len=max_len, device=device,
+                                **engine_kwargs)
+        self.engine.start()
+
+    def generate(self, prompt_ids: list[int], max_tokens: int = 64,
+                 temperature: float = 0.0, eos_id: int | None = None,
+                 generated_ids: list[int] | None = None,
+                 kv: dict | None = None,
+                 request_id: str | None = None,
+                 prefix_hashes: list | None = None,
+                 prefix_chunk: int = 0) -> dict:
+        tags = _request_metric_tags()
+        req = self.engine.submit(
+            prompt_ids, max_tokens=max_tokens, temperature=temperature,
+            eos_id=eos_id, generated_ids=generated_ids, kv=kv,
+            request_id=request_id, prefix_hashes=prefix_hashes,
+            prefix_chunk=prefix_chunk)
+        req.done.wait()
+        _observe_request_metrics(req, tags)
+        if req.migrated:
+            if self._pool_role == "prefill":
+                # Pool handoff, not an error: the caller (proxy /
+                # handle) resubmits this envelope — prompt, the tokens
+                # already produced, and the page-set descriptor — to
+                # the decode pool, which adopts instead of
+                # re-prefilling.
+                return {"handoff": self._handoff_record(req),
+                        "request_id": req.request_id,
+                        "generated_ids": [int(t) for t in req.out_ids],
+                        "max_tokens": max_tokens,
+                        "temperature": temperature,
+                        "eos_id": eos_id}
+            # Drain export raced this in-flight call: the proxy/handle
+            # treats "migrated"/"draining" errors as retriable-elsewhere
+            # (the unary path is side-effect-free to re-run in full).
+            raise RuntimeError(
+                "request migrated off draining replica: resubmit")
+        if req.error:
+            raise RuntimeError(req.error)
+        return {
+            "request_id": req.request_id,
+            "output_ids": req.out_ids,
+            "truncated": req.truncated,
+            "ttft_s": req.first_token_at - req.submitted_at,
+            "total_s": req.finished_at - req.submitted_at,
+        }
+
+    def _handoff_record(self, req) -> dict:
+        """What a migrated request's consumer needs to resume it
+        elsewhere: the decode-pool deployment (prefill role only — a
+        drain migration resumes within the same deployment), the
+        page-set descriptor for adoption, and the memoized chunk-hash
+        chain so the destination never re-hashes the context."""
+        hand: dict = {}
+        if self._pool_role == "prefill":
+            hand["deployment"] = self._pool_peer
+        if req.kv_handoff is not None:
+            hand["kv"] = req.kv_handoff
+        if req.prefix_hashes and self.engine.prefill_chunk:
+            hand["prefix_hashes"] = [h.hex() for h in req.prefix_hashes]
+            hand["prefix_chunk"] = self.engine.prefill_chunk
+        return hand
+
+    # --------------------------------------------------------- streaming
+    # Cursor protocol (consumed by DeploymentHandle.stream and the HTTP
+    # proxy's SSE path): submit_stream() → request_id; stream_read(id, cur)
+    # long-polls for tokens past the cursor. Tokens come straight from the
+    # engine's per-request out_ids, so TTFT is visible to clients the
+    # moment prefill lands (ref: the reference proxy's ASGI streaming,
+    # http_proxy.py:217).
+
+    def submit_stream(self, request: dict) -> str:
+        if not hasattr(self, "_streams"):
+            from ray_tpu_torch.core.config import runtime_config
+
+            self._streams: dict[str, Any] = {}
+            self._STREAM_TTL_S = runtime_config().llm_stream_ttl_s
+        self._gc_streams()
+        req = self.engine.submit(
+            request["prompt_ids"],
+            max_tokens=request.get("max_tokens", 64),
+            temperature=request.get("temperature", 0.0),
+            eos_id=request.get("eos_id"),
+            # Failover resume: tokens the client already received from a
+            # dead/drained replica, teacher-forced so the stream cursor
+            # splices exactly (see LLMEngine.submit).
+            generated_ids=request.get("generated_ids"),
+            request_id=request.get("request_id"),
+            # Adoption hint + memoized hash chain from a donor's
+            # handoff/export (see LLMEngine.submit).
+            kv=request.get("kv"),
+            prefix_hashes=request.get("prefix_hashes"),
+            prefix_chunk=request.get("prefix_chunk", 0),
+        )
+        self._streams[req.request_id] = req
+        return req.request_id
+
+    def stream_read(self, request_id: str, cursor: int = 0,
+                    timeout_s: float = 0.25) -> dict:
+        """Tokens past `cursor` (long-poll up to timeout_s if none yet)."""
+        req = (getattr(self, "_streams", {}) or {}).get(request_id)
+        if req is None:
+            return {"tokens": [], "done": True,
+                    "error": f"unknown stream {request_id!r}"}
+        req.last_read_at = time.perf_counter()
+        deadline = time.perf_counter() + timeout_s
+        while (len(req.out_ids) <= cursor and not req.done.is_set()
+               and time.perf_counter() < deadline):
+            time.sleep(0.005)
+        toks = [int(t) for t in req.out_ids[cursor:]]
+        done = req.done.is_set() and cursor + len(toks) >= len(req.out_ids)
+        out = {"tokens": toks, "done": done}
+        if req.migrated:
+            # Drain export / pool handoff: the reader drains the local
+            # tail, then resubmits `(prompt, tokens so far)` — done=True
+            # here ends only THIS replica's leg of the stream. The
+            # handoff record routes the resubmit (decode-pool peer) and
+            # carries the page-set descriptor for adoption.
+            out["migrated"] = True
+            hand = self._handoff_record(req)
+            if hand:
+                out["handoff"] = hand
+        if req.error:
+            out["error"] = req.error
+        if done:
+            self._streams.pop(request_id, None)
+            _observe_request_metrics(req, _request_metric_tags())
+            out["truncated"] = req.truncated
+            if req.first_token_at is not None:
+                out["ttft_s"] = req.first_token_at - req.submitted_at
+            if req.finished_at is not None:
+                out["total_s"] = req.finished_at - req.submitted_at
+        return out
+
+    def _gc_streams(self) -> None:
+        """Drop finished streams nobody read to completion."""
+        now = time.perf_counter()
+        for rid, req in list(self._streams.items()):
+            if req.done.is_set() and now - req.submitted_at > self._STREAM_TTL_S:
+                self._streams.pop(rid, None)
+
+    def metrics(self) -> dict:
+        return self.engine.metrics()
+
+    def page_accounting(self) -> dict:
+        """Engine page-accounting closure (chaos tests / triage).
+        Meaningful only when the engine is quiescent — the check walks
+        host-side tables the engine thread mutates."""
+        return self.engine.page_accounting()
+
+    def drain(self, timeout_s: float) -> dict:
+        """Replica drain (called by Replica.drain on controller
+        scale-down / version roll): stop admission, let in-flight
+        decodes finish, export the rest as continuations — then hold the
+        remaining window for stream readers to drain their cursors, so
+        in the common case the tail tokens leave over THIS replica's
+        stream instead of being re-decoded elsewhere."""
+        deadline = time.monotonic() + max(0.0, timeout_s)
+        out = self.engine.drain(timeout_s)
+        # Hold only for streams a reader is ACTIVELY consuming (touched
+        # within the grace window): an abandoned record — client gone
+        # mid-stream, nobody will ever read it out — must not cost every
+        # scale-down the full drain window. Its tail tokens are not lost
+        # either way; a resumed reader re-decodes them elsewhere.
+        grace = 1.0
+        while time.monotonic() < deadline:
+            now = time.perf_counter()
+            streams = getattr(self, "_streams", {}) or {}
+            if not any(
+                    now - (r.last_read_at if r.last_read_at is not None
+                           else r.submitted_at) < grace
+                    for r in list(streams.values())):
+                break
+            time.sleep(0.05)
+        out["unread_streams"] = len(getattr(self, "_streams", {}) or {})
+        return out
+
+    def load_snapshot(self) -> dict:
+        """Live engine load — picked up by Replica.stats() on every
+        controller probe, so serve.status() / /api/serve/load carry it."""
+        return self.engine.load_snapshot()
+
+    def kernel_launches(self, reset: bool = False) -> dict:
+        """This replica's launch counts of the paged-attention kernels
+        (the process's counters: one engine per replica), float and
+        int8 programs; ``reset`` zeroes them after the read. A caller
+        zeroes them just before driving traffic and reads them just
+        after, to show the replica's path went through the kernels."""
+        from ray_tpu_torch.ops import paged_attention as pa
+
+        out = {"paged_attention": pa.paged_attention.launches,
+               "paged_prefill_attention":
+                   pa.paged_prefill_attention.launches,
+               "paged_attention_int8": pa.paged_attention.int8_launches,
+               "paged_prefill_attention_int8":
+                   pa.paged_prefill_attention.int8_launches}
+        if reset:
+            pa.reset_launch_counts()
+        return out
+
+    def __call__(self, request: dict) -> dict:
+        return self.generate(
+            request["prompt_ids"],
+            max_tokens=request.get("max_tokens", 64),
+            temperature=request.get("temperature", 0.0),
+            eos_id=request.get("eos_id"),
+            # Continuation / handoff context (see generate): resumes a
+            # stream migrated off another replica, with the page-set
+            # descriptor driving adoption on this one.
+            generated_ids=request.get("generated_ids"),
+            kv=request.get("kv"),
+            request_id=request.get("request_id"),
+            prefix_hashes=request.get("prefix_hashes"),
+            prefix_chunk=request.get("prefix_chunk", 0),
+        )
+
+
+__all__ = ["LLMDeployment", "LLMEngine", "GenRequest"]

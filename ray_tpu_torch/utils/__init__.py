@@ -1,5 +1,6 @@
-"""Utilities of the port's runtime: asyncio task spawning (``aio``) and
-the serializability inspector (``check_serialize``), copies of the JAX
+"""Utilities of the port's runtime: asyncio task spawning (``aio``), the
+serializability inspector (``check_serialize``) and the scheduling
+strategy classes (``scheduling_strategies``), copies of the JAX
 package's."""
 
 from ray_tpu_torch.utils.check_serialize import inspect_serializability

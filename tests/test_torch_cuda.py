@@ -25,7 +25,9 @@ plain top-2 loop (also over an ep = 2 mesh of the card, and its routing
 bitwise the host's), one pipeline step at pp = 2 against the
 sequential step, and the runtime (a num_gpus=1 task's CUDA return
 reaching the driver as a CPU tensor, CUDA tensors at top level and
-nested in the serializer, an actor's paged-kernel launches). The file imports neither JAX nor the JAX package, and the
+nested in the serializer, an actor's paged-kernel launches, an
+LLMDeployment replica's stream equal to the in-process engine's). The
+file imports neither JAX nor the JAX package, and the
 repo's conftest does, so run it with::
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -1215,3 +1217,40 @@ def test_an_actor_launches_the_paged_kernels(cluster):
     decode, prefill = cluster.get(actor.serve.remote(prompts), timeout=300)
     assert decode > 0 and prefill > 0
     cluster.kill(actor)
+
+
+def test_llm_deployment_replica_on_the_card(cluster):
+    """One LLMDeployment replica on cuda (device None: the default) at
+    num_gpus=1, the tiny untied model at head dim 64 on the paged
+    kernels: its handle stream equals the in-process engine's stream
+    from the same seed, and the replica's launch counters moved."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.llm import LLMDeployment
+
+    cfg = gpt.GPTConfig.tiny_untied(dtype=torch.float32, d_model=256,
+                                    n_heads=4)
+    knobs = dict(kv_mode="paged", page_size=16, prefill_chunk=32,
+                 prefill_token_budget=64, attn_impl="kernel")
+    rng = np.random.default_rng(5)
+    prompts = [list(map(int, rng.integers(1, 200, n))) for n in (3, 40, 90)]
+    eng = LLMEngine(cfg, n_slots=4, max_len=128, device="cuda", **knobs)
+    want = []
+    for p in prompts:
+        req = eng.submit(p, max_tokens=8)
+        while not req.done.is_set():
+            eng.step()
+        want.append(list(req.out_ids))
+    del eng
+    try:
+        handle = serve.run(serve.deployment(LLMDeployment, name="cardllm")
+                           .options(num_replicas=1,
+                                    ray_actor_options={"num_gpus": 1})
+                           .bind(cfg, n_slots=4, max_len=128,
+                                 engine_kwargs=knobs), timeout=300.0)
+        got = [list(handle.stream({"prompt_ids": p, "max_tokens": 8}))
+               for p in prompts]
+        assert got == want
+        m = cluster.get(handle.method("metrics"), timeout=60)
+        assert m["decode_steps"] > 0 and m["prefill_dispatches"] > 0
+    finally:
+        serve.shutdown()

@@ -5,8 +5,12 @@
   scanning every import statement's AST), nor names a module of the
   ray_tpu package in a string constant (``"-m", "ray_tpu.core.worker"``
   would start the JAX runtime's worker);
+- no file of the port, nor chip_smoke.py, names a ``RAY_TPU_`` variable
+  but ``RAY_TPU_TORCH_*`` and ``RAY_TPU_CHAOS`` (a JAX runtime's
+  variable would attach the port to the wrong cluster, or never);
 - a port cluster's GCS, raylet and the worker of a torch-free task never
-  load torch or jax;
+  load torch or jax, nor do the serve controller, the HTTP proxy and a
+  replica of a torch-free deployment;
 - the default device is CUDA and raises without a GPU, and a CUDA
   request never falls back to a plain version;
 - every kernel has its CUDA source, each naming the TPU kernel it
@@ -79,6 +83,33 @@ def test_string_scanner_catches_module_names(tmp_path):
         "ray_tpu", "ray_tpu.api.init", "ray_tpu.core.worker"]
 
 
+# A RAY_TPU_ name that is not the port's own prefix nor the one shared
+# chaos variable.
+_FOREIGN_ENV = re.compile(r"RAY_TPU_(?!TORCH_|CHAOS\b)[A-Z0-9_]*")
+
+
+def _foreign_env_names(path: Path) -> list[str]:
+    return _FOREIGN_ENV.findall(path.read_text())
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_only_port_env_names(path):
+    bad = _foreign_env_names(path)
+    assert not bad, f"{path.relative_to(ROOT)} names {bad}"
+
+
+def test_env_scanner_catches_foreign_names(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text('a = os.environ.get("RAY_TPU_GCS_ADDRESS")\n'
+                 'b = os.environ["RAY_TPU_TORCH_GCS_ADDRESS"]\n'
+                 'c = "RAY_TPU_CHAOS"\n'
+                 'd = "RAY_TPU_CHAOSX"\n'
+                 '"""See RAY_TPU_ADDRESS."""\n')
+    assert _foreign_env_names(f) == [
+        "RAY_TPU_GCS_ADDRESS", "RAY_TPU_CHAOSX", "RAY_TPU_ADDRESS"]
+
+
 def _maps_name(pid: int, names: tuple[str, ...]) -> list[str]:
     """Which of `names` appear in the shared objects process `pid` has
     mapped (torch loads libtorch, jax its jaxlib extension)."""
@@ -108,6 +139,67 @@ def test_runtime_daemons_and_torch_free_workers_load_no_torch():
         for p in [proc.pid for proc in api._node.procs] + [pid]:
             assert _maps_name(p, ("libtorch", "jaxlib")) == [], p
     finally:
+        ray_tpu_torch.shutdown()
+
+
+def _descendants(root: int) -> list[int]:
+    """Every process below ``root`` (its children, theirs, ...)."""
+    kids: dict[int, list[int]] = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+        kids.setdefault(ppid, []).append(int(d))
+    out, todo = [], [root]
+    while todo:
+        for k in kids.get(todo.pop(), []):
+            out.append(k)
+            todo.append(k)
+    return out
+
+
+def test_serve_controller_proxy_and_torch_free_replica_load_no_torch():
+    """A torch-free deployment behind the proxy: the serve controller,
+    the proxy and the replica import ``ray_tpu_torch.serve`` (whose
+    LLMDeployment and LLMEngine load lazily) and neither they nor any
+    other process of the cluster maps libtorch or jaxlib."""
+    import ray_tpu_torch
+    from ray_tpu_torch import api, serve
+
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        @serve.deployment(name="hygiene_echo", route_prefix="/echo")
+        class Echo:
+            def __call__(self, req):
+                return req
+
+            def pid(self):
+                import sys
+
+                return (os.getpid(), "torch" in sys.modules,
+                        "jax" in sys.modules)
+
+        handle = serve.run(Echo.bind())
+        rpid, r_torch, r_jax = ray_tpu_torch.get(handle.method("pid"),
+                                                 timeout=60)
+        assert not r_torch and not r_jax
+        serve.start_proxy()
+        assert serve.status()["hygiene_echo"]["live_replicas"] == 1
+        procs = [proc.pid for proc in api._node.procs]
+        workers = [w for p in procs for w in _descendants(p)]
+        # At least the controller's, the proxy's and the replica's.
+        assert rpid in workers and len(workers) >= 3, workers
+        for p in procs + workers:
+            try:
+                assert _maps_name(p, ("libtorch", "jaxlib")) == [], p
+            except FileNotFoundError:
+                assert p != rpid    # an idle pooled worker that exited
+    finally:
+        serve.shutdown()
         ray_tpu_torch.shutdown()
 
 

@@ -23,11 +23,24 @@ resharding side runs on the forced host devices of tests/conftest.py;
 the port's mesh is the CPU repeated. The paged kernels' launch
 counters stay 0 (the plain versions run on CPU tensors).
 
-Not mirrored here: the cluster store and its sweep (``ObjectKVStore``,
-``sweep_cluster``) and the cluster pool split, which the port does not
-have yet; the global ``llm_kv_transfer`` knob's cases
-(``TestKnobValidation``) are mirrored in tests/test_torch_engine_actor.py.
+Then the cluster half, on the port alone (the JAX package's cluster
+and the port's never share a process): the cluster store's
+compare-and-delete withdraw on the JAX test's fake client
+(``TestObjectStore``; its parity with the JAX store, and
+``sweep_cluster``'s, is in tests/test_torch_serve_parity.py), the
+payload moved to the host before the put, ``TestEnsureClientAudit`` (3)
+and ``TestClusterPoolSplit`` (4, the donor SIGKILL included) on the
+port's cluster with ``LLMDeployment(device="cpu")``: streams equal the
+in-process port engine's token for token. The global
+``llm_kv_transfer`` knob's cases (``TestKnobValidation``) are mirrored
+in tests/test_torch_engine_actor.py.
 """
+
+import json
+import os
+import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -348,7 +361,10 @@ class TestLocalStore:
             a = tkvo.get_store()
             assert a is tkvo.get_store()
             assert isinstance(a, tkvo.LocalKVStore)
-            assert a.budget == tkvo.SERVE_KV_OBJECT_BUDGET == 64
+            # The budget is the runtime config's, as the reference's.
+            from ray_tpu_torch.core.config import runtime_config
+
+            assert a.budget == runtime_config().serve_kv_object_budget == 64
             eng = sides[1].engine(kv_transfer=True)
             assert eng._kv_store is a
             assert eng._kv_donor.startswith("local:")
@@ -1078,3 +1094,343 @@ class TestKnobValidation:
             assert eng.kv_transfer is False and eng._kv_store is None
             assert "kv_transfer" not in eng.metrics()
             assert "kv_summary" not in eng.load_snapshot()
+
+
+# ------------------------------------------------------ the cluster half
+
+
+class FakeRef:
+    def __init__(self, h):
+        self._h = h
+
+    def hex(self):
+        return self._h
+
+
+class FakeClient:
+    """The JAX test's fake client (tests/test_kv_objects.py), recording
+    every payload it is asked to put."""
+
+    def __init__(self):
+        self.kv = {}
+        self.freed = []
+        self.puts = []
+        self.n = 0
+
+    def put(self, v, cache_local=True):
+        self.n += 1
+        self.puts.append((v, cache_local))
+        return FakeRef(f"{self.n:032x}")
+
+    def kv_get(self, ns, k):
+        return self.kv.get((ns, bytes(k)))
+
+    def kv_put(self, ns, k, v):
+        self.kv[(ns, bytes(k))] = v
+
+    def kv_del(self, ns, k):
+        self.kv.pop((ns, bytes(k)), None)
+        return True
+
+    def kv_keys(self, ns, prefix=b""):
+        return [k for (n, k) in self.kv if n == ns]
+
+    def free(self, refs):
+        self.freed.extend(r.hex() for r in refs)
+
+
+class TestObjectStore:
+    def test_withdraw_is_compare_and_delete(self):
+        """A donor withdrawing its own STALE donation (its index row
+        already swept and re-published by another donor) must not
+        delete the other donor's live row."""
+        client = FakeClient()
+        a = tkvo.ObjectKVStore(client, budget=8, donor="a")
+        b = tkvo.ObjectKVStore(client, budget=8, donor="b")
+        meta = tkvo.make_meta("kk", 1, 16, 16, "fp", "a", 1, False)
+        payload = {"k": torch.zeros(1), "v": torch.zeros(1)}
+        a.donate(meta, payload)
+        client.kv_del(tkvo.INDEX_NS, b"kk")
+        b.donate(tkvo.make_meta("kk", 1, 16, 16, "fp", "b", 1, False),
+                 payload)
+        live = json.loads(client.kv_get(tkvo.INDEX_NS, b"kk"))
+        a.withdraw("kk")
+        after = client.kv_get(tkvo.INDEX_NS, b"kk")
+        assert after is not None, "A's withdraw deleted B's live row"
+        assert json.loads(after)["ref"] == live["ref"]
+        assert client.freed, "A's own object must still be freed"
+        # The shared-memory extent is the only copy.
+        assert all(cache_local is False for _, cache_local in client.puts)
+
+    def test_budget_from_runtime_config_and_donor(self, monkeypatch):
+        """get_store takes the cluster branch only with a client
+        attached, with the runtime config's budget and the engine's
+        donor id."""
+        from ray_tpu_torch import api as tapi
+        from ray_tpu_torch.core.config import runtime_config
+
+        client = FakeClient()
+        monkeypatch.setattr(tapi, "_client", client)
+        st = tkvo.get_store(donor="abc")
+        assert isinstance(st, tkvo.ObjectKVStore)
+        assert st.budget == runtime_config().serve_kv_object_budget
+        assert st.donor == "abc" and st._client is client
+        assert tkvo.get_store(budget=3).budget == 3
+
+    def test_donated_payload_is_on_the_host_before_the_put(
+            self, sides, monkeypatch):
+        """`_kv_payload` moves every gathered plane to the host before
+        the store sees it: a CUDA tensor nested in the payload dict
+        would keep torch's own pickling and come back on its device in
+        another process. Pinned by a gather whose planes record their
+        `.cpu()`; the store's puts hold only CPU tensors."""
+        import ray_tpu_torch.models.paged_kv as pk
+
+        moved = []
+
+        class Plane:
+            def __init__(self, a):
+                self.a = a
+
+            def cpu(self):
+                moved.append(tuple(self.a.shape))
+                return self.a.cpu()
+
+        real = pk.gather_pages
+        monkeypatch.setattr(pk, "gather_pages", lambda pool, ids: {
+            k: Plane(a) for k, a in real(pool, ids).items()})
+        client = FakeClient()
+        store = tkvo.ObjectKVStore(client, budget=64, donor="d")
+        eng = sides[1].engine(kv_transfer=True, kv_store=store)
+        assert eng._rt is pk
+        _drive(eng, [eng.submit(_prompt(3, 40), max_tokens=4)])
+        assert moved, "no donation gathered"
+        assert client.puts
+        for payload, _ in client.puts:
+            for plane in payload.values():
+                assert isinstance(plane, torch.Tensor)
+                assert plane.device.type == "cpu"
+
+
+class TestEnsureClientAudit:
+    """Client-adjacent constructors never auto-boot a cluster
+    (`_ensure_client` gates on `_client is not None`): mirrors the JAX
+    class case for case. Each case detaches any client an earlier test
+    of the process left attached (restored after), where the JAX class
+    skips."""
+
+    @pytest.fixture(autouse=True)
+    def _detached(self, monkeypatch):
+        from ray_tpu_torch import api as _api
+
+        monkeypatch.setattr(_api, "_client", None)
+
+    def _assert_no_client(self):
+        from ray_tpu_torch import api as _api
+
+        assert _api._client is None, \
+            "a unit-test path auto-booted a cluster"
+
+    def test_handle_and_push_paths_stay_clusterless(self):
+        from ray_tpu_torch import api as _api
+        from ray_tpu_torch.serve import api as sapi
+
+        assert _api._client is None
+        h = sapi.DeploymentHandle("nonexistent")
+        assert sapi._pushed_version() == sapi._push_state["version"]
+        sapi._dead_actors()
+        assert h._alive([]) == []
+        self._assert_no_client()
+
+    def test_state_queries_raise_instead_of_booting(self):
+        from ray_tpu_torch import api as _api
+        from ray_tpu_torch import state
+
+        assert _api._client is None
+        with pytest.raises(RuntimeError, match="running cluster"):
+            state.list_nodes()
+        assert state.emit_cluster_event("t", "m") is False
+        self._assert_no_client()
+
+    def test_kv_store_selection_stays_clusterless(self, sides):
+        from ray_tpu_torch import api as _api
+
+        assert _api._client is None
+        tkvo.reset_local_store()
+        eng = sides[1].engine(kv_transfer=True)
+        assert isinstance(eng._kv_store, tkvo.LocalKVStore)
+        self._assert_no_client()
+        tkvo.reset_local_store()
+
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+class TestClusterPoolSplit:
+    """The live disaggregated stack on the port's cluster: a prefill
+    pool and a decode pool behind the proxy, page-set handoff and
+    adoption through the cluster store end to end, and the donor
+    SIGKILL mid-run (mirrors the JAX class)."""
+
+    N_SLOTS = 4
+    MAX_LEN = 256
+    MAX_TOKENS = 16
+    ENGINE_KW = {"kv_mode": "paged", "page_size": 16,
+                 "prefill_chunk": 16, "prefill_token_budget": 64,
+                 "decode_block": 4}
+
+    @pytest.fixture(scope="class")
+    def stack(self):
+        import ray_tpu_torch
+        from ray_tpu_torch import serve
+        from ray_tpu_torch.serve.llm import LLMDeployment
+
+        ray_tpu_torch.init(num_cpus=6, _system_config={
+            "serve_kv_sweep_interval_s": 2.0,
+            "serve_kv_object_ttl_s": 60.0,
+        })
+        try:
+            decode = serve.deployment(
+                LLMDeployment, name="kvd", pool_role="decode").options(
+                num_replicas=1, route_prefix=None).bind(
+                "tiny", n_slots=self.N_SLOTS, max_len=self.MAX_LEN,
+                device="cpu", pool_role="decode",
+                engine_kwargs=dict(self.ENGINE_KW))
+            prefill = serve.deployment(
+                LLMDeployment, name="kvp", pool_role="prefill").options(
+                num_replicas=2, route_prefix="/kv").bind(
+                "tiny", n_slots=self.N_SLOTS, max_len=self.MAX_LEN,
+                device="cpu", pool_role="prefill", pool_peer="kvd",
+                engine_kwargs=dict(self.ENGINE_KW))
+            serve.run(decode, timeout=300.0)
+            serve.run(prefill, timeout=300.0)
+            _proxy, port = serve.start_proxy()
+            yield port
+        finally:
+            serve.shutdown()
+            ray_tpu_torch.shutdown()
+
+    def _expected(self, prompts):
+        # The replicas' model: "tiny" from the engine's seed.
+        eng = LLMEngine(tgpt.GPTConfig.by_name("tiny"), None,
+                        n_slots=self.N_SLOTS, max_len=self.MAX_LEN,
+                        device="cpu", **self.ENGINE_KW)
+        out = []
+        for p in prompts:
+            req = eng.submit(p, max_tokens=self.MAX_TOKENS)
+            while not req.done.is_set():
+                eng.step()
+            out.append(list(req.out_ids))
+        return out
+
+    def _decode_load(self):
+        import ray_tpu_torch
+        from ray_tpu_torch.serve.api import _get_controller
+
+        ctrl = _get_controller()
+        load = ray_tpu_torch.get(ctrl.get_load.remote(), timeout=30)
+        rows = load.get("kvd", {}).get("replicas", [])
+        return (rows[0].get("load") or {}) if rows else {}
+
+    def test_stream_handoff_adopts_byte_exact(self, stack):
+        import bench_chaos
+
+        port = stack
+        prompts = [_prompt(30 + i, 48) for i in range(4)]
+        expected = self._expected(prompts)
+        for i, p in enumerate(prompts):
+            r = bench_chaos._sse_stream(port, "/kv", {
+                "prompt_ids": p, "max_tokens": self.MAX_TOKENS},
+                timeout_s=300)
+            assert r["error"] is None and r["done"], r["error"]
+            assert r["tokens"] == expected[i], (i, r["tokens"])
+        deadline = time.time() + 15
+        while time.time() < deadline:
+            eng = self._decode_load()
+            if eng.get("kv_adoptions", 0) >= 1:
+                break
+            time.sleep(0.5)
+        assert eng.get("pool_role") == "decode"
+        assert eng.get("kv_adoptions", 0) >= 1, eng
+
+    def test_unary_handoff_through_proxy(self, stack):
+        import urllib.request
+
+        port = stack
+        prompt = _prompt(40, 48)
+        exp = self._expected([prompt])[0]
+        body = json.dumps({"prompt_ids": prompt,
+                           "max_tokens": self.MAX_TOKENS}).encode()
+        r = urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/kv", data=body, timeout=300)
+        out = json.loads(r.read())["result"]
+        assert out["output_ids"] == exp, out
+
+    def test_summary_and_push_bytes_ride_routing_table(self, stack):
+        """Donated chain heads reach handles through the routing push
+        itself: kv_summary in the per-replica load rows, push_bytes
+        accounted in-band."""
+        import ray_tpu_torch
+        from ray_tpu_torch.serve.api import _get_controller
+
+        _ = stack   # the handoff tests above already drove donations
+        ctrl = _get_controller()
+        heads = []
+        deadline = time.time() + 30
+        while time.time() < deadline:
+            table = ray_tpu_torch.get(ctrl.get_routing.remote(-1),
+                                      timeout=30)
+            assert table["push_bytes"] > 0
+            rows = table["routes"]["kvp"]["loads"]
+            heads = [h for row in rows.values()
+                     for h in row.get("kv_summary", ())]
+            if heads:
+                break
+            time.sleep(0.5)
+        assert heads, "no kv_summary ever rode the routing push"
+        assert all(isinstance(h, str) and len(h) == 16 for h in heads)
+
+    def test_donor_sigkill_mid_donation_zero_drop(self, stack):
+        """A prefill replica SIGKILLed INSIDE a donation (chaos kill at
+        serve.kv.donate): in-flight streams fail over and complete with
+        0 dropped / 0 mismatched tokens, and the decode engine's page
+        accounting closes afterwards."""
+        import bench_chaos
+        import ray_tpu_torch
+        from ray_tpu_torch.serve.api import _get_controller
+
+        port = stack
+        prompts = [_prompt(50 + i, 48) for i in range(6)]
+        expected = self._expected(prompts)
+        ctrl = _get_controller()
+        table = ray_tpu_torch.get(ctrl.get_routing.remote(-1), timeout=30)
+        victim = table["routes"]["kvp"]["replicas"][0]
+        ray_tpu_torch.get(victim.install_chaos.remote(
+            [{"site": "serve.kv.donate", "action": "kill", "after": 1}]),
+            timeout=30)
+        results = [None] * len(prompts)
+
+        def client(i):
+            results[i] = bench_chaos._sse_stream(port, "/kv", {
+                "prompt_ids": prompts[i],
+                "max_tokens": self.MAX_TOKENS}, timeout_s=300)
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        dropped = [i for i, r in enumerate(results)
+                   if r is None or r["error"] or not r["done"]]
+        assert not dropped, [results[i] and results[i]["error"]
+                             for i in dropped]
+        mismatched = [i for i, r in enumerate(results)
+                      if r["tokens"] != expected[i]]
+        assert not mismatched, mismatched
+        rows = ray_tpu_torch.get(ctrl.get_routing.remote(-1),
+                                 timeout=30)["routes"]["kvd"]["replicas"]
+        acc = ray_tpu_torch.get(rows[0].handle_request.remote(
+            "page_accounting", (), {}), timeout=60)
+        assert acc["closure"] and acc["refs_consistent"], acc

@@ -26,6 +26,9 @@
                           # the serve plane: LLMDeployment(opt_1_3b)
                           # replicas behind handles and the HTTP proxy,
                           # a prefill→decode split, the orphan sweep
+    python3 chip_smoke.py --only kernels,train,train_dist
+                          # gpt2_124m through TorchTrainer: world 1 on
+                          # NCCL, dp = 2 and fsdp = 2 on gloo ranks
 
 Phases, one JSON line each, each with ``at_s``, the seconds since the
 script began (the whole record also goes to build/chip_smoke.json):
@@ -354,6 +357,26 @@ script began (the whole record also goes to build/chip_smoke.json):
    exactly 192 forward, 96 dq and 96 dkv launches per step, the loss
    falling; step time beside the train phase's, peak memory, one
    profiled step (pp on one card buys nothing: the stages run in turn).
+   train_dist: the flash kernels checked and timed at a dp rank's [4,
+   1024, 12, 64] bf16 causal; the single-controller reference from seed
+   0 on the train phase's batch (the first step's gradients, then 5
+   steps' losses); then TorchTrainer(train_dist_loop) on the port's
+   runtime (init(num_cpus=4, resources={"GPU": 1})): world 1 on NCCL
+   (ScalingConfig(num_workers=1, use_gpu=True), the default backend),
+   every step's loss within 5e-4 of the reference and whether losses and
+   parameters are bitwise equal to it printed; then two ranks at
+   num_gpus=0.5 on gloo with CUDA tensors (NCCL takes no two ranks on
+   one card; every collective staged through host memory, the copies
+   counted): dp = 2 (4 rows each), the losses within 5e-4 and both
+   ranks' parameters bitwise identical (sha256), which a rank that keeps
+   its own gradient must break; then fsdp = 2, the losses within 5e-4,
+   the first step's gradients gathered whole within 2e-2 of the
+   reference's, which a reduce-scatter keeping the local gradient must
+   exceed, and each rank's parameter and moment bytes equal to what
+   tree_to_shardings assigns it; 24/12/12 flash launches per step in
+   every rank; step p50, the device's idle share (one profiled step),
+   collective bytes per step and the host copies, peak memory per rank
+   and worker boot printed.
 8. with --ab OLD_CHECKOUT: the flash forward, dq and dkv and the float
    and int8 paged prefill and decode (timed shape and light load, with
    the wrapper's host µs) against an older checkout's kernels, in turns.
@@ -404,7 +427,7 @@ from ray_tpu_torch.models import moe_gpt
 from ray_tpu_torch.ops import moe as tmoe
 from ray_tpu_torch.parallel import pipeline as tpipe
 from ray_tpu_torch.parallel import ring as tring
-from ray_tpu_torch.parallel.mesh import device_mesh
+from ray_tpu_torch.parallel.mesh import batch_sharding, device_mesh
 from ray_tpu_torch.parallel.pipeline import split_microbatch_count
 from ray_tpu_torch.parallel.ring import make_sp_mesh
 from ray_tpu_torch.train import memory_audit
@@ -6320,6 +6343,337 @@ def phase_train_pipeline(device, errs):
     return launches, shapes
 
 
+# ------------------------------------------------- distributed training
+
+DIST_STEPS = 5        # per topology: one warm-up and 4 timed
+DIST_RANK_GPUS = 0.5  # two ranks share the card
+DIST_KERNEL_SEED = 16
+# The reference gradient crosses to rank 0 through the object plane
+# once (fp32, ~0.5 GB); every other gate reads scalars and digests.
+
+
+def params_digest(params) -> str:
+    """sha256 of every leaf's bytes in name order: bitwise identity of
+    two ranks' parameters."""
+    h = hashlib.sha256()
+    for k in sorted(params):
+        t = params[k].detach().contiguous().cpu()
+        h.update(k.encode())
+        h.update(t.view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def resident_bytes(params, opt_state) -> dict:
+    """Bytes the rank holds of the parameters and of AdamW's moments."""
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    return {"params": nbytes(params.values()),
+            "moments": nbytes(list(opt_state.mu.values())
+                              + list(opt_state.nu.values()))}
+
+
+def assigned_bytes(cfg, mesh, opt) -> dict:
+    """What tree_to_shardings assigns this rank: each leaf's slice (its
+    `Sharding.local_shape` of the global shape) in the parameters' dtype,
+    and each moment's slice (its opt_state_shardings entry) in the dtype
+    the optimizer keeps it in."""
+    from ray_tpu_torch.train import spmd as tspmd
+
+    specs = gpt.param_specs(cfg)
+    shardings = partition.tree_to_shardings(gpt.logical_axes(cfg), mesh)
+    meta = {k: torch.empty(shardings[k].local_shape(v["shape"]),
+                           dtype=cfg.param_dtype, device="meta")
+            for k, v in specs.items()}
+    moments = tspmd.opt_state_shardings(opt, meta, shardings, mesh)
+    kept = opt.init(meta)          # the moments' dtypes, nothing allocated
+    nbytes = lambda s, k, dt: int(np.prod(s.local_shape(
+        specs[k]["shape"]))) * torch.empty((), dtype=dt).element_size()
+    return {"params": sum(nbytes(shardings[k], k, cfg.param_dtype)
+                          for k in specs),
+            "moments": sum(nbytes(getattr(moments, m)[k], k,
+                                  getattr(kept, m)[k].dtype)
+                           for k in specs for m in ("mu", "nu"))}
+
+
+def dist_gathered_grads(step, params, batch, shardings, mesh):
+    """The step's first gradients (`grads_of`: each sliced leaf's is the
+    rank's slice) gathered whole on every rank, with the step's loss."""
+    loss, grads = step.grads_of(params, batch)
+    with torch.no_grad():
+        whole = {k: (g if shardings[k].dim is None else
+                     mesh.all_gather(g, "fsdp", shardings[k].dim))
+                 for k, g in grads.items()}
+    return float(loss), whole
+
+
+def keep_local_slice(mesh):
+    """The planted fsdp fault, for ``mesh.reduce_scatter_mean``: the rank
+    keeps its own slice of its own gradient, reduced with no other
+    rank."""
+    def local(grad, axis, dim):
+        n = grad.shape[dim] // mesh.shape[axis]
+        return grad.narrow(dim, mesh.coords[axis] * n, n)
+    return local
+
+
+def dist_topology(config, name, mesh, cfg, opt, batch):
+    """One topology on this rank: build_training on ``mesh`` from seed
+    0, the gates' readings, DIST_STEPS steps (counters zeroed just before
+    and read just after), one profiled step."""
+    from ray_tpu_torch import api as rt_api
+    from ray_tpu_torch.train import spmd as tspmd
+
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, opt_state, step = build_training(cfg, opt, gen,
+                                             process_mesh=mesh)
+    shardings = tspmd.param_shardings(gpt.logical_axes(cfg), mesh)
+    rows = tuple(batch_sharding(mesh).shard(x) for x in batch)
+    out = {"coords": {a: c for a, c in mesh.coords.items()
+                      if mesh.shape[a] > 1}, "batch_rows": rows[0].shape[0]}
+    if name == "fsdp":
+        out["bytes"] = resident_bytes(params, opt_state)
+        out["bytes_assigned"] = assigned_bytes(cfg, mesh, opt)
+        ref_grads = rt_api.get(config["ref_grads"]) if mesh.rank == 0 else None
+        for fault in (False, True):
+            if fault:
+                mesh.reduce_scatter_mean = keep_local_slice(mesh)
+            try:
+                loss, whole = dist_gathered_grads(step, params, rows,
+                                                  shardings, mesh)
+            finally:
+                vars(mesh).pop("reduce_scatter_mean", None)
+            if mesh.rank == 0:
+                diff = step_diff(loss, whole, config["ref_losses"][0],
+                                 {k: v.to(dev) for k, v in ref_grads.items()})
+                out["planted_local_reduce_scatter" if fault
+                    else "first_step"] = diff
+            del whole
+        del ref_grads
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_launch_counts()
+    mesh.stats = type(mesh.stats)()
+    losses, step_ms = [], []
+    for _ in range(DIST_STEPS):
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, rows)
+        losses.append(float(loss))             # synchronizes
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    out["launches"] = {"flash_fwd": fa.flash_fwd.launches,
+                       "flash_dq": fa.flash_dq.launches,
+                       "flash_dkv": fa.flash_dkv.launches}
+    stats = mesh.stats
+    out.update(
+        losses=losses, step_ms=step_ms,
+        step_ms_p50=float(np.median(step_ms[1:])),
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev) / 2**30,
+        collectives_per_step=stats.calls / DIST_STEPS,
+        collective_bytes_per_step=stats.bytes / DIST_STEPS,
+        staged_copies_per_step=stats.staged_copies / DIST_STEPS,
+        staged_bytes_per_step=stats.staged_bytes / DIST_STEPS,
+        digest=params_digest(params))
+    out["profile_one_step"] = _profiled(
+        lambda: step(params, opt_state, rows), top=6)
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return out
+
+
+def skip_all_reduce(mesh):
+    """The planted dp fault, for ``mesh.all_reduce_mean`` on one rank: it
+    joins each all-reduce (so its peers do not wait) and keeps its own
+    gradient (and its own loss)."""
+    real = mesh.all_reduce_mean
+
+    def keep_own(t, axes):
+        real(t.clone(), axes)
+        return t
+    return keep_own
+
+
+def train_dist_loop(config):
+    """A rank of the train_dist phase: the topologies of ``config`` in
+    turn on this gang, each reported with the rank's readings."""
+    from ray_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from ray_tpu_torch.train import session
+
+    started = time.time()
+    cfg = gpt.GPTConfig.gpt2_124m(max_seq=TRAIN_S, remat=True,
+                                  attn_impl="flash")
+    opt = adamw(3e-4, weight_decay=0.1, mu_dtype=torch.bfloat16)
+    batch = train_batch(cfg, "cpu")
+    for name, shape in config["topologies"].items():
+        mesh = make_mesh(MeshConfig(**shape))
+        out = dist_topology(config, name, mesh, cfg, opt, batch)
+        if name == "dp":          # the planted fault: one step from seed 0
+            gen = torch.Generator(device=mesh.device).manual_seed(0)
+            params, opt_state, step = build_training(cfg, opt, gen,
+                                                     process_mesh=mesh)
+            rows = tuple(batch_sharding(mesh).shard(x) for x in batch)
+            if mesh.rank == 1:
+                mesh.all_reduce_mean = skip_all_reduce(mesh)
+            try:
+                step(params, opt_state, rows)
+            finally:
+                vars(mesh).pop("all_reduce_mean", None)
+            out["planted_skip_all_reduce_digest"] = params_digest(params)
+            del params, opt_state
+        session.report({"topology": name, "rank": mesh.rank,
+                        "device": str(mesh.device), "backend": mesh.backend,
+                        "loop_started": started, **out})
+
+
+def run_dist(config, n_ranks, scaling, backend):
+    """One TorchTrainer fit of train_dist_loop → ({topology: {rank:
+    readings}}, the wall from fit's start to each rank's loop start)."""
+    from ray_tpu_torch.train import TorchTrainer
+
+    t0 = time.time()
+    result = TorchTrainer(train_dist_loop, train_loop_config=config,
+                          scaling_config=scaling,
+                          backend_config=backend).fit(timeout=900)
+    runs: dict = {}
+    for r in result.metrics_history:
+        runs.setdefault(r["topology"], {})[r["rank"]] = r
+    boot = {r["rank"]: r["loop_started"] - t0
+            for r in result.metrics_history}
+    if any(len(v) != n_ranks for v in runs.values()):
+        raise AssertionError(f"train_dist: missing rank reports {runs}")
+    return runs, boot
+
+
+def phase_train_dist(device, errs):
+    """Distributed training of bench.py's headline step (gpt2_124m, S
+    1024, global B 8, bf16 over fp32 params, remat, flash, the train
+    phase's adamw, seed 0) through TorchTrainer on the port's runtime:
+    world 1 on NCCL, then two ranks at num_gpus=0.5 on gloo (NCCL takes
+    no two ranks on one card) with CUDA tensors staged through host
+    memory, dp = 2 then fsdp = 2, each against the single-controller
+    steps from the same parameters and batch."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.train import ScalingConfig, TorchBackendConfig
+
+    t_phase = time.perf_counter()
+    shapes = {"dp rank": flash_shape_timings(
+        device, errs, "dp rank", TRAIN_B // 2, TRAIN_S, 12, 64, True,
+        DIST_KERNEL_SEED)[0]}
+    emit({"phase": "flash_kernel_timing_dp_rank", **{
+        f"{k} {tag}": v for tag, t in shapes.items() for k, v in t.items()}})
+    # The single-controller reference: the first step's gradients, then
+    # DIST_STEPS steps' losses, from seed 0 on the train phase's batch.
+    cfg = gpt.GPTConfig.gpt2_124m(max_seq=TRAIN_S, remat=True,
+                                  attn_impl="flash")
+    opt = adamw(3e-4, weight_decay=0.1, mu_dtype=torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params, opt_state, step = build_training(cfg, opt, gen, device)
+    batch = train_batch(cfg, device)
+    _, ref_grads = loss_and_grads(cfg, params, batch, "flash")
+    ref_grads = {k: v.float().cpu() for k, v in ref_grads.items()}
+    ref_losses = []
+    for _ in range(DIST_STEPS):
+        params, opt_state, loss = step(params, opt_state, batch)
+        ref_losses.append(float(loss))
+    ref_digest = params_digest(params)
+    del params, opt_state
+    torch.cuda.empty_cache()
+
+    out = {"phase": "train_dist", "card": card_line(),
+           "config": "gpt2_124m bf16 remat flash global B=8 S=1024 "
+           "adamw(3e-4, wd=0.1, mu bf16), seed 0",
+           "steps": DIST_STEPS, "reference_losses": ref_losses,
+           "loss_tol": TRAIN_LOSS_TOL, "grad_tol": TRAIN_GRAD_TOL}
+    bad = []
+    by_path = {}
+    rt.init(num_cpus=4, resources={"GPU": 1})
+    try:
+        t0 = time.perf_counter()
+        ref = rt.put(ref_grads)
+        out["reference_grads_put_s"] = time.perf_counter() - t0
+        del ref_grads
+        config = {"ref_losses": ref_losses, "ref_grads": ref}
+        runs1, boot1 = run_dist(
+            {**config, "topologies": {"world1": {"dp": 1, "fsdp": 1}}},
+            1, ScalingConfig(num_workers=1, use_gpu=True),
+            TorchBackendConfig())
+        runs2, boot2 = run_dist(
+            {**config, "topologies": {"dp": {"dp": 2, "fsdp": 1},
+                                          "fsdp": {"dp": 1, "fsdp": 2}}},
+            2, ScalingConfig(num_workers=2, resources_per_worker={
+                "CPU": 1, "GPU": DIST_RANK_GPUS}),
+            TorchBackendConfig(backend="gloo"))
+    finally:
+        rt.shutdown()
+    out["worker_boot_s"] = {"world1": boot1, "two ranks": boot2}
+    runs = {**runs1, **runs2}
+    for name, ranks in runs.items():
+        for r, run in sorted(ranks.items()):
+            per_step = {k: v / DIST_STEPS for k, v in run["launches"].items()}
+            if per_step != FLASH_PER_STEP:
+                bad.append(f"{name} rank {r}: flash launches per step "
+                           f"{per_step}, expected {FLASH_PER_STEP}")
+            by_path[f"train_dist {name} rank {r}"] = run["launches"]
+            dl = max(abs(a - b) for a, b in zip(run["losses"], ref_losses))
+            run["loss_abs_diff_max"] = dl
+            if not dl <= TRAIN_LOSS_TOL:
+                bad.append(f"{name} rank {r}: |loss - reference| {dl}")
+        run0 = ranks[0]
+        out[name] = {
+            "backend": run0["backend"],
+            "devices": sorted({run["device"] for run in ranks.values()}),
+            "batch_rows_per_rank": run0["batch_rows"],
+            "losses": run0["losses"],
+            "loss_abs_diff_max": max(run["loss_abs_diff_max"]
+                                     for run in ranks.values()),
+            "step_ms_p50": {r: run["step_ms_p50"] for r, run in ranks.items()},
+            "step_ms": {r: run["step_ms"] for r, run in ranks.items()},
+            "device_idle_share": {r: run["profile_one_step"][
+                "device_idle_share"] for r, run in ranks.items()},
+            "profile_one_step_rank0": run0["profile_one_step"],
+            "max_memory_allocated_gb": {
+                r: run["max_memory_allocated_gb"] for r, run in ranks.items()},
+            "collectives_per_step": run0["collectives_per_step"],
+            "collective_bytes_per_step": run0["collective_bytes_per_step"],
+            "staged_through_host": run0["staged_copies_per_step"] > 0,
+            "staged_copies_per_step": run0["staged_copies_per_step"],
+            "staged_bytes_per_step": run0["staged_bytes_per_step"],
+            "launches_per_step": {k: v / DIST_STEPS
+                                  for k, v in run0["launches"].items()}}
+    w1 = runs["world1"][0]
+    out["world1"]["bitwise_equal_single_controller"] = {
+        "losses": w1["losses"] == ref_losses,
+        "params": w1["digest"] == ref_digest}
+    dp = runs["dp"]
+    out["dp"]["params_identical"] = dp[0]["digest"] == dp[1]["digest"]
+    out["dp"]["planted_skip_all_reduce_identical"] = (
+        dp[0]["planted_skip_all_reduce_digest"]
+        == dp[1]["planted_skip_all_reduce_digest"])
+    if not out["dp"]["params_identical"]:
+        bad.append("dp: the two ranks' parameters differ")
+    if out["dp"]["planted_skip_all_reduce_identical"]:
+        bad.append("dp: a rank that skips the all-reduce passes the "
+                   "identity gate")
+    fs = runs["fsdp"]
+    first, planted = fs[0]["first_step"], fs[0]["planted_local_reduce_scatter"]
+    out["fsdp"].update(first_step=first, planted_local_reduce_scatter=planted,
+                       bytes={r: run["bytes"] for r, run in fs.items()},
+                       bytes_assigned={r: run["bytes_assigned"]
+                                       for r, run in fs.items()})
+    if not first["grad_rel_err"] <= TRAIN_GRAD_TOL:
+        bad.append(f"fsdp: first-step gradients {first['grad_rel_err']}")
+    if not planted["grad_rel_err"] > TRAIN_GRAD_TOL:
+        bad.append("fsdp: a local reduce-scatter passes the gradient limit")
+    for r, run in fs.items():
+        if run["bytes"] != run["bytes_assigned"]:
+            bad.append(f"fsdp rank {r}: resident {run['bytes']} against "
+                       f"assigned {run['bytes_assigned']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["gates_failed"] = bad
+    emit(out)
+    if bad:
+        raise AssertionError(f"train_dist: {bad}")
+    return by_path, shapes
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="",
@@ -6328,7 +6682,7 @@ def main(argv=None) -> int:
                          "engine_oneshot,engine_drain,engine_warmup,"
                          "engine_observe,engine_edge,engine_tp,engine_kv,"
                          "runtime,serve,train,train_ring,train_llama,"
-                         "train_moe,train_pipeline "
+                         "train_moe,train_pipeline,train_dist "
                          "(default: all; "
                          "the build always runs)")
     ap.add_argument("--ptxas", action="store_true",
@@ -6473,6 +6827,10 @@ def main(argv=None) -> int:
         if want(name):
             by_path[name], shapes = phase(device, errs)
             at_shapes.update(shapes)
+    if want("train_dist"):
+        paths, shapes = phase_train_dist(device, errs)
+        by_path.update(paths)
+        at_shapes.update(shapes)
 
     kernels = []
     for name, (src, replaces) in meta.items():

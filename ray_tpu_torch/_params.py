@@ -8,10 +8,13 @@ import torch
 
 
 def init_from_specs(specs: dict, dtype, generator: torch.Generator | None,
-                    dev: torch.device) -> dict[str, torch.Tensor]:
+                    dev: torch.device, take=None) -> dict[str, torch.Tensor]:
     """Leaves of a spec table (``{name: {shape, init, scale}}``) on
     ``dev`` in ``dtype``, drawn in sorted name order from ``generator``
-    (a fresh one seeded 0 when None)."""
+    (a fresh one seeded 0 when None). ``take(name, leaf)``, when given,
+    keeps what it returns of each leaf as soon as the leaf is drawn (the
+    sharded init keeps a rank's slice, so at most one whole leaf is
+    alive at a time)."""
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     params = {}
@@ -25,4 +28,6 @@ def init_from_specs(specs: dict, dtype, generator: torch.Generator | None,
             params[name] = torch.ones(shape, device=dev, dtype=dtype)
         else:
             params[name] = torch.zeros(shape, device=dev, dtype=dtype)
+        if take is not None:
+            params[name] = take(name, params[name])
     return params

@@ -625,6 +625,11 @@ class RuntimeContext:
         aid = execution_context.current_actor_id.get()
         return ActorID(aid).hex() if aid is not None else None
 
+    def get_node_id(self) -> str | None:
+        """Hex id of the node whose raylet started this worker process,
+        or None in a driver (ref: runtime_context.py get_node_id)."""
+        return os.environ.get("RAY_TPU_TORCH_NODE_ID")
+
     def get_task_id(self) -> str | None:
         from ray_tpu_torch.core import execution_context
         from ray_tpu_torch.core.ids import TaskID

@@ -41,6 +41,22 @@ logger = logging.getLogger(__name__)
 NEEDS_BLOCKING_GET = object()
 
 
+
+def _release_views(entry: tuple) -> bool:
+    """Release a got value's extent view, unless a live value still reads
+    it (an array built on an out-of-band buffer holds an export of that
+    buffer's `serialization.BufferExporter`; views sliced from the
+    extent are not exports of it, so the extent's own ``release()``
+    cannot tell). False while read: the extent stays pinned."""
+    view, exporters = entry
+    if any(e.exports for e in exporters):
+        return False
+    try:
+        view.release()
+    except BufferError:
+        return False
+    return True
+
 class GetTimeoutError(TimeoutError):
     pass
 
@@ -133,7 +149,9 @@ class CoreClient:
         self.task_id_root = TaskID.for_task(JobID(job_id))
         self._put_counter = itertools.count(1)
         self._memory_store: dict[bytes, Any] = {}
-        self._mmaps: dict[bytes, memoryview] = {}
+        # oid → (the extent view, the BufferExporters a got value reads
+        # it through); see _release_views.
+        self._mmaps: dict[bytes, tuple] = {}
         # Writes hold _actors_lock: actor_state()'s get-or-create runs on
         # arbitrary submitter threads, and two racing calls for the same id
         # would each install a distinct ActorState (split ready-events).
@@ -344,11 +362,8 @@ class CoreClient:
             return
         self._closed = True
         self.refcounter.close()
-        for mv in self._mmaps.values():
-            try:
-                mv.release()
-            except BufferError:
-                pass
+        for entry in self._mmaps.values():
+            _release_views(entry)
         async def _close_all():
             conns = [self.gcs, self.raylet,
                      *self._worker_conns.values(),
@@ -394,12 +409,10 @@ class CoreClient:
                 self.refcounter.defer_local(oid)
 
     def _try_release_mmap(self, oid: bytes) -> bool:
-        mv = self._mmaps.get(oid)
-        if mv is None:
+        views = self._mmaps.get(oid)
+        if views is None:
             return True
-        try:
-            mv.release()
-        except BufferError:
+        if not _release_views(views):
             return False
         self._mmaps.pop(oid, None)
         if not self._closed:
@@ -610,8 +623,9 @@ class CoreClient:
                 else:
                     name, offset, size = data
                     view = attach_extent(name, offset, size)
-                    self._mmaps[key] = view
-                    value = serialization.unpack(view)
+                    exporters: list = []
+                    value = serialization.unpack(view, exporters)
+                    self._mmaps[key] = (view, exporters)
                 # graftlint: disable=GUARDED-BY (idempotent per-key cache refill: a racing free() re-evicts on the next release; a racing get() installs the identical value)
                 self._memory_store[key] = value
                 out[i] = value
@@ -833,12 +847,9 @@ class CoreClient:
         keys = [r.id.binary() for r in refs]
         for k in keys:
             self._memory_store.pop(k, None)
-            mv = self._mmaps.pop(k, None)
-            if mv is not None:
-                try:
-                    mv.release()
-                except BufferError:
-                    pass
+            entry = self._mmaps.pop(k, None)
+            if entry is not None:
+                _release_views(entry)
         self._run(self.gcs.call("obj_free", {"object_ids": keys}))
         self._run(self.raylet.call("store_free", {"object_ids": keys}))
 

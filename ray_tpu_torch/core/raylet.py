@@ -291,6 +291,7 @@ class Raylet:
         worker_id = WorkerID.from_random().binary()
         env = dict(os.environ)
         env["RAY_TPU_TORCH_WORKER_ID"] = WorkerID(worker_id).hex()
+        env["RAY_TPU_TORCH_NODE_ID"] = NodeID(self.node_id).hex()
         # Forward the full config so driver _system_config overrides reach
         # worker-side library code (config.current_config()).
         from ray_tpu_torch.core.config import CONFIG_ENV_JSON

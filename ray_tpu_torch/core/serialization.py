@@ -198,9 +198,39 @@ def pack(value: Any) -> bytes:
     return bytes(out)
 
 
-def unpack(buf: memoryview | bytes | bytearray) -> Any:
+class BufferExporter:
+    """One out-of-band buffer of an unpacked value, handed to the
+    unpickler through the buffer protocol (PEP 688) so that its readers
+    can be counted: ``exports`` is the number of buffers taken from it
+    and not yet released (an array built on it holds one for its life).
+    A slice of a memoryview cannot tell this: views derived from it are
+    not exports of it."""
+
+    __slots__ = ("_view", "_lock", "exports")
+
+    def __init__(self, view: memoryview):
+        self._view = view
+        self._lock = threading.Lock()
+        self.exports = 0
+
+    def __buffer__(self, flags: int) -> memoryview:
+        with self._lock:
+            self.exports += 1
+        return memoryview(self._view)
+
+    def __release_buffer__(self, view: memoryview) -> None:
+        view.release()
+        with self._lock:
+            self.exports -= 1
+
+
+def unpack(buf: memoryview | bytes | bytearray,
+           exporters: list | None = None) -> Any:
     """Deserialize from a contiguous buffer. Buffers are zero-copy views into
-    `buf` — keep the backing memory alive as long as the object."""
+    `buf` — keep the backing memory alive as long as the object.
+    ``exporters``, when given, receives one `BufferExporter` per
+    out-of-band buffer, through which the value reads it: the memory may
+    be reused once every exporter's ``exports`` is 0."""
     buf = memoryview(buf)
     (n_buf,) = struct.unpack_from("<I", buf, 0)
     sizes = [
@@ -220,6 +250,9 @@ def unpack(buf: memoryview | bytes | bytearray) -> Any:
     for s in sizes:
         out_of_band.append(buf[off : off + s])
         off = _pad(off + s)
+    if exporters is not None:
+        out_of_band = [BufferExporter(v) for v in out_of_band]
+        exporters.extend(out_of_band)
     return pickle.loads(payload, buffers=out_of_band)
 
 

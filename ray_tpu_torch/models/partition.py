@@ -10,8 +10,12 @@ counterpart of ``tree_to_shardings`` + ``shard_tree`` over ONE mesh
 axis: expert
 stacks split on ``"expert"`` over an ep mesh, layer stacks on
 ``"layers"`` over a pp mesh (`PIPELINE_LOGICAL_RULES`). Placement over
-several axes at once, and fsdp (parameters sharded over the data
-axis), need several processes and are not ported.
+several single-controller axes at once is not ported. Across processes,
+`tree_to_shardings` resolves each leaf's logical axes on a process mesh
+(``parallel/mesh.py::make_mesh``: dp and fsdp) to a `Sharding` (the
+dimension fsdp splits and this rank's index range on it), and
+`shard_tree` keeps this rank's pieces of whole leaves: the counterparts
+of the JAX functions of the same names.
 
 Models declare where each parameter shards once, as a rule table of
 ``(regex, dim)`` pairs over ``/``-joined tree paths
@@ -49,7 +53,8 @@ __all__ = [
     "KV_HEAD_AXIS", "PartitionRuleError", "TP_AXIS",
     "concat_head_planes", "logical_to_spec", "make_tp_mesh",
     "match_partition_rules", "place_on_axis", "shard_by_rules",
-    "split_head_planes", "tree_path_names",
+    "shard_tree", "split_head_planes", "tree_path_names",
+    "tree_to_shardings",
 ]
 
 # KV page planes [L, n_pages, page_size, H, K] shard on their head dim,
@@ -304,3 +309,35 @@ def place_on_axis(params: dict, logical_axes: dict, mesh, axis: str,
         for s, dev in enumerate(mesh):
             out[f"{name}@{s}"] = _shard(leaf, dim, s, n, dev)
     return out
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(a is None or isinstance(a, str)
+                                        for a in x)
+
+
+def tree_to_shardings(logical_tree: Any, mesh,
+                      rules: tuple[tuple[str, Any], ...] = DEFAULT_LOGICAL_RULES
+                      ) -> Any:
+    """Map a tree (dicts, lists) of logical-axis tuples to a tree of
+    ``parallel/mesh.py::Sharding`` on the process mesh ``mesh``: each
+    leaf's `logical_to_spec` on the mesh, seen from this rank."""
+    if _is_axes(logical_tree):
+        return mesh.sharding(logical_to_spec(logical_tree, rules, mesh=mesh))
+    if isinstance(logical_tree, dict):
+        return {k: tree_to_shardings(v, mesh, rules)
+                for k, v in logical_tree.items()}
+    return type(logical_tree)(tree_to_shardings(v, mesh, rules)
+                              for v in logical_tree)
+
+
+def shard_tree(tree: Any, shardings: Any) -> Any:
+    """This rank's pieces of a tree of whole leaves (torch tensors or
+    numpy arrays) per a matching tree of shardings, each its own tensor
+    on the mesh's device: the counterpart of ``jax.device_put(x,
+    NamedSharding)`` on one rank."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(shard_tree(v, s) for v, s in zip(tree, shardings))
+    return shardings.shard(tree)

@@ -1,13 +1,25 @@
-"""The logical-axis rules and single-controller device meshes.
+"""The logical-axis rules, single-controller device meshes and the
+process mesh.
 
-Counterpart of the part of ``ray_tpu/parallel/mesh.py`` the port needs:
-`MESH_AXES`, `DEFAULT_LOGICAL_RULES` and `PIPELINE_LOGICAL_RULES` (read
-by ``models/partition.py::logical_to_spec`` and ``place_on_axis``, and
-by the memory audit). The port's meshes are single-controller, as its
-tensor-parallel engine is: a mesh is a plain list of devices, one per
-shard of ONE mesh axis, and a device may repeat (the shards then run in
-turn on it, the counterpart of the forced host-device count of the JAX
-tests). `device_mesh` builds one: ``device_mesh(n, axis="ep")`` is the
+Counterpart of ``ray_tpu/parallel/mesh.py``: `MESH_AXES`,
+`DEFAULT_LOGICAL_RULES` and `PIPELINE_LOGICAL_RULES` (read by
+``models/partition.py::logical_to_spec`` and ``place_on_axis``, and by
+the memory audit), `MeshConfig`, `make_mesh`, `replicated` and
+`batch_sharding`.
+
+Two kinds of mesh. The dp and fsdp axes span processes: `make_mesh`,
+called in every rank of a ``torch.distributed`` process group (a
+`train.TorchTrainer` gang), resolves a `MeshConfig` over the world size
+and returns this rank's `ProcessMesh` (the axis sizes, the rank's
+coordinate on each axis with ranks laid out row-major over `MESH_AXES`,
+as the JAX fallback lays out devices, one process group per axis, and
+the rank's device), whose `Sharding` of a leaf names the dimension its
+axes split and this rank's index range on it. The other axes run on one
+controller inside a rank, as the port's tensor-parallel engine does: a
+single-controller mesh is a plain list of devices, one per shard of ONE
+mesh axis, and a device may repeat (the shards then run in turn on it,
+the counterpart of the forced host-device count of the JAX tests).
+`device_mesh` builds one: ``device_mesh(n, axis="ep")`` is the
 expert-parallel mesh of ``ops/moe.py``, ``device_mesh(n, axis="pp")``
 the pipeline mesh of ``parallel/pipeline.py``; ``models/partition.py``
 `make_tp_mesh` and ``parallel/ring.py`` `make_sp_mesh` name the tp and
@@ -18,12 +30,14 @@ splits, and the cross-shard sums (`reduce_shards`), live there.
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Any
 
+import numpy as np
 import torch
 
-# Canonical axis order, outermost (slowest) first. The port's meshes span
-# one axis each; dp and fsdp need several processes and are not ported.
+# Canonical axis order, outermost (slowest) first.
 MESH_AXES: tuple[str, ...] = ("dp", "pp", "fsdp", "sp", "ep", "tp")
 
 # Logical model axes → mesh axes. Anything not listed is replicated.
@@ -102,5 +116,331 @@ def axis_shards(tree: dict, name: str, mesh) -> list:
     return [tree[f"{name}@{s}"] for s in range(n)]
 
 
+# ------------------------------------------------------- the process mesh
+
+# The axes whose shards are processes; the others run on one controller
+# inside a rank (`device_mesh`).
+PROCESS_AXES: tuple[str, ...] = ("dp", "fsdp")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Declarative mesh shape. -1 on at most one axis means "use the rest"."""
+
+    dp: int = 1
+    fsdp: int = -1
+    sp: int = 1
+    tp: int = 1
+    pp: int = 1
+    ep: int = 1
+
+    def resolve(self, n_devices: int) -> dict[str, int]:
+        sizes = {"dp": self.dp, "pp": self.pp, "fsdp": self.fsdp,
+                 "sp": self.sp, "ep": self.ep, "tp": self.tp}
+        wild = [k for k, v in sizes.items() if v == -1]
+        if len(wild) > 1:
+            raise ValueError(f"at most one mesh axis may be -1, got {wild}")
+        fixed = math.prod(v for v in sizes.values() if v != -1)
+        if wild:
+            if n_devices % fixed != 0:
+                raise ValueError(
+                    f"{n_devices} devices not divisible by fixed axes product {fixed}"
+                )
+            sizes[wild[0]] = n_devices // fixed
+        if math.prod(sizes.values()) != n_devices:
+            raise ValueError(
+                f"mesh {sizes} does not cover {n_devices} devices"
+            )
+        return sizes
+
+
+def mesh_coords(rank: int, shape: dict[str, int]) -> dict[str, int]:
+    """``rank``'s coordinate on each axis, ranks laid out row-major over
+    `MESH_AXES` (the last axis varies fastest)."""
+    coords = {}
+    for ax in reversed(MESH_AXES):
+        rank, coords[ax] = divmod(rank, shape[ax])
+    return {ax: coords[ax] for ax in MESH_AXES}
+
+
+def _host_tensor(x) -> torch.Tensor:
+    """``x`` as a tensor: a tensor as it is, a numpy array copied (numpy
+    bf16 arrives as ``ml_dtypes.bfloat16`` and goes through fp32,
+    exactly)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """Where one leaf lies on a process mesh: the counterpart of a JAX
+    ``NamedSharding`` seen from one rank. ``spec`` is the leaf's
+    partition spec on the mesh (``models/partition.py::logical_to_spec``);
+    ``dim`` the one dimension it splits (None: the rank holds the whole
+    leaf), over mesh ``axes`` into ``count`` even pieces, of which this
+    rank holds piece ``index`` (row-major over ``axes``, as the JAX
+    sharding assigns the device at this rank's mesh position). ``writer``:
+    this rank's coordinate is 0 on every axis that does not split the
+    leaf, so it writes this piece in a sharded checkpoint."""
+
+    spec: tuple
+    dim: int | None
+    axes: tuple[str, ...]
+    index: int
+    count: int
+    device: torch.device
+    writer: bool
+
+    def bounds(self, size: int) -> tuple[int, int]:
+        """[start, stop) of this rank's piece of a dimension of ``size``."""
+        if size % self.count:
+            raise ValueError(
+                f"dimension {self.dim} of size {size} does not split "
+                f"evenly over {self.axes} ({self.count} shards)")
+        n = size // self.count
+        return self.index * n, (self.index + 1) * n
+
+    def local_shape(self, shape) -> tuple[int, ...]:
+        shape = tuple(shape)
+        if self.dim is None:
+            return shape
+        start, stop = self.bounds(shape[self.dim])
+        return shape[:self.dim] + (stop - start,) + shape[self.dim + 1:]
+
+    def shard(self, x) -> torch.Tensor:
+        """This rank's piece of the whole leaf ``x`` (a tensor or a numpy
+        array), its own contiguous tensor on the mesh's device."""
+        if self.dim is not None:
+            start, stop = self.bounds(x.shape[self.dim])
+            x = (x.narrow(self.dim, start, stop - start)
+                 if isinstance(x, torch.Tensor) else
+                 np.asarray(x)[(slice(None),) * self.dim
+                               + (slice(start, stop),)])
+        t = _host_tensor(x)
+        out = torch.empty(t.shape, dtype=t.dtype, device=self.device)
+        return out.copy_(t)
+
+
+@dataclasses.dataclass
+class CollectiveStats:
+    """What the mesh's collectives moved: calls, payload bytes (each
+    rank's input), and the copies and bytes staged through host memory
+    (gloo takes CUDA tensors through a host copy each way)."""
+
+    calls: int = 0
+    bytes: int = 0
+    staged_copies: int = 0
+    staged_bytes: int = 0
+
+
+class ProcessMesh:
+    """One rank's view of a mesh whose axes span processes (`make_mesh`).
+
+    ``shape`` maps every axis of `MESH_AXES` to its size, ``coords`` to
+    this rank's coordinate; ``groups`` holds one process group per axis of
+    size > 1 (the ranks that differ from this one on that axis alone);
+    ``device`` is the rank's device. The collectives below run over the
+    groups of the axes they are given; with gloo, CUDA tensors are staged
+    through host memory (every copy counted in ``stats``), NCCL takes them
+    where they lie."""
+
+    def __init__(self, shape: dict[str, int], rank: int,
+                 device: torch.device, groups: dict, backend: str | None):
+        self.shape = dict(shape)
+        self.rank = rank
+        self.world_size = math.prod(shape.values())
+        self.coords = mesh_coords(rank, shape)
+        self.device = device
+        self.groups = groups
+        self.backend = backend
+        self.stats = CollectiveStats()
+
+    def __repr__(self):
+        live = {a: n for a, n in self.shape.items() if n > 1}
+        return (f"ProcessMesh({live or '1'}, rank={self.rank}, "
+                f"device={self.device})")
+
+    def sharding(self, spec: tuple) -> Sharding:
+        """The `Sharding` of a leaf with partition ``spec`` on this mesh
+        (mesh axes of size 1 split nothing)."""
+        split = []
+        for d, entry in enumerate(spec):
+            axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+            axes = tuple(a for a in axes if self.shape.get(a, 1) > 1)
+            if axes:
+                split.append((d, axes))
+        if len(split) > 1:
+            raise NotImplementedError(
+                f"spec {spec} splits {len(split)} dimensions across "
+                "processes; the process mesh splits at most one per leaf")
+        dim, axes = split[0] if split else (None, ())
+        index = 0
+        for a in axes:
+            index = index * self.shape[a] + self.coords[a]
+        return Sharding(
+            spec=tuple(spec), dim=dim, axes=axes, index=index,
+            count=math.prod(self.shape[a] for a in axes), device=self.device,
+            writer=all(self.coords[a] == 0 for a in MESH_AXES
+                       if a not in axes))
+
+    def group(self, axes) -> tuple[Any, int]:
+        """(process group, size) spanning mesh ``axes``: the size-1 axes
+        drop out; no axis left is (None, 1)."""
+        axes = tuple(a for a in axes if self.shape.get(a, 1) > 1)
+        if not axes:
+            return None, 1
+        if len(axes) > 1:
+            if set(axes) != {a for a in MESH_AXES if self.shape[a] > 1}:
+                raise NotImplementedError(f"no process group over {axes}")
+            import torch.distributed as dist
+
+            return dist.group.WORLD, self.world_size
+        return self.groups[axes[0]], self.shape[axes[0]]
+
+    def _staged(self, t: torch.Tensor) -> bool:
+        return self.backend == "gloo" and t.is_cuda
+
+    def _staged_copy(self, t: torch.Tensor, device) -> torch.Tensor:
+        self.stats.staged_copies += 1
+        self.stats.staged_bytes += t.numel() * t.element_size()
+        return t.to(device)
+
+    def _count(self, t: torch.Tensor) -> None:
+        self.stats.calls += 1
+        self.stats.bytes += t.numel() * t.element_size()
+
+    def all_reduce_mean(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """The mean of ``t`` over the ranks of ``axes``: the sum, then a
+        division by their count, every rank getting the same bits."""
+        group, n = self.group(axes)
+        if n == 1:
+            return t
+        import torch.distributed as dist
+
+        self._count(t)
+        staged = self._staged(t)
+        buf = self._staged_copy(t, "cpu") if staged else t.contiguous()
+        dist.all_reduce(buf, group=group)
+        buf.div_(n)
+        return self._staged_copy(buf, self.device) if staged else buf
+
+    def all_gather(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        """The pieces of ``t`` held along mesh ``axis``, joined along
+        ``dim`` in the axis' order."""
+        group, n = self.group((axis,))
+        if n == 1:
+            return t
+        import torch.distributed as dist
+
+        self._count(t)
+        piece = t.movedim(dim, 0).contiguous()
+        staged = self._staged(piece)
+        if staged:
+            piece = self._staged_copy(piece, "cpu")
+        out = piece.new_empty((n * piece.shape[0],) + tuple(piece.shape[1:]))
+        dist.all_gather_into_tensor(out, piece, group=group)
+        if staged:
+            out = self._staged_copy(out, self.device)
+        return out.movedim(0, dim)
+
+    def reduce_scatter_mean(self, t: torch.Tensor, axis: str,
+                            dim: int) -> torch.Tensor:
+        """This rank's piece along ``dim`` of the mean of ``t`` over the
+        ranks of mesh ``axis``: the inverse of `all_gather` for
+        gradients (sum, then a division by the axis size)."""
+        group, n = self.group((axis,))
+        if n == 1:
+            return t
+        import torch.distributed as dist
+
+        self._count(t)
+        whole = t.movedim(dim, 0).contiguous()
+        staged = self._staged(whole)
+        if staged:
+            whole = self._staged_copy(whole, "cpu")
+        out = whole.new_empty((whole.shape[0] // n,) + tuple(whole.shape[1:]))
+        dist.reduce_scatter_tensor(out, whole, group=group)
+        out.div_(n)
+        if staged:
+            out = self._staged_copy(out, self.device)
+        return out.movedim(0, dim)
+
+
+def make_mesh(config: MeshConfig | dict[str, int] | None = None, *,
+              device=None) -> ProcessMesh:
+    """This rank's `ProcessMesh` over the ranks of the default process
+    group (one rank, world 1, when no group is initialized).
+
+    ``config`` resolves over the world size as `MeshConfig.resolve` does
+    (None: every rank on fsdp, as the JAX default). Only dp and fsdp may
+    span processes; tp, sp, ep or pp > 1 raise `NotImplementedError`
+    (ROADMAP queue 1, "process-spanning axes"): inside a rank the sp, ep
+    and pp meshes are `device_mesh` lists. ``device``: the rank's device,
+    by default the train session's (`train.session.get_device`), else
+    cuda (raises without a GPU). Every rank must call this together: it
+    creates the axes' process groups."""
+    from ray_tpu_torch._device import resolve_device
+
+    import torch.distributed as dist
+
+    joined = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if joined else 1
+    rank = dist.get_rank() if joined else 0
+    if config is None:
+        config = MeshConfig(dp=1, fsdp=-1, sp=1, tp=1)
+    if isinstance(config, MeshConfig):
+        sizes = config.resolve(world)
+    else:
+        sizes = dict(config)
+        for ax in MESH_AXES:
+            sizes.setdefault(ax, 1)
+        sizes = MeshConfig(**{k: sizes[k] for k in MESH_AXES}).resolve(world)
+    for ax in MESH_AXES:
+        if ax not in PROCESS_AXES and sizes[ax] > 1:
+            raise NotImplementedError(
+                f"{ax}={sizes[ax]} across processes is not ported (ROADMAP "
+                "queue 1, the process-spanning axes); a rank's own sp, ep "
+                "and pp meshes are device_mesh lists")
+    if device is None:
+        from ray_tpu_torch.train import session
+
+        if session.active() and session.get_device() is not None:
+            device = session.get_device()
+    device = resolve_device(device)
+    groups = {}
+    for ax in PROCESS_AXES:
+        if sizes[ax] == 1:
+            continue
+        # Every rank creates every group of the axis, in the same order.
+        members: dict[tuple, list[int]] = {}
+        for r in range(world):
+            c = mesh_coords(r, sizes)
+            members.setdefault(tuple(v for a, v in c.items() if a != ax),
+                               []).append(r)
+        for ranks in members.values():
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                groups[ax] = g
+    return ProcessMesh(sizes, rank, device, groups,
+                       dist.get_backend() if joined else None)
+
+
+def replicated(mesh: ProcessMesh) -> Sharding:
+    """The whole array on every rank."""
+    return mesh.sharding(())
+
+
+def batch_sharding(mesh: ProcessMesh) -> Sharding:
+    """A [batch, ...] array split on batch over dp and fsdp: this rank's
+    rows (`Sharding.shard` takes them from the global batch)."""
+    return mesh.sharding((("dp", "fsdp"),))
+
+
 __all__ = ["DEFAULT_LOGICAL_RULES", "MESH_AXES", "PIPELINE_LOGICAL_RULES",
-           "axis_shards", "device_mesh", "reduce_shards"]
+           "PROCESS_AXES", "CollectiveStats", "MeshConfig", "ProcessMesh",
+           "Sharding", "axis_shards", "batch_sharding", "device_mesh",
+           "make_mesh", "mesh_coords", "reduce_shards", "replicated"]

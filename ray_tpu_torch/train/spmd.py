@@ -1,30 +1,50 @@
-"""The single-device train step (PyTorch).
+"""The train step (PyTorch): on one controller, and across processes.
 
-Counterpart of ``ray_tpu/train/spmd.py``'s ``make_train_step`` and
-``build_training`` for one device: the loss's gradients by autograd,
-then the optimizer's update, applied to the parameters in place under
+Counterpart of ``ray_tpu/train/spmd.py``'s ``param_shardings``,
+``sharded_init``, ``opt_state_shardings``, ``make_train_step`` and
+``build_training``: the loss's gradients by autograd, then the
+optimizer's update, applied to the parameters in place under
 ``torch.no_grad()`` (the counterpart of the JAX step's
 ``donate_argnums``: no second copy of the parameters or the optimizer
 state is made). ``stochastic_round=True`` is the bf16-master path
 (``train/low_precision.py``): the gradients go to the optimizer in fp32
-and the updates are applied with stochastic rounding. The sharded init
-and optimizer-state shardings of the JAX version are not ported: the
-step runs on one controller. The sp ``mesh`` goes to the loss, whose ring
-attention uses it; an ep mesh places MoE-GPT's expert stacks on their
-shards (``build_training(..., model=moe_gpt, ep_mesh=)``), and
+and the updates are applied with stochastic rounding.
+
+Inside a rank, the sp ``mesh`` goes to the loss, whose ring attention
+uses it; an ep mesh places MoE-GPT's expert stacks on their shards
+(``build_training(..., model=moe_gpt, ep_mesh=)``), and
 `build_pipeline_training` places GPT's layer stacks on the stages of a
 pp mesh. The optimizer sees each placed shard as a leaf of its own.
+
+Across processes, ``build_training(..., process_mesh=)`` takes a
+``parallel/mesh.py::ProcessMesh`` (dp and fsdp over the ranks of a
+``torch.distributed`` group). `sharded_init` draws the parameters leaf by
+leaf and keeps the rank's slice of each (the embed dimension over fsdp,
+``DEFAULT_LOGICAL_RULES``), so no rank holds the whole tree at rest
+(during a step it does: see `build_training`); the
+optimizer's moments then have the slices' shapes. The step runs on the
+rank's own batch (its rows of the global batch, `batch_sharding`): each
+sliced leaf is all-gathered for the forward and its gradient
+reduce-scattered (sum ÷ the fsdp size) in the backward
+(`_GatherLeaf`), every other gradient is all-reduced (sum ÷ the size)
+over the data axes that do not split its leaf, and the returned loss is
+the mean over the data axes: the JAX step's global mean.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from collections.abc import Mapping
 from typing import Callable
 
 import torch
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.train.optim import GradientTransformation, apply_updates
+from ray_tpu_torch.parallel.mesh import (DEFAULT_LOGICAL_RULES, PROCESS_AXES,
+                                         replicated)
+from ray_tpu_torch.parallel.sharding import tree_to_shardings
+from ray_tpu_torch.train.optim import (FactoredState, GradientTransformation,
+                                       apply_updates)
 
 
 class Fp32Leaves(Mapping):
@@ -49,9 +69,116 @@ class Fp32Leaves(Mapping):
         return len(self._grads)
 
 
+# --------------------------------------------------- across processes
+
+
+def param_shardings(logical_tree, mesh, rules=DEFAULT_LOGICAL_RULES):
+    return tree_to_shardings(logical_tree, mesh, rules)
+
+
+def sharded_init(model, cfg, mesh, generator: torch.Generator | None = None,
+                 rules=DEFAULT_LOGICAL_RULES):
+    """``model``'s parameters for ``cfg`` on the process mesh ``mesh``:
+    drawn leaf by leaf from ``generator`` (on the mesh's device; a fresh
+    one seeded 0 when None) in ``model.init_params``' order, each leaf
+    cut to this rank's slice as soon as it is drawn, so no rank holds
+    the whole tree while it initialises. The slices are those of
+    ``init_params`` with the same generator. → (params, shardings)."""
+    from ray_tpu_torch._params import init_from_specs
+
+    specs = model.param_specs(cfg)
+    shardings = param_shardings({k: v["axes"] for k, v in specs.items()},
+                                mesh, rules)
+
+    def take(name, leaf):
+        s = shardings[name]
+        return leaf if s.dim is None else s.shard(leaf)
+
+    return init_from_specs(specs, cfg.param_dtype, generator, mesh.device,
+                           take), shardings
+
+
+def _map_state(fn, state, key=None):
+    """``state`` with every leaf replaced by ``fn(key, leaf)``, ``key``
+    the name of the innermost dict entry above the leaf."""
+    if dataclasses.is_dataclass(state) and not isinstance(state, type):
+        return type(state)(**{f.name: _map_state(fn, getattr(state, f.name))
+                              for f in dataclasses.fields(state)})
+    if isinstance(state, dict):
+        return {k: _map_state(fn, v, k) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return type(state)(_map_state(fn, v, key) for v in state)
+    return fn(key, state)
+
+
+def opt_state_shardings(optimizer: GradientTransformation, params,
+                        params_shardings, mesh):
+    """The sharding of each leaf of ``optimizer``'s state for the rank's
+    ``params`` (ZeRO: a moment kept under a parameter's name with the
+    parameter's shape shards like it; counts and placeholders
+    replicate). The state is built on the meta device: nothing is
+    allocated."""
+    meta = {k: torch.empty_like(p, device="meta") for k, p in params.items()}
+    repl = replicated(mesh)
+
+    def pick(key, leaf):
+        if (isinstance(leaf, torch.Tensor) and key in params
+                and leaf.shape == params[key].shape):
+            return params_shardings.get(key, repl)
+        return repl
+
+    return _map_state(pick, optimizer.init(meta))
+
+
+class _GatherLeaf(torch.autograd.Function):
+    """A sliced leaf gathered whole along its split dimension for the
+    forward; its gradient reduce-scattered back to the slice in the
+    backward (`ProcessMesh.reduce_scatter_mean`)."""
+
+    @staticmethod
+    def forward(ctx, piece, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return mesh.all_gather(piece, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (ctx.mesh.reduce_scatter_mean(grad, ctx.axis, ctx.dim),
+                None, None, None)
+
+
+def _split(shardings, name):
+    s = shardings.get(name)
+    return s if s is not None and s.dim is not None else None
+
+
+def gather_params(params: dict, shardings: dict, mesh) -> dict:
+    """The whole leaves for the forward: each sliced leaf through
+    `_GatherLeaf`, the others as they are."""
+    out = {}
+    for k, p in params.items():
+        s = _split(shardings, k)
+        if s is not None and len(s.axes) != 1:
+            raise NotImplementedError(f"{k!r} is split over {s.axes}")
+        out[k] = p if s is None else _GatherLeaf.apply(p, mesh, s.axes[0],
+                                                       s.dim)
+    return out
+
+
+def sync_grads(grads: dict, shardings: dict, mesh) -> None:
+    """Each gradient's mean over the data axes that do not split its
+    leaf (a sliced leaf's gradient was already reduced over its own axis
+    by `_GatherLeaf`), in place of the rank's own."""
+    for k, g in grads.items():
+        s = _split(shardings, k)
+        grads[k] = mesh.all_reduce_mean(
+            g, tuple(a for a in PROCESS_AXES
+                     if s is None or a not in s.axes))
+
+
 def make_train_step(loss_fn: Callable[..., torch.Tensor],
                     optimizer: GradientTransformation, *,
-                    stochastic_round: bool = False):
+                    stochastic_round: bool = False, process_mesh=None,
+                    shardings: dict | None = None):
     """step(params, opt_state, batch) → (params, opt_state, loss).
 
     loss_fn(params, *batch) → scalar. ``params`` is a dict of leaf
@@ -62,13 +189,32 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor],
     ``(inner, count)`` (`build_training` makes it), the gradients reach
     the optimizer as fp32 leaf by leaf, and the updates are applied by
     ``low_precision.sr_apply_updates`` with ``count`` driving the noise;
-    the count is then advanced."""
+    the count is then advanced (every rank seeds its noise alike, so dp
+    replicas stay identical).
+
+    With ``process_mesh`` (and the parameters' ``shardings``, keyed by
+    name; a name without one is whole), ``params`` are this rank's
+    slices and ``batch`` its rows: the sliced leaves are gathered for
+    the loss, the gradients reduced over the data axes (see the module
+    docstring), and the loss returned is the mean over the ranks.
+
+    ``step.grads_of(params, batch)`` → (loss, gradients) is the step's
+    own gradient computation without the update (the gradients of a
+    sliced leaf are the rank's slice)."""
 
     def grads_of(params, batch):
         names = list(params)
-        loss = loss_fn(params, *batch)
-        grads = torch.autograd.grad(loss, [params[k] for k in names])
-        return loss, dict(zip(names, grads))
+        if process_mesh is None:
+            loss = loss_fn(params, *batch)
+            grads = torch.autograd.grad(loss, [params[k] for k in names])
+            return loss, dict(zip(names, grads))
+        loss = loss_fn(gather_params(params, shardings, process_mesh),
+                       *batch)
+        grads = dict(zip(names, torch.autograd.grad(
+            loss, [params[k] for k in names])))
+        sync_grads(grads, shardings, process_mesh)
+        return process_mesh.all_reduce_mean(loss.detach(),
+                                            PROCESS_AXES), grads
 
     if stochastic_round:
         from ray_tpu_torch.train.low_precision import sr_apply_updates
@@ -88,6 +234,7 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor],
             apply_updates(params, updates)
             return params, opt_state, loss.detach()
 
+    step.grads_of = grads_of
     return step
 
 
@@ -100,8 +247,8 @@ def _trainable(params: dict) -> dict:
 def build_training(cfg, optimizer: GradientTransformation,
                    generator: torch.Generator | None = None, device=None,
                    model=None, *, mesh=None, ep_mesh=None,
-                   stochastic_round: bool = False):
-    """Parameters, optimizer state and the train step on one controller.
+                   process_mesh=None, stochastic_round: bool = False):
+    """Parameters, optimizer state and the train step.
 
     ``model`` exposes init_params/loss_fn (defaults to
     ``ray_tpu_torch.models.gpt``; ``models.llama`` works alike);
@@ -116,14 +263,35 @@ def build_training(cfg, optimizer: GradientTransformation,
     the bf16-master path (set ``cfg.param_dtype=torch.bfloat16`` with
     it): the optimizer state is initialised from the bf16 parameters
     (never an fp32 view; its moments follow the parameters' dtype) and
-    paired with a step count. Returns (params, opt_state, step_fn) where
-    step_fn(params, opt_state, (tokens, targets)) → (params, opt_state,
-    loss)."""
+    paired with a step count. ``process_mesh``: a
+    ``parallel/mesh.py::ProcessMesh`` of this rank (`sharded_init` on
+    it, the step of `make_train_step` over it; ``device`` is then the
+    mesh's). Adafactor's factored moments and block RMS span whole
+    leaves, so it raises under fsdp (it runs unchanged under dp). fsdp
+    shards the parameters and moments at rest only: `gather_params`
+    gathers every sliced leaf before the loss runs, and autograd keeps
+    the whole leaves until the backward, so during a step a rank holds
+    the whole parameter tree (ROADMAP queue 1, the process-spanning
+    axes: gather each layer's slice of the stacked [L, ...] leaves
+    inside the remat'd layer instead).
+    Returns (params, opt_state, step_fn) where step_fn(params,
+    opt_state, (tokens, targets)) → (params, opt_state, loss)."""
     if model is None:
         from ray_tpu_torch.models import gpt as model
 
-    dev = resolve_device(device)
-    params = model.init_params(cfg, generator, dev)
+    shardings = None
+    if process_mesh is None:
+        params = model.init_params(cfg, generator, resolve_device(device))
+    else:
+        if device is not None and (resolve_device(device)
+                                   != process_mesh.device):
+            raise ValueError(f"device {device} is not the process mesh's "
+                             f"{process_mesh.device}")
+        params, shardings = sharded_init(model, cfg, process_mesh, generator)
+        if ep_mesh is not None and any(s.dim is not None
+                                       for s in shardings.values()):
+            raise NotImplementedError("an ep mesh under fsdp (ROADMAP queue "
+                                      "1, the process-spanning axes)")
     extra = {}
     if ep_mesh is not None:
         from ray_tpu_torch.models.partition import place_on_axis
@@ -132,6 +300,11 @@ def build_training(cfg, optimizer: GradientTransformation,
         extra["ep_mesh"] = ep_mesh
     params = _trainable(params)
     opt_state = optimizer.init(params)
+    if (isinstance(opt_state, FactoredState) and shardings is not None
+            and any(s.dim is not None for s in shardings.values())):
+        raise NotImplementedError(
+            "adafactor under fsdp: its factored moments and block RMS span "
+            "the whole leaf (ROADMAP queue 1, the process-spanning axes)")
     if stochastic_round:
         opt_state = (opt_state, 0)
 
@@ -139,7 +312,8 @@ def build_training(cfg, optimizer: GradientTransformation,
         return model.loss_fn(params, tokens, targets, cfg, mesh, **extra)
 
     return params, opt_state, make_train_step(
-        loss, optimizer, stochastic_round=stochastic_round)
+        loss, optimizer, stochastic_round=stochastic_round,
+        process_mesh=process_mesh, shardings=shardings)
 
 
 def build_pipeline_training(cfg, optimizer: GradientTransformation,
@@ -175,4 +349,5 @@ def build_pipeline_training(cfg, optimizer: GradientTransformation,
 
 
 __all__ = ["Fp32Leaves", "make_train_step", "build_training",
-           "build_pipeline_training"]
+           "build_pipeline_training", "param_shardings", "sharded_init",
+           "opt_state_shardings", "gather_params", "sync_grads"]

@@ -8,6 +8,7 @@ functions, options, multiple returns, object passing, actors, named actors,
 errors, wait, kill.
 """
 
+import gc
 import time
 
 import numpy as np
@@ -98,6 +99,26 @@ def test_large_task_return(cluster):
     out = ray_tpu_torch.get(big.remote(), timeout=30)
     assert out.shape == (300_000,)
     assert out.sum() == 300_000
+
+
+def test_zero_copy_value_outlives_its_ref(cluster):
+    """A got array is a zero-copy view of its extent: the extent stays
+    pinned while the array lives, after its ObjectRef died (here at
+    once), so the next objects' extents never overwrite it (the JAX
+    runtime unpins at the ref's death and corrupts such arrays)."""
+    @ray_tpu_torch.remote
+    def filled(v):
+        return {"a": np.full(1 << 18, v, np.float32)}
+
+    kept = []
+    for v in range(8):
+        kept.append(ray_tpu_torch.get(filled.remote(v), timeout=30)["a"])
+        gc.collect()    # the ref's death releases its extent view
+    time.sleep(0.5)     # the unpins of dead refs are fire-and-forget
+    assert [v for v, a in enumerate(kept) if not (a == v).all()] == []
+    del kept            # then the extents go back to the store
+    for v in range(8):
+        assert ray_tpu_torch.get(filled.remote(v), timeout=30)["a"][0] == v
 
 
 def test_object_ref_args_chain(cluster):

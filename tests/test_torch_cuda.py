@@ -23,7 +23,9 @@ the card against full flash attention, the stochastic rounding's
 mean with a generator on the card, the MoE layer on the card against a
 plain top-2 loop (also over an ep = 2 mesh of the card, and its routing
 bitwise the host's), one pipeline step at pp = 2 against the
-sequential step, and the runtime (a num_gpus=1 task's CUDA return
+sequential step, the fsdp gather Function and a process-mesh step at
+world 1 against whole-leaf autograd and the single-controller step, and
+the runtime (a num_gpus=1 task's CUDA return
 reaching the driver as a CPU tensor, CUDA tensors at top level and
 nested in the serializer, an actor's paged-kernel launches, an
 LLMDeployment replica's stream equal to the in-process engine's). The
@@ -1143,6 +1145,47 @@ def test_pipeline_step_on_the_card_matches_sequential(cuda):
             fa.flash_dkv.launches) == (32, 16, 16)
     assert abs(loss_p - loss_s) <= 5e-4
     assert float((g_p - g_s).norm() / g_s.norm()) <= 2e-2
+
+
+def test_fsdp_gather_and_process_mesh_step_at_world_one_on_the_card(cuda):
+    """The fsdp gather Function on the card at world 1: its forward is
+    the leaf and its backward the whole-leaf autograd gradient, bitwise;
+    and three tiny flash steps through build_training(process_mesh=) at
+    world 1 are bitwise the single-controller steps, with no collective."""
+    from ray_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from ray_tpu_torch.train import spmd
+    from ray_tpu_torch.train.optim import adamw
+
+    mesh = make_mesh(MeshConfig(dp=1, fsdp=1), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    w = torch.randn(2, 64, 128, device=cuda, generator=gen,
+                    requires_grad=True)
+    x = torch.randn(4, 64, device=cuda, generator=gen)
+    got = spmd._GatherLeaf.apply(w, mesh, "fsdp", 1)
+    (g_got,) = torch.autograd.grad((x @ got[1]).square().sum(), [w])
+    (g_ref,) = torch.autograd.grad((x @ w[1]).square().sum(), [w])
+    assert torch.equal(got, w) and torch.equal(g_got, g_ref)
+
+    # Two heads of 64: the flash kernels take head dims 64 and 128.
+    cfg = gpt.GPTConfig.tiny(d_model=128, n_heads=2, dtype=torch.float32,
+                             attn_impl="flash")
+    opt = adamw(1e-2, weight_decay=0.1)
+    runs = []
+    for pm in (None, mesh):
+        params, state, step = spmd.build_training(
+            cfg, opt, torch.Generator(device=cuda).manual_seed(0), cuda,
+            process_mesh=pm)
+        toks = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (4, 64))).to(cuda)
+        losses = []
+        for _ in range(3):
+            params, state, loss = step(params, state,
+                                       (toks, torch.roll(toks, -1, 1)))
+            losses.append(float(loss))
+        runs.append((losses, params))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(runs[0][1][k], runs[1][1][k]) for k in runs[0][1])
+    assert mesh.stats.calls == 0 and fa.flash_fwd.launches > 0
 
 
 # ------------------------------------------------ the runtime on the card

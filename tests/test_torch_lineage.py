@@ -17,6 +17,7 @@ import pytest
 
 import ray_tpu_torch
 from ray_tpu_torch.cluster_utils import Cluster
+from ray_tpu_torch.core.client import _release_views
 
 
 @pytest.fixture(scope="module")
@@ -50,12 +51,9 @@ def _drop_local_copies(refs) -> None:
     client = ray_tpu_torch.api._client
     for r in refs:
         client._memory_store.pop(r.id.binary(), None)
-        mv = client._mmaps.pop(r.id.binary(), None)
-        if mv is not None:
-            try:
-                mv.release()
-            except BufferError:
-                pass
+        entry = client._mmaps.pop(r.id.binary(), None)
+        if entry is not None:
+            _release_views(entry)
 
 
 def test_node_death_rebuilds_task_output(cluster):
@@ -71,11 +69,13 @@ def test_node_death_rebuilds_task_output(cluster):
     refs = [blob.remote(i) for i in range(3)]
     ray_tpu_torch.get(refs, timeout=60)  # materialized on the victim node
     cluster.remove_node(victim)
-    cluster.add_node(num_cpus=2, resources={"sp_rebuild": 1})
+    spare = cluster.add_node(num_cpus=2, resources={"sp_rebuild": 1})
     _wait_alive(base_alive + 1)
     _drop_local_copies(refs)
     out = ray_tpu_torch.get(refs, timeout=90)
     assert [int(a[0]) for a in out] == [0, 1, 2]
+    cluster.remove_node(spare)     # the module's cluster keeps its size
+    _wait_alive(base_alive)
 
 
 def test_transitive_reconstruction(cluster):
@@ -97,11 +97,13 @@ def test_transitive_reconstruction(cluster):
     c = double.remote(b)
     assert int(ray_tpu_torch.get(c, timeout=60)[3]) == 6
     cluster.remove_node(victim)
-    cluster.add_node(num_cpus=2, resources={"sp_trans": 1})
+    spare = cluster.add_node(num_cpus=2, resources={"sp_trans": 1})
     _wait_alive(base_alive + 1)
     _drop_local_copies([b, c])
     out = ray_tpu_torch.get(c, timeout=90)
     assert int(out[5]) == 10
+    cluster.remove_node(spare)
+    _wait_alive(base_alive)
 
 
 def test_chain_survives_dropped_intermediate_ref(cluster):
@@ -124,10 +126,12 @@ def test_chain_survives_dropped_intermediate_ref(cluster):
     del b
     assert int(ray_tpu_torch.get(c, timeout=60)[0]) == 3
     cluster.remove_node(victim)
-    cluster.add_node(num_cpus=2, resources={"sp_chain": 1})
+    spare = cluster.add_node(num_cpus=2, resources={"sp_chain": 1})
     _wait_alive(base_alive + 1)
     _drop_local_copies([c])
     assert int(ray_tpu_torch.get(c, timeout=90)[1]) == 3
+    cluster.remove_node(spare)
+    _wait_alive(base_alive)
 
 
 def test_lost_put_restored_from_owner_copy(cluster):
@@ -167,9 +171,11 @@ def test_dynamic_generator_items_recover(cluster):
     assert int(ray_tpu_torch.get(item_refs[1], timeout=60)[0]) == 1
 
     cluster.remove_node(victim)
-    cluster.add_node(num_cpus=2, resources={"sp_dyn": 1})
+    spare = cluster.add_node(num_cpus=2, resources={"sp_dyn": 1})
     _wait_alive(base_alive + 1)
     _drop_local_copies(item_refs)
 
     vals = ray_tpu_torch.get(list(item_refs), timeout=120)
     assert [int(v[0]) for v in vals] == [0, 1, 2]
+    cluster.remove_node(spare)
+    _wait_alive(base_alive)

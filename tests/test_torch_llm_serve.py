@@ -183,10 +183,16 @@ class TestSliceAgainstJax:
 
 
 class TestServeIntegration:
-    def test_llm_deployment_parallel_requests(self):
+    @pytest.fixture(scope="class")
+    def cluster(self):
+        """One cluster for the class; each test shuts its serve app down."""
+        ray_tpu_torch.init(num_cpus=4)
+        yield
+        ray_tpu_torch.shutdown()
+
+    def test_llm_deployment_parallel_requests(self, cluster):
         from ray_tpu_torch import serve
 
-        ray_tpu_torch.init(num_cpus=4)
         try:
             from ray_tpu_torch.serve.llm import LLMDeployment
 
@@ -220,15 +226,13 @@ class TestServeIntegration:
             assert "serve_llm_decode_tok_s_bucket" in text
         finally:
             serve.shutdown()
-            ray_tpu_torch.shutdown()
 
-    def test_streaming_handle_and_http_sse(self):
+    def test_streaming_handle_and_http_sse(self, cluster):
         """Clients see tokens BEFORE generation completes, via
         DeploymentHandle.stream and via the HTTP proxy's SSE path (the
         first data event arrives well before [DONE])."""
         from ray_tpu_torch import serve
 
-        ray_tpu_torch.init(num_cpus=4)
         try:
             from ray_tpu_torch.serve.llm import LLMDeployment
 
@@ -294,4 +298,3 @@ class TestServeIntegration:
                 "— the proxy buffered the response")
         finally:
             serve.shutdown()
-            ray_tpu_torch.shutdown()

@@ -17,7 +17,7 @@ import pytest
 import ray_tpu_torch
 
 
-@pytest.fixture
+@pytest.fixture(scope="module")
 def small_memory_cluster():
     # Cap the summed worker RSS at 400 MiB; host-fraction path stays off.
     ray_tpu_torch.init(num_cpus=4, _system_config={

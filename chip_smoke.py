@@ -29,6 +29,9 @@
     python3 chip_smoke.py --only kernels,train,train_dist
                           # gpt2_124m through TorchTrainer: world 1 on
                           # NCCL, dp = 2 and fsdp = 2 on gloo ranks
+    python3 chip_smoke.py --only train,tune
+                          # a Tuner job of four gpt2_124m trials on the
+                          # card, through python -m ray_tpu_torch
 
 Phases, one JSON line each, each with ``at_s``, the seconds since the
 script began (the whole record also goes to build/chip_smoke.json):
@@ -122,7 +125,8 @@ script began (the whole record also goes to build/chip_smoke.json):
    held to the programs' logit-MAE limit; the same with int8 weights and
    int8 pools (one-shot against chunked); a one-shot write with each
    row's first page on the null page must exceed the limit.
-5. profile: torch.profiler over one fused decode window and one prefill
+5. profile (opt_1_3b cut to its first 8 layers, CUT_DEPTH, full width):
+   torch.profiler over one fused decode window and one prefill
    dispatch at the engine's shapes (device busy time, idle share, top
    ops); the decode window's device time with int8 against bf16 weights
    (float and int8 KV), and the window's K/V writes alone into each pool;
@@ -377,6 +381,26 @@ script began (the whole record also goes to build/chip_smoke.json):
    every rank; step p50, the device's idle share (one profiled step),
    collective bytes per step and the host copies, peak memory per rank
    and worker boot printed.
+   tune: the slice's path as a user takes it, all through ``python -m
+   ray_tpu_torch``: ``start --head --num-cpus 8 --resources '{"GPU":
+   1}'`` with the dashboard, ``status``, then ``job submit --wait`` of
+   this script under ``--tune-driver`` (the spec in build/tune): the job
+   attaches through its environment and runs a Tuner of 4 trials
+   (``tune_trial``: the train phase's step at lr 1e-4, 3e-4, 1e-3 and
+   3e-3, ``resources_per_trial={"CPU": 1, "GPU": 0.25}``, all on the
+   card at once) under ASHA (max_t 8, grace 2, factor 2), then a planted
+   trial alone (lr 3e-4 on the batch shifted by one token, 2 steps);
+   the dashboard's cluster status, jobs and actors read while it runs;
+   then ``job status``, ``job logs``, ``list jobs`` and the dashboard's
+   job routes, which must agree (SUCCEEDED, the same logs), and
+   ``stop``, after which the head has exited 0 and left no record and
+   no arena. Gates: every trial on ``cuda:0`` at 24/12/12 flash launches
+   a step with no call of a plain version; the lr 3e-4 trial's losses
+   bitwise the train phase's first ones, the planted trial's not; ASHA
+   stopped a trial before max_t and the best ran to it. Per-trial boot
+   (fit to the first report), step p50 with four sharing the card beside
+   the train phase's alone, peak memory, the job's and the phase's wall
+   printed.
 8. with --ab OLD_CHECKOUT: the flash forward, dq and dkv and the float
    and int8 paged prefill and decode (timed shape and light load, with
    the wrapper's host µs) against an older checkout's kernels, in turns.
@@ -2332,7 +2356,8 @@ def phase_profile(device, cfg, masters, params):
     with the int8 pool, and the window's K/V writes alone into each pool
     (the float pool's index_put against the int8 pool's _quant_write);
     and the dense engine's window at the same slots and positions
-    (`dense_window_profile`)."""
+    (`dense_window_profile`). Cut to CUT_DEPTH layers."""
+    cfg, (params, masters) = first_layers(cfg, (params, masters), CUT_DEPTH)
     B, T, ps = 16, 1024, 64
     n_pg = T // ps
     pool = pk.init_paged_kv(cfg, B * n_pg, ps, device=device)
@@ -2389,7 +2414,8 @@ def phase_profile(device, cfg, masters, params):
     prefill = _profiled(lambda: pk.prefill_chunk_paged(
         cfg, params, ptoks, pool, tables[:, :4].contiguous(), offs, nv,
         attn_impl="kernel"))
-    emit({"phase": "profile", "decode_window_k8": decode,
+    emit({"phase": "profile", "layers": CUT_DEPTH,
+          "decode_window_k8": decode,
           "dense_decode_window_k8": dense,
           "prefill_dispatch_16x256": prefill,
           "decode_window_k8_device_ms_by_weights_and_kv": weight_gap,
@@ -2410,9 +2436,10 @@ ENGINE_KNOBS = dict(n_slots=16, max_len=2048, page_size=64, kv_mode="paged",
                     prefill_chunk=256, prefill_token_budget=512,
                     attn_impl="kernel")
 
-CUT_DEPTH = 8          # engine_tp's, engine_prefix's and engine_drain's
-                       # layers: opt_1_3b's first 8 of 24, full width (a
-                       # depth cut that makes room for `serve`)
+CUT_DEPTH = 8          # engine_tp's, engine_prefix's, engine_drain's and
+                       # profile's layers: opt_1_3b's first 8 of 24, full
+                       # width (depth cuts that make room for `serve` and
+                       # `tune`)
 
 
 def first_layers(cfg, trees, n):
@@ -5472,7 +5499,7 @@ def phase_train(device):
            "losses": losses, "launches": launches,
            "launches_per_step": per_step, "profile_one_step": profiled}
     emit(out)
-    return launches
+    return launches, (losses, p50)
 
 
 # ------------------------------------------------------- long context
@@ -6674,6 +6701,409 @@ def phase_train_dist(device, errs):
     return by_path, shapes
 
 
+# ---------------------------------------------------------------- tune
+
+# The tune phase's Tuner: 4 trials of the train phase's step (gpt2_124m
+# at full width and depth, S 1024, B 8, bf16 over fp32 params, remat,
+# flash), one per learning rate, all four on the card at once under
+# ASHA. Its job is this script under --tune-driver, submitted through the
+# port's CLI; the spec travels in a file beside the head's state.
+TUNE_SPEC = {
+    "model": "gpt2_124m", "B": TRAIN_B, "S": TRAIN_S,
+    "lrs": [1e-4, 3e-4, 1e-3, 3e-3], "max_t": 8, "grace_period": 2,
+    "reduction_factor": 2, "trial_gpus": 0.25, "device": None,
+    "reference_lr": 3e-4, "planted_steps": 2,
+}
+TUNE_DIR = os.path.join("build", "tune")   # under the checkout's root
+TUNE_ENTRY = "chip_smoke.py"               # the job's script, --tune-driver
+
+
+def tune_trial(config):
+    """One Tune trial: build_training from seed 0 at ``config["lr"]`` on
+    the trial's device (``session.get_device()``), the train phase's batch
+    (shifted by one token for the planted trial), ``config["steps"]``
+    steps, each reported with its loss, the step's flash launches (the
+    counters zeroed just before it), the plain versions' calls so far,
+    its wall and the peak memory; the boot's parts (the actor's start to
+    the train fn, build_training, the kernel library's load) with the
+    first report."""
+    from ray_tpu_torch.train import session
+
+    started = time.time()
+    dev = session.get_device()      # matmuls without tf32: torch's default
+    t0 = time.perf_counter()
+    plain = dict.fromkeys(("reference_flash_fwd", "reference_flash_dq",
+                           "reference_flash_dkv"), 0)
+    for name in plain:          # count every call of a plain version
+        def counted(*a, _real=getattr(fa, name), _name=name, **k):
+            plain[_name] += 1
+            return _real(*a, **k)
+        setattr(fa, name, counted)
+    cfg = getattr(gpt.GPTConfig, config["model"])(
+        max_seq=config["S"], remat=True, attn_impl="flash")
+    opt = adamw(config["lr"], weight_decay=0.1, mu_dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, opt_state, step = build_training(cfg, opt, gen, dev)
+    batch = train_batch_of(cfg.vocab_size, config["B"], config["S"], dev)
+    if config.get("shift"):
+        batch = tuple(torch.roll(x, config["shift"], dims=1) for x in batch)
+    on_card = dev.type == "cuda"
+    boot = {"build_training_s": time.perf_counter() - t0}
+    if on_card:
+        t0 = time.perf_counter()
+        _build.library()            # what the first flash launch would load
+        boot["kernel_library_s"] = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(config["steps"]):
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, batch)
+        loss = float(loss)                      # synchronizes
+        session.report({
+            "loss": loss, "step_ms": (time.perf_counter() - t0) * 1e3,
+            "launches": {"flash_fwd": fa.flash_fwd.launches,
+                         "flash_dq": fa.flash_dq.launches,
+                         "flash_dkv": fa.flash_dkv.launches},
+            "plain_calls": dict(plain), "device": str(dev),
+            "peak_gb": (torch.cuda.max_memory_allocated(dev) / 2**30
+                        if on_card else None),
+            "started": started, "t": time.time(), "boot": boot})
+
+
+def tune_trials_summary(grid, t_fit) -> list[dict]:
+    """Each trial's config, state, error and readings, in grid order."""
+    out = []
+    for t in grid.trials:
+        reps = t.reports
+        out.append({
+            "config": t.config, "state": t.state, "error": t.error,
+            "steps": len(reps), "losses": [r["loss"] for r in reps],
+            "devices": sorted({r["device"] for r in reps}),
+            "launches_per_step": [r["launches"] for r in reps],
+            "plain_calls": reps[-1]["plain_calls"] if reps else None,
+            "step_ms": [r["step_ms"] for r in reps],
+            "peak_gb": max((r["peak_gb"] or 0.0) for r in reps) if reps
+            else None,
+            "boot_s": reps[0]["t"] - t_fit if reps else None,
+            "boot_parts": reps[0]["boot"] if reps else None,
+            "actor_to_first_report_s": (reps[0]["t"] - reps[0]["started"])
+            if reps else None})
+    return out
+
+
+def tune_driver_main(spec_path: str) -> int:
+    """``--tune-driver SPEC``: the tune phase's job. It attaches to the
+    cluster its job environment names (``RAY_TPU_TORCH_ADDRESS``), runs
+    the Tuner of TUNE_SPEC under ASHA, then the planted trial (the
+    reference lr on a batch shifted by one token) alone, and prints the
+    trials as one ``{"tune_result": ...}`` line and the best trial's
+    line."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import tune
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rt.init()
+    try:
+        base = {"model": spec["model"], "B": spec["B"], "S": spec["S"]}
+        resources = {"CPU": 1, "GPU": spec["trial_gpus"]}
+        t_fit = time.time()
+        grid = tune.Tuner(
+            tune_trial,
+            param_space={**base, "lr": tune.grid_search(spec["lrs"]),
+                         "steps": spec["max_t"]},
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min",
+                max_concurrent_trials=len(spec["lrs"]),
+                scheduler=tune.ASHAScheduler(
+                    metric="loss", mode="min", max_t=spec["max_t"],
+                    grace_period=spec["grace_period"],
+                    reduction_factor=spec["reduction_factor"])),
+            resources_per_trial=resources,
+            device=spec["device"]).fit(timeout=600)
+        fit_s = time.time() - t_fit
+        t_planted = time.time()
+        planted = tune.Tuner(
+            tune_trial,
+            param_space={**base, "lr": spec["reference_lr"], "shift": 1,
+                         "steps": spec["planted_steps"]},
+            tune_config=tune.TuneConfig(metric="loss", mode="min"),
+            resources_per_trial=resources,
+            device=spec["device"]).fit(timeout=300)
+        planted_s = time.time() - t_planted
+        cluster = rt.cluster_resources()
+    finally:
+        rt.shutdown()
+    best = grid.get_best_result()
+    result = {"attached_to": os.environ.get("RAY_TPU_TORCH_ADDRESS"),
+              "cluster_resources": cluster, "fit_s": fit_s,
+              "planted_fit_s": planted_s,
+              "trials": tune_trials_summary(grid, t_fit),
+              "planted": tune_trials_summary(planted, t_planted)[0],
+              "best": {"lr": best.metrics["config"]["lr"],
+                       "loss": best.metrics["loss"],
+                       "steps": len(best.metrics_history)}}
+    print(json.dumps({"tune_result": result}), flush=True)
+    print(f"best trial: lr={result['best']['lr']:g} "
+          f"loss={result['best']['loss']!r} "
+          f"steps={result['best']['steps']}", flush=True)
+    return 1 if grid.errors or planted.errors else 0
+
+
+def tune_reference(device, spec) -> list[float]:
+    """The train phase's losses at the reference lr (for ``--only
+    tune``): build_training from seed 0, spec["max_t"] steps."""
+    cfg = getattr(gpt.GPTConfig, spec["model"])(
+        max_seq=spec["S"], remat=True, attn_impl="flash")
+    opt = adamw(spec["reference_lr"], weight_decay=0.1,
+                mu_dtype=torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params, opt_state, step = build_training(cfg, opt, gen, device)
+    batch = train_batch_of(cfg.vocab_size, spec["B"], spec["S"], device)
+    losses = []
+    for _ in range(spec["max_t"]):
+        params, opt_state, loss = step(params, opt_state, batch)
+        losses.append(float(loss))
+    return losses
+
+
+def _get_json(url: str, timeout=30):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read().decode())
+
+
+def _port_arenas() -> set:
+    return {n for n in os.listdir("/dev/shm")
+            if n.startswith("raytpu-torch-arena-")}
+
+
+def phase_tune(device, train_run):
+    """The slice's path as a user takes it, through ``python -m
+    ray_tpu_torch``: start a head with a GPU and the dashboard, submit
+    this script's --tune-driver as a job (--wait), watch the dashboard
+    while it runs, read the job's status and logs back through the CLI
+    and the dashboard, stop the head. ``train_run``: the train phase's
+    (losses, step p50 ms), or None to compute the reference here."""
+    t_phase = time.perf_counter()
+    spec = dict(TUNE_SPEC)
+    if train_run is None:
+        ref_losses, train_p50 = tune_reference(device, spec), None
+    else:
+        ref_losses, train_p50 = train_run
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, TUNE_DIR)
+    os.makedirs(work, exist_ok=True)
+    spec_path = os.path.join(work, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    env = {**os.environ,
+           "RAY_TPU_TORCH_STATE_DIR": os.path.join(work, "state"),
+           "PYTHONPATH": os.pathsep.join(
+               [root] + ([os.environ["PYTHONPATH"]]
+                         if os.environ.get("PYTHONPATH") else []))}
+    cli = [sys.executable, "-m", "ray_tpu_torch"]
+
+    def run_cli(*args, timeout=120):
+        res = subprocess.run(cli + list(args), cwd=root, env=env,
+                             capture_output=True, text=True,
+                             timeout=timeout)
+        if res.returncode != 0:
+            raise AssertionError(f"`ray_tpu_torch {' '.join(args)}` exited "
+                                 f"{res.returncode}: {res.stderr[-3000:]}")
+        return res.stdout
+
+    out = {"phase": "tune", "card": card_line(), "spec": spec,
+           "reference_losses": ref_losses,
+           "train_phase_step_ms_p50": train_p50}
+    bad = []
+    arenas_before = _port_arenas()
+    t0 = time.perf_counter()
+    sub = None                        # the job submission, once started
+    head = subprocess.Popen(
+        cli + ["start", "--head", "--num-cpus", "8", "--resources",
+               '{"GPU": 1}', "--dashboard-port", "0"],
+        cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    head_lines = []
+    try:
+        gcs = url = None
+        while url is None:
+            line = head.stdout.readline()
+            if not line:
+                raise AssertionError(f"the head exited: {head_lines}")
+            head_lines.append(line.rstrip())
+            if line.startswith("head started; GCS at "):
+                gcs = line.split()[-1]
+            elif line.startswith("dashboard at "):
+                url = line.split()[-1]
+        threading.Thread(target=lambda: [head_lines.append(x.rstrip())
+                                         for x in head.stdout],
+                         daemon=True).start()
+        out["head_start_s"] = time.perf_counter() - t0
+        out["gcs"], out["dashboard"] = gcs, url
+        out["status_before"] = run_cli("status", "--address", gcs)
+        if "nodes: 1 alive" not in out["status_before"] \
+                or "GPU: 1/1 available" not in out["status_before"]:
+            bad.append(f"status: {out['status_before']!r}")
+        t_job = time.perf_counter()
+        sub = subprocess.Popen(
+            cli + ["job", "submit", "--address", gcs, "--wait",
+                   "--timeout", "900", "--", sys.executable,
+                   os.path.join(root, TUNE_ENTRY), "--tune-driver",
+                   spec_path],
+            cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        watch = {"samples": 0, "job_running_seen": False,
+                 "min_gpu_available": None, "max_actors_alive": 0,
+                 "gpu_total": None}
+        while sub.poll() is None:
+            try:
+                st = _get_json(url + "/api/cluster_status")
+                jobs = _get_json(url + "/api/jobs/")
+                actors = _get_json(url + "/api/actors")
+            except OSError as e:
+                watch["error"] = repr(e)
+                break
+            watch["samples"] += 1
+            watch["gpu_total"] = st["resources_total"].get("GPU")
+            avail = st["resources_available"].get("GPU", 0.0)
+            watch["min_gpu_available"] = (
+                avail if watch["min_gpu_available"] is None
+                else min(avail, watch["min_gpu_available"]))
+            watch["job_running_seen"] |= any(
+                j["status"] == "RUNNING" for j in jobs)
+            watch["max_actors_alive"] = max(
+                watch["max_actors_alive"],
+                sum(a["state"] == "ALIVE" for a in actors))
+            time.sleep(1.0)
+        stdout, stderr = sub.communicate(timeout=960)
+        out["job_wall_s"] = time.perf_counter() - t_job
+        out["dashboard_while_running"] = watch
+        if sub.returncode != 0:
+            raise AssertionError(f"job submit --wait exited {sub.returncode}"
+                                 f": {stdout[-4000:]} {stderr[-3000:]}")
+        job_id = stdout.splitlines()[0].strip()
+        status = run_cli("job", "status", job_id, "--address", gcs).strip()
+        logs = run_cli("job", "logs", job_id, "--address", gcs)
+        info = _get_json(f"{url}/api/jobs/{job_id}")
+        dash_logs = _get_json(f"{url}/api/jobs/{job_id}/logs")["logs"]
+        listed = json.loads(run_cli("list", "jobs", "--address", gcs))
+        out["job"] = {"id": job_id, "status_cli": status,
+                      "status_dashboard": info["status"],
+                      "return_code": info["return_code"],
+                      "listed": [j["status"] for j in listed
+                                 if j["job_id"] == job_id],
+                      "logs_equal": logs == dash_logs
+                      and stdout.endswith(logs)}
+        out["stop"] = run_cli("stop").strip()
+        out["head_exit_code"] = head.wait(timeout=60)
+    finally:
+        for proc in (sub, head):
+            if proc is not None and proc.poll() is None:
+                proc.terminate()       # the head stops its node on SIGTERM
+                try:
+                    proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+    left = sorted(_port_arenas() - arenas_before)
+    record = os.path.join(work, "state", "head.json")
+    out["after_stop"] = {"arenas_left": left,
+                         "head_record_left": os.path.exists(record)}
+    if left or os.path.exists(record) or out["head_exit_code"] != 0:
+        bad.append(f"stop left {out['after_stop']} (head exit "
+                   f"{out['head_exit_code']})")
+    if not (status == info["status"] == "SUCCEEDED"
+            and out["job"]["listed"] == ["SUCCEEDED"]
+            and out["job"]["logs_equal"]):
+        bad.append(f"job status/logs disagree: {out['job']}")
+    if not (watch["job_running_seen"] and watch["gpu_total"] == 1):
+        bad.append(f"the dashboard while running: {watch}")
+    line = next((x for x in logs.splitlines()
+                 if x.startswith('{"tune_result"')), None)
+    best_line = next((x for x in logs.splitlines()
+                      if x.startswith("best trial: ")), None)
+    if line is None or best_line is None:
+        raise AssertionError(f"tune: no result in the job's logs: "
+                             f"{logs[-4000:]}")
+    res = json.loads(line)["tune_result"]
+    out["best_line"] = best_line
+    out["driver"] = {k: res[k] for k in ("attached_to", "cluster_resources",
+                                        "fit_s", "planted_fit_s", "best")}
+    if res["attached_to"] != gcs:
+        bad.append(f"the job attached to {res['attached_to']}, not {gcs}")
+    by_path, trials = {}, {}
+    for tr in res["trials"] + [res["planted"]]:
+        tag = (f"lr={tr['config']['lr']:g}"
+               + (" planted" if tr["config"].get("shift") else ""))
+        trials[tag] = tr
+        if tr["error"] or not tr["steps"]:
+            bad.append(f"trial {tag}: {tr['state']} {tr['error']}")
+            continue
+        if tr["devices"] != ["cuda:0"]:
+            bad.append(f"trial {tag} on {tr['devices']}")
+        if any(ls != FLASH_PER_STEP for ls in tr["launches_per_step"]):
+            bad.append(f"trial {tag}: flash launches per step "
+                       f"{tr['launches_per_step']}, expected "
+                       f"{FLASH_PER_STEP}")
+        if any(tr["plain_calls"].values()):
+            bad.append(f"trial {tag}: plain versions ran "
+                       f"{tr['plain_calls']}")
+        by_path[f"tune ({tag})"] = {
+            k: sum(ls[k] for ls in tr["launches_per_step"])
+            for k in FLASH_PER_STEP}
+        timed = tr["step_ms"][1:] or tr["step_ms"]
+        tr["step_ms_p50"] = float(np.median(timed))
+    ref_trial = trials[f"lr={spec['reference_lr']:g}"]
+    n = min(len(ref_trial["losses"]), len(ref_losses))
+    bitwise = n >= spec["grace_period"] and \
+        ref_trial["losses"][:n] == ref_losses[:n]
+    planted = trials[f"lr={spec['reference_lr']:g} planted"]
+    m = min(len(planted["losses"]), len(ref_losses))
+    planted_bitwise = planted["losses"][:m] == ref_losses[:m]
+    out["bitwise_equal_train_phase"] = {"steps_compared": n,
+                                        "equal": bitwise}
+    out["planted_shifted_batch"] = {"steps_compared": m,
+                                    "equal": planted_bitwise,
+                                    "losses": planted["losses"]}
+    if not bitwise:
+        bad.append(f"lr={spec['reference_lr']:g} losses "
+                   f"{ref_trial['losses']} are not the train phase's "
+                   f"{ref_losses[:n]}")
+    if planted_bitwise or m == 0:
+        bad.append("the planted shifted-batch trial passes the bitwise gate")
+    steps = {tag: tr["steps"] for tag, tr in trials.items()
+             if "planted" not in tag}
+    stopped_early = [tag for tag, s in steps.items() if s < spec["max_t"]]
+    if not stopped_early:
+        bad.append(f"ASHA stopped no trial before max_t: {steps}")
+    if res["best"]["steps"] != spec["max_t"]:
+        bad.append(f"the best trial ran {res['best']['steps']} steps, not "
+                   f"max_t {spec['max_t']}")
+    out.update(
+        trials={tag: {k: tr[k] for k in (
+            "state", "steps", "losses", "boot_s", "boot_parts",
+            "actor_to_first_report_s",
+            "step_ms", "step_ms_p50", "peak_gb", "devices", "plain_calls")
+            if k in tr} for tag, tr in trials.items()},
+        steps_per_trial=steps, stopped_early=stopped_early,
+        boot_s={tag: tr["boot_s"] for tag, tr in trials.items()},
+        step_ms_p50_shared={tag: tr.get("step_ms_p50")
+                            for tag, tr in trials.items()
+                            if "planted" not in tag},
+        peak_gb={tag: tr["peak_gb"] for tag, tr in trials.items()},
+        head_lines=head_lines[-20:], phase_s=time.perf_counter() - t_phase,
+        gates_failed=bad)
+    emit(out)
+    if bad:
+        raise AssertionError(f"tune: {bad}")
+    return by_path
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="",
@@ -6682,7 +7112,7 @@ def main(argv=None) -> int:
                          "engine_oneshot,engine_drain,engine_warmup,"
                          "engine_observe,engine_edge,engine_tp,engine_kv,"
                          "runtime,serve,train,train_ring,train_llama,"
-                         "train_moe,train_pipeline,train_dist "
+                         "train_moe,train_pipeline,train_dist,tune "
                          "(default: all; "
                          "the build always runs)")
     ap.add_argument("--ptxas", action="store_true",
@@ -6693,6 +7123,8 @@ def main(argv=None) -> int:
                          "checkout's (its ray_tpu_torch/ops/csrc, built "
                          "into build/ab), in turns old, new, new, old")
     ap.add_argument("--warmup-child", choices=("on", "off"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--tune-driver", metavar="SPEC", default="",
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -6707,6 +7139,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.warmup_child:
         return warmup_child_main(args.warmup_child)
+    if args.tune_driver:
+        return tune_driver_main(args.tune_driver)
 
     card = card_line()
     print(card, flush=True)
@@ -6818,8 +7252,10 @@ def main(argv=None) -> int:
     if want("serve"):
         by_path.update(phase_serve(
             device, None if streams is None else (float_run, streams)))
+    train_run = None
     if want("train"):
-        launches.update(phase_train(device))
+        counts, train_run = phase_train(device)
+        launches.update(counts)
     for name, phase in (("train_ring", phase_train_ring),
                         ("train_llama", phase_train_llama),
                         ("train_moe", phase_train_moe),
@@ -6831,6 +7267,8 @@ def main(argv=None) -> int:
         paths, shapes = phase_train_dist(device, errs)
         by_path.update(paths)
         at_shapes.update(shapes)
+    if want("tune"):
+        by_path.update(phase_tune(device, train_run))
 
     kernels = []
     for name, (src, replaces) in meta.items():

@@ -33,6 +33,11 @@ layout and names so each counterpart is easy to find:
                           own environment prefix (``RAY_TPU_TORCH_``),
                           session directory and shared-memory names, so
                           the two runtimes never attach to each other
+- ``tune/``               the Tuner over the port's ``TrainWorker``
+                          actors, its schedulers, searchers and syncer
+- ``job_submission.py``, ``dashboard.py``, ``scripts/cli.py``
+                          the ops front ends: the job manager actor, the
+                          HTTP dashboard and ``python -m ray_tpu_torch``
 
 The package imports torch, numpy, cloudpickle and the standard library
 only. Importing the package (and the runtime's daemons) imports no torch:
@@ -41,8 +46,10 @@ unless the caller passes ``device="cpu"``; without a GPU the default
 raises instead of running on the CPU.
 """
 
+from ray_tpu_torch._version import __version__
+
 __all__ = ["chaos", "metrics", "models", "ops", "profiling", "serve",
-           "tracing", "train"]
+           "tracing", "train", "tune", "__version__"]
 
 _API_EXPORTS = (
     "init", "shutdown", "is_initialized", "remote", "get", "put", "wait",

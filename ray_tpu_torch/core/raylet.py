@@ -18,6 +18,7 @@ import argparse
 import asyncio
 import logging
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -1377,8 +1378,9 @@ class Raylet:
                     h.proc.terminate()
                 except ProcessLookupError:
                     pass
-        await self.server.stop()
+        # The arena first: the server waits for its clients to hang up.
         self.store.shutdown()
+        await self.server.stop()
 
 
 def main() -> None:
@@ -1410,7 +1412,15 @@ def main() -> None:
         if args.ready_fd is not None:
             os.write(args.ready_fd, f"{host}:{port}\n".encode())
             os.close(args.ready_fd)
-        await asyncio.Event().wait()
+        # SIGTERM (Node.stop, the CLI's stop) ends the raylet through
+        # stop(): its workers are told to exit and its arena is unlinked
+        # from /dev/shm (killed by the default action, the arena stayed
+        # until the next store's stale sweep).
+        stopping = asyncio.Event()
+        asyncio.get_running_loop().add_signal_handler(
+            signal.SIGTERM, stopping.set)
+        await stopping.wait()
+        await raylet.stop()
 
     asyncio.run(run())
 

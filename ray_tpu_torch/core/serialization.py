@@ -79,13 +79,25 @@ def _pad(n: int) -> int:
     return (n + _ALIGN - 1) // _ALIGN * _ALIGN
 
 
-def _to_host(obj: Any) -> Any:
-    """A CUDA tensor → its CPU copy before pickling.
+def _loaded_torch():
+    """torch if this process has imported it fully, else None.
 
     Never IMPORTS torch: a tensor can only exist in this process if torch
     is already in sys.modules, and a cold torch import here would sit
-    directly in the task store-returns hot path of torch-free workers."""
+    directly in the task store-returns hot path of torch-free workers. A
+    module still initializing (another thread of a threaded actor is
+    importing torch) is treated as absent: it has made no tensor yet, and
+    its attributes are not all there."""
     torch = sys.modules.get("torch")
+    if torch is None or getattr(getattr(torch, "__spec__", None),
+                                "_initializing", False):
+        return None
+    return torch
+
+
+def _to_host(obj: Any) -> Any:
+    """A CUDA tensor → its CPU copy before pickling."""
+    torch = _loaded_torch()
     if (torch is not None and isinstance(obj, torch.Tensor)
             and obj.device.type == "cuda"):
         return obj.detach().cpu()
@@ -95,7 +107,7 @@ def _to_host(obj: Any) -> Any:
 def _host_tensor_reduce(obj: Any):
     """The out-of-band reduction of a plain strided CPU tensor, or None
     for anything else (which keeps its own pickling)."""
-    torch = sys.modules.get("torch")
+    torch = _loaded_torch()
     if (torch is None or type(obj) is not torch.Tensor
             or obj.device.type != "cpu" or obj.layout != torch.strided
             or obj.is_quantized or obj.requires_grad):

@@ -153,6 +153,20 @@ class TrainWorker:
         self.thread.start()
         return True
 
+    def run_trial(self, device, fn_blob: bytes, config: dict,
+                  initial_checkpoint=None) -> bool:
+        """A Tune trial: take ``device`` (``setup_torch`` without a
+        process group), then start the train fn, in one call so the two
+        cannot interleave on this threaded actor. A device this process
+        cannot take (no GPU for the default) fails the trial."""
+        try:
+            self.setup_torch(device, master=None)
+        except Exception:
+            self._error = traceback.format_exc()
+            self._done = True
+            return False
+        return self.run_train_fn(fn_blob, config, None, initial_checkpoint)
+
     def poll(self) -> dict:
         reports = self.session.drain() if self.session else []
         out = {"reports": reports, "done": self._done, "error": self._error}

@@ -5,19 +5,21 @@ Mirrors ``tests/test_autoscale.py`` on the port's modules and cluster:
 `TestSeriesStore`, `TestRendering`, `TestShadowPolicy`, `TestSloSeeding`
 and `TestGcsSeriesSweep` case for case; `TestLiveDecisionPlane` reads
 the controller's `get_autoscale` and `get_load` and
-`state.query_series` where the JAX tests read the dashboard's
-``/api/series`` and ``/api/autoscale`` and the CLI (neither is ported
-yet). Then ``tests/test_flight_recorder.py``'s `TestSloMonitor` (its
-cluster cases on the port's cluster) and `TestServeLoadSurface`, which
-reads `get_load`, `slo.default_objectives` and the state API where the
-JAX tests read ``/api/serve/load``, ``/api/slo``, ``/api/traces``,
-``/api/timeline`` and the CLI. Tolerance: exact, except where the JAX
-tests use ``pytest.approx`` (its default, 1e-6 relative).
+`state.query_series`, and then, as the JAX tests do, the port's
+dashboard (``/api/series``, ``/api/autoscale``) and the CLI's
+``render_serve_status``. Then ``tests/test_flight_recorder.py``'s
+`TestSloMonitor` (its cluster cases on the port's cluster) and
+`TestServeLoadSurface`, which reads `get_load`,
+`slo.default_objectives` and the state API, and then the dashboard's
+``/api/serve/load``, ``/api/slo``, ``/api/traces`` and ``/api/timeline``
+and the CLI. Tolerance: exact, except where the JAX tests use
+``pytest.approx`` (its default, 1e-6 relative).
 """
 
 import asyncio
 import json
 import time
+import urllib.request
 
 import pytest
 
@@ -36,6 +38,20 @@ def cluster():
     yield
     serve.shutdown()
     ray_tpu_torch.shutdown()
+
+
+@pytest.fixture(scope="module")
+def dash(cluster):
+    from ray_tpu_torch.dashboard import start_dashboard
+
+    d = start_dashboard(port=0)
+    yield d
+    d.stop()
+
+
+def _get_json(url):
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return json.loads(r.read().decode())
 
 
 # ---------------------------------------------------------- series store
@@ -558,7 +574,7 @@ class TestLiveDecisionPlane:
             time.sleep(0.5)
         pytest.fail(f"{what} never appeared (last={last!r})")
 
-    def test_api_series_carries_replica_history(self, loaded_serve):
+    def test_api_series_carries_replica_history(self, loaded_serve, dash):
         def probe():
             rows = state.query_series("serve_replica_queue_depth",
                                       tags={"deployment": "auto_lb"},
@@ -577,8 +593,18 @@ class TestLiveDecisionPlane:
 
         assert (len(probe()[0]["points"])
                 <= runtime_config().obs_series_points)
+        # The same series through the dashboard.
+        rows = [s for s in _get_json(
+            dash.url + "/api/series?name=serve_replica_queue_depth"
+            '&window_s=120&tags={"deployment":"auto_lb"}')["series"]
+            if s["points"]]
+        (s,) = rows
+        assert s["tags"]["deployment"] == "auto_lb"
+        assert s["points"][-1][1] == 12.0 and s["kind"] == "gauge"
+        assert 2 <= len(s["points"]) <= runtime_config().obs_series_points
 
-    def test_api_autoscale_serves_full_decision_records(self, loaded_serve):
+    def test_api_autoscale_serves_full_decision_records(self, loaded_serve,
+                                                        dash):
         def probe():
             doc = ray_tpu_torch.get(_get_controller().get_autoscale.remote(),
                                     timeout=30)
@@ -596,6 +622,15 @@ class TestLiveDecisionPlane:
         for key in ("inputs", "hysteresis", "policy", "ts", "mode"):
             assert key in changed, key
         assert changed["inputs"]["samples"] > 0
+        # The same decision plane through the dashboard.
+        doc = _get_json(dash.url + "/api/autoscale")
+        assert doc["mode"] == "shadow"
+        dep = doc["deployments"]["auto_lb"]
+        assert (dep["recommended_replicas"], dep["current_replicas"]) == (3, 1)
+        changed = [d for d in dep["decisions"] if d["changed"]][-1]
+        assert changed["rule"] == "scale_up_queue"
+        for key in ("inputs", "hysteresis", "policy", "ts", "mode"):
+            assert key in changed, key
 
     def test_recommendation_never_enacted_in_shadow(self, loaded_serve):
         # Shadow is observe-only: the deployment must still be at 1.
@@ -623,9 +658,9 @@ class TestLiveDecisionPlane:
         assert "inputs" in ev and "hysteresis" in ev
 
     def test_cli_history_renders_sparklines(self, loaded_serve):
-        """The history the CLI renders (not ported): the queue-depth
-        series resampled and drawn as a sparkline, and the autoscale
-        summary it prints beside it, from serve.status()."""
+        """The history the CLI renders: the queue-depth series resampled
+        and drawn as a sparkline, and the autoscale summary it prints
+        beside it, from serve.status(); then the CLI's own rendering."""
         rows = self._wait(lambda: [
             s for s in state.query_series(
                 "serve_replica_queue_depth",
@@ -637,6 +672,17 @@ class TestLiveDecisionPlane:
         a = self._wait(lambda: serve.status()["auto_lb"].get("autoscale"),
                        "autoscale summary")
         assert a["mode"] == "shadow" and "recommended_replicas" in a
+        from ray_tpu_torch.scripts.cli import render_serve_status
+
+        def rendered():
+            text = render_serve_status(history=True, history_window_s=120.0)
+            return text if "recommended=" in text else None
+        text = self._wait(rendered, "the CLI's autoscale line")
+        assert "auto_lb" in text
+        assert "history (120s):" in text
+        assert "queue_depth" in text
+        assert any(c in text for c in "▁▂▃▄▅▆▇█")
+        assert "autoscale[shadow]: recommended=" in text
 
     def test_state_query_series_driver_roundtrip(self, loaded_serve):
         """Driver-set gauges flow through the driver flush loop into the
@@ -789,15 +835,18 @@ class TestServeLoadSurface:
             time.sleep(0.5)
         pytest.fail(f"replica load never reached /api/serve/load: {deps}")
 
-    def test_api_serve_load_propagates_engine_load(self, loaded_serve):
+    def test_api_serve_load_propagates_engine_load(self, loaded_serve,
+                                                   dash):
         deps = self._wait_load(loaded_serve)
-        info = deps["flight_lb"]
-        assert info["num_replicas"] == 2
-        assert len(info["replicas"]) == 2
-        for rep in info["replicas"]:
-            assert rep["load"]["queue_depth"] == 1
-            assert rep["load"]["pool_pages_free"] == 7
-            assert "inflight" in rep and "processed" in rep
+        for deps in (deps, _get_json(dash.url + "/api/serve/load")[
+                "deployments"]):
+            info = deps["flight_lb"]
+            assert info["num_replicas"] == 2
+            assert len(info["replicas"]) == 2
+            for rep in info["replicas"]:
+                assert rep["load"]["queue_depth"] == 1
+                assert rep["load"]["pool_pages_free"] == 7
+                assert "inflight" in rep and "processed" in rep
 
     def test_serve_status_carries_replica_load(self, loaded_serve):
         self._wait_load(loaded_serve)
@@ -807,24 +856,36 @@ class TestServeLoadSurface:
             assert stats["load"]["active_slots"] == 2
 
     def test_cli_status_serve_renders_load_and_slo(self, loaded_serve):
-        """What the CLI (not ported) renders: serve.status()'s replica
-        counts and each replica's load fields."""
+        """What the CLI renders: serve.status()'s replica counts and each
+        replica's load fields, then the CLI's own rendering of them."""
         self._wait_load(loaded_serve)
         st = serve.status()["flight_lb"]
         assert (st["live_replicas"], st["num_replicas"]) == (2, 2)
         for stats in st["replica_load"].values():
             assert stats["load"]["queue_depth"] == 1
             assert stats["load"]["pool_pages_free"] == 7
+        from ray_tpu_torch.scripts.cli import render_serve_status
 
-    def test_api_slo_serves_objectives(self, loaded_serve):
-        objs = SloMonitor(default_objectives(), export=False).evaluate()
-        names = {o["name"] for o in objs}
-        assert {"llm_ttft_p95", "http_request_p95"} <= names
-        for o in objs:
-            assert o["status"] in ("ok", "violating", "no_data")
-            assert "burn_rate" in o
+        text = render_serve_status()
+        assert "flight_lb" in text
+        assert "2/2 replicas" in text
+        assert "queue_depth=1" in text
+        assert "pool_pages_free=7" in text
+        assert "slo:" in text    # SLO table renders even with no traffic
 
-    def test_traces_and_timeline_still_serve(self, loaded_serve):
-        """Smoke: the trace and timeline surfaces still serve."""
+    def test_api_slo_serves_objectives(self, loaded_serve, dash):
+        for objs in (SloMonitor(default_objectives(), export=False).evaluate(),
+                     _get_json(dash.url + "/api/slo")["objectives"]):
+            names = {o["name"] for o in objs}
+            assert {"llm_ttft_p95", "http_request_p95"} <= names
+            for o in objs:
+                assert o["status"] in ("ok", "violating", "no_data")
+                assert "burn_rate" in o
+
+    def test_traces_and_timeline_still_serve(self, loaded_serve, dash):
+        """Smoke: the trace and timeline surfaces still serve, through
+        the state API and the dashboard."""
         assert isinstance(state.list_traces(), list)
         assert isinstance(state.timeline(), list)
+        assert isinstance(_get_json(dash.url + "/api/traces"), list)
+        assert isinstance(_get_json(dash.url + "/api/timeline"), list)

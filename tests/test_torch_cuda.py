@@ -28,7 +28,9 @@ world 1 against whole-leaf autograd and the single-controller step, and
 the runtime (a num_gpus=1 task's CUDA return
 reaching the driver as a CPU tensor, CUDA tensors at top level and
 nested in the serializer, an actor's paged-kernel launches, an
-LLMDeployment replica's stream equal to the in-process engine's). The
+LLMDeployment replica's stream equal to the in-process engine's), and a
+two-trial Tuner training a small GPT (head dim 64) on the flash kernels,
+both trials on the card at once. The
 file imports neither JAX nor the JAX package, and the
 repo's conftest does, so run it with::
 
@@ -1297,3 +1299,60 @@ def test_llm_deployment_replica_on_the_card(cluster):
         assert m["decode_steps"] > 0 and m["prefill_dispatches"] > 0
     finally:
         serve.shutdown()
+
+
+def _tune_trial(config):
+    """A card Tune trial: a small GPT (bf16, head dim 64, remat, flash)
+    at ``config["lr"]`` for 3 steps on the trial's device, each step's
+    flash launches (counters zeroed just before it) and the calls of
+    the plain versions so far reported with its loss."""
+    from ray_tpu_torch.train import session
+    from ray_tpu_torch.train.optim import adamw
+    from ray_tpu_torch.train.spmd import build_training
+
+    plain = {"calls": 0}
+    for name in ("reference_flash_fwd", "reference_flash_dq",
+                 "reference_flash_dkv"):
+        def counted(*a, _real=getattr(fa, name), **k):
+            plain["calls"] += 1
+            return _real(*a, **k)
+        setattr(fa, name, counted)
+    dev = session.get_device()
+    cfg = gpt.GPTConfig.tiny(d_model=128, n_heads=2, d_ff=256, max_seq=128,
+                             remat=True, attn_impl="flash")
+    params, state, step = build_training(
+        cfg, adamw(config["lr"], weight_decay=0.1, mu_dtype=torch.bfloat16),
+        torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 128))).to(dev)
+    batch = (toks, torch.roll(toks, -1, dims=1))
+    for _ in range(3):
+        fa.reset_launch_counts()
+        params, state, loss = step(params, state, batch)
+        session.report({"loss": float(loss), "device": str(dev),
+                        "launches": [fa.flash_fwd.launches,
+                                     fa.flash_dq.launches,
+                                     fa.flash_dkv.launches],
+                        "plain_calls": plain["calls"]})
+
+
+def test_tuner_trials_train_on_the_flash_kernels(cluster):
+    """Two trials at num_gpus 0.5 (both on the card at once): each on
+    ``cuda:0`` (``session.get_device()``), 4 forward (remat), 2 dq and 2
+    dkv launches a step for the 2 layers, no plain version run, the
+    loss finite and falling."""
+    from ray_tpu_torch import tune
+
+    grid = tune.Tuner(
+        _tune_trial, param_space={"lr": tune.grid_search([1e-3, 3e-3])},
+        tune_config=tune.TuneConfig(metric="loss", mode="min"),
+        resources_per_trial={"CPU": 1, "GPU": 0.5}).fit(timeout=600)
+    assert grid.errors == []
+    assert len(grid) == 2
+    for t in grid.trials:
+        losses = [r["loss"] for r in t.reports]
+        assert len(losses) == 3 and np.isfinite(losses).all()
+        assert losses[-1] < losses[0]
+        assert {r["device"] for r in t.reports} == {"cuda:0"}
+        assert [r["launches"] for r in t.reports] == [[4, 2, 2]] * 3
+        assert t.reports[-1]["plain_calls"] == 0

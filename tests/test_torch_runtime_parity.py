@@ -15,7 +15,12 @@
 - the two runtimes never attach to each other: each reads only its own
   environment prefix, a port driver started inside a JAX worker (whose
   environment names the live JAX cluster) starts its own cluster, and
-  the reverse.
+  the reverse;
+- the ops front ends keep to the port's names too: the CLI's head record
+  lies in the port's own state directory, the job log directory under
+  ``ray_tpu_torch`` in the temp directory, a job's environment names the
+  port's cluster only as ``RAY_TPU_TORCH_ADDRESS``, and the port's
+  ``stop`` never reads (nor signals the pid of) the JAX CLI's head file.
 """
 
 import dataclasses
@@ -257,3 +262,94 @@ def test_a_jax_driver_in_a_port_worker_starts_its_own_cluster():
         assert own and jax_gcs != port_gcs and wid
     finally:
         ray_tpu_torch.shutdown()
+
+
+def test_cli_head_record_lies_in_the_ports_state_directory(monkeypatch,
+                                                           tmp_path):
+    from ray_tpu.scripts import cli as jcli
+    from ray_tpu_torch.scripts import cli as tcli
+
+    monkeypatch.delenv("RAY_TPU_TORCH_STATE_DIR", raising=False)
+    assert tcli.head_file() == os.path.expanduser(
+        "~/.ray_tpu_torch/head.json")
+    assert tcli.head_file() != jcli.HEAD_FILE
+    monkeypatch.setenv("RAY_TPU_TORCH_STATE_DIR", str(tmp_path))
+    assert tcli.head_file() == str(tmp_path / "head.json")
+    # The JAX CLI's variable names nothing for the port.
+    monkeypatch.setenv("RAY_TPU_STATE_DIR", "/nowhere")
+    assert tcli.head_file() == str(tmp_path / "head.json")
+
+
+def test_job_log_directory_follows_tmpdir(tmp_path):
+    code = ("from ray_tpu_torch.job_submission import default_log_dir; "
+            "print(default_log_dir())")
+    env = {**os.environ, "TMPDIR": str(tmp_path)}
+    out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True).stdout.strip()
+    assert out == os.path.join(str(tmp_path), "ray_tpu_torch", "job_logs")
+
+
+def test_job_environment_names_only_the_ports_cluster(monkeypatch):
+    from ray_tpu import job_submission as jjobs
+    from ray_tpu_torch import job_submission as tjobs
+
+    monkeypatch.delenv("RAY_TPU_TORCH_ADDRESS", raising=False)
+    monkeypatch.delenv("RAY_TPU_ADDRESS", raising=False)
+    monkeypatch.setenv("RAY_TPU_GCS_ADDRESS", "10.0.0.1:1111")
+    env = tjobs.job_env()
+    assert "RAY_TPU_TORCH_ADDRESS" not in env      # a JAX worker's GCS
+    assert "RAY_TPU_ADDRESS" not in env
+    monkeypatch.setenv("RAY_TPU_TORCH_GCS_ADDRESS", "127.0.0.1:2222")
+    env = tjobs.job_env({"EXTRA": "1"})
+    assert env["RAY_TPU_TORCH_ADDRESS"] == "127.0.0.1:2222"
+    assert env["EXTRA"] == "1" and "RAY_TPU_ADDRESS" not in env
+    assert tjobs.JOB_MANAGER_NAME == jjobs.JOB_MANAGER_NAME   # per cluster
+
+
+def test_job_in_a_port_cluster_attaches_to_it_not_a_jax_one():
+    """A job submitted to the port's cluster, from a shell whose
+    environment also names a (dead) JAX cluster, attaches to the port's:
+    its driver sees the port's GCS and this cluster's CPUs."""
+    from ray_tpu_torch import api
+    from ray_tpu_torch.job_submission import JobSubmissionClient
+
+    os.environ["RAY_TPU_ADDRESS"] = "127.0.0.1:9"
+    try:
+        ray_tpu_torch.init(num_cpus=3)
+        gcs = api._ensure_client().gcs_address
+        client = JobSubmissionClient()
+        script = ("import os, ray_tpu_torch; ray_tpu_torch.init(); "
+                  "print('AT', os.environ['RAY_TPU_TORCH_ADDRESS'], "
+                  "float(ray_tpu_torch.cluster_resources()['CPU']))")
+        job_id = client.submit_job(entrypoint=f'{sys.executable} -c "{script}"')
+        assert client.wait_until_finished(job_id, timeout=120) == "SUCCEEDED"
+        assert f"AT {gcs[0]}:{gcs[1]} 3.0" in client.get_job_logs(job_id)
+    finally:
+        os.environ.pop("RAY_TPU_ADDRESS", None)
+        ray_tpu_torch.shutdown()
+
+
+def test_port_stop_never_reads_the_jax_head_file(tmp_path):
+    """A JAX head record under HOME names a live process of ours; the
+    port's ``stop`` (no record of its own) must leave it alone."""
+    home = tmp_path / "home"
+    (home / ".ray_tpu").mkdir(parents=True)
+    victim = subprocess.Popen([sys.executable, "-c",
+                               "import time; time.sleep(120)"])
+    try:
+        (home / ".ray_tpu" / "head.json").write_text(
+            '{"gcs_address": "127.0.0.1:1", "pid": %d}' % victim.pid)
+        env = {k: v for k, v in os.environ.items()
+               if k != "RAY_TPU_TORCH_STATE_DIR"}
+        env["HOME"] = str(home)
+        out = subprocess.run(
+            [sys.executable, "-m", "ray_tpu_torch", "stop"],
+            cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            env=env, capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert "no local head recorded" in out.stderr
+        assert victim.poll() is None
+        assert not (home / ".ray_tpu_torch").exists()
+    finally:
+        victim.kill()
+        victim.wait()

@@ -1,14 +1,18 @@
 """Declarative Serve ops surface of the port: YAML app config,
 deploy/reconcile (ref: `python/ray/serve/schema.py:1`).
 
-Mirrors ``tests/test_serve_config.py``'s `TestSchemaValidation` and
-`TestDeployFromConfig` on the port's cluster, exactly (no tolerance:
-the results are configs, names and integers). The JAX file's CLI and
-REST class waits for the port's dashboard and CLI.
+Mirrors ``tests/test_serve_config.py``'s `TestSchemaValidation`,
+`TestDeployFromConfig` and `TestServeCLIAndREST` on the port's cluster,
+exactly (no tolerance: the results are configs, names and integers),
+the last through the port's CLI (``serve build``) and dashboard (the
+``/api/serve/applications`` REST routes).
 """
 
+import json
 import sys
 import time
+import urllib.error
+import urllib.request
 
 import pytest
 
@@ -175,3 +179,57 @@ class TestDeployFromConfig:
         with pytest.raises(KeyError):
             delete_app("builtapp")
         assert "builtapp" not in app_statuses()["applications"]
+
+
+class TestServeCLIAndREST:
+    def test_cli_build_emits_skeleton(self, cluster, tmp_path):
+        from ray_tpu_torch.scripts.cli import main
+
+        out_path = tmp_path / "skeleton.yaml"
+        main(["serve", "build", "torch_serve_cfg_app_mod:app",
+              "--name", "gen", "-o", str(out_path)])
+        import yaml
+
+        sk = yaml.safe_load(out_path.read_text())
+        cfg = ServeConfig.from_dict(sk)     # round-trips through schema
+        assert cfg.applications[0].name == "gen"
+        assert {d.name for d in cfg.applications[0].deployments} == {
+            "EchoCfg", "PreprocCfg"}
+
+    def test_rest_deploy_status_delete(self, cluster):
+        from ray_tpu_torch.dashboard import start_dashboard
+
+        dash = start_dashboard(port=0)
+        try:
+            base = dash.url
+            body = json.dumps({"applications": [{
+                "name": "restapp",
+                "import_path": "torch_serve_cfg_app_mod:solo",
+            }]}).encode()
+            req = urllib.request.Request(
+                base + "/api/serve/applications", data=body, method="PUT",
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                out = json.loads(r.read())
+            assert out["deployed"]["restapp"] == ["EchoCfg"]
+
+            def live():
+                with urllib.request.urlopen(
+                        base + "/api/serve/applications", timeout=30) as r:
+                    st = json.loads(r.read())
+                d = st["applications"].get("restapp", {}).get(
+                    "deployments", {}).get("EchoCfg", {})
+                return d.get("live_replicas", 0) >= 1
+            _wait(live, msg="REST-deployed app never became live")
+
+            req = urllib.request.Request(
+                base + "/api/serve/applications/restapp", method="DELETE")
+            with urllib.request.urlopen(req, timeout=60) as r:
+                assert json.loads(r.read())["deleted"] == ["EchoCfg"]
+            req = urllib.request.Request(
+                base + "/api/serve/applications/nope", method="DELETE")
+            with pytest.raises(urllib.error.HTTPError) as ei:
+                urllib.request.urlopen(req, timeout=30)
+            assert ei.value.code == 404
+        finally:
+            dash.stop()

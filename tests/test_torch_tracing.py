@@ -7,10 +7,20 @@ the same span names with the same parent linkage (ids are random, so the
 linkage is compared by name); carriers carry the same fields; and
 `group_traces`, `build_trace_tree` and `flow_events` on one fixed event
 list give equal results. Host code only: exact equality.
+
+Then ``tests/test_tracing.py``'s `test_dashboard_traces_api_and_metrics`
+on the port's cluster: a served request with a traceparent reaches the
+port's dashboard as a trace of at least four spans (``/api/traces``,
+``/api/traces/<id>``, 404 for an unknown id), and the serve latency
+histograms reach its ``/metrics``.
 """
 
 import collections
 import dataclasses
+import json
+import time
+import urllib.error
+import urllib.request
 
 import pytest
 
@@ -121,3 +131,98 @@ def test_group_traces_tree_and_flows_equal():
         "task", "task2"]
     assert ttr.flow_events(events) == jtr.flow_events(events)
     assert len(ttr.flow_events(events)) == 6
+
+
+def _post(url, payload, headers=None, timeout=30):
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    return urllib.request.urlopen(req, timeout=timeout)
+
+
+@pytest.fixture(scope="module")
+def traced_app():
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+
+    ray_tpu_torch.init(num_cpus=4)
+
+    @ray_tpu_torch.remote
+    def traced_fanout(x):
+        return x * 2
+
+    @serve.deployment(name="traced_fan", route_prefix="/traced_fan")
+    class Fan:
+        def __call__(self, payload):
+            return {"y": ray_tpu_torch.get(
+                traced_fanout.remote(payload.get("x", 1)))}
+
+    try:
+        serve.run(Fan.bind())
+        _proxy, port = serve.start_proxy()
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            try:
+                _post(f"http://127.0.0.1:{port}/traced_fan", {"x": 0})
+                break
+            except (urllib.error.URLError, ConnectionError):
+                time.sleep(0.5)
+        yield port
+    finally:
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+
+
+def test_dashboard_traces_api_and_metrics(traced_app):
+    from ray_tpu_torch.dashboard import start_dashboard
+
+    port = traced_app
+    trace_id = ttr.new_trace_id()
+    resp = _post(f"http://127.0.0.1:{port}/traced_fan", {"x": 3},
+                 headers={"traceparent":
+                          f"00-{trace_id}-{ttr.new_span_id()}-01"})
+    assert json.loads(resp.read()) == {"result": {"y": 6}}
+
+    dash = start_dashboard(port=0)
+    try:
+        deadline = time.monotonic() + 30
+        tree = None
+        while time.monotonic() < deadline:
+            rows = json.loads(urllib.request.urlopen(
+                dash.url + "/api/traces", timeout=30).read())
+            if any(r["trace_id"] == trace_id and r["num_spans"] >= 4
+                   for r in rows):
+                tree = json.loads(urllib.request.urlopen(
+                    dash.url + f"/api/traces/{trace_id}",
+                    timeout=30).read())
+                break
+            time.sleep(0.5)
+        assert tree is not None and tree["trace_id"] == trace_id
+        assert tree["num_spans"] >= 4
+
+        # unknown trace -> 404
+        with pytest.raises(urllib.error.HTTPError) as err:
+            urllib.request.urlopen(
+                dash.url + "/api/traces/" + "f" * 32, timeout=30)
+        assert err.value.code == 404
+
+        # Serve latency breakdown histograms reach /metrics in proper
+        # histogram exposition (cumulative le buckets, _sum, _count).
+        deadline = time.monotonic() + 30
+        text = ""
+        while time.monotonic() < deadline:
+            text = urllib.request.urlopen(
+                dash.url + "/metrics", timeout=30).read().decode()
+            if ("serve_request_latency_s_bucket" in text
+                    and "serve_queue_wait_s_bucket" in text
+                    and "serve_replica_execute_s_bucket" in text):
+                break
+            time.sleep(0.5)
+        assert "# TYPE serve_request_latency_s histogram" in text
+        assert 'le="+Inf"' in text
+        assert "serve_request_latency_s_sum" in text
+        assert "serve_request_latency_s_count" in text
+        assert "serve_queue_wait_s_bucket" in text, text[:2000]
+        assert "serve_replica_execute_s_bucket" in text
+    finally:
+        dash.stop()

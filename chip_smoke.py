@@ -32,6 +32,10 @@
     python3 chip_smoke.py --only train,tune
                           # a Tuner job of four gpt2_124m trials on the
                           # card, through python -m ray_tpu_torch
+    python3 chip_smoke.py --only kernels,train,data
+                          # the data plane: TorchTrainer fed by a Dataset
+                          # through iter_cuda_batches, a BatchPredictor
+                          # on a pool of card actors
 
 Phases, one JSON line each, each with ``at_s``, the seconds since the
 script began (the whole record also goes to build/chip_smoke.json):
@@ -190,7 +194,8 @@ script began (the whole record also goes to build/chip_smoke.json):
    drain under load: the same traffic, drain(0.0) with the engine
    thread running once half the streams started, the continuations
    resumed on a fresh engine (each with exactly its missing tokens).
-   engine_edge: paged one-shot and chunked kernel engines at max_len
+   engine_edge: paged one-shot and chunked kernel engines (opt_1_3b cut
+   to its first 8 layers, CUT_DEPTH, full width) at max_len
    256 (a multiple of the page), 2 slots: a request runs into max_len
    beside a short one and must finish truncated after 157 tokens with
    no error and the pages balanced; then a chaos "raise" rule at
@@ -213,8 +218,9 @@ script began (the whole record also goes to build/chip_smoke.json):
    pool_shard_bytes = a shard's own bytes, no request error, pages
    balanced. Readings: greedy agreement with tp=1, decode step p50, and
    one fused window's device time and idle share at tp=2 beside tp=1.
-   engine_kv: the KV object tier on the engine phase's configuration,
-   through the process-global store (reset between parts): (a) a
+   engine_kv: the KV object tier on the engine phase's configuration
+   cut to opt_1_3b's first 8 layers (CUT_DEPTH, full width), through
+   the process-global store (reset between parts): (a) a
    pool_role="prefill" engine serves 8 of the prompts, each leaving at
    its first token with its pages donated, and a fresh pool_role="decode"
    engine resumes each (prompt, [first token], kv) for 24 tokens in all;
@@ -241,8 +247,8 @@ script began (the whole record also goes to build/chip_smoke.json):
    16 rows of C = 256) and returns their CUDA outputs, which reach this
    process as CPU tensors bitwise equal to the same calls here, with the
    worker's launch counters above 0; (b) a bf16 CPU tensor of engine_kv's
-   payload size (956 MB) is put and read back here and by a task on a
-   worker, bitwise both, out-of-band (the pickle stream under 64 KB),
+   payload size at full depth (956 MB) is put and read back here and by
+   a task on a worker, bitwise both, out-of-band (the pickle stream under 64 KB),
    with put and get GB/s, and a second put of the same bytes after the
    first is freed (into the pages the first put faulted in); (c) LLMEngine(opt_1_3b) from seed 0 on cuda in
    the __init__ of a num_gpus=1 actor, every knob from
@@ -401,6 +407,30 @@ script began (the whole record also goes to build/chip_smoke.json):
    (fit to the first report), step p50 with four sharing the card beside
    the train phase's alone, peak memory, the job's and the phase's wall
    printed.
+   data: one port cluster (``init(num_cpus=4, resources={"GPU": 1})``)
+   for (a) and (b). (a) TorchTrainer (world 1, NCCL) with
+   ``datasets={"train": ds}``: a seeded int32 token matrix [48, 1025]
+   (vocab 50,257) through ``from_numpy`` in 8 blocks, ``map_batches``
+   cutting tokens and targets, ``random_shuffle(seed=0)``; the rank
+   reads its shard through ``iter_cuda_batches(batch_size=8,
+   dtype=torch.int64, prefetch=2)`` and takes the train phase's steps
+   from seed 0 (6 steps). Gates: each step's batch digest is that of
+   the batch this process's ``ds.iter_batches(batch_size=8)`` yields in
+   the same order; every tensor on ``cuda:0`` as int64, each column
+   copied from a pinned buffer; each loss bitwise a single-controller
+   loop here over those batches from the same parameters, which the
+   same dataset shuffled with seed 1 must fail; 24/12/12 flash launches
+   a step and no plain call. (b) ``BatchPredictor`` of ``GPTScorer``
+   (gpt2_124m on the card, flash, from ``Checkpoint.from_params`` of the
+   seed-0 parameters; each row's mean next-token log-likelihood under
+   ``inference_mode``) over the unshuffled rows in blocks of 16,
+   ``batch_size=8``, on ``ActorPoolStrategy(1, 2, resources={"GPU":
+   0.5})``. Gates: every score bitwise the same forward here on the same
+   batches; each actor built the model once; 12/0/0 flash launches a
+   batch and no plain call, read from the rows each actor's ``apply``
+   returns. The rank's boot, the step p50 beside the train phase's, the
+   feeder's wait per batch and H2D GB/s (the copies' device time), the
+   actors' boot, rows/s and the device ms per batch printed.
 8. with --ab OLD_CHECKOUT: the flash forward, dq and dkv and the float
    and int8 paged prefill and decode (timed shape and light load, with
    the wrapper's host µs) against an older checkout's kernels, in turns.
@@ -434,6 +464,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ray_tpu_torch import chaos as tchaos
+from ray_tpu_torch.air import Predictor
 from ray_tpu_torch import profiling
 from ray_tpu_torch import tracing
 from ray_tpu_torch.models import decode as dec
@@ -2436,10 +2467,10 @@ ENGINE_KNOBS = dict(n_slots=16, max_len=2048, page_size=64, kv_mode="paged",
                     prefill_chunk=256, prefill_token_budget=512,
                     attn_impl="kernel")
 
-CUT_DEPTH = 8          # engine_tp's, engine_prefix's, engine_drain's and
-                       # profile's layers: opt_1_3b's first 8 of 24, full
-                       # width (depth cuts that make room for `serve` and
-                       # `tune`)
+CUT_DEPTH = 8          # engine_tp's, engine_prefix's, engine_drain's,
+                       # engine_kv's, engine_edge's and profile's layers:
+                       # opt_1_3b's first 8 of 24, full width (depth cuts
+                       # that make room for `serve`, `tune` and `data`)
 
 
 def first_layers(cfg, trees, n):
@@ -3836,11 +3867,14 @@ def phase_engine_kv(device, cfg, params):
     re-prefill; (b) a drain resumed by adoption; (c) an int8-KV handoff
     of KV_INT8_FEW prompts (its scale planes bitwise equal too); (d) one
     request handed off from tp=2 to tp=1 and one from tp=1 to tp=2. The
-    store is reset between parts. → launches by path."""
+    store is reset between parts. Cut to CUT_DEPTH layers. → launches by
+    path."""
+    cfg, (params,) = first_layers(cfg, (params,), CUT_DEPTH)
     prompts = engine_prompts(cfg)
     few = prompts[:KV_FEW]
-    out = {"phase": "engine_kv", "card": card_line(),
-           "config": "opt_1_3b bf16, 16 slots, max_len 2048, page 64, "
+    out = {"phase": "engine_kv", "card": card_line(), "layers": CUT_DEPTH,
+           "config": f"opt_1_3b bf16, first {CUT_DEPTH} layers, 16 slots, "
+                     "max_len 2048, page 64, "
                      "chunk 256, budget 512, attn_impl kernel; payloads "
                      "in host memory (the port's LocalKVStore)"}
     by_path = {}
@@ -4237,15 +4271,16 @@ def phase_engine_edge(device, cfg, params):
     max_len - prompt + 1 tokens, the pages balance. Then a chaos raise
     rule at llm.decode_window (after 2 windows) on the chunked engine:
     every request ends with the engine-death error, a later submit
-    raises, nothing hangs."""
+    raises, nothing hangs. Cut to CUT_DEPTH layers."""
+    cfg, (params,) = first_layers(cfg, (params,), CUT_DEPTH)
     rng = np.random.default_rng(ENGINE_PROMPT_SEED + 3)
     prompt = list(map(int, rng.integers(1, cfg.vocab_size, EDGE_PROMPT)))
     short = list(map(int, rng.integers(1, cfg.vocab_size, 40)))
     knobs = {"one-shot": dict(prefill_chunk=0),
              "chunked": dict(prefill_chunk=64, prefill_token_budget=128)}
-    out = {"phase": "engine_edge",
-           "config": f"opt_1_3b bf16, kernel, n_slots 2, max_len "
-                     f"{EDGE_MAX_LEN}, page 64"}
+    out = {"phase": "engine_edge", "layers": CUT_DEPTH,
+           "config": f"opt_1_3b bf16, first {CUT_DEPTH} layers, kernel, "
+                     f"n_slots 2, max_len {EDGE_MAX_LEN}, page 64"}
     counts = {}
     for arm, kw in knobs.items():
         eng = LLMEngine(cfg, params, device=device, **{
@@ -4318,7 +4353,7 @@ RUNTIME_SYSTEM_CONFIG = {"llm_kv_mode": "paged", "llm_prefill_chunk": 256,
                          "llm_prefill_token_budget": 512,
                          "llm_attn_impl": "kernel", "llm_tp": 3}
 RUNTIME_KERNEL_SEED = 14
-KV_PAYLOAD_BYTES = 956 * 10**6   # engine_kv's adopted payload
+KV_PAYLOAD_BYTES = 956 * 10**6   # engine_kv's adopted payload at full depth
 OOB_PICKLE_BYTES = 64 * 1024     # out-of-band: the pickle stream below this
 ACTOR_MEMORY_SLACK = 2**30       # a killed actor's memory comes back within
 ROUND_TRIPS = 200
@@ -4522,7 +4557,8 @@ def phase_runtime(device, engine_ref):
         del w_dec, w_pre, d_dec, d_pre, refs
         torch.cuda.empty_cache()
 
-        # The object plane: a bf16 CPU tensor of engine_kv's payload size.
+        # The object plane: a bf16 CPU tensor of engine_kv's payload size
+        # at full depth.
         gen = torch.Generator().manual_seed(RUNTIME_KERNEL_SEED)
         payload = torch.randint(-2**15, 2**15, (KV_PAYLOAD_BYTES // 2,),
                                 dtype=torch.int16, generator=gen).view(
@@ -7104,6 +7140,372 @@ def phase_tune(device, train_run):
     return by_path
 
 
+# ---------------------------------------------------------------- data
+
+# The data phase: the slice's data plane on the training and inference
+# paths. (a) TorchTrainer (world 1, NCCL) reads a Dataset through
+# iter_cuda_batches: a seeded int32 token matrix [8 x DATA_STEPS, 1025]
+# (GPT-2's vocabulary) in 8 blocks, cut into tokens and next-token
+# targets by map_batches, shuffled with seed 0; the rank takes the train
+# phase's steps from seed 0. (b) A BatchPredictor scores the unshuffled
+# rows (blocks of 16) on a pool of two card actors. One cluster serves
+# both.
+DATA_STEPS = 6          # the trainer's steps: one warm-up, five timed
+DATA_VOCAB = 50257
+DATA_BLOCKS = 8
+DATA_PRED_BLOCK = 16    # rows per block of the predictor's dataset
+DATA_POOL = dict(min_size=1, max_size=2, resources={"GPU": 0.5})
+DATA_PLANTED_STEPS = 2  # steps of the planted seed-1 shuffle
+FLASH_PER_BATCH = {"flash_fwd": 12, "flash_dq": 0, "flash_dkv": 0}
+DATA_DEVICE = None      # the predictor's device: cuda, its default
+
+
+def data_cut(b):
+    """A row of S + 1 tokens → ``tokens`` and next-token ``targets``."""
+    return {"tokens": b["data"][:, :-1], "targets": b["data"][:, 1:]}
+
+
+def data_rows():
+    rng = np.random.default_rng(0)
+    return rng.integers(0, DATA_VOCAB, (TRAIN_B * DATA_STEPS, TRAIN_S + 1)
+                        ).astype(np.int32)
+
+
+def data_dataset(shuffle=0, blocks=DATA_BLOCKS):
+    from ray_tpu_torch import data as rd
+
+    ds = rd.from_numpy(data_rows(), parallelism=blocks).map_batches(data_cut)
+    return ds if shuffle is None else ds.random_shuffle(seed=shuffle)
+
+
+def batch_digest(tokens, targets) -> str:
+    """sha256 of a batch's int64 bytes (numpy arrays or tensors)."""
+    h = hashlib.sha256()
+    for x in (tokens, targets):
+        if isinstance(x, torch.Tensor):
+            x = x.cpu().numpy()
+        h.update(np.ascontiguousarray(x, dtype=np.int64).tobytes())
+    return h.hexdigest()
+
+
+def count_plain_calls():
+    """Wrap the flash kernels' plain versions to count their calls →
+    the live counts (a dict)."""
+    plain = dict.fromkeys(("reference_flash_fwd", "reference_flash_dq",
+                           "reference_flash_dkv"), 0)
+    for name in plain:
+        def counted(*a, _real=getattr(fa, name), _name=name, **k):
+            plain[_name] += 1
+            return _real(*a, **k)
+        setattr(fa, name, counted)
+    return plain
+
+
+def flash_counts() -> dict:
+    return {"flash_fwd": fa.flash_fwd.launches,
+            "flash_dq": fa.flash_dq.launches,
+            "flash_dkv": fa.flash_dkv.launches}
+
+
+def data_loop(config):
+    """The data phase's rank: the train phase's step (gpt2_124m, S 1024,
+    bf16 over fp32 params, remat, flash, adamw; seed 0) on a world-1
+    process mesh, fed by its dataset shard's iter_cuda_batches; each
+    step's loss, wall, flash launches (zeroed just before it), the
+    devices and pinning of its tensors and its batch digest, then the
+    feeder's counters."""
+    from ray_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from ray_tpu_torch.train import session
+
+    started = time.time()
+    plain = count_plain_calls()
+    mesh = make_mesh(MeshConfig(dp=1, fsdp=1))
+    cfg = gpt.GPTConfig.gpt2_124m(max_seq=TRAIN_S, remat=True,
+                                  attn_impl="flash")
+    opt = adamw(3e-4, weight_decay=0.1, mu_dtype=torch.bfloat16)
+    gen = torch.Generator(device=mesh.device).manual_seed(0)
+    params, opt_state, step = build_training(cfg, opt, gen,
+                                             process_mesh=mesh)
+    feed = session.get_dataset_shard("train").iter_cuda_batches(
+        batch_size=TRAIN_B, dtype=torch.int64, prefetch=2,
+        device=session.get_device())
+    steps = []
+    for batch in feed:
+        toks, tg = batch["tokens"], batch["targets"]
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, (toks, tg))
+        loss = float(loss)                      # synchronizes
+        steps.append({"loss": loss,
+                      "step_ms": (time.perf_counter() - t0) * 1e3,
+                      "launches": flash_counts(),
+                      "devices": sorted({str(toks.device), str(tg.device)}),
+                      "dtypes": sorted({str(toks.dtype), str(tg.dtype)}),
+                      "digest": batch_digest(toks, tg)})
+    session.report({"steps": steps, "feed": feed.stats(),
+                    "plain_calls": dict(plain), "loop_started": started,
+                    "device": str(mesh.device), "backend": mesh.backend})
+
+
+class GPTScorer(Predictor):
+    """Each row's mean next-token log-likelihood under gpt2_124m (bf16
+    over fp32 params, flash attention) on the card, one forward per
+    batch under inference mode. Beside each score it returns what the
+    gates read, for the batch: its flash launches (zeroed just before
+    the forward), the plain versions' calls so far, the device ms of the
+    forward, and the process's pid and model builds."""
+
+    builds = 0
+
+    def __init__(self, cfg, params, device):
+        self.cfg, self.params, self.device = cfg, params, device
+        self.plain = count_plain_calls()
+        self.built_at = time.time()
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint, **kwargs):
+        from ray_tpu_torch._device import resolve_device
+
+        dev = resolve_device(kwargs.get("device"))
+        cfg = gpt.GPTConfig.gpt2_124m(max_seq=TRAIN_S, attn_impl="flash")
+        params = {k: v.to(dev) for k, v in checkpoint.to_params().items()}
+        GPTScorer.builds += 1
+        return cls(cfg, params, dev)
+
+    def predict_batch(self, batch):
+        tokens = torch.from_numpy(np.asarray(batch["tokens"], np.int64))
+        targets = torch.from_numpy(np.asarray(batch["targets"], np.int64))
+        on_card = self.device.type == "cuda"
+        if on_card:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+        fa.reset_launch_counts()
+        with torch.inference_mode():
+            tokens, targets = tokens.to(self.device), targets.to(self.device)
+            t0 = time.perf_counter()
+            if on_card:
+                start.record()
+            logits = gpt.forward(self.params, tokens, self.cfg)
+            gold = logits.gather(-1, targets[..., None])[..., 0]
+            score = (gold - logits.logsumexp(-1)).mean(-1)
+            if on_card:
+                end.record()
+            score = score.cpu().numpy()
+        ms = (start.elapsed_time(end) if on_card
+              else (time.perf_counter() - t0) * 1e3)
+        n = len(score)
+        launches = flash_counts()
+        return {"score": score,
+                "launches": np.array([[launches[k] for k in FLASH_PER_BATCH]]
+                                     * n),
+                "plain": np.full(n, sum(self.plain.values())),
+                "device_ms": np.full(n, ms),
+                "pid": np.full(n, os.getpid()),
+                "builds": np.full(n, GPTScorer.builds),
+                "built_at": np.full(n, self.built_at),
+                "on_card": np.full(n, on_card)}
+
+
+def in_process_scores(scorer, ds):
+    """``scorer``'s scores over ``ds``'s blocks cut into TRAIN_B-row
+    batches, as map_batches cuts them in the pool."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.data import block as B
+
+    out = []
+    for ref in ds._materialized_refs():
+        blk = rt.get(ref, timeout=300)
+        n = B.num_rows(blk)
+        for s in range(0, n, TRAIN_B):
+            out.append(scorer.predict_batch(B.to_batch(
+                B.slice_block(blk, s, min(s + TRAIN_B, n))))["score"])
+    return np.concatenate(out)
+
+
+def single_controller_losses(device, batches):
+    """The train phase's step from seed 0 in this process over
+    ``batches`` (numpy tokens, targets) → the losses."""
+    cfg = gpt.GPTConfig.gpt2_124m(max_seq=TRAIN_S, remat=True,
+                                  attn_impl="flash")
+    opt = adamw(3e-4, weight_decay=0.1, mu_dtype=torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params, opt_state, step = build_training(cfg, opt, gen, device)
+    losses = []
+    for toks, tg in batches:
+        batch = tuple(torch.from_numpy(np.asarray(x, np.int64)).to(device)
+                      for x in (toks, tg))
+        params, opt_state, loss = step(params, opt_state, batch)
+        losses.append(float(loss))
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return losses
+
+
+def phase_data(device, train_run):
+    """The data plane on the card: (a) TorchTrainer fed by a Dataset
+    through iter_cuda_batches, held bitwise to a single-controller loop
+    over the batches this process's own iter_batches yields; (b) a
+    BatchPredictor on a pool of two card actors, held bitwise to the
+    same forward here. ``train_run``: the train phase's (losses, step
+    p50 ms), or None."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.air import BatchPredictor, Checkpoint
+    from ray_tpu_torch.data import ActorPoolStrategy
+    from ray_tpu_torch.train import (ScalingConfig, TorchBackendConfig,
+                                     TorchTrainer)
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = {"phase": "data", "card": card_line(),
+           "config": f"gpt2_124m bf16 remat flash B={TRAIN_B} S={TRAIN_S} "
+           "adamw(3e-4, wd=0.1, mu bf16), seed 0; dataset "
+           f"[{TRAIN_B * DATA_STEPS}, {TRAIN_S + 1}] int32 vocab "
+           f"{DATA_VOCAB} in {DATA_BLOCKS} blocks, map_batches cut, "
+           "random_shuffle(seed=0)",
+           "train_phase_step_ms_p50": None if train_run is None
+           else train_run[1]}
+    bad, by_path = [], {}
+    rt.init(num_cpus=4, resources={"GPU": 1})
+    try:
+        # (a) the trainer fed by the dataset
+        ds = data_dataset(shuffle=0)
+        t0 = time.time()
+        result = TorchTrainer(
+            data_loop, scaling_config=ScalingConfig(num_workers=1,
+                                                    use_gpu=True),
+            backend_config=TorchBackendConfig(),
+            datasets={"train": ds}).fit(timeout=600)
+        out["trainer_fit_s"] = time.time() - t0
+        run = result.metrics_history[-1]
+        out["rank_boot_s"] = run["loop_started"] - t0
+        ref = [(b["tokens"], b["targets"])
+               for b in ds.iter_batches(batch_size=TRAIN_B)]
+        # (b) the predictor on the pool, on the same cluster
+        gen = torch.Generator(device=device).manual_seed(0)
+        cfg = gpt.GPTConfig.gpt2_124m(max_seq=TRAIN_S, attn_impl="flash")
+        ckpt = Checkpoint.from_params(gpt.init_params(cfg, gen, device))
+        pred_ds = data_dataset(shuffle=None, blocks=len(data_rows())
+                               // DATA_PRED_BLOCK)
+        bp = BatchPredictor.from_checkpoint(ckpt, GPTScorer,
+                                            device=DATA_DEVICE)
+        t0 = time.time()
+        rows = bp.predict(pred_ds, batch_size=TRAIN_B, compute=(
+            ActorPoolStrategy(**DATA_POOL))).take_all()
+        pred_wall = time.time() - t0
+        t_boot = t0
+        ref_scorer = GPTScorer.from_checkpoint(ckpt, device=DATA_DEVICE)
+        ref_scores = in_process_scores(ref_scorer, pred_ds)
+        planted_ref = [(b["tokens"], b["targets"]) for b in data_dataset(
+            shuffle=1).iter_batches(batch_size=TRAIN_B)]
+    finally:
+        rt.shutdown()
+    del ref_scorer
+    torch.cuda.empty_cache()
+
+    # (a)'s gates
+    steps = run["steps"]
+    losses = [st["loss"] for st in steps]
+    ref_losses = single_controller_losses(device, ref)
+    planted = single_controller_losses(device,
+                                       planted_ref[:DATA_PLANTED_STEPS])
+    digests = [st["digest"] for st in steps]
+    ref_digests = [batch_digest(*b) for b in ref]
+    feed = run["feed"]
+    timed = [st["step_ms"] for st in steps[1:]]
+    out["trainer"] = {
+        "device": run["device"], "backend": run["backend"],
+        "steps": len(steps), "losses": losses,
+        "reference_losses": ref_losses,
+        "bitwise_equal_single_controller": losses == ref_losses,
+        "batch_digests_equal": digests == ref_digests,
+        "planted_seed1_losses": planted,
+        "planted_seed1_equal": planted == losses[:len(planted)],
+        "planted_seed1_digests_equal": [batch_digest(*b) for b in planted_ref]
+        == ref_digests,
+        "step_ms": [st["step_ms"] for st in steps],
+        "step_ms_p50": float(np.median(timed)) if timed else None,
+        "tensor_devices": sorted({d for st in steps for d in st["devices"]}),
+        "tensor_dtypes": sorted({d for st in steps for d in st["dtypes"]}),
+        "launches_per_step": [st["launches"] for st in steps],
+        "plain_calls": run["plain_calls"], "feed": feed,
+        "feed_wait_ms_per_batch": feed["wait_s"] * 1e3
+        / max(1, feed["batches"]),
+        "h2d_gb_s": feed.get("h2d_gb_s")}
+    tr = out["trainer"]
+    if len(steps) != DATA_STEPS:
+        bad.append(f"trainer: {len(steps)} steps, expected {DATA_STEPS}")
+    if not tr["batch_digests_equal"]:
+        bad.append("trainer: the rank's batches are not the driver's "
+                   "iter_batches batches")
+    if not tr["bitwise_equal_single_controller"]:
+        bad.append(f"trainer: losses {losses} are not the single "
+                   f"controller's {ref_losses}")
+    if tr["planted_seed1_equal"] or tr["planted_seed1_digests_equal"]:
+        bad.append("trainer: the planted seed-1 shuffle passes the bitwise "
+                   "gate")
+    if tr["tensor_devices"] != ["cuda:0"] or tr["tensor_dtypes"] != [
+            "torch.int64"]:
+        bad.append(f"trainer: tensors on {tr['tensor_devices']} as "
+                   f"{tr['tensor_dtypes']}")
+    if not (feed["copies"] == 2 * DATA_STEPS
+            and feed["pinned_copies"] == feed["copies"]):
+        bad.append(f"trainer: the feeder's copies {feed}")
+    if any(ls != FLASH_PER_STEP for ls in tr["launches_per_step"]):
+        bad.append(f"trainer: flash launches per step "
+                   f"{tr['launches_per_step']}, expected {FLASH_PER_STEP}")
+    if any(run["plain_calls"].values()):
+        bad.append(f"trainer: plain versions ran {run['plain_calls']}")
+    by_path["data (trainer rank)"] = {
+        k: sum(ls[k] for ls in tr["launches_per_step"])
+        for k in FLASH_PER_STEP}
+
+    # (b)'s gates
+    scores = np.array([r["score"] for r in rows], dtype=np.float32)
+    pids = sorted({int(r["pid"]) for r in rows})
+    per_actor = {p: [r for r in rows if int(r["pid"]) == p] for p in pids}
+    batches = [[int(x) for x in r["launches"]] for r in rows][::TRAIN_B]
+    out["predictor"] = {
+        "rows": len(rows), "actors": len(pids),
+        "bitwise_equal_in_process": scores.tobytes() == ref_scores.tobytes(),
+        "score_mean": float(scores.mean()),
+        "max_abs_diff_in_process": float(np.abs(scores - ref_scores).max()),
+        "builds_per_actor": {p: max(int(r["builds"]) for r in rs)
+                             for p, rs in per_actor.items()},
+        "rows_per_actor": {p: len(rs) for p, rs in per_actor.items()},
+        "actor_boot_s": {p: min(float(r["built_at"]) for r in rs) - t_boot
+                         for p, rs in per_actor.items()},
+        "launches_per_batch": batches,
+        "plain_calls": max(int(r["plain"]) for r in rows),
+        "on_card": all(bool(r["on_card"]) for r in rows),
+        "device_ms_per_batch": [float(r["device_ms"]) for r in rows
+                                ][::TRAIN_B],
+        "predict_wall_s": pred_wall, "rows_per_s": len(rows) / pred_wall,
+        "rows_per_device_s": len(rows) / (sum(float(r["device_ms"])
+                                              for r in rows[::TRAIN_B]) / 1e3)}
+    pr = out["predictor"]
+    pr["device_ms_per_batch_p50"] = float(np.median(
+        pr["device_ms_per_batch"]))
+    if not pr["bitwise_equal_in_process"] or len(rows) != len(ref_scores):
+        bad.append(f"predictor: scores differ from the in-process forward "
+                   f"by {pr['max_abs_diff_in_process']}")
+    if any(b != 1 for b in pr["builds_per_actor"].values()):
+        bad.append(f"predictor: builds per actor {pr['builds_per_actor']}")
+    want = [FLASH_PER_BATCH[k] for k in FLASH_PER_BATCH]
+    if any(b != want for b in batches) or pr["plain_calls"] \
+            or not pr["on_card"]:
+        bad.append(f"predictor: launches per batch {batches}, plain calls "
+                   f"{pr['plain_calls']}, on the card {pr['on_card']}")
+    by_path["data (predictor actors)"] = {
+        k: sum(b[i] for b in batches) for i, k in enumerate(FLASH_PER_BATCH)}
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["gates_failed"] = bad
+    emit(out)
+    if bad:
+        raise AssertionError(f"data: {bad}")
+    return by_path
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="",
@@ -7112,7 +7514,7 @@ def main(argv=None) -> int:
                          "engine_oneshot,engine_drain,engine_warmup,"
                          "engine_observe,engine_edge,engine_tp,engine_kv,"
                          "runtime,serve,train,train_ring,train_llama,"
-                         "train_moe,train_pipeline,train_dist,tune "
+                         "train_moe,train_pipeline,train_dist,tune,data "
                          "(default: all; "
                          "the build always runs)")
     ap.add_argument("--ptxas", action="store_true",
@@ -7269,6 +7671,8 @@ def main(argv=None) -> int:
         at_shapes.update(shapes)
     if want("tune"):
         by_path.update(phase_tune(device, train_run))
+    if want("data"):
+        by_path.update(phase_data(device, train_run))
 
     kernels = []
     for name, (src, replaces) in meta.items():

@@ -38,6 +38,11 @@ layout and names so each counterpart is easy to find:
 - ``job_submission.py``, ``dashboard.py``, ``scripts/cli.py``
                           the ops front ends: the job manager actor, the
                           HTTP dashboard and ``python -m ray_tpu_torch``
+- ``data/``               datasets on the object store (a numpy block
+                          format, no pyarrow or pandas needed) with the
+                          device feeder ``iter_cuda_batches``
+- ``air/``                the AIR surface: ``Checkpoint``, the configs,
+                          ``session`` and ``BatchPredictor``
 
 The package imports torch, numpy, cloudpickle and the standard library
 only. Importing the package (and the runtime's daemons) imports no torch:
@@ -48,8 +53,8 @@ raises instead of running on the CPU.
 
 from ray_tpu_torch._version import __version__
 
-__all__ = ["chaos", "metrics", "models", "ops", "profiling", "serve",
-           "tracing", "train", "tune", "__version__"]
+__all__ = ["air", "chaos", "data", "metrics", "models", "ops", "profiling",
+           "serve", "tracing", "train", "tune", "__version__"]
 
 _API_EXPORTS = (
     "init", "shutdown", "is_initialized", "remote", "get", "put", "wait",

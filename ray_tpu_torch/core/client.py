@@ -1496,8 +1496,12 @@ class CoreClient:
         # Trace capture must happen in the SUBMITTING thread — the coroutine
         # below runs on the client's event loop, whose context is empty.
         trace_ctx = tracing.capture_for_submission()
+        # The arguments are built here, not on the event loop: an argument
+        # above max_inline_object_size is put into the store, and put()
+        # waits on the loop (on the loop itself it would wait forever).
+        built = self._build_args(args, kwargs)
         result = self._run(self._create_actor_async(
-            st, cls_blob, name, args, kwargs, resources, hold_resources,
+            st, cls_blob, name, built, resources, hold_resources,
             max_restarts, max_concurrency, actor_name, get_if_exists,
             runtime_env, concurrency_groups, max_task_retries, trace_ctx,
         ))
@@ -1506,13 +1510,13 @@ class CoreClient:
         return actor_id
 
     async def _create_actor_async(
-        self, st, cls_blob, name, args, kwargs, resources, hold_resources,
+        self, st, cls_blob, name, built, resources, hold_resources,
         max_restarts, max_concurrency, actor_name, get_if_exists,
         runtime_env=None, concurrency_groups=None, max_task_retries=0,
         trace_ctx=None,
     ):
         task_id = TaskID.for_actor_task(ActorID(st.actor_id))
-        arg_specs, kw_keys, escrow = self._build_args(args, kwargs)
+        arg_specs, kw_keys, escrow = built
         st.creation_escrow = escrow
         st.creation_return_id = ObjectID.for_return(task_id, 0).binary()
         spec = TaskSpec(

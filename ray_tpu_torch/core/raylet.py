@@ -850,6 +850,11 @@ class Raylet:
             return {"error": "lease timeout (bundle busy)"}
 
     def _pump_leases(self) -> None:
+        if self._shutdown:
+            # stop() terminates the workers it holds; a worker spawned for
+            # a queued lease after that (a dying worker's freed resources
+            # pump the queue) would outlive the raylet.
+            return
         granted = []
         for req in self.lease_queue:
             if req.future.done():

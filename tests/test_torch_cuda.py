@@ -30,7 +30,9 @@ reaching the driver as a CPU tensor, CUDA tensors at top level and
 nested in the serializer, an actor's paged-kernel launches, an
 LLMDeployment replica's stream equal to the in-process engine's), and a
 two-trial Tuner training a small GPT (head dim 64) on the flash kernels,
-both trials on the card at once. The
+both trials on the card at once, and the data plane's feeder
+(``iter_cuda_batches``: pinned rings, side-stream copies, a consumer on
+another stream; a Dataset and a pipeline on a cluster). The
 file imports neither JAX nor the JAX package, and the
 repo's conftest does, so run it with::
 
@@ -1356,3 +1358,57 @@ def test_tuner_trials_train_on_the_flash_kernels(cluster):
         assert {r["device"] for r in t.reports} == {"cuda:0"}
         assert [r["launches"] for r in t.reports] == [[4, 2, 2]] * 3
         assert t.reports[-1]["plain_calls"] == 0
+
+
+# ----------------------------------------------- the data plane's feeder
+
+@pytest.mark.parametrize("dtype", [None, torch.int64, torch.bfloat16])
+def test_cuda_batch_iterator_stages_through_pinned_buffers(cuda, dtype):
+    """iter_cuda_batches' feeder on the card: every column copied from a
+    pinned buffer of its ring (prefetch + 1 slots, reused once the copy
+    that read them finished) on a side stream, the values the batch's,
+    read on another stream than the copies'."""
+    from ray_tpu_torch.data.dataset import CudaBatchIterator
+
+    rng = np.random.default_rng(0)
+    batches = [{"tokens": rng.integers(0, 50257, (8, 1024)).astype(np.int32),
+                "x": rng.normal(size=(8, 3)).astype(np.float32)}
+               for _ in range(7)]
+    it = CudaBatchIterator(iter(batches), dtype=dtype, prefetch=2)
+    consumer = torch.cuda.Stream()
+    seen = []
+    with torch.cuda.stream(consumer):
+        for b in it:
+            assert b["tokens"].device.type == "cuda"
+            seen.append({k: (v.float() * 1).cpu() for k, v in b.items()})
+    assert len(seen) == 7
+    for got, want in zip(seen, batches):
+        for k, arr in want.items():
+            ref = torch.from_numpy(arr)
+            ref = ref if dtype is None else ref.to(dtype)
+            assert torch.equal(got[k], ref.float()), k
+    stats = it.stats()
+    assert stats["batches"] == 7 and stats["copies"] == 14
+    assert stats["pinned_copies"] == 14
+    assert stats["bytes_copied"] == sum(
+        a.size * (a.itemsize if dtype is None else
+                  torch.empty((), dtype=dtype).element_size())
+        for b in batches for a in b.values())
+    assert stats["copy_device_ms"] > 0 and stats["h2d_gb_s"] > 0
+    assert all(len(ring) == 3 for ring in it._rings.values())
+    assert all(s.host.is_pinned() for ring in it._rings.values()
+               for s in ring)
+
+
+def test_dataset_iter_cuda_batches_on_the_card(cluster):
+    from ray_tpu_torch import data as rd
+
+    ds = rd.range(64).map_batches(lambda b: {"id": b["id"],
+                                             "sq": b["id"] ** 2})
+    got = list(ds.iter_cuda_batches(batch_size=16))
+    assert [b["id"].device.type for b in got] == ["cuda"] * 4
+    assert torch.cat([b["sq"] for b in got]).cpu().tolist() == [
+        i * i for i in range(64)]
+    pipe = ds.window(blocks_per_window=2)
+    assert sum(int(b["id"].sum()) for b in pipe.iter_cuda_batches(
+        batch_size=8, dtype=torch.float32)) == sum(range(64))

@@ -11,6 +11,11 @@
 - a port cluster's GCS, raylet and the worker of a torch-free task never
   load torch or jax, nor do the serve controller, the HTTP proxy and a
   replica of a torch-free deployment;
+- a cluster's shutdown leaves no worker process behind, also when
+  lease requests are queued as its workers die;
+- importing ``ray_tpu_torch.data`` (and ``air``) loads neither torch,
+  pyarrow nor pandas, nor does a worker that ran the data plane's block
+  tasks (map, shuffle, sort, split);
 - the default device is CUDA and raises without a GPU, and a CUDA
   request never falls back to a plain version;
 - every kernel has its CUDA source, each naming the TPU kernel it
@@ -200,6 +205,96 @@ def test_serve_controller_proxy_and_torch_free_replica_load_no_torch():
                 assert p != rpid    # an idle pooled worker that exited
     finally:
         serve.shutdown()
+        ray_tpu_torch.shutdown()
+
+
+def test_shutdown_leaves_no_worker_with_leases_queued():
+    """One CPU busy and three tasks queued behind it: at shutdown the
+    busy worker's death frees the CPU while the raylet stops, and a
+    raylet that still pumped its lease queue then spawned a worker for a
+    queued task, which outlived it (orphaned, still running)."""
+    import subprocess
+    import time
+
+    import ray_tpu_torch
+    from ray_tpu_torch import api
+
+    ray_tpu_torch.init(num_cpus=1)
+    try:
+        session = api._node.session_dir
+
+        @ray_tpu_torch.remote
+        def hold(t):
+            time.sleep(t)
+            return t
+
+        busy = hold.remote(60)
+        time.sleep(3.0)            # its worker runs it
+        queued = [hold.remote(0) for _ in range(3)]
+        time.sleep(2.0)            # their leases wait in the raylet's queue
+    finally:
+        ray_tpu_torch.shutdown()
+    time.sleep(4.0)
+    ps = subprocess.run(["ps", "-ww", "-eo", "pid,args"], capture_output=True,
+                        text=True, timeout=30).stdout
+    left = [line for line in ps.splitlines() if session in line]
+    for line in left:          # do not leave them for the next test
+        subprocess.run(["kill", "-9", line.split()[0]], timeout=30)
+    assert left == [], left
+    del busy, queued
+
+
+_HEAVY = ("torch", "pyarrow", "pandas")
+# What each of _HEAVY maps once imported.
+_HEAVY_LIBS = ("libtorch", "libarrow", "pandas/_libs")
+
+
+def test_data_plane_and_its_block_tasks_load_no_torch_pyarrow_or_pandas():
+    """A fresh interpreter imports ``ray_tpu_torch.data`` and ``air``
+    without torch, pyarrow or pandas; then every process of a cluster
+    that ran a map → shuffle → sort → split over tabular and tensor
+    columns maps none of their libraries, and the worker's probe finds
+    none of them imported."""
+    import subprocess
+    import sys
+
+    import ray_tpu_torch
+    from ray_tpu_torch import api
+    from ray_tpu_torch import data as rd
+
+    res = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, ray_tpu_torch.data, ray_tpu_torch.air; "
+         f"print([m for m in {_HEAVY!r} if m in sys.modules])"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == "[]", res.stdout
+    ray_tpu_torch.init(num_cpus=1)
+    try:
+        ds = (rd.range(200, parallelism=4)
+              .map_batches(lambda b: {"id": b["id"] * 2,
+                                      "t": b["id"][:, None].repeat(3, 1)})
+              .random_shuffle(seed=1).sort("id"))
+        parts = ds.split(2)
+        assert sum(p.count() for p in parts) == 200
+
+        @ray_tpu_torch.remote
+        def probe():
+            import sys
+            return os.getpid(), [m for m in _HEAVY if m in sys.modules]
+
+        pid, heavy = ray_tpu_torch.get(probe.remote(), timeout=60)
+        assert heavy == []
+        procs = [proc.pid for proc in api._node.procs]
+        workers = [w for p in procs for w in _descendants(p)]
+        assert pid in workers
+        for p in procs + workers:
+            try:
+                assert _maps_name(p, _HEAVY_LIBS) == [], p
+            except FileNotFoundError:
+                assert p != pid    # an idle pooled worker that exited
+    finally:
         ray_tpu_torch.shutdown()
 
 

@@ -36,6 +36,9 @@
                           # the data plane: TorchTrainer fed by a Dataset
                           # through iter_cuda_batches, a BatchPredictor
                           # on a pool of card actors
+    python3 chip_smoke.py --only kernels,engine_gptj,train_gpt2_2_7b
+                          # head dims 256 and 80: gptj_6b served and
+                          # gpt2_2_7b trained at full width and depth
 
 Phases, one JSON line each, each with ``at_s``, the seconds since the
 script began (the whole record also goes to build/chip_smoke.json):
@@ -45,12 +48,14 @@ script began (the whole record also goes to build/chip_smoke.json):
    sm_90a (one nvcc per source, all started together), with the build
    seconds, and per kernel whether its SASS (cuobjdump) holds HGMMA,
    UTMALDG, HMMA and UBLKCP: every instance of the bf16 flash forward, dq
-   and dkv kernels and the paged prefill kernel (10 in all) must hold
+   and dkv kernels and the paged prefill kernel (18 in all) must hold
    wgmma and TMA loads and no mma.sync, and every instance of the paged
-   decode kernel (8) TMA loads.
+   decode kernel (16) TMA loads.
 3. kernels: each kernel against its plain PyTorch version on the card at
    OPT-1.3B attention shapes (H=32, K=64), page sizes {16, 64}, fp32 and
-   bf16, and at head dim 128; the ragged cases (length 1, mid-page, page
+   bf16, at head dim 128, and at gpt2_2_7b's 32 heads of 80 and gptj_6b's
+   16 of 256 (page 64, bf16, float and int8 pools; the pools drawn on the
+   card from seeded generators); the ragged cases (length 1, mid-page, page
    boundary, full table, idle all-null slot; prefill C=256 and C=40 at
    ragged offsets, full and width-sliced tables) and the engine's own
    shapes (decode: 16 slots on a 2048-position table, lengths up to 2048;
@@ -69,7 +74,13 @@ script began (the whole record also goes to build/chip_smoke.json):
    at 2048) and with the wrapper's host µs per call. Then bf16 prefill at
    page sizes 16, 32, 64, 128
    (the wgmma kernel) and 48 (the mma.sync kernel, by the shape rule),
-   chunks of C = 40, 72 and 200 at ragged offsets, float and int8 pools.
+   chunks of C = 40, 72 and 200 at ragged offsets, float and int8 pools;
+   at head dim 80 page sizes 64 and 48, at 256 page 64, where page 48 must
+   be refused with a ValueError naming head dim 256 and the ROADMAP item.
+   Both paged kernels, float and int8, are then timed at B=16, 1024-token
+   contexts, ps 64 at the two new head dims (the kernels line's
+   ``at_shapes``), each with a page dropped from its plain version planted
+   (and the int8 programs' faults), which must fail the bound.
    Then the int8 programs of both paged kernels the same way, on int8
    pools quantized by the port's _quant_write from rows whose pages have
    log-uniform amplitudes in [0.25, 4] (page sizes 16 and 64, head dims
@@ -81,7 +92,9 @@ script began (the whole record also goes to build/chip_smoke.json):
    must fail on the timed inputs; timed beside their bounds, plain
    versions and SDPA on the dequantized timeline.
    Then the three flash kernels (flash_fwd, flash_dq, flash_dkv), each
-   against its plain version: fp32 and bf16, head dims 64 and 128,
+   against its plain version: fp32 and bf16, head dims 64, 80 and 128
+   (and the forward alone at 256, where dq and dkv must raise a
+   ValueError naming head dim 256 and the ROADMAP item),
    causal and non-causal, S=77/T=130, S=64/T=256, S=200/T=333, S=T=192,
    S=1/T=64 and S=130/T=1, in bf16 also on q, k, v as strided views of
    packed qkv tensors, the backward with an lse cotangent; then once more
@@ -94,7 +107,8 @@ script began (the whole record also goes to build/chip_smoke.json):
    SDPA's graph, each alone and held once to the plain versions, on the
    flash_dq row beside delta + dq + dkv (one call does all three);
    `flash_delta` alone; SDPA forward plus backward against the three
-   kernels.
+   kernels; the forward alone at gptj_6b's [2, 1024, 16, 256] causal,
+   with keys 512-575 dropped from its plain version planted.
    Then the speculative path's shapes: the prefill kernel as the verify
    pass (16 rows of C = 5 and C = 2 at ragged decode cursors, with inert
    rows, on the decode table's width; bf16 q, float and int8 pools) and
@@ -239,6 +253,16 @@ script began (the whole record also goes to build/chip_smoke.json):
    re-prefilled, the payload's host round trip (gather + .cpu(); stitch
    + .to(device) + scatter) in ms and GB/s, the drain's agreement with an
    uninterrupted run, the phase's seconds and the card's name and power.
+   engine_gptj: LLMEngine(gptj_6b) at full width and depth (28 layers,
+   d 4096, 16 heads of 256, bf16, random weights drawn in bf16 from seed
+   0) with the engine phase's knobs and traffic (16 prompts of 128-1536
+   tokens from seed 3, 32 greedy tokens each) on the paged kernels, then
+   on attn_impl="gather" over the same weights: 28 decode launches per
+   decode step and 28 prefill launches per dispatch, no plain call and
+   no int8 program, pages closed; every stream equal to the gather
+   engine's or leaving it where the gather engine's logits of the two
+   tokens are within 0.1 (a bf16 near-tie), which a planted wrong token
+   must exceed; TTFT, decode step, tok/s, weight and pool bytes.
    runtime: the port's runtime (ray_tpu_torch.init(num_cpus=4,
    resources={"GPU": 1}) starts a GCS, a raylet and worker processes;
    the init wall and whether the store's native arena loaded, which it
@@ -331,6 +355,19 @@ script began (the whole record also goes to build/chip_smoke.json):
    dkv launches per step, every parameter still bf16, the loss finite
    and falling; peak memory beside the audit, step time, tokens/s, MFU,
    one profiled step and the optimizer's device time against it.
+   train_gpt2_2_7b: the flash kernels checked and timed at [8, 1024, 32,
+   80] bf16 causal; the port's memory audit of gpt2_2_7b (bf16 masters
+   and gradients, adafactor, B 8) on "h100", gated on fits; then
+   build_training(gpt2_2_7b(max_seq=1024, attn_impl="flash",
+   param_dtype=bf16), adafactor(3e-4), stochastic_round=True) from seed 0
+   (bench.py's BENCH_MODEL=gpt2_2_7b BENCH_OPT=adafactor_sr step; full
+   width and depth: 32 layers, d 2560, 32 heads of 80, d_ff 10240, vocab
+   50304 untied, remat) on a seeded [8, 1024] batch: one step of "flash"
+   against "xla" under the train phase's three limits, which its three
+   planted backward faults must fail; 4 steps (one warm-up) with exactly
+   64 forward, 32 dq and 32 dkv launches per step and no plain call,
+   every parameter still bf16, the loss falling; step p50, tokens/s,
+   MFU, peak memory beside the audit, one profiled step (idle share).
    train_moe: the flash kernels checked and timed at [8, 1024, 16, 64]
    bf16 causal; then build_training(moe_8x350m(max_seq=1024,
    attn_impl="flash"), the train phase's adamw, model=moe_gpt) from seed
@@ -494,6 +531,9 @@ from ray_tpu_torch.train.spmd import (Fp32Leaves, build_pipeline_training,
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12            # dense tensor-core bf16
 H, K = 32, 64                  # opt_1_3b attention shape
+# The two configurations of head dims 80 and 256: gpt2_2_7b's 32 heads of
+# 80 and gptj_6b's 16 of 256 (heads, head dim).
+HEADS_2_7B, HEADS_GPTJ = (32, 80), (16, 256)
 DRAFT_H = 12                   # gpt2_124m's heads (of 64): the spec draft
 # Heads per shard of the tp engines: opt_1_3b at tp=2 and tp=4, the draft
 # at tp=2.
@@ -628,7 +668,11 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
 WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "paged_prefill_wgmma_kernel",
                  "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel")
 TMA_KERNELS = ("paged_decode_kernel",)
-TMA_INSTANCES = 8      # {fp32, bf16} pools and int8 with {fp32, bf16} q, K 64/128
+# {fp32, bf16} pools and int8 with {fp32, bf16} q, K 64/80/128/256
+TMA_INSTANCES = 16
+# flash forward at K 64/80/128/256, prefill at those x {float, int8}, dq
+# and dkv at K 64/80/128
+WGMMA_INSTANCES = 18
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
 _MANGLED_ARGS = {"f": "float", "a": "int8", "13__nv_bfloat16": "bf16",
                  "Lb0E": "false", "Lb1E": "true"}
@@ -670,8 +714,8 @@ def sass_ops(lib_path) -> dict:
     ops = {fn: sorted(v) for fn, v in sorted(ops.items())}
     hopper = {fn: v for fn, v in ops.items()
               if fn.split("<")[0] in WGMMA_KERNELS}
-    if len(hopper) < 10 or any(v != ["HGMMA", "UTMALDG"]
-                              for v in hopper.values()):
+    if len(hopper) != WGMMA_INSTANCES or any(v != ["HGMMA", "UTMALDG"]
+                                             for v in hopper.values()):
         raise AssertionError(f"the wgmma kernels' SASS lacks HGMMA or "
                              f"UTMALDG, or holds HMMA: {hopper}")
     decode = {fn: v for fn, v in ops.items()
@@ -699,13 +743,23 @@ def int8_plane(rows, device):
     return plane, scale
 
 
+def device_normal(rng, shape, device):
+    """N(0, 1) fp32 of ``shape`` drawn on ``device`` by a torch generator
+    seeded from ``rng``: the engine-view pools are tens of millions of
+    values, whose draw on the host took most of the kernel checks' time."""
+    gen = torch.Generator(device=device).manual_seed(
+        int(rng.integers(1 << 62)))
+    return torch.randn(shape, generator=gen, device=device)
+
+
 def amplitude_rows(rng, n_pages, ps, heads, device):
     """Normal rows whose pages each have their own amplitude, log-uniform
     in [0.25, 4]: with equal amplitudes a wrong page's scale would barely
     move the output."""
     amp = np.exp(rng.uniform(np.log(0.25), np.log(4.0), n_pages))
-    rows = rng.normal(size=(n_pages, ps, *heads)) * amp[:, None, None, None]
-    return torch.from_numpy(rows.astype(np.float32)).to(device)
+    amp = torch.from_numpy(amp.astype(np.float32)).to(device)
+    return (device_normal(rng, (n_pages, ps, *heads), device)
+            * amp[:, None, None, None])
 
 
 def paged_pool(rng, lengths, *, ps, n_pg, dtype, device, heads=(H, K),
@@ -729,9 +783,8 @@ def paged_pool(rng, lengths, *, ps, n_pg, dtype, device, heads=(H, K),
                             device)
         scales = {"k_scale": ks, "v_scale": vs}
     else:
-        kp, vp = (torch.from_numpy(rng.normal(
-            size=(n_pages, ps, *heads)).astype(np.float32)).to(device, dtype)
-            for _ in range(2))
+        kp, vp = (device_normal(rng, (n_pages, ps, *heads), device).to(dtype)
+                  for _ in range(2))
         scales = {}
     perm = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
     tables = np.zeros((len(lengths), n_pg), np.int32)
@@ -903,12 +956,15 @@ def check_prefill(rng, tag, rows, C, *, ps, n_pg, width, dtype, device,
     return res
 
 
-def phase_kernels(device, errs):
+def phase_kernels(device, errs, at_shapes):
     """Each kernel against its plain version, the float programs and then
     the int8 ones (int8 pools from `amplitude_rows`, quantized by the
     port's `_quant_write`): OPT-1.3B's heads at page sizes 16 and 64 in
     fp32 and bf16, then head dim 128 (the kernels' other tensor-core and
-    vector-width instantiation; at both page sizes for int8). Cases: the
+    vector-width instantiation; at both page sizes for int8), then
+    gpt2_2_7b's 32 heads of 80 and gptj_6b's 16 of 256 at the engine's
+    page size, bf16, float and int8 pools (fp32 q at those head dims is
+    held by tests/test_torch_cuda.py). Cases: the
     ragged edge cases on a narrow table; the engine's decode view (16
     slots, a table of CAP positions, ragged lengths up to CAP, an idle and
     a mid-prefill slot); prefill chunks at ragged offsets, full and width-
@@ -922,6 +978,8 @@ def phase_kernels(device, errs):
     grid += [((16, 128), 64, dt, False) for dt in dts]
     grid += [(heads, ps, dt, True) for heads in ((H, K), (16, 128))
              for ps in (16, 64) for dt in dts]
+    grid += [(heads, 64, torch.bfloat16, quant)
+             for heads in (HEADS_2_7B, HEADS_GPTJ) for quant in (False, True)]
 
     def record(kernel, tag, res):
         errs[kernel] = max(errs[kernel], res["max_abs_err"])
@@ -992,16 +1050,27 @@ def phase_kernels(device, errs):
                             heads=(H, K), null_rows={10, 11}, quant=quant))
     # bf16 q at every page size the wgmma prefill kernel takes in boxes of
     # its own (16, 32: several pages per key tile; 64; 128: a page of two
-    # key tiles at head dim 128) and at 48, which the mma.sync kernel
-    # takes by the shape rule; chunks of C = 40, 72 and 200 at ragged
-    # offsets on a width-sliced table, with an inert row.
-    for heads in ((H, K), (16, 128)):
-        for ps in (16, 32, 64, 128, 48):
+    # key tiles at head dims 80-256) and at 48, which the mma.sync kernel
+    # takes by the shape rule (up to head dim 128: at 256 the wrapper
+    # refuses it, naming the ROADMAP item); chunks of C = 40, 72 and 200 at
+    # ragged offsets on a width-sliced table, with an inert row.
+    for heads, sizes in (((H, K), (16, 32, 64, 128, 48)),
+                         ((16, 128), (16, 32, 64, 128, 48)),
+                         (HEADS_2_7B, (64, 48)), (HEADS_GPTJ, (64, 48))):
+        for ps in sizes:
             for quant in (False, True):
                 n_pg = -(-768 // ps)
                 width = n_pg - 1
                 cap = width * ps
                 sfx = "_int8" if quant else ""
+                if heads[1] > pa.MMA_MAX_HEAD_DIM and not pa.wgmma_page_size(
+                        ps):
+                    cases.append({"kernel": "paged_prefill_attention" + sfx,
+                                  "case": f"ps={ps} heads={heads[0]}x"
+                                          f"{heads[1]} bfloat16",
+                                  "refused": refused_prefill(
+                                      device, heads, ps, quant)})
+                    continue
                 kern = pa.prefill_kernel(torch.bfloat16, heads[1], ps)
                 for C in (40, 72, 200):
                     rows = [(0, C), (ps + 3, C - 5), (cap - C, C), (11, 1),
@@ -1087,10 +1156,44 @@ def phase_kernels(device, errs):
     emit({"phase": "kernels_vs_plain", "tolerance": TOLERANCE,
           "cases": cases})
     timings = {**time_kernels(device, errs), **time_int8_kernels(device, errs)}
+    # The kernels line's at_shapes: both paged kernels, float and int8, at
+    # gpt2_2_7b's and gptj_6b's heads, with a page dropped from each plain
+    # version planted (and the int8 programs' faults).
+    for tag, (n_heads, Kd) in (("gpt2_2_7b heads 32x80", HEADS_2_7B),
+                               ("gptj_6b heads 16x256", HEADS_GPTJ)):
+        at_shapes[tag] = {
+            **time_kernels(device, errs, heads=n_heads, light=False, Kd=Kd,
+                           planted=True),
+            **time_int8_kernels(device, errs, heads=(n_heads, Kd))}
+        torch.cuda.empty_cache()
     # Rows 1t/2t of PERF.md: both float kernels at a tp=2 shard's heads.
     timings.update({f"{name} tp_shard": t for name, t in time_kernels(
         device, errs, heads=H // 2, light=False).items()})
     return {**timings, **time_spec_kernels(device, errs, timings)}
+
+
+def refused_prefill(device, heads, ps, quant):
+    """The bf16 prefill wrapper at a (head dim, page size) no kernel
+    takes: it must raise ValueError naming the head dim and the ROADMAP
+    item, launching nothing. → the message."""
+    kp, vp, tables, lengths, sc = paged_pool(
+        np.random.default_rng(0), [ps], ps=ps, n_pg=2, dtype=torch.bfloat16,
+        device=device, heads=heads, quant=quant)
+    q = torch.zeros(1, 8, *heads, device=device, dtype=torch.bfloat16)
+    args = [torch.from_numpy(a).to(device)
+            for a in (tables, np.zeros(1, np.int32), lengths)]
+    before = launch_counts()
+    try:
+        pa.paged_prefill_attention(q, kp, vp, *args, **sc)
+    except ValueError as e:
+        msg = str(e)
+    else:
+        raise AssertionError(f"prefill at heads {heads}, ps {ps} ran")
+    if (f"head_dim {heads[1]}" not in msg or "ROADMAP" not in msg
+            or launch_counts() != before):
+        raise AssertionError(f"prefill refusal at heads {heads}, ps {ps}: "
+                             f"{msg!r}")
+    return msg
 
 
 def sdpa_prefill(qp, kt, vt, off):
@@ -1215,19 +1318,21 @@ def time_decode(tag, q, kp, vp, tables, lengths, sc, live):
                f"{', int8 pool' if sc else ''}"))
 
 
-def time_kernels(device, errs, heads=H, light=True):
+def time_kernels(device, errs, heads=H, light=True, Kd=K, planted=False):
     """Kernel, plain version and SDPA at the main path's decode and
     prefill shapes: B=16 slots, 1024-token contexts, ps=64, bf16, at
-    ``heads`` heads of 64 (opt_1_3b's 32, or a tp shard's); the decode
-    kernel also at light load (`light_load_case`) when ``light``. Each
-    kernel's output is first held to its plain version's on these
-    inputs."""
+    ``heads`` heads of ``Kd`` (opt_1_3b's 32 of 64, a tp shard's, or
+    gpt2_2_7b's 32 of 80 and gptj_6b's 16 of 256); the decode kernel
+    also at light load (`light_load_case`) when ``light``. Each kernel's
+    output is first held to its plain version's on these inputs; with
+    ``planted``, a page dropped from the plain version must fail the same
+    bound."""
     rng = np.random.default_rng(1)
     B, T, ps, dt = 16, 1024, 64, torch.bfloat16
     n_pg = T // ps
     n_pages = B * n_pg + 1
-    kp = torch.randn(n_pages, ps, heads, K, device=device, dtype=dt)
-    vp = torch.randn(n_pages, ps, heads, K, device=device, dtype=dt)
+    kp = torch.randn(n_pages, ps, heads, Kd, device=device, dtype=dt)
+    vp = torch.randn(n_pages, ps, heads, Kd, device=device, dtype=dt)
     perm = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
     tables = torch.from_numpy(perm.reshape(B, n_pg)).to(device)
     lengths = torch.full((B,), T, dtype=torch.int32, device=device)
@@ -1237,7 +1342,7 @@ def time_kernels(device, errs, heads=H, light=True):
     item = 2
     timings = {}
 
-    q = torch.randn(B, heads, K, device=device, dtype=dt)
+    q = torch.randn(B, heads, Kd, device=device, dtype=dt)
     every = torch.ones(B, dtype=torch.bool, device=device)
     timings["paged_attention"] = time_decode(
         "timing shape", q, kp, vp, tables, lengths, {}, every)
@@ -1249,7 +1354,7 @@ def time_kernels(device, errs, heads=H, light=True):
                                    for t in timings.values()))
 
     C, off = 256, T - 256
-    qp = torch.randn(B, C, heads, K, device=device, dtype=dt)
+    qp = torch.randn(B, C, heads, Kd, device=device, dtype=dt)
     offs = torch.full((B,), off, dtype=torch.int32, device=device)
     args = (tables, offs, lengths)
     out = pa.paged_prefill_attention(qp, kp, vp, *args)
@@ -1269,19 +1374,28 @@ def time_kernels(device, errs, heads=H, light=True):
     plain = cuda_time_ms(lambda: pa.reference_paged_prefill_attention(
         qp, kp, vp, *args), iters=5)
     sdpa = sdpa_prefill(qp, kt, vt, off)
-    nbytes = (2 * B * T * heads * K * item + 2 * B * C * heads * K * item
+    nbytes = (2 * B * T * heads * Kd * item + 2 * B * C * heads * Kd * item
               + tables.numel() * 4 + 2 * B * 4)
     attended = sum(off + c + 1 for c in range(C))
-    flops = 4 * B * heads * K * attended
+    flops = 4 * B * heads * Kd * attended
     bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
     timings["paged_prefill_attention"] = dict(
         ms=ms, ms_events=ms_events, plain_ms=plain, **sdpa,
         bound_ms=bms, bound_by=by,
         check=check,
-        shape=(f"B={B} C={C} H={heads} K={K} ctx={T} offset={off} ps={ps} "
+        shape=(f"B={B} C={C} H={heads} K={Kd} ctx={T} offset={off} ps={ps} "
                "bf16"))
-    emit({"phase": "kernel_timing" if heads == H else
-          f"kernel_timing_tp ({heads} heads per shard)", **timings})
+    if planted:
+        timings["planted_faults_vs_bf16_bound"] = {
+            "paged_attention": planted_int8_faults(
+                pa.reference_paged_attention, q, kp, vp, tables, (lengths,),
+                {}, shift_offsets=False),
+            "paged_prefill_attention": planted_int8_faults(
+                pa.reference_paged_prefill_attention, qp, kp, vp, tables,
+                (offs, lengths), {}, shift_offsets=True)}
+    emit({"phase": "kernel_timing" if (heads, Kd) == (H, K) else
+          f"kernel_timing_tp ({heads} heads per shard)" if Kd == K else
+          f"kernel_timing_heads ({heads}x{Kd})", **timings})
     return timings
 
 
@@ -1300,8 +1414,9 @@ def planted_int8_faults(reference, q, kp, vp, tables, args, scales, *,
     """The bf16 bound against a wrong plain version on the timed inputs
     (``args``: the index arrays after the table) → each fault's largest
     share of the bound, which must exceed 1:
-    - the scales indexed by table position j instead of page id: the
-      plain version given scale vectors s' with s'[tables[b, j]] = s[j];
+    - int8 pools (``scales``): the scales indexed by table position j
+      instead of page id: the plain version given scale vectors s' with
+      s'[tables[b, j]] = s[j];
     - one page dropped: page 1 of every slot taken out of its table (the
       rest moved up, a null page appended, lengths and, for prefill, the
       offsets moved back by one page; decode has no positions)."""
@@ -1318,12 +1433,11 @@ def planted_int8_faults(reference, q, kp, vp, tables, args, scales, *,
     dropped = torch.cat([tables[:, :1], tables[:, 2:],
                          torch.zeros_like(tables[:, :1])], dim=1)
     moved = [a - ps for a in args] if shift_offsets else [args[0] - ps]
-    out = {
-        "scale by table position": share_of_bound(
-            reference(q, kp, vp, tables, *args, **by_pos), ref, s_abs),
-        "page 1 dropped": share_of_bound(
-            reference(q, kp, vp, dropped, *moved, **scales), ref, s_abs),
-    }
+    out = {"page 1 dropped": share_of_bound(
+        reference(q, kp, vp, dropped, *moved, **scales), ref, s_abs)}
+    if scales:
+        out["scale by table position"] = share_of_bound(
+            reference(q, kp, vp, tables, *args, **by_pos), ref, s_abs)
     if min(out.values()) <= 1.0:
         raise AssertionError(f"a planted fault passes the bf16 bound: {out}")
     return out
@@ -1332,21 +1446,25 @@ def planted_int8_faults(reference, q, kp, vp, tables, args, scales, *,
 P_ROUNDED_FAULT = "p rounded to bf16 (the plain version on bf16 q)"
 
 
-def time_int8_kernels(device, errs):
+def time_int8_kernels(device, errs, heads=(H, K)):
     """The int8 programs at the float kernels' timed shapes (B=16 slots,
     1024-token contexts, ps=64, bf16 q), the decode program also at light
     load (`light_load_case`), on int8 pools from
     `amplitude_rows`: each held once more to its plain version, two
     planted faults in the plain version held to the same bound, then
     timed beside its bound, its plain version and SDPA on the gathered
-    timeline dequantized to bf16 (the dequantization not timed)."""
+    timeline dequantized to bf16 (the dequantization not timed). ``heads``
+    (heads, head dim): opt_1_3b's by default, the light-load case then
+    too; gpt2_2_7b's or gptj_6b's at the new head dims."""
     rng = np.random.default_rng(6)
+    Hh, Kd = heads
+    main = heads == (H, K)
     B, T, ps, dt = 16, 1024, 64, torch.bfloat16
     n_pg = T // ps
     n_pages = B * n_pg + 1
-    kp, ks = int8_plane(amplitude_rows(rng, n_pages, ps, (H, K), device),
+    kp, ks = int8_plane(amplitude_rows(rng, n_pages, ps, heads, device),
                         device)
-    vp, vs = int8_plane(amplitude_rows(rng, n_pages, ps, (H, K), device),
+    vp, vs = int8_plane(amplitude_rows(rng, n_pages, ps, heads, device),
                         device)
     sc = {"k_scale": ks, "v_scale": vs}
     perm = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
@@ -1358,24 +1476,25 @@ def time_int8_kernels(device, errs):
     scale_bytes = 2 * B * n_pg * 2       # one bf16 K and V scale per page
     timings, planted = {}, {}
 
-    q = torch.from_numpy(rng.normal(size=(B, H, K)).astype(np.float32)).to(
-        device, dt)
+    q = torch.from_numpy(rng.normal(size=(B, *heads)).astype(
+        np.float32)).to(device, dt)
     every = torch.ones(B, dtype=torch.bool, device=device)
     timings["paged_attention_int8"] = time_decode(
         "int8 timing shape", q, kp, vp, tables, lengths, sc, every)
-    timings["paged_attention_int8_light_load"] = time_decode(
-        "int8 light load", *light_load_case(rng, device, quant=True))
+    if main:
+        timings["paged_attention_int8_light_load"] = time_decode(
+            "int8 light load", *light_load_case(rng, device, quant=True))
     check = timings["paged_attention_int8"]["check"]
     errs["paged_attention_int8"] = max(
         errs["paged_attention_int8"], check["max_abs_err"],
-        timings["paged_attention_int8_light_load"]["check"]["max_abs_err"])
+        *(t["check"]["max_abs_err"] for t in timings.values()))
     planted["paged_attention_int8"] = {
         **planted_int8_faults(pa.reference_paged_attention, q, kp, vp,
                               tables, (lengths,), sc, shift_offsets=False),
         P_ROUNDED_FAULT: check["p_unrounded"]["p_rounded_plain_share"]}
 
     C, off = 256, T - 256
-    qp = torch.from_numpy(rng.normal(size=(B, C, H, K)).astype(
+    qp = torch.from_numpy(rng.normal(size=(B, C, *heads)).astype(
         np.float32)).to(device, dt)
     offs = torch.full((B,), off, dtype=torch.int32, device=device)
     args = (tables, offs, lengths)
@@ -1406,17 +1525,18 @@ def time_int8_kernels(device, errs):
     plain = cuda_time_ms(lambda: pa.reference_paged_prefill_attention(
         qp, kp, vp, *args, **sc), iters=5)
     sdpa = sdpa_prefill(qp, kt, vt, off)
-    nbytes = (2 * B * T * H * K + 2 * B * C * H * K * 2 + scale_bytes
+    nbytes = (2 * B * T * Hh * Kd + 2 * B * C * Hh * Kd * 2 + scale_bytes
               + tables.numel() * 4 + 2 * B * 4)
-    flops = 4 * B * H * K * sum(off + c + 1 for c in range(C))
+    flops = 4 * B * Hh * Kd * sum(off + c + 1 for c in range(C))
     bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
     timings["paged_prefill_attention_int8"] = dict(
         ms=ms, ms_events=ms_events, plain_ms=plain, **sdpa,
         bound_ms=bms, bound_by=by,
         bytes=nbytes, flops=flops, check=check,
-        shape=f"B={B} C={C} H={H} K={K} ctx={T} offset={off} ps={ps} "
+        shape=f"B={B} C={C} H={Hh} K={Kd} ctx={T} offset={off} ps={ps} "
               "bf16 q, int8 pool")
-    emit({"phase": "int8_kernel_timing", **timings,
+    emit({"phase": "int8_kernel_timing" if main else
+          f"int8_kernel_timing_heads ({Hh}x{Kd})", **timings,
           "planted_faults_vs_bf16_bound": planted,
           "note": f"{P_ROUNDED_FAULT!r} is read against the p-unrounded "
                   "bound (share of 4e-5 S beyond the output's rounding), "
@@ -1637,7 +1757,9 @@ def check_flash(rng, tag, B, S, T, Hh, Kd, dtype, causal, device,
                 packed=False):
     """Each flash kernel against its plain version on one case →
     {kernel: result}. The backward gets an lse cotangent. ``packed``: q,
-    k and v are strided views of packed qkv tensors."""
+    k and v are strided views of packed qkv tensors. At a head dim the
+    backward kernels refuse (256) only the forward is held, and dq and
+    dkv must raise (`backward_refused`)."""
     scale = 1.0 / np.sqrt(Kd)
     long_q, long_k = flash_long(S, T, causal, device)
     q, k, v, do, dlse = flash_inputs(rng, B, S, T, Hh, Kd, dtype, device)
@@ -1647,6 +1769,17 @@ def check_flash(rng, tag, B, S, T, Hh, Kd, dtype, causal, device,
     torch.cuda.synchronize()
     o_ref, lse_ref = fa.reference_flash_fwd(q, k, v, causal, scale)
     delta = fa.flash_delta(o_ref, do, dlse)
+    if Kd not in fa.BWD_HEAD_DIMS:
+        sums = flash_abs_sums(q, k, v, do, lse_ref, delta, causal, scale)
+        res = flash_close(f"flash_fwd {tag}", o, o_ref, sums["flash_fwd"],
+                          dtype, long_q)
+        res["lse_max_abs_err"] = float((lse - lse_ref).abs().max())
+        if res["lse_max_abs_err"] > 1e-4:
+            raise AssertionError(f"flash_fwd {tag}: lse off by "
+                                 f"{res['lse_max_abs_err']}")
+        res["backward_refused"] = backward_refused(q, k, v, do, lse_ref,
+                                                   delta, causal, scale)
+        return {"flash_fwd": res}
     dq = fa.flash_dq(q, k, v, do, lse_ref, delta, causal, scale)
     dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, causal, scale)
     torch.cuda.synchronize()
@@ -1681,21 +1814,44 @@ def check_flash(rng, tag, B, S, T, Hh, Kd, dtype, causal, device,
     return res
 
 
-def phase_flash_kernels(device, errs):
+def backward_refused(q, k, v, do, lse, delta, causal, scale):
+    """dq and dkv at a head dim their kernels do not take: each must
+    raise ValueError naming the head dim and the ROADMAP item, launching
+    nothing (never the plain version). → the dq message."""
+    Kd = q.shape[-1]
+    counts = (fa.flash_dq.launches, fa.flash_dkv.launches)
+    msgs = []
+    for fn in (fa.flash_dq, fa.flash_dkv):
+        try:
+            fn(q, k, v, do, lse, delta, causal, scale)
+        except ValueError as e:
+            msgs.append(str(e))
+        else:
+            raise AssertionError(f"{fn.__name__} ran at head dim {Kd}")
+    if (not all(f"head dim {Kd}" in m and "ROADMAP" in m for m in msgs)
+            or (fa.flash_dq.launches, fa.flash_dkv.launches) != counts):
+        raise AssertionError(f"backward refusal at head dim {Kd}: {msgs}")
+    return msgs[0]
+
+
+def phase_flash_kernels(device, errs, at_shapes):
     """The three flash kernels against their plain versions: fp32 and
-    bf16, head dims 64 and 128, causal and non-causal, S=77/T=130,
+    bf16, head dims 64, 80 and 128, causal and non-causal, S=77/T=130,
     S=64/T=256 and S=200/T=333 (off the tile sizes, S != T), S=T=192, one
     query row (S=1/T=64) and one key (S=130/T=1); in bf16 also q, k, v as
-    strided views of packed qkv tensors (S=200/T=333 and S=1/T=64); then
-    the timing shape."""
+    strided views of packed qkv tensors (S=200/T=333 and S=1/T=64); the
+    forward alone at head dim 256 on the same cases (dq and dkv refuse
+    it); then the timing shapes."""
     rng = np.random.default_rng(4)
     cases = []
     grid = [(Kd, dtype, S, T, causal, False)
-            for Kd in (64, 128) for dtype in (torch.float32, torch.bfloat16)
+            for Kd in (64, 128, 80, 256)
+            for dtype in (torch.float32, torch.bfloat16)
             for S, T in ((77, 130), (64, 256), (200, 333), (192, 192),
                          (1, 64), (130, 1))
             for causal in (True, False)]
-    grid += [(Kd, torch.bfloat16, S, T, causal, True) for Kd in (64, 128)
+    grid += [(Kd, torch.bfloat16, S, T, causal, True)
+             for Kd in (64, 128, 80, 256)
              for S, T in ((200, 333), (1, 64)) for causal in (True, False)]
     for Kd, dtype, S, T, causal, packed in grid:
         dn = str(dtype).split(".")[1]
@@ -1709,10 +1865,11 @@ def phase_flash_kernels(device, errs):
             cases.append({"kernel": kern, "case": tag, **r})
     emit({"phase": "flash_kernels_vs_plain", "tolerance": FLASH_TOLERANCE,
           "cases": cases})
-    return time_flash(device, errs)
+    return time_flash(device, errs, at_shapes)
 
 
-def flash_shape_timings(device, errs, tag, B, S, Hh, Kd, causal, seed):
+def flash_shape_timings(device, errs, tag, B, S, Hh, Kd, causal, seed,
+                        fwd_only=False):
     """The three flash kernels at one bf16 shape ([B, S, Hh, Kd], T = S):
     held once more to their plain versions on these inputs (`check_flash`,
     the largest errors into ``errs``), then timed (`device_ms`, CUDA
@@ -1720,8 +1877,10 @@ def flash_shape_timings(device, errs, tag, B, S, Hh, Kd, causal, seed):
     its library call: SDPA for the forward; for the backward the faster
     of aten's flash backward and the backward of SDPA's graph, each held
     once to the plain versions, on the flash_dq row beside delta + dq +
-    dkv (one call does all three). → (timings per kernel, the inputs and
-    yardsticks for callers that read more)."""
+    dkv (one call does all three). ``fwd_only`` (head dim 256, which dq
+    and dkv refuse): the forward alone, with keys 512-575 dropped from its
+    plain version planted, which must fail the bound. → (timings per
+    kernel, the inputs and yardsticks for callers that read more)."""
     dt, item = torch.bfloat16, 2
     scale = 1.0 / np.sqrt(Kd)
     res = check_flash(np.random.default_rng(seed), tag, B, S, S, Hh, Kd, dt,
@@ -1742,18 +1901,18 @@ def flash_shape_timings(device, errs, tag, B, S, Hh, Kd, causal, seed):
     plan = {
         "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal, scale),
                       lambda: fa.reference_flash_fwd(q, k, v, causal, scale),
-                      4 * n * item + rowvec, 2 * 2 * Kd * pairs),
-        "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, causal,
-                                         scale),
-                     lambda: fa.reference_flash_dq(q, k, v, do, lse, delta,
-                                                   causal, scale),
-                     5 * n * item + 2 * rowvec, 3 * 2 * Kd * pairs),
-        "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal,
+                      4 * n * item + rowvec, 2 * 2 * Kd * pairs)}
+    if not fwd_only:
+        plan["flash_dq"] = (
+            lambda: fa.flash_dq(q, k, v, do, lse, delta, causal, scale),
+            lambda: fa.reference_flash_dq(q, k, v, do, lse, delta, causal,
+                                          scale),
+            5 * n * item + 2 * rowvec, 3 * 2 * Kd * pairs)
+        plan["flash_dkv"] = (
+            lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal, scale),
+            lambda: fa.reference_flash_dkv(q, k, v, do, lse, delta, causal,
                                            scale),
-                      lambda: fa.reference_flash_dkv(q, k, v, do, lse, delta,
-                                                     causal, scale),
-                      6 * n * item + 2 * rowvec, 4 * 2 * Kd * pairs),
-    }
+            6 * n * item + 2 * rowvec, 4 * 2 * Kd * pairs)
     for name, (kern, plain, nbytes, flops) in plan.items():
         ms, ms_events = kernel_ms(kern)
         plain_ms = cuda_time_ms(plain, iters=plain_iters, warmup=1)
@@ -1771,6 +1930,10 @@ def flash_shape_timings(device, errs, tag, B, S, Hh, Kd, causal, seed):
         sdpa_fwd, sdpa_fwd_events = kernel_ms(sdpa)
     timings["flash_fwd"]["library_ms"] = sdpa_fwd
     timings["flash_fwd"]["library_ms_events"] = sdpa_fwd_events
+    if fwd_only:
+        timings["flash_fwd"]["planted_fault_share"] = planted_fwd_fault(
+            q, k, v, scale, causal, res["flash_fwd"])
+        return timings, dict(q=q, k=k, v=v, o=o, lse=lse, scale=scale)
     refs = (fa.reference_flash_dq(q, k, v, do, lse, delta, causal, scale),
             *fa.reference_flash_dkv(q, k, v, do, lse, delta, causal, scale))
     aten_bwd, aten_check = aten_flash_backward(qt, kt, vt, dot, scale, refs,
@@ -1798,11 +1961,37 @@ def flash_shape_timings(device, errs, tag, B, S, Hh, Kd, causal, seed):
     return timings, ctx
 
 
-def time_flash(device, errs):
+def planted_fwd_fault(q, k, v, scale, causal, check):
+    """The bf16 bound against a forward with keys FAULT_LO..FAULT_LO + 63
+    dropped (masked out of every row's softmax) on the timed inputs →
+    its largest share of the bound, which must exceed 1 (``check``: the
+    kernel's own record, whose ``max_share_of_bound`` is at most 1)."""
+    s = torch.einsum("bshk,bthk->bhst", q.float(), k.float()) * scale
+    keep = fa._visible(q.shape[1], k.shape[1], causal, q.device).clone()
+    keep[:, FAULT_LO:FAULT_LO + 64] = False
+    s = torch.where(keep, s, torch.full_like(s, fa.NEG_INF))
+    wrong = torch.einsum("bhst,bthk->bshk", torch.softmax(s, dim=-1),
+                         v.float()).to(q.dtype)
+    del s
+    ref, _ = fa.reference_flash_fwd(q, k, v, causal, scale)
+    s_abs, _ = fa.reference_flash_fwd(q.float(), k.float(), v.float().abs(),
+                                      causal, scale)
+    share = share_of_bound(wrong, ref, s_abs)
+    if share <= 1.0 or check["max_share_of_bound"] > 1.0:
+        raise AssertionError(f"a dropped key tile passes the forward's "
+                             f"bound ({share}) or the kernel fails it "
+                             f"({check})")
+    return share
+
+
+def time_flash(device, errs, at_shapes):
     """Each flash kernel at the training step's shape, [8, 1024, 12, 64]
     bf16 causal (`flash_shape_timings`), with a dropped key tile planted
     in the plain dq, dk and dv, which must fail the bf16 bound, and the
-    device time of the forward plus backward beside SDPA's."""
+    device time of the forward plus backward beside SDPA's; then the
+    forward alone at gptj_6b's heads, [2, 1024, 16, 256] bf16 causal,
+    with a dropped key tile planted in its plain version (``at_shapes``;
+    gpt2_2_7b's [8, 1024, 32, 80] are timed by its training phase)."""
     B, S, Hh, Kd = FLASH_SHAPE
     timings, c = flash_shape_timings(device, errs, "training shape", B, S,
                                      Hh, Kd, True, 5)
@@ -1838,6 +2027,10 @@ def time_flash(device, errs):
                   "flash_dkv's library_ms is null; flash_delta_ms: the "
                   "port's delta (torch ops) alone; device time per call "
                   "(device_ms)"})
+    gptj, _ctx = flash_shape_timings(device, errs, "gptj_6b heads", 2, 1024,
+                                     *HEADS_GPTJ, True, 17, fwd_only=True)
+    at_shapes["gptj_6b [2, 1024, 16, 256]"] = gptj
+    emit({"phase": "flash_kernel_timing_gptj", **gptj})
     return timings
 
 
@@ -1914,10 +2107,8 @@ def aten_flash_backward(qt, kt, vt, dot, scale, refs, causal=True):
 def old_library(old_dir):
     """The kernels of an older checkout (``old_dir``/ray_tpu_torch/ops/
     csrc) built by nvcc into build/ab/libkernels_old.so, one nvcc per
-    source in parallel, with the C ABI of the parent of the decode's
-    redesign: the flash kernels and the paged prefill as now (tensor maps
-    passed by the caller), the paged decode without workspace or split
-    count."""
+    source in parallel, with this tree's C ABI (unchanged since the
+    decode's split-K redesign)."""
     src = os.path.join(old_dir, "ray_tpu_torch", "ops", "csrc")
     out = os.path.join("build", "ab")
     os.makedirs(out, exist_ok=True)
@@ -1936,27 +2127,31 @@ def old_library(old_dir):
                     *objs], check=True)
     lib = ctypes.CDLL(os.path.abspath(lib_path))
     _build._declare(lib)
-    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rtt_paged_decode_attention.argtypes = [I] + [P] * 6 + [I] * 5 + [
-        Fl, P]
-    lib.rtt_paged_decode_attention_int8.argtypes = [I] + [P] * 8 + [
-        I] * 5 + [Fl, P]
     return lib
 
 
 def old_decode(old, q, kp, vp, tables, lengths, sc):
-    """The parent's decode wrapper on its library: the same checks, one
-    launch of grid (H, B), no workspace (as `paged_attention` was before
-    the split-K redesign, without its counters)."""
+    """The older checkout's decode entry point on its library, called as
+    `paged_attention` calls this tree's (the same checks, split count,
+    workspace and arrival counters), without the launch counters."""
     quant = pa._quantized(kp, vp, sc.get("k_scale"), sc.get("v_scale"))
     B, Hh, Kd = q.shape
     ps = pa._check_shapes(q, kp, vp, Hh, Kd)
+    n_pg = tables.shape[1]
     tables, lengths = pa._cuda_operands(
         q, kp, vp, (("tables", tables), ("lengths", lengths)), quant)
     out = torch.empty_like(q)
-    common = (tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, Hh,
-              Kd, ps, tables.shape[1], float(1 / np.sqrt(Kd)),
-              torch.cuda.current_stream().cuda_stream)
+    n_split = pa.decode_splits(B, Hh, n_pg, pa._sm_count(q.device))
+    stream = torch.cuda.current_stream().cuda_stream
+    ws = counters = None
+    if n_split > 1:
+        ws = torch.empty(n_split * B * Hh * (Kd + 2), dtype=torch.float32,
+                         device=q.device)
+        counters = pa._decode_counters(
+            q.device, stream, B * -(-Hh // pa.DECODE_HEAD_GROUP))
+    common = (tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+              pa._ptr(ws), pa._ptr(counters), B, Hh, Kd, ps, n_pg,
+              kp.shape[0], n_split, float(1 / np.sqrt(Kd)), stream)
     code = pa._DTYPE_CODES[q.dtype]
     if quant:
         ks, vs = pa._scale_operands(q.device, sc["k_scale"], sc["v_scale"])
@@ -2647,6 +2842,112 @@ def phase_engine_int8(device, cfg, masters, float_run, float_streams):
               "share_before_first_divergence": shares,
               "mean": float(np.mean(shares)),
               "identical_streams": sum(x == 1.0 for x in shares)}})
+    return launches
+
+
+# ------------------------------------------------------- gptj_6b serving
+
+GPTJ_TIE_MARGIN = 0.1      # logits within this of each other: a bf16 tie
+
+
+def gptj_params(cfg, device):
+    """gptj_6b's weights from seed 0, drawn in bf16 (the engine's serving
+    dtype; fp32 masters of 6 B parameters would take 24 GB for nothing)."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    return gpt.init_params(
+        dataclasses.replace(cfg, param_dtype=torch.bfloat16), gen, device)
+
+
+def counted_calls(module, names):
+    """Wrap the functions ``names`` of ``module`` (the kernels' plain
+    versions, where the wrappers reach them) to count their calls → (the
+    live counts, the real functions for `restore_plain`)."""
+    calls = dict.fromkeys(names, 0)
+    real = {name: getattr(module, name) for name in names}
+    for name in names:
+        def counted(*a, _real=real[name], _name=name, **k):
+            calls[_name] += 1
+            return _real(*a, **k)
+        setattr(module, name, counted)
+    return calls, real
+
+
+def restore_plain(module, real):
+    for name, fn in real.items():
+        setattr(module, name, fn)
+
+
+def phase_engine_gptj(device):
+    """LLMEngine(gptj_6b) at full width and depth (28 layers, d 4096, 16
+    heads of 256, d_ff 16384, bf16, random weights from seed 0) on the
+    paged kernels with the engine phase's knobs and traffic, then the same
+    traffic on attn_impl="gather" over the same weights: n_layers decode
+    launches per decode step and prefill launches per dispatch, no plain
+    call, no int8 program, pages closed; every stream equal to the gather
+    engine's or leaving it where the gather logits of the two tokens are
+    within GPTJ_TIE_MARGIN (a bf16 near-tie), which a planted wrong token
+    must exceed."""
+    t_phase = time.perf_counter()
+    cfg = gpt.GPTConfig.gptj_6b(dtype=torch.bfloat16)
+    params = gptj_params(cfg, device)
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    prompts = engine_prompts(cfg)
+    plain, real = counted_calls(pa, ("reference_paged_attention",
+                                     "reference_paged_prefill_attention"))
+    try:
+        eng, (run,) = run_engine(device, cfg, params, prompts=prompts)
+    finally:
+        restore_plain(pa, real)
+    reqs, launches = run[:2]
+    out = engine_record(cfg, eng, run, "paged_attention",
+                        "paged_prefill_attention")
+    del eng
+    torch.cuda.empty_cache()
+    bad = []
+    if (launches["paged_attention"] != L * out["decode_steps"]
+            or launches["paged_prefill_attention"]
+            != L * out["prefill_dispatches"] or not out["decode_steps"]):
+        bad.append(f"launches {launches} are not {L} per decode step and "
+                   f"per prefill dispatch")
+    if launches["paged_attention_int8"] or launches[
+            "paged_prefill_attention_int8"]:
+        bad.append(f"an int8 program ran: {launches}")
+    if any(plain.values()):
+        bad.append(f"a plain version ran in the kernel engine: {plain}")
+    streams = [r.out_ids for r in reqs]
+    geng, (grun,) = run_engine(device, cfg, params, prompts=prompts,
+                               attn_impl="gather")
+    gather = [r.out_ids for r in grun[0]]
+    gather_rec = engine_record(cfg, geng, grun, "paged_attention",
+                               "paged_prefill_attention")
+    del geng
+    torch.cuda.empty_cache()
+    rec, cases = stream_cases(prompts, streams, gather)
+    ctx, tok = prompts[0] + gather[0][:1], gather[0][1]
+    margins = tie_margins(device, cfg, cases + [
+        (ctx, tok, (tok + 1) % cfg.vocab_size)], params=params,
+        attn_impl="gather")
+    rec.update(tie_margins=margins[:-1], tie_margin_bound=GPTJ_TIE_MARGIN,
+               planted_wrong_token_margin=margins[-1],
+               share_before_first_divergence=agreement(streams, gather))
+    if rec["streams"] < 8 or rec["other_length"]:
+        bad.append(f"streams compared: {rec}")
+    if any(m > GPTJ_TIE_MARGIN for m in margins[:-1]):
+        bad.append(f"a kernel stream left the gather one off a tie: {rec}")
+    if margins[-1] <= GPTJ_TIE_MARGIN:
+        bad.append(f"the planted wrong token passed ({margins[-1]})")
+    emit({"phase": "engine_gptj", "config": "gptj_6b bf16 (28 layers, d "
+          "4096, 16 heads of 256), random weights from seed 0", **out,
+          "plain_calls": plain, "vs_gather": rec,
+          "gather_engine": {k: gather_rec[k] for k in (
+              "decode_steps", "prefill_dispatches", "ttft_ms_p50",
+              "decode_step_ms_p50", "engine_decode_tok_s")},
+          "phase_s": time.perf_counter() - t_phase, "card": card_line()})
+    del params
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"engine_gptj: {bad}")
     return launches
 
 
@@ -4886,14 +5187,16 @@ def first_divergence(a, b):
                 min(len(a), len(b)))
 
 
-def tie_margins(device, cfg, cases):
+def tie_margins(device, cfg, cases, params=None, **knobs):
     """For each ``(context, ref token, served token)``, |logit(ref) -
     logit(served)| in the logits an in-process engine (the replicas'
-    model and knobs, seed 0) samples the token after ``context`` from."""
+    model and knobs, seed 0; or ``params`` and ENGINE_KNOBS updated by
+    ``knobs``) samples the token after ``context`` from."""
     if not cases:
         return []
     rows = {}
-    eng = LLMEngine(cfg, seed=0, device=device, **ENGINE_KNOBS)
+    eng = LLMEngine(cfg, params, seed=0, device=device,
+                    **{**ENGINE_KNOBS, **knobs})
     capture_first_logits(rows)(eng)
     reqs = [eng.submit(ctx, max_tokens=1, request_id=str(i))
             for i, (ctx, _a, _b) in enumerate(cases)]
@@ -5754,6 +6057,80 @@ def phase_train_llama(device, errs):
                optimizer["device_busy_ms"] / profiled["device_busy_ms"]),
            "phase_s": time.perf_counter() - t_phase, "card": card_line()}
     emit(out)
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return launches, shapes
+
+
+GPT27_B, GPT27_S, GPT27_STEPS = 8, 1024, 4
+# Per step with remat: 32 layers' flash forward twice (block and
+# recompute), dq and dkv once each.
+GPT27_PER_STEP = {"flash_fwd": 64, "flash_dq": 32, "flash_dkv": 32}
+
+
+def phase_train_gpt2_2_7b(device, errs):
+    """bench.py's BENCH_MODEL=gpt2_2_7b BENCH_OPT=adafactor_sr step on the
+    port: gpt2_2_7b at full width and depth (32 layers, d 2560, 32 heads
+    of 80, d_ff 10240, untied, vocab 50304), S 1024, B 8, bf16 SR masters,
+    adafactor(3e-4), remat, flash attention, random weights from seed 0;
+    the flash kernels checked and timed at its [8, 1024, 32, 80] first."""
+    t_phase = time.perf_counter()
+    shapes = {"gpt2_2_7b training": flash_shape_timings(
+        device, errs, "gpt2_2_7b", GPT27_B, GPT27_S, *HEADS_2_7B, True,
+        19)[0]}
+    emit({"phase": "flash_kernel_timing_gpt2_2_7b", **{
+        f"{k} {tag}": v for tag, t in shapes.items() for k, v in t.items()}})
+    torch.cuda.empty_cache()
+    cfg = gpt.GPTConfig.gpt2_2_7b(max_seq=GPT27_S, attn_impl="flash",
+                                  param_dtype=torch.bfloat16)
+    report = memory_audit.audit_training(
+        cfg, {"dp": 1, "fsdp": 1, "sp": 1, "tp": 1}, optimizer="adafactor",
+        batch_per_device=GPT27_B, param_bytes=2, grad_bytes=2, hbm="h100")
+    audit = {"per_device": report.per_device, "total": report.total_bytes,
+             "hbm_bytes": report.hbm_bytes, "fits": report.fits}
+    print(str(report), flush=True)
+    if not report.fits:
+        raise AssertionError(f"gpt2_2_7b does not fit one H100:\n{report}")
+    torch.cuda.reset_peak_memory_stats()
+    opt = adafactor(3e-4)
+    gen = torch.Generator(device=device).manual_seed(0)
+    t0 = time.perf_counter()
+    params, opt_state, step = build_training(cfg, opt, gen, device,
+                                             stochastic_round=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = train_batch_of(cfg.vocab_size, GPT27_B, GPT27_S, device)
+    compare = flash_vs_xla(cfg, params, batch)
+    plain, real = counted_calls(fa, FLASH_PLAIN)
+    try:
+        params, opt_state, losses, step_ms, launches, per_step = (
+            timed_steps(step, params, opt_state, batch, GPT27_STEPS - 1))
+    finally:
+        restore_plain(fa, real)
+    if per_step != GPT27_PER_STEP or any(plain.values()):
+        raise AssertionError(f"gpt2_2_7b flash launches per step {per_step}"
+                             f" (expected {GPT27_PER_STEP}), plain calls "
+                             f"{plain}")
+    not_bf16 = [k for k, p in params.items() if p.dtype != torch.bfloat16]
+    if not_bf16:
+        raise AssertionError(f"parameters left bf16: {not_bf16}")
+    peak_mem = torch.cuda.max_memory_allocated()
+    p50 = float(np.median(step_ms[1:]))
+    tok_s = GPT27_B * GPT27_S / (p50 / 1e3)
+    fpt = train_flops_per_token(cfg)
+    profiled = _profiled(lambda: step(params, opt_state, batch), top=12)
+    emit({"phase": "train_gpt2_2_7b", "config": "gpt2_2_7b bf16 SR masters "
+          f"remat flash B={GPT27_B} S={GPT27_S} adafactor(3e-4)",
+          "params": gpt.num_params(cfg), "audit": audit,
+          "max_memory_allocated": peak_mem,
+          "max_memory_allocated_gb": peak_mem / 2**30,
+          "init_s": init_s, "flash_vs_xla": compare, "steps": GPT27_STEPS,
+          "step_ms": step_ms, "step_ms_p50": p50, "tokens_per_s": tok_s,
+          "mfu": fpt * tok_s / BF16_FLOPS, "flops_per_token": fpt,
+          "losses": losses, "launches": launches,
+          "launches_per_step": per_step, "plain_calls": plain,
+          "profile_one_step": profiled,
+          "phase_s": time.perf_counter() - t_phase, "card": card_line()})
     del params, opt_state
     torch.cuda.empty_cache()
     return launches, shapes
@@ -7188,17 +7565,14 @@ def batch_digest(tokens, targets) -> str:
     return h.hexdigest()
 
 
+FLASH_PLAIN = ("reference_flash_fwd", "reference_flash_dq",
+               "reference_flash_dkv")
+
+
 def count_plain_calls():
     """Wrap the flash kernels' plain versions to count their calls →
     the live counts (a dict)."""
-    plain = dict.fromkeys(("reference_flash_fwd", "reference_flash_dq",
-                           "reference_flash_dkv"), 0)
-    for name in plain:
-        def counted(*a, _real=getattr(fa, name), _name=name, **k):
-            plain[_name] += 1
-            return _real(*a, **k)
-        setattr(fa, name, counted)
-    return plain
+    return counted_calls(fa, FLASH_PLAIN)[0]
 
 
 def flash_counts() -> dict:
@@ -7513,8 +7887,9 @@ def main(argv=None) -> int:
                          "engine,engine_prefix,engine_spec,engine_dense,"
                          "engine_oneshot,engine_drain,engine_warmup,"
                          "engine_observe,engine_edge,engine_tp,engine_kv,"
-                         "runtime,serve,train,train_ring,train_llama,"
-                         "train_moe,train_pipeline,train_dist,tune,data "
+                         "engine_gptj,runtime,serve,train,train_ring,"
+                         "train_llama,train_gpt2_2_7b,train_moe,"
+                         "train_pipeline,train_dist,tune,data "
                          "(default: all; "
                          "the build always runs)")
     ap.add_argument("--ptxas", action="store_true",
@@ -7582,8 +7957,8 @@ def main(argv=None) -> int:
     errs = dict.fromkeys(meta, 0.0)
     timings, launches, at_shapes = {}, {}, {}
     if want("kernels"):
-        timings.update(phase_kernels(device, errs))
-        timings.update(phase_flash_kernels(device, errs))
+        timings.update(phase_kernels(device, errs, at_shapes))
+        timings.update(phase_flash_kernels(device, errs, at_shapes))
     if args.ab:
         phase_ab(device, args.ab)
     if want("engine_warmup"):
@@ -7648,6 +8023,8 @@ def main(argv=None) -> int:
             by_path.update(phase_engine_kv(device, cfg, params))
         del cfg, masters, params
         torch.cuda.empty_cache()
+    if want("engine_gptj"):
+        by_path["engine_gptj"] = phase_engine_gptj(device)
     if want("runtime"):
         by_path["runtime (actor)"] = phase_runtime(
             device, None if streams is None else (float_run, streams))
@@ -7660,6 +8037,7 @@ def main(argv=None) -> int:
         launches.update(counts)
     for name, phase in (("train_ring", phase_train_ring),
                         ("train_llama", phase_train_llama),
+                        ("train_gpt2_2_7b", phase_train_gpt2_2_7b),
                         ("train_moe", phase_train_moe),
                         ("train_pipeline", phase_train_pipeline)):
         if want(name):

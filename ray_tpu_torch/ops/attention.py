@@ -49,8 +49,15 @@ import torch
 
 from ray_tpu_torch._device import check_device
 from ray_tpu_torch.ops.paged_attention import (  # shared with the paged kernels
-    _DTYPE_CODES, _HEAD_DIMS, NEG_INF, SWIZZLE_BYTES, WGMMA_ROWS, _addr,
-    _c_array, _stream_ptr, column_boxes, key_tile, tensor_map)
+    _DTYPE_CODES, _HEAD_DIMS, BOX_COLS, NEG_INF, ROADMAP_HEAD_DIMS,
+    SWIZZLE_BYTES, WGMMA_ROWS, _addr, _c_array, _stream_ptr, key_tile,
+    tensor_map)
+
+# Head dims of the backward kernels: at 256 the dkv kernel's dk and dv
+# accumulators of 64 keys would be 256 fp32 values a consumer thread,
+# over the 232 registers it has (csrc/flash_bwd.cu); the forward takes
+# every head dim of _HEAD_DIMS.
+BWD_HEAD_DIMS = (64, 80, 128)
 
 
 def _scale(q, sm_scale):
@@ -177,20 +184,21 @@ def _aligned(t) -> bool:
             and all(t.stride(i) % step == 0 for i in range(3)))
 
 
-def _kernel_operands(q, *others):
+def _kernel_operands(q, *others, head_dims=_HEAD_DIMS, kernel="flash_fwd"):
     """Validate the kernels' operands: one CUDA device, float32/bfloat16
-    of one dtype, head dim 64 or 128. A tensor whose rows are not 16-byte
-    aligned (or whose head dim is strided) is copied to a contiguous one;
-    every other layout is read in place."""
+    of one dtype, a head dim in ``head_dims`` (the forward's 64, 80, 128
+    and 256; the backward's `BWD_HEAD_DIMS`). A tensor whose rows are not
+    16-byte aligned (or whose head dim is strided) is copied to a
+    contiguous one; every other layout is read in place."""
     check_device(q.device, **{f"operand{i}": t for i, t in enumerate(others)})
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"kernel takes float32 or bfloat16, got {q.dtype}")
     for t in others:
         if t.dtype != q.dtype:
             raise ValueError(f"operand dtype {t.dtype} != q dtype {q.dtype}")
-    if q.shape[-1] not in _HEAD_DIMS:
-        raise ValueError(f"flash kernels take head_dim in {_HEAD_DIMS}, got "
-                         f"{q.shape[-1]}")
+    if q.shape[-1] not in head_dims:
+        raise ValueError(f"{kernel} takes head_dim in {head_dims}, got head "
+                         f"dim {q.shape[-1]} ({ROADMAP_HEAD_DIMS})")
     return [t if _aligned(t) else t.contiguous() for t in (q, *others)]
 
 
@@ -227,11 +235,12 @@ DKV_KEYS = 128
 DKV_ROWS = 64
 
 
-def _maps(K, *views):
-    """tensor_map of each (view, rows per box) in 64-column swizzled boxes."""
-    cols = K // column_boxes(K)
+def _maps(*views):
+    """tensor_map of each (view, rows per box) in 64-column swizzled boxes
+    (`column_boxes` of them a row; at head dim 80 the second box's columns
+    past 80 arrive as zeros)."""
     return [w for t, rows in views
-            for w in tensor_map(t, (1, rows, 1, cols), SWIZZLE_BYTES)]
+            for w in tensor_map(t, (1, rows, 1, BOX_COLS), SWIZZLE_BYTES)]
 
 
 def flash_plan(q, k, v):
@@ -239,11 +248,11 @@ def flash_plan(q, k, v):
     views (their own strides; the rows of a [B, S, 3, H, K] qkv
     projection's q, k and v are 16-byte aligned): q in boxes of 128 rows,
     k and v in boxes of `key_tile` rows, each 64 columns wide (a head dim
-    of 128 is two column boxes). bf16 only: fp32 takes the FMA kernel and
+    of 80 or 128 is two column boxes, 256 four). bf16 only: fp32 takes the
+    FMA kernel and
     no map. → a flat list of 3 x TMAP_WORDS."""
-    K = q.shape[-1]
-    kt = key_tile(K)
-    return _maps(K, (q, WGMMA_ROWS), (k, kt), (v, kt))
+    kt = key_tile(q.shape[-1])
+    return _maps((q, WGMMA_ROWS), (k, kt), (v, kt))
 
 
 def flash_dq_plan(q, k, v, do):
@@ -252,9 +261,8 @@ def flash_dq_plan(q, k, v, do):
     each read in place with its own strides. → 4 x TMAP_WORDS (q, k, v,
     dO). lse and delta are not mapped: the kernel reads them from the
     contiguous fp32 [B, S, H] rows `_row_vectors` gives it."""
-    K = q.shape[-1]
-    kt = key_tile(K)
-    return _maps(K, (q, WGMMA_ROWS), (k, kt), (v, kt), (do, WGMMA_ROWS))
+    kt = key_tile(q.shape[-1])
+    return _maps((q, WGMMA_ROWS), (k, kt), (v, kt), (do, WGMMA_ROWS))
 
 
 def flash_dkv_plan(q, k, v, do):
@@ -264,9 +272,7 @@ def flash_dkv_plan(q, k, v, do):
     v, dO). The lse and delta rows of each walked tile are staged by the
     kernel from the [B, S, H] rows: a box of one head's rows would be
     4·H bytes apart, which TMA cannot read as a box."""
-    K = q.shape[-1]
-    return _maps(K, (q, DKV_ROWS), (k, DKV_KEYS), (v, DKV_KEYS),
-                 (do, DKV_ROWS))
+    return _maps((q, DKV_ROWS), (k, DKV_KEYS), (v, DKV_KEYS), (do, DKV_ROWS))
 
 
 def flash_fwd(q, k, v, causal=True, sm_scale=None):
@@ -311,7 +317,8 @@ def flash_dq(q, k, v, do, lse, delta, causal=True, sm_scale=None):
     sm_scale = _scale(q, sm_scale)
     if not _on_cuda(q):
         return reference_flash_dq(q, k, v, do, lse, delta, causal, sm_scale)
-    q, k, v, do = _kernel_operands(q, k, v, do)
+    q, k, v, do = _kernel_operands(q, k, v, do, head_dims=BWD_HEAD_DIMS,
+                                   kernel="flash_dq")
     lse, delta = _row_vectors(q, lse, delta)
     B, S, H, K = q.shape
     T = k.shape[1]
@@ -344,7 +351,8 @@ def flash_dkv(q, k, v, do, lse, delta, causal=True, sm_scale=None):
     sm_scale = _scale(q, sm_scale)
     if not _on_cuda(q):
         return reference_flash_dkv(q, k, v, do, lse, delta, causal, sm_scale)
-    q, k, v, do = _kernel_operands(q, k, v, do)
+    q, k, v, do = _kernel_operands(q, k, v, do, head_dims=BWD_HEAD_DIMS,
+                                   kernel="flash_dkv")
     lse, delta = _row_vectors(q, lse, delta)
     B, S, H, K = q.shape
     T = k.shape[1]
@@ -423,6 +431,7 @@ def flash_attention(q, k, v, *, causal=True, sm_scale=None,
 
 __all__ = [
     "flash_attention", "flash_fwd", "flash_dq", "flash_dkv", "flash_bwd",
+    "BWD_HEAD_DIMS",
     "flash_plan", "flash_dq_plan", "flash_dkv_plan",
     "flash_delta", "reference_attention", "reference_flash_fwd",
     "reference_flash_dq", "reference_flash_dkv", "reference_flash_bwd",

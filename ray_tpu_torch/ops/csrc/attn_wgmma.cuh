@@ -12,14 +12,15 @@
 // order over the longest-first list (`attn_item`), so the producer loads
 // the next item's Q and first tiles while the consumers finish the current
 // one and store it. The K/V ring and its phases run on across items (a
-// block-wide tile counter g); Q is double-buffered.
+// block-wide tile counter g); Q is double-buffered (one buffer at head dim
+// 256, `AttnCfg`).
 //
 // Block layout: warpgroup 0 is the producer (its registers given away by
 // setmaxnreg), warpgroups 1 and 2 the consumers (rows 0-63 and 64-127).
 // Shared memory, from a 1024-byte boundary (`AttnCfg` offsets):
-//   Q       [2 buffers][KD / 64 column boxes][128 rows][128 B], 128-byte
-//           swizzle
-//   K, V    [KV_ST stages][KD / 64][BN keys][128 B] each, the same swizzle
+//   Q       [Q_BUFS buffers][KP / 64 column boxes][128 rows][128 B],
+//           128-byte swizzle (KP = pad64(KD): head dim 80 is two boxes)
+//   K, V    [KV_ST stages][KP / 64][BN keys][128 B] each, the same swizzle
 //   int8 only: the staged codes [STG_ST stages][K, V][BN][KD] (plain), each
 //   key's K scale · sm_scale · log2 e and V scale [KV_ST][2][BN] (fp32),
 //   the page id of each TMA box [STG_ST][BN]
@@ -55,18 +56,26 @@ constexpr int ATT_NO_CAUSAL = 1 << 30;       // a row position past every key
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
+// Head dims 64, 80 (rows padded to 128 columns, `pad64`), 128 and 256. At
+// 256 a Q buffer is 64 KB and a K or V tile 32 KB, so the block keeps one
+// Q buffer and two bf16 stages (int8: one bf16 stage behind two of codes)
+// in 232,448 bytes.
 template <int KD, bool QUANT>
 struct AttnCfg {
-  static_assert(KD == 64 || KD == 128, "head dim 64 or 128");
+  static_assert(KD == 64 || KD == 80 || KD == 128 || KD == 256,
+                "head dim 64, 80, 128 or 256");
+  static constexpr bool WIDE = KD == 256;
+  static constexpr int KP = pad64(KD);            // staged row, columns
   static constexpr int BN = KD == 64 ? 128 : 64;  // keys per tile
-  static constexpr int NBOX = KD / 64;            // 64-column boxes per row
-  static constexpr int KV_ST = QUANT ? 2 : 4;     // bf16 K/V stages
-  static constexpr int STG_ST = QUANT ? 4 : 0;    // int8 code stages
-  static constexpr int Q_BYTES = ATT_BM * KD * 2;
-  static constexpr int KV_BYTES = BN * KD * 2;    // one bf16 K or V tile
+  static constexpr int NBOX = KP / 64;            // 64-column boxes per row
+  static constexpr int Q_BUFS = WIDE ? 1 : 2;     // Q buffers
+  static constexpr int KV_ST = QUANT ? (WIDE ? 1 : 2) : (WIDE ? 2 : 4);
+  static constexpr int STG_ST = QUANT ? (WIDE ? 2 : 4) : 0;  // code stages
+  static constexpr int Q_BYTES = ATT_BM * KP * 2;
+  static constexpr int KV_BYTES = BN * KP * 2;    // one bf16 K or V tile
   static constexpr int STG_BYTES = BN * KD;       // one int8 K or V tile
   static constexpr int OFF_Q = 0;
-  static constexpr int OFF_K = OFF_Q + 2 * Q_BYTES;
+  static constexpr int OFF_K = OFF_Q + Q_BUFS * Q_BYTES;
   static constexpr int OFF_V = OFF_K + KV_ST * KV_BYTES;
   static constexpr int OFF_STG = OFF_V + KV_ST * KV_BYTES;
   static constexpr int OFF_SC = OFF_STG + STG_ST * 2 * STG_BYTES;
@@ -124,6 +133,17 @@ __device__ __forceinline__ QueryItem query_item(int item, int n_qt, int S,
   const int kv_end = causal ? min(T, it.q0 + it.rows) : T;
   it.n_kt = (kv_end + BN - 1) / BN;
   return it;
+}
+
+// Item j's Q buffer and the parity of its phase there (Q_BUFS buffers; j
+// counts up from 0, so unsigned arithmetic: a mask and a shift).
+template <int Q_BUFS>
+__device__ __forceinline__ int qbuf(int j) {
+  return (int)((uint32_t)j % Q_BUFS);
+}
+template <int Q_BUFS>
+__device__ __forceinline__ uint32_t qphase(int j) {
+  return ((uint32_t)j / Q_BUFS) & 1;
 }
 
 // Shared-memory address of Q buffer `qb` (the consumers' A operand).
@@ -424,15 +444,15 @@ __device__ __forceinline__ void attn_mainloop(unsigned char* base,
         }
       }
 
-      // O += P · V (V MN-major: the second 64-column box, KD = 128, is
-      // BN rows on).
+      // O += P · V (V MN-major: each further 64-column box is BN rows
+      // on; N = KD, `wgmma_rs_n`).
       fence_regs(o);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) {
         const uint64_t dv = sw128_desc(v_addr + kk * 16 * 128, BN * 128, 1024);
-        wgmma_rs(o, pa[kk], dv, 1);
-        if constexpr (QUANT) wgmma_rs(o, pl[kk], dv, 1);
+        wgmma_rs_n(o, pa[kk], dv, BN * 128, 1);
+        if constexpr (QUANT) wgmma_rs_n(o, pl[kk], dv, BN * 128, 1);
       }
       wgmma_commit();
       wgmma_wait<0>();

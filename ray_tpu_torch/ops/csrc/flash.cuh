@@ -29,6 +29,18 @@ inline void unpack_rows(Rows* const* dst, int n, const long long* strides) {
 constexpr int FL_TILE = 64;
 constexpr int FL_F32_THREADS = 256;
 
+// Their accumulating loops give thread tid the output column tid % KD of
+// the tile rows tid / KD + i · FL_RG (i < FL_RPT): FL_RG = 256 / KD row
+// groups, 3 at head dim 80, where the last 16 threads take no row.
+template <int KD>
+constexpr int FL_RG = FL_F32_THREADS / KD;
+template <int KD>
+constexpr int FL_RPT = (FL_TILE + FL_RG<KD> - 1) / FL_RG<KD>;
+template <int KD>
+__device__ __forceinline__ bool fl_pv_row(int rgrp, int r) {
+  return rgrp < FL_RG<KD> && r < FL_TILE;
+}
+
 // Copy rows of one head of an fp32 operand into a shared tile of pitch KP
 // (scalar loads: a pitch of KD + 1 floats breaks 16-byte alignment and keeps
 // the dot products' column walks free of bank conflicts).

@@ -35,7 +35,7 @@
 //    delta go to registers once per item (lse · log2 e - log2 sm_scale, so
 //    that p carries sm_scale and ds = p (dP - delta) saves a multiply); a
 //    ring of K/V tiles (BN = 128
-//    keys at head dim 64 in four stages, 64 at 128 in three) runs on
+//    keys at head dim 64 in four stages, 64 at 80 and 128 in three) runs on
 //    across items. Per tile: S = Q·K^T and dP = dO·V^T (both operands
 //    K-major, two commit groups, so p is computed from S while dP is on
 //    the tensor cores), ds rounded to bf16 as register A fragments, and
@@ -84,7 +84,9 @@
 //     mbarriers moved dq by -2% and dkv by +3%: not kept. Nor were
 //     128-row walked tiles in dkv at head dim 64 (the same time).
 // fp32 inputs take plain FMA kernels (64-row tiles, 256 threads) so that
-// fp32 keeps full precision.
+// fp32 keeps full precision. Head dims 64, 80 (rows staged as two 64-column
+// boxes, the second zero-filled past 80) and 128; 256 is refused (`DqCfg`).
+
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -170,28 +172,34 @@ __device__ __forceinline__ void wgmma_abt(float (&d)[R], uint32_t a_addr,
 }
 
 // d += A·B for A in register fragments (N16 k-steps of 16) and B an
-// MN-major tile of N16 · 16 rows (dq: K; dkv: dO and Q) at b_addr. No
-// commit: the caller groups the products.
+// MN-major tile of N16 · 16 rows (dq: K; dkv: dO and Q) at b_addr, over
+// the head dim's 2R columns (`wgmma_rs_n`). No commit: the caller groups
+// the products.
 template <int N16, int R>
 __device__ __forceinline__ void wgmma_ab(float (&d)[R],
                                          const uint32_t (&a)[N16][4],
                                          uint32_t b_addr) {
-  const uint64_t db = sw128_desc(b_addr, N16 * 16 * 128, 1024);
+  constexpr uint32_t box = N16 * 16 * 128;  // one 64-column box of the tile
+  const uint64_t db = sw128_desc(b_addr, box, 1024);
 #pragma unroll
   for (int kk = 0; kk < N16; ++kk)
-    wgmma_rs(d, a[kk], db + kk * 16 * 128 / 16, 1);
+    wgmma_rs_n(d, a[kk], db + kk * 16 * 128 / 16, box, 1);
 }
 
 // ------------------------------------------------------------------- dq
 
+// Head dims 64, 80 (rows padded to 128 columns, `pad64`) and 128. At 256
+// the dk and dv accumulators of 64 keys would be 256 fp32 values a thread,
+// over ATT_CONSUMER_REGS: the backward refuses it (ROADMAP queue 2 A).
 template <int KD>
 struct DqCfg {
-  static_assert(KD == 64 || KD == 128, "head dim 64 or 128");
+  static_assert(KD == 64 || KD == 80 || KD == 128, "head dim 64, 80 or 128");
+  static constexpr int KP = pad64(KD);
   static constexpr int BN = KD == 64 ? 128 : 64;  // keys per tile (key_tile)
-  static constexpr int NBOX = KD / 64;
+  static constexpr int NBOX = KP / 64;
   static constexpr int ST = KD == 64 ? 4 : 3;     // K/V ring stages
-  static constexpr int Q_BYTES = ATT_BM * KD * 2;  // Q (or dO) of one item
-  static constexpr int KV_BYTES = BN * KD * 2;     // one K or V tile
+  static constexpr int Q_BYTES = ATT_BM * KP * 2;  // Q (or dO) of one item
+  static constexpr int KV_BYTES = BN * KP * 2;     // one K or V tile
   static constexpr int OFF_Q = 0;                  // [2 buffers]
   static constexpr int OFF_DO = OFF_Q + 2 * Q_BYTES;
   static constexpr int OFF_K = OFF_DO + 2 * Q_BYTES;  // [ST stages]
@@ -398,11 +406,12 @@ constexpr int STAGE_WARP_ARRIVALS = 32;
 
 template <int KD>
 struct DkvCfg {
-  static_assert(KD == 64 || KD == 128, "head dim 64 or 128");
-  static constexpr int NBOX = KD / 64;
+  static_assert(KD == 64 || KD == 80 || KD == 128, "head dim 64, 80 or 128");
+  static constexpr int KP = pad64(KD);
+  static constexpr int NBOX = KP / 64;
   static constexpr int ST = KD == 64 ? 4 : 3;        // Q/dO ring stages
-  static constexpr int KV_BYTES = DKV_KEYS * KD * 2;  // K (or V) of one item
-  static constexpr int Q_BYTES = DKV_ROWS * KD * 2;   // one Q or dO tile
+  static constexpr int KV_BYTES = DKV_KEYS * KP * 2;  // K (or V) of one item
+  static constexpr int Q_BYTES = DKV_ROWS * KP * 2;   // one Q or dO tile
   static constexpr int OFF_K = 0;                     // [2 buffers]
   static constexpr int OFF_V = OFF_K + 2 * KV_BYTES;
   static constexpr int OFF_Q = OFF_V + 2 * KV_BYTES;  // [ST stages]
@@ -718,8 +727,8 @@ __global__ void __launch_bounds__(FL_F32_THREADS)
                         float* __restrict__ dq, int S, int T, int H,
                         DqRows st, int causal, float sm_scale) {
   constexpr int KP = KD + 1;
-  constexpr int RG = FL_F32_THREADS / KD;
-  constexpr int RPT = FL_TILE / RG;
+  constexpr int RG = FL_RG<KD>;
+  constexpr int RPT = FL_RPT<KD>;
   extern __shared__ float smem[];
   float* q_s = smem;
   float* d_s = q_s + FL_TILE * KP;
@@ -773,6 +782,7 @@ __global__ void __launch_bounds__(FL_F32_THREADS)
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int r = rgrp + i * RG;
+      if (!fl_pv_row<KD>(rgrp, r)) continue;
       float a = 0.f;
 #pragma unroll 16
       for (int t = 0; t < FL_TILE; ++t)
@@ -784,7 +794,8 @@ __global__ void __launch_bounds__(FL_F32_THREADS)
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int r = rgrp + i * RG;
-    if (r < rows) out[(q0 + r) * st.dq.s + kcol] = acc[i];
+    if (fl_pv_row<KD>(rgrp, r) && r < rows)
+      out[(q0 + r) * st.dq.s + kcol] = acc[i];
   }
 }
 
@@ -800,8 +811,8 @@ __global__ void __launch_bounds__(FL_F32_THREADS)
                          int T, int H, DkvRows st, int causal,
                          float sm_scale) {
   constexpr int KP = KD + 1;
-  constexpr int RG = FL_F32_THREADS / KD;
-  constexpr int RPT = FL_TILE / RG;
+  constexpr int RG = FL_RG<KD>;
+  constexpr int RPT = FL_RPT<KD>;
   extern __shared__ float smem[];
   float* k_s = smem;
   float* v_s = k_s + FL_TILE * KP;
@@ -857,6 +868,7 @@ __global__ void __launch_bounds__(FL_F32_THREADS)
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int t = rgrp + i * RG;
+      if (!fl_pv_row<KD>(rgrp, t)) continue;
       float av = 0.f, ak = 0.f;
 #pragma unroll 16
       for (int r = 0; r < FL_TILE; ++r) {
@@ -872,7 +884,7 @@ __global__ void __launch_bounds__(FL_F32_THREADS)
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int key = key0 + rgrp + i * RG;
-    if (key < T) {
+    if (fl_pv_row<KD>(rgrp, rgrp + i * RG) && key < T) {
       dkb[key * st.dk.s + kcol] = acc_k[i];
       dvb[key * st.dv.s + kcol] = acc_v[i];
     }
@@ -989,6 +1001,9 @@ extern "C" int rtt_flash_dq(int dtype, const void* q, const void* k,
     case 64:
       return (int)rtt::launch_dq<64>(dtype, q, k, v, dout, l, d, dq, B, S, T,
                                      H, st, causal, sm_scale, maps, s);
+    case 80:
+      return (int)rtt::launch_dq<80>(dtype, q, k, v, dout, l, d, dq, B, S, T,
+                                     H, st, causal, sm_scale, maps, s);
     case 128:
       return (int)rtt::launch_dq<128>(dtype, q, k, v, dout, l, d, dq, B, S, T,
                                       H, st, causal, sm_scale, maps, s);
@@ -1017,6 +1032,9 @@ extern "C" int rtt_flash_dkv(int dtype, const void* q, const void* k,
   switch (K) {
     case 64:
       return (int)rtt::launch_dkv<64>(dtype, q, k, v, dout, l, d, dk, dv, B,
+                                      S, T, H, st, causal, sm_scale, maps, s);
+    case 80:
+      return (int)rtt::launch_dkv<80>(dtype, q, k, v, dout, l, d, dk, dv, B,
                                       S, T, H, st, causal, sm_scale, maps, s);
     case 128:
       return (int)rtt::launch_dkv<128>(dtype, q, k, v, dout, l, d, dk, dv, B,

@@ -20,8 +20,9 @@
 // What the design does about it (bf16, attn_wgmma.cuh): persistent blocks,
 // one per SM, take (128-row query tile, head, batch) items in a snake order
 // over the longest-first list. A producer warp brings each item's Q in
-// (double-buffered) and its K/V tiles of BN keys (128 at head dim 64, 64 at
-// 128) through a four-stage ring by TMA, from 4-D tensor maps over q, k, v
+// (double-buffered; one buffer at head dim 256) and its K/V tiles of BN keys
+// (128 at head dim 64, 64 at 80, 128 and 256) through a four-stage ring (two
+// at 256) by TMA, from 4-D tensor maps over q, k, v
 // with their own strides (views of the qkv projection are read in place;
 // rows past S or T arrive as zeros). Two consumer warpgroups of 64 rows run
 // S = Q·K^T and O += P·V as wgmma (P from registers, V MN-major), so each
@@ -29,8 +30,11 @@
 // themselves and from device memory once per 128 rows. The softmax folds
 // sm_scale · log2 e into one FMA before a bare SFU exp2, keeps m in the log2
 // domain, and masks only the tiles on the causal diagonal or the T edge;
-// causal items stop at the tile's last row. fp32 inputs take a plain FMA
-// kernel (shared tiles, 256 threads) so that fp32 keeps full precision.
+// causal items stop at the tile's last row. Head dims 64, 80, 128 and 256:
+// a row is staged as whole 64-column boxes (80 as two, zero-filled past
+// column 80) and every product runs over the real head dim. fp32 inputs
+// take a plain FMA kernel (shared tiles, 256 threads) so that fp32 keeps
+// full precision.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,8 +78,8 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
       if (item >= n_items) break;
       const QueryItem it = query_item<BN>(item, n_qt, S, T, H, B, causal);
       if (it.n_kt == 0) continue;
-      const int qb = jq & 1;
-      mbar_wait(bar.a_empty + qb, ((jq >> 1) & 1) ^ 1);
+      const int qb = qbuf<Cfg::Q_BUFS>(jq);
+      mbar_wait(bar.a_empty + qb, qphase<Cfg::Q_BUFS>(jq) ^ 1);
       mbar_expect_tx(bar.full_a + qb, Cfg::Q_BYTES);
 #pragma unroll
       for (int cb = 0; cb < Cfg::NBOX; ++cb)
@@ -115,8 +119,8 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
         m2[0] = m2[1] = NEG_INF;
         l[0] = l[1] = 0.f;
       } else {
-        const int qb = jq & 1;
-        mbar_wait(bar.full_a + qb, (jq >> 1) & 1);
+        const int qb = qbuf<Cfg::Q_BUFS>(jq);
+        mbar_wait(bar.full_a + qb, qphase<Cfg::Q_BUFS>(jq));
         attn_mainloop<KD, false>(base, attn_q<KD, false>(base, qb), bar, wg,
                                  g, it.n_kt, T,
                                  causal ? r0 : ATT_NO_CAUSAL, c, acc, m2, l);
@@ -153,8 +157,8 @@ __global__ void __launch_bounds__(FL_F32_THREADS)
                          FwdRows st, int causal, float sm_scale) {
   constexpr int KP = KD + 1;
   constexpr int SP = FL_TILE + 1;
-  constexpr int RG = FL_F32_THREADS / KD;  // row groups of the PV loop
-  constexpr int RPT = FL_TILE / RG;        // accumulator rows per thread
+  constexpr int RG = FL_RG<KD>;    // row groups of the PV loop
+  constexpr int RPT = FL_RPT<KD>;  // accumulator rows per thread
   constexpr int RT = FL_F32_THREADS / FL_TILE;  // threads per row's stats
   extern __shared__ float smem[];
   float* q_s = smem;
@@ -180,7 +184,7 @@ __global__ void __launch_bounds__(FL_F32_THREADS)
     l_s[r] = 0.f;
   }
   const int kcol = tid % KD;
-  const int rgrp = tid / KD;
+  const int rgrp = tid / KD;  // >= RG: no PV rows (head dim 80)
   float acc[RPT];
 #pragma unroll
   for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
@@ -241,6 +245,7 @@ __global__ void __launch_bounds__(FL_F32_THREADS)
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int r = rgrp + i * RG;
+      if (!fl_pv_row<KD>(rgrp, r)) continue;
       float a = 0.f;
 #pragma unroll 16
       for (int t = 0; t < FL_TILE; ++t)
@@ -254,7 +259,7 @@ __global__ void __launch_bounds__(FL_F32_THREADS)
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int r = rgrp + i * RG;
-    if (r < rows) {
+    if (fl_pv_row<KD>(rgrp, r) && r < rows) {
       const float l = l_s[r];
       ob[(q0 + r) * st.o.s + kcol] = acc[i] / (l == 0.f ? 1.f : l);
     }
@@ -328,8 +333,14 @@ extern "C" int rtt_flash_fwd(int dtype, const void* q, const void* k,
     case 64:
       return (int)rtt::launch_fwd<64>(dtype, q, k, v, o, l, B, S, T, H, st,
                                       causal, sm_scale, maps, s);
+    case 80:
+      return (int)rtt::launch_fwd<80>(dtype, q, k, v, o, l, B, S, T, H, st,
+                                      causal, sm_scale, maps, s);
     case 128:
       return (int)rtt::launch_fwd<128>(dtype, q, k, v, o, l, B, S, T, H, st,
+                                       causal, sm_scale, maps, s);
+    case 256:
+      return (int)rtt::launch_fwd<256>(dtype, q, k, v, o, l, B, S, T, H, st,
                                        causal, sm_scale, maps, s);
     default:
       return (int)cudaErrorInvalidValue;

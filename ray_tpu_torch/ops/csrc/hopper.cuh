@@ -10,7 +10,9 @@
 // of R rows and 64 bf16 columns is R rows of 128 bytes, and within each
 // 8-row (1024-byte) group the 16-byte chunk c of row r sits at chunk
 // c ^ (r % 8). A head dim of 128 is two such tiles side by side (two
-// "column boxes"). Every tile starts on a 1024-byte boundary.
+// "column boxes"), 256 four, and 80 two as well: the second box's columns
+// past 80 are zero-filled by TMA (`pad64`). Every tile starts on a
+// 1024-byte boundary.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver is reached at run time
@@ -255,6 +257,20 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
                                          const uint32_t (&a)[4],
                                          uint64_t db, int scale_d) {
@@ -289,6 +305,36 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// Columns of a shared-memory row of head dim kd: whole 64-column boxes
+// (80 → 128). TMA zero-fills the columns past kd and reads no device
+// memory for them; the products run over the kd real columns only.
+__host__ __device__ constexpr int pad64(int kd) { return (kd + 63) / 64 * 64; }
+
+// d (+)= A · B with A in registers and B MN-major in 64-column boxes `box`
+// bytes apart (the descriptor's lbo), over N = 2R columns (R accumulators a
+// thread, the wgmma layout: d[4j + 2h + e] is column 8j + 2t + e): N 64 and
+// 128 one product; 80 (head dim 80) n64 on box 0 and n16 on the first 16
+// columns of box 1; 256 two n128 products, boxes 0-1 and 2-3. Each piece's
+// accumulators are the matching slice of d.
+template <int R>
+__device__ __forceinline__ void wgmma_rs_n(float (&d)[R],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, uint32_t box,
+                                           int scale_d) {
+  if constexpr (R == 32 || R == 64) {
+    wgmma_rs(d, a, db, scale_d);
+  } else if constexpr (R == 40) {
+    wgmma_rs(*reinterpret_cast<float(*)[32]>(&d[0]), a, db, scale_d);
+    wgmma_rs(*reinterpret_cast<float(*)[8]>(&d[32]), a, db + box / 16,
+             scale_d);
+  } else {
+    static_assert(R == 128, "N of 64, 80, 128 or 256");
+    wgmma_rs(*reinterpret_cast<float(*)[64]>(&d[0]), a, db, scale_d);
+    wgmma_rs(*reinterpret_cast<float(*)[64]>(&d[64]), a, db + 2 * box / 16,
+             scale_d);
+  }
 }
 
 // ------------------------------------------------- tensor maps (host)

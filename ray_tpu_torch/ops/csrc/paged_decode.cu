@@ -49,7 +49,8 @@
 //    512 bytes per 16 KB stage held a block to about 10 GB/s.
 //  - Four consumer warps, one per head of the group, compute from shared
 //    memory and release the stage on its `empty` mbarrier. A K/V row is
-//    K/VEC lanes of 16-byte ld.shared, so a quarter-warp reads one
+//    staged as pad64(K) columns (80: 128, zero-filled past 80 by TMA) and
+//    read as lanes of 16-byte ld.shared (`DecCfg`), so a quarter-warp reads one
 //    contiguous 128-byte row, free of bank conflicts without a swizzle
 //    (int8 at K = 64: two 64-byte rows per quarter-warp, a 2-way conflict;
 //    shared memory is not the limit there). Each lane group keeps its own
@@ -57,9 +58,10 @@
 //    UNROLL rows per stage; shuffles merge the groups at the end. int8
 //    codes are widened by a byte permute and an add (`load_row`).
 //  - A stage is DEC_STAGE_BYTES = 16 KB whatever the element type or head
-//    dim, R positions: bf16 K 64 16, K 128 8; fp32 8 and 4; int8 32 and
-//    16; UNROLL = R / (rows a warp covers per instruction) = 4 rows per
-//    lane group. Rows past the length in the last page are loaded with
+//    dim, R positions: bf16 K 64 16, K 80 and 128 8, K 256 4; fp32 8, 4 and
+//    2; int8 32, 16 and 8; UNROLL = R / (rows a warp covers per instruction)
+//    = 4 rows per lane group (2 for fp32 at 256). Rows past the length in
+//    the last page are loaded with
 //    their box and dropped by the consumers; pages past it are never read.
 //  - Split-K over the positions (flash-decoding), sized in two steps. The
 //    host bounds the grid: n_split splits per (slot, group), DEC_WAVES
@@ -131,17 +133,23 @@ int decode_splits(int B, int H, int n_pg, int n_sm) {
   return n < 1 ? 1 : (int)n;
 }
 
+// A staged K/V row is KDP = pad64(KD) columns (head dim 80: 128, the
+// columns past 80 zero-filled by TMA, which reads no device memory for
+// them), split over LPR lanes of EPL elements (one or two 16-byte
+// ld.shared each: fp32 at 256 takes two).
 template <typename Tkv, int KD>
 struct DecCfg {
   static constexpr bool QUANT = sizeof(Tkv) == 1;
+  static constexpr int KDP = pad64(KD);              // staged row, columns
   static constexpr int VEC = 16 / (int)sizeof(Tkv);  // elements per ld.shared
-  static constexpr int LPR = KD / VEC;               // lanes per K/V row
+  static constexpr int LPR = KDP / VEC < 32 ? KDP / VEC : 32;  // lanes a row
+  static constexpr int EPL = KDP / LPR;              // elements per lane
   static constexpr int RPW = 32 / LPR;               // rows per warp step
-  static constexpr int PIECE = DEC_GROUP * KD * (int)sizeof(Tkv);
+  static constexpr int PIECE = DEC_GROUP * KDP * (int)sizeof(Tkv);
   static constexpr int R = DEC_STAGE_BYTES / (2 * PIECE);  // positions/stage
   static constexpr int UNROLL = R / RPW;             // rows per lane group
-  static_assert(KD % VEC == 0 && LPR >= 1 && LPR <= 32 && 32 % LPR == 0,
-                "head dim must split into 16-byte lanes of one warp");
+  static_assert(KD % EPL == 0 && EPL % VEC == 0 && 32 % LPR == 0,
+                "a row is whole 16-byte lanes of one warp");
   static_assert(UNROLL >= 1 && UNROLL * RPW == R && R <= 32,
                 "a stage is whole warp steps of at most 32 positions");
 };
@@ -152,13 +160,16 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(32 * DEC_GROUP) : "memory");
 }
 
-// One K/V row piece of VEC elements from shared memory, widened to fp32.
-__device__ __forceinline__ void load_row(const float* p, float (&f)[4]) {
-  load16(p, f);
+// One lane's piece of a K/V row (EPL elements) from shared memory,
+// widened to fp32.
+template <int N>
+__device__ __forceinline__ void load_row(const float* p, float (&f)[N]) {
+  load_n<N>(p, f);
 }
+template <int N>
 __device__ __forceinline__ void load_row(const __nv_bfloat16* p,
-                                         float (&f)[8]) {
-  load16(p, f);
+                                         float (&f)[N]) {
+  load_n<N>(p, f);
 }
 // Sixteen codes: each byte, offset by 128, becomes the low byte of the
 // float 2^23 + (code + 128), from which one subtraction gives the code
@@ -322,7 +333,7 @@ __global__ void __launch_bounds__(DEC_THREADS, DEC_BLOCKS_PER_SM)
   const int h0 = it.g * DEC_GROUP;
   // One position of a box: min(G, H) heads (a last group past H reads
   // zeros there, which no warp uses).
-  const int row_elems = min(DEC_GROUP, H) * KD;
+  const int row_elems = min(DEC_GROUP, H) * C::KDP;
 
   if (warp == DEC_GROUP) {
     // Producer. A stage is R / box_rows boxes per plane (box_rows =
@@ -383,26 +394,30 @@ __global__ void __launch_bounds__(DEC_THREADS, DEC_BLOCKS_PER_SM)
   }
 
   // Consumers: warp w takes head h0 + w (a warp past H only keeps the
-  // barriers' counts); lane group grp takes rows grp + u·RPW of a stage.
+  // barriers' counts); lane group grp takes rows grp + u·RPW of a stage,
+  // each lane EPL columns from col0 (none of them real past the head dim:
+  // its q is 0 there and it writes nothing).
+  constexpr int EPL = C::EPL;
   const int h = h0 + warp;
   const bool active = h < H;
   const int grp = lane / C::LPR;
-  const int col0 = (lane % C::LPR) * C::VEC;
-  float qv[C::VEC];
-  if (active) {
-    load_n<C::VEC>(q + ((size_t)it.b * H + h) * KD + col0, qv);
+  const int col0 = (lane % C::LPR) * EPL;
+  const bool cols = col0 < KD;
+  float qv[EPL];
+  if (active && cols) {
+    load_n<EPL>(q + ((size_t)it.b * H + h) * KD + col0, qv);
   } else {
 #pragma unroll
-    for (int e = 0; e < C::VEC; ++e) qv[e] = 0.f;
+    for (int e = 0; e < EPL; ++e) qv[e] = 0.f;
   }
   const float scale2 = sm_scale * LOG2E;  // scores in log2 units: exp2 below
   float m = NEG_INF;
   float l = 0.f;
-  float acc[C::VEC];
+  float acc[EPL];
 #pragma unroll
-  for (int e = 0; e < C::VEC; ++e) acc[e] = 0.f;
+  for (int e = 0; e < EPL; ++e) acc[e] = 0.f;
 
-  const int head_off = warp * KD + col0;  // elements into a position
+  const int head_off = warp * C::KDP + col0;  // elements into a position
   for (int i = 0; i < it.n_steps; ++i) {
     const int st = i % DEC_STAGES;
     mbar_wait(full + st, (i / DEC_STAGES) & 1);
@@ -418,11 +433,11 @@ __global__ void __launch_bounds__(DEC_THREADS, DEC_BLOCKS_PER_SM)
       for (int u = 0; u < C::UNROLL; ++u) {
         const int r = grp + u * C::RPW;
         valid[u] = t0 + r < it.t_end;
-        float kf[C::VEC];
+        float kf[EPL];
         load_row(ks + r * row_elems + head_off, kf);
         float d = 0.f;
 #pragma unroll
-        for (int e = 0; e < C::VEC; ++e) d += qv[e] * kf[e];
+        for (int e = 0; e < EPL; ++e) d += qv[e] * kf[e];
 #pragma unroll
         for (int o = C::LPR / 2; o > 0; o >>= 1)
           d += __shfl_xor_sync(0xffffffffu, d, o);
@@ -433,7 +448,7 @@ __global__ void __launch_bounds__(DEC_THREADS, DEC_BLOCKS_PER_SM)
       const float corr = exp2_sfu(m - mx);
       l *= corr;
 #pragma unroll
-      for (int e = 0; e < C::VEC; ++e) acc[e] *= corr;
+      for (int e = 0; e < EPL; ++e) acc[e] *= corr;
 #pragma unroll
       for (int u = 0; u < C::UNROLL; ++u) {
         if (!valid[u]) continue;
@@ -443,10 +458,10 @@ __global__ void __launch_bounds__(DEC_THREADS, DEC_BLOCKS_PER_SM)
         // float: V times p rounded to q's dtype, l the unrounded p; int8:
         // p times the page's V scale, not rounded.
         const float pv = C::QUANT ? p * kscale[32 + r] : round_to<Tq>(p);
-        float vf[C::VEC];
+        float vf[EPL];
         load_row(vs + r * row_elems + head_off, vf);
 #pragma unroll
-        for (int e = 0; e < C::VEC; ++e) acc[e] += pv * vf[e];
+        for (int e = 0; e < EPL; ++e) acc[e] += pv * vf[e];
       }
       m = mx;
     }
@@ -464,7 +479,7 @@ __global__ void __launch_bounds__(DEC_THREADS, DEC_BLOCKS_PER_SM)
     const float cb = exp2_sfu(m2 - mn);
     l = l * ca + l2 * cb;
 #pragma unroll
-    for (int e = 0; e < C::VEC; ++e) {
+    for (int e = 0; e < EPL; ++e) {
       const float a2 = __shfl_xor_sync(0xffffffffu, acc[e], o);
       acc[e] = acc[e] * ca + a2 * cb;
     }
@@ -472,10 +487,10 @@ __global__ void __launch_bounds__(DEC_THREADS, DEC_BLOCKS_PER_SM)
   }
   const size_t row = (size_t)it.b * H + h;
   if (it.n_parts == 1) {  // the slot's only split: the output itself
-    if (active && grp == 0) {
+    if (active && grp == 0 && cols) {
       const float inv = 1.f / (l == 0.f ? 1.f : l);
 #pragma unroll
-      for (int e = 0; e < C::VEC; ++e)
+      for (int e = 0; e < EPL; ++e)
         out[row * KD + col0 + e] = from_f<Tq>(acc[e] * inv);
     }
     return;
@@ -488,8 +503,10 @@ __global__ void __launch_bounds__(DEC_THREADS, DEC_BLOCKS_PER_SM)
   constexpr int ST = KD + 2;
   if (active && grp == 0) {
     float* mine = ws + (row * n_split + it.s) * ST;
+    if (cols) {
 #pragma unroll
-    for (int e = 0; e < C::VEC; ++e) mine[col0 + e] = acc[e];
+      for (int e = 0; e < EPL; ++e) mine[col0 + e] = acc[e];
+    }
     if (lane == 0) {
       mine[KD] = m;
       mine[KD + 1] = l;
@@ -520,23 +537,26 @@ __global__ void __launch_bounds__(DEC_THREADS, DEC_BLOCKS_PER_SM)
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
+  // Lane k merges columns k + 32 j (KD = 80: the third j, lanes 0-15).
+  constexpr int NJ = (KD + 31) / 32;
   float lt = 0.f;
-  float at[KD / 32];
+  float at[NJ];
 #pragma unroll
-  for (int j = 0; j < KD / 32; ++j) at[j] = 0.f;
+  for (int j = 0; j < NJ; ++j) at[j] = 0.f;
 #pragma unroll 4
   for (int i = 0; i < it.n_parts; ++i) {
     const float* sp = part + (size_t)i * ST;
     const float w = exp2_sfu(__ldcg(sp + KD) - mt);
     lt += __ldcg(sp + KD + 1) * w;
 #pragma unroll
-    for (int j = 0; j < KD / 32; ++j)
-      at[j] += __ldcg(sp + lane + 32 * j) * w;
+    for (int j = 0; j < NJ; ++j)
+      if (lane + 32 * j < KD) at[j] += __ldcg(sp + lane + 32 * j) * w;
   }
   const float inv = 1.f / (lt == 0.f ? 1.f : lt);
 #pragma unroll
-  for (int j = 0; j < KD / 32; ++j)
-    out[row * KD + lane + 32 * j] = from_f<Tq>(at[j] * inv);
+  for (int j = 0; j < NJ; ++j)
+    if (lane + 32 * j < KD)
+      out[row * KD + lane + 32 * j] = from_f<Tq>(at[j] * inv);
 }
 
 // What an entry point was given, for the launchers.
@@ -559,15 +579,16 @@ struct DecArgs {
 
 // The tensor map of one plane of the layer, viewed as [n_pages·ps, H, K]
 // (TMAP_WORDS numbers, as `encode_tmap` reads them), in boxes of box_rows
-// positions of min(G, H) heads, unswizzled. Encoded here at every launch
-// (about a microsecond on the host): the pool's address changes per layer.
+// positions of min(G, H) heads of kdp = pad64(K) columns (those past K
+// zero-filled), unswizzled. Encoded here at every launch (about a
+// microsecond on the host): the pool's address changes per layer.
 cudaError_t decode_map(CUtensorMap* map, const void* plane, const DecArgs& a,
-                       int item, int box_rows) {
+                       int item, int box_rows, int kdp) {
   const long long rec[TMAP_WORDS] = {
       item, 3,
       a.K, a.H, (long long)a.n_pages * a.ps, 0, 0,
       (long long)a.K * item, (long long)a.H * a.K * item, 0, 0,
-      a.K, a.H < DEC_GROUP ? a.H : DEC_GROUP, box_rows, 0, 0,
+      kdp, a.H < DEC_GROUP ? a.H : DEC_GROUP, box_rows, 0, 0,
       0};
   return encode_tmap(map, plane, rec);
 }
@@ -585,8 +606,9 @@ cudaError_t launch_decode_kd(const DecArgs& a) {
   }
   const int box_rows = std::gcd(a.ps, C::R);
   CUtensorMap km, vm;
-  cudaError_t e = decode_map(&km, a.k_pool, a, sizeof(Tkv), box_rows);
-  if (e == cudaSuccess) e = decode_map(&vm, a.v_pool, a, sizeof(Tkv), box_rows);
+  cudaError_t e = decode_map(&km, a.k_pool, a, sizeof(Tkv), box_rows, C::KDP);
+  if (e == cudaSuccess)
+    e = decode_map(&vm, a.v_pool, a, sizeof(Tkv), box_rows, C::KDP);
   if (e != cudaSuccess) return e;
   // The blocks with work number at most units + slots (each slot's share of
   // the wave rounded down, plus the slots that get a split though their
@@ -609,8 +631,12 @@ cudaError_t launch_decode(const DecArgs& a) {
   switch (a.K) {
     case 64:
       return launch_decode_kd<Tq, Tkv, 64>(a);
+    case 80:
+      return launch_decode_kd<Tq, Tkv, 80>(a);
     case 128:
       return launch_decode_kd<Tq, Tkv, 128>(a);
+    case 256:
+      return launch_decode_kd<Tq, Tkv, 256>(a);
     default:
       return cudaErrorInvalidValue;
   }

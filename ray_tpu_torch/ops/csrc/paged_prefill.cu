@@ -19,27 +19,29 @@
 // What the design does about it. Every version stops at the last key a
 // query tile can see, min(lengths[b], offsets[b] + last row + 1): the causal
 // early exit, and no work at all for an inert row (lengths[b] == 0).
-//  - bf16 q, K in {64, 128}, page sizes in {8, 16, 32} or a multiple of 64
+//  - bf16 q, K in {64, 80, 128, 256}, page sizes in {8, 16, 32} or a
+//    multiple of 64
 //    (the serving path; `prefill_kernel` in ops/paged_attention.py holds
 //    the same rule): the wgmma kernel of attn_wgmma.cuh, the flash
 //    forward's mainloop with a paged producer. Persistent blocks, one per
 //    SM, take (128-row query tile, head, slot) items, a slot's query tiles
 //    next to each other so the second read of its pages comes from L2. The
 //    producer warp reads each box's page id from the table once and brings
-//    the key tile (BN = 128 keys at head dim 64, 64 at 128) in by TMA from
+//    the key tile (BN = 128 keys at head dim 64, else 64) in by TMA from
 //    a 3-D tensor map over the layer's pool viewed as [(P+1)·ps, H, K],
-//    one box of gcd(ps, BN) rows per page piece, into a four-stage ring;
+//    one box of gcd(ps, BN) rows per page piece, into a four-stage ring
+//    (two at 256, `AttnCfg`);
 //    the two consumer warpgroups run S = Q·K^T and O += P·V as wgmma,
 //    masking only the tiles that reach past a row's diagonal or the
 //    slot's length.
 //  - bf16 q at any other page size: the mma.sync kernel below (four warps of
 //    16 query rows, 64-key tiles staged through registers by 16-byte
-//    loads, S and P·V as mma.sync m16n8k16). A shape rule of the C entry
-//    point, not a fallback: the wrapper's plan and rtt_paged_prefill_smem_
-//    bytes apply the same rule.
-//  - fp32 (K in {64, 128}): plain FMAs from shared memory (one float of
-//    padding per row keeps the QK^T loop free of bank conflicts), so fp32
-//    keeps full precision (1e-5).
+//    loads, S and P·V as mma.sync m16n8k16), head dims up to 128
+//    (`MMA_MAX_KD`). A shape rule of the C entry point, not a fallback: the
+//    wrapper's plan and rtt_paged_prefill_smem_bytes apply the same rule.
+//  - fp32 (K in {64, 80, 128, 256}): plain FMAs from shared memory (one
+//    float of padding per row keeps the QK^T loop free of bank conflicts),
+//    so fp32 keeps full precision (1e-5).
 //
 // The int8 programs (replace the same Pallas kernel traced with
 // quantized=True): int8 pages with one K and one V scale per page, read from
@@ -70,6 +72,7 @@
 
 #include "attn_wgmma.cuh"
 #include "common.cuh"
+#include "flash.cuh"
 
 namespace rtt {
 namespace {
@@ -100,11 +103,11 @@ __global__ void __launch_bounds__(PF_THREADS)
                          const int* __restrict__ lengths, T* __restrict__ out,
                          int C, int H, int ps, int n_pg, float sm_scale) {
   constexpr bool kQuant = std::is_same<TP, int8_t>::value;
-  static_assert(PF_THREADS % KD == 0, "head dim must divide the block");
+  static_assert(PF_THREADS == FL_F32_THREADS && PF_TQ == FL_TILE,
+                "the flash fp32 kernels' row groups (flash.cuh)");
   constexpr int KP = KD + 1;
-  constexpr int ROW_GROUPS = PF_THREADS / KD;
-  static_assert(PF_TQ % ROW_GROUPS == 0, "rows must split over groups");
-  constexpr int RPT = PF_TQ / ROW_GROUPS;  // accumulator rows per thread
+  constexpr int ROW_GROUPS = FL_RG<KD>;  // 3 at head dim 80 (16 idle lanes)
+  constexpr int RPT = FL_RPT<KD>;        // accumulator rows per thread
 
   extern __shared__ float smem[];
   const int SP = ps + 1;
@@ -143,7 +146,8 @@ __global__ void __launch_bounds__(PF_THREADS)
   if (n_live > n_pg) n_live = n_pg;
 
   const int kcol = tid % KD;   // PV: this thread's output column
-  const int rgrp = tid / KD;   // PV: rows rgrp, rgrp + ROW_GROUPS, ...
+  const int rgrp = tid / KD;   // PV: rows rgrp, rgrp + ROW_GROUPS, ... (when
+                               // fl_pv_row)
   float acc[RPT];
 #pragma unroll
   for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
@@ -216,6 +220,7 @@ __global__ void __launch_bounds__(PF_THREADS)
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int r = rgrp + i * ROW_GROUPS;
+      if (!fl_pv_row<KD>(rgrp, r)) continue;
       float a = 0.f;
       for (int t = 0; t < ps; ++t) a += s_s[r * SP + t] * v_s[t * KD + kcol];
       acc[i] = acc[i] * c_s[r] + a;
@@ -226,7 +231,7 @@ __global__ void __launch_bounds__(PF_THREADS)
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int r = rgrp + i * ROW_GROUPS;
-    if (r < rows) {
+    if (fl_pv_row<KD>(rgrp, r) && r < rows) {
       const float l = l_s[r];
       const float l_safe = (l == 0.f) ? 1.f : l;
       out[(((size_t)b * C + q0 + r) * H + h) * KD + kcol] =
@@ -242,6 +247,11 @@ constexpr int MMA_WARPS = 4;
 constexpr int MMA_THREADS = 32 * MMA_WARPS;
 constexpr int MMA_TQ = 16 * MMA_WARPS;  // query rows per block
 constexpr int MMA_TK = 64;              // keys per shared tile
+// Head dims the mma.sync kernel takes: at 256 its O fragments and Q
+// fragments alone are 192 registers a thread and its K/V tiles 66 KB of
+// static shared memory (ROADMAP queue 2 A); page sizes the wgmma kernel
+// takes serve head dim 256.
+constexpr int MMA_MAX_KD = 128;
 
 // Shared memory of one block: the bf16 K and V tiles, plus (int8 program)
 // one K and one V scale per key.
@@ -310,7 +320,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
                              __nv_bfloat16* __restrict__ out, int C, int H,
                              int ps, int n_pg, float sm_scale) {
   constexpr bool kQuant = std::is_same<TP, int8_t>::value;
-  static_assert(KD % 16 == 0 && KD <= 128, "head dim for the mma path");
+  static_assert(KD % 16 == 0 && KD <= MMA_MAX_KD, "head dim for the mma path");
   constexpr int KSTEPS = KD / 16;      // k-steps of Q·K^T
   constexpr int NT_S = MMA_TK / 8;     // n-tiles of S (keys)
   constexpr int NT_O = KD / 8;         // n-tiles of O (head dims)
@@ -642,8 +652,8 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
         const PrefillItem it = prefill_item<BN>(item, n_qt, C, H, ps, n_pg,
                                                 offsets, lengths);
         if (it.n_kt == 0) continue;
-        const int qb = jq & 1;
-        mbar_wait(bar.a_empty + qb, ((jq >> 1) & 1) ^ 1);
+        const int qb = qbuf<Cfg::Q_BUFS>(jq);
+        mbar_wait(bar.a_empty + qb, qphase<Cfg::Q_BUFS>(jq) ^ 1);
         mbar_expect_tx(bar.full_a + qb, Cfg::Q_BYTES);
 #pragma unroll
         for (int cb = 0; cb < Cfg::NBOX; ++cb)
@@ -725,8 +735,8 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
         m2[0] = m2[1] = NEG_INF;
         l[0] = l[1] = 0.f;
       } else {
-        const int qb = jq & 1;
-        mbar_wait(bar.full_a + qb, (jq >> 1) & 1);
+        const int qb = qbuf<Cfg::Q_BUFS>(jq);
+        mbar_wait(bar.full_a + qb, qphase<Cfg::Q_BUFS>(jq));
         // int8: c is in each key's K scale.
         attn_mainloop<KD, QUANT>(base, attn_q<KD, QUANT>(base, qb), bar, wg,
                                  g, it.n_kt, it.kv_lim,
@@ -792,9 +802,13 @@ cudaError_t launch_prefill_bf16(const void* q, const void* k_pool,
     return launch_prefill_wgmma<KD, kQuant>(
         q, k_pool, v_pool, k_scale, v_scale, tables, offsets, lengths, out, B,
         C, H, ps, n_pg, sm_scale, maps, stream);
-  return launch_prefill_mma<TP, KD>(q, k_pool, v_pool, k_scale, v_scale,
-                                    tables, offsets, lengths, out, B, C, H,
-                                    ps, n_pg, sm_scale, stream);
+  if constexpr (KD > MMA_MAX_KD) {
+    return cudaErrorInvalidValue;  // `prefill_kernel` raises first
+  } else {
+    return launch_prefill_mma<TP, KD>(q, k_pool, v_pool, k_scale, v_scale,
+                                      tables, offsets, lengths, out, B, C, H,
+                                      ps, n_pg, sm_scale, stream);
+  }
 }
 
 // The float program: bf16 q by launch_prefill_bf16, fp32 by FMA.
@@ -837,6 +851,19 @@ cudaError_t launch_prefill_i8(int dtype, const void* q, const void* k_pool,
   return cudaErrorInvalidValue;
 }
 
+// Shared memory one block of the bf16-q kernel that (quant, ps) selects
+// at head dim KD; a shape no kernel takes (the mma.sync kernel past
+// MMA_MAX_KD) reads as more than any block may have.
+template <int KD>
+size_t prefill_bf16_smem_bytes(bool quant, int ps) {
+  if (wgmma_page_size(ps))
+    return quant ? AttnCfg<KD, true>::SMEM : AttnCfg<KD, false>::SMEM;
+  if constexpr (KD > MMA_MAX_KD)
+    return ~(size_t)0;
+  else
+    return prefill_mma_smem_bytes<KD>(quant);
+}
+
 }  // namespace
 }  // namespace rtt
 
@@ -845,16 +872,17 @@ cudaError_t launch_prefill_i8(int dtype, const void* q, const void* k_pool,
 // what a block may have.
 extern "C" size_t rtt_paged_prefill_smem_bytes(int dtype, int quant, int K,
                                                int ps) {
-  if (dtype == rtt::DTYPE_BF16 && (K == 64 || K == 128)) {
-    if (rtt::wgmma_page_size(ps)) {
-      if (K == 64)
-        return quant ? rtt::AttnCfg<64, true>::SMEM
-                     : rtt::AttnCfg<64, false>::SMEM;
-      return quant ? rtt::AttnCfg<128, true>::SMEM
-                   : rtt::AttnCfg<128, false>::SMEM;
+  if (dtype == rtt::DTYPE_BF16) {
+    switch (K) {
+      case 64:
+        return rtt::prefill_bf16_smem_bytes<64>(quant != 0, ps);
+      case 80:
+        return rtt::prefill_bf16_smem_bytes<80>(quant != 0, ps);
+      case 128:
+        return rtt::prefill_bf16_smem_bytes<128>(quant != 0, ps);
+      case 256:
+        return rtt::prefill_bf16_smem_bytes<256>(quant != 0, ps);
     }
-    return K == 64 ? rtt::prefill_mma_smem_bytes<64>(quant != 0)
-                   : rtt::prefill_mma_smem_bytes<128>(quant != 0);
   }
   return rtt::prefill_smem_floats(K, ps) * sizeof(float);
 }
@@ -874,14 +902,26 @@ extern "C" int rtt_paged_prefill_attention(
   const int* lens = static_cast<const int*>(lengths);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (K == 64)
-    e = rtt::launch_prefill<64>(dtype, q, k_pool, v_pool, tbl, offs, lens,
-                                out, B, C, H, ps, n_pg, sm_scale, maps, s);
-  else if (K == 128)
-    e = rtt::launch_prefill<128>(dtype, q, k_pool, v_pool, tbl, offs, lens,
-                                 out, B, C, H, ps, n_pg, sm_scale, maps, s);
-  else
-    e = cudaErrorInvalidValue;
+  switch (K) {
+    case 64:
+      e = rtt::launch_prefill<64>(dtype, q, k_pool, v_pool, tbl, offs, lens,
+                                  out, B, C, H, ps, n_pg, sm_scale, maps, s);
+      break;
+    case 80:
+      e = rtt::launch_prefill<80>(dtype, q, k_pool, v_pool, tbl, offs, lens,
+                                  out, B, C, H, ps, n_pg, sm_scale, maps, s);
+      break;
+    case 128:
+      e = rtt::launch_prefill<128>(dtype, q, k_pool, v_pool, tbl, offs, lens,
+                                   out, B, C, H, ps, n_pg, sm_scale, maps, s);
+      break;
+    case 256:
+      e = rtt::launch_prefill<256>(dtype, q, k_pool, v_pool, tbl, offs, lens,
+                                   out, B, C, H, ps, n_pg, sm_scale, maps, s);
+      break;
+    default:
+      e = cudaErrorInvalidValue;
+  }
   return (int)e;
 }
 
@@ -900,15 +940,29 @@ extern "C" int rtt_paged_prefill_attention_int8(
   const int* lens = static_cast<const int*>(lengths);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (K == 64)
-    e = rtt::launch_prefill_i8<64>(dtype, q, k_pool, v_pool, k_scale, v_scale,
-                                   tbl, offs, lens, out, B, C, H, ps, n_pg,
-                                   sm_scale, maps, s);
-  else if (K == 128)
-    e = rtt::launch_prefill_i8<128>(dtype, q, k_pool, v_pool, k_scale,
-                                    v_scale, tbl, offs, lens, out, B, C, H,
-                                    ps, n_pg, sm_scale, maps, s);
-  else
-    e = cudaErrorInvalidValue;
+  switch (K) {
+    case 64:
+      e = rtt::launch_prefill_i8<64>(dtype, q, k_pool, v_pool, k_scale,
+                                     v_scale, tbl, offs, lens, out, B, C, H,
+                                     ps, n_pg, sm_scale, maps, s);
+      break;
+    case 80:
+      e = rtt::launch_prefill_i8<80>(dtype, q, k_pool, v_pool, k_scale,
+                                     v_scale, tbl, offs, lens, out, B, C, H,
+                                     ps, n_pg, sm_scale, maps, s);
+      break;
+    case 128:
+      e = rtt::launch_prefill_i8<128>(dtype, q, k_pool, v_pool, k_scale,
+                                      v_scale, tbl, offs, lens, out, B, C, H,
+                                      ps, n_pg, sm_scale, maps, s);
+      break;
+    case 256:
+      e = rtt::launch_prefill_i8<256>(dtype, q, k_pool, v_pool, k_scale,
+                                      v_scale, tbl, offs, lens, out, B, C, H,
+                                      ps, n_pg, sm_scale, maps, s);
+      break;
+    default:
+      e = cudaErrorInvalidValue;
+  }
   return (int)e;
 }

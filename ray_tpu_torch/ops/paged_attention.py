@@ -51,7 +51,9 @@ from ray_tpu_torch._device import check_device
 
 NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)      # the kernels' instantiations
+_HEAD_DIMS = (64, 80, 128, 256)   # the kernels' instantiations
+# Where the head dims the port's kernels still refuse are listed.
+ROADMAP_HEAD_DIMS = "ROADMAP.md queue 2 A item 1"
 _MAX_SMEM_BYTES = 232448   # what one block may opt in to on Hopper
 
 
@@ -135,19 +137,29 @@ def _ptr(t):
 
 WGMMA_ROWS = 128           # query rows per block of the wgmma kernels
 SWIZZLE_BYTES = 128        # a bf16 tile row: 64 columns in one swizzle span
+BOX_COLS = SWIZZLE_BYTES // 2   # bf16 columns of one TMA column box
 TMAP_WORDS = 17            # numbers per tensor map (csrc/hopper.cuh)
 
 
 def key_tile(K: int) -> int:
-    """Keys per tile of the wgmma kernels: 128 at head dim 64, 64 at 128
-    (one bf16 K or V tile is 16 KB either way)."""
+    """Keys per tile of the wgmma kernels: 128 at head dim 64, 64 at 80,
+    128 and 256 (one bf16 K or V tile is 16 KB at 64, 80 and 128, 32 KB
+    at 256)."""
     return 128 if K == 64 else 64
+
+
+def padded_head_dim(K: int) -> int:
+    """Columns of a row as the kernels stage it in shared memory: whole
+    64-column boxes (csrc/hopper.cuh `pad64`), so 80 → 128. TMA
+    zero-fills the columns past K and reads no device memory for them."""
+    return -(-K // BOX_COLS) * BOX_COLS
 
 
 def column_boxes(K: int) -> int:
     """64-column TMA boxes per bf16 row: a 128-byte swizzle span holds 64
-    bf16 columns, so a head dim of 128 is read as two boxes."""
-    return K * 2 // SWIZZLE_BYTES
+    bf16 columns, so a head dim of 128 is read as two boxes, 256 as four
+    and 80 as two, the second zero-filled past column 80."""
+    return padded_head_dim(K) // BOX_COLS
 
 
 def tensor_map(t: torch.Tensor, box, swizzle: int) -> list[int]:
@@ -195,26 +207,37 @@ def prefill_kernel(dtype, K: int, ps: int) -> str:
         return "fma"
     if dtype != torch.bfloat16 or K not in _HEAD_DIMS:
         raise ValueError(f"no prefill kernel for {dtype} at head_dim {K}")
-    return "wgmma" if wgmma_page_size(ps) else "mma"
+    if wgmma_page_size(ps):
+        return "wgmma"
+    if K > MMA_MAX_HEAD_DIM:
+        raise ValueError(
+            f"no bf16 prefill kernel at head_dim {K} and page_size {ps}: "
+            f"the mma.sync kernel takes head dims up to {MMA_MAX_HEAD_DIM}; "
+            f"use a page size of 8, 16, 32 or a multiple of 64 "
+            f"({ROADMAP_HEAD_DIMS})")
+    return "mma"
+
+
+MMA_MAX_HEAD_DIM = 128     # csrc/paged_prefill.cu MMA_MAX_KD
 
 
 def prefill_plan(q, k_pool, v_pool):
     """The wgmma prefill kernel's tensor maps: q [B, C, H, K] in boxes of
     128 rows and 64 columns; each pool layer viewed as [(P+1)·ps, H, K],
     in boxes of gcd(ps, key tile) rows (one per page piece of a key
-    tile) — 64-column swizzled boxes for a bf16 pool, whole unswizzled
-    rows of codes for an int8 one. → a flat list of 3 x TMAP_WORDS."""
+    tile) — 64-column swizzled boxes for a bf16 pool (`column_boxes` of
+    them a row), whole unswizzled rows of codes for an int8 one. → a flat
+    list of 3 x TMAP_WORDS."""
     _B, _C, H, K = q.shape
     ps = k_pool.shape[1]
     rows = math.gcd(ps, key_tile(K))
-    cols = K // column_boxes(K)
-    maps = tensor_map(q, (1, WGMMA_ROWS, 1, cols), SWIZZLE_BYTES)
+    maps = tensor_map(q, (1, WGMMA_ROWS, 1, BOX_COLS), SWIZZLE_BYTES)
     for pool in (k_pool, v_pool):
         flat = pool.view(-1, H, K)
         if pool.dtype == torch.int8:
             maps += tensor_map(flat, (rows, 1, K), 0)
         else:
-            maps += tensor_map(flat, (rows, 1, cols), SWIZZLE_BYTES)
+            maps += tensor_map(flat, (rows, 1, BOX_COLS), SWIZZLE_BYTES)
     return maps
 
 
@@ -246,8 +269,9 @@ def decode_splits(B: int, H: int, n_pg: int, n_sm: int = H100_SMS) -> int:
 
 def decode_stage_rows(K: int, itemsize: int) -> int:
     """Positions per 16 KB stage of the decode kernel (R): K and V rows of
-    DECODE_HEAD_GROUP heads, so 16 at K 64 bf16, 32 for int8 codes."""
-    return 16384 // (2 * DECODE_HEAD_GROUP * K * itemsize)
+    DECODE_HEAD_GROUP heads, each `padded_head_dim` columns, so 16 at K 64
+    bf16, 32 for int8 codes, 8 at K 80 and 128 bf16, 4 at 256."""
+    return 16384 // (2 * DECODE_HEAD_GROUP * padded_head_dim(K) * itemsize)
 
 
 def _live_stages(length: int, ps: int, n_pg: int, rows: int) -> int:
@@ -351,7 +375,7 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *, sm_scale=None,
         q, k_pool, v_pool, (("tables", tables), ("lengths", lengths)), quant)
     if K not in _HEAD_DIMS:
         raise ValueError(f"decode kernel takes head_dim in "
-                         f"{_HEAD_DIMS}, got {K}")
+                         f"{_HEAD_DIMS}, got {K} ({ROADMAP_HEAD_DIMS})")
     out = torch.empty_like(q)
     if B == 0 or n_pg == 0:
         return out.zero_()
@@ -422,7 +446,8 @@ def paged_prefill_attention(q, k_pool, v_pool, tables, offsets, lengths, *,
         quant)
     if K not in _HEAD_DIMS:
         raise ValueError(f"prefill kernel takes head_dim in "
-                         f"{_HEAD_DIMS}, got {K}")
+                         f"{_HEAD_DIMS}, got {K} ({ROADMAP_HEAD_DIMS})")
+    kernel = prefill_kernel(q.dtype, K, ps)
     out = torch.empty_like(q)
     if B == 0 or C == 0 or n_pg == 0:
         return out.zero_()
@@ -434,7 +459,7 @@ def paged_prefill_attention(q, k_pool, v_pool, tables, offsets, lengths, *,
         raise ValueError(f"page_size {ps} too large for the prefill kernel "
                          f"at head_dim {K}")
     maps = None
-    if prefill_kernel(q.dtype, K, ps) == "wgmma":
+    if kernel == "wgmma":
         maps = _c_array(prefill_plan(q, k_pool, v_pool))
     common = (tables.data_ptr(), offsets.data_ptr(), lengths.data_ptr(),
               out.data_ptr(), B, C, H, K, ps, n_pg, float(sm_scale),
@@ -540,7 +565,7 @@ __all__ = [
     "paged_attention", "paged_prefill_attention",
     "reference_paged_attention", "reference_paged_prefill_attention",
     "reset_launch_counts", "NEG_INF", "prefill_kernel", "prefill_plan",
-    "tensor_map", "key_tile", "column_boxes", "wgmma_page_size",
-    "decode_splits", "decode_live_splits", "decode_split_positions",
-    "decode_stage_rows",
+    "tensor_map", "key_tile", "column_boxes", "padded_head_dim",
+    "wgmma_page_size", "decode_splits", "decode_live_splits",
+    "decode_split_positions", "decode_stage_rows",
 ]

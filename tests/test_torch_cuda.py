@@ -5,7 +5,8 @@ ragged lengths, idle all-null slots, width-sliced prefill tables, a
 partial query tile, float pools and int8 pools with per-page scales;
 flash: forward, dq and dkv, causal and not, S != T, an lse cotangent,
 the bf16 kernels also at ragged S/T on packed qkv views;
-fp32 and bf16, the tensor-core head dims 64 and 128), the launch
+fp32 and bf16, head dims 64, 80, 128 and 256, the backward at 64, 80
+and 128 and refusing 256), the launch
 counters, the wrappers' refusals (no fallback to the plain path), the
 tiny engine with ``attn_impl="kernel"`` against ``"gather"`` on the
 card (float, and int8 weights with an int8 pool), the prefill kernel at
@@ -104,7 +105,8 @@ def _close(out, ref, dtype, s_abs, rtol=0.0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("ps,K", [(16, 64), (64, 64), (64, 128)])
+@pytest.mark.parametrize("ps,K", [(16, 64), (64, 64), (64, 128), (16, 80),
+                                  (64, 80), (16, 256), (64, 256)])
 def test_decode_kernel_matches_plain(cuda, dtype, ps, K):
     rng = np.random.default_rng(0)
     B, H, n_pg = 5, 4, 3
@@ -127,7 +129,8 @@ def test_decode_kernel_matches_plain(cuda, dtype, ps, K):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("ps,K", [(16, 64), (64, 64), (64, 128)])
+@pytest.mark.parametrize("ps,K", [(16, 64), (64, 64), (64, 128), (16, 80),
+                                  (64, 80), (16, 256), (64, 256)])
 @pytest.mark.parametrize("C", [72, 128])
 def test_prefill_kernel_matches_plain(cuda, dtype, ps, K, C):
     """Chunk rows at ragged offsets against a width-sliced table; C=72
@@ -190,7 +193,8 @@ def _close_p_unrounded(out, ref32, s_abs):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("ps,K", [(16, 64), (64, 64), (16, 128), (64, 128)])
+@pytest.mark.parametrize("ps,K", [(16, 64), (64, 64), (16, 128), (64, 128),
+                                  (16, 80), (64, 80), (16, 256), (64, 256)])
 def test_decode_int8_kernel_matches_plain(cuda, dtype, ps, K):
     rng = np.random.default_rng(6)
     B, H, n_pg = 5, 4, 3
@@ -294,7 +298,8 @@ def test_decode_splits_match_plain(cuda, dtype, quant, B, H, n_pg):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("ps,K", [(16, 64), (64, 64), (16, 128), (64, 128)])
+@pytest.mark.parametrize("ps,K", [(16, 64), (64, 64), (16, 128), (64, 128),
+                                  (16, 80), (64, 80), (16, 256), (64, 256)])
 @pytest.mark.parametrize("C", [72, 128])
 def test_prefill_int8_kernel_matches_plain(cuda, dtype, ps, K, C):
     """As test_prefill_kernel_matches_plain on int8 pools: scattered pages,
@@ -331,7 +336,7 @@ def test_prefill_int8_kernel_matches_plain(cuda, dtype, ps, K, C):
 
 
 @pytest.mark.parametrize("quant", [False, True])
-@pytest.mark.parametrize("K", [64, 128])
+@pytest.mark.parametrize("K", [64, 128, 80, 256])
 @pytest.mark.parametrize("ps", [16, 32, 64, 128, 48])
 def test_prefill_bf16_page_sizes_and_chunks(cuda, ps, K, quant):
     """bf16 q at each page size: 16, 32, 64 and 128 take the wgmma kernel,
@@ -339,11 +344,21 @@ def test_prefill_bf16_page_sizes_and_chunks(cuda, ps, K, quant):
     counted by the same counter. Chunks of C = 40, 72 and 200 at ragged
     offsets against a width-sliced table, with an inert row; float and
     int8 pools (the int8 program also against the unrounded-p plain
-    version)."""
-    assert pa.prefill_kernel(torch.bfloat16, K, ps) == (
-        "mma" if ps == 48 else "wgmma")
+    version). At head dim 256 the mma.sync kernel's page size 48 is
+    refused, naming head dim 256 and the ROADMAP item, with no launch."""
     rng = np.random.default_rng(9)
     B, H = 5, 2
+    if K > pa.MMA_MAX_HEAD_DIM and ps == 48:
+        kp, vp = _pool(rng, 3, ps, H, K, torch.bfloat16, cuda)
+        q = torch.zeros(1, 8, H, K, device=cuda, dtype=torch.bfloat16)
+        idx = [torch.zeros(1, *s, dtype=torch.int32, device=cuda)
+               for s in ((2,), (), ())]
+        with pytest.raises(ValueError, match="head_dim 256.*ROADMAP"):
+            pa.paged_prefill_attention(q, kp, vp, *idx)
+        assert pa.paged_prefill_attention.launches == 0
+        return
+    assert pa.prefill_kernel(torch.bfloat16, K, ps) == (
+        "mma" if ps == 48 else "wgmma")
     n_pg = -(-640 // ps)
     width = n_pg - 1
     if quant:
@@ -384,7 +399,7 @@ def test_prefill_bf16_page_sizes_and_chunks(cuda, ps, K, quant):
             _close_p_unrounded(out[live], ref32[live], s_abs[live])
 
 
-@pytest.mark.parametrize("K", [64, 128])
+@pytest.mark.parametrize("K", [64, 128, 80, 256])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("S,T", [(200, 333), (1, 64), (333, 200)])
 @pytest.mark.parametrize("packed", [False, True])
@@ -412,7 +427,7 @@ def test_flash_fwd_bf16_edges_and_strided_views(cuda, K, causal, S, T, packed):
     _close(o, o_ref, torch.bfloat16, s_abs)
 
 
-@pytest.mark.parametrize("K", [64, 128])
+@pytest.mark.parametrize("K", [64, 128, 80])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("S,T", [(200, 333), (1, 64), (333, 200)])
 @pytest.mark.parametrize("packed", [False, True])
@@ -901,7 +916,7 @@ def _flash_abs_sums(q, k, v, do, lse, delta, causal, scale):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("K", [64, 128])
+@pytest.mark.parametrize("K", [64, 128, 80])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("S,T", [(77, 130), (192, 192)])
 def test_flash_kernels_match_plain(cuda, dtype, K, causal, S, T):
@@ -936,8 +951,8 @@ def test_flash_kernels_match_plain(cuda, dtype, K, causal, S, T):
 
 def test_flash_attention_autograd_and_refusals(cuda):
     """The autograd op runs the three kernels once each and gives the
-    plain attention's gradients; head dims other than 64 and 128 and
-    mixed dtypes are refused, never computed by the plain path."""
+    plain attention's gradients; head dims other than 64, 80, 128 and
+    256 and mixed dtypes are refused, never computed by the plain path."""
     rng = np.random.default_rng(4)
     ts = [torch.from_numpy(rng.normal(size=(2, 96, 4, 64)).astype(
         np.float32)).to(cuda).requires_grad_(True) for _ in range(3)]
@@ -952,13 +967,42 @@ def test_flash_attention_autograd_and_refusals(cuda):
     (o.square().sum() + lse.sum()).backward()
     for a, x in zip(grads, ts):
         torch.testing.assert_close(a, x.grad, rtol=1e-4, atol=1e-4)
-    q80 = torch.zeros(1, 8, 2, 80, device=cuda)
+    q96 = torch.zeros(1, 8, 2, 96, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_fwd(q80, q80, q80)
+        fa.flash_fwd(q96, q96, q96)
     q64 = torch.zeros(1, 8, 2, 64, device=cuda)
     with pytest.raises(ValueError, match="dtype"):
         fa.flash_fwd(q64, q64.bfloat16(), q64)
     assert fa.flash_fwd.launches == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_at_head_dim_256_and_its_backward_refused(cuda, dtype,
+                                                            causal):
+    """Head dim 256 (gptj_6b): the forward kernel against its plain
+    version; dq and dkv refuse it with a ValueError naming head dim 256
+    and the ROADMAP item, launching nothing and never computing it by the
+    plain path."""
+    rng = np.random.default_rng(14)
+    t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(cuda, dtype)
+    B, S, H, K = 2, 200, 2, 256
+    q, k, v, do = (t(B, S, H, K) for _ in range(4))
+    scale = K ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.reference_flash_fwd(q, k, v, causal, scale)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-4)
+    s_abs = _flash_abs_sums(q, k, v, do, lse_ref, lse_ref, causal, scale)[0]
+    _close(o, o_ref, dtype, s_abs)
+    delta = fa.flash_delta(o_ref, do)
+    with pytest.raises(ValueError, match="head dim 256.*ROADMAP"):
+        fa.flash_dq(q, k, v, do, lse_ref, delta, causal, scale)
+    with pytest.raises(ValueError, match="head dim 256.*ROADMAP"):
+        fa.flash_dkv(q, k, v, do, lse_ref, delta, causal, scale)
+    assert (fa.flash_fwd.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches) == (1, 0, 0)
 
 
 def test_gpt_train_step_flash_matches_xla_on_the_card(cuda):

@@ -9,6 +9,9 @@ versions; every test asserts that the three kernel launch counters stay
 own tolerances. bf16 by the rule the card checks use: both sides round
 every probability and the output to bf16 (unit roundoff u = 2^-8), so
 |o - o_jax| <= 8e-3 (|o_jax| + S) with S the attention of |V| in fp32.
+Head dims 80 and 256 (gpt2_2_7b's and gptj_6b's, which the CUDA kernels
+take beside 64 and 128; the backward kernels at 80) are held the same
+way.
 """
 
 import numpy as np
@@ -198,3 +201,36 @@ def test_dispatch_is_by_device():
         tattn.flash_fwd(*meta)
     with pytest.raises(ValueError, match="flash attention takes"):
         tattn.flash_attention(q, k[:, :, :1], v)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("K", [80, 256])
+def test_head_dims_80_and_256_match_jax(K, causal):
+    """Forward (o and lse) and the three gradients at head dims 80 and
+    256, fp32, S and T off the block sizes: the plain versions against
+    the JAX kernels in interpret mode at the fp32 tolerances above."""
+    arrs = _arrays(B=1, S=130, T=130, H=2, K=K, seed=10 + K)
+    o_j, lse_j = jattn.flash_attention(*_jax(arrs), causal=causal,
+                                       return_lse=True)
+    o_t, lse_t = tattn.flash_attention(*_torch(arrs), causal=causal,
+                                       return_lse=True)
+    assert o_t.shape == (1, 130, 2, K)
+    np.testing.assert_allclose(_np(o_t), _np(o_j), atol=2e-5)
+    np.testing.assert_allclose(_np(lse_t), _np(lse_j), atol=2e-5)
+    for a, b in zip(_grads(tattn, causal, arrs, True),
+                    _grads(jattn, causal, arrs, True)):
+        np.testing.assert_allclose(_np(a), _np(b), atol=5e-5)
+
+
+@pytest.mark.parametrize("K", [80, 256])
+def test_head_dims_80_and_256_bf16_forward(K):
+    """bf16 at head dims 80 and 256 under the bf16 rule above."""
+    arrs = _arrays(B=1, S=160, H=2, K=K, seed=20 + K)
+    o_j = jattn.flash_attention(*_jax(arrs, jnp.bfloat16), causal=True)
+    o_t = tattn.flash_attention(*_torch(arrs, torch.bfloat16), causal=True)
+    assert o_t.dtype == torch.bfloat16
+    q, k, v = _torch(arrs)
+    s_abs, _ = tattn.reference_flash_fwd(q, k, v.abs(), True)
+    ref = _np(o_j)
+    share = np.abs(_np(o_t) - ref) / (BF16_REL * (np.abs(ref) + _np(s_abs)))
+    assert float(share.max()) <= 1.0, float(share.max())

@@ -38,7 +38,7 @@ def test_contiguous_map_is_innermost_first():
     assert box == [64, 1, 128, 1]
 
 
-@pytest.mark.parametrize("K", [64, 128])
+@pytest.mark.parametrize("K", [64, 80, 128, 256])
 def test_packed_qkv_views_keep_their_strides(K):
     """q, k, v as views of one [B, S, 3, H, K] projection: each map
     starts at its own view and walks the packed tensor's strides."""
@@ -94,7 +94,7 @@ def test_strided_inner_dim_and_wide_box_raise():
     (8, "wgmma"), (16, "wgmma"), (32, "wgmma"), (64, "wgmma"),
     (128, "wgmma"), (256, "wgmma"), (48, "mma"), (24, "mma"), (96, "mma"),
     (4, "mma")])
-@pytest.mark.parametrize("K", [64, 128])
+@pytest.mark.parametrize("K", [64, 80, 128])
 def test_prefill_kernel_by_page_size(ps, kernel, K):
     assert pa.wgmma_page_size(ps) == (kernel == "wgmma")
     assert pa.prefill_kernel(torch.bfloat16, K, ps) == kernel
@@ -103,9 +103,15 @@ def test_prefill_kernel_by_page_size(ps, kernel, K):
 
 def test_prefill_kernel_refuses_other_shapes():
     with pytest.raises(ValueError, match="head_dim"):
-        pa.prefill_kernel(torch.bfloat16, 80, 64)
+        pa.prefill_kernel(torch.bfloat16, 96, 64)
     with pytest.raises(ValueError, match="no prefill kernel"):
         pa.prefill_kernel(torch.float16, 64, 64)
+    # Head dim 256 takes the wgmma kernel's page sizes only: the mma.sync
+    # kernel stops at 128, and the refusal names the ROADMAP item.
+    assert pa.prefill_kernel(torch.bfloat16, 256, 64) == "wgmma"
+    assert pa.prefill_kernel(torch.float32, 256, 48) == "fma"
+    with pytest.raises(ValueError, match="head_dim 256.*ROADMAP"):
+        pa.prefill_kernel(torch.bfloat16, 256, 48)
 
 
 @pytest.mark.parametrize("K,tile,boxes", [(64, 128, 1), (128, 64, 2)])
@@ -117,8 +123,32 @@ def test_head_dim_128_is_two_column_boxes(K, tile, boxes):
     assert dims[0] == K and box[0] * boxes == K and box[0] * 2 == swz
 
 
+@pytest.mark.parametrize("K,tile,boxes,padded", [
+    (64, 128, 1, 64), (80, 64, 2, 128), (128, 64, 2, 128), (256, 64, 4, 256)])
+def test_column_boxes_cover_every_column(K, tile, boxes, padded):
+    """Every map a wgmma kernel reads is boxes of 64 columns, one 128-byte
+    swizzle span each, and a row's boxes cover all its K columns: head dim
+    80 is two boxes, the second reading columns 64-127 of which TMA
+    zero-fills 80-127 (no device memory read for them), 256 four. The
+    kernels stage `padded_head_dim` columns a row."""
+    assert pa.key_tile(K) == tile
+    assert pa.column_boxes(K) == boxes
+    assert pa.padded_head_dim(K) == padded == boxes * pa.BOX_COLS
+    assert (boxes - 1) * pa.BOX_COLS < K <= boxes * pa.BOX_COLS
+    q = torch.zeros(2, 200, 3, K, dtype=torch.bfloat16)
+    pool = torch.zeros(5, 64, 3, K, dtype=torch.bfloat16)
+    plans = [fa.flash_plan(q, q, q), fa.flash_dq_plan(q, q, q, q),
+             fa.flash_dkv_plan(q, q, q, q), pa.prefill_plan(q, pool, pool)]
+    for words in plans:
+        for i in range(len(words) // WORDS):
+            elem, _rank, dims, _st, box, swz = _fields(
+                words[i * WORDS:(i + 1) * WORDS])
+            assert dims[0] == K and box[0] == pa.BOX_COLS
+            assert box[0] * elem == swz == pa.SWIZZLE_BYTES
+
+
 @pytest.mark.parametrize("ps", [16, 64, 128])
-@pytest.mark.parametrize("K", [64, 128])
+@pytest.mark.parametrize("K", [64, 80, 128, 256])
 def test_prefill_plan_float_pool(ps, K):
     """The pool layer as [(P+1)·ps, H, K] in boxes of gcd(ps, key tile)
     rows and 64 swizzled columns; q in 128-row boxes."""
@@ -139,7 +169,7 @@ def test_prefill_plan_float_pool(ps, K):
 
 
 @pytest.mark.parametrize("ps", [16, 64])
-@pytest.mark.parametrize("K", [64, 128])
+@pytest.mark.parametrize("K", [64, 80, 128, 256])
 def test_prefill_plan_int8_pool(ps, K):
     """An int8 pool is read as whole unswizzled rows of codes (the
     producer's widening warps swizzle them into bf16 tiles)."""
@@ -167,7 +197,7 @@ def _bwd_views(packed, B, S, T, H, K):
 
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("S,T", [(200, 333), (1, 64), (333, 200)])
-@pytest.mark.parametrize("K", [64, 128])
+@pytest.mark.parametrize("K", [64, 80, 128])
 def test_dq_plan(K, S, T, packed):
     """dq is query-major: q and dO in boxes of 128 rows (an item), k and v
     in boxes of a key tile, each map over its own view and strides."""
@@ -191,11 +221,12 @@ def test_dq_plan(K, S, T, packed):
 
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("S,T", [(200, 333), (1, 64), (333, 200)])
-@pytest.mark.parametrize("K", [64, 128])
+@pytest.mark.parametrize("K", [64, 80, 128])
 def test_dkv_plan(K, S, T, packed):
     """dkv is key-major: an item is DKV_KEYS keys (k, v boxes), the walked
     tiles DKV_ROWS query rows (q, dO boxes); a head dim of 128 is two
-    64-column boxes."""
+    64-column boxes, and so is 80 (the second box's columns past 80 read
+    as zeros)."""
     B, H = 2, 3
     views = _bwd_views(packed, B, S, T, H, K)
     maps = fa.flash_dkv_plan(*views)
@@ -207,7 +238,8 @@ def test_dkv_plan(K, S, T, packed):
             maps[i * WORDS:(i + 1) * WORDS])
         assert dims == [K, H, t.shape[1], B]
         assert strides == [t.stride(2) * 2, t.stride(1) * 2, t.stride(0) * 2]
-        assert box == [64, 1, r, 1] and 64 * pa.column_boxes(K) == K
+        assert box == [64, 1, r, 1]
+        assert 64 * pa.column_boxes(K) == pa.padded_head_dim(K) >= K
         assert swz == 128 and elem == 2
 
 
@@ -287,7 +319,10 @@ def test_decode_splits(B, H, n_pg, n_sm, n_split):
 
 @pytest.mark.parametrize("K,itemsize,rows", [(64, 2, 16), (128, 2, 8),
                                               (64, 4, 8), (128, 4, 4),
-                                              (64, 1, 32), (128, 1, 16)])
+                                              (64, 1, 32), (128, 1, 16),
+                                              (80, 2, 8), (80, 4, 4),
+                                              (80, 1, 16), (256, 2, 4),
+                                              (256, 4, 2), (256, 1, 8)])
 def test_decode_stage_rows(K, itemsize, rows):
     assert pa.decode_stage_rows(K, itemsize) == rows
 

@@ -6,7 +6,9 @@ kernels run in interpret mode (as tests/test_paged_attention.py runs
 them on the CPU) and against the JAX gather references, on the same
 numpy pools and tables: the ragged cases (length 1, mid-page, page
 boundary, full table, idle all-null slot), page sizes {8, 16}, fp32 and
-bf16, and width-sliced prefill tables. On the CPU the wrappers take the
+bf16, and width-sliced prefill tables; and at gpt2_2_7b's and gptj_6b's
+head dims, 80 and 256, with float and int8 pools (the head dims the CUDA
+kernels take beside 64 and 128). On the CPU the wrappers take the
 plain path — asserted, with the kernel launch counters left at 0. The
 int8 pools' parity tests are in tests/test_torch_quant.py. The
 CUDA kernels themselves are held against these plain versions on the
@@ -183,6 +185,91 @@ def test_int8_pools_take_the_plain_path_on_cpu():
     torch.testing.assert_close(chunk[:, 0], 2 * out)
     assert tpa.paged_attention.int8_launches == 0
     assert tpa.paged_prefill_attention.int8_launches == 0
+
+
+def _int8_planes(rng, n_pages, ps, H, K):
+    """int8 K/V planes (numpy) and their per-page scales (numpy fp32,
+    exact in bf16), pages at log-uniform amplitudes in [0.25, 1]."""
+    planes = [rng.integers(-127, 128, size=(n_pages, ps, H, K)).astype(np.int8)
+              for _ in range(2)]
+    scales = [np.asarray(jnp.asarray(
+        np.exp(rng.uniform(np.log(0.25), 0.0, n_pages)) / 127, jnp.bfloat16),
+        np.float32) for _ in range(2)]
+    return planes, scales
+
+
+def _pools(rng, quant, dt, *, B, H, K, ps, n_pg):
+    """(jax, torch) K and V pools of `_ragged`'s layout and the scale
+    keywords of each side: float pools in dt, or int8 planes with bf16
+    per-page scales."""
+    k_pool, v_pool, tables, lengths = _ragged(rng, B=B, H=H, K=K, ps=ps,
+                                              n_pg=n_pg)
+    if not quant:
+        return (_pair(k_pool, dt), _pair(v_pool, dt), {}, {}, tables,
+                lengths)
+    (kp, vp), (ks, vs) = _int8_planes(rng, k_pool.shape[0], ps, H, K)
+    both = lambda a: (jnp.asarray(a), torch.from_numpy(a))
+    jsc = {"k_scale": jnp.asarray(ks, jnp.bfloat16),
+           "v_scale": jnp.asarray(vs, jnp.bfloat16)}
+    tsc = {"k_scale": torch.from_numpy(ks).to(torch.bfloat16),
+           "v_scale": torch.from_numpy(vs).to(torch.bfloat16)}
+    return both(kp), both(vp), jsc, tsc, tables, lengths
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("K", [80, 256])
+def test_decode_head_dims_80_and_256_match_jax(K, dt, quant):
+    """gpt2_2_7b's head dim 80 and gptj_6b's 256: the decode plain
+    version against the Pallas kernel (interpret mode) and the gather
+    reference, float and int8 pools, at the file's tolerances (fp32 1e-5;
+    bf16 3e-2: output rounding, and with an int8 pool the Pallas program
+    leaves p unrounded where the plain version rounds it)."""
+    rng = np.random.default_rng(10 + K)
+    B, H, n_pg, ps = 5, 2, 3, 8
+    (jk, tk), (jv, tv), jsc, tsc, tables, lengths = _pools(
+        rng, quant, dt, B=B, H=H, K=K, ps=ps, n_pg=n_pg)
+    jq, tq = _pair(rng.normal(size=(B, H, K)).astype(np.float32), dt)
+    jt, tt = jnp.asarray(tables), torch.from_numpy(tables)
+    jl, tl = jnp.asarray(lengths), torch.from_numpy(lengths)
+    out = tpa.paged_attention(tq, tk, tv, tt, tl, **tsc)
+    assert out.dtype == tq.dtype and out.shape == (B, H, K)
+    torch.testing.assert_close(
+        out, tpa.reference_paged_attention(tq, tk, tv, tt, tl, **tsc),
+        rtol=0, atol=0)
+    _close(out, jax_paged_attention(jq, jk, jv, jt, jl, interpret=True,
+                                    **jsc), dt)
+    _close(out, jax_reference_paged_attention(jq, jk, jv, jt, jl, **jsc), dt)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("K", [80, 256])
+def test_prefill_head_dims_80_and_256_match_jax(K, dt, quant):
+    """The prefill plain version at head dims 80 and 256 against the
+    Pallas kernel (interpret mode; the inert row left out, as above) and
+    the gather reference, chunk rows at ragged offsets on a width-sliced
+    table, float and int8 pools."""
+    rng = np.random.default_rng(20 + K)
+    B, C, H, ps, n_pg, width = 6, 8, 2, 8, 4, 3
+    (jk, tk), (jv, tv), jsc, tsc, tables, _ = _pools(
+        rng, quant, dt, B=B, H=H, K=K, ps=ps, n_pg=n_pg)
+    q, _kp, _vp, tables, offsets, lengths = _prefill_case(
+        rng, B=B, C=C, H=H, K=K, ps=ps, n_pg=n_pg, width=width)
+    jq, tq = _pair(q, dt)
+    args_j = (jnp.asarray(tables), jnp.asarray(offsets), jnp.asarray(lengths))
+    args_t = (torch.from_numpy(tables), torch.from_numpy(offsets),
+              torch.from_numpy(lengths))
+    out = tpa.paged_prefill_attention(tq, tk, tv, *args_t, **tsc)
+    assert out.dtype == tq.dtype and out.shape == (B, C, H, K)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out, tpa.reference_paged_prefill_attention(
+        tq, tk, tv, *args_t, **tsc), rtol=0, atol=0)
+    live = lengths > 0
+    _close(out[live], np.asarray(jax_paged_prefill_attention(
+        jq, jk, jv, *args_j, interpret=True, **jsc), np.float32)[live], dt)
+    _close(out, jax_reference_paged_prefill_attention(jq, jk, jv, *args_j,
+                                                      **jsc), dt)
 
 
 def test_shape_mismatch_raises():

@@ -37,8 +37,13 @@
                           # through iter_cuda_batches, a BatchPredictor
                           # on a pool of card actors
     python3 chip_smoke.py --only kernels,engine_gptj,train_gpt2_2_7b
-                          # head dims 256 and 80: gptj_6b served and
-                          # gpt2_2_7b trained at full width and depth
+                          # head dims 256 and 80: gptj_6b served at full
+                          # width and depth, gpt2_2_7b trained at full
+                          # width (8 of its 32 layers)
+    python3 chip_smoke.py --only kernels,engine_gptj,train_gptj_6b
+                          # head dim 256's backward and mma.sync prefill:
+                          # gptj_6b trained at full width and depth, and
+                          # served at page size 48
 
 Phases, one JSON line each, each with ``at_s``, the seconds since the
 script began (the whole record also goes to build/chip_smoke.json):
@@ -49,8 +54,8 @@ script began (the whole record also goes to build/chip_smoke.json):
    seconds, and per kernel whether its SASS (cuobjdump) holds HGMMA,
    UTMALDG, HMMA and UBLKCP: every instance of the bf16 flash forward, dq
    and dkv kernels and the paged prefill kernel (18 in all) must hold
-   wgmma and TMA loads and no mma.sync, and every instance of the paged
-   decode kernel (16) TMA loads.
+   wgmma and TMA loads and no mma.sync (20 in all), and every instance
+   of the paged decode kernel (16) TMA loads.
 3. kernels: each kernel against its plain PyTorch version on the card at
    OPT-1.3B attention shapes (H=32, K=64), page sizes {16, 64}, fp32 and
    bf16, at head dim 128, and at gpt2_2_7b's 32 heads of 80 and gptj_6b's
@@ -75,12 +80,15 @@ script began (the whole record also goes to build/chip_smoke.json):
    page sizes 16, 32, 64, 128
    (the wgmma kernel) and 48 (the mma.sync kernel, by the shape rule),
    chunks of C = 40, 72 and 200 at ragged offsets, float and int8 pools;
-   at head dim 80 page sizes 64 and 48, at 256 page 64, where page 48 must
-   be refused with a ValueError naming head dim 256 and the ROADMAP item.
+   at head dims 80 and 256 page sizes 64 and 48 (at 256 the mma.sync
+   kernel with Q in shared memory and 32-key tiles).
    Both paged kernels, float and int8, are then timed at B=16, 1024-token
    contexts, ps 64 at the two new head dims (the kernels line's
    ``at_shapes``), each with a page dropped from its plain version planted
-   (and the int8 programs' faults), which must fail the bound.
+   (and the int8 programs' faults), which must fail the bound; and the
+   mma.sync prefill at 16 heads of 256, ps 48 (engine_gptj's ps-48
+   engine: 16 slots, C 240 at offset 768 of 1,008 positions), float and
+   int8, the same faults planted.
    Then the int8 programs of both paged kernels the same way, on int8
    pools quantized by the port's _quant_write from rows whose pages have
    log-uniform amplitudes in [0.25, 4] (page sizes 16 and 64, head dims
@@ -92,10 +100,9 @@ script began (the whole record also goes to build/chip_smoke.json):
    must fail on the timed inputs; timed beside their bounds, plain
    versions and SDPA on the dequantized timeline.
    Then the three flash kernels (flash_fwd, flash_dq, flash_dkv), each
-   against its plain version: fp32 and bf16, head dims 64, 80 and 128
-   (and the forward alone at 256, where dq and dkv must raise a
-   ValueError naming head dim 256 and the ROADMAP item),
-   causal and non-causal, S=77/T=130, S=64/T=256, S=200/T=333, S=T=192,
+   against its plain version: fp32 and bf16, head dims 64, 80, 128 and
+   256 (dq and dkv must raise a ValueError naming head dim 96 and the
+   ROADMAP item), causal and non-causal, S=77/T=130, S=64/T=256, S=200/T=333, S=T=192,
    S=1/T=64 and S=130/T=1, in bf16 also on q, k, v as strided views of
    packed qkv tensors, the backward with an lse cotangent; then once more
    on the training step's own inputs ([8, 1024, 12, 64] bf16 causal),
@@ -107,8 +114,8 @@ script began (the whole record also goes to build/chip_smoke.json):
    SDPA's graph, each alone and held once to the plain versions, on the
    flash_dq row beside delta + dq + dkv (one call does all three);
    `flash_delta` alone; SDPA forward plus backward against the three
-   kernels; the forward alone at gptj_6b's [2, 1024, 16, 256] causal,
-   with keys 512-575 dropped from its plain version planted.
+   kernels; the three at gptj_6b's [2, 1024, 16, 256] causal, with the
+   same tile dropped from the plain dq, dk and dv planted.
    Then the speculative path's shapes: the prefill kernel as the verify
    pass (16 rows of C = 5 and C = 2 at ragged decode cursors, with inert
    rows, on the decode table's width; bf16 q, float and int8 pools) and
@@ -262,7 +269,12 @@ script began (the whole record also goes to build/chip_smoke.json):
    no int8 program, pages closed; every stream equal to the gather
    engine's or leaving it where the gather engine's logits of the two
    tokens are within 0.1 (a bf16 near-tie), which a planted wrong token
-   must exceed; TTFT, decode step, tok/s, weight and pool bytes.
+   must exceed; TTFT, decode step, tok/s, weight and pool bytes. Then
+   the same weights cut to their first 8 layers (CUT_DEPTH, full width)
+   at page size 48, chunk 240, budget 480 (GPTJ_MMA_KNOBS: every prefill
+   dispatch on the mma.sync kernel, 8 launches each, every decode step
+   on the decode kernel at ps 48) on the first 8 prompts, held to the
+   same gates against a gather engine of the same cut and knobs.
    runtime: the port's runtime (ray_tpu_torch.init(num_cpus=4,
    resources={"GPU": 1}) starts a GCS, a raylet and worker processes;
    the init wall and whether the store's native arena loaded, which it
@@ -356,18 +368,29 @@ script began (the whole record also goes to build/chip_smoke.json):
    and falling; peak memory beside the audit, step time, tokens/s, MFU,
    one profiled step and the optimizer's device time against it.
    train_gpt2_2_7b: the flash kernels checked and timed at [8, 1024, 32,
-   80] bf16 causal; the port's memory audit of gpt2_2_7b (bf16 masters
-   and gradients, adafactor, B 8) on "h100", gated on fits; then
+   80] bf16 causal; the port's memory audit of the cut model (bf16
+   masters and gradients, adafactor, B 8) on "h100", gated on fits; then
    build_training(gpt2_2_7b(max_seq=1024, attn_impl="flash",
-   param_dtype=bf16), adafactor(3e-4), stochastic_round=True) from seed 0
-   (bench.py's BENCH_MODEL=gpt2_2_7b BENCH_OPT=adafactor_sr step; full
-   width and depth: 32 layers, d 2560, 32 heads of 80, d_ff 10240, vocab
-   50304 untied, remat) on a seeded [8, 1024] batch: one step of "flash"
-   against "xla" under the train phase's three limits, which its three
-   planted backward faults must fail; 4 steps (one warm-up) with exactly
-   64 forward, 32 dq and 32 dkv launches per step and no plain call,
+   param_dtype=bf16) cut to its first 8 of 32 layers (CUT_DEPTH; full
+   width: d 2560, 32 heads of 80, d_ff 10240, vocab 50304 untied, remat),
+   adafactor(3e-4), stochastic_round=True) from seed 0 (bench.py's
+   BENCH_MODEL=gpt2_2_7b BENCH_OPT=adafactor_sr step) on a seeded [8,
+   1024] batch: one step of "flash" against "xla" under the train
+   phase's three limits, which its three planted backward faults must
+   fail; 4 steps (one warm-up) with exactly 16 forward, 8 dq and 8 dkv
+   launches per step and no plain call,
    every parameter still bf16, the loss falling; step p50, tokens/s,
-   MFU, peak memory beside the audit, one profiled step (idle share).
+   MFU, peak memory of the steps beside the audit (and of the check
+   before them), one profiled step (idle share).
+   train_gptj_6b: the same (`train_sr`) for bench.py's
+   BENCH_MODEL=gptj_6b BENCH_OPT=adafactor_sr step: the flash kernels
+   checked and timed at [8, 1024, 16, 256] bf16 causal, then gptj_6b at
+   full width and depth (28 layers, d 4096, 16 heads of 256, rotary 64,
+   d_ff 16384, vocab 50304 untied, remat), S 1024, B 8, bf16 SR masters,
+   adafactor(3e-4), from seed 0: the audit, flash against xla with the
+   three planted faults, 4 steps with exactly 56 forward, 28 dq and 28
+   dkv launches per step and no plain call, every parameter bf16, the
+   loss falling; the same readings.
    train_moe: the flash kernels checked and timed at [8, 1024, 16, 64]
    bf16 causal; then build_training(moe_8x350m(max_seq=1024,
    attn_impl="flash"), the train phase's adamw, model=moe_gpt) from seed
@@ -670,9 +693,9 @@ WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "paged_prefill_wgmma_kernel",
 TMA_KERNELS = ("paged_decode_kernel",)
 # {fp32, bf16} pools and int8 with {fp32, bf16} q, K 64/80/128/256
 TMA_INSTANCES = 16
-# flash forward at K 64/80/128/256, prefill at those x {float, int8}, dq
-# and dkv at K 64/80/128
-WGMMA_INSTANCES = 18
+# flash forward, dq and dkv at K 64/80/128/256, prefill at those x {float,
+# int8}
+WGMMA_INSTANCES = 20
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
 _MANGLED_ARGS = {"f": "float", "a": "int8", "13__nv_bfloat16": "bf16",
                  "Lb0E": "false", "Lb1E": "true"}
@@ -1051,9 +1074,9 @@ def phase_kernels(device, errs, at_shapes):
     # bf16 q at every page size the wgmma prefill kernel takes in boxes of
     # its own (16, 32: several pages per key tile; 64; 128: a page of two
     # key tiles at head dims 80-256) and at 48, which the mma.sync kernel
-    # takes by the shape rule (up to head dim 128: at 256 the wrapper
-    # refuses it, naming the ROADMAP item); chunks of C = 40, 72 and 200 at
-    # ragged offsets on a width-sliced table, with an inert row.
+    # takes by the shape rule (at 256 with Q in shared memory and 32-key
+    # tiles); chunks of C = 40, 72 and 200 at ragged offsets on a
+    # width-sliced table, with an inert row.
     for heads, sizes in (((H, K), (16, 32, 64, 128, 48)),
                          ((16, 128), (16, 32, 64, 128, 48)),
                          (HEADS_2_7B, (64, 48)), (HEADS_GPTJ, (64, 48))):
@@ -1063,14 +1086,6 @@ def phase_kernels(device, errs, at_shapes):
                 width = n_pg - 1
                 cap = width * ps
                 sfx = "_int8" if quant else ""
-                if heads[1] > pa.MMA_MAX_HEAD_DIM and not pa.wgmma_page_size(
-                        ps):
-                    cases.append({"kernel": "paged_prefill_attention" + sfx,
-                                  "case": f"ps={ps} heads={heads[0]}x"
-                                          f"{heads[1]} bfloat16",
-                                  "refused": refused_prefill(
-                                      device, heads, ps, quant)})
-                    continue
                 kern = pa.prefill_kernel(torch.bfloat16, heads[1], ps)
                 for C in (40, 72, 200):
                     rows = [(0, C), (ps + 3, C - 5), (cap - C, C), (11, 1),
@@ -1166,34 +1181,12 @@ def phase_kernels(device, errs, at_shapes):
                            planted=True),
             **time_int8_kernels(device, errs, heads=(n_heads, Kd))}
         torch.cuda.empty_cache()
+    at_shapes["gptj_6b heads 16x256 ps 48 (mma.sync)"] = time_mma_prefill(
+        device, errs)
     # Rows 1t/2t of PERF.md: both float kernels at a tp=2 shard's heads.
     timings.update({f"{name} tp_shard": t for name, t in time_kernels(
         device, errs, heads=H // 2, light=False).items()})
     return {**timings, **time_spec_kernels(device, errs, timings)}
-
-
-def refused_prefill(device, heads, ps, quant):
-    """The bf16 prefill wrapper at a (head dim, page size) no kernel
-    takes: it must raise ValueError naming the head dim and the ROADMAP
-    item, launching nothing. → the message."""
-    kp, vp, tables, lengths, sc = paged_pool(
-        np.random.default_rng(0), [ps], ps=ps, n_pg=2, dtype=torch.bfloat16,
-        device=device, heads=heads, quant=quant)
-    q = torch.zeros(1, 8, *heads, device=device, dtype=torch.bfloat16)
-    args = [torch.from_numpy(a).to(device)
-            for a in (tables, np.zeros(1, np.int32), lengths)]
-    before = launch_counts()
-    try:
-        pa.paged_prefill_attention(q, kp, vp, *args, **sc)
-    except ValueError as e:
-        msg = str(e)
-    else:
-        raise AssertionError(f"prefill at heads {heads}, ps {ps} ran")
-    if (f"head_dim {heads[1]}" not in msg or "ROADMAP" not in msg
-            or launch_counts() != before):
-        raise AssertionError(f"prefill refusal at heads {heads}, ps {ps}: "
-                             f"{msg!r}")
-    return msg
 
 
 def sdpa_prefill(qp, kt, vt, off):
@@ -1544,6 +1537,94 @@ def time_int8_kernels(device, errs, heads=(H, K)):
     return timings
 
 
+def time_mma_prefill(device, errs):
+    """The mma.sync prefill kernel at gptj_6b's 16 heads of 256 and page
+    size 48 (`GPTJ_MMA_KNOBS`: chunks of 240), 16 slots of a 1,008-position
+    context (21 pages) at offset 768, bf16 q, on a float and an int8 pool
+    (`amplitude_rows`): each held once more to its plain version (the int8
+    program also to the unrounded one), a page dropped from the plain
+    version (and, int8, the scales by table position and p rounded)
+    planted, which must fail the bound; then timed beside its bound, its
+    plain version and SDPA on the gathered timeline. → timings by kernel"""
+    rng = np.random.default_rng(21)
+    (Hh, Kd), dt = HEADS_GPTJ, torch.bfloat16
+    ps, C = GPTJ_MMA_KNOBS["page_size"], GPTJ_MMA_KNOBS["prefill_chunk"]
+    B, n_pg = 16, 21
+    T = n_pg * ps
+    off = T - C
+    if pa.prefill_kernel(dt, Kd, ps) != "mma":
+        raise AssertionError(f"ps {ps} at head dim {Kd} is not mma.sync")
+    n_pages = B * n_pg + 1
+    perm = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
+    tables = torch.from_numpy(perm.reshape(B, n_pg)).to(device)
+    lengths = torch.full((B,), T, dtype=torch.int32, device=device)
+    offs = torch.full((B,), off, dtype=torch.int32, device=device)
+    args = (tables, offs, lengths)
+    every = torch.ones(B, C, dtype=torch.bool, device=device)
+    attended = torch.minimum(
+        lengths[:, None], offs[:, None] + torch.arange(C, device=device) + 1)
+    flops = 4 * B * Hh * Kd * sum(off + c + 1 for c in range(C))
+    ref_fn = pa.reference_paged_prefill_attention
+    timings, planted = {}, {}
+    for quant in (False, True):
+        name = "paged_prefill_attention" + ("_int8" if quant else "")
+        if quant:
+            kp, ks = int8_plane(amplitude_rows(rng, n_pages, ps, HEADS_GPTJ,
+                                               device), device)
+            vp, vs = int8_plane(amplitude_rows(rng, n_pages, ps, HEADS_GPTJ,
+                                               device), device)
+            sc = {"k_scale": ks, "v_scale": vs}
+        else:
+            kp, vp = (device_normal(rng, (n_pages, ps, Hh, Kd), device).to(dt)
+                      for _ in range(2))
+            sc = {}
+        qp = device_normal(rng, (B, C, Hh, Kd), device).to(dt)
+        call = lambda: pa.paged_prefill_attention(qp, kp, vp, *args, **sc)
+        out = call()
+        torch.cuda.synchronize()
+        ref = ref_fn(qp, kp, vp, *args, **sc)
+        s_abs = abs_v_attention(ref_fn, qp, kp, vp, *args, **sc)
+        check = check_close(f"mma prefill {name}", out, ref, s_abs, dt,
+                            every, attended >= LONG_ROW)
+        planted[name] = planted_int8_faults(ref_fn, qp, kp, vp, tables,
+                                            (offs, lengths), sc,
+                                            shift_offsets=True)
+        if quant:
+            check["p_unrounded"] = check_p_unrounded(
+                f"mma prefill {name}", out, ref_fn(qp.float(), kp, vp, *args,
+                                                   **sc), ref, s_abs, every,
+                fault_must_fail=True)
+            planted[name][P_ROUNDED_FAULT] = (
+                check["p_unrounded"]["p_rounded_plain_share"])
+        errs[name] = max(errs[name], check["max_abs_err"])
+        del ref, s_abs
+        ms, ms_events = kernel_ms(call)
+        plain = cuda_time_ms(lambda: ref_fn(qp, kp, vp, *args, **sc),
+                             iters=5)
+        kt, vt = pa._gather_timeline(kp, vp, tables, sc.get("k_scale"),
+                                     sc.get("v_scale"))
+        kt, vt = (x.transpose(1, 2).to(dt).contiguous() for x in (kt, vt))
+        sdpa = sdpa_prefill(qp, kt, vt, off)
+        nbytes = (2 * B * T * Hh * Kd * kp.element_size()
+                  + 2 * B * C * Hh * Kd * 2 + (2 * B * n_pg * 2 if quant
+                                               else 0)
+                  + tables.numel() * 4 + 2 * B * 4)
+        bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        timings[name] = dict(
+            ms=ms, ms_events=ms_events, plain_ms=plain, **sdpa,
+            bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops,
+            check=check, kernel="mma.sync",
+            shape=(f"B={B} C={C} H={Hh} K={Kd} ctx={T} offset={off} "
+                   f"ps={ps} bf16 q{', int8 pool' if quant else ''}"))
+        del kp, vp, kt, vt, qp
+        torch.cuda.empty_cache()
+    emit({"phase": f"mma_prefill_timing ({Hh}x{Kd}, ps {ps})", **timings,
+          "planted_faults_vs_bf16_bound": planted,
+          "note": f"{P_ROUNDED_FAULT!r} is read against the p-unrounded "
+                  "bound, the other faults against the bf16 bound"})
+    return timings
+
+
 def time_spec_kernels(device, errs, timed):
     """The speculative path's new shapes, each kernel held once more to its
     plain version on the inputs it is timed on: the prefill kernel as the
@@ -1757,29 +1838,19 @@ def check_flash(rng, tag, B, S, T, Hh, Kd, dtype, causal, device,
                 packed=False):
     """Each flash kernel against its plain version on one case →
     {kernel: result}. The backward gets an lse cotangent. ``packed``: q,
-    k and v are strided views of packed qkv tensors. At a head dim the
-    backward kernels refuse (256) only the forward is held, and dq and
-    dkv must raise (`backward_refused`)."""
+    k and v are strided views of packed qkv tensors."""
     scale = 1.0 / np.sqrt(Kd)
     long_q, long_k = flash_long(S, T, causal, device)
     q, k, v, do, dlse = flash_inputs(rng, B, S, T, Hh, Kd, dtype, device)
     if packed:
         q, k, v = packed_views(q, k, v)
-    o, lse = fa.flash_fwd(q, k, v, causal, scale)
+    o, lse, o32 = fa.flash_fwd(q, k, v, causal, scale, with_o32=True)
     torch.cuda.synchronize()
-    o_ref, lse_ref = fa.reference_flash_fwd(q, k, v, causal, scale)
+    o_ref, lse_ref, o32_ref = fa.reference_flash_fwd(q, k, v, causal, scale,
+                                                     with_o32=True)
+    if not torch.equal(o, o32.to(dtype)):
+        raise AssertionError(f"flash_fwd {tag}: o is not o32 rounded")
     delta = fa.flash_delta(o_ref, do, dlse)
-    if Kd not in fa.BWD_HEAD_DIMS:
-        sums = flash_abs_sums(q, k, v, do, lse_ref, delta, causal, scale)
-        res = flash_close(f"flash_fwd {tag}", o, o_ref, sums["flash_fwd"],
-                          dtype, long_q)
-        res["lse_max_abs_err"] = float((lse - lse_ref).abs().max())
-        if res["lse_max_abs_err"] > 1e-4:
-            raise AssertionError(f"flash_fwd {tag}: lse off by "
-                                 f"{res['lse_max_abs_err']}")
-        res["backward_refused"] = backward_refused(q, k, v, do, lse_ref,
-                                                   delta, causal, scale)
-        return {"flash_fwd": res}
     dq = fa.flash_dq(q, k, v, do, lse_ref, delta, causal, scale)
     dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, causal, scale)
     torch.cuda.synchronize()
@@ -1798,6 +1869,9 @@ def check_flash(rng, tag, B, S, T, Hh, Kd, dtype, causal, device,
     # lse: fp32 on both sides from the same fp32 statistics.
     lse_err = float((lse - lse_ref).abs().max())
     res["flash_fwd"]["lse_max_abs_err"] = lse_err
+    res["flash_fwd"]["o32"] = flash_close(f"flash_fwd o32 {tag}", o32,
+                                          o32_ref, sums["flash_fwd"], dtype,
+                                          long_q)
     if lse_err > 1e-4:
         raise AssertionError(f"flash_fwd {tag}: lse off by {lse_err}")
     res["flash_dq"] = flash_close(f"flash_dq {tag}", dq, dq_ref,
@@ -1814,16 +1888,17 @@ def check_flash(rng, tag, B, S, T, Hh, Kd, dtype, causal, device,
     return res
 
 
-def backward_refused(q, k, v, do, lse, delta, causal, scale):
+def backward_refused(device, Kd=96):
     """dq and dkv at a head dim their kernels do not take: each must
     raise ValueError naming the head dim and the ROADMAP item, launching
     nothing (never the plain version). → the dq message."""
-    Kd = q.shape[-1]
+    q = torch.zeros(1, 8, 2, Kd, device=device, dtype=torch.bfloat16)
+    rows = torch.zeros(1, 8, 2, device=device)
     counts = (fa.flash_dq.launches, fa.flash_dkv.launches)
     msgs = []
     for fn in (fa.flash_dq, fa.flash_dkv):
         try:
-            fn(q, k, v, do, lse, delta, causal, scale)
+            fn(q, q, q, q, rows, rows)
         except ValueError as e:
             msgs.append(str(e))
         else:
@@ -1836,12 +1911,11 @@ def backward_refused(q, k, v, do, lse, delta, causal, scale):
 
 def phase_flash_kernels(device, errs, at_shapes):
     """The three flash kernels against their plain versions: fp32 and
-    bf16, head dims 64, 80 and 128, causal and non-causal, S=77/T=130,
-    S=64/T=256 and S=200/T=333 (off the tile sizes, S != T), S=T=192, one
-    query row (S=1/T=64) and one key (S=130/T=1); in bf16 also q, k, v as
-    strided views of packed qkv tensors (S=200/T=333 and S=1/T=64); the
-    forward alone at head dim 256 on the same cases (dq and dkv refuse
-    it); then the timing shapes."""
+    bf16, head dims 64, 80, 128 and 256, causal and non-causal,
+    S=77/T=130, S=64/T=256 and S=200/T=333 (off the tile sizes, S != T),
+    S=T=192, one query row (S=1/T=64) and one key (S=130/T=1); in bf16
+    also q, k, v as strided views of packed qkv tensors (S=200/T=333 and
+    S=1/T=64); dq and dkv refusing head dim 96; then the timing shapes."""
     rng = np.random.default_rng(4)
     cases = []
     grid = [(Kd, dtype, S, T, causal, False)
@@ -1864,12 +1938,11 @@ def phase_flash_kernels(device, errs, at_shapes):
             errs[kern] = max(errs[kern], r["max_abs_err"])
             cases.append({"kernel": kern, "case": tag, **r})
     emit({"phase": "flash_kernels_vs_plain", "tolerance": FLASH_TOLERANCE,
-          "cases": cases})
+          "cases": cases, "backward_refused": backward_refused(device)})
     return time_flash(device, errs, at_shapes)
 
 
-def flash_shape_timings(device, errs, tag, B, S, Hh, Kd, causal, seed,
-                        fwd_only=False):
+def flash_shape_timings(device, errs, tag, B, S, Hh, Kd, causal, seed):
     """The three flash kernels at one bf16 shape ([B, S, Hh, Kd], T = S):
     held once more to their plain versions on these inputs (`check_flash`,
     the largest errors into ``errs``), then timed (`device_ms`, CUDA
@@ -1877,10 +1950,8 @@ def flash_shape_timings(device, errs, tag, B, S, Hh, Kd, causal, seed,
     its library call: SDPA for the forward; for the backward the faster
     of aten's flash backward and the backward of SDPA's graph, each held
     once to the plain versions, on the flash_dq row beside delta + dq +
-    dkv (one call does all three). ``fwd_only`` (head dim 256, which dq
-    and dkv refuse): the forward alone, with keys 512-575 dropped from its
-    plain version planted, which must fail the bound. → (timings per
-    kernel, the inputs and yardsticks for callers that read more)."""
+    dkv (one call does all three). → (timings per kernel, the inputs and
+    yardsticks for callers that read more)."""
     dt, item = torch.bfloat16, 2
     scale = 1.0 / np.sqrt(Kd)
     res = check_flash(np.random.default_rng(seed), tag, B, S, S, Hh, Kd, dt,
@@ -1901,18 +1972,17 @@ def flash_shape_timings(device, errs, tag, B, S, Hh, Kd, causal, seed,
     plan = {
         "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal, scale),
                       lambda: fa.reference_flash_fwd(q, k, v, causal, scale),
-                      4 * n * item + rowvec, 2 * 2 * Kd * pairs)}
-    if not fwd_only:
-        plan["flash_dq"] = (
+                      4 * n * item + rowvec, 2 * 2 * Kd * pairs),
+        "flash_dq": (
             lambda: fa.flash_dq(q, k, v, do, lse, delta, causal, scale),
             lambda: fa.reference_flash_dq(q, k, v, do, lse, delta, causal,
                                           scale),
-            5 * n * item + 2 * rowvec, 3 * 2 * Kd * pairs)
-        plan["flash_dkv"] = (
+            5 * n * item + 2 * rowvec, 3 * 2 * Kd * pairs),
+        "flash_dkv": (
             lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal, scale),
             lambda: fa.reference_flash_dkv(q, k, v, do, lse, delta, causal,
                                            scale),
-            6 * n * item + 2 * rowvec, 4 * 2 * Kd * pairs)
+            6 * n * item + 2 * rowvec, 4 * 2 * Kd * pairs)}
     for name, (kern, plain, nbytes, flops) in plan.items():
         ms, ms_events = kernel_ms(kern)
         plain_ms = cuda_time_ms(plain, iters=plain_iters, warmup=1)
@@ -1930,10 +2000,6 @@ def flash_shape_timings(device, errs, tag, B, S, Hh, Kd, causal, seed,
         sdpa_fwd, sdpa_fwd_events = kernel_ms(sdpa)
     timings["flash_fwd"]["library_ms"] = sdpa_fwd
     timings["flash_fwd"]["library_ms_events"] = sdpa_fwd_events
-    if fwd_only:
-        timings["flash_fwd"]["planted_fault_share"] = planted_fwd_fault(
-            q, k, v, scale, causal, res["flash_fwd"])
-        return timings, dict(q=q, k=k, v=v, o=o, lse=lse, scale=scale)
     refs = (fa.reference_flash_dq(q, k, v, do, lse, delta, causal, scale),
             *fa.reference_flash_dkv(q, k, v, do, lse, delta, causal, scale))
     aten_bwd, aten_check = aten_flash_backward(qt, kt, vt, dot, scale, refs,
@@ -1961,37 +2027,14 @@ def flash_shape_timings(device, errs, tag, B, S, Hh, Kd, causal, seed,
     return timings, ctx
 
 
-def planted_fwd_fault(q, k, v, scale, causal, check):
-    """The bf16 bound against a forward with keys FAULT_LO..FAULT_LO + 63
-    dropped (masked out of every row's softmax) on the timed inputs →
-    its largest share of the bound, which must exceed 1 (``check``: the
-    kernel's own record, whose ``max_share_of_bound`` is at most 1)."""
-    s = torch.einsum("bshk,bthk->bhst", q.float(), k.float()) * scale
-    keep = fa._visible(q.shape[1], k.shape[1], causal, q.device).clone()
-    keep[:, FAULT_LO:FAULT_LO + 64] = False
-    s = torch.where(keep, s, torch.full_like(s, fa.NEG_INF))
-    wrong = torch.einsum("bhst,bthk->bshk", torch.softmax(s, dim=-1),
-                         v.float()).to(q.dtype)
-    del s
-    ref, _ = fa.reference_flash_fwd(q, k, v, causal, scale)
-    s_abs, _ = fa.reference_flash_fwd(q.float(), k.float(), v.float().abs(),
-                                      causal, scale)
-    share = share_of_bound(wrong, ref, s_abs)
-    if share <= 1.0 or check["max_share_of_bound"] > 1.0:
-        raise AssertionError(f"a dropped key tile passes the forward's "
-                             f"bound ({share}) or the kernel fails it "
-                             f"({check})")
-    return share
-
-
 def time_flash(device, errs, at_shapes):
     """Each flash kernel at the training step's shape, [8, 1024, 12, 64]
     bf16 causal (`flash_shape_timings`), with a dropped key tile planted
     in the plain dq, dk and dv, which must fail the bf16 bound, and the
-    device time of the forward plus backward beside SDPA's; then the
-    forward alone at gptj_6b's heads, [2, 1024, 16, 256] bf16 causal,
-    with a dropped key tile planted in its plain version (``at_shapes``;
-    gpt2_2_7b's [8, 1024, 32, 80] are timed by its training phase)."""
+    device time of the forward plus backward beside SDPA's; then the three
+    at gptj_6b's heads, [2, 1024, 16, 256] bf16 causal, with the same
+    faults planted (``at_shapes``; gpt2_2_7b's and gptj_6b's training
+    shapes are timed by their training phases)."""
     B, S, Hh, Kd = FLASH_SHAPE
     timings, c = flash_shape_timings(device, errs, "training shape", B, S,
                                      Hh, Kd, True, 5)
@@ -2027,10 +2070,13 @@ def time_flash(device, errs, at_shapes):
                   "flash_dkv's library_ms is null; flash_delta_ms: the "
                   "port's delta (torch ops) alone; device time per call "
                   "(device_ms)"})
-    gptj, _ctx = flash_shape_timings(device, errs, "gptj_6b heads", 2, 1024,
-                                     *HEADS_GPTJ, True, 17, fwd_only=True)
+    gptj, c = flash_shape_timings(device, errs, "gptj_6b heads", 2, 1024,
+                                  *HEADS_GPTJ, True, 17)
     at_shapes["gptj_6b [2, 1024, 16, 256]"] = gptj
-    emit({"phase": "flash_kernel_timing_gptj", **gptj})
+    emit({"phase": "flash_kernel_timing_gptj", **gptj,
+          "planted_faults_vs_bf16_bound": planted_flash_faults(
+              c["q"], c["k"], c["v"], c["do"], c["lse"], c["delta"],
+              c["scale"])})
     return timings
 
 
@@ -2108,7 +2154,8 @@ def old_library(old_dir):
     """The kernels of an older checkout (``old_dir``/ray_tpu_torch/ops/
     csrc) built by nvcc into build/ab/libkernels_old.so, one nvcc per
     source in parallel, with this tree's C ABI (unchanged since the
-    decode's split-K redesign)."""
+    decode's split-K redesign but for rtt_flash_fwd's o32 argument, which
+    ``fwd_o32`` says the checkout has)."""
     src = os.path.join(old_dir, "ray_tpu_torch", "ops", "csrc")
     out = os.path.join("build", "ab")
     os.makedirs(out, exist_ok=True)
@@ -2127,6 +2174,11 @@ def old_library(old_dir):
                     *objs], check=True)
     lib = ctypes.CDLL(os.path.abspath(lib_path))
     _build._declare(lib)
+    with open(os.path.join(src, "flash_fwd.cu")) as f:
+        lib.fwd_o32 = "void* o32" in f.read()
+    if not lib.fwd_o32:   # a checkout from before rtt_flash_fwd took o32
+        argtypes = lib.rtt_flash_fwd.argtypes
+        lib.rtt_flash_fwd.argtypes = argtypes[:6] + argtypes[7:]
     return lib
 
 
@@ -2190,9 +2242,10 @@ def phase_ab(device, old_dir):
         lse = torch.empty(B, S, Hh, device=device, dtype=torch.float32)
         rows = fa._rows(q, k, v, o)
         maps = pa._c_array(fa.flash_plan(q, k, v))
+        o32 = (None,) if old.fwd_o32 else ()
         _build.check(old.rtt_flash_fwd(
             1, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), B, S, S, Hh, Kd, ctypes.addressof(rows), 1,
+            lse.data_ptr(), *o32, B, S, S, Hh, Kd, ctypes.addressof(rows), 1,
             float(scale), ctypes.addressof(maps), stream()), "old flash_fwd")
         return o
 
@@ -2665,7 +2718,10 @@ ENGINE_KNOBS = dict(n_slots=16, max_len=2048, page_size=64, kv_mode="paged",
 CUT_DEPTH = 8          # engine_tp's, engine_prefix's, engine_drain's,
                        # engine_kv's, engine_edge's and profile's layers:
                        # opt_1_3b's first 8 of 24, full width (depth cuts
-                       # that make room for `serve`, `tune` and `data`)
+                       # that make room for `serve`, `tune` and `data`);
+                       # gpt2_2_7b's 8 of 32 in train_gpt2_2_7b and
+                       # gptj_6b's 8 of 28 in engine_gptj's ps-48 engine
+                       # (room for train_gptj_6b)
 
 
 def first_layers(cfg, trees, n):
@@ -2877,26 +2933,30 @@ def restore_plain(module, real):
         setattr(module, name, fn)
 
 
-def phase_engine_gptj(device):
-    """LLMEngine(gptj_6b) at full width and depth (28 layers, d 4096, 16
-    heads of 256, d_ff 16384, bf16, random weights from seed 0) on the
-    paged kernels with the engine phase's knobs and traffic, then the same
-    traffic on attn_impl="gather" over the same weights: n_layers decode
+# The ps-48 engine of engine_gptj: a page size the wgmma prefill kernel
+# does not take (`wgmma_page_size`), so its prefill dispatches run the
+# mma.sync kernel at head dim 256; chunk 240 is five pages.
+GPTJ_MMA_KNOBS = dict(page_size=48, prefill_chunk=240,
+                      prefill_token_budget=480)
+GPTJ_MMA_PROMPTS = 8
+
+
+def gptj_engine_pair(device, cfg, params, prompts, **knobs):
+    """The paged kernel engine (ENGINE_KNOBS updated by ``knobs``) on
+    ``prompts``, the plain versions' calls counted, then the gather
+    engine on the same weights, knobs and prompts: n_layers decode
     launches per decode step and prefill launches per dispatch, no plain
     call, no int8 program, pages closed; every stream equal to the gather
     engine's or leaving it where the gather logits of the two tokens are
     within GPTJ_TIE_MARGIN (a bf16 near-tie), which a planted wrong token
-    must exceed."""
-    t_phase = time.perf_counter()
-    cfg = gpt.GPTConfig.gptj_6b(dtype=torch.bfloat16)
-    params = gptj_params(cfg, device)
-    torch.cuda.synchronize()
+    must exceed. → (record, launches, failures)"""
     L = cfg.n_layers
-    prompts = engine_prompts(cfg)
+    gather = {**knobs, "attn_impl": "gather"}
     plain, real = counted_calls(pa, ("reference_paged_attention",
                                      "reference_paged_prefill_attention"))
     try:
-        eng, (run,) = run_engine(device, cfg, params, prompts=prompts)
+        eng, (run,) = run_engine(device, cfg, params, prompts=prompts,
+                                 **knobs)
     finally:
         restore_plain(pa, real)
     reqs, launches = run[:2]
@@ -2917,38 +2977,66 @@ def phase_engine_gptj(device):
         bad.append(f"a plain version ran in the kernel engine: {plain}")
     streams = [r.out_ids for r in reqs]
     geng, (grun,) = run_engine(device, cfg, params, prompts=prompts,
-                               attn_impl="gather")
-    gather = [r.out_ids for r in grun[0]]
+                               **gather)
+    ref = [r.out_ids for r in grun[0]]
     gather_rec = engine_record(cfg, geng, grun, "paged_attention",
                                "paged_prefill_attention")
     del geng
     torch.cuda.empty_cache()
-    rec, cases = stream_cases(prompts, streams, gather)
-    ctx, tok = prompts[0] + gather[0][:1], gather[0][1]
+    rec, cases = stream_cases(prompts, streams, ref)
+    ctx, tok = prompts[0] + ref[0][:1], ref[0][1]
     margins = tie_margins(device, cfg, cases + [
-        (ctx, tok, (tok + 1) % cfg.vocab_size)], params=params,
-        attn_impl="gather")
+        (ctx, tok, (tok + 1) % cfg.vocab_size)], params=params, **gather)
     rec.update(tie_margins=margins[:-1], tie_margin_bound=GPTJ_TIE_MARGIN,
                planted_wrong_token_margin=margins[-1],
-               share_before_first_divergence=agreement(streams, gather))
-    if rec["streams"] < 8 or rec["other_length"]:
+               share_before_first_divergence=agreement(streams, ref))
+    if rec["streams"] < len(prompts) or rec["other_length"]:
         bad.append(f"streams compared: {rec}")
     if any(m > GPTJ_TIE_MARGIN for m in margins[:-1]):
         bad.append(f"a kernel stream left the gather one off a tie: {rec}")
     if margins[-1] <= GPTJ_TIE_MARGIN:
         bad.append(f"the planted wrong token passed ({margins[-1]})")
+    out.update(plain_calls=plain, vs_gather=rec, gather_engine={
+        k: gather_rec[k] for k in ("decode_steps", "prefill_dispatches",
+                                   "ttft_ms_p50", "decode_step_ms_p50",
+                                   "engine_decode_tok_s")})
+    return out, launches, bad
+
+
+def phase_engine_gptj(device):
+    """LLMEngine(gptj_6b) at full width and depth (28 layers, d 4096, 16
+    heads of 256, d_ff 16384, bf16, random weights from seed 0) on the
+    paged kernels with the engine phase's knobs and traffic, against the
+    gather engine (`gptj_engine_pair`); then the same weights cut to their
+    first CUT_DEPTH layers at page size 48 and chunk 240
+    (GPTJ_MMA_KNOBS: the prefill on the mma.sync kernel, the decode
+    kernel at ps 48) on the first 8 prompts, against its own gather
+    engine. → the launches of each engine."""
+    t_phase = time.perf_counter()
+    cfg = gpt.GPTConfig.gptj_6b(dtype=torch.bfloat16)
+    params = gptj_params(cfg, device)
+    torch.cuda.synchronize()
+    prompts = engine_prompts(cfg)
+    out, launches, bad = gptj_engine_pair(device, cfg, params, prompts)
+    cut, (cut_params,) = first_layers(cfg, (params,), CUT_DEPTH)
+    kern = pa.prefill_kernel(torch.bfloat16, cfg.head_dim,
+                             GPTJ_MMA_KNOBS["page_size"])
+    if kern != "mma":
+        bad.append(f"page size 48 at head dim 256 takes {kern}")
+    mma, mma_launches, mma_bad = gptj_engine_pair(
+        device, cut, cut_params, prompts[:GPTJ_MMA_PROMPTS], **GPTJ_MMA_KNOBS)
+    bad += [f"page size 48: {b}" for b in mma_bad]
     emit({"phase": "engine_gptj", "config": "gptj_6b bf16 (28 layers, d "
           "4096, 16 heads of 256), random weights from seed 0", **out,
-          "plain_calls": plain, "vs_gather": rec,
-          "gather_engine": {k: gather_rec[k] for k in (
-              "decode_steps", "prefill_dispatches", "ttft_ms_p50",
-              "decode_step_ms_p50", "engine_decode_tok_s")},
+          "ps48_mma": {"config": f"the first {CUT_DEPTH} layers, "
+                                 f"{GPTJ_MMA_KNOBS}, prefill kernel {kern}, "
+                                 f"{GPTJ_MMA_PROMPTS} prompts", **mma},
           "phase_s": time.perf_counter() - t_phase, "card": card_line()})
-    del params
+    del params, cut_params
     torch.cuda.empty_cache()
     if bad:
         raise AssertionError(f"engine_gptj: {bad}")
-    return launches
+    return launches, mma_launches
 
 
 # ------------------------------------------- prefix cache, speculation
@@ -6062,35 +6150,41 @@ def phase_train_llama(device, errs):
     return launches, shapes
 
 
-GPT27_B, GPT27_S, GPT27_STEPS = 8, 1024, 4
-# Per step with remat: 32 layers' flash forward twice (block and
-# recompute), dq and dkv once each.
-GPT27_PER_STEP = {"flash_fwd": 64, "flash_dq": 32, "flash_dkv": 32}
+SR_B, SR_S, SR_STEPS = 8, 1024, 4   # bench.py's adafactor_sr step
 
 
-def phase_train_gpt2_2_7b(device, errs):
-    """bench.py's BENCH_MODEL=gpt2_2_7b BENCH_OPT=adafactor_sr step on the
-    port: gpt2_2_7b at full width and depth (32 layers, d 2560, 32 heads
-    of 80, d_ff 10240, untied, vocab 50304), S 1024, B 8, bf16 SR masters,
+def sr_per_step(cfg):
+    """Flash launches per step with remat: each layer's forward twice (the
+    block and its recompute), dq and dkv once each (gpt2_2_7b cut to 8
+    layers 16/8/8, gptj_6b's 28 56/28/28)."""
+    L = cfg.n_layers
+    return {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L}
+
+
+def train_sr(device, errs, cfg, name, heads, seed):
+    """bench.py's BENCH_MODEL=``name`` BENCH_OPT=adafactor_sr step on the
+    port: ``cfg`` at full width and depth, S 1024, B 8, bf16 SR masters,
     adafactor(3e-4), remat, flash attention, random weights from seed 0;
-    the flash kernels checked and timed at its [8, 1024, 32, 80] first."""
+    the flash kernels first checked and timed at its [8, 1024, *heads].
+    The memory audit is printed and must fit; one step of flash against
+    plain attention (`flash_vs_xla`, its three planted faults); then 4
+    steps (one warm-up) with the launches per step of `sr_per_step`, no
+    plain call, every parameter left bf16 and the loss falling. The peak
+    memory is read over the steps alone (the check's beside it)."""
     t_phase = time.perf_counter()
-    shapes = {"gpt2_2_7b training": flash_shape_timings(
-        device, errs, "gpt2_2_7b", GPT27_B, GPT27_S, *HEADS_2_7B, True,
-        19)[0]}
-    emit({"phase": "flash_kernel_timing_gpt2_2_7b", **{
+    shapes = {f"{name} training": flash_shape_timings(
+        device, errs, name, SR_B, SR_S, *heads, True, seed)[0]}
+    emit({"phase": f"flash_kernel_timing_{name}", **{
         f"{k} {tag}": v for tag, t in shapes.items() for k, v in t.items()}})
     torch.cuda.empty_cache()
-    cfg = gpt.GPTConfig.gpt2_2_7b(max_seq=GPT27_S, attn_impl="flash",
-                                  param_dtype=torch.bfloat16)
     report = memory_audit.audit_training(
         cfg, {"dp": 1, "fsdp": 1, "sp": 1, "tp": 1}, optimizer="adafactor",
-        batch_per_device=GPT27_B, param_bytes=2, grad_bytes=2, hbm="h100")
+        batch_per_device=SR_B, param_bytes=2, grad_bytes=2, hbm="h100")
     audit = {"per_device": report.per_device, "total": report.total_bytes,
              "hbm_bytes": report.hbm_bytes, "fits": report.fits}
     print(str(report), flush=True)
     if not report.fits:
-        raise AssertionError(f"gpt2_2_7b does not fit one H100:\n{report}")
+        raise AssertionError(f"{name} does not fit one H100:\n{report}")
     torch.cuda.reset_peak_memory_stats()
     opt = adafactor(3e-4)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -6099,32 +6193,37 @@ def phase_train_gpt2_2_7b(device, errs):
                                              stochastic_round=True)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    batch = train_batch_of(cfg.vocab_size, GPT27_B, GPT27_S, device)
+    batch = train_batch_of(cfg.vocab_size, SR_B, SR_S, device)
     compare = flash_vs_xla(cfg, params, batch)
+    check_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()      # the peak of the steps alone
+    expected = sr_per_step(cfg)
     plain, real = counted_calls(fa, FLASH_PLAIN)
     try:
         params, opt_state, losses, step_ms, launches, per_step = (
-            timed_steps(step, params, opt_state, batch, GPT27_STEPS - 1))
+            timed_steps(step, params, opt_state, batch, SR_STEPS - 1))
     finally:
         restore_plain(fa, real)
-    if per_step != GPT27_PER_STEP or any(plain.values()):
-        raise AssertionError(f"gpt2_2_7b flash launches per step {per_step}"
-                             f" (expected {GPT27_PER_STEP}), plain calls "
-                             f"{plain}")
+    if per_step != expected or any(plain.values()):
+        raise AssertionError(f"{name} flash launches per step {per_step} "
+                             f"(expected {expected}), plain calls {plain}")
     not_bf16 = [k for k, p in params.items() if p.dtype != torch.bfloat16]
     if not_bf16:
         raise AssertionError(f"parameters left bf16: {not_bf16}")
     peak_mem = torch.cuda.max_memory_allocated()
     p50 = float(np.median(step_ms[1:]))
-    tok_s = GPT27_B * GPT27_S / (p50 / 1e3)
+    tok_s = SR_B * SR_S / (p50 / 1e3)
     fpt = train_flops_per_token(cfg)
     profiled = _profiled(lambda: step(params, opt_state, batch), top=12)
-    emit({"phase": "train_gpt2_2_7b", "config": "gpt2_2_7b bf16 SR masters "
-          f"remat flash B={GPT27_B} S={GPT27_S} adafactor(3e-4)",
+    emit({"phase": f"train_{name}", "config": f"{name} bf16 SR masters "
+          f"remat flash B={SR_B} S={SR_S} adafactor(3e-4), "
+          f"{cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.head_dim}",
           "params": gpt.num_params(cfg), "audit": audit,
           "max_memory_allocated": peak_mem,
           "max_memory_allocated_gb": peak_mem / 2**30,
-          "init_s": init_s, "flash_vs_xla": compare, "steps": GPT27_STEPS,
+          "check_max_memory_allocated_gb": check_peak / 2**30,
+          "init_s": init_s, "flash_vs_xla": compare, "steps": SR_STEPS,
           "step_ms": step_ms, "step_ms_p50": p50, "tokens_per_s": tok_s,
           "mfu": fpt * tok_s / BF16_FLOPS, "flops_per_token": fpt,
           "losses": losses, "launches": launches,
@@ -6134,6 +6233,27 @@ def phase_train_gpt2_2_7b(device, errs):
     del params, opt_state
     torch.cuda.empty_cache()
     return launches, shapes
+
+
+def phase_train_gpt2_2_7b(device, errs):
+    """`train_sr` on gpt2_2_7b (bench.py:225-241): d 2560, 32 heads of
+    80, d_ff 10240, untied, vocab 50304, cut to its first CUT_DEPTH of 32
+    layers (room for train_gptj_6b; its kernels are checked and timed at
+    full width first)."""
+    cfg = dataclasses.replace(
+        gpt.GPTConfig.gpt2_2_7b(max_seq=SR_S, attn_impl="flash",
+                                param_dtype=torch.bfloat16),
+        n_layers=CUT_DEPTH)
+    return train_sr(device, errs, cfg, "gpt2_2_7b", HEADS_2_7B, 19)
+
+
+def phase_train_gptj_6b(device, errs):
+    """`train_sr` on gptj_6b (ray_tpu/models/gpt.py:86-92): 28 layers, d
+    4096, 16 heads of 256 (rotary 64), d_ff 16384, untied, vocab 50304;
+    the backward kernels at head dim 256."""
+    cfg = gpt.GPTConfig.gptj_6b(max_seq=SR_S, attn_impl="flash",
+                                param_dtype=torch.bfloat16)
+    return train_sr(device, errs, cfg, "gptj_6b", HEADS_GPTJ, 23)
 
 
 def llama_flops_per_token(cfg) -> float:
@@ -7888,7 +8008,8 @@ def main(argv=None) -> int:
                          "engine_oneshot,engine_drain,engine_warmup,"
                          "engine_observe,engine_edge,engine_tp,engine_kv,"
                          "engine_gptj,runtime,serve,train,train_ring,"
-                         "train_llama,train_gpt2_2_7b,train_moe,"
+                         "train_llama,train_gpt2_2_7b,train_gptj_6b,"
+                         "train_moe,"
                          "train_pipeline,train_dist,tune,data "
                          "(default: all; "
                          "the build always runs)")
@@ -8024,7 +8145,9 @@ def main(argv=None) -> int:
         del cfg, masters, params
         torch.cuda.empty_cache()
     if want("engine_gptj"):
-        by_path["engine_gptj"] = phase_engine_gptj(device)
+        (by_path["engine_gptj"],
+         by_path["engine_gptj (ps 48, mma.sync prefill)"]) = (
+            phase_engine_gptj(device))
     if want("runtime"):
         by_path["runtime (actor)"] = phase_runtime(
             device, None if streams is None else (float_run, streams))
@@ -8038,6 +8161,7 @@ def main(argv=None) -> int:
     for name, phase in (("train_ring", phase_train_ring),
                         ("train_llama", phase_train_llama),
                         ("train_gpt2_2_7b", phase_train_gpt2_2_7b),
+                        ("train_gptj_6b", phase_train_gptj_6b),
                         ("train_moe", phase_train_moe),
                         ("train_pipeline", phase_train_pipeline)):
         if want(name):

@@ -153,11 +153,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     # size_t fn(dtype, quant, K, ps): shared memory of one prefill block
     lib.rtt_paged_prefill_smem_bytes.argtypes = [_I, _I, _I, _I]
     lib.rtt_paged_prefill_smem_bytes.restype = ctypes.c_size_t
-    # int fn(dtype, q, k, v, o, lse, B, S, T, H, K, strides[12], causal,
-    #        sm_scale, maps, stream) → cudaError_t (maps: bf16, the tensor
-    #        maps of q, k, v, long long[3 x 17]; fp32 NULL)
+    # int fn(dtype, q, k, v, o, lse, o32, B, S, T, H, K, strides[12],
+    #        causal, sm_scale, maps, stream) → cudaError_t (o32: bf16, NULL
+    #        or o unrounded in fp32; maps: bf16, the tensor maps of q, k, v,
+    #        long long[3 x 17]; fp32 NULL)
     lib.rtt_flash_fwd.argtypes = [
-        _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _F, _P, _P]
+        _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _F, _P, _P]
     lib.rtt_flash_fwd.restype = _I
     # int fn(dtype, q, k, v, dO, lse, delta, dq, B, S, T, H, K,
     #        strides[15], causal, sm_scale, maps, stream) → cudaError_t

@@ -50,15 +50,8 @@ import torch
 from ray_tpu_torch._device import check_device
 from ray_tpu_torch.ops.paged_attention import (  # shared with the paged kernels
     _DTYPE_CODES, _HEAD_DIMS, BOX_COLS, NEG_INF, ROADMAP_HEAD_DIMS,
-    SWIZZLE_BYTES, WGMMA_ROWS, _addr, _c_array, _stream_ptr, key_tile,
+    SWIZZLE_BYTES, WGMMA_ROWS, _addr, _c_array, _ptr, _stream_ptr, key_tile,
     tensor_map)
-
-# Head dims of the backward kernels: at 256 the dkv kernel's dk and dv
-# accumulators of 64 keys would be 256 fp32 values a consumer thread,
-# over the 232 registers it has (csrc/flash_bwd.cu); the forward takes
-# every head dim of _HEAD_DIMS.
-BWD_HEAD_DIMS = (64, 80, 128)
-
 
 def _scale(q, sm_scale):
     return 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None else sm_scale
@@ -97,11 +90,13 @@ def _scores(q, k, causal, sm_scale):
     return s, _visible(q.shape[1], k.shape[1], causal, q.device)
 
 
-def reference_flash_fwd(q, k, v, causal=True, sm_scale=None):
+def reference_flash_fwd(q, k, v, causal=True, sm_scale=None,
+                        with_o32=False):
     """Plain version of `flash_fwd` → (o [B, S, H, K] q.dtype, lse
-    [B, S, H] fp32). Probabilities relative to the row maximum are
-    rounded to v.dtype before P·V; l sums them unrounded. A row with no
-    visible key gets o = 0 and lse = -1e30, said explicitly: a softmax
+    [B, S, H] fp32), and with ``with_o32`` o before its rounding to
+    q.dtype (fp32) after them. Probabilities relative to the row maximum
+    are rounded to v.dtype before P·V; l sums them unrounded. A row with
+    no visible key gets o = 0 and lse = -1e30, said explicitly: a softmax
     would give it the mean of V."""
     sm_scale = _scale(q, sm_scale)
     s, mask = _scores(q, k, causal, sm_scale)
@@ -112,10 +107,12 @@ def reference_flash_fwd(q, k, v, causal=True, sm_scale=None):
     l = p.sum(dim=-1, keepdim=True)                          # [B, H, S, 1]
     empty = l == 0
     l_safe = torch.where(empty, torch.ones_like(l), l)
-    o = torch.einsum("bhst,bthk->bshk", p.to(v.dtype).float(), v.float())
-    o = (o / l_safe.transpose(1, 2)).to(q.dtype).contiguous()
+    o32 = torch.einsum("bhst,bthk->bshk", p.to(v.dtype).float(), v.float())
+    o32 = (o32 / l_safe.transpose(1, 2)).contiguous()
     lse = torch.where(empty, torch.full_like(l, NEG_INF), m + torch.log(l_safe))
-    return o, lse[..., 0].transpose(1, 2).contiguous()
+    lse = lse[..., 0].transpose(1, 2).contiguous()
+    o = o32.to(q.dtype).contiguous()
+    return (o, lse, o32) if with_o32 else (o, lse)
 
 
 def _p_ds(q, k, v, do, lse, delta, causal, sm_scale):
@@ -184,11 +181,10 @@ def _aligned(t) -> bool:
             and all(t.stride(i) % step == 0 for i in range(3)))
 
 
-def _kernel_operands(q, *others, head_dims=_HEAD_DIMS, kernel="flash_fwd"):
+def _kernel_operands(q, *others, kernel="flash_fwd"):
     """Validate the kernels' operands: one CUDA device, float32/bfloat16
-    of one dtype, a head dim in ``head_dims`` (the forward's 64, 80, 128
-    and 256; the backward's `BWD_HEAD_DIMS`). A tensor whose rows are not
-    16-byte aligned (or whose head dim is strided) is copied to a
+    of one dtype, a head dim of 64, 80, 128 or 256. A tensor whose rows
+    are not 16-byte aligned (or whose head dim is strided) is copied to a
     contiguous one; every other layout is read in place."""
     check_device(q.device, **{f"operand{i}": t for i, t in enumerate(others)})
     if q.dtype not in _DTYPE_CODES:
@@ -196,8 +192,8 @@ def _kernel_operands(q, *others, head_dims=_HEAD_DIMS, kernel="flash_fwd"):
     for t in others:
         if t.dtype != q.dtype:
             raise ValueError(f"operand dtype {t.dtype} != q dtype {q.dtype}")
-    if q.shape[-1] not in head_dims:
-        raise ValueError(f"{kernel} takes head_dim in {head_dims}, got head "
+    if q.shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"{kernel} takes head_dim in {_HEAD_DIMS}, got head "
                          f"dim {q.shape[-1]} ({ROADMAP_HEAD_DIMS})")
     return [t if _aligned(t) else t.contiguous() for t in (q, *others)]
 
@@ -228,11 +224,25 @@ def _row_vectors(q, *vecs):
     return out
 
 
-# Keys per work item of the dkv kernel (two warpgroups of 64) and query rows
-# per tile it walks: flash_bwd.cu's DKV_KEYS and DKV_ROWS, whose launcher
-# refuses maps with other box rows.
+# Keys per work item of the dkv kernel (two warpgroups of 64; at head dim
+# 256 both share 64 and split the head dim) and query rows per tile it
+# walks: flash_bwd.cu's DKV_KEYS, DKV_KEYS_SPLIT and DKV_ROWS, whose
+# launcher refuses maps with other box rows.
 DKV_KEYS = 128
+DKV_KEYS_SPLIT = 64
 DKV_ROWS = 64
+
+
+def dkv_keys(K: int) -> int:
+    """Keys per work item of the bf16 dkv kernel at head dim K."""
+    return DKV_KEYS_SPLIT if K == 256 else DKV_KEYS
+
+
+def dq_key_tile(K: int) -> int:
+    """Keys per tile of the bf16 dq kernel: `key_tile`, but 32 at head dim
+    256, where its dq accumulator takes 128 registers a thread and S and
+    dP get 16 each (flash_bwd.cu `DqCfg`)."""
+    return 32 if K == 256 else key_tile(K)
 
 
 def _maps(*views):
@@ -257,38 +267,43 @@ def flash_plan(q, k, v):
 
 def flash_dq_plan(q, k, v, do):
     """The bf16 dq kernel's tensor maps (query-major: an item is 128 rows):
-    q and dO in boxes of 128 rows, k and v in boxes of `key_tile` rows,
+    q and dO in boxes of 128 rows, k and v in boxes of `dq_key_tile` rows,
     each read in place with its own strides. → 4 x TMAP_WORDS (q, k, v,
     dO). lse and delta are not mapped: the kernel reads them from the
     contiguous fp32 [B, S, H] rows `_row_vectors` gives it."""
-    kt = key_tile(q.shape[-1])
+    kt = dq_key_tile(q.shape[-1])
     return _maps((q, WGMMA_ROWS), (k, kt), (v, kt), (do, WGMMA_ROWS))
 
 
 def flash_dkv_plan(q, k, v, do):
-    """The bf16 dkv kernel's tensor maps (key-major: an item is DKV_KEYS
-    keys, the walked tiles DKV_ROWS query rows): k and v in boxes of
-    DKV_KEYS rows, q and dO in boxes of DKV_ROWS. → 4 x TMAP_WORDS (q, k,
-    v, dO). The lse and delta rows of each walked tile are staged by the
-    kernel from the [B, S, H] rows: a box of one head's rows would be
-    4·H bytes apart, which TMA cannot read as a box."""
-    return _maps((q, DKV_ROWS), (k, DKV_KEYS), (v, DKV_KEYS), (do, DKV_ROWS))
+    """The bf16 dkv kernel's tensor maps (key-major: an item is
+    `dkv_keys` keys, the walked tiles DKV_ROWS query rows): k and v in
+    boxes of `dkv_keys` rows, q and dO in boxes of DKV_ROWS. → 4 x
+    TMAP_WORDS (q, k, v, dO). The lse and delta rows of each walked tile
+    are staged by the kernel from the [B, S, H] rows: a box of one head's
+    rows would be 4·H bytes apart, which TMA cannot read as a box."""
+    keys = dkv_keys(q.shape[-1])
+    return _maps((q, DKV_ROWS), (k, keys), (v, keys), (do, DKV_ROWS))
 
 
-def flash_fwd(q, k, v, causal=True, sm_scale=None):
+def flash_fwd(q, k, v, causal=True, sm_scale=None, with_o32=False):
     """Flash forward → (o [B, S, H, K] in q.dtype with q's layout, lse
-    [B, S, H] fp32). CPU tensors take the plain version; CUDA tensors
-    launch the kernel (bf16: wgmma on TMA-fed tiles, `flash_plan`; fp32:
-    FMA)."""
+    [B, S, H] fp32), and with ``with_o32`` o unrounded in fp32 after them
+    (the bf16 kernel writes it beside o; fp32 o is unrounded already).
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (bf16: wgmma on TMA-fed tiles, `flash_plan`; fp32: FMA)."""
     _check_shapes(q, k, v)
     sm_scale = _scale(q, sm_scale)
     if not _on_cuda(q):
-        return reference_flash_fwd(q, k, v, causal, sm_scale)
+        return reference_flash_fwd(q, k, v, causal, sm_scale, with_o32)
     q, k, v = _kernel_operands(q, k, v)
     B, S, H, K = q.shape
     T = k.shape[1]
     o = torch.empty_like(q)
     lse = torch.empty(B, S, H, device=q.device, dtype=torch.float32)
+    o32 = None
+    if with_o32 and q.dtype != torch.float32:
+        o32 = torch.empty_like(o, dtype=torch.float32)   # o's strides
     from ray_tpu_torch.ops import _build
 
     lib = _build.library()
@@ -297,11 +312,13 @@ def flash_fwd(q, k, v, causal=True, sm_scale=None):
             else None)
     rc = lib.rtt_flash_fwd(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), B, S, T, H, K, ctypes.addressof(rows),
-        int(bool(causal)), float(sm_scale), _addr(maps),
-        _stream_ptr(q.device))
+        o.data_ptr(), lse.data_ptr(), _ptr(o32), B, S, T, H, K,
+        ctypes.addressof(rows), int(bool(causal)), float(sm_scale),
+        _addr(maps), _stream_ptr(q.device))
     _build.check(rc, "flash_fwd kernel launch")
     flash_fwd.launches += 1
+    if with_o32:
+        return o, lse, o if o32 is None else o32
     return o, lse
 
 
@@ -317,8 +334,7 @@ def flash_dq(q, k, v, do, lse, delta, causal=True, sm_scale=None):
     sm_scale = _scale(q, sm_scale)
     if not _on_cuda(q):
         return reference_flash_dq(q, k, v, do, lse, delta, causal, sm_scale)
-    q, k, v, do = _kernel_operands(q, k, v, do, head_dims=BWD_HEAD_DIMS,
-                                   kernel="flash_dq")
+    q, k, v, do = _kernel_operands(q, k, v, do, kernel="flash_dq")
     lse, delta = _row_vectors(q, lse, delta)
     B, S, H, K = q.shape
     T = k.shape[1]
@@ -351,8 +367,7 @@ def flash_dkv(q, k, v, do, lse, delta, causal=True, sm_scale=None):
     sm_scale = _scale(q, sm_scale)
     if not _on_cuda(q):
         return reference_flash_dkv(q, k, v, do, lse, delta, causal, sm_scale)
-    q, k, v, do = _kernel_operands(q, k, v, do, head_dims=BWD_HEAD_DIMS,
-                                   kernel="flash_dkv")
+    q, k, v, do = _kernel_operands(q, k, v, do, kernel="flash_dkv")
     lse, delta = _row_vectors(q, lse, delta)
     B, S, H, K = q.shape
     T = k.shape[1]
@@ -392,14 +407,28 @@ def reset_launch_counts() -> None:
     flash_dkv.launches = 0
 
 
+# Head dims whose backward reads delta = rowsum(dO · O) from O before its
+# rounding (fp32, which the forward writes beside O). The JAX VJP, and the
+# port at the other head dims, read the rounded O, whose error reaches
+# every key of a row alike: at gptj_6b's 16 heads of 256 that moved the
+# worst layer's attention gradients 5.1% from plain attention's, past the
+# train limit of 5%, and 4.3% from the unrounded O; two plain paths differ
+# by 4.2% there (PERF.md; tools/flash_grad_noise.py). At 64-128 no check
+# showed the fault, and the rounded O keeps the reference's numerics.
+O32_HEAD_DIMS = (256,)
+
+
 class _FlashAttention(torch.autograd.Function):
     """(o, lse) = flash_fwd(q, k, v); backward through flash_bwd with
-    both cotangents (``None`` for one the caller did not use)."""
+    both cotangents (``None`` for one the caller did not use). delta
+    reads o32 at O32_HEAD_DIMS, o elsewhere."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
-        o, lse = flash_fwd(q, k, v, causal, sm_scale)
-        ctx.save_for_backward(q, k, v, o, lse)
+        o32 = (any(ctx.needs_input_grad[:3])
+               and q.shape[-1] in O32_HEAD_DIMS)
+        o, lse, *rest = flash_fwd(q, k, v, causal, sm_scale, with_o32=o32)
+        ctx.save_for_backward(q, k, v, rest[0] if o32 else o, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         ctx.set_materialize_grads(False)
         return o, lse
@@ -408,9 +437,9 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do, dlse):
         if do is None and dlse is None:
             return None, None, None, None, None
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors   # o: fp32 at O32_HEAD_DIMS
         if do is None:
-            do = torch.zeros_like(o)
+            do = torch.zeros_like(q)
         dq, dk, dv = flash_bwd(q, k, v, o, lse, do, dlse, ctx.causal,
                                ctx.sm_scale)
         return dq, dk, dv, None, None
@@ -431,8 +460,8 @@ def flash_attention(q, k, v, *, causal=True, sm_scale=None,
 
 __all__ = [
     "flash_attention", "flash_fwd", "flash_dq", "flash_dkv", "flash_bwd",
-    "BWD_HEAD_DIMS",
-    "flash_plan", "flash_dq_plan", "flash_dkv_plan",
+    "O32_HEAD_DIMS", "flash_plan", "flash_dq_plan", "flash_dkv_plan", "dq_key_tile",
+    "dkv_keys",
     "flash_delta", "reference_attention", "reference_flash_fwd",
     "reference_flash_dq", "reference_flash_dkv", "reference_flash_bwd",
     "reset_launch_counts", "NEG_INF",

@@ -467,14 +467,17 @@ __device__ __forceinline__ void attn_mainloop(unsigned char* base,
 // `row_stride` elements apart); l == 0 (no visible key) writes zeros, rows
 // at or past `rows` nothing. With `lse`, also each row's natural-log
 // log-sum-exp (m2 + log2 l) · ln 2, -1e30 for l == 0, rows `lse_stride`
-// apart.
+// apart. With `o32`, also O / l unrounded in fp32, laid out as `ob` (the
+// flash backward's delta = rowsum(dO · O) reads it: from the rounded O,
+// its error reaches every key of the row alike).
 template <int KD>
 __device__ __forceinline__ void attn_store(const float (&o)[KD / 2],
                                            const float (&m2)[2],
                                            const float (&l)[2],
                                            __nv_bfloat16* ob,
                                            long long row_stride, int rows,
-                                           float* lse, long long lse_stride) {
+                                           float* lse, long long lse_stride,
+                                           float* o32 = nullptr) {
   const int tid = threadIdx.x & 127;
   const int lane = tid & 31;
   const int r0 = (tid >> 5) * 16 + (lane >> 2);
@@ -490,12 +493,18 @@ __device__ __forceinline__ void attn_store(const float (&o)[KD / 2],
 #pragma unroll
   for (int j = 0; j < KD / 8; ++j) {
     const int col = 8 * j + t2;
-    if (r0 < rows)
-      *reinterpret_cast<uint32_t*>(ob + r0 * row_stride + col) =
-          pack_bf16x2(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-    if (r0 + 8 < rows)
-      *reinterpret_cast<uint32_t*>(ob + (r0 + 8) * row_stride + col) =
-          pack_bf16x2(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      const float inv = h ? inv1 : inv0;
+      const float2 v = make_float2(o[4 * j + 2 * h] * inv,
+                                   o[4 * j + 2 * h + 1] * inv);
+      if (r >= rows) continue;
+      *reinterpret_cast<uint32_t*>(ob + r * row_stride + col) =
+          pack_bf16x2(v.x, v.y);
+      if (o32 != nullptr)
+        *reinterpret_cast<float2*>(o32 + r * row_stride + col) = v;
+    }
   }
   if (lse != nullptr && (lane & 3) == 0) {
     if (r0 < rows)

@@ -41,14 +41,14 @@ __device__ __forceinline__ bool fl_pv_row(int rgrp, int r) {
   return rgrp < FL_RG<KD> && r < FL_TILE;
 }
 
-// Copy rows of one head of an fp32 operand into a shared tile of pitch KP
-// (scalar loads: a pitch of KD + 1 floats breaks 16-byte alignment and keeps
-// the dot products' column walks free of bank conflicts).
-template <int KD, int KP>
+// Copy ROWS rows of one head of an fp32 operand into a shared tile of pitch
+// KP (scalar loads: a pitch of KD + 1 floats breaks 16-byte alignment and
+// keeps the dot products' column walks free of bank conflicts).
+template <int KD, int KP, int ROWS = FL_TILE>
 __device__ __forceinline__ void load_tile_f32(float* tile, const float* base,
                                               long long row_stride, int row0,
                                               int end, int tid) {
-  for (int i = tid; i < FL_TILE * KD; i += FL_F32_THREADS) {
+  for (int i = tid; i < ROWS * KD; i += FL_F32_THREADS) {
     const int r = i / KD;
     const int c = i - r * KD;
     const int pos = row0 + r;

@@ -31,11 +31,13 @@
 // (c = sm_scale · log2 e). Two kernels, as in the JAX split, so that no
 // gradient needs atomics:
 //  - flash_dq_wgmma_kernel, query-major: an item is 128 query rows of one
-//    (head, batch). Its Q and dO are double-buffered; its rows' lse and
+//    (head, batch). Its Q and dO are double-buffered (one buffer each at
+//    head dim 256); its rows' lse and
 //    delta go to registers once per item (lse · log2 e - log2 sm_scale, so
 //    that p carries sm_scale and ds = p (dP - delta) saves a multiply); a
 //    ring of K/V tiles (BN = 128
-//    keys at head dim 64 in four stages, 64 at 80 and 128 in three) runs on
+//    keys at head dim 64 in four stages, 64 at 80 and 128 and 32 at 256 in
+//    three) runs on
 //    across items. Per tile: S = Q·K^T and dP = dO·V^T (both operands
 //    K-major, two commit groups, so p is computed from S while dP is on
 //    the tensor cores), ds rounded to bf16 as register A fragments, and
@@ -57,16 +59,29 @@
 //    consumers' peak at 64 + 64 accumulators + 32 + 32 scores a thread.
 //    Causal walks start at the first query tile that sees the item's keys;
 //    the longest items are the first key tiles.
+//  - Head dim 256: the dk and dv of 64 keys would be 256 fp32 values a
+//    thread, over the consumers' 232 registers, so the two warpgroups
+//    split the head dim instead of the keys: an item is 64 keys, both
+//    warpgroups compute its S^T, dP^T and dS^T over all 256 columns (the
+//    same products, so the same bits), and warpgroup w owns dk and dv of
+//    columns 128w .. 128w + 127, its products reading that half of the
+//    walked Q and dO tiles: 64 + 64 accumulators a thread, the head dim
+//    128 kernel's count, for 1.5x the products of a key split. K and V
+//    are single-buffered (64 KB) beside two ring stages (128 KB). In dq
+//    the accumulator of 64 rows x 256 is 128 values a thread, so S and dP
+//    walk key tiles of 32 (m64n32 products, 16 values each) and Q and dO
+//    are single-buffered (128 KB) beside three K/V stages (96 KB).
 // Where trouble was expected, and what the kernels do about it:
 //  1. lse and delta: registers per item in dq; staged per tile in dkv (see
 //     above), in the column layout of S^T (thread t of a warp reads
 //     columns 8j + 2t + e as one float2).
 //  2. Registers: the walked tile stays at 64 rows in dkv, so a consumer
-//     holds at most 192 fp32 values (head dim 128), under the 232 that
-//     setmaxnreg grants.
+//     holds at most 192 fp32 values (head dim 128, and 256 split), under
+//     the 232 that setmaxnreg grants; dq at 256 at most 128 + 2 x 16.
 //  3. Shared memory at head dim 128: dkv keeps K and V double-buffered (128
 //     KB) and takes three ring stages (96 KB): 232,040 bytes with the
-//     alignment slack; dq takes three K/V stages.
+//     alignment slack; dq takes three K/V stages. At 256: dq 230,504
+//     bytes, dkv 198,736.
 //  4. Ragged edges: only the tiles on the causal diagonal or past S or T
 //     mask, explicitly by row and key index (a zero-filled row of dkv
 //     would otherwise read lse = 0 and give p = 1; a zero-filled key of dq
@@ -84,8 +99,10 @@
 //     mbarriers moved dq by -2% and dkv by +3%: not kept. Nor were
 //     128-row walked tiles in dkv at head dim 64 (the same time).
 // fp32 inputs take plain FMA kernels (64-row tiles, 256 threads) so that
-// fp32 keeps full precision. Head dims 64, 80 (rows staged as two 64-column
-// boxes, the second zero-filled past 80) and 128; 256 is refused (`DqCfg`).
+// fp32 keeps full precision; at head dim 256 the tile they walk is 32 rows
+// (`FL_WALK`), as four [64][257] tiles would need 263 KB of shared memory.
+// Head dims 64, 80 (rows staged as two 64-column boxes, the second
+// zero-filled past 80), 128 and 256.
 
 
 #include <cuda_bf16.h>
@@ -188,21 +205,24 @@ __device__ __forceinline__ void wgmma_ab(float (&d)[R],
 
 // ------------------------------------------------------------------- dq
 
-// Head dims 64, 80 (rows padded to 128 columns, `pad64`) and 128. At 256
-// the dk and dv accumulators of 64 keys would be 256 fp32 values a thread,
-// over ATT_CONSUMER_REGS: the backward refuses it (ROADMAP queue 2 A).
+// Head dims 64, 80 (rows padded to 128 columns, `pad64`), 128 and 256 (one
+// Q and one dO buffer, key tiles of 32: the accumulator is 128 values a
+// thread).
 template <int KD>
 struct DqCfg {
-  static_assert(KD == 64 || KD == 80 || KD == 128, "head dim 64, 80 or 128");
+  static_assert(KD == 64 || KD == 80 || KD == 128 || KD == 256,
+                "head dim 64, 80, 128 or 256");
   static constexpr int KP = pad64(KD);
-  static constexpr int BN = KD == 64 ? 128 : 64;  // keys per tile (key_tile)
+  // Keys per tile: ops/attention.py `dq_key_tile`, checked at launch.
+  static constexpr int BN = KD == 64 ? 128 : KD == 256 ? 32 : 64;
   static constexpr int NBOX = KP / 64;
+  static constexpr int Q_BUFS = KD == 256 ? 1 : 2;
   static constexpr int ST = KD == 64 ? 4 : 3;     // K/V ring stages
   static constexpr int Q_BYTES = ATT_BM * KP * 2;  // Q (or dO) of one item
   static constexpr int KV_BYTES = BN * KP * 2;     // one K or V tile
-  static constexpr int OFF_Q = 0;                  // [2 buffers]
-  static constexpr int OFF_DO = OFF_Q + 2 * Q_BYTES;
-  static constexpr int OFF_K = OFF_DO + 2 * Q_BYTES;  // [ST stages]
+  static constexpr int OFF_Q = 0;                  // [Q_BUFS buffers]
+  static constexpr int OFF_DO = OFF_Q + Q_BUFS * Q_BYTES;
+  static constexpr int OFF_K = OFF_DO + Q_BUFS * Q_BYTES;  // [ST stages]
   static constexpr int OFF_V = OFF_K + ST * KV_BYTES;
   static constexpr int OFF_BAR = OFF_V + ST * KV_BYTES;
   static constexpr int SMEM = OFF_BAR + 8 * (4 + 3 * ST) + 1024;
@@ -328,8 +348,8 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
       if (item >= n_items) break;
       const QueryItem it = query_item<BN>(item, n_qt, S, T, H, B, causal);
       if (it.n_kt == 0) continue;
-      const int qb = jq & 1;
-      mbar_wait(bar.a_empty + qb, ((jq >> 1) & 1) ^ 1);
+      const int qb = qbuf<Cfg::Q_BUFS>(jq);
+      mbar_wait(bar.a_empty + qb, qphase<Cfg::Q_BUFS>(jq) ^ 1);
       mbar_expect_tx(bar.full_a + qb, 2 * Cfg::Q_BYTES);
 #pragma unroll
       for (int cb = 0; cb < Cfg::NBOX; ++cb) {
@@ -381,8 +401,8 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
           l2[h] = row < S ? lse[at] * LOG2E - log2_scale : 0.f;
           dl[h] = row < S ? delta[at] : 0.f;
         }
-        const int qb = jq & 1;
-        mbar_wait(bar.full_a + qb, (jq >> 1) & 1);
+        const int qb = qbuf<Cfg::Q_BUFS>(jq);
+        mbar_wait(bar.full_a + qb, qphase<Cfg::Q_BUFS>(jq));
         dq_mainloop<KD>(base, qb, bar, wg, g, it.n_kt, T,
                         causal ? qw : ATT_NO_CAUSAL, c, l2, dl, acc);
         __syncwarp();
@@ -398,23 +418,32 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
 
 // ------------------------------------------------------------------ dkv
 
-// Keys per item (two warpgroups of 64) and query rows per walked tile: the
-// box rows of ops/attention.py `flash_dkv_plan`, checked at launch.
+// Keys per item (two warpgroups of 64; 64 shared by both at head dim 256)
+// and query rows per walked tile: the box rows of ops/attention.py
+// `flash_dkv_plan` (`dkv_keys`), checked at launch.
 constexpr int DKV_KEYS = 128;
+constexpr int DKV_KEYS_SPLIT = 64;
 constexpr int DKV_ROWS = 64;
 constexpr int STAGE_WARP_ARRIVALS = 32;
 
 template <int KD>
 struct DkvCfg {
-  static_assert(KD == 64 || KD == 80 || KD == 128, "head dim 64, 80 or 128");
+  static_assert(KD == 64 || KD == 80 || KD == 128 || KD == 256,
+                "head dim 64, 80, 128 or 256");
+  // Head dim 256: the warpgroups share the item's keys and split the head
+  // dim, each owning KO columns of dk and dv.
+  static constexpr bool SPLIT = KD == 256;
+  static constexpr int KEYS = SPLIT ? DKV_KEYS_SPLIT : DKV_KEYS;
+  static constexpr int KO = SPLIT ? KD / 2 : KD;
   static constexpr int KP = pad64(KD);
   static constexpr int NBOX = KP / 64;
-  static constexpr int ST = KD == 64 ? 4 : 3;        // Q/dO ring stages
-  static constexpr int KV_BYTES = DKV_KEYS * KP * 2;  // K (or V) of one item
+  static constexpr int KV_BUFS = SPLIT ? 1 : 2;
+  static constexpr int ST = KD == 64 ? 4 : SPLIT ? 2 : 3;  // Q/dO stages
+  static constexpr int KV_BYTES = KEYS * KP * 2;      // K (or V) of one item
   static constexpr int Q_BYTES = DKV_ROWS * KP * 2;   // one Q or dO tile
-  static constexpr int OFF_K = 0;                     // [2 buffers]
-  static constexpr int OFF_V = OFF_K + 2 * KV_BYTES;
-  static constexpr int OFF_Q = OFF_V + 2 * KV_BYTES;  // [ST stages]
+  static constexpr int OFF_K = 0;                     // [KV_BUFS buffers]
+  static constexpr int OFF_V = OFF_K + KV_BUFS * KV_BYTES;
+  static constexpr int OFF_Q = OFF_V + KV_BUFS * KV_BYTES;  // [ST stages]
   static constexpr int OFF_DO = OFF_Q + ST * Q_BYTES;
   // [ST][lse · log2 e, delta · sm_scale][DKV_ROWS] fp32
   static constexpr int OFF_ROW = OFF_DO + ST * Q_BYTES;
@@ -423,13 +452,14 @@ struct DkvCfg {
   static_assert(SMEM <= 232448, "more shared memory than a block may have");
 };
 
-// Work item `item`: a tile of DKV_KEYS keys of one (head, batch), longest
-// first (the first key tiles, when causal), and its walk over the query
-// tiles first_qt .. n_qt - 1.
+// Work item `item`: a tile of KEYS keys of one (head, batch), longest first
+// (the first key tiles, when causal), and its walk over the query tiles
+// first_qt .. n_qt - 1.
 struct DkvItem {
   int key0, h, b, first_qt, n_walk;
 };
 
+template <int KEYS>
 __device__ __forceinline__ DkvItem dkv_item(int item, int n_qt, int H,
                                             int B, int causal) {
   DkvItem it;
@@ -437,7 +467,7 @@ __device__ __forceinline__ DkvItem dkv_item(int item, int n_qt, int H,
   const int hb = item - rank * (H * B);
   it.h = hb % H;
   it.b = hb / H;
-  it.key0 = rank * DKV_KEYS;
+  it.key0 = rank * KEYS;
   it.first_qt = causal ? it.key0 / DKV_ROWS : 0;
   it.n_walk = max(0, n_qt - it.first_qt);
   return it;
@@ -446,15 +476,12 @@ __device__ __forceinline__ DkvItem dkv_item(int item, int n_qt, int H,
 // One consumer warpgroup's walk over an item's query tiles (the block's
 // ring tiles g0, g0 + 1, ...), its K and V in buffer kb; kw is the
 // warpgroup's first key. Accumulates dk (ak) and dv (av) of this thread's
-// keys kw + r0 and kw + r0 + 8.
+// keys kw + r0 and kw + r0 + 8, over the warpgroup's KO columns.
 template <int KD>
-__device__ __forceinline__ void dkv_mainloop(unsigned char* base, int kb,
-                                             const AttnBars& bar, int wg,
-                                             int g0, const DkvItem& it,
-                                             int kw, int S, int causal,
-                                             float c, float scale,
-                                             float (&ak)[KD / 2],
-                                             float (&av)[KD / 2]) {
+__device__ __forceinline__ void dkv_mainloop(
+    unsigned char* base, int kb, const AttnBars& bar, int wg, int g0,
+    const DkvItem& it, int kw, int S, int causal, float c, float scale,
+    float (&ak)[DkvCfg<KD>::KO / 2], float (&av)[DkvCfg<KD>::KO / 2]) {
   using Cfg = DkvCfg<KD>;
   constexpr int BQ = DKV_ROWS;
   constexpr int NS = BQ / 2;
@@ -468,10 +495,14 @@ __device__ __forceinline__ void dkv_mainloop(unsigned char* base, int kb,
   const int t2 = 2 * (lane & 3);
   const int key_a = kw + r0;
   const int key_b = key_a + 8;
+  const uint32_t krow = Cfg::SPLIT ? 0 : wg * 64 * 128;
   const uint32_t k_addr =
-      smem_u32(base + Cfg::OFF_K + kb * Cfg::KV_BYTES) + wg * 64 * 128;
+      smem_u32(base + Cfg::OFF_K + kb * Cfg::KV_BYTES) + krow;
   const uint32_t v_addr =
-      smem_u32(base + Cfg::OFF_V + kb * Cfg::KV_BYTES) + wg * 64 * 128;
+      smem_u32(base + Cfg::OFF_V + kb * Cfg::KV_BYTES) + krow;
+  // The warpgroup's columns of the walked Q and dO tiles: split, the
+  // 64-column boxes 2wg and 2wg + 1.
+  const uint32_t col = Cfg::SPLIT ? wg * (Cfg::KO / 64) * BQ * 128 : 0;
   int pend = -1;  // the stage whose dk and dv products are still in flight
   for (int i = 0; i < it.n_walk; ++i) {
     const int gi = g0 + i;
@@ -488,8 +519,8 @@ __device__ __forceinline__ void dkv_mainloop(unsigned char* base, int kb,
     if (!causal || kw <= q0 + BQ - 1) {
       float s[NS], dp[NS];
       wgmma_fence();
-      wgmma_abt<KD, DKV_KEYS, BQ>(s, k_addr, q_addr);
-      wgmma_abt<KD, DKV_KEYS, BQ>(dp, v_addr, d_addr);
+      wgmma_abt<KD, Cfg::KEYS, BQ>(s, k_addr, q_addr);
+      wgmma_abt<KD, Cfg::KEYS, BQ>(dp, v_addr, d_addr);
       wgmma_wait<1>();  // S^T, and the previous tile's dk and dv products
       fence_regs(s);
       release_stage(bar, pend);
@@ -524,7 +555,7 @@ __device__ __forceinline__ void dkv_mainloop(unsigned char* base, int kb,
       if constexpr (OVERLAP) {  // dv += P^T·dO while dS^T is computed
         fence_regs(av);
         wgmma_fence();
-        wgmma_ab(av, pa, d_addr);
+        wgmma_ab(av, pa, d_addr + col);
         wgmma_commit();
         wgmma_wait<1>();  // dP^T
       } else {
@@ -546,9 +577,9 @@ __device__ __forceinline__ void dkv_mainloop(unsigned char* base, int kb,
       wgmma_fence();
       if constexpr (!OVERLAP) {
         fence_regs(av);
-        wgmma_ab(av, pa, d_addr);
+        wgmma_ab(av, pa, d_addr + col);
       }
-      wgmma_ab(ak, da, q_addr);
+      wgmma_ab(ak, da, q_addr + col);
       wgmma_commit();
       pend = st;  // released once the products are done
       if constexpr (!OVERLAP) {
@@ -581,7 +612,8 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
   constexpr int BQ = DKV_ROWS;
   extern __shared__ unsigned char smem_raw[];
   const int n_qt = (S + BQ - 1) / BQ;
-  const int n_items = (T + DKV_KEYS - 1) / DKV_KEYS * H * B;
+  constexpr int KEYS = Cfg::KEYS;
+  const int n_items = (T + KEYS - 1) / KEYS * H * B;
   AttnBars bar;
   unsigned char* base = attn_setup<Cfg::ST>(
       smem_raw, Cfg::OFF_BAR, 1 + STAGE_WARP_ARRIVALS, bar);
@@ -595,14 +627,14 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
       for (int k = 0;; ++k) {
         const int item = attn_item(k);
         if (item >= n_items) break;
-        const DkvItem it = dkv_item(item, n_qt, H, B, causal);
+        const DkvItem it = dkv_item<KEYS>(item, n_qt, H, B, causal);
         if (it.n_walk == 0) continue;
-        const int kb = jk & 1;
-        mbar_wait(bar.a_empty + kb, ((jk >> 1) & 1) ^ 1);
+        const int kb = qbuf<Cfg::KV_BUFS>(jk);
+        mbar_wait(bar.a_empty + kb, qphase<Cfg::KV_BUFS>(jk) ^ 1);
         mbar_expect_tx(bar.full_a + kb, 2 * Cfg::KV_BYTES);
 #pragma unroll
         for (int cb = 0; cb < Cfg::NBOX; ++cb) {
-          const int off = kb * Cfg::KV_BYTES + cb * DKV_KEYS * 128;
+          const int off = kb * Cfg::KV_BYTES + cb * KEYS * 128;
           tma_load_4d(base + Cfg::OFF_K + off, &kmap, bar.full_a + kb,
                       cb * 64, it.h, it.key0, it.b);
           tma_load_4d(base + Cfg::OFF_V + off, &vmap, bar.full_a + kb,
@@ -630,7 +662,7 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
       for (int k = 0;; ++k) {
         const int item = attn_item(k);
         if (item >= n_items) break;
-        const DkvItem it = dkv_item(item, n_qt, H, B, causal);
+        const DkvItem it = dkv_item<KEYS>(item, n_qt, H, B, causal);
         for (int i = 0; i < it.n_walk; ++i, ++g) {
           const int st = g % Cfg::ST;
           const int q0 = (it.first_qt + i) * BQ;
@@ -655,14 +687,16 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
     for (int k = 0;; ++k) {
       const int item = attn_item(k);
       if (item >= n_items) break;
-      const DkvItem it = dkv_item(item, n_qt, H, B, causal);
-      const int kw = it.key0 + wg * 64;  // the warpgroup's first key
-      float ak[KD / 2], av[KD / 2];
+      const DkvItem it = dkv_item<KEYS>(item, n_qt, H, B, causal);
+      // The warpgroup's first key and first column.
+      const int kw = it.key0 + (Cfg::SPLIT ? 0 : wg * 64);
+      const int col0 = Cfg::SPLIT ? wg * Cfg::KO : 0;
+      float ak[Cfg::KO / 2], av[Cfg::KO / 2];
 #pragma unroll
-      for (int i = 0; i < KD / 2; ++i) ak[i] = av[i] = 0.f;
+      for (int i = 0; i < Cfg::KO / 2; ++i) ak[i] = av[i] = 0.f;
       if (it.n_walk > 0) {  // no query row sees these keys: dk = dv = 0
-        const int kb = jk & 1;
-        mbar_wait(bar.full_a + kb, (jk >> 1) & 1);
+        const int kb = qbuf<Cfg::KV_BUFS>(jk);
+        mbar_wait(bar.full_a + kb, qphase<Cfg::KV_BUFS>(jk));
         dkv_mainloop<KD>(base, kb, bar, wg, g, it, kw, S, causal, c, scale,
                          ak, av);
         __syncwarp();
@@ -670,10 +704,12 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
         ++jk;
         g += it.n_walk;
       }
-      store_acc<KD>(ak, dk + it.b * kst.b + kw * kst.s + it.h * kst.h, kst.s,
-                    T - kw);
-      store_acc<KD>(av, dv + it.b * vst.b + kw * vst.s + it.h * vst.h, vst.s,
-                    T - kw);
+      store_acc<Cfg::KO>(
+          ak, dk + it.b * kst.b + kw * kst.s + it.h * kst.h + col0, kst.s,
+          T - kw);
+      store_acc<Cfg::KO>(
+          av, dv + it.b * vst.b + kw * vst.s + it.h * vst.h + col0, vst.s,
+          T - kw);
     }
   }
 }
@@ -681,23 +717,35 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
 // ---------------------------------------------------------------------------
 // fp32 FMA versions.
 
-constexpr int SP = FL_TILE + 1;  // pitch of a 64 x 64 score tile
+// Rows of the tile the fp32 kernels walk (dq: keys; dkv: query rows) beside
+// the block's own 64: 64, and 32 at head dim 256, where four [64][257]
+// tiles would need 263 KB of shared memory. WP: the pitch of a score tile.
+template <int KD>
+constexpr int FL_WALK = KD == 256 ? 32 : FL_TILE;
+template <int KD>
+constexpr int FL_WP = FL_WALK<KD> + 1;
 
 template <int KD>
 constexpr size_t dq_f32_smem_bytes() {
-  // q, dO, k, v tiles [64][KD + 1], ds [64][65], lse and delta [64].
-  return sizeof(float) * (4 * (size_t)FL_TILE * (KD + 1) +
-                          (size_t)FL_TILE * SP + 2 * FL_TILE);
+  // q, dO tiles [64][KD + 1], k, v [WALK][KD + 1], ds [64][WP], lse and
+  // delta [64].
+  return sizeof(float) * (2 * (size_t)(FL_TILE + FL_WALK<KD>) * (KD + 1) +
+                          (size_t)FL_TILE * FL_WP<KD> + 2 * FL_TILE);
 }
 
 template <int KD>
 constexpr size_t dkv_f32_smem_bytes() {
-  // k, v, q, dO tiles [64][KD + 1], p and ds [64][65], lse and delta [64].
-  return sizeof(float) * (4 * (size_t)FL_TILE * (KD + 1) +
-                          2 * (size_t)FL_TILE * SP + 2 * FL_TILE);
+  // k, v tiles [64][KD + 1], q, dO [WALK][KD + 1], p and ds [64][WP], lse
+  // and delta [WALK].
+  return sizeof(float) * (2 * (size_t)(FL_TILE + FL_WALK<KD>) * (KD + 1) +
+                          2 * (size_t)FL_TILE * FL_WP<KD> + 2 * FL_WALK<KD>);
 }
 
 // p and ds of query row r and key t of a tile pair, from the shared tiles.
+// The two dot products run in eight partial sums each, added pairwise: dP
+// - delta cancels where a row sees few keys (a row of one key has dP =
+// delta), and a single running sum over 256 columns left an error there
+// past the fp32 rule of the plain version's blocked sums.
 template <int KD>
 __device__ __forceinline__ void p_ds_f32(const float* q_row,
                                          const float* d_row,
@@ -706,14 +754,27 @@ __device__ __forceinline__ void p_ds_f32(const float* q_row,
                                          float lse_r, float dl_r,
                                          float sm_scale, float& p,
                                          float& ds) {
-  float s = 0.f, dp = 0.f;
-#pragma unroll 16
-  for (int c = 0; c < KD; ++c) {
-    s += q_row[c] * k_row[c];
-    dp += d_row[c] * v_row[c];
-  }
-  p = ok ? expf(s * sm_scale - lse_r) : 0.f;
-  ds = p * (dp - dl_r) * sm_scale;
+  constexpr int NA = 8;
+  static_assert(KD % NA == 0, "head dim a multiple of 8");
+  float s[NA], dp[NA];
+#pragma unroll
+  for (int a = 0; a < NA; ++a) s[a] = dp[a] = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < KD; c += NA)
+#pragma unroll
+    for (int a = 0; a < NA; ++a) {
+      s[a] += q_row[c + a] * k_row[c + a];
+      dp[a] += d_row[c + a] * v_row[c + a];
+    }
+#pragma unroll
+  for (int w = NA / 2; w > 0; w /= 2)
+#pragma unroll
+    for (int a = 0; a < w; ++a) {
+      s[a] += s[a + w];
+      dp[a] += dp[a + w];
+    }
+  p = ok ? expf(s[0] * sm_scale - lse_r) : 0.f;
+  ds = p * (dp[0] - dl_r) * sm_scale;
 }
 
 template <int KD>
@@ -729,13 +790,15 @@ __global__ void __launch_bounds__(FL_F32_THREADS)
   constexpr int KP = KD + 1;
   constexpr int RG = FL_RG<KD>;
   constexpr int RPT = FL_RPT<KD>;
+  constexpr int WT = FL_WALK<KD>;  // keys per walked tile
+  constexpr int WP = FL_WP<KD>;
   extern __shared__ float smem[];
   float* q_s = smem;
   float* d_s = q_s + FL_TILE * KP;
   float* k_s = d_s + FL_TILE * KP;
-  float* v_s = k_s + FL_TILE * KP;
-  float* ds_s = v_s + FL_TILE * KP;
-  float* lse_s = ds_s + FL_TILE * SP;
+  float* v_s = k_s + WT * KP;
+  float* ds_s = v_s + WT * KP;
+  float* lse_s = ds_s + FL_TILE * WP;
   float* dl_s = lse_s + FL_TILE;
 
   const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
@@ -762,21 +825,21 @@ __global__ void __launch_bounds__(FL_F32_THREADS)
   for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
 
   const int kv_end = causal ? min(T, q0 + rows) : T;
-  const int n_kt = (kv_end + FL_TILE - 1) / FL_TILE;
+  const int n_kt = (kv_end + WT - 1) / WT;
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int key0 = kt * FL_TILE;
+    const int key0 = kt * WT;
     __syncthreads();
-    load_tile_f32<KD, KP>(k_s, kb, st.k.s, key0, kv_end, tid);
-    load_tile_f32<KD, KP>(v_s, vb, st.v.s, key0, kv_end, tid);
+    load_tile_f32<KD, KP, WT>(k_s, kb, st.k.s, key0, kv_end, tid);
+    load_tile_f32<KD, KP, WT>(v_s, vb, st.v.s, key0, kv_end, tid);
     __syncthreads();
-    for (int i = tid; i < FL_TILE * FL_TILE; i += FL_F32_THREADS) {
-      const int r = i / FL_TILE, t = i % FL_TILE;
+    for (int i = tid; i < FL_TILE * WT; i += FL_F32_THREADS) {
+      const int r = i / WT, t = i % WT;
       const int key = key0 + t;
       const bool ok = r < rows && key < T && (!causal || key <= q0 + r);
       float p, ds;
       p_ds_f32<KD>(q_s + r * KP, d_s + r * KP, k_s + t * KP, v_s + t * KP, ok,
                    lse_s[r], dl_s[r], sm_scale, p, ds);
-      ds_s[r * SP + t] = ds;
+      ds_s[r * WP + t] = ds;
     }
     __syncthreads();
 #pragma unroll
@@ -785,8 +848,8 @@ __global__ void __launch_bounds__(FL_F32_THREADS)
       if (!fl_pv_row<KD>(rgrp, r)) continue;
       float a = 0.f;
 #pragma unroll 16
-      for (int t = 0; t < FL_TILE; ++t)
-        a += ds_s[r * SP + t] * k_s[t * KP + kcol];
+      for (int t = 0; t < WT; ++t)
+        a += ds_s[r * WP + t] * k_s[t * KP + kcol];
       acc[i] += a;
     }
   }
@@ -813,15 +876,17 @@ __global__ void __launch_bounds__(FL_F32_THREADS)
   constexpr int KP = KD + 1;
   constexpr int RG = FL_RG<KD>;
   constexpr int RPT = FL_RPT<KD>;
+  constexpr int WT = FL_WALK<KD>;  // query rows per walked tile
+  constexpr int WP = FL_WP<KD>;
   extern __shared__ float smem[];
   float* k_s = smem;
   float* v_s = k_s + FL_TILE * KP;
   float* q_s = v_s + FL_TILE * KP;
-  float* d_s = q_s + FL_TILE * KP;
-  float* p_s = d_s + FL_TILE * KP;   // [key][query]
-  float* ds_s = p_s + FL_TILE * SP;  // [key][query]
-  float* lse_s = ds_s + FL_TILE * SP;
-  float* dl_s = lse_s + FL_TILE;
+  float* d_s = q_s + WT * KP;
+  float* p_s = d_s + WT * KP;         // [key][query]
+  float* ds_s = p_s + FL_TILE * WP;   // [key][query]
+  float* lse_s = ds_s + FL_TILE * WP;
+  float* dl_s = lse_s + WT;
 
   const int key0 = blockIdx.x * FL_TILE;
   const int h = blockIdx.y;
@@ -840,29 +905,29 @@ __global__ void __launch_bounds__(FL_F32_THREADS)
 #pragma unroll
   for (int i = 0; i < RPT; ++i) acc_k[i] = acc_v[i] = 0.f;
 
-  const int n_qt = (S + FL_TILE - 1) / FL_TILE;
-  const int first_qt = causal ? key0 / FL_TILE : 0;
+  const int n_qt = (S + WT - 1) / WT;
+  const int first_qt = causal ? key0 / WT : 0;
   for (int qt = first_qt; qt < n_qt; ++qt) {
-    const int q0 = qt * FL_TILE;
-    const int rows = min(FL_TILE, S - q0);
+    const int q0 = qt * WT;
+    const int rows = min(WT, S - q0);
     __syncthreads();
-    load_tile_f32<KD, KP>(q_s, qb, st.q.s, q0, S, tid);
-    load_tile_f32<KD, KP>(d_s, db, st.dout.s, q0, S, tid);
-    for (int r = tid; r < FL_TILE; r += FL_F32_THREADS) {
+    load_tile_f32<KD, KP, WT>(q_s, qb, st.q.s, q0, S, tid);
+    load_tile_f32<KD, KP, WT>(d_s, db, st.dout.s, q0, S, tid);
+    for (int r = tid; r < WT; r += FL_F32_THREADS) {
       const long long at = ((long long)b * S + q0 + r) * H + h;
       lse_s[r] = r < rows ? lse[at] : 0.f;
       dl_s[r] = r < rows ? delta[at] : 0.f;
     }
     __syncthreads();
-    for (int i = tid; i < FL_TILE * FL_TILE; i += FL_F32_THREADS) {
-      const int t = i / FL_TILE, r = i % FL_TILE;
+    for (int i = tid; i < FL_TILE * WT; i += FL_F32_THREADS) {
+      const int t = i / WT, r = i % WT;
       const int key = key0 + t;
       const bool ok = r < rows && key < T && (!causal || key <= q0 + r);
       float p, ds;
       p_ds_f32<KD>(q_s + r * KP, d_s + r * KP, k_s + t * KP, v_s + t * KP, ok,
                    lse_s[r], dl_s[r], sm_scale, p, ds);
-      p_s[t * SP + r] = p;
-      ds_s[t * SP + r] = ds;
+      p_s[t * WP + r] = p;
+      ds_s[t * WP + r] = ds;
     }
     __syncthreads();
 #pragma unroll
@@ -871,9 +936,9 @@ __global__ void __launch_bounds__(FL_F32_THREADS)
       if (!fl_pv_row<KD>(rgrp, t)) continue;
       float av = 0.f, ak = 0.f;
 #pragma unroll 16
-      for (int r = 0; r < FL_TILE; ++r) {
-        av += p_s[t * SP + r] * d_s[r * KP + kcol];
-        ak += ds_s[t * SP + r] * q_s[r * KP + kcol];
+      for (int r = 0; r < WT; ++r) {
+        av += p_s[t * WP + r] * d_s[r * KP + kcol];
+        ak += ds_s[t * WP + r] * q_s[r * KP + kcol];
       }
       acc_v[i] += av;
       acc_k[i] += ak;
@@ -941,7 +1006,8 @@ cudaError_t launch_dkv(int dtype, const void* q, const void* k, const void* v,
                        const DkvRows& st, int causal, float sm_scale,
                        const long long* maps, cudaStream_t stream) {
   if (dtype == DTYPE_BF16) {
-    const int rows[4] = {DKV_ROWS, DKV_KEYS, DKV_KEYS, DKV_ROWS};
+    constexpr int KEYS = DkvCfg<KD>::KEYS;
+    const int rows[4] = {DKV_ROWS, KEYS, KEYS, DKV_ROWS};
     if (maps == nullptr || !tile_boxes_are(maps, rows, 4))
       return cudaErrorInvalidValue;
     CUtensorMap qm, km, vm, dm;
@@ -957,7 +1023,7 @@ cudaError_t launch_dkv(int dtype, const void* q, const void* k, const void* v,
     e = allow_smem(flash_dkv_wgmma_kernel<KD>, smem);
     int grid = 0;
     if (e == cudaSuccess)
-      e = attn_grid((T + DKV_KEYS - 1) / DKV_KEYS * H * B, &grid);
+      e = attn_grid((T + KEYS - 1) / KEYS * H * B, &grid);
     if (e != cudaSuccess) return e;
     flash_dkv_wgmma_kernel<KD><<<grid, ATT_THREADS, smem, stream>>>(
         qm, km, vm, dm, lse, delta, static_cast<__nv_bfloat16*>(dk),
@@ -1007,6 +1073,9 @@ extern "C" int rtt_flash_dq(int dtype, const void* q, const void* k,
     case 128:
       return (int)rtt::launch_dq<128>(dtype, q, k, v, dout, l, d, dq, B, S, T,
                                       H, st, causal, sm_scale, maps, s);
+    case 256:
+      return (int)rtt::launch_dq<256>(dtype, q, k, v, dout, l, d, dq, B, S, T,
+                                      H, st, causal, sm_scale, maps, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1038,6 +1107,9 @@ extern "C" int rtt_flash_dkv(int dtype, const void* q, const void* k,
                                       S, T, H, st, causal, sm_scale, maps, s);
     case 128:
       return (int)rtt::launch_dkv<128>(dtype, q, k, v, dout, l, d, dk, dv, B,
+                                       S, T, H, st, causal, sm_scale, maps, s);
+    case 256:
+      return (int)rtt::launch_dkv<256>(dtype, q, k, v, dout, l, d, dk, dv, B,
                                        S, T, H, st, causal, sm_scale, maps, s);
     default:
       return (int)cudaErrorInvalidValue;

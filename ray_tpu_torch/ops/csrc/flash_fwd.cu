@@ -8,7 +8,10 @@
 // (m, l, acc) in fp32; probabilities rounded to v's dtype before P·V and summed
 // unrounded into l. Outputs o (q.dtype, written with o's strides) and the
 // row's log-sum-exp lse = m + log(l) as fp32 [B, S, H]; a row with no visible
-// key gets o = 0 and lse = -1e30.
+// key gets o = 0 and lse = -1e30. When asked (bf16; the training path at
+// head dim 256, ops/attention.py `O32_HEAD_DIMS`) it also writes o before
+// its rounding, in fp32 (`o32`), for the backward's delta = rowsum(dO · o):
+// the rounded o's error reaches every key of a row alike.
 //
 // What bounds it on the H100: at the training step's shapes (B = 8, S = T =
 // 1024, H = 12, K = 64, bf16, causal) the bytes of q, k, v, o over 3.35
@@ -59,8 +62,9 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
                            const __grid_constant__ CUtensorMap kmap,
                            const __grid_constant__ CUtensorMap vmap,
                            __nv_bfloat16* __restrict__ o,
-                           float* __restrict__ lse, int B, int S, int T,
-                           int H, Rows ost, int causal, float c) {
+                           float* __restrict__ lse, float* __restrict__ o32,
+                           int B, int S, int T, int H, Rows ost, int causal,
+                           float c) {
   using Cfg = AttnCfg<KD, false>;
   constexpr int BN = Cfg::BN;
   extern __shared__ unsigned char smem_raw[];
@@ -129,10 +133,10 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
         ++jq;
         g += it.n_kt;
       }
-      attn_store<KD>(acc, m2, l,
-                     o + it.b * ost.b + r0 * ost.s + it.h * ost.h, ost.s,
-                     it.rows - wg * 64,
-                     lse + ((long long)it.b * S + r0) * H + it.h, H);
+      const long long at = it.b * ost.b + r0 * ost.s + it.h * ost.h;
+      attn_store<KD>(acc, m2, l, o + at, ost.s, it.rows - wg * 64,
+                     lse + ((long long)it.b * S + r0) * H + it.h, H,
+                     o32 == nullptr ? nullptr : o32 + at);
     }
   }
 }
@@ -273,7 +277,8 @@ __global__ void __launch_bounds__(FL_F32_THREADS)
 
 template <int KD>
 cudaError_t launch_fwd(int dtype, const void* q, const void* k, const void* v,
-                       void* o, float* lse, int B, int S, int T, int H,
+                       void* o, float* lse, float* o32, int B, int S, int T,
+                       int H,
                        const FwdRows& st, int causal, float sm_scale,
                        const long long* maps, cudaStream_t stream) {
   if (dtype == DTYPE_BF16) {
@@ -296,8 +301,8 @@ cudaError_t launch_fwd(int dtype, const void* q, const void* k, const void* v,
       e = attn_grid((S + ATT_BM - 1) / ATT_BM * H * B, &grid);
     if (e != cudaSuccess) return e;
     flash_fwd_wgmma_kernel<KD><<<grid, ATT_THREADS, smem, stream>>>(
-        qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, B, S, T, H, st.o,
-        causal, sm_scale * LOG2E);
+        qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, o32, B, S, T, H,
+        st.o, causal, sm_scale * LOG2E);
     return cudaGetLastError();
   }
   if (dtype != DTYPE_F32) return cudaErrorInvalidValue;
@@ -316,32 +321,37 @@ cudaError_t launch_fwd(int dtype, const void* q, const void* k, const void* v,
 }  // namespace rtt
 
 // strides: 12 element strides, (b, s, h) of q, k, v and o in that order.
-// maps: bf16, the tensor maps of q, k and v (3 x TMAP_WORDS numbers from
-// ops/attention.py `flash_plan`); NULL for fp32.
+// o32: bf16, NULL or an fp32 tensor with o's strides that also gets O
+// unrounded (the training path's, for the backward's delta); fp32 o is
+// unrounded already and o32 is not read. maps: bf16, the tensor maps of q,
+// k and v (3 x TMAP_WORDS numbers from ops/attention.py `flash_plan`); NULL
+// for fp32.
 extern "C" int rtt_flash_fwd(int dtype, const void* q, const void* k,
-                             const void* v, void* o, void* lse, int B, int S,
-                             int T, int H, int K, const long long* strides,
-                             int causal, float sm_scale,
-                             const long long* maps, void* stream) {
+                             const void* v, void* o, void* lse, void* o32,
+                             int B, int S, int T, int H, int K,
+                             const long long* strides, int causal,
+                             float sm_scale, const long long* maps,
+                             void* stream) {
   if (B == 0 || S == 0 || H == 0) return (int)cudaSuccess;
   rtt::FwdRows st;
   rtt::Rows* r[4] = {&st.q, &st.k, &st.v, &st.o};
   rtt::unpack_rows(r, 4, strides);
   float* l = static_cast<float*>(lse);
+  float* u = static_cast<float*>(o32);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (K) {
     case 64:
-      return (int)rtt::launch_fwd<64>(dtype, q, k, v, o, l, B, S, T, H, st,
-                                      causal, sm_scale, maps, s);
+      return (int)rtt::launch_fwd<64>(dtype, q, k, v, o, l, u, B, S, T, H,
+                                      st, causal, sm_scale, maps, s);
     case 80:
-      return (int)rtt::launch_fwd<80>(dtype, q, k, v, o, l, B, S, T, H, st,
-                                      causal, sm_scale, maps, s);
+      return (int)rtt::launch_fwd<80>(dtype, q, k, v, o, l, u, B, S, T, H,
+                                      st, causal, sm_scale, maps, s);
     case 128:
-      return (int)rtt::launch_fwd<128>(dtype, q, k, v, o, l, B, S, T, H, st,
-                                       causal, sm_scale, maps, s);
+      return (int)rtt::launch_fwd<128>(dtype, q, k, v, o, l, u, B, S, T, H,
+                                       st, causal, sm_scale, maps, s);
     case 256:
-      return (int)rtt::launch_fwd<256>(dtype, q, k, v, o, l, B, S, T, H, st,
-                                       causal, sm_scale, maps, s);
+      return (int)rtt::launch_fwd<256>(dtype, q, k, v, o, l, u, B, S, T, H,
+                                       st, causal, sm_scale, maps, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -36,9 +36,14 @@
 //    slot's length.
 //  - bf16 q at any other page size: the mma.sync kernel below (four warps of
 //    16 query rows, 64-key tiles staged through registers by 16-byte
-//    loads, S and P·V as mma.sync m16n8k16), head dims up to 128
-//    (`MMA_MAX_KD`). A shape rule of the C entry point, not a fallback: the
-//    wrapper's plan and rtt_paged_prefill_smem_bytes apply the same rule.
+//    loads into dynamic shared memory, S and P·V as mma.sync m16n8k16),
+//    every head dim. At 256 the O fragments alone are 128 registers a
+//    thread, so Q is staged in shared memory once and its A fragments
+//    read per k-step (not 64 more registers), and keys are walked in tiles
+//    of 32 (S and P half the registers): 68 KB of shared memory a block.
+//    A shape rule of the C entry point, not a
+//    fallback: the wrapper's plan and rtt_paged_prefill_smem_bytes apply
+//    the same rule.
 //  - fp32 (K in {64, 80, 128, 256}): plain FMAs from shared memory (one
 //    float of padding per row keeps the QK^T loop free of bank conflicts),
 //    so fp32 keeps full precision (1e-5).
@@ -246,19 +251,25 @@ __global__ void __launch_bounds__(PF_THREADS)
 constexpr int MMA_WARPS = 4;
 constexpr int MMA_THREADS = 32 * MMA_WARPS;
 constexpr int MMA_TQ = 16 * MMA_WARPS;  // query rows per block
-constexpr int MMA_TK = 64;              // keys per shared tile
-// Head dims the mma.sync kernel takes: at 256 its O fragments and Q
-// fragments alone are 192 registers a thread and its K/V tiles 66 KB of
-// static shared memory (ROADMAP queue 2 A); page sizes the wgmma kernel
-// takes serve head dim 256.
-constexpr int MMA_MAX_KD = 128;
+// Head dims the mma.sync kernel takes: every one of the wrappers'.
+constexpr int MMA_MAX_KD = 256;
+// Past head dim 128 the O fragments alone are 128 registers a thread: Q
+// stays in shared memory (its fragments loaded per k-step) instead of 64
+// more registers, and the keys are walked in tiles of 32 (half the S and P
+// fragments).
+template <int KD>
+constexpr bool MMA_Q_SMEM = KD > 128;
+template <int KD>
+constexpr int MMA_TK = KD > 128 ? 32 : 64;  // keys per shared tile
 
-// Shared memory of one block: the bf16 K and V tiles, plus (int8 program)
-// one K and one V scale per key.
+// Dynamic shared memory of one block: the bf16 K and V tiles, the Q tile
+// (past head dim 128), and (int8 program) one K and one V scale per key;
+// rows padded by 8 elements.
 template <int KD>
 __host__ __device__ constexpr size_t prefill_mma_smem_bytes(bool quant) {
-  return 2 * (size_t)MMA_TK * (KD + 8) * sizeof(__nv_bfloat16) +
-         2 * (size_t)(quant ? MMA_TK : 1) * sizeof(float);
+  return (2 * (size_t)MMA_TK<KD> + (MMA_Q_SMEM<KD> ? MMA_TQ : 0)) *
+             (KD + 8) * sizeof(__nv_bfloat16) +
+         2 * (size_t)(quant ? MMA_TK<KD> : 1) * sizeof(float);
 }
 
 // A warp's Q fragments (the A operand of S = Q·K^T): this lane's rows r0
@@ -321,16 +332,21 @@ __global__ void __launch_bounds__(MMA_THREADS)
                              int ps, int n_pg, float sm_scale) {
   constexpr bool kQuant = std::is_same<TP, int8_t>::value;
   static_assert(KD % 16 == 0 && KD <= MMA_MAX_KD, "head dim for the mma path");
+  constexpr bool Q_SMEM = MMA_Q_SMEM<KD>;
+  constexpr int TK = MMA_TK<KD>;       // keys per shared tile
   constexpr int KSTEPS = KD / 16;      // k-steps of Q·K^T
-  constexpr int NT_S = MMA_TK / 8;     // n-tiles of S (keys)
+  constexpr int NT_S = TK / 8;         // n-tiles of S (keys)
   constexpr int NT_O = KD / 8;         // n-tiles of O (head dims)
   constexpr int KP = KD + 8;           // padded shared row, in elements
   constexpr int EPC = 16 / sizeof(TP); // pool elements per 16-byte load
   constexpr int CPR = KD / EPC;        // 16-byte loads per pool row
-  __shared__ __align__(16) __nv_bfloat16 k_s[MMA_TK * KP];
-  __shared__ __align__(16) __nv_bfloat16 v_s[MMA_TK * KP];
-  __shared__ float ks_s[kQuant ? MMA_TK : 1];  // key's K scale · sm_scale
-  __shared__ float vs_s[kQuant ? MMA_TK : 1];  // key's V scale
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(mma_smem);
+  __nv_bfloat16* v_s = k_s + TK * KP;
+  __nv_bfloat16* q_s = v_s + TK * KP;  // [MMA_TQ][KP] when Q_SMEM
+  float* ks_s = reinterpret_cast<float*>(q_s + (Q_SMEM ? MMA_TQ * KP : 0));
+  float* vs_s = ks_s + (kQuant ? TK : 1);  // key's V scale
+  // ks_s: key's K scale · sm_scale
 
   const int q0 = blockIdx.x * MMA_TQ;
   const int h = blockIdx.y;
@@ -351,10 +367,21 @@ __global__ void __launch_bounds__(MMA_THREADS)
   const int qpos0 = off + q0 + r0;
   const int qpos1 = off + q0 + r1;
 
-  // Q fragments stay in registers for the whole key walk; rows past C are 0.
-  uint32_t qa[KSTEPS][4];
-  load_q_frags(q + (((size_t)b * C + q0) * H + h) * KD, row_stride, r0, r1,
-               rows, t4, qa);
+  // Q fragments stay in registers for the whole key walk (past head dim
+  // 128, Q in shared memory); rows past C are 0.
+  const __nv_bfloat16* qb = q + (((size_t)b * C + q0) * H + h) * KD;
+  uint32_t qa[Q_SMEM ? 1 : KSTEPS][4];
+  if constexpr (Q_SMEM) {
+    for (int i = tid; i < MMA_TQ * (KD / 8); i += MMA_THREADS) {
+      const int r = i / (KD / 8);
+      const int cc = (i - r * (KD / 8)) * 8;
+      *reinterpret_cast<uint4*>(&q_s[r * KP + cc]) =
+          r < rows ? *reinterpret_cast<const uint4*>(qb + r * row_stride + cc)
+                   : make_uint4(0u, 0u, 0u, 0u);
+    }
+  } else {
+    load_q_frags(qb, row_stride, r0, r1, rows, t4, qa);
+  }
 
   float o[NT_O][4];
 #pragma unroll
@@ -365,13 +392,13 @@ __global__ void __launch_bounds__(MMA_THREADS)
   // Last position any row of this tile may attend, plus one.
   int kv_end = min(len, off + q0 + rows);
   kv_end = min(kv_end, n_pg * ps);
-  const int n_kt = kv_end > 0 ? (kv_end + MMA_TK - 1) / MMA_TK : 0;
+  const int n_kt = kv_end > 0 ? (kv_end + TK - 1) / TK : 0;
   const int warp_last_qpos = off + q0 + warp * 16 + 15;
 
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int key0 = kt * MMA_TK;
+    const int key0 = kt * TK;
     __syncthreads();  // every warp is done with the previous tile
-    for (int i = tid; i < MMA_TK * CPR; i += MMA_THREADS) {
+    for (int i = tid; i < TK * CPR; i += MMA_THREADS) {
       const int r = i / CPR;
       const int cc = (i - r * CPR) * EPC;
       const int pos = key0 + r;
@@ -393,7 +420,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
       }
     }
     if constexpr (kQuant) {
-      for (int r = tid; r < MMA_TK; r += MMA_THREADS) {
+      for (int r = tid; r < TK; r += MMA_THREADS) {
         const int pos = key0 + r;
         float ksc = 0.f, vsc = 0.f;
         if (pos < kv_end) {
@@ -410,23 +437,37 @@ __global__ void __launch_bounds__(MMA_THREADS)
     if (key0 > warp_last_qpos) continue;  // all keys after all of our rows
 
     // S = Q · K^T (int8: Q · codes^T) for this warp's 16 rows and the
-    // tile's 64 keys.
+    // tile's TK keys.
     float s[NT_S][4];
 #pragma unroll
     for (int n = 0; n < NT_S; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KSTEPS; ++ks) {
+      uint32_t a[4];
+      if constexpr (Q_SMEM) {  // the A fragment of load_q_frags
+        const uint32_t* q0w = reinterpret_cast<const uint32_t*>(
+            &q_s[r0 * KP + ks * 16 + 2 * t4]);
+        const uint32_t* q1w = reinterpret_cast<const uint32_t*>(
+            &q_s[r1 * KP + ks * 16 + 2 * t4]);
+        a[0] = q0w[0];
+        a[1] = q1w[0];
+        a[2] = q0w[4];
+        a[3] = q1w[4];
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qa[ks][e];
+      }
 #pragma unroll
       for (int n = 0; n < NT_S; ++n) {
         const uint32_t* kr = reinterpret_cast<const uint32_t*>(
             &k_s[(n * 8 + g) * KP + ks * 16 + 2 * t4]);
-        mma_bf16_16816(s[n], qa[ks], kr[0], kr[4]);
+        mma_bf16_16816(s[n], a, kr[0], kr[4]);
       }
     }
 
     // The score scale (sm_scale; int8: times the key's K scale), the
     // two-part mask, then the online softmax of rows r0 and r1. A row's
-    // four lanes (same g) hold its 64 scores between them.
+    // four lanes (same g) hold its TK scores between them.
     float mx0 = m_r[0];
     float mx1 = m_r[1];
     uint32_t valid = 0;  // bit 4n+e: entry s[n][e] is a visible key
@@ -542,8 +583,12 @@ cudaError_t launch_prefill_mma(const void* q, const void* k_pool,
                                const int* offsets, const int* lengths,
                                void* out, int B, int C, int H, int ps,
                                int n_pg, float sm_scale, cudaStream_t stream) {
+  constexpr bool kQuant = std::is_same<TP, int8_t>::value;
+  const size_t smem = prefill_mma_smem_bytes<KD>(kQuant);
+  cudaError_t e = allow_smem(paged_prefill_mma_kernel<TP, KD>, smem);
+  if (e != cudaSuccess) return e;
   dim3 grid((C + MMA_TQ - 1) / MMA_TQ, H, B);
-  paged_prefill_mma_kernel<TP, KD><<<grid, MMA_THREADS, 0, stream>>>(
+  paged_prefill_mma_kernel<TP, KD><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const TP*>(k_pool),
       static_cast<const TP*>(v_pool),
       static_cast<const __nv_bfloat16*>(k_scale),
@@ -802,13 +847,9 @@ cudaError_t launch_prefill_bf16(const void* q, const void* k_pool,
     return launch_prefill_wgmma<KD, kQuant>(
         q, k_pool, v_pool, k_scale, v_scale, tables, offsets, lengths, out, B,
         C, H, ps, n_pg, sm_scale, maps, stream);
-  if constexpr (KD > MMA_MAX_KD) {
-    return cudaErrorInvalidValue;  // `prefill_kernel` raises first
-  } else {
-    return launch_prefill_mma<TP, KD>(q, k_pool, v_pool, k_scale, v_scale,
-                                      tables, offsets, lengths, out, B, C, H,
-                                      ps, n_pg, sm_scale, stream);
-  }
+  return launch_prefill_mma<TP, KD>(q, k_pool, v_pool, k_scale, v_scale,
+                                    tables, offsets, lengths, out, B, C, H, ps,
+                                    n_pg, sm_scale, stream);
 }
 
 // The float program: bf16 q by launch_prefill_bf16, fp32 by FMA.
@@ -852,16 +893,12 @@ cudaError_t launch_prefill_i8(int dtype, const void* q, const void* k_pool,
 }
 
 // Shared memory one block of the bf16-q kernel that (quant, ps) selects
-// at head dim KD; a shape no kernel takes (the mma.sync kernel past
-// MMA_MAX_KD) reads as more than any block may have.
+// at head dim KD.
 template <int KD>
 size_t prefill_bf16_smem_bytes(bool quant, int ps) {
   if (wgmma_page_size(ps))
     return quant ? AttnCfg<KD, true>::SMEM : AttnCfg<KD, false>::SMEM;
-  if constexpr (KD > MMA_MAX_KD)
-    return ~(size_t)0;
-  else
-    return prefill_mma_smem_bytes<KD>(quant);
+  return prefill_mma_smem_bytes<KD>(quant);
 }
 
 }  // namespace

@@ -207,18 +207,7 @@ def prefill_kernel(dtype, K: int, ps: int) -> str:
         return "fma"
     if dtype != torch.bfloat16 or K not in _HEAD_DIMS:
         raise ValueError(f"no prefill kernel for {dtype} at head_dim {K}")
-    if wgmma_page_size(ps):
-        return "wgmma"
-    if K > MMA_MAX_HEAD_DIM:
-        raise ValueError(
-            f"no bf16 prefill kernel at head_dim {K} and page_size {ps}: "
-            f"the mma.sync kernel takes head dims up to {MMA_MAX_HEAD_DIM}; "
-            f"use a page size of 8, 16, 32 or a multiple of 64 "
-            f"({ROADMAP_HEAD_DIMS})")
-    return "mma"
-
-
-MMA_MAX_HEAD_DIM = 128     # csrc/paged_prefill.cu MMA_MAX_KD
+    return "wgmma" if wgmma_page_size(ps) else "mma"
 
 
 def prefill_plan(q, k_pool, v_pool):

@@ -5,8 +5,8 @@ ragged lengths, idle all-null slots, width-sliced prefill tables, a
 partial query tile, float pools and int8 pools with per-page scales;
 flash: forward, dq and dkv, causal and not, S != T, an lse cotangent,
 the bf16 kernels also at ragged S/T on packed qkv views;
-fp32 and bf16, head dims 64, 80, 128 and 256, the backward at 64, 80
-and 128 and refusing 256), the launch
+fp32 and bf16, head dims 64, 80, 128 and 256, the backward at all four
+and refusing 96), the launch
 counters, the wrappers' refusals (no fallback to the plain path), the
 tiny engine with ``attn_impl="kernel"`` against ``"gather"`` on the
 card (float, and int8 weights with an int8 pool), the prefill kernel at
@@ -344,19 +344,10 @@ def test_prefill_bf16_page_sizes_and_chunks(cuda, ps, K, quant):
     counted by the same counter. Chunks of C = 40, 72 and 200 at ragged
     offsets against a width-sliced table, with an inert row; float and
     int8 pools (the int8 program also against the unrounded-p plain
-    version). At head dim 256 the mma.sync kernel's page size 48 is
-    refused, naming head dim 256 and the ROADMAP item, with no launch."""
+    version). At head dim 256 the mma.sync kernel keeps Q in shared
+    memory and walks keys in tiles of 32."""
     rng = np.random.default_rng(9)
     B, H = 5, 2
-    if K > pa.MMA_MAX_HEAD_DIM and ps == 48:
-        kp, vp = _pool(rng, 3, ps, H, K, torch.bfloat16, cuda)
-        q = torch.zeros(1, 8, H, K, device=cuda, dtype=torch.bfloat16)
-        idx = [torch.zeros(1, *s, dtype=torch.int32, device=cuda)
-               for s in ((2,), (), ())]
-        with pytest.raises(ValueError, match="head_dim 256.*ROADMAP"):
-            pa.paged_prefill_attention(q, kp, vp, *idx)
-        assert pa.paged_prefill_attention.launches == 0
-        return
     assert pa.prefill_kernel(torch.bfloat16, K, ps) == (
         "mma" if ps == 48 else "wgmma")
     n_pg = -(-640 // ps)
@@ -916,13 +907,14 @@ def _flash_abs_sums(q, k, v, do, lse, delta, causal, scale):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("K", [64, 128, 80])
+@pytest.mark.parametrize("K", [64, 128, 80, 256])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("S,T", [(77, 130), (192, 192)])
 def test_flash_kernels_match_plain(cuda, dtype, K, causal, S, T):
     """flash_fwd, flash_dq and flash_dkv each against its plain version
     on the same inputs (the backward from the plain forward's o and lse,
-    with an lse cotangent)."""
+    with an lse cotangent); the forward's unrounded o (o32, the training
+    path's) against the plain version's, and o bitwise o32 rounded."""
     rng = np.random.default_rng(3)
     t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
         np.float32)).to(cuda)
@@ -930,14 +922,16 @@ def test_flash_kernels_match_plain(cuda, dtype, K, causal, S, T):
     q, k, v, do = (t(B, n, H, K).to(dtype) for n in (S, T, T, S))
     dlse = t(B, S, H)
     scale = K ** -0.5
-    o, lse = fa.flash_fwd(q, k, v, causal, scale)
-    o_ref, lse_ref = fa.reference_flash_fwd(q, k, v, causal, scale)
+    o, lse, o32 = fa.flash_fwd(q, k, v, causal, scale, with_o32=True)
+    o_ref, lse_ref, o32_ref = fa.reference_flash_fwd(q, k, v, causal, scale,
+                                                     with_o32=True)
     delta = fa.flash_delta(o_ref, do, dlse)
     dq = fa.flash_dq(q, k, v, do, lse_ref, delta, causal, scale)
     dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, causal, scale)
     torch.cuda.synchronize()
     assert (fa.flash_fwd.launches, fa.flash_dq.launches,
             fa.flash_dkv.launches) == (1, 1, 1)
+    assert o32.dtype == torch.float32 and torch.equal(o, o32.to(dtype))
     refs = (o_ref, fa.reference_flash_dq(q, k, v, do, lse_ref, delta, causal,
                                          scale),
             *fa.reference_flash_dkv(q, k, v, do, lse_ref, delta, causal,
@@ -947,6 +941,7 @@ def test_flash_kernels_match_plain(cuda, dtype, K, causal, S, T):
     for out, ref, s_abs in zip((o, dq, dk, dv), refs, sums):
         assert out.dtype == dtype and out.shape == ref.shape
         _close(out, ref, dtype, s_abs)
+    _close(o32, o32_ref, dtype, sums[0])
 
 
 def test_flash_attention_autograd_and_refusals(cuda):
@@ -978,31 +973,41 @@ def test_flash_attention_autograd_and_refusals(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_fwd_at_head_dim_256_and_its_backward_refused(cuda, dtype,
-                                                            causal):
-    """Head dim 256 (gptj_6b): the forward kernel against its plain
-    version; dq and dkv refuse it with a ValueError naming head dim 256
-    and the ROADMAP item, launching nothing and never computing it by the
-    plain path."""
+def test_flash_backward_at_head_dim_256(cuda, dtype, causal):
+    """Head dim 256 (gptj_6b): dq and dkv against their plain versions
+    with S and T off every tile (the dq kernel's 32-key tiles, the dkv
+    kernel's 64-key items split by head-dim halves, the fp32 kernels'
+    32-row walked tiles), from q, k, v read as views of packed qkv
+    tensors; a head dim no kernel takes (96) is refused with a ValueError
+    naming the ROADMAP item, launching nothing."""
     rng = np.random.default_rng(14)
     t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
         np.float32)).to(cuda, dtype)
-    B, S, H, K = 2, 200, 2, 256
-    q, k, v, do = (t(B, S, H, K) for _ in range(4))
+    B, S, T, H, K = 2, 200, 333, 2, 256
+    qkv_q, qkv_kv = t(B, S, 3, H, K), t(B, T, 3, H, K)
+    q, k, v = qkv_q[:, :, 0], qkv_kv[:, :, 1], qkv_kv[:, :, 2]
+    do, dlse = t(B, S, H, K), t(B, S, H).float()
     scale = K ** -0.5
-    o, lse = fa.flash_fwd(q, k, v, causal, scale)
-    torch.cuda.synchronize()
     o_ref, lse_ref = fa.reference_flash_fwd(q, k, v, causal, scale)
-    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-4)
-    s_abs = _flash_abs_sums(q, k, v, do, lse_ref, lse_ref, causal, scale)[0]
-    _close(o, o_ref, dtype, s_abs)
-    delta = fa.flash_delta(o_ref, do)
-    with pytest.raises(ValueError, match="head dim 256.*ROADMAP"):
-        fa.flash_dq(q, k, v, do, lse_ref, delta, causal, scale)
-    with pytest.raises(ValueError, match="head dim 256.*ROADMAP"):
-        fa.flash_dkv(q, k, v, do, lse_ref, delta, causal, scale)
-    assert (fa.flash_fwd.launches, fa.flash_dq.launches,
-            fa.flash_dkv.launches) == (1, 0, 0)
+    delta = fa.flash_delta(o_ref, do, dlse)
+    dq = fa.flash_dq(q, k, v, do, lse_ref, delta, causal, scale)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, causal, scale)
+    torch.cuda.synchronize()
+    assert (fa.flash_dq.launches, fa.flash_dkv.launches) == (1, 1)
+    refs = (fa.reference_flash_dq(q, k, v, do, lse_ref, delta, causal,
+                                  scale),
+            *fa.reference_flash_dkv(q, k, v, do, lse_ref, delta, causal,
+                                    scale))
+    sums = _flash_abs_sums(q, k, v, do, lse_ref, delta, causal, scale)[1:]
+    for out, ref, s_abs in zip((dq, dk, dv), refs, sums):
+        assert out.dtype == dtype and out.shape == ref.shape
+        _close(out, ref, dtype, s_abs)
+    q96 = torch.zeros(1, 8, 2, 96, device=cuda, dtype=dtype)
+    lse96 = torch.zeros(1, 8, 2, device=cuda)
+    for fn in (fa.flash_dq, fa.flash_dkv):
+        with pytest.raises(ValueError, match="head dim 96.*ROADMAP"):
+            fn(q96, q96, q96, q96, lse96, lse96, causal, scale)
+    assert (fa.flash_dq.launches, fa.flash_dkv.launches) == (1, 1)
 
 
 def test_gpt_train_step_flash_matches_xla_on_the_card(cuda):

@@ -234,3 +234,79 @@ def test_head_dims_80_and_256_bf16_forward(K):
     ref = _np(o_j)
     share = np.abs(_np(o_t) - ref) / (BF16_REL * (np.abs(ref) + _np(s_abs)))
     assert float(share.max()) <= 1.0, float(share.max())
+
+
+def _bf16_grad_sums(arrs, causal, dout, dlse):
+    """S of the bf16 rule for dq, dk and dv (chip_smoke.py derives it): W
+    |K|, W^T |Q| and p^T |dO| with W = p (|dP| + |delta|) sm_scale >= |ds|,
+    from the fp32 plain forward of the same inputs."""
+    q, k, v = _torch(arrs)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    o, lse = tattn.reference_flash_fwd(q, k, v, causal, scale)
+    do = torch.from_numpy(dout)
+    delta = tattn.flash_delta(o, do, torch.from_numpy(dlse))
+    p, _ds = tattn._p_ds(q, k, v, do, lse, delta, causal, scale)
+    dp = torch.einsum("bshk,bthk->bhst", do, v)
+    w = p * (dp.abs() + delta.transpose(1, 2)[..., None].abs()) * scale
+    return (torch.einsum("bhst,bthk->bshk", w, k.abs()),
+            torch.einsum("bhst,bshk->bthk", w, q.abs()),
+            torch.einsum("bhst,bshk->bthk", p, do.abs()))
+
+
+@pytest.mark.parametrize("K", [80, 256])
+def test_head_dims_80_and_256_bf16_backward(K):
+    """bf16 dq, dk and dv at head dims 80 and 256 (the backward kernels'
+    plain versions) against JAX's flash_attention in interpret mode, with
+    an o and an lse cotangent, under the bf16 rule above with S the
+    gradient's own sum of magnitudes: both sides round ds and p to bf16
+    before their products and each gradient once at the end."""
+    arrs = _arrays(B=1, S=160, H=2, K=K, seed=30 + K)
+    rng = np.random.default_rng(40 + K)
+    dout = rng.normal(size=arrs[0].shape).astype(np.float32)
+    dlse = rng.normal(size=arrs[0].shape[:3]).astype(np.float32)
+
+    def jloss(q, k, v):
+        o, lse = jattn.flash_attention(q, k, v, causal=True, return_lse=True)
+        return (jnp.sum(o.astype(jnp.float32) * dout)
+                + jnp.sum(lse * dlse))
+
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(*_jax(arrs, jnp.bfloat16))
+    ts = _torch(arrs, torch.bfloat16, grad=True)
+    o, lse = tattn.flash_attention(*ts, causal=True, return_lse=True)
+    ((o.float() * torch.from_numpy(dout)).sum()
+     + (lse * torch.from_numpy(dlse)).sum()).backward()
+    for t, g, s_abs in zip(ts, jg, _bf16_grad_sums(arrs, True, dout, dlse)):
+        assert t.grad.dtype == torch.bfloat16
+        ref = _np(g)
+        share = (np.abs(_np(t.grad) - ref)
+                 / (BF16_REL * (np.abs(ref) + _np(s_abs))))
+        assert float(share.max()) <= 1.0, float(share.max())
+
+
+@pytest.mark.parametrize("K", [64, 256])
+def test_backward_reads_the_unrounded_o_at_head_dim_256(K):
+    """bf16: at head dim 256 the autograd backward's delta = rowsum(dO · O)
+    reads O before its rounding (flash_fwd's o32); at the other head dims
+    it reads the rounded O, as the JAX VJP does. The gradients are
+    reference_flash_bwd's from that O, bit for bit, and the two Os give
+    different dq."""
+    arrs = _arrays(B=1, S=96, H=2, K=K, seed=50)
+    q, k, v = _torch(arrs, torch.bfloat16, grad=True)
+    do = torch.from_numpy(np.random.default_rng(51).normal(
+        size=arrs[0].shape).astype(np.float32)).to(torch.bfloat16)
+    o = tattn.flash_attention(q, k, v, causal=True)
+    o.backward(do)
+    qd, kd, vd = (x.detach() for x in (q, k, v))
+    o_r, lse, o32 = tattn.reference_flash_fwd(qd, kd, vd, True,
+                                              with_o32=True)
+    assert o32.dtype == torch.float32
+    assert torch.equal(o_r, o32.to(torch.bfloat16))
+    assert torch.equal(o.detach(), o_r)
+    assert (K in tattn.O32_HEAD_DIMS) == (K == 256)
+    unrounded = tattn.reference_flash_bwd(qd, kd, vd, o32, lse, do, None,
+                                          True)
+    rounded = tattn.reference_flash_bwd(qd, kd, vd, o_r, lse, do, None, True)
+    want = unrounded if K == 256 else rounded
+    for g, w in zip((q.grad, k.grad, v.grad), want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert not torch.equal(unrounded[0], rounded[0])

@@ -94,7 +94,7 @@ def test_strided_inner_dim_and_wide_box_raise():
     (8, "wgmma"), (16, "wgmma"), (32, "wgmma"), (64, "wgmma"),
     (128, "wgmma"), (256, "wgmma"), (48, "mma"), (24, "mma"), (96, "mma"),
     (4, "mma")])
-@pytest.mark.parametrize("K", [64, 80, 128])
+@pytest.mark.parametrize("K", [64, 80, 128, 256])
 def test_prefill_kernel_by_page_size(ps, kernel, K):
     assert pa.wgmma_page_size(ps) == (kernel == "wgmma")
     assert pa.prefill_kernel(torch.bfloat16, K, ps) == kernel
@@ -106,12 +106,14 @@ def test_prefill_kernel_refuses_other_shapes():
         pa.prefill_kernel(torch.bfloat16, 96, 64)
     with pytest.raises(ValueError, match="no prefill kernel"):
         pa.prefill_kernel(torch.float16, 64, 64)
-    # Head dim 256 takes the wgmma kernel's page sizes only: the mma.sync
-    # kernel stops at 128, and the refusal names the ROADMAP item.
+    # Head dim 256 takes the mma.sync kernel at the page sizes the wgmma
+    # kernel does not (48: a gptj_6b engine's); 96 is no head dim of a
+    # kernel at any page size.
     assert pa.prefill_kernel(torch.bfloat16, 256, 64) == "wgmma"
     assert pa.prefill_kernel(torch.float32, 256, 48) == "fma"
-    with pytest.raises(ValueError, match="head_dim 256.*ROADMAP"):
-        pa.prefill_kernel(torch.bfloat16, 256, 48)
+    assert pa.prefill_kernel(torch.bfloat16, 256, 48) == "mma"
+    with pytest.raises(ValueError, match="head_dim 96"):
+        pa.prefill_kernel(torch.bfloat16, 96, 48)
 
 
 @pytest.mark.parametrize("K,tile,boxes", [(64, 128, 1), (128, 64, 2)])
@@ -197,15 +199,18 @@ def _bwd_views(packed, B, S, T, H, K):
 
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("S,T", [(200, 333), (1, 64), (333, 200)])
-@pytest.mark.parametrize("K", [64, 80, 128])
+@pytest.mark.parametrize("K", [64, 80, 128, 256])
 def test_dq_plan(K, S, T, packed):
     """dq is query-major: q and dO in boxes of 128 rows (an item), k and v
-    in boxes of a key tile, each map over its own view and strides."""
+    in boxes of a key tile (the forward's, but 32 at head dim 256), each
+    map over its own view and strides."""
     B, H = 2, 3
     views = _bwd_views(packed, B, S, T, H, K)
     maps = fa.flash_dq_plan(*views)
     assert len(maps) == 4 * WORDS
-    rows = (pa.WGMMA_ROWS, pa.key_tile(K), pa.key_tile(K), pa.WGMMA_ROWS)
+    kt = fa.dq_key_tile(K)
+    assert kt == (32 if K == 256 else pa.key_tile(K))
+    rows = (pa.WGMMA_ROWS, kt, kt, pa.WGMMA_ROWS)
     for i, (t, r) in enumerate(zip(views, rows)):
         elem, rank, dims, strides, box, swz = _fields(
             maps[i * WORDS:(i + 1) * WORDS])
@@ -215,24 +220,28 @@ def test_dq_plan(K, S, T, packed):
         assert box == [64, 1, r, 1]
     if packed:   # q, k, v read in place: the packed row is 3·H·K elements
         assert views[0].stride(1) == 3 * H * K
-    # The forward's three maps are dq's first three.
-    assert maps[:3 * WORDS] == fa.flash_plan(*views[:3])
+    # The forward's three maps are dq's first three (at 256 its q map).
+    n = 1 if K == 256 else 3
+    assert maps[:n * WORDS] == fa.flash_plan(*views[:3])[:n * WORDS]
 
 
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("S,T", [(200, 333), (1, 64), (333, 200)])
-@pytest.mark.parametrize("K", [64, 80, 128])
+@pytest.mark.parametrize("K", [64, 80, 128, 256])
 def test_dkv_plan(K, S, T, packed):
-    """dkv is key-major: an item is DKV_KEYS keys (k, v boxes), the walked
+    """dkv is key-major: an item is DKV_KEYS keys (k, v boxes; 64 at head
+    dim 256, where the two warpgroups split the head dim), the walked
     tiles DKV_ROWS query rows (q, dO boxes); a head dim of 128 is two
     64-column boxes, and so is 80 (the second box's columns past 80 read
-    as zeros)."""
+    as zeros), 256 four."""
     B, H = 2, 3
     views = _bwd_views(packed, B, S, T, H, K)
     maps = fa.flash_dkv_plan(*views)
     assert len(maps) == 4 * WORDS
-    assert (fa.DKV_KEYS, fa.DKV_ROWS) == (128, 64)
-    rows = (fa.DKV_ROWS, fa.DKV_KEYS, fa.DKV_KEYS, fa.DKV_ROWS)
+    assert (fa.DKV_KEYS, fa.DKV_KEYS_SPLIT, fa.DKV_ROWS) == (128, 64, 64)
+    keys = fa.dkv_keys(K)
+    assert keys == (fa.DKV_KEYS_SPLIT if K == 256 else fa.DKV_KEYS)
+    rows = (fa.DKV_ROWS, keys, keys, fa.DKV_ROWS)
     for i, (t, r) in enumerate(zip(views, rows)):
         elem, rank, dims, strides, box, swz = _fields(
             maps[i * WORDS:(i + 1) * WORDS])

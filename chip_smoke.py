@@ -41,9 +41,12 @@
                           # width and depth, gpt2_2_7b trained at full
                           # width (8 of its 32 layers)
     python3 chip_smoke.py --only kernels,engine_gptj,train_gptj_6b
-                          # head dim 256's backward and mma.sync prefill:
-                          # gptj_6b trained at full width and depth, and
-                          # served at page size 48
+                          # head dim 256's backward and the prefill at page
+                          # size 48: gptj_6b trained at full width and
+                          # depth, and served at page size 48
+    python3 chip_smoke.py --only kernels --ab OLD_CHECKOUT
+                          # the kernels against an older checkout's, in
+                          # turns, at the timed shapes and page sizes
 
 Phases, one JSON line each, each with ``at_s``, the seconds since the
 script began (the whole record also goes to build/chip_smoke.json):
@@ -52,10 +55,12 @@ script began (the whole record also goes to build/chip_smoke.json):
 2. build: every CUDA kernel compiled from ray_tpu_torch/ops/csrc for
    sm_90a (one nvcc per source, all started together), with the build
    seconds, and per kernel whether its SASS (cuobjdump) holds HGMMA,
-   UTMALDG, HMMA and UBLKCP: every instance of the bf16 flash forward, dq
-   and dkv kernels and the paged prefill kernel (18 in all) must hold
-   wgmma and TMA loads and no mma.sync (20 in all), and every instance
-   of the paged decode kernel (16) TMA loads.
+   UTMALDG, LDGSTS and HMMA: every instance of the bf16 flash forward, dq
+   and dkv kernels and the paged prefill kernel (28 in all) must hold
+   wgmma and TMA loads, the 8 prefill instances whose producer gathers
+   rows also cp.async copies (and the others none), every instance of the
+   paged decode kernel (16) TMA loads, and no kernel of the library
+   mma.sync.
 3. kernels: each kernel against its plain PyTorch version on the card at
    OPT-1.3B attention shapes (H=32, K=64), page sizes {16, 64}, fp32 and
    bf16, at head dim 128, and at gpt2_2_7b's 32 heads of 80 and gptj_6b's
@@ -76,19 +81,20 @@ script began (the whole record also goes to build/chip_smoke.json):
    on the gathered timeline (a yardstick only: the port never calls it;
    for prefill with a bool mask and with causal_lower_right, the faster
    is ``library_ms``), the decode also at light load (2 of 16 slots live
-   at 2048) and with the wrapper's host µs per call. Then bf16 prefill at
-   page sizes 16, 32, 64, 128
-   (the wgmma kernel) and 48 (the mma.sync kernel, by the shape rule),
-   chunks of C = 40, 72 and 200 at ragged offsets, float and int8 pools;
-   at head dims 80 and 256 page sizes 64 and 48 (at 256 the mma.sync
-   kernel with Q in shared memory and 32-key tiles).
+   at 2048) and with the wrapper's host µs per call. Then bf16 prefill
+   (the wgmma kernel at every page size) at page sizes 16, 32, 64, 128,
+   24, 48 and 96 (TMA boxes of gcd(ps, key tile) rows) and 20 and 4 (rows
+   gathered by cp.async), at head dims 64 and 128, and 64, 24, 48, 96, 20
+   and 4 at head dims 80 and 256, chunks of C = 40, 72 and 200 at ragged
+   offsets, float and int8 pools.
    Both paged kernels, float and int8, are then timed at B=16, 1024-token
    contexts, ps 64 at the two new head dims (the kernels line's
    ``at_shapes``), each with a page dropped from its plain version planted
    (and the int8 programs' faults), which must fail the bound; and the
-   mma.sync prefill at 16 heads of 256, ps 48 (engine_gptj's ps-48
-   engine: 16 slots, C 240 at offset 768 of 1,008 positions), float and
-   int8, the same faults planted.
+   prefill at page sizes 48 and 20 at gptj_6b's 16 heads of 256 (16
+   slots, C 240 at offset 768: engine_gptj's ps-48 engine) and at
+   opt_1_3b's 32 of 64 (C 256 at 768), float and int8, the same faults
+   planted.
    Then the int8 programs of both paged kernels the same way, on int8
    pools quantized by the port's _quant_write from rows whose pages have
    log-uniform amplitudes in [0.25, 4] (page sizes 16 and 64, head dims
@@ -203,7 +209,8 @@ script began (the whole record also goes to build/chip_smoke.json):
    agree; then warmup_compile on a float and an int8 pool filled with
    seeded values (gate: every plane outside the null page bitwise
    unchanged), beside this process's library build time.
-   engine_observe: the engine phase's traffic through start() with a
+   engine_observe (cut to the first CUT_DEPTH layers, full width): the
+   engine phase's traffic through start() with a
    poller calling load_snapshot() every 50 ms (gate: every snapshot's
    llm_* gauges equal its fields), each finished request's metrics
    observed as a front end does; gates on the Prometheus text (decode
@@ -260,21 +267,23 @@ script began (the whole record also goes to build/chip_smoke.json):
    re-prefilled, the payload's host round trip (gather + .cpu(); stitch
    + .to(device) + scatter) in ms and GB/s, the drain's agreement with an
    uninterrupted run, the phase's seconds and the card's name and power.
-   engine_gptj: LLMEngine(gptj_6b) at full width and depth (28 layers,
-   d 4096, 16 heads of 256, bf16, random weights drawn in bf16 from seed
-   0) with the engine phase's knobs and traffic (16 prompts of 128-1536
-   tokens from seed 3, 32 greedy tokens each) on the paged kernels, then
-   on attn_impl="gather" over the same weights: 28 decode launches per
-   decode step and 28 prefill launches per dispatch, no plain call and
+   engine_gptj: LLMEngine(gptj_6b) at full width (d 4096, 16 heads of
+   256, bf16, random weights drawn in bf16 from seed 0) cut to the first
+   CUT_DEPTH of its 28 layers, with the engine phase's knobs and traffic
+   (16 prompts of 128-1536 tokens from seed 3, 32 greedy tokens each) on
+   the paged kernels, then on attn_impl="gather" over the same weights:
+   8 decode launches per decode step and 8 prefill launches per
+   dispatch, no plain call and
    no int8 program, pages closed; every stream equal to the gather
    engine's or leaving it where the gather engine's logits of the two
    tokens are within 0.1 (a bf16 near-tie), which a planted wrong token
    must exceed; TTFT, decode step, tok/s, weight and pool bytes. Then
-   the same weights cut to their first 8 layers (CUT_DEPTH, full width)
-   at page size 48, chunk 240, budget 480 (GPTJ_MMA_KNOBS: every prefill
-   dispatch on the mma.sync kernel, 8 launches each, every decode step
-   on the decode kernel at ps 48) on the first 8 prompts, held to the
-   same gates against a gather engine of the same cut and knobs.
+   the same layers at page size 48, chunk 240, budget 480
+   (GPTJ_PS48_KNOBS: every prefill
+   dispatch on the wgmma kernel in 16-row TMA boxes, 8 launches each,
+   every decode step on the decode kernel at ps 48) on the first 8
+   prompts, held to the same gates against a gather engine of the same
+   cut and knobs.
    runtime: the port's runtime (ray_tpu_torch.init(num_cpus=4,
    resources={"GPU": 1}) starts a GCS, a raylet and worker processes;
    the init wall and whether the store's native arena loaded, which it
@@ -685,18 +694,23 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
 # ------------------------------------------------------------------- build
 
 # The kernels that must be Hopper kernels: wgmma (HGMMA in the SASS) on
-# tiles brought in by TMA (UTMALDG), and no mma.sync (HMMA); and the paged
-# decode kernel, fed by TMA tensor loads as well (cuobjdump's UTMALDG; the
-# non-tensor bulk copy it tried first is UBLKCP on the H100 with CUDA 12.8).
+# tiles brought in by TMA (UTMALDG); the paged prefill's producer also
+# gathers rows by cp.async (LDGSTS) at page sizes no TMA box fits; and the
+# paged decode kernel, fed by TMA tensor loads as well (cuobjdump's
+# UTMALDG; the non-tensor bulk copy it tried first is UBLKCP on the H100
+# with CUDA 12.8). No kernel of the library runs mma.sync (HMMA).
 WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "paged_prefill_wgmma_kernel",
                  "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel")
+# The prefill instances whose producer gathers (its last template
+# argument, GATHER).
+GATHER_KERNEL = re.compile(r"paged_prefill_wgmma_kernel<\d+,\w+,true>")
 TMA_KERNELS = ("paged_decode_kernel",)
 # {fp32, bf16} pools and int8 with {fp32, bf16} q, K 64/80/128/256
 TMA_INSTANCES = 16
 # flash forward, dq and dkv at K 64/80/128/256, prefill at those x {float,
-# int8}
-WGMMA_INSTANCES = 20
-SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+# int8} x {TMA boxes, gathered rows}
+WGMMA_INSTANCES = 28
+SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA")
 _MANGLED_ARGS = {"f": "float", "a": "int8", "13__nv_bfloat16": "bf16",
                  "Lb0E": "false", "Lb1E": "true"}
 
@@ -720,27 +734,31 @@ def kernel_name(sym: str) -> str:
 def sass_ops(lib_path) -> dict:
     """Per kernel of the built library, which of SASS_OPS its SASS holds
     (``cuobjdump -sass``, beside nvcc). Raises unless every instance of
-    WGMMA_KERNELS holds HGMMA and UTMALDG and no HMMA, and every one of the
-    TMA_INSTANCES instances of TMA_KERNELS holds UTMALDG."""
+    WGMMA_KERNELS holds HGMMA and UTMALDG (and LDGSTS where it matches
+    GATHER_KERNEL, only there), every one of the TMA_INSTANCES instances
+    of TMA_KERNELS holds UTMALDG, and no kernel holds HMMA."""
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     ops: dict = {}
-    fn = None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            fn = kernel_name(m.group(1))
-            ops.setdefault(fn, set())
-        elif fn is not None:
-            ops[fn].update(op for op in SASS_OPS if op in line)
+    for chunk in sass.split("Function : ")[1:]:
+        sym, _, body = chunk.partition("\n")
+        ops.setdefault(kernel_name(sym.split()[0]), set()).update(
+            op for op in SASS_OPS if op in body)
     ops = {fn: sorted(v) for fn, v in sorted(ops.items())}
     hopper = {fn: v for fn, v in ops.items()
               if fn.split("<")[0] in WGMMA_KERNELS}
-    if len(hopper) != WGMMA_INSTANCES or any(v != ["HGMMA", "UTMALDG"]
-                                             for v in hopper.values()):
-        raise AssertionError(f"the wgmma kernels' SASS lacks HGMMA or "
-                             f"UTMALDG, or holds HMMA: {hopper}")
+    want = lambda fn: (["HGMMA", "LDGSTS", "UTMALDG"]
+                       if GATHER_KERNEL.fullmatch(fn)
+                       else ["HGMMA", "UTMALDG"])
+    if len(hopper) != WGMMA_INSTANCES or any(v != want(fn)
+                                             for fn, v in hopper.items()):
+        raise AssertionError(f"the wgmma kernels' SASS lacks HGMMA, "
+                             f"UTMALDG or (prefill) LDGSTS, or holds more: "
+                             f"{hopper}")
+    mma = [fn for fn, v in ops.items() if "HMMA" in v]
+    if mma:
+        raise AssertionError(f"mma.sync (HMMA) in the library: {mma}")
     decode = {fn: v for fn, v in ops.items()
               if fn.split("<")[0] in TMA_KERNELS}
     if len(decode) != TMA_INSTANCES or any("UTMALDG" not in v
@@ -1071,28 +1089,31 @@ def phase_kernels(device, errs, at_shapes):
                check_decode(rng, "ps=8", lengths, ps=8, n_pg=CAP // 8,
                             dtype=torch.bfloat16, device=device,
                             heads=(H, K), null_rows={10, 11}, quant=quant))
-    # bf16 q at every page size the wgmma prefill kernel takes in boxes of
-    # its own (16, 32: several pages per key tile; 64; 128: a page of two
-    # key tiles at head dims 80-256) and at 48, which the mma.sync kernel
-    # takes by the shape rule (at 256 with Q in shared memory and 32-key
-    # tiles); chunks of C = 40, 72 and 200 at ragged offsets on a
-    # width-sliced table, with an inert row.
-    for heads, sizes in (((H, K), (16, 32, 64, 128, 48)),
-                         ((16, 128), (16, 32, 64, 128, 48)),
-                         (HEADS_2_7B, (64, 48)), (HEADS_GPTJ, (64, 48))):
+    # bf16 q on the wgmma kernel at every kind of page size: TMA boxes of
+    # whole pages (16, 32: several pages per key tile; 64; 128: a page of
+    # two key tiles at head dims 80-256), boxes of gcd(ps, key tile) rows
+    # (24: 8 and 16 boxes a tile, 48: 4 and 8, 96), and rows gathered by
+    # cp.async (20, 4); chunks of C = 40, 72 and 200 at ragged offsets on
+    # a width-sliced table, with an inert row.
+    for heads, sizes in (((H, K), (16, 32, 64, 128) + PS_OFF_RULE),
+                         ((16, 128), (16, 32, 64, 128) + PS_OFF_RULE),
+                         (HEADS_2_7B, (64,) + PS_OFF_RULE),
+                         (HEADS_GPTJ, (64,) + PS_OFF_RULE)):
         for ps in sizes:
             for quant in (False, True):
                 n_pg = -(-768 // ps)
                 width = n_pg - 1
                 cap = width * ps
                 sfx = "_int8" if quant else ""
-                kern = pa.prefill_kernel(torch.bfloat16, heads[1], ps)
+                rows_box = pa.prefill_box_rows(heads[1], ps)
+                kern = (f"boxes of {rows_box} rows" if rows_box
+                        else "gathered rows")
                 for C in (40, 72, 200):
                     rows = [(0, C), (ps + 3, C - 5), (cap - C, C), (11, 1),
                             (0, 0)]
                     ptag = (f"ps={ps} bfloat16 heads={heads[0]}x{heads[1]}"
                             f"{' int8 pool' if quant else ''} C={C} "
-                            f"width={width} ({kern} kernel)")
+                            f"width={width} ({kern})")
                     record("paged_prefill_attention" + sfx, ptag,
                            check_prefill(rng, ptag, rows, C, ps=ps,
                                          n_pg=n_pg, width=width,
@@ -1181,8 +1202,9 @@ def phase_kernels(device, errs, at_shapes):
                            planted=True),
             **time_int8_kernels(device, errs, heads=(n_heads, Kd))}
         torch.cuda.empty_cache()
-    at_shapes["gptj_6b heads 16x256 ps 48 (mma.sync)"] = time_mma_prefill(
-        device, errs)
+    for tag, heads, ps, C, off in PS_PREFILL_CASES:
+        at_shapes[tag] = time_prefill_at_page_size(device, errs, heads, ps,
+                                                   C, off)
     # Rows 1t/2t of PERF.md: both float kernels at a tp=2 shard's heads.
     timings.update({f"{name} tp_shard": t for name, t in time_kernels(
         device, errs, heads=H // 2, light=False).items()})
@@ -1537,63 +1559,95 @@ def time_int8_kernels(device, errs, heads=(H, K)):
     return timings
 
 
-def time_mma_prefill(device, errs):
-    """The mma.sync prefill kernel at gptj_6b's 16 heads of 256 and page
-    size 48 (`GPTJ_MMA_KNOBS`: chunks of 240), 16 slots of a 1,008-position
-    context (21 pages) at offset 768, bf16 q, on a float and an int8 pool
-    (`amplitude_rows`): each held once more to its plain version (the int8
-    program also to the unrounded one), a page dropped from the plain
-    version (and, int8, the scales by table position and p rounded)
-    planted, which must fail the bound; then timed beside its bound, its
-    plain version and SDPA on the gathered timeline. → timings by kernel"""
-    rng = np.random.default_rng(21)
-    (Hh, Kd), dt = HEADS_GPTJ, torch.bfloat16
-    ps, C = GPTJ_MMA_KNOBS["page_size"], GPTJ_MMA_KNOBS["prefill_chunk"]
-    B, n_pg = 16, 21
-    T = n_pg * ps
-    off = T - C
-    if pa.prefill_kernel(dt, Kd, ps) != "mma":
-        raise AssertionError(f"ps {ps} at head dim {Kd} is not mma.sync")
+# Page sizes off the TMA rule the prefill had before (a divisor or a
+# multiple of 64): boxes of gcd(ps, key tile) rows (24, 48, 96) and
+# gathered rows (20, 4). The kernels phase checks each at every head dim.
+PS_OFF_RULE = (24, 48, 96, 20, 4)
+# The prefill timed at such page sizes (the kernels line's at_shapes): 16
+# slots, a chunk of C at offset off (lengths off + C), the table as many
+# pages as that takes. ps 48 at 16 heads of 256 is engine_gptj's ps-48
+# engine's (GPTJ_PS48_KNOBS: chunks of 240).
+PS_PREFILL_CASES = (
+    ("gptj_6b heads 16x256 ps 48", HEADS_GPTJ, 48, 240, 768),
+    ("opt_1_3b heads 32x64 ps 48", (H, K), 48, 256, 768),
+    ("gptj_6b heads 16x256 ps 20", HEADS_GPTJ, 20, 240, 768),
+    ("opt_1_3b heads 32x64 ps 20", (H, K), 20, 256, 768),
+)
+# The A/B's prefill at ps 64 at the other head dims (one page piece of one
+# to four column boxes a tile), beside PS_PREFILL_CASES.
+AB_PS64_CASES = (
+    ("gpt2_2_7b heads 32x80 ps 64", HEADS_2_7B, 64, 256, 768),
+    ("gptj_6b heads 16x256 ps 64", HEADS_GPTJ, 64, 256, 768),
+)
+
+
+def prefill_case_at(rng, device, heads, ps, C, off, quant):
+    """16 slots of off + C live positions on scattered pages of ps
+    (`amplitude_rows` int8 pools, or normal bf16 ones), bf16 q of C rows
+    at offset off. → (q, k_pool, v_pool, (tables, offsets, lengths),
+    scales)"""
+    Hh, Kd = heads
+    B, L = 16, off + C
+    n_pg = -(-L // ps)
     n_pages = B * n_pg + 1
     perm = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
     tables = torch.from_numpy(perm.reshape(B, n_pg)).to(device)
-    lengths = torch.full((B,), T, dtype=torch.int32, device=device)
+    lengths = torch.full((B,), L, dtype=torch.int32, device=device)
     offs = torch.full((B,), off, dtype=torch.int32, device=device)
-    args = (tables, offs, lengths)
-    every = torch.ones(B, C, dtype=torch.bool, device=device)
-    attended = torch.minimum(
-        lengths[:, None], offs[:, None] + torch.arange(C, device=device) + 1)
+    if quant:
+        kp, ks = int8_plane(amplitude_rows(rng, n_pages, ps, heads, device),
+                            device)
+        vp, vs = int8_plane(amplitude_rows(rng, n_pages, ps, heads, device),
+                            device)
+        sc = {"k_scale": ks, "v_scale": vs}
+    else:
+        kp, vp = (device_normal(rng, (n_pages, ps, Hh, Kd), device).to(
+            torch.bfloat16) for _ in range(2))
+        sc = {}
+    qp = device_normal(rng, (B, C, Hh, Kd), device).to(torch.bfloat16)
+    return qp, kp, vp, (tables, offs, lengths), sc
+
+
+def time_prefill_at_page_size(device, errs, heads, ps, C, off):
+    """The bf16 prefill (wgmma) at page size ps and ``heads`` (heads, head
+    dim), 16 slots of off + C positions, C rows at offset off
+    (`prefill_case_at`), on a float and an int8 pool: each held once more
+    to its plain version (the int8 program also to the unrounded one), a
+    page dropped from the plain version (and, int8, the scales by table
+    position and p rounded) planted, which must fail the bound; then
+    timed beside its bound, its plain version and SDPA on the live
+    positions of the gathered timeline. → timings by kernel"""
+    rng = np.random.default_rng(21)
+    (Hh, Kd), dt = heads, torch.bfloat16
+    B, L = 16, off + C
+    rows = pa.prefill_box_rows(Kd, ps)
+    producer = f"TMA boxes of {rows} rows" if rows else "gathered rows"
     flops = 4 * B * Hh * Kd * sum(off + c + 1 for c in range(C))
     ref_fn = pa.reference_paged_prefill_attention
     timings, planted = {}, {}
     for quant in (False, True):
         name = "paged_prefill_attention" + ("_int8" if quant else "")
-        if quant:
-            kp, ks = int8_plane(amplitude_rows(rng, n_pages, ps, HEADS_GPTJ,
-                                               device), device)
-            vp, vs = int8_plane(amplitude_rows(rng, n_pages, ps, HEADS_GPTJ,
-                                               device), device)
-            sc = {"k_scale": ks, "v_scale": vs}
-        else:
-            kp, vp = (device_normal(rng, (n_pages, ps, Hh, Kd), device).to(dt)
-                      for _ in range(2))
-            sc = {}
-        qp = device_normal(rng, (B, C, Hh, Kd), device).to(dt)
+        qp, kp, vp, args, sc = prefill_case_at(rng, device, heads, ps, C,
+                                               off, quant)
+        tables, offs, lengths = args
+        every = torch.ones(B, C, dtype=torch.bool, device=device)
+        attended = torch.minimum(lengths[:, None], offs[:, None]
+                                 + torch.arange(C, device=device) + 1)
         call = lambda: pa.paged_prefill_attention(qp, kp, vp, *args, **sc)
         out = call()
         torch.cuda.synchronize()
+        tag = f"prefill ps {ps} {Hh}x{Kd} {name}"
         ref = ref_fn(qp, kp, vp, *args, **sc)
         s_abs = abs_v_attention(ref_fn, qp, kp, vp, *args, **sc)
-        check = check_close(f"mma prefill {name}", out, ref, s_abs, dt,
-                            every, attended >= LONG_ROW)
+        check = check_close(tag, out, ref, s_abs, dt, every,
+                            attended >= LONG_ROW)
         planted[name] = planted_int8_faults(ref_fn, qp, kp, vp, tables,
                                             (offs, lengths), sc,
                                             shift_offsets=True)
         if quant:
             check["p_unrounded"] = check_p_unrounded(
-                f"mma prefill {name}", out, ref_fn(qp.float(), kp, vp, *args,
-                                                   **sc), ref, s_abs, every,
-                fault_must_fail=True)
+                tag, out, ref_fn(qp.float(), kp, vp, *args, **sc), ref,
+                s_abs, every, fault_must_fail=True)
             planted[name][P_ROUNDED_FAULT] = (
                 check["p_unrounded"]["p_rounded_plain_share"])
         errs[name] = max(errs[name], check["max_abs_err"])
@@ -1603,22 +1657,23 @@ def time_mma_prefill(device, errs):
                              iters=5)
         kt, vt = pa._gather_timeline(kp, vp, tables, sc.get("k_scale"),
                                      sc.get("v_scale"))
-        kt, vt = (x.transpose(1, 2).to(dt).contiguous() for x in (kt, vt))
+        kt, vt = (x[:, :L].transpose(1, 2).to(dt).contiguous()
+                  for x in (kt, vt))
         sdpa = sdpa_prefill(qp, kt, vt, off)
-        nbytes = (2 * B * T * Hh * Kd * kp.element_size()
-                  + 2 * B * C * Hh * Kd * 2 + (2 * B * n_pg * 2 if quant
-                                               else 0)
+        nbytes = (2 * B * L * Hh * Kd * kp.element_size()
+                  + 2 * B * C * Hh * Kd * 2
+                  + (2 * B * tables.shape[1] * 2 if quant else 0)
                   + tables.numel() * 4 + 2 * B * 4)
         bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
         timings[name] = dict(
             ms=ms, ms_events=ms_events, plain_ms=plain, **sdpa,
             bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops,
-            check=check, kernel="mma.sync",
-            shape=(f"B={B} C={C} H={Hh} K={Kd} ctx={T} offset={off} "
+            check=check, producer=producer,
+            shape=(f"B={B} C={C} H={Hh} K={Kd} ctx={L} offset={off} "
                    f"ps={ps} bf16 q{', int8 pool' if quant else ''}"))
         del kp, vp, kt, vt, qp
         torch.cuda.empty_cache()
-    emit({"phase": f"mma_prefill_timing ({Hh}x{Kd}, ps {ps})", **timings,
+    emit({"phase": f"prefill_timing ({Hh}x{Kd}, ps {ps})", **timings,
           "planted_faults_vs_bf16_bound": planted,
           "note": f"{P_ROUNDED_FAULT!r} is read against the p-unrounded "
                   "bound, the other faults against the bf16 bound"})
@@ -2155,7 +2210,8 @@ def old_library(old_dir):
     csrc) built by nvcc into build/ab/libkernels_old.so, one nvcc per
     source in parallel, with this tree's C ABI (unchanged since the
     decode's split-K redesign but for rtt_flash_fwd's o32 argument, which
-    ``fwd_o32`` says the checkout has)."""
+    ``fwd_o32`` says the checkout has; ``prefill_every_ps`` says whether
+    its bf16 prefill takes tensor maps at every page size)."""
     src = os.path.join(old_dir, "ray_tpu_torch", "ops", "csrc")
     out = os.path.join("build", "ab")
     os.makedirs(out, exist_ok=True)
@@ -2176,6 +2232,9 @@ def old_library(old_dir):
     _build._declare(lib)
     with open(os.path.join(src, "flash_fwd.cu")) as f:
         lib.fwd_o32 = "void* o32" in f.read()
+    with open(os.path.join(src, "paged_prefill.cu")) as f:
+        # a checkout whose bf16 prefill is wgmma at every page size
+        lib.prefill_every_ps = "prefill_box_rows" in f.read()
     if not lib.fwd_o32:   # a checkout from before rtt_flash_fwd took o32
         argtypes = lib.rtt_flash_fwd.argtypes
         lib.rtt_flash_fwd.argtypes = argtypes[:6] + argtypes[7:]
@@ -2222,11 +2281,14 @@ def phase_ab(device, old_dir):
     device time in turns (old, new, new, old) in one process: the bf16
     flash forward, dq and dkv at [8, 1024, 12, 64] causal, the paged
     prefill (16 slots x C 256 at offset 768, 1024-token contexts, ps 64,
-    H 32, K 64) and the paged decode (16 slots of 1024 positions, and at
-    light load) on a bf16 and on an int8 pool; for the decode also the
-    wrapper's host µs per call, the parent's wrapper (`old_decode`)
-    against the new one. Each old output is held to the new one's plain
-    version first (dq, dkv and the decode: the bf16 bound must hold)."""
+    H 32, K 64; and at `PS_PREFILL_CASES`' and `AB_PS64_CASES`' page sizes
+    and heads) and the
+    paged decode (16 slots of 1024 positions, and at light load) on a
+    bf16 and on an int8 pool; for the decode also the wrapper's host µs
+    per call, the parent's wrapper (`old_decode`) against the new one.
+    Each old output is held to the new one's plain version first (dq,
+    dkv, the decode and the page-size prefill cases: the bf16 bound must
+    hold)."""
     old = old_library(old_dir)
     stream = lambda: torch.cuda.current_stream().cuda_stream
     rng = np.random.default_rng(11)
@@ -2286,6 +2348,36 @@ def phase_ab(device, old_dir):
                                             sums["flash_dv"]))}
     T, C, ps = 1024, 256, 64
     n_pg = T // ps
+
+    def prefill_old(qp, kp, vp, args, sc):
+        """The older checkout's prefill entry point: tensor maps at every
+        page size (``prefill_every_ps``), or at the page sizes its TMA
+        rule took (a divisor of 64 that is a multiple of 8, or a multiple
+        of 64) and none (its mma.sync kernel) at others."""
+        B, Cq, Hh, Kd = qp.shape
+        ps = kp.shape[1]
+        out = torch.empty_like(qp)
+        ptrs = [qp.data_ptr(), kp.data_ptr(), vp.data_ptr()]
+        if sc:
+            ptrs += [sc["k_scale"].data_ptr(), sc["v_scale"].data_ptr()]
+        fn = (old.rtt_paged_prefill_attention_int8 if sc
+              else old.rtt_paged_prefill_attention)
+        tma = old.prefill_every_ps or (
+            ps % 8 == 0 and (64 % ps == 0 or ps % 64 == 0))
+        maps = pa._c_array(pa.prefill_plan(qp, kp, vp).maps) if tma else None
+        _build.check(fn(1, *ptrs, *(a.data_ptr() for a in args),
+                        out.data_ptr(), B, Cq, Hh, Kd, ps, args[0].shape[1],
+                        float(1 / np.sqrt(Kd)), pa._addr(maps), stream()),
+                     "old prefill")
+        return out
+
+    def prefill_case(name, qp, kp, vp, args, sc):
+        cases[name] = (
+            lambda: prefill_old(qp, kp, vp, args, sc),
+            lambda: pa.paged_prefill_attention(qp, kp, vp, *args, **sc),
+            lambda: pa.reference_paged_prefill_attention(qp, kp, vp, *args,
+                                                         **sc))
+
     for quant in (False, True):
         kp, vp, tables, lens, sc = paged_pool(
             rng, [T] * 16, ps=ps, n_pg=n_pg, dtype=torch.bfloat16,
@@ -2294,29 +2386,21 @@ def phase_ab(device, old_dir):
             np.float32)).to(device, torch.bfloat16)
         args = [torch.from_numpy(a).to(device) for a in (
             tables, np.full(16, T - C, np.int32), lens)]
-
-        def prefill_old(qp=qp, kp=kp, vp=vp, args=args, sc=sc):
-            out = torch.empty_like(qp)
-            ptrs = [qp.data_ptr(), kp.data_ptr(), vp.data_ptr()]
-            if sc:
-                ptrs += [sc["k_scale"].data_ptr(), sc["v_scale"].data_ptr()]
-            fn = (old.rtt_paged_prefill_attention_int8 if sc
-                  else old.rtt_paged_prefill_attention)
-            maps = pa._c_array(pa.prefill_plan(qp, kp, vp))
-            _build.check(fn(1, *ptrs, *(a.data_ptr() for a in args),
-                            out.data_ptr(), 16, C, H, K, ps, n_pg,
-                            float(1 / np.sqrt(K)), ctypes.addressof(maps),
-                            stream()), "old prefill")
-            return out
-
-        name = "paged_prefill_attention" + ("_int8" if quant else "")
-        cases[name] = (
-            prefill_old,
-            lambda qp=qp, kp=kp, vp=vp, args=args, sc=sc:
-                pa.paged_prefill_attention(qp, kp, vp, *args, **sc),
-            lambda qp=qp, kp=kp, vp=vp, args=args, sc=sc:
-                pa.reference_paged_prefill_attention(qp, kp, vp, *args,
-                                                     **sc))
+        prefill_case("paged_prefill_attention" + ("_int8" if quant else ""),
+                     qp, kp, vp, args, sc)
+    # The prefill at the page sizes the older checkout ran on its mma.sync
+    # kernel (`PS_PREFILL_CASES`) and at ps 64 at the other head dims
+    # (`AB_PS64_CASES`), each output held to the bf16 bound.
+    for tag, heads, ps_case, C_case, off in PS_PREFILL_CASES + AB_PS64_CASES:
+        for quant in (False, True):
+            qp, kp, vp, args, sc = prefill_case_at(
+                rng, device, heads, ps_case, C_case, off, quant)
+            name = ("paged_prefill_attention" + ("_int8" if quant else "")
+                    + f" {tag}")
+            prefill_case(name, qp, kp, vp, args, sc)
+            bound_sums[name] = abs_v_attention(
+                pa.reference_paged_prefill_attention, qp, kp, vp, *args,
+                **sc)
     # The paged decode, float and int8 pools, at the timed shape (16 slots
     # of 1024 positions) and at light load (`light_load_case`).
     for quant in (False, True):
@@ -2933,12 +3017,13 @@ def restore_plain(module, real):
         setattr(module, name, fn)
 
 
-# The ps-48 engine of engine_gptj: a page size the wgmma prefill kernel
-# does not take (`wgmma_page_size`), so its prefill dispatches run the
-# mma.sync kernel at head dim 256; chunk 240 is five pages.
-GPTJ_MMA_KNOBS = dict(page_size=48, prefill_chunk=240,
-                      prefill_token_budget=480)
-GPTJ_MMA_PROMPTS = 8
+# The ps-48 engine of engine_gptj: a page size that is neither a divisor
+# nor a multiple of 64, so its prefill dispatches run the wgmma kernel in
+# TMA boxes of 16 rows (`prefill_box_rows`) at head dim 256; chunk 240 is
+# five pages.
+GPTJ_PS48_KNOBS = dict(page_size=48, prefill_chunk=240,
+                       prefill_token_budget=480)
+GPTJ_PS48_PROMPTS = 8
 
 
 def gptj_engine_pair(device, cfg, params, prompts, **knobs):
@@ -3004,39 +3089,46 @@ def gptj_engine_pair(device, cfg, params, prompts, **knobs):
 
 
 def phase_engine_gptj(device):
-    """LLMEngine(gptj_6b) at full width and depth (28 layers, d 4096, 16
-    heads of 256, d_ff 16384, bf16, random weights from seed 0) on the
-    paged kernels with the engine phase's knobs and traffic, against the
-    gather engine (`gptj_engine_pair`); then the same weights cut to their
-    first CUT_DEPTH layers at page size 48 and chunk 240
-    (GPTJ_MMA_KNOBS: the prefill on the mma.sync kernel, the decode
-    kernel at ps 48) on the first 8 prompts, against its own gather
-    engine. → the launches of each engine."""
+    """LLMEngine(gptj_6b) at full width (d 4096, 16 heads of 256, d_ff
+    16384, bf16, random weights from seed 0), cut to the first CUT_DEPTH
+    of its 28 layers (at full depth the whole script ran 1,226 s on an
+    H100 80GB HBM3 at 700 W), on the paged kernels with the engine phase's
+    knobs and traffic, against the gather engine (`gptj_engine_pair`);
+    then the same layers at page size 48 and chunk 240 (GPTJ_PS48_KNOBS:
+    the prefill on the wgmma kernel in 16-row boxes, the decode kernel at
+    ps 48) on the first 8 prompts, against its own gather engine. → the
+    launches of each engine."""
     t_phase = time.perf_counter()
     cfg = gpt.GPTConfig.gptj_6b(dtype=torch.bfloat16)
     params = gptj_params(cfg, device)
+    cut, (cut_params,) = first_layers(cfg, (params,), CUT_DEPTH)
+    del params
     torch.cuda.synchronize()
     prompts = engine_prompts(cfg)
-    out, launches, bad = gptj_engine_pair(device, cfg, params, prompts)
-    cut, (cut_params,) = first_layers(cfg, (params,), CUT_DEPTH)
-    kern = pa.prefill_kernel(torch.bfloat16, cfg.head_dim,
-                             GPTJ_MMA_KNOBS["page_size"])
-    if kern != "mma":
-        bad.append(f"page size 48 at head dim 256 takes {kern}")
-    mma, mma_launches, mma_bad = gptj_engine_pair(
-        device, cut, cut_params, prompts[:GPTJ_MMA_PROMPTS], **GPTJ_MMA_KNOBS)
-    bad += [f"page size 48: {b}" for b in mma_bad]
-    emit({"phase": "engine_gptj", "config": "gptj_6b bf16 (28 layers, d "
-          "4096, 16 heads of 256), random weights from seed 0", **out,
-          "ps48_mma": {"config": f"the first {CUT_DEPTH} layers, "
-                                 f"{GPTJ_MMA_KNOBS}, prefill kernel {kern}, "
-                                 f"{GPTJ_MMA_PROMPTS} prompts", **mma},
+    out, launches, bad = gptj_engine_pair(device, cut, cut_params, prompts)
+    ps48 = GPTJ_PS48_KNOBS["page_size"]
+    kern = pa.prefill_kernel(torch.bfloat16, cfg.head_dim, ps48)
+    box = pa.prefill_box_rows(cfg.head_dim, ps48)
+    if kern != "wgmma" or box != 16:
+        bad.append(f"page size 48 at head dim 256 takes {kern} "
+                   f"(box rows {box})")
+    p48, p48_launches, p48_bad = gptj_engine_pair(
+        device, cut, cut_params, prompts[:GPTJ_PS48_PROMPTS],
+        **GPTJ_PS48_KNOBS)
+    bad += [f"page size 48: {b}" for b in p48_bad]
+    emit({"phase": "engine_gptj", "config": f"gptj_6b bf16 (d 4096, 16 heads "
+          f"of 256), the first {CUT_DEPTH} of its 28 layers, random weights "
+          "from seed 0", **out,
+          "ps48": {"config": f"the first {CUT_DEPTH} layers, "
+                             f"{GPTJ_PS48_KNOBS}, prefill kernel {kern} "
+                             f"in boxes of {box} rows, "
+                             f"{GPTJ_PS48_PROMPTS} prompts", **p48},
           "phase_s": time.perf_counter() - t_phase, "card": card_line()})
-    del params, cut_params
+    del cut_params
     torch.cuda.empty_cache()
     if bad:
         raise AssertionError(f"engine_gptj: {bad}")
-    return launches, mma_launches
+    return launches, p48_launches
 
 
 # ------------------------------------------- prefix cache, speculation
@@ -4504,7 +4596,9 @@ def phase_engine_observe(device, cfg, params, engine_out):
     request's llm.ttft tree (a root and its three children). Then a drain
     under load: the same traffic, drain(0.0) with the thread running once
     half the streams have started, every continuation resumed on a fresh
-    engine with exactly its missing tokens."""
+    engine with exactly its missing tokens. Cut to CUT_DEPTH layers, for
+    the whole script's time limit."""
+    cfg, (params,) = first_layers(cfg, (params,), CUT_DEPTH)
     tags = {"impl": "paged-kernel", "replica": "local"}
     text0 = profiling.prometheus_text(profiling.metrics_snapshot())
     widths0 = {r["tags"]["width"]: r["value"]
@@ -8146,7 +8240,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if want("engine_gptj"):
         (by_path["engine_gptj"],
-         by_path["engine_gptj (ps 48, mma.sync prefill)"]) = (
+         by_path["engine_gptj (ps 48)"]) = (
             phase_engine_gptj(device))
     if want("runtime"):
         by_path["runtime (actor)"] = phase_runtime(

@@ -1064,6 +1064,7 @@ class CoreClient:
             await self._await_local_deps(spec)
             if pt.state == "done":   # cancelled while waiting on deps
                 return
+            await self._publish_arg_holds(spec, escrow)
             key = self._sched_key(spec)
             pt.key = key
             q = self._pending_by_key.get(key)
@@ -1092,6 +1093,22 @@ class CoreClient:
             # Drop the in-flight escrow; if the caller already released its
             # refs this cascades into the batched GCS release → object GC.
             self._release_escrow(spec, escrow)
+
+    async def _publish_arg_holds(self, spec: TaskSpec,
+                                 escrow: list[bytes] | None) -> None:
+        """Before the spec leaves this process, make sure the GCS holds
+        our escrow on its ref arguments: a worker that borrows one and
+        releases it after the task must not empty the object's holder set
+        while our acquire still waits for the next flush. A failed flush
+        is retried by the flusher; the task goes out regardless."""
+        args = [o for o in escrow or () if o not in spec.return_ids]
+        if not args:
+            return
+        try:
+            await self.refcounter.publish(args)
+        except Exception as e:  # noqa: BLE001
+            logger.debug("publishing %s's argument holds failed: %s",
+                         spec.name, e)
 
     def cancel_task(self, oid: bytes, force: bool = False) -> bool:
         """ray_tpu_torch.cancel: queued tasks unqueue and fail with

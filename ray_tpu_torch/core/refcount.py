@@ -82,6 +82,10 @@ class ReferenceCounter:
         self._registered_contains: dict[bytes, list[bytes]] = {}
         self._closed = False
         self._flush_task = None
+        # One ref_update in flight at a time (made on the loop, at first
+        # use): `publish` returning means the GCS has seen every acquire
+        # taken before it, including one that an earlier flush carries.
+        self._flush_lock = None
 
     def mark_owned(self, oid: bytes) -> None:
         if not self._closed:
@@ -252,7 +256,29 @@ class ReferenceCounter:
             self._pending_contains = []
             return batch
 
+    async def publish(self, oids: Iterable[bytes]) -> None:
+        """Return once the GCS has seen this process's holds on ``oids``
+        (flushing now if any is pending or a flush is in flight). A
+        submitter calls it before a task spec carrying ``oids`` leaves the
+        process: the borrower's release must find the submitter among the
+        object's holders, or the GCS frees an object still in use (a fresh
+        task return passed on within one flush interval)."""
+        with self._lock:
+            pending = any(o in self._pending_acq or o in self._uncertain
+                          for o in oids)
+        if pending or (self._flush_lock is not None
+                       and self._flush_lock.locked()):
+            await self._flush_async()
+
     async def _flush_async(self) -> None:
+        import asyncio
+
+        if self._flush_lock is None:
+            self._flush_lock = asyncio.Lock()
+        async with self._flush_lock:
+            await self._flush_locked()
+
+    async def _flush_locked(self) -> None:
         self.drain_deferred()
         self._retry_deferred_local()
         batch = self._take_batch()

@@ -788,13 +788,18 @@ class CudaBatchIterator:
       (``Sharding.bounds`` on dimension 0), to the sharding's device.
       Any other value raises.
     - On the card each column is staged into pinned host buffers, a ring
-      of ``prefetch + 1`` per column shape, and copied with
+      of ``prefetch + 1`` per column (a slot's buffer grows to the
+      largest batch it has held, so a ragged last batch takes a view of
+      it and pins nothing new), and copied with
       ``copy_(non_blocking=True)`` on a side stream. A slot is refilled
-      only once the copy that read it has finished (an event per slot);
-      the consumer's current stream waits on a batch's copies before it
-      is yielded, and each yielded tensor is ``record_stream``'d on that
-      stream. A failure to pin or to copy raises: there is no pageable
-      fallback.
+      only once the copy that read it has finished (a start and an end
+      event per slot); the consumer's current stream waits on a batch's
+      copies before it is yielded, and each yielded tensor is
+      ``record_stream``'d on that stream. A slot's copy time is folded
+      into a running sum, and its events dropped, when the slot is
+      reused or `stats` reads it, so the feeder holds at most
+      ``prefetch + 1`` event pairs a column however long it runs. A
+      failure to pin or to copy raises: there is no pageable fallback.
     - On the CPU: the dtype cast and ``torch.from_numpy``, no streams and
       no pinning.
 
@@ -834,9 +839,9 @@ class CudaBatchIterator:
         self.prefetch = prefetch
         self._batches = iter(batches)
         self._staged: list = []       # (out, [tensors], [done events])
-        self._rings: dict = {}        # (name, shape, dtype) → [_Slot]
-        self._turn: dict = {}         # (name, shape, dtype) → next slot
-        self._timings: list = []      # (start, end) events of each copy
+        self._rings: dict = {}        # (name, dtype) → [_Slot]
+        self._turn: dict = {}         # (name, dtype) → next slot
+        self._copy_ms = 0.0           # device ms of the copies folded in
         self._stream = (torch.cuda.Stream(dev) if dev.type == "cuda"
                         else None)
         self._stats = {"batches": 0, "copies": 0, "pinned_copies": 0,
@@ -874,10 +879,10 @@ class CudaBatchIterator:
         rate of the bytes copied over it (it waits for every copy)."""
         out = dict(self._stats)
         if self._stream is not None:
-            ms = 0.0
-            for start, end in self._timings:
-                end.synchronize()
-                ms += start.elapsed_time(end)
+            for ring in self._rings.values():
+                for slot in ring:
+                    self._fold(slot)
+            ms = self._copy_ms
             out["copy_device_ms"] = ms
             out["h2d_gb_s"] = (out["bytes_copied"] / (ms * 1e-3) / 1e9
                                if ms else None)
@@ -909,43 +914,52 @@ class CudaBatchIterator:
         import torch
 
         dtype = self.dtype or _torch_dtype(arr.dtype)
-        key = (name, arr.shape, dtype)
+        key = (name, dtype)
         ring = self._rings.get(key)
         if ring is None:
-            ring = self._rings[key] = [
-                _Slot(torch.empty(arr.shape, dtype=dtype, pin_memory=True))
-                for _ in range(self.prefetch + 1)]
+            ring = self._rings[key] = [_Slot()
+                                       for _ in range(self.prefetch + 1)]
             self._turn[key] = 0
         slot = ring[self._turn[key]]
         self._turn[key] = (self._turn[key] + 1) % len(ring)
-        if slot.done is not None:
-            slot.done.synchronize()     # the copy that last read it
+        self._fold(slot)                # waits for the copy that last read it
+        if slot.host is None or slot.host.numel() < arr.size:
+            slot.host = torch.empty(arr.size, dtype=dtype, pin_memory=True)
         if not slot.host.is_pinned():
             raise RuntimeError("a staging buffer is not pinned")
-        _fill(slot.host, arr)
-        start = torch.cuda.Event(enable_timing=True)
+        host = slot.host[:arr.size].view(arr.shape)
+        _fill(host, arr)
+        slot.start = torch.cuda.Event(enable_timing=True)
         slot.done = torch.cuda.Event(enable_timing=True)
         with torch.cuda.stream(self._stream):
             dev_t = torch.empty(arr.shape, dtype=dtype, device=self.device)
-            start.record(self._stream)
-            dev_t.copy_(slot.host, non_blocking=True)
+            slot.start.record(self._stream)
+            dev_t.copy_(host, non_blocking=True)
             slot.done.record(self._stream)
-        self._timings.append((start, slot.done))
         self._stats["copies"] += 1
         self._stats["pinned_copies"] += 1
         self._stats["bytes_copied"] += dev_t.numel() * dev_t.element_size()
         return dev_t, slot.done
 
+    def _fold(self, slot):
+        """Wait for the copy that last read ``slot``, add its device ms
+        to the running sum and drop its events."""
+        if slot.done is None:
+            return
+        slot.done.synchronize()
+        self._copy_ms += slot.start.elapsed_time(slot.done)
+        slot.start = slot.done = None
+
 
 class _Slot:
-    """One pinned staging buffer and the event of the copy that last
-    read it."""
+    """One pinned staging buffer (flat, as large as the largest batch
+    it has held) and the start and end events of the copy that last read
+    it, until they are folded."""
 
-    __slots__ = ("host", "done")
+    __slots__ = ("host", "start", "done")
 
-    def __init__(self, host):
-        self.host = host
-        self.done = None
+    def __init__(self):
+        self.host = self.start = self.done = None
 
 
 def _torch_dtype(dtype):

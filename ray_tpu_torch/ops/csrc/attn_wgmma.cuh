@@ -23,7 +23,10 @@
 //   K, V    [KV_ST stages][KP / 64][BN keys][128 B] each, the same swizzle
 //   int8 only: the staged codes [STG_ST stages][K, V][BN][KD] (plain), each
 //   key's K scale · sm_scale · log2 e and V scale [KV_ST][2][BN] (fp32),
-//   the page id of each TMA box [STG_ST][BN]
+//   the page id of each TMA box (of each key, where the producer gathers)
+//   [STG_ST][BN]
+//   the paged producer's row table where it gathers: each key's pool row
+//   [2][BN] (int)
 //   mbarriers.
 // The ring is deep (four bf16 stages; for int8 four stages of codes, half
 // the bytes each, ahead of two bf16 stages) so that enough bytes are in
@@ -31,9 +34,10 @@
 // Per item buffer (Q here; the flash backward's: Q and dO, or K and V):
 // full_a (TMA bytes) and a_empty (every consumer warp is done with the
 // item). Per bf16 stage: full_k / full_v (the tile has
-// landed: TMA bytes for bf16; for int8 the widening warps' arrivals, on
-// full_k alone) and empty (every consumer warp is done with it); per
-// staging stage (int8): stg_full / stg_empty around the codes.
+// landed: TMA bytes for bf16, or one arrival per gathering thread once its
+// copies landed; for int8 the widening warps' arrivals, on full_k alone)
+// and empty (every consumer warp is done with it); per staging stage
+// (int8): stg_full / stg_empty around the codes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -80,7 +84,8 @@ struct AttnCfg {
   static constexpr int OFF_STG = OFF_V + KV_ST * KV_BYTES;
   static constexpr int OFF_SC = OFF_STG + STG_ST * 2 * STG_BYTES;
   static constexpr int OFF_PID = OFF_SC + (QUANT ? KV_ST * 2 * BN * 4 : 0);
-  static constexpr int OFF_BAR = OFF_PID + STG_ST * BN * 4;
+  static constexpr int OFF_ROW = OFF_PID + STG_ST * BN * 4;
+  static constexpr int OFF_BAR = OFF_ROW + 2 * BN * 4;
   static constexpr int N_BAR = 4 + 3 * KV_ST + 2 * STG_ST;
   // + 1024: room to align the dynamic shared memory's base.
   static constexpr int SMEM = OFF_BAR + 8 * N_BAR + 1024;
@@ -169,14 +174,16 @@ inline bool tile_boxes_are(const long long* maps, const int* rows, int n) {
 
 // The block's 1024-aligned shared base and its barriers (at byte offset
 // off_bar: two item buffers, KV_ST ring stages whose full_k takes
-// full_k_count arrivals, STG_ST int8 staging stages); thread 0 initialises
-// them, and every thread returns after the block barrier. The flash
-// backward takes the same protocol without staging stages.
+// full_k_count arrivals and full_v load_count, STG_ST int8 staging stages
+// whose stg_full takes load_count); thread 0 initialises them, and every
+// thread returns after the block barrier. The flash backward takes the
+// same protocol without staging stages.
 template <int KV_ST, int STG_ST = 0>
 __device__ __forceinline__ unsigned char* attn_setup(unsigned char* raw,
                                                      int off_bar,
                                                      int full_k_count,
-                                                     AttnBars& bar) {
+                                                     AttnBars& bar,
+                                                     int load_count = 1) {
   unsigned char* base = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
   uint64_t* b = reinterpret_cast<uint64_t*>(base + off_bar);
   bar.full_a = b;
@@ -193,11 +200,11 @@ __device__ __forceinline__ unsigned char* attn_setup(unsigned char* raw,
     }
     for (int s = 0; s < KV_ST; ++s) {
       mbar_init(bar.full_k + s, full_k_count);
-      mbar_init(bar.full_v + s, 1);
+      mbar_init(bar.full_v + s, load_count);
       mbar_init(bar.empty + s, ATT_CONSUMER_WARPS);
     }
     for (int s = 0; s < STG_ST; ++s) {
-      mbar_init(bar.stg_full + s, 1);
+      mbar_init(bar.stg_full + s, load_count);
       mbar_init(bar.stg_empty + s, ATT_WIDEN_THREADS / 32);
     }
     fence_barrier_init();
@@ -294,7 +301,9 @@ __device__ __forceinline__ void attn_widen(unsigned char* base,
 // stage's phases stay in step). p = exp2(s·c - m2) is rounded to bf16 as
 // P·V's A fragments, and l sums it unrounded. int8: each score times its
 // key's K scale (· sm_scale · log2 e: c is 1), and p · vs split into bf16
-// hi + lo, two products into O, so p keeps about 16 bits.
+// hi + lo, two products into O, so p keeps about 16 bits. `gathered`: the
+// tiles were written by cp.async copies (the generic proxy), so a proxy
+// fence orders them before this thread's wgmma reads them.
 template <int KD, bool QUANT>
 __device__ __forceinline__ void attn_mainloop(unsigned char* base,
                                               const unsigned char* q,
@@ -302,7 +311,8 @@ __device__ __forceinline__ void attn_mainloop(unsigned char* base,
                                               int g0, int n_kt, int kv_lim,
                                               int qpos0, float c,
                                               float (&o)[KD / 2],
-                                              float (&m2)[2], float (&l)[2]) {
+                                              float (&m2)[2], float (&l)[2],
+                                              bool gathered = false) {
   using Cfg = AttnCfg<KD, QUANT>;
   constexpr int BN = Cfg::BN;
   constexpr int NS = BN / 2;  // S accumulator floats per thread
@@ -328,6 +338,7 @@ __device__ __forceinline__ void attn_mainloop(unsigned char* base,
     const uint32_t v_addr = smem_u32(base + Cfg::OFF_V + st * Cfg::KV_BYTES);
     mbar_wait(bar.full_k + st, ph);
     if (!QUANT) mbar_wait(bar.full_v + st, ph);
+    if (gathered) fence_async_smem();
     if (key0 <= qpos0 + 63) {
       // S = Q · K^T.
       float s[NS];

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the attention kernels that run on
 // wgmma (flash_fwd.cu, flash_bwd.cu, paged_prefill.cu) and of the paged
 // decode kernel (paged_decode.cu), as inline PTX: mbarriers, TMA tile
-// loads, warpgroup register reallocation, the wgmma
+// loads, cp.async copies, warpgroup register reallocation, the wgmma
 // shared-memory descriptors and the m64nNk16 bf16 products; and, on the
 // host, the encoding of a TMA tensor map from the numbers the Python
 // wrappers pass.
@@ -104,6 +104,26 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// ---------------------------------------------------------- cp.async
+
+// 16 bytes from global to shared memory, bypassing L1; with `valid` false
+// no byte is read and the 16 bytes are zero-filled.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// One arrival on `bar` once every cp.async this thread issued before has
+// landed (noinc: the barrier's expected count includes it).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
                : "memory");
 }
 

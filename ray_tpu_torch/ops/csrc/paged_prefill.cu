@@ -19,31 +19,47 @@
 // What the design does about it. Every version stops at the last key a
 // query tile can see, min(lengths[b], offsets[b] + last row + 1): the causal
 // early exit, and no work at all for an inert row (lengths[b] == 0).
-//  - bf16 q, K in {64, 80, 128, 256}, page sizes in {8, 16, 32} or a
-//    multiple of 64
-//    (the serving path; `prefill_kernel` in ops/paged_attention.py holds
-//    the same rule): the wgmma kernel of attn_wgmma.cuh, the flash
-//    forward's mainloop with a paged producer. Persistent blocks, one per
-//    SM, take (128-row query tile, head, slot) items, a slot's query tiles
-//    next to each other so the second read of its pages comes from L2. The
-//    producer warp reads each box's page id from the table once and brings
-//    the key tile (BN = 128 keys at head dim 64, else 64) in by TMA from
-//    a 3-D tensor map over the layer's pool viewed as [(P+1)·ps, H, K],
-//    one box of gcd(ps, BN) rows per page piece, into a four-stage ring
-//    (two at 256, `AttnCfg`);
-//    the two consumer warpgroups run S = Q·K^T and O += P·V as wgmma,
-//    masking only the tiles that reach past a row's diagonal or the
-//    slot's length.
-//  - bf16 q at any other page size: the mma.sync kernel below (four warps of
-//    16 query rows, 64-key tiles staged through registers by 16-byte
-//    loads into dynamic shared memory, S and P·V as mma.sync m16n8k16),
-//    every head dim. At 256 the O fragments alone are 128 registers a
-//    thread, so Q is staged in shared memory once and its A fragments
-//    read per k-step (not 64 more registers), and keys are walked in tiles
-//    of 32 (S and P half the registers): 68 KB of shared memory a block.
-//    A shape rule of the C entry point, not a
-//    fallback: the wrapper's plan and rtt_paged_prefill_smem_bytes apply
-//    the same rule.
+//  - bf16 q, K in {64, 80, 128, 256}, every page size (the serving path;
+//    `prefill_kernel` in ops/paged_attention.py holds the same rule): the
+//    wgmma kernel of attn_wgmma.cuh, the flash forward's mainloop with a
+//    paged producer. Persistent blocks, one per SM, take (128-row query
+//    tile, head, slot) items, a slot's query tiles next to each other so
+//    the second read of its pages comes from L2. The producer brings each
+//    key tile (BN = 128 keys at head dim 64, else 64) into a four-stage ring
+//    (two at 256, `AttnCfg`) in the layout the consumers' wgmma descriptors
+//    read (128-byte swizzle, 64-column boxes); the two consumer warpgroups
+//    run S = Q·K^T and O += P·V as wgmma, masking only the tiles that reach
+//    past a row's diagonal or the slot's length. How a tile comes in
+//    depends on the page size (`prefill_box_rows`):
+//     - ps a multiple of 8: one thread reads each page piece's id from the
+//       table once and loads it by TMA from a 3-D tensor map over the
+//       layer's pool viewed as [(P+1)·ps, H, K], in boxes of gcd(ps, BN)
+//       rows (8 at ps 24, 16 at 48, 32 at 96): up to BN / 8 pieces a tile,
+//       each 1-4 column boxes of K and of V. Sharing the pieces out over
+//       the producer warp's lanes made ps 48 faster (1.34x at head dim
+//       64) and ps 64 slower (up to 4% at head dim 80) in every form
+//       tried, so one thread issues them. The box
+//       divides both ps and BN, so no box crosses a page, and it is whole
+//       8-row swizzle atoms, so every box starts on a 1024-byte boundary
+//       of the tile.
+//     - any other ps (4, 12, 20, 100, ...): a page piece is not whole
+//       8-row swizzle atoms. The producer gathers
+//       (`gather_tile`): the four warps of the producer warpgroup (the
+//       first alone for int8, where warps 1-3 widen) write each key's pool
+//       row into a table in shared memory, then copy every row's 16-byte
+//       chunks with cp.async into the swizzled offsets TMA would have used
+//       (chunk c of row r at (c % 8) ^ (r % 8)), zero-filling keys past the
+//       tile's reach, and cp.async.mbarrier.arrive.noinc signals the
+//       stage's full barriers as each thread's copies land. cp.async writes
+//       through the generic proxy, so the consumers fence to the async
+//       proxy before their wgmma reads the tile. It replaces an mma.sync
+//       kernel (64-key tiles staged through registers, four warps) that
+//       lost to SDPA at these page sizes. The other candidate, TMA boxes
+//       of gcd(ps, BN) rows (1, 2 or 4) at 128- to 512-byte offsets of
+//       the tile, came out right on the card (TMA swizzles by the shared
+//       address), but slower than the gatherer at ps 20 (1.6x at head dim
+//       256, 2.6x at 64; `tools/prefill_box_probe.py`): 32 to 128 TMA
+//       issues a tile.
 //  - fp32 (K in {64, 80, 128, 256}): plain FMAs from shared memory (one
 //    float of padding per row keeps the QK^T loop free of bank conflicts),
 //    so fp32 keeps full precision (1e-5).
@@ -56,19 +72,19 @@
 // programs compute the same thing:
 //  - fp32 q: the FMA kernel with the page dequantized (code · scale, exact
 //    in fp32) as it is staged in shared memory, p unrounded.
-//  - bf16 q: the same kernels as the float program on an int8 pool. In the
-//    wgmma kernel TMA brings the page codes into a four-stage staging ring
-//    (half the bytes of bf16), and warps 1-3 of the producer warpgroup
-//    widen them to bf16 (|code| <= 127 is exact) into the swizzled operand
-//    tiles of a two-stage ring and write each key's scales beside them;
-//    the mma.sync kernel widens as it stages. The scale is one scalar per page, so it factors out of each
-//    key's dot product: S = Q · codes^T on the tensor cores, then each score
-//    times its key's K scale (exact up to fp32 reassociation). For P · V
-//    each fp32 p is multiplied by its key's V scale and split into two bf16
-//    terms, p = hi + lo, run as two products (register-A wgmma, or
-//    mma.sync) into one fp32 accumulator: the product keeps about 16 bits
-//    of p (relative error <= 2^-16), where one bf16 term would round p to 8
-//    bits as the gather reference does.
+//  - bf16 q: the same kernel as the float program on an int8 pool. TMA (or
+//    the gathering warp, in plain rows) brings the page codes into a
+//    four-stage staging ring (half the bytes of bf16), and warps 1-3 of the
+//    producer warpgroup widen them to bf16 (|code| <= 127 is exact) into
+//    the swizzled operand tiles of a two-stage ring and write each key's
+//    scales beside them. The scale is one scalar per page, so it factors
+//    out of each key's dot product: S = Q · codes^T on the tensor cores,
+//    then each score times its key's K scale (exact up to fp32
+//    reassociation). For P · V each fp32 p is multiplied by its key's V
+//    scale and split into two bf16 terms, p = hi + lo, run as two
+//    register-A wgmma products into one fp32 accumulator: the product keeps
+//    about 16 bits of p (relative error <= 2^-16), where one bf16 term would
+//    round p to 8 bits as the gather reference does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -246,358 +262,6 @@ __global__ void __launch_bounds__(PF_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core version.
-
-constexpr int MMA_WARPS = 4;
-constexpr int MMA_THREADS = 32 * MMA_WARPS;
-constexpr int MMA_TQ = 16 * MMA_WARPS;  // query rows per block
-// Head dims the mma.sync kernel takes: every one of the wrappers'.
-constexpr int MMA_MAX_KD = 256;
-// Past head dim 128 the O fragments alone are 128 registers a thread: Q
-// stays in shared memory (its fragments loaded per k-step) instead of 64
-// more registers, and the keys are walked in tiles of 32 (half the S and P
-// fragments).
-template <int KD>
-constexpr bool MMA_Q_SMEM = KD > 128;
-template <int KD>
-constexpr int MMA_TK = KD > 128 ? 32 : 64;  // keys per shared tile
-
-// Dynamic shared memory of one block: the bf16 K and V tiles, the Q tile
-// (past head dim 128), and (int8 program) one K and one V scale per key;
-// rows padded by 8 elements.
-template <int KD>
-__host__ __device__ constexpr size_t prefill_mma_smem_bytes(bool quant) {
-  return (2 * (size_t)MMA_TK<KD> + (MMA_Q_SMEM<KD> ? MMA_TQ : 0)) *
-             (KD + 8) * sizeof(__nv_bfloat16) +
-         2 * (size_t)(quant ? MMA_TK<KD> : 1) * sizeof(float);
-}
-
-// A warp's Q fragments (the A operand of S = Q·K^T): this lane's rows r0
-// and r1 = r0 + 8 of the block's tile at `qb`; rows past `rows` are 0.
-template <int KSTEPS>
-__device__ __forceinline__ void load_q_frags(const __nv_bfloat16* qb,
-                                             size_t row_stride, int r0,
-                                             int r1, int rows, int t4,
-                                             uint32_t (&qa)[KSTEPS][4]) {
-  const uint32_t* q0p =
-      reinterpret_cast<const uint32_t*>(qb + (size_t)r0 * row_stride);
-  const uint32_t* q1p =
-      reinterpret_cast<const uint32_t*>(qb + (size_t)r1 * row_stride);
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    const int w = (ks * 16 + 2 * t4) / 2;  // 32-bit word of the pair
-    qa[ks][0] = r0 < rows ? q0p[w] : 0u;
-    qa[ks][1] = r1 < rows ? q1p[w] : 0u;
-    qa[ks][2] = r0 < rows ? q0p[w + 4] : 0u;
-    qa[ks][3] = r1 < rows ? q1p[w + 4] : 0u;
-  }
-}
-
-// O / l of this lane's rows r0 and r1 in bf16 at `ob` (the tile's first
-// row); l == 0 (no visible key) writes zeros, rows past `rows` nothing.
-template <int NT_O>
-__device__ __forceinline__ void store_o_rows(const float (&o)[NT_O][4],
-                                             const float (&l_r)[2],
-                                             __nv_bfloat16* ob,
-                                             size_t row_stride, int r0,
-                                             int r1, int rows, int t4) {
-  const float inv0 = 1.f / (l_r[0] == 0.f ? 1.f : l_r[0]);
-  const float inv1 = 1.f / (l_r[1] == 0.f ? 1.f : l_r[1]);
-#pragma unroll
-  for (int n = 0; n < NT_O; ++n) {
-    const int col = n * 8 + 2 * t4;
-    if (r0 < rows)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * row_stride + col) =
-          pack_bf16x2(o[n][0] * inv0, o[n][1] * inv0);
-    if (r1 < rows)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)r1 * row_stride + col) =
-          pack_bf16x2(o[n][2] * inv1, o[n][3] * inv1);
-  }
-}
-
-// TP: the pool's element type, bf16 (the float program) or int8_t (the int8
-// program: codes widened to bf16 as they are staged, each score times its
-// key's K scale, p times its key's V scale as bf16 hi + lo).
-template <typename TP, int KD>
-__global__ void __launch_bounds__(MMA_THREADS)
-    paged_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                             const TP* __restrict__ k_pool,
-                             const TP* __restrict__ v_pool,
-                             const __nv_bfloat16* __restrict__ k_scale,
-                             const __nv_bfloat16* __restrict__ v_scale,
-                             const int* __restrict__ tables,
-                             const int* __restrict__ offsets,
-                             const int* __restrict__ lengths,
-                             __nv_bfloat16* __restrict__ out, int C, int H,
-                             int ps, int n_pg, float sm_scale) {
-  constexpr bool kQuant = std::is_same<TP, int8_t>::value;
-  static_assert(KD % 16 == 0 && KD <= MMA_MAX_KD, "head dim for the mma path");
-  constexpr bool Q_SMEM = MMA_Q_SMEM<KD>;
-  constexpr int TK = MMA_TK<KD>;       // keys per shared tile
-  constexpr int KSTEPS = KD / 16;      // k-steps of Q·K^T
-  constexpr int NT_S = TK / 8;         // n-tiles of S (keys)
-  constexpr int NT_O = KD / 8;         // n-tiles of O (head dims)
-  constexpr int KP = KD + 8;           // padded shared row, in elements
-  constexpr int EPC = 16 / sizeof(TP); // pool elements per 16-byte load
-  constexpr int CPR = KD / EPC;        // 16-byte loads per pool row
-  extern __shared__ __align__(16) unsigned char mma_smem[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(mma_smem);
-  __nv_bfloat16* v_s = k_s + TK * KP;
-  __nv_bfloat16* q_s = v_s + TK * KP;  // [MMA_TQ][KP] when Q_SMEM
-  float* ks_s = reinterpret_cast<float*>(q_s + (Q_SMEM ? MMA_TQ * KP : 0));
-  float* vs_s = ks_s + (kQuant ? TK : 1);  // key's V scale
-  // ks_s: key's K scale · sm_scale
-
-  const int q0 = blockIdx.x * MMA_TQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int len = lengths[b];
-  const int off = offsets[b];
-  const int rows = min(MMA_TQ, C - q0);
-  const size_t row_stride = (size_t)H * KD;
-
-  // This lane's two query rows (fragment rows g and g + 8 of its warp).
-  const int r0 = warp * 16 + g;
-  const int r1 = r0 + 8;
-  const int qpos0 = off + q0 + r0;
-  const int qpos1 = off + q0 + r1;
-
-  // Q fragments stay in registers for the whole key walk (past head dim
-  // 128, Q in shared memory); rows past C are 0.
-  const __nv_bfloat16* qb = q + (((size_t)b * C + q0) * H + h) * KD;
-  uint32_t qa[Q_SMEM ? 1 : KSTEPS][4];
-  if constexpr (Q_SMEM) {
-    for (int i = tid; i < MMA_TQ * (KD / 8); i += MMA_THREADS) {
-      const int r = i / (KD / 8);
-      const int cc = (i - r * (KD / 8)) * 8;
-      *reinterpret_cast<uint4*>(&q_s[r * KP + cc]) =
-          r < rows ? *reinterpret_cast<const uint4*>(qb + r * row_stride + cc)
-                   : make_uint4(0u, 0u, 0u, 0u);
-    }
-  } else {
-    load_q_frags(qb, row_stride, r0, r1, rows, t4, qa);
-  }
-
-  float o[NT_O][4];
-#pragma unroll
-  for (int n = 0; n < NT_O; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_r[2] = {NEG_INF, NEG_INF};
-  float l_r[2] = {0.f, 0.f};
-
-  // Last position any row of this tile may attend, plus one.
-  int kv_end = min(len, off + q0 + rows);
-  kv_end = min(kv_end, n_pg * ps);
-  const int n_kt = kv_end > 0 ? (kv_end + TK - 1) / TK : 0;
-  const int warp_last_qpos = off + q0 + warp * 16 + 15;
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int key0 = kt * TK;
-    __syncthreads();  // every warp is done with the previous tile
-    for (int i = tid; i < TK * CPR; i += MMA_THREADS) {
-      const int r = i / CPR;
-      const int cc = (i - r * CPR) * EPC;
-      const int pos = key0 + r;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vv = kv;
-      if (pos < kv_end) {  // keys past the tile's reach are zero-filled
-        const size_t page = (size_t)tables[(size_t)b * n_pg + pos / ps];
-        const size_t src =
-            (page * ps + pos % ps) * row_stride + (size_t)h * KD + cc;
-        kv = *reinterpret_cast<const uint4*>(k_pool + src);
-        vv = *reinterpret_cast<const uint4*>(v_pool + src);
-      }
-      if constexpr (kQuant) {
-        store_i8x16_as_bf16(&k_s[r * KP + cc], kv);
-        store_i8x16_as_bf16(&v_s[r * KP + cc], vv);
-      } else {
-        *reinterpret_cast<uint4*>(&k_s[r * KP + cc]) = kv;
-        *reinterpret_cast<uint4*>(&v_s[r * KP + cc]) = vv;
-      }
-    }
-    if constexpr (kQuant) {
-      for (int r = tid; r < TK; r += MMA_THREADS) {
-        const int pos = key0 + r;
-        float ksc = 0.f, vsc = 0.f;
-        if (pos < kv_end) {
-          // Indexed by the page id, never by the table position.
-          const size_t page = (size_t)tables[(size_t)b * n_pg + pos / ps];
-          ksc = to_f(k_scale[page]) * sm_scale;
-          vsc = to_f(v_scale[page]);
-        }
-        ks_s[r] = ksc;
-        vs_s[r] = vsc;
-      }
-    }
-    __syncthreads();
-    if (key0 > warp_last_qpos) continue;  // all keys after all of our rows
-
-    // S = Q · K^T (int8: Q · codes^T) for this warp's 16 rows and the
-    // tile's TK keys.
-    float s[NT_S][4];
-#pragma unroll
-    for (int n = 0; n < NT_S; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
-      uint32_t a[4];
-      if constexpr (Q_SMEM) {  // the A fragment of load_q_frags
-        const uint32_t* q0w = reinterpret_cast<const uint32_t*>(
-            &q_s[r0 * KP + ks * 16 + 2 * t4]);
-        const uint32_t* q1w = reinterpret_cast<const uint32_t*>(
-            &q_s[r1 * KP + ks * 16 + 2 * t4]);
-        a[0] = q0w[0];
-        a[1] = q1w[0];
-        a[2] = q0w[4];
-        a[3] = q1w[4];
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) a[e] = qa[ks][e];
-      }
-#pragma unroll
-      for (int n = 0; n < NT_S; ++n) {
-        const uint32_t* kr = reinterpret_cast<const uint32_t*>(
-            &k_s[(n * 8 + g) * KP + ks * 16 + 2 * t4]);
-        mma_bf16_16816(s[n], a, kr[0], kr[4]);
-      }
-    }
-
-    // The score scale (sm_scale; int8: times the key's K scale), the
-    // two-part mask, then the online softmax of rows r0 and r1. A row's
-    // four lanes (same g) hold its TK scores between them.
-    float mx0 = m_r[0];
-    float mx1 = m_r[1];
-    uint32_t valid = 0;  // bit 4n+e: entry s[n][e] is a visible key
-#pragma unroll
-    for (int n = 0; n < NT_S; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kl = n * 8 + 2 * t4 + e;
-        const int key = key0 + kl;
-        const float sc = kQuant ? ks_s[kl] : sm_scale;
-        if (key < len && key <= qpos0) {
-          valid |= 1u << (4 * n + e);
-          s[n][e] *= sc;
-          mx0 = fmaxf(mx0, s[n][e]);
-        }
-        if (key < len && key <= qpos1) {
-          valid |= 1u << (4 * n + 2 + e);
-          s[n][2 + e] *= sc;
-          mx1 = fmaxf(mx1, s[n][2 + e]);
-        }
-      }
-    }
-#pragma unroll
-    for (int o2 = 1; o2 <= 2; o2 <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o2));
-    }
-    const float corr0 = __expf(m_r[0] - mx0);
-    const float corr1 = __expf(m_r[1] - mx1);
-    m_r[0] = mx0;
-    m_r[1] = mx1;
-
-    // P in bf16 as the A fragments of O += P · V: k-step j covers keys
-    // 16j..16j+15, i.e. S n-tiles 2j (a[0], a[1]) and 2j+1 (a[2], a[3]).
-    // int8: w = p · vs (fp32, unrounded) as hi = bf16(w) in pa and the
-    // remainder lo = w - hi (exact in fp32) in pa_lo.
-    uint32_t pa[NT_S / 2][4];
-    uint32_t pa_lo[kQuant ? NT_S / 2 : 1][4];
-    float ps0 = 0.f;
-    float ps1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < NT_S; ++n) {
-      float w[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        w[e] = (valid >> (4 * n + e)) & 1u
-                   ? __expf(s[n][e] - (e < 2 ? mx0 : mx1))
-                   : 0.f;
-      ps0 += w[0] + w[1];
-      ps1 += w[2] + w[3];
-      if constexpr (kQuant) {
-        const float vs0 = vs_s[n * 8 + 2 * t4];
-        const float vs1 = vs_s[n * 8 + 2 * t4 + 1];
-        w[0] *= vs0;
-        w[1] *= vs1;
-        w[2] *= vs0;
-        w[3] *= vs1;
-        float lo[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          lo[e] = w[e] - round_to<__nv_bfloat16>(w[e]);
-        pa_lo[n / 2][(n & 1) * 2 + 0] = pack_bf16x2(lo[0], lo[1]);
-        pa_lo[n / 2][(n & 1) * 2 + 1] = pack_bf16x2(lo[2], lo[3]);
-      }
-      pa[n / 2][(n & 1) * 2 + 0] = pack_bf16x2(w[0], w[1]);
-      pa[n / 2][(n & 1) * 2 + 1] = pack_bf16x2(w[2], w[3]);
-    }
-#pragma unroll
-    for (int o2 = 1; o2 <= 2; o2 <<= 1) {
-      ps0 += __shfl_xor_sync(0xffffffffu, ps0, o2);
-      ps1 += __shfl_xor_sync(0xffffffffu, ps1, o2);
-    }
-    l_r[0] = l_r[0] * corr0 + ps0;
-    l_r[1] = l_r[1] * corr1 + ps1;
-#pragma unroll
-    for (int n = 0; n < NT_O; ++n) {
-      o[n][0] *= corr0;
-      o[n][1] *= corr0;
-      o[n][2] *= corr1;
-      o[n][3] *= corr1;
-    }
-
-    // O += P · V. ldmatrix.trans matrix i of lanes 8i..8i+7: keys
-    // 16j + (i & 1)·8 + (lane & 7), head dims 16·np + (i >> 1)·8 .. +7, so
-    // r[0], r[1] are the b fragment of O n-tile 2np and r[2], r[3] of 2np+1.
-    const int mi = lane >> 3;
-    const int key_in = (lane & 7) + (mi & 1) * 8;
-    const int dim_in = (mi >> 1) * 8;
-#pragma unroll
-    for (int j = 0; j < NT_S / 2; ++j) {
-#pragma unroll
-      for (int np = 0; np < NT_O / 2; ++np) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, &v_s[(16 * j + key_in) * KP + 16 * np + dim_in]);
-        mma_bf16_16816(o[2 * np], pa[j], vb[0], vb[1]);
-        mma_bf16_16816(o[2 * np + 1], pa[j], vb[2], vb[3]);
-        if constexpr (kQuant) {
-          mma_bf16_16816(o[2 * np], pa_lo[j], vb[0], vb[1]);
-          mma_bf16_16816(o[2 * np + 1], pa_lo[j], vb[2], vb[3]);
-        }
-      }
-    }
-  }
-
-  store_o_rows(o, l_r, out + (((size_t)b * C + q0) * H + h) * KD, row_stride,
-               r0, r1, rows, t4);
-}
-
-template <typename TP, int KD>
-cudaError_t launch_prefill_mma(const void* q, const void* k_pool,
-                               const void* v_pool, const void* k_scale,
-                               const void* v_scale, const int* tables,
-                               const int* offsets, const int* lengths,
-                               void* out, int B, int C, int H, int ps,
-                               int n_pg, float sm_scale, cudaStream_t stream) {
-  constexpr bool kQuant = std::is_same<TP, int8_t>::value;
-  const size_t smem = prefill_mma_smem_bytes<KD>(kQuant);
-  cudaError_t e = allow_smem(paged_prefill_mma_kernel<TP, KD>, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((C + MMA_TQ - 1) / MMA_TQ, H, B);
-  paged_prefill_mma_kernel<TP, KD><<<grid, MMA_THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const TP*>(k_pool),
-      static_cast<const TP*>(v_pool),
-      static_cast<const __nv_bfloat16*>(k_scale),
-      static_cast<const __nv_bfloat16*>(v_scale), tables, offsets, lengths,
-      static_cast<__nv_bfloat16*>(out), C, H, ps, n_pg, sm_scale);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
 // FMA version (fp32; float and int8 pools).
 
 template <typename T, typename TP, int KD>
@@ -627,11 +291,36 @@ cudaError_t launch_prefill_kd(const void* q, const void* k_pool,
 // ---------------------------------------------------------------------------
 // bf16 q on wgmma (attn_wgmma.cuh).
 
-// The page sizes the wgmma kernel takes (`prefill_kernel` in
-// ops/paged_attention.py holds the same rule): a key tile is made of whole
-// TMA boxes of gcd(ps, BN) rows, each a multiple of one 8-row swizzle atom.
-__host__ __device__ constexpr bool wgmma_page_size(int ps) {
-  return ps > 0 && ps % 8 == 0 && (64 % ps == 0 || ps % 64 == 0);
+// Rows of one TMA box of the paged producer (`prefill_box_rows` in
+// ops/paged_attention.py holds the same rule): gcd(ps, BN) where ps is a
+// multiple of 8, so a box is whole 8-row swizzle atoms and starts on a
+// 1024-byte boundary of its tile, and no box crosses a page; 0 at any
+// other page size, where the producer gathers the key rows itself.
+__host__ __device__ constexpr int prefill_box_rows(int ps, int bn) {
+  if (ps < 1 || ps % 8) return 0;
+  int a = ps, b = bn;
+  while (b) {
+    const int t = a % b;
+    a = b;
+    b = t;
+  }
+  return a;
+}
+
+// Threads that gather a key tile where the page size takes no TMA box: the
+// producer warpgroup's four warps for the float program, its first warp for
+// the int8 one (warps 1-3 widen).
+template <bool QUANT>
+constexpr int PF_GATHER_THREADS = QUANT ? 32 : WG_THREADS;
+
+// The gathering threads' barrier: the warp, or named barrier 1 over the
+// producer warpgroup.
+template <int N>
+__device__ __forceinline__ void gather_sync() {
+  if constexpr (N == 32)
+    __syncwarp();
+  else
+    asm volatile("bar.sync 1, %0;\n" ::"n"(N) : "memory");
 }
 
 // Work item `item` of the grid: a slot's query tiles next to each other
@@ -659,14 +348,76 @@ __device__ __forceinline__ PrefillItem prefill_item(
   return it;
 }
 
-// QUANT: the int8 program (k_scale / v_scale read by page id; the codes are
-// staged and widened by warps 1-3 of the producer warpgroup). Persistent:
-// one block per SM.
+// The key tile at key0 of slot row `trow`, head h, gathered by the
+// PF_GATHER_THREADS threads of the producer warpgroup: each key's pool row
+// into the row table (-1 past the item's reach; int8: each key's page id
+// into `pid` as well, the widening warps' scales), then every row's KD
+// columns by 16-byte cp.async copies from the pool (rows `row_bytes`
+// apart) into dk / dv, laid out as TMA lays out its boxes: the float
+// program's swizzled 64-column boxes (chunk c of row r in box c / 8 at
+// chunk (c % 8) ^ (r % 8)), the int8 program's plain rows of codes. Rows
+// past the reach are zero-filled. Float: each thread's arrival on full_k
+// once its K copies land, on full_v once its V copies do. int8 (full_k ==
+// full_v, the staging stage's barrier): one arrival once its copies land,
+// one now (its page ids written).
 template <int KD, bool QUANT>
+__device__ __forceinline__ void gather_tile(
+    unsigned char* base, unsigned char* dk, unsigned char* dv,
+    uint64_t* full_k, uint64_t* full_v, int* pid,
+    const unsigned char* __restrict__ k_pool,
+    const unsigned char* __restrict__ v_pool, const int* trow, int key0,
+    int kv_end, int ps, int h, long long row_bytes, int g) {
+  using Cfg = AttnCfg<KD, QUANT>;
+  constexpr int BN = Cfg::BN;
+  constexpr int GT = PF_GATHER_THREADS<QUANT>;
+  constexpr int ES = QUANT ? 1 : 2;       // bytes of an element
+  constexpr int CPR = KD * ES / 16;       // 16-byte chunks of a row
+  const int t = threadIdx.x;
+  int* rows = reinterpret_cast<int*>(base + Cfg::OFF_ROW) + (g & 1) * BN;
+  for (int r = t; r < BN; r += GT) {
+    const int pos = key0 + r;
+    const int page = pos < kv_end ? trow[pos / ps] : 0;
+    rows[r] = pos < kv_end ? page * ps + pos % ps : -1;
+    if constexpr (QUANT) pid[r] = page;
+  }
+  gather_sync<GT>();  // the table is read across threads; two alternate
+  const long long col0 = (long long)h * KD * ES;
+#pragma unroll 1
+  for (int side = 0; side < 2; ++side) {
+    const unsigned char* pool = side ? v_pool : k_pool;
+    unsigned char* dst = side ? dv : dk;
+    for (int i = t; i < BN * CPR; i += GT) {
+      const int r = i / CPR;
+      const int c = i - r * CPR;
+      const int row = rows[r];
+      const int at =
+          QUANT ? r * KD + c * 16
+                : (c >> 3) * BN * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+      cp_async_16(dst + at,
+                  pool + (row < 0 ? 0 : row * row_bytes + col0 + c * 16),
+                  row >= 0);
+    }
+    if (!QUANT) cp_async_arrive(side ? full_v : full_k);
+  }
+  if constexpr (QUANT) {
+    cp_async_arrive(full_k);
+    mbar_arrive(full_k);
+  }
+}
+
+// QUANT: the int8 program (k_scale / v_scale read by page id; the codes are
+// staged and widened by warps 1-3 of the producer warpgroup). GATHER: the
+// producer gathers rows (`gather_tile`; kmap and vmap are not read),
+// otherwise it loads TMA boxes of box_rows rows. An instance of its own
+// each, so that neither producer's registers crowd the other's under the
+// producer warpgroup's budget. Persistent: one block per SM.
+template <int KD, bool QUANT, bool GATHER>
 __global__ void __launch_bounds__(ATT_THREADS, 1)
     paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                                const __grid_constant__ CUtensorMap kmap,
                                const __grid_constant__ CUtensorMap vmap,
+                               const unsigned char* __restrict__ k_pool,
+                               const unsigned char* __restrict__ v_pool,
                                const __nv_bfloat16* __restrict__ k_scale,
                                const __nv_bfloat16* __restrict__ v_scale,
                                const int* __restrict__ tables,
@@ -677,19 +428,26 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
                                float c) {
   using Cfg = AttnCfg<KD, QUANT>;
   constexpr int BN = Cfg::BN;
+  constexpr int GT = PF_GATHER_THREADS<QUANT>;
   extern __shared__ unsigned char smem_raw[];
   const int n_qt = (C + ATT_BM - 1) / ATT_BM;
   const int n_items = n_qt * H * B;
   const long long row_stride = (long long)H * KD;
   AttnBars bar;
-  // int8: the three widening warps arrive once each on full_k.
+  // A tile's loads arrive once (TMA bytes) or once per gathering thread
+  // (int8: twice, `gather_tile`); int8: the three widening warps arrive
+  // once each on full_k.
+  constexpr int loads = GATHER ? (QUANT ? 2 * GT : GT) : 1;
   unsigned char* base = attn_setup<Cfg::KV_ST, Cfg::STG_ST>(
-      smem_raw, Cfg::OFF_BAR, QUANT ? ATT_WIDEN_THREADS / 32 : 1, bar);
+      smem_raw, Cfg::OFF_BAR, QUANT ? ATT_WIDEN_THREADS / 32 : loads, bar,
+      loads);
 
   if (threadIdx.x < WG_THREADS) {
     regs_dec<ATT_PRODUCER_REGS>();
-    if (threadIdx.x == 0) {
-      const int n_box = BN / box_rows;
+    // The producer: thread 0 (Q, and the TMA boxes), or the GT threads
+    // that gather (thread 0 among them loads Q).
+    if (GATHER ? threadIdx.x < GT : threadIdx.x == 0) {
+      const int n_box = GATHER ? 0 : BN / box_rows;
       int g = 0, jq = 0;
       for (int k = 0;; ++k) {
         const int item = attn_item(k);
@@ -697,13 +455,15 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
         const PrefillItem it = prefill_item<BN>(item, n_qt, C, H, ps, n_pg,
                                                 offsets, lengths);
         if (it.n_kt == 0) continue;
-        const int qb = qbuf<Cfg::Q_BUFS>(jq);
-        mbar_wait(bar.a_empty + qb, qphase<Cfg::Q_BUFS>(jq) ^ 1);
-        mbar_expect_tx(bar.full_a + qb, Cfg::Q_BYTES);
+        if (threadIdx.x == 0) {
+          const int qb = qbuf<Cfg::Q_BUFS>(jq);
+          mbar_wait(bar.a_empty + qb, qphase<Cfg::Q_BUFS>(jq) ^ 1);
+          mbar_expect_tx(bar.full_a + qb, Cfg::Q_BYTES);
 #pragma unroll
-        for (int cb = 0; cb < Cfg::NBOX; ++cb)
-          tma_load_4d(attn_q<KD, QUANT>(base, qb) + cb * ATT_BM * 128, &qmap,
-                      bar.full_a + qb, cb * 64, it.h, it.q0, it.b);
+          for (int cb = 0; cb < Cfg::NBOX; ++cb)
+            tma_load_4d(attn_q<KD, QUANT>(base, qb) + cb * ATT_BM * 128,
+                        &qmap, bar.full_a + qb, cb * 64, it.h, it.q0, it.b);
+        }
         ++jq;
         const int* trow = tables + (long long)it.b * n_pg;
         for (int kt = 0; kt < it.n_kt; ++kt, ++g) {
@@ -711,42 +471,57 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
           if constexpr (QUANT) {
             const int sg = g % Cfg::STG_ST;
             mbar_wait(bar.stg_empty + sg, ((g / Cfg::STG_ST) & 1) ^ 1);
-            // Each box's page id, for the widening warps' scales, before
-            // the arrival that publishes it. A box past the tile's reach
-            // reads the null page 0 (finite values that the mask hides).
             int* pid = reinterpret_cast<int*>(base + Cfg::OFF_PID) + sg * BN;
-            for (int i = 0; i < n_box; ++i) {
-              const int pos = key0 + i * box_rows;
-              pid[i] = pos < it.kv_end ? trow[pos / ps] : 0;
-            }
-            mbar_expect_tx(bar.stg_full + sg, 2 * Cfg::STG_BYTES);
             unsigned char* sk = base + Cfg::OFF_STG + sg * 2 * Cfg::STG_BYTES;
-            for (int i = 0; i < n_box; ++i) {
-              const int pos = key0 + i * box_rows;
-              const int row = pid[i] * ps + (pos < it.kv_end ? pos % ps : 0);
-              tma_load_3d(sk + i * box_rows * KD, &kmap, bar.stg_full + sg,
-                          0, it.h, row);
-              tma_load_3d(sk + Cfg::STG_BYTES + i * box_rows * KD, &vmap,
-                          bar.stg_full + sg, 0, it.h, row);
+            if constexpr (GATHER) {
+              gather_tile<KD, true>(base, sk, sk + Cfg::STG_BYTES,
+                                    bar.stg_full + sg, bar.stg_full + sg,
+                                    pid, k_pool, v_pool, trow, key0,
+                                    it.kv_end, ps, it.h, row_stride, g);
+            } else {
+              // Each box's page id, for the widening warps' scales, before
+              // the arrival that publishes it. A box past the tile's reach
+              // reads the null page 0 (finite values that the mask hides).
+              for (int i = 0; i < n_box; ++i) {
+                const int pos = key0 + i * box_rows;
+                pid[i] = pos < it.kv_end ? trow[pos / ps] : 0;
+              }
+              mbar_expect_tx(bar.stg_full + sg, 2 * Cfg::STG_BYTES);
+              for (int i = 0; i < n_box; ++i) {
+                const int pos = key0 + i * box_rows;
+                const int row =
+                    pid[i] * ps + (pos < it.kv_end ? pos % ps : 0);
+                tma_load_3d(sk + i * box_rows * KD, &kmap, bar.stg_full + sg,
+                            0, it.h, row);
+                tma_load_3d(sk + Cfg::STG_BYTES + i * box_rows * KD, &vmap,
+                            bar.stg_full + sg, 0, it.h, row);
+              }
             }
           } else {
             const int st = g % Cfg::KV_ST;
             mbar_wait(bar.empty + st, ((g / Cfg::KV_ST) & 1) ^ 1);
             unsigned char* kd = base + Cfg::OFF_K + st * Cfg::KV_BYTES;
             unsigned char* vd = base + Cfg::OFF_V + st * Cfg::KV_BYTES;
-            mbar_expect_tx(bar.full_k + st, Cfg::KV_BYTES);
-            mbar_expect_tx(bar.full_v + st, Cfg::KV_BYTES);
-            for (int i = 0; i < n_box; ++i) {
-              const int pos = key0 + i * box_rows;
-              const int row =
-                  pos < it.kv_end ? trow[pos / ps] * ps + pos % ps : 0;
+            if constexpr (GATHER) {
+              gather_tile<KD, false>(base, kd, vd, bar.full_k + st,
+                                     bar.full_v + st, nullptr, k_pool, v_pool,
+                                     trow, key0, it.kv_end, ps, it.h,
+                                     row_stride * 2, g);
+            } else {
+              mbar_expect_tx(bar.full_k + st, Cfg::KV_BYTES);
+              mbar_expect_tx(bar.full_v + st, Cfg::KV_BYTES);
+              for (int i = 0; i < n_box; ++i) {
+                const int pos = key0 + i * box_rows;
+                const int row =
+                    pos < it.kv_end ? trow[pos / ps] * ps + pos % ps : 0;
 #pragma unroll
-              for (int cb = 0; cb < Cfg::NBOX; ++cb) {
-                const int at = cb * BN * 128 + i * box_rows * 128;
-                tma_load_3d(kd + at, &kmap, bar.full_k + st, cb * 64, it.h,
-                            row);
-                tma_load_3d(vd + at, &vmap, bar.full_v + st, cb * 64, it.h,
-                            row);
+                for (int cb = 0; cb < Cfg::NBOX; ++cb) {
+                  const int at = cb * BN * 128 + i * box_rows * 128;
+                  tma_load_3d(kd + at, &kmap, bar.full_k + st, cb * 64, it.h,
+                              row);
+                  tma_load_3d(vd + at, &vmap, bar.full_v + st, cb * 64, it.h,
+                              row);
+                }
               }
             }
           }
@@ -759,7 +534,8 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
         if (item >= n_items) break;
         const PrefillItem it = prefill_item<BN>(item, n_qt, C, H, ps, n_pg,
                                                 offsets, lengths);
-        attn_widen<KD>(base, bar, g, it.n_kt, box_rows, k_scale, v_scale, c);
+        attn_widen<KD>(base, bar, g, it.n_kt, GATHER ? 1 : box_rows,
+                       k_scale, v_scale, c);
         g += it.n_kt;
       }
     }
@@ -782,11 +558,12 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
       } else {
         const int qb = qbuf<Cfg::Q_BUFS>(jq);
         mbar_wait(bar.full_a + qb, qphase<Cfg::Q_BUFS>(jq));
-        // int8: c is in each key's K scale.
+        // int8: c is in each key's K scale, and the widening warps fence
+        // their own writes.
         attn_mainloop<KD, QUANT>(base, attn_q<KD, QUANT>(base, qb), bar, wg,
                                  g, it.n_kt, it.kv_lim,
                                  it.off + it.q0 + wg * 64, QUANT ? 1.f : c,
-                                 acc, m2, l);
+                                 acc, m2, l, !QUANT && GATHER);
         __syncwarp();
         if (lane == 0) mbar_arrive(bar.a_empty + qb);
         ++jq;
@@ -809,50 +586,39 @@ cudaError_t launch_prefill_wgmma(const void* q, const void* k_pool,
                                  int n_pg, float sm_scale,
                                  const long long* maps, cudaStream_t stream) {
   using Cfg = AttnCfg<KD, QUANT>;
-  const int box_rows = (int)maps[TMAP_WORDS + 13];  // k's box, dim 2
-  if (box_rows < 8 || Cfg::BN % box_rows || ps % box_rows)
+  if (maps == nullptr) return cudaErrorInvalidValue;
+  const int box_rows = prefill_box_rows(ps, Cfg::BN);
+  const long long* km = maps + TMAP_WORDS;
+  const long long* vm = maps + 2 * TMAP_WORDS;
+  // The plan must follow the same rule: pool maps in boxes of box_rows
+  // rows (box dim 2), or none (rank 0) where the producer gathers.
+  if (box_rows ? (km[13] != box_rows || vm[13] != box_rows)
+               : (km[1] != 0 || vm[1] != 0))
     return cudaErrorInvalidValue;
-  CUtensorMap qm, km, vm;
+  CUtensorMap qm, km_enc{}, vm_enc{};
   cudaError_t e = encode_tmap(&qm, q, maps);
-  if (e == cudaSuccess) e = encode_tmap(&km, k_pool, maps + TMAP_WORDS);
-  if (e == cudaSuccess) e = encode_tmap(&vm, v_pool, maps + 2 * TMAP_WORDS);
+  if (e == cudaSuccess && box_rows) e = encode_tmap(&km_enc, k_pool, km);
+  if (e == cudaSuccess && box_rows) e = encode_tmap(&vm_enc, v_pool, vm);
   if (e != cudaSuccess) return e;
-  e = allow_smem(paged_prefill_wgmma_kernel<KD, QUANT>, Cfg::SMEM);
   int grid = 0;
-  if (e == cudaSuccess) e = attn_grid((C + ATT_BM - 1) / ATT_BM * H * B, &grid);
+  e = attn_grid((C + ATT_BM - 1) / ATT_BM * H * B, &grid);
   if (e != cudaSuccess) return e;
-  paged_prefill_wgmma_kernel<KD, QUANT><<<grid, ATT_THREADS, Cfg::SMEM,
-                                          stream>>>(
-      qm, km, vm, static_cast<const __nv_bfloat16*>(k_scale),
+  auto kernel = box_rows ? paged_prefill_wgmma_kernel<KD, QUANT, false>
+                         : paged_prefill_wgmma_kernel<KD, QUANT, true>;
+  e = allow_smem(kernel, Cfg::SMEM);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, ATT_THREADS, Cfg::SMEM, stream>>>(
+      qm, km_enc, vm_enc, static_cast<const unsigned char*>(k_pool),
+      static_cast<const unsigned char*>(v_pool),
+      static_cast<const __nv_bfloat16*>(k_scale),
       static_cast<const __nv_bfloat16*>(v_scale), tables, offsets, lengths,
       static_cast<__nv_bfloat16*>(out), B, C, H, ps, n_pg, box_rows,
       sm_scale * LOG2E);
   return cudaGetLastError();
 }
 
-// bf16 q (TP: the pool's element type, bf16 or int8): the wgmma kernel at
-// the page sizes it takes, given the tensor maps; the mma.sync kernel at
-// any other page size, given none.
-template <typename TP, int KD>
-cudaError_t launch_prefill_bf16(const void* q, const void* k_pool,
-                                const void* v_pool, const void* k_scale,
-                                const void* v_scale, const int* tables,
-                                const int* offsets, const int* lengths,
-                                void* out, int B, int C, int H, int ps,
-                                int n_pg, float sm_scale,
-                                const long long* maps, cudaStream_t stream) {
-  constexpr bool kQuant = std::is_same<TP, int8_t>::value;
-  if (wgmma_page_size(ps) != (maps != nullptr)) return cudaErrorInvalidValue;
-  if (maps != nullptr)
-    return launch_prefill_wgmma<KD, kQuant>(
-        q, k_pool, v_pool, k_scale, v_scale, tables, offsets, lengths, out, B,
-        C, H, ps, n_pg, sm_scale, maps, stream);
-  return launch_prefill_mma<TP, KD>(q, k_pool, v_pool, k_scale, v_scale,
-                                    tables, offsets, lengths, out, B, C, H, ps,
-                                    n_pg, sm_scale, stream);
-}
-
-// The float program: bf16 q by launch_prefill_bf16, fp32 by FMA.
+// The float program: bf16 q on wgmma (given the plan's tensor maps), fp32
+// by FMA (given none).
 template <int KD>
 cudaError_t launch_prefill(int dtype, const void* q, const void* k_pool,
                            const void* v_pool, const int* tables,
@@ -861,7 +627,7 @@ cudaError_t launch_prefill(int dtype, const void* q, const void* k_pool,
                            float sm_scale, const long long* maps,
                            cudaStream_t stream) {
   if (dtype == DTYPE_BF16)
-    return launch_prefill_bf16<__nv_bfloat16, KD>(
+    return launch_prefill_wgmma<KD, false>(
         q, k_pool, v_pool, nullptr, nullptr, tables, offsets, lengths, out, B,
         C, H, ps, n_pg, sm_scale, maps, stream);
   if (dtype == DTYPE_F32 && maps == nullptr)
@@ -871,7 +637,7 @@ cudaError_t launch_prefill(int dtype, const void* q, const void* k_pool,
   return cudaErrorInvalidValue;
 }
 
-// The int8 programs: bf16 q by launch_prefill_bf16, fp32 q by FMA.
+// The int8 programs: bf16 q on wgmma, fp32 q by FMA.
 template <int KD>
 cudaError_t launch_prefill_i8(int dtype, const void* q, const void* k_pool,
                               const void* v_pool, const void* k_scale,
@@ -881,10 +647,10 @@ cudaError_t launch_prefill_i8(int dtype, const void* q, const void* k_pool,
                               int n_pg, float sm_scale, const long long* maps,
                               cudaStream_t stream) {
   if (dtype == DTYPE_BF16)
-    return launch_prefill_bf16<int8_t, KD>(q, k_pool, v_pool, k_scale,
-                                           v_scale, tables, offsets, lengths,
-                                           out, B, C, H, ps, n_pg, sm_scale,
-                                           maps, stream);
+    return launch_prefill_wgmma<KD, true>(q, k_pool, v_pool, k_scale,
+                                          v_scale, tables, offsets, lengths,
+                                          out, B, C, H, ps, n_pg, sm_scale,
+                                          maps, stream);
   if (dtype == DTYPE_F32 && maps == nullptr)
     return launch_prefill_kd<float, int8_t, KD>(
         q, k_pool, v_pool, k_scale, v_scale, tables, offsets, lengths, out,
@@ -892,13 +658,11 @@ cudaError_t launch_prefill_i8(int dtype, const void* q, const void* k_pool,
   return cudaErrorInvalidValue;
 }
 
-// Shared memory one block of the bf16-q kernel that (quant, ps) selects
-// at head dim KD.
+// Shared memory one block of the wgmma kernel needs at head dim KD (the
+// same at every page size).
 template <int KD>
-size_t prefill_bf16_smem_bytes(bool quant, int ps) {
-  if (wgmma_page_size(ps))
-    return quant ? AttnCfg<KD, true>::SMEM : AttnCfg<KD, false>::SMEM;
-  return prefill_mma_smem_bytes<KD>(quant);
+size_t prefill_wgmma_smem_bytes(bool quant) {
+  return quant ? AttnCfg<KD, true>::SMEM : AttnCfg<KD, false>::SMEM;
 }
 
 }  // namespace
@@ -912,21 +676,22 @@ extern "C" size_t rtt_paged_prefill_smem_bytes(int dtype, int quant, int K,
   if (dtype == rtt::DTYPE_BF16) {
     switch (K) {
       case 64:
-        return rtt::prefill_bf16_smem_bytes<64>(quant != 0, ps);
+        return rtt::prefill_wgmma_smem_bytes<64>(quant != 0);
       case 80:
-        return rtt::prefill_bf16_smem_bytes<80>(quant != 0, ps);
+        return rtt::prefill_wgmma_smem_bytes<80>(quant != 0);
       case 128:
-        return rtt::prefill_bf16_smem_bytes<128>(quant != 0, ps);
+        return rtt::prefill_wgmma_smem_bytes<128>(quant != 0);
       case 256:
-        return rtt::prefill_bf16_smem_bytes<256>(quant != 0, ps);
+        return rtt::prefill_wgmma_smem_bytes<256>(quant != 0);
     }
   }
   return rtt::prefill_smem_floats(K, ps) * sizeof(float);
 }
 
-// maps: bf16 q at a page size the wgmma kernel takes, the tensor maps of q
-// and of the layer's K and V pools (3 x TMAP_WORDS numbers from
-// ops/paged_attention.py `prefill_plan`); otherwise NULL.
+// maps: bf16 q, the tensor maps of q and of the layer's K and V pools (3 x
+// TMAP_WORDS numbers from ops/paged_attention.py `prefill_plan`; the pool
+// maps all zeros at a page size whose rows the producer gathers); fp32 q,
+// NULL.
 extern "C" int rtt_paged_prefill_attention(
     int dtype, const void* q, const void* k_pool, const void* v_pool,
     const void* tables, const void* offsets, const void* lengths, void* out,

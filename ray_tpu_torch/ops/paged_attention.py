@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -190,44 +191,64 @@ def tensor_map(t: torch.Tensor, box, swizzle: int) -> list[int]:
             *pad(list(box)[::-1], 5), swizzle]
 
 
-def wgmma_page_size(ps: int) -> bool:
-    """Page sizes the wgmma prefill kernel takes: a key tile is whole TMA
-    boxes of gcd(ps, key tile) rows, each a multiple of the 8-row swizzle
-    atom, so ps is 8, 16 or 32, or a multiple of 64."""
-    return ps > 0 and ps % 8 == 0 and (64 % ps == 0 or ps % 64 == 0)
+def prefill_box_rows(K: int, ps: int) -> int:
+    """Rows of one TMA box of the wgmma prefill's paged producer at head dim
+    K and page size ps: gcd(ps, key tile) where ps is a multiple of 8 (a
+    box is then whole 8-row swizzle atoms, starts on a 1024-byte boundary
+    of its tile, and divides both ps and the key tile, so no box crosses a
+    page); 0 at any other page size, where the producer gathers the key
+    rows itself by 16-byte cp.async copies. The C entry point holds the
+    same rule."""
+    if ps < 1:
+        raise ValueError(f"page_size {ps} < 1")
+    return math.gcd(ps, key_tile(K)) if ps % 8 == 0 else 0
 
 
 def prefill_kernel(dtype, K: int, ps: int) -> str:
     """The kernel `paged_prefill_attention` launches for a (q dtype, head
-    dim, page size): "wgmma" (bf16 q at the page sizes of
-    `wgmma_page_size`), "mma" (bf16 q at any other page size: the
-    mma.sync kernel), "fma" (fp32 q). The C entry point holds the same
-    rule."""
+    dim, page size): "wgmma" for bf16 q at every page size (TMA boxes or
+    gathered rows, `prefill_box_rows`), "fma" for fp32 q."""
+    if ps < 1:
+        raise ValueError(f"page_size {ps} < 1")
     if dtype == torch.float32:
         return "fma"
     if dtype != torch.bfloat16 or K not in _HEAD_DIMS:
         raise ValueError(f"no prefill kernel for {dtype} at head_dim {K}")
-    return "wgmma" if wgmma_page_size(ps) else "mma"
+    return "wgmma"
 
 
-def prefill_plan(q, k_pool, v_pool):
-    """The wgmma prefill kernel's tensor maps: q [B, C, H, K] in boxes of
-    128 rows and 64 columns; each pool layer viewed as [(P+1)·ps, H, K],
-    in boxes of gcd(ps, key tile) rows (one per page piece of a key
-    tile) — 64-column swizzled boxes for a bf16 pool (`column_boxes` of
-    them a row), whole unswizzled rows of codes for an int8 one. → a flat
-    list of 3 x TMAP_WORDS."""
+class PrefillPlan(NamedTuple):
+    """What the wgmma prefill's producer is given: ``maps``, 3 x
+    TMAP_WORDS numbers (q's map, then the K and V pools' maps, all zeros
+    where it gathers), and ``box_rows`` (`prefill_box_rows`)."""
+    maps: list
+    box_rows: int
+
+    @property
+    def gather(self) -> bool:
+        """Whether the producer gathers the key rows (no TMA box fits)."""
+        return self.box_rows == 0
+
+
+def prefill_plan(q, k_pool, v_pool) -> PrefillPlan:
+    """The wgmma prefill kernel's plan: q [B, C, H, K] in boxes of 128 rows
+    and 64 columns; each pool layer viewed as [(P+1)·ps, H, K], in boxes
+    of `prefill_box_rows` rows (one per page piece of a key tile) — 64-
+    column swizzled boxes for a bf16 pool (`column_boxes` of them a row),
+    whole unswizzled rows of codes for an int8 one — or, at a page size
+    whose rows it gathers, no pool maps."""
     _B, _C, H, K = q.shape
-    ps = k_pool.shape[1]
-    rows = math.gcd(ps, key_tile(K))
+    rows = prefill_box_rows(K, k_pool.shape[1])
     maps = tensor_map(q, (1, WGMMA_ROWS, 1, BOX_COLS), SWIZZLE_BYTES)
     for pool in (k_pool, v_pool):
         flat = pool.view(-1, H, K)
-        if pool.dtype == torch.int8:
+        if not rows:
+            maps += [0] * TMAP_WORDS
+        elif pool.dtype == torch.int8:
             maps += tensor_map(flat, (rows, 1, K), 0)
         else:
             maps += tensor_map(flat, (rows, 1, BOX_COLS), SWIZZLE_BYTES)
-    return maps
+    return PrefillPlan(maps, rows)
 
 
 # The decode kernel's split-K rule (csrc/paged_decode.cu, which checks the
@@ -413,10 +434,10 @@ def paged_prefill_attention(q, k_pool, v_pool, tables, offsets, lengths, *,
     chunk tokens, <= n_pg * page_size). → [B, C, H, K] in q.dtype; rows
     past a slot's valid chunk tokens are finite but meaningless (the
     engine discards them). CPU tensors take the plain version; CUDA
-    tensors launch the kernel: with bf16 q the wgmma kernel at page sizes
-    8, 16, 32 and multiples of 64, the mma.sync kernel at any other (a
-    shape rule, `prefill_kernel`, that the C entry point holds too); with
-    fp32 q the FMA kernel. Every one counts in the same counter."""
+    tensors launch the kernel: with bf16 q the wgmma kernel at every page
+    size, its producer loading TMA boxes or gathering rows as
+    `prefill_plan` says (a rule the C entry point holds too); with fp32 q
+    the FMA kernel. Both count in the same counter."""
     quant = _quantized(k_pool, v_pool, k_scale, v_scale)
     B, C, H, K = q.shape
     ps = _check_shapes(q, k_pool, v_pool, H, K)
@@ -449,7 +470,7 @@ def paged_prefill_attention(q, k_pool, v_pool, tables, offsets, lengths, *,
                          f"at head_dim {K}")
     maps = None
     if kernel == "wgmma":
-        maps = _c_array(prefill_plan(q, k_pool, v_pool))
+        maps = _c_array(prefill_plan(q, k_pool, v_pool).maps)
     common = (tables.data_ptr(), offsets.data_ptr(), lengths.data_ptr(),
               out.data_ptr(), B, C, H, K, ps, n_pg, float(sm_scale),
               _addr(maps), _stream_ptr(q.device))
@@ -554,7 +575,8 @@ __all__ = [
     "paged_attention", "paged_prefill_attention",
     "reference_paged_attention", "reference_paged_prefill_attention",
     "reset_launch_counts", "NEG_INF", "prefill_kernel", "prefill_plan",
+    "PrefillPlan", "prefill_box_rows",
     "tensor_map", "key_tile", "column_boxes", "padded_head_dim",
-    "wgmma_page_size", "decode_splits", "decode_live_splits",
+    "decode_splits", "decode_live_splits",
     "decode_split_positions", "decode_stage_rows",
 ]

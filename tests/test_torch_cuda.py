@@ -6,7 +6,9 @@ partial query tile, float pools and int8 pools with per-page scales;
 flash: forward, dq and dkv, causal and not, S != T, an lse cotangent,
 the bf16 kernels also at ragged S/T on packed qkv views;
 fp32 and bf16, head dims 64, 80, 128 and 256, the backward at all four
-and refusing 96), the launch
+and refusing 96; the bf16 prefill at page sizes 4 to 128, in TMA boxes
+and in gathered rows, and the plans its C entry point refuses), the
+launch
 counters, the wrappers' refusals (no fallback to the plain path), the
 tiny engine with ``attn_impl="kernel"`` against ``"gather"`` on the
 card (float, and int8 weights with an int8 pool), the prefill kernel at
@@ -33,7 +35,8 @@ LLMDeployment replica's stream equal to the in-process engine's), and a
 two-trial Tuner training a small GPT (head dim 64) on the flash kernels,
 both trials on the card at once, and the data plane's feeder
 (``iter_cuda_batches``: pinned rings, side-stream copies, a consumer on
-another stream; a Dataset and a pipeline on a cluster). The
+another stream, a ring of events a column; a Dataset and a pipeline on a
+cluster). The
 file imports neither JAX nor the JAX package, and the
 repo's conftest does, so run it with::
 
@@ -337,19 +340,23 @@ def test_prefill_int8_kernel_matches_plain(cuda, dtype, ps, K, C):
 
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("K", [64, 128, 80, 256])
-@pytest.mark.parametrize("ps", [16, 32, 64, 128, 48])
+@pytest.mark.parametrize("ps", [16, 32, 64, 128, 48, 24, 96, 20, 4])
 def test_prefill_bf16_page_sizes_and_chunks(cuda, ps, K, quant):
-    """bf16 q at each page size: 16, 32, 64 and 128 take the wgmma kernel,
-    48 (neither divides nor is a multiple of 64) the mma.sync kernel, all
-    counted by the same counter. Chunks of C = 40, 72 and 200 at ragged
-    offsets against a width-sliced table, with an inert row; float and
-    int8 pools (the int8 program also against the unrounded-p plain
-    version). At head dim 256 the mma.sync kernel keeps Q in shared
-    memory and walks keys in tiles of 32."""
+    """bf16 q at each page size on the wgmma kernel, counted by one
+    counter: 16 to 128 and 24, 48 and 96 (neither divisors nor multiples
+    of 64) in TMA boxes of gcd(ps, key tile) rows, up to 16 boxes a tile;
+    20 and 4 (no whole 8-row swizzle atom) with rows gathered by cp.async.
+    Chunks of C = 40, 72 and 200 at ragged offsets against a width-sliced
+    table, with an inert row; float and int8 pools (the int8 program also
+    against the unrounded-p plain version)."""
     rng = np.random.default_rng(9)
     B, H = 5, 2
-    assert pa.prefill_kernel(torch.bfloat16, K, ps) == (
-        "mma" if ps == 48 else "wgmma")
+    assert pa.prefill_kernel(torch.bfloat16, K, ps) == "wgmma"
+    assert pa.prefill_plan(
+        torch.zeros(1, 8, H, K, dtype=torch.bfloat16, device=cuda),
+        *[torch.zeros(2, ps, H, K, dtype=torch.int8 if quant
+                      else torch.bfloat16, device=cuda)] * 2).gather == (
+        ps % 8 != 0)
     n_pg = -(-640 // ps)
     width = n_pg - 1
     if quant:
@@ -493,6 +500,31 @@ def test_flash_launchers_refuse_other_box_rows(cuda, monkeypatch, name,
         with pytest.raises(RuntimeError, match=f"{kern} kernel launch"):
             calls[kern]()
         assert getattr(fa, kern).launches == 0
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("ps,wrong", [(64, 0), (48, 0), (20, 4), (4, 4)])
+def test_prefill_launcher_refuses_another_plan(cuda, monkeypatch, ps, wrong,
+                                               quant):
+    """The C entry point holds the page-size rule itself: a plan that
+    gathers where the rule boxes (64, 48) or boxes where it gathers (20, 4)
+    is refused at launch (cudaErrorInvalidValue), before any kernel runs."""
+    K, H = 64, 2
+    q = torch.zeros(1, 8, H, K, dtype=torch.bfloat16, device=cuda)
+    pool = torch.zeros(3, ps, H, K, dtype=torch.int8 if quant
+                       else torch.bfloat16, device=cuda)
+    sc = ({"k_scale": torch.ones(3, dtype=torch.bfloat16, device=cuda),
+           "v_scale": torch.ones(3, dtype=torch.bfloat16, device=cuda)}
+          if quant else {})
+    t = torch.ones(1, 1, dtype=torch.int32, device=cuda)
+    offs = torch.zeros(1, dtype=torch.int32, device=cuda)
+    lens = torch.full((1,), 8, dtype=torch.int32, device=cuda)
+    assert pa.prefill_box_rows(K, ps) != wrong
+    monkeypatch.setattr(pa, "prefill_box_rows", lambda K, ps: wrong)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        pa.paged_prefill_attention(q, pool, pool, t, offs, lens, **sc)
+    assert (pa.paged_prefill_attention.launches,
+            pa.paged_prefill_attention.int8_launches) == (0, 0)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -1447,6 +1479,38 @@ def test_cuda_batch_iterator_stages_through_pinned_buffers(cuda, dtype):
     assert all(len(ring) == 3 for ring in it._rings.values())
     assert all(s.host.is_pinned() for ring in it._rings.values()
                for s in ring)
+
+
+def test_cuda_batch_iterator_holds_a_ring_of_events_per_column(cuda):
+    """A long feed holds at most prefetch + 1 event pairs a column: each
+    slot's copy time is folded into a running sum when the slot is reused
+    or stats() reads it, and its events are dropped. copy_device_ms is the
+    sum of every copy's time (a second stats() reads the same), and a
+    ragged last batch takes a view of its slot's pinned buffer instead of
+    a ring of its own."""
+    from ray_tpu_torch.data.dataset import CudaBatchIterator
+
+    rng = np.random.default_rng(1)
+    prefetch, n = 2, 40
+    batches = [{"tokens": rng.integers(0, 50257, (8 if i < n - 1 else 3,
+                                                 256)).astype(np.int32),
+                "x": rng.normal(size=(8 if i < n - 1 else 3, 4)).astype(
+                    np.float32)} for i in range(n)]
+    it = CudaBatchIterator(iter(batches), prefetch=prefetch)
+    held = []
+    for b, want in zip(it, batches):
+        assert torch.equal(b["tokens"].cpu(), torch.from_numpy(
+            want["tokens"]))
+        held.append(sum(s.done is not None for ring in it._rings.values()
+                        for s in ring))
+    assert max(held) <= 2 * (prefetch + 1)
+    assert len(it._rings) == 2
+    assert all(len(ring) == prefetch + 1 for ring in it._rings.values())
+    first = it.stats()
+    assert first["copies"] == 2 * n and first["copy_device_ms"] > 0
+    assert all(s.done is None and s.start is None
+               for ring in it._rings.values() for s in ring)
+    assert it.stats()["copy_device_ms"] == first["copy_device_ms"]
 
 
 def test_dataset_iter_cuda_batches_on_the_card(cluster):

@@ -10,6 +10,8 @@ those numbers on CPU tensors; the kernels themselves run only on the card
 (``tests/test_torch_cuda.py``).
 """
 
+import math
+
 import pytest
 import torch
 
@@ -92,11 +94,15 @@ def test_strided_inner_dim_and_wide_box_raise():
 
 @pytest.mark.parametrize("ps,kernel", [
     (8, "wgmma"), (16, "wgmma"), (32, "wgmma"), (64, "wgmma"),
-    (128, "wgmma"), (256, "wgmma"), (48, "mma"), (24, "mma"), (96, "mma"),
-    (4, "mma")])
+    (128, "wgmma"), (256, "wgmma"), (48, "wgmma"), (24, "wgmma"),
+    (96, "wgmma"), (4, "wgmma")])
 @pytest.mark.parametrize("K", [64, 80, 128, 256])
 def test_prefill_kernel_by_page_size(ps, kernel, K):
-    assert pa.wgmma_page_size(ps) == (kernel == "wgmma")
+    """bf16 q takes the wgmma kernel at every page size: TMA boxes of
+    gcd(ps, key tile) rows where ps is a multiple of 8, gathered rows
+    (box rows 0) at any other."""
+    assert pa.prefill_box_rows(K, ps) == (
+        math.gcd(ps, pa.key_tile(K)) if ps % 8 == 0 else 0)
     assert pa.prefill_kernel(torch.bfloat16, K, ps) == kernel
     assert pa.prefill_kernel(torch.float32, K, ps) == "fma"
 
@@ -106,14 +112,58 @@ def test_prefill_kernel_refuses_other_shapes():
         pa.prefill_kernel(torch.bfloat16, 96, 64)
     with pytest.raises(ValueError, match="no prefill kernel"):
         pa.prefill_kernel(torch.float16, 64, 64)
-    # Head dim 256 takes the mma.sync kernel at the page sizes the wgmma
-    # kernel does not (48: a gptj_6b engine's); 96 is no head dim of a
+    with pytest.raises(ValueError, match="page_size 0"):
+        pa.prefill_kernel(torch.bfloat16, 64, 0)
+    # Head dim 256 takes the wgmma kernel at every page size (48: a
+    # gptj_6b engine's, in boxes of 16 rows); 96 is no head dim of a
     # kernel at any page size.
     assert pa.prefill_kernel(torch.bfloat16, 256, 64) == "wgmma"
     assert pa.prefill_kernel(torch.float32, 256, 48) == "fma"
-    assert pa.prefill_kernel(torch.bfloat16, 256, 48) == "mma"
+    assert pa.prefill_kernel(torch.bfloat16, 256, 48) == "wgmma"
     with pytest.raises(ValueError, match="head_dim 96"):
         pa.prefill_kernel(torch.bfloat16, 96, 48)
+
+
+@pytest.mark.parametrize("ps,rows", [
+    (4, {64: 0, 80: 0, 128: 0, 256: 0}), (12, {64: 0, 80: 0, 128: 0, 256: 0}),
+    (20, {64: 0, 80: 0, 128: 0, 256: 0}), (24, {64: 8, 80: 8, 128: 8, 256: 8}),
+    (48, {64: 16, 80: 16, 128: 16, 256: 16}),
+    (96, {64: 32, 80: 32, 128: 32, 256: 32}),
+    (100, {64: 0, 80: 0, 128: 0, 256: 0})])
+@pytest.mark.parametrize("K", [64, 80, 128, 256])
+def test_prefill_plan_pieces_stay_within_a_page(ps, rows, K):
+    """The producer's pieces of a key tile at page sizes that once took the
+    mma.sync kernel: TMA boxes of whole 8-row swizzle atoms (each at a
+    multiple of 1024 bytes of the tile) where ps is a multiple of 8,
+    single gathered rows elsewhere. Every key of a tile is in exactly one
+    piece, and for the first tiles of a slot every piece's keys lie in one
+    page. The plan carries the pool maps only where it boxes."""
+    tile = pa.key_tile(K)
+    assert pa.prefill_box_rows(K, ps) == rows[K]
+    # The producer's pieces: (first key of the tile, keys), as its loops
+    # walk them (`paged_prefill.cu`: boxes of box rows, or single rows).
+    n = rows[K] or 1
+    pieces = [(first, n) for first in range(0, tile, n)]
+    covered = sorted(k for first, n in pieces for k in range(first, first + n))
+    assert covered == list(range(tile))
+    for first, n in pieces:
+        if rows[K]:
+            assert n % 8 == 0 and (first * 128) % 1024 == 0
+        for t in range(8):                      # key0 = t · tile
+            pages = {(t * tile + first + i) // ps for i in range(n)}
+            assert len(pages) == 1
+    q = torch.zeros(2, 40, 3, K, dtype=torch.bfloat16)
+    for dtype in (torch.bfloat16, torch.int8):
+        pool = torch.zeros(5, ps, 3, K, dtype=dtype)
+        plan = pa.prefill_plan(q, pool, pool)
+        assert (plan.box_rows, plan.gather) == (rows[K], not rows[K])
+        assert len(plan.maps) == 3 * WORDS
+        for i in (1, 2):
+            words = plan.maps[i * WORDS:(i + 1) * WORDS]
+            if plan.gather:
+                assert words == [0] * WORDS
+            else:
+                assert _fields(words)[4][-1] == rows[K]
 
 
 @pytest.mark.parametrize("K,tile,boxes", [(64, 128, 1), (128, 64, 2)])
@@ -140,7 +190,7 @@ def test_column_boxes_cover_every_column(K, tile, boxes, padded):
     q = torch.zeros(2, 200, 3, K, dtype=torch.bfloat16)
     pool = torch.zeros(5, 64, 3, K, dtype=torch.bfloat16)
     plans = [fa.flash_plan(q, q, q), fa.flash_dq_plan(q, q, q, q),
-             fa.flash_dkv_plan(q, q, q, q), pa.prefill_plan(q, pool, pool)]
+             fa.flash_dkv_plan(q, q, q, q), pa.prefill_plan(q, pool, pool).maps]
     for words in plans:
         for i in range(len(words) // WORDS):
             elem, _rank, dims, _st, box, swz = _fields(
@@ -157,7 +207,7 @@ def test_prefill_plan_float_pool(ps, K):
     B, C, H, P1 = 3, 40, 2, 9
     q = torch.zeros(B, C, H, K, dtype=torch.bfloat16)
     pool = torch.zeros(P1, ps, H, K, dtype=torch.bfloat16)
-    maps = pa.prefill_plan(q, pool, pool)
+    maps = pa.prefill_plan(q, pool, pool).maps
     qf = _fields(maps[:WORDS])
     assert qf[2] == [K, H, C, B] and qf[4] == [64, 1, pa.WGMMA_ROWS, 1]
     rows = min(ps, pa.key_tile(K))
@@ -177,7 +227,7 @@ def test_prefill_plan_int8_pool(ps, K):
     producer's widening warps swizzle them into bf16 tiles)."""
     q = torch.zeros(2, 72, 4, K, dtype=torch.bfloat16)
     pool = torch.zeros(5, ps, 4, K, dtype=torch.int8)
-    maps = pa.prefill_plan(q, pool, pool)
+    maps = pa.prefill_plan(q, pool, pool).maps
     elem, rank, dims, strides, box, swz = _fields(maps[WORDS:2 * WORDS])
     assert (elem, rank, swz) == (1, 3, 0)
     assert dims == [K, 4, 5 * ps] and strides == [K, 4 * K]

@@ -129,11 +129,12 @@ def _prefill_case(rng, *, B, C, H, K, ps, n_pg, width):
 
 
 @pytest.mark.parametrize("dt", ["fp32", "bf16"])
-@pytest.mark.parametrize("ps", [8, 16])
+@pytest.mark.parametrize("ps", [8, 16, 20])
 @pytest.mark.parametrize("width", [2, 4])
 def test_prefill_matches_jax(ps, dt, width):
     """Chunk rows at ragged offsets against a width-sliced table (width
-    2 of 4 pages) and the full table."""
+    2 of 4 pages) and the full table; page size 20 is one whose rows the
+    CUDA kernel's producer gathers (no whole 8-row TMA box)."""
     rng = np.random.default_rng(2)
     q, k_pool, v_pool, tables, offsets, lengths = _prefill_case(
         rng, B=6, C=8, H=2, K=16, ps=ps, n_pg=4, width=width)

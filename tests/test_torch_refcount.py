@@ -207,3 +207,41 @@ def test_arg_ref_alive_during_pending_task(client):
     gc.collect()
     _flush(client)
     assert ray_tpu_torch.get(out) == 7
+
+
+def test_fresh_return_outlives_a_borrowers_release(client):
+    """A task's return passed on before the owner's acquire reached the
+    GCS (the periodic flush stopped here, so that window stays open): the
+    borrower's release after its task must find the owner among the
+    object's holders. The submitter publishes its holds on a task's ref
+    arguments before the spec leaves the process; without that the GCS
+    freed the object on the borrower's release (owner unknown, holders
+    empty) and, where its task's own arguments were gone, the next reader
+    hung (the data plane's chained repartitions waited 300 s)."""
+
+    @ray_tpu_torch.remote
+    def ident(x):
+        return x
+
+    @ray_tpu_torch.remote
+    def total(x):
+        return int(x.sum())
+
+    rc = client.refcounter
+    client._loop.call_soon_threadsafe(rc._flush_task.cancel)
+    try:
+        src = ray_tpu_torch.put(np.arange(1 << 17, dtype=np.int64))
+        x = ident.remote(src)
+        del src
+        gc.collect()
+        oid = x.id.binary()
+        for _ in range(3):
+            assert ray_tpu_torch.get(total.remote(x), timeout=30) == (
+                (1 << 17) * ((1 << 17) - 1) // 2)
+            time.sleep(0.3)     # the workers' own flushes send releases
+            held = client._run(client.gcs.call(
+                "ref_debug", {"object_ids": [oid]}))[oid]["holders"]
+            assert rc.holder_id in held, held
+    finally:
+        client._run(client._start_ref_flusher())
+        _flush(client)

@@ -105,23 +105,27 @@ script began (the whole record also goes to build/chip_smoke.json):
    the Pallas programs), a bound the plain version on bf16 q (p rounded)
    must fail on the timed inputs; timed beside their bounds, plain
    versions and SDPA on the dequantized timeline.
-   Then the three flash kernels (flash_fwd, flash_dq, flash_dkv), each
-   against its plain version: fp32 and bf16, head dims 64, 80, 128 and
+   Then the four flash kernels (flash_fwd, flash_delta, flash_dq,
+   flash_dkv), each against its plain version (flash_delta with and
+   without the lse cotangent, on a strided dO and, in bf16, on the
+   forward's fp32 o): fp32 and bf16, head dims 64, 80, 128 and
    256 (dq and dkv must raise a ValueError naming head dim 96 and the
    ROADMAP item), causal and non-causal, S=77/T=130, S=64/T=256, S=200/T=333, S=T=192,
    S=1/T=64 and S=130/T=1, in bf16 also on q, k, v as strided views of
    packed qkv tensors, the backward with an lse cotangent; then once more
    on the training step's own inputs ([8, 1024, 12, 64] bf16 causal),
-   where a dropped 64-wide tile planted in the plain dq, dk and dv must
-   fail the bound, then timed by device time beside each kernel's bound,
+   where a dropped 64-wide tile planted in the plain dq, dk and dv, and
+   a dropped dlse or the last 16 columns left out of the plain delta,
+   must fail their bounds, then timed by device time beside each
+   kernel's bound,
    its plain version and its library call: SDPA for the forward; for
    the backward the faster of aten's flash backward
    (`_scaled_dot_product_flash_attention_backward`) and the backward of
    SDPA's graph, each alone and held once to the plain versions, on the
    flash_dq row beside delta + dq + dkv (one call does all three);
-   `flash_delta` alone; SDPA forward plus backward against the three
-   kernels; the three at gptj_6b's [2, 1024, 16, 256] causal, with the
-   same tile dropped from the plain dq, dk and dv planted.
+   SDPA forward plus backward against the kernels; the four at gptj_6b's
+   [2, 1024, 16, 256] causal (delta on the fp32 o), with the same faults
+   planted.
    Then the speculative path's shapes: the prefill kernel as the verify
    pass (16 rows of C = 5 and C = 2 at ragged decode cursors, with inert
    rows, on the decode table's width; bf16 q, float and int8 pools) and
@@ -346,8 +350,8 @@ script began (the whole record also goes to build/chip_smoke.json):
    gradients beside their tolerances; three planted faults in the flash
    backward must fail the same check), then a warm-up step and 12 timed
    steps with the flash launch counters zeroed just before and read just
-   after (exactly 24 forward, 12 dq and 12 dkv launches per step: remat
-   recomputes each block's forward), step time, tokens/s, MFU, the steps'
+   after (exactly 24 forward, 12 delta, 12 dq and 12 dkv launches per
+   step: remat recomputes each block's forward), step time, tokens/s, MFU, the steps'
    peak memory and the losses; then torch.profiler over one step.
    train_ring: the flash kernels checked and timed at the ring's chunk
    shapes ([2, 1024, 12, 64] bf16, the diagonal causal and the full
@@ -358,7 +362,8 @@ script began (the whole record also goes to build/chip_smoke.json):
    three limits, which a dropped rotation planted in the ring's combine
    must fail (its attention weights' gradients past 5e-2; its loss
    difference is printed); then a warm-up and 4 timed
-   steps with exactly 240 forward, 120 dq and 120 dkv launches per step
+   steps with exactly 240 forward, 120 delta, 120 dq and 120 dkv launches
+   per step
    (12 layers x (4 diagonal + 6 full chunks), the forward twice under
    remat); step time, tokens/s, MFU, peak memory, one profiled step, and
    the same step with attn_impl="flash" unsharded beside it.
@@ -372,8 +377,8 @@ script began (the whole record also goes to build/chip_smoke.json):
    d 4096, 32 heads over 8 kv heads of 128, d_ff 14336, vocab 128256) on
    a seeded [1, 4096] batch: the loss with flash against plain attention
    within 1e-2, which a tiled GQA repeat planted in the plain path must
-   exceed; 4 steps (one warm-up) with exactly 64 forward, 32 dq and 32
-   dkv launches per step, every parameter still bf16, the loss finite
+   exceed; 4 steps (one warm-up) with exactly 64 forward, 32 delta, 32 dq
+   and 32 dkv launches per step, every parameter still bf16, the loss finite
    and falling; peak memory beside the audit, step time, tokens/s, MFU,
    one profiled step and the optimizer's device time against it.
    train_gpt2_2_7b: the flash kernels checked and timed at [8, 1024, 32,
@@ -386,8 +391,8 @@ script began (the whole record also goes to build/chip_smoke.json):
    BENCH_MODEL=gpt2_2_7b BENCH_OPT=adafactor_sr step) on a seeded [8,
    1024] batch: one step of "flash" against "xla" under the train
    phase's three limits, which its three planted backward faults must
-   fail; 4 steps (one warm-up) with exactly 16 forward, 8 dq and 8 dkv
-   launches per step and no plain call,
+   fail; 4 steps (one warm-up) with exactly 16 forward, 8 delta, 8 dq and
+   8 dkv launches per step and no plain call,
    every parameter still bf16, the loss falling; step p50, tokens/s,
    MFU, peak memory of the steps beside the audit (and of the check
    before them), one profiled step (idle share).
@@ -397,8 +402,8 @@ script began (the whole record also goes to build/chip_smoke.json):
    full width and depth (28 layers, d 4096, 16 heads of 256, rotary 64,
    d_ff 16384, vocab 50304 untied, remat), S 1024, B 8, bf16 SR masters,
    adafactor(3e-4), from seed 0: the audit, flash against xla with the
-   three planted faults, 4 steps with exactly 56 forward, 28 dq and 28
-   dkv launches per step and no plain call, every parameter bf16, the
+   three planted faults, 4 steps with exactly 56 forward, 28 delta, 28 dq
+   and 28 dkv launches per step and no plain call, every parameter bf16, the
    loss falling; the same readings.
    train_moe: the flash kernels checked and timed at [8, 1024, 16, 64]
    bf16 causal; then build_training(moe_8x350m(max_seq=1024,
@@ -420,7 +425,8 @@ script began (the whole record also goes to build/chip_smoke.json):
    and ep = 4 against ep = 1, within 1e-3 on the whole gradient (and on
    each layer's expert stacks for ep), which a zeroed dq and a dropped
    shard must exceed; 4 steps (one warm-up) with exactly
-   48 forward, 24 dq and 24 dkv launches per step, the loss falling;
+   48 forward, 24 delta, 24 dq and 24 dkv launches per step, the loss
+   falling;
    step time, tokens/s, MFU on the active parameters, peak memory, one
    profiled step, and the routing's device time (the dispatch
    construction and the two routing einsums, forward, recompute and
@@ -433,7 +439,8 @@ script began (the whole record also goes to build/chip_smoke.json):
    against the sequential step's on the same parameters under the train
    phase's three limits, which an off-by-one schedule (each later stage
    takes the previous microbatch's activation) must exceed; 4 steps with
-   exactly 192 forward, 96 dq and 96 dkv launches per step, the loss
+   exactly 192 forward, 96 delta, 96 dq and 96 dkv launches per step, the
+   loss
    falling; step time beside the train phase's, peak memory, one
    profiled step (pp on one card buys nothing: the stages run in turn).
    train_dist: the flash kernels checked and timed at a dp rank's [4,
@@ -452,7 +459,7 @@ script began (the whole record also goes to build/chip_smoke.json):
    the first step's gradients gathered whole within 2e-2 of the
    reference's, which a reduce-scatter keeping the local gradient must
    exceed, and each rank's parameter and moment bytes equal to what
-   tree_to_shardings assigns it; 24/12/12 flash launches per step in
+   tree_to_shardings assigns it; 24/12/12/12 flash launches per step in
    every rank; step p50, the device's idle share (one profiled step),
    collective bytes per step and the host copies, peak memory per rank
    and worker boot printed.
@@ -469,7 +476,7 @@ script began (the whole record also goes to build/chip_smoke.json):
    then ``job status``, ``job logs``, ``list jobs`` and the dashboard's
    job routes, which must agree (SUCCEEDED, the same logs), and
    ``stop``, after which the head has exited 0 and left no record and
-   no arena. Gates: every trial on ``cuda:0`` at 24/12/12 flash launches
+   no arena. Gates: every trial on ``cuda:0`` at 24/12/12/12 flash launches
    a step with no call of a plain version; the lr 3e-4 trial's losses
    bitwise the train phase's first ones, the planted trial's not; ASHA
    stopped a trial before max_t and the best ran to it. Per-trial boot
@@ -488,21 +495,24 @@ script began (the whole record also goes to build/chip_smoke.json):
    the same order; every tensor on ``cuda:0`` as int64, each column
    copied from a pinned buffer; each loss bitwise a single-controller
    loop here over those batches from the same parameters, which the
-   same dataset shuffled with seed 1 must fail; 24/12/12 flash launches
+   same dataset shuffled with seed 1 must fail; 24/12/12/12 flash launches
    a step and no plain call. (b) ``BatchPredictor`` of ``GPTScorer``
    (gpt2_124m on the card, flash, from ``Checkpoint.from_params`` of the
    seed-0 parameters; each row's mean next-token log-likelihood under
    ``inference_mode``) over the unshuffled rows in blocks of 16,
    ``batch_size=8``, on ``ActorPoolStrategy(1, 2, resources={"GPU":
    0.5})``. Gates: every score bitwise the same forward here on the same
-   batches; each actor built the model once; 12/0/0 flash launches a
+   batches; each actor built the model once; 12/0/0/0 flash launches a
    batch and no plain call, read from the rows each actor's ``apply``
    returns. The rank's boot, the step p50 beside the train phase's, the
    feeder's wait per batch and H2D GB/s (the copies' device time), the
    actors' boot, rows/s and the device ms per batch printed.
-8. with --ab OLD_CHECKOUT: the flash forward, dq and dkv and the float
-   and int8 paged prefill and decode (timed shape and light load, with
-   the wrapper's host µs) against an older checkout's kernels, in turns.
+8. with --ab OLD_CHECKOUT: the flash forward, delta, dq and dkv (the
+   backward at the training shapes of head dims 64, 80 and 256 and at
+   S = T = 1,000 at 256, beside the library backward, each gradient
+   compared bit for bit) and the float and int8 paged prefill and decode
+   (timed shape and light load, with the wrapper's host µs) against an
+   older checkout's kernels, in turns.
 9. the kernels line, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -524,6 +534,7 @@ import re
 import subprocess
 import sys
 import threading
+import types
 import time
 
 import numpy as np
@@ -562,6 +573,7 @@ from ray_tpu_torch.train.spmd import (Fp32Leaves, build_pipeline_training,
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12            # dense tensor-core bf16
+FP32_FLOPS = 67e12             # fp32 outside the tensor cores
 H, K = 32, 64                  # opt_1_3b attention shape
 # The two configurations of head dims 80 and 256: gpt2_2_7b's 32 heads of
 # 80 and gptj_6b's 16 of 256 (heads, head dim).
@@ -1779,7 +1791,77 @@ FLASH_TOLERANCE = {
     "bfloat16": "|out - ref| <= 8e-3 (|ref| + S); S = attention of |V| (o),"
                 " W |K| (dq), W^T |Q| (dk), p^T |dO| (dv), W = p (|dP| + "
                 "|delta|) sm_scale, all fp32; lse within 1e-4",
+    "flash_delta": "|out - ref| <= 1e-5 (sum_k |dO O| + |dlse|) per row: "
+                   "both sides sum the row in fp32, in other orders, over "
+                   "at most 256 terms",
 }
+DELTA_REL = 1e-5
+DELTA_FAULT_COLS = 16   # a planted fault leaves a row's last 16 columns out
+
+
+def delta_share(out, ref, o, do, dlse):
+    """The largest share of the delta bound (FLASH_TOLERANCE's
+    flash_delta) over every row."""
+    s = (do.float() * o.float()).abs().sum(dim=-1)
+    if dlse is not None:
+        s = s + dlse.float().abs()
+    return float(((out - ref).abs() / (DELTA_REL * s)).nan_to_num(0.0).max())
+
+
+def strided_view(x):
+    """x's values in a view whose rows are two rows apart (a packed
+    tensor's second slot)."""
+    pack = torch.zeros(*x.shape[:2], 2, *x.shape[2:], dtype=x.dtype,
+                       device=x.device)
+    pack[:, :, 1] = x
+    return pack[:, :, 1]
+
+
+def check_delta(tag, o, do, dlse, o32=None):
+    """The delta kernel against its plain version, with and without the
+    lse cotangent, on a strided dO, and (bf16) on the forward's fp32 o
+    beside bf16 dO, the head-dim-256 training path → {max_abs_err,
+    max_share_of_bound, cases}; raises past the bound."""
+    cases = {"dlse": (o, do, dlse), "no dlse": (o, do, None),
+             "strided dO": (o, strided_view(do), dlse)}
+    if o32 is not None and o32.dtype != do.dtype:
+        cases["fp32 o"] = (o32, do, dlse)
+    res = {"cases": {}}
+    for name, (o_, do_, dl) in cases.items():
+        out = fa.flash_delta(o_, do_, dl)
+        torch.cuda.synchronize()
+        ref = fa.reference_flash_delta(o_, do_, dl)
+        if out.shape != ref.shape or not out.is_contiguous():
+            raise AssertionError(f"flash_delta {tag} {name}: layout")
+        res["cases"][name] = {
+            "max_abs_err": float((out - ref).abs().max()) if out.numel()
+            else 0.0, "max_share_of_bound": delta_share(out, ref, o_, do_, dl)}
+    res["max_abs_err"] = max(c["max_abs_err"] for c in res["cases"].values())
+    res["max_share_of_bound"] = max(c["max_share_of_bound"]
+                                    for c in res["cases"].values())
+    if res["max_share_of_bound"] > 1.0:
+        raise AssertionError(f"flash_delta {tag} off its plain version: "
+                             f"{res}")
+    return res
+
+
+def planted_delta_faults(o, do, dlse):
+    """The delta bound against a wrong plain version on the timed inputs:
+    row 0's dlse dropped, and each row's last DELTA_FAULT_COLS columns
+    left out of the sum → each fault's largest share of the bound, which
+    must exceed 1."""
+    out = fa.flash_delta(o, do, dlse)
+    dropped = dlse.clone()
+    dropped[0, 0, 0] = 0.0
+    c = do.shape[-1] - DELTA_FAULT_COLS
+    wrong = {"row 0's dlse dropped": fa.reference_flash_delta(o, do, dropped),
+             f"last {DELTA_FAULT_COLS} columns dropped":
+                 fa.reference_flash_delta(o[..., :c], do[..., :c], dlse)}
+    res = {name: delta_share(out, ref, o, do, dlse)
+           for name, ref in wrong.items()}
+    if min(res.values()) <= 1.0:
+        raise AssertionError(f"a planted delta fault passes its bound: {res}")
+    return res
 
 
 def flash_inputs(rng, B, S, T, Hh, Kd, dtype, device):
@@ -1905,7 +1987,7 @@ def check_flash(rng, tag, B, S, T, Hh, Kd, dtype, causal, device,
                                                      with_o32=True)
     if not torch.equal(o, o32.to(dtype)):
         raise AssertionError(f"flash_fwd {tag}: o is not o32 rounded")
-    delta = fa.flash_delta(o_ref, do, dlse)
+    delta = fa.reference_flash_delta(o_ref, do, dlse)
     dq = fa.flash_dq(q, k, v, do, lse_ref, delta, causal, scale)
     dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, causal, scale)
     torch.cuda.synchronize()
@@ -1929,6 +2011,7 @@ def check_flash(rng, tag, B, S, T, Hh, Kd, dtype, causal, device,
                                           long_q)
     if lse_err > 1e-4:
         raise AssertionError(f"flash_fwd {tag}: lse off by {lse_err}")
+    res["flash_delta"] = check_delta(tag, o_ref, do, dlse, o32_ref)
     res["flash_dq"] = flash_close(f"flash_dq {tag}", dq, dq_ref,
                                   sums["flash_dq"], dtype, long_q)
     rk = flash_close(f"flash_dkv dk {tag}", dk, dk_ref, sums["flash_dk"],
@@ -1965,7 +2048,7 @@ def backward_refused(device, Kd=96):
 
 
 def phase_flash_kernels(device, errs, at_shapes):
-    """The three flash kernels against their plain versions: fp32 and
+    """The four flash kernels against their plain versions: fp32 and
     bf16, head dims 64, 80, 128 and 256, causal and non-causal,
     S=77/T=130, S=64/T=256 and S=200/T=333 (off the tile sizes, S != T),
     S=T=192, one query row (S=1/T=64) and one key (S=130/T=1); in bf16
@@ -1998,7 +2081,9 @@ def phase_flash_kernels(device, errs, at_shapes):
 
 
 def flash_shape_timings(device, errs, tag, B, S, Hh, Kd, causal, seed):
-    """The three flash kernels at one bf16 shape ([B, S, Hh, Kd], T = S):
+    """The four flash kernels at one bf16 shape ([B, S, Hh, Kd], T = S;
+    delta reads the o the training path's backward reads: the forward's
+    fp32 o at `fa.O32_HEAD_DIMS`):
     held once more to their plain versions on these inputs (`check_flash`,
     the largest errors into ``errs``), then timed (`device_ms`, CUDA
     events beside it) beside each kernel's bound, its plain version and
@@ -2015,8 +2100,9 @@ def flash_shape_timings(device, errs, tag, B, S, Hh, Kd, causal, seed):
         errs[kern] = max(errs[kern], r["max_abs_err"])
     q, k, v, do, dlse = flash_inputs(np.random.default_rng(seed), B, S, S,
                                      Hh, Kd, dt, device)
-    o, lse = fa.flash_fwd(q, k, v, causal, scale)
-    delta = fa.flash_delta(o, do)
+    o, lse, o32 = fa.flash_fwd(q, k, v, causal, scale, with_o32=True)
+    o_bwd = o32 if Kd in fa.O32_HEAD_DIMS else o
+    delta = fa.reference_flash_delta(o_bwd, do)
     n = B * S * Hh * Kd                      # elements of one operand
     rowvec = B * S * Hh * 4                  # one fp32 row vector
     pairs = B * Hh * (S * (S + 1) // 2 if causal else S * S)
@@ -2028,6 +2114,10 @@ def flash_shape_timings(device, errs, tag, B, S, Hh, Kd, causal, seed):
         "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal, scale),
                       lambda: fa.reference_flash_fwd(q, k, v, causal, scale),
                       4 * n * item + rowvec, 2 * 2 * Kd * pairs),
+        # one multiply-add per element, in fp32 on the CUDA cores
+        "flash_delta": (lambda: fa.flash_delta(o_bwd, do),
+                        lambda: fa.reference_flash_delta(o_bwd, do),
+                        n * (item + o_bwd.element_size()) + rowvec, 2 * n),
         "flash_dq": (
             lambda: fa.flash_dq(q, k, v, do, lse, delta, causal, scale),
             lambda: fa.reference_flash_dq(q, k, v, do, lse, delta, causal,
@@ -2041,7 +2131,8 @@ def flash_shape_timings(device, errs, tag, B, S, Hh, Kd, causal, seed):
     for name, (kern, plain, nbytes, flops) in plan.items():
         ms, ms_events = kernel_ms(kern)
         plain_ms = cuda_time_ms(plain, iters=plain_iters, warmup=1)
-        bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        bms, by = bound_ms(nbytes, flops, FP32_FLOPS if name == "flash_delta"
+                           else BF16_FLOPS)
         timings[name] = dict(ms=ms, ms_events=ms_events, plain_ms=plain_ms,
                              bound_ms=bms, bound_by=by, bytes=nbytes,
                              flops=flops, check=res[name], shape=shape)
@@ -2065,16 +2156,16 @@ def flash_shape_timings(device, errs, tag, B, S, Hh, Kd, causal, seed):
     lib_bwd_ms, lib_bwd_events, lib_call = min(
         (aten_ms, aten_events, "aten_flash_backward"),
         (sdpa_bwd_ms, sdpa_bwd_events, "sdpa_autograd_backward"))
-    delta_ms, delta_events = kernel_ms(lambda: fa.flash_delta(o, do))
+    delta_ms = timings["flash_delta"]["ms"]
     timings["flash_dq"].update(
         library_ms=lib_bwd_ms, library_ms_events=lib_bwd_events,
         library_call=lib_call, library_covers=list(BWD_PAIR),
         covered_ms=delta_ms + timings["flash_dq"]["ms"]
         + timings["flash_dkv"]["ms"])
-    timings["flash_dkv"].update(library_ms=None, library_see="flash_dq")
-    for name in BWD_PAIR[1:]:
-        timings[name].update(delta_ms=delta_ms, delta_ms_events=delta_events)
-    ctx = dict(q=q, k=k, v=v, do=do, o=o, lse=lse, delta=delta, scale=scale,
+    for name in ("flash_delta", "flash_dkv"):
+        timings[name].update(library_ms=None, library_see="flash_dq")
+    ctx = dict(q=q, k=k, v=v, do=do, o=o_bwd, dlse=dlse, lse=lse,
+               delta=delta, scale=scale,
                qt=qt, kt=kt, vt=vt, dot=dot, sdpa=sdpa, sdpa_fwd=sdpa_fwd,
                aten_ms=aten_ms, aten_check=aten_check,
                sdpa_bwd_ms=sdpa_bwd_ms, sdpa_check=sdpa_check,
@@ -2085,16 +2176,19 @@ def flash_shape_timings(device, errs, tag, B, S, Hh, Kd, causal, seed):
 def time_flash(device, errs, at_shapes):
     """Each flash kernel at the training step's shape, [8, 1024, 12, 64]
     bf16 causal (`flash_shape_timings`), with a dropped key tile planted
-    in the plain dq, dk and dv, which must fail the bf16 bound, and the
-    device time of the forward plus backward beside SDPA's; then the three
-    at gptj_6b's heads, [2, 1024, 16, 256] bf16 causal, with the same
-    faults planted (``at_shapes``; gpt2_2_7b's and gptj_6b's training
-    shapes are timed by their training phases)."""
+    in the plain dq, dk and dv, which must fail the bf16 bound, and a
+    dropped dlse and dropped columns in the plain delta, which must fail
+    its bound (`planted_delta_faults`), and the device time of the
+    forward plus backward beside SDPA's; then the four at gptj_6b's
+    heads, [2, 1024, 16, 256] bf16 causal, with the same faults planted
+    (``at_shapes``; gpt2_2_7b's and gptj_6b's training shapes are timed by
+    their training phases)."""
     B, S, Hh, Kd = FLASH_SHAPE
     timings, c = flash_shape_timings(device, errs, "training shape", B, S,
                                      Hh, Kd, True, 5)
     q, k, v, do, scale = c["q"], c["k"], c["v"], c["do"], c["scale"]
     planted = planted_flash_faults(q, k, v, do, c["lse"], c["delta"], scale)
+    planted["flash_delta"] = planted_delta_faults(c["o"], do, c["dlse"])
     # Forward plus backward launches several kernels from the host (SDPA's
     # through autograd), so their gaps depend on the host's speed: compare
     # the device time of their kernels instead.
@@ -2122,16 +2216,17 @@ def time_flash(device, errs, at_shapes):
                   "_attention_backward alone; the faster is flash_dq's "
                   "library_ms, which covers flash_delta, flash_dq and "
                   "flash_dkv (covered_ms: their times summed), and "
-                  "flash_dkv's library_ms is null; flash_delta_ms: the "
-                  "port's delta (torch ops) alone; device time per call "
-                  "(device_ms)"})
+                  "flash_dkv's and flash_delta's library_ms are null; "
+                  "flash_delta_ms: the port's delta kernel alone; device "
+                  "time per call (device_ms)"})
     gptj, c = flash_shape_timings(device, errs, "gptj_6b heads", 2, 1024,
                                   *HEADS_GPTJ, True, 17)
     at_shapes["gptj_6b [2, 1024, 16, 256]"] = gptj
+    planted = planted_flash_faults(c["q"], c["k"], c["v"], c["do"], c["lse"],
+                                   c["delta"], c["scale"])
+    planted["flash_delta"] = planted_delta_faults(c["o"], c["do"], c["dlse"])
     emit({"phase": "flash_kernel_timing_gptj", **gptj,
-          "planted_faults_vs_bf16_bound": planted_flash_faults(
-              c["q"], c["k"], c["v"], c["do"], c["lse"], c["delta"],
-              c["scale"])})
+          "planted_faults_vs_bf16_bound": planted})
     return timings
 
 
@@ -2211,7 +2306,8 @@ def old_library(old_dir):
     source in parallel, with this tree's C ABI (unchanged since the
     decode's split-K redesign but for rtt_flash_fwd's o32 argument, which
     ``fwd_o32`` says the checkout has; ``prefill_every_ps`` says whether
-    its bf16 prefill takes tensor maps at every page size)."""
+    its bf16 prefill takes tensor maps at every page size, ``has_delta``
+    whether it has the delta kernel, ``dq_key_tile`` its dq's key tile)."""
     src = os.path.join(old_dir, "ray_tpu_torch", "ops", "csrc")
     out = os.path.join("build", "ab")
     os.makedirs(out, exist_ok=True)
@@ -2229,12 +2325,19 @@ def old_library(old_dir):
     subprocess.run([nvcc, *_build.ARCH_FLAGS, "-shared", "-o", lib_path,
                     *objs], check=True)
     lib = ctypes.CDLL(os.path.abspath(lib_path))
+    lib.has_delta = hasattr(lib, "rtt_flash_delta")
+    if not lib.has_delta:   # a checkout whose delta was torch ops
+        lib.rtt_flash_delta = types.SimpleNamespace()
     _build._declare(lib)
     with open(os.path.join(src, "flash_fwd.cu")) as f:
         lib.fwd_o32 = "void* o32" in f.read()
     with open(os.path.join(src, "paged_prefill.cu")) as f:
         # a checkout whose bf16 prefill is wgmma at every page size
         lib.prefill_every_ps = "prefill_box_rows" in f.read()
+    with open(os.path.join(src, "flash_bwd.cu")) as f:
+        # a checkout whose bf16 dq walks 32-key tiles at head dim 256
+        dq32 = "KD == 256 ? 32" in f.read()
+    lib.dq_key_tile = lambda K: 32 if dq32 and K == 256 else pa.key_tile(K)
     if not lib.fwd_o32:   # a checkout from before rtt_flash_fwd took o32
         argtypes = lib.rtt_flash_fwd.argtypes
         lib.rtt_flash_fwd.argtypes = argtypes[:6] + argtypes[7:]
@@ -2276,45 +2379,39 @@ def old_decode(old, q, kp, vp, tables, lengths, sc):
     return out
 
 
-def phase_ab(device, old_dir):
-    """The kernels against an older checkout's, at the timed shapes, by
-    device time in turns (old, new, new, old) in one process: the bf16
-    flash forward, dq and dkv at [8, 1024, 12, 64] causal, the paged
-    prefill (16 slots x C 256 at offset 768, 1024-token contexts, ps 64,
-    H 32, K 64; and at `PS_PREFILL_CASES`' and `AB_PS64_CASES`' page sizes
-    and heads) and the
-    paged decode (16 slots of 1024 positions, and at light load) on a
-    bf16 and on an int8 pool; for the decode also the wrapper's host µs
-    per call, the parent's wrapper (`old_decode`) against the new one.
-    Each old output is held to the new one's plain version first (dq,
-    dkv, the decode and the page-size prefill cases: the bf16 bound must
-    hold)."""
-    old = old_library(old_dir)
-    stream = lambda: torch.cuda.current_stream().cuda_stream
-    rng = np.random.default_rng(11)
-    B, S, Hh, Kd = FLASH_SHAPE
+def add_bwd_ab_cases(old, device, rng, tag, shape, cases, bound_sums,
+                     shares, bwd):
+    """phase_ab's delta, dq and dkv cases at one bf16 causal shape (T = S)
+    on seeded inputs: delta on the o the training path reads (fp32 at
+    `fa.O32_HEAD_DIMS`), dq and dkv from the plain delta, so that the old
+    and the new kernels read the same bits; and, but for the ragged case,
+    the library backward's device time into ``bwd``."""
+    B, S, Hh, Kd = shape
     q, k, v, do, _dl = flash_inputs(rng, B, S, S, Hh, Kd, torch.bfloat16,
                                     device)
     scale = 1.0 / np.sqrt(Kd)
-    o, lse = fa.flash_fwd(q, k, v, True, scale)
-    delta = fa.flash_delta(o, do)
+    o, lse, o32 = fa.flash_fwd(q, k, v, True, scale, with_o32=True)
+    o_bwd = o32 if Kd in fa.O32_HEAD_DIMS else o
+    delta = fa.reference_flash_delta(o_bwd, do)
+    stream = lambda: torch.cuda.current_stream().cuda_stream
 
-    def flash_old():
-        o = torch.empty_like(q)
-        lse = torch.empty(B, S, Hh, device=device, dtype=torch.float32)
-        rows = fa._rows(q, k, v, o)
-        maps = pa._c_array(fa.flash_plan(q, k, v))
-        o32 = (None,) if old.fwd_o32 else ()
-        _build.check(old.rtt_flash_fwd(
-            1, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), *o32, B, S, S, Hh, Kd, ctypes.addressof(rows), 1,
-            float(scale), ctypes.addressof(maps), stream()), "old flash_fwd")
-        return o
+    def delta_old():
+        if not old.has_delta:      # the older checkout's torch ops
+            return fa.reference_flash_delta(o_bwd, do)
+        out = torch.empty(B, S, Hh, device=device, dtype=torch.float32)
+        rows = fa._rows(do, o_bwd, do)
+        _build.check(old.rtt_flash_delta(
+            pa._DTYPE_CODES[do.dtype], pa._DTYPE_CODES[o_bwd.dtype],
+            do.data_ptr(), o_bwd.data_ptr(), None, out.data_ptr(), B, S, Hh,
+            Kd, ctypes.addressof(rows), stream()), "old flash_delta")
+        return out
 
     def dq_old():
         dq = torch.empty_like(q)
         rows = fa._rows(q, k, v, do, dq)
-        maps = pa._c_array(fa.flash_dq_plan(q, k, v, do))
+        kt = old.dq_key_tile(Kd)
+        maps = pa._c_array(fa._maps((q, pa.WGMMA_ROWS), (k, kt), (v, kt),
+                                    (do, pa.WGMMA_ROWS)))
         _build.check(old.rtt_flash_dq(
             1, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S, S, Hh, Kd,
@@ -2333,19 +2430,86 @@ def phase_ab(device, old_dir):
             ctypes.addressof(maps), stream()), "old flash_dkv")
         return dk, dv
 
-    bwd = (q, k, v, do, lse, delta, True, scale)
+    args = (q, k, v, do, lse, delta, True, scale)
+    cases[f"flash_delta{tag}"] = (
+        delta_old, lambda: fa.flash_delta(o_bwd, do),
+        lambda: fa.reference_flash_delta(o_bwd, do))
+    shares[f"flash_delta{tag}"] = lambda x, ref: delta_share(x, ref, o_bwd,
+                                                             do, None)
+    cases[f"flash_dq{tag}"] = (dq_old, lambda: fa.flash_dq(*args),
+                               lambda: fa.reference_flash_dq(*args))
+    cases[f"flash_dkv{tag}"] = (dkv_old, lambda: fa.flash_dkv(*args),
+                                lambda: fa.reference_flash_dkv(*args))
+    sums = flash_abs_sums(*args)
+    bound_sums[f"flash_dq{tag}"] = sums["flash_dq"]
+    bound_sums[f"flash_dkv{tag}"] = torch.stack((sums["flash_dk"],
+                                                 sums["flash_dv"]))
+    if tag == " ragged":
+        return
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    refs = (fa.reference_flash_dq(*args), *fa.reference_flash_dkv(*args))
+    aten_bwd, _ = aten_flash_backward(qt, kt, vt, dot, scale, refs)
+    sdpa_bwd, _ = sdpa_backward(qt, kt, vt, dot, scale, refs)
+    bwd[tag] = {"library_ms": min(device_ms(aten_bwd), device_ms(sdpa_bwd)),
+                "shape": f"B={B} S=T={S} H={Hh} K={Kd} bf16 causal"}
+
+
+# The backward's A/B shapes ([B, S, H, K], T = S, bf16 causal): the
+# training step's, gpt2_2_7b's and gptj_6b's, and S = T = 1,000 at 256,
+# whose ragged edges every output must also hold the bound on (its 128
+# heads' walked rows, as gptj_6b's, outgrow the L2: dq and dkv take their
+# items in pairs by head group there).
+AB_BWD_SHAPES = (("", FLASH_SHAPE), (" gpt2_2_7b", (8, 1024, *HEADS_2_7B)),
+                 (" gptj_6b", (8, 1024, *HEADS_GPTJ)),
+                 (" ragged", (8, 1000, *HEADS_GPTJ)))
+
+
+def phase_ab(device, old_dir):
+    """The kernels against an older checkout's, at the timed shapes, by
+    device time in turns (old, new, new, old) in one process: the bf16
+    flash forward at [8, 1024, 12, 64] causal; delta, dq and dkv at each
+    of `AB_BWD_SHAPES` (the older checkout's delta: its kernel, or the
+    torch ops of the plain version where it has none), their sum beside
+    the library backward, and whether each old gradient is bitwise the
+    new one; the paged
+    prefill (16 slots x C 256 at offset 768, 1024-token contexts, ps 64,
+    H 32, K 64; and at `PS_PREFILL_CASES`' and `AB_PS64_CASES`' page sizes
+    and heads) and the
+    paged decode (16 slots of 1024 positions, and at light load) on a
+    bf16 and on an int8 pool; for the decode also the wrapper's host µs
+    per call, the parent's wrapper (`old_decode`) against the new one.
+    Each old output is held to the new one's plain version first (delta
+    to its bound; dq, dkv, the decode and the page-size prefill cases:
+    the bf16 bound must hold)."""
+    old = old_library(old_dir)
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(11)
+    B, S, Hh, Kd = FLASH_SHAPE
+    q, k, v, _do, _dl = flash_inputs(rng, B, S, S, Hh, Kd, torch.bfloat16,
+                                     device)
+    scale = 1.0 / np.sqrt(Kd)
+
+    def flash_old():
+        o = torch.empty_like(q)
+        lse = torch.empty(B, S, Hh, device=device, dtype=torch.float32)
+        rows = fa._rows(q, k, v, o)
+        maps = pa._c_array(fa.flash_plan(q, k, v))
+        o32 = (None,) if old.fwd_o32 else ()
+        _build.check(old.rtt_flash_fwd(
+            1, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), *o32, B, S, S, Hh, Kd, ctypes.addressof(rows), 1,
+            float(scale), ctypes.addressof(maps), stream()), "old flash_fwd")
+        return o
+
     cases = {
         "flash_fwd": (flash_old, lambda: fa.flash_fwd(q, k, v, True, scale)[0],
                       lambda: fa.reference_flash_fwd(q, k, v, True, scale)[0]),
-        "flash_dq": (dq_old, lambda: fa.flash_dq(*bwd),
-                     lambda: fa.reference_flash_dq(*bwd)),
-        "flash_dkv": (dkv_old, lambda: fa.flash_dkv(*bwd),
-                      lambda: fa.reference_flash_dkv(*bwd)),
     }
-    sums = flash_abs_sums(*bwd)
-    bound_sums = {"flash_dq": sums["flash_dq"],
-                  "flash_dkv": torch.stack((sums["flash_dk"],
-                                            sums["flash_dv"]))}
+    bound_sums, shares, bwd = {}, {}, {}
+    for tag, shape in AB_BWD_SHAPES:
+        add_bwd_ab_cases(old, device, rng, tag, shape, cases, bound_sums,
+                         shares, bwd)
     T, C, ps = 1024, 256, 64
     n_pg = T // ps
 
@@ -2433,6 +2597,16 @@ def phase_ab(device, old_dir):
         outs = {"old": one(fn_old()), "new": one(fn_new())}
         err = {tag: float((x - ref).abs().max()) for tag, x in outs.items()}
         res = {"max_abs_err_vs_plain": err}
+        if name.startswith(("flash_dq", "flash_dkv")):
+            res["bitwise_equal_old"] = torch.equal(outs["old"], outs["new"])
+            res["max_abs_diff_old"] = float(
+                (outs["old"] - outs["new"]).abs().max())
+        if name in shares:
+            share = {tag: shares[name](x, ref) for tag, x in outs.items()}
+            res["max_share_of_bound"] = share
+            if max(share.values()) > 1.0:
+                raise AssertionError(f"A/B {name} off its plain version: "
+                                     f"{share}")
         if name in bound_sums:
             share = {tag: float(share_of_bound(x, ref, bound_sums[name]))
                      for tag, x in outs.items()}
@@ -2449,6 +2623,13 @@ def phase_ab(device, old_dir):
             us = [host_us(f) for f in (fn_old, fn_new, fn_new, fn_old)]
             out[name]["host_us"] = {"old": [us[0], us[3]],
                                     "new": [us[1], us[2]]}
+    # delta + dq + dkv per shape, each side the mean of its two turns.
+    mean = lambda xs: sum(xs) / len(xs)
+    for tag, library in bwd.items():
+        parts = [out[f"{kern}{tag}"] for kern in BWD_PAIR]
+        out[f"delta+dq+dkv{tag}"] = {
+            "old_ms": sum(mean(p["old_ms"]) for p in parts),
+            "new_ms": sum(mean(p["new_ms"]) for p in parts), **library}
     emit(out)
 
 
@@ -5845,7 +6026,11 @@ def phase_serve(device, engine_ref):
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 12
 # Launches per step with remat: the forward runs once per block and once
 # more in the block's recompute; dq and dkv once per block.
-FLASH_PER_STEP = {"flash_fwd": 24, "flash_dq": 12, "flash_dkv": 12}
+# The flash kernels every training path counts: per backward call one
+# delta, one dq and one dkv.
+FLASH_KERNELS = ("flash_fwd", "flash_delta", "flash_dq", "flash_dkv")
+FLASH_PER_STEP = {"flash_fwd": 24, "flash_delta": 12, "flash_dq": 12,
+                  "flash_dkv": 12}
 # flash vs xla, one step from the same parameters and batch, bf16: the two
 # attention paths round probabilities at different places (unit roundoff
 # 2^-8) and the difference goes through 12 bf16 layers. The loss is a mean
@@ -5925,8 +6110,9 @@ def planted_backwards(real):
 
     def drop_tile(q, k, v, o, lse, do, dlse, causal, scale):
         dq, dk, dv = real(q, k, v, o, lse, do, dlse, causal, scale)
-        tile = dropped_tile(q, k, v, do, lse, fa.flash_delta(o, do, dlse),
-                            scale, FAULT_LO)[0]
+        tile = dropped_tile(q, k, v, do, lse,
+                            fa.reference_flash_delta(o, do, dlse), scale,
+                            FAULT_LO)[0]
         return (dq.float() - tile).to(dq.dtype), dk, dv
 
     return {"dq zeroed": zero_dq, "dk and dv swapped": swap_dkv,
@@ -5964,6 +6150,11 @@ def flash_vs_xla(cfg, params, batch):
     return res
 
 
+def flash_counts() -> dict:
+    """The flash kernels' launch counters (FLASH_KERNELS)."""
+    return {k: getattr(fa, k).launches for k in FLASH_KERNELS}
+
+
 def timed_steps(step, params, opt_state, batch, n):
     """One warm-up step and ``n`` timed ones, the flash counters zeroed
     just before and read just after → (params, opt_state, losses, step
@@ -5975,9 +6166,7 @@ def timed_steps(step, params, opt_state, batch, n):
         params, opt_state, loss = step(params, opt_state, batch)
         losses.append(float(loss))            # synchronizes
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {"flash_fwd": fa.flash_fwd.launches,
-                "flash_dq": fa.flash_dq.launches,
-                "flash_dkv": fa.flash_dkv.launches}
+    launches = flash_counts()
     per_step = {k: v / (1 + n) for k, v in launches.items()}
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
@@ -6030,7 +6219,8 @@ RING_COMBINES = RING_SP * (RING_SP - 1) // 2   # combines per causal ring call
 # Per step with remat at sp = 4, causal: each layer's ring attends 4
 # diagonal and 6 full chunks (the 6 masked steps launch nothing), in the
 # block's forward and again in its recompute; dq and dkv once each.
-RING_PER_STEP = {"flash_fwd": 240, "flash_dq": 120, "flash_dkv": 120}
+RING_PER_STEP = {"flash_fwd": 240, "flash_delta": 120, "flash_dq": 120,
+                 "flash_dkv": 120}
 
 
 def dropped_rotation(real):
@@ -6141,7 +6331,8 @@ def phase_train_ring(device, errs):
 LLAMA_S, LLAMA_STEPS = 4096, 4
 # Per step with remat: 32 layers' flash forward twice (block and
 # recompute), dq and dkv once each.
-LLAMA_PER_STEP = {"flash_fwd": 64, "flash_dq": 32, "flash_dkv": 32}
+LLAMA_PER_STEP = {"flash_fwd": 64, "flash_delta": 32, "flash_dq": 32,
+                  "flash_dkv": 32}
 # |loss_flash - loss_plain| of one step from the same parameters, bf16:
 # the two attention paths round probabilities at different places, and
 # the difference goes through 32 layers. Stated before the first run; a
@@ -6250,9 +6441,10 @@ SR_B, SR_S, SR_STEPS = 8, 1024, 4   # bench.py's adafactor_sr step
 def sr_per_step(cfg):
     """Flash launches per step with remat: each layer's forward twice (the
     block and its recompute), dq and dkv once each (gpt2_2_7b cut to 8
-    layers 16/8/8, gptj_6b's 28 56/28/28)."""
+    layers 16/8/8/8, gptj_6b's 28 56/28/28/28: delta with each dq)."""
     L = cfg.n_layers
-    return {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L}
+    return {"flash_fwd": 2 * L, "flash_delta": L, "flash_dq": L,
+            "flash_dkv": L}
 
 
 def train_sr(device, errs, cfg, name, heads, seed):
@@ -6389,7 +6581,8 @@ def optimizer_device_time(cfg, params, opt_state, batch, opt):
 MOE_B, MOE_S, MOE_STEPS = 8, 1024, 3   # 3 timed steps after a warm-up
 # Per step with remat: 24 layers' flash forward twice (block and
 # recompute), dq and dkv once each.
-MOE_PER_STEP = {"flash_fwd": 48, "flash_dq": 24, "flash_dkv": 24}
+MOE_PER_STEP = {"flash_fwd": 48, "flash_delta": 24, "flash_dq": 24,
+                "flash_dkv": 24}
 MOE_EP = 4
 # |loss(ep = 4) - loss(ep = 1)| on the same parameters and batch, bf16:
 # the four shards' bf16 partial outputs are rounded and summed where one
@@ -6894,7 +7087,8 @@ def phase_train_moe(device, errs):
 PIPE_PP, PIPE_STEPS = 4, 3
 # Per step with remat: 12 layers x 8 microbatches of flash forward twice
 # (block and recompute), dq and dkv once each.
-PIPE_PER_STEP = {"flash_fwd": 192, "flash_dq": 96, "flash_dkv": 96}
+PIPE_PER_STEP = {"flash_fwd": 192, "flash_delta": 96, "flash_dq": 96,
+                 "flash_dkv": 96}
 
 
 def off_by_one_schedule(real):
@@ -7113,9 +7307,7 @@ def dist_topology(config, name, mesh, cfg, opt, batch):
         params, opt_state, loss = step(params, opt_state, rows)
         losses.append(float(loss))             # synchronizes
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    out["launches"] = {"flash_fwd": fa.flash_fwd.launches,
-                       "flash_dq": fa.flash_dq.launches,
-                       "flash_dkv": fa.flash_dkv.launches}
+    out["launches"] = flash_counts()
     stats = mesh.stats
     out.update(
         losses=losses, step_ms=step_ms,
@@ -7388,9 +7580,7 @@ def tune_trial(config):
         loss = float(loss)                      # synchronizes
         session.report({
             "loss": loss, "step_ms": (time.perf_counter() - t0) * 1e3,
-            "launches": {"flash_fwd": fa.flash_fwd.launches,
-                         "flash_dq": fa.flash_dq.launches,
-                         "flash_dkv": fa.flash_dkv.launches},
+            "launches": flash_counts(),
             "plain_calls": dict(plain), "device": str(dev),
             "peak_gb": (torch.cuda.max_memory_allocated(dev) / 2**30
                         if on_card else None),
@@ -7747,7 +7937,8 @@ DATA_BLOCKS = 8
 DATA_PRED_BLOCK = 16    # rows per block of the predictor's dataset
 DATA_POOL = dict(min_size=1, max_size=2, resources={"GPU": 0.5})
 DATA_PLANTED_STEPS = 2  # steps of the planted seed-1 shuffle
-FLASH_PER_BATCH = {"flash_fwd": 12, "flash_dq": 0, "flash_dkv": 0}
+FLASH_PER_BATCH = {"flash_fwd": 12, "flash_delta": 0, "flash_dq": 0,
+                   "flash_dkv": 0}
 DATA_DEVICE = None      # the predictor's device: cuda, its default
 
 
@@ -7779,20 +7970,14 @@ def batch_digest(tokens, targets) -> str:
     return h.hexdigest()
 
 
-FLASH_PLAIN = ("reference_flash_fwd", "reference_flash_dq",
-               "reference_flash_dkv")
+FLASH_PLAIN = ("reference_flash_fwd", "reference_flash_delta",
+               "reference_flash_dq", "reference_flash_dkv")
 
 
 def count_plain_calls():
     """Wrap the flash kernels' plain versions to count their calls →
     the live counts (a dict)."""
     return counted_calls(fa, FLASH_PLAIN)[0]
-
-
-def flash_counts() -> dict:
-    return {"flash_fwd": fa.flash_fwd.launches,
-            "flash_dq": fa.flash_dq.launches,
-            "flash_dkv": fa.flash_dkv.launches}
 
 
 def data_loop(config):
@@ -8110,7 +8295,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc -Xptxas -v (registers, spills)")
     ap.add_argument("--ab", metavar="OLD_CHECKOUT", default="",
-                    help="also time the flash forward, dq, dkv and paged "
+                    help="also time the flash forward, delta, dq, dkv and "
+                         "paged "
                          "prefill and decode kernels against an older "
                          "checkout's (its ray_tpu_torch/ops/csrc, built "
                          "into build/ab), in turns old, new, new, old")
@@ -8158,6 +8344,9 @@ def main(argv=None) -> int:
                                     "ray_tpu/ops/paged_attention.py:206"),
         "flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu",
                       "ray_tpu/ops/attention.py:67"),
+        # No Pallas kernel: the jnp delta of _bwd_impl, which XLA fuses.
+        "flash_delta": ("ray_tpu_torch/ops/csrc/flash_delta.cu",
+                        "ray_tpu/ops/attention.py:277"),
         "flash_dq": ("ray_tpu_torch/ops/csrc/flash_bwd.cu",
                      "ray_tpu/ops/attention.py:182"),
         "flash_dkv": ("ray_tpu_torch/ops/csrc/flash_bwd.cu",
@@ -8278,6 +8467,8 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
+            **({"replaces_note": "no Pallas kernel: jnp ops XLA fuses"}
+               if name == "flash_delta" else {}),
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

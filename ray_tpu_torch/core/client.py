@@ -111,6 +111,10 @@ class ActorState:
         # First return id of the creation task — keys the unflushed-acquire
         # deferral when the escrow is finally released.
         self.creation_return_id: bytes | None = None
+        # Submissions made on the client's loop whose argument holds are
+        # still being published: the last link of their chain (None, or
+        # a task that spawns its dispatch once the holds reached the GCS).
+        self.submit_tail: asyncio.Future | None = None
 
 
 def _env_lease_fields(spec) -> dict:
@@ -1101,7 +1105,7 @@ class CoreClient:
         releases it after the task must not empty the object's holder set
         while our acquire still waits for the next flush. A failed flush
         is retried by the flusher; the task goes out regardless."""
-        args = [o for o in escrow or () if o not in spec.return_ids]
+        args = self._arg_holds(spec, escrow)
         if not args:
             return
         try:
@@ -1109,6 +1113,11 @@ class CoreClient:
         except Exception as e:  # noqa: BLE001
             logger.debug("publishing %s's argument holds failed: %s",
                          spec.name, e)
+
+    @staticmethod
+    def _arg_holds(spec: TaskSpec, escrow: list[bytes] | None) -> list[bytes]:
+        """The escrowed ids of a spec's ref arguments (not its returns)."""
+        return [o for o in escrow or () if o not in spec.return_ids]
 
     def cancel_task(self, oid: bytes, force: bool = False) -> bool:
         """ray_tpu_torch.cancel: queued tasks unqueue and fail with
@@ -1711,8 +1720,41 @@ class CoreClient:
             "state": "queued", "canceled": False,
         }
         refs = [ObjectRef(ObjectID(rid)) for rid in return_ids[:max(n, 1)]]
-        self._spawn_bg(self._drive_actor_task(st, spec, escrow))
+        self._queue_actor_task(st, spec, escrow)
         return refs if n != 1 else refs[:1]
+
+    def _queue_actor_task(self, st: ActorState, spec: TaskSpec,
+                          escrow: list[bytes]) -> None:
+        """Queue the spec's dispatch once the GCS holds our escrow on its
+        ref arguments (see `_publish_arg_holds`), keeping the caller's
+        order. A caller off the client's loop waits here for the
+        publication; a caller on the loop (a coroutine run there) must not
+        block it, so its dispatch is chained behind the publication, and
+        every later dispatch to the actor from the loop behind that."""
+        args = self._arg_holds(spec, escrow)
+        needs = bool(args) and self.refcounter.needs_publish(args)
+        try:
+            on_loop = asyncio.get_running_loop() is self._loop
+        except RuntimeError:
+            on_loop = False
+        if not on_loop:
+            if needs:
+                self._run(self._publish_arg_holds(spec, escrow))
+            self._spawn_bg(self._drive_actor_task(st, spec, escrow))
+            return
+        prev = st.submit_tail
+        if needs or (prev is not None and not prev.done()):
+            st.submit_tail = self._ensure_bg(
+                self._chain_actor_task(prev, st, spec, escrow))
+        else:
+            self._ensure_bg(self._drive_actor_task(st, spec, escrow))
+
+    async def _chain_actor_task(self, prev, st: ActorState, spec: TaskSpec,
+                                escrow: list[bytes]) -> None:
+        if prev is not None:
+            await prev   # its dispatch is spawned before it completes
+        await self._publish_arg_holds(spec, escrow)
+        self._ensure_bg(self._drive_actor_task(st, spec, escrow))
 
     async def _drive_actor_task(self, st: ActorState, spec: TaskSpec,
                                 escrow: list[bytes] | None = None) -> None:

@@ -263,12 +263,18 @@ class ReferenceCounter:
         process: the borrower's release must find the submitter among the
         object's holders, or the GCS frees an object still in use (a fresh
         task return passed on within one flush interval)."""
-        with self._lock:
-            pending = any(o in self._pending_acq or o in self._uncertain
-                          for o in oids)
-        if pending or (self._flush_lock is not None
-                       and self._flush_lock.locked()):
+        if self.needs_publish(oids):
             await self._flush_async()
+
+    def needs_publish(self, oids: Iterable[bytes]) -> bool:
+        """Whether `publish` would flush: an acquire of one of ``oids`` is
+        pending, or a flush (which may carry one) is in flight. Safe from
+        any thread."""
+        with self._lock:
+            if any(o in self._pending_acq or o in self._uncertain
+                   for o in oids):
+                return True
+        return self._flush_lock is not None and self._flush_lock.locked()
 
     async def _flush_async(self) -> None:
         import asyncio

@@ -175,6 +175,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _F,
         _P, _P]
     lib.rtt_flash_dkv.restype = _I
+    # int fn(dtype_do, dtype_o, dO, O, dlse, delta, B, S, H, K,
+    #        strides[9], stream) → cudaError_t (dlse: NULL or fp32; strides:
+    #        (b, s, h) of dO, O and dlse)
+    lib.rtt_flash_delta.argtypes = [
+        _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P]
+    lib.rtt_flash_delta.restype = _I
     lib.rtt_error_string.argtypes = [_I]
     lib.rtt_error_string.restype = ctypes.c_char_p
 

@@ -1,12 +1,14 @@
 """Flash attention: CUDA kernels for Hopper and their plain versions.
 
-Counterpart of ``ray_tpu/ops/attention.py``. Three kernels, written by
-hand in CUDA C++ for sm_90a (sources in ``ops/csrc/flash_fwd.cu`` and
-``ops/csrc/flash_bwd.cu``, built by ``ops/_build.py`` at first use and
-called through ctypes):
+Counterpart of ``ray_tpu/ops/attention.py``. Four kernels, written by
+hand in CUDA C++ for sm_90a (sources in ``ops/csrc/flash_fwd.cu``,
+``ops/csrc/flash_delta.cu`` and ``ops/csrc/flash_bwd.cu``, built by
+``ops/_build.py`` at first use and called through ctypes):
 
 - `flash_fwd`: blockwise attention → (o, lse) (replaces the Pallas
   `_fwd_kernel`);
+- `flash_delta`: the backward's row term rowsum(dO·O) - dlse (replaces
+  no Pallas kernel: the jnp ops of `_bwd_impl` that XLA fuses);
 - `flash_dq`: dq = Σ_kv ds·K (replaces `_dq_kernel`);
 - `flash_dkv`: dk = Σ_q dsᵀ·Q and dv = Σ_q pᵀ·dO (replaces `_dkv_kernel`).
 
@@ -17,12 +19,12 @@ cotangent is folded into ``delta = rowsum(dO·O) - dlse`` (as the JAX
 through lse.
 
 Beside each kernel sits its plain PyTorch version (`reference_flash_fwd`,
-`reference_flash_dq`, `reference_flash_dkv`; `reference_flash_bwd`
-composes the last two): each follows its kernel's roundings step by step
-(scores in fp32 from input-dtype operands, probabilities rounded to the
-input dtype before P·V and l summed unrounded, ds rounded before ds·K and
-dsᵀ·Q, p rounded before pᵀ·dO), so the kernel is held against its own
-plain version on the card. `reference_attention` is the twin of the JAX
+`reference_flash_delta`, `reference_flash_dq`, `reference_flash_dkv`;
+`reference_flash_bwd` composes the last three): each follows its kernel's
+roundings step by step (scores in fp32 from input-dtype operands,
+probabilities rounded to the input dtype before P·V and l summed
+unrounded, ds rounded before ds·K and dsᵀ·Q, p rounded before pᵀ·dO), so
+the kernel is held against its own plain version on the card. `reference_attention` is the twin of the JAX
 oracle of the same name.
 
 Dispatch is by the device of the tensors, nothing else: a CPU tensor goes
@@ -144,10 +146,10 @@ def reference_flash_dkv(q, k, v, do, lse, delta, causal=True, sm_scale=None):
     return dk.contiguous(), dv.contiguous()
 
 
-def flash_delta(o, do, dlse=None):
-    """delta = rowsum(float(dO)·float(O)) - dlse, fp32 [B, S, H]: the row
-    term of both backward kernels, computed with torch ops as the JAX
-    package computes it outside its kernels."""
+def reference_flash_delta(o, do, dlse=None):
+    """Plain version of `flash_delta`: rowsum(float(dO)·float(O)) - dlse,
+    fp32 [B, S, H], with torch ops as the JAX package computes it outside
+    its kernels."""
     delta = (do.float() * o.float()).sum(dim=-1)
     if dlse is not None:
         delta = delta - dlse.float()
@@ -157,7 +159,7 @@ def flash_delta(o, do, dlse=None):
 def reference_flash_bwd(q, k, v, o, lse, do, dlse, causal=True,
                         sm_scale=None):
     """Plain backward → (dq, dk, dv), the twin of the JAX `_bwd_impl`."""
-    delta = flash_delta(o, do, dlse)
+    delta = reference_flash_delta(o, do, dlse)
     dq = reference_flash_dq(q, k, v, do, lse, delta, causal, sm_scale)
     return (dq, *reference_flash_dkv(q, k, v, do, lse, delta, causal,
                                      sm_scale))
@@ -239,10 +241,10 @@ def dkv_keys(K: int) -> int:
 
 
 def dq_key_tile(K: int) -> int:
-    """Keys per tile of the bf16 dq kernel: `key_tile`, but 32 at head dim
-    256, where its dq accumulator takes 128 registers a thread and S and
-    dP get 16 each (flash_bwd.cu `DqCfg`)."""
-    return 32 if K == 256 else key_tile(K)
+    """Keys per tile of the bf16 dq kernel: `key_tile` (64 at head dim 256,
+    where each ring slot holds one K or one V tile: flash_bwd.cu
+    `DqCfg`)."""
+    return key_tile(K)
 
 
 def _maps(*views):
@@ -392,8 +394,58 @@ def flash_dkv(q, k, v, do, lse, delta, causal=True, sm_scale=None):
 flash_dkv.launches = 0
 
 
+# Element types the delta kernel reads, as (dO, O): the bf16 path, the
+# head-dim-256 path (O32_HEAD_DIMS: the forward's fp32 o), and fp32.
+_DELTA_DTYPES = ((torch.bfloat16, torch.bfloat16),
+                 (torch.bfloat16, torch.float32),
+                 (torch.float32, torch.float32))
+
+
+def flash_delta(o, do, dlse=None):
+    """delta = rowsum(float(dO)·float(O)) - dlse → fp32 [B, S, H],
+    contiguous: the row term of both backward kernels. CPU tensors take
+    the plain version; CUDA tensors launch the kernel
+    (``ops/csrc/flash_delta.cu``), which reads dO and O with their own
+    strides (rows 16-byte aligned, head dim contiguous; others are copied
+    first) and dlse with its own."""
+    if o.dim() != 4 or o.shape != do.shape:
+        raise ValueError(f"flash_delta takes o and dO of one [B, S, H, K] "
+                         f"shape; got {tuple(o.shape)}, {tuple(do.shape)}")
+    if not _on_cuda(do):
+        return reference_flash_delta(o, do, dlse)
+    check_device(do.device, o=o)
+    if (do.dtype, o.dtype) not in _DELTA_DTYPES:
+        raise ValueError(f"flash_delta takes (dO, O) dtypes in "
+                         f"{_DELTA_DTYPES}, got ({do.dtype}, {o.dtype})")
+    B, S, H, K = do.shape
+    if K % 8:
+        raise ValueError(f"flash_delta takes a head dim that is a multiple "
+                         f"of 8, got {K}")
+    do, o = (t if _aligned(t) else t.contiguous() for t in (do, o))
+    if dlse is not None:
+        if dlse.shape != (B, S, H):
+            raise ValueError(f"dlse {tuple(dlse.shape)} != {(B, S, H)}")
+        check_device(do.device, dlse=dlse)
+        dlse = dlse.to(torch.float32)
+    delta = torch.empty(B, S, H, device=do.device, dtype=torch.float32)
+    from ray_tpu_torch.ops import _build
+
+    lib = _build.library()
+    rows = _rows(do, o, do if dlse is None else dlse)
+    rc = lib.rtt_flash_delta(
+        _DTYPE_CODES[do.dtype], _DTYPE_CODES[o.dtype], do.data_ptr(),
+        o.data_ptr(), _ptr(dlse), delta.data_ptr(), B, S, H, K,
+        ctypes.addressof(rows), _stream_ptr(do.device))
+    _build.check(rc, "flash_delta kernel launch")
+    flash_delta.launches += 1
+    return delta
+
+
+flash_delta.launches = 0
+
+
 def flash_bwd(q, k, v, o, lse, do, dlse=None, causal=True, sm_scale=None):
-    """(dq, dk, dv) through the two backward kernels (their plain
+    """(dq, dk, dv) through the three backward kernels (their plain
     versions on CPU tensors); dlse, when given, is folded into delta."""
     delta = flash_delta(o, do, dlse)
     dq = flash_dq(q, k, v, do, lse, delta, causal, sm_scale)
@@ -401,8 +453,9 @@ def flash_bwd(q, k, v, o, lse, do, dlse=None, causal=True, sm_scale=None):
 
 
 def reset_launch_counts() -> None:
-    """Zero the three kernels' launch counters."""
+    """Zero the four kernels' launch counters."""
     flash_fwd.launches = 0
+    flash_delta.launches = 0
     flash_dq.launches = 0
     flash_dkv.launches = 0
 
@@ -463,6 +516,7 @@ __all__ = [
     "O32_HEAD_DIMS", "flash_plan", "flash_dq_plan", "flash_dkv_plan", "dq_key_tile",
     "dkv_keys",
     "flash_delta", "reference_attention", "reference_flash_fwd",
+    "reference_flash_delta",
     "reference_flash_dq", "reference_flash_dkv", "reference_flash_bwd",
     "reset_launch_counts", "NEG_INF",
 ]

@@ -3,8 +3,8 @@
 // Replaces: ray_tpu/ops/attention.py, `_dq_kernel` and `_dkv_kernel` (Pallas
 // TPU kernels launched by `_bwd_impl` behind `flash_attention`'s custom VJP).
 // Same functions, from the forward's saved lse and the row term
-// delta = rowsum(dO · O) - dlse (computed by the wrapper with torch ops, as
-// JAX computes it outside its kernels, so an lse cotangent is folded in):
+// delta = rowsum(dO · O) - dlse (computed outside these kernels, as JAX
+// computes it, by flash_delta.cu; so an lse cotangent is folded in):
 //   p  = exp(s · sm_scale - lse) on visible keys, 0 elsewhere (the mask of
 //        the forward: t < T and, if causal, s >= t),
 //   ds = p · (dO V^T - delta) · sm_scale, rounded to the input dtype,
@@ -23,7 +23,9 @@
 //
 // What the design does about it (bf16): the structure of the forward
 // (attn_wgmma.cuh). Persistent blocks, one per SM, take work items longest
-// first in snake order (`attn_item`); warp 0 of the producer warpgroup
+// first in snake order (`attn_item`; at head dim 256, where the walked
+// rows outgrow the L2, in complementary pairs by head group,
+// `paired_item`); warp 0 of the producer warpgroup
 // brings tiles in by TMA from 4-D tensor maps over q, k, v and dO with
 // their own strides (views of the qkv projection are read in place; rows
 // past S or T arrive as zeros); two consumer warpgroups of 64 rows run
@@ -35,13 +37,12 @@
 //    head dim 256); its rows' lse and
 //    delta go to registers once per item (lse · log2 e - log2 sm_scale, so
 //    that p carries sm_scale and ds = p (dP - delta) saves a multiply); a
-//    ring of K/V tiles (BN = 128
-//    keys at head dim 64 in four stages, 64 at 80 and 128 and 32 at 256 in
-//    three) runs on
-//    across items. Per tile: S = Q·K^T and dP = dO·V^T (both operands
-//    K-major, two commit groups, so p is computed from S while dP is on
-//    the tensor cores), ds rounded to bf16 as register A fragments, and
-//    dq += dS·K with K read MN-major from the same tile. Causal items stop
+//    ring of K/V tiles (BN = 128 keys at head dim 64 in four stages, 64 at
+//    80, 128 and 256 in three; at 256 each slot holds one K or one V tile)
+//    runs on across items. Per tile: S = Q·K^T and dP = dO·V^T (both
+//    operands K-major, two commit groups, so p is computed from S while dP
+//    is on the tensor cores), ds rounded to bf16 as register A fragments,
+//    and dq += dS·K with K read MN-major from the same tile. Causal items stop
 //    at their last row and are taken longest first (the last query tiles).
 //  - flash_dkv_wgmma_kernel, key-major: an item is 128 keys of one (head,
 //    batch), each consumer warpgroup owning 64 keys and their fp32 dk and
@@ -61,27 +62,31 @@
 //    the longest items are the first key tiles.
 //  - Head dim 256: the dk and dv of 64 keys would be 256 fp32 values a
 //    thread, over the consumers' 232 registers, so the two warpgroups
-//    split the head dim instead of the keys: an item is 64 keys, both
-//    warpgroups compute its S^T, dP^T and dS^T over all 256 columns (the
-//    same products, so the same bits), and warpgroup w owns dk and dv of
-//    columns 128w .. 128w + 127, its products reading that half of the
-//    walked Q and dO tiles: 64 + 64 accumulators a thread, the head dim
-//    128 kernel's count, for 1.5x the products of a key split. K and V
-//    are single-buffered (64 KB) beside two ring stages (128 KB). In dq
-//    the accumulator of 64 rows x 256 is 128 values a thread, so S and dP
-//    walk key tiles of 32 (m64n32 products, 16 values each) and Q and dO
-//    are single-buffered (128 KB) beside three K/V stages (96 KB).
+//    share an item of 64 keys and split the work two ways: each computes
+//    S^T and dP^T against half the walked tile's query rows (m64n32 over
+//    all 256 columns), writes its half of P^T and dS^T in bf16 into shared
+//    [64 x 64] tiles (the wgmma A layout), and, once both halves are there
+//    (mbarriers, `PtBars`: named barriers spilled, 5. below), owns dk and
+//    dv of columns 128w .. 128w + 127, both operands of those products in
+//    shared memory (dv runs while dS^T is computed and handed over): 64 +
+//    64 accumulators and 16 + 16 scores a thread, and every product
+//    computed once. K and V are single-buffered
+//    (64 KB) beside two ring stages (128 KB) and the two 8 KB tiles. dq's
+//    accumulator of 64 rows x 256 is 128 values a thread: S and dP are
+//    m64n64 over 64-key tiles (32 values each), Q and dO single-buffered
+//    (128 KB), and the ring three slots of one 32 KB K or V tile (96 KB),
+//    K released before the next V is waited for (`dq_mainloop_slots`).
 // Where trouble was expected, and what the kernels do about it:
 //  1. lse and delta: registers per item in dq; staged per tile in dkv (see
 //     above), in the column layout of S^T (thread t of a warp reads
 //     columns 8j + 2t + e as one float2).
 //  2. Registers: the walked tile stays at 64 rows in dkv, so a consumer
-//     holds at most 192 fp32 values (head dim 128, and 256 split), under
-//     the 232 that setmaxnreg grants; dq at 256 at most 128 + 2 x 16.
+//     holds at most 192 fp32 values (head dim 128; 160 at 256), under the
+//     232 that setmaxnreg grants; dq at 256 at most 128 + 2 x 32.
 //  3. Shared memory at head dim 128: dkv keeps K and V double-buffered (128
 //     KB) and takes three ring stages (96 KB): 232,040 bytes with the
 //     alignment slack; dq takes three K/V stages. At 256: dq 230,504
-//     bytes, dkv 198,736.
+//     bytes, dkv 215,144.
 //  4. Ragged edges: only the tiles on the causal diagonal or past S or T
 //     mask, explicitly by row and key index (a zero-filled row of dkv
 //     would otherwise read lse = 0 and give p = 1; a zero-filled key of dq
@@ -123,6 +128,43 @@ struct DqRows {
 struct DkvRows {
   Rows q, k, v, dout, dk, dv;
 };
+
+// Head dim 256: the block's k-th work item, as its index in the
+// longest-first order (rank r of head hb is item r·HB + hb; R ranks, rank
+// r of a causal walk R - r tiles long), or ITEM_SKIP / ITEM_DONE. Where the
+// walked rows of all heads (head_bytes each: K and V for dq, Q and dO for
+// dkv; 1 MB a head at [8, 1024, 16, 256]) outgrow the L2, the
+// longest-first order's blocks read every head's rows at once and each
+// walked tile comes from device memory; there the heads go in groups
+// whose walked rows fill HEAD_GROUP_BYTES, and a block takes a pair of
+// complementary ranks of one head, p and R - 1 - p, in two consecutive
+// turns (`attn_item` deals the pairs), so that every block's pair walks
+// the same R + 1 tiles when causal although a round mixes long and short
+// ranks. On the H100 that took dq from 0.286 to 0.223 ms and dkv from
+// 0.506 to 0.413 at [8, 1024, 16, 256] causal (groups of 6-24 MB alike;
+// the grouping alone lost to its imbalance, the pairing alone gained
+// nothing). Elsewhere the order is the longest-first one.
+constexpr long long L2_BYTES = 50ll << 20;
+constexpr long long HEAD_GROUP_BYTES = 12ll << 20;
+constexpr int ITEM_SKIP = -1;          // an odd R's middle rank, taken once
+constexpr int ITEM_DONE = 0x7fffffff;  // past every item
+__device__ __forceinline__ int paired_item(int k, int R, int HB,
+                                           long long head_bytes) {
+  if (HB * head_bytes <= L2_BYTES) return attn_item(k);
+  const int half = (R + 1) / 2;
+  const int pair = attn_item(k >> 1);
+  if (pair >= HB * half) return ITEM_DONE;
+  const int G =
+      (int)max(1ll, min((long long)HB, HEAD_GROUP_BYTES / head_bytes));
+  const int grp = pair / (G * half);
+  const int h0 = grp * G;
+  const int gc = min(G, HB - h0);
+  const int w = pair - grp * G * half;
+  const int p = w / gc;
+  const int r = (k & 1) ? R - 1 - p : p;
+  if ((k & 1) && r == p) return ITEM_SKIP;
+  return r * HB + h0 + w % gc;
+}
 
 // ---------------------------------------------------------------------------
 // bf16 on wgmma. Persistent: one block per SM, the forward's warp roles
@@ -205,26 +247,32 @@ __device__ __forceinline__ void wgmma_ab(float (&d)[R],
 
 // ------------------------------------------------------------------- dq
 
-// Head dims 64, 80 (rows padded to 128 columns, `pad64`), 128 and 256 (one
-// Q and one dO buffer, key tiles of 32: the accumulator is 128 values a
-// thread).
+// Head dims 64, 80 (rows padded to 128 columns, `pad64`), 128 and 256. At
+// 256 (SLOTS) the accumulator is 128 values a thread and a Q or dO buffer
+// 64 KB, so the block keeps one Q and one dO buffer, and its ring holds
+// single 64-key tiles, K or V, in three slots of 32 KB (`dq_k_slot`,
+// `dq_v_slot`): a tile's K, its V and the next tile's K are in flight
+// together.
 template <int KD>
 struct DqCfg {
   static_assert(KD == 64 || KD == 80 || KD == 128 || KD == 256,
                 "head dim 64, 80, 128 or 256");
   static constexpr int KP = pad64(KD);
+  static constexpr bool SLOTS = KD == 256;
   // Keys per tile: ops/attention.py `dq_key_tile`, checked at launch.
-  static constexpr int BN = KD == 64 ? 128 : KD == 256 ? 32 : 64;
+  static constexpr int BN = KD == 64 ? 128 : 64;
   static constexpr int NBOX = KP / 64;
-  static constexpr int Q_BUFS = KD == 256 ? 1 : 2;
-  static constexpr int ST = KD == 64 ? 4 : 3;     // K/V ring stages
+  static constexpr int Q_BUFS = SLOTS ? 1 : 2;
+  // K/V ring stages (a K and a V tile each), or SLOTS slots of one tile.
+  static constexpr int ST = KD == 64 ? 4 : 3;
+  static constexpr int TILES = SLOTS ? 1 : 2;      // tiles a stage holds
   static constexpr int Q_BYTES = ATT_BM * KP * 2;  // Q (or dO) of one item
   static constexpr int KV_BYTES = BN * KP * 2;     // one K or V tile
   static constexpr int OFF_Q = 0;                  // [Q_BUFS buffers]
   static constexpr int OFF_DO = OFF_Q + Q_BUFS * Q_BYTES;
   static constexpr int OFF_K = OFF_DO + Q_BUFS * Q_BYTES;  // [ST stages]
-  static constexpr int OFF_V = OFF_K + ST * KV_BYTES;
-  static constexpr int OFF_BAR = OFF_V + ST * KV_BYTES;
+  static constexpr int OFF_V = OFF_K + ST * KV_BYTES;      // (not SLOTS)
+  static constexpr int OFF_BAR = OFF_K + TILES * ST * KV_BYTES;
   static constexpr int SMEM = OFF_BAR + 8 * (4 + 3 * ST) + 1024;
   static_assert(SMEM <= 232448, "more shared memory than a block may have");
 };
@@ -320,6 +368,121 @@ __device__ __forceinline__ void dq_mainloop(unsigned char* base, int qb,
   release_stage(bar, pend);
 }
 
+// The slots of the head-dim-256 dq's ring for the block's tile g: a K
+// tile is held from its S product until its dq product is done (into the
+// next tile), a V tile only until its dP product is done, so K alternates
+// between slots 0 and 1 and V keeps slot 2; each slot's phase parity. (A
+// round robin over the three put V(g) in K(g - 1)'s slot, which frees
+// only once dq(g - 1) is done, and exposed every V load's latency.)
+struct DqSlot {
+  int slot;
+  uint32_t phase;
+};
+__device__ __forceinline__ DqSlot dq_k_slot(int g) {
+  return {g & 1, (uint32_t)(g >> 1) & 1};
+}
+__device__ __forceinline__ DqSlot dq_v_slot(int g) {
+  return {2, (uint32_t)g & 1};
+}
+
+// dq_mainloop at head dim 256 (SLOTS): 64-key tiles, each tile's K and V
+// in slots of their own. Per tile: S = Q·K^T as soon as K has landed; the
+// wait for S also finds the previous tile's dq product done, whose K slot
+// is released before V is waited for (the producer refills that slot with
+// this tile's V); then dP = dO·V^T, p while dP is on the tensor cores, the
+// V slot released once dP is done, and dq += dS·K with its wait deferred
+// to the next tile. Keys ascend 16 at a time through dq's k-steps as in
+// the other head dims.
+template <int KD>
+__device__ __forceinline__ void dq_mainloop_slots(
+    unsigned char* base, const AttnBars& bar, int wg, int g0, int n_kt,
+    int kv_lim, int qpos0, float c, const float (&l2)[2],
+    const float (&dl)[2], float (&acc)[KD / 2]) {
+  using Cfg = DqCfg<KD>;
+  constexpr int BN = Cfg::BN;
+  constexpr int NS = BN / 2;
+  static_assert(Cfg::ST == 3, "two K slots and a V slot");
+  const int tid = threadIdx.x & 127;
+  const int lane = tid & 31;
+  const int r0 = (tid >> 5) * 16 + (lane >> 2);
+  const int t2 = 2 * (lane & 3);
+  const uint32_t q_addr = smem_u32(base + Cfg::OFF_Q) + wg * 64 * 128;
+  const uint32_t d_addr = smem_u32(base + Cfg::OFF_DO) + wg * 64 * 128;
+  const int lim_base0 = min(kv_lim - 1, qpos0 + r0);
+  const int lim_base1 = min(kv_lim - 1, qpos0 + r0 + 8);
+  int pend = -1;  // the K slot whose dq product is still in flight
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const DqSlot ks = dq_k_slot(g0 + kt);
+    const DqSlot vs = dq_v_slot(g0 + kt);
+    const int sk = ks.slot;
+    const int sv = vs.slot;
+    const int key0 = kt * BN;
+    const uint32_t k_addr = smem_u32(base + Cfg::OFF_K + sk * Cfg::KV_BYTES);
+    const uint32_t v_addr = smem_u32(base + Cfg::OFF_K + sv * Cfg::KV_BYTES);
+    mbar_wait(bar.full_k + sk, ks.phase);
+    if (key0 <= qpos0 + 63) {
+      float s[NS], dp[NS];
+      wgmma_fence();
+      wgmma_abt<KD, ATT_BM, BN>(s, q_addr, k_addr);
+      wgmma_wait<1>();  // the previous tile's dq product
+      fence_regs(acc);
+      release_stage(bar, pend);
+      mbar_wait(bar.full_k + sv, vs.phase);
+      wgmma_fence();
+      wgmma_abt<KD, ATT_BM, BN>(dp, d_addr, v_addr);
+      wgmma_wait<1>();  // S
+      fence_regs(s);
+      const bool edge = key0 + BN > kv_lim || key0 + BN - 1 > qpos0;
+      const int lim0 = lim_base0 - key0;
+      const int lim1 = lim_base1 - key0;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float p0 = exp2_sfu(fmaf(s[4 * j + e], c, -l2[0]));
+          float p1 = exp2_sfu(fmaf(s[4 * j + 2 + e], c, -l2[1]));
+          if (edge) {
+            const int col = 8 * j + t2 + e;
+            if (col > lim0) p0 = 0.f;
+            if (col > lim1) p1 = 0.f;
+          }
+          s[4 * j + e] = p0;
+          s[4 * j + 2 + e] = p1;
+        }
+      wgmma_wait<0>();
+      fence_regs(dp);
+      release_now(bar, sv);
+      uint32_t da[BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = 8 * kk + 2 * q;
+          const float d = dl[q & 1];
+          da[kk][q] =
+              pack_bf16x2(s[i] * (dp[i] - d), s[i + 1] * (dp[i + 1] - d));
+        }
+      fence_regs(acc);
+      wgmma_fence();
+      wgmma_ab(acc, da, k_addr);
+      wgmma_commit();
+      pend = sk;  // released once the product is done, next tile or below
+    } else {
+      // Past this warpgroup's rows: release K, the pending product's K
+      // first (the producer refills that slot with this tile's V).
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release_stage(bar, pend);
+      release_now(bar, sk);
+      mbar_wait(bar.full_k + sv, vs.phase);
+      release_now(bar, sv);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  release_stage(bar, pend);
+}
+
 template <int KD>
 __global__ void __launch_bounds__(ATT_THREADS, 1)
     flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -344,7 +507,10 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
     if (threadIdx.x != 0) return;
     int g = 0, jq = 0;
     for (int k = 0;; ++k) {
-      const int item = attn_item(k);
+      const int item = Cfg::SLOTS
+                           ? paired_item(k, n_qt, H * B, 4ll * T * Cfg::KP)
+                           : attn_item(k);
+      if (item == ITEM_SKIP) continue;
       if (item >= n_items) break;
       const QueryItem it = query_item<BN>(item, n_qt, S, T, H, B, causal);
       if (it.n_kt == 0) continue;
@@ -360,6 +526,21 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
                     cb * 64, it.h, it.q0, it.b);
       }
       ++jq;
+      if constexpr (Cfg::SLOTS) {  // K, then V, each in a slot of its own
+        for (int kt = 0; kt < it.n_kt; ++kt, ++g)
+#pragma unroll
+          for (int kv = 0; kv < 2; ++kv) {
+            const DqSlot sl = kv ? dq_v_slot(g) : dq_k_slot(g);
+            mbar_wait(bar.empty + sl.slot, sl.phase ^ 1);
+            unsigned char* dst = base + Cfg::OFF_K + sl.slot * Cfg::KV_BYTES;
+            mbar_expect_tx(bar.full_k + sl.slot, Cfg::KV_BYTES);
+#pragma unroll
+            for (int cb = 0; cb < Cfg::NBOX; ++cb)
+              tma_load_4d(dst + cb * BN * 128, kv ? &vmap : &kmap,
+                          bar.full_k + sl.slot, cb * 64, it.h, kt * BN, it.b);
+          }
+        continue;
+      }
       for (int kt = 0; kt < it.n_kt; ++kt, ++g) {
         const int st = g % Cfg::ST;
         mbar_wait(bar.empty + st, ((g / Cfg::ST) & 1) ^ 1);
@@ -385,7 +566,10 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
     const float log2_scale = log2f(scale);
     int g = 0, jq = 0;
     for (int k = 0;; ++k) {
-      const int item = attn_item(k);
+      const int item = Cfg::SLOTS
+                           ? paired_item(k, n_qt, H * B, 4ll * T * Cfg::KP)
+                           : attn_item(k);
+      if (item == ITEM_SKIP) continue;
       if (item >= n_items) break;
       const QueryItem it = query_item<BN>(item, n_qt, S, T, H, B, causal);
       const int qw = it.q0 + wg * 64;  // the warpgroup's first row
@@ -403,8 +587,12 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
         }
         const int qb = qbuf<Cfg::Q_BUFS>(jq);
         mbar_wait(bar.full_a + qb, qphase<Cfg::Q_BUFS>(jq));
-        dq_mainloop<KD>(base, qb, bar, wg, g, it.n_kt, T,
-                        causal ? qw : ATT_NO_CAUSAL, c, l2, dl, acc);
+        if constexpr (Cfg::SLOTS)
+          dq_mainloop_slots<KD>(base, bar, wg, g, it.n_kt, T,
+                                causal ? qw : ATT_NO_CAUSAL, c, l2, dl, acc);
+        else
+          dq_mainloop<KD>(base, qb, bar, wg, g, it.n_kt, T,
+                          causal ? qw : ATT_NO_CAUSAL, c, l2, dl, acc);
         __syncwarp();
         if (lane == 0) mbar_arrive(bar.a_empty + qb);
         ++jq;
@@ -430,8 +618,9 @@ template <int KD>
 struct DkvCfg {
   static_assert(KD == 64 || KD == 80 || KD == 128 || KD == 256,
                 "head dim 64, 80, 128 or 256");
-  // Head dim 256: the warpgroups share the item's keys and split the head
-  // dim, each owning KO columns of dk and dv.
+  // Head dim 256: the warpgroups share the item's keys; each computes the
+  // scores of half the walked tile's query rows and owns KO columns of dk
+  // and dv.
   static constexpr bool SPLIT = KD == 256;
   static constexpr int KEYS = SPLIT ? DKV_KEYS_SPLIT : DKV_KEYS;
   static constexpr int KO = SPLIT ? KD / 2 : KD;
@@ -441,14 +630,21 @@ struct DkvCfg {
   static constexpr int ST = KD == 64 ? 4 : SPLIT ? 2 : 3;  // Q/dO stages
   static constexpr int KV_BYTES = KEYS * KP * 2;      // K (or V) of one item
   static constexpr int Q_BYTES = DKV_ROWS * KP * 2;   // one Q or dO tile
+  // SPLIT: P^T or dS^T of a walked tile, [KEYS][DKV_ROWS] bf16 (one
+  // 128-byte-swizzled box).
+  static constexpr int PT_BYTES = SPLIT ? KEYS * DKV_ROWS * 2 : 0;
   static constexpr int OFF_K = 0;                     // [KV_BUFS buffers]
   static constexpr int OFF_V = OFF_K + KV_BUFS * KV_BYTES;
   static constexpr int OFF_Q = OFF_V + KV_BUFS * KV_BYTES;  // [ST stages]
   static constexpr int OFF_DO = OFF_Q + ST * Q_BYTES;
+  static constexpr int OFF_PT = OFF_DO + ST * Q_BYTES;  // P^T, then dS^T
   // [ST][lse · log2 e, delta · sm_scale][DKV_ROWS] fp32
-  static constexpr int OFF_ROW = OFF_DO + ST * Q_BYTES;
+  static constexpr int OFF_ROW = OFF_PT + 2 * PT_BYTES;
   static constexpr int OFF_BAR = OFF_ROW + ST * 2 * DKV_ROWS * 4;
-  static constexpr int SMEM = OFF_BAR + 8 * (4 + 3 * ST) + 1024;
+  // attn_setup's barriers, then SPLIT's three around the P^T and dS^T
+  // tiles (`PtBars`).
+  static constexpr int N_BAR = 4 + 3 * ST + (SPLIT ? 3 : 0);
+  static constexpr int SMEM = OFF_BAR + 8 * N_BAR + 1024;
   static_assert(SMEM <= 232448, "more shared memory than a block may have");
 };
 
@@ -476,13 +672,14 @@ __device__ __forceinline__ DkvItem dkv_item(int item, int n_qt, int H,
 // One consumer warpgroup's walk over an item's query tiles (the block's
 // ring tiles g0, g0 + 1, ...), its K and V in buffer kb; kw is the
 // warpgroup's first key. Accumulates dk (ak) and dv (av) of this thread's
-// keys kw + r0 and kw + r0 + 8, over the warpgroup's KO columns.
+// keys kw + r0 and kw + r0 + 8, over all KD columns (head dims 64-128).
 template <int KD>
 __device__ __forceinline__ void dkv_mainloop(
     unsigned char* base, int kb, const AttnBars& bar, int wg, int g0,
     const DkvItem& it, int kw, int S, int causal, float c, float scale,
-    float (&ak)[DkvCfg<KD>::KO / 2], float (&av)[DkvCfg<KD>::KO / 2]) {
+    float (&ak)[KD / 2], float (&av)[KD / 2]) {
   using Cfg = DkvCfg<KD>;
+  static_assert(!Cfg::SPLIT, "head dim 256 walks dkv_mainloop_split");
   constexpr int BQ = DKV_ROWS;
   constexpr int NS = BQ / 2;
   // Registers allow overlap at head dim 64 only: P^T's fragments stay
@@ -495,14 +692,10 @@ __device__ __forceinline__ void dkv_mainloop(
   const int t2 = 2 * (lane & 3);
   const int key_a = kw + r0;
   const int key_b = key_a + 8;
-  const uint32_t krow = Cfg::SPLIT ? 0 : wg * 64 * 128;
   const uint32_t k_addr =
-      smem_u32(base + Cfg::OFF_K + kb * Cfg::KV_BYTES) + krow;
+      smem_u32(base + Cfg::OFF_K + kb * Cfg::KV_BYTES) + wg * 64 * 128;
   const uint32_t v_addr =
-      smem_u32(base + Cfg::OFF_V + kb * Cfg::KV_BYTES) + krow;
-  // The warpgroup's columns of the walked Q and dO tiles: split, the
-  // 64-column boxes 2wg and 2wg + 1.
-  const uint32_t col = Cfg::SPLIT ? wg * (Cfg::KO / 64) * BQ * 128 : 0;
+      smem_u32(base + Cfg::OFF_V + kb * Cfg::KV_BYTES) + wg * 64 * 128;
   int pend = -1;  // the stage whose dk and dv products are still in flight
   for (int i = 0; i < it.n_walk; ++i) {
     const int gi = g0 + i;
@@ -555,7 +748,7 @@ __device__ __forceinline__ void dkv_mainloop(
       if constexpr (OVERLAP) {  // dv += P^T·dO while dS^T is computed
         fence_regs(av);
         wgmma_fence();
-        wgmma_ab(av, pa, d_addr + col);
+        wgmma_ab(av, pa, d_addr);
         wgmma_commit();
         wgmma_wait<1>();  // dP^T
       } else {
@@ -577,9 +770,9 @@ __device__ __forceinline__ void dkv_mainloop(
       wgmma_fence();
       if constexpr (!OVERLAP) {
         fence_regs(av);
-        wgmma_ab(av, pa, d_addr + col);
+        wgmma_ab(av, pa, d_addr);
       }
-      wgmma_ab(ak, da, q_addr + col);
+      wgmma_ab(ak, da, q_addr);
       wgmma_commit();
       pend = st;  // released once the products are done
       if constexpr (!OVERLAP) {
@@ -594,6 +787,183 @@ __device__ __forceinline__ void dkv_mainloop(
   fence_regs(av);
   fence_regs(ak);
   release_stage(bar, pend);
+}
+
+// Head dim 256: the two warpgroups' barriers around the shared P^T and
+// dS^T tiles: p_full completes when both have written their halves of a
+// walked tile's P^T, ds_full of its dS^T, empty when both have finished
+// the products that read them. Each counts one arrival per consumer warp.
+struct PtBars {
+  uint64_t *p_full, *ds_full, *empty;
+};
+constexpr int PT_BARS = 3;
+
+// One arrival of this warp on `b`, once all its lanes are there.
+__device__ __forceinline__ void warp_arrive(uint64_t* b) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(b);
+}
+
+// This thread's half-row values v (the S^T accumulator layout: key rows r0
+// and r0 + 8, the warpgroup's query columns NQ·wg + 8j + t2, + 1) in bf16
+// into the shared [64 keys x 64 rows] tile: 16-byte chunk 4wg + j of row
+// r, swizzled by r % 8 (the 128-byte swizzle TMA writes and wgmma reads);
+// then made visible to the other warpgroup's wgmma, and this warp's
+// arrival on `full`.
+template <int NS>
+__device__ __forceinline__ void hand_over(unsigned char* tile,
+                                         const float (&v)[NS], int wg,
+                                         uint64_t* full) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
+  const int t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      const int off = r * 128 + (((4 * wg + j) ^ (r & 7)) << 4) + 2 * t2;
+      *reinterpret_cast<uint32_t*>(tile + off) =
+          pack_bf16x2(v[4 * j + 2 * h], v[4 * j + 2 * h + 1]);
+    }
+  fence_async_smem();
+  warp_arrive(full);
+}
+
+// d += A·B over the walked tile's 64 rows (four k-steps of 16): A a shared
+// [64 keys x 64 rows] tile (K-major, descriptor a), B the warpgroup's 128
+// columns of a walked Q or dO tile (MN-major, descriptor b).
+__device__ __forceinline__ void wgmma_tile_rows(float (&d)[64], uint64_t a,
+                                                uint64_t b) {
+#pragma unroll
+  for (int kk = 0; kk < DKV_ROWS / 16; ++kk)
+    wgmma_ss_mn(d, a + kk * 32 / 16, b + kk * 16 * 128 / 16, 1);
+}
+
+// dkv's walk at head dim 256. Both warpgroups hold the item's 64 keys;
+// warpgroup w computes S^T = K·Q^T and dP^T = V·dO^T for the walked tile's
+// query rows 32w .. 32w + 31 (m64n32 over all 256 columns), writes its
+// half of P^T, then of dS^T, in bf16 into shared [64 keys x 64 rows]
+// tiles (K-major: the wgmma A layout), and once the other half of each is
+// there runs dv += P^T·dO (while dS^T is computed and handed over), then
+// dk += dS^T·Q, over its 128 columns (KO), both operands in shared memory.
+// Each element of S^T, dP^T, P^T and dS^T is the same product over the
+// same 256 columns as when each warpgroup computed the whole tile, and dk
+// and dv sum the same 64 rows in the same order. The dk and dv products
+// are waited for after the next tile's S^T (their stage and the tiles
+// released then); g0 + i counts the walked tiles of the block, every one
+// of which both warpgroups take, so it sets the tiles' barrier phases.
+template <int KD>
+__device__ __forceinline__ void dkv_mainloop_split(
+    unsigned char* base, const AttnBars& bar, const PtBars& pt, int wg,
+    int g0, const DkvItem& it, int S, int causal, float c, float scale,
+    float (&ak)[KD / 4], float (&av)[KD / 4]) {
+  using Cfg = DkvCfg<KD>;
+  static_assert(Cfg::SPLIT && Cfg::KO == 128, "the head-dim-256 split");
+  constexpr int BQ = DKV_ROWS;
+  constexpr int NQ = BQ / 2;  // query rows a warpgroup scores
+  constexpr int NS = NQ / 2;  // scores a thread
+  const int tid = threadIdx.x & 127;
+  const int lane = tid & 31;
+  const int r0 = (tid >> 5) * 16 + (lane >> 2);
+  const int t2 = 2 * (lane & 3);
+  const int key_a = it.key0 + r0;
+  const int key_b = key_a + 8;
+  const uint32_t k_addr = smem_u32(base + Cfg::OFF_K);
+  const uint32_t v_addr = smem_u32(base + Cfg::OFF_V);
+  unsigned char* pt_tile = base + Cfg::OFF_PT;
+  unsigned char* ds_tile = pt_tile + Cfg::PT_BYTES;
+  // P^T and dS^T as A operands: K-major, 128-byte rows (64 query rows).
+  const uint64_t pt_desc = sw128_desc(smem_u32(pt_tile), 16, 1024);
+  const uint64_t ds_desc = sw128_desc(smem_u32(ds_tile), 16, 1024);
+  // The warpgroup's query rows of the walked Q and dO tiles (B of S^T and
+  // dP^T), and its 64-column boxes 2w, 2w + 1 of them (B of dk and dv).
+  const uint32_t qrow = wg * NQ * 128;
+  constexpr uint32_t box = BQ * 128;
+  const uint32_t col = wg * 2 * box;
+  int pend = -1;  // the stage whose dk and dv products are still in flight
+  for (int i = 0; i < it.n_walk; ++i) {
+    const int gi = g0 + i;
+    const int st = gi % Cfg::ST;
+    const uint32_t ph = (gi / Cfg::ST) & 1;
+    const int q0 = (it.first_qt + i) * BQ;
+    const uint32_t q_addr = smem_u32(base + Cfg::OFF_Q + st * Cfg::Q_BYTES);
+    const uint32_t d_addr = smem_u32(base + Cfg::OFF_DO + st * Cfg::Q_BYTES);
+    const float* rl = reinterpret_cast<const float*>(base + Cfg::OFF_ROW) +
+                      st * 2 * BQ + wg * NQ;
+    mbar_wait(bar.full_k + st, ph);
+    mbar_wait(bar.full_v + st, ph);
+    float s[NS], dp[NS];
+    wgmma_fence();
+    wgmma_abt<KD, Cfg::KEYS, BQ>(s, k_addr, q_addr + qrow);
+    wgmma_abt<KD, Cfg::KEYS, BQ>(dp, v_addr, d_addr + qrow);
+    wgmma_wait<1>();  // S^T, and the previous tile's dk and dv products
+    fence_regs(s);
+    fence_regs(ak);
+    fence_regs(av);
+    if (pend >= 0) {
+      release_now(bar, pend);
+      warp_arrive(pt.empty);
+      pend = -1;
+    }
+    // P^T: rows are keys, columns this warpgroup's query rows
+    // q0 + NQ·wg + 8j + t2 + e.
+    const bool edge = q0 + BQ > S || (causal && q0 < it.key0 + 63);
+#pragma unroll
+    for (int j = 0; j < NQ / 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(rl + 8 * j + t2);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        s[4 * j + 2 * h] = exp2_sfu(fmaf(s[4 * j + 2 * h], c, -l2.x));
+        s[4 * j + 2 * h + 1] = exp2_sfu(fmaf(s[4 * j + 2 * h + 1], c, -l2.y));
+      }
+      if (edge) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = q0 + wg * NQ + 8 * j + t2 + e;
+          const bool in = row < S;
+          if (!in || (causal && key_a > row)) s[4 * j + e] = 0.f;
+          if (!in || (causal && key_b > row)) s[4 * j + 2 + e] = 0.f;
+        }
+      }
+    }
+    // Both warpgroups' products of the previous tile are done with the
+    // tiles: hand P^T over, and run dv once both halves are there.
+    mbar_wait(pt.empty, (gi & 1) ^ 1);
+    hand_over(pt_tile, s, wg, pt.p_full);
+    mbar_wait(pt.p_full, gi & 1);
+    fence_regs(av);
+    wgmma_fence();
+    wgmma_tile_rows(av, pt_desc, sw128_desc(d_addr + col, box, 1024));
+    wgmma_commit();
+    wgmma_wait<1>();  // dP^T (dv stays in flight)
+    fence_regs(dp);
+    // dS^T = P^T (dP^T sm_scale - delta sm_scale), in place of dP^T.
+#pragma unroll
+    for (int j = 0; j < NQ / 8; ++j) {
+      const float2 d = *reinterpret_cast<const float2*>(rl + BQ + 8 * j + t2);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i2 = 4 * j + 2 * h;
+        dp[i2] = s[i2] * fmaf(dp[i2], scale, -d.x);
+        dp[i2 + 1] = s[i2 + 1] * fmaf(dp[i2 + 1], scale, -d.y);
+      }
+    }
+    hand_over(ds_tile, dp, wg, pt.ds_full);
+    mbar_wait(pt.ds_full, gi & 1);
+    fence_regs(ak);
+    wgmma_fence();
+    wgmma_tile_rows(ak, ds_desc, sw128_desc(q_addr + col, box, 1024));
+    wgmma_commit();
+    pend = st;  // released once the products are done
+  }
+  wgmma_wait<0>();
+  fence_regs(av);
+  fence_regs(ak);
+  if (pend >= 0) {
+    release_now(bar, pend);
+    warp_arrive(pt.empty);
+  }
 }
 
 template <int KD>
@@ -615,6 +985,20 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
   constexpr int KEYS = Cfg::KEYS;
   const int n_items = (T + KEYS - 1) / KEYS * H * B;
   AttnBars bar;
+  PtBars pt{};
+  if constexpr (Cfg::SPLIT) {
+    // After attn_setup's barriers; initialised here by the thread that
+    // initialises those, before its fence and the block barrier.
+    unsigned char* b0 =
+        smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+    pt.p_full =
+        reinterpret_cast<uint64_t*>(b0 + Cfg::OFF_BAR) + 4 + 3 * Cfg::ST;
+    pt.ds_full = pt.p_full + 1;
+    pt.empty = pt.p_full + 2;
+    if (threadIdx.x == 0)
+      for (int b = 0; b < PT_BARS; ++b)
+        mbar_init(pt.p_full + b, ATT_CONSUMER_WARPS);
+  }
   unsigned char* base = attn_setup<Cfg::ST>(
       smem_raw, Cfg::OFF_BAR, 1 + STAGE_WARP_ARRIVALS, bar);
 
@@ -625,7 +1009,11 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
     if (warp == 0 && lane == 0) {  // TMA: K, V per item; Q, dO per tile
       int g = 0, jk = 0;
       for (int k = 0;; ++k) {
-        const int item = attn_item(k);
+        const int item =
+            Cfg::SPLIT ? paired_item(k, n_items / (H * B), H * B,
+                                     4ll * S * Cfg::KP)
+                       : attn_item(k);
+        if (item == ITEM_SKIP) continue;
         if (item >= n_items) break;
         const DkvItem it = dkv_item<KEYS>(item, n_qt, H, B, causal);
         if (it.n_walk == 0) continue;
@@ -660,7 +1048,11 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
     } else if (warp == 1) {  // lse · log2 e, delta · sm_scale per tile
       int g = 0;
       for (int k = 0;; ++k) {
-        const int item = attn_item(k);
+        const int item =
+            Cfg::SPLIT ? paired_item(k, n_items / (H * B), H * B,
+                                     4ll * S * Cfg::KP)
+                       : attn_item(k);
+        if (item == ITEM_SKIP) continue;
         if (item >= n_items) break;
         const DkvItem it = dkv_item<KEYS>(item, n_qt, H, B, causal);
         for (int i = 0; i < it.n_walk; ++i, ++g) {
@@ -685,7 +1077,11 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
     const int lane = threadIdx.x & 31;
     int g = 0, jk = 0;
     for (int k = 0;; ++k) {
-      const int item = attn_item(k);
+      const int item =
+          Cfg::SPLIT ? paired_item(k, n_items / (H * B), H * B,
+                                   4ll * S * Cfg::KP)
+                     : attn_item(k);
+      if (item == ITEM_SKIP) continue;
       if (item >= n_items) break;
       const DkvItem it = dkv_item<KEYS>(item, n_qt, H, B, causal);
       // The warpgroup's first key and first column.
@@ -697,8 +1093,12 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
       if (it.n_walk > 0) {  // no query row sees these keys: dk = dv = 0
         const int kb = qbuf<Cfg::KV_BUFS>(jk);
         mbar_wait(bar.full_a + kb, qphase<Cfg::KV_BUFS>(jk));
-        dkv_mainloop<KD>(base, kb, bar, wg, g, it, kw, S, causal, c, scale,
-                         ak, av);
+        if constexpr (Cfg::SPLIT)
+          dkv_mainloop_split<KD>(base, bar, pt, wg, g, it, S, causal, c,
+                                 scale, ak, av);
+        else
+          dkv_mainloop<KD>(base, kb, bar, wg, g, it, kw, S, causal, c,
+                           scale, ak, av);
         __syncwarp();
         if (lane == 0) mbar_arrive(bar.a_empty + kb);
         ++jk;

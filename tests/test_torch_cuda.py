@@ -3,7 +3,8 @@
 Each kernel against its plain PyTorch version on CUDA tensors (paged:
 ragged lengths, idle all-null slots, width-sliced prefill tables, a
 partial query tile, float pools and int8 pools with per-page scales;
-flash: forward, dq and dkv, causal and not, S != T, an lse cotangent,
+flash: forward, delta, dq and dkv, causal and not, S != T, an lse
+cotangent,
 the bf16 kernels also at ragged S/T on packed qkv views;
 fp32 and bf16, head dims 64, 80, 128 and 256, the backward at all four
 and refusing 96; the bf16 prefill at page sizes 4 to 128, in TMA boxes
@@ -985,8 +986,8 @@ def test_flash_attention_autograd_and_refusals(cuda):
         np.float32)).to(cuda).requires_grad_(True) for _ in range(3)]
     o, lse = fa.flash_attention(*ts, causal=True, return_lse=True)
     (o.square().sum() + lse.sum()).backward()
-    assert (fa.flash_fwd.launches, fa.flash_dq.launches,
-            fa.flash_dkv.launches) == (1, 1, 1)
+    assert (fa.flash_fwd.launches, fa.flash_delta.launches,
+            fa.flash_dq.launches, fa.flash_dkv.launches) == (1, 1, 1, 1)
     grads = [x.grad.clone() for x in ts]
     for x in ts:
         x.grad = None
@@ -1007,8 +1008,9 @@ def test_flash_attention_autograd_and_refusals(cuda):
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_backward_at_head_dim_256(cuda, dtype, causal):
     """Head dim 256 (gptj_6b): dq and dkv against their plain versions
-    with S and T off every tile (the dq kernel's 32-key tiles, the dkv
-    kernel's 64-key items split by head-dim halves, the fp32 kernels'
+    with S and T off every tile (the dq kernel's 64-key tiles in single K
+    or V slots, the dkv kernel's 64-key items whose warpgroups score half
+    the walked rows each and own half the head dim, the fp32 kernels'
     32-row walked tiles), from q, k, v read as views of packed qkv
     tensors; a head dim no kernel takes (96) is refused with a ValueError
     naming the ROADMAP item, launching nothing."""
@@ -1040,6 +1042,71 @@ def test_flash_backward_at_head_dim_256(cuda, dtype, causal):
         with pytest.raises(ValueError, match="head dim 96.*ROADMAP"):
             fn(q96, q96, q96, q96, lse96, lse96, causal, scale)
     assert (fa.flash_dq.launches, fa.flash_dkv.launches) == (1, 1)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_256_in_head_groups(cuda, causal):
+    """Head dim 256 with 128 heads of S = T = 960: the walked rows of all
+    heads (about 1 MB each) outgrow the L2, so dq and dkv take their items
+    in pairs of complementary ranks by head group, dkv's 15 key tiles
+    leaving a middle rank unpaired; both still match their plain versions
+    under the bf16 bound."""
+    rng = np.random.default_rng(16)
+    t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    B, S, H, K = 8, 960, 16, 256
+    q, k, v, do = (t(B, S, H, K) for _ in range(4))
+    scale = K ** -0.5
+    o_ref, lse_ref = fa.reference_flash_fwd(q, k, v, causal, scale)
+    delta = fa.reference_flash_delta(o_ref, do)
+    args = (q, k, v, do, lse_ref, delta, causal, scale)
+    dq = fa.flash_dq(*args)
+    dk, dv = fa.flash_dkv(*args)
+    torch.cuda.synchronize()
+    refs = (fa.reference_flash_dq(*args), *fa.reference_flash_dkv(*args))
+    sums = _flash_abs_sums(q, k, v, do, lse_ref, delta, causal, scale)[1:]
+    for out, ref, s_abs in zip((dq, dk, dv), refs, sums):
+        _close(out, ref, torch.bfloat16, s_abs)
+
+
+@pytest.mark.parametrize("K", [64, 80, 128, 256])
+@pytest.mark.parametrize("dtypes", [(torch.bfloat16, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32),
+                                    (torch.float32, torch.float32)])
+def test_flash_delta_matches_plain(cuda, K, dtypes):
+    """The delta kernel against its plain version, (dO, O) in each dtype
+    pair it takes, dO contiguous and as strided rows, with and without
+    an lse cotangent (also one expanded from a single value): within
+    1e-5 of each row's sum of magnitudes (fp32 sums in other orders), one
+    launch a call; dtype pairs and head dims it does not take are
+    refused, launching nothing."""
+    rng = np.random.default_rng(15)
+    t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(cuda)
+    B, S, H = 2, 77, 3
+    do = t(B, S, H, K).to(dtypes[0])
+    o = t(B, S, H, K).to(dtypes[1])
+    packed = t(B, S, 2, H, K).to(dtypes[0])
+    packed[:, :, 1] = do
+    dlse = t(B, S, H)
+    n = 0
+    for d in (do, packed[:, :, 1]):
+        for dl in (dlse, None, t(1, 1, 1).expand(B, S, H)):
+            out = fa.flash_delta(o, d, dl)
+            n += 1
+            torch.cuda.synchronize()
+            ref = fa.reference_flash_delta(o, d, dl)
+            assert out.dtype == torch.float32 and out.is_contiguous()
+            bound = (d.float() * o.float()).abs().sum(-1)
+            if dl is not None:
+                bound = bound + dl.abs()
+            assert bool(((out - ref).abs() <= 1e-5 * bound).all())
+    assert fa.flash_delta.launches == n
+    with pytest.raises(ValueError, match="dtypes"):
+        fa.flash_delta(o.to(torch.bfloat16), do.float())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa.flash_delta(o[..., :12], do[..., :12])
+    assert fa.flash_delta.launches == n
 
 
 def test_gpt_train_step_flash_matches_xla_on_the_card(cuda):

@@ -31,8 +31,8 @@ BF16_REL = 8e-3
 def counters():
     tattn.reset_launch_counts()
     yield
-    assert (tattn.flash_fwd.launches, tattn.flash_dq.launches,
-            tattn.flash_dkv.launches) == (0, 0, 0)
+    assert (tattn.flash_fwd.launches, tattn.flash_delta.launches,
+            tattn.flash_dq.launches, tattn.flash_dkv.launches) == (0, 0, 0, 0)
 
 
 def _arrays(B=2, S=192, T=None, H=3, K=32, seed=0):
@@ -136,12 +136,12 @@ def test_lse_only_and_unused_lse():
             np.testing.assert_allclose(_np(a), _np(b), atol=5e-5)
 
 
-def test_reference_bwd_matches_jax_bwd_impl():
-    """reference_flash_bwd against JAX's _bwd_impl on the same
-    (o, lse, dO, dlse): the plain twin of the dq and dkv kernels."""
-    B, S, H, K = 2, 96, 3, 32
-    arrs = _arrays(B=B, S=S, H=H, K=K, seed=5)
-    rng = np.random.default_rng(6)
+def _bwd_impl_case(B, S, H, K, seed):
+    """reference_flash_bwd against JAX's _bwd_impl (interpret mode) on the
+    same (o, lse, dO, dlse), and flash_bwd's dispatch to the same plain
+    versions on CPU tensors."""
+    arrs = _arrays(B=B, S=S, H=H, K=K, seed=seed)
+    rng = np.random.default_rng(seed + 1)
     do = rng.normal(size=(B, S, H, K)).astype(np.float32)
     dlse = rng.normal(size=(B, S, H)).astype(np.float32)
     q, k, v = _jax(arrs)
@@ -162,6 +162,77 @@ def test_reference_bwd_matches_jax_bwd_impl():
                           torch.from_numpy(dlse), True, scale)
     for a, b in zip(via, out):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_reference_bwd_matches_jax_bwd_impl():
+    """reference_flash_bwd against JAX's _bwd_impl on the same
+    (o, lse, dO, dlse): the plain twin of the delta, dq and dkv
+    kernels."""
+    _bwd_impl_case(2, 96, 3, 32, 5)
+
+
+def test_flash_bwd_matches_jax_bwd_impl_at_head_dim_256():
+    """The same at gptj_6b's head dim, where the bf16 kernels walk other
+    tiles (dq 64-key tiles in single K or V slots, dkv's warpgroups
+    splitting the walked rows): the plain versions they are held to on
+    the card still compute JAX's backward."""
+    _bwd_impl_case(1, 96, 2, 256, 55)
+
+
+def _jax_delta(o, do, dlse):
+    """The JAX package's delta (ray_tpu/ops/attention.py `_bwd_impl`),
+    by jnp on the same arrays."""
+    delta = jnp.sum(jnp.asarray(do).astype(jnp.float32)
+                    * jnp.asarray(o).astype(jnp.float32), axis=-1)
+    if dlse is not None:
+        delta = delta - jnp.asarray(dlse).astype(jnp.float32)
+    return np.asarray(delta)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("K", [64, 80, 128, 256])
+def test_reference_delta_matches_jax_delta(K, dtype):
+    """reference_flash_delta (the delta kernel's plain version) against
+    the JAX package's delta formula on the same numpy-seeded o, dO and
+    dlse, with and without dlse: within 1e-6 of each row's sum of
+    magnitudes, fp32 sums reassociated (bf16 inputs are widened exactly
+    on both sides)."""
+    rng = np.random.default_rng(60 + K)
+    o, do = (rng.normal(size=(2, 33, 3, K)).astype(np.float32)
+             for _ in range(2))
+    dlse = rng.normal(size=(2, 33, 3)).astype(np.float32)
+    if dtype == "bfloat16":    # the values bf16 holds, kept in fp32
+        o, do = (torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+                 for x in (o, do))
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    for dl in (dlse, None):
+        got = tattn.reference_flash_delta(
+            torch.from_numpy(o).to(tdt), torch.from_numpy(do).to(tdt),
+            None if dl is None else torch.from_numpy(dl))
+        assert got.dtype == torch.float32 and got.is_contiguous()
+        want = _jax_delta(o, do, dl)
+        bound = 1e-6 * (np.abs(o * do).sum(-1)
+                        + (0 if dl is None else np.abs(dl)))
+        assert np.all(np.abs(got.numpy() - want) <= bound)
+
+
+def test_flash_delta_takes_the_plain_version_on_cpu():
+    """flash_delta on CPU tensors is its plain version bit for bit (the
+    launch counter stays 0, as the fixture checks), on a strided dO, with
+    and without dlse, and on fp32 o beside bf16 dO (head dim 256's
+    training path); shapes it cannot take are refused."""
+    rng = np.random.default_rng(70)
+    t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32))
+    o32, dlse = t(2, 40, 3, 256), t(2, 40, 3)
+    do = t(2, 40, 2, 3, 256).to(torch.bfloat16)[:, :, 1]   # strided rows
+    for o in (o32, o32.to(torch.bfloat16)):
+        for dl in (dlse, None):
+            torch.testing.assert_close(
+                tattn.flash_delta(o, do, dl),
+                tattn.reference_flash_delta(o, do, dl), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="flash_delta takes o and dO"):
+        tattn.flash_delta(o32, do[:, :8])
 
 
 def test_bf16_io():

@@ -252,14 +252,19 @@ def _bwd_views(packed, B, S, T, H, K):
 @pytest.mark.parametrize("K", [64, 80, 128, 256])
 def test_dq_plan(K, S, T, packed):
     """dq is query-major: q and dO in boxes of 128 rows (an item), k and v
-    in boxes of a key tile (the forward's, but 32 at head dim 256), each
-    map over its own view and strides."""
+    in boxes of the forward's key tile (64 at head dim 256, where each
+    ring slot holds one K or one V tile: three 32 KB slots beside the
+    item's 128 KB of Q and dO), each map over its own view and strides."""
     B, H = 2, 3
     views = _bwd_views(packed, B, S, T, H, K)
     maps = fa.flash_dq_plan(*views)
     assert len(maps) == 4 * WORDS
     kt = fa.dq_key_tile(K)
-    assert kt == (32 if K == 256 else pa.key_tile(K))
+    assert kt == pa.key_tile(K) == (128 if K == 64 else 64)
+    if K == 256:   # Q and dO of an item, three slots, barriers, alignment
+        smem = (2 * pa.WGMMA_ROWS * K * 2 + 3 * kt * K * 2
+                + 8 * (4 + 3 * 3) + 1024)
+        assert smem == 230_504 <= 232_448
     rows = (pa.WGMMA_ROWS, kt, kt, pa.WGMMA_ROWS)
     for i, (t, r) in enumerate(zip(views, rows)):
         elem, rank, dims, strides, box, swz = _fields(
@@ -270,9 +275,9 @@ def test_dq_plan(K, S, T, packed):
         assert box == [64, 1, r, 1]
     if packed:   # q, k, v read in place: the packed row is 3·H·K elements
         assert views[0].stride(1) == 3 * H * K
-    # The forward's three maps are dq's first three (at 256 its q map).
-    n = 1 if K == 256 else 3
-    assert maps[:n * WORDS] == fa.flash_plan(*views[:3])[:n * WORDS]
+    # The forward's three maps are dq's first three.
+    assert maps[:3 * WORDS] == fa.flash_plan(*views[:3])
+
 
 
 @pytest.mark.parametrize("packed", [False, True])
@@ -280,10 +285,11 @@ def test_dq_plan(K, S, T, packed):
 @pytest.mark.parametrize("K", [64, 80, 128, 256])
 def test_dkv_plan(K, S, T, packed):
     """dkv is key-major: an item is DKV_KEYS keys (k, v boxes; 64 at head
-    dim 256, where the two warpgroups split the head dim), the walked
-    tiles DKV_ROWS query rows (q, dO boxes); a head dim of 128 is two
-    64-column boxes, and so is 80 (the second box's columns past 80 read
-    as zeros), 256 four."""
+    dim 256, where the two warpgroups share the keys, each scoring half
+    the walked tile's rows and owning half the head dim of dk and dv),
+    the walked tiles DKV_ROWS query rows (q, dO boxes); a head dim of 128
+    is two 64-column boxes, and so is 80 (the second box's columns past 80
+    read as zeros), 256 four."""
     B, H = 2, 3
     views = _bwd_views(packed, B, S, T, H, K)
     maps = fa.flash_dkv_plan(*views)
@@ -291,6 +297,15 @@ def test_dkv_plan(K, S, T, packed):
     assert (fa.DKV_KEYS, fa.DKV_KEYS_SPLIT, fa.DKV_ROWS) == (128, 64, 64)
     keys = fa.dkv_keys(K)
     assert keys == (fa.DKV_KEYS_SPLIT if K == 256 else fa.DKV_KEYS)
+    if K == 256:
+        # K and V of one item, two Q/dO stages, the shared P^T and dS^T
+        # tiles ([keys x rows] bf16 each), the stages' lse and delta rows,
+        # 13 barriers (the ring's, then the tiles' three), alignment.
+        kv, stage = 2 * keys * K * 2, 2 * fa.DKV_ROWS * K * 2
+        pt = 2 * keys * fa.DKV_ROWS * 2
+        smem = kv + 2 * stage + pt + 2 * 2 * fa.DKV_ROWS * 4 + 8 * 13 + 1024
+        assert (kv, stage, pt, smem) == (65_536, 65_536, 16_384, 215_144)
+        assert smem <= 232_448
     rows = (fa.DKV_ROWS, keys, keys, fa.DKV_ROWS)
     for i, (t, r) in enumerate(zip(views, rows)):
         elem, rank, dims, strides, box, swz = _fields(

@@ -245,3 +245,91 @@ def test_fresh_return_outlives_a_borrowers_release(client):
     finally:
         client._run(client._start_ref_flusher())
         _flush(client)
+
+
+def test_actor_task_fresh_arg_outlives_a_borrowers_release(client):
+    """The same window for an actor task: a fresh actor-task return,
+    whose owner's acquire has not reached the GCS (the periodic flush
+    stopped), handed to another actor's method. The submitter publishes
+    its holds on the ref arguments before the spec is queued for the
+    actor; without that the borrower's release after each call left the
+    object with no holder the GCS knew of."""
+
+    @ray_tpu_torch.remote
+    class Source:
+        def make(self, n):
+            return np.arange(n, dtype=np.int64)
+
+    @ray_tpu_torch.remote
+    class Summer:
+        def total(self, x):
+            return int(x.sum())
+
+    src, summer = Source.remote(), Summer.remote()
+    n = 1 << 17
+    assert ray_tpu_torch.get(summer.total.remote(np.arange(4)),
+                             timeout=30) == 6
+    rc = client.refcounter
+    client._loop.call_soon_threadsafe(rc._flush_task.cancel)
+    try:
+        x = src.make.remote(n)
+        oid = x.id.binary()
+        for _ in range(3):
+            assert ray_tpu_torch.get(summer.total.remote(x), timeout=30) == (
+                n * (n - 1) // 2)
+            time.sleep(0.3)     # the actor's own flushes send releases
+            held = client._run(client.gcs.call(
+                "ref_debug", {"object_ids": [oid]}))[oid]["holders"]
+            assert rc.holder_id in held, held
+    finally:
+        client._run(client._start_ref_flusher())
+        _flush(client)
+
+
+def test_actor_tasks_submitted_on_the_client_loop_keep_order(client):
+    """A submission made on the client's own event loop, where waiting
+    for the publication would block the loop it runs on: the dispatch is
+    chained behind the publication, later calls to the actor behind it,
+    so the calls run in submission order and the fresh argument's holds
+    reach the GCS."""
+
+    @ray_tpu_torch.remote
+    class Source:
+        def make(self, n):
+            return np.arange(n, dtype=np.int64)
+
+    @ray_tpu_torch.remote
+    class Log:
+        def __init__(self):
+            self.seen = []
+
+        def add(self, x):
+            self.seen.append(int(np.asarray(x).sum()))
+            return len(self.seen)
+
+        def log(self):
+            return self.seen
+
+    src, log = Source.remote(), Log.remote()
+    assert ray_tpu_torch.get(log.log.remote(), timeout=30) == []
+    rc = client.refcounter
+    client._loop.call_soon_threadsafe(rc._flush_task.cancel)
+    try:
+        x = src.make.remote(1 << 10)
+        oid = x.id.binary()
+
+        async def submit():
+            return [log.add.remote(x), log.add.remote(np.arange(3)),
+                    log.add.remote(x)]
+
+        refs = client._run(submit())
+        assert ray_tpu_torch.get(refs, timeout=30) == [1, 2, 3]
+        total = (1 << 10) * ((1 << 10) - 1) // 2
+        assert ray_tpu_torch.get(log.log.remote(), timeout=30) == [
+            total, 3, total]
+        held = client._run(client.gcs.call(
+            "ref_debug", {"object_ids": [oid]}))[oid]["holders"]
+        assert rc.holder_id in held, held
+    finally:
+        client._run(client._start_ref_flusher())
+        _flush(client)

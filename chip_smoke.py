@@ -26,6 +26,10 @@
                           # the serve plane: LLMDeployment(opt_1_3b)
                           # replicas behind handles and the HTTP proxy,
                           # a prefill→decode split, the orphan sweep
+    python3 chip_smoke.py --only serve,serve_chaos,autoscaler
+                          # then zero-drop serving under a replica kill
+                          # and a drain, and a GPU node autoscaled for a
+                          # kernel task
     python3 chip_smoke.py --only kernels,train,train_dist
                           # gpt2_124m through TorchTrainer: world 1 on
                           # NCCL, dp = 2 and fsdp = 2 on gloo ranks
@@ -342,6 +346,38 @@ script began (the whole record also goes to build/chip_smoke.json):
    replica batches other requests than the engine phase did), which a
    planted wrong token must exceed. Every part runs; the phase fails
    after its line if a gate did.
+   serve_chaos: on the serve phase's cluster (serve_drain_timeout_s
+   2.0), bench_chaos_torch.run_scenario: opt_1_3b bf16 from seed 0 cut
+   to its first CUT_DEPTH layers (full width) saved once as the
+   checkpoint the in-process baseline and 3 replicas (num_gpus 1/3, the
+   engine phase's knobs, warmed) load, the replicas booting while the
+   baseline runs; 32 SSE streams of 128-512-token prompts (seed 0), 32
+   greedy tokens; the first replica's
+   llm.decode_window kill rule armed 0.6 s into the burst and the
+   scale-down to 2 right after. Fails unless 0 streams drop, 32 complete
+   with exactly 32 tokens, 2 replicas are live and 0 draining after, a
+   stream failed over (serve_failovers_total), the drained replica held
+   a live stream when the scale-down began, every replica that served
+   the burst and survived launched both paged kernels, n_layers per
+   decode step and per prefill dispatch, with its pages closed, and
+   every stream equals the baseline's or leaves it at a near-tie
+   (SERVE_TIE_MARGIN). Readings: failover gaps p50/p95/max, the kill and
+   drain times, the burst's wall, the departures. Alone:
+   --only serve_chaos (it boots the cluster itself).
+   autoscaler: a head of 2 CPUs and no GPU (ClusterUp from a written
+   YAML, or init(num_cpus=2) and a StandardAutoscaler without pyyaml)
+   over a LocalSubprocessProvider with one node type {"CPU": 2,
+   "GPU": 1} (0-1 workers, idle 10 s, a pass a second); a num_gpus=1
+   task that the head cannot place runs the decode kernel at the
+   engine's shapes on the launched node. Fails unless exactly one node
+   launches, the task ran there, its output holds to the plain version
+   within the bf16 bound with its launch counted, the node is
+   terminated 10-30 s after going idle and none of its processes is
+   left. Readings: seconds from submission to the node registered and
+   to the result, from idle to terminated. When a one-card training
+   phase runs too, the part runs beside them in a child process of this
+   script (--autoscaler-child; its own cluster), since most of it is
+   waiting.
 7. train: build_training(gpt2_124m(max_seq=1024, remat=True,
    attn_impl="flash"), adamw(3e-4, weight_decay=0.1, mu_dtype=bf16))
    with seeded random weights and a seeded [8, 1024] batch: one step of
@@ -5380,7 +5416,9 @@ def phase_runtime(device, engine_ref):
 # --------------------------------------------------------------- serve
 
 SERVE_SYSTEM_CONFIG = {"serve_kv_sweep_interval_s": 2.0,
-                       "serve_kv_object_ttl_s": 3600.0}
+                       "serve_kv_object_ttl_s": 3600.0,
+                       # serve_chaos's drain window, the reference's
+                       "serve_drain_timeout_s": 2.0}
 SERVE_ENGINE_KW = {**{k: v for k, v in ENGINE_KNOBS.items()
                       if k not in ("n_slots", "max_len")}, "warmup": True}
 SERVE_REPLICA_GPUS = 0.5
@@ -5591,18 +5629,19 @@ def stream_cases(prompts, got, ref):
                              if len(g) != len(r)]}, cases
 
 
-def check_streams(device, cfg, parts, planted, bad):
+def check_streams(device, cfg, parts, planted, bad, params=None):
     """Each part's served streams equal the in-process engine's or leave
     them at a near-tie (`SERVE_TIE_MARGIN`), which a planted wrong token
     must exceed: ``planted`` (context, in-process token) is scored
     against the token of the next id. The margins of every part come
-    from one in-process engine. ``parts``: {tag: (record, cases)} from
+    from one in-process engine (on ``params`` when given, else the
+    replicas' seed-0 weights). ``parts``: {tag: (record, cases)} from
     `stream_cases`; each record gains its margins. Appends failures to
     ``bad``."""
     cases = [c for _rec, cs in parts.values() for c in cs]
     ctx, tok = planted
     margins = tie_margins(device, cfg, cases + [
-        (ctx, tok, (tok + 1) % cfg.vocab_size)])
+        (ctx, tok, (tok + 1) % cfg.vocab_size)], params=params)
     i = 0
     for tag, (rec, cs) in parts.items():
         rec["tie_margins"] = margins[i:i + len(cs)]
@@ -5957,26 +5996,157 @@ def serve_sweep(rt_api, kvp_pid, bad):
     return out
 
 
-def phase_serve(device, engine_ref):
+# The zero-drop scenario (bench_chaos_torch.run_scenario) on the card:
+# 32 SSE streams of 128-512-token prompts, 32 greedy tokens each, over 3
+# replicas at num_gpus 1/3 on the card; the first routable replica's
+# kill rule armed kill_delay_s into the burst and fired at its
+# kill_after_windows-th decode window after that (mid-decode), and the
+# scale-down to 2 right after the arming, so that the controller drains
+# a replica while the victim still serves (a victim it has seen die
+# first is replaced instead, and no replica would be drained).
+SERVE_CHAOS = dict(clients=32, replicas=3, scale_down_to=2, max_tokens=32,
+                   prompt_len=(128, 512), drain_timeout_s=2.0, seed=0,
+                   kill_after_windows=3, kill_delay_s=0.6,
+                   drain_delay_s=0.6)
+SERVE_CHAOS_GPUS = 1 / 3
+SERVE_CHAOS_CKPT = os.path.join("build", "serve_chaos", "params")
+
+
+def chaos_params(device):
+    """opt_1_3b's bf16 serving weights from seed 0 cut to its first
+    CUT_DEPTH layers (full width), saved once as the checkpoint the
+    baseline engine and every replica load. → (cfg, params, path)."""
+    from ray_tpu_torch.train.checkpoint import Checkpoint
+
+    cfg, masters, params = make_params(device)
+    del masters
+    cfg, (params,) = first_layers(cfg, [params], CUT_DEPTH)
+    path = Checkpoint.from_params(params).to_directory(
+        os.path.abspath(SERVE_CHAOS_CKPT))
+    torch.cuda.empty_cache()
+    return cfg, params, path
+
+
+def chaos_replica_gates(cfg, detail, bad):
+    """Each replica that served the burst from its start and survived
+    (neither killed nor drained): its paged-kernel launches, n_layers
+    per decode step and per prefill dispatch, no int8 program, and its
+    pages closed. A replica that joined later (the killed one's
+    replacement) is recorded, not gated. → (records, launches by
+    path)."""
+    recs, by_path = [], {}
+    for aid, r in detail["replicas"].items():
+        role = ("killed" if aid == detail["killed"] else
+                "drained" if aid in detail["drained"] else
+                "survived" if "before" in r else "joined")
+        rec = {"replica": aid[:12], "role": role,
+               "load_at_drain": {k: r.get("load_at_drain", {}).get(k)
+                                 for k in ("active_slots", "queue_depth",
+                                           "error")}}
+        if "after" in r and "before" in r:
+            b, a, n = r["before"], r["after"], r["launches"]
+            rec.update(
+                launches=n, requests=a["completed"] - b["completed"],
+                decode_steps=a["decode_steps"] - b["decode_steps"],
+                prefill_dispatches=(a["prefill_dispatches"]
+                                    - b["prefill_dispatches"]),
+                page_accounting=r["page_accounting"])
+        elif "launches" in r:
+            rec.update(launches=r["launches"],
+                       page_accounting=r["page_accounting"])
+        if "error" in r:
+            rec["error"] = r["error"]
+        recs.append(rec)
+        if role == "survived":
+            by_path[f"serve_chaos (replica {aid[:8]})"] = rec.get(
+                "launches", {})
+            n = rec.get("launches")
+            acc = rec.get("page_accounting") or {}
+            if (n is None or min(n["paged_attention"],
+                                 n["paged_prefill_attention"]) <= 0
+                    or n["paged_attention"]
+                    != cfg.n_layers * rec["decode_steps"]
+                    or n["paged_prefill_attention"]
+                    != cfg.n_layers * rec["prefill_dispatches"]
+                    or n["paged_attention_int8"]
+                    or n["paged_prefill_attention_int8"]):
+                bad.append(f"serve_chaos: surviving replica {rec}")
+            if not (acc.get("closure") and acc.get("refs_consistent")
+                    and acc.get("live") == 0):
+                bad.append(f"serve_chaos: replica {aid[:8]} pages {acc}")
+    if not any(r["role"] == "survived" for r in recs):
+        bad.append("serve_chaos: no replica served the burst and survived")
+    drained = [r for r in recs if r["role"] == "drained"]
+    if len(drained) != 1 or not (
+            (drained[0]["load_at_drain"]["active_slots"] or 0)
+            + (drained[0]["load_at_drain"]["queue_depth"] or 0)):
+        bad.append(f"serve_chaos: the drained replica held no live stream "
+                   f"when the scale-down began: {drained}")
+    return recs, by_path
+
+
+def serve_chaos(device, bad):
+    """The zero-drop scenario on the serve phase's cluster:
+    bench_chaos_torch.run_scenario with opt_1_3b cut to CUT_DEPTH layers
+    (one checkpoint for the baseline engine and every replica) and the
+    engine phase's knobs. → (record, launches by path, departures and
+    the planted wrong token for the tie check, cfg, params)."""
+    import bench_chaos_torch
+
+    cfg, params, path = chaos_params(device)
+    detail: dict = {}
+    t0 = time.perf_counter()
+    row = bench_chaos_torch.run_scenario(
+        **SERVE_CHAOS, n_slots=ENGINE_KNOBS["n_slots"],
+        max_len=ENGINE_KNOBS["max_len"], model=cfg, params_checkpoint=path,
+        device=SERVE_DEVICE, engine_kwargs=dict(SERVE_ENGINE_KW),
+        replica_gpus=SERVE_CHAOS_GPUS, detail=detail)
+    out = {"wall_s": time.perf_counter() - t0, "row": row}
+    out["replicas"], by_path = chaos_replica_gates(cfg, detail, bad)
+    streams = detail["streams"]
+    out["streams"], cases = stream_cases(detail["prompts"], streams,
+                                         detail["expected"])
+    if row["dropped"] or row["completed"] != SERVE_CHAOS["clients"]:
+        bad.append(f"serve_chaos: dropped {row['dropped']}, completed "
+                   f"{row['completed']}: {detail['errors']}")
+    if any(s is None or len(s) != SERVE_CHAOS["max_tokens"]
+           for s in streams):
+        bad.append("serve_chaos: streams of another length "
+                   f"{[None if s is None else len(s) for s in streams]}")
+    if (row["final_live_replicas"], row["final_draining_replicas"]) != (
+            SERVE_CHAOS["scale_down_to"], 0):
+        bad.append(f"serve_chaos: final replicas {row}")
+    if row["serve_failovers_total"] < 1:
+        bad.append(f"serve_chaos: no stream failed over: {row}")
+    planted = (detail["prompts"][0] + detail["expected"][0][:3],
+               detail["expected"][0][3])
+    return out, by_path, cases, planted, cfg, params
+
+
+def phase_serve(device, engine_ref, parts=("serve", "serve_chaos")):
     """The serve plane on the card: LLMDeployment(opt_1_3b) replicas on
     the paged kernels behind handles and the HTTP proxy, a prefill→
-    decode pool split through the cluster store, and the orphan sweep.
-    ``engine_ref``: the engine phase's (record, streams), else the phase
-    runs it first. Every part runs; the phase fails after its line if a
-    gate did. → launches by path."""
+    decode pool split through the cluster store, and the orphan sweep
+    (``serve``); then, on the same cluster, the zero-drop scenario of a
+    replica kill and a scale-down drain (``serve_chaos``). ``parts``
+    names those to run; each emits its own line. ``engine_ref``: the
+    engine phase's (record, streams), else ``serve`` runs it first.
+    Every part runs; the phase fails after its lines if a gate did. →
+    launches by path."""
     import ray_tpu_torch as rt
     from ray_tpu_torch import api as rt_api
     from ray_tpu_torch import serve
     from ray_tpu_torch.serve.api import _get_controller
 
     t_phase = time.perf_counter()
-    if engine_ref is None:
-        cfg, _masters, params = make_params(device)
-        del _masters
-        _, ref_record, ref_streams = phase_engine(device, cfg, params)
-        del cfg, params
-    else:
-        ref_record, ref_streams = engine_ref
+    if "serve" in parts:
+        if engine_ref is None:
+            cfg, _masters, params = make_params(device)
+            del _masters
+            _, ref_record, ref_streams = phase_engine(device, cfg, params)
+            del cfg, params
+        else:
+            ref_record, ref_streams = engine_ref
     torch.cuda.empty_cache()
     cfg = gpt.GPTConfig.by_name(SERVE_MODEL)
     prompts = engine_prompts(cfg)
@@ -5985,7 +6155,14 @@ def phase_serve(device, engine_ref):
                      "page 64, chunk 256, budget 512, attn_impl kernel; "
                      "replicas at num_gpus=0.5 on one card",
            "system_config": SERVE_SYSTEM_CONFIG}
+    chaos = {"phase": "serve_chaos", "card": out["card"],
+             "config": f"opt_1_3b bf16 from seed 0, its first {CUT_DEPTH} "
+                       "of 24 layers at full width, one checkpoint; the "
+                       "engine phase's knobs, warmed; 3 replicas at "
+                       "num_gpus 1/3 on one card, scaled down to 2",
+             "scenario": dict(SERVE_CHAOS)}
     bad: list = []
+    chaos_bad: list = []
     by_path = {}
     t0 = time.perf_counter()
     rt.init(num_cpus=8, resources={"GPU": 1},
@@ -5994,31 +6171,323 @@ def phase_serve(device, engine_ref):
         out["init_s"] = time.perf_counter() - t0
         serve.start()
         ctrl = _get_controller()
-        out["fused"], by_path["serve (fused, 2 replicas)"], fused = (
-            serve_fused(rt, serve, ctrl, cfg, prompts, ref_streams,
-                        ref_record, device, bad))
-        few = prompts[:KV_FEW]
-        out["split"], counts, kvp_pid, split = serve_split(
-            rt, rt_api, serve, ctrl, cfg, few,
-            [s[:KV_TOKENS] for s in ref_streams[:KV_FEW]], device, bad)
-        by_path["serve (split, prefill replica)"] = counts["kvp"]
-        by_path["serve (split, decode replica)"] = counts["kvd"]
-        out["sweep"] = serve_sweep(rt_api, kvp_pid, bad)
+        if "serve" in parts:
+            out["fused"], by_path["serve (fused, 2 replicas)"], fused = (
+                serve_fused(rt, serve, ctrl, cfg, prompts, ref_streams,
+                            ref_record, device, bad))
+            few = prompts[:KV_FEW]
+            out["split"], counts, kvp_pid, split = serve_split(
+                rt, rt_api, serve, ctrl, cfg, few,
+                [s[:KV_TOKENS] for s in ref_streams[:KV_FEW]], device, bad)
+            by_path["serve (split, prefill replica)"] = counts["kvp"]
+            by_path["serve (split, decode replica)"] = counts["kvd"]
+            out["sweep"] = serve_sweep(rt_api, kvp_pid, bad)
+            out["parts_s"] = time.perf_counter() - t_phase
+            for name in ("kvp", "kvd"):   # their card share, for the next
+                serve.delete(name)
+        if "serve_chaos" in parts:
+            t0 = time.perf_counter()
+            (chaos["run"], paths, chaos_cases, chaos_planted, chaos_cfg,
+             chaos_weights) = serve_chaos(device, chaos_bad)
+            by_path.update(paths)
+            chaos["part_s"] = time.perf_counter() - t0
     finally:
         try:
             serve.shutdown()
         finally:
             rt.shutdown()
-    check_streams(device, cfg, {
-        "fused": (out["fused"]["streams"], fused),
-        "split": (out["split"]["streams"], split)},
-        (prompts[0] + ref_streams[0][:3], ref_streams[0][3]), bad)
+    # Each line's phase_s: its part on the cluster and its tie check.
+    if "serve" in parts:
+        t0 = time.perf_counter()
+        check_streams(device, cfg, {
+            "fused": (out["fused"]["streams"], fused),
+            "split": (out["split"]["streams"], split)},
+            (prompts[0] + ref_streams[0][:3], ref_streams[0][3]), bad)
+        out["phase_s"] = out["parts_s"] + time.perf_counter() - t0
+        out["failed_gates"] = bad
+        emit(out)
+    if "serve_chaos" in parts:
+        t0 = time.perf_counter()
+        check_streams(device, chaos_cfg, {
+            "serve_chaos": (chaos["run"]["streams"], chaos_cases)},
+            chaos_planted, chaos_bad, params=chaos_weights)
+        del chaos_weights
+        torch.cuda.empty_cache()
+        chaos["departures"] = len(chaos_cases)
+        chaos["failed_gates"] = chaos_bad
+        chaos["phase_s"] = chaos["part_s"] + time.perf_counter() - t0
+        emit(chaos)
+    if bad or chaos_bad:
+        raise AssertionError(f"serve: {bad}; serve_chaos: {chaos_bad}")
+    return by_path
+
+
+# ------------------------------------------------------------- autoscaler
+
+AUTOSCALER_IDLE_S = 10.0     # idle_timeout_s of the autoscaled node
+AUTOSCALER_PERIOD_S = 1.0    # seconds between reconcile passes
+AUTOSCALER_SLACK_S = 20.0    # past the idle timeout, the most to terminate
+AUTOSCALER_YAML = """\
+cluster_name: chip-smoke-autoscaler
+provider: {type: local}
+head_resources: {CPU: 2}
+node_types:
+  gpu_worker: {resources: {CPU: 2, GPU: 1}, min_workers: 0, max_workers: 1}
+"""
+
+
+def autoscaler_decode_inputs(device):
+    """runtime_kernel_calls' decode inputs (16 slots of 1-2048 positions,
+    bf16, page 64, 32 heads of 64), from the same seed in every
+    process. → (q, k pool, v pool, tables, lengths)."""
+    rng = np.random.default_rng(RUNTIME_KERNEL_SEED)
+    kp, vp, tables, lengths, _ = paged_pool(
+        rng, rng.integers(1, CAP + 1, 16), ps=64, n_pg=CAP // 64,
+        dtype=torch.bfloat16, device=device)
+    q = torch.from_numpy(rng.normal(size=(16, H, K)).astype(
+        np.float32)).to(device, torch.bfloat16)
+    return (q, kp, vp, *[torch.from_numpy(a).to(device)
+                         for a in (tables, lengths)])
+
+
+def autoscaler_kernel_task():
+    """The decode kernel on the autoscaled node's card: its output on the
+    host, the worker's launch counts, its pid and node."""
+    import ray_tpu_torch as rt
+
+    pa.reset_launch_counts()
+    out = pa.paged_attention(*autoscaler_decode_inputs(
+        torch.device("cuda"))).cpu()
+    counts = launch_counts()
+    torch.cuda.empty_cache()
+    return out, counts, os.getpid(), rt.get_runtime_context().get_node_id()
+
+
+def alive_pids(pids):
+    """Those of ``pids`` whose process still runs (not a zombie)."""
+    out = []
+    for p in pids:
+        try:
+            with open(f"/proc/{p}/status") as f:
+                if "zombie" not in f.read():
+                    out.append(p)
+        except OSError:
+            pass
+    return out
+
+
+def process_tree(root: int) -> list[int]:
+    """``root`` and every live process below it."""
+    kids: dict[int, list[int]] = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+        kids.setdefault(ppid, []).append(int(d))
+    out, todo = [root], [root]
+    while todo:
+        for k in kids.get(todo.pop(), []):
+            out.append(k)
+            todo.append(k)
+    return out
+
+
+def phase_autoscaler(device):
+    """The port's autoscaler on the card: a head with 2 CPUs and no GPU
+    (``ClusterUp`` from a written YAML when pyyaml imports, else
+    ``init(num_cpus=2)`` and a StandardAutoscaler reconciled every
+    second) over a LocalSubprocessProvider whose one node type offers
+    {"CPU": 2, "GPU": 1}; a num_gpus=1 task the head cannot place runs
+    the decode kernel on the launched node and is held to the plain
+    version; the idle node is terminated after its idle timeout, and
+    none of its processes is left."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import api as rt_api
+    from ray_tpu_torch.autoscaler import (
+        LocalSubprocessProvider,
+        NodeType,
+        StandardAutoscaler,
+    )
+
+    t_phase = time.perf_counter()
+    out = {"phase": "autoscaler", "card": card_line(),
+           "node_type": {"gpu_worker": {"CPU": 2, "GPU": 1,
+                                        "min_workers": 0,
+                                        "max_workers": 1}},
+           "idle_timeout_s": AUTOSCALER_IDLE_S,
+           "reconcile_period_s": AUTOSCALER_PERIOD_S}
+    bad: list = []
+    try:
+        import yaml  # noqa: F401 — ClusterUp reads the YAML with it
+        out["driver"] = "ClusterUp (YAML)"
+    except ImportError:
+        out["driver"] = "StandardAutoscaler (no pyyaml)"
+    stop = threading.Event()
+    if out["driver"].startswith("ClusterUp"):
+        from ray_tpu_torch.autoscaler.yaml_config import ClusterUp
+
+        path = os.path.join("build", "autoscaler", "cluster.yaml")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.write(AUTOSCALER_YAML)
+        cluster = ClusterUp(path, update_interval_s=AUTOSCALER_PERIOD_S)
+        provider, asc = cluster.provider, cluster.autoscaler
+        asc.idle_timeout_s = AUTOSCALER_IDLE_S
+        rt.init(address=cluster.address)
+        teardown = cluster.down
+    else:
+        rt.init(num_cpus=2)
+        gcs = rt_api._ensure_client().gcs_address
+        provider = LocalSubprocessProvider(gcs)
+        asc = StandardAutoscaler(
+            provider, [NodeType("gpu_worker", {"CPU": 2, "GPU": 1},
+                                min_workers=0, max_workers=1)],
+            idle_timeout_s=AUTOSCALER_IDLE_S, gcs_address=gcs)
+
+        def loop():
+            while not stop.is_set():
+                asc.update()
+                stop.wait(AUTOSCALER_PERIOD_S)
+
+        looper = threading.Thread(target=loop, daemon=True)
+        looper.start()
+
+        def teardown():
+            stop.set()
+            looper.join(timeout=30)
+            provider.terminate_all()
+
+    events = {"launched": [], "terminated": []}
+    create, terminate = provider.create_node, provider.terminate_node
+    provider.create_node = lambda nt: events["launched"].append(
+        (time.perf_counter(), nt.name)) or create(nt)
+    provider.terminate_node = lambda nid: events["terminated"].append(
+        (time.perf_counter(), nid)) or terminate(nid)
+    tree = []
+    try:
+        out["head_resources"] = rt.cluster_resources()
+        t0 = time.perf_counter()
+        ref = rt.remote(num_gpus=1)(autoscaler_kernel_task).remote()
+        registered = None
+        while registered is None and time.perf_counter() - t0 < 300:
+            registered = next((n for n in rt.nodes() if n["Alive"] and (
+                n["Labels"] or {}).get("provider_node_id")), None)
+            time.sleep(0.1)
+        t_reg = time.perf_counter()
+        w_out, w_counts, w_pid, w_node = rt.get(ref, timeout=600)
+        t_res = time.perf_counter()
+        nid = (registered or {}).get("Labels", {}).get("provider_node_id")
+        node = getattr(provider, "_nodes", {}).get(nid)
+        if node is not None:
+            tree = [q for p in node.procs for q in process_tree(p.pid)]
+        while (provider.non_terminated_nodes()
+               and time.perf_counter() - t_res
+               < AUTOSCALER_IDLE_S + AUTOSCALER_SLACK_S + 30):
+            time.sleep(0.2)
+        t_term = time.perf_counter()
+        left = tree
+        while left and time.perf_counter() - t_term < 15:
+            time.sleep(0.2)
+            left = alive_pids(tree)
+        out.update({
+            "submit_to_registered_s": t_reg - t0,
+            "submit_to_result_s": t_res - t0,
+            "idle_to_terminated_s": t_term - t_res,
+            "launches": [n for _t, n in events["launched"]],
+            "terminations": len(events["terminated"]),
+            "node": {"registered": registered is not None,
+                     "task_on_it": bool(registered)
+                     and w_node == registered["NodeID"],
+                     "processes": len(tree), "left": alive_pids(tree)},
+            "task": {"pid": w_pid, "launches": w_counts}})
+    finally:
+        rt.shutdown()
+        teardown()
+    q, kp, vp, tables, lengths = autoscaler_decode_inputs(device)
+    ref_out = pa.reference_paged_attention(q, kp, vp, tables, lengths)
+    s_abs = abs_v_attention(pa.reference_paged_attention, q, kp, vp,
+                            tables, lengths)
+    try:
+        out["task"]["vs_plain"] = check_close(
+            "autoscaled decode", w_out.to(device), ref_out, s_abs,
+            torch.bfloat16, lengths > 0, lengths >= LONG_ROW)
+    except AssertionError as e:
+        bad.append(str(e))
+    if out["launches"] != ["gpu_worker"]:
+        bad.append(f"autoscaler: launches {out['launches']}, not one")
+    if not out["node"]["task_on_it"]:
+        bad.append(f"autoscaler: the task did not run on the launched "
+                   f"node: {out['node']}")
+    if w_counts["paged_attention"] < 1:
+        bad.append(f"autoscaler: task launches {w_counts}")
+    if out["terminations"] != 1 or not (
+            AUTOSCALER_IDLE_S <= out["idle_to_terminated_s"]
+            <= AUTOSCALER_IDLE_S + AUTOSCALER_SLACK_S):
+        bad.append(f"autoscaler: idle node terminated after "
+                   f"{out['idle_to_terminated_s']} s "
+                   f"({out['terminations']} terminations)")
+    if not tree or out["node"]["left"]:
+        bad.append(f"autoscaler: processes of the node {out['node']}")
     out["phase_s"] = time.perf_counter() - t_phase
     out["failed_gates"] = bad
     emit(out)
     if bad:
-        raise AssertionError(f"serve: {bad}")
-    return by_path
+        raise AssertionError(f"autoscaler: {bad}")
+    return {"autoscaler (task on the launched node)": w_counts}
+
+
+AUTOSCALER_CHILD_OUT = os.path.join("build", "autoscaler", "child")
+# The single-card training phases: the autoscaler part runs beside them
+# in a child process (its own cluster) when both are asked for. Most of
+# the part is waiting (a node's boot, a fresh worker's first CUDA work,
+# the idle timeout), and their gates read no process, arena or free
+# memory of the machine (their step times are readings only).
+TRAIN_ONE_CARD = ("train_ring", "train_llama", "train_gpt2_2_7b",
+                  "train_gptj_6b", "train_moe", "train_pipeline")
+
+
+def start_autoscaler_child():
+    """`phase_autoscaler` in a child process of this script, which
+    inherits no runtime variable of this process."""
+    os.makedirs(os.path.dirname(AUTOSCALER_CHILD_OUT), exist_ok=True)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("RAY_TPU_TORCH_")}
+    with open(AUTOSCALER_CHILD_OUT + ".out", "w") as out, open(
+            AUTOSCALER_CHILD_OUT + ".err", "w") as err:
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             "--autoscaler-child"], stdout=out, stderr=err, env=env)
+
+
+def join_autoscaler_child(proc):
+    """Wait for the child; its phase line joins this run's record. →
+    launches by path. Raises if the child failed."""
+    rc = proc.wait(timeout=600)
+    with open(AUTOSCALER_CHILD_OUT + ".out") as f:
+        line = next((json.loads(x) for x in f
+                     if x.startswith('{"phase": "autoscaler"')), None)
+    if line is not None:
+        line["at_s_in_child"] = line.pop("at_s", None)
+        emit(line)
+    if rc != 0 or line is None:
+        with open(AUTOSCALER_CHILD_OUT + ".err") as f:
+            tail = f.read()[-3000:]
+        raise AssertionError(f"autoscaler: child exited {rc}: {tail}")
+    return {"autoscaler (task on the launched node)":
+            line["task"]["launches"]}
+
+
+def autoscaler_child_main() -> int:
+    try:
+        phase_autoscaler(torch.device("cuda"))
+    except AssertionError as e:
+        print(f"autoscaler child: {e}", file=sys.stderr)
+        return 1
+    return 0
 
 
 # ------------------------------------------------------------------- train
@@ -8286,7 +8755,8 @@ def main(argv=None) -> int:
                          "engine,engine_prefix,engine_spec,engine_dense,"
                          "engine_oneshot,engine_drain,engine_warmup,"
                          "engine_observe,engine_edge,engine_tp,engine_kv,"
-                         "engine_gptj,runtime,serve,train,train_ring,"
+                         "engine_gptj,runtime,serve,serve_chaos,"
+                         "autoscaler,train,train_ring,"
                          "train_llama,train_gpt2_2_7b,train_gptj_6b,"
                          "train_moe,"
                          "train_pipeline,train_dist,tune,data "
@@ -8304,6 +8774,8 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--tune-driver", metavar="SPEC", default="",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--autoscaler-child", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -8319,6 +8791,8 @@ def main(argv=None) -> int:
         return warmup_child_main(args.warmup_child)
     if args.tune_driver:
         return tune_driver_main(args.tune_driver)
+    if args.autoscaler_child:
+        return autoscaler_child_main()
 
     card = card_line()
     print(card, flush=True)
@@ -8434,22 +8908,36 @@ def main(argv=None) -> int:
     if want("runtime"):
         by_path["runtime (actor)"] = phase_runtime(
             device, None if streams is None else (float_run, streams))
-    if want("serve"):
+    serve_parts = tuple(p for p in ("serve", "serve_chaos") if want(p))
+    if serve_parts:
         by_path.update(phase_serve(
-            device, None if streams is None else (float_run, streams)))
+            device, None if streams is None else (float_run, streams),
+            serve_parts))
+    beside = want("autoscaler") and any(want(p) for p in TRAIN_ONE_CARD)
+    if want("autoscaler") and not beside:
+        by_path.update(phase_autoscaler(device))
     train_run = None
     if want("train"):
         counts, train_run = phase_train(device)
         launches.update(counts)
-    for name, phase in (("train_ring", phase_train_ring),
-                        ("train_llama", phase_train_llama),
-                        ("train_gpt2_2_7b", phase_train_gpt2_2_7b),
-                        ("train_gptj_6b", phase_train_gptj_6b),
-                        ("train_moe", phase_train_moe),
-                        ("train_pipeline", phase_train_pipeline)):
-        if want(name):
-            by_path[name], shapes = phase(device, errs)
-            at_shapes.update(shapes)
+    child = start_autoscaler_child() if beside else None
+    try:
+        for name, phase in (("train_ring", phase_train_ring),
+                            ("train_llama", phase_train_llama),
+                            ("train_gpt2_2_7b", phase_train_gpt2_2_7b),
+                            ("train_gptj_6b", phase_train_gptj_6b),
+                            ("train_moe", phase_train_moe),
+                            ("train_pipeline", phase_train_pipeline)):
+            if want(name):
+                by_path[name], shapes = phase(device, errs)
+                at_shapes.update(shapes)
+    except BaseException:
+        if child is not None:   # it tears its own cluster down
+            with contextlib.suppress(Exception):
+                join_autoscaler_child(child)
+        raise
+    if child is not None:
+        by_path.update(join_autoscaler_child(child))
     if want("train_dist"):
         paths, shapes = phase_train_dist(device, errs)
         by_path.update(paths)

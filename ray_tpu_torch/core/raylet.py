@@ -61,6 +61,8 @@ class LeaseRequest:
     env_key: str = ""                        # pip-env digest
     pip_env: dict | None = None              # build recipe for env_key
     enqueued: float = field(default_factory=time.monotonic)
+    # No live node can run it; it waits for a node the autoscaler launches.
+    infeasible: bool = False
 
 
 class Raylet:
@@ -225,6 +227,7 @@ class Raylet:
                     "resources_available": dict(ev["resources"]),
                     "alive": True, "load": 0, "labels": {},
                 }
+                self._spill_infeasible()
             elif ev["event"] == "dead":
                 info = self.cluster_view.get(ev["node_id"])
                 if info:
@@ -264,6 +267,7 @@ class Raylet:
                         nview["address"] = tuple(nview["address"])
                         self.cluster_view[nid] = nview
                     self._view_seen = delta["version"]
+                    self._spill_infeasible()
             except (rpc.ConnectionLost, asyncio.TimeoutError):
                 if self._shutdown:
                     return
@@ -687,6 +691,35 @@ class Raylet:
         ]
         return max(fracs) if fracs else 0.0
 
+    async def _autoscaler_can_launch(self, resources: dict) -> bool:
+        """Whether a running autoscaler (a fresh advertisement in the GCS
+        KV) can launch a node type with room for ``resources``."""
+        from ray_tpu_torch.autoscaler.autoscaler import (
+            ADVERTISE_KEY,
+            ADVERTISE_TTL_S,
+        )
+
+        try:
+            ad = await self.gcs.call(
+                "kv_get", {"ns": ADVERTISE_KEY[0], "key": ADVERTISE_KEY[1]},
+                timeout=self.config.rpc_default_timeout_s)
+        except (rpc.ConnectionLost, asyncio.TimeoutError):
+            return False
+        if not ad or time.time() - ad.get("at", 0) > ADVERTISE_TTL_S:
+            return False
+        return any(all(nt.get(k, 0) >= v for k, v in resources.items())
+                   for nt in ad.get("node_types", []))
+
+    def _spill_infeasible(self) -> None:
+        """Send each queued lease no node could run to a node that now
+        can (one the autoscaler launched has joined the view)."""
+        for req in list(self.lease_queue):
+            if req.infeasible and not req.future.done():
+                spill = self._pick_spill_node(req.resources)
+                if spill is not None:
+                    req.future.set_result({"spillback": spill})
+                    self.lease_queue.remove(req)
+
     def _pick_spill_node(self, resources: dict[str, float],
                          require_available: bool = False) -> tuple | None:
         """Hybrid policy step 2: least-loaded remote feasible node
@@ -753,13 +786,19 @@ class Raylet:
                 return {"spillback": tuple(target["address"])}
             if not affinity.get("soft", False):
                 return {"error": "affinity node not available"}
+        infeasible = False
         if not self._feasible(resources):
             # This node can never run it: redirect to any feasible node,
             # busy or not (it will queue there).
             spill = self._pick_spill_node(resources)
             if spill is not None:
                 return {"spillback": spill}
-            return {"error": f"no node can satisfy resources {resources}"}
+            if not await self._autoscaler_can_launch(resources):
+                return {"error": f"no node can satisfy resources {resources}"}
+            # A running autoscaler can launch a node that fits: queue the
+            # lease (its shape is the demand the autoscaler reads) until
+            # such a node joins, then spill it there.
+            infeasible = True
         # Hybrid: spill when saturated locally and someone else has ROOM —
         # never to an equally saturated peer (that bounces the lease until
         # the hop cap; under cluster-wide saturation tasks must queue).
@@ -783,6 +822,7 @@ class Raylet:
             env_key=p.get("runtime_env_key", ""),
             pip_env=p.get("pip_env"),
             future=asyncio.get_running_loop().create_future(),
+            infeasible=infeasible,
         )
         self.lease_queue.append(req)
         self._pump_leases()

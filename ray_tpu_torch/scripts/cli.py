@@ -8,9 +8,9 @@ Counterpart of ``ray_tpu/scripts/cli.py``. It names only the port's
 cluster: the local head is recorded in the port's own state directory
 (``RAY_TPU_TORCH_STATE_DIR``, default ``~/.ray_tpu_torch``), so ``stop``
 never reads or signals a head of the JAX runtime; addresses come from
-``--address``, ``RAY_TPU_TORCH_ADDRESS`` or that record. ``up`` waits
-for the port's autoscaler (ROADMAP queue 1, the JAX-free host
-libraries) and raises.
+``--address``, ``RAY_TPU_TORCH_ADDRESS`` or that record. ``up`` runs a
+head and the port's autoscaler (``autoscaler/``: local, mock and GCP
+GPU node providers) in the process until SIGINT or SIGTERM.
 """
 
 from __future__ import annotations
@@ -349,16 +349,22 @@ def cmd_debug(args) -> None:
 
 
 def cmd_up(args) -> None:
-    """Start a cluster from a YAML config. The reference's runs the head
-    and its autoscaler in this process; the port's autoscaler
-    (``autoscaler/``, with a GPU node provider in the place of the TPU
-    one) is in ROADMAP queue 1 (the JAX-free host libraries), not ported
-    yet."""
-    raise NotImplementedError(
-        f"up {args.config}: the port's autoscaler is not ported yet "
-        "(ROADMAP queue 1, the JAX-free host libraries); start a head "
-        "with `start --head` and "
-        "nodes with `start --address`")
+    """Blocking by design: the head node + autoscaler live in THIS process
+    (Ctrl-C or SIGTERM tears the cluster down: the provider's nodes, then
+    the head). For a detached cluster use `start --head` + `start
+    --address`, or run `up` under a supervisor."""
+    from ray_tpu_torch.autoscaler.yaml_config import up
+
+    cluster = up(args.config)
+    print(json.dumps({"address": cluster.address,
+                      "cluster_name": cluster.cfg["cluster_name"]}),
+          flush=True)
+    stop = []
+    signal.signal(signal.SIGINT, lambda *a: stop.append(1))
+    signal.signal(signal.SIGTERM, lambda *a: stop.append(1))
+    while not stop:
+        time.sleep(0.5)
+    cluster.down()
 
 
 def cmd_job(args) -> None:
@@ -487,8 +493,8 @@ def main(argv: list[str] | None = None) -> None:
     sp.set_defaults(fn=cmd_debug)
 
     sp = sub.add_parser(
-        "up", help="start a cluster from a YAML config (waits for the "
-                   "port's autoscaler: raises)")
+        "up", help="start a head and its autoscaler from a cluster YAML "
+                   "(blocks; SIGINT/SIGTERM tears it down)")
     sp.add_argument("config")
     sp.set_defaults(fn=cmd_up)
 

@@ -9,6 +9,16 @@ that disarms. Then the engine's fault point: a "raise" rule at
 engines on the same traffic; every request ends with an ``engine died``
 error, a later submit raises, and the tokens emitted before the death
 are equal. Tiny config, fp32, greedy.
+
+``TestZeroDrop`` is the reference's acceptance scenario
+(``tests/test_chaos.py::TestZeroDrop`` through ``bench_chaos.py``) on the
+port, through ``bench_chaos_torch.run_scenario``: 32 SSE streams, 3
+replicas, one killed mid-decode and one drained by a scale-down to 2.
+The weights are the JAX package's tiny init at the reference's seed,
+carried into the port and loaded by the baseline and every replica from
+one checkpoint; the expected streams come from the JAX engine with the
+reference's knobs, and the port's baseline and every served stream must
+equal them exactly.
 """
 
 import json
@@ -174,3 +184,55 @@ def test_decode_window_raise_kills_both_engines_alike(weights, mode):
     assert tout == jout
     # Two windows of 2 ran before the third window's hit raised.
     assert sum(map(len, tout)) > 0
+
+
+# ------------------------------------------ the zero-drop acceptance run
+
+class TestZeroDrop:
+    """The committed acceptance scenario (the code path of
+    bench_chaos_torch.py): 32 concurrent SSE streams, one replica killed
+    mid-decode, one drained by scale-down: zero dropped requests, zero
+    duplicated or missing tokens against the JAX engine's streams."""
+
+    def test_acceptance_32_streams_kill_plus_drain(self, tmp_path):
+        import bench_chaos_torch
+        from ray_tpu_torch.train.checkpoint import Checkpoint
+
+        # The reference's scenario: tiny (here fp32), seed 0, and its
+        # engine knobs (run_scenario's defaults are the reference's).
+        n_slots, max_len, chunk, max_tokens = 4, 96, 8, 12
+        jp = jgpt.init_params(JCFG, jax.random.key(0))
+        tp = params_from_jax({k: np.asarray(v) for k, v in jp.items()},
+                             TCFG, device="cpu")
+        ckpt = Checkpoint.from_dict({"params": tp}).to_directory(
+            str(tmp_path / "params"))
+        prompts = bench_chaos_torch._prompts(TCFG.vocab_size, 32, 12, 0)
+        jeng = JaxEngine(JCFG, jp, n_slots=n_slots, max_len=max_len,
+                         prefill_buckets=(16, 32), kv_mode="paged",
+                         page_size=16, prefill_chunk=chunk,
+                         prefill_token_budget=n_slots * chunk)
+        jax_streams = []
+        for p in prompts:
+            req = jeng.submit(p, max_tokens=max_tokens)
+            while not req.done.is_set():
+                jeng.step()
+            jax_streams.append(list(req.out_ids))
+
+        detail: dict = {}
+        t0 = time.perf_counter()
+        row = bench_chaos_torch.run_scenario(
+            clients=32, replicas=3, scale_down_to=2, max_tokens=max_tokens,
+            drain_timeout_s=2.0, seed=0, model=TCFG,
+            params_checkpoint=ckpt, device="cpu", detail=detail)
+        row["test_wall_s"] = time.perf_counter() - t0
+        assert detail["prompts"] == prompts
+        assert detail["expected"] == jax_streams
+        assert detail["streams"] == jax_streams, detail["errors"]
+        assert row["dropped"] == 0, row
+        assert row["mismatched_streams"] == 0, row
+        assert row["completed"] == 32, row
+        assert row["tokens_received"] == row["tokens_expected"] == 32 * 12
+        assert row["final_live_replicas"] == 2, row
+        assert row["final_draining_replicas"] == 0, row
+        # The kill was not vacuous: streams failed over off the victim.
+        assert row["serve_failovers_total"] >= 1, row

@@ -38,6 +38,7 @@ PORT = ROOT / "ray_tpu_torch"
 
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "bench_chaos_torch.py",
                                          ROOT / "tests/test_torch_cuda.py"]
 
 
@@ -123,13 +124,35 @@ def _maps_name(pid: int, names: tuple[str, ...]) -> list[str]:
     return [n for n in names if n in text]
 
 
+# Host libraries of the port that load no torch when imported.
+TORCH_FREE_MODULES = (
+    "ray_tpu_torch.autoscaler", "ray_tpu_torch.autoscaler.yaml_config",
+    "ray_tpu_torch.autoscaler.gcp_gpu", "ray_tpu_torch.workflow",
+    "ray_tpu_torch.utils", "ray_tpu_torch.utils.actor_pool",
+    "ray_tpu_torch.utils.queue", "ray_tpu_torch.utils.multiprocessing")
+
+
 def test_runtime_daemons_and_torch_free_workers_load_no_torch():
     """The GCS, the raylet and a worker that ran a torch-free task hold
     neither torch nor jax: importing the package and its daemons imports
-    neither (the API loads lazily)."""
+    neither (the API loads lazily), nor does importing the host
+    libraries (the autoscaler, workflows, the actor pool, the queue and
+    the multiprocessing shim) in a fresh interpreter."""
+    import subprocess
+    import sys
+
     import ray_tpu_torch
     from ray_tpu_torch import api
 
+    res = subprocess.run(
+        [sys.executable, "-c",
+         f"import importlib, sys\nfor m in {TORCH_FREE_MODULES!r}:\n"
+         "    importlib.import_module(m)\n"
+         "print([m for m in ('torch', 'jax') if m in sys.modules])"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == "[]", res.stdout
     ray_tpu_torch.init(num_cpus=1)
     try:
         @ray_tpu_torch.remote

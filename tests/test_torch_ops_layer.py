@@ -268,13 +268,6 @@ def test_every_other_endpoint_serves(dash):
     assert err.value.code == 404
 
 
-def test_cli_up_waits_for_the_autoscaler(tmp_path):
-    out = _cli("up", str(tmp_path / "cluster.yaml"))
-    assert out.returncode != 0
-    assert "NotImplementedError" in out.stderr
-    assert "ROADMAP queue 1, the JAX-free host libraries" in out.stderr
-
-
 def test_cli_debug_without_breakpoints(cluster):
     out = _cli("debug", "--address", _gcs_address())
     assert out.returncode == 0, out.stderr
@@ -375,6 +368,57 @@ def test_cli_head_lifecycle(tmp_path):
     assert not (tmp_path / "state" / "head.json").exists()
     assert not os.path.exists(f"/dev/shm/{arenas[0]}"), \
         "the head's arena is left in /dev/shm"
+    deadline = time.monotonic() + 10
+    while [p for p in procs if _cmdline(p)] and time.monotonic() < deadline:
+        time.sleep(0.2)
+    assert [p for p in procs if _cmdline(p)] == [], "processes left"
+
+
+def test_cli_up_starts_a_head_and_its_autoscaler(tmp_path):
+    """``up`` on a local-provider YAML with ``min_workers`` 1 prints the
+    address JSON; a driver attached there sees the head and the node the
+    autoscaler launched (labelled with its provider id); SIGTERM tears
+    both down and leaves no raylet."""
+    cfg = tmp_path / "cluster.yaml"
+    cfg.write_text("cluster_name: cli-up\nprovider: {type: local}\n"
+                   "head_resources: {CPU: 1}\nnode_types:\n"
+                   "  small: {resources: {CPU: 1}, min_workers: 1,"
+                   " max_workers: 1}\n")
+    up = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch", "up", str(cfg)],
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        line = up.stdout.readline()
+        assert line, up.stderr.read()[-3000:]
+        info = json.loads(line)
+        assert info["cluster_name"] == "cli-up"
+        driver = (
+            "import json, time, ray_tpu_torch as rt\n"
+            f"rt.init(address={info['address']!r})\n"
+            "deadline = time.monotonic() + 60\n"
+            "while time.monotonic() < deadline:\n"
+            "    alive = [n for n in rt.nodes() if n['Alive']]\n"
+            "    if len(alive) >= 2: break\n"
+            "    time.sleep(0.5)\n"
+            "print(json.dumps([n['Labels'] for n in alive]))\n"
+            "rt.shutdown()\n")
+        out = subprocess.run([sys.executable, "-c", driver], cwd=str(ROOT),
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr[-3000:]
+        labels = json.loads(out.stdout.splitlines()[-1])
+        assert len(labels) == 2, labels
+        assert sum("provider_node_id" in lb for lb in labels) == 1, labels
+        procs = _descendants(up.pid)
+        raylets = [p for p in procs
+                   if b"ray_tpu_torch.core.raylet" in _cmdline(p)]
+        assert len(raylets) == 2, procs     # the head's and the node's
+        up.send_signal(signal.SIGTERM)
+        assert up.wait(timeout=60) == 0, up.stderr.read()[-3000:]
+    finally:
+        if up.poll() is None:
+            up.send_signal(signal.SIGKILL)
+            up.wait()
     deadline = time.monotonic() + 10
     while [p for p in procs if _cmdline(p)] and time.monotonic() < deadline:
         time.sleep(0.2)

@@ -392,15 +392,16 @@ script began (the whole record also goes to build/chip_smoke.json):
    train_ring: the flash kernels checked and timed at the ring's chunk
    shapes ([2, 1024, 12, 64] bf16, the diagonal causal and the full
    non-causal chunk); then build_training(gpt2_124m(max_seq=4096,
-   remat=True, attn_impl="ring"), the same adamw, mesh=make_sp_mesh(4)
-   with every shard on the card) on a seeded [2, 4096] batch: one step of
+   remat=True, attn_impl="ring") cut to its first 8 of 12 layers
+   (CUT_DEPTH, full width), the same adamw, mesh=make_sp_mesh(4) with
+   every shard on the card) on a seeded [2, 4096] batch: one step of
    "ring" against "xla" from the same parameters under the train phase's
    three limits, which a dropped rotation planted in the ring's combine
    must fail (its attention weights' gradients past 5e-2; its loss
    difference is printed); then a warm-up and 4 timed
-   steps with exactly 240 forward, 120 delta, 120 dq and 120 dkv launches
+   steps with exactly 160 forward, 80 delta, 80 dq and 80 dkv launches
    per step
-   (12 layers x (4 diagonal + 6 full chunks), the forward twice under
+   (8 layers x (4 diagonal + 6 full chunks), the forward twice under
    remat); step time, tokens/s, MFU, peak memory, one profiled step, and
    the same step with attn_impl="flash" unsharded beside it.
    train_llama: the flash kernels checked and timed at [1, 4096, 32,
@@ -435,11 +436,12 @@ script began (the whole record also goes to build/chip_smoke.json):
    train_gptj_6b: the same (`train_sr`) for bench.py's
    BENCH_MODEL=gptj_6b BENCH_OPT=adafactor_sr step: the flash kernels
    checked and timed at [8, 1024, 16, 256] bf16 causal, then gptj_6b at
-   full width and depth (28 layers, d 4096, 16 heads of 256, rotary 64,
-   d_ff 16384, vocab 50304 untied, remat), S 1024, B 8, bf16 SR masters,
-   adafactor(3e-4), from seed 0: the audit, flash against xla with the
-   three planted faults, 4 steps with exactly 56 forward, 28 delta, 28 dq
-   and 28 dkv launches per step and no plain call, every parameter bf16, the
+   full width cut to its first 8 of 28 layers (CUT_DEPTH;
+   d 4096, 16 heads of 256, rotary 64, d_ff 16384, vocab 50304 untied,
+   remat), S 1024, B 8, bf16 SR masters, adafactor(3e-4), from seed 0:
+   the audit, flash against xla with the three planted faults, 4 steps
+   with exactly 16 forward, 8 delta, 8 dq and 8 dkv launches per step
+   and no plain call, every parameter bf16, the
    loss falling; the same readings.
    train_moe: the flash kernels checked and timed at [8, 1024, 16, 64]
    bf16 causal; then build_training(moe_8x350m(max_seq=1024,
@@ -469,36 +471,50 @@ script began (the whole record also goes to build/chip_smoke.json):
    backward, per call by device_ms) and FLOPs beside it.
    train_pipeline: the flash kernels checked and timed at [1, 1024, 12,
    64] bf16 causal (one microbatch); then build_pipeline_training(
-   gpt2_124m(max_seq=1024, remat=True, attn_impl="flash"), the same
-   adamw, mesh of pp = 4 with every stage on the card, 8 microbatches of
-   1) on the train phase's batch: the pipeline's loss and gradients
-   against the sequential step's on the same parameters under the train
+   gpt2_124m(max_seq=1024, remat=True, attn_impl="flash") cut to its
+   first 8 of 12 layers (CUT_DEPTH, full width), the same adamw, mesh of
+   pp = 4 with every stage on the card, 8 microbatches of 1) on the train
+   phase's batch: the pipeline's loss and gradients against the
+   sequential step's on the same parameters under the train
    phase's three limits, which an off-by-one schedule (each later stage
    takes the previous microbatch's activation) must exceed; 4 steps with
-   exactly 192 forward, 96 delta, 96 dq and 96 dkv launches per step, the
+   exactly 128 forward, 64 delta, 64 dq and 64 dkv launches per step, the
    loss
    falling; step time beside the train phase's, peak memory, one
    profiled step (pp on one card buys nothing: the stages run in turn).
    train_dist: the flash kernels checked and timed at a dp rank's [4,
-   1024, 12, 64] bf16 causal; the single-controller reference from seed
+   1024, 12, 64], a tp rank's [8, 1024, 6, 64] and a hybrid rank's [4,
+   1024, 6, 64] bf16 causal; the single-controller references from seed
    0 on the train phase's batch (the first step's gradients, then 5
-   steps' losses); then TorchTrainer(train_dist_loop) on the port's
-   runtime (init(num_cpus=4, resources={"GPU": 1})): world 1 on NCCL
-   (ScalingConfig(num_workers=1, use_gpu=True), the default backend),
-   every step's loss within 5e-4 of the reference and whether losses and
-   parameters are bitwise equal to it printed; then two ranks at
-   num_gpus=0.5 on gloo with CUDA tensors (NCCL takes no two ranks on
-   one card; every collective staged through host memory, the copies
-   counted): dp = 2 (4 rows each), the losses within 5e-4 and both
-   ranks' parameters bitwise identical (sha256), which a rank that keeps
-   its own gradient must break; then fsdp = 2, the losses within 5e-4,
+   steps' losses under the adamw and under adafactor(3e-4)); then
+   TorchTrainer(train_dist_loop) on the port's runtime (init(num_cpus=4,
+   resources={"GPU": 1})): world 1 on NCCL (ScalingConfig(num_workers=1,
+   use_gpu=True), the default backend), every step's loss within 5e-4 of
+   the reference and whether losses and parameters are bitwise equal to
+   it printed; then two ranks at num_gpus=0.5 on gloo with CUDA tensors
+   (NCCL takes no two ranks on one card; every collective staged through
+   host memory, the copies counted): dp = 2 (4 rows each), both ranks'
+   parameters bitwise identical (sha256), which a rank that keeps its
+   own gradient must break; fsdp = 2 (each layer's embed halves gathered
+   inside its checkpointed call), which a reduce-scatter keeping the
+   local gradient must fail, its peak memory beside the same step with
+   the whole tree gathered before the loss (the earlier design); tp = 2
+   (megatron: 6 heads and half the MLP and vocabulary a rank), which a
+   tp copy keeping its own gradient must fail; fsdp = 2 under
+   adafactor(3e-4) against the single-controller adafactor; then four
+   ranks at num_gpus=0.25: fsdp 2 x tp 2 (w_up cut in two dimensions).
+   In every topology and rank: the losses within 5e-4 of the reference,
    the first step's gradients gathered whole within 2e-2 of the
-   reference's, which a reduce-scatter keeping the local gradient must
-   exceed, and each rank's parameter and moment bytes equal to what
-   tree_to_shardings assigns it; 24/12/12/12 flash launches per step in
-   every rank; step p50, the device's idle share (one profiled step),
-   collective bytes per step and the host copies, peak memory per rank
-   and worker boot printed.
+   reference's, 24/12/12/12 flash launches per step, each rank's
+   parameter and moment bytes equal to what tree_to_shardings assigns it
+   (adamw), step p50, the device's idle share (one profiled step; world
+   1 and dp), collective bytes per step and the host copies,
+   peak memory per rank and worker boot printed. A tp rank's losses are
+   held to the single controller's loss on the rank's own parameters
+   gathered whole at each step (its partial sums round elsewhere than
+   one controller's products: an equally exact bf16 run that five Adam
+   steps carry past 5e-4 from the reference run's losses, which are
+   printed beside the same drift between flash and plain attention).
    tune: the slice's path as a user takes it, all through ``python -m
    ray_tpu_torch``: ``start --head --num-cpus 8 --resources '{"GPU":
    1}'`` with the dashboard, ``status``, then ``job submit --wait`` of
@@ -598,12 +614,13 @@ from ray_tpu_torch.models import moe_gpt
 from ray_tpu_torch.ops import moe as tmoe
 from ray_tpu_torch.parallel import pipeline as tpipe
 from ray_tpu_torch.parallel import ring as tring
+from ray_tpu_torch.parallel import mesh as tmesh
 from ray_tpu_torch.parallel.mesh import batch_sharding, device_mesh
 from ray_tpu_torch.parallel.pipeline import split_microbatch_count
 from ray_tpu_torch.parallel.ring import make_sp_mesh
 from ray_tpu_torch.train import memory_audit
 from ray_tpu_torch.train.low_precision import sr_apply_updates
-from ray_tpu_torch.train.optim import adafactor, adamw
+from ray_tpu_torch.train.optim import adafactor, adamw, apply_updates
 from ray_tpu_torch.train.spmd import (Fp32Leaves, build_pipeline_training,
                                       build_training, make_train_step)
 
@@ -3022,7 +3039,10 @@ CUT_DEPTH = 8          # engine_tp's, engine_prefix's, engine_drain's,
                        # that make room for `serve`, `tune` and `data`);
                        # gpt2_2_7b's 8 of 32 in train_gpt2_2_7b and
                        # gptj_6b's 8 of 28 in engine_gptj's ps-48 engine
-                       # (room for train_gptj_6b)
+                       # (room for train_gptj_6b); gptj_6b's 8 of 28 in
+                       # train_gptj_6b and gpt2_124m's 8 of 12 in
+                       # train_ring and train_pipeline (room for
+                       # train_dist's four ranks)
 
 
 def first_layers(cfg, trees, n):
@@ -6685,11 +6705,12 @@ def phase_train(device):
 
 RING_B, RING_S, RING_SP, RING_STEPS = 2, 4096, 4, 4
 RING_COMBINES = RING_SP * (RING_SP - 1) // 2   # combines per causal ring call
-# Per step with remat at sp = 4, causal: each layer's ring attends 4
-# diagonal and 6 full chunks (the 6 masked steps launch nothing), in the
-# block's forward and again in its recompute; dq and dkv once each.
-RING_PER_STEP = {"flash_fwd": 240, "flash_delta": 120, "flash_dq": 120,
-                 "flash_dkv": 120}
+# Per step with remat at sp = 4, causal: each of the CUT_DEPTH layers'
+# ring attends 4 diagonal and 6 full chunks (the 6 masked steps launch
+# nothing), in the block's forward and again in its recompute; dq and
+# dkv once each.
+RING_PER_STEP = {"flash_fwd": 160, "flash_delta": 80, "flash_dq": 80,
+                 "flash_dkv": 80}
 
 
 def dropped_rotation(real):
@@ -6707,9 +6728,10 @@ def dropped_rotation(real):
 
 
 def phase_train_ring(device, errs):
-    """Ring attention on the training path: gpt2_124m at S 4096, B 2,
-    bf16, remat, attn_impl="ring" over an sp=4 mesh with every shard on
-    one card, adamw(3e-4, wd 0.1, mu bf16)."""
+    """Ring attention on the training path: gpt2_124m cut to its first
+    CUT_DEPTH of 12 layers (full width) at S 4096, B 2, bf16, remat,
+    attn_impl="ring" over an sp=4 mesh with every shard on one card,
+    adamw(3e-4, wd 0.1, mu bf16)."""
     t_phase = time.perf_counter()
     B, S, Hh, Kd = RING_B, RING_S // RING_SP, 12, 64
     shapes = {
@@ -6719,8 +6741,8 @@ def phase_train_ring(device, errs):
                                          Kd, False, 8)[0]}
     emit({"phase": "flash_kernel_timing_ring", **{
         f"{k} {tag}": v for tag, t in shapes.items() for k, v in t.items()}})
-    cfg = gpt.GPTConfig.gpt2_124m(max_seq=RING_S, remat=True,
-                                  attn_impl="ring")
+    cfg = dataclasses.replace(gpt.GPTConfig.gpt2_124m(
+        max_seq=RING_S, remat=True, attn_impl="ring"), n_layers=CUT_DEPTH)
     mesh = make_sp_mesh(RING_SP, devices=[device] * RING_SP)
     opt = adamw(3e-4, weight_decay=0.1, mu_dtype=torch.bfloat16)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -6774,9 +6796,10 @@ def phase_train_ring(device, errs):
     params, opt_state, f_losses, f_ms, _, f_per_step = timed_steps(
         flash_step, params, opt_state, batch, RING_STEPS)
     f_p50 = float(np.median(f_ms[1:]))
-    out = {"phase": "train_ring", "config": "gpt2_124m bf16 remat ring "
-           f"sp={RING_SP} (every shard on one card) B={RING_B} S={RING_S} "
-           "adamw(3e-4, wd=0.1, mu bf16)", "ring_vs_xla": compare,
+    out = {"phase": "train_ring", "config": f"gpt2_124m (first {CUT_DEPTH} "
+           f"of 12 layers) bf16 remat ring sp={RING_SP} (every shard on "
+           f"one card) B={RING_B} S={RING_S} adamw(3e-4, wd=0.1, mu bf16)",
+           "ring_vs_xla": compare,
            "steps_timed": RING_STEPS, "step_ms": step_ms,
            "step_ms_p50": p50, "tokens_per_s": tok_s,
            "mfu": fpt * tok_s / BF16_FLOPS, "flops_per_token": fpt,
@@ -6910,7 +6933,7 @@ SR_B, SR_S, SR_STEPS = 8, 1024, 4   # bench.py's adafactor_sr step
 def sr_per_step(cfg):
     """Flash launches per step with remat: each layer's forward twice (the
     block and its recompute), dq and dkv once each (gpt2_2_7b cut to 8
-    layers 16/8/8/8, gptj_6b's 28 56/28/28/28: delta with each dq)."""
+    layers 16/8/8/8, as gptj_6b cut to 8: delta with each dq)."""
     L = cfg.n_layers
     return {"flash_fwd": 2 * L, "flash_delta": L, "flash_dq": L,
             "flash_dkv": L}
@@ -6918,7 +6941,8 @@ def sr_per_step(cfg):
 
 def train_sr(device, errs, cfg, name, heads, seed):
     """bench.py's BENCH_MODEL=``name`` BENCH_OPT=adafactor_sr step on the
-    port: ``cfg`` at full width and depth, S 1024, B 8, bf16 SR masters,
+    port: ``cfg`` at full width (its depth as given), S 1024, B 8, bf16 SR
+    masters,
     adafactor(3e-4), remat, flash attention, random weights from seed 0;
     the flash kernels first checked and timed at its [8, 1024, *heads].
     The memory audit is printed and must fit; one step of flash against
@@ -7003,11 +7027,14 @@ def phase_train_gpt2_2_7b(device, errs):
 
 
 def phase_train_gptj_6b(device, errs):
-    """`train_sr` on gptj_6b (ray_tpu/models/gpt.py:86-92): 28 layers, d
-    4096, 16 heads of 256 (rotary 64), d_ff 16384, untied, vocab 50304;
-    the backward kernels at head dim 256."""
-    cfg = gpt.GPTConfig.gptj_6b(max_seq=SR_S, attn_impl="flash",
-                                param_dtype=torch.bfloat16)
+    """`train_sr` on gptj_6b (ray_tpu/models/gpt.py:86-92): d 4096, 16
+    heads of 256 (rotary 64), d_ff 16384, untied, vocab 50304, cut to its
+    first CUT_DEPTH of 28 layers (room for train_dist's four ranks); the
+    backward kernels at head dim 256."""
+    cfg = dataclasses.replace(
+        gpt.GPTConfig.gptj_6b(max_seq=SR_S, attn_impl="flash",
+                              param_dtype=torch.bfloat16),
+        n_layers=CUT_DEPTH)
     return train_sr(device, errs, cfg, "gptj_6b", HEADS_GPTJ, 23)
 
 
@@ -7554,10 +7581,10 @@ def phase_train_moe(device, errs):
 # ----------------------------------------------------------- pipeline
 
 PIPE_PP, PIPE_STEPS = 4, 3
-# Per step with remat: 12 layers x 8 microbatches of flash forward twice
-# (block and recompute), dq and dkv once each.
-PIPE_PER_STEP = {"flash_fwd": 192, "flash_delta": 96, "flash_dq": 96,
-                 "flash_dkv": 96}
+# Per step with remat: CUT_DEPTH layers x 8 microbatches of flash forward
+# twice (block and recompute), dq and dkv once each.
+PIPE_PER_STEP = {"flash_fwd": 128, "flash_delta": 64, "flash_dq": 64,
+                 "flash_dkv": 64}
 
 
 def off_by_one_schedule(real):
@@ -7581,18 +7608,19 @@ def off_by_one_schedule(real):
 
 
 def phase_train_pipeline(device, errs):
-    """GPipe on the training path: bench.py's headline step (gpt2_124m,
-    S 1024, B 8, remat, flash, the same adamw) through
-    build_pipeline_training at pp = 4 with every stage on the card: 3
-    layers per stage, 8 microbatches of 1."""
+    """GPipe on the training path: bench.py's headline step (gpt2_124m
+    cut to its first CUT_DEPTH of 12 layers, full width, S 1024, B 8,
+    remat, flash, the same adamw) through build_pipeline_training at pp
+    = 4 with every stage on the card: 2 layers per stage, 8 microbatches
+    of 1."""
     t_phase = time.perf_counter()
     shapes = {"pipeline": flash_shape_timings(
         device, errs, "pipeline microbatch", 1, TRAIN_S, 12, 64, True,
         11)[0]}
     emit({"phase": "flash_kernel_timing_pipeline", **{
         f"{k} {tag}": v for tag, t in shapes.items() for k, v in t.items()}})
-    cfg = gpt.GPTConfig.gpt2_124m(max_seq=TRAIN_S, remat=True,
-                                  attn_impl="flash")
+    cfg = dataclasses.replace(gpt.GPTConfig.gpt2_124m(
+        max_seq=TRAIN_S, remat=True, attn_impl="flash"), n_layers=CUT_DEPTH)
     mesh = device_mesh(PIPE_PP, axis="pp", devices=[device] * PIPE_PP)
     n_micro = split_microbatch_count(TRAIN_B, PIPE_PP)
     opt = adamw(3e-4, weight_decay=0.1, mu_dtype=torch.bfloat16)
@@ -7643,9 +7671,10 @@ def phase_train_pipeline(device, errs):
     fpt = train_flops_per_token(cfg)
     profiled = _profiled(lambda: step(params, opt_state, batch), top=12)
     train = next((p for p in RECORD["phases"] if p["phase"] == "train"), {})
-    out = {"phase": "train_pipeline", "config": "gpt2_124m bf16 remat flash "
-           f"pp={PIPE_PP} (every stage on one card) n_micro={n_micro} "
-           f"B={TRAIN_B} S={TRAIN_S} adamw(3e-4, wd=0.1, mu bf16)",
+    out = {"phase": "train_pipeline", "config": f"gpt2_124m (first "
+           f"{CUT_DEPTH} of 12 layers) bf16 remat flash pp={PIPE_PP} "
+           f"(every stage on one card) n_micro={n_micro} B={TRAIN_B} "
+           f"S={TRAIN_S} adamw(3e-4, wd=0.1, mu bf16)",
            "pipeline_vs_sequential": compare, "steps_timed": PIPE_STEPS,
            "step_ms": step_ms, "step_ms_p50": p50,
            "train_phase_step_ms_p50": train.get("step_ms_p50"),
@@ -7664,9 +7693,47 @@ def phase_train_pipeline(device, errs):
 
 DIST_STEPS = 5        # per topology: one warm-up and 4 timed
 DIST_RANK_GPUS = 0.5  # two ranks share the card
+DIST_HYBRID_GPUS = 0.25   # four ranks share it
 DIST_KERNEL_SEED = 16
-# The reference gradient crosses to rank 0 through the object plane
-# once (fp32, ~0.5 GB); every other gate reads scalars and digests.
+# The topologies of the two gangs: mesh shape and optimizer.
+DIST_TWO_RANKS = {
+    "dp": ({"dp": 2, "fsdp": 1}, "adamw"),
+    "fsdp": ({"dp": 1, "fsdp": 2}, "adamw"),
+    "tp": ({"tp": 2, "fsdp": 1}, "adamw"),
+    "fsdp_adafactor": ({"dp": 1, "fsdp": 2}, "adafactor")}
+DIST_FOUR_RANKS = {"fsdp_tp": ({"fsdp": 2, "tp": 2}, "adamw")}
+# The topologies whose step is profiled once (the device's idle share):
+# two steps each, run with the others' steps left out for time.
+DIST_PROFILED = ("world1", "dp")
+# An fsdp rank's peak as recorded in PERF.md when every slice was
+# gathered whole before the loss: 3.44 GB a rank against a dp rank's
+# 3.71, on this phase's step.
+WHOLE_TREE_FSDP_PEAK_GB = 3.44
+# The reference gradient crosses to each rank through the object plane
+# (fp32, ~0.5 GB); every other gate reads scalars and digests.
+# |P1 - P1'|, every element: a rank's parameters after its first step,
+# gathered whole, against one controller's optimizer applied to the same
+# whole parameters and the rank's own first gradients, gathered whole.
+# Adamw is elementwise (the same bits expected); Adafactor's factored
+# means and block RMS sum in another order over pieces (fp32: ~4e-9 at
+# a tiny size on the CPU; one fp32 ulp of a parameter near 1.0 is
+# 1.2e-7). A wrong update is off by the learning rate, 3e-4 (adamw), or
+# by it times a leaf's RMS (Adafactor: ~6e-6 for wq).
+DIST_UPDATE_TOL = 1e-6
+# The topologies whose 5-step losses are not held to the reference's at
+# TRAIN_LOSS_TOL: the hybrid's drift 6.2e-4 (my chip run, PR 24; tp's
+# own 4.9e-4, dp's 2.2e-4): two runs' bf16 roundings, not a fault. Its
+# loss is held each step to one controller's on its own parameters, its
+# first gradients and update to one controller's, and its distance from
+# the fp32 run to one controller's bf16 runs'.
+DIST_TRAJECTORY_UNGATED = ("fsdp_tp",)
+
+
+def dist_optimizer(name):
+    """The train phase's adamw, or bench.py's BENCH_OPT=adafactor."""
+    if name == "adamw":
+        return adamw(3e-4, weight_decay=0.1, mu_dtype=torch.bfloat16)
+    return adafactor(3e-4)
 
 
 def params_digest(params) -> str:
@@ -7689,9 +7756,9 @@ def resident_bytes(params, opt_state) -> dict:
 
 
 def assigned_bytes(cfg, mesh, opt) -> dict:
-    """What tree_to_shardings assigns this rank: each leaf's slice (its
+    """What tree_to_shardings assigns this rank: each leaf's piece (its
     `Sharding.local_shape` of the global shape) in the parameters' dtype,
-    and each moment's slice (its opt_state_shardings entry) in the dtype
+    and each moment's piece (its opt_state_shardings entry) in the dtype
     the optimizer keeps it in."""
     from ray_tpu_torch.train import spmd as tspmd
 
@@ -7712,12 +7779,11 @@ def assigned_bytes(cfg, mesh, opt) -> dict:
 
 
 def dist_gathered_grads(step, params, batch, shardings, mesh):
-    """The step's first gradients (`grads_of`: each sliced leaf's is the
-    rank's slice) gathered whole on every rank, with the step's loss."""
+    """The step's first gradients (`grads_of`: a split leaf's is the
+    rank's piece) gathered whole on every rank, with the step's loss."""
     loss, grads = step.grads_of(params, batch)
     with torch.no_grad():
-        whole = {k: (g if shardings[k].dim is None else
-                     mesh.all_gather(g, "fsdp", shardings[k].dim))
+        whole = {k: mesh.gather_whole(g, shardings[k])
                  for k, g in grads.items()}
     return float(loss), whole
 
@@ -7732,11 +7798,142 @@ def keep_local_slice(mesh):
     return local
 
 
-def dist_topology(config, name, mesh, cfg, opt, batch):
+def keep_own_tp_part():
+    """The planted tp fault: the input of each column-parallel product
+    keeps this rank's part of its gradient (`_ColumnParallel`'s backward
+    skips its all-reduce over tp) → the real reduce, to restore."""
+    real = dec._ColumnParallel.reduce
+    dec._ColumnParallel.reduce = staticmethod(lambda t, mesh: t)
+    return real
+
+
+def planted_forward_loss(cfg, params, rows, mesh, shardings):
+    """The planted fault of the tp loss gate: the loss with each
+    row-parallel sum (and the vocab-parallel lookup) left as the rank's
+    own partial (`reduce_from`'s forward skips its all-reduce)."""
+    real = tmesh._ReduceFrom.forward
+    tmesh._ReduceFrom.forward = staticmethod(lambda ctx, x, mesh, axis: x)
+    try:
+        with torch.no_grad():
+            return float(gpt.loss_fn(
+                params, *rows, cfg,
+                plan=gpt.rank_plan(cfg, mesh, shardings)))
+    finally:
+        tmesh._ReduceFrom.forward = staticmethod(real)
+
+
+def first_step_gates(config, name, cfg, step, params, rows, shardings,
+                     mesh, ref_grads):
+    """The first step's gradients gathered whole against the reference's
+    (on every rank), and each topology's planted faults: fsdp's local
+    reduce-scatter, tp's local copy gradient and its forward without the
+    row-parallel sums (against the loss limit). → (readings, the first
+    step's gradients gathered whole)."""
+    dev = mesh.device
+    ref_grads = {k: v.to(dev) for k, v in ref_grads.items()}
+    ref_loss = config["ref_losses"][config["opt"][name]][0]
+    fault = {"fsdp": "planted_local_reduce_scatter",
+             "tp": "planted_tp_copy_keeps_own_grad"}.get(name)
+    out = {}
+    for tag in ("first_step",) + ((fault,) if fault else ()):
+        real = None
+        if tag == "planted_local_reduce_scatter":
+            mesh.reduce_scatter_mean = keep_local_slice(mesh)
+        elif tag == "planted_tp_copy_keeps_own_grad":
+            real = keep_own_tp_part()
+        try:
+            loss, whole = dist_gathered_grads(step, params, rows, shardings,
+                                              mesh)
+        finally:
+            vars(mesh).pop("reduce_scatter_mean", None)
+            if real is not None:
+                dec._ColumnParallel.reduce = staticmethod(real)
+        out[tag] = step_diff(loss, whole, ref_loss, ref_grads)
+        if tag == "first_step":
+            first = whole
+        del whole
+    if name == "tp":
+        out["planted_tp_skips_forward_reduce"] = abs(
+            planted_forward_loss(cfg, params, rows, mesh, shardings)
+            - ref_loss)
+    del ref_grads
+    return out, first
+
+
+def gathered(mesh, params, shardings):
+    """The rank's pieces gathered whole (a copy), kept out of the
+    topology's collective counts."""
+    stats, mesh.stats = mesh.stats, type(mesh.stats)()
+    try:
+        with torch.no_grad():
+            return {k: mesh.gather_whole(p.detach(), shardings[k]).clone()
+                    for k, p in params.items()}
+    finally:
+        mesh.stats = stats
+
+
+def one_controller_update(opt, params, grads):
+    """``params`` (whole, updated in place) after ``opt``'s first step on
+    one controller with ``grads``, moved to the host (out of the peak
+    memory of the steps it is held across)."""
+    with torch.no_grad():
+        updates, _ = opt.update(grads, opt.init(params), params)
+        apply_updates(params, updates)
+    return {k: v.cpu() for k, v in params.items()}
+
+
+def max_abs_diff(a, b) -> float:
+    """The largest |a - b| over every element of every leaf (``b`` may
+    lie on the host)."""
+    return max(float((a[k] - b[k].to(a[k].device)).abs().max()) for k in b)
+
+
+def whole_tree_peak_gb(cfg, opt, mesh, shardings, params, opt_state, rows):
+    """The peak of one step that gathers every fsdp slice before the loss
+    (``spmd.gather_params``, the earlier design: autograd keeps the whole
+    leaves until the backward) on this rank's parameters and state."""
+    from ray_tpu_torch.train import spmd as tspmd
+
+    whole_step = tspmd.make_train_step(
+        lambda p, t, tg: gpt.loss_fn(
+            tspmd.gather_params(p, shardings, mesh), t, tg, cfg), opt,
+        process_mesh=mesh, shardings=shardings)
+    torch.cuda.synchronize(mesh.device)
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    whole_step(params, opt_state, rows)
+    torch.cuda.synchronize(mesh.device)
+    return torch.cuda.max_memory_allocated(mesh.device) / 2**30
+
+
+def anchored_loss(cfg, mesh, params, shardings, batch):
+    """The single controller's loss (no gradient) on this rank's
+    parameters gathered whole and the global ``batch``: a tp rank's
+    loss is held to it at each step, beside the reference run's
+    trajectory (tp's partial sums round elsewhere than one controller's
+    products: an equally exact bf16 run, which five Adam steps carry
+    apart). Its gathers and launches are kept out of the topology's
+    counts."""
+    counts, stats = flash_counts(), mesh.stats
+    mesh.stats = type(stats)()
+    try:
+        with torch.no_grad():
+            whole = {k: mesh.gather_whole(p.detach(), shardings[k])
+                     for k, p in params.items()}
+            return float(gpt.loss_fn(whole, *batch, cfg))
+    finally:
+        mesh.stats = stats
+        for k, n in counts.items():
+            getattr(fa, k).launches = n
+
+
+def dist_topology(config, name, mesh, cfg, opt, batch, ref_grads):
     """One topology on this rank: build_training on ``mesh`` from seed
-    0, the gates' readings, DIST_STEPS steps (counters zeroed just before
-    and read just after), one profiled step."""
-    from ray_tpu_torch import api as rt_api
+    0, the gates' readings (``ref_grads``: the reference's first-step
+    gradients on the host), DIST_STEPS steps (counters zeroed just before
+    and read just after; the parameters after the first, gathered whole,
+    against one controller's optimizer on the same whole parameters and
+    the rank's first gradients: `DIST_UPDATE_TOL`), one profiled
+    step."""
     from ray_tpu_torch.train import spmd as tspmd
 
     dev = mesh.device
@@ -7746,49 +7943,67 @@ def dist_topology(config, name, mesh, cfg, opt, batch):
     shardings = tspmd.param_shardings(gpt.logical_axes(cfg), mesh)
     rows = tuple(batch_sharding(mesh).shard(x) for x in batch)
     out = {"coords": {a: c for a, c in mesh.coords.items()
-                      if mesh.shape[a] > 1}, "batch_rows": rows[0].shape[0]}
-    if name == "fsdp":
+                      if mesh.shape[a] > 1}, "batch_rows": rows[0].shape[0],
+           "w_up_piece": list(params["w_up"].shape)}
+    if config["opt"][name] == "adamw":
         out["bytes"] = resident_bytes(params, opt_state)
         out["bytes_assigned"] = assigned_bytes(cfg, mesh, opt)
-        ref_grads = rt_api.get(config["ref_grads"]) if mesh.rank == 0 else None
-        for fault in (False, True):
-            if fault:
-                mesh.reduce_scatter_mean = keep_local_slice(mesh)
-            try:
-                loss, whole = dist_gathered_grads(step, params, rows,
-                                                  shardings, mesh)
-            finally:
-                vars(mesh).pop("reduce_scatter_mean", None)
-            if mesh.rank == 0:
-                diff = step_diff(loss, whole, config["ref_losses"][0],
-                                 {k: v.to(dev) for k, v in ref_grads.items()})
-                out["planted_local_reduce_scatter" if fault
-                    else "first_step"] = diff
-            del whole
-        del ref_grads
-    torch.cuda.synchronize(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
+    gates, first_grads = first_step_gates(config, name, cfg, step, params,
+                                          rows, shardings, mesh, ref_grads)
+    out.update(gates)
+    p0 = gathered(mesh, params, shardings)
+    expected = one_controller_update(opt, {k: v.clone() for k, v in
+                                           p0.items()}, first_grads)
+    # The gate's own planted fault: one controller's update with wq's
+    # gradient left out (a leaf every mesh here splits or replicates).
+    planted = one_controller_update(opt, p0, {
+        k: torch.zeros_like(g) if k == "wq" else g
+        for k, g in first_grads.items()})
+    del first_grads, p0
+    anchored = mesh.live("tp")
+    global_batch = tuple(x.to(dev) for x in batch) if anchored else None
     fa.reset_launch_counts()
     mesh.stats = type(mesh.stats)()
-    losses, step_ms = [], []
+    losses, step_ms, anchors, peak = [], [], [], 0
     for _ in range(DIST_STEPS):
+        if anchored:
+            anchors.append(anchored_loss(cfg, mesh, params, shardings,
+                                         global_batch))
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         params, opt_state, loss = step(params, opt_state, rows)
         losses.append(float(loss))             # synchronizes
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        peak = max(peak, torch.cuda.max_memory_allocated(dev))
+        if expected is not None:
+            p1 = gathered(mesh, params, shardings)
+            out["first_update_abs_diff_max"] = max_abs_diff(p1, expected)
+            out["planted_update_wq_skipped_abs_diff_max"] = max_abs_diff(
+                p1, planted)
+            expected = planted = p1 = None
+            torch.cuda.empty_cache()
     out["launches"] = flash_counts()
     stats = mesh.stats
+    if anchored:
+        out["anchored_losses"] = anchors
     out.update(
         losses=losses, step_ms=step_ms,
         step_ms_p50=float(np.median(step_ms[1:])),
-        max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev) / 2**30,
+        max_memory_allocated_gb=peak / 2**30,
         collectives_per_step=stats.calls / DIST_STEPS,
         collective_bytes_per_step=stats.bytes / DIST_STEPS,
         staged_copies_per_step=stats.staged_copies / DIST_STEPS,
         staged_bytes_per_step=stats.staged_bytes / DIST_STEPS,
+        whole_leaves_peak=stats.whole_peak,
         digest=params_digest(params))
-    out["profile_one_step"] = _profiled(
-        lambda: step(params, opt_state, rows), top=6)
+    if name in DIST_PROFILED:
+        out["profile_one_step"] = _profiled(
+            lambda: step(params, opt_state, rows), top=6)
+    if name == "fsdp":
+        out["max_memory_allocated_gb_whole_tree_gather"] = (
+            whole_tree_peak_gb(cfg, opt, mesh, shardings, params, opt_state,
+                               rows))
     del params, opt_state
     torch.cuda.empty_cache()
     return out
@@ -7809,17 +8024,19 @@ def skip_all_reduce(mesh):
 def train_dist_loop(config):
     """A rank of the train_dist phase: the topologies of ``config`` in
     turn on this gang, each reported with the rank's readings."""
+    from ray_tpu_torch import api as rt_api
     from ray_tpu_torch.parallel.mesh import MeshConfig, make_mesh
     from ray_tpu_torch.train import session
 
     started = time.time()
     cfg = gpt.GPTConfig.gpt2_124m(max_seq=TRAIN_S, remat=True,
                                   attn_impl="flash")
-    opt = adamw(3e-4, weight_decay=0.1, mu_dtype=torch.bfloat16)
     batch = train_batch(cfg, "cpu")
+    ref_grads = rt_api.get(config["ref_grads"])    # once for every topology
     for name, shape in config["topologies"].items():
         mesh = make_mesh(MeshConfig(**shape))
-        out = dist_topology(config, name, mesh, cfg, opt, batch)
+        opt = dist_optimizer(config["opt"][name])
+        out = dist_topology(config, name, mesh, cfg, opt, batch, ref_grads)
         if name == "dp":          # the planted fault: one step from seed 0
             gen = torch.Generator(device=mesh.device).manual_seed(0)
             params, opt_state, step = build_training(cfg, opt, gen,
@@ -7838,12 +8055,15 @@ def train_dist_loop(config):
                         "loop_started": started, **out})
 
 
-def run_dist(config, n_ranks, scaling, backend):
-    """One TorchTrainer fit of train_dist_loop → ({topology: {rank:
-    readings}}, the wall from fit's start to each rank's loop start)."""
+def run_dist(config, topologies, n_ranks, scaling, backend):
+    """One TorchTrainer fit of train_dist_loop over ``topologies`` ({name:
+    (mesh shape, optimizer)}) → ({topology: {rank: readings}}, the wall
+    from fit's start to each rank's loop start)."""
     from ray_tpu_torch.train import TorchTrainer
 
     t0 = time.time()
+    config = {**config, "topologies": {k: v[0] for k, v in topologies.items()},
+              "opt": {k: v[1] for k, v in topologies.items()}}
     result = TorchTrainer(train_dist_loop, train_loop_config=config,
                           scaling_config=scaling,
                           backend_config=backend).fit(timeout=900)
@@ -7852,9 +8072,143 @@ def run_dist(config, n_ranks, scaling, backend):
         runs.setdefault(r["topology"], {})[r["rank"]] = r
     boot = {r["rank"]: r["loop_started"] - t0
             for r in result.metrics_history}
-    if any(len(v) != n_ranks for v in runs.values()):
+    if set(runs) != set(topologies) or any(len(v) != n_ranks
+                                           for v in runs.values()):
         raise AssertionError(f"train_dist: missing rank reports {runs}")
     return runs, boot
+
+
+def dist_references(device, cfg, batch):
+    """The single-controller references from seed 0 on ``batch``: the
+    first step's gradients (fp32, on the host), each optimizer's
+    DIST_STEPS losses, the adamw run's final parameters' digest, the
+    adamw losses with plain attention ("adamw_xla": how far two equally
+    exact bf16 runs drift in DIST_STEPS steps) and in fp32 with plain
+    attention ("adamw_fp32": how far each bf16 run stands from the
+    exact one)."""
+    losses = {}
+    xla = dataclasses.replace(cfg, attn_impl="xla")
+    fp32 = dataclasses.replace(xla, dtype=torch.float32)
+    for name, run_cfg in (("adamw", cfg), ("adafactor", cfg),
+                          ("adamw_xla", xla), ("adamw_fp32", fp32)):
+        gen = torch.Generator(device=device).manual_seed(0)
+        params, opt_state, step = build_training(
+            run_cfg, dist_optimizer(name.split("_")[0]), gen, device)
+        if name == "adamw":
+            _, ref_grads = loss_and_grads(cfg, params, batch, "flash")
+            ref_grads = {k: v.float().cpu() for k, v in ref_grads.items()}
+        losses[name] = []
+        for _ in range(DIST_STEPS):
+            params, opt_state, loss = step(params, opt_state, batch)
+            losses[name].append(float(loss))
+        if name == "adamw":
+            digest = params_digest(params)
+        del params, opt_state
+        torch.cuda.empty_cache()
+    return ref_grads, losses, digest
+
+
+def dist_summary(name, ranks, ref_losses, bad, fp32=None):
+    """The phase's line for one topology, its gates appended to ``bad``:
+    the launches, the 5-step losses against the reference's (but in
+    DIST_TRAJECTORY_UNGATED), a tp rank's loss at each step against one
+    controller's on the rank's own parameters (the anchor), the first
+    gradients against the reference's, the first update against one
+    controller's, and (``fp32``: the fp32 run's losses and the farthest
+    one controller's bf16 runs stand from them) the distance from the
+    fp32 run against one controller's."""
+    for r, run in sorted(ranks.items()):
+        per_step = {k: v / DIST_STEPS for k, v in run["launches"].items()}
+        if per_step != FLASH_PER_STEP:
+            bad.append(f"{name} rank {r}: flash launches per step "
+                       f"{per_step}, expected {FLASH_PER_STEP}")
+        dist = lambda ref: max(abs(a - b) for a, b in zip(run["losses"], ref))
+        run["loss_abs_diff_max"] = dist(ref_losses)
+        gated = ([] if name in DIST_TRAJECTORY_UNGATED
+                 else ["loss_abs_diff_max"])
+        if "anchored_losses" in run:
+            run["anchored_loss_abs_diff_max"] = dist(run["anchored_losses"])
+            gated.append("anchored_loss_abs_diff_max")
+        for key in gated:
+            if not run[key] <= TRAIN_LOSS_TOL:
+                bad.append(f"{name} rank {r}: {key} {run[key]}")
+        if fp32 is not None:
+            fp32_losses, farthest = fp32
+            d = run["loss_abs_diff_from_fp32_max"] = dist(fp32_losses)
+            if not d <= farthest:
+                bad.append(f"{name} rank {r}: {d} from the fp32 run, one "
+                           f"controller's bf16 runs {farthest}")
+        u = run["first_update_abs_diff_max"]
+        if not u <= DIST_UPDATE_TOL:
+            bad.append(f"{name} rank {r}: first update {u}")
+        if not run["planted_update_wq_skipped_abs_diff_max"] > DIST_UPDATE_TOL:
+            bad.append(f"{name} rank {r}: an update without wq's gradient "
+                       "passes the update gate")
+        g = run["first_step"]["grad_rel_err"]
+        if not g <= TRAIN_GRAD_TOL:
+            bad.append(f"{name} rank {r}: first-step gradients {g}")
+        if "bytes" in run and run["bytes"] != run["bytes_assigned"]:
+            bad.append(f"{name} rank {r}: resident {run['bytes']} against "
+                       f"assigned {run['bytes_assigned']}")
+    run0 = ranks[0]
+    per_rank = lambda key: {r: run[key] for r, run in ranks.items()}
+    out = {
+        "backend": run0["backend"],
+        "devices": sorted({run["device"] for run in ranks.values()}),
+        "coords": per_rank("coords"),
+        "batch_rows_per_rank": run0["batch_rows"],
+        "w_up_piece": run0["w_up_piece"],
+        "losses": run0["losses"],
+        "loss_abs_diff_max": per_rank("loss_abs_diff_max"),
+        **({"loss_abs_diff_from_fp32_max": per_rank(
+            "loss_abs_diff_from_fp32_max")}
+           if "loss_abs_diff_from_fp32_max" in run0 else {}),
+        "first_update_abs_diff_max": per_rank("first_update_abs_diff_max"),
+        "planted_update_wq_skipped_abs_diff_max": per_rank(
+            "planted_update_wq_skipped_abs_diff_max"),
+        **({"anchored_losses": run0["anchored_losses"],
+            "anchored_loss_abs_diff_max": per_rank(
+                "anchored_loss_abs_diff_max")}
+           if "anchored_losses" in run0 else {}),
+        "first_step_grad_rel_err": {
+            r: run["first_step"]["grad_rel_err"] for r, run in ranks.items()},
+        "first_step_attn_grad_rel_err": {
+            r: run["first_step"]["attn_grad_rel_err"]
+            for r, run in ranks.items()},
+        "step_ms_p50": per_rank("step_ms_p50"),
+        "step_ms": per_rank("step_ms"),
+        **({"device_idle_share": {r: run["profile_one_step"][
+            "device_idle_share"] for r, run in ranks.items()},
+            "profile_one_step_rank0": run0["profile_one_step"]}
+           if "profile_one_step" in run0 else {}),
+        "max_memory_allocated_gb": per_rank("max_memory_allocated_gb"),
+        "collectives_per_step": per_rank("collectives_per_step"),
+        "collective_bytes_per_step": per_rank("collective_bytes_per_step"),
+        "staged_through_host": run0["staged_copies_per_step"] > 0,
+        "staged_copies_per_step": per_rank("staged_copies_per_step"),
+        "staged_bytes_per_step": per_rank("staged_bytes_per_step"),
+        "whole_leaves_peak": per_rank("whole_leaves_peak"),
+        "launches_per_step": {r: {k: v / DIST_STEPS
+                                  for k, v in run["launches"].items()}
+                              for r, run in ranks.items()}}
+    if "bytes" in run0:
+        out.update(bytes=per_rank("bytes"),
+                   bytes_assigned=per_rank("bytes_assigned"))
+    if "planted_tp_skips_forward_reduce" in run0:
+        out["planted_tp_skips_forward_reduce"] = per_rank(
+            "planted_tp_skips_forward_reduce")
+        if not all(run["planted_tp_skips_forward_reduce"] > TRAIN_LOSS_TOL
+                   for run in ranks.values()):
+            bad.append(f"{name}: a forward without its tp reduce passes "
+                       "the loss limit")
+    for fault in ("planted_local_reduce_scatter",
+                  "planted_tp_copy_keeps_own_grad"):
+        if fault in run0:
+            out[fault] = {r: run[fault] for r, run in ranks.items()}
+            if not all(run[fault]["grad_rel_err"] > TRAIN_GRAD_TOL
+                       for run in ranks.values()):
+                bad.append(f"{name}: {fault} passes the gradient limit")
+    return out
 
 
 def phase_train_dist(device, errs):
@@ -7863,40 +8217,42 @@ def phase_train_dist(device, errs):
     phase's adamw, seed 0) through TorchTrainer on the port's runtime:
     world 1 on NCCL, then two ranks at num_gpus=0.5 on gloo (NCCL takes
     no two ranks on one card) with CUDA tensors staged through host
-    memory, dp = 2 then fsdp = 2, each against the single-controller
-    steps from the same parameters and batch."""
+    memory, dp = 2, fsdp = 2, tp = 2 and fsdp = 2 under Adafactor, then
+    four ranks at num_gpus=0.25 under fsdp 2 x tp 2, each against the
+    single-controller steps from the same parameters and batch."""
     import ray_tpu_torch as rt
     from ray_tpu_torch.train import ScalingConfig, TorchBackendConfig
 
     t_phase = time.perf_counter()
-    shapes = {"dp rank": flash_shape_timings(
-        device, errs, "dp rank", TRAIN_B // 2, TRAIN_S, 12, 64, True,
-        DIST_KERNEL_SEED)[0]}
-    emit({"phase": "flash_kernel_timing_dp_rank", **{
-        f"{k} {tag}": v for tag, t in shapes.items() for k, v in t.items()}})
-    # The single-controller reference: the first step's gradients, then
-    # DIST_STEPS steps' losses, from seed 0 on the train phase's batch.
+    shapes = {}
+    for tag, b, heads in (("dp rank", TRAIN_B // 2, 12),
+                          ("tp rank", TRAIN_B, 6),
+                          ("hybrid rank", TRAIN_B // 2, 6)):
+        shapes[tag] = flash_shape_timings(device, errs, tag, b, TRAIN_S,
+                                          heads, 64, True,
+                                          DIST_KERNEL_SEED)[0]
+        emit({"phase": f"flash_kernel_timing_{tag.replace(' ', '_')}",
+              "card": card_line(),
+              **{k: v for k, v in shapes[tag].items()}})
     cfg = gpt.GPTConfig.gpt2_124m(max_seq=TRAIN_S, remat=True,
                                   attn_impl="flash")
-    opt = adamw(3e-4, weight_decay=0.1, mu_dtype=torch.bfloat16)
-    gen = torch.Generator(device=device).manual_seed(0)
-    params, opt_state, step = build_training(cfg, opt, gen, device)
     batch = train_batch(cfg, device)
-    _, ref_grads = loss_and_grads(cfg, params, batch, "flash")
-    ref_grads = {k: v.float().cpu() for k, v in ref_grads.items()}
-    ref_losses = []
-    for _ in range(DIST_STEPS):
-        params, opt_state, loss = step(params, opt_state, batch)
-        ref_losses.append(float(loss))
-    ref_digest = params_digest(params)
-    del params, opt_state
-    torch.cuda.empty_cache()
+    ref_grads, ref_losses, ref_digest = dist_references(device, cfg, batch)
 
     out = {"phase": "train_dist", "card": card_line(),
            "config": "gpt2_124m bf16 remat flash global B=8 S=1024 "
-           "adamw(3e-4, wd=0.1, mu bf16), seed 0",
+           "adamw(3e-4, wd=0.1, mu bf16) or adafactor(3e-4), seed 0",
            "steps": DIST_STEPS, "reference_losses": ref_losses,
-           "loss_tol": TRAIN_LOSS_TOL, "grad_tol": TRAIN_GRAD_TOL}
+           "flash_vs_xla_loss_abs_diff_max": max(
+               abs(a - b) for a, b in zip(ref_losses["adamw"],
+                                          ref_losses["adamw_xla"])),
+           "one_controller_from_fp32_loss_abs_diff_max": {
+               k: max(abs(a - b) for a, b in zip(ref_losses[k],
+                                                 ref_losses["adamw_fp32"]))
+               for k in ("adamw", "adamw_xla")},
+           "loss_tol": TRAIN_LOSS_TOL, "grad_tol": TRAIN_GRAD_TOL,
+           "update_tol": DIST_UPDATE_TOL,
+           "trajectory_ungated": list(DIST_TRAJECTORY_UNGATED)}
     bad = []
     by_path = {}
     rt.init(num_cpus=4, resources={"GPU": 1})
@@ -7907,55 +8263,38 @@ def phase_train_dist(device, errs):
         del ref_grads
         config = {"ref_losses": ref_losses, "ref_grads": ref}
         runs1, boot1 = run_dist(
-            {**config, "topologies": {"world1": {"dp": 1, "fsdp": 1}}},
-            1, ScalingConfig(num_workers=1, use_gpu=True),
-            TorchBackendConfig())
+            config, {"world1": ({"dp": 1, "fsdp": 1}, "adamw")}, 1,
+            ScalingConfig(num_workers=1, use_gpu=True), TorchBackendConfig())
         runs2, boot2 = run_dist(
-            {**config, "topologies": {"dp": {"dp": 2, "fsdp": 1},
-                                          "fsdp": {"dp": 1, "fsdp": 2}}},
-            2, ScalingConfig(num_workers=2, resources_per_worker={
-                "CPU": 1, "GPU": DIST_RANK_GPUS}),
+            config, DIST_TWO_RANKS, 2, ScalingConfig(
+                num_workers=2, resources_per_worker={
+                    "CPU": 1, "GPU": DIST_RANK_GPUS}),
+            TorchBackendConfig(backend="gloo"))
+        runs4, boot4 = run_dist(
+            config, DIST_FOUR_RANKS, 4, ScalingConfig(
+                num_workers=4, resources_per_worker={
+                    "CPU": 1, "GPU": DIST_HYBRID_GPUS}),
             TorchBackendConfig(backend="gloo"))
     finally:
         rt.shutdown()
-    out["worker_boot_s"] = {"world1": boot1, "two ranks": boot2}
-    runs = {**runs1, **runs2}
+    out["worker_boot_s"] = {"world1": boot1, "two ranks": boot2,
+                            "four ranks": boot4}
+    opts = {"world1": "adamw", **{k: v[1] for k, v in
+                                  {**DIST_TWO_RANKS,
+                                   **DIST_FOUR_RANKS}.items()}}
+    runs = {**runs1, **runs2, **runs4}
     for name, ranks in runs.items():
-        for r, run in sorted(ranks.items()):
-            per_step = {k: v / DIST_STEPS for k, v in run["launches"].items()}
-            if per_step != FLASH_PER_STEP:
-                bad.append(f"{name} rank {r}: flash launches per step "
-                           f"{per_step}, expected {FLASH_PER_STEP}")
+        out[name] = dist_summary(
+            name, ranks, ref_losses[opts[name]], bad,
+            (ref_losses["adamw_fp32"], max(out[
+                "one_controller_from_fp32_loss_abs_diff_max"].values()))
+            if opts[name] == "adamw" else None)
+        out[name]["optimizer"] = opts[name]
+        for r, run in ranks.items():
             by_path[f"train_dist {name} rank {r}"] = run["launches"]
-            dl = max(abs(a - b) for a, b in zip(run["losses"], ref_losses))
-            run["loss_abs_diff_max"] = dl
-            if not dl <= TRAIN_LOSS_TOL:
-                bad.append(f"{name} rank {r}: |loss - reference| {dl}")
-        run0 = ranks[0]
-        out[name] = {
-            "backend": run0["backend"],
-            "devices": sorted({run["device"] for run in ranks.values()}),
-            "batch_rows_per_rank": run0["batch_rows"],
-            "losses": run0["losses"],
-            "loss_abs_diff_max": max(run["loss_abs_diff_max"]
-                                     for run in ranks.values()),
-            "step_ms_p50": {r: run["step_ms_p50"] for r, run in ranks.items()},
-            "step_ms": {r: run["step_ms"] for r, run in ranks.items()},
-            "device_idle_share": {r: run["profile_one_step"][
-                "device_idle_share"] for r, run in ranks.items()},
-            "profile_one_step_rank0": run0["profile_one_step"],
-            "max_memory_allocated_gb": {
-                r: run["max_memory_allocated_gb"] for r, run in ranks.items()},
-            "collectives_per_step": run0["collectives_per_step"],
-            "collective_bytes_per_step": run0["collective_bytes_per_step"],
-            "staged_through_host": run0["staged_copies_per_step"] > 0,
-            "staged_copies_per_step": run0["staged_copies_per_step"],
-            "staged_bytes_per_step": run0["staged_bytes_per_step"],
-            "launches_per_step": {k: v / DIST_STEPS
-                                  for k, v in run0["launches"].items()}}
     w1 = runs["world1"][0]
     out["world1"]["bitwise_equal_single_controller"] = {
-        "losses": w1["losses"] == ref_losses,
+        "losses": w1["losses"] == ref_losses["adamw"],
         "params": w1["digest"] == ref_digest}
     dp = runs["dp"]
     out["dp"]["params_identical"] = dp[0]["digest"] == dp[1]["digest"]
@@ -7968,19 +8307,15 @@ def phase_train_dist(device, errs):
         bad.append("dp: a rank that skips the all-reduce passes the "
                    "identity gate")
     fs = runs["fsdp"]
-    first, planted = fs[0]["first_step"], fs[0]["planted_local_reduce_scatter"]
-    out["fsdp"].update(first_step=first, planted_local_reduce_scatter=planted,
-                       bytes={r: run["bytes"] for r, run in fs.items()},
-                       bytes_assigned={r: run["bytes_assigned"]
-                                       for r, run in fs.items()})
-    if not first["grad_rel_err"] <= TRAIN_GRAD_TOL:
-        bad.append(f"fsdp: first-step gradients {first['grad_rel_err']}")
-    if not planted["grad_rel_err"] > TRAIN_GRAD_TOL:
-        bad.append("fsdp: a local reduce-scatter passes the gradient limit")
-    for r, run in fs.items():
-        if run["bytes"] != run["bytes_assigned"]:
-            bad.append(f"fsdp rank {r}: resident {run['bytes']} against "
-                       f"assigned {run['bytes_assigned']}")
+    out["fsdp"]["peak_gb"] = {
+        "per_layer_gather": {r: run["max_memory_allocated_gb"]
+                             for r, run in fs.items()},
+        "whole_tree_gather": {
+            r: run["max_memory_allocated_gb_whole_tree_gather"]
+            for r, run in fs.items()},
+        "recorded_whole_tree_gather": WHOLE_TREE_FSDP_PEAK_GB,
+        "dp_rank": {r: run["max_memory_allocated_gb"]
+                    for r, run in dp.items()}}
     out["phase_s"] = time.perf_counter() - t_phase
     out["gates_failed"] = bad
     emit(out)

@@ -820,9 +820,10 @@ class CudaBatchIterator:
                     "sharding must be the port's batch sharding "
                     "(parallel/mesh.py batch_sharding(mesh)), got "
                     f"{sharding!r}")
-            if sharding.dim not in (None, 0):
+            dims = [split.dim for split in sharding.splits]
+            if dims not in ([], [0]):
                 raise ValueError("a batch sharding splits dimension 0, "
-                                 f"this one splits {sharding.dim}")
+                                 f"this one splits {dims}")
             if device is not None and (torch.device(device).type
                                        != sharding.device.type):
                 raise ValueError(f"device {device} is not the sharding's "
@@ -897,8 +898,8 @@ class CudaBatchIterator:
                 raise TypeError(
                     f"column {name!r} has non-numeric rows (dtype=object); "
                     "tensors need numeric columns — map/encode it first")
-            if self.sharding is not None and self.sharding.dim == 0:
-                start, stop = self.sharding.bounds(arr.shape[0])
+            if self.sharding is not None and self.sharding.splits:
+                start, stop = self.sharding.bounds(arr.shape)[0]
                 arr = arr[start:stop]
             if self._stream is None:
                 out[name] = _cpu_tensor(arr, self.dtype)

@@ -59,6 +59,7 @@ import torch.nn.functional as F
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.gpt import (GPTConfig, _layer_norm,
                                       stack_block_params, weight_view)
+from ray_tpu_torch.parallel.mesh import reduce_from
 from ray_tpu_torch.parallel.mesh import reduce_shards as _reduce
 
 
@@ -80,54 +81,88 @@ def _rotary_pos(x: torch.Tensor, rotary_dim: int,
     return torch.cat([rot, rest], dim=-1)
 
 
-def _proj(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """h [..., D] @ w [D, *out] → [..., *out] as one 2-D matmul."""
+def _proj(h: torch.Tensor, w: torch.Tensor, tp=None) -> torch.Tensor:
+    """h [..., D] @ w [D, *out] → [..., *out] as one 2-D matmul; under
+    ``tp`` (a megatron rank's process mesh) `_column_parallel`."""
     D = w.shape[0]
-    out = h.reshape(-1, D) @ w.reshape(D, -1)
+    h2d, w2d = h.reshape(-1, D), w.reshape(D, -1)
+    out = h2d @ w2d if tp is None else _column_parallel(h2d, w2d, tp)
     return out.reshape(*h.shape[:-1], *w.shape[1:])
 
 
-def _qkv(h, layer, cfg):
-    q = _proj(h, weight_view(layer, "wq", cfg.dtype))       # [B, S, H, K]
-    k = _proj(h, weight_view(layer, "wk", cfg.dtype))
-    v = _proj(h, weight_view(layer, "wv", cfg.dtype))
-    return q, k, v
+def _qkv(h, layer, cfg, tp=None):
+    """The q, k, v projections [..., H, K] of h [..., D]. ``tp``: the
+    process mesh of a megatron rank, whose wq/wk/wv hold its heads: the
+    three are one `_column_parallel` product (h's gradient summed over
+    tp once)."""
+    ws = [weight_view(layer, n, cfg.dtype) for n in ("wq", "wk", "wv")]
+    if tp is None:
+        return tuple(_proj(h, w) for w in ws)               # [B, S, H, K]
+    D = h.shape[-1]
+    outs = _column_parallel(h.reshape(-1, D), [w.reshape(D, -1) for w in ws],
+                            tp)
+    return tuple(o.reshape(*h.shape[:-1], *w.shape[1:])
+                 for o, w in zip(outs, ws))
 
 
-def _attn_out(attn: torch.Tensor, layer, cfg) -> torch.Tensor:
-    """attn [..., H, K] @ wo [H, K, D] → [..., D]."""
+def _row_parallel(x2d: torch.Tensor, w2d: torch.Tensor, tp, dtype):
+    """A megatron rank's partial x @ w, its fp32 sums all-reduced over tp
+    in fp32, then cast to ``dtype`` (ranks' bf16 partials summed in
+    another order would round otherwise)."""
+    return reduce_from(_matmul_f32(x2d, w2d), tp, "tp").to(dtype)
+
+
+def _attn_out(attn: torch.Tensor, layer, cfg, tp=None) -> torch.Tensor:
+    """attn [..., H, K] @ wo [H, K, D] → [..., D]; under ``tp`` this
+    rank's heads' partial sum, all-reduced (`_row_parallel`)."""
     wo = weight_view(layer, "wo", cfg.dtype)
     H, K, D = wo.shape
-    out = attn.reshape(-1, H * K) @ wo.reshape(H * K, D)
+    a, w = attn.reshape(-1, H * K), wo.reshape(H * K, D)
+    out = a @ w if tp is None else _row_parallel(a, w, tp, cfg.dtype)
     return out.reshape(*attn.shape[:-2], D)
 
 
-def _mlp(x, layer, cfg):
+def _mlp(x, layer, cfg, tp=None):
     """Feed-forward block with the tanh GELU. ``layer`` is one layer's
-    dict, or under tensor parallelism the list of every shard's (w_up,
-    b_up and w_down sharded on the hidden width): the up-projection and
-    GELU are shard-local, and the down-projection partials are summed
-    across shards (`_reduce`) BEFORE the replicated b_down joins the
-    residual (adding it per shard would count it tp times)."""
+    dict, or under single-controller tensor parallelism the list of
+    every shard's (w_up, b_up and w_down sharded on the hidden width):
+    the up-projection and GELU are shard-local, and the down-projection
+    partials are summed across shards (`_reduce`) BEFORE the replicated
+    b_down joins the residual (adding it per shard would count it tp
+    times). ``tp``: the process mesh of a megatron rank, whose layer
+    holds its slice of the hidden width: the same, the up-projection
+    `_column_parallel` and the partials summed by `_row_parallel`."""
     shards = layer if isinstance(layer, list) else [layer]
     first = shards[0]
     h = _layer_norm(x, first["ln2_scale"], first["ln2_bias"])
     parts = []
     for lay in shards:
         hs = h.to(lay["w_up"].device)
-        up = F.gelu(_proj(hs, weight_view(lay, "w_up", cfg.dtype))
+        up = F.gelu(_proj(hs, weight_view(lay, "w_up", cfg.dtype), tp)
                     + lay["b_up"].to(cfg.dtype), approximate="tanh")
-        parts.append(_proj(up, weight_view(lay, "w_down", cfg.dtype)))
+        w_down = weight_view(lay, "w_down", cfg.dtype)
+        if tp is None:
+            parts.append(_proj(up, w_down))
+        else:
+            parts.append(_row_parallel(up.reshape(-1, up.shape[-1]), w_down,
+                                       tp, cfg.dtype).reshape(x.shape))
     down = _reduce(parts, x.device)
     return x + (down + first["b_down"].to(cfg.dtype))
 
 
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w with fp32 sums AND an fp32 result. On CUDA the GEMM writes
+    fp32 straight from its fp32 accumulators; on the CPU both operands
+    are upcast (the same products — bf16 values are exact in fp32)."""
+    if x.is_cuda and x.dtype != torch.float32:
+        return torch.mm(x, w, out_dtype=torch.float32)
+    return x.float() @ w.float()
+
+
 class _MatmulF32(torch.autograd.Function):
-    """[M, D] @ [D, N] with fp32 accumulation AND an fp32 result. On
-    CUDA the GEMM writes fp32 straight from its fp32 accumulators; on
-    the CPU both operands are upcast (the same products — bf16 values
-    are exact in fp32). ``torch.mm(..., out_dtype=)`` has no derivative,
-    so the backward is written here: the fp32 cotangent is rounded to the
+    """[M, D] @ [D, N] with fp32 accumulation AND an fp32 result
+    (`_mm_f32`). ``torch.mm(..., out_dtype=)`` has no derivative, so the
+    backward is written here: the fp32 cotangent is rounded to the
     operands' dtype and both products run in that dtype with fp32 sums,
     as every other bf16 product's backward in the model does (and as a
     TPU runs an fp32-by-bf16 product at default precision)."""
@@ -135,9 +170,7 @@ class _MatmulF32(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        if x.is_cuda and x.dtype != torch.float32:
-            return torch.mm(x, w, out_dtype=torch.float32)
-        return x.float() @ w.float()
+        return _mm_f32(x, w)
 
     @staticmethod
     def backward(ctx, g):
@@ -151,6 +184,47 @@ class _MatmulF32(torch.autograd.Function):
 def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """[M, D] @ [D, N] → fp32 [M, N] from fp32 sums, differentiable."""
     return _MatmulF32.apply(x, w)
+
+
+class _ColumnParallel(torch.autograd.Function):
+    """x [M, D] @ w [D, N / tp] for each w of a megatron rank: its
+    columns of products whose input every rank of tp reads whole
+    (``f32``: the fp32 results of `_MatmulF32`, their cotangents rounded
+    to x's dtype first). The backward sums x's gradient over the
+    products and over tp from the ranks' fp32 partials (`reduce`, one
+    all-reduce) and rounds the sum once to x's dtype, as one
+    controller's product rounds its whole sum once: bf16 partials
+    summed across ranks would round again."""
+
+    reduce = staticmethod(lambda t, mesh: mesh.all_reduce_sum(t, ("tp",)))
+
+    @staticmethod
+    def forward(ctx, x, mesh, f32, *ws):
+        ctx.save_for_backward(x, *ws)
+        ctx.mesh = mesh
+        return tuple(_mm_f32(x, w) if f32 else x @ w for w in ws)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        x, *ws = ctx.saved_tensors
+        gs = [None if g is None else g.to(x.dtype) for g in gs]
+        gx = None
+        if ctx.needs_input_grad[0]:
+            gx = sum(_mm_f32(g, w.t()) for g, w in zip(gs, ws)
+                     if g is not None)
+            gx = _ColumnParallel.reduce(gx, ctx.mesh).to(x.dtype)
+        gws = [x.t() @ g if g is not None and need else None
+               for g, need in zip(gs, ctx.needs_input_grad[3:])]
+        return (gx, None, None, *gws)
+
+
+def _column_parallel(x: torch.Tensor, ws, tp, f32: bool = False):
+    """`_ColumnParallel` of x [M, D] and this rank's columns over the
+    process mesh ``tp``: of each w [D, n] of the list ``ws`` (→ a tuple
+    of products), or of one w (→ its product)."""
+    if isinstance(ws, (list, tuple)):
+        return _ColumnParallel.apply(x, tp, f32, *ws)
+    return _ColumnParallel.apply(x, tp, f32, ws)[0]
 
 
 def _head(params, cfg, x):

@@ -15,6 +15,21 @@ plain fp32-softmax path (``attn_impl="xla"``), the flash kernels
 (``"flash"``, ``ray_tpu_torch/ops/attention.py``) or ring attention
 over a sequence-parallel mesh (``"ring"``, ``parallel/ring.py``; pass
 ``mesh=``).
+
+One rank of a process mesh (``parallel/mesh.py::ProcessMesh``) runs the
+model on its own pieces of the parameters (``train/spmd.py::
+sharded_init``) through a `RankPlan` (``loss_fn(..., plan=)``), which
+`rank_plan` builds from the pieces' shardings. Under fsdp each
+layer's slice of the stacked [L, ...] leaves is gathered whole inside
+the layer's checkpointed call, so at most one layer's leaves are whole
+at a time, forward and backward (the gather is repeated in the
+recompute, its gradient reduce-scattered per layer); the embedding,
+the final norm and the head are gathered around their own use. Under
+tp the block is megatron's: the heads, the MLP's hidden width and the
+vocabulary are split across the tp ranks, the attention-out and
+MLP-down partial sums are all-reduced in fp32 and cast to
+``cfg.dtype`` after, and the loss is a vocab-parallel cross-entropy
+(no rank builds the whole logits).
 """
 
 from __future__ import annotations
@@ -29,6 +44,7 @@ import torch.nn.functional as F
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch._params import init_from_specs
+from ray_tpu_torch.parallel.mesh import gather_leaf, reduce_from
 
 
 @dataclasses.dataclass(frozen=True)
@@ -352,16 +368,60 @@ def _attention(q, k, v, cfg: GPTConfig, mesh=None):
 
 
 def _block(x: torch.Tensor, layer: dict[str, torch.Tensor],
-           cfg: GPTConfig, mesh=None) -> torch.Tensor:
-    """One pre-norm transformer block. x: [B, S, D]."""
+           cfg: GPTConfig, mesh=None, plan=None) -> torch.Tensor:
+    """One pre-norm transformer block. x: [B, S, D]. ``plan``: a rank's
+    `RankPlan` on a process mesh (its fsdp slices are gathered here,
+    inside the layer's checkpointed call)."""
     from ray_tpu_torch.models.decode import _attn_out, _mlp, _qkv
 
+    tp = None
+    if plan is not None:
+        layer, tp = plan.gather_layer(layer), plan.tp
     h = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"])
-    q, k, v = _qkv(h, layer, cfg)
+    q, k, v = _qkv(h, layer, cfg, tp)
     q = _rotary(q, cfg.rotary_dim)
     k = _rotary(k, cfg.rotary_dim)
-    x = x + _attn_out(_attention(q, k, v, cfg, mesh), layer, cfg)
-    return _mlp(x, layer, cfg)
+    x = x + _attn_out(_attention(q, k, v, cfg, mesh), layer, cfg, tp)
+    return _mlp(x, layer, cfg, tp)
+
+
+@dataclasses.dataclass(frozen=True)
+class RankPlan:
+    """How one rank of a process mesh runs the model on its pieces:
+    ``fsdp_dims``, the dimension of each leaf split over fsdp (gathered
+    around its use); ``tp``, the mesh when tp > 1 (megatron); ``vocab``,
+    this rank's [start, stop) of the vocabulary."""
+
+    mesh: Any
+    fsdp_dims: dict
+    tp: Any
+    vocab: tuple[int, int]
+
+    def gathered(self, name: str, w: torch.Tensor, layer: bool = False):
+        """Leaf ``name``'s piece ``w`` (one layer's slice when ``layer``)
+        whole over fsdp; tp pieces stay as they are."""
+        dim = self.fsdp_dims.get(name)
+        if dim is None:
+            return w
+        return gather_leaf(w, self.mesh, "fsdp", dim - 1 if layer else dim)
+
+    def gather_layer(self, layer: dict) -> dict:
+        return {k: self.gathered(k, w, True) for k, w in layer.items()}
+
+
+def rank_plan(cfg: GPTConfig, process_mesh, shardings: dict):
+    """The `RankPlan` of this rank of ``process_mesh``, whose pieces are
+    cut by ``shardings`` (by leaf name; `train/spmd.py::sharded_init`'s);
+    None where neither fsdp nor tp is live (a dp rank holds whole leaves
+    and runs the model as one controller does)."""
+    if not (process_mesh.live("fsdp") or process_mesh.live("tp")):
+        return None
+    vocab = shardings["wte"].bounds((cfg.vocab_size, cfg.d_model))[0]
+    return RankPlan(
+        mesh=process_mesh,
+        fsdp_dims={k: s.split_dim("fsdp") for k, s in shardings.items()
+                   if s.split_dim("fsdp") is not None},
+        tp=process_mesh if process_mesh.live("tp") else None, vocab=vocab)
 
 
 def _checkpointed(fn, *args):
@@ -373,31 +433,73 @@ def _checkpointed(fn, *args):
 
 
 def forward_hidden(params: dict[str, torch.Tensor], tokens: torch.Tensor,
-                   cfg: GPTConfig, mesh=None) -> torch.Tensor:
+                   cfg: GPTConfig, mesh=None, *,
+                   plan: RankPlan | None = None) -> torch.Tensor:
     """tokens: [B, S] int → final-norm hidden states [B, S, D] (cfg.dtype).
     The embedding gathers from the table cast to cfg.dtype, so its
     gradient is a scatter-add in cfg.dtype, as in the JAX package.
     ``mesh`` (``parallel/ring.py::make_sp_mesh``) is read only when
-    cfg.attn_impl == "ring"."""
-    x = params["wte"].to(cfg.dtype)[tokens.long()]
+    cfg.attn_impl == "ring"; ``plan``: ``params`` are this rank's
+    pieces, run by the `RankPlan` (see the module docstring)."""
+    return _hidden(params, tokens, cfg, mesh, plan)
+
+
+def _embed(params, tokens: torch.Tensor, cfg: GPTConfig,
+           plan) -> torch.Tensor:
+    """The token embeddings [B, S, D] in cfg.dtype; under tp a masked
+    lookup of this rank's vocabulary rows, summed over tp (each token's
+    row is on one rank: the sum is exact)."""
+    tokens = tokens.long()
+    if plan is None:
+        return params["wte"].to(cfg.dtype)[tokens]
+    wte = plan.gathered("wte", params["wte"]).to(cfg.dtype)
+    if plan.tp is None:
+        return wte[tokens]
+    start, stop = plan.vocab
+    local = tokens - start
+    inside = ((local >= 0) & (local < stop - start))[..., None]
+    rows = wte[local.clamp(0, stop - start - 1)]
+    return reduce_from(torch.where(inside, rows, torch.zeros_like(rows)),
+                       plan.tp, "tp")
+
+
+def _hidden(params, tokens, cfg: GPTConfig, mesh, plan) -> torch.Tensor:
+    """`forward_hidden` under a `RankPlan` (or None). Under fsdp every
+    layer runs checkpointed, so that its gathered leaves are freed after
+    its forward and gathered again in its recompute."""
+    x = _embed(params, tokens, cfg, plan)
+    per_layer = cfg.remat or (plan is not None and bool(plan.fsdp_dims))
     for layer in unbind_layers(stack_block_params(params)):
-        if cfg.remat:
-            x = _checkpointed(_block, x, layer, cfg, mesh)
+        if per_layer:
+            x = _checkpointed(_block, x, layer, cfg, mesh, plan)
         else:
-            x = _block(x, layer, cfg, mesh)
-    return _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"])
+            x = _block(x, layer, cfg, mesh, plan)
+    scale, bias = params["ln_f_scale"], params["ln_f_bias"]
+    if plan is not None:
+        scale = plan.gathered("ln_f_scale", scale)
+        bias = plan.gathered("ln_f_bias", bias)
+    return _layer_norm(x, scale, bias)
 
 
-def _head_matrix(params, cfg: GPTConfig) -> torch.Tensor:
-    head = params["lm_head"] if not cfg.tie_embeddings else params["wte"].T
-    return head.to(cfg.dtype)
+def _head_matrix(params, cfg: GPTConfig, plan=None) -> torch.Tensor:
+    """The LM head [D, V] in cfg.dtype (this rank's vocabulary columns
+    under tp), gathered over fsdp under a `RankPlan`."""
+    name = "wte" if cfg.tie_embeddings else "lm_head"
+    head = params[name]
+    if plan is not None:
+        head = plan.gathered(name, head)
+    return (head.T if cfg.tie_embeddings else head).to(cfg.dtype)
 
 
-def _logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
-    """x [..., D] @ head [D, V] → fp32 logits [..., V] from fp32 sums."""
-    from ray_tpu_torch.models.decode import _matmul_f32
+def _logits(x: torch.Tensor, head: torch.Tensor, tp=None) -> torch.Tensor:
+    """x [..., D] @ head [D, V] → fp32 logits [..., V] from fp32 sums;
+    under ``tp`` (a megatron rank's process mesh) this rank's
+    vocabulary columns, x's gradient summed over tp (`_column_parallel`)."""
+    from ray_tpu_torch.models.decode import _column_parallel, _matmul_f32
 
-    out = _matmul_f32(x.reshape(-1, x.shape[-1]), head)
+    x2d = x.reshape(-1, x.shape[-1])
+    out = (_matmul_f32(x2d, head) if tp is None
+           else _column_parallel(x2d, head, tp, f32=True))
     return out.reshape(*x.shape[:-1], head.shape[1])
 
 
@@ -448,26 +550,66 @@ def pipeline_loss_fn(params, tokens, targets, cfg: GPTConfig, mesh,
     return (logz - gold).mean()
 
 
-def _ce_sum(x, head, targets):
-    """Summed next-token cross-entropy of one chunk (fp32 logits)."""
-    logits = _logits(x, head)
-    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                           targets.reshape(-1).long(), reduction="sum")
+class _VocabParallelCE(torch.autograd.Function):
+    """Per-token cross-entropy from this rank's vocabulary columns of the
+    fp32 logits [N, V/tp] (columns ``start`` on): the max, the sum of
+    exponentials and the target's logit each all-reduced over tp, so no
+    rank builds the whole logits. The backward is softmax - onehot on
+    the rank's columns."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, start, mesh):
+        m = mesh.all_reduce_max(logits.max(dim=-1).values, ("tp",))
+        shifted = logits - m[:, None]
+        probs = shifted.exp()
+        total = mesh.all_reduce_sum(probs.sum(dim=-1), ("tp",))
+        local = targets.long() - start
+        inside = (local >= 0) & (local < logits.shape[1])
+        local = local.clamp(0, logits.shape[1] - 1)
+        gold = shifted.gather(1, local[:, None])[:, 0]
+        gold = mesh.all_reduce_sum(
+            torch.where(inside, gold, torch.zeros_like(gold)), ("tp",))
+        ctx.save_for_backward(probs.div_(total[:, None]), local, inside)
+        return total.log() - gold
+
+    @staticmethod
+    def backward(ctx, grad):
+        probs, local, inside = ctx.saved_tensors
+        g = probs * grad[:, None]
+        rows = torch.arange(g.shape[0], device=g.device)
+        g[rows, local] -= torch.where(inside, grad, torch.zeros_like(grad))
+        return g, None, None, None
+
+
+def _ce_sum(x, head, targets, plan=None):
+    """Summed next-token cross-entropy of one chunk (fp32 logits); under
+    tp from this rank's vocabulary columns (`_VocabParallelCE`)."""
+    logits = _logits(x, head, None if plan is None else plan.tp)
+    logits, targets = logits.reshape(-1, logits.shape[-1]), targets.reshape(-1)
+    if plan is None or plan.tp is None:
+        return F.cross_entropy(logits, targets.long(), reduction="sum")
+    return _VocabParallelCE.apply(logits, targets, plan.vocab[0],
+                                  plan.tp).sum()
 
 
 def loss_fn(params: dict[str, torch.Tensor], tokens: torch.Tensor,
-            targets: torch.Tensor, cfg: GPTConfig, mesh=None) -> torch.Tensor:
+            targets: torch.Tensor, cfg: GPTConfig, mesh=None, *,
+            plan: RankPlan | None = None) -> torch.Tensor:
     """Mean next-token cross-entropy. tokens/targets: [B, S] int.
 
     With cfg.loss_chunk set, the vocab projection and CE run chunk by
     chunk over the sequence, each chunk checkpointed: only one fp32
     [B, chunk, V] logits block is live at a time, forward and backward
     (the chunk recomputes its logits in the backward; the head gradient
-    accumulates across chunks)."""
-    x = forward_hidden(params, tokens, cfg, mesh)
-    head = _head_matrix(params, cfg)
+    accumulates across chunks). ``plan``: a `RankPlan`; ``params`` are
+    this rank's pieces and ``tokens`` its rows; the loss is the mean over
+    the rank's rows (see the module docstring)."""
+    x = _hidden(params, tokens, cfg, mesh, plan)
+    head = _head_matrix(params, cfg, plan)
     B, S = tokens.shape
     if cfg.loss_chunk is None or S <= cfg.loss_chunk:
+        if plan is not None and plan.tp is not None:
+            return _ce_sum(x, head, targets, plan) / (B * S)
         logits = _logits(x, head)
         return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                targets.reshape(-1).long())
@@ -477,7 +619,7 @@ def loss_fn(params: dict[str, torch.Tensor], tokens: torch.Tensor,
     total = torch.zeros((), device=x.device, dtype=torch.float32)
     for c in range(0, S, C):
         total = total + _checkpointed(_ce_sum, x[:, c:c + C], head,
-                                      targets[:, c:c + C])
+                                      targets[:, c:c + C], plan)
     return total / (B * S)
 
 
@@ -489,4 +631,5 @@ __all__ = ["GPTConfig", "param_specs", "logical_axes", "partition_rules",
            "init_params",
            "QUANT_RULES", "quant_axes", "quantize_params", "dequant", "weight_view",
            "stack_block_params", "unbind_layers", "forward_hidden", "forward",
-           "forward_pipeline", "pipeline_loss_fn", "loss_fn", "num_params"]
+           "forward_pipeline", "pipeline_loss_fn", "loss_fn", "num_params",
+           "RankPlan", "rank_plan"]

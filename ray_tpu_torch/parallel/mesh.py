@@ -4,17 +4,21 @@ process mesh.
 Counterpart of ``ray_tpu/parallel/mesh.py``: `MESH_AXES`,
 `DEFAULT_LOGICAL_RULES` and `PIPELINE_LOGICAL_RULES` (read by
 ``models/partition.py::logical_to_spec`` and ``place_on_axis``, and by
-the memory audit), `MeshConfig`, `make_mesh`, `replicated` and
-`batch_sharding`.
+the memory audit), `MeshConfig`, `make_mesh`, `single_device_mesh`,
+`replicated` and `batch_sharding`.
 
-Two kinds of mesh. The dp and fsdp axes span processes: `make_mesh`,
+Two kinds of mesh. The dp, fsdp and tp axes span processes: `make_mesh`,
 called in every rank of a ``torch.distributed`` process group (a
 `train.TorchTrainer` gang), resolves a `MeshConfig` over the world size
 and returns this rank's `ProcessMesh` (the axis sizes, the rank's
 coordinate on each axis with ranks laid out row-major over `MESH_AXES`,
-as the JAX fallback lays out devices, one process group per axis, and
-the rank's device), whose `Sharding` of a leaf names the dimension its
-axes split and this rank's index range on it. The other axes run on one
+as the JAX fallback lays out devices, a process group for every set of
+live axes, and the rank's device), whose `Sharding` of a leaf names the
+dimensions its axes split (up to two: embed over fsdp and heads, mlp or
+vocab over tp) and this rank's index range on each. `gather_leaf` and
+`reduce_from` are its collectives under autograd: the fsdp gather and
+the sum of megatron's row-parallel partials (its column-parallel
+product is ``models/decode.py::_column_parallel``). The other axes run on one
 controller inside a rank, as the port's tensor-parallel engine does: a
 single-controller mesh is a plain list of devices, one per shard of ONE
 mesh axis, and a device may repeat (the shards then run in turn on it,
@@ -31,7 +35,9 @@ splits, and the cross-shard sums (`reduce_shards`), live there.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
+import weakref
 from typing import Any
 
 import numpy as np
@@ -120,7 +126,10 @@ def axis_shards(tree: dict, name: str, mesh) -> list:
 
 # The axes whose shards are processes; the others run on one controller
 # inside a rank (`device_mesh`).
-PROCESS_AXES: tuple[str, ...] = ("dp", "fsdp")
+PROCESS_AXES: tuple[str, ...] = ("dp", "fsdp", "tp")
+# The process axes that split the batch: a gradient is averaged over
+# those of them that do not split its leaf.
+DATA_AXES: tuple[str, ...] = ("dp", "fsdp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,50 +185,83 @@ def _host_tensor(x) -> torch.Tensor:
 
 
 @dataclasses.dataclass(frozen=True)
+class Split:
+    """One dimension of a leaf split across processes: over mesh ``axes``
+    into ``count`` even pieces, of which this rank holds piece ``index``
+    (row-major over ``axes``, as the JAX sharding assigns the device at
+    this rank's mesh position)."""
+
+    dim: int
+    axes: tuple[str, ...]
+    index: int
+    count: int
+
+
+@dataclasses.dataclass(frozen=True)
 class Sharding:
     """Where one leaf lies on a process mesh: the counterpart of a JAX
     ``NamedSharding`` seen from one rank. ``spec`` is the leaf's
     partition spec on the mesh (``models/partition.py::logical_to_spec``);
-    ``dim`` the one dimension it splits (None: the rank holds the whole
-    leaf), over mesh ``axes`` into ``count`` even pieces, of which this
-    rank holds piece ``index`` (row-major over ``axes``, as the JAX
-    sharding assigns the device at this rank's mesh position). ``writer``:
-    this rank's coordinate is 0 on every axis that does not split the
-    leaf, so it writes this piece in a sharded checkpoint."""
+    ``splits`` the dimensions it splits (none: the rank holds the whole
+    leaf; two, e.g. embed over fsdp and heads over tp). ``writer``: this
+    rank's coordinate is 0 on every axis that does not split the leaf,
+    so it writes this piece in a sharded checkpoint."""
 
     spec: tuple
-    dim: int | None
-    axes: tuple[str, ...]
-    index: int
-    count: int
+    splits: tuple[Split, ...]
     device: torch.device
     writer: bool
 
-    def bounds(self, size: int) -> tuple[int, int]:
-        """[start, stop) of this rank's piece of a dimension of ``size``."""
-        if size % self.count:
-            raise ValueError(
-                f"dimension {self.dim} of size {size} does not split "
-                f"evenly over {self.axes} ({self.count} shards)")
-        n = size // self.count
-        return self.index * n, (self.index + 1) * n
+    @property
+    def axes(self) -> tuple[str, ...]:
+        """Every mesh axis that splits the leaf."""
+        return tuple(a for s in self.splits for a in s.axes)
+
+    @property
+    def count(self) -> int:
+        """The number of pieces the leaf is cut into."""
+        return math.prod(s.count for s in self.splits)
+
+    @property
+    def dim(self) -> int | None:
+        """The one split dimension (None: whole). A leaf split on two
+        dimensions has no one dimension: read ``splits``."""
+        if len(self.splits) > 1:
+            raise ValueError(f"spec {self.spec} splits "
+                             f"{len(self.splits)} dimensions")
+        return self.splits[0].dim if self.splits else None
+
+    def split_dim(self, axis: str) -> int | None:
+        """The dimension mesh ``axis`` splits, or None."""
+        for s in self.splits:
+            if axis in s.axes:
+                return s.dim
+        return None
+
+    def bounds(self, shape) -> tuple[tuple[int, int], ...]:
+        """[start, stop) of this rank's piece on each dimension of a
+        leaf of the whole ``shape``."""
+        out = [(0, size) for size in shape]
+        for s in self.splits:
+            size = shape[s.dim]
+            if size % s.count:
+                raise ValueError(
+                    f"dimension {s.dim} of size {size} does not split "
+                    f"evenly over {s.axes} ({s.count} shards)")
+            n = size // s.count
+            out[s.dim] = (s.index * n, (s.index + 1) * n)
+        return tuple(out)
 
     def local_shape(self, shape) -> tuple[int, ...]:
-        shape = tuple(shape)
-        if self.dim is None:
-            return shape
-        start, stop = self.bounds(shape[self.dim])
-        return shape[:self.dim] + (stop - start,) + shape[self.dim + 1:]
+        return tuple(b - a for a, b in self.bounds(tuple(shape)))
 
     def shard(self, x) -> torch.Tensor:
         """This rank's piece of the whole leaf ``x`` (a tensor or a numpy
         array), its own contiguous tensor on the mesh's device."""
-        if self.dim is not None:
-            start, stop = self.bounds(x.shape[self.dim])
-            x = (x.narrow(self.dim, start, stop - start)
-                 if isinstance(x, torch.Tensor) else
-                 np.asarray(x)[(slice(None),) * self.dim
-                               + (slice(start, stop),)])
+        if self.splits:
+            index = tuple(slice(a, b) for a, b in self.bounds(x.shape))
+            x = (x[index] if isinstance(x, torch.Tensor)
+                 else np.asarray(x)[index])
         t = _host_tensor(x)
         out = torch.empty(t.shape, dtype=t.dtype, device=self.device)
         return out.copy_(t)
@@ -229,24 +271,35 @@ class Sharding:
 class CollectiveStats:
     """What the mesh's collectives moved: calls, payload bytes (each
     rank's input), and the copies and bytes staged through host memory
-    (gloo takes CUDA tensors through a host copy each way)."""
+    (gloo takes CUDA tensors through a host copy each way). ``whole``:
+    the fsdp leaves `gather_leaf` has made whole that are still alive,
+    ``whole_peak`` the most at once."""
 
     calls: int = 0
     bytes: int = 0
     staged_copies: int = 0
     staged_bytes: int = 0
+    whole: int = 0
+    whole_peak: int = 0
+
+
+def _axes_key(axes) -> tuple[str, ...]:
+    return tuple(a for a in MESH_AXES if a in set(axes))
 
 
 class ProcessMesh:
     """One rank's view of a mesh whose axes span processes (`make_mesh`).
 
     ``shape`` maps every axis of `MESH_AXES` to its size, ``coords`` to
-    this rank's coordinate; ``groups`` holds one process group per axis of
-    size > 1 (the ranks that differ from this one on that axis alone);
-    ``device`` is the rank's device. The collectives below run over the
-    groups of the axes they are given; with gloo, CUDA tensors are staged
-    through host memory (every copy counted in ``stats``), NCCL takes them
-    where they lie."""
+    this rank's coordinate; ``groups`` holds the process groups of the
+    axes of size > 1: under an axis' name the ranks that differ from
+    this one on that axis alone, under a tuple of axis names (in
+    `MESH_AXES` order) those that differ on those axes alone (the whole
+    world for every live axis: the default group); ``device`` is the
+    rank's device. The collectives below run over the groups of the axes
+    they are given; with gloo, CUDA tensors are staged through host
+    memory (every copy counted in ``stats``), NCCL takes them where they
+    lie."""
 
     def __init__(self, shape: dict[str, int], rank: int,
                  device: torch.device, groups: dict, backend: str | None):
@@ -264,42 +317,44 @@ class ProcessMesh:
         return (f"ProcessMesh({live or '1'}, rank={self.rank}, "
                 f"device={self.device})")
 
+    def live(self, axis: str) -> bool:
+        return self.shape.get(axis, 1) > 1
+
     def sharding(self, spec: tuple) -> Sharding:
         """The `Sharding` of a leaf with partition ``spec`` on this mesh
         (mesh axes of size 1 split nothing)."""
-        split = []
+        splits = []
         for d, entry in enumerate(spec):
             axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
-            axes = tuple(a for a in axes if self.shape.get(a, 1) > 1)
-            if axes:
-                split.append((d, axes))
-        if len(split) > 1:
-            raise NotImplementedError(
-                f"spec {spec} splits {len(split)} dimensions across "
-                "processes; the process mesh splits at most one per leaf")
-        dim, axes = split[0] if split else (None, ())
-        index = 0
-        for a in axes:
-            index = index * self.shape[a] + self.coords[a]
+            axes = tuple(a for a in axes if self.live(a))
+            if not axes:
+                continue
+            index = 0
+            for a in axes:
+                index = index * self.shape[a] + self.coords[a]
+            splits.append(Split(d, axes, index,
+                                math.prod(self.shape[a] for a in axes)))
+        split_axes = {a for s in splits for a in s.axes}
         return Sharding(
-            spec=tuple(spec), dim=dim, axes=axes, index=index,
-            count=math.prod(self.shape[a] for a in axes), device=self.device,
+            spec=tuple(spec), splits=tuple(splits), device=self.device,
             writer=all(self.coords[a] == 0 for a in MESH_AXES
-                       if a not in axes))
+                       if a not in split_axes))
 
     def group(self, axes) -> tuple[Any, int]:
-        """(process group, size) spanning mesh ``axes``: the size-1 axes
-        drop out; no axis left is (None, 1)."""
-        axes = tuple(a for a in axes if self.shape.get(a, 1) > 1)
+        """(process group, size) spanning mesh ``axes`` (one name or
+        several): the size-1 axes drop out; no axis left is (None, 1)."""
+        axes = _axes_key((axes,) if isinstance(axes, str) else axes)
+        axes = tuple(a for a in axes if self.live(a))
         if not axes:
             return None, 1
-        if len(axes) > 1:
-            if set(axes) != {a for a in MESH_AXES if self.shape[a] > 1}:
-                raise NotImplementedError(f"no process group over {axes}")
+        size = math.prod(self.shape[a] for a in axes)
+        if len(axes) == 1:
+            return self.groups[axes[0]], size
+        if size == self.world_size:
             import torch.distributed as dist
 
-            return dist.group.WORLD, self.world_size
-        return self.groups[axes[0]], self.shape[axes[0]]
+            return dist.group.WORLD, size
+        return self.groups[axes], size
 
     def _staged(self, t: torch.Tensor) -> bool:
         return self.backend == "gloo" and t.is_cuda
@@ -313,9 +368,10 @@ class ProcessMesh:
         self.stats.calls += 1
         self.stats.bytes += t.numel() * t.element_size()
 
-    def all_reduce_mean(self, t: torch.Tensor, axes) -> torch.Tensor:
-        """The mean of ``t`` over the ranks of ``axes``: the sum, then a
-        division by their count, every rank getting the same bits."""
+    def _all_reduce(self, t: torch.Tensor, axes, op: str) -> torch.Tensor:
+        """``t`` reduced by ``op`` ("sum", "max" or "mean") over the ranks
+        of ``axes``, every rank getting the same bits; ``t`` itself when
+        no axis is live."""
         group, n = self.group(axes)
         if n == 1:
             return t
@@ -323,15 +379,32 @@ class ProcessMesh:
 
         self._count(t)
         staged = self._staged(t)
-        buf = self._staged_copy(t, "cpu") if staged else t.contiguous()
-        dist.all_reduce(buf, group=group)
-        buf.div_(n)
+        buf = (self._staged_copy(t, "cpu") if staged
+               else t.clone(memory_format=torch.contiguous_format))
+        dist.all_reduce(buf, group=group, op=(dist.ReduceOp.MAX if op == "max"
+                                              else dist.ReduceOp.SUM))
+        if op == "mean":
+            buf.div_(n)
         return self._staged_copy(buf, self.device) if staged else buf
 
-    def all_gather(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
-        """The pieces of ``t`` held along mesh ``axis``, joined along
-        ``dim`` in the axis' order."""
-        group, n = self.group((axis,))
+    def all_reduce_mean(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """The mean of ``t`` over the ranks of ``axes``: the sum, then a
+        division by their count, every rank getting the same bits."""
+        return self._all_reduce(t, axes, "mean")
+
+    def all_reduce_sum(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """The sum of ``t`` over the ranks of ``axes``."""
+        return self._all_reduce(t, axes, "sum")
+
+    def all_reduce_max(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """The elementwise largest ``t`` of the ranks of ``axes``."""
+        return self._all_reduce(t, axes, "max")
+
+    def all_gather(self, t: torch.Tensor, axis, dim: int) -> torch.Tensor:
+        """The pieces of ``t`` held along mesh ``axis`` (one name or
+        several, their pieces row-major), joined along ``dim`` in the
+        axes' order."""
+        group, n = self.group(axis)
         if n == 1:
             return t
         import torch.distributed as dist
@@ -346,6 +419,14 @@ class ProcessMesh:
         if staged:
             out = self._staged_copy(out, self.device)
         return out.movedim(0, dim)
+
+    def gather_whole(self, t: torch.Tensor,
+                     sharding: Sharding) -> torch.Tensor:
+        """The whole leaf from this rank's piece ``t`` of it: gathered
+        along every dimension ``sharding`` splits (no gradient)."""
+        for s in sharding.splits:
+            t = self.all_gather(t, s.axes, s.dim)
+        return t
 
     def reduce_scatter_mean(self, t: torch.Tensor, axis: str,
                             dim: int) -> torch.Tensor:
@@ -370,19 +451,75 @@ class ProcessMesh:
         return out.movedim(0, dim)
 
 
+# ---------------------------------------- the collectives under autograd
+
+
+def _whole_freed(stats: CollectiveStats) -> None:
+    stats.whole -= 1
+
+
+class _GatherLeaf(torch.autograd.Function):
+    """A leaf's piece gathered whole along its fsdp dimension for the
+    forward; its gradient reduce-scattered back to the piece in the
+    backward (`ProcessMesh.reduce_scatter_mean`: each rank's loss is
+    the mean over its own rows)."""
+
+    @staticmethod
+    def forward(ctx, piece, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return mesh.all_gather(piece, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (ctx.mesh.reduce_scatter_mean(grad, ctx.axis, ctx.dim),
+                None, None, None)
+
+
+def gather_leaf(piece: torch.Tensor, mesh: ProcessMesh, axis: str,
+                dim: int) -> torch.Tensor:
+    """`_GatherLeaf` of ``piece``, counted in ``mesh.stats`` as a whole
+    leaf until the gathered storage is freed (by the last view of it,
+    autograd's saved tensors included)."""
+    whole = _GatherLeaf.apply(piece, mesh, axis, dim)
+    stats = mesh.stats
+    stats.whole += 1
+    stats.whole_peak = max(stats.whole_peak, stats.whole)
+    weakref.finalize(whole.untyped_storage(), _whole_freed, stats)
+    return whole
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """The sum over ``axis`` forward, the identity backward: the partial
+    sums of a row-parallel product (or a vocab-parallel lookup), which
+    every rank of the axis then reads whole."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh.all_reduce_sum(x, (axis,))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def reduce_from(x: torch.Tensor, mesh: ProcessMesh, axis: str) -> torch.Tensor:
+    return _ReduceFrom.apply(x, mesh, axis)
+
+
 def make_mesh(config: MeshConfig | dict[str, int] | None = None, *,
               device=None) -> ProcessMesh:
     """This rank's `ProcessMesh` over the ranks of the default process
     group (one rank, world 1, when no group is initialized).
 
     ``config`` resolves over the world size as `MeshConfig.resolve` does
-    (None: every rank on fsdp, as the JAX default). Only dp and fsdp may
-    span processes; tp, sp, ep or pp > 1 raise `NotImplementedError`
-    (ROADMAP queue 1, "process-spanning axes"): inside a rank the sp, ep
-    and pp meshes are `device_mesh` lists. ``device``: the rank's device,
-    by default the train session's (`train.session.get_device`), else
-    cuda (raises without a GPU). Every rank must call this together: it
-    creates the axes' process groups."""
+    (None: every rank on fsdp, as the JAX default). dp, fsdp and tp may
+    span processes; sp, ep or pp > 1 raise `NotImplementedError` (ROADMAP
+    queue 1, "process-spanning axes"): inside a rank the sp, ep and pp
+    meshes are `device_mesh` lists. ``device``: the rank's device, by
+    default the train session's (`train.session.get_device`), else cuda
+    (raises without a GPU). Every rank must call this together: it
+    creates the process groups of every set of live axes, in one order
+    on every rank."""
     from ray_tpu_torch._device import resolve_device
 
     import torch.distributed as dist
@@ -411,22 +548,33 @@ def make_mesh(config: MeshConfig | dict[str, int] | None = None, *,
         if session.active() and session.get_device() is not None:
             device = session.get_device()
     device = resolve_device(device)
+    live = [ax for ax in PROCESS_AXES if sizes[ax] > 1]
     groups = {}
-    for ax in PROCESS_AXES:
-        if sizes[ax] == 1:
-            continue
-        # Every rank creates every group of the axis, in the same order.
-        members: dict[tuple, list[int]] = {}
-        for r in range(world):
-            c = mesh_coords(r, sizes)
-            members.setdefault(tuple(v for a, v in c.items() if a != ax),
-                               []).append(r)
-        for ranks in members.values():
-            g = dist.new_group(ranks)
-            if rank in ranks:
-                groups[ax] = g
+    for n in range(1, len(live) + 1):
+        for axes in itertools.combinations(live, n):
+            if n > 1 and n == len(live):
+                continue            # every live axis: the default group
+            # Every rank creates every group of these axes, in one order.
+            members: dict[tuple, list[int]] = {}
+            for r in range(world):
+                c = mesh_coords(r, sizes)
+                members.setdefault(tuple(v for a, v in c.items()
+                                         if a not in axes), []).append(r)
+            for ranks in members.values():
+                g = dist.new_group(ranks)
+                if rank in ranks:
+                    groups[axes[0] if n == 1 else axes] = g
     return ProcessMesh(sizes, rank, device, groups,
                        dist.get_backend() if joined else None)
+
+
+def single_device_mesh(device=None) -> ProcessMesh:
+    """A world-1 `ProcessMesh` on ``device`` (cuda by default; raises
+    without a GPU): every axis of size 1, no process group."""
+    from ray_tpu_torch._device import resolve_device
+
+    return ProcessMesh(MeshConfig(dp=1, fsdp=1).resolve(1), 0,
+                       resolve_device(device), {}, None)
 
 
 def replicated(mesh: ProcessMesh) -> Sharding:
@@ -437,10 +585,12 @@ def replicated(mesh: ProcessMesh) -> Sharding:
 def batch_sharding(mesh: ProcessMesh) -> Sharding:
     """A [batch, ...] array split on batch over dp and fsdp: this rank's
     rows (`Sharding.shard` takes them from the global batch)."""
-    return mesh.sharding((("dp", "fsdp"),))
+    return mesh.sharding((DATA_AXES,))
 
 
-__all__ = ["DEFAULT_LOGICAL_RULES", "MESH_AXES", "PIPELINE_LOGICAL_RULES",
-           "PROCESS_AXES", "CollectiveStats", "MeshConfig", "ProcessMesh",
-           "Sharding", "axis_shards", "batch_sharding", "device_mesh",
-           "make_mesh", "mesh_coords", "reduce_shards", "replicated"]
+__all__ = ["DATA_AXES", "DEFAULT_LOGICAL_RULES", "MESH_AXES",
+           "PIPELINE_LOGICAL_RULES", "PROCESS_AXES", "CollectiveStats",
+           "MeshConfig", "ProcessMesh", "Sharding", "Split", "axis_shards",
+           "batch_sharding", "device_mesh", "gather_leaf",
+           "make_mesh", "mesh_coords", "reduce_from", "reduce_shards",
+           "replicated", "single_device_mesh"]

@@ -10,15 +10,18 @@ one device loads on any other. The directory form is one pickle
 `save_sharded`/`load_sharded` are the counterparts of the reference's
 orbax-backed pair: every rank of a process mesh writes the pieces it
 holds (``shard-<rank>.pt``, one ``torch.save`` file per rank, each piece
-with its leaf, dimension and index range; a piece every rank of an axis
-holds alike is written once), rank 0 writes ``index.json`` (world size,
+with its leaf and its index range on every dimension, so a leaf split
+on two dimensions round-trips; a piece every rank of an axis holds
+alike is written once), rank 0 writes ``index.json`` (world size,
 each leaf's global shape and dtype), and `load_sharded` rebuilds any
 target layout from them: the saved world's, or one whole copy.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
+import math
 import os
 import pickle
 import shutil
@@ -134,15 +137,14 @@ def save_sharded(params: dict, path: str, shardings: dict | None = None
     for name, t in params.items():
         s = None if shardings is None else shardings[name]
         shape = list(t.shape)
-        if s is not None and s.dim is not None:
-            shape[s.dim] *= s.count
+        for split in () if s is None else s.splits:
+            shape[split.dim] *= split.count
         leaves[name] = {"shape": shape, "dtype": str(t.dtype)}
         if s is not None and not s.writer:
             continue
-        dim = None if s is None else s.dim
-        start, stop = (0, 0) if dim is None else s.bounds(shape[dim])
-        pieces[name] = {"dim": dim, "start": start, "stop": stop,
-                        "tensor": t.detach().cpu()}
+        bounds = ([(0, n) for n in shape] if s is None
+                  else [list(b) for b in s.bounds(shape)])
+        pieces[name] = {"bounds": bounds, "tensor": t.detach().cpu()}
     torch.save(pieces, os.path.join(path, f"shard-{rank:05d}.pt"))
     if rank == 0:
         with open(os.path.join(path, INDEX_FILE), "w") as f:
@@ -150,27 +152,36 @@ def save_sharded(params: dict, path: str, shardings: dict | None = None
     _barrier()
 
 
-def _whole(name: str, meta: dict, saved: list):
-    """Leaf ``name`` joined from its saved pieces (a whole piece, or
-    pieces that tile one dimension exactly)."""
-    import torch
+def _bounds(piece: dict, shape) -> list:
+    """A saved piece's [start, stop) on every dimension. Pieces written
+    before a leaf could split on two dimensions name one ``dim`` (None:
+    the whole leaf) and its ``start``/``stop``."""
+    if "bounds" in piece:
+        return piece["bounds"]
+    box = [[0, n] for n in shape]
+    if piece["dim"] is not None:
+        box[piece["dim"]] = [piece["start"], piece["stop"]]
+    return box
 
-    whole = [p for p in saved if p["dim"] is None]
-    if whole:
-        return whole[0]["tensor"]
-    dims = {p["dim"] for p in saved}
-    if len(dims) != 1:
-        raise ValueError(f"checkpoint leaf {name!r} has no pieces or pieces "
-                         f"on several dimensions {sorted(dims)}")
-    dim = dims.pop()
-    saved = sorted(saved, key=lambda p: p["start"])
-    edges = [0] + [p["stop"] for p in saved]
-    if ([p["start"] for p in saved] != edges[:-1]
-            or edges[-1] != meta["shape"][dim]):
+
+def _whole(name: str, meta: dict, saved: list):
+    """Leaf ``name`` joined from its saved pieces, each placed at its
+    bounds (one per dimension); they must cover the leaf exactly once."""
+    shape = meta["shape"]
+    boxes = [_bounds(p, shape) for p in saved]
+    inside = all(0 <= a < b <= n for box in boxes
+                 for (a, b), n in zip(box, shape))
+    overlap = any(all(a1 < b2 and a2 < b1
+                      for (a1, b1), (a2, b2) in zip(x, y))
+                  for x, y in itertools.combinations(boxes, 2))
+    volume = sum(math.prod(b - a for a, b in box) for box in boxes)
+    if not saved or not inside or overlap or volume != math.prod(shape):
         raise ValueError(f"checkpoint leaf {name!r} is torn: pieces "
-                         f"{[(p['start'], p['stop']) for p in saved]} of "
-                         f"{meta['shape'][dim]}")
-    return torch.cat([p["tensor"] for p in saved], dim=dim)
+                         f"{boxes} of {shape}")
+    out = saved[0]["tensor"].new_empty(shape)
+    for p, box in zip(saved, boxes):
+        out[tuple(slice(a, b) for a, b in box)] = p["tensor"]
+    return out
 
 
 def load_sharded(path: str, target: dict) -> dict:

@@ -44,6 +44,15 @@ decay:
 - the update's block RMS (for the clip) and the parameter's block RMS
   (``max(rms(p), 1e-3)``, for the scale) are taken over the whole leaf.
 
+On a rank of a process mesh (``adafactor(...).on_mesh(shardings,
+mesh)``, which ``train/spmd.py::build_training`` takes) a leaf is the
+rank's piece of the whole leaf: the factored dims are chosen from the
+whole shape, a row or column mean over a dimension that fsdp or tp
+splits is all-reduced over those axes before use (the pieces are even,
+so the mean of their means is the whole mean), and each block RMS is
+the root of the all-reduced sum of squares over the whole leaf's
+element count. Under dp it runs unchanged.
+
 A stacked leaf ([L, ...], dim 0 not factored) is walked one layer slice
 at a time, so no whole-leaf fp32 temporary is made beyond the gradient
 itself: at ``llama3_8b`` one fp32 copy of ``w_gate`` is 7.5 GB. The two
@@ -68,6 +77,7 @@ them: ``p + u`` in the promoted dtype, cast to p's.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -82,8 +92,13 @@ class AdamState:
 
 
 class GradientTransformation(NamedTuple):
+    """optax's pair, and ``on_mesh(shardings, mesh)``: the same
+    transformation for a rank of a process mesh whose leaves are the
+    pieces ``shardings`` (``parallel/mesh.py::Sharding`` by name) give
+    it; None where the update is elementwise and needs nothing else."""
     init: Callable
     update: Callable
+    on_mesh: Callable | None = None
 
 
 def _in_dtype(x: float, dtype: torch.dtype) -> float:
@@ -155,12 +170,6 @@ def _factored_dims(shape: tuple, min_dim_size_to_factor: int):
     return int(order[-2]), int(order[-1])
 
 
-def _mean(x: torch.Tensor, dim: int, keepdim: bool = False) -> torch.Tensor:
-    """jnp.mean's arithmetic: an fp32 sum, divided, cast to x's dtype
-    (torch's own bf16 mean rounds twice)."""
-    return x.float().mean(dim=dim, keepdim=keepdim).to(x.dtype)
-
-
 def _layer_slices(shape: tuple, dims):
     """The slices a leaf is walked in: one per index of dim 0 when dim 0
     is not factored (a stacked leaf), else the whole leaf; and the
@@ -180,93 +189,152 @@ def adafactor(learning_rate: float, min_dim_size_to_factor: int = 128,
     decay_offset, multiply_by_parameter_scale, clipping_threshold,
     momentum=None, weight_decay_rate=None, eps, factored=True) with a
     constant learning rate; the defaults are optax's. See the module
-    docstring for the lazy, sliced updates."""
+    docstring for the lazy, sliced updates and for ``on_mesh``."""
 
-    def init(params: dict[str, torch.Tensor]) -> FactoredState:
-        state = FactoredState(count=0, v_row={}, v_col={}, v={})
-        with torch.no_grad():
-            for k, p in params.items():
-                z = lambda shape: torch.zeros(shape, dtype=p.dtype,
-                                              device=p.device)
-                dims = _factored_dims(tuple(p.shape), min_dim_size_to_factor)
-                if dims is None:
-                    state.v_row[k], state.v_col[k] = z(1), z(1)
-                    state.v[k] = z(p.shape)
-                else:
-                    d1, d0 = dims
-                    state.v_row[k] = z(np.delete(p.shape, d0).tolist())
-                    state.v_col[k] = z(np.delete(p.shape, d1).tolist())
-                    state.v[k] = z(1)
-        return state
+    def on_mesh(shardings, mesh):
+        """The transformation for the pieces ``shardings`` gives a rank
+        of ``mesh``."""
+        layout = _PieceLayout(shardings, mesh)
 
-    def leaf_update(k, grads, state, param, decay, keep):
-        """The leaf's update, slice by slice (a generator: see above)."""
-        g = grads[k]
-        p = param.detach()
-        dtype = p.dtype
-        dims = _factored_dims(tuple(p.shape), min_dim_size_to_factor)
-        idxs, sdims = _layer_slices(tuple(p.shape), dims)
+        def init(params: dict[str, torch.Tensor]) -> FactoredState:
+            state = FactoredState(count=0, v_row={}, v_col={}, v={})
+            with torch.no_grad():
+                for k, p in params.items():
+                    z = lambda shape: torch.zeros(shape, dtype=p.dtype,
+                                                  device=p.device)
+                    dims = _factored_dims(layout.whole_shape(k, p.shape),
+                                          min_dim_size_to_factor)
+                    if dims is None:
+                        state.v_row[k], state.v_col[k] = z(1), z(1)
+                        state.v[k] = z(p.shape)
+                    else:
+                        d1, d0 = dims
+                        state.v_row[k] = z(np.delete(p.shape, d0).tolist())
+                        state.v_col[k] = z(np.delete(p.shape, d1).tolist())
+                        state.v[k] = z(1)
+            return state
 
-        def scaled(i):
-            """The factored-rms update of slice i from the stored moments."""
-            gi = g[i]
-            if sdims is None:
-                v = state.v[k][i]
-                return (gi * v.float() ** -0.5).to(
-                    torch.promote_types(gi.dtype, v.dtype))
-            d1, d0 = sdims
-            vr, vc = state.v_row[k][i], state.v_col[k][i]
-            rd1 = d1 - 1 if d1 > d0 else d1
-            row = (vr / _mean(vr, rd1, keepdim=True)) ** -0.5
-            return gi * row.unsqueeze(d0) * (vc ** -0.5).unsqueeze(d1)
+        def leaf_update(k, grads, state, param, decay, keep):
+            """The leaf's update, slice by slice (a generator: see
+            above)."""
+            g = grads[k]
+            p = param.detach()
+            dtype = p.dtype
+            dims = _factored_dims(layout.whole_shape(k, p.shape),
+                                  min_dim_size_to_factor)
+            idxs, sdims = _layer_slices(tuple(p.shape), dims)
+            # A slice's dimension j is the leaf's j + off.
+            off = 0 if idxs == (Ellipsis,) else 1
 
-        usq = torch.zeros((), dtype=torch.float32, device=p.device)
-        psq = torch.zeros((), dtype=torch.float32, device=p.device)
-        for i in idxs:                     # pass 1: moments, the two sums
-            gi = g[i]
-            gsq = gi * gi + eps
-            if sdims is None:
-                v = state.v[k][i]
-                v.copy_(decay * v.float() + keep * gsq.float())
-            else:
+            def mean(x, dim, leaf_dim, keepdim=False):
+                """x's mean over ``dim``, the leaf's ``leaf_dim``
+                (all-reduced where that dimension is split), with
+                jnp.mean's arithmetic: an fp32 sum, divided, cast to x's
+                dtype (torch's own bf16 mean rounds twice)."""
+                m = x.float().mean(dim=dim, keepdim=keepdim)
+                return layout.mean(m, k, leaf_dim).to(x.dtype)
+
+            row_means = {}
+
+            def scaled(i):
+                """The factored-rms update of slice i from the stored
+                moments."""
+                gi = g[i]
+                if sdims is None:
+                    v = state.v[k][i]
+                    return (gi * v.float() ** -0.5).to(
+                        torch.promote_types(gi.dtype, v.dtype))
                 d1, d0 = sdims
-                for vv, axis in ((state.v_row[k][i], d0),
-                                 (state.v_col[k][i], d1)):
-                    vv.copy_(decay * vv.float()
-                             + keep * _mean(gsq, axis).float())
-            u = scaled(i)
-            usq += (u * u).float().sum()
-            psq += (p[i] * p[i]).float().sum()
-        n = p.numel()
-        clip = None
-        if clipping_threshold is not None:
-            rms = torch.sqrt((usq / n).to(u.dtype))
-            clip = torch.clamp(rms / clipping_threshold, min=1.0)
-        pscale = None
-        if multiply_by_parameter_scale:
-            prms = torch.sqrt((psq / n).to(dtype))
-            pscale = torch.where(prms <= 1e-3, torch.full_like(prms, 1e-3),
-                                 prms)
-        for i in idxs:                     # pass 2: the update, slice by slice
-            u = scaled(i)
-            if clip is not None:
-                u = u / clip
-            u = u * learning_rate
-            if pscale is not None:
-                u = u * pscale
-            yield i, -u
+                vr, vc = state.v_row[k][i], state.v_col[k][i]
+                if i not in row_means:
+                    rd1 = d1 - 1 if d1 > d0 else d1
+                    row_means[i] = mean(vr, rd1, d1 + off, keepdim=True)
+                row = (vr / row_means[i]) ** -0.5
+                return gi * row.unsqueeze(d0) * (vc ** -0.5).unsqueeze(d1)
 
-    def update(grads, state: FactoredState, params):
-        # The decay of this step, in fp32 as optax's _decay_rate_pow.
-        t = torch.tensor(state.count - decay_offset + 1, dtype=torch.float32)
-        decay_t = 1.0 - t ** (-decay_rate)
-        decay, keep = float(decay_t), float(1.0 - decay_t)
-        updates = {k: leaf_update(k, grads, state, params[k], decay, keep)
-                   for k in grads}
-        state.count += 1
-        return updates, state
+            usq = torch.zeros((), dtype=torch.float32, device=p.device)
+            psq = torch.zeros((), dtype=torch.float32, device=p.device)
+            for i in idxs:                 # pass 1: moments, the two sums
+                gi = g[i]
+                gsq = gi * gi + eps
+                if sdims is None:
+                    v = state.v[k][i]
+                    v.copy_(decay * v.float() + keep * gsq.float())
+                else:
+                    d1, d0 = sdims
+                    for vv, axis in ((state.v_row[k][i], d0),
+                                     (state.v_col[k][i], d1)):
+                        vv.copy_(decay * vv.float()
+                                 + keep * mean(gsq, axis, axis + off).float())
+                u = scaled(i)
+                usq += (u * u).float().sum()
+                psq += (p[i] * p[i]).float().sum()
+            usq, psq = layout.total(k, torch.stack([usq, psq]))
+            n = math.prod(layout.whole_shape(k, p.shape))
+            clip = None
+            if clipping_threshold is not None:
+                rms = torch.sqrt((usq / n).to(u.dtype))
+                clip = torch.clamp(rms / clipping_threshold, min=1.0)
+            pscale = None
+            if multiply_by_parameter_scale:
+                prms = torch.sqrt((psq / n).to(dtype))
+                pscale = torch.where(prms <= 1e-3,
+                                     torch.full_like(prms, 1e-3), prms)
+            for i in idxs:                 # pass 2: the update, slice by slice
+                u = scaled(i)
+                if clip is not None:
+                    u = u / clip
+                u = u * learning_rate
+                if pscale is not None:
+                    u = u * pscale
+                yield i, -u
 
-    return GradientTransformation(init, update)
+        def update(grads, state: FactoredState, params):
+            # The decay of this step, in fp32 as optax's _decay_rate_pow.
+            t = torch.tensor(state.count - decay_offset + 1,
+                             dtype=torch.float32)
+            decay_t = 1.0 - t ** (-decay_rate)
+            decay, keep = float(decay_t), float(1.0 - decay_t)
+            updates = {k: leaf_update(k, grads, state, params[k], decay, keep)
+                       for k in grads}
+            state.count += 1
+            return updates, state
+
+        return GradientTransformation(init, update, on_mesh)
+
+    return on_mesh({}, None)
+
+
+class _PieceLayout:
+    """Where a rank's leaves lie in the whole ones: ``shardings`` by name
+    (a name without one, or no mesh, is whole)."""
+
+    def __init__(self, shardings: dict, mesh):
+        self.shardings = shardings if mesh is not None else {}
+        self.mesh = mesh
+
+    def whole_shape(self, k, shape) -> tuple:
+        shape = list(shape)
+        s = self.shardings.get(k)
+        for split in () if s is None else s.splits:
+            shape[split.dim] *= split.count
+        return tuple(shape)
+
+    def mean(self, m: torch.Tensor, k, leaf_dim: int) -> torch.Tensor:
+        """``m``, a mean over the rank's part of the leaf's ``leaf_dim``,
+        as the mean over the whole dimension."""
+        s = self.shardings.get(k)
+        for split in () if s is None else s.splits:
+            if split.dim == leaf_dim:
+                return self.mesh.all_reduce_mean(m, split.axes)
+        return m
+
+    def total(self, k, sums: torch.Tensor) -> torch.Tensor:
+        """``sums`` over the rank's piece as sums over the whole leaf."""
+        s = self.shardings.get(k)
+        if s is None or not s.splits:
+            return sums
+        return self.mesh.all_reduce_sum(sums, s.axes)
 
 
 def update_slices(u):

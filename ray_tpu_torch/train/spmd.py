@@ -17,18 +17,23 @@ uses it; an ep mesh places MoE-GPT's expert stacks on their shards
 pp mesh. The optimizer sees each placed shard as a leaf of its own.
 
 Across processes, ``build_training(..., process_mesh=)`` takes a
-``parallel/mesh.py::ProcessMesh`` (dp and fsdp over the ranks of a
+``parallel/mesh.py::ProcessMesh`` (dp, fsdp and tp over the ranks of a
 ``torch.distributed`` group). `sharded_init` draws the parameters leaf by
-leaf and keeps the rank's slice of each (the embed dimension over fsdp,
-``DEFAULT_LOGICAL_RULES``), so no rank holds the whole tree at rest
-(during a step it does: see `build_training`); the
-optimizer's moments then have the slices' shapes. The step runs on the
-rank's own batch (its rows of the global batch, `batch_sharding`): each
-sliced leaf is all-gathered for the forward and its gradient
-reduce-scattered (sum ÷ the fsdp size) in the backward
-(`_GatherLeaf`), every other gradient is all-reduced (sum ÷ the size)
-over the data axes that do not split its leaf, and the returned loss is
-the mean over the data axes: the JAX step's global mean.
+leaf and keeps the rank's piece of each (``DEFAULT_LOGICAL_RULES``: the
+embed dimension over fsdp, the heads, MLP width and vocabulary over tp;
+a leaf may be split on two dimensions), so no rank holds the whole tree
+at rest; the optimizer's moments then have the pieces' shapes. The step
+runs on the rank's own batch (its rows of the global batch,
+`batch_sharding`; tp ranks share their rows). A model with a
+``rank_plan`` (GPT, ``models/gpt.py``) gets the plan of the rank's
+pieces built from their shardings, and its loss runs it: each layer's
+fsdp slices gathered inside the layer's checkpointed call, their
+gradients reduce-scattered per layer (sum ÷ the fsdp size), megatron's
+block under tp. Any other model's loss gets its fsdp slices gathered
+whole first (`gather_params`), and no tp. Every
+gradient is then all-reduced (sum ÷ the size) over the data axes, dp
+and fsdp, that do not split its leaf (`sync_grads`), and the returned
+loss is the mean over the data axes: the JAX step's global mean.
 """
 
 from __future__ import annotations
@@ -40,11 +45,10 @@ from typing import Callable
 import torch
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.parallel.mesh import (DEFAULT_LOGICAL_RULES, PROCESS_AXES,
-                                         replicated)
+from ray_tpu_torch.parallel.mesh import (DATA_AXES, DEFAULT_LOGICAL_RULES,
+                                         gather_leaf, replicated)
 from ray_tpu_torch.parallel.sharding import tree_to_shardings
-from ray_tpu_torch.train.optim import (FactoredState, GradientTransformation,
-                                       apply_updates)
+from ray_tpu_torch.train.optim import GradientTransformation, apply_updates
 
 
 class Fp32Leaves(Mapping):
@@ -92,7 +96,7 @@ def sharded_init(model, cfg, mesh, generator: torch.Generator | None = None,
 
     def take(name, leaf):
         s = shardings[name]
-        return leaf if s.dim is None else s.shard(leaf)
+        return s.shard(leaf) if s.splits else leaf
 
     return init_from_specs(specs, cfg.param_dtype, generator, mesh.device,
                            take), shardings
@@ -130,49 +134,33 @@ def opt_state_shardings(optimizer: GradientTransformation, params,
     return _map_state(pick, optimizer.init(meta))
 
 
-class _GatherLeaf(torch.autograd.Function):
-    """A sliced leaf gathered whole along its split dimension for the
-    forward; its gradient reduce-scattered back to the slice in the
-    backward (`ProcessMesh.reduce_scatter_mean`)."""
-
-    @staticmethod
-    def forward(ctx, piece, mesh, axis, dim):
-        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
-        return mesh.all_gather(piece, axis, dim)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return (ctx.mesh.reduce_scatter_mean(grad, ctx.axis, ctx.dim),
-                None, None, None)
-
-
-def _split(shardings, name):
-    s = shardings.get(name)
-    return s if s is not None and s.dim is not None else None
-
-
 def gather_params(params: dict, shardings: dict, mesh) -> dict:
-    """The whole leaves for the forward: each sliced leaf through
-    `_GatherLeaf`, the others as they are."""
+    """The leaves whole over fsdp for a model without a ``rank_plan``:
+    each fsdp slice through ``parallel/mesh.py::gather_leaf`` (its
+    gradient reduce-scattered back in the backward), every other leaf,
+    and the tp pieces, as they are."""
     out = {}
     for k, p in params.items():
-        s = _split(shardings, k)
-        if s is not None and len(s.axes) != 1:
-            raise NotImplementedError(f"{k!r} is split over {s.axes}")
-        out[k] = p if s is None else _GatherLeaf.apply(p, mesh, s.axes[0],
-                                                       s.dim)
+        s = shardings.get(k)
+        dim = None if s is None else s.split_dim("fsdp")
+        out[k] = p if dim is None else gather_leaf(p, mesh, "fsdp", dim)
     return out
 
 
 def sync_grads(grads: dict, shardings: dict, mesh) -> None:
-    """Each gradient's mean over the data axes that do not split its
-    leaf (a sliced leaf's gradient was already reduced over its own axis
-    by `_GatherLeaf`), in place of the rank's own."""
+    """Each gradient's mean over the data axes (dp, fsdp) that do not
+    split its leaf, in place of the rank's own: a leaf's fsdp slice had
+    its gradient reduce-scattered over fsdp by its gather already, and
+    tp is no data axis. A leaf that tp does not split (the layer norms,
+    ``b_down``) needs no reduce over tp: every tp rank computes its
+    gradient from the same activations (the inputs of the column-parallel
+    products sum their gradients over tp, the row-parallel outputs are
+    summed in the forward)."""
     for k, g in grads.items():
-        s = _split(shardings, k)
+        s = shardings.get(k)
+        split = () if s is None else s.axes
         grads[k] = mesh.all_reduce_mean(
-            g, tuple(a for a in PROCESS_AXES
-                     if s is None or a not in s.axes))
+            g, tuple(a for a in DATA_AXES if a not in split))
 
 
 def make_train_step(loss_fn: Callable[..., torch.Tensor],
@@ -194,9 +182,10 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor],
 
     With ``process_mesh`` (and the parameters' ``shardings``, keyed by
     name; a name without one is whole), ``params`` are this rank's
-    slices and ``batch`` its rows: the sliced leaves are gathered for
-    the loss, the gradients reduced over the data axes (see the module
-    docstring), and the loss returned is the mean over the ranks.
+    pieces and ``batch`` its rows (the loss reads the pieces itself:
+    `build_training` gives it a plan or the gathered leaves), the
+    gradients are reduced over the data axes (see the module docstring),
+    and the loss returned is the mean over the data axes.
 
     ``step.grads_of(params, batch)`` → (loss, gradients) is the step's
     own gradient computation without the update (the gradients of a
@@ -204,17 +193,14 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor],
 
     def grads_of(params, batch):
         names = list(params)
-        if process_mesh is None:
-            loss = loss_fn(params, *batch)
-            grads = torch.autograd.grad(loss, [params[k] for k in names])
-            return loss, dict(zip(names, grads))
-        loss = loss_fn(gather_params(params, shardings, process_mesh),
-                       *batch)
+        loss = loss_fn(params, *batch)
         grads = dict(zip(names, torch.autograd.grad(
             loss, [params[k] for k in names])))
+        if process_mesh is None:
+            return loss, grads
         sync_grads(grads, shardings, process_mesh)
         return process_mesh.all_reduce_mean(loss.detach(),
-                                            PROCESS_AXES), grads
+                                            DATA_AXES), grads
 
     if stochastic_round:
         from ray_tpu_torch.train.low_precision import sr_apply_updates
@@ -266,20 +252,20 @@ def build_training(cfg, optimizer: GradientTransformation,
     paired with a step count. ``process_mesh``: a
     ``parallel/mesh.py::ProcessMesh`` of this rank (`sharded_init` on
     it, the step of `make_train_step` over it; ``device`` is then the
-    mesh's). Adafactor's factored moments and block RMS span whole
-    leaves, so it raises under fsdp (it runs unchanged under dp). fsdp
-    shards the parameters and moments at rest only: `gather_params`
-    gathers every sliced leaf before the loss runs, and autograd keeps
-    the whole leaves until the backward, so during a step a rank holds
-    the whole parameter tree (ROADMAP queue 1, the process-spanning
-    axes: gather each layer's slice of the stacked [L, ...] leaves
-    inside the remat'd layer instead).
+    mesh's). A model with ``rank_plan(cfg, process_mesh, shardings)``
+    (GPT) reads its pieces itself through the plan (``loss_fn(...,
+    plan=)``): fsdp slices gathered layer by layer inside the step,
+    megatron under tp; any other model gets its fsdp slices gathered
+    whole before the loss and raises under tp (ROADMAP queue 1). An optimizer with ``on_mesh`` (Adafactor: its factored means
+    and block RMS span the whole leaf) gets the pieces' layout.
     Returns (params, opt_state, step_fn) where step_fn(params,
     opt_state, (tokens, targets)) → (params, opt_state, loss)."""
     if model is None:
         from ray_tpu_torch.models import gpt as model
 
     shardings = None
+    whole = False          # the fsdp slices gathered whole for the loss
+    extra = {}
     if process_mesh is None:
         params = model.init_params(cfg, generator, resolve_device(device))
     else:
@@ -287,12 +273,21 @@ def build_training(cfg, optimizer: GradientTransformation,
                                    != process_mesh.device):
             raise ValueError(f"device {device} is not the process mesh's "
                              f"{process_mesh.device}")
+        planned = hasattr(model, "rank_plan")
+        if process_mesh.live("tp") and not planned:
+            raise NotImplementedError(
+                f"{model.__name__} under tp across processes (ROADMAP "
+                "queue 1, the process-spanning axes)")
         params, shardings = sharded_init(model, cfg, process_mesh, generator)
-        if ep_mesh is not None and any(s.dim is not None
-                                       for s in shardings.values()):
+        if planned:
+            extra["plan"] = model.rank_plan(cfg, process_mesh, shardings)
+        else:
+            whole = True
+        if ep_mesh is not None and any(s.splits for s in shardings.values()):
             raise NotImplementedError("an ep mesh under fsdp (ROADMAP queue "
                                       "1, the process-spanning axes)")
-    extra = {}
+        if optimizer.on_mesh is not None:
+            optimizer = optimizer.on_mesh(shardings, process_mesh)
     if ep_mesh is not None:
         from ray_tpu_torch.models.partition import place_on_axis
 
@@ -300,15 +295,12 @@ def build_training(cfg, optimizer: GradientTransformation,
         extra["ep_mesh"] = ep_mesh
     params = _trainable(params)
     opt_state = optimizer.init(params)
-    if (isinstance(opt_state, FactoredState) and shardings is not None
-            and any(s.dim is not None for s in shardings.values())):
-        raise NotImplementedError(
-            "adafactor under fsdp: its factored moments and block RMS span "
-            "the whole leaf (ROADMAP queue 1, the process-spanning axes)")
     if stochastic_round:
         opt_state = (opt_state, 0)
 
     def loss(params, tokens, targets):
+        if whole:
+            params = gather_params(params, shardings, process_mesh)
         return model.loss_fn(params, tokens, targets, cfg, mesh, **extra)
 
     return params, opt_state, make_train_step(

@@ -45,8 +45,15 @@ class AsyncResult:
         return len(done) == len(self._refs)
 
     def successful(self) -> bool:
+        """Whether every chunk finished without raising; False while any
+        is still running. Once `ready`, the values are fetched without a
+        deadline: a chunk's object can be in the store before its task's
+        completion reaches this process, and a zero-timeout get would
+        take that window for a failure."""
+        if not self.ready():
+            return False
         try:
-            self.get(timeout=0)
+            self.get()
             return True
         except Exception:
             return False

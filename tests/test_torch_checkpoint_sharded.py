@@ -78,8 +78,7 @@ def test_save_and_load_at_world_two_is_bitwise(saved):
     files = {k: torch.load(os.path.join(path, f"shard-0000{k}.pt"),
                            weights_only=True) for k in (0, 1)}
     assert "b_up" in files[0] and "b_up" not in files[1]   # not split
-    assert (files[1]["w_up"]["dim"], files[1]["w_up"]["start"],
-            files[1]["w_up"]["stop"]) == (1, 32, 64)
+    assert files[1]["w_up"]["bounds"] == [[0, 2], [32, 64], [0, 128]]
 
 
 def test_save_at_fsdp_two_loads_whole_at_world_one(saved):
@@ -96,3 +95,42 @@ def test_save_at_fsdp_two_loads_whole_at_world_one(saved):
                                       err_msg=k)
         np.testing.assert_array_equal(ranks[1]["whole"][k],
                                       ranks[0]["whole"][k], err_msg=k)
+
+
+
+def test_pieces_of_the_one_dimension_format_load(saved, tmp_path):
+    """A directory whose pieces name one ``dim`` and its ``start`` and
+    ``stop`` (None: the whole leaf), as pieces were written before a
+    leaf could split on two dimensions, loads as the same leaves."""
+    import json
+    import shutil
+
+    from ray_tpu_torch.train.checkpoint import INDEX_FILE
+
+    path, ranks = saved
+    old = tmp_path / "one_dim"
+    old.mkdir()
+    shutil.copy(os.path.join(path, INDEX_FILE), old / INDEX_FILE)
+    with open(os.path.join(path, INDEX_FILE)) as f:
+        shapes = {k: v["shape"] for k, v in json.load(f)["leaves"].items()}
+    for k in (0, 1):
+        name = f"shard-0000{k}.pt"
+        pieces = torch.load(os.path.join(path, name), weights_only=True)
+        for leaf, piece in pieces.items():
+            box = piece.pop("bounds")
+            cut = [d for d, (a, b) in enumerate(box)
+                   if (a, b) != (0, shapes[leaf][d])]
+            assert len(cut) <= 1, (leaf, box)
+            dim = cut[0] if cut else None
+            start, stop = box[dim] if cut else (0, 0)
+            piece.update(dim=dim, start=start, stop=stop)
+        torch.save(pieces, old / name)
+    cfg = gpt.GPTConfig.tiny(dtype=torch.float32)
+    target = tree_to_shardings(gpt.logical_axes(cfg),
+                               make_mesh(MeshConfig(dp=1, fsdp=1),
+                                         device="cpu"))
+    whole = load_sharded(str(old), target)
+    assert set(whole) == set(ranks[0]["whole"])
+    for k, v in whole.items():
+        np.testing.assert_array_equal(v.numpy(), ranks[0]["whole"][k],
+                                      err_msg=k)

@@ -34,7 +34,7 @@ from ray_tpu_torch import _bridge
 from ray_tpu_torch import air as tair
 from ray_tpu_torch import data as T
 from ray_tpu_torch.models import gpt as tgpt
-from ray_tpu_torch.parallel.mesh import Sharding
+from ray_tpu_torch.parallel.mesh import Sharding, Split
 
 B, S, STEPS, WORLD = 4, 32, 3, 2       # per rank: 3 steps of 4 rows
 
@@ -113,16 +113,16 @@ def test_iter_cuda_batches_takes_the_ports_batch_sharding(clusters):
     ds = token_dataset(T, 24, 4)
     ref = list(ds.iter_batches(batch_size=8))
     for index in range(2):
-        sh = Sharding(spec=(("dp", "fsdp"),), dim=0, axes=("dp",),
-                      index=index, count=2, device=torch.device("cpu"),
-                      writer=True)
+        sh = Sharding(spec=(("dp", "fsdp"),),
+                      splits=(Split(0, ("dp",), index, 2),),
+                      device=torch.device("cpu"), writer=True)
         got = list(ds.iter_cuda_batches(batch_size=8, sharding=sh))
         assert len(got) == len(ref)
         for g, r in zip(got, ref):
             np.testing.assert_array_equal(
                 g["tokens"].numpy(), r["tokens"][index * 4:(index + 1) * 4])
-    whole = Sharding(spec=((),), dim=None, axes=(), index=0, count=1,
-                     device=torch.device("cpu"), writer=True)
+    whole = Sharding(spec=((),), splits=(), device=torch.device("cpu"),
+                     writer=True)
     assert [b["tokens"].shape[0] for b in ds.iter_cuda_batches(
         batch_size=8, sharding=whole)] == [8, 8, 8]
 
@@ -131,8 +131,8 @@ def test_iter_cuda_batches_refusals(clusters, monkeypatch):
     ds = T.range(8)
     with pytest.raises(TypeError, match="batch sharding"):
         next(ds.iter_cuda_batches(batch_size=4, sharding="dp"))
-    cols = Sharding(spec=(None, "tp"), dim=1, axes=("tp",), index=0,
-                    count=2, device=torch.device("cpu"), writer=True)
+    cols = Sharding(spec=(None, "tp"), splits=(Split(1, ("tp",), 0, 2),),
+                    device=torch.device("cpu"), writer=True)
     with pytest.raises(ValueError, match="dimension 0"):
         ds.iter_cuda_batches(batch_size=4, sharding=cols)
     with pytest.raises(TypeError, match="non-numeric"):

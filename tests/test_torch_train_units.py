@@ -5,7 +5,8 @@ that need no process.
 the JAX mesh's device order, `tree_to_shardings` + `shard_tree` against
 the JAX ``NamedSharding``'s shard on the device at each mesh position,
 the optimizer state's shardings, the axis groups `make_mesh` creates and
-the axes it refuses, and the configs, session and backend against the
+the axes it refuses, the two-dimensional shardings of the tp layouts,
+`single_device_mesh`, and the configs, session and backend against the
 reference's fields. A process mesh is built for each rank in turn
 (``ProcessMesh(sizes, rank, ...)``, or `make_mesh` with the process
 group's world faked): the layout is arithmetic, no collective runs.
@@ -204,9 +205,44 @@ def test_make_mesh_creates_every_axis_group_in_one_order(monkeypatch, rank):
 
 @pytest.mark.parametrize("axis", ["tp", "sp", "ep", "pp"])
 def test_make_mesh_refuses_other_axes_across_processes(monkeypatch, axis):
-    _FakeWorld(monkeypatch, 8, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmesh.make_mesh(MeshConfig(**{"fsdp": -1, axis: 2}), device="cpu")
+    """sp, ep and pp > 1 raise; tp spans processes: at 8 ranks, fsdp 4 x
+    tp 2, the fsdp groups and then the tp groups (ranks that differ on
+    that axis alone; every live axis together is the default group)."""
+    fake = _FakeWorld(monkeypatch, 8, 5)
+    if axis != "tp":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tmesh.make_mesh(MeshConfig(**{"fsdp": -1, axis: 2}),
+                            device="cpu")
+        return
+    m = tmesh.make_mesh(MeshConfig(fsdp=-1, tp=2), device="cpu")
+    assert (m.shape["fsdp"], m.shape["tp"]) == (4, 2)
+    assert fake.created == [(0, 2, 4, 6), (1, 3, 5, 7),
+                            (0, 1), (2, 3), (4, 5), (6, 7)]
+    assert m.groups == {"fsdp": (1, 3, 5, 7), "tp": (4, 5)}
+    assert m.group(("tp",)) == ((4, 5), 2)
+    assert m.group("fsdp") == ((1, 3, 5, 7), 4)
+
+
+def test_make_mesh_builds_a_group_for_every_set_of_live_axes(monkeypatch):
+    """dp 2 x fsdp 2 x tp 2: the groups of each axis, then of each pair
+    (the hybrid's (dp, fsdp) reduces the gradients tp does not split), in
+    one order on every rank; rank 6's own of each."""
+    fake = _FakeWorld(monkeypatch, 8, 6)
+    m = tmesh.make_mesh(MeshConfig(dp=2, fsdp=2, tp=2), device="cpu")
+    assert fake.created == [
+        (0, 4), (1, 5), (2, 6), (3, 7),            # dp
+        (0, 2), (1, 3), (4, 6), (5, 7),            # fsdp
+        (0, 1), (2, 3), (4, 5), (6, 7),            # tp
+        (0, 2, 4, 6), (1, 3, 5, 7),                # dp, fsdp
+        (0, 1, 4, 5), (2, 3, 6, 7),                # dp, tp
+        (0, 1, 2, 3), (4, 5, 6, 7)]                # fsdp, tp
+    assert m.groups == {"dp": (2, 6), "fsdp": (4, 6), "tp": (6, 7),
+                        ("dp", "fsdp"): (0, 2, 4, 6),
+                        ("dp", "tp"): (2, 3, 6, 7),
+                        ("fsdp", "tp"): (4, 5, 6, 7)}
+    assert m.group(("fsdp", "dp")) == ((0, 2, 4, 6), 4)
+    assert m.group(("dp", "sp", "tp")) == ((2, 3, 6, 7), 4)
+    assert m.group(("sp",)) == (None, 1)
 
 
 def test_make_mesh_at_world_one_and_the_default_device(monkeypatch):
@@ -219,13 +255,23 @@ def test_make_mesh_at_world_one_and_the_default_device(monkeypatch):
 
 
 def test_adafactor_raises_under_fsdp_and_runs_under_dp():
+    """Adafactor builds under fsdp and under dp: its factored dims come
+    from the whole leaf, its moments have the pieces' shapes (the
+    collectives that join them run in the step: test_torch_train_tp.py)."""
     cfg = tgpt.GPTConfig.tiny()
+    opt = adafactor(1e-2, min_dim_size_to_factor=32)
     fsdp = ProcessMesh(_sizes(1, 2), 0, CPU, {}, None)
-    with pytest.raises(NotImplementedError, match="adafactor under fsdp"):
-        tspmd.build_training(cfg, adafactor(1e-2), process_mesh=fsdp)
+    params, state, _ = tspmd.build_training(cfg, opt, process_mesh=fsdp)
+    assert params["w_up"].shape == (2, 32, 128)
+    # w_up [2, 64, 128] factors over (64, 128) as a whole: the row moment
+    # drops mlp and keeps the rank's half of embed, the column moment
+    # drops embed.
+    assert state.v_row["w_up"].shape == (2, 32)
+    assert state.v_col["w_up"].shape == (2, 128)
     dp = ProcessMesh(_sizes(2, 1), 1, CPU, {}, None)
-    params, _, _ = tspmd.build_training(cfg, adafactor(1e-2), process_mesh=dp)
+    params, state, _ = tspmd.build_training(cfg, opt, process_mesh=dp)
     assert params["w_up"].shape == (2, 64, 128)
+    assert state.v_row["w_up"].shape == (2, 64)
 
 
 def _fields(cls):
@@ -284,3 +330,156 @@ def test_local_ranks_count_within_each_node():
 
     assert local_ranks(["a", "a", "b", "a", "b"]) == [0, 1, 0, 2, 1]
     assert local_ranks([None, None]) == [0, 1]
+
+
+# (dp, fsdp, tp) of the two-dimensional layouts held to the JAX mesh.
+TP_LAYOUTS = [(1, 1, 8), (1, 2, 4), (2, 2, 2), (4, 1, 2)]
+
+
+@pytest.mark.parametrize("dp,fsdp,tp", TP_LAYOUTS)
+def test_two_dimensional_shardings_take_the_jax_shard(cpu_devices, dp, fsdp,
+                                                      tp):
+    """Under tp a leaf may split on two dimensions (embed over fsdp,
+    heads, mlp or vocab over tp): each rank's `Sharding.bounds`,
+    `local_shape` and `shard` give the JAX array's shard on the device at
+    the rank's mesh position, and the rank writes its piece in a sharded
+    checkpoint when it is 0 on the axes that do not split the leaf."""
+    jcfg, np_params = _np_params()
+    sizes = MeshConfig(dp=dp, fsdp=fsdp, tp=tp).resolve(dp * fsdp * tp)
+    jmesh = jmake_mesh(JMeshConfig(dp=dp, fsdp=fsdp, sp=1, tp=tp),
+                       devices=jax.devices()[:dp * fsdp * tp])
+    jshard = jspmd.param_shardings(jgpt.logical_axes(jcfg), jmesh)
+    logical = tgpt.logical_axes(tgpt.GPTConfig.tiny())
+    writers = {k: 0 for k in np_params}
+    for r in range(dp * fsdp * tp):
+        m = ProcessMesh(sizes, r, CPU, {}, None)
+        dev = jmesh.devices[tuple(m.coords[a] for a in tmesh.MESH_AXES)]
+        assert dev.id == r
+        shardings = tree_to_shardings(logical, m)
+        pieces = shard_tree(np_params, shardings)
+        for k, whole in np_params.items():
+            s = shardings[k]
+            assert s.spec == tuple(jshard[k].spec), k
+            index = jshard[k].devices_indices_map(whole.shape)[dev]
+            assert s.bounds(whole.shape) == tuple(
+                i.indices(n)[:2] for i, n in zip(index, whole.shape)), k
+            np.testing.assert_array_equal(pieces[k].numpy(), whole[index],
+                                          err_msg=k)
+            assert tuple(pieces[k].shape) == s.local_shape(whole.shape)
+            writers[k] += s.writer
+        w_up = shardings["w_up"]
+        assert [(x.dim, x.axes) for x in w_up.splits] == (
+            [(1, ("fsdp",))] * (fsdp > 1) + [(2, ("tp",))])
+        assert w_up.split_dim("tp") == 2 and w_up.count == fsdp * tp
+        if fsdp > 1:
+            with pytest.raises(ValueError, match="2 dimensions"):
+                w_up.dim
+    # Every piece is written by exactly one rank.
+    for k, whole in np_params.items():
+        assert writers[k] == tree_to_shardings(
+            logical, ProcessMesh(sizes, 0, CPU, {}, None))[k].count, k
+
+
+def test_sharding_shard_cuts_two_dimensions_of_torch_and_numpy_leaves():
+    sizes = MeshConfig(dp=1, fsdp=2, tp=2).resolve(4)
+    x = torch.arange(2 * 4 * 6, dtype=torch.float32).reshape(2, 4, 6)
+    got = {}
+    for r in range(4):
+        s = ProcessMesh(sizes, r, CPU, {}, None).sharding(
+            (None, "fsdp", "tp"))
+        assert s.bounds(x.shape) == ((0, 2), (2 * (r // 2), 2 * (r // 2) + 2),
+                                     (3 * (r % 2), 3 * (r % 2) + 3))
+        got[r] = s.shard(x)
+        torch.testing.assert_close(s.shard(x.numpy()), got[r], rtol=0, atol=0)
+        assert got[r].is_contiguous() and got[r].shape == (2, 2, 3)
+    top = torch.cat([got[0], got[1]], dim=2)
+    bottom = torch.cat([got[2], got[3]], dim=2)
+    torch.testing.assert_close(torch.cat([top, bottom], dim=1), x,
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="does not split evenly"):
+        ProcessMesh(sizes, 0, CPU, {}, None).sharding(
+            (None, "fsdp", "tp")).shard(torch.zeros(2, 4, 5))
+
+
+def test_single_device_mesh(monkeypatch):
+    """A world-1 process mesh: on the CPU when asked, cuda by default,
+    raising without a GPU (the JAX twin takes the first device)."""
+    m = tmesh.single_device_mesh("cpu")
+    assert m.world_size == 1 and m.device == CPU and m.groups == {}
+    assert all(n == 1 for n in m.shape.values())
+    assert m.sharding(("fsdp", "tp")).splits == ()
+    assert m.all_reduce_mean(torch.ones(2), ("dp", "fsdp", "tp")).tolist() \
+        == [1, 1]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        tmesh.single_device_mesh()
+
+
+class _TwoEqualRanks:
+    """A tp mesh of two ranks holding the same partials: a sum over tp is
+    twice the rank's own. Records the dtype and axes of each sum."""
+
+    def __init__(self):
+        self.sums = []
+
+    def all_reduce_sum(self, t, axes):
+        self.sums.append((t.dtype, tuple(axes)))
+        return t * 2
+
+
+def test_column_parallel_sums_input_gradients_in_fp32_once():
+    """q, k and v as one column-parallel product: the input's gradient
+    is the fp32 sum of the three partials, reduced over tp in ONE fp32
+    all-reduce, then rounded once to bf16; each weight's gradient is its
+    bf16 product, as one controller's."""
+    from ray_tpu_torch.models.decode import _column_parallel
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 16, generator=gen).bfloat16().requires_grad_()
+    ws = [torch.randn(16, 4, generator=gen).bfloat16().requires_grad_()
+          for _ in range(3)]
+    mesh = _TwoEqualRanks()
+    outs = _column_parallel(x, ws, mesh)
+    assert all(torch.equal(o, x.detach() @ w.detach())
+               for o, w in zip(outs, ws))
+    sum((o.float() * (i + 1)).sum() for i, o in enumerate(outs)).backward()
+    assert mesh.sums == [(torch.float32, ("tp",))]
+    gs = [torch.full((8, 4), i + 1.0) for i in range(3)]
+    partial = sum(g @ w.detach().float().t() for g, w in zip(gs, ws))
+    assert x.grad.dtype == torch.bfloat16
+    assert torch.equal(x.grad, (partial * 2).bfloat16())
+    for g, w in zip(gs, ws):
+        assert torch.equal(w.grad, x.detach().t() @ g.bfloat16())
+    # one weight, fp32 logits (the vocab-parallel head): one product back
+    head = ws[0].detach().requires_grad_()
+    logits = _column_parallel(x.detach().requires_grad_(), head, mesh,
+                              f32=True)
+    assert logits.dtype == torch.float32 and logits.shape == (8, 4)
+
+
+def test_build_training_plans_gpt_from_its_shardings_and_refuses_llama_tp():
+    """GPT gets the `RankPlan` of the shardings build_training cut its
+    pieces by (fsdp dims, tp, this rank's vocabulary rows); a model with
+    no ``rank_plan`` (Llama) refuses tp across processes."""
+    from ray_tpu_torch.models import llama as tllama
+
+    cfg = tgpt.GPTConfig.tiny()
+    sizes = MeshConfig(dp=1, fsdp=2, tp=2).resolve(4)
+    mesh = ProcessMesh(sizes, 3, CPU, {}, None)          # fsdp 1, tp 1
+    shardings = tspmd.param_shardings(tgpt.logical_axes(cfg), mesh)
+    plan = tgpt.rank_plan(cfg, mesh, shardings)
+    assert plan.tp is mesh and plan.mesh is mesh
+    half = cfg.vocab_size // 2
+    assert plan.vocab == (half, cfg.vocab_size)
+    assert plan.fsdp_dims == {k: s.split_dim("fsdp")
+                              for k, s in shardings.items()
+                              if s.split_dim("fsdp") is not None}
+    assert plan.fsdp_dims["w_up"] == 1 and plan.fsdp_dims["w_down"] == 2
+    assert "b_up" not in plan.fsdp_dims          # mlp over tp only
+    dp = ProcessMesh(MeshConfig(dp=2, fsdp=1).resolve(2), 0, CPU, {}, None)
+    assert tgpt.rank_plan(cfg, dp, tspmd.param_shardings(
+        tgpt.logical_axes(cfg), dp)) is None
+    lcfg = tllama.LlamaConfig.tiny()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tspmd.build_training(lcfg, adamw(1e-3), model=tllama,
+                             process_mesh=mesh)
